@@ -441,7 +441,377 @@ int launch_bf16(const void* adj, const void* xc, const void* xo, const void* src
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward (VJP) of both masked convs, for Hopper (sm_90a).
+//
+// Replaces: cal_tpu/ops/pallas_gcn.py::_att_dual_bwd_kernel (the custom VJP
+// of fused_gcn_dense_att_dual, launched by _att_dual_bwd).
+//
+// Contract, per graph and branch (m, x, g) = (mc, xc, gc) and (mo, xo, go),
+// with deg, dis = deg^-1/2 and inv = 1/deg of the forward:
+//   p_s  = sum_r T(m_rs) * T(dis_r g_r)     dx_s = T(dis_s p_s + inv_s g_s)
+//   u_r  = sum_s T(m_rs) * T(dis_s x_s)
+//   t_n  = -1/2 dis_n^3 (g_n.u_n + p_n.x_n) - (g_n.x_n) inv_n^2
+//   G_rs = g_r . x_s                        dm_rs = dis_r dis_s G_rs + t_s
+//   dpre = (dm_c - dm_o) a_off sigma (1 - sigma)
+//   dsrc_s = T(sum_r dpre_rs),  ddst_r = T(sum_s dpre_rs)
+// Products take T-valued inputs and accumulate in f32 (exact products for
+// bf16); t, dm and dpre stay f32, as in the TPU kernel.
+//
+// Bound on this card at B=128, N=256, H=128: three products per branch, 12.9
+// GFLOP.  In bf16 the 67 MB of traffic bound it (0.020 ms; the products at
+// the tensor cores' bf16 rate take 0.013 ms); in f32 the products on the
+// CUDA cores do (0.19 ms).  This version runs the products with f32 FMA on
+// the CUDA cores in both dtypes, so bf16 cannot come near its bound.
+// Design: t_s needs the whole column product p_s and row product u_s, and
+// dsrc needs column sums over every receiver, so the work is split into
+// passes (the TPU kernel holds a whole [N, N] graph in VMEM instead):
+//   1. the forward's degree pass (deg^-1/2 and 1/deg of both branches);
+//   2. a node pass, one block per 32 nodes of a graph: for its nodes both
+//      as receivers (u, rows of m) and as senders (p, columns of m) it
+//      rebuilds both branches' m tiles from adj/src/dst in shared memory,
+//      runs the four products with f32 FMA, writes dx, and reduces the
+//      three per-node dot products into t (an f32 [2, B, N] scratch);
+//   3. an edge pass, one block per 64 x 64 (receiver, sender) tile: G of both
+//      branches by f32 FMA, then dm and dpre in registers, row sums and
+//      column sums of the tile into f32 partial planes;
+//   4. a finalize pass summing the partial planes and casting once.
+// No atomics: the sums are deterministic.  The [N, N] intermediates never
+// reach device memory.  Tensor cores (mma.sync/wgmma) are later work.
+
+constexpr int kNodeRows = 32;   // nodes per block (node pass)
+constexpr int kNodeCols = 128;  // feature columns per chunk (node pass)
+constexpr int kNodeK = 16;      // neighbours per step (node pass)
+constexpr int kEdgeTile = 64;   // receivers x senders per block (edge pass)
+constexpr int kEdgeK = 16;      // feature columns per step (edge pass)
+
+__host__ __device__ __forceinline__ int n_tiles(int N) {
+  return (N + kEdgeTile - 1) / kEdgeTile;
+}
+
+// both branches' m[r, s] (f32, as the forward builds it), rounded to T
+template <typename T>
+__device__ __forceinline__ void m_pair(const T* a, const T* srcb, const T* dstb, int r, int s,
+                                       int N, float& mc, float& mo) {
+  mc = mo = 0.f;
+  if (r < N && s < N && r != s) {
+    const float av = to_f(a[(size_t)r * N + s]);
+    const float c = __fmul_rn(av, sigmoid(to_f(srcb[s]) + to_f(dstb[r])));
+    mc = round_t<T>(c);
+    mo = round_t<T>(__fsub_rn(av, c));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dual_bwd_node_kernel(const T* __restrict__ adj, const T* __restrict__ xc,
+                     const T* __restrict__ xo, const T* __restrict__ gc,
+                     const T* __restrict__ go, const T* __restrict__ src,
+                     const T* __restrict__ dst, const float* __restrict__ stats,
+                     T* __restrict__ dxc, T* __restrict__ dxo, float* __restrict__ tvec,
+                     int B, int N, int H) {
+  __shared__ float mrow[2][kNodeRows][kNodeK + 1];   // m[n0 + i, k0 + k]
+  __shared__ float mcol[2][kNodeRows][kNodeK + 1];   // m[k0 + k, n0 + i]
+  __shared__ __align__(16) float xd[2][kNodeK][kNodeCols];   // T(dis_k x_k)
+  __shared__ __align__(16) float gd[2][kNodeK][kNodeCols];   // T(dis_k g_k)
+
+  const int n0 = blockIdx.x * kNodeRows;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;   // rows ty*2 + i; cols tx*4 + j and 64 + tx*4 + j
+  const size_t plane = (size_t)B * N;
+  const float* dis[2] = {stats + (size_t)b * N, stats + 2 * plane + (size_t)b * N};
+  const float* inv[2] = {stats + plane + (size_t)b * N, stats + 3 * plane + (size_t)b * N};
+  const T* a = adj + (size_t)b * N * N;
+  const T* x[2] = {xc + (size_t)b * N * H, xo + (size_t)b * N * H};
+  const T* g[2] = {gc + (size_t)b * N * H, go + (size_t)b * N * H};
+  T* dx[2] = {dxc + (size_t)b * N * H, dxo + (size_t)b * N * H};
+  const T* srcb = src + (size_t)b * N;
+  const T* dstb = dst + (size_t)b * N;
+
+  float gu[2][2], px[2][2], gx[2][2];   // [branch][row] partial dot products
+#pragma unroll
+  for (int br = 0; br < 2; ++br)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) gu[br][i] = px[br][i] = gx[br][i] = 0.f;
+
+  for (int h0 = 0; h0 < H; h0 += kNodeCols) {
+    float u[2][2][8], p[2][2][8];
+#pragma unroll
+    for (int br = 0; br < 2; ++br)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) u[br][i][j] = p[br][i][j] = 0.f;
+
+    for (int k0 = 0; k0 < N; k0 += kNodeK) {
+      for (int e = tid; e < kNodeRows * kNodeK; e += kThreads) {
+        const int i = e / kNodeK, k = e % kNodeK;
+        float mc, mo;
+        m_pair<T>(a, srcb, dstb, n0 + i, k0 + k, N, mc, mo);
+        mrow[0][i][k] = mc;
+        mrow[1][i][k] = mo;
+        m_pair<T>(a, srcb, dstb, k0 + k, n0 + i, N, mc, mo);
+        mcol[0][i][k] = mc;
+        mcol[1][i][k] = mo;
+      }
+      for (int e = tid; e < 2 * kNodeK * kNodeCols; e += kThreads) {
+        const int br = e / (kNodeK * kNodeCols), rem = e % (kNodeK * kNodeCols);
+        const int k = rem / kNodeCols, c = rem % kNodeCols;
+        const int nk = k0 + k, col = h0 + c;
+        float xv = 0.f, gv = 0.f;
+        if (nk < N && col < H) {
+          const size_t at = (size_t)nk * H + col;
+          xv = round_t<T>(__fmul_rn(to_f(x[br][at]), dis[br][nk]));
+          gv = round_t<T>(__fmul_rn(to_f(g[br][at]), dis[br][nk]));
+        }
+        xd[br][k][c] = xv;
+        gd[br][k][c] = gv;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < kNodeK; ++k) {
+#pragma unroll
+        for (int br = 0; br < 2; ++br) {
+          const float4 x0 = *reinterpret_cast<const float4*>(&xd[br][k][tx * 4]);
+          const float4 x1 = *reinterpret_cast<const float4*>(&xd[br][k][64 + tx * 4]);
+          const float4 g0 = *reinterpret_cast<const float4*>(&gd[br][k][tx * 4]);
+          const float4 g1 = *reinterpret_cast<const float4*>(&gd[br][k][64 + tx * 4]);
+          const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+          const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float ar = mrow[br][ty * 2 + i][k], ac = mcol[br][ty * 2 + i][k];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              u[br][i][j] = fmaf(ar, xv[j], u[br][i][j]);
+              p[br][i][j] = fmaf(ac, gv[j], p[br][i][j]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int br = 0; br < 2; ++br)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int n = n0 + ty * 2 + i;
+        if (n >= N) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = h0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+          if (col >= H) continue;
+          const size_t at = (size_t)n * H + col;
+          const float gv = to_f(g[br][at]), xv = to_f(x[br][at]);
+          const float pv = p[br][i][j];
+          dx[br][at] = from_f<T>(__fadd_rn(__fmul_rn(pv, dis[br][n]), __fmul_rn(gv, inv[br][n])));
+          gu[br][i] += gv * u[br][i][j];
+          px[br][i] += pv * xv;
+          gx[br][i] += gv * xv;
+        }
+      }
+  }
+
+  // the 16 lanes of a half warp share a row: reduce, then one lane writes t
+#pragma unroll
+  for (int br = 0; br < 2; ++br)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float vu = gu[br][i], vp = px[br][i], vx = gx[br][i];
+#pragma unroll
+      for (int off = 8; off > 0; off /= 2) {
+        vu += __shfl_xor_sync(0xffffffffu, vu, off);
+        vp += __shfl_xor_sync(0xffffffffu, vp, off);
+        vx += __shfl_xor_sync(0xffffffffu, vx, off);
+      }
+      const int n = n0 + ty * 2 + i;
+      if (tx == 0 && n < N) {
+        const float d = dis[br][n], iv = inv[br][n];
+        tvec[br * plane + (size_t)b * N + n] =
+            -0.5f * (vu + vp) * d * d * d - vx * iv * iv;
+      }
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dual_bwd_edge_kernel(const T* __restrict__ adj, const T* __restrict__ xc,
+                     const T* __restrict__ xo, const T* __restrict__ gc,
+                     const T* __restrict__ go, const T* __restrict__ src,
+                     const T* __restrict__ dst, const float* __restrict__ stats,
+                     const float* __restrict__ tvec, float* __restrict__ part_src,
+                     float* __restrict__ part_dst, int B, int N, int H) {
+  __shared__ __align__(16) float gs[2][kEdgeK][kEdgeTile];   // g[r0 + i, h0 + k]
+  __shared__ __align__(16) float xs[2][kEdgeK][kEdgeTile];   // x[s0 + j, h0 + k]
+  __shared__ float colsum[kThreads / 16][kEdgeTile];
+
+  const int r0 = blockIdx.x * kEdgeTile, s0 = blockIdx.y * kEdgeTile;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;   // rows ty*4 + i, columns tx*4 + j
+  const size_t plane = (size_t)B * N;
+  const T* g[2] = {gc + (size_t)b * N * H, go + (size_t)b * N * H};
+  const T* x[2] = {xc + (size_t)b * N * H, xo + (size_t)b * N * H};
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int br = 0; br < 2; ++br)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[br][i][j] = 0.f;
+
+  for (int h0 = 0; h0 < H; h0 += kEdgeK) {
+    for (int e = tid; e < 2 * kEdgeK * kEdgeTile; e += kThreads) {
+      const int br = e / (kEdgeK * kEdgeTile), rem = e % (kEdgeK * kEdgeTile);
+      const int k = rem / kEdgeTile, i = rem % kEdgeTile;
+      const int col = h0 + k;
+      const int r = r0 + i, s = s0 + i;
+      gs[br][k][i] = (r < N && col < H) ? to_f(g[br][(size_t)r * H + col]) : 0.f;
+      xs[br][k][i] = (s < N && col < H) ? to_f(x[br][(size_t)s * H + col]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < kEdgeK; ++k) {
+#pragma unroll
+      for (int br = 0; br < 2; ++br) {
+        const float4 gv = *reinterpret_cast<const float4*>(&gs[br][k][ty * 4]);
+        const float4 xv = *reinterpret_cast<const float4*>(&xs[br][k][tx * 4]);
+        const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[br][i][j] = fmaf(ga[i], xa[j], acc[br][i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const float* dis_c = stats + (size_t)b * N;
+  const float* dis_o = stats + 2 * plane + (size_t)b * N;
+  const float* t_c = tvec + (size_t)b * N;
+  const float* t_o = tvec + plane + (size_t)b * N;
+  const T* a = adj + (size_t)b * N * N;
+  const T* srcb = src + (size_t)b * N;
+  const T* dstb = dst + (size_t)b * N;
+  float rows[4] = {0.f, 0.f, 0.f, 0.f}, cols[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = s0 + tx * 4 + j;
+      float dpre = 0.f;
+      if (r < N && s < N && r != s) {
+        const float av = to_f(a[(size_t)r * N + s]);
+        const float sg = sigmoid(to_f(srcb[s]) + to_f(dstb[r]));
+        const float dmc = acc[0][i][j] * dis_c[s] * dis_c[r] + t_c[s];
+        const float dmo = acc[1][i][j] * dis_o[s] * dis_o[r] + t_o[s];
+        dpre = (dmc - dmo) * av * (sg * (1.0f - sg));
+      }
+      rows[i] += dpre;
+      cols[j] += dpre;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v = rows[i];
+#pragma unroll
+    for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+    const int r = r0 + ty * 4 + i;
+    if (tx == 0 && r < N) part_dst[((size_t)b * n_tiles(N) + blockIdx.y) * N + r] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) colsum[ty][tx * 4 + j] = cols[j];
+  __syncthreads();
+  if (tid < kEdgeTile && s0 + tid < N) {
+    float v = 0.f;
+    for (int q = 0; q < kThreads / 16; ++q) v += colsum[q][tid];
+    part_src[((size_t)b * n_tiles(N) + blockIdx.x) * N + s0 + tid] = v;
+  }
+}
+
+// dsrc[b, s] = T(sum over receiver tiles), ddst[b, r] = T(sum over sender tiles)
+template <typename T>
+__global__ void dual_bwd_finalize_kernel(const float* __restrict__ part_src,
+                                         const float* __restrict__ part_dst,
+                                         T* __restrict__ dsrc, T* __restrict__ ddst,
+                                         int B, int N) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * N) return;
+  const size_t b = i / N, n = i % N;
+  const int tiles = n_tiles(N);
+  float vs = 0.f, vd = 0.f;
+  for (int q = 0; q < tiles; ++q) {
+    vs += part_src[(b * tiles + q) * N + n];
+    vd += part_dst[(b * tiles + q) * N + n];
+  }
+  dsrc[i] = from_f<T>(vs);
+  ddst[i] = from_f<T>(vd);
+}
+
+// scratch (f32): stats [4, B, N] | t [2, B, N] | part_src, part_dst [B, tiles, N]
+size_t bwd_scratch_floats(int B, int N) {
+  return (size_t)B * N * (6 + 2 * (size_t)n_tiles(N));
+}
+
+template <typename T>
+int launch_bwd(const void* adj, const void* xc, const void* xo, const void* src,
+               const void* dst, const void* gc, const void* go, void* dxc, void* dxo,
+               void* dsrc, void* ddst, float* scratch, int B, int N, int H,
+               cudaStream_t stream) {
+  const size_t plane = (size_t)B * N;
+  float* stats = scratch;
+  float* tvec = stats + 4 * plane;
+  float* part_src = tvec + 2 * plane;
+  float* part_dst = part_src + plane * n_tiles(N);
+  int err = launch_degree<T>(adj, src, dst, stats, B, N, stream);
+  if (err != 0) return err;
+  const T *a = static_cast<const T*>(adj), *xc_ = static_cast<const T*>(xc),
+          *xo_ = static_cast<const T*>(xo), *gc_ = static_cast<const T*>(gc),
+          *go_ = static_cast<const T*>(go), *s_ = static_cast<const T*>(src),
+          *d_ = static_cast<const T*>(dst);
+  dual_bwd_node_kernel<T><<<dim3((N + kNodeRows - 1) / kNodeRows, B), kThreads, 0, stream>>>(
+      a, xc_, xo_, gc_, go_, s_, d_, stats, static_cast<T*>(dxc), static_cast<T*>(dxo),
+      tvec, B, N, H);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  dual_bwd_edge_kernel<T><<<dim3(n_tiles(N), n_tiles(N), B), kThreads, 0, stream>>>(
+      a, xc_, xo_, gc_, go_, s_, d_, stats, tvec, part_src, part_dst, B, N, H);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  dual_bwd_finalize_kernel<T><<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0,
+                                stream>>>(part_src, part_dst, static_cast<T*>(dsrc),
+                                          static_cast<T*>(ddst), B, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// f32 scratch elements dual_gcn_bwd_launch needs for a [B, N] batch.
+extern "C" long long dual_gcn_bwd_scratch_floats(int B, int N) {
+  return (long long)bwd_scratch_floats(B, N);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; every tensor is contiguous of that type:
+// adj [B,N,N], xc/xo/gc/go/dxc/dxo [B,N,H], src/dst/dsrc/ddst [B,N].
+// scratch: f32, dual_gcn_bwd_scratch_floats(B, N) elements.
+extern "C" int dual_gcn_bwd_launch(const void* adj, const void* xc, const void* xo,
+                                   const void* src, const void* dst, const void* gc,
+                                   const void* go, void* dxc, void* dxo, void* dsrc,
+                                   void* ddst, void* scratch, int B, int N, int H,
+                                   int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  if (B == 0 || N == 0) return 0;
+  if (dtype == 0)
+    return launch_bwd<float>(adj, xc, xo, src, dst, gc, go, dxc, dxo, dsrc, ddst, sc, B, N, H, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(adj, xc, xo, src, dst, gc, go, dxc, dxo, dsrc, ddst, sc,
+                                     B, N, H, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16; every tensor is contiguous of that type:
 // adj [B,N,N], xc/xo/oc/oo [B,N,H], src/dst [B,N].  stats: f32 scratch [4,B,N].

@@ -1,30 +1,42 @@
 """Synthetic-dataset entry point of the port — counterpart of main_syn.py.
 
-    python -m cal_tpu_torch.main_syn --model CausalGCN --inference --save_dir <d>
-        [--dtype bfloat16] [--device cpu]
+    python -m cal_tpu_torch.main_syn --model CausalGCN [--dtype bfloat16]
+        [--save_model true --save_dir <d>] [--resume true] [--device cpu]
+    python -m cal_tpu_torch.main_syn --model CausalGCN --inference true
+        --save_dir <d> [--dtype bfloat16] [--device cpu]
 
-Serving (``--inference``) restores the newest checkpoint under --save_dir
-and runs the three-branch eval sweep on the test split.  Training is not
-ported yet (ROADMAP queue 1 items 4-5).
+Training runs ``train_causal_syn`` (dense CausalGCN); ``--save_model``
+checkpoints the best val-o epoch, ``--resume`` continues after it, and
+``--inference`` restores the newest checkpoint under --save_dir and runs the
+three-branch eval sweep on the test split.  The port runs on CUDA unless
+``--device cpu`` is given (the CPU runs the kernels' plain twins).
 """
 from __future__ import annotations
+
+import time
 
 from cal_tpu_torch.data.synthetic import (
     dataset_bias_split,
     generate_synthetic_dataset,
     print_dataset_info,
 )
-from cal_tpu_torch.train.causal import evaluate_causal, resolve_device
+from cal_tpu_torch.train.causal import evaluate_causal, resolve_device, train_causal_syn
 from cal_tpu_torch.utils.config import parse_args
+
+_NOT_PORTED = {"CausalGAT": "ROADMAP queue 1 item 6",
+               "CausalGIN": "ROADMAP queue 1 item 7",
+               "GCN": "ROADMAP queue 1 item 7", "GIN": "ROADMAP queue 1 item 7",
+               "GAT": "ROADMAP queue 1 item 7"}
 
 
 def main(argv: list[str] | None = None) -> dict:
     cfg = parse_args(argv)
     resolve_device(cfg.device)
-    if not cfg.inference:
+    if not cfg.inference and cfg.model != "CausalGCN":
         raise NotImplementedError(
-            "training is not yet ported (ROADMAP queue 1 items 4-5); "
-            "run with --inference")
+            f"training {cfg.model} is not ported yet "
+            f"({_NOT_PORTED.get(cfg.model, 'unknown model')})")
+    t0 = time.perf_counter()
     dataset = generate_synthetic_dataset(
         data_num=cfg.data_num, node_num=cfg.node_num, max_degree=cfg.max_degree,
         noise=cfg.noise, shape_num=cfg.shape_num, seed=cfg.seed,
@@ -34,7 +46,12 @@ def main(argv: list[str] | None = None) -> dict:
         num_classes=cfg.num_classes, seed=cfg.seed)
     print(f"train/val/test = {len(train_set)}/{len(val_set)}/{len(test_set)}")
     print_dataset_info(train_set, val_set, test_set, the)
-    return evaluate_causal(test_set, cfg)
+    if cfg.inference:
+        return evaluate_causal(test_set, cfg)
+    t1 = time.perf_counter()
+    res = train_causal_syn(train_set, val_set, test_set, cfg)
+    print(f"wall: dataset {t1 - t0:.1f}s, training {time.perf_counter() - t1:.1f}s")
+    return res
 
 
 if __name__ == "__main__":

@@ -1,5 +1,13 @@
-"""Serving mode of the causal models — counterpart of
-cal_tpu/train/causal.py::evaluate_causal (``--inference``)."""
+"""Causal training and serving — counterpart of cal_tpu/train/causal.py
+(``train_causal_syn`` and ``evaluate_causal``).
+
+``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
+cosine schedule, and the test accuracies taken at the epoch of best val
+accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
+There is no device-side epoch here: ``--scan_epochs`` is accepted and runs
+the per-step loop, whose numerics the JAX package's scan reproduces
+(cal_tpu/train/steps.py make_causal_train_epoch).
+"""
 from __future__ import annotations
 
 import time
@@ -7,12 +15,19 @@ from typing import Sequence
 
 import torch
 
-from cal_tpu_torch.data.loader import Loader
+from cal_tpu_torch.data.loader import Loader, compute_budgets
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import get_model
-from cal_tpu_torch.train.steps import make_causal_eval_step
+from cal_tpu_torch.train.optim import cosine_lr
+from cal_tpu_torch.train.steps import (
+    init_state,
+    make_causal_eval_step,
+    make_causal_train_step,
+    step_seed,
+)
 from cal_tpu_torch.utils.checkpoint import Checkpointer
 from cal_tpu_torch.utils.config import Config
+from cal_tpu_torch.utils.logging import MetricsLogger
 
 
 def resolve_device(name: str) -> torch.device:
@@ -25,6 +40,128 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+def _eval(eval_step, batches, generator) -> tuple[float, float, float, int]:
+    """(acc_co, acc_c, acc_o, real graphs) over device batches; one read of
+    the device sums at the end."""
+    tot = None
+    for b in batches:
+        m = eval_step(b, generator)
+        v = torch.stack([m["correct_co"], m["correct_c"], m["correct_o"], m["n"]])
+        tot = v if tot is None else tot + v
+    if tot is None:
+        return 0.0, 0.0, 0.0, 0
+    co, c, o, n = tot.tolist()
+    d = max(n, 1)
+    return co / d, c / d, o / d, n
+
+
+def make_loaders(train_set, val_set, test_set, cfg: Config):
+    """Loaders of the three splits with budgets over all of them (one node
+    budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer."""
+    sets = (train_set, val_set, test_set)
+    budgets = compute_budgets([g for s in sets for g in s], cfg.batch_size)
+    train, val, test = (Loader(s, cfg.batch_size, shuffle=(i == 0), budgets=budgets,
+                               seed=(cfg.seed, 0, 0)[i]) for i, s in enumerate(sets))
+    # The JAX trainer initializes its state from next(iter(train_loader)),
+    # which draws one shuffle before epoch 1: draw and drop it, so epoch e
+    # sees the same permutation for the same seed.
+    train._chunks()
+    return train, val, test
+
+
+def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph],
+                     test_set: Sequence[HostGraph], cfg: Config,
+                     verbose: bool = True) -> dict:
+    """Train on ``train_set``, select by val o-accuracy, report the test
+    accuracies of the selected epoch.  ``--save_model`` checkpoints the model
+    and optimizer at each new best epoch; ``--resume`` continues after the
+    newest checkpoint.  Returns the selection and a per-epoch history."""
+    if cfg.mesh_dp * cfg.mesh_edge > 1:
+        raise NotImplementedError(
+            "multi-GPU training not ported yet (ROADMAP queue 1 item 10)")
+    device = resolve_device(cfg.device)
+    train_loader, val_loader, test_loader = make_loaders(train_set, val_set, test_set, cfg)
+    state = init_state(cfg, train_set[0].x.shape[1], cfg.num_classes, device)
+    schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(train_loader))
+    train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
+                                        cfg.with_random, cfg.seed)
+    eval_step = make_causal_eval_step(state.model, cfg.eval_random)
+    # eval loaders don't shuffle: pack and copy them to the device once
+    val_batches = [b.to(device) for b in val_loader.host_batches()]
+    test_batches = [b.to(device) for b in test_loader.host_batches()]
+    eval_gen = torch.Generator(device=device)
+
+    metrics = MetricsLogger(cfg.metrics_path, cfg.tb_dir)
+    ckpt = Checkpointer(cfg.save_dir) if cfg.save_model else None
+    best_val, upd_co, upd_c, upd_o, upd_ep = 0.0, 0.0, 0.0, 0.0, 0
+    val_acc_o = 0.0
+    start_epoch = 1
+    if ckpt is not None and cfg.resume and ckpt.latest_step() is not None:
+        meta = ckpt.restore(state.model, optimizer=state.optimizer)
+        best_val = meta.get("val_acc_o", 0.0)
+        upd_co = meta.get("test_acc_co", 0.0)
+        upd_c = meta.get("test_acc_c", 0.0)
+        upd_o = meta.get("test_acc_o", 0.0)
+        upd_ep = int(meta.get("epoch", ckpt.latest_step()))
+        state.step = int(meta.get("train_step", 0))
+        start_epoch = upd_ep + 1
+        print(f"resumed from checkpoint at epoch {start_epoch - 1} "
+              f"(best val {best_val * 100:.2f})")
+
+    history = []
+    for epoch in range(start_epoch, cfg.epochs + 1):
+        t0 = time.perf_counter()
+        sums = None
+        for batch in train_loader.host_batches():
+            sums = train_step(batch, sums)
+        loss, loss_c, loss_o, loss_co, correct_o, n = (
+            sums.tolist() if sums is not None else [0.0] * 6)
+        train_s = time.perf_counter() - t0
+        n = max(n, 1.0)
+        loss, loss_c, loss_o, loss_co, train_acc = (
+            loss / n, loss_c / n, loss_o / n, loss_co / n, correct_o / n)
+        # val and test get independent intervention streams (--eval_random)
+        eval_gen.manual_seed(step_seed(cfg.seed, epoch, 1))
+        _, _, val_acc_o, _ = _eval(eval_step, val_batches, eval_gen)
+        eval_gen.manual_seed(step_seed(cfg.seed, epoch, 2))
+        test_co, test_c, test_o, _ = _eval(eval_step, test_batches, eval_gen)
+        if val_acc_o > best_val:
+            best_val = val_acc_o
+            upd_co, upd_c, upd_o, upd_ep = test_co, test_c, test_o, epoch
+            if ckpt is not None:
+                ckpt.save(epoch, state.model, {
+                    "val_acc_o": val_acc_o, "test_acc_co": test_co,
+                    "test_acc_c": test_c, "test_acc_o": test_o,
+                    "epoch": epoch, "train_step": state.step,
+                }, optimizer=state.optimizer)
+        seconds = time.perf_counter() - t0
+        rec = dict(epoch=epoch, loss=loss, loss_c=loss_c, loss_o=loss_o, loss_co=loss_co,
+                   train_acc=train_acc, val_acc_o=val_acc_o, test_acc_co=test_co,
+                   test_acc_c=test_c, test_acc_o=test_o)
+        metrics.log("epoch", model=cfg.model, bias=cfg.bias, **rec)
+        history.append({**rec, "seconds": seconds, "train_seconds": train_s})
+        if verbose:
+            print(
+                "BIAS:[{:.2f}] | Model:[{}] Epoch:[{}/{}] Loss:[{:.4f}={:.4f}+{:.4f}+{:.4f}] "
+                "Train:[{:.2f}] val:[{:.2f}] Test:[{:.2f}] | Update Test:[co:{:.2f},c:{:.2f},o:{:.2f}] "
+                "at Epoch:[{}] | {:.1f}s".format(
+                    cfg.bias, cfg.model, epoch, cfg.epochs, loss, loss_c,
+                    loss_o, loss_co, train_acc * 100, val_acc_o * 100,
+                    test_o * 100, upd_co * 100, upd_c * 100, upd_o * 100,
+                    upd_ep, seconds,
+                ), flush=True)
+    print(
+        "syd: BIAS:[{:.2f}] | Val acc:[{:.2f}] Test acc:[co:{:.2f},c:{:.2f},o:{:.2f}] at epoch:[{}]".format(
+            cfg.bias, val_acc_o * 100, upd_co * 100, upd_c * 100, upd_o * 100, upd_ep),
+        flush=True)
+    metrics.log("final", model=cfg.model, bias=cfg.bias, best_val=best_val,
+                test_acc_co=upd_co, test_acc_c=upd_c, test_acc_o=upd_o, epoch=upd_ep)
+    metrics.close()
+    return {"best_val_acc": best_val, "test_acc_co": upd_co, "test_acc_c": upd_c,
+            "test_acc_o": upd_o, "epoch": upd_ep, "history": history,
+            "train_graphs": len(train_set), "steps_per_epoch": len(train_loader)}
 
 
 def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
@@ -49,18 +186,11 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    tot = {"correct_co": 0, "correct_c": 0, "correct_o": 0, "n": 0}
-    counts = [eval_step(batch.to(device), generator)
-              for batch in loader.host_batches()]
-    for m in counts:
-        for k in tot:
-            tot[k] += int(m[k])
+    co, c, o, n = _eval(eval_step, (b.to(device) for b in loader.host_batches()), generator)
     seconds = time.perf_counter() - t0
-    n = max(tot["n"], 1)
-    co, c, o = (tot["correct_co"] / n, tot["correct_c"] / n, tot["correct_o"] / n)
     print(
         "inference: ckpt epoch:[{}] | Test acc:[co:{:.2f},c:{:.2f},o:{:.2f}] "
         "on {} graphs".format(meta.get("epoch", step), co * 100, c * 100,
                               o * 100, len(test_set)))
     return {"test_acc_co": co, "test_acc_c": c, "test_acc_o": o,
-            "ckpt_step": step, "graphs": tot["n"], "seconds": seconds}
+            "ckpt_step": step, "graphs": int(n), "seconds": seconds}

@@ -1,11 +1,32 @@
-"""Eval step — counterpart of cal_tpu/train/steps.py (``_as_graph`` and
-``make_causal_eval_step``)."""
+"""Train and eval steps — counterpart of cal_tpu/train/steps.py (``init_state``,
+``_causal_step_fn``/``make_causal_train_step``, ``make_causal_eval_step``).
+
+PyTorch runs the step eagerly: forward with ``train=True``, the three
+losses, backward (the dual masked conv's backward kernel included), Adam,
+and the BatchNorm running stats, which the forward moves in place.
+"""
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from cal_tpu_torch.graph import DenseGraphBatch, PackedDenseBatch, to_dense
-from cal_tpu_torch.train.losses import correct_count
+from cal_tpu_torch.models.factory import get_model
+from cal_tpu_torch.train.losses import causal_losses, correct_count
+from cal_tpu_torch.train.optim import make_optimizer, set_lr
+from cal_tpu_torch.utils.config import Config
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model, optimizer and the count of optimizer steps taken (the
+    schedule's and the intervention stream's clock)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
 
 
 def _as_graph(batch: PackedDenseBatch, dtype: torch.dtype | None = None
@@ -13,6 +34,64 @@ def _as_graph(batch: PackedDenseBatch, dtype: torch.dtype | None = None
     """Materialize the device graph; the adjacency is built directly in the
     model's compute dtype."""
     return to_dense(batch, dtype)
+
+
+def step_seed(seed: int, *counters: int) -> int:
+    """A well-mixed 64-bit seed from (seed, counters...): the counterpart of
+    ``fold_in(rng, step)`` for a ``torch.Generator``."""
+    return int(np.random.SeedSequence([seed, *counters]).generate_state(1, np.uint64)[0])
+
+
+def init_state(cfg: Config, num_features: int, num_classes: int,
+               device: torch.device) -> TrainState:
+    """The model named by ``cfg`` (weights from ``cfg.seed``) on ``device``,
+    and its Adam optimizer."""
+    model = get_model(cfg, num_features, num_classes).to(device)
+    return TrainState(model, make_optimizer(model.parameters(), cfg.weight_decay))
+
+
+def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
+                           co_w: float, with_random: bool, seed: int):
+    """Returns fn(host_batch, sums) -> sums.
+
+    ``sums`` is None or an f32 device tensor of per-batch sums accumulated
+    over the epoch: [loss*n, loss_c*n, loss_o*n, loss_co*n, correct_o, n]
+    (each loss scaled by the real-graph count n, mirroring
+    ``loss.item() * num_graphs`` of the reference).  A batch without a real
+    graph is skipped on the host (no device work, the step count does not
+    move), like the JAX ``_gate_state``.  The intervention generator is
+    re-seeded from (seed, step) each step.  Gradients stay in ``.grad``
+    until the next step."""
+    model, optimizer = state.model, state.optimizer
+    params = list(model.parameters())
+    device = params[0].device
+    generator = torch.Generator(device=device)
+
+    def step(batch: PackedDenseBatch, sums: torch.Tensor | None) -> torch.Tensor | None:
+        if not (np.asarray(batch.n_nodes) > 0).any():
+            return sums
+        generator.manual_seed(step_seed(seed, state.step))
+        g = _as_graph(batch.to(device), model.dtype)
+        c_logs, o_logs, co_logs = model(g, eval_random=with_random, train=True,
+                                        generator=generator)
+        total, (c_l, o_l, co_l) = causal_losses(c_logs, o_logs, co_logs, g.y,
+                                                g.graph_mask, c_w, o_w, co_w)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for p in params:
+            if p.grad is None:
+                # unused by the forward (the gfn projection's bias): a zero
+                # gradient as jax.grad gives, so Adam still applies L2 to it
+                p.grad = torch.zeros_like(p)
+        set_lr(optimizer, schedule(state.step))
+        optimizer.step()
+        state.step += 1
+        n = g.graph_mask.sum().float()
+        m = torch.stack([total * n, c_l * n, o_l * n, co_l * n,
+                         correct_count(o_logs, g.y, g.graph_mask).float(), n]).detach()
+        return m if sums is None else sums + m
+
+    return step
 
 
 def make_causal_eval_step(model, eval_random: bool):

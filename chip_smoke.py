@@ -2,18 +2,27 @@
 
     python3 chip_smoke.py
 
-1. builds every CUDA kernel of the serving path from cal_tpu_torch/csrc
-   (one nvcc per source, all at once);
-2. kernel phase: on a real synthetic batch at the serving shapes (B=128,
-   N=256, H=128), holds each kernel against its plain PyTorch twin on the
-   card, in bf16 and f32, and times kernel, twin and (where one exists) a
-   single PyTorch call computing the same function, with CUDA events on a
-   cold L2;
+1. builds every CUDA kernel of the port from cal_tpu_torch/csrc (one nvcc
+   per source, all at once);
+2. kernel phase: on a real synthetic batch at the production shapes (B=128,
+   N=256, H=128), holds each kernel (adjacency build, dual masked-GCN
+   forward and backward) against its plain PyTorch twin on the card, in
+   bf16 and f32, the f32 backward also against torch.autograd of the forward
+   twin, and times kernel, twin and (where one exists) a single PyTorch call
+   computing the same function, with CUDA events on a cold L2;
 3. serving phase: saves a seeded CausalGCN (hidden 128, 3 layers, bf16) with
    the port's checkpointer, drives ``cal_tpu_torch.main_syn --inference``
    with the launch counters set to 0 just before, and fails unless every
    kernel of the path launched; then checks the forward against the plain
-   twins on the card (bf16) and against the CPU on a small f32 input.
+   twins on the card (bf16) and against the CPU on a small f32 input;
+4. training phase: drives ``cal_tpu_torch.main_syn`` training (the same
+   model, 3 epochs, ``--save_model``) with the counters set to 0 just
+   before, fails unless all three kernels launched, every epoch's loss is
+   finite and the last epoch's is below the first's, then serves the saved
+   checkpoint and fails unless its accuracies equal the checkpoint's;
+5. gradient check: one bf16 step's gradients at full width, kernels against
+   the plain twins on the card, and one f32 step on 16 graphs, card against
+   CPU; then the device time of one warm bf16 train step by operator.
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -22,7 +31,9 @@ CUDA or the package is missing, or when any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -32,6 +43,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, TEST_GRAPHS, H, LAYERS = 128, 256, 128, 3
 DATA_NUM = 320            # test split = 8 * int(0.1 * DATA_NUM) = 256 graphs
+TRAIN_EPOCHS = 3          # train split 896 graphs = 7 steps of 128 per epoch
 SEED = 666
 # Published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s, f32 FLOP/s
 # (f32 outside the tensor cores: the f32 paths keep full f32, no TF32).
@@ -43,6 +55,17 @@ PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12), "H100 PCIe": (2.0e12, 756e12, 51e
 # in its last bits (2^-8 of a norm <= 1, times |x| of a few), and the output
 # is itself rounded to bf16 (2^-8 relative).
 DUAL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}   # (atol, rtol)
+# Backward kernel vs its plain twin: the same reasons (m, g*dis and x*dis are
+# rounded to bf16 at the same places, results cast once), on outputs of the
+# same scale (|dx| <= ~3, |dsrc|, |ddst| <= ~10 on seeded N(0, 1) inputs).
+DUAL_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
+# Whole-step gradients, all parameters as one vector: ||got - ref|| / ||ref||.
+# bf16 kernels against the plain twins (same rounding contract; a result that
+# crosses a bf16 rounding boundary moves by 2^-8 and propagates through five
+# convs and BatchNorms); f32 card against CPU (sums in other orders).  Per
+# tensor the relative error is reported, not held: a bias whose gradient is a
+# sum that cancels (node_att_bias) has a large relative error at any dtype.
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Whole forward, log-probs: bf16 as in tests/test_torch_port_model.py (single
 # bf16 ulps propagate through BatchNorm and the f32 readouts); f32 on a small
 # input, card against CPU (cuBLAS and the CPU sum in other orders).
@@ -99,7 +122,8 @@ def max_excess(torch, got, ref, atol, rtol):
 def kernel_phase(torch, batch, peaks, flush):
     from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
     from cal_tpu_torch.ops.fused_gcn import (
-        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_plain)
+        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd,
+        fused_gcn_dense_att_dual_bwd_plain, fused_gcn_dense_att_dual_plain)
 
     bw, bf16_peak, f32_peak = peaks
     ef = batch.edge_flat
@@ -157,8 +181,61 @@ def kernel_phase(torch, batch, peaks, flush):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         emit({"phase": "kernel", **dual})
-        results[dt_name] = (adj, dual)
+
+        gc = torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt)
+        go = torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt)
+        bargs = args + (gc, go)
+        got = fused_gcn_dense_att_dual_bwd(*bargs)
+        ref = fused_gcn_dense_att_dual_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        atol, rtol = DUAL_BWD_TOL[dt_name]
+        errs = []
+        for nm, a, r in zip(("dxc", "dxo", "dsrc", "ddst"), got, ref):
+            check(bool(torch.isfinite(a.float()).all()), f"dual backward {dt_name} {nm} not finite")
+            err, over = max_excess(torch, a, r, atol, rtol)
+            check(over <= 0, f"dual backward {dt_name} {nm} differs from its plain twin: {err}")
+            errs.append(err)
+        extra = {}
+        if dt == torch.float32:
+            leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+            oc, oo = fused_gcn_dense_att_dual_plain(leaves[0], leaves[1], adj_k, leaves[2],
+                                                    leaves[3])
+            auto = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+            auto_err = []
+            for nm, a, r in zip(("dxc", "dxo", "dsrc", "ddst"), got, auto):
+                err, over = max_excess(torch, a, r, atol, rtol)
+                check(over <= 0, f"dual backward f32 {nm} differs from autograd: {err}")
+                auto_err.append(err)
+            extra["max_abs_err_vs_autograd"] = max(auto_err)
+        b_bytes = (bsz * n * n + 6 * bsz * n * H + 4 * bsz * n) * elt
+        b_flops = 3 * 2 * 2 * bsz * n * n * H
+        t_bytes = b_bytes / bw
+        t_ops = b_flops / (bf16_peak if dt == torch.bfloat16 else f32_peak)
+        bwd = {
+            "name": "fused_gcn_dense_att_dual_bwd", "dtype": dt_name,
+            "max_abs_err": max(errs), "atol": atol, "rtol": rtol, **extra,
+            "kernel_ms": time_ms(torch, lambda: fused_gcn_dense_att_dual_bwd(*bargs), flush),
+            "plain_ms": time_ms(torch, lambda: fused_gcn_dense_att_dual_bwd_plain(*bargs),
+                                flush),
+            "library_ms": None, "bytes": b_bytes, "flops": b_flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        emit({"phase": "kernel", **bwd})
+        results[dt_name] = (adj, dual, bwd)
     return results
+
+
+def _device_rows(prof):
+    """(kernel, device ms, calls), slowest first: device-side events only.
+    Operator-level rows and user annotations (Adam's "Optimizer.step") would
+    count their kernels' time a second time."""
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    return sorted(((e.key, dev(e) / 1e3, e.count) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda r: -r[1])
 
 
 def profile_forward(torch, model, batch, to_dense, top=16) -> None:
@@ -179,12 +256,7 @@ def profile_forward(torch, model, batch, to_dense, top=16) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-    # device-side events only: the operator-level rows repeat their kernels' time
-    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    rows = sorted(((e.key, dev(e) / 1e3, e.count) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev(e) > 0),
-                  key=lambda r: -r[1])
+    rows = _device_rows(prof)
     emit({"phase": "profile_forward", "batch": list(batch.x.shape), "wall_ms": fwd_ms,
           "device_ms": sum(r[1] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
@@ -281,6 +353,154 @@ def serving_phase(torch, test_set):
     return launches
 
 
+def training_phase(torch, counters) -> dict:
+    """Train through ``main_syn`` with the counters at 0, then serve the
+    checkpoint it saved.  Returns the training run's launch counts."""
+    import shutil
+
+    from cal_tpu_torch.main_syn import main
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.utils.checkpoint import Checkpointer
+    from cal_tpu_torch.utils.config import Config
+
+    save_dir = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    common = ["--model", "CausalGCN", "--dtype", "bfloat16", "--hidden", str(H),
+              "--layers", str(LAYERS), "--batch_size", str(B), "--data_num", str(DATA_NUM),
+              "--seed", str(SEED), "--save_dir", save_dir, "--device", "cuda"]
+    for k in counters:
+        k.launches = 0
+    res = main(common + ["--epochs", str(TRAIN_EPOCHS), "--save_model", "true"])
+    launches = {k.__name__: k.launches for k in counters}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the training path never launched: {launches}")
+    steps = res["steps_per_epoch"] * TRAIN_EPOCHS
+    check(launches["fused_gcn_dense_att_dual_bwd"] == steps,
+          f"{launches['fused_gcn_dense_att_dual_bwd']} backward launches for {steps} steps")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_EPOCHS and all(map(math.isfinite, losses)),
+          f"training losses {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    warm = hist[1:]
+    train_s = sum(h["train_seconds"] for h in warm)
+    emit({"phase": "training", "epochs": TRAIN_EPOCHS, "losses": losses,
+          "epoch_seconds": [h["seconds"] for h in hist],
+          "train_seconds": [h["train_seconds"] for h in hist],
+          "train_graphs": res["train_graphs"], "steps_per_epoch": res["steps_per_epoch"],
+          "train_graphs_per_s_warm": res["train_graphs"] * len(warm) / train_s,
+          "steps_per_s_warm": res["steps_per_epoch"] * len(warm) / train_s,
+          "best_epoch": res["epoch"], "best_val_acc": res["best_val_acc"],
+          "test_acc_co": res["test_acc_co"], "test_acc_c": res["test_acc_c"],
+          "test_acc_o": res["test_acc_o"], "launches": launches,
+          "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
+
+    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16")
+    meta = Checkpointer(save_dir).restore(get_model(cfg, 10, cfg.num_classes))
+    served = main(common + ["--inference", "true"])
+    for k in ("test_acc_co", "test_acc_c", "test_acc_o"):
+        check(served[k] == meta[k], f"served {k} {served[k]} != checkpoint's {meta[k]}")
+    emit({"phase": "train_then_serve", "ckpt_epoch": meta["epoch"],
+          "test_acc": [served[k] for k in ("test_acc_co", "test_acc_c", "test_acc_o")]})
+    return launches
+
+
+def _step_grads(torch, model, batch, dtype):
+    """Gradients of one train-mode loss (no intervention shuffle, no update)."""
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.train.losses import causal_losses
+
+    model.zero_grad(set_to_none=True)
+    g = to_dense(batch, dtype)
+    c, o, co = model(g, eval_random=False, train=True)
+    total, _ = causal_losses(c, o, co, g.y, g.graph_mask, 0.5, 1.0, 0.5)
+    total.backward()
+    return float(total.detach()), {n: p.grad.detach().float().cpu().clone()
+                          for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _grad_err(torch, got, ref, tol):
+    """Relative L2 error of all gradients as one vector (held to ``tol``),
+    and the tensor with the largest max|got - ref| / max|ref| (reported)."""
+    check(got.keys() == ref.keys(), "gradient sets differ")
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()), "gradient not finite")
+    diff = math.sqrt(sum(float(((got[n] - ref[n]) ** 2).sum()) for n in ref))
+    norm = math.sqrt(sum(float((ref[n] ** 2).sum()) for n in ref))
+    worst = max((float((got[n] - ref[n]).abs().max()) / max(float(ref[n].abs().max()), 1e-30), n)
+                for n in ref)
+    check(diff <= tol * norm, f"step gradients differ by {diff / norm} (relative L2)")
+    return diff / norm, worst
+
+
+def grad_check(torch, test_set, batch):
+    """bf16 at full width: kernels against the plain twins (forward and
+    backward), on the card.  f32 on 16 graphs: card against CPU."""
+    import copy
+    from unittest import mock
+
+    import cal_tpu_torch.graph as graph_mod
+    import cal_tpu_torch.ops.fused_gcn as fused_mod
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.ops.adj_build import adj_build_plain
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    feat = test_set[0].x.shape[1]
+    model = get_model(cfg, feat, cfg.num_classes).to("cuda")
+    loss_k, grads_k = _step_grads(torch, model, batch, torch.bfloat16)
+    with mock.patch.object(graph_mod, "adj_build", adj_build_plain), \
+            mock.patch.object(fused_mod, "_dual_fwd", fused_mod.fused_gcn_dense_att_dual_plain), \
+            mock.patch.object(fused_mod, "fused_gcn_dense_att_dual_bwd",
+                              fused_mod.fused_gcn_dense_att_dual_bwd_plain):
+        loss_p, grads_p = _step_grads(torch, model, batch, torch.bfloat16)
+    bf16 = _grad_err(torch, grads_k, grads_p, GRAD_TOL["bfloat16"])
+
+    m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
+    small = next(Loader(test_set[:16], 16).host_batches())
+    loss_cpu, grads_cpu = _step_grads(torch, copy.deepcopy(m32), small.to("cpu"),
+                                      torch.float32)
+    loss_gpu, grads_gpu = _step_grads(torch, m32.to("cuda"), small.to("cuda"), torch.float32)
+    f32 = _grad_err(torch, grads_gpu, grads_cpu, GRAD_TOL["float32"])
+    emit({"phase": "grad_check", "bf16_loss_kernels": loss_k, "bf16_loss_plain": loss_p,
+          "bf16_rel_l2_err": bf16[0], "bf16_worst_tensor": bf16[1],
+          "bf16_tol": GRAD_TOL["bfloat16"], "f32_loss_card": loss_gpu, "f32_loss_cpu": loss_cpu,
+          "f32_rel_l2_err": f32[0], "f32_worst_tensor": f32[1],
+          "f32_tol": GRAD_TOL["float32"], "params": len(grads_k), "f32_graphs": 16})
+
+
+def profile_train_step(torch, test_set, batch, top=20) -> None:
+    """Device time of one warm bf16 train step (adjacency build, forward,
+    backward, Adam) by operator, from torch.profiler; and its wall time on
+    the host clock (median of 10, each ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cal_tpu_torch.train.optim import cosine_lr
+    from cal_tpu_torch.train.steps import init_state, make_causal_train_step
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    state = init_state(cfg, test_set[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
+    step = make_causal_train_step(state, cosine_lr(cfg.lr, cfg.min_lr, 100, 10),
+                                  cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
+    host = dataclasses.replace(batch, **{k: getattr(batch, k).cpu().numpy()
+                                         for k in ("x", "edge_flat", "n_nodes", "y")})
+    walls = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        step(host, None)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(host, None)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    emit({"phase": "profile_train_step", "batch": list(batch.x.shape),
+          "wall_ms": statistics.median(walls[2:]),
+          "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
+          "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
+
+
 def main() -> int:
     import torch
 
@@ -323,19 +543,34 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = kernel_phase(torch, batch, peaks, flush)
-    launches = serving_phase(torch, test_set)
+    from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.fused_gcn import (
+        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd)
 
+    serving = serving_phase(torch, test_set)
+    training = training_phase(torch, (adj_build, fused_gcn_dense_att_dual,
+                                      fused_gcn_dense_att_dual_bwd))
+    grad_check(torch, test_set, batch)
+    profile_train_step(torch, test_set, batch)
+
+    # launches: the training run (this slice's main path); the serving run's
+    # counts beside them
+    names = {"adj_build": "adj_build", "fused_gcn_dense_att_dual_fwd": "fused_gcn_dense_att_dual",
+             "fused_gcn_dense_att_dual_bwd": "fused_gcn_dense_att_dual_bwd"}
     sources = {"adj_build": ("cal_tpu_torch/csrc/adj_build.cu",
                              "cal_tpu/ops/pallas_adj.py:38"),
                "fused_gcn_dense_att_dual_fwd": ("cal_tpu_torch/csrc/fused_gcn.cu",
-                                                "cal_tpu/ops/pallas_gcn.py:283")}
-    counters = {"adj_build": launches["adj_build"],
-                "fused_gcn_dense_att_dual_fwd": launches["fused_gcn_dense_att_dual"]}
+                                                "cal_tpu/ops/pallas_gcn.py:283"),
+               "fused_gcn_dense_att_dual_bwd": ("cal_tpu_torch/csrc/fused_gcn.cu",
+                                                "cal_tpu/ops/pallas_gcn.py:324")}
     rows = []
     for r in results["bfloat16"]:
         src, rep = sources[r["name"]]
+        counter = names[r["name"]]
         rows.append({"name": r["name"], "route": "cuda", "source": src, "replaces": rep,
-                     "launches": counters[r["name"]], "max_abs_err": r["max_abs_err"],
+                     "launches": training[counter],
+                     "launches_serving": serving.get(counter, 0),
+                     "max_abs_err": r["max_abs_err"],
                      "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],

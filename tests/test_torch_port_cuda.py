@@ -13,13 +13,16 @@ import torch
 from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
 from cal_tpu_torch.ops.fused_gcn import (
     fused_gcn_dense_att_dual,
+    fused_gcn_dense_att_dual_bwd,
+    fused_gcn_dense_att_dual_bwd_plain,
     fused_gcn_dense_att_dual_plain,
 )
 
 pytestmark = pytest.mark.cuda
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# see chip_smoke.py DUAL_TOL for the reasons: (atol, rtol)
+# see chip_smoke.py DUAL_TOL and DUAL_BWD_TOL for the reasons: (atol, rtol)
 DUAL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
+DUAL_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
 
 
 @pytest.fixture
@@ -93,7 +96,70 @@ def test_dual_kernel_matches_plain(cuda, b, n, h, dtype):
         torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol)
 
 
+def _dual_bwd_inputs(device, b, n, h, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    adj = torch.randint(0, 3, (b, n, n), generator=gen, device=device).float()
+    adj = adj * (torch.rand((b, n, n), generator=gen, device=device) < 0.1)
+    adj[0, 1, 1] = 3.0                                   # self loop, dropped
+    adj[-1] = 0.0                                        # padded graph slot
+    xc, xo, gc, go = (torch.randn((b, n, h), generator=gen, device=device)
+                      for _ in range(4))
+    xc[-1] = 0.0
+    src = torch.randn((b, n), generator=gen, device=device)
+    dst = 2 * torch.randn((b, n), generator=gen, device=device)
+    return tuple(t.to(DT[dtype]) for t in (xc, xo, adj, src, dst, gc, go))
+
+
+@pytest.mark.parametrize("b,n,h,dtype", [
+    (2, 24, 8, "float32"),
+    (3, 24, 40, "bfloat16"),
+    (4, 256, 128, "float32"),
+    (4, 256, 128, "bfloat16"),
+    (2, 384, 128, "float32"),
+    (2, 384, 200, "bfloat16"),
+])
+def test_dual_backward_kernel_matches_plain(cuda, b, n, h, dtype):
+    args = _dual_bwd_inputs(cuda, b, n, h, dtype, seed=n + h)
+    before = fused_gcn_dense_att_dual_bwd.launches
+    got = fused_gcn_dense_att_dual_bwd(*args)
+    ref = fused_gcn_dense_att_dual_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_gcn_dense_att_dual_bwd.launches == before + 1
+    atol, rtol = DUAL_BWD_TOL[dtype]
+    for a, r, like in zip(got, ref, (args[0], args[1], args[3], args[4])):
+        assert a.dtype == DT[dtype] and a.shape == like.shape
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol)
+
+
+def test_dual_backward_kernel_matches_autograd(cuda):
+    """f32 kernel VJP against torch.autograd of the forward plain twin."""
+    xc, xo, adj, src, dst, gc, go = _dual_bwd_inputs(cuda, 3, 256, 128, "float32", 7)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    oc, oo = fused_gcn_dense_att_dual_plain(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+    ref = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+    got = fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go)
+    atol, rtol = DUAL_BWD_TOL["float32"]
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=atol, rtol=rtol)
+
+
+def test_dual_autograd_on_card_launches_both_kernels(cuda):
+    xc, xo, adj, src, dst, gc, go = _dual_bwd_inputs(cuda, 2, 64, 32, "bfloat16", 3)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    before = (fused_gcn_dense_att_dual.launches, fused_gcn_dense_att_dual_bwd.launches)
+    oc, oo = fused_gcn_dense_att_dual(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+    ((oc.float() * gc.float()).sum() + (oo.float() * go.float()).sum()).backward()
+    torch.cuda.synchronize()
+    assert (fused_gcn_dense_att_dual.launches,
+            fused_gcn_dense_att_dual_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     x = torch.zeros((1, 4, 2), device=cuda)
     with pytest.raises(ValueError):
         fused_gcn_dense_att_dual(x, x, torch.zeros((1, 4, 4)), x[..., 0], x[..., 0])
+    with pytest.raises(ValueError):
+        fused_gcn_dense_att_dual_bwd(x, x, torch.zeros((1, 4, 4)), x[..., 0], x[..., 0],
+                                     x, x)

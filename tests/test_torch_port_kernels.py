@@ -2,6 +2,7 @@
 the JAX package's Pallas kernels in interpret mode and its XLA scatter.
 
 Inputs are made with NumPy from a seed and handed to both packages."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +13,12 @@ from cal_tpu.graph import to_dense as jax_to_dense
 from cal_tpu.ops.pallas_adj import adj_build as jax_adj_build
 from cal_tpu.ops.pallas_gcn import fused_gcn_dense_att_dual as jax_dual
 from cal_tpu_torch.ops.adj_build import adj_build
-from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
+from cal_tpu_torch.ops.fused_gcn import (
+    fused_gcn_dense_att_dual,
+    fused_gcn_dense_att_dual_bwd,
+    fused_gcn_dense_att_dual_bwd_plain,
+    fused_gcn_dense_att_dual_plain,
+)
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -126,7 +132,101 @@ def test_wrappers_reject_bad_inputs():
 
 def test_cpu_tensors_take_the_plain_twin():
     _, tx = _dual_inputs("float32")
-    before = (adj_build.launches, fused_gcn_dense_att_dual.launches)
+    before = (adj_build.launches, fused_gcn_dense_att_dual.launches,
+              fused_gcn_dense_att_dual_bwd.launches)
     fused_gcn_dense_att_dual(*tx)
+    fused_gcn_dense_att_dual_bwd(*tx, tx[0], tx[1])
     adj_build(torch.zeros(3, dtype=torch.int32), 1, 2, torch.float32)
-    assert (adj_build.launches, fused_gcn_dense_att_dual.launches) == before
+    assert (adj_build.launches, fused_gcn_dense_att_dual.launches,
+            fused_gcn_dense_att_dual_bwd.launches) == before
+
+
+def _bwd_inputs(dtype):
+    """The data of tests/test_pallas_gcn.py (B=3, N=16, H=8): duplicate
+    edges, zero-degree senders, self loops of count 3 (dropped), a fully
+    padded slot; plus seeded cotangents that are non-zero at padded nodes."""
+    rng = np.random.default_rng(0)
+    b, n, h = 3, 16, 8
+    adj = rng.integers(0, 2, (b, n, n)).astype(np.float32)
+    adj += (rng.random((b, n, n)) < 0.1)
+    adj[:, :, n - 4:] = 0.0
+    adj[0, np.arange(n), np.arange(n)] = 3.0
+    adj[b - 1] = 0.0
+    xc = rng.normal(size=(b, n, h)).astype(np.float32)
+    xc[b - 1] = 0.0
+    xo = np.tanh(xc)
+    src = rng.normal(size=(b, n)).astype(np.float32)
+    dst = rng.normal(size=(b, n)).astype(np.float32)
+    gc = np.sin(np.arange(xc.size, dtype=np.float32)).reshape(xc.shape)
+    go = np.cos(np.arange(xc.size, dtype=np.float32)).reshape(xc.shape)
+    arrs = (xc, xo, adj, src, dst, gc, go)
+    jx = tuple(jnp.asarray(a, jnp.dtype(dtype)) for a in arrs)
+    tx = tuple(torch.tensor(np.asarray(a, np.float32)).to(TORCH_DT[dtype]) for a in jx)
+    return jx, tx
+
+
+# f32: the same formulas, sums in another order (as test_dual_grads).  bf16:
+# both round m, g*dis, x*dis, g and x to bf16 at the same places and cast each
+# result once, so only an f32 sum's order (or a last-bit difference of rsqrt
+# or the sigmoid) can move a result across one bf16 rounding boundary: one
+# bf16 ulp (2^-7 relative) of the results' scale (~1 here).
+BWD_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=8e-3, atol=8e-3)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dual_backward_twin_matches_pallas_vjp(dtype):
+    jx, tx = _bwd_inputs(dtype)
+    _, vjp = jax.vjp(lambda xc, xo, s, d: jax_dual(xc, xo, jx[2], s, d),
+                     jx[0], jx[1], jx[3], jx[4])
+    ref = vjp((jx[5], jx[6]))
+    ours = fused_gcn_dense_att_dual_bwd(*tx)
+    for o, r, name, like in zip(ours, ref, ("dxc", "dxo", "dsrc", "ddst"),
+                                (tx[0], tx[1], tx[3], tx[4])):
+        assert o.dtype == TORCH_DT[dtype] and o.shape == like.shape, name
+        np.testing.assert_allclose(o.float().numpy(), np.asarray(r, np.float32),
+                                   err_msg=name, **BWD_TOL[dtype])
+
+
+def test_dual_backward_twin_matches_autograd_of_forward_twin():
+    """The written-out VJP against torch.autograd of the forward twin (f32):
+    a check of the formulas themselves."""
+    _, (xc, xo, adj, src, dst, gc, go) = _bwd_inputs("float32")
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    oc, oo = fused_gcn_dense_att_dual_plain(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+    ref = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+    ours = fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)
+    for o, r, name in zip(ours, ref, ("dxc", "dxo", "dsrc", "ddst")):
+        np.testing.assert_allclose(o.numpy(), r.numpy(), rtol=2e-5, atol=2e-5,
+                                   err_msg=name)
+
+
+def test_autograd_function_takes_the_backward_wrapper(monkeypatch):
+    """On CPU tensors loss.backward() through fused_gcn_dense_att_dual goes
+    through fused_gcn_dense_att_dual_bwd (the explicit twin), not through
+    autograd of the forward twin."""
+    import cal_tpu_torch.ops.fused_gcn as fused_mod
+
+    _, (xc, xo, adj, src, dst, gc, go) = _bwd_inputs("float32")
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return fused_gcn_dense_att_dual_bwd(*args)
+
+    monkeypatch.setattr(fused_mod, "fused_gcn_dense_att_dual_bwd", spy)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    oc, oo = fused_gcn_dense_att_dual(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+    ((oc * gc).sum() + (oo * go).sum()).backward()
+    assert len(calls) == 1
+    ref = fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
+
+
+def test_backward_wrapper_rejects_bad_inputs():
+    _, (xc, xo, adj, src, dst, gc, go) = _bwd_inputs("float32")
+    with pytest.raises(ValueError):
+        fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc[:, :-1], go)
+    with pytest.raises(ValueError):
+        fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc.to(torch.bfloat16), go)
