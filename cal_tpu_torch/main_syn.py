@@ -1,11 +1,12 @@
 """Synthetic-dataset entry point of the port — counterpart of main_syn.py.
 
-    python -m cal_tpu_torch.main_syn --model CausalGCN [--dtype bfloat16]
-        [--save_model true --save_dir <d>] [--resume true] [--device cpu]
-    python -m cal_tpu_torch.main_syn --model CausalGCN --inference true
-        --save_dir <d> [--dtype bfloat16] [--device cpu]
+    python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
+        [--dtype bfloat16] [--save_model true --save_dir <d>] [--resume true]
+        [--device cpu]
+    python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
+        --inference true --save_dir <d> [--dtype bfloat16] [--device cpu]
 
-Training runs ``train_causal_syn`` (dense CausalGCN); ``--save_model``
+Training runs ``train_causal_syn`` (dense CausalGCN or CausalGAT); ``--save_model``
 checkpoints the best val-o epoch, ``--resume`` continues after it, and
 ``--inference`` restores the newest checkpoint under --save_dir and runs the
 three-branch eval sweep on the test split.  The port runs on CUDA unless
@@ -23,8 +24,8 @@ from cal_tpu_torch.data.synthetic import (
 from cal_tpu_torch.train.causal import evaluate_causal, resolve_device, train_causal_syn
 from cal_tpu_torch.utils.config import parse_args
 
-_NOT_PORTED = {"CausalGAT": "ROADMAP queue 1 item 6",
-               "CausalGIN": "ROADMAP queue 1 item 7",
+_PORTED = ("CausalGCN", "CausalGAT")
+_NOT_PORTED = {"CausalGIN": "ROADMAP queue 1 item 7",
                "GCN": "ROADMAP queue 1 item 7", "GIN": "ROADMAP queue 1 item 7",
                "GAT": "ROADMAP queue 1 item 7"}
 
@@ -32,7 +33,7 @@ _NOT_PORTED = {"CausalGAT": "ROADMAP queue 1 item 6",
 def main(argv: list[str] | None = None) -> dict:
     cfg = parse_args(argv)
     resolve_device(cfg.device)
-    if not cfg.inference and cfg.model != "CausalGCN":
+    if not cfg.inference and cfg.model not in _PORTED:
         raise NotImplementedError(
             f"training {cfg.model} is not ported yet "
             f"({_NOT_PORTED.get(cfg.model, 'unknown model')})")

@@ -1,21 +1,30 @@
-"""Causal attention model, GCN backbone, dense layout (CausalGCN).
+"""Causal attention models, dense layout: CausalGCN and CausalGAT.
 
 Counterpart of cal_tpu/models/causal.py (``intervention_permutation`` and
-``CausalGNN`` with backbone 'gcn').  Input BN -> linear "gfn" projection ->
-K x (BN -> GCNConv -> ReLU) -> factored edge attention and node attention
--> BN -> both masked context/object GCN convs in ONE fused kernel ->
-sum pooling -> three readout MLPs (context, object, intervention).
+``CausalGNN`` with backbones 'gcn' and 'gat').  Input BN -> linear "gfn"
+projection -> K backbone layers -> factored edge attention and node
+attention -> BN -> both masked context/object GCN convs in ONE fused kernel
+-> sum pooling -> three readout MLPs (context, object, intervention).
+
+* backbone 'gcn': BN -> GCNConv -> ReLU per layer; honors ``with_random``
+  and the attention-ablation flags;
+* backbone 'gat': BN -> GATConv (4 heads, attention dropout 0.2 in
+  training, the flash-GAT kernel) -> ReLU per layer; the masked convs are
+  still GCN convs.  It ignores the ablation flags and ``with_random``: the
+  intervention shuffle follows ``eval_random`` alone, as in the reference.
 
 Precision follows the JAX model: the conv stack runs in ``dtype`` (bf16 in
 production), BatchNorm statistics, pooling and the readouts in f32.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
 
 from cal_tpu_torch.graph import DenseGraphBatch
-from cal_tpu_torch.nn.layers import GCNConvLayer, MaskedBatchNorm, ReadoutMLP
+from cal_tpu_torch.nn.layers import GATConvLayer, GCNConvLayer, MaskedBatchNorm, ReadoutMLP
 from cal_tpu_torch.ops.attention import edge_attention, global_add_pool, node_attention
 from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
 
@@ -34,44 +43,55 @@ def intervention_permutation(generator: torch.Generator,
 
 
 class CausalGNN(nn.Module):
-    """CausalGCN.  Parameter names follow the flax module (``bn_feat``,
-    ``conv_feat``, ``bns_conv_{i}``, ``convs_{i}``, ``edge_att_kernel``
-    [2H, 2], ``edge_att_bias``, ``node_att_kernel`` [H, 2],
-    ``node_att_bias``, ``bnc``, ``bno``, ``context_convs``,
+    """CausalGCN / CausalGAT.  Parameter names follow the flax module
+    (``bn_feat``, ``conv_feat``, ``bns_conv_{i}``, ``convs_{i}``,
+    ``edge_att_kernel`` [2H, 2], ``edge_att_bias``, ``node_att_kernel``
+    [H, 2], ``node_att_bias``, ``bnc``, ``bno``, ``context_convs``,
     ``objects_convs``, ``{context,objects,random}_readout``)."""
 
     def __init__(self, num_features: int, hidden: int, num_classes: int,
                  num_layers: int = 3, backbone: str = "gcn",
                  cat_or_add: str = "add", with_random: bool = True,
                  without_node_attention: bool = False,
-                 without_edge_attention: bool = False,
+                 without_edge_attention: bool = False, heads: int = 4,
+                 gat_dropout: float = 0.2,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if backbone != "gcn":
+        if backbone == "gin":
             raise NotImplementedError(
-                f"backbone {backbone!r} not ported yet (ROADMAP queue 1 items 6-7)")
+                "backbone 'gin' not ported yet (ROADMAP queue 1 item 7)")
+        if backbone not in ("gcn", "gat"):
+            raise ValueError(backbone)
         if cat_or_add not in ("cat", "add"):
             raise ValueError(cat_or_add)
+        if backbone == "gat" and hidden % heads:
+            raise ValueError(f"hidden {hidden} is not a multiple of heads {heads}")
         gen = torch.Generator().manual_seed(seed)
+        self.backbone = backbone
         self.hidden, self.num_layers, self.dtype = hidden, num_layers, dtype
         self.cat_or_add, self.with_random = cat_or_add, with_random
-        self.without_node_attention = without_node_attention
-        self.without_edge_attention = without_edge_attention
+        # only CausalGCN has the ablation branches (model.py:99-107)
+        ablate = backbone == "gcn"
+        self.without_node_attention = ablate and without_node_attention
+        self.without_edge_attention = ablate and without_edge_attention
 
         self.bn_feat = MaskedBatchNorm(num_features)
         self.conv_feat = GCNConvLayer(num_features, hidden, gfn=True, dtype=dtype,
                                       generator=gen)
         for i in range(num_layers):
             self.add_module(f"bns_conv_{i}", MaskedBatchNorm(hidden))
-            self.add_module(f"convs_{i}", GCNConvLayer(hidden, hidden, dtype=dtype,
-                                                       generator=gen))
+            conv = (GCNConvLayer(hidden, hidden, dtype=dtype, generator=gen)
+                    if backbone == "gcn" else
+                    GATConvLayer(hidden, hidden // heads, heads, gat_dropout, dtype=dtype,
+                                 generator=gen))
+            self.add_module(f"convs_{i}", conv)
         uniform = lambda shape, fan_in: nn.Parameter(
             torch.empty(shape).uniform_(-fan_in ** -0.5, fan_in ** -0.5,
                                         generator=gen))
-        if not without_edge_attention:
+        if not self.without_edge_attention:
             self.edge_att_kernel = uniform((2 * hidden, 2), 2 * hidden)
             self.edge_att_bias = uniform((2,), 2 * hidden)
-        if not without_node_attention:
+        if not self.without_node_attention:
             self.node_att_kernel = uniform((hidden, 2), hidden)
             self.node_att_bias = uniform((2,), hidden)
         self.bnc = MaskedBatchNorm(hidden)
@@ -84,9 +104,12 @@ class CausalGNN(nn.Module):
         self.random_readout = ReadoutMLP(co_in, hidden, num_classes, gen)
 
     def forward(self, g: DenseGraphBatch, eval_random: bool = True,
-                train: bool = False, generator: torch.Generator | None = None):
+                train: bool = False, generator: torch.Generator | None = None,
+                dropout_seeds: Sequence[int] | None = None):
         """Returns (c_log_probs, o_log_probs, co_log_probs), each [B, C].
-        ``generator`` drives the intervention shuffle when it is on."""
+        ``generator`` drives the intervention shuffle when it is on;
+        ``dropout_seeds`` (one per layer) turn on the GAT layers' attention
+        dropout in training."""
         dt = self.dtype
         x = g.x.to(dt)
         adj = g.adj.to(dt)
@@ -96,7 +119,12 @@ class CausalGNN(nn.Module):
         x = torch.relu(self.conv_feat(x))
         for i in range(self.num_layers):
             x = getattr(self, f"bns_conv_{i}")(x, node_mask, train)
-            x = torch.relu(getattr(self, f"convs_{i}")(x, g))
+            conv = getattr(self, f"convs_{i}")
+            if self.backbone == "gat":
+                seed = dropout_seeds[i] if train and dropout_seeds is not None else None
+                x = torch.relu(conv(x, g, seed))
+            else:
+                x = torch.relu(conv(x, g))
 
         if self.without_edge_attention:
             # sigmoid(0 + 0) = 0.5 exactly: the constant ablation weights
@@ -128,7 +156,7 @@ class CausalGNN(nn.Module):
         xc_logis = self.context_readout(xc, gm, train)
         xo_logis = self.objects_readout(xo, gm, train)
 
-        if self.with_random and eval_random:
+        if eval_random and (self.with_random or self.backbone != "gcn"):
             xc_mix = xc[intervention_permutation(generator, gm)]
         else:
             xc_mix = xc

@@ -1,4 +1,5 @@
-"""Layers: mask-aware BatchNorm, reference-init linear layers, GCN conv, readout.
+"""Layers: mask-aware BatchNorm, reference-init linear layers, GCN and GAT
+convs, readout.
 
 Counterpart of cal_tpu/nn/layers.py.  Parameter names and layouts follow the
 flax modules exactly (``kernel`` is [in, out], ``bias`` [out]; BatchNorm has
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
 from cal_tpu_torch.ops.gcn import gcn_aggregate
 
 
@@ -141,6 +143,43 @@ class GCNConvLayer(nn.Module):
         if self.gfn:
             return x
         return gcn_aggregate(x, g) + b
+
+
+class GATConvLayer(nn.Module):
+    """PyG-1.1.0 ``GATConv``, dense layout (counterpart of the dense branch
+    of cal_tpu/nn/layers.py ``GATConvLayer``).
+
+    Parameters ``kernel`` [in, heads * d] and ``att`` [heads, 2d] (glorot),
+    ``bias`` [heads * d] (zeros); ``att[:, :d]`` multiplies the receiver,
+    ``att[:, d:]`` the sender.  The aggregate always runs the flash-GAT
+    kernel (``ops/flash_gat.py``).  The JAX layer switches to its
+    edge-formulated kernel at N >= 384 with sparse edges, a crossover
+    measured on a TPU v5e; the port has no such kernel yet and calls flash at
+    every N.  Eval numerics are the same on both sides of that switch;
+    training dropout differs only on multigraphs at N >= 384, where the edge
+    kernel draws one keep bit per duplicate-edge slot and flash one per
+    (receiver, sender) cell."""
+
+    def __init__(self, in_features: int, out_per_head: int, heads: int = 4,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 generator=None):
+        super().__init__()
+        self.heads, self.out_per_head = heads, out_per_head
+        self.dropout, self.dtype = dropout, dtype
+        hd = heads * out_per_head
+        self.kernel = nn.Parameter(glorot_init(
+            torch.empty(in_features, hd), in_features, hd, generator))
+        self.att = nn.Parameter(glorot_init(
+            torch.empty(heads, 2 * out_per_head), heads, 2 * out_per_head, generator))
+        self.bias = nn.Parameter(torch.zeros(hd))
+
+    def forward(self, x, g, seed: int | None = None):
+        """x [B, N, in]; ``seed`` turns attention dropout on (training)."""
+        dt, d = self.dtype, self.out_per_head
+        xh = linear(x, self.kernel, dt).to(dt)
+        att = self.att.to(dt)
+        out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
+        return out.to(dt) + self.bias.to(dt)
 
 
 class ReadoutMLP(nn.Module):

@@ -1,8 +1,9 @@
 """Causal training and serving — counterpart of cal_tpu/train/causal.py
 (``train_causal_syn`` and ``evaluate_causal``).
 
-``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
-cosine schedule, and the test accuracies taken at the epoch of best val
+Both serve the dense CausalGCN and CausalGAT alike (the model comes from
+``get_model``).  ``train_causal_syn``: train/val/test loaders, Adam with
+the per-epoch cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
 There is no device-side epoch here: ``--scan_epochs`` is accepted and runs
 the per-step loop, whose numerics the JAX package's scan reproduces

@@ -2,8 +2,9 @@
 ``_causal_step_fn``/``make_causal_train_step``, ``make_causal_eval_step``).
 
 PyTorch runs the step eagerly: forward with ``train=True``, the three
-losses, backward (the dual masked conv's backward kernel included), Adam,
-and the BatchNorm running stats, which the forward moves in place.
+losses, backward (the dual masked conv's and, for CausalGAT, the flash-GAT
+backward kernels included), Adam, and the BatchNorm running stats, which
+the forward moves in place.
 """
 from __future__ import annotations
 
@@ -36,10 +37,25 @@ def _as_graph(batch: PackedDenseBatch, dtype: torch.dtype | None = None
     return to_dense(batch, dtype)
 
 
+# SeedSequence pads its entropy with zeros ([s, t] and [s, t, 0] give one
+# state), so the attention-dropout seeds carry a stream word of their own
+# that keeps them apart from the intervention and eval seeds.
+_GAT_DROPOUT_STREAM = 0x6761745F
+
+
 def step_seed(seed: int, *counters: int) -> int:
     """A well-mixed 64-bit seed from (seed, counters...): the counterpart of
     ``fold_in(rng, step)`` for a ``torch.Generator``."""
     return int(np.random.SeedSequence([seed, *counters]).generate_state(1, np.uint64)[0])
+
+
+def dropout_seeds(model, seed: int, step: int) -> list[int] | None:
+    """The GAT layers' attention-dropout seeds of train step ``step``, one
+    per layer (None for backbones without dropout): a rerun and a resumed
+    run draw the same masks."""
+    if model.backbone != "gat":
+        return None
+    return [step_seed(seed, step, _GAT_DROPOUT_STREAM, i) for i in range(model.num_layers)]
 
 
 def init_state(cfg: Config, num_features: int, num_classes: int,
@@ -60,8 +76,9 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
     ``loss.item() * num_graphs`` of the reference).  A batch without a real
     graph is skipped on the host (no device work, the step count does not
     move), like the JAX ``_gate_state``.  The intervention generator is
-    re-seeded from (seed, step) each step.  Gradients stay in ``.grad``
-    until the next step."""
+    re-seeded from (seed, step) each step, and the GAT layers' dropout seeds
+    derive from (seed, step, layer).  Gradients stay in ``.grad`` until the
+    next step."""
     model, optimizer = state.model, state.optimizer
     params = list(model.parameters())
     device = params[0].device
@@ -73,7 +90,8 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
         generator.manual_seed(step_seed(seed, state.step))
         g = _as_graph(batch.to(device), model.dtype)
         c_logs, o_logs, co_logs = model(g, eval_random=with_random, train=True,
-                                        generator=generator)
+                                        generator=generator,
+                                        dropout_seeds=dropout_seeds(model, seed, state.step))
         total, (c_l, o_l, co_l) = causal_losses(c_logs, o_logs, co_logs, g.y,
                                                 g.graph_mask, c_w, o_w, co_w)
         optimizer.zero_grad(set_to_none=True)

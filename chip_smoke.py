@@ -5,24 +5,29 @@
 1. builds every CUDA kernel of the port from cal_tpu_torch/csrc (one nvcc
    per source, all at once);
 2. kernel phase: on a real synthetic batch at the production shapes (B=128,
-   N=256, H=128), holds each kernel (adjacency build, dual masked-GCN
-   forward and backward) against its plain PyTorch twin on the card, in
-   bf16 and f32, the f32 backward also against torch.autograd of the forward
-   twin, and times kernel, twin and (where one exists) a single PyTorch call
-   computing the same function, with CUDA events on a cold L2;
-3. serving phase: saves a seeded CausalGCN (hidden 128, 3 layers, bf16) with
-   the port's checkpointer, drives ``cal_tpu_torch.main_syn --inference``
-   with the launch counters set to 0 just before, and fails unless every
-   kernel of the path launched; then checks the forward against the plain
-   twins on the card (bf16) and against the CPU on a small f32 input;
-4. training phase: drives ``cal_tpu_torch.main_syn`` training (the same
-   model, 3 epochs, ``--save_model``) with the counters set to 0 just
-   before, fails unless all three kernels launched, every epoch's loss is
-   finite and the last epoch's is below the first's, then serves the saved
-   checkpoint and fails unless its accuracies equal the checkpoint's;
-5. gradient check: one bf16 step's gradients at full width, kernels against
-   the plain twins on the card, and one f32 step on 16 graphs, card against
-   CPU; then the device time of one warm bf16 train step by operator.
+   N=256, H=128; 4 heads of 32 for GAT), holds each kernel (adjacency build,
+   dual masked-GCN forward and backward, flash-GAT forward and backward)
+   against its plain PyTorch twin on the card, in bf16 and f32, flash-GAT at
+   dropout rate 0 and 0.2; every f32 backward also against torch.autograd of
+   its forward twin; checks the dropout law (keep fraction, unbiased
+   output); and times kernel, twin and (where one exists) a single PyTorch
+   call computing the same function, with CUDA events on a cold L2;
+3. for CausalGCN, then CausalGAT (hidden 128, 3 layers, bf16):
+   a. serving: saves a seeded model with the port's checkpointer, drives
+      ``cal_tpu_torch.main_syn --inference`` with the launch counters set to
+      0 just before, and fails unless every kernel of the path launched;
+      then checks the forward against the plain twins on the card (bf16) and
+      against the CPU on a small f32 input;
+   b. training: drives ``cal_tpu_torch.main_syn`` training (3 epochs,
+      ``--save_model``) with the counters set to 0 just before, fails unless
+      every kernel of the path launched (each backward the expected number
+      of times), every epoch's loss is finite and the last epoch's is below
+      the first's, then serves the saved checkpoint and fails unless its
+      accuracies equal the checkpoint's;
+   c. gradient check: one bf16 step's gradients at full width, kernels
+      against the plain twins on the card (GAT with dropout on, one seed),
+      and one f32 step on 16 graphs, card against CPU; then the device time
+      of one warm bf16 train step by operator.
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -59,6 +64,21 @@ DUAL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}   # (atol, rtol
 # rounded to bf16 at the same places, results cast once), on outputs of the
 # same scale (|dx| <= ~3, |dsrc|, |ddst| <= ~10 on seeded N(0, 1) inputs).
 DUAL_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
+# flash-GAT kernels vs their plain twins: both run every step in f32 (the
+# inputs are exact in f32 in either dtype), with sums over up to N = 256
+# terms in another order and expf against PyTorch's exp (a few ulp each):
+# out, m, den, dti and dtj (f32, of order 1-10) within 1e-4.  dxh is rounded
+# to the input dtype: in bf16 a sum on the other side of a rounding boundary
+# moves by one bf16 ulp (2^-7 relative at most).
+FLASH_TOL = (1e-4, 1e-4)
+FLASH_DXH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
+HEADS, GAT_RATE = 4, 0.2           # CausalGAT: 4 heads of H / 4, attention dropout
+DROP_SEED = 0x9E3779B97F4A7C15     # the kernel phase's dropout seed (64 bits)
+# The dropout law over the B*heads*N*N cells of one call (33.5 M at the
+# production shapes, so the keep fraction's sd is 6.9e-5): keep fraction
+# within 0.002 of 1 - rate; the output sum on |xh| with dropout within 0.02
+# of the sum without (tests/test_pallas_gat.py test_dropout_keep_rate_is_unbiased).
+KEEP_TOL, MEAN_TOL = 2e-3, 2e-2
 # Whole-step gradients, all parameters as one vector: ||got - ref|| / ||ref||.
 # bf16 kernels against the plain twins (same rounding contract; a result that
 # crosses a bf16 rounding boundary moves by 2^-8 and propagates through five
@@ -222,8 +242,107 @@ def kernel_phase(torch, batch, peaks, flush):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         emit({"phase": "kernel", **bwd})
-        results[dt_name] = (adj, dual, bwd)
+        results[dt_name] = (adj, dual, bwd) + flash_kernels(torch, adj_k, dt_name, peaks, flush)
     return results
+
+
+def flash_kernels(torch, counts, dt_name, peaks, flush):
+    """The flash-GAT forward and backward kernels against their twins at
+    rate 0 and GAT_RATE, the f32 backward against autograd of the forward
+    twin, the dropout law, and their rows (timed at GAT_RATE, the training
+    path; the forward also at rate 0, the serving path)."""
+    from cal_tpu_torch.ops.flash_gat import (
+        dropout_keep, flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd, flash_gat_fwd_plain)
+
+    bw, bf16_peak, f32_peak = peaks
+    dt = counts.dtype
+    bsz, n, _ = counts.shape
+    d = H // HEADS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    xh = torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt)
+    att = (0.5 * torch.randn((HEADS, 2 * d), generator=gen, device="cuda")).to(dt).float()
+    x4 = xh.float().view(bsz, n, HEADS, d)
+    ti = torch.einsum("bnhd,hd->bnh", x4, att[:, :d])          # as flash_gat_dense_flat
+    tj = torch.einsum("bnhd,hd->bnh", x4, att[:, d:])
+    g = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    atol, rtol = FLASH_TOL
+    errs = {"fwd": [], "bwd": []}
+    for rate in (0.0, GAT_RATE):
+        got = flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, rate)
+        ref = flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, rate)
+        torch.cuda.synchronize()
+        for nm, a, r in zip(("out", "m", "den"), got, ref):
+            check(bool(torch.isfinite(a).all()), f"flash forward {dt_name} {nm} not finite")
+            err, over = max_excess(torch, a, r, atol, rtol)
+            check(over <= 0, f"flash forward {dt_name} rate {rate} {nm} differs from its "
+                             f"plain twin: {err}")
+            errs["fwd"].append(err)
+        bgot = flash_gat_bwd(ti, tj, counts, xh, ref[1], ref[2], g, DROP_SEED, rate)
+        bref = flash_gat_bwd_plain(ti, tj, counts, xh, ref[1], ref[2], g, DROP_SEED, rate)
+        torch.cuda.synchronize()
+        for nm, a, r in zip(("dti", "dtj", "dxh"), bgot, bref):
+            tol = FLASH_DXH_TOL[dt_name] if nm == "dxh" else FLASH_TOL
+            check(bool(torch.isfinite(a.float()).all()), f"flash backward {dt_name} {nm} not finite")
+            err, over = max_excess(torch, a, r, *tol)
+            check(over <= 0, f"flash backward {dt_name} rate {rate} {nm} differs from its "
+                             f"plain twin: {err}")
+            errs["bwd"].append(err)
+    extra = {}
+    if dt == torch.float32:
+        leaves = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+        out, _, _ = flash_gat_fwd_plain(leaves[0], leaves[1], counts, leaves[2], DROP_SEED,
+                                        GAT_RATE)
+        auto = torch.autograd.grad((out * g).sum(), leaves)
+        auto_err = []
+        for nm, a, r in zip(("dti", "dtj", "dxh"), bgot, auto):
+            err, over = max_excess(torch, a, r, atol, rtol)
+            check(over <= 0, f"flash backward f32 {nm} differs from autograd: {err}")
+            auto_err.append(err)
+        extra["max_abs_err_vs_autograd"] = max(auto_err)
+        del leaves, out, auto
+    keep = float(dropout_keep(DROP_SEED, bsz, HEADS, n, GAT_RATE, "cuda").float().mean())
+    xa = xh.abs()
+    ratio = float(flash_gat_fwd(ti, tj, counts, xa, DROP_SEED, GAT_RATE)[0].sum()
+                  / flash_gat_fwd(ti, tj, counts, xa)[0].sum())
+    emit({"phase": "flash_dropout_law", "dtype": dt_name, "rate": GAT_RATE,
+          "cells": bsz * HEADS * n * n, "keep_fraction": keep, "keep_tol": KEEP_TOL,
+          "mean_ratio": ratio, "mean_tol": MEAN_TOL})
+    check(abs(keep - (1.0 - GAT_RATE)) <= KEEP_TOL, f"keep fraction {keep}")
+    check(abs(ratio - 1.0) <= MEAN_TOL, f"dropout output mean ratio {ratio}")
+
+    elt = xh.element_size()
+    peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+    stats = bsz * n * HEADS * 4                                  # one [B, N, heads] f32 plane
+    none = ("none: no single PyTorch call computes the masked, multiplicity-weighted "
+            "leaky-ReLU softmax and its dropout")
+    m, den = ref[1], ref[2]
+    rows = []
+    for name, fn, plain, nbytes, flops, err in (
+            ("flash_gat_fwd",
+             lambda: flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, GAT_RATE),
+             lambda: flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, GAT_RATE),
+             4 * stats + bsz * n * n * elt + bsz * n * H * (elt + 4),
+             2 * bsz * n * n * H, max(errs["fwd"])),
+            ("flash_gat_bwd",
+             lambda: flash_gat_bwd(ti, tj, counts, xh, m, den, g, DROP_SEED, GAT_RATE),
+             lambda: flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, DROP_SEED, GAT_RATE),
+             6 * stats + bsz * n * n * elt + bsz * n * H * (2 * elt + 4),
+             4 * bsz * n * n * H, max(errs["bwd"]))):
+        t_bytes, t_ops = nbytes / bw, flops / peak
+        row = {"name": name, "dtype": dt_name, "rate": GAT_RATE, "max_abs_err": err,
+               "atol": atol, "rtol": rtol,
+               "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+               "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if name == "flash_gat_fwd":
+            row["kernel_ms_rate0"] = time_ms(
+                torch, lambda: flash_gat_fwd(ti, tj, counts, xh), flush)
+        else:
+            row.update(extra)
+        emit({"phase": "kernel", **row})
+        rows.append(row)
+    return tuple(rows)
 
 
 def _device_rows(prof):
@@ -257,85 +376,122 @@ def profile_forward(torch, model, batch, to_dense, top=16) -> None:
             run()
             torch.cuda.synchronize()
     rows = _device_rows(prof)
-    emit({"phase": "profile_forward", "batch": list(batch.x.shape), "wall_ms": fwd_ms,
+    emit({"phase": "profile_forward", "model": model_name(model),
+          "batch": list(batch.x.shape), "wall_ms": fwd_ms,
           "device_ms": sum(r[1] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
 
 
-def serving_phase(torch, test_set):
+def model_name(model) -> str:
+    return {"gcn": "CausalGCN", "gat": "CausalGAT"}[model.backbone]
+
+
+def counters(model: str, training: bool) -> tuple:
+    """The launch-counted kernel wrappers of a model's serving or training
+    path."""
+    from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd
+    from cal_tpu_torch.ops.fused_gcn import (
+        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd)
+
+    ks = (adj_build, fused_gcn_dense_att_dual)
+    if model == "CausalGAT":
+        ks += (flash_gat_fwd,)
+    if training:
+        ks += (fused_gcn_dense_att_dual_bwd,)
+        if model == "CausalGAT":
+            ks += (flash_gat_bwd,)
+    return ks
+
+
+def plain_twins():
+    """Patches that route every kernel wrapper of the forward and backward
+    to its plain twin (on the card's tensors)."""
+    import contextlib
     from unittest import mock
 
     import cal_tpu_torch.graph as graph_mod
-    import cal_tpu_torch.models.causal as causal_mod
+    import cal_tpu_torch.ops.flash_gat as flash_mod
+    import cal_tpu_torch.ops.fused_gcn as fused_mod
+    from cal_tpu_torch.ops.adj_build import adj_build_plain
+
+    stack = contextlib.ExitStack()
+    for mod, name, plain in (
+            (graph_mod, "adj_build", adj_build_plain),
+            (fused_mod, "_dual_fwd", fused_mod.fused_gcn_dense_att_dual_plain),
+            (fused_mod, "fused_gcn_dense_att_dual_bwd",
+             fused_mod.fused_gcn_dense_att_dual_bwd_plain),
+            (flash_mod, "flash_gat_fwd", flash_mod.flash_gat_fwd_plain),
+            (flash_mod, "flash_gat_bwd", flash_mod.flash_gat_bwd_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def serving_phase(torch, test_set, model: str):
+    import cal_tpu_torch.graph as graph_mod
     from cal_tpu_torch.data.loader import Loader
     from cal_tpu_torch.main_syn import main
     from cal_tpu_torch.models.factory import get_model
-    from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
-    from cal_tpu_torch.ops.fused_gcn import (
-        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_plain)
     from cal_tpu_torch.train.causal import evaluate_causal
     from cal_tpu_torch.utils.checkpoint import Checkpointer
     from cal_tpu_torch.utils.config import Config
 
-    save_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
-    argv = ["--model", "CausalGCN", "--inference", "true", "--save_dir", save_dir,
+    save_dir = os.path.join(HERE, "build", f"chip_smoke_ckpt_{model}")
+    argv = ["--model", model, "--inference", "true", "--save_dir", save_dir,
             "--data_num", str(DATA_NUM), "--seed", str(SEED), "--dtype", "bfloat16",
             "--hidden", str(H), "--layers", str(LAYERS), "--batch_size", str(B),
             "--device", "cuda"]
-    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, batch_size=B,
+    cfg = Config(model=model, hidden=H, layers=LAYERS, batch_size=B,
                  dtype="bfloat16", seed=SEED)
     feat = test_set[0].x.shape[1]
-    model = get_model(cfg, feat, cfg.num_classes)
-    Checkpointer(save_dir).save(0, model, {"epoch": 0})
+    net = get_model(cfg, feat, cfg.num_classes)
+    Checkpointer(save_dir).save(0, net, {"epoch": 0})
 
-    kernels = (adj_build, fused_gcn_dense_att_dual)
+    kernels = counters(model, training=False)
     for k in kernels:
         k.launches = 0
     res = main(argv)
     launches = {k.__name__: k.launches for k in kernels}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of the serving path never launched: {launches}")
-    emit({"phase": "serving", "graphs": res["graphs"], "seconds": res["seconds"],
-          "graphs_per_s": res["graphs"] / res["seconds"],
+          f"a kernel of the {model} serving path never launched: {launches}")
+    emit({"phase": "serving", "model": model, "graphs": res["graphs"],
+          "seconds": res["seconds"], "graphs_per_s": res["graphs"] / res["seconds"],
           "test_acc_co": res["test_acc_co"], "test_acc_c": res["test_acc_c"],
           "test_acc_o": res["test_acc_o"], "launches": launches,
           "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
     check(res["graphs"] == len(test_set), "serving sweep missed graphs")
     warm = evaluate_causal(test_set, Config(
-        model="CausalGCN", inference=True, save_dir=save_dir, data_num=DATA_NUM,
+        model=model, inference=True, save_dir=save_dir, data_num=DATA_NUM,
         seed=SEED, dtype="bfloat16", hidden=H, layers=LAYERS, batch_size=B,
         device="cuda"))
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in Loader(test_set, B).host_batches())
     pack_s = time.perf_counter() - t0
-    emit({"phase": "serving_warm", "graphs": warm["graphs"], "seconds": warm["seconds"],
-          "graphs_per_s": warm["graphs"] / warm["seconds"],
+    emit({"phase": "serving_warm", "model": model, "graphs": warm["graphs"],
+          "seconds": warm["seconds"], "graphs_per_s": warm["graphs"] / warm["seconds"],
           "host_pack_ms_per_batch": pack_s / n_batches * 1e3})
 
     # the same forward through the plain twins, on the card
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
-    model = model.to("cuda").eval()
+    net = net.to("cuda").eval()
     with torch.no_grad():
         g = graph_mod.to_dense(batch, torch.bfloat16)
         check(g.adj.shape[1] == 256, f"node budget {g.adj.shape[1]} != 256")
-        out_k = model(g, eval_random=False)
-        with mock.patch.object(graph_mod, "adj_build", adj_build_plain), \
-                mock.patch.object(causal_mod, "fused_gcn_dense_att_dual",
-                                  fused_gcn_dense_att_dual_plain):
-            out_p = model(graph_mod.to_dense(batch, torch.bfloat16), eval_random=False)
-    profile_forward(torch, model, batch, graph_mod.to_dense)
+        out_k = net(g, eval_random=False)
+        with plain_twins():
+            out_p = net(graph_mod.to_dense(batch, torch.bfloat16), eval_random=False)
+    profile_forward(torch, net, batch, graph_mod.to_dense)
     atol, rtol = FWD_TOL["bfloat16"]
     errs = []
     for a, b in zip(out_k, out_p):
         check(a.shape == (B, cfg.num_classes) and bool(torch.isfinite(a).all()),
               "serving log-probs not finite or misshapen")
         err, over = max_excess(torch, a, b, atol, rtol)
-        check(over <= 0, f"bf16 forward differs from the plain twins by {err}")
+        check(over <= 0, f"{model} bf16 forward differs from the plain twins by {err}")
         errs.append(err)
 
     # small f32 input: card (kernels) against the CPU (plain twins)
-    cfg32 = cfg.replace(dtype="float32")
-    m32 = get_model(cfg32, feat, cfg.num_classes).eval()
+    m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes).eval()
     small = next(Loader(test_set[:16], 16).host_batches())
     with torch.no_grad():
         ref = m32(graph_mod.to_dense(small.to("cpu"), torch.float32), eval_random=False)
@@ -345,15 +501,15 @@ def serving_phase(torch, test_set):
     errs32 = []
     for a, b in zip(got, ref):
         err, over = max_excess(torch, a.cpu(), b, atol32, rtol32)
-        check(over <= 0, f"f32 forward on the card differs from the CPU by {err}")
+        check(over <= 0, f"{model} f32 forward on the card differs from the CPU by {err}")
         errs32.append(err)
-    emit({"phase": "forward_check", "bf16_vs_plain_max_abs_err": max(errs),
+    emit({"phase": "forward_check", "model": model, "bf16_vs_plain_max_abs_err": max(errs),
           "bf16_tol": [atol, rtol], "f32_card_vs_cpu_max_abs_err": max(errs32),
           "f32_tol": [atol32, rtol32], "f32_graphs": 16})
     return launches
 
 
-def training_phase(torch, counters) -> dict:
+def training_phase(torch, model: str) -> dict:
     """Train through ``main_syn`` with the counters at 0, then serve the
     checkpoint it saved.  Returns the training run's launch counts."""
     import shutil
@@ -363,28 +519,32 @@ def training_phase(torch, counters) -> dict:
     from cal_tpu_torch.utils.checkpoint import Checkpointer
     from cal_tpu_torch.utils.config import Config
 
-    save_dir = os.path.join(HERE, "build", "chip_smoke_train")
+    save_dir = os.path.join(HERE, "build", f"chip_smoke_train_{model}")
     shutil.rmtree(save_dir, ignore_errors=True)
-    common = ["--model", "CausalGCN", "--dtype", "bfloat16", "--hidden", str(H),
+    common = ["--model", model, "--dtype", "bfloat16", "--hidden", str(H),
               "--layers", str(LAYERS), "--batch_size", str(B), "--data_num", str(DATA_NUM),
               "--seed", str(SEED), "--save_dir", save_dir, "--device", "cuda"]
-    for k in counters:
+    kernels = counters(model, training=True)
+    for k in kernels:
         k.launches = 0
     res = main(common + ["--epochs", str(TRAIN_EPOCHS), "--save_model", "true"])
-    launches = {k.__name__: k.launches for k in counters}
+    launches = {k.__name__: k.launches for k in kernels}
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of the training path never launched: {launches}")
+          f"a kernel of the {model} training path never launched: {launches}")
     steps = res["steps_per_epoch"] * TRAIN_EPOCHS
     check(launches["fused_gcn_dense_att_dual_bwd"] == steps,
-          f"{launches['fused_gcn_dense_att_dual_bwd']} backward launches for {steps} steps")
+          f"{launches['fused_gcn_dense_att_dual_bwd']} dual backward launches for {steps} steps")
+    if model == "CausalGAT":
+        check(launches["flash_gat_bwd"] == LAYERS * steps,
+              f"{launches['flash_gat_bwd']} flash backward launches for {steps} steps")
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     check(len(hist) == TRAIN_EPOCHS and all(map(math.isfinite, losses)),
-          f"training losses {losses}")
-    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+          f"{model} training losses {losses}")
+    check(losses[-1] < losses[0], f"{model} training loss did not fall: {losses}")
     warm = hist[1:]
     train_s = sum(h["train_seconds"] for h in warm)
-    emit({"phase": "training", "epochs": TRAIN_EPOCHS, "losses": losses,
+    emit({"phase": "training", "model": model, "epochs": TRAIN_EPOCHS, "losses": losses,
           "epoch_seconds": [h["seconds"] for h in hist],
           "train_seconds": [h["train_seconds"] for h in hist],
           "train_graphs": res["train_graphs"], "steps_per_epoch": res["steps_per_epoch"],
@@ -395,24 +555,25 @@ def training_phase(torch, counters) -> dict:
           "test_acc_o": res["test_acc_o"], "launches": launches,
           "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
 
-    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16")
+    cfg = Config(model=model, hidden=H, layers=LAYERS, dtype="bfloat16")
     meta = Checkpointer(save_dir).restore(get_model(cfg, 10, cfg.num_classes))
     served = main(common + ["--inference", "true"])
     for k in ("test_acc_co", "test_acc_c", "test_acc_o"):
-        check(served[k] == meta[k], f"served {k} {served[k]} != checkpoint's {meta[k]}")
-    emit({"phase": "train_then_serve", "ckpt_epoch": meta["epoch"],
+        check(served[k] == meta[k], f"{model} served {k} {served[k]} != checkpoint's {meta[k]}")
+    emit({"phase": "train_then_serve", "model": model, "ckpt_epoch": meta["epoch"],
           "test_acc": [served[k] for k in ("test_acc_co", "test_acc_c", "test_acc_o")]})
     return launches
 
 
-def _step_grads(torch, model, batch, dtype):
-    """Gradients of one train-mode loss (no intervention shuffle, no update)."""
+def _step_grads(torch, model, batch, dtype, seeds=None):
+    """Gradients of one train-mode loss (no intervention shuffle, no update;
+    ``seeds`` turn the GAT layers' dropout on)."""
     from cal_tpu_torch.graph import to_dense
     from cal_tpu_torch.train.losses import causal_losses
 
     model.zero_grad(set_to_none=True)
     g = to_dense(batch, dtype)
-    c, o, co = model(g, eval_random=False, train=True)
+    c, o, co = model(g, eval_random=False, train=True, dropout_seeds=seeds)
     total, _ = causal_losses(c, o, co, g.y, g.graph_mask, 0.5, 1.0, 0.5)
     total.backward()
     return float(total.detach()), {n: p.grad.detach().float().cpu().clone()
@@ -432,28 +593,24 @@ def _grad_err(torch, got, ref, tol):
     return diff / norm, worst
 
 
-def grad_check(torch, test_set, batch):
+def grad_check(torch, test_set, batch, model: str):
     """bf16 at full width: kernels against the plain twins (forward and
-    backward), on the card.  f32 on 16 graphs: card against CPU."""
+    backward; CausalGAT with dropout on, the same seeds), on the card.  f32
+    on 16 graphs, dropout off: card against CPU."""
     import copy
-    from unittest import mock
 
-    import cal_tpu_torch.graph as graph_mod
-    import cal_tpu_torch.ops.fused_gcn as fused_mod
     from cal_tpu_torch.data.loader import Loader
     from cal_tpu_torch.models.factory import get_model
-    from cal_tpu_torch.ops.adj_build import adj_build_plain
+    from cal_tpu_torch.train.steps import dropout_seeds
     from cal_tpu_torch.utils.config import Config
 
-    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    cfg = Config(model=model, hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
     feat = test_set[0].x.shape[1]
-    model = get_model(cfg, feat, cfg.num_classes).to("cuda")
-    loss_k, grads_k = _step_grads(torch, model, batch, torch.bfloat16)
-    with mock.patch.object(graph_mod, "adj_build", adj_build_plain), \
-            mock.patch.object(fused_mod, "_dual_fwd", fused_mod.fused_gcn_dense_att_dual_plain), \
-            mock.patch.object(fused_mod, "fused_gcn_dense_att_dual_bwd",
-                              fused_mod.fused_gcn_dense_att_dual_bwd_plain):
-        loss_p, grads_p = _step_grads(torch, model, batch, torch.bfloat16)
+    net = get_model(cfg, feat, cfg.num_classes).to("cuda")
+    seeds = dropout_seeds(net, SEED, 0)
+    loss_k, grads_k = _step_grads(torch, net, batch, torch.bfloat16, seeds)
+    with plain_twins():
+        loss_p, grads_p = _step_grads(torch, net, batch, torch.bfloat16, seeds)
     bf16 = _grad_err(torch, grads_k, grads_p, GRAD_TOL["bfloat16"])
 
     m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
@@ -462,14 +619,15 @@ def grad_check(torch, test_set, batch):
                                       torch.float32)
     loss_gpu, grads_gpu = _step_grads(torch, m32.to("cuda"), small.to("cuda"), torch.float32)
     f32 = _grad_err(torch, grads_gpu, grads_cpu, GRAD_TOL["float32"])
-    emit({"phase": "grad_check", "bf16_loss_kernels": loss_k, "bf16_loss_plain": loss_p,
+    emit({"phase": "grad_check", "model": model, "bf16_dropout": seeds is not None,
+          "bf16_loss_kernels": loss_k, "bf16_loss_plain": loss_p,
           "bf16_rel_l2_err": bf16[0], "bf16_worst_tensor": bf16[1],
           "bf16_tol": GRAD_TOL["bfloat16"], "f32_loss_card": loss_gpu, "f32_loss_cpu": loss_cpu,
           "f32_rel_l2_err": f32[0], "f32_worst_tensor": f32[1],
           "f32_tol": GRAD_TOL["float32"], "params": len(grads_k), "f32_graphs": 16})
 
 
-def profile_train_step(torch, test_set, batch, top=20) -> None:
+def profile_train_step(torch, test_set, batch, model: str, top=20) -> None:
     """Device time of one warm bf16 train step (adjacency build, forward,
     backward, Adam) by operator, from torch.profiler; and its wall time on
     the host clock (median of 10, each ending in a synchronize)."""
@@ -479,7 +637,7 @@ def profile_train_step(torch, test_set, batch, top=20) -> None:
     from cal_tpu_torch.train.steps import init_state, make_causal_train_step
     from cal_tpu_torch.utils.config import Config
 
-    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    cfg = Config(model=model, hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
     state = init_state(cfg, test_set[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
     step = make_causal_train_step(state, cosine_lr(cfg.lr, cfg.min_lr, 100, 10),
                                   cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
@@ -495,10 +653,28 @@ def profile_train_step(torch, test_set, batch, top=20) -> None:
         step(host, None)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    emit({"phase": "profile_train_step", "batch": list(batch.x.shape),
+    emit({"phase": "profile_train_step", "model": model, "batch": list(batch.x.shape),
           "wall_ms": statistics.median(walls[2:]),
           "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
+
+
+# kernel row -> (launch counter, model whose training run is its main path,
+# source, the TPU kernel it replaces)
+KERNEL_ROWS = {
+    "adj_build": ("adj_build", "CausalGCN", "cal_tpu_torch/csrc/adj_build.cu",
+                  "cal_tpu/ops/pallas_adj.py:38"),
+    "fused_gcn_dense_att_dual_fwd": ("fused_gcn_dense_att_dual", "CausalGCN",
+                                     "cal_tpu_torch/csrc/fused_gcn.cu",
+                                     "cal_tpu/ops/pallas_gcn.py:283"),
+    "fused_gcn_dense_att_dual_bwd": ("fused_gcn_dense_att_dual_bwd", "CausalGCN",
+                                     "cal_tpu_torch/csrc/fused_gcn.cu",
+                                     "cal_tpu/ops/pallas_gcn.py:324"),
+    "flash_gat_fwd": ("flash_gat_fwd", "CausalGAT", "cal_tpu_torch/csrc/flash_gat.cu",
+                      "cal_tpu/ops/pallas_gat.py:92"),
+    "flash_gat_bwd": ("flash_gat_bwd", "CausalGAT", "cal_tpu_torch/csrc/flash_gat.cu",
+                      "cal_tpu/ops/pallas_gat.py:137"),
+}
 
 
 def main() -> int:
@@ -543,38 +719,30 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = kernel_phase(torch, batch, peaks, flush)
-    from cal_tpu_torch.ops.adj_build import adj_build
-    from cal_tpu_torch.ops.fused_gcn import (
-        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd)
 
-    serving = serving_phase(torch, test_set)
-    training = training_phase(torch, (adj_build, fused_gcn_dense_att_dual,
-                                      fused_gcn_dense_att_dual_bwd))
-    grad_check(torch, test_set, batch)
-    profile_train_step(torch, test_set, batch)
+    # each model's serving and training runs, counters at 0 just before each
+    serving, training = {}, {}
+    for model in ("CausalGCN", "CausalGAT"):
+        serving[model] = serving_phase(torch, test_set, model)
+        training[model] = training_phase(torch, model)
+        grad_check(torch, test_set, batch, model)
+        profile_train_step(torch, test_set, batch, model)
 
-    # launches: the training run (this slice's main path); the serving run's
-    # counts beside them
-    names = {"adj_build": "adj_build", "fused_gcn_dense_att_dual_fwd": "fused_gcn_dense_att_dual",
-             "fused_gcn_dense_att_dual_bwd": "fused_gcn_dense_att_dual_bwd"}
-    sources = {"adj_build": ("cal_tpu_torch/csrc/adj_build.cu",
-                             "cal_tpu/ops/pallas_adj.py:38"),
-               "fused_gcn_dense_att_dual_fwd": ("cal_tpu_torch/csrc/fused_gcn.cu",
-                                                "cal_tpu/ops/pallas_gcn.py:283"),
-               "fused_gcn_dense_att_dual_bwd": ("cal_tpu_torch/csrc/fused_gcn.cu",
-                                                "cal_tpu/ops/pallas_gcn.py:324")}
+    # launches: the training run of the model whose slice brought the kernel
+    # (its main path); every run's counts beside them
     rows = []
     for r in results["bfloat16"]:
-        src, rep = sources[r["name"]]
-        counter = names[r["name"]]
+        counter, model, src, rep = KERNEL_ROWS[r["name"]]
+        by_run = {f"{kind}_{m}": counts[m].get(counter, 0)
+                  for kind, counts in (("train", training), ("serve", serving)) for m in counts}
         rows.append({"name": r["name"], "route": "cuda", "source": src, "replaces": rep,
-                     "launches": training[counter],
-                     "launches_serving": serving.get(counter, 0),
+                     "launches": training[model][counter], "launches_by_run": by_run,
                      "max_abs_err": r["max_abs_err"],
                      "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "dtype": "bfloat16"})
+    check(all(r["launches"] > 0 for r in rows), "a kernel row has no launch")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,6 +11,14 @@ import pytest
 import torch
 
 from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
+from cal_tpu_torch.ops.flash_gat import (
+    _FlashGAT,
+    dropout_keep,
+    flash_gat_bwd,
+    flash_gat_bwd_plain,
+    flash_gat_fwd,
+    flash_gat_fwd_plain,
+)
 from cal_tpu_torch.ops.fused_gcn import (
     fused_gcn_dense_att_dual,
     fused_gcn_dense_att_dual_bwd,
@@ -23,6 +31,10 @@ DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # see chip_smoke.py DUAL_TOL and DUAL_BWD_TOL for the reasons: (atol, rtol)
 DUAL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
 DUAL_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 1.6e-2)}
+# see chip_smoke.py FLASH_TOL: f32 results (out, m, den, dti, dtj) 1e-4;
+# dxh in the input dtype, so one bf16 rounding (2^-7 relative) in bf16
+FLASH_TOL = (1e-4, 1e-4)
+FLASH_DXH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
 
 
 @pytest.fixture
@@ -163,3 +175,100 @@ def test_wrappers_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         fused_gcn_dense_att_dual_bwd(x, x, torch.zeros((1, 4, 4)), x[..., 0], x[..., 0],
                                      x, x)
+
+
+def _flash_inputs(device, b, n, heads, d, dtype, seed):
+    """Score halves with a wide spread, multigraph counts (a self-loop count
+    that the kernel overrides, an isolated node, a padded graph slot), xh and
+    the output cotangent."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ti = 2 * torch.randn((b, n, heads), generator=gen, device=device)
+    tj = 2 * torch.randn((b, n, heads), generator=gen, device=device)
+    counts = torch.randint(0, 3, (b, n, n), generator=gen, device=device).float()
+    counts = counts * (torch.rand((b, n, n), generator=gen, device=device) < 0.1)
+    counts[0, 1, 1] = 3.0
+    counts[0, 2, :] = 0.0
+    counts[0, :, 2] = 0.0
+    counts[-1] = 0.0
+    xh = torch.randn((b, n, heads * d), generator=gen, device=device)
+    g = torch.randn((b, n, heads * d), generator=gen, device=device)
+    return ti, tj, counts.to(DT[dtype]), xh.to(DT[dtype]), g
+
+
+@pytest.mark.parametrize("b,n,heads,d,dtype,rate", [
+    (4, 256, 4, 32, "bfloat16", 0.0),
+    (4, 256, 4, 32, "bfloat16", 0.2),
+    (2, 256, 4, 32, "float32", 0.2),
+    (3, 70, 4, 32, "float32", 0.0),
+    (3, 70, 4, 32, "bfloat16", 0.2),
+    (2, 45, 3, 40, "float32", 0.2),
+    (2, 33, 2, 8, "bfloat16", 0.0),
+])
+def test_flash_gat_kernels_match_plain(cuda, b, n, heads, d, dtype, rate):
+    ti, tj, counts, xh, g = _flash_inputs(cuda, b, n, heads, d, dtype, seed=n + d)
+    seed = 0x1234_5678_9ABC
+    before = (flash_gat_fwd.launches, flash_gat_bwd.launches)
+    got = flash_gat_fwd(ti, tj, counts, xh, seed, rate)
+    ref = flash_gat_fwd_plain(ti, tj, counts, xh, seed, rate)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, atol=atol, rtol=rtol)
+    m, den = ref[1], ref[2]
+    bgot = flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed, rate)
+    bref = flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, seed, rate)
+    torch.cuda.synchronize()
+    assert (flash_gat_fwd.launches, flash_gat_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, r in zip(bgot[:2], bref[:2]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, atol=atol, rtol=rtol)
+    assert bgot[2].dtype == DT[dtype] and torch.isfinite(bgot[2].float()).all()
+    atol, rtol = FLASH_DXH_TOL[dtype]
+    torch.testing.assert_close(bgot[2].float(), bref[2].float(), atol=atol, rtol=rtol)
+
+
+def test_flash_gat_backward_matches_autograd(cuda):
+    """f32 kernel VJP with dropout on against torch.autograd of the forward
+    plain twin drawing the same keep bits: the backward replays the mask."""
+    ti, tj, counts, xh, g = _flash_inputs(cuda, 3, 256, 4, 32, "float32", seed=5)
+    leaves = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+    out, _, _ = flash_gat_fwd_plain(leaves[0], leaves[1], counts, leaves[2], 77, 0.2)
+    ref = torch.autograd.grad((out * g).sum(), leaves)
+    _, m, den = flash_gat_fwd(ti, tj, counts, xh, 77, 0.2)
+    got = flash_gat_bwd(ti, tj, counts, xh, m, den, g, 77, 0.2)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_gat_dropout_law_on_card(cuda):
+    """Keep fraction of the mask within 0.002 of 1 - rate over 8.4 M cells,
+    and the kernel's output sum with dropout within 0.02 of the sum without."""
+    keep = dropout_keep(99, 32, 4, 256, 0.2, cuda)
+    assert abs(float(keep.float().mean()) - 0.8) < 2e-3
+    ti, tj, counts, xh, _ = _flash_inputs(cuda, 8, 256, 4, 32, "float32", seed=9)
+    xh = xh.abs()
+    base = flash_gat_fwd(ti, tj, counts, xh)[0].sum()
+    drop = flash_gat_fwd(ti, tj, counts, xh, 99, 0.2)[0].sum()
+    assert abs(float(drop / base) - 1.0) < 0.02
+
+
+def test_flash_gat_autograd_on_card_launches_both_kernels(cuda):
+    ti, tj, counts, xh, g = _flash_inputs(cuda, 2, 64, 4, 8, "bfloat16", seed=3)
+    leaves = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+    before = (flash_gat_fwd.launches, flash_gat_bwd.launches)
+    out = _FlashGAT.apply(leaves[0], leaves[1], counts, leaves[2], 5, 0.2)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_gat_fwd.launches, flash_gat_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
+def test_flash_wrappers_raise_on_mixed_devices(cuda):
+    ti = torch.zeros((1, 4, 2), device=cuda)
+    xh = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        flash_gat_fwd(ti, ti, torch.zeros((1, 4, 4)), xh)
+    with pytest.raises(ValueError):
+        flash_gat_bwd(ti, ti, torch.zeros((1, 4, 4), device=cuda), xh, ti, ti, xh.cpu())

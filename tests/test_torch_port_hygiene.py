@@ -43,7 +43,8 @@ def _run(code):
 
 def test_import_leaves_jax_out():
     code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.ops.adj_build, "
-            "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.kernels.build, "
+            "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.ops.flash_gat, "
+            "cal_tpu_torch.ops.gat, cal_tpu_torch.kernels.build, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.losses, "
             "cal_tpu_torch.utils.logging\n"
@@ -67,11 +68,13 @@ def test_kernel_modules_import_without_nvcc():
     code = ("import os, shutil\n"
             "os.environ['PATH'] = ''\n"
             "import cal_tpu_torch.ops.adj_build as a, cal_tpu_torch.ops.fused_gcn as f\n"
+            "import cal_tpu_torch.ops.flash_gat as fg, cal_tpu_torch.nn.layers\n"
             "import cal_tpu_torch.train.causal, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.utils.logging\n"
             "assert a.adj_build.launches == 0 and f.fused_gcn_dense_att_dual.launches == 0\n"
             "assert f.fused_gcn_dense_att_dual_bwd.launches == 0\n"
+            "assert fg.flash_gat_fwd.launches == 0 and fg.flash_gat_bwd.launches == 0\n"
             "from cal_tpu_torch.kernels import build\n"
-            "assert sorted(build.sources()) == ['adj_build', 'fused_gcn']")
+            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn']")
     res = _run(code)
     assert res.returncode == 0, res.stderr

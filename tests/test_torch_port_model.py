@@ -47,13 +47,13 @@ def _randomize(tree, rng):
                    + rng.normal(0, 0.3, np.shape(a))).astype(np.float32), tree)
 
 
-def _models(dtype, sample_graph, num_features, seed=0, **kw):
+def _models(dtype, sample_graph, num_features, seed=0, backbone="gcn", **kw):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    jm = JaxCausalGNN(backbone="gcn", hidden=HIDDEN, num_classes=CLASSES,
+    jm = JaxCausalGNN(backbone=backbone, hidden=HIDDEN, num_classes=CLASSES,
                       num_layers=LAYERS, dtype=jdt, **kw)
     key = jax.random.PRNGKey(seed)
-    variables = jm.init({"params": key, "intervention": key}, sample_graph,
-                        eval_random=False)
+    variables = jax.jit(lambda k: jm.init({"params": k, "intervention": k}, sample_graph,
+                                          eval_random=False))(key)
     rng = np.random.default_rng(seed)
     params = _randomize(variables["params"], rng)
     stats = _unflat({k: {"mean": rng.normal(0, 0.5, v["mean"].shape).astype(np.float32),
@@ -61,7 +61,7 @@ def _models(dtype, sample_graph, num_features, seed=0, **kw):
                      for k, v in _flat_bn(variables["batch_stats"]).items()})
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     tm = CausalGNN(num_features=num_features, hidden=HIDDEN, num_classes=CLASSES,
-                   num_layers=LAYERS, dtype=tdt, **kw)
+                   num_layers=LAYERS, backbone=backbone, dtype=tdt, **kw)
     tm.load_state_dict(params_from_jax(params, stats))
     return jm, {"params": params, "batch_stats": stats}, tm.eval()
 

@@ -110,7 +110,7 @@ def _jax_grads(jm, jstate, jbatch):
                                  mutable=["batch_stats"])
         return jax_causal_losses(c, o, co, g.y, g.graph_mask, C_W, O_W, CO_W)[0]
 
-    return _flat(jax.grad(loss_fn)(jstate.params))
+    return _flat(jax.jit(jax.grad(loss_fn))(jstate.params))
 
 
 def test_train_steps_match_jax_f32():
