@@ -1,13 +1,26 @@
-"""Graph containers of the dense layout: host graphs, packed and dense batches.
+"""Graph containers: host graphs, the dense layout's packed and dense
+batches, and the sparse layout's padded edge-list batch.
 
 Counterpart of cal_tpu/graph.py (HostGraph, PackedDenseBatch,
-DenseGraphBatch, pack_dense, to_dense).  The host ships each batch in packed
-form: node features, ONE sorted flat index ``(g*N + receiver)*N + sender``
-per directed edge (padding holds ``B*N*N`` and is dropped), the node count
-of each graph slot and the labels.  ``to_dense`` rebuilds the [B, N, N]
-count adjacency on the device with the ``adj_build`` kernel and derives the
-masks: ``node_mask`` from ``n_nodes`` and ``graph_mask = n_nodes > 0`` (real
-graphs form a contiguous prefix of the slots).
+DenseGraphBatch, pack_dense, to_dense, GraphBatch, pad_sizes_for,
+batch_graphs).
+
+Dense layout: the host ships each batch in packed form: node features, ONE
+sorted flat index ``(g*N + receiver)*N + sender`` per directed edge (padding
+holds ``B*N*N`` and is dropped), the node count of each graph slot and the
+labels.  ``to_dense`` rebuilds the [B, N, N] count adjacency on the device
+with the ``adj_build`` kernel and derives the masks: ``node_mask`` from
+``n_nodes`` and ``graph_mask = n_nodes > 0`` (real graphs form a contiguous
+prefix of the slots).
+
+Sparse layout: a ``GraphBatch`` is the disjoint union of its graphs, padded
+to V nodes and E edges (padded edges point at node V-1 with ``edge_mask``
+False; padded nodes belong to the trash segment G).  Edges are sorted by
+receiver.  In place of the TPU's block-COO tile plans the batch carries the
+CSR form of both orientations (``EdgeCsr``), the structure the SpMM and
+degree kernels walk: rows cut into up to ``MAX_CHUNKS`` chunks, so a hub
+row (or the padded-edge run at node V-1) spreads over many warps and every
+sum keeps a single owner.
 """
 from __future__ import annotations
 
@@ -110,3 +123,161 @@ def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGrap
     node_mask = torch.arange(n, device=p.x.device)[None, :] < p.n_nodes[:, None]
     return DenseGraphBatch(x=p.x.to(dtype), adj=adj, node_mask=node_mask,
                            y=p.y, graph_mask=p.n_nodes > 0)
+
+
+# A CSR row is cut into groups of CHUNK_EDGES edges (one per warp lane) and
+# the groups into at most MAX_CHUNKS chunks of equal group counts; one warp
+# of the SpMM and degree kernels owns one chunk, and a second pass sums a
+# long row's chunks.  csrc/spmm.cu derives the same split from the row
+# length with the same two constants.
+CHUNK_EDGES = 32
+MAX_CHUNKS = 64
+
+
+def _tensor(a, device):
+    return torch.as_tensor(a).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeCsr:
+    """One orientation of a batch's edges in CSR form (NumPy or torch leaves).
+
+    ``perm`` [E] lists the edge ids in row order (None: the edges are
+    already in row order); row v owns ``perm[ptr[v]:ptr[v+1]]``.  A row of
+    ``len`` edges has ``groups = max(1, ceil(len / CHUNK_EDGES))`` groups,
+    cut into ``ceil(groups / per)`` chunks of ``per = ceil(groups /
+    MAX_CHUNKS)`` groups: ``chunk_ptr`` [V+1] gives each row's first chunk,
+    ``chunk_row`` [C] each chunk's row.  Every row has at least one chunk,
+    so a kernel that writes per chunk writes every row exactly once."""
+
+    ptr: object
+    chunk_ptr: object
+    chunk_row: object
+    perm: object = None
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_row.shape[0])
+
+    def to(self, device) -> "EdgeCsr":
+        return EdgeCsr(*(_tensor(a, device) for a in (self.ptr, self.chunk_ptr,
+                                                       self.chunk_row)),
+                       perm=None if self.perm is None else _tensor(self.perm, device))
+
+
+def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None) -> EdgeCsr:
+    """CSR of edges whose row ids, taken in row order, are ``rows``
+    (non-decreasing; ``rows = keys[perm]`` when ``perm`` is given)."""
+    counts = np.bincount(rows, minlength=num_nodes)
+    ptr = np.zeros(num_nodes + 1, np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    groups = np.maximum(1, -(-counts // CHUNK_EDGES))
+    per = -(-groups // MAX_CHUNKS)
+    chunks = -(-groups // per)
+    chunk_ptr = np.zeros(num_nodes + 1, np.int32)
+    np.cumsum(chunks, out=chunk_ptr[1:])
+    chunk_row = np.repeat(np.arange(num_nodes, dtype=np.int32), chunks)
+    return EdgeCsr(ptr, chunk_ptr, chunk_row,
+                   None if perm is None else perm.astype(np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A padded disjoint-union batch (sparse layout), NumPy or torch leaves.
+
+    x [V, F] f32; senders, receivers [E] int32 (receiver-sorted; padded
+    edges at node V-1); edge_mask [E] bool; node_mask [V] bool; node_graph
+    [V] int32 (non-decreasing; padded nodes in the trash segment G); y [G]
+    int32; graph_mask [G] bool (a contiguous prefix of real graphs).
+    ``recv``: receiver CSR (edges already in order); ``send``: sender CSR
+    with the stable sender-sorted permutation.  ``recv`` and ``send`` are the
+    counterpart of cal_tpu's ``(tiles_fwd, tiles_bwd)``."""
+
+    x: object
+    senders: object
+    receivers: object
+    edge_mask: object
+    node_mask: object
+    node_graph: object
+    y: object
+    graph_mask: object
+    recv: EdgeCsr
+    send: EdgeCsr
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.y.shape[0])
+
+    def to(self, device) -> "GraphBatch":
+        t = lambda a: _tensor(a, device)
+        return GraphBatch(t(self.x), t(self.senders), t(self.receivers), t(self.edge_mask),
+                          t(self.node_mask), t(self.node_graph), t(self.y),
+                          t(self.graph_mask), self.recv.to(device), self.send.to(device))
+
+
+def sparse_batch(x, senders, receivers, edge_mask, node_mask, node_graph, y, graph_mask,
+                 send_perm: np.ndarray | None = None) -> GraphBatch:
+    """A GraphBatch of NumPy arrays with both CSR forms.  ``receivers`` must
+    be non-decreasing; ``send_perm`` is the stable sender-sorted order of the
+    edges (computed when not given)."""
+    v = x.shape[0]
+    senders = np.asarray(senders, np.int32)
+    receivers = np.asarray(receivers, np.int32)
+    if receivers.size and (np.diff(receivers) < 0).any():
+        raise ValueError("sparse_batch: receivers must be sorted")
+    if send_perm is None:
+        send_perm = np.argsort(senders, kind="stable")
+    return GraphBatch(
+        x=np.asarray(x, np.float32), senders=senders, receivers=receivers,
+        edge_mask=np.asarray(edge_mask, bool), node_mask=np.asarray(node_mask, bool),
+        node_graph=np.asarray(node_graph, np.int32), y=np.asarray(y, np.int32),
+        graph_mask=np.asarray(graph_mask, bool), recv=edge_csr(receivers, v),
+        send=edge_csr(senders[send_perm], v, send_perm))
+
+
+def pad_sizes_for(graphs: Sequence[HostGraph], batch_size: int,
+                  multiple: int = 128) -> tuple[int, int]:
+    """Static (node, edge) budgets covering any ``batch_size``-graph batch:
+    the sum of the ``batch_size`` largest graphs (+1 node, so node V-1 is
+    free for the padded edges when the budget allows), rounded up."""
+    n_nodes = sorted((g.num_nodes for g in graphs), reverse=True)
+    n_edges = sorted((g.num_edges for g in graphs), reverse=True)
+    rup = lambda v: -(-v // multiple) * multiple
+    return rup(sum(n_nodes[:batch_size]) + 1), rup(max(sum(n_edges[:batch_size]), 1))
+
+
+def batch_graphs(graphs: Sequence[HostGraph], num_graphs: int, num_nodes: int,
+                 num_edges: int) -> GraphBatch:
+    """Collate host graphs into one padded GraphBatch (NumPy): concatenation
+    with node offsets, then a stable sort of the edges by receiver."""
+    tot_n = sum(g.num_nodes for g in graphs)
+    tot_e = sum(g.num_edges for g in graphs)
+    if len(graphs) > num_graphs or tot_n > num_nodes or tot_e > num_edges:
+        raise ValueError(f"batch needs ({len(graphs)} graphs, {tot_n} nodes, {tot_e} edges)"
+                         f" > budget ({num_graphs}, {num_nodes}, {num_edges})")
+    feat = graphs[0].x.shape[1]
+    x = np.zeros((num_nodes, feat), np.float32)
+    senders = np.full(num_edges, num_nodes - 1, np.int32)
+    receivers = np.full(num_edges, num_nodes - 1, np.int32)
+    edge_mask = np.zeros(num_edges, bool)
+    node_graph = np.full(num_nodes, num_graphs, np.int32)
+    y = np.zeros(num_graphs, np.int32)
+    n_off = e_off = 0
+    for i, g in enumerate(graphs):
+        n, e = g.num_nodes, g.num_edges
+        x[n_off:n_off + n] = g.x
+        senders[e_off:e_off + e] = g.senders + n_off
+        receivers[e_off:e_off + e] = g.receivers + n_off
+        edge_mask[e_off:e_off + e] = True
+        node_graph[n_off:n_off + n] = i
+        y[i] = g.y
+        n_off += n
+        e_off += e
+    order = np.argsort(receivers, kind="stable")
+    return sparse_batch(x, senders[order], receivers[order], edge_mask[order],
+                        np.arange(num_nodes) < n_off, node_graph, y,
+                        np.arange(num_graphs) < len(graphs))

@@ -5,12 +5,18 @@
         [--device cpu]
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
         --inference true --save_dir <d> [--dtype bfloat16] [--device cpu]
+    python -m cal_tpu_torch.main_syn --model CausalGCN --layout sparse
+        --inference true --save_dir <d> [--dtype bfloat16] [--device cpu]
 
 Training runs ``train_causal_syn`` (dense CausalGCN or CausalGAT); ``--save_model``
 checkpoints the best val-o epoch, ``--resume`` continues after it, and
 ``--inference`` restores the newest checkpoint under --save_dir and runs the
-three-branch eval sweep on the test split.  The port runs on CUDA unless
-``--device cpu`` is given (the CPU runs the kernels' plain twins).
+three-branch eval sweep on the test split.  ``--layout sparse`` serves
+CausalGCN on padded edge-list batches (the CSR kernels); the parameters do
+not depend on the layout, so a checkpoint of dense training serves there.
+Sparse training and sparse CausalGAT are not ported yet.  The port runs on
+CUDA unless ``--device cpu`` is given (the CPU runs the kernels' plain
+twins).
 """
 from __future__ import annotations
 

@@ -1,10 +1,15 @@
-"""Causal attention models, dense layout: CausalGCN and CausalGAT.
+"""Causal attention models: CausalGCN and CausalGAT.
 
 Counterpart of cal_tpu/models/causal.py (``intervention_permutation`` and
 ``CausalGNN`` with backbones 'gcn' and 'gat').  Input BN -> linear "gfn"
 projection -> K backbone layers -> factored edge attention and node
-attention -> BN -> both masked context/object GCN convs in ONE fused kernel
+attention -> BN -> both masked context/object GCN convs in ONE fused pass
 -> sum pooling -> three readout MLPs (context, object, intervention).
+
+Layouts: a ``DenseGraphBatch`` runs the dense kernels (the masked convs in
+``fused_gcn_dense_att_dual``); a ``GraphBatch`` (sparse layout, CausalGCN
+only) runs the CSR kernels (the masked convs in
+``gcn_aggregate_sparse_pair``, pooling by ``node_graph``).
 
 * backbone 'gcn': BN -> GCNConv -> ReLU per layer; honors ``with_random``
   and the attention-ablation flags;
@@ -23,10 +28,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from cal_tpu_torch.graph import DenseGraphBatch
+from cal_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from cal_tpu_torch.nn.layers import GATConvLayer, GCNConvLayer, MaskedBatchNorm, ReadoutMLP
 from cal_tpu_torch.ops.attention import edge_attention, global_add_pool, node_attention
 from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
+from cal_tpu_torch.ops.spmm import gcn_aggregate_sparse_pair
 
 
 def intervention_permutation(generator: torch.Generator,
@@ -103,7 +109,7 @@ class CausalGNN(nn.Module):
         co_in = 2 * hidden if cat_or_add == "cat" else hidden
         self.random_readout = ReadoutMLP(co_in, hidden, num_classes, gen)
 
-    def forward(self, g: DenseGraphBatch, eval_random: bool = True,
+    def forward(self, g: DenseGraphBatch | GraphBatch, eval_random: bool = True,
                 train: bool = False, generator: torch.Generator | None = None,
                 dropout_seeds: Sequence[int] | None = None):
         """Returns (c_log_probs, o_log_probs, co_log_probs), each [B, C].
@@ -111,8 +117,11 @@ class CausalGNN(nn.Module):
         ``dropout_seeds`` (one per layer) turn on the GAT layers' attention
         dropout in training."""
         dt = self.dtype
+        sparse = isinstance(g, GraphBatch)
+        if sparse and self.backbone == "gat":
+            raise NotImplementedError(
+                "sparse CausalGAT is not ported yet (ROADMAP queue 2 item 13)")
         x = g.x.to(dt)
-        adj = g.adj.to(dt)
         node_mask = g.node_mask
 
         x = self.bn_feat(x, node_mask, train)
@@ -146,12 +155,15 @@ class CausalGNN(nn.Module):
         xo = self.bno(xo, node_mask, train)
         xc_t, bc = self.context_convs(xc, transform_only=True)
         xo_t, bo = self.objects_convs(xo, transform_only=True)
-        oc, oo = fused_gcn_dense_att_dual(xc_t, xo_t, adj, src, dst)
+        if sparse:
+            oc, oo = gcn_aggregate_sparse_pair(xc_t, xo_t, src, dst, g)
+        else:
+            oc, oo = fused_gcn_dense_att_dual(xc_t, xo_t, g.adj.to(dt), src, dst)
         xc = torch.relu(oc + bc)
         xo = torch.relu(oo + bo)
 
-        xc = global_add_pool(xc, node_mask)
-        xo = global_add_pool(xo, node_mask)
+        xc = global_add_pool(xc, g)
+        xo = global_add_pool(xo, g)
         gm = g.graph_mask
         xc_logis = self.context_readout(xc, gm, train)
         xo_logis = self.objects_readout(xo, gm, train)

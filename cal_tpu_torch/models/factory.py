@@ -11,13 +11,14 @@ _CAUSAL = {"CausalGCN": "gcn", "CausalGIN": "gin", "CausalGAT": "gat"}
 
 def get_model(cfg: Config, num_features: int, num_classes: int) -> CausalGNN:
     """Build the model named by ``cfg.model`` (CausalGCN or CausalGAT; the
-    gin backbone raises until it is ported)."""
+    gin backbone raises until it is ported).  The parameters do not depend
+    on the layout; the model refuses a sparse batch for CausalGAT."""
     if cfg.model not in _CAUSAL:
         raise NotImplementedError(
             f"model {cfg.model!r} not ported yet (ROADMAP queue 1 item 7)")
-    if cfg.layout != "dense":
+    if cfg.layout not in ("dense", "sparse"):
         raise NotImplementedError(
-            "sparse layout not ported yet (ROADMAP queue 1 item 9)")
+            f"layout {cfg.layout!r} not ported yet (ROADMAP queue 1 items 9-10)")
     if not cfg.use_pallas:
         raise NotImplementedError(
             "--use_pallas false (the unfused XLA-style path) is not ported")

@@ -1,16 +1,20 @@
-"""Causal/shortcut attention splits and graph pooling, dense layout.
+"""Causal/shortcut attention splits and graph pooling, dense and sparse
+layouts.
 
 Counterpart of cal_tpu/ops/attention.py.  A linear layer on the
 concatenation ``[x_sender ‖ x_receiver] @ W`` equals
 ``x_sender @ W_src + x_receiver @ W_dst``, and a softmax over the two
 (context, object) channels equals the sigmoid of the channel difference,
-so the edge attention is two [B, N] vectors instead of a [B, N, N, 2] tensor.
+so the edge attention is two node vectors ([B, N] dense, [V] sparse: the
+factored form of both layouts) instead of a per-edge tensor.
 """
 from __future__ import annotations
 
 import torch
 
+from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.ops.fused_gcn import SigmoidEdgeWeight
+from cal_tpu_torch.ops.pool import segment_pool
 
 
 def matvec(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -19,7 +23,7 @@ def matvec(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def edge_attention(x, w_src, w_dst, b):
-    """Factored (context, object) edge weights of the dense layout.
+    """Factored (context, object) edge weights, x [B, N, H] or [V, H].
 
     ``w_src`` [H, 2] multiplies sender features, ``w_dst`` receiver
     features (first and second half of the reference ``edge_att_mlp``
@@ -40,7 +44,11 @@ def node_attention(x, w, b):
     return att[..., 0], att[..., 1]
 
 
-def global_add_pool(x, node_mask):
-    """Masked sum over nodes, [B, N, H] -> [B, H], accumulated and returned
-    in f32 (the readouts run in full precision)."""
-    return (x * node_mask[..., None].to(x.dtype)).sum(dim=1, dtype=torch.float32)
+def global_add_pool(x, g):
+    """Sum of node features per graph, accumulated and returned in f32 (the
+    readouts run in full precision).  Dense: masked sum, [B, N, H] -> [B, H].
+    Sparse: the segment-sum kernel of ``ops/pool.py`` over ``node_graph``,
+    [V, H] -> [G, H] with the trash segment G (padded nodes) dropped."""
+    if isinstance(g, GraphBatch):
+        return segment_pool(x, g.node_graph, g.num_graphs + 1)[:g.num_graphs]
+    return (x * g.node_mask[..., None].to(x.dtype)).sum(dim=1, dtype=torch.float32)

@@ -2,8 +2,10 @@
 (``train_causal_syn`` and ``evaluate_causal``).
 
 Both serve the dense CausalGCN and CausalGAT alike (the model comes from
-``get_model``).  ``train_causal_syn``: train/val/test loaders, Adam with
-the per-epoch cosine schedule, and the test accuracies taken at the epoch of best val
+``get_model``); ``evaluate_causal`` also serves the sparse-layout CausalGCN
+(``--layout sparse``), whose training waits for the sparse backward.
+``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
+cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
 There is no device-side epoch here: ``--scan_epochs`` is accepted and runs
 the per-step loop, whose numerics the JAX package's scan reproduces
@@ -16,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from cal_tpu_torch.data.loader import Loader, compute_budgets
+from cal_tpu_torch.data.loader import Loader, compute_budgets, want_pack
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import get_model
 from cal_tpu_torch.train.optim import cosine_lr
@@ -62,9 +64,10 @@ def make_loaders(train_set, val_set, test_set, cfg: Config):
     """Loaders of the three splits with budgets over all of them (one node
     budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer."""
     sets = (train_set, val_set, test_set)
-    budgets = compute_budgets([g for s in sets for g in s], cfg.batch_size)
+    budgets = compute_budgets([g for s in sets for g in s], cfg.batch_size, cfg.layout)
     train, val, test = (Loader(s, cfg.batch_size, shuffle=(i == 0), budgets=budgets,
-                               seed=(cfg.seed, 0, 0)[i]) for i, s in enumerate(sets))
+                               seed=(cfg.seed, 0, 0)[i], layout=cfg.layout)
+                        for i, s in enumerate(sets))
     # The JAX trainer initializes its state from next(iter(train_loader)),
     # which draws one shuffle before epoch 1: draw and drop it, so epoch e
     # sees the same permutation for the same seed.
@@ -168,10 +171,15 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
 def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
                     num_classes: int | None = None) -> dict:
     """Restore the newest checkpoint from ``cfg.save_dir`` and run the
-    three-branch eval sweep over ``test_set``.  Returns the accuracies, the
+    three-branch eval sweep over ``test_set`` in ``cfg.layout`` (budgets
+    over the test set, as cal_tpu's).  Returns the accuracies, the
     checkpoint step, the graph count and the sweep's wall seconds."""
     device = resolve_device(cfg.device)
-    loader = Loader(test_set, cfg.batch_size, shuffle=False)
+    if want_pack(cfg.layout, cfg.pack_batches, test_set, cfg.batch_size):
+        raise NotImplementedError(
+            "budget-packed sparse batching is not ported yet (ROADMAP queue 1 item 9); "
+            "pass --pack_batches false")
+    loader = Loader(test_set, cfg.batch_size, shuffle=False, layout=cfg.layout)
     model = get_model(cfg, test_set[0].x.shape[1], num_classes or cfg.num_classes)
     ckpt = Checkpointer(cfg.save_dir)
     step = ckpt.latest_step()

@@ -4,7 +4,9 @@
 PyTorch runs the step eagerly: forward with ``train=True``, the three
 losses, backward (the dual masked conv's and, for CausalGAT, the flash-GAT
 backward kernels included), Adam, and the BatchNorm running stats, which
-the forward moves in place.
+the forward moves in place.  The eval step takes a dense batch
+(``PackedDenseBatch``) or a sparse one (``GraphBatch``); the train step
+takes dense batches only until the sparse backward kernels are ported.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cal_tpu_torch.graph import DenseGraphBatch, PackedDenseBatch, to_dense
+from cal_tpu_torch.graph import DenseGraphBatch, GraphBatch, PackedDenseBatch, to_dense
 from cal_tpu_torch.models.factory import get_model
 from cal_tpu_torch.train.losses import causal_losses, correct_count
 from cal_tpu_torch.train.optim import make_optimizer, set_lr
@@ -30,10 +32,13 @@ class TrainState:
     step: int = 0
 
 
-def _as_graph(batch: PackedDenseBatch, dtype: torch.dtype | None = None
-              ) -> DenseGraphBatch:
-    """Materialize the device graph; the adjacency is built directly in the
-    model's compute dtype."""
+def _as_graph(batch: PackedDenseBatch | GraphBatch, dtype: torch.dtype | None = None
+              ) -> DenseGraphBatch | GraphBatch:
+    """The device graph: a dense batch's adjacency is built directly in the
+    model's compute dtype; a sparse batch is used as it is (the model casts
+    its features)."""
+    if isinstance(batch, GraphBatch):
+        return batch
     return to_dense(batch, dtype)
 
 
@@ -85,6 +90,10 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
     generator = torch.Generator(device=device)
 
     def step(batch: PackedDenseBatch, sums: torch.Tensor | None) -> torch.Tensor | None:
+        if isinstance(batch, GraphBatch):
+            raise NotImplementedError(
+                "sparse-layout training is not ported yet (ROADMAP queue 1 item 9: "
+                "the sparse backward kernels come with the next slice)")
         if not (np.asarray(batch.n_nodes) > 0).any():
             return sums
         generator.manual_seed(step_seed(seed, state.step))
@@ -119,7 +128,7 @@ def make_causal_eval_step(model, eval_random: bool):
     and the co-branch is the deterministic xc + xo."""
 
     @torch.no_grad()
-    def step(batch: PackedDenseBatch, generator: torch.Generator | None = None):
+    def step(batch: PackedDenseBatch | GraphBatch, generator: torch.Generator | None = None):
         g = _as_graph(batch, model.dtype)
         c_logs, o_logs, co_logs = model(g, eval_random=eval_random, train=False,
                                         generator=generator)

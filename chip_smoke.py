@@ -27,7 +27,25 @@
    c. gradient check: one bf16 step's gradients at full width, kernels
       against the plain twins on the card (GAT with dropout on, one seed),
       and one f32 step on 16 graphs, card against CPU; then the device time
-      of one warm bf16 train step by operator.
+      of one warm bf16 train step by operator;
+4. sparse layout (CausalGCN serving, ``--layout sparse``) on the canonical
+   dataset size (data_num 2000: batches of 128 graphs at V = 31,744 nodes,
+   E = 128,000 edges):
+   a. kernel phase: on a real serving batch and on a batch of 128
+      REDDIT-shaped threads (hubs of thousands of edges), holds the sender
+      degree (K1), pair SpMM (K2), plain SpMM (K3) and pool (K4) kernels
+      against their plain twins, bf16 and f32, and times kernel, twin and a
+      PyTorch library call (torch.sparse.mm on a CSR of materialized
+      coefficients, index_add_), cold L2;
+   b. serving: saves a seeded model, drives ``main_syn --layout sparse
+      --inference`` with the counters at 0 and fails unless K1-K4 launched
+      4, 1, 3 and 2 times per batch and no dense kernel launched; serves the
+      checkpoint of the CausalGCN training run (3.b) through both layouts
+      and fails unless their f32 eval counts are equal and their f32
+      log-probs agree batch by batch (warm sparse and dense serving rates
+      beside); checks the forward against the twins on
+      the card (bf16) and against the CPU (f32, 16 graphs); the device time
+      of one forward.
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -90,6 +108,16 @@ GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # bf16 ulps propagate through BatchNorm and the f32 readouts); f32 on a small
 # input, card against CPU (cuBLAS and the CPU sum in other orders).
 FWD_TOL = {"bfloat16": (5e-2, 5e-2), "float32": (1e-4, 1e-4)}
+SPARSE_DATA_NUM = 2000    # canonical size: test split 1600 graphs, V 31,744, E 128,000
+# Sparse kernels vs their twins (same rounding points, csrc/spmm.cu header).
+# K1 degrees (f32 sums of sigmoids, another order, expf): rtol 1e-5.  K2/K3:
+# f32 sums over up to thousands of edges (REDDIT hubs) in another order with
+# fmaf; bf16 outputs rounded once, so one bf16 ulp (2^-7 relative at most)
+# where the f32 sums straddle a rounding boundary.  K4: f32 sums of up to
+# 3,800 rows in another order.
+DEG_TOL = (1e-4, 1e-5)
+SPARSE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 8e-3)}
+POOL_TOL = (1e-3, 1e-4)
 
 
 def emit(obj) -> None:
@@ -357,10 +385,10 @@ def _device_rows(prof):
                   key=lambda r: -r[1])
 
 
-def profile_forward(torch, model, batch, to_dense, top=16) -> None:
-    """Device time of one warm bf16 forward (adjacency build included), by
-    operator, from torch.profiler; and its wall time on the host clock
-    (median of 10, each ending in a synchronize)."""
+def profile_forward(torch, model, batch, to_dense, top=16, layout="dense") -> None:
+    """Device time of one warm bf16 forward (dense: adjacency build
+    included), by operator, from torch.profiler; and its wall time on the
+    host clock (median of 10, each ending in a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
     run = lambda: model(to_dense(batch, torch.bfloat16), eval_random=False)
@@ -376,7 +404,7 @@ def profile_forward(torch, model, batch, to_dense, top=16) -> None:
             run()
             torch.cuda.synchronize()
     rows = _device_rows(prof)
-    emit({"phase": "profile_forward", "model": model_name(model),
+    emit({"phase": "profile_forward", "model": model_name(model), "layout": layout,
           "batch": list(batch.x.shape), "wall_ms": fwd_ms,
           "device_ms": sum(r[1] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
@@ -658,6 +686,279 @@ def profile_train_step(torch, test_set, batch, model: str, top=20) -> None:
           "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
 
+def _csr_coefs(torch, g, src, dst, deg, dis):
+    """Per-edge coefficients of the sparse convs (dead edges 0), for the
+    library calls: [pair c, pair o] with logits, [plain] without."""
+    s, r = g.senders.long(), g.receivers.long()
+    live = (g.edge_mask & (s != r)).float()
+    if src is None:
+        return [dis[0][s] * dis[0][r] * live]
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r])
+    return [dis[0][s] * sig * dis[0][r] * live, dis[1][s] * (1.0 - sig) * dis[1][r] * live]
+
+
+def _library_spmm(torch, g, coefs, xs):
+    """One torch.sparse.mm over a block-diagonal CSR of the materialized
+    coefficients (one block per branch) and the stacked features; the CSR
+    and the stacking are built outside the timed call."""
+    v = g.num_nodes
+    nnz = g.senders.shape[0]
+    crow = torch.cat([g.recv.ptr[:-1] + k * nnz for k in range(len(xs))]
+                     + [g.recv.ptr[-1:] + (len(xs) - 1) * nnz])
+    col = torch.cat([g.senders + k * v for k in range(len(xs))])
+    x = torch.cat(xs)
+    a = torch.sparse_csr_tensor(crow, col, torch.cat(coefs).to(x.dtype),
+                                size=(len(xs) * v, len(xs) * v))
+    return lambda: torch.sparse.mm(a, x)
+
+
+def sparse_kernel_rows(torch, g, label, peaks, flush):
+    """K1-K4 against their twins on one sparse batch ``g`` (on the card), in
+    bf16 and f32, with their times; returns {dtype: {kernel: row}}."""
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
+    from cal_tpu_torch.ops.spmm import (
+        coef_spmm_plain, pair_coef_spmm, pair_sender_degree, pair_sender_degree_plain,
+        plain_coef_spmm)
+
+    bw, _, f32_peak = peaks
+    v, e = g.num_nodes, g.senders.shape[0]
+    n_live = int((g.edge_mask & (g.senders != g.receivers)).sum())
+    g1 = g.num_graphs + 1
+    csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)          # ptr, chunk_ptr, chunk_row
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        xc = torch.randn((v, H), generator=gen, device="cuda").to(dt)
+        xo = torch.randn((v, H), generator=gen, device="cuda").to(dt)
+        src = torch.randn(v, generator=gen, device="cuda").to(dt)
+        dst = (2.0 * torch.randn(v, generator=gen, device="cuda")).to(dt)
+        rows = {}
+
+        def row(name, fn, plain, nbytes, flops, err, tol, lib_fn=None, lib_call=None):
+            t_bytes, t_ops = nbytes / bw, flops / f32_peak
+            r = {"name": name, "batch": label, "dtype": dt_name, "max_abs_err": err,
+                 "atol": tol[0], "rtol": tol[1],
+                 "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+                 "library_ms": None if lib_fn is None else time_ms(torch, lib_fn, flush),
+                 "library_call": lib_call, "bytes": nbytes, "flops": flops,
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "nodes": v, "edges": e, "live_edges": n_live}
+            emit({"phase": "sparse_kernel", **r})
+            rows[name] = r
+
+        def held(name, got, ref, tol):
+            got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+            torch.cuda.synchronize()
+            errs = []
+            for a, b in zip(got, ref, strict=True):
+                check(a.dtype == b.dtype and a.shape == b.shape, f"{name} {dt_name} misshapen")
+                check(bool(torch.isfinite(a.float()).all()), f"{name} {dt_name} on {label} not finite")
+                err, over = max_excess(torch, a, b, *tol)
+                check(over <= 0, f"{name} {dt_name} on {label} differs from its plain twin: {err}")
+                errs.append(err)
+            return max(errs)
+
+        # K1, both uses: the pair logits and zero logits (the plain conv's degree)
+        degs = pair_sender_degree(src, dst, g)
+        err = held("pair_sender_degree", degs, pair_sender_degree_plain(src, dst, g), DEG_TOL)
+        zero = pair_sender_degree(None, None, g)
+        held("pair_sender_degree", zero, pair_sender_degree_plain(None, None, g), (0.0, 0.0))
+        row("pair_sender_degree", lambda: pair_sender_degree(src, dst, g),
+            lambda: pair_sender_degree_plain(src, dst, g),
+            2 * v * elt + 9 * e + csr(g.send) + 2 * v * 4, 4 * n_live, err, DEG_TOL,
+            None, "none: no single PyTorch call computes the sigmoid-weighted sender sums")
+
+        deg = degs + 1.0
+        dis = torch.rsqrt(deg)
+        tol = SPARSE_TOL[dt_name]
+        err = held("pair_coef_spmm", pair_coef_spmm(xc, xo, src, dst, deg, dis, g),
+                   tuple(coef_spmm_plain([xc, xo], src, dst, deg, dis, g)), tol)
+        lib = _library_spmm(torch, g, _csr_coefs(torch, g, src, dst, deg, dis), [xc, xo])
+        row("pair_coef_spmm", lambda: pair_coef_spmm(xc, xo, src, dst, deg, dis, g),
+            lambda: coef_spmm_plain([xc, xo], src, dst, deg, dis, g),
+            4 * v * H * elt + 2 * v * elt + 5 * e + csr(g.recv) + 4 * v * 4,
+            2 * 2 * H * n_live, err, tol, lib,
+            "torch.sparse.mm(block-diagonal CSR [2V, 2V], [xc; xo]), coefficients "
+            "materialized outside the call, no self term")
+
+        pdeg = 2.0 * zero[:1] + 1.0
+        pdis = torch.rsqrt(pdeg)
+        err = held("plain_coef_spmm", plain_coef_spmm(xc, pdeg, pdis, g),
+                   coef_spmm_plain([xc], None, None, pdeg, pdis, g)[0], tol)
+        lib = _library_spmm(torch, g, _csr_coefs(torch, g, None, None, pdeg, pdis), [xc])
+        row("plain_coef_spmm", lambda: plain_coef_spmm(xc, pdeg, pdis, g),
+            lambda: coef_spmm_plain([xc], None, None, pdeg, pdis, g),
+            2 * v * H * elt + 5 * e + csr(g.recv) + 2 * v * 4, 2 * H * n_live, err, tol, lib,
+            "torch.sparse.mm(CSR [V, V], x), coefficients materialized outside the "
+            "call, no self term")
+
+        ng = g.node_graph
+        err = held("segment_pool", segment_pool(xc, ng, g1), segment_pool_plain(xc, ng, g1),
+                   POOL_TOL)
+        pooled = torch.zeros((g1, H), device="cuda")
+        ng64, x32 = ng.long(), xc.float()
+        row("segment_pool", lambda: segment_pool(xc, ng, g1),
+            lambda: segment_pool_plain(xc, ng, g1), v * H * elt + 4 * v + g1 * H * 4,
+            v * H, err, POOL_TOL, lambda: pooled.index_add_(0, ng64, x32),
+            "out.index_add_(0, node_graph, x.float()) into a preallocated f32 out")
+        out[dt_name] = rows
+    return out
+
+
+def sparse_twins():
+    """Patches that route every sparse kernel wrapper to its plain twin."""
+    import contextlib
+    from unittest import mock
+
+    import cal_tpu_torch.ops.attention as att_mod
+    import cal_tpu_torch.ops.spmm as spmm_mod
+    from cal_tpu_torch.ops.pool import segment_pool_plain
+
+    plain = spmm_mod.coef_spmm_plain
+    stack = contextlib.ExitStack()
+    for mod, name, fn in (
+            (spmm_mod, "pair_sender_degree", spmm_mod.pair_sender_degree_plain),
+            (spmm_mod, "pair_coef_spmm",
+             lambda xc, xo, src, dst, deg, dis, g: tuple(plain([xc, xo], src, dst, deg, dis, g))),
+            (spmm_mod, "plain_coef_spmm",
+             lambda x, deg, dis, g: plain([x], None, None, deg, dis, g)[0]),
+            (att_mod, "segment_pool", segment_pool_plain)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
+def sparse_counters() -> dict:
+    """Launch counters of the sparse serving path (and the dense kernels,
+    which it must not launch)."""
+    from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
+    from cal_tpu_torch.ops.pool import segment_pool
+    from cal_tpu_torch.ops.spmm import pair_coef_spmm, pair_sender_degree, plain_coef_spmm
+
+    return {"pair_sender_degree": pair_sender_degree, "pair_coef_spmm": pair_coef_spmm,
+            "plain_coef_spmm": plain_coef_spmm, "segment_pool": segment_pool,
+            "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual}
+
+
+def sparse_serving_phase(torch, test_set, trained_dir: str) -> dict:
+    """CausalGCN through ``main_syn --layout sparse --inference`` at the
+    canonical size, held to the twins and the CPU; then the checkpoint that
+    the CausalGCN training phase saved in ``trained_dir`` served through
+    both layouts, whose f32 eval counts must be equal."""
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.main_syn import main
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.train.causal import evaluate_causal
+    from cal_tpu_torch.utils.checkpoint import Checkpointer
+    from cal_tpu_torch.utils.config import Config
+
+    model = "CausalGCN"
+    save_dir = os.path.join(HERE, "build", "chip_smoke_ckpt_sparse")
+    cfg = Config(model=model, hidden=H, layers=LAYERS, batch_size=B, dtype="bfloat16",
+                 seed=SEED, data_num=SPARSE_DATA_NUM, inference=True, save_dir=save_dir,
+                 device="cuda")
+    feat = test_set[0].x.shape[1]
+    net = get_model(cfg, feat, cfg.num_classes)
+    Checkpointer(save_dir).save(0, net, {"epoch": 0})
+    argv = ["--model", model, "--inference", "true", "--save_dir", save_dir, "--layout",
+            "sparse", "--data_num", str(SPARSE_DATA_NUM), "--seed", str(SEED), "--dtype",
+            "bfloat16", "--hidden", str(H), "--layers", str(LAYERS), "--batch_size", str(B),
+            "--device", "cuda"]
+    counts = sparse_counters()
+    for k in counts.values():
+        k.launches = 0
+    res = main(argv)
+    launches = {n: k.launches for n, k in counts.items()}
+    n_batches = -(-len(test_set) // B)
+    want = {"pair_sender_degree": 4 * n_batches, "pair_coef_spmm": n_batches,
+            "plain_coef_spmm": 3 * n_batches, "segment_pool": 2 * n_batches,
+            "adj_build": 0, "fused_gcn_dense_att_dual": 0}
+    check(launches == want, f"sparse serving launches {launches}, expected {want}")
+    check(res["graphs"] == len(test_set), "sparse serving sweep missed graphs")
+    emit({"phase": "sparse_serving", "model": model, "graphs": res["graphs"],
+          "batches": n_batches, "seconds": res["seconds"],
+          "graphs_per_s": res["graphs"] / res["seconds"], "test_acc_co": res["test_acc_co"],
+          "test_acc_c": res["test_acc_c"], "test_acc_o": res["test_acc_o"],
+          "launches": launches, "hidden": H, "layers": LAYERS, "batch": B,
+          "dtype": "bfloat16"})
+
+    # the trained checkpoint through both layouts: warm bf16 sweeps, then f32
+    trained = cfg.replace(save_dir=trained_dir)
+    warm = {lay: evaluate_causal(test_set, trained.replace(layout=lay))
+            for lay in ("sparse", "dense")}
+    f32 = {lay: evaluate_causal(test_set, trained.replace(layout=lay, dtype="float32"))
+           for lay in ("sparse", "dense")}
+    keys = ("test_acc_co", "test_acc_c", "test_acc_o")
+    loader = Loader(test_set, B, layout="sparse")
+    t0 = time.perf_counter()
+    host = list(loader.host_batches())
+    pack_ms = (time.perf_counter() - t0) / len(host) * 1e3
+    emit({"phase": "sparse_serving_warm", "graphs": warm["sparse"]["graphs"],
+          "sparse_graphs_per_s": warm["sparse"]["graphs"] / warm["sparse"]["seconds"],
+          "dense_graphs_per_s": warm["dense"]["graphs"] / warm["dense"]["seconds"],
+          "sparse_host_pack_ms_per_batch": pack_ms,
+          "f32_acc_sparse": [f32["sparse"][k] for k in keys],
+          "f32_acc_dense": [f32["dense"][k] for k in keys],
+          "bf16_acc_sparse": [warm["sparse"][k] for k in keys],
+          "bf16_acc_dense": [warm["dense"][k] for k in keys],
+          "bf16_acc_diff": [warm["sparse"][k] - warm["dense"][k] for k in keys]})
+    check(all(f32["sparse"][k] == f32["dense"][k] for k in keys),
+          f"f32 eval counts differ between layouts: {f32}")
+    # the same checkpoint's f32 log-probs, batch by batch, sparse against dense
+    m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
+    Checkpointer(trained_dir).restore(m32)
+    m32 = m32.to("cuda").eval()
+    lay_err = 0.0
+    with torch.no_grad():
+        for sb, db in zip(host, Loader(test_set, B).host_batches(), strict=True):
+            sb = sb.to("cuda")
+            a = m32(sb, eval_random=False)
+            b = m32(to_dense(db.to("cuda"), torch.float32), eval_random=False)
+            for u, w in zip(a, b):
+                err, over = max_excess(torch, u[sb.graph_mask], w[sb.graph_mask],
+                                       *FWD_TOL["float32"])
+                check(over <= 0, f"f32 sparse and dense log-probs differ by {err}")
+                lay_err = max(lay_err, err)
+    emit({"phase": "sparse_vs_dense_f32", "graphs": len(test_set), "max_abs_err": lay_err,
+          "tol": list(FWD_TOL["float32"])})
+
+    # one batch: kernels against the twins (bf16), card against CPU (f32)
+    batch = host[0].to("cuda")
+    check((batch.num_nodes, batch.senders.shape[0]) == (31744, 128000),
+          f"sparse batch V, E = {batch.num_nodes}, {batch.senders.shape[0]}")
+    net = net.to("cuda").eval()
+    with torch.no_grad():
+        out_k = net(batch, eval_random=False)
+        with sparse_twins():
+            out_p = net(batch, eval_random=False)
+    atol, rtol = FWD_TOL["bfloat16"]
+    errs = []
+    for a, b in zip(out_k, out_p):
+        check(a.shape == (B, cfg.num_classes) and bool(torch.isfinite(a).all()),
+              "sparse log-probs not finite or misshapen")
+        err, over = max_excess(torch, a, b, atol, rtol)
+        check(over <= 0, f"sparse bf16 forward differs from the plain twins by {err}")
+        errs.append(err)
+    m32 = get_model(cfg.replace(dtype="float32", layout="sparse"), feat, cfg.num_classes).eval()
+    small = next(Loader(test_set[:16], 16, layout="sparse").host_batches())
+    with torch.no_grad():
+        ref = m32(small.to("cpu"), eval_random=False)
+        got = m32.to("cuda")(small.to("cuda"), eval_random=False)
+    atol32, rtol32 = FWD_TOL["float32"]
+    errs32 = []
+    for a, b in zip(got, ref):
+        err, over = max_excess(torch, a.cpu(), b, atol32, rtol32)
+        check(over <= 0, f"sparse f32 forward on the card differs from the CPU by {err}")
+        errs32.append(err)
+    emit({"phase": "sparse_forward_check", "bf16_vs_plain_max_abs_err": max(errs),
+          "bf16_tol": [atol, rtol], "f32_card_vs_cpu_max_abs_err": max(errs32),
+          "f32_tol": [atol32, rtol32], "f32_graphs": 16})
+    profile_forward(torch, net, batch, lambda b, dt: b, layout="sparse")
+    return launches
+
 
 # kernel row -> (launch counter, model whose training run is its main path,
 # source, the TPU kernel it replaces)
@@ -674,6 +975,14 @@ KERNEL_ROWS = {
                       "cal_tpu/ops/pallas_gat.py:92"),
     "flash_gat_bwd": ("flash_gat_bwd", "CausalGAT", "cal_tpu_torch/csrc/flash_gat.cu",
                       "cal_tpu/ops/pallas_gat.py:137"),
+}
+# sparse kernel row -> (source, the TPU kernel it replaces); launches come from
+# the sparse serving run, its main path
+SPARSE_KERNEL_ROWS = {
+    "pair_sender_degree": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1222"),
+    "pair_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1292"),
+    "plain_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1032"),
+    "segment_pool": ("cal_tpu_torch/csrc/pool.cu", "cal_tpu/ops/pallas_pool.py:79"),
 }
 
 
@@ -728,6 +1037,33 @@ def main() -> int:
         grad_check(torch, test_set, batch, model)
         profile_train_step(torch, test_set, batch, model)
 
+    # sparse layout: kernels on a serving batch and a REDDIT-shaped batch,
+    # then CausalGCN serving through main_syn --layout sparse
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+
+    t0 = time.perf_counter()
+    ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
+    _, _, sparse_test, _ = dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4,
+                                              seed=SEED)
+    del ds
+    syn_batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
+    reddit = reddit_graphs(B, seed=SEED, feat=10)
+    reddit_batch = next(Loader(reddit, B, layout="sparse").host_batches()).to("cuda")
+    deg = lambda g: (g.recv.ptr[1:-1] - g.recv.ptr[:-2]).max().item()
+    emit({"phase": "sparse_data", "seconds": time.perf_counter() - t0,
+          "test_graphs": len(sparse_test),
+          "synthetic_batch": {"V": syn_batch.num_nodes, "E": syn_batch.senders.shape[0],
+                              "live_edges": int(syn_batch.edge_mask.sum()),
+                              "max_in_degree": deg(syn_batch)},
+          "reddit_batch": {"V": reddit_batch.num_nodes, "E": reddit_batch.senders.shape[0],
+                           "live_edges": int(reddit_batch.edge_mask.sum()),
+                           "max_in_degree": deg(reddit_batch)}})
+    sparse_rows = sparse_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    sparse_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    del syn_batch, reddit_batch
+    sparse_launches = sparse_serving_phase(
+        torch, sparse_test, os.path.join(HERE, "build", "chip_smoke_train_CausalGCN"))
+
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
     rows = []
@@ -742,6 +1078,15 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "dtype": "bfloat16"})
+    for kernel, (src, rep) in SPARSE_KERNEL_ROWS.items():
+        r = sparse_rows["bfloat16"][kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": sparse_launches[kernel],
+                     "launches_by_run": {"serve_sparse_CausalGCN": sparse_launches[kernel]},
+                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "dtype": "bfloat16"})
     check(all(r["launches"] > 0 for r in rows), "a kernel row has no launch")
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -272,3 +272,112 @@ def test_flash_wrappers_raise_on_mixed_devices(cuda):
         flash_gat_fwd(ti, ti, torch.zeros((1, 4, 4)), xh)
     with pytest.raises(ValueError):
         flash_gat_bwd(ti, ti, torch.zeros((1, 4, 4), device=cuda), xh, ti, ti, xh.cpu())
+
+
+# ---- sparse layout: K1-K4 (csrc/spmm.cu, csrc/pool.cu) --------------------
+# See chip_smoke.py DEG_TOL, SPARSE_TOL and POOL_TOL: kernel and twin share
+# the rounding points; f32 sums in another order, fmaf and expf (a few ulp);
+# bf16 outputs may land one bf16 ulp (2^-7 relative at most) apart when the
+# f32 sums straddle a rounding boundary.  (atol, rtol)
+DEG_TOL = (1e-4, 1e-5)
+SPARSE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 8e-3)}
+POOL_TOL = (1e-3, 1e-4)
+
+
+def _sparse_graph(device, v, e, hub, pad, seed, isolated=0):
+    """A receiver-sorted GraphBatch with self loops, a hub (``hub`` in- and
+    out-edges at node 3), ``pad`` padded edges at node V-1 and the last
+    ``isolated`` nodes without edges; node_graph cuts V into 5 graphs and
+    the trash segment."""
+    from cal_tpu_torch.graph import sparse_batch
+
+    rng = np.random.default_rng(seed)
+    live_v = v - 1 - isolated
+    s = rng.integers(0, live_v, e)
+    r = rng.integers(0, live_v, e)
+    s[: e // 30] = r[: e // 30]                           # self loops
+    s = np.concatenate([s, np.full(hub, 3), rng.integers(0, live_v, hub)])
+    r = np.concatenate([r, rng.integers(0, live_v, hub), np.full(hub, 3)])
+    o = np.argsort(r, kind="stable")
+    s = np.concatenate([s[o], np.full(pad, v - 1)])
+    r = np.concatenate([r[o], np.full(pad, v - 1)])
+    mask = np.arange(s.size) < s.size - pad
+    ng = np.minimum(np.arange(v) * 5 // max(v - 40, 1), 5).astype(np.int32)
+    return sparse_batch(np.zeros((v, 1), np.float32), s, r, mask, ng < 5, ng,
+                        np.zeros(5, np.int32), np.ones(5, bool)).to(device)
+
+
+@pytest.mark.parametrize("v,e,hub,pad,h,dtype", [
+    (300, 900, 0, 0, 32, "float32"),
+    (1000, 4000, 700, 300, 128, "bfloat16"),
+    (1000, 4000, 700, 300, 128, "float32"),
+    (2048, 6000, 3000, 5000, 64, "bfloat16"),
+    (512, 1500, 40, 33, 256, "bfloat16"),
+])
+def test_sparse_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
+    from cal_tpu_torch.ops.spmm import (
+        coef_spmm_plain, pair_coef_spmm, pair_sender_degree, pair_sender_degree_plain,
+        plain_coef_spmm)
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(v * h)
+    xc, xo = (torch.randn((v, h), generator=gen, device=cuda).to(DT[dtype]) for _ in range(2))
+    src = torch.randn(v, generator=gen, device=cuda).to(DT[dtype])
+    dst = (2 * torch.randn(v, generator=gen, device=cuda)).to(DT[dtype])
+    atol, rtol = SPARSE_TOL[dtype]
+    before = (pair_sender_degree.launches, pair_coef_spmm.launches,
+              plain_coef_spmm.launches, segment_pool.launches)
+
+    degs = pair_sender_degree(src, dst, g)
+    torch.testing.assert_close(degs, pair_sender_degree_plain(src, dst, g), atol=DEG_TOL[0],
+                               rtol=DEG_TOL[1])
+    deg = degs + 1.0
+    dis = torch.rsqrt(deg)
+    got = pair_coef_spmm(xc, xo, src, dst, deg, dis, g)
+    ref = coef_spmm_plain([xc, xo], src, dst, deg, dis, g)
+    for a, b in zip(got, ref):
+        assert a.dtype == DT[dtype] and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+    zero = pair_sender_degree(None, None, g)
+    torch.testing.assert_close(zero, pair_sender_degree_plain(None, None, g), atol=0, rtol=0)
+    pdeg = 2.0 * zero[:1] + 1.0
+    got = plain_coef_spmm(xc, pdeg, torch.rsqrt(pdeg), g)
+    (ref,) = coef_spmm_plain([xc], None, None, pdeg, torch.rsqrt(pdeg), g)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+    pooled = segment_pool(xc, g.node_graph, 6)
+    torch.testing.assert_close(pooled, segment_pool_plain(xc, g.node_graph, 6),
+                               atol=POOL_TOL[0], rtol=POOL_TOL[1])
+    torch.cuda.synchronize()
+    assert (pair_sender_degree.launches, pair_coef_spmm.launches, plain_coef_spmm.launches,
+            segment_pool.launches) == (before[0] + 2, before[1] + 1, before[2] + 1,
+                                       before[3] + 1)
+
+
+def test_sparse_kernels_are_deterministic(cuda):
+    from cal_tpu_torch.ops.spmm import gcn_aggregate_sparse_pair
+
+    g = _sparse_graph(cuda, 2048, 6000, 3000, 5000, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xc, xo = (torch.randn((2048, 128), generator=gen, device=cuda) for _ in range(2))
+    src, dst = (torch.randn(2048, generator=gen, device=cuda) for _ in range(2))
+    a = gcn_aggregate_sparse_pair(xc, xo, src, dst, g)
+    b = gcn_aggregate_sparse_pair(xc, xo, src, dst, g)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def test_sparse_wrappers_raise_on_mixed_devices(cuda):
+    from cal_tpu_torch.ops.pool import segment_pool
+    from cal_tpu_torch.ops.spmm import pair_coef_spmm, pair_sender_degree
+
+    g = _sparse_graph(cuda, 64, 100, 0, 5, seed=2)
+    x = torch.zeros((64, 32))
+    with pytest.raises(ValueError):
+        pair_sender_degree(x[:, 0], x[:, 0], g)
+    deg = torch.ones((2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        pair_coef_spmm(x, x, x[:, 0], x[:, 0], deg, deg, g)
+    with pytest.raises(ValueError):
+        segment_pool(x.to(cuda), g.node_graph.cpu(), 6)

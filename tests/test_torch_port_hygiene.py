@@ -44,7 +44,8 @@ def _run(code):
 def test_import_leaves_jax_out():
     code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.ops.adj_build, "
             "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.ops.flash_gat, "
-            "cal_tpu_torch.ops.gat, cal_tpu_torch.kernels.build, "
+            "cal_tpu_torch.ops.gat, cal_tpu_torch.ops.spmm, cal_tpu_torch.ops.pool, "
+            "cal_tpu_torch.ops.segment, cal_tpu_torch.kernels.build, cal_tpu_torch.seed_sweep, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.losses, "
             "cal_tpu_torch.utils.logging\n"
@@ -75,6 +76,10 @@ def test_kernel_modules_import_without_nvcc():
             "assert f.fused_gcn_dense_att_dual_bwd.launches == 0\n"
             "assert fg.flash_gat_fwd.launches == 0 and fg.flash_gat_bwd.launches == 0\n"
             "from cal_tpu_torch.kernels import build\n"
-            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn']")
+            "import cal_tpu_torch.ops.spmm as sp, cal_tpu_torch.ops.pool as po\n"
+            "assert sp.pair_sender_degree.launches == sp.pair_coef_spmm.launches == 0\n"
+            "assert sp.plain_coef_spmm.launches == po.segment_pool.launches == 0\n"
+            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn', 'pool', "
+            "'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr

@@ -1,0 +1,369 @@
+"""The port's sparse layout (CausalGCN serving) against the JAX package.
+
+Host batches against ``cal_tpu.data.loader.Loader(layout="sparse")``; the
+plain twins of the sender-degree, pair SpMM, plain SpMM and pool kernels
+against cal_tpu's Pallas kernels (interpret mode on the CPU, small tile
+plans as in tests/test_pallas_spmm.py) and the XLA reference; the sparse
+CausalGCN eval forward against ``CausalGNN(backbone="gcn")`` on a tiled
+GraphBatch; and ``main_syn --layout sparse --inference`` against the dense
+path.  Small sizes (hidden 16, 2 layers, V <= 1024)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cal_tpu.data.loader import Loader as JaxLoader
+from cal_tpu.graph import HostGraph as JaxHostGraph
+from cal_tpu.models.causal import CausalGNN as JaxCausalGNN
+from cal_tpu.ops.gcn import gcn_aggregate_sparse as jax_gcn_sparse
+from cal_tpu.ops.pallas_pool import mxu_pool
+from cal_tpu.ops.pallas_spmm import (
+    _pair_stats_call,
+    build_tiles,
+    gcn_aggregate_sparse_plain_pallas,
+    gcn_aggregate_sparse_sigmoid_pair_pallas,
+)
+from cal_tpu_torch.data.loader import Loader, compute_budgets, want_pack
+from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+from cal_tpu_torch.graph import (
+    CHUNK_EDGES, MAX_CHUNKS, HostGraph, batch_graphs, sparse_batch)
+from cal_tpu_torch.main_syn import main
+from cal_tpu_torch.models.causal import CausalGNN
+from cal_tpu_torch.ops.gcn import gcn_aggregate_sparse
+from cal_tpu_torch.ops.pool import segment_pool
+from cal_tpu_torch.ops.spmm import (
+    gcn_aggregate_sparse_pair,
+    gcn_aggregate_sparse_plain,
+    pair_sender_degree,
+)
+from cal_tpu_torch.train.steps import make_causal_train_step
+from cal_tpu_torch.utils.checkpoint import Checkpointer, params_from_jax
+from cal_tpu_torch.utils.config import Config
+
+NB, T = 64, 32                 # small tile plans for interpret mode
+HIDDEN, LAYERS, CLASSES = 16, 2, 4
+# Port twins against cal_tpu's kernels.  f32: the same f32 math with sums in
+# another order (tile slots vs CSR rows) and XLA's vs PyTorch's rsqrt.  bf16
+# plans: cal_tpu rounds the gathered logit and dis planes, the per-slot
+# weights and every message to bf16 (pallas_spmm.py:1206-1218, :1265-1281),
+# the port only x and the output: each rounding moves a term by up to 2^-9
+# relative, four of them compound on each message, the sums cancel, and the
+# outputs (|out| up to ~4 here) are bf16 themselves (2^-8).
+SPMM_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# sparse CausalGCN log-probs against cal_tpu (as tests/test_torch_port_model.py)
+FWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _host_graphs(seed=0, count=11, feat=6, hub=None):
+    """Random multigraphs with self loops and an isolated node; ``hub``
+    gives graph 0 a node with that many in- and out-edges."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = int(rng.integers(4, 30))
+        e = int(rng.integers(n, 3 * n))
+        s = rng.integers(0, n - 1, e)            # node n-1 stays isolated
+        r = rng.integers(0, n - 1, e)
+        if i == 0 and hub:
+            s = np.concatenate([s, rng.integers(1, n - 1, hub)])
+            r = np.concatenate([r, np.zeros(hub, np.int64)])
+        s, r = np.concatenate([s, r]).astype(np.int32), np.concatenate([r, s]).astype(np.int32)
+        x = rng.standard_normal((n, feat)).astype(np.float32)
+        out.append((x, s, r, int(rng.integers(CLASSES))))
+    return ([JaxHostGraph(x=x, senders=s, receivers=r, y=y) for x, s, r, y in out],
+            [HostGraph(x=x, senders=s, receivers=r, y=y) for x, s, r, y in out])
+
+
+def _presorted(graphs):
+    """The graphs with their edges sorted by (receiver, sender), as the
+    packers of both packages lay them out."""
+    out = []
+    for g in graphs:
+        o = np.lexsort((g.senders, g.receivers))
+        out.append(HostGraph(x=g.x, senders=g.senders[o], receivers=g.receivers[o], y=g.y))
+    return out
+
+
+@pytest.mark.parametrize("bs,shuffle", [(4, True), (5, False)])
+def test_sparse_host_batches_match_jax(bs, shuffle):
+    jg, tg = _host_graphs(hub=70)
+    budgets = compute_budgets(tg, bs, "sparse")
+    jl = JaxLoader(jg, bs, shuffle=shuffle, seed=3, layout="sparse", prefetch=0)
+    assert jl.budgets == budgets
+    tl = Loader(tg, bs, shuffle=shuffle, seed=3, layout="sparse")
+    order = (np.random.default_rng(3).permutation(len(tg)) if shuffle
+             else np.arange(len(tg)))
+    sorted_graphs = _presorted(tg)
+    n = 0
+    for i, (jb, tb) in enumerate(zip(jl.host_batches(), tl.host_batches(), strict=True)):
+        for f in ("x", "senders", "receivers", "edge_mask", "node_mask", "node_graph", "y",
+                  "graph_mask"):
+            np.testing.assert_array_equal(getattr(tb, f), np.asarray(getattr(jb, f)), f)
+        ref = batch_graphs([sorted_graphs[j] for j in order[i * bs:(i + 1) * bs]], bs,
+                           budgets["node_budget"], budgets["edge_budget"])
+        v = tb.num_nodes
+        for csr_t, csr_r in ((tb.recv, ref.recv), (tb.send, ref.send)):
+            for f in ("ptr", "chunk_ptr", "chunk_row", "perm"):
+                a, b = getattr(csr_t, f), getattr(csr_r, f)
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(tb.send.perm, np.argsort(tb.senders, kind="stable"))
+        np.testing.assert_array_equal(tb.recv.ptr, np.searchsorted(tb.receivers, np.arange(v + 1)))
+        groups = np.maximum(1, -(-np.diff(tb.recv.ptr) // CHUNK_EDGES))
+        chunks = np.diff(tb.recv.chunk_ptr)
+        assert (chunks >= 1).all() and (chunks <= MAX_CHUNKS).all()
+        per = -(-groups // chunks)             # groups per chunk: all chunks but the last full
+        assert ((chunks - 1) * per < groups).all() and (chunks * per >= groups).all()
+        assert chunks.max() > 1                # the hub and the padded run
+        n += 1
+    assert n == len(tl) and len(tg) % bs     # the last batch is partial
+
+
+def _workload(rng, v=256, e=700, h=16, pad_frac=0.15, hub=90):
+    """Receiver-sorted random edges with self loops, a hub receiver and a
+    masked padded tail at node V-1, as tests/test_pallas_spmm.py builds."""
+    senders = rng.integers(0, v, e)
+    receivers = rng.integers(0, v - 1, e)
+    receivers[:hub] = 7                                  # hub row: several chunks
+    idx = rng.choice(e, e // 20, replace=False)
+    senders[idx] = receivers[idx]                        # self loops, dropped
+    n_real = int(e * (1 - pad_frac))
+    order = np.argsort(receivers[:n_real], kind="stable")
+    senders = np.concatenate([senders[:n_real][order], np.full(e - n_real, v - 1)])
+    receivers = np.concatenate([receivers[:n_real][order], np.full(e - n_real, v - 1)])
+    edge_mask = np.arange(e) < n_real
+    g = sparse_batch(np.zeros((v, 1), np.float32), senders, receivers, edge_mask,
+                     np.ones(v, bool), np.zeros(v, np.int32), np.zeros(1, np.int32),
+                     np.ones(1, bool))
+    xs = [rng.standard_normal((v, h)).astype(np.float32) for _ in range(2)]
+    logits = [rng.standard_normal(v).astype(np.float32) * s for s in (1.0, 2.0)]
+    return g, xs, logits
+
+
+def _plans(g, precision):
+    v = g.num_nodes
+    kw = dict(node_block=NB, tile_edges=T, edge_mask=g.edge_mask, precision=precision)
+    return (build_tiles(g.senders, g.receivers, v, **kw),
+            build_tiles(g.receivers, g.senders, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_twins_match_jax(dtype):
+    """K1 twin against _pair_stats_call, the plain (K1 + K3) and pair (K1 +
+    K2) aggregates against gcn_aggregate_sparse_{plain,sigmoid_pair}_pallas
+    on f32 / bf16 tile plans, and all three against the XLA reference."""
+    rng = np.random.default_rng(0)
+    g, (xc, xo), (src, dst) = _workload(rng)
+    assert g.recv.num_chunks > g.num_nodes + 1     # the hub and the padded run
+    tf, tb = _plans(g, "bf16" if dtype == "bfloat16" else "f32")
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gt = g.to("cpu")
+    j = lambda a: jnp.asarray(a, jdt)
+    t = lambda a: torch.from_numpy(a).to(tdt)
+    tol = SPMM_TOL[dtype]
+
+    degs = pair_sender_degree(t(src), t(dst), gt)
+    ref = _pair_stats_call(j(src), j(dst), tf, g.num_nodes, NB)
+    np.testing.assert_allclose(degs.numpy(), np.asarray(ref),
+                               **(tol if dtype == "bfloat16" else dict(rtol=1e-5, atol=1e-4)))
+
+    got = gcn_aggregate_sparse_plain(t(xc), gt)
+    assert got.dtype == tdt
+    ref = gcn_aggregate_sparse_plain_pallas(j(xc), tf, tb, node_block=NB)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
+
+    oc, oo = gcn_aggregate_sparse_pair(t(xc), t(xo), t(src), t(dst), gt)
+    rc, ro = gcn_aggregate_sparse_sigmoid_pair_pallas(j(xc), j(xo), j(src), j(dst), tf, tb, NB)
+    np.testing.assert_allclose(oc.float().numpy(), np.asarray(rc, np.float32), **tol)
+    np.testing.assert_allclose(oo.float().numpy(), np.asarray(ro, np.float32), **tol)
+
+    if dtype == "float32":
+        s, r, em = (jnp.asarray(a) for a in (g.senders, g.receivers, g.edge_mask))
+        w = jax.nn.sigmoid(j(src)[s] + j(dst)[r])
+        for x, weight, ours in ((xc, None, got), (xc, w, oc), (xo, 1.0 - w, oo)):
+            xla = jax_gcn_sparse(j(x), s, r, em, weight)
+            np.testing.assert_allclose(ours.numpy(), np.asarray(xla), **tol)
+            tw = None if weight is None else torch.from_numpy(np.array(weight))
+            plain_ref = gcn_aggregate_sparse(t(x), gt.senders, gt.receivers, gt.edge_mask, tw)
+            np.testing.assert_allclose(plain_ref.numpy(), np.asarray(xla), **tol)
+
+
+def test_spmm_twins_empty_graph_and_padding_only():
+    """A batch whose edges are all padding: the aggregate is the self term."""
+    v, h = 96, 32
+    g = sparse_batch(np.zeros((v, 1), np.float32), np.full(40, v - 1), np.full(40, v - 1),
+                     np.zeros(40, bool), np.arange(v) < 10, np.zeros(v, np.int32),
+                     np.zeros(1, np.int32), np.ones(1, bool)).to("cpu")
+    x = torch.randn(v, h)
+    torch.testing.assert_close(gcn_aggregate_sparse_plain(x, g), x)
+    oc, oo = gcn_aggregate_sparse_pair(x, 2 * x, torch.randn(v), torch.randn(v), g)
+    torch.testing.assert_close(oc, x)
+    torch.testing.assert_close(oo, 2 * x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_twin_matches_mxu_pool(dtype):
+    rng = np.random.default_rng(1)
+    v, h, g = 1024, 128, 9
+    sizes = rng.integers(0, 150, g)                  # an empty graph or two
+    ng = np.repeat(np.arange(g), sizes)[:v - 5]
+    ng = np.concatenate([ng, np.full(v - ng.size, g)]).astype(np.int32)   # trash segment
+    x = rng.standard_normal((v, h)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = mxu_pool(jnp.asarray(x, jdt), jnp.asarray(ng), g + 1)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    got = segment_pool(tx, torch.from_numpy(ng), g + 1)
+    assert got.dtype == torch.float32 and got.shape == (g + 1, h)
+    # both sum the same (bf16-exact) values in f32, in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+def _jax_sparse_graph(jb, precision, dtype=None):
+    """A cal_tpu GraphBatch on the device with small tile plans."""
+    v = jb.x.shape[0]
+    kw = dict(node_block=NB, tile_edges=T, edge_mask=np.asarray(jb.edge_mask),
+              precision=precision)
+    s, r = np.asarray(jb.senders), np.asarray(jb.receivers)
+    tiles = (build_tiles(s, r, v, **kw), build_tiles(r, s, v, **kw))
+    return dataclasses.replace(jax.tree.map(jnp.asarray, jb), tiles=tiles)
+
+
+def _randomize(tree, rng):
+    return jax.tree.map(lambda a: (np.asarray(a, np.float32)
+                                   + rng.normal(0, 0.3, np.shape(a))).astype(np.float32), tree)
+
+
+def _bn_stats(tree, rng):
+    if "mean" in tree:
+        return {"mean": rng.normal(0, 0.5, tree["mean"].shape).astype(np.float32),
+                "var": rng.uniform(0.5, 2.0, tree["var"].shape).astype(np.float32)}
+    return {k: _bn_stats(v, rng) for k, v in tree.items()}
+
+
+def _models(dtype, g_j, num_features, **kw):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jm = JaxCausalGNN(backbone="gcn", hidden=HIDDEN, num_classes=CLASSES, num_layers=LAYERS,
+                      dtype=jdt, **kw)
+    key = jax.random.PRNGKey(0)
+    variables = jm.init({"params": key, "intervention": key}, g_j, eval_random=False)
+    rng = np.random.default_rng(0)
+    variables = {"params": _randomize(variables["params"], rng),
+                 "batch_stats": _bn_stats(variables["batch_stats"], rng)}
+    tm = CausalGNN(num_features=num_features, hidden=HIDDEN, num_classes=CLASSES,
+                   num_layers=LAYERS, dtype=torch.bfloat16 if dtype == "bfloat16"
+                   else torch.float32, **kw)
+    tm.load_state_dict(params_from_jax(variables["params"], variables["batch_stats"]))
+    return jm, variables, tm.eval()
+
+
+def _sparse_budgets(graphs, bs):
+    b = compute_budgets(graphs, bs, "sparse")
+    return {**b, "node_budget": -(-b["node_budget"] // NB) * NB}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flags", [{}, {"without_edge_attention": True,
+                                        "without_node_attention": True}],
+                         ids=["default", "ablations"])
+def test_sparse_eval_forward_matches_jax(dtype, flags):
+    jg, tg = _host_graphs(seed=2, count=7, hub=50)
+    bs = 8
+    budgets = _sparse_budgets(tg, bs)
+    jb = next(JaxLoader(jg, bs, layout="sparse", budgets=budgets, prefetch=0).host_batches())
+    tb = next(Loader(tg, bs, budgets=budgets, layout="sparse").host_batches())
+    g_j = _jax_sparse_graph(jb, "bf16" if dtype == "bfloat16" else "f32")
+    jm, variables, tm = _models(dtype, g_j, 6, **flags)
+    ref = jm.apply(variables, g_j, eval_random=False, train=False)
+    with torch.no_grad():
+        ours = tm(tb.to("cpu"), eval_random=False, train=False)
+    real = tb.graph_mask
+    assert not real.all()                            # a padded graph slot
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy()[real], np.asarray(b)[real], **FWD_TOL[dtype])
+
+
+def test_sparse_forward_equals_dense_forward():
+    _, tg = _host_graphs(seed=4, count=10, hub=40)
+    bs = 4
+    tm = CausalGNN(num_features=6, hidden=HIDDEN, num_classes=CLASSES, num_layers=LAYERS,
+                   seed=3).eval()
+    sparse = list(Loader(tg, bs, layout="sparse").host_batches())
+    dense = list(Loader(tg, bs).host_batches())
+    from cal_tpu_torch.graph import to_dense
+
+    with torch.no_grad():
+        for sb, db in zip(sparse, dense, strict=True):
+            a = tm(sb.to("cpu"), eval_random=False)
+            b = tm(to_dense(db.to("cpu")), eval_random=False)
+            real = sb.graph_mask
+            for u, w in zip(a, b):
+                torch.testing.assert_close(u[real], w[real], rtol=1e-5, atol=1e-5)
+
+
+def test_main_syn_sparse_inference_matches_dense(tmp_path):
+    """A checkpoint of dense training serves through --layout sparse with
+    the dense path's accuracies."""
+    ds = generate_synthetic_dataset(data_num=20, node_num=4, seed=5)
+    _, _, test, _ = dataset_bias_split(ds, bias=0.5, total=80, seed=5)
+    argv = ["--model", "CausalGCN", "--save_dir", str(tmp_path), "--device", "cpu",
+            "--hidden", str(HIDDEN), "--layers", str(LAYERS), "--batch_size", "8",
+            "--data_num", "20", "--node_num", "4", "--seed", "5"]
+    trained = main(argv + ["--epochs", "2", "--save_model", "true"])
+    dense = main(argv + ["--inference", "true"])
+    sparse = main(argv + ["--inference", "true", "--layout", "sparse"])
+    assert sparse["graphs"] == dense["graphs"] == len(test) > 8
+    assert sparse["ckpt_step"] == dense["ckpt_step"] == trained["epoch"]
+    for k in ("test_acc_co", "test_acc_c", "test_acc_o"):
+        assert sparse[k] == dense[k] == trained[k]
+
+
+def test_sparse_paths_not_ported_raise(tmp_path):
+    base = ["--model", "CausalGCN", "--device", "cpu", "--data_num", "10", "--layout", "sparse",
+            "--save_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="training"):
+        main(base + ["--epochs", "1"])
+    gat_dir = str(tmp_path / "gat")
+    Checkpointer(gat_dir).save(1, CausalGNN(num_features=10, hidden=HIDDEN, num_classes=CLASSES,
+                                            num_layers=LAYERS, backbone="gat"), {"epoch": 1})
+    with pytest.raises(NotImplementedError, match="sparse CausalGAT"):
+        main(["--model", "CausalGAT", *base[2:-1], gat_dir, "--inference", "true",
+              "--hidden", str(HIDDEN), "--layers", str(LAYERS)])
+    with pytest.raises(NotImplementedError, match="packed"):
+        main(base + ["--inference", "true", "--pack_batches", "true"])
+    _, tg = _host_graphs(count=3)
+    assert want_pack("sparse", "true", tg, 2) and not want_pack("dense", "true", tg, 2)
+    assert not want_pack("sparse", "false", tg, 2)
+    gat = CausalGNN(num_features=6, hidden=HIDDEN, num_classes=CLASSES, num_layers=LAYERS,
+                    backbone="gat")
+    batch = next(Loader(tg, 2, layout="sparse").host_batches())
+    with pytest.raises(NotImplementedError, match="sparse CausalGAT"):
+        gat(batch.to("cpu"), eval_random=False)
+    cfg = Config(model="CausalGCN", hidden=HIDDEN, layers=LAYERS)
+    from cal_tpu_torch.train.steps import init_state
+
+    state = init_state(cfg, 6, CLASSES, torch.device("cpu"))
+    step = make_causal_train_step(state, lambda s: 1e-3, 0.5, 1.0, 0.5, True, 0)
+    with pytest.raises(NotImplementedError, match="sparse-layout training"):
+        step(batch, None)
+
+
+def test_reddit_threads_match_the_benchmark_generator():
+    from benchmarks.gen_reddit_synthetic import make_graph as bench_make_graph
+
+    from cal_tpu_torch.data.reddit_synthetic import make_graph, reddit_graphs
+
+    a, b = np.random.default_rng(7), np.random.default_rng(7)
+    for label in (0, 1, 1, 0):
+        assert make_graph(a, label) == bench_make_graph(b, label)
+    graphs = reddit_graphs(4, seed=3, feat=5)
+    assert [g.y for g in graphs] == [0, 1, 0, 1]
+    for g in graphs:
+        assert g.x.shape == (g.num_nodes, 5) and g.num_nodes >= 60
+        pairs = set(zip(g.senders.tolist(), g.receivers.tolist()))
+        assert all((v, u) in pairs for u, v in pairs)
