@@ -1,6 +1,7 @@
-// Sorted segment sum (sparse global_add_pool) for Hopper (sm_90a): K4.
+// Sorted segment sum (sparse global_add_pool) for Hopper (sm_90a): K4, and
+// its backward, the row gather K7.
 //
-// Replaces cal_tpu/ops/pallas_pool.py _pool_call (_pool_fwd_kernel), the
+// K4 replaces cal_tpu/ops/pallas_pool.py _pool_call (_pool_fwd_kernel), the
 // forward of mxu_pool: x [V, H] (f32 or bf16) -> out [G1, H] f32 with
 // out[g] = sum of the rows v with node_graph[v] == g, summed in f32.  Padded
 // nodes carry node_graph == G1 - 1 (the trash segment), which the caller
@@ -18,6 +19,15 @@
 // widest segments set the time: the trash segment (~1,200 padded rows of a
 // serving batch) and REDDIT-sized graphs (up to 3,800 rows).  Bound: bytes,
 // one read of x (8 MB at V = 31,744, H = 128 bf16) and node_graph.
+//
+// K7 replaces cal_tpu/ops/pallas_pool.py _mxu_pool_bwd (_pool_bwd_kernel):
+// dx[v] = dpooled[node_graph[v]] for dpooled [G1, H] f32, rounded once to
+// x's dtype (the trash row's gradient is zero: the caller sliced it off).
+// The TPU kernel multiplies the one-hot of node_graph with dpooled resident
+// in VMEM; here it is a row gather: one warp per row, H / 32 columns per
+// lane, 16-byte f32 loads of the (L2-resident, G1 x H x 4 = 66 KB) dpooled
+// row and 8- or 16-byte stores.  Bound: bytes, one write of dx [V, H] (8 MB
+// at the canonical batch in bf16) and one read of node_graph.
 //
 // Built by cal_tpu_torch/kernels/build.py (plain C interface, ctypes); the
 // wrapper ops/pool.py allocates the output and passes PyTorch's stream.
@@ -64,6 +74,37 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n, int
     if (a[mid] < key) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T, int F>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[F]) {
+  constexpr int kBytes = F * (int)sizeof(T);
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int k = 0; k < kBytes / 16; ++k) {
+      uint4 u;
+      T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) t[j] = from_f<T>(v[k * kPer + j]);
+      reinterpret_cast<uint4*>(p)[k] = u;
+    }
+  } else if constexpr (kBytes == 8) {
+    uint2 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int j = 0; j < F; ++j) t[j] = from_f<T>(v[j]);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < F; ++j) p[j] = from_f<T>(v[j]);
+  }
 }
 
 template <typename T, int F>
@@ -124,6 +165,36 @@ cudaError_t launch(int f, const void* x, const int* node_graph, int num_nodes, i
   return cudaGetLastError();
 }
 
+constexpr int kBwdWarps = 8;
+
+template <typename T, int F>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+pool_bwd_kernel(const float* __restrict__ dpooled, const int* __restrict__ node_graph,
+                int num_nodes, int h, T* __restrict__ dx) {
+  const int v = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (v >= num_nodes) return;
+  const int g = node_graph[v];
+  float d[F];
+  load_vec<float, F>(dpooled + (size_t)g * h + lane * F, d);
+  store_vec<T, F>(dx + (size_t)v * h + lane * F, d);
+}
+
+template <typename T>
+cudaError_t launch_bwd(int f, const float* dpooled, const int* node_graph, int num_nodes,
+                       int h, void* dx, cudaStream_t stream) {
+  T* out = static_cast<T*>(dx);
+  const int blocks = (num_nodes + kBwdWarps - 1) / kBwdWarps;
+  switch (f) {
+    case 1: pool_bwd_kernel<T, 1><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
+    case 2: pool_bwd_kernel<T, 2><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
+    case 4: pool_bwd_kernel<T, 4><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
+    case 8: pool_bwd_kernel<T, 8><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -139,6 +210,18 @@ int pool_launch(const void* x, int dtype, const int* node_graph, int num_nodes, 
                                       stream);
   if (dtype == 0)
     return (int)launch<float>(h / 32, x, node_graph, num_nodes, h, num_segments, out, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7.  dtype (of dx): 0 = float32, 1 = bfloat16; dpooled [G1, H] f32 with
+// 16-byte aligned rows; node_graph [V] int32 in [0, G1); dx [V, H].
+int pool_bwd_launch(const float* dpooled, const int* node_graph, int num_nodes, int h,
+                    int dtype, void* dx, cudaStream_t stream) {
+  if (num_nodes <= 0 || h <= 0 || h % 32 || h > kMaxH) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)launch_bwd<__nv_bfloat16>(h / 32, dpooled, node_graph, num_nodes, h, dx, stream);
+  if (dtype == 0)
+    return (int)launch_bwd<float>(h / 32, dpooled, node_graph, num_nodes, h, dx, stream);
   return (int)cudaErrorInvalidValue;
 }
 

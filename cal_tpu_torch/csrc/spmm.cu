@@ -1,15 +1,21 @@
 // Sparse-layout GCN kernels for Hopper (sm_90a): the sender degree of both
-// masked branches (K1) and the GCN SpMM with its coefficient chain built
+// masked branches (K1), the GCN SpMM with its coefficient chain built
 // in-kernel, in a pair form for the two masked causal convs (K2) and a plain
-// form for the backbone convs (K3).
+// form for the backbone convs (K3), each also in a transposed mode for its
+// dx (K2T, K3T), and the two backward passes of the pair's degree chain: the
+// SDDMM chain head (K5) and its tail (K6).
 //
 // Replaces (cal_tpu/ops/pallas_spmm.py):
 //   K1  _pair_stats_call (_pair_stats_kernel)            -> sender_degree_launch
 //   K2  _pair_coef_spmm_call (_pair_coef_spmm_kernel)    -> coef_spmm_launch, branches 2
 //   K3  _plain_coef_spmm_call (_plain_coef_spmm_kernel)  -> coef_spmm_launch, branches 1
+//   K2T _pair_coef_spmm_call on tiles_bwd (_pair_bwd)    -> coef_spmm_launch, perm given
+//   K3T _plain_coef_spmm_call on tiles_bwd (_plain_bwd)  -> coef_spmm_launch, perm given
+//   K5  _pair_sddmm_chain_call (_pair_sddmm_chain_kernel) -> pair_sddmm_chain_launch
+//   K6  _pair_dpre_call (_pair_dpre_kernel)              -> pair_dpre_launch
 //
-// Contract (the forward of gcn_aggregate_sparse_sigmoid_pair_pallas and
-// gcn_aggregate_sparse_plain_pallas, i.e. cal_tpu/ops/gcn.py
+// Contract (gcn_aggregate_sparse_sigmoid_pair_pallas and
+// gcn_aggregate_sparse_plain_pallas with their VJPs, i.e. cal_tpu/ops/gcn.py
 // gcn_aggregate_sparse): an edge e = (s -> r) is live when edge_mask[e] and
 // s != r (self loops are dropped; liveness never comes from an index).
 //   K1: deg[0][v] = sum over live e with s_e = v of sigmoid(src[v] + dst[r_e]),
@@ -19,35 +25,56 @@
 //       out_k[r] = sum over live e with r_e = r of
 //                  dis_k[s] * w_k * dis_k[r] * x_k[s]  +  x_k[r] / deg_k[r];
 //   K3: the same with one branch and w = 1.
-//   deg / dis [branches, V] f32 are deg + 1 and its rsqrt, from the caller.
+//   K2T/K3T (perm given): the same sums over the SENDER CSR, rows s and
+//       neighbours r: dx_k[s] = sum over live e with s_e = s of
+//       dis_k[r] * w_k * dis_k[s] * g_k[r]  +  g_k[s] / deg_k[s], i.e. the
+//       VJP of K2/K3 in x.  The kernel computes sigmoid(src[nbr] + dst[row]),
+//       so the caller passes the logits swapped (as cal_tpu does on its
+//       transposed plan): the argument stays src[s] + dst[r].
+//   K5: per live e, dc_k = <g_k[r], x_k[s]>;
+//       vec[e] = (dc_0 dis_0[s] dis_0[r], dc_1 dis_1[s] dis_1[r], w_0 w_1)
+//       (zeros on dead edges); ddis_s[k][s] += dc_k w_k dis_k[r] and
+//       ddis_r[k][r] += dc_k w_k dis_k[s].
+//   K6: dpre[e] = (vec0 + ddeg_0[s] - vec1 - ddeg_1[s]) * vec2;
+//       dsrc[s] += dpre[e], ddst[r] += dpre[e] (vec2 = 0 zeroes dead edges).
+//   deg / dis [branches, V] f32 are deg + 1 and its rsqrt, and ddeg [2, V]
+//   the degree gradient, from the caller (the elementwise step between K5
+//   and K6 is plain PyTorch, as it is plain XLA in cal_tpu).
 //
-// Rounding: x and the logits are stored in the model dtype (f32 or bf16);
-// everything else is f32: the sigmoid, the coefficient (dis_s * w) * dis_r,
-// each message and every sum, the self term x / deg (IEEE division); each
-// output is rounded to the model dtype once.  The plain twins in
-// ops/spmm.py round at exactly these points.  cal_tpu's bf16 tile plans
-// round more (the gathered logit and dis planes, the per-slot weights, each
-// message before the receiver sum): the port does not.
+// Rounding: x, g and the logits are stored in the model dtype (f32 or
+// bf16); everything else is f32: the sigmoid, the coefficient (dis_nbr * w)
+// * dis_row, each message, dot product and every sum, the self term x / deg
+// (IEEE division); each [V, H] output is rounded to the model dtype once
+// (K5/K6 outputs stay f32).  The plain twins in ops/spmm.py round at exactly
+// these points.  cal_tpu's bf16 tile plans round more (the gathered logit
+// and dis planes, the per-slot weights, each message before the receiver
+// sum): the port does not.
 //
-// Design.  Rows (senders for K1, receivers for K2/K3) come in CSR form
-// (graph.EdgeCsr): a row's edges form groups of kGroup = 32 and the groups
-// at most kMaxChunks = 64 chunks of equal group counts.  One warp owns one
-// chunk and walks its groups: the lanes read a group's 32 edges' metadata
-// at once (lane i <-> edge i) and compute liveness, weight and
-// coefficient; K1 keeps per-lane sums and ends with a butterfly shuffle;
-// K2/K3 take the group's live edges from a ballot and, for each in turn,
-// broadcast its sender and coefficient while every lane accumulates H / 32
-// features of each branch (8- or 16-byte loads of the sender's row).  A row
-// of a single chunk is written by its warp directly (K2/K3 with the self
-// term fused); a longer row (a hub, or the padded-edge run at node V-1)
-// writes one f32 partial per chunk, and a second pass sums its <= 64
-// partials in chunk order.  So no row is serialized on one warp (the cap
-// keeps the combine short too: a serving batch's padded run holds ~29,000
-// dead edges), every sum has one owner, no float atomics: a result does not
-// change between runs.
+// Design.  Rows (senders for K1, K2T, K3T; receivers for K2, K3, K5, K6)
+// come in CSR form (graph.EdgeCsr; the sender CSR reads edge perm[i]): a
+// row's edges form groups of kGroup = 32 and the groups at most kMaxChunks =
+// 64 chunks of equal group counts.  One warp owns one chunk and walks its
+// groups: the lanes read a group's 32 edges' metadata at once (lane i <->
+// edge i) and compute liveness, weight and coefficient; K1 and K6 keep
+// per-lane sums and end with a butterfly shuffle; K2/K3 take the group's
+// live edges from a ballot and, for each in turn, broadcast its neighbour
+// and coefficient while every lane accumulates H / 32 features of each
+// branch (8- or 16-byte loads of the neighbour's row).  K5 keeps g[r] of
+// its row in registers, takes each live edge from the ballot, reduces the
+// dot products with x[s] across the warp, and the edge's own lane then
+// forms its per-edge outputs.  A row of a single chunk is written by its
+// warp directly (K2/K3 with the self term fused); a longer row (a hub, or
+// the padded-edge run at node V-1, in both CSRs) writes one f32 partial per
+// chunk, and a second pass sums its <= 64 partials in chunk order.  Sums by
+// sender that K5 and K6 need from their receiver walk (ddis_s, dsrc) are
+// taken by a second kernel over the sender CSR (sender_sum_kernel) from
+// per-edge f32 columns that the first one wrote: K1's structure, per-lane
+// sums and a butterfly.  So no row is serialized on one warp, every sum has
+// one owner, no float atomics: a result does not change between runs.
 //
-// Bound: bytes.  K2 reads x [V, 2H] once (plus a sender row per live edge,
-// mostly from L2) and writes [V, 2H]; the metadata is 9 bytes per edge; the
+// Bound: bytes.  K2 reads x [V, 2H] once (plus a neighbour row per live
+// edge, mostly from L2) and writes [V, 2H]; the metadata is 9 bytes per edge
+// (13 through perm); K5 reads x and g [V, 2H] and writes 5 f32 per edge; the
 // arithmetic (2H FMAs per edge) is far below the tensor-core or FMA floor.
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
@@ -145,6 +172,55 @@ __device__ __forceinline__ Chunk chunk_of(int c, const int* __restrict__ ptr,
   return k;
 }
 
+// ---- row sums: the combine pass of long rows ---------------------------
+
+// out[j][v] = the sum in chunk order of the NC partials of every row v of
+// more than one chunk (rows of one chunk were written by their warp).
+template <int NC>
+__global__ void row_combine(const int* __restrict__ chunk_ptr, int num_nodes,
+                            const float* __restrict__ partial, float* __restrict__ out) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= num_nodes) return;
+  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
+  if (c1 - c0 <= 1) return;
+  float acc[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) acc[j] = 0.0f;
+#pragma unroll 8
+  for (int c = c0; c < c1; ++c)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[j] += partial[NC * c + j];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) out[(size_t)j * num_nodes + v] = acc[j];
+}
+
+template <int NC>
+cudaError_t launch_combine(const int* chunk_ptr, int num_nodes, const float* partial,
+                           float* out, cudaStream_t stream) {
+  row_combine<NC><<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes, partial,
+                                                                out);
+  return cudaGetLastError();
+}
+
+// The warp's per-lane sums of a chunk of row v: written to out[j][v] when
+// the row has one chunk, else to the chunk's NC partials.
+template <int NC>
+__device__ __forceinline__ void finish_row(float (&acc)[NC], const Chunk& k, int c, int lane,
+                                           int num_nodes, float* __restrict__ out,
+                                           float* __restrict__ partial) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (k.count == 1) out[(size_t)j * num_nodes + k.row] = acc[j];
+      else partial[NC * c + j] = acc[j];
+    }
+  }
+}
+
 // ---- K1: sender degree of both branches --------------------------------
 
 template <typename T>
@@ -162,58 +238,67 @@ sender_degree_kernel(const T* __restrict__ src, const T* __restrict__ dst,
   const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
   const int v = k.row;
   const float sv = src == nullptr ? 0.0f : to_f(src[v]);
-  float wc = 0.0f, wo = 0.0f;
+  float w[2] = {0.0f, 0.0f};
   for (int i = k.beg + lane; i < k.end; i += kGroup) {
     const int e = perm[i];
     const int r = receivers[e];
     if (edge_mask[e] && r != v) {
       const float sg = sigmoid_f(src == nullptr ? 0.0f : sv + to_f(dst[r]));
-      wc += sg;
-      wo += 1.0f - sg;
+      w[0] += sg;
+      w[1] += 1.0f - sg;
     }
   }
+  finish_row<2>(w, k, c, lane, num_nodes, deg, partial);
+}
+
+// ---- sender sums of per-edge columns (the second pass of K5 and K6) ------
+
+// out[j][v] = sum over the edges e of sender v (sender CSR, edge perm[i]) of
+// cols[j][e], for NC f32 columns of E values.
+template <int NC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sender_sum_kernel(const float* __restrict__ cols, int num_edges, const int* __restrict__ perm,
+                  const int* __restrict__ ptr, const int* __restrict__ chunk_ptr,
+                  const int* __restrict__ chunk_row, int n_chunks, int num_nodes,
+                  float* __restrict__ out, float* __restrict__ partial) {
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= n_chunks) return;
+  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
+  float acc[NC];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    wc += __shfl_xor_sync(kFull, wc, off);
-    wo += __shfl_xor_sync(kFull, wo, off);
+  for (int j = 0; j < NC; ++j) acc[j] = 0.0f;
+  for (int i = k.beg + lane; i < k.end; i += kGroup) {
+    const int e = perm[i];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[j] += cols[(size_t)j * num_edges + e];
   }
-  if (lane == 0) {
-    if (k.count == 1) {
-      deg[v] = wc;
-      deg[num_nodes + v] = wo;
-    } else {
-      partial[2 * c] = wc;
-      partial[2 * c + 1] = wo;
-    }
-  }
+  finish_row<NC>(acc, k, c, lane, num_nodes, out, partial);
 }
 
-__global__ void sender_degree_combine(const int* __restrict__ chunk_ptr, int num_nodes,
-                                      const float* __restrict__ partial,
-                                      float* __restrict__ deg) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= num_nodes) return;
-  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
-  if (c1 - c0 <= 1) return;
-  float a = 0.0f, b = 0.0f;
-#pragma unroll 8
-  for (int c = c0; c < c1; ++c) {
-    a += partial[2 * c];
-    b += partial[2 * c + 1];
-  }
-  deg[v] = a;
-  deg[num_nodes + v] = b;
+template <int NC>
+cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
+                              const int* ptr, const int* chunk_ptr, const int* chunk_row,
+                              int n_chunks, int num_nodes, float* out, float* partial,
+                              cudaStream_t stream) {
+  sender_sum_kernel<NC><<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                          kWarpsPerBlock * 32, 0, stream>>>(
+      cols, num_edges, perm, ptr, chunk_ptr, chunk_row, n_chunks, num_nodes, out, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
 }
 
-// ---- K2 / K3: coefficient SpMM over the receiver CSR ---------------------
+// ---- K2 / K3: coefficient SpMM over the receiver CSR (K2T / K3T: sender) --
 
 template <typename T, int NB, int F>
 struct SpmmArgs {
   const T* x[NB];
   T* out[NB];
-  const T* src;
-  const T* dst;
-  const int* senders;
+  const T* src;       // transposed mode: the forward's dst
+  const T* dst;       // transposed mode: the forward's src
+  const int* nbr;     // senders (receiver CSR) or receivers (sender CSR)
+  const int* perm;    // null: edge i of the CSR is edge i; else edge perm[i]
   const uint8_t* edge_mask;
   const float* deg;   // [NB, V]
   const float* dis;   // [NB, V]
@@ -260,7 +345,7 @@ coef_spmm_kernel(const SpmmArgs<T, NB, F> a) {
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
   for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    // lane i: edge g0 + i -> (sender, coefficient per branch) when live
+    // lane i: edge g0 + i -> (neighbour, coefficient per branch) when live
     const int i = g0 + lane;
     int s_l = 0;
     float coef_l[NB];
@@ -268,8 +353,9 @@ coef_spmm_kernel(const SpmmArgs<T, NB, F> a) {
     for (int b = 0; b < NB; ++b) coef_l[b] = 0.0f;
     bool live = false;
     if (i < k.end) {
-      s_l = a.senders[i];
-      live = a.edge_mask[i] && s_l != r;
+      const int e = a.perm == nullptr ? i : a.perm[i];
+      s_l = a.nbr[e];
+      live = a.edge_mask[e] && s_l != r;
       if (live) {
         if constexpr (NB == 2) {
           const float sg = sigmoid_f(to_f(a.src[s_l]) + dst_r);
@@ -333,7 +419,8 @@ coef_spmm_combine(const SpmmArgs<T, NB, F> a) {
 
 template <typename T, int NB, int F>
 cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const void* dst,
-                        const int* senders, const uint8_t* edge_mask, const float* deg,
+                        const int* nbr, const int* perm, const uint8_t* edge_mask,
+                        const float* deg,
                         const float* dis, const int* ptr, const int* chunk_ptr,
                         const int* chunk_row, int n_chunks, int num_nodes, int h,
                         void* out0, void* out1, float* partial, cudaStream_t stream) {
@@ -346,7 +433,8 @@ cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const v
   }
   a.src = static_cast<const T*>(src);
   a.dst = static_cast<const T*>(dst);
-  a.senders = senders;
+  a.nbr = nbr;
+  a.perm = perm;
   a.edge_mask = edge_mask;
   a.deg = deg;
   a.dis = dis;
@@ -369,14 +457,15 @@ cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const v
 
 template <typename T, int NB>
 cudaError_t dispatch_f(int f, const void* x0, const void* x1, const void* src,
-                       const void* dst, const int* senders, const uint8_t* edge_mask,
+                       const void* dst, const int* nbr, const int* perm,
+                       const uint8_t* edge_mask,
                        const float* deg, const float* dis, const int* ptr,
                        const int* chunk_ptr, const int* chunk_row, int n_chunks,
                        int num_nodes, int h, void* out0, void* out1, float* partial,
                        cudaStream_t stream) {
 #define CAL_SPMM_F(FV)                                                                   \
   case FV:                                                                               \
-    return launch_spmm<T, NB, FV>(x0, x1, src, dst, senders, edge_mask, deg, dis, ptr,  \
+    return launch_spmm<T, NB, FV>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr, \
                                   chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,    \
                                   out1, partial, stream);
   switch (f) {
@@ -389,6 +478,168 @@ cudaError_t dispatch_f(int f, const void* x0, const void* x1, const void* src,
   }
 #undef CAL_SPMM_F
   return cudaErrorInvalidValue;
+}
+
+
+// ---- K5: the SDDMM chain head of the pair VJP ----------------------------
+
+template <typename T>
+struct ChainArgs {
+  const T* x[2];      // xc, xo [V, H]
+  const T* g[2];      // gc, go [V, H]: the cotangents of (out_c, out_o)
+  const T* src;
+  const T* dst;
+  const int* senders;
+  const uint8_t* edge_mask;
+  const float* dis;   // [2, V]
+  const int* ptr;     // receiver CSR
+  const int* chunk_ptr;
+  const int* chunk_row;
+  float* edge_out;    // [5, E]: vec0, vec1, vec2, then the two ddis_s terms
+  float* ddis_r;      // [2, V]
+  float* partial;     // [n_chunks, 2]
+  int n_chunks, num_nodes, num_edges, h;
+};
+
+template <typename T, int F>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+pair_sddmm_chain_kernel(const ChainArgs<T> a) {
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= a.n_chunks) return;
+  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+  const int r = k.row;
+  const size_t V = a.num_nodes, E = a.num_edges;
+  const float dis_r[2] = {a.dis[r], a.dis[V + r]};
+  const float dst_r = to_f(a.dst[r]);
+  float gr[2][F];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) load_vec<T, F>(a.g[b] + (size_t)r * a.h + lane * F, gr[b]);
+  float acc[2] = {0.0f, 0.0f};            // this lane's ddis_r terms
+  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
+    const int i = g0 + lane;
+    int s_l = 0;
+    bool live = false;
+    if (i < k.end) {
+      s_l = a.senders[i];
+      live = a.edge_mask[i] && s_l != r;
+    }
+    // the dot products of each live edge of the group, reduced across the
+    // warp; the edge's own lane keeps them
+    float dc[2] = {0.0f, 0.0f};
+    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const int s = __shfl_sync(kFull, s_l, j);
+      float p[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float xs[F];
+        load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
+        p[b] = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) p[b] = fmaf(gr[b][f], xs[f], p[b]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        p[0] += __shfl_xor_sync(kFull, p[0], off);
+        p[1] += __shfl_xor_sync(kFull, p[1], off);
+      }
+      if (lane == j) {
+        dc[0] = p[0];
+        dc[1] = p[1];
+      }
+    }
+    if (i < k.end) {
+      float out[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (live) {
+        const float sg = sigmoid_f(to_f(a.src[s_l]) + dst_r);
+        const float w[2] = {sg, 1.0f - sg};
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float dis_s = a.dis[b * V + s_l];
+          out[b] = dc[b] * dis_s * dis_r[b];
+          out[3 + b] = dc[b] * w[b] * dis_r[b];
+          acc[b] += dc[b] * w[b] * dis_s;
+        }
+        out[2] = w[0] * w[1];
+      }
+#pragma unroll
+      for (int j = 0; j < 5; ++j) a.edge_out[j * E + i] = out[j];
+    }
+  }
+  finish_row<2>(acc, k, c, lane, a.num_nodes, a.ddis_r, a.partial);
+}
+
+template <typename T, int F>
+cudaError_t launch_chain(const ChainArgs<T>& a, cudaStream_t stream) {
+  pair_sddmm_chain_kernel<T, F><<<(a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                                  kWarpsPerBlock * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_chain(int f, const ChainArgs<T>& a, cudaStream_t stream) {
+  switch (f) {
+    case 1: return launch_chain<T, 1>(a, stream);
+    case 2: return launch_chain<T, 2>(a, stream);
+    case 4: return launch_chain<T, 4>(a, stream);
+    case 8: return launch_chain<T, 8>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t chain_typed(const void* xc, const void* xo, const void* gc, const void* go,
+                        const void* src, const void* dst, const int* senders,
+                        const uint8_t* edge_mask, const float* dis, const int* ptr,
+                        const int* chunk_ptr, const int* chunk_row, int n_chunks,
+                        int num_nodes, int num_edges, int h, float* edge_out, float* ddis_r,
+                        float* partial, cudaStream_t stream) {
+  ChainArgs<T> a;
+  a.x[0] = static_cast<const T*>(xc);
+  a.x[1] = static_cast<const T*>(xo);
+  a.g[0] = static_cast<const T*>(gc);
+  a.g[1] = static_cast<const T*>(go);
+  a.src = static_cast<const T*>(src);
+  a.dst = static_cast<const T*>(dst);
+  a.senders = senders;
+  a.edge_mask = edge_mask;
+  a.dis = dis;
+  a.ptr = ptr;
+  a.chunk_ptr = chunk_ptr;
+  a.chunk_row = chunk_row;
+  a.edge_out = edge_out;
+  a.ddis_r = ddis_r;
+  a.partial = partial;
+  a.n_chunks = n_chunks;
+  a.num_nodes = num_nodes;
+  a.num_edges = num_edges;
+  a.h = h;
+  return dispatch_chain<T>(h / 32, a, stream);
+}
+
+// ---- K6: the chain tail (dpre and its receiver sum) ----------------------
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+pair_dpre_kernel(const float* __restrict__ vec, const float* __restrict__ ddeg,
+                 const int* __restrict__ senders, const int* __restrict__ ptr,
+                 const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
+                 int n_chunks, int num_nodes, int num_edges, float* __restrict__ dpre,
+                 float* __restrict__ ddst, float* __restrict__ partial) {
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= n_chunks) return;
+  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
+  const size_t V = num_nodes, E = num_edges;
+  float acc[1] = {0.0f};
+  for (int i = k.beg + lane; i < k.end; i += kGroup) {
+    const int s = senders[i];
+    // vec2 = w_c w_o is 0 on dead edges and self loops: their dpre is 0
+    const float d = (vec[i] + ddeg[s] - vec[E + i] - ddeg[V + s]) * vec[2 * E + i];
+    dpre[i] = d;
+    acc[0] += d;
+  }
+  finish_row<1>(acc, k, c, lane, num_nodes, ddst, partial);
 }
 
 }  // namespace
@@ -417,16 +668,16 @@ int sender_degree_launch(const void* src, const void* dst, int dtype, const int*
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sender_degree_combine<<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes,
-                                                                    partial, deg);
-  return (int)cudaGetLastError();
+  return (int)launch_combine<2>(chunk_ptr, num_nodes, partial, deg, stream);
 }
 
 // branches: 2 (pair: x0 = xc, x1 = xo, logits src/dst) or 1 (plain: x0,
 // src/dst unused).  h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows aligned
-// to h / 32 elements.
+// to h / 32 elements.  Forward (K2/K3): perm null, nbr = senders, the
+// receiver CSR.  Transposed (K2T/K3T): perm = the sender CSR's perm, nbr =
+// receivers, the sender CSR, and the logits swapped (src <- dst, dst <- src).
 int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* src,
-                     const void* dst, int dtype, const int* senders,
+                     const void* dst, int dtype, const int* nbr, const int* perm,
                      const uint8_t* edge_mask, const float* deg, const float* dis,
                      const int* ptr, const int* chunk_ptr, const int* chunk_row,
                      int n_chunks, int num_nodes, int h, void* out0, void* out1,
@@ -434,22 +685,78 @@ int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* s
   if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
   const int f = h / 32;
   if (dtype == 1 && branches == 2)
-    return (int)dispatch_f<__nv_bfloat16, 2>(f, x0, x1, src, dst, senders, edge_mask, deg,
+    return (int)dispatch_f<__nv_bfloat16, 2>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg,
                                              dis, ptr, chunk_ptr, chunk_row, n_chunks,
                                              num_nodes, h, out0, out1, partial, stream);
   if (dtype == 1 && branches == 1)
-    return (int)dispatch_f<__nv_bfloat16, 1>(f, x0, x1, src, dst, senders, edge_mask, deg,
+    return (int)dispatch_f<__nv_bfloat16, 1>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg,
                                              dis, ptr, chunk_ptr, chunk_row, n_chunks,
                                              num_nodes, h, out0, out1, partial, stream);
   if (dtype == 0 && branches == 2)
-    return (int)dispatch_f<float, 2>(f, x0, x1, src, dst, senders, edge_mask, deg, dis, ptr,
+    return (int)dispatch_f<float, 2>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,
                                      out1, partial, stream);
   if (dtype == 0 && branches == 1)
-    return (int)dispatch_f<float, 1>(f, x0, x1, src, dst, senders, edge_mask, deg, dis, ptr,
+    return (int)dispatch_f<float, 1>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,
                                      out1, partial, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K5.  dtype: 0 = float32, 1 = bfloat16 (xc, xo, gc, go, src, dst).  The
+// receiver CSR (ptr, chunk_ptr, chunk_row, r_chunks) for the per-edge pass,
+// the sender CSR (sptr, schunk_ptr, schunk_row, sperm, s_chunks) for the
+// ddis_s sums.  Writes edge_out [5, E] (vec = rows 0-2; rows 3-4 are the
+// per-edge ddis_s terms), ddis_s and ddis_r [2, V]; partial holds
+// 2 * max(r_chunks, s_chunks) floats.
+int pair_sddmm_chain_launch(const void* xc, const void* xo, const void* gc, const void* go,
+                            const void* src, const void* dst, int dtype, const int* senders,
+                            const uint8_t* edge_mask, const float* dis, const int* ptr,
+                            const int* chunk_ptr, const int* chunk_row, int r_chunks,
+                            const int* sptr, const int* schunk_ptr, const int* schunk_row,
+                            const int* sperm, int s_chunks, int num_nodes, int num_edges, int h,
+                            float* edge_out, float* ddis_s, float* ddis_r, float* partial,
+                            cudaStream_t stream) {
+  if (r_chunks <= 0 || s_chunks <= 0 || num_nodes <= 0 || num_edges <= 0 || h <= 0 || h % 32)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 1)
+    err = chain_typed<__nv_bfloat16>(xc, xo, gc, go, src, dst, senders, edge_mask, dis, ptr,
+                                     chunk_ptr, chunk_row, r_chunks, num_nodes, num_edges, h,
+                                     edge_out, ddis_r, partial, stream);
+  else if (dtype == 0)
+    err = chain_typed<float>(xc, xo, gc, go, src, dst, senders, edge_mask, dis, ptr, chunk_ptr,
+                             chunk_row, r_chunks, num_nodes, num_edges, h, edge_out, ddis_r,
+                             partial, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  err = launch_combine<2>(chunk_ptr, num_nodes, partial, ddis_r, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sender_sum<2>(edge_out + 3 * (size_t)num_edges, num_edges, sperm, sptr,
+                                   schunk_ptr, schunk_row, s_chunks, num_nodes, ddis_s,
+                                   partial, stream);
+}
+
+// K6.  vec [3, E] (K5's edge_out rows 0-2), ddeg [2, V] f32; CSRs as K5.
+// Writes dpre [E] (scratch), dsrc and ddst [V]; partial holds
+// max(r_chunks, s_chunks) floats.
+int pair_dpre_launch(const float* vec, const float* ddeg, const int* senders, const int* ptr,
+                     const int* chunk_ptr, const int* chunk_row, int r_chunks, const int* sptr,
+                     const int* schunk_ptr, const int* schunk_row, const int* sperm,
+                     int s_chunks, int num_nodes, int num_edges, float* dpre, float* dsrc,
+                     float* ddst, float* partial, cudaStream_t stream) {
+  if (r_chunks <= 0 || s_chunks <= 0 || num_nodes <= 0 || num_edges <= 0)
+    return (int)cudaErrorInvalidValue;
+  pair_dpre_kernel<<<(r_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
+                     stream>>>(vec, ddeg, senders, ptr, chunk_ptr, chunk_row, r_chunks,
+                               num_nodes, num_edges, dpre, ddst, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_combine<1>(chunk_ptr, num_nodes, partial, ddst, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sender_sum<1>(dpre, num_edges, sperm, sptr, schunk_ptr, schunk_row,
+                                   s_chunks, num_nodes, dsrc, partial, stream);
 }
 
 }  // extern "C"

@@ -56,19 +56,24 @@ def compute_budgets(graphs: Sequence[HostGraph], batch_size: int,
             "edge_per_graph": max(e_sorted[0], 1)}
 
 
+def pack_ratio(graphs: Sequence[HostGraph], batch_size: int) -> float:
+    """Nodes of the worst-case batch (the ``batch_size`` largest graphs) over
+    those of a mean batch."""
+    ns = np.array([g.num_nodes for g in graphs], np.float64)
+    k = min(batch_size, len(ns))
+    return float(np.sort(ns)[-k:].sum() / (ns.mean() * k))
+
+
 def want_pack(layout: str, pack_batches: str, graphs: Sequence[HostGraph],
               batch_size: int) -> bool:
     """cal_tpu's ``_want_pack`` (train/causal.py): budget-packed sparse
-    batching when asked for, or in "auto" when the worst-case batch (the
-    ``batch_size`` largest graphs) holds over 1.5x the nodes of a mean one."""
+    batching when asked for, or in "auto" when the worst-case batch holds
+    over 1.5x the nodes of a mean one (``pack_ratio``)."""
     if layout != "sparse" or pack_batches == "false":
         return False
     if pack_batches == "true":
         return True
-    ns = np.array([g.num_nodes for g in graphs], np.float64)
-    k = min(batch_size, len(ns))
-    worst = np.sort(ns)[-k:].sum()
-    return bool(worst > 1.5 * ns.mean() * k)
+    return pack_ratio(graphs, batch_size) > 1.5
 
 
 class _SparseDataset:

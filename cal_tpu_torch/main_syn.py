@@ -3,20 +3,23 @@
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
         [--dtype bfloat16] [--save_model true --save_dir <d>] [--resume true]
         [--device cpu]
-    python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
-        --inference true --save_dir <d> [--dtype bfloat16] [--device cpu]
     python -m cal_tpu_torch.main_syn --model CausalGCN --layout sparse
-        --inference true --save_dir <d> [--dtype bfloat16] [--device cpu]
+        [--dtype bfloat16] [--save_model true --save_dir <d>] [--resume true]
+        [--device cpu]
+    python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
+        [--layout sparse (CausalGCN)] --inference true --save_dir <d>
+        [--dtype bfloat16] [--device cpu]
 
-Training runs ``train_causal_syn`` (dense CausalGCN or CausalGAT); ``--save_model``
-checkpoints the best val-o epoch, ``--resume`` continues after it, and
-``--inference`` restores the newest checkpoint under --save_dir and runs the
-three-branch eval sweep on the test split.  ``--layout sparse`` serves
-CausalGCN on padded edge-list batches (the CSR kernels); the parameters do
-not depend on the layout, so a checkpoint of dense training serves there.
-Sparse training and sparse CausalGAT are not ported yet.  The port runs on
-CUDA unless ``--device cpu`` is given (the CPU runs the kernels' plain
-twins).
+Training runs ``train_causal_syn``; ``--save_model`` checkpoints the best
+val-o epoch, ``--resume`` continues after it, and ``--inference`` restores
+the newest checkpoint under --save_dir and runs the three-branch eval sweep
+on the test split.  ``--layout sparse`` trains and serves CausalGCN on
+padded edge-list batches (the CSR kernels and their backward kernels); the
+parameters do not depend on the layout, so a checkpoint of either layout
+serves on both.  Sparse CausalGAT and budget-packed sparse batches
+(``--pack_batches true``, or "auto" where the graphs' sizes would call for
+it) are not ported yet and raise.  The port runs on CUDA unless ``--device
+cpu`` is given (the CPU runs the kernels' plain twins).
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """Sorted segment sum of node rows per graph (the sparse ``global_add_pool``).
 
-Counterpart of the forward of cal_tpu/ops/pallas_pool.py ``mxu_pool``:
+Counterpart of cal_tpu/ops/pallas_pool.py ``mxu_pool`` with its custom VJP:
 [V, H] -> [num_segments, H] f32, padded nodes in the trash segment
-``num_segments - 1``.  On a CUDA tensor ``segment_pool`` launches the
-hand-written kernel of ``csrc/pool.cu`` (its header gives the design); on a
-CPU tensor it runs the plain twin ``segment_pool_plain``.  The kernel needs
-``node_graph`` non-decreasing, as the sparse packer lays it out.  No
-gradient: the sparse training slice adds the backward.
+``num_segments - 1``.  ``segment_pool`` is a ``torch.autograd.Function``
+differentiable in x: its forward (K4) and backward (K7, dx[v] =
+dpooled[node_graph[v]] in x's dtype) launch the hand-written kernels of
+``csrc/pool.cu`` (its header gives the design) on CUDA tensors and run their
+plain twins ``segment_pool_plain`` and ``segment_pool_bwd_plain`` on CPU
+tensors.  The forward kernel needs ``node_graph`` non-decreasing, as the
+sparse packer lays it out.
 """
 from __future__ import annotations
 
@@ -26,20 +28,31 @@ def segment_pool_plain(x: torch.Tensor, node_graph: torch.Tensor,
     return out.index_add_(0, node_graph.long(), x.float())
 
 
-def _fn():
-    fn = build.load("pool").pool_launch
-    if fn.argtypes is None:
+def segment_pool_bwd_plain(dpooled: torch.Tensor, node_graph: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """Plain twin of K7: the rows of dpooled gathered by node_graph, in f32,
+    rounded once to ``dtype``."""
+    return dpooled.float()[node_graph.long()].to(dtype)
+
+
+def _lib():
+    lib = build.load("pool")
+    if lib.pool_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, i, i, i, vp, vp]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.pool_launch.argtypes = [vp, i, vp, i, i, i, vp, vp]
+        lib.pool_launch.restype = ctypes.c_int
+        lib.pool_bwd_launch.argtypes = [vp, vp, i, i, i, vp, vp]
+        lib.pool_bwd_launch.restype = ctypes.c_int
+    return lib
 
 
-def segment_pool(x: torch.Tensor, node_graph: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    """x [V, H] f32/bf16, node_graph [V] int32 in [0, num_segments) ->
-    [num_segments, H] f32 segment sums.  ``.launches`` counts kernel
-    launches."""
+def _check_width(what, h):
+    if h % 32 or h // 32 not in (1, 2, 4, 8):
+        raise ValueError(f"{what} kernel takes H in 32, 64, 128, 256, got {h}")
+
+
+def _pool_fwd(x: torch.Tensor, node_graph: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K4 on CUDA tensors, its plain twin on CPU tensors (no autograd)."""
     if x.dim() != 2 or x.dtype not in _DTYPES:
         raise ValueError("segment_pool: x must be [V, H] float32 or bfloat16")
     v, h = x.shape
@@ -51,17 +64,71 @@ def segment_pool(x: torch.Tensor, node_graph: torch.Tensor,
         raise ValueError(f"segment_pool: unsupported device {x.device}")
     if node_graph.dtype != torch.int32:
         raise ValueError("segment_pool: node_graph must be int32")
-    if h % 32 or h // 32 not in (1, 2, 4, 8):
-        raise ValueError(f"segment_pool kernel takes H in 32, 64, 128, 256, got {h}")
+    _check_width("segment_pool", h)
     x, node_graph = x.contiguous(), node_graph.contiguous()
     if x.data_ptr() % ((h // 32) * x.element_size()):
         raise ValueError("segment_pool: x rows are misaligned")
     out = torch.empty((num_segments, h), dtype=torch.float32, device=x.device)
-    err = _fn()(x.data_ptr(), _DTYPES[x.dtype], node_graph.data_ptr(), v, h, num_segments,
-                out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib().pool_launch(x.data_ptr(), _DTYPES[x.dtype], node_graph.data_ptr(), v, h,
+                             num_segments, out.data_ptr(),
+                             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "segment_pool")
     segment_pool.launches += 1
     return out
 
 
+def segment_pool_bwd(dpooled: torch.Tensor, node_graph: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """K7: dpooled [num_segments, H] f32, node_graph [V] int32 -> dx [V, H]
+    in ``dtype`` (float32 or bfloat16), dx[v] = dpooled[node_graph[v]].
+    ``.launches`` counts kernel launches."""
+    if dpooled.dim() != 2 or dpooled.dtype != torch.float32 or dtype not in _DTYPES:
+        raise ValueError("segment_pool_bwd: dpooled must be [G, H] float32, dx float32 or "
+                         "bfloat16")
+    h = dpooled.shape[1]
+    if node_graph.dim() != 1 or node_graph.device != dpooled.device:
+        raise ValueError("segment_pool_bwd: node_graph must be [V] on dpooled's device")
+    if dpooled.device.type == "cpu":
+        return segment_pool_bwd_plain(dpooled, node_graph, dtype)
+    if dpooled.device.type != "cuda":
+        raise ValueError(f"segment_pool_bwd: unsupported device {dpooled.device}")
+    if node_graph.dtype != torch.int32:
+        raise ValueError("segment_pool_bwd: node_graph must be int32")
+    _check_width("segment_pool_bwd", h)
+    dpooled, node_graph = dpooled.contiguous(), node_graph.contiguous()
+    if dpooled.data_ptr() % min(16, (h // 32) * 4):
+        raise ValueError("segment_pool_bwd: dpooled rows are misaligned")
+    v = node_graph.shape[0]
+    dx = torch.empty((v, h), dtype=dtype, device=dpooled.device)
+    err = _lib().pool_bwd_launch(dpooled.data_ptr(), node_graph.data_ptr(), v, h,
+                                 _DTYPES[dtype], dx.data_ptr(),
+                                 torch.cuda.current_stream(dpooled.device).cuda_stream)
+    build.check(err, "segment_pool_bwd")
+    segment_pool_bwd.launches += 1
+    return dx
+
+
+class _SegmentPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, node_graph, num_segments):
+        ctx.save_for_backward(node_graph)
+        ctx.dtype = x.dtype
+        return _pool_fwd(x, node_graph, num_segments)
+
+    @staticmethod
+    def backward(ctx, dpooled):
+        (node_graph,) = ctx.saved_tensors
+        return segment_pool_bwd(dpooled, node_graph, ctx.dtype), None, None
+
+
+def segment_pool(x: torch.Tensor, node_graph: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """x [V, H] f32/bf16, node_graph [V] int32 in [0, num_segments) ->
+    [num_segments, H] f32 segment sums; differentiable in x.
+    ``.launches`` counts forward kernel launches, ``segment_pool_bwd.launches``
+    backward ones."""
+    return _SegmentPool.apply(x, node_graph, num_segments)
+
+
 segment_pool.launches = 0
+segment_pool_bwd.launches = 0

@@ -1,27 +1,39 @@
-"""Sparse-layout GCN aggregates over a GraphBatch's CSR forms (forward).
+"""Sparse-layout GCN aggregates over a GraphBatch's CSR forms, forward and
+backward.
 
-Counterpart of the forward halves of cal_tpu/ops/pallas_spmm.py
-``gcn_aggregate_sparse_plain_pallas`` (the backbone convs) and
-``gcn_aggregate_sparse_sigmoid_pair_pallas`` (both masked causal convs in
-one pass), whose contract is cal_tpu/ops/gcn.py ``gcn_aggregate_sparse``:
-self loops and dead edges are dropped, the degree is 1 + the SENDER sum of
-the edge weights, an edge s -> r adds ``dis[s] * w * dis[r] * x[s]`` at r and
-the self loop adds ``x[r] / deg[r]``.
+Counterpart of cal_tpu/ops/pallas_spmm.py ``gcn_aggregate_sparse_plain_pallas``
+(the backbone convs) and ``gcn_aggregate_sparse_sigmoid_pair_pallas`` (both
+masked causal convs in one pass) with their custom VJPs, whose contract is
+cal_tpu/ops/gcn.py ``gcn_aggregate_sparse``: self loops and dead edges are
+dropped, the degree is 1 + the SENDER sum of the edge weights, an edge
+s -> r adds ``dis[s] * w * dis[r] * x[s]`` at r and the self loop adds
+``x[r] / deg[r]``.  Both aggregates are ``torch.autograd.Function``s: the
+pair differentiable in xc, xo, src and dst, the plain one in x (its norm
+depends on the graph alone).
 
-Three kernels in ``csrc/spmm.cu`` (its header gives the design and the
-rounding points):
+Kernels in ``csrc/spmm.cu`` (its header gives the design and the rounding
+points):
 
 * ``pair_sender_degree`` (K1, ``_pair_stats_call``): both branch sender
   degrees [2, V] from the sender CSR; at zero logits it gives the plain
   conv's degree (sigmoid(0) = 0.5 exactly, so 2 deg[0] is exact);
 * ``pair_coef_spmm`` (K2, ``_pair_coef_spmm_call``) and ``plain_coef_spmm``
   (K3, ``_plain_coef_spmm_call``): the SpMM over the receiver CSR with the
-  coefficient chain and the self term in-kernel.
+  coefficient chain and the self term in-kernel;
+* ``pair_coef_spmm_t`` (K2T) and ``plain_coef_spmm_t`` (K3T): the same
+  kernel over the sender CSR, the dx of K2/K3 (cal_tpu runs the same calls
+  on its transposed tile plan);
+* ``pair_sddmm_chain`` (K5, ``_pair_sddmm_chain_call``): the per-edge dot
+  products of the cotangent and x, the per-edge chain values and both
+  ddis planes;
+* ``pair_dpre`` (K6, ``_pair_dpre_call``): the edge logit gradient and its
+  sums into dsrc (by sender) and ddst (by receiver).
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
-it runs its plain twin ``*_plain``, which rounds at the same points: x and
-the logits in the model dtype, everything else f32, each output rounded
-once.  No gradient: the sparse training slice adds the backward.
+it runs its plain twin ``*_plain``, which rounds at the same points: x, the
+cotangents and the logits in the model dtype, everything else f32, each
+[V, H] output rounded once.  The backward computes in f32 and rounds each
+gradient once to its input's dtype (cal_tpu's ``_pair_bwd`` returns f32).
 """
 from __future__ import annotations
 
@@ -52,24 +64,59 @@ def pair_sender_degree_plain(src, dst, g: GraphBatch) -> torch.Tensor:
     return torch.zeros((2, g.num_nodes), device=s.device).index_add_(1, s, w)
 
 
-def coef_spmm_plain(xs, src, dst, deg, dis, g: GraphBatch) -> list[torch.Tensor]:
+def coef_spmm_plain(xs, src, dst, deg, dis, g: GraphBatch,
+                    transpose: bool = False) -> list[torch.Tensor]:
     """Plain twin of K2 (two branches, logits src/dst) and K3 (one branch,
     src None): out_k[r] = sum over live e of (dis_k[s] w_k) dis_k[r] x_k[s]
-    + x_k[r] / deg_k[r], in f32, rounded once to x's dtype."""
+    + x_k[r] / deg_k[r], in f32, rounded once to x's dtype.  ``transpose``:
+    K2T/K3T, rows and neighbours swapped (out_k[s] = sum of (dis_k[r] w_k)
+    dis_k[s] x_k[r] + x_k[s] / deg_k[s]); w_k stays a function of src[s] +
+    dst[r]."""
     s, r, live = _live(g)
+    row, nbr = (s, r) if transpose else (r, s)
     zero = torch.zeros((), device=s.device)
     if src is None:
-        coefs = [dis[0][s] * dis[0][r]]
+        coefs = [dis[0][nbr] * dis[0][row]]
     else:
         sig = torch.sigmoid(src.float()[s] + dst.float()[r])
-        coefs = [dis[0][s] * sig * dis[0][r], dis[1][s] * (1.0 - sig) * dis[1][r]]
+        coefs = [dis[0][nbr] * sig * dis[0][row], dis[1][nbr] * (1.0 - sig) * dis[1][row]]
     outs = []
     for k, x in enumerate(xs):
         x32 = x.float()
-        msg = torch.where(live, coefs[k], zero)[:, None] * x32[s]
-        out = torch.zeros_like(x32).index_add_(0, r, msg) + x32 / deg[k][:, None]
+        msg = torch.where(live, coefs[k], zero)[:, None] * x32[nbr]
+        out = torch.zeros_like(x32).index_add_(0, row, msg) + x32 / deg[k][:, None]
         outs.append(out.to(x.dtype))
     return outs
+
+
+def pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g: GraphBatch):
+    """Plain twin of K5: (vec [3, E], ddis_s [2, V], ddis_r [2, V]), all f32.
+    dc_k[e] = <g_k[r], x_k[s]>; vec = (dc_0 dis_0[s] dis_0[r], dc_1 dis_1[s]
+    dis_1[r], w_0 w_1), zero on dead edges; ddis_s[k] sums dc_k w_k dis_k[r]
+    by sender, ddis_r[k] dc_k w_k dis_k[s] by receiver."""
+    s, r, live = _live(g)
+    v = g.num_nodes
+    zero = torch.zeros((), device=s.device)
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r])
+    w = (torch.where(live, sig, zero), torch.where(live, 1.0 - sig, zero))
+    vec, ddis_s, ddis_r = [], torch.zeros((2, v), device=s.device), torch.zeros(
+        (2, v), device=s.device)
+    for k, (x, gk) in enumerate(((xc, gc), (xo, go))):
+        dc = torch.where(live, (gk.float()[r] * x.float()[s]).sum(-1), zero)
+        vec.append(dc * dis[k][s] * dis[k][r])
+        ddis_s[k].index_add_(0, s, dc * w[k] * dis[k][r])
+        ddis_r[k].index_add_(0, r, dc * w[k] * dis[k][s])
+    vec.append(w[0] * w[1])
+    return torch.stack(vec), ddis_s, ddis_r
+
+
+def pair_dpre_plain(vec, ddeg, g: GraphBatch):
+    """Plain twin of K6: dpre = (vec0 + ddeg_0[s] - vec1 - ddeg_1[s]) * vec2
+    summed by sender (dsrc) and by receiver (ddst), [V] f32 each."""
+    s, r = g.senders.long(), g.receivers.long()
+    dpre = (vec[0] + ddeg[0][s] - vec[1] - ddeg[1][s]) * vec[2]
+    z = torch.zeros(g.num_nodes, device=s.device)
+    return z.index_add(0, s, dpre), z.index_add(0, r, dpre)
 
 
 def _lib():
@@ -78,10 +125,19 @@ def _lib():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.sender_degree_launch.argtypes = [vp, vp, i] + [vp] * 6 + [i, i, vp, vp, vp]
         lib.sender_degree_launch.restype = ctypes.c_int
-        lib.coef_spmm_launch.argtypes = [i, vp, vp, vp, vp, i] + [vp] * 7 + [i, i, i,
+        lib.coef_spmm_launch.argtypes = [i, vp, vp, vp, vp, i] + [vp] * 8 + [i, i, i,
                                                                              vp, vp, vp, vp]
         lib.coef_spmm_launch.restype = ctypes.c_int
+        lib.pair_sddmm_chain_launch.argtypes = [vp] * 6 + [i] + [vp] * 6 + [i] + [vp] * 4 + [
+            i, i, i, i] + [vp] * 5
+        lib.pair_sddmm_chain_launch.restype = ctypes.c_int
+        lib.pair_dpre_launch.argtypes = [vp] * 6 + [i] + [vp] * 4 + [i, i, i] + [vp] * 5
+        lib.pair_dpre_launch.restype = ctypes.c_int
     return lib
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check_graph(what, g: GraphBatch, device) -> None:
@@ -143,7 +199,7 @@ def pair_sender_degree(src, dst, g: GraphBatch) -> torch.Tensor:
     return deg
 
 
-def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch):
+def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch, transpose: bool = False):
     v, h = xs[0].shape
     nb = len(xs)
     _check_features(what, xs, v, h)
@@ -159,7 +215,9 @@ def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch):
             src is not None and src.device != device):
         raise ValueError(f"{what}: inputs on different devices")
     if device.type == "cpu":
-        return coef_spmm_plain(xs, src, dst, deg, dis, g)
+        return coef_spmm_plain(xs, src, dst, deg, dis, g, transpose)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
     _check_graph(what, g, device)
     xs = [x.contiguous() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
@@ -167,15 +225,19 @@ def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch):
     deg, dis = deg.contiguous(), dis.contiguous()
     if src is not None:
         src, dst = src.contiguous(), dst.contiguous()
-    partial = torch.empty((g.recv.num_chunks, nb * h), dtype=torch.float32, device=device)
+    # transposed: the sender CSR, neighbours through its perm, logits swapped
+    csr, nbr, perm = ((g.send, g.receivers, g.send.perm) if transpose
+                      else (g.recv, g.senders, None))
+    if transpose:
+        src, dst = dst, src
+    partial = torch.empty((csr.num_chunks, nb * h), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib().coef_spmm_launch(
         nb, xs[0].data_ptr(), ptr(xs[1] if nb == 2 else None), ptr(src), ptr(dst),
-        _DTYPES[xs[0].dtype], g.senders.data_ptr(), g.edge_mask.data_ptr(), deg.data_ptr(),
-        dis.data_ptr(), g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(),
-        g.recv.chunk_row.data_ptr(), g.recv.num_chunks, v, h, outs[0].data_ptr(),
-        ptr(outs[1] if nb == 2 else None), partial.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+        _DTYPES[xs[0].dtype], nbr.data_ptr(), ptr(perm), g.edge_mask.data_ptr(),
+        deg.data_ptr(), dis.data_ptr(), csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(),
+        csr.chunk_row.data_ptr(), csr.num_chunks, v, h, outs[0].data_ptr(),
+        ptr(outs[1] if nb == 2 else None), partial.data_ptr(), _stream(device))
     build.check(err, what)
     return outs
 
@@ -198,23 +260,165 @@ def plain_coef_spmm(x, deg, dis, g: GraphBatch) -> torch.Tensor:
     return out
 
 
+def pair_coef_spmm_t(gc, go, src, dst, deg, dis, g: GraphBatch):
+    """K2T: (dxc, dxo) [V, H] in g's dtype, the x-gradient of K2 for the
+    cotangents (gc, go), self term g / deg included.  ``src``/``dst`` are the
+    forward's logits.  ``.launches`` counts kernel launches."""
+    dc, do = _coef_spmm("pair_coef_spmm_t", [gc, go], src, dst, deg, dis, g, transpose=True)
+    if gc.device.type == "cuda":
+        pair_coef_spmm_t.launches += 1
+    return dc, do
+
+
+def plain_coef_spmm_t(gout, deg, dis, g: GraphBatch) -> torch.Tensor:
+    """K3T: the x-gradient of K3 [V, H] in gout's dtype.  ``.launches``
+    counts kernel launches."""
+    (dx,) = _coef_spmm("plain_coef_spmm_t", [gout], None, None, deg, dis, g, transpose=True)
+    if gout.device.type == "cuda":
+        plain_coef_spmm_t.launches += 1
+    return dx
+
+
+def pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g: GraphBatch):
+    """K5: (vec [3, E], ddis_s [2, V], ddis_r [2, V]) f32 (see
+    ``pair_sddmm_chain_plain``); x, g and the logits of one dtype, ``dis``
+    [2, V] f32.  One launch runs the receiver pass and the sender sums.
+    ``.launches`` counts kernel launches."""
+    v, h = xc.shape
+    what = "pair_sddmm_chain"
+    _check_features(what, (xc, xo, gc, go), v, h)
+    _check_features(what, (src[:, None], dst[:, None]), v, 1)
+    if src.dtype != xc.dtype or dis.dtype != torch.float32 or tuple(dis.shape) != (2, v):
+        raise ValueError(f"{what}: logits in x's dtype and dis [2, {v}] float32")
+    device = xc.device
+    if any(t.device != device for t in (src, dst, dis, g.senders)):
+        raise ValueError(f"{what}: inputs on different devices")
+    if device.type == "cpu":
+        return pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
+    _check_graph(what, g, device)
+    xs = [t.contiguous() for t in (xc, xo, gc, go)]
+    _check_kernel_width(what, h, xs)
+    src, dst, dis = src.contiguous(), dst.contiguous(), dis.contiguous()
+    e = g.senders.shape[0]
+    edge_out = torch.empty((5, e), dtype=torch.float32, device=device)
+    ddis_s = torch.empty((2, v), dtype=torch.float32, device=device)
+    ddis_r = torch.empty((2, v), dtype=torch.float32, device=device)
+    partial = torch.empty((max(g.recv.num_chunks, g.send.num_chunks), 2), dtype=torch.float32,
+                          device=device)
+    err = _lib().pair_sddmm_chain_launch(
+        *(t.data_ptr() for t in xs), src.data_ptr(), dst.data_ptr(), _DTYPES[xc.dtype],
+        g.senders.data_ptr(), g.edge_mask.data_ptr(), dis.data_ptr(), g.recv.ptr.data_ptr(),
+        g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(), g.recv.num_chunks,
+        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
+        g.send.perm.data_ptr(), g.send.num_chunks, v, e, h, edge_out.data_ptr(),
+        ddis_s.data_ptr(), ddis_r.data_ptr(), partial.data_ptr(), _stream(device))
+    build.check(err, what)
+    pair_sddmm_chain.launches += 1
+    return edge_out[:3], ddis_s, ddis_r
+
+
+def pair_dpre(vec, ddeg, g: GraphBatch):
+    """K6: (dsrc, ddst) [V] f32 from K5's ``vec`` [3, E] and the degree
+    gradient ``ddeg`` [2, V] f32.  One launch runs the receiver pass and the
+    sender sums.  ``.launches`` counts kernel launches."""
+    v, e = g.num_nodes, g.senders.shape[0]
+    what = "pair_dpre"
+    if tuple(vec.shape) != (3, e) or tuple(ddeg.shape) != (2, v) or any(
+            t.dtype != torch.float32 for t in (vec, ddeg)):
+        raise ValueError(f"{what}: vec must be [3, {e}] and ddeg [2, {v}], float32")
+    device = vec.device
+    if any(t.device != device for t in (ddeg, g.senders)):
+        raise ValueError(f"{what}: inputs on different devices")
+    if device.type == "cpu":
+        return pair_dpre_plain(vec, ddeg, g)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    _check_graph(what, g, device)
+    vec, ddeg = vec.contiguous(), ddeg.contiguous()
+    dpre = torch.empty(e, dtype=torch.float32, device=device)
+    dsrc = torch.empty(v, dtype=torch.float32, device=device)
+    ddst = torch.empty(v, dtype=torch.float32, device=device)
+    partial = torch.empty(max(g.recv.num_chunks, g.send.num_chunks), dtype=torch.float32,
+                          device=device)
+    err = _lib().pair_dpre_launch(
+        vec.data_ptr(), ddeg.data_ptr(), g.senders.data_ptr(), g.recv.ptr.data_ptr(),
+        g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(), g.recv.num_chunks,
+        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
+        g.send.perm.data_ptr(), g.send.num_chunks, v, e, dpre.data_ptr(), dsrc.data_ptr(),
+        ddst.data_ptr(), partial.data_ptr(), _stream(device))
+    build.check(err, what)
+    pair_dpre.launches += 1
+    return dsrc, ddst
+
+
 pair_sender_degree.launches = 0
 pair_coef_spmm.launches = 0
 plain_coef_spmm.launches = 0
+pair_coef_spmm_t.launches = 0
+plain_coef_spmm_t.launches = 0
+pair_sddmm_chain.launches = 0
+pair_dpre.launches = 0
+
+
+class _PairAggregate(torch.autograd.Function):
+    """K1 + K2 forward; K2T, then (when the logits need a gradient) K5, the
+    degree chain's elementwise step and K6 backward (cal_tpu ``_pair_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xc, xo, src, dst, g):
+        deg = pair_sender_degree(src, dst, g) + 1.0
+        dis = torch.rsqrt(deg)
+        ctx.save_for_backward(xc, xo, src, dst, deg, dis)
+        ctx.g = g
+        return pair_coef_spmm(xc, xo, src, dst, deg, dis, g)
+
+    @staticmethod
+    def backward(ctx, gc, go):
+        xc, xo, src, dst, deg, dis = ctx.saved_tensors
+        g = ctx.g
+        need = ctx.needs_input_grad
+        dxc = dxo = dsrc = ddst = None
+        if need[0] or need[1]:
+            dxc, dxo = pair_coef_spmm_t(gc, go, src, dst, deg, dis, g)
+        if need[2] or need[3]:
+            vec, ddis_s, ddis_r = pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
+            inv = 1.0 / deg
+            gx = torch.stack([(gc.float() * xc.float()).sum(1),
+                              (go.float() * xo.float()).sum(1)])
+            ddeg = -gx * inv * inv + (ddis_s + ddis_r) * (-0.5) * dis * inv
+            dsrc, ddst = pair_dpre(vec, ddeg, g)
+            dsrc, ddst = dsrc.to(src.dtype), ddst.to(dst.dtype)
+        return dxc, dxo, dsrc, ddst, None
+
+
+class _PlainAggregate(torch.autograd.Function):
+    """K1 at zero logits + K3 forward; K3T backward (cal_tpu ``_plain_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        deg = 2.0 * pair_sender_degree(None, None, g)[:1] + 1.0
+        dis = torch.rsqrt(deg)
+        ctx.save_for_backward(deg, dis)
+        ctx.g = g
+        return plain_coef_spmm(x, deg, dis, g)
+
+    @staticmethod
+    def backward(ctx, gout):
+        deg, dis = ctx.saved_tensors
+        return plain_coef_spmm_t(gout, deg, dis, ctx.g), None
 
 
 def gcn_aggregate_sparse_pair(xc, xo, src, dst, g: GraphBatch):
-    """Both masked causal convs of the sparse layout (counterpart of the
-    forward of ``gcn_aggregate_sparse_sigmoid_pair_pallas``): out_c with
-    w = sigmoid(src[s] + dst[r]) on xc, out_o with 1 - w on xo.  K1, then
-    K2."""
-    deg = pair_sender_degree(src, dst, g) + 1.0
-    return pair_coef_spmm(xc, xo, src, dst, deg, torch.rsqrt(deg), g)
+    """Both masked causal convs of the sparse layout (counterpart of
+    ``gcn_aggregate_sparse_sigmoid_pair_pallas``): out_c with w =
+    sigmoid(src[s] + dst[r]) on xc, out_o with 1 - w on xo.  Differentiable
+    in xc, xo, src and dst; the backward skips K5/K6 when neither logit
+    needs a gradient (the constant weights of ``without_edge_attention``)."""
+    return _PairAggregate.apply(xc, xo, src, dst, g)
 
 
 def gcn_aggregate_sparse_plain(x, g: GraphBatch) -> torch.Tensor:
-    """Unweighted GCN aggregate of the sparse layout (counterpart of the
-    forward of ``gcn_aggregate_sparse_plain_pallas``): K1 at zero logits for
-    the degree, then K3."""
-    deg = 2.0 * pair_sender_degree(None, None, g)[:1] + 1.0
-    return plain_coef_spmm(x, deg, torch.rsqrt(deg), g)
+    """Unweighted GCN aggregate of the sparse layout (counterpart of
+    ``gcn_aggregate_sparse_plain_pallas``): K1 at zero logits for the
+    degree, then K3; differentiable in x (K3T)."""
+    return _PlainAggregate.apply(x, g)

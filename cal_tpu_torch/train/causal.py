@@ -2,8 +2,8 @@
 (``train_causal_syn`` and ``evaluate_causal``).
 
 Both serve the dense CausalGCN and CausalGAT alike (the model comes from
-``get_model``); ``evaluate_causal`` also serves the sparse-layout CausalGCN
-(``--layout sparse``), whose training waits for the sparse backward.
+``get_model``), and the sparse-layout CausalGCN (``--layout sparse``) on
+fixed budgets; budget-packed sparse batching is not ported and raises.
 ``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
 cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
@@ -18,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from cal_tpu_torch.data.loader import Loader, compute_budgets, want_pack
+from cal_tpu_torch.data.loader import Loader, compute_budgets, pack_ratio, want_pack
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import get_model
 from cal_tpu_torch.train.optim import cosine_lr
@@ -60,11 +60,30 @@ def _eval(eval_step, batches, generator) -> tuple[float, float, float, int]:
     return co / d, c / d, o / d, n
 
 
+def _refuse_packing(cfg: Config, graphs) -> None:
+    """cal_tpu switches the sparse layout to budget-packed batches when
+    ``want_pack`` says so (train/causal.py ``_want_pack``); the port has no
+    packed batching yet and raises rather than train or serve unpacked."""
+    if want_pack(cfg.layout, cfg.pack_batches, graphs, cfg.batch_size):
+        raise NotImplementedError(
+            "budget-packed sparse batching is not ported yet (ROADMAP queue 1 item 9); "
+            "pass --pack_batches false")
+
+
 def make_loaders(train_set, val_set, test_set, cfg: Config):
     """Loaders of the three splits with budgets over all of them (one node
-    budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer."""
+    budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer.
+    The sparse layout refuses budget packing when it is asked for or, in
+    "auto", when the splits would need it, and prints the decision and the
+    budgets."""
     sets = (train_set, val_set, test_set)
-    budgets = compute_budgets([g for s in sets for g in s], cfg.batch_size, cfg.layout)
+    graphs = [g for s in sets for g in s]
+    budgets = compute_budgets(graphs, cfg.batch_size, cfg.layout)
+    if cfg.layout == "sparse":
+        _refuse_packing(cfg, graphs)
+        print(f"pack_batches {cfg.pack_batches}: worst-case batch "
+              f"{pack_ratio(graphs, cfg.batch_size):.2f}x the mean batch, fixed sparse "
+              f"budgets V={budgets['node_budget']}, E={budgets['edge_budget']}")
     train, val, test = (Loader(s, cfg.batch_size, shuffle=(i == 0), budgets=budgets,
                                seed=(cfg.seed, 0, 0)[i], layout=cfg.layout)
                         for i, s in enumerate(sets))
@@ -175,10 +194,7 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
     over the test set, as cal_tpu's).  Returns the accuracies, the
     checkpoint step, the graph count and the sweep's wall seconds."""
     device = resolve_device(cfg.device)
-    if want_pack(cfg.layout, cfg.pack_batches, test_set, cfg.batch_size):
-        raise NotImplementedError(
-            "budget-packed sparse batching is not ported yet (ROADMAP queue 1 item 9); "
-            "pass --pack_batches false")
+    _refuse_packing(cfg, test_set)
     loader = Loader(test_set, cfg.batch_size, shuffle=False, layout=cfg.layout)
     model = get_model(cfg, test_set[0].x.shape[1], num_classes or cfg.num_classes)
     ckpt = Checkpointer(cfg.save_dir)

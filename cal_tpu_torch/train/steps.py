@@ -3,10 +3,10 @@
 
 PyTorch runs the step eagerly: forward with ``train=True``, the three
 losses, backward (the dual masked conv's and, for CausalGAT, the flash-GAT
-backward kernels included), Adam, and the BatchNorm running stats, which
-the forward moves in place.  The eval step takes a dense batch
-(``PackedDenseBatch``) or a sparse one (``GraphBatch``); the train step
-takes dense batches only until the sparse backward kernels are ported.
+backward kernels on the dense layout; the sparse convs' and the pool's
+backward kernels on the sparse one), Adam, and the BatchNorm running stats,
+which the forward moves in place.  Both steps take a dense batch
+(``PackedDenseBatch``) or a sparse one (``GraphBatch``).
 """
 from __future__ import annotations
 
@@ -79,7 +79,8 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
     over the epoch: [loss*n, loss_c*n, loss_o*n, loss_co*n, correct_o, n]
     (each loss scaled by the real-graph count n, mirroring
     ``loss.item() * num_graphs`` of the reference).  A batch without a real
-    graph is skipped on the host (no device work, the step count does not
+    graph (no node in a dense batch, no ``graph_mask`` entry in a sparse
+    one) is skipped on the host (no device work, the step count does not
     move), like the JAX ``_gate_state``.  The intervention generator is
     re-seeded from (seed, step) each step, and the GAT layers' dropout seeds
     derive from (seed, step, layer).  Gradients stay in ``.grad`` until the
@@ -89,12 +90,11 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
     device = params[0].device
     generator = torch.Generator(device=device)
 
-    def step(batch: PackedDenseBatch, sums: torch.Tensor | None) -> torch.Tensor | None:
-        if isinstance(batch, GraphBatch):
-            raise NotImplementedError(
-                "sparse-layout training is not ported yet (ROADMAP queue 1 item 9: "
-                "the sparse backward kernels come with the next slice)")
-        if not (np.asarray(batch.n_nodes) > 0).any():
+    def step(batch: PackedDenseBatch | GraphBatch,
+             sums: torch.Tensor | None) -> torch.Tensor | None:
+        real = (np.asarray(batch.graph_mask) if isinstance(batch, GraphBatch)
+                else np.asarray(batch.n_nodes) > 0)
+        if not real.any():
             return sums
         generator.manual_seed(step_seed(seed, state.step))
         g = _as_graph(batch.to(device), model.dtype)

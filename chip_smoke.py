@@ -45,7 +45,23 @@
       log-probs agree batch by batch (warm sparse and dense serving rates
       beside); checks the forward against the twins on
       the card (bf16) and against the CPU (f32, 16 graphs); the device time
-      of one forward.
+      of one forward;
+5. sparse CausalGCN training (``--layout sparse``) at the same size:
+   a. kernel phase: on the same two batches, holds the backward kernels
+      (K2T/K3T transposed SpMM, K5 SDDMM chain, K6 chain tail, K7 pool
+      backward) against their plain twins, bf16 and f32, every f32 backward
+      also against torch.autograd of the f32 forward twins, and times them
+      beside a PyTorch library call where one exists;
+   b. training: drives ``main_syn --layout sparse`` (3 epochs, data_num
+      2000, ``--save_model``) with the counters at 0 and fails unless each
+      backward kernel launched its per-step count (K7 2, K2T 1, K3T 3, K5 1,
+      K6 1; the sender-sum passes run inside the K5/K6 launches), the forward
+      kernels their per-batch counts over the training and eval batches, and
+      no dense kernel; serves that checkpoint through both layouts (f32 eval
+      counts equal);
+   c. gradient check: one sparse step's gradients, bf16 kernels against the
+      twins, f32 card against CPU, and f32 sparse against dense on the card;
+      the device time of one warm sparse train step by operator.
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -54,7 +70,6 @@ CUDA or the package is missing, or when any check fails.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import math
 import os
@@ -118,6 +133,21 @@ SPARSE_DATA_NUM = 2000    # canonical size: test split 1600 graphs, V 31,744, E 
 DEG_TOL = (1e-4, 1e-5)
 SPARSE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 8e-3)}
 POOL_TOL = (1e-3, 1e-4)
+# Sparse backward kernels vs their twins (same rounding points, csrc/spmm.cu
+# header).  K2T/K3T as K2/K3 (SPARSE_TOL).  K5/K6 outputs are f32: dot
+# products of H terms and sums over a row's edges (thousands at a REDDIT
+# hub) in another order with fmaf and expf, on values of order 10-100.  K7
+# copies an f32 row and rounds it once: exact.
+CHAIN_TOL = (1e-3, 1e-4)
+# Whole-step gradients on the sparse layout: f32 sparse against f32 dense on
+# the card (the same math, sums in another order) as GRAD_TOL["float32"];
+# bf16 kernels against the twins 5e-2: all nine sparse wrappers of a step
+# (five aggregates, their dx, two pools) round [V, H] outputs to bf16, and
+# the twins' own index_add_ sums on the card run in a varying atomic order,
+# so the reference itself moves between runs (1.2e-2 and 1.6e-2 measured on
+# one code), where a broken kernel moves it by O(1).
+SPARSE_GRAD_TOL_BF16 = 5e-2
+SPARSE_TRAIN_EPOCHS = 3
 
 
 def emit(obj) -> None:
@@ -593,14 +623,13 @@ def training_phase(torch, model: str) -> dict:
     return launches
 
 
-def _step_grads(torch, model, batch, dtype, seeds=None):
-    """Gradients of one train-mode loss (no intervention shuffle, no update;
-    ``seeds`` turn the GAT layers' dropout on)."""
-    from cal_tpu_torch.graph import to_dense
+def _step_grads(torch, model, g, seeds=None):
+    """Gradients of one train-mode loss on the device graph ``g`` (dense or
+    sparse; no intervention shuffle, no update; ``seeds`` turn the GAT
+    layers' dropout on)."""
     from cal_tpu_torch.train.losses import causal_losses
 
     model.zero_grad(set_to_none=True)
-    g = to_dense(batch, dtype)
     c, o, co = model(g, eval_random=False, train=True, dropout_seeds=seeds)
     total, _ = causal_losses(c, o, co, g.y, g.graph_mask, 0.5, 1.0, 0.5)
     total.backward()
@@ -628,6 +657,7 @@ def grad_check(torch, test_set, batch, model: str):
     import copy
 
     from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.graph import to_dense
     from cal_tpu_torch.models.factory import get_model
     from cal_tpu_torch.train.steps import dropout_seeds
     from cal_tpu_torch.utils.config import Config
@@ -636,16 +666,17 @@ def grad_check(torch, test_set, batch, model: str):
     feat = test_set[0].x.shape[1]
     net = get_model(cfg, feat, cfg.num_classes).to("cuda")
     seeds = dropout_seeds(net, SEED, 0)
-    loss_k, grads_k = _step_grads(torch, net, batch, torch.bfloat16, seeds)
+    loss_k, grads_k = _step_grads(torch, net, to_dense(batch, torch.bfloat16), seeds)
     with plain_twins():
-        loss_p, grads_p = _step_grads(torch, net, batch, torch.bfloat16, seeds)
+        loss_p, grads_p = _step_grads(torch, net, to_dense(batch, torch.bfloat16), seeds)
     bf16 = _grad_err(torch, grads_k, grads_p, GRAD_TOL["bfloat16"])
 
     m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
     small = next(Loader(test_set[:16], 16).host_batches())
-    loss_cpu, grads_cpu = _step_grads(torch, copy.deepcopy(m32), small.to("cpu"),
-                                      torch.float32)
-    loss_gpu, grads_gpu = _step_grads(torch, m32.to("cuda"), small.to("cuda"), torch.float32)
+    loss_cpu, grads_cpu = _step_grads(torch, copy.deepcopy(m32),
+                                      to_dense(small.to("cpu"), torch.float32))
+    loss_gpu, grads_gpu = _step_grads(torch, m32.to("cuda"),
+                                      to_dense(small.to("cuda"), torch.float32))
     f32 = _grad_err(torch, grads_gpu, grads_cpu, GRAD_TOL["float32"])
     emit({"phase": "grad_check", "model": model, "bf16_dropout": seeds is not None,
           "bf16_loss_kernels": loss_k, "bf16_loss_plain": loss_p,
@@ -655,10 +686,11 @@ def grad_check(torch, test_set, batch, model: str):
           "f32_tol": GRAD_TOL["float32"], "params": len(grads_k), "f32_graphs": 16})
 
 
-def profile_train_step(torch, test_set, batch, model: str, top=20) -> None:
-    """Device time of one warm bf16 train step (adjacency build, forward,
-    backward, Adam) by operator, from torch.profiler; and its wall time on
-    the host clock (median of 10, each ending in a synchronize)."""
+def profile_train_step(torch, test_set, host, model: str, top=20, layout="dense") -> None:
+    """Device time of one warm bf16 train step (dense: adjacency build
+    included; forward, backward, Adam) on the host batch ``host``, by
+    operator, from torch.profiler; and its wall time on the host clock
+    (median of 10, each ending in a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cal_tpu_torch.train.optim import cosine_lr
@@ -669,8 +701,6 @@ def profile_train_step(torch, test_set, batch, model: str, top=20) -> None:
     state = init_state(cfg, test_set[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
     step = make_causal_train_step(state, cosine_lr(cfg.lr, cfg.min_lr, 100, 10),
                                   cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
-    host = dataclasses.replace(batch, **{k: getattr(batch, k).cpu().numpy()
-                                         for k in ("x", "edge_flat", "n_nodes", "y")})
     walls = []
     for _ in range(12):
         t0 = time.perf_counter()
@@ -681,7 +711,8 @@ def profile_train_step(torch, test_set, batch, model: str, top=20) -> None:
         step(host, None)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    emit({"phase": "profile_train_step", "model": model, "batch": list(batch.x.shape),
+    emit({"phase": "profile_train_step", "model": model, "layout": layout,
+          "batch": list(host.x.shape),
           "wall_ms": statistics.median(walls[2:]),
           "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
@@ -808,13 +839,13 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
 
 
 def sparse_twins():
-    """Patches that route every sparse kernel wrapper to its plain twin."""
+    """Patches that route every sparse kernel wrapper, forward and backward,
+    to its plain twin (the autograd Functions look them up at call time)."""
     import contextlib
     from unittest import mock
 
-    import cal_tpu_torch.ops.attention as att_mod
+    import cal_tpu_torch.ops.pool as pool_mod
     import cal_tpu_torch.ops.spmm as spmm_mod
-    from cal_tpu_torch.ops.pool import segment_pool_plain
 
     plain = spmm_mod.coef_spmm_plain
     stack = contextlib.ExitStack()
@@ -824,22 +855,37 @@ def sparse_twins():
              lambda xc, xo, src, dst, deg, dis, g: tuple(plain([xc, xo], src, dst, deg, dis, g))),
             (spmm_mod, "plain_coef_spmm",
              lambda x, deg, dis, g: plain([x], None, None, deg, dis, g)[0]),
-            (att_mod, "segment_pool", segment_pool_plain)):
+            (spmm_mod, "pair_coef_spmm_t",
+             lambda gc, go, src, dst, deg, dis, g: tuple(
+                 plain([gc, go], src, dst, deg, dis, g, transpose=True))),
+            (spmm_mod, "plain_coef_spmm_t",
+             lambda gx, deg, dis, g: plain([gx], None, None, deg, dis, g, transpose=True)[0]),
+            (spmm_mod, "pair_sddmm_chain", spmm_mod.pair_sddmm_chain_plain),
+            (spmm_mod, "pair_dpre", spmm_mod.pair_dpre_plain),
+            (pool_mod, "_pool_fwd", pool_mod.segment_pool_plain),
+            (pool_mod, "segment_pool_bwd", pool_mod.segment_pool_bwd_plain)):
         stack.enter_context(mock.patch.object(mod, name, fn))
     return stack
 
 
-def sparse_counters() -> dict:
-    """Launch counters of the sparse serving path (and the dense kernels,
-    which it must not launch)."""
+def sparse_counters(training: bool = False) -> dict:
+    """Launch counters of the sparse serving or training path (and the
+    dense kernels, which it must not launch)."""
+    from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.adj_build import adj_build
-    from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
-    from cal_tpu_torch.ops.pool import segment_pool
-    from cal_tpu_torch.ops.spmm import pair_coef_spmm, pair_sender_degree, plain_coef_spmm
+    from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_bwd
 
-    return {"pair_sender_degree": pair_sender_degree, "pair_coef_spmm": pair_coef_spmm,
-            "plain_coef_spmm": plain_coef_spmm, "segment_pool": segment_pool,
-            "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual}
+    ks = {"pair_sender_degree": spmm.pair_sender_degree, "pair_coef_spmm": spmm.pair_coef_spmm,
+          "plain_coef_spmm": spmm.plain_coef_spmm, "segment_pool": segment_pool,
+          "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual}
+    if training:
+        ks.update(pair_coef_spmm_t=spmm.pair_coef_spmm_t,
+                  plain_coef_spmm_t=spmm.plain_coef_spmm_t,
+                  pair_sddmm_chain=spmm.pair_sddmm_chain, pair_dpre=spmm.pair_dpre,
+                  segment_pool_bwd=segment_pool_bwd,
+                  fused_gcn_dense_att_dual_bwd=fused_gcn_dense_att_dual_bwd)
+    return ks
 
 
 def sparse_serving_phase(torch, test_set, trained_dir: str) -> dict:
@@ -960,6 +1006,257 @@ def sparse_serving_phase(torch, test_set, trained_dir: str) -> dict:
     return launches
 
 
+def _library_spmm_t(torch, g, coefs, gs):
+    """torch.sparse.mm over the block-diagonal TRANSPOSED CSR (rows =
+    senders, through the sender CSR's perm) of the materialized
+    coefficients; CSR and stacking built outside the timed call."""
+    v = g.num_nodes
+    nnz = g.senders.shape[0]
+    perm = g.send.perm.long()
+    crow = torch.cat([g.send.ptr[:-1] + k * nnz for k in range(len(gs))]
+                     + [g.send.ptr[-1:] + (len(gs) - 1) * nnz])
+    col = torch.cat([g.receivers[perm] + k * v for k in range(len(gs))])
+    x = torch.cat(gs)
+    a = torch.sparse_csr_tensor(crow, col, torch.cat([c[perm] for c in coefs]).to(x.dtype),
+                                size=(len(gs) * v, len(gs) * v))
+    return lambda: torch.sparse.mm(a, x)
+
+
+def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
+    """K2T, K3T, K5, K6 and K7 against their twins on one sparse batch ``g``
+    (on the card), bf16 and f32, every f32 backward also against autograd
+    of the f32 forward twins; with their times.  Returns {dtype: {kernel:
+    row}}."""
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.pool import (
+        segment_pool, segment_pool_bwd, segment_pool_bwd_plain, segment_pool_plain)
+
+    bw, _, f32_peak = peaks
+    v, e = g.num_nodes, g.senders.shape[0]
+    n_live = int((g.edge_mask & (g.senders != g.receivers)).sum())
+    g1 = g.num_graphs + 1
+    csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        xc, xo, gc, go = (torch.randn((v, H), generator=gen, device="cuda").to(dt)
+                          for _ in range(4))
+        src = torch.randn(v, generator=gen, device="cuda").to(dt)
+        dst = (2.0 * torch.randn(v, generator=gen, device="cuda")).to(dt)
+        deg = spmm.pair_sender_degree(src, dst, g) + 1.0
+        dis = torch.rsqrt(deg)
+        pdeg = 2.0 * spmm.pair_sender_degree(None, None, g)[:1] + 1.0
+        pdis = torch.rsqrt(pdeg)
+        rows = {}
+
+        def row(name, fn, plain, nbytes, flops, err, tol, lib_fn=None, lib_call=None):
+            t_bytes, t_ops = nbytes / bw, flops / f32_peak
+            r = {"name": name, "batch": label, "dtype": dt_name, "max_abs_err": err,
+                 "atol": tol[0], "rtol": tol[1],
+                 "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+                 "library_ms": None if lib_fn is None else time_ms(torch, lib_fn, flush),
+                 "library_call": lib_call, "bytes": nbytes, "flops": flops,
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "nodes": v, "edges": e, "live_edges": n_live}
+            emit({"phase": "sparse_bwd_kernel", **r})
+            rows[name] = r
+
+        def held(name, got, ref, tol):
+            got = (got,) if torch.is_tensor(got) else tuple(got)
+            ref = (ref,) if torch.is_tensor(ref) else tuple(ref)
+            torch.cuda.synchronize()
+            errs = []
+            for a, b in zip(got, ref, strict=True):
+                check(a.dtype == b.dtype and a.shape == b.shape, f"{name} {dt_name} misshapen")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"{name} {dt_name} on {label} not finite")
+                err, over = max_excess(torch, a, b, *tol)
+                check(over <= 0, f"{name} {dt_name} on {label} differs from its plain twin: {err}")
+                errs.append(err)
+            return max(errs)
+
+        tol = SPARSE_TOL[dt_name]
+        err = held("pair_coef_spmm_t", spmm.pair_coef_spmm_t(gc, go, src, dst, deg, dis, g),
+                   spmm.coef_spmm_plain([gc, go], src, dst, deg, dis, g, transpose=True), tol)
+        lib = _library_spmm_t(torch, g, _csr_coefs(torch, g, src, dst, deg, dis), [gc, go])
+        row("pair_coef_spmm_t", lambda: spmm.pair_coef_spmm_t(gc, go, src, dst, deg, dis, g),
+            lambda: spmm.coef_spmm_plain([gc, go], src, dst, deg, dis, g, transpose=True),
+            4 * v * H * elt + 2 * v * elt + 9 * e + csr(g.send) + 4 * v * 4,
+            2 * 2 * H * n_live, err, tol, lib,
+            "torch.sparse.mm(block-diagonal transposed CSR [2V, 2V], [gc; go]), "
+            "coefficients materialized outside the call, no self term")
+
+        err = held("plain_coef_spmm_t", spmm.plain_coef_spmm_t(gc, pdeg, pdis, g),
+                   spmm.coef_spmm_plain([gc], None, None, pdeg, pdis, g, transpose=True)[0], tol)
+        lib = _library_spmm_t(torch, g, _csr_coefs(torch, g, None, None, pdeg, pdis), [gc])
+        row("plain_coef_spmm_t", lambda: spmm.plain_coef_spmm_t(gc, pdeg, pdis, g),
+            lambda: spmm.coef_spmm_plain([gc], None, None, pdeg, pdis, g, transpose=True),
+            2 * v * H * elt + 9 * e + csr(g.send) + 2 * v * 4, 2 * H * n_live, err, tol, lib,
+            "torch.sparse.mm(transposed CSR [V, V], g), coefficients materialized outside "
+            "the call, no self term")
+
+        chain = lambda: spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
+        chain_p = lambda: spmm.pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
+        ref = chain_p()
+        err = held("pair_sddmm_chain", chain(), ref, CHAIN_TOL)
+        none = "none: no single PyTorch call computes the {} of the pair VJP"
+        row("pair_sddmm_chain", chain, chain_p,
+            4 * v * H * elt + 2 * v * elt + 5 * e + csr(g.recv) + 4 * e + csr(g.send)
+            + 2 * v * 4 + 3 * e * 4 + 4 * v * 4, 2 * 2 * H * n_live, err, CHAIN_TOL,
+            None, none.format("SDDMM chain (dot products, chain terms, ddis sums)"))
+
+        vec = ref[0]
+        ddeg = torch.randn((2, v), generator=gen, device="cuda")
+        err = held("pair_dpre", spmm.pair_dpre(vec, ddeg, g), spmm.pair_dpre_plain(vec, ddeg, g),
+                   CHAIN_TOL)
+        row("pair_dpre", lambda: spmm.pair_dpre(vec, ddeg, g),
+            lambda: spmm.pair_dpre_plain(vec, ddeg, g),
+            3 * e * 4 + 2 * v * 4 + 4 * e + csr(g.recv) + 4 * e + csr(g.send) + 2 * v * 4,
+            6 * e, err, CHAIN_TOL, None, none.format("edge logit gradient and its two sums"))
+
+        ng = g.node_graph
+        dp = torch.randn((g1, H), generator=gen, device="cuda")
+        err = held("segment_pool_bwd", segment_pool_bwd(dp, ng, dt),
+                   segment_pool_bwd_plain(dp, ng, dt), (0.0, 0.0))
+        ng64 = ng.long()
+        row("segment_pool_bwd", lambda: segment_pool_bwd(dp, ng, dt),
+            lambda: segment_pool_bwd_plain(dp, ng, dt), v * H * elt + 4 * v + g1 * H * 4,
+            0, err, (0.0, 0.0), lambda: dp.index_select(0, ng64),
+            "dpooled.index_select(0, node_graph) (f32 rows, no cast)")
+
+        if dt == torch.float32:
+            # the Functions' backward kernels against autograd of the twins
+            leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+            d = spmm.pair_sender_degree_plain(leaves[2], leaves[3], g) + 1.0
+            oc, oo = spmm.coef_spmm_plain(leaves[:2], leaves[2], leaves[3], d, torch.rsqrt(d), g)
+            auto = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+            leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+            oc, oo = spmm.gcn_aggregate_sparse_pair(*leaves, g)
+            got = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+            errs = [held("pair VJP vs autograd", a, b, CHAIN_TOL) for a, b in zip(got, auto)]
+            x = xc.clone().requires_grad_()
+            (o,) = spmm.coef_spmm_plain([x], None, None, pdeg, pdis, g)
+            auto = torch.autograd.grad((o * gc).sum(), x)[0]
+            x = xc.clone().requires_grad_()
+            got = torch.autograd.grad((spmm.gcn_aggregate_sparse_plain(x, g) * gc).sum(), x)[0]
+            errs.append(held("plain VJP vs autograd", got, auto, tol))
+            x = xc.clone().requires_grad_()
+            auto = torch.autograd.grad((segment_pool_plain(x, ng, g1) * dp).sum(), x)[0]
+            x = xc.clone().requires_grad_()
+            got = torch.autograd.grad((segment_pool(x, ng, g1) * dp).sum(), x)[0]
+            errs.append(held("pool VJP vs autograd", got, auto, (0.0, 0.0)))
+            emit({"phase": "sparse_bwd_vs_autograd", "batch": label, "dtype": dt_name,
+                  "max_abs_err": max(errs), "tol": list(CHAIN_TOL)})
+        out[dt_name] = rows
+    return out
+
+
+def sparse_training_phase(torch, sparse_test, n_val: int) -> dict:
+    """CausalGCN training through ``main_syn --layout sparse`` with the
+    counters at 0, then its checkpoint served through both layouts (``n_val``
+    graphs in the val split).  Returns the training run's launch counts."""
+    import shutil
+
+    from cal_tpu_torch.main_syn import main
+    from cal_tpu_torch.train.causal import evaluate_causal
+    from cal_tpu_torch.utils.config import Config
+
+    save_dir = os.path.join(HERE, "build", "chip_smoke_train_sparse")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = ["--model", "CausalGCN", "--layout", "sparse", "--dtype", "bfloat16", "--hidden",
+            str(H), "--layers", str(LAYERS), "--batch_size", str(B), "--data_num",
+            str(SPARSE_DATA_NUM), "--seed", str(SEED), "--save_dir", save_dir, "--device",
+            "cuda", "--epochs", str(SPARSE_TRAIN_EPOCHS), "--save_model", "true"]
+    counts = sparse_counters(training=True)
+    for k in counts.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = main(argv)
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counts.items()}
+    steps = res["steps_per_epoch"] * SPARSE_TRAIN_EPOCHS
+    # every epoch sweeps the val and the test split
+    evals = (-(-n_val // B) - (-len(sparse_test) // B)) * SPARSE_TRAIN_EPOCHS
+    fwd = steps + evals
+    want = {"pair_sender_degree": 4 * fwd, "pair_coef_spmm": fwd, "plain_coef_spmm": 3 * fwd,
+            "segment_pool": 2 * fwd, "pair_coef_spmm_t": steps, "plain_coef_spmm_t": 3 * steps,
+            "pair_sddmm_chain": steps, "pair_dpre": steps, "segment_pool_bwd": 2 * steps,
+            "adj_build": 0, "fused_gcn_dense_att_dual": 0, "fused_gcn_dense_att_dual_bwd": 0}
+    check(launches == want, f"sparse training launches {launches}, expected {want}")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == SPARSE_TRAIN_EPOCHS and all(map(math.isfinite, losses)),
+          f"sparse training losses {losses}")
+    check(losses[-1] < losses[0], f"sparse training loss did not fall: {losses}")
+    warm = hist[1:]
+    train_s = sum(h["train_seconds"] for h in warm)
+    emit({"phase": "sparse_training", "model": "CausalGCN", "epochs": SPARSE_TRAIN_EPOCHS,
+          "losses": losses, "epoch_seconds": [h["seconds"] for h in hist],
+          "train_seconds": [h["train_seconds"] for h in hist], "main_wall_s": wall,
+          "train_graphs": res["train_graphs"], "steps_per_epoch": res["steps_per_epoch"],
+          "train_graphs_per_s_warm": res["train_graphs"] * len(warm) / train_s,
+          "steps_per_s_warm": res["steps_per_epoch"] * len(warm) / train_s,
+          "best_epoch": res["epoch"], "best_val_acc": res["best_val_acc"],
+          "test_acc_co": res["test_acc_co"], "test_acc_c": res["test_acc_c"],
+          "test_acc_o": res["test_acc_o"], "launches": launches, "eval_batches": evals,
+          "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
+
+    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, batch_size=B, seed=SEED,
+                 data_num=SPARSE_DATA_NUM, inference=True, save_dir=save_dir, device="cuda")
+    keys = ("test_acc_co", "test_acc_c", "test_acc_o")
+    served = {(lay, dt): evaluate_causal(sparse_test, cfg.replace(layout=lay, dtype=dt))
+              for lay in ("sparse", "dense") for dt in ("bfloat16", "float32")}
+    check(all(served[("sparse", "float32")][k] == served[("dense", "float32")][k] for k in keys),
+          "f32 eval counts of the sparse-trained checkpoint differ between layouts")
+    # the run evaluated on budgets over all three splits, the server on the
+    # test split's: reported, not held (the linear layers' GEMMs see other V)
+    emit({"phase": "sparse_train_then_serve", "ckpt_epoch": res["epoch"],
+          "run_test_acc": [res[k] for k in keys],
+          **{f"{lay}_{dt}": [served[(lay, dt)][k] for k in keys] for lay, dt in served}})
+    return launches
+
+
+def sparse_grad_check(torch, sparse_test) -> None:
+    """One sparse step's gradients: bf16 at full width, kernels against the
+    plain twins on the card; f32 on 16 graphs, card against CPU; f32 at
+    full width, sparse against dense on the card."""
+    import copy
+
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model="CausalGCN", hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    feat = sparse_test[0].x.shape[1]
+    batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
+    net = get_model(cfg, feat, cfg.num_classes).to("cuda")
+    loss_k, grads_k = _step_grads(torch, net, batch)
+    with sparse_twins():
+        loss_p, grads_p = _step_grads(torch, net, batch)
+    bf16 = _grad_err(torch, grads_k, grads_p, SPARSE_GRAD_TOL_BF16)
+
+    m32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
+    small = next(Loader(sparse_test[:16], 16, layout="sparse").host_batches())
+    loss_cpu, grads_cpu = _step_grads(torch, copy.deepcopy(m32), small.to("cpu"))
+    m32 = m32.to("cuda")
+    loss_gpu, grads_gpu = _step_grads(torch, m32, small.to("cuda"))
+    f32 = _grad_err(torch, grads_gpu, grads_cpu, GRAD_TOL["float32"])
+    dense = next(Loader(sparse_test, B).host_batches()).to("cuda")
+    loss_s, grads_s = _step_grads(torch, m32, batch)
+    loss_d, grads_d = _step_grads(torch, m32, to_dense(dense, torch.float32))
+    lay = _grad_err(torch, grads_s, grads_d, GRAD_TOL["float32"])
+    emit({"phase": "sparse_grad_check", "bf16_loss_kernels": loss_k, "bf16_loss_plain": loss_p,
+          "bf16_rel_l2_err": bf16[0], "bf16_worst_tensor": bf16[1],
+          "bf16_tol": SPARSE_GRAD_TOL_BF16, "f32_loss_card": loss_gpu, "f32_loss_cpu": loss_cpu,
+          "f32_rel_l2_err": f32[0], "f32_worst_tensor": f32[1], "f32_graphs": 16,
+          "f32_sparse_loss": loss_s, "f32_dense_loss": loss_d,
+          "f32_sparse_vs_dense_rel_l2_err": lay[0], "f32_sparse_vs_dense_worst_tensor": lay[1],
+          "f32_tol": GRAD_TOL["float32"], "params": len(grads_k)})
+
+
 # kernel row -> (launch counter, model whose training run is its main path,
 # source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -983,6 +1280,15 @@ SPARSE_KERNEL_ROWS = {
     "pair_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1292"),
     "plain_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1032"),
     "segment_pool": ("cal_tpu_torch/csrc/pool.cu", "cal_tpu/ops/pallas_pool.py:79"),
+}
+# sparse backward kernel row -> (source, the TPU kernel it replaces); launches
+# come from the sparse training run, its main path
+SPARSE_BWD_KERNEL_ROWS = {
+    "pair_coef_spmm_t": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1537"),
+    "plain_coef_spmm_t": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1084"),
+    "pair_sddmm_chain": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1379"),
+    "pair_dpre": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1452"),
+    "segment_pool_bwd": ("cal_tpu_torch/csrc/pool.cu", "cal_tpu/ops/pallas_pool.py:110"),
 }
 
 
@@ -1035,7 +1341,7 @@ def main() -> int:
         serving[model] = serving_phase(torch, test_set, model)
         training[model] = training_phase(torch, model)
         grad_check(torch, test_set, batch, model)
-        profile_train_step(torch, test_set, batch, model)
+        profile_train_step(torch, test_set, next(Loader(test_set, B).host_batches()), model)
 
     # sparse layout: kernels on a serving batch and a REDDIT-shaped batch,
     # then CausalGCN serving through main_syn --layout sparse
@@ -1043,8 +1349,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
-    _, _, sparse_test, _ = dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4,
-                                              seed=SEED)
+    _, sparse_val, sparse_test, _ = dataset_bias_split(ds, bias=0.5,
+                                                       total=SPARSE_DATA_NUM * 4, seed=SEED)
     del ds
     syn_batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
     reddit = reddit_graphs(B, seed=SEED, feat=10)
@@ -1060,9 +1366,21 @@ def main() -> int:
                            "max_in_degree": deg(reddit_batch)}})
     sparse_rows = sparse_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
     sparse_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    bwd_rows = sparse_bwd_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    sparse_bwd_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
     del syn_batch, reddit_batch
     sparse_launches = sparse_serving_phase(
         torch, sparse_test, os.path.join(HERE, "build", "chip_smoke_train_CausalGCN"))
+
+    # sparse training: main_syn --layout sparse, its checkpoint on both
+    # layouts, one step's gradients, the step's device time
+    sparse_train_launches = sparse_training_phase(torch, sparse_test, len(sparse_val))
+    sparse_grad_check(torch, sparse_test)
+    profile_train_step(torch, sparse_test,
+                       next(Loader(sparse_test, B, layout="sparse").host_batches()),
+                       "CausalGCN", layout="sparse")
+    profile_train_step(torch, sparse_test, next(Loader(sparse_test, B).host_batches()),
+                       "CausalGCN", layout="dense")
 
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
@@ -1078,15 +1396,20 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "dtype": "bfloat16"})
-    for kernel, (src, rep) in SPARSE_KERNEL_ROWS.items():
-        r = sparse_rows["bfloat16"][kernel]
-        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": sparse_launches[kernel],
-                     "launches_by_run": {"serve_sparse_CausalGCN": sparse_launches[kernel]},
-                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-                     "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "dtype": "bfloat16"})
+    for table, kernel_rows, main_run in (
+            (SPARSE_KERNEL_ROWS, sparse_rows, sparse_launches),
+            (SPARSE_BWD_KERNEL_ROWS, bwd_rows, sparse_train_launches)):
+        for kernel, (src, rep) in table.items():
+            r = kernel_rows["bfloat16"][kernel]
+            by_run = {"train_sparse_CausalGCN": sparse_train_launches[kernel]}
+            if kernel in sparse_launches:
+                by_run["serve_sparse_CausalGCN"] = sparse_launches[kernel]
+            rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                         "launches": main_run[kernel], "launches_by_run": by_run,
+                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                         "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                         "library_ms": r["library_ms"], "dtype": "bfloat16"})
     check(all(r["launches"] > 0 for r in rows), "a kernel row has no launch")
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -381,3 +381,142 @@ def test_sparse_wrappers_raise_on_mixed_devices(cuda):
         pair_coef_spmm(x, x, x[:, 0], x[:, 0], deg, deg, g)
     with pytest.raises(ValueError):
         segment_pool(x.to(cuda), g.node_graph.cpu(), 6)
+
+
+# ---- sparse backward: K2T, K3T, K5, K6 (csrc/spmm.cu), K7 (csrc/pool.cu) --
+# Same rounding points in kernel and twin (csrc/spmm.cu header).  K2T/K3T as
+# K2/K3 (SPARSE_TOL).  K5/K6 outputs stay f32: dot products of H terms and
+# sums over a row's edges (up to thousands at the hub) in another order,
+# fmaf and expf, on values of order 10-100 here: (atol, rtol) 1e-3 / 1e-4.
+# K7 copies f32 rows and rounds them once: exact.
+CHAIN_TOL = (1e-3, 1e-4)
+
+
+def _bwd_inputs(device, v, h, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xc, xo, gc, go = (torch.randn((v, h), generator=gen, device=device).to(DT[dtype])
+                      for _ in range(4))
+    src = torch.randn(v, generator=gen, device=device).to(DT[dtype])
+    dst = (2 * torch.randn(v, generator=gen, device=device)).to(DT[dtype])
+    return xc, xo, gc, go, src, dst
+
+
+@pytest.mark.parametrize("v,e,hub,pad,h,dtype", [
+    (300, 900, 0, 0, 32, "float32"),
+    (1000, 4000, 700, 300, 128, "bfloat16"),
+    (1000, 4000, 700, 300, 128, "float32"),
+    (2048, 6000, 3000, 5000, 64, "bfloat16"),
+    (512, 1500, 40, 33, 256, "bfloat16"),
+])
+def test_sparse_backward_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.pool import segment_pool_bwd, segment_pool_bwd_plain
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h + 1, isolated=7)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, v, h, dtype, v * h + 1)
+    counters = (spmm.pair_coef_spmm_t, spmm.plain_coef_spmm_t, spmm.pair_sddmm_chain,
+                spmm.pair_dpre, segment_pool_bwd)
+    before = [k.launches for k in counters]
+    deg = spmm.pair_sender_degree_plain(src, dst, g) + 1.0
+    dis = torch.rsqrt(deg)
+    atol, rtol = SPARSE_TOL[dtype]
+    got = spmm.pair_coef_spmm_t(gc, go, src, dst, deg, dis, g)
+    ref = spmm.coef_spmm_plain([gc, go], src, dst, deg, dis, g, transpose=True)
+    for a, b in zip(got, ref):
+        assert a.dtype == DT[dtype] and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+    pdeg = 2.0 * spmm.pair_sender_degree_plain(None, None, g)[:1] + 1.0
+    got = spmm.plain_coef_spmm_t(gc, pdeg, torch.rsqrt(pdeg), g)
+    (ref,) = spmm.coef_spmm_plain([gc], None, None, pdeg, torch.rsqrt(pdeg), g, transpose=True)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+    got = spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
+    ref = spmm.pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    vec = ref[0]
+    ddeg = torch.randn((2, v), generator=torch.Generator(device=cuda).manual_seed(v),
+                       device=cuda)
+    for a, b in zip(spmm.pair_dpre(vec, ddeg, g), spmm.pair_dpre_plain(vec, ddeg, g)):
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+
+    dpooled = torch.randn((6, h), generator=torch.Generator(device=cuda).manual_seed(h),
+                          device=cuda)
+    got = segment_pool_bwd(dpooled, g.node_graph, DT[dtype])
+    assert torch.equal(got, segment_pool_bwd_plain(dpooled, g.node_graph, DT[dtype]))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1, 1]
+
+
+def test_sparse_backward_kernels_match_autograd(cuda):
+    """f32 Functions on the card (every backward kernel) against
+    torch.autograd of the forward twins."""
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=9, isolated=7)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, 1000, 128, "float32", 9)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    deg = spmm.pair_sender_degree_plain(leaves[2], leaves[3], g) + 1.0
+    oc, oo = spmm.coef_spmm_plain(leaves[:2], leaves[2], leaves[3], deg, torch.rsqrt(deg), g)
+    ref = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    oc, oo = spmm.gcn_aggregate_sparse_pair(*leaves, g)
+    got = torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+
+    x = xc.clone().requires_grad_()
+    pdeg = 2.0 * spmm.pair_sender_degree_plain(None, None, g)[:1] + 1.0
+    (o,) = spmm.coef_spmm_plain([x], None, None, pdeg, torch.rsqrt(pdeg), g)
+    ref = torch.autograd.grad((o * gc).sum(), x)[0]
+    x = xc.clone().requires_grad_()
+    got = torch.autograd.grad((spmm.gcn_aggregate_sparse_plain(x, g) * gc).sum(), x)[0]
+    torch.testing.assert_close(got, ref, atol=SPARSE_TOL["float32"][0],
+                               rtol=SPARSE_TOL["float32"][1])
+
+    dp = torch.randn((6, 128), device=cuda)
+    x = xc.clone().requires_grad_()
+    ref = torch.autograd.grad((segment_pool_plain(x, g.node_graph, 6) * dp).sum(), x)[0]
+    x = xc.clone().requires_grad_()
+    got = torch.autograd.grad((segment_pool(x, g.node_graph, 6) * dp).sum(), x)[0]
+    assert torch.equal(got, ref)
+
+
+def test_sparse_autograd_on_card_launches_kernels(cuda):
+    """One bf16 backward through both aggregates and the pool launches each
+    backward kernel once; constant logits skip K5 and K6."""
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_bwd
+
+    g = _sparse_graph(cuda, 512, 1500, 40, 33, seed=4)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, 512, 128, "bfloat16", 4)
+    counters = (spmm.pair_coef_spmm_t, spmm.plain_coef_spmm_t, spmm.pair_sddmm_chain,
+                spmm.pair_dpre, segment_pool_bwd)
+    for logits_grad, want in ((True, [1, 1, 1, 1, 1]), (False, [1, 1, 0, 0, 1])):
+        before = [k.launches for k in counters]
+        leaves = [t.clone().requires_grad_(i < 2 or logits_grad)
+                  for i, t in enumerate((xc, xo, src, dst))]
+        oc, oo = spmm.gcn_aggregate_sparse_pair(*leaves, g)
+        y = spmm.gcn_aggregate_sparse_plain(oc, g) + oo
+        pooled = segment_pool(y, g.node_graph, 6)
+        pooled.sum().backward()
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(counters, before)] == want
+        assert all(torch.isfinite(t.grad.float()).all() for t in leaves if t.requires_grad)
+
+
+def test_sparse_backward_kernels_are_deterministic(cuda):
+    from cal_tpu_torch.ops import spmm
+
+    g = _sparse_graph(cuda, 2048, 6000, 3000, 5000, seed=3)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, 2048, 128, "float32", 3)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+        oc, oo = spmm.gcn_aggregate_sparse_pair(*leaves, g)
+        return torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
+
+    assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))

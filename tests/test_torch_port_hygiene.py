@@ -79,7 +79,23 @@ def test_kernel_modules_import_without_nvcc():
             "import cal_tpu_torch.ops.spmm as sp, cal_tpu_torch.ops.pool as po\n"
             "assert sp.pair_sender_degree.launches == sp.pair_coef_spmm.launches == 0\n"
             "assert sp.plain_coef_spmm.launches == po.segment_pool.launches == 0\n"
+            "assert sp.pair_coef_spmm_t.launches == sp.plain_coef_spmm_t.launches == 0\n"
+            "assert sp.pair_sddmm_chain.launches == sp.pair_dpre.launches == 0\n"
+            "assert po.segment_pool_bwd.launches == 0\n"
             "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn', 'pool', "
             "'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    """chip_smoke.py copied into a directory without the package exits
+    non-zero and prints no result line."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

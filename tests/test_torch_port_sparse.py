@@ -326,8 +326,11 @@ def test_main_syn_sparse_inference_matches_dense(tmp_path):
 def test_sparse_paths_not_ported_raise(tmp_path):
     base = ["--model", "CausalGCN", "--device", "cpu", "--data_num", "10", "--layout", "sparse",
             "--save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="training"):
-        main(base + ["--epochs", "1"])
+    with pytest.raises(NotImplementedError, match="sparse CausalGAT"):
+        main(["--model", "CausalGAT", *base[2:], "--epochs", "1", "--hidden", str(HIDDEN),
+              "--layers", str(LAYERS)])
+    with pytest.raises(NotImplementedError, match="packed"):
+        main(base + ["--epochs", "1", "--pack_batches", "true"])
     gat_dir = str(tmp_path / "gat")
     Checkpointer(gat_dir).save(1, CausalGNN(num_features=10, hidden=HIDDEN, num_classes=CLASSES,
                                             num_layers=LAYERS, backbone="gat"), {"epoch": 1})
@@ -344,12 +347,12 @@ def test_sparse_paths_not_ported_raise(tmp_path):
     batch = next(Loader(tg, 2, layout="sparse").host_batches())
     with pytest.raises(NotImplementedError, match="sparse CausalGAT"):
         gat(batch.to("cpu"), eval_random=False)
-    cfg = Config(model="CausalGCN", hidden=HIDDEN, layers=LAYERS)
+    cfg = Config(model="CausalGAT", hidden=HIDDEN, layers=LAYERS)
     from cal_tpu_torch.train.steps import init_state
 
     state = init_state(cfg, 6, CLASSES, torch.device("cpu"))
     step = make_causal_train_step(state, lambda s: 1e-3, 0.5, 1.0, 0.5, True, 0)
-    with pytest.raises(NotImplementedError, match="sparse-layout training"):
+    with pytest.raises(NotImplementedError, match="sparse CausalGAT"):
         step(batch, None)
 
 
