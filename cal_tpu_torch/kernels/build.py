@@ -5,8 +5,8 @@ a plain C interface (no PyTorch headers, so a build takes seconds), compiled
 for Hopper (``sm_90a``) into ``build/cal_tpu_torch_kernels/`` beside the
 package.  ``build_all()`` starts one nvcc per source, all at once; ``load``
 builds a single library on first use.  A library is rebuilt when its source
-is newer.  Nothing here runs at import time, so machines without nvcc import
-the package fine.
+or a shared header (``csrc/*.cuh``) is newer.  Nothing here runs at import
+time, so machines without nvcc import the package fine.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ def _paths(name: str) -> tuple[str, str]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR) if f.endswith(".cuh")]
+    return not os.path.exists(lib) or os.path.getmtime(lib) < max(map(os.path.getmtime, deps))
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str, str]:

@@ -3,22 +3,22 @@
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
         [--dtype bfloat16] [--save_model true --save_dir <d>] [--resume true]
         [--device cpu]
-    python -m cal_tpu_torch.main_syn --model CausalGCN --layout sparse
-        [--dtype bfloat16] [--save_model true --save_dir <d>] [--resume true]
-        [--device cpu]
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
-        [--layout sparse (CausalGCN)] --inference true --save_dir <d>
+        --layout sparse [--dtype bfloat16] [--save_model true --save_dir <d>]
+        [--resume true] [--device cpu]
+    python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGAT}
+        [--layout sparse] --inference true --save_dir <d>
         [--dtype bfloat16] [--device cpu]
 
 Training runs ``train_causal_syn``; ``--save_model`` checkpoints the best
 val-o epoch, ``--resume`` continues after it, and ``--inference`` restores
 the newest checkpoint under --save_dir and runs the three-branch eval sweep
-on the test split.  ``--layout sparse`` trains and serves CausalGCN on
-padded edge-list batches (the CSR kernels and their backward kernels); the
-parameters do not depend on the layout, so a checkpoint of either layout
-serves on both.  Sparse CausalGAT and budget-packed sparse batches
-(``--pack_batches true``, or "auto" where the graphs' sizes would call for
-it) are not ported yet and raise.  The port runs on CUDA unless ``--device
+on the test split.  ``--layout sparse`` trains and serves both models on
+padded edge-list batches (the CSR kernels and their backward kernels, for
+CausalGAT also the sparse GAT kernels); the parameters do not depend on the
+layout, so a checkpoint of either layout serves on both.  Budget-packed
+sparse batches (``--pack_batches true``, or "auto" where the graphs' sizes
+would call for it) are not ported yet and raise.  The port runs on CUDA unless ``--device
 cpu`` is given (the CPU runs the kernels' plain twins).
 """
 from __future__ import annotations

@@ -7,15 +7,16 @@ attention -> BN -> both masked context/object GCN convs in ONE fused pass
 -> sum pooling -> three readout MLPs (context, object, intervention).
 
 Layouts: a ``DenseGraphBatch`` runs the dense kernels (the masked convs in
-``fused_gcn_dense_att_dual``); a ``GraphBatch`` (sparse layout, CausalGCN
-only) runs the CSR kernels (the masked convs in
+``fused_gcn_dense_att_dual``); a ``GraphBatch`` (sparse layout) runs the
+CSR kernels (the masked convs of both backbones in
 ``gcn_aggregate_sparse_pair``, pooling by ``node_graph``).
 
 * backbone 'gcn': BN -> GCNConv -> ReLU per layer; honors ``with_random``
   and the attention-ablation flags;
 * backbone 'gat': BN -> GATConv (4 heads, attention dropout 0.2 in
-  training, the flash-GAT kernel) -> ReLU per layer; the masked convs are
-  still GCN convs.  It ignores the ablation flags and ``with_random``: the
+  training; the flash-GAT kernel on the dense layout, the sparse GAT
+  kernels on the sparse one) -> ReLU per layer; the masked convs are still
+  GCN convs.  It ignores the ablation flags and ``with_random``: the
   intervention shuffle follows ``eval_random`` alone, as in the reference.
 
 Precision follows the JAX model: the conv stack runs in ``dtype`` (bf16 in
@@ -118,9 +119,6 @@ class CausalGNN(nn.Module):
         dropout in training."""
         dt = self.dtype
         sparse = isinstance(g, GraphBatch)
-        if sparse and self.backbone == "gat":
-            raise NotImplementedError(
-                "sparse CausalGAT is not ported yet (ROADMAP queue 2 item 13)")
         x = g.x.to(dt)
         node_mask = g.node_mask
 

@@ -12,7 +12,7 @@ _CAUSAL = {"CausalGCN": "gcn", "CausalGIN": "gin", "CausalGAT": "gat"}
 def get_model(cfg: Config, num_features: int, num_classes: int) -> CausalGNN:
     """Build the model named by ``cfg.model`` (CausalGCN or CausalGAT; the
     gin backbone raises until it is ported).  The parameters do not depend
-    on the layout; the model refuses a sparse batch for CausalGAT."""
+    on the layout."""
     if cfg.model not in _CAUSAL:
         raise NotImplementedError(
             f"model {cfg.model!r} not ported yet (ROADMAP queue 1 item 7)")

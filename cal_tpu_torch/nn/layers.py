@@ -19,7 +19,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
+from cal_tpu_torch.ops.gat import seed_words
+from cal_tpu_torch.ops.gat_sparse import gat_aggregate_sparse_fused
 from cal_tpu_torch.ops.gcn import gcn_aggregate
 
 
@@ -146,12 +149,16 @@ class GCNConvLayer(nn.Module):
 
 
 class GATConvLayer(nn.Module):
-    """PyG-1.1.0 ``GATConv``, dense layout (counterpart of the dense branch
-    of cal_tpu/nn/layers.py ``GATConvLayer``).
+    """PyG-1.1.0 ``GATConv`` (counterpart of cal_tpu/nn/layers.py
+    ``GATConvLayer``, its dense branch and its sparse fused branch).
 
     Parameters ``kernel`` [in, heads * d] and ``att`` [heads, 2d] (glorot),
     ``bias`` [heads * d] (zeros); ``att[:, :d]`` multiplies the receiver,
-    ``att[:, d:]`` the sender.  The aggregate always runs the flash-GAT
+    ``att[:, d:]`` the sender.  A ``GraphBatch`` runs the sparse GAT kernels
+    (``ops/gat_sparse.py``), whose dropout keep bits hash the edge id under
+    the two 32-bit words of the layer's seed.  Below a node budget of 2048
+    cal_tpu drops its tile plans and draws ``jax.random`` keep bits instead;
+    eval numerics are the same.  A dense batch always runs the flash-GAT
     kernel (``ops/flash_gat.py``).  The JAX layer switches to its
     edge-formulated kernel at N >= 384 with sparse edges, a crossover
     measured on a TPU v5e; the port has no such kernel yet and calls flash at
@@ -174,11 +181,19 @@ class GATConvLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(hd))
 
     def forward(self, x, g, seed: int | None = None):
-        """x [B, N, in]; ``seed`` turns attention dropout on (training)."""
+        """x [B, N, in] (dense) or [V, in] (sparse); ``seed`` (64 bits) turns
+        attention dropout on (training)."""
         dt, d = self.dtype, self.out_per_head
         xh = linear(x, self.kernel, dt).to(dt)
         att = self.att.to(dt)
-        out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
+        if isinstance(g, GraphBatch):
+            v = xh.shape[0]
+            rate = self.dropout if seed is not None else 0.0
+            words = seed_words(seed) if seed is not None else (0, 0)
+            out = gat_aggregate_sparse_fused(xh.view(v, self.heads, d), att[:, :d], att[:, d:],
+                                             words, g, rate).reshape(v, self.heads * d)
+        else:
+            out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
         return out.to(dt) + self.bias.to(dt)
 
 

@@ -1,21 +1,81 @@
-"""Multi-head GAT aggregation, dense layout, written with plain tensor ops.
+"""Multi-head GAT aggregation written with plain tensor ops, and the keep-bit
+hash of the sparse layout's attention dropout.
 
-Counterpart of cal_tpu/ops/gat.py ``gat_aggregate_dense``: PyG-1.1.0
-``GATConv`` attention over the [B, N, N] count adjacency.  Per graph, head
-h and edge s -> r: ``e = leaky_relu(att_dst . xh_r + att_src . xh_s, 0.2)``,
-softmaxed over the receiver's incoming edges with each duplicate edge one
-term and an analytic self loop of multiplicity 1; ``out_r = sum_s alpha
-xh_s``.  It materializes [B, N, N, heads] scores, so the model path never
-calls it: the layer runs the flash-GAT kernel (``ops/flash_gat.py``), and
-the tests hold that kernel's plain twin against this reference.  Attention
-dropout lives in ``ops/flash_gat.py`` (Philox bits the backward replays).
+Counterpart of cal_tpu/ops/gat.py ``gat_aggregate_dense``,
+``gat_aggregate_sparse`` and ``_mix32`` / ``_keep_mask`` / ``_head_ids``:
+PyG-1.1.0 ``GATConv`` attention.  Per head h and edge s -> r: ``e =
+leaky_relu(att_dst . xh_r + att_src . xh_s, 0.2)``, softmaxed over the
+receiver's incoming edges with each duplicate edge one term and an analytic
+self loop of multiplicity 1; ``out_r = sum_s alpha xh_s``.  The two
+aggregates here materialize their scores ([B, N, N, heads] dense, [E,
+heads] sparse), so the model path never calls them: the layer runs the
+flash-GAT kernel (``ops/flash_gat.py``, Philox dropout bits the backward
+replays) on the dense layout and the sparse GAT kernels
+(``ops/gat_sparse.py``) on the sparse one, and the tests hold those
+kernels' plain twins against these references.
+
+The sparse layout's keep bits are an integer hash of the edge id, the head
+and a two-word seed, bit for bit cal_tpu's: the forward over the receiver
+CSR and the dxh pass over the sender CSR draw the same bit per (edge,
+head).  The hash runs here in int64 arithmetic masked to 32 bits (torch has
+no full uint32 arithmetic); the kernels run it in uint32.
 """
 from __future__ import annotations
 
 import torch
 
+from cal_tpu_torch.ops.segment import segment_sum
+
 NEG_SLOPE = 0.2   # PyG 1.1.0 GATConv default negative_slope
 _BIG_NEG = -1e30
+_M32 = 0xFFFFFFFF
+_SALT = 0x632BE59B
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): c is split in 16-bit
+    halves so no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def mix32(x: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
+    """Murmur3-style finalizer of uint32 counters ``x`` (int64 in [0, 2^32))
+    under the seed words (s0, s1); cal_tpu/ops/gat.py ``_mix32``."""
+    x = (_mul32(x, 0x9E3779B9) + s0) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13) ^ s1
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def seed_words(seed: int) -> tuple[int, int]:
+    """The two uint32 words (low, high) of a 64-bit dropout seed."""
+    return seed & _M32, (seed >> 32) & _M32
+
+
+def salted_word(s1: int, salt: int) -> int:
+    """The second hash word of stream ``salt`` (0: edges, 1: self loops)."""
+    return (s1 + _SALT * salt) & _M32
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold of the keep test ``hash < threshold`` (probability
+    1 - rate; truncated as numpy's uint32 conversion does)."""
+    return int(min((1.0 - rate) * 4294967296.0, 4294967295.0))
+
+
+def keep_mask(ids: torch.Tensor, words: tuple[int, int], rate: float,
+              salt: int) -> torch.Tensor:
+    """1.0 / 0.0 keep mask of ``ids`` (int, >= 0) at probability 1 - rate;
+    cal_tpu/ops/gat.py ``_keep_mask``."""
+    h = mix32(ids.long(), words[0], salted_word(words[1], salt))
+    return (h < keep_threshold(rate)).float()
+
+
+def head_ids(base: torch.Tensor, heads: int) -> torch.Tensor:
+    """[n] edge or node ids -> [n, heads] ids ``base * heads + h``."""
+    return base.long()[:, None] * heads + torch.arange(heads, device=base.device)
 
 
 def gat_aggregate_dense(xh: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tensor,
@@ -35,3 +95,27 @@ def gat_aggregate_dense(xh: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tens
     num = torch.exp(masked - m) * counts[..., None]
     alpha = num / num.sum(dim=2, keepdim=True)
     return torch.einsum("brsh,bshd->brhd", alpha.float(), xh.float()).to(xh.dtype)
+
+
+def gat_aggregate_sparse(xh: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
+                         edge_mask: torch.Tensor, att_dst: torch.Tensor,
+                         att_src: torch.Tensor) -> torch.Tensor:
+    """Sparse multi-head GAT without dropout: SDDMM edge scores, segment
+    softmax with the analytic self loop, SpMM.  xh [V, heads, d];
+    senders/receivers/edge_mask [E] (receiver-sorted); att_dst / att_src
+    [heads, d].  Dead edges and self-loop edges are dropped.  Computes in
+    xh's dtype, as the JAX version does."""
+    v, heads, _ = xh.shape
+    ti = torch.einsum("vhd,hd->vh", xh, att_dst)
+    tj = torch.einsum("vhd,hd->vh", xh, att_src)
+    s, r = senders.long(), receivers.long()
+    live = (edge_mask & (s != r))[:, None]
+    score = torch.nn.functional.leaky_relu(ti[r] + tj[s], NEG_SLOPE)
+    score = torch.where(live, score, torch.full_like(score, _BIG_NEG))
+    self_score = torch.nn.functional.leaky_relu(ti + tj, NEG_SLOPE)
+    m = self_score.scatter_reduce(0, r[:, None].expand(-1, heads), score, "amax")
+    num_e = torch.where(live, torch.exp(score - m[r]), torch.zeros_like(score))
+    num_self = torch.exp(self_score - m)
+    denom = segment_sum(num_e, r, v) + num_self
+    out = segment_sum((num_e / denom[r])[..., None] * xh[s], r, v)
+    return out + (num_self / denom)[..., None] * xh

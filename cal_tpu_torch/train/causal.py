@@ -1,9 +1,10 @@
 """Causal training and serving — counterpart of cal_tpu/train/causal.py
 (``train_causal_syn`` and ``evaluate_causal``).
 
-Both serve the dense CausalGCN and CausalGAT alike (the model comes from
-``get_model``), and the sparse-layout CausalGCN (``--layout sparse``) on
-fixed budgets; budget-packed sparse batching is not ported and raises.
+Both serve CausalGCN and CausalGAT alike (the model comes from
+``get_model``), on the dense layout and on the sparse one (``--layout
+sparse``) with fixed budgets; budget-packed sparse batching is not ported
+and raises.
 ``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
 cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.

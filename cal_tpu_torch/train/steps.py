@@ -3,8 +3,9 @@
 
 PyTorch runs the step eagerly: forward with ``train=True``, the three
 losses, backward (the dual masked conv's and, for CausalGAT, the flash-GAT
-backward kernels on the dense layout; the sparse convs' and the pool's
-backward kernels on the sparse one), Adam, and the BatchNorm running stats,
+backward kernels on the dense layout; the sparse convs', the pool's and,
+for CausalGAT, the sparse GAT backward kernels on the sparse one), Adam,
+and the BatchNorm running stats,
 which the forward moves in place.  Both steps take a dense batch
 (``PackedDenseBatch``) or a sparse one (``GraphBatch``).
 """

@@ -75,7 +75,7 @@ class Config:
     metrics_path: str = ""
     tb_dir: str = ""
     profile_dir: str = ""
-    layout: str = "dense"          # "sparse": CausalGCN only, so far
+    layout: str = "dense"          # or "sparse" (padded edge lists)
     dtype: str = "float32"         # compute dtype of the conv stack
     node_budget: int = 0
     edge_budget: int = 0

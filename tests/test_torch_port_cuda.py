@@ -520,3 +520,125 @@ def test_sparse_backward_kernels_are_deterministic(cuda):
         return torch.autograd.grad((oc * gc).sum() + (oo * go).sum(), leaves)
 
     assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))
+
+
+# ---- sparse GAT: K8, K9, K9T, K10 (csrc/gat_sparse.cu) ---------------------
+# Same rounding points in kernel and twin (csrc/gat_sparse.cu header): x in
+# the model dtype, every plane, weight, product, sum and output f32, so the
+# same tolerances hold in both dtypes.  K8: m is a max of the same f32
+# values, den a sum of up to a few thousand exp terms <= 1 in another order
+# with expf: (1e-5, 1e-5).  K9/K9T: f32 sums over a row's edges in another
+# order with fmaf: SPARSE_TOL["float32"].  K10: dot products and row sums
+# as K5: CHAIN_TOL.
+GAT_STATS_TOL = (1e-5, 1e-5)
+GAT_WORDS = (0x9E3779B9, 0x7F4A7C15)
+
+
+def _gat_inputs(device, v, heads, h, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xh = torch.randn((v, heads, h // heads), generator=gen, device=device).to(DT[dtype])
+    att = 0.6 * torch.randn((2, heads, h // heads), generator=gen, device=device)
+    xf = xh.float()
+    ti = torch.einsum("vhd,hd->hv", xf, att[0]).contiguous()
+    tj = torch.einsum("vhd,hd->hv", xf, att[1]).contiguous()
+    w = torch.randn((v, h), generator=gen, device=device)
+    dD = torch.randn((heads, v), generator=gen, device=device)
+    return xh, att, ti, tj, w, dD
+
+
+@pytest.mark.parametrize("v,e,hub,pad,heads,h,dtype,rate", [
+    (300, 900, 0, 0, 1, 32, "float32", 0.0),
+    (1000, 4000, 700, 300, 4, 128, "bfloat16", 0.0),
+    (1000, 4000, 700, 300, 4, 128, "bfloat16", 0.2),
+    (1000, 4000, 700, 300, 4, 128, "float32", 0.2),
+    (2048, 6000, 3000, 5000, 2, 64, "bfloat16", 0.2),
+    (512, 1500, 40, 33, 8, 256, "float32", 0.5),
+])
+def test_gat_sparse_kernels_match_plain(cuda, v, e, hub, pad, heads, h, dtype, rate):
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h + 2, isolated=7)
+    xh, _, ti, tj, w, dD = _gat_inputs(cuda, v, heads, h, dtype, v * h + 2)
+    x = xh.reshape(v, h)
+    counters = (gs.gat_row_stats, gs.gat_coef_spmm, gs.gat_coef_spmm_t, gs.gat_sddmm_chain)
+    before = [k.launches for k in counters]
+    m, den = gs.gat_row_stats(tj, ti, g)
+    rm, rden = gs.gat_row_stats_plain(tj, ti, g)
+    torch.testing.assert_close(m, rm, atol=GAT_STATS_TOL[0], rtol=GAT_STATS_TOL[1])
+    torch.testing.assert_close(den, rden, atol=GAT_STATS_TOL[0], rtol=GAT_STATS_TOL[1])
+    atol, rtol = SPARSE_TOL["float32"]
+    got = gs.gat_coef_spmm(x, tj, ti, m, GAT_WORDS, rate, g)
+    ref = gs.gat_coef_spmm_plain(x, tj, ti, m, GAT_WORDS, rate, g)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    got = gs.gat_coef_spmm_t(w, tj, ti, m, GAT_WORDS, rate, g)
+    ref = gs.gat_coef_spmm_plain(w, tj, ti, m, GAT_WORDS, rate, g, transpose=True)
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    got = gs.gat_sddmm_chain(x, w, tj, ti, m, dD, GAT_WORDS, rate, g)
+    ref = gs.gat_sddmm_chain_plain(x, w, tj, ti, m, dD, GAT_WORDS, rate, g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+def test_gat_sparse_keep_bits_match_twin(cuda):
+    """With zero logits every live weight is 1: K9 on ones counts each
+    receiver's kept (edge, head) pairs and K9T each sender's, which must
+    equal the twin's hash bit for bit."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops.gat import head_ids, keep_mask
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=11, isolated=7)
+    v, heads, rate = 1000, 4, 0.2
+    zero = torch.zeros((heads, v), device=cuda)
+    ones = torch.ones((v, 32 * heads), device=cuda)
+    s, r = g.senders.long(), g.receivers.long()
+    live = (g.edge_mask & (s != r)).float()
+    keep = keep_mask(head_ids(torch.arange(s.shape[0], device=cuda), heads), GAT_WORDS, rate,
+                     0) * live[:, None]
+    for fn, rows in ((gs.gat_coef_spmm, r), (gs.gat_coef_spmm_t, s)):
+        got = fn(ones, zero, zero, zero, GAT_WORDS, rate, g).view(v, heads, 32)
+        kept = torch.zeros((v, heads), device=cuda).index_add_(0, rows, keep)
+        torch.testing.assert_close(got * (1 - rate), kept[:, :, None].expand(-1, -1, 32),
+                                   atol=1e-4, rtol=1e-6)
+    assert abs(float(keep.sum() / (live.sum() * heads)) - (1 - rate)) < 0.02
+
+
+def test_gat_sparse_backward_matches_autograd(cuda):
+    """The f32 Function on the card (K8, K9 forward; K9T, K10 backward) at
+    rate 0.2 against torch.autograd of the forward built from the twins."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=12, isolated=7)
+    xh, att, _, _, w, _ = _gat_inputs(cuda, 1000, 4, 128, "float32", 12)
+    a = [t.clone().requires_grad_() for t in (xh, att[0], att[1])]
+    b = [t.clone().requires_grad_() for t in (xh, att[0], att[1])]
+    out = gs.gat_aggregate_sparse_fused(*a, GAT_WORDS, g, 0.2)
+    ref = gs.gat_aggregate_sparse_fused_plain(*b, GAT_WORDS, g, 0.2)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    cot = w.view(out.shape)
+    for u, r in zip(torch.autograd.grad(out, a, cot), torch.autograd.grad(ref, b, cot)):
+        torch.testing.assert_close(u, r, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+
+
+def test_gat_sparse_autograd_on_card_launches_kernels(cuda):
+    """One bf16 forward and backward of the aggregate launches each kernel
+    once, and a second run gives the same gradients."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    g = _sparse_graph(cuda, 2048, 6000, 3000, 5000, seed=13)
+    xh, att, _, _, w, _ = _gat_inputs(cuda, 2048, 4, 128, "bfloat16", 13)
+    counters = (gs.gat_row_stats, gs.gat_coef_spmm, gs.gat_coef_spmm_t, gs.gat_sddmm_chain)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (xh, att[0], att[1])]
+        out = gs.gat_aggregate_sparse_fused(*leaves, GAT_WORDS, g, 0.2)
+        return torch.autograd.grad(out, leaves, w.view(out.shape).to(out.dtype))
+
+    before = [k.launches for k in counters]
+    first = grads()
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert all(torch.isfinite(t.float()).all() for t in first)
+    assert all(torch.equal(u, r) for u, r in zip(first, grads()))

@@ -44,7 +44,8 @@ def _run(code):
 def test_import_leaves_jax_out():
     code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.ops.adj_build, "
             "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.ops.flash_gat, "
-            "cal_tpu_torch.ops.gat, cal_tpu_torch.ops.spmm, cal_tpu_torch.ops.pool, "
+            "cal_tpu_torch.ops.gat, cal_tpu_torch.ops.gat_sparse, cal_tpu_torch.ops.spmm, "
+            "cal_tpu_torch.ops.pool, "
             "cal_tpu_torch.ops.segment, cal_tpu_torch.kernels.build, cal_tpu_torch.seed_sweep, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.losses, "
@@ -82,8 +83,11 @@ def test_kernel_modules_import_without_nvcc():
             "assert sp.pair_coef_spmm_t.launches == sp.plain_coef_spmm_t.launches == 0\n"
             "assert sp.pair_sddmm_chain.launches == sp.pair_dpre.launches == 0\n"
             "assert po.segment_pool_bwd.launches == 0\n"
-            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn', 'pool', "
-            "'spmm']")
+            "import cal_tpu_torch.ops.gat_sparse as gs\n"
+            "assert gs.gat_row_stats.launches == gs.gat_coef_spmm.launches == 0\n"
+            "assert gs.gat_coef_spmm_t.launches == gs.gat_sddmm_chain.launches == 0\n"
+            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn', "
+            "'gat_sparse', 'pool', 'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr
 
