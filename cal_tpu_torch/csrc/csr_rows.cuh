@@ -1,8 +1,9 @@
-// Shared CSR-row machinery of the sparse kernels (spmm.cu, gat_sparse.cu):
-// the chunk split of graph.edge_csr, vector loads and stores of a lane's
-// features, the per-warp row sums with their combine pass for long rows, and
-// the sender-CSR sum of per-edge f32 columns.  Included by each source; it is
-// not a build target of its own.
+// Shared CSR-row machinery of the sparse kernels (spmm.cu, gat_sparse.cu,
+// coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
+// a lane's features, the per-warp row sums with their combine pass for long
+// rows, the sender-CSR sum of per-edge f32 columns, and the coefficient SpMM
+// walk that K2/K3 and K11 instantiate.  Included by each source; it is not a
+// build target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -182,6 +183,119 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
+}
+
+// ---- coefficient SpMM over a CSR (K2/K3 of spmm.cu, K11 of coo_spmm.cu) --
+//
+// out_b[r] = sum over the live edges e of row r of cf_b[e] * x_b[nbr_e], for
+// kBranches branches b.  One warp owns one chunk and walks its groups of 32
+// edges: lane i reads edge i's neighbour and coefficients through the
+// policy, a ballot lists the group's live edges in edge order, and for each
+// in turn every lane accumulates H / 32 features of each branch of the
+// neighbour's row (8- or 16-byte loads).  A row of one chunk is written by
+// its warp through the policy; a longer row writes one f32 partial per chunk
+// ([n_chunks, kBranches, H]) and csr_spmm_combine sums its <= 64 partials in
+// chunk order before writing it.  The policy P holds the CSR (perm: null
+// when edge i of the CSR is edge i; ptr, chunk_ptr, chunk_row, n_chunks,
+// num_nodes, h), x[kBranches] of element type Elem, partial, and:
+//   Row row(int r)                                     the row's own state;
+//   bool edge(int e, const Row&, int& s, float (&cf)[kBranches])
+//       whether edge e is live, and then its neighbour s and coefficients;
+//   void write_row<F>(int r, int lane, const float (&acc)[kBranches][F])
+//       the row's output from the lane's F sums per branch.
+template <typename P, int F>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_kernel(const P a) {
+  constexpr int NB = P::kBranches;
+  using T = typename P::Elem;
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= a.n_chunks) return;
+  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+  const typename P::Row row = a.row(k.row);
+  float acc[NB][F];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
+  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
+    // lane i: edge g0 + i -> (neighbour, coefficient per branch) when live
+    const int i = g0 + lane;
+    int s_l = 0;
+    float cf_l[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) cf_l[b] = 0.0f;
+    const bool live = i < k.end && a.edge(a.perm == nullptr ? i : a.perm[i], row, s_l, cf_l);
+    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const int s = __shfl_sync(kFull, s_l, j);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float cf = __shfl_sync(kFull, cf_l[b], j);
+        float xs[F];
+        load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[b][f] = fmaf(cf, xs[f], acc[b][f]);
+      }
+    }
+  }
+  if (k.count == 1) {
+    a.template write_row<F>(k.row, lane, acc);
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      store_vec<float, F>(a.partial + ((size_t)c * NB + b) * a.h + lane * F, acc[b]);
+  }
+}
+
+template <typename P, int F>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_combine(const P a) {
+  constexpr int NB = P::kBranches;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= a.num_nodes) return;
+  const int c0 = a.chunk_ptr[r], c1 = a.chunk_ptr[r + 1];
+  if (c1 - c0 <= 1) return;
+  float acc[NB][F];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float p[F];
+      load_vec<float, F>(a.partial + ((size_t)c * NB + b) * a.h + lane * F, p);
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[b][f] += p[f];
+    }
+  a.template write_row<F>(r, lane, acc);
+}
+
+template <typename P, int F>
+cudaError_t launch_csr_spmm_f(const P& a, cudaStream_t stream) {
+  const int threads = kWarpsPerBlock * 32;
+  csr_spmm_kernel<P, F><<<(a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
+                          stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  csr_spmm_combine<P, F><<<(a.num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
+                           stream>>>(a);
+  return cudaGetLastError();
+}
+
+// h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows aligned to h / 32 elements.
+template <typename P>
+cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
+  switch (a.h / 32) {
+    case 1: return launch_csr_spmm_f<P, 1>(a, stream);
+    case 2: return launch_csr_spmm_f<P, 2>(a, stream);
+    case 4: return launch_csr_spmm_f<P, 4>(a, stream);
+    case 8: return launch_csr_spmm_f<P, 8>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -56,10 +56,11 @@
 // 64 chunks of equal group counts.  One warp owns one chunk and walks its
 // groups: the lanes read a group's 32 edges' metadata at once (lane i <->
 // edge i) and compute liveness, weight and coefficient; K1 and K6 keep
-// per-lane sums and end with a butterfly shuffle; K2/K3 take the group's
-// live edges from a ballot and, for each in turn, broadcast its neighbour
-// and coefficient while every lane accumulates H / 32 features of each
-// branch (8- or 16-byte loads of the neighbour's row).  K5 keeps g[r] of
+// per-lane sums and end with a butterfly shuffle; K2/K3 (csr_rows.cuh's
+// csr_spmm_kernel with the GcnSpmm policy) take the group's live edges from
+// a ballot and, for each in turn, broadcast its neighbour and coefficient
+// while every lane accumulates H / 32 features of each branch (8- or
+// 16-byte loads of the neighbour's row).  K5 keeps g[r] of
 // its row in registers, takes each live edge from the ballot, reduces the
 // dot products with x[s] across the warp, and the edge's own lane then
 // forms its per-edge outputs.  A row of a single chunk is written by its
@@ -117,8 +118,13 @@ sender_degree_kernel(const T* __restrict__ src, const T* __restrict__ dst,
 
 // ---- K2 / K3: coefficient SpMM over the receiver CSR (K2T / K3T: sender) --
 
-template <typename T, int NB, int F>
-struct SpmmArgs {
+// The csr_spmm_kernel policy of K2 (NB = 2) and K3 (NB = 1): liveness from
+// the mask and s != r, the coefficient chain built per edge, the self term
+// added when the row is written.
+template <typename T, int NB>
+struct GcnSpmm {
+  using Elem = T;
+  static constexpr int kBranches = NB;
   const T* x[NB];
   T* out[NB];
   const T* src;       // transposed mode: the forward's dst
@@ -131,126 +137,62 @@ struct SpmmArgs {
   const int* ptr;
   const int* chunk_ptr;
   const int* chunk_row;
-  float* partial;     // [n_chunks, NB * H]
+  float* partial;     // [n_chunks, NB, H]
   int n_chunks, num_nodes, h;
+
+  struct Row {
+    int r;
+    float dis_r[NB], dst_r;
+  };
+
+  __device__ __forceinline__ Row row(int r) const {
+    Row w;
+    w.r = r;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) w.dis_r[b] = dis[(size_t)b * num_nodes + r];
+    w.dst_r = 0.0f;
+    if constexpr (NB == 2) w.dst_r = to_f(dst[r]);
+    return w;
+  }
+
+  __device__ __forceinline__ bool edge(int e, const Row& w, int& s, float (&cf)[NB]) const {
+    s = nbr[e];
+    if (!edge_mask[e] || s == w.r) return false;
+    if constexpr (NB == 2) {
+      const float sg = sigmoid_f(to_f(src[s]) + w.dst_r);
+      cf[0] = (dis[s] * sg) * w.dis_r[0];
+      cf[1] = (dis[(size_t)num_nodes + s] * (1.0f - sg)) * w.dis_r[1];
+    } else {
+      cf[0] = dis[s] * w.dis_r[0];
+    }
+    return true;
+  }
+
+  // out_b[r] = acc_b + x_b[r] / deg_b[r], rounded once to T.
+  template <int F>
+  __device__ __forceinline__ void write_row(int r, int lane, const float (&acc)[NB][F]) const {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const size_t off = (size_t)r * h + lane * F;
+      float xs[F];
+      load_vec<T, F>(x[b] + off, xs);
+      const float d = deg[(size_t)b * num_nodes + r];
+      float o[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = acc[b][f] + xs[f] / d;
+      store_vec<T, F>(out[b] + off, o);
+    }
+  }
 };
 
-// out_b[r] = acc_b + x_b[r] / deg_b[r], rounded once to T.
-template <typename T, int NB, int F>
-__device__ __forceinline__ void write_row(const SpmmArgs<T, NB, F>& a, int r, int lane,
-                                          float (&acc)[NB][F]) {
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const size_t off = (size_t)r * a.h + lane * F;
-    float xs[F];
-    load_vec<T, F>(a.x[b] + off, xs);
-    const float d = a.deg[(size_t)b * a.num_nodes + r];
-    float o[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = acc[b][f] + xs[f] / d;
-    store_vec<T, F>(a.out[b] + off, o);
-  }
-}
-
-template <typename T, int NB, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-coef_spmm_kernel(const SpmmArgs<T, NB, F> a) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const int r = k.row;
-  const size_t V = a.num_nodes;
-  float dis_r[NB], dst_r = 0.0f;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) dis_r[b] = a.dis[b * V + r];
-  if constexpr (NB == 2) dst_r = to_f(a.dst[r]);
-  float acc[NB][F];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    // lane i: edge g0 + i -> (neighbour, coefficient per branch) when live
-    const int i = g0 + lane;
-    int s_l = 0;
-    float coef_l[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) coef_l[b] = 0.0f;
-    bool live = false;
-    if (i < k.end) {
-      const int e = a.perm == nullptr ? i : a.perm[i];
-      s_l = a.nbr[e];
-      live = a.edge_mask[e] && s_l != r;
-      if (live) {
-        if constexpr (NB == 2) {
-          const float sg = sigmoid_f(to_f(a.src[s_l]) + dst_r);
-          coef_l[0] = (a.dis[s_l] * sg) * dis_r[0];
-          coef_l[1] = (a.dis[V + s_l] * (1.0f - sg)) * dis_r[1];
-        } else {
-          coef_l[0] = a.dis[s_l] * dis_r[0];
-        }
-      }
-    }
-    // the group's live edges in edge order
-    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const int s = __shfl_sync(kFull, s_l, j);
-      float cf[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) cf[b] = __shfl_sync(kFull, coef_l[b], j);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float xs[F];
-        load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[b][f] = fmaf(cf[b], xs[f], acc[b][f]);
-      }
-    }
-  }
-  if (k.count == 1) {
-    write_row<T, NB, F>(a, r, lane, acc);
-  } else {
-    float* p = a.partial + (size_t)c * NB * a.h + lane * F;
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int f = 0; f < F; ++f) p[b * a.h + f] = acc[b][f];
-  }
-}
-
-template <typename T, int NB, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-coef_spmm_combine(const SpmmArgs<T, NB, F> a) {
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= a.num_nodes) return;
-  const int c0 = a.chunk_ptr[r], c1 = a.chunk_ptr[r + 1];
-  if (c1 - c0 <= 1) return;
-  float acc[NB][F];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
-#pragma unroll 4
-  for (int c = c0; c < c1; ++c) {
-    const float* p = a.partial + (size_t)c * NB * a.h + lane * F;
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[b][f] += p[b * a.h + f];
-  }
-  write_row<T, NB, F>(a, r, lane, acc);
-}
-
-template <typename T, int NB, int F>
+template <typename T, int NB>
 cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const void* dst,
                         const int* nbr, const int* perm, const uint8_t* edge_mask,
-                        const float* deg,
-                        const float* dis, const int* ptr, const int* chunk_ptr,
-                        const int* chunk_row, int n_chunks, int num_nodes, int h,
-                        void* out0, void* out1, float* partial, cudaStream_t stream) {
-  SpmmArgs<T, NB, F> a;
+                        const float* deg, const float* dis, const int* ptr,
+                        const int* chunk_ptr, const int* chunk_row, int n_chunks,
+                        int num_nodes, int h, void* out0, void* out1, float* partial,
+                        cudaStream_t stream) {
+  GcnSpmm<T, NB> a;
   a.x[0] = static_cast<const T*>(x0);
   a.out[0] = static_cast<T*>(out0);
   if constexpr (NB == 2) {
@@ -271,41 +213,8 @@ cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const v
   a.n_chunks = n_chunks;
   a.num_nodes = num_nodes;
   a.h = h;
-  const int threads = kWarpsPerBlock * 32;
-  coef_spmm_kernel<T, NB, F><<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
-                               stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  coef_spmm_combine<T, NB, F><<<(num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock, threads,
-                                0, stream>>>(a);
-  return cudaGetLastError();
+  return launch_csr_spmm(a, stream);
 }
-
-template <typename T, int NB>
-cudaError_t dispatch_f(int f, const void* x0, const void* x1, const void* src,
-                       const void* dst, const int* nbr, const int* perm,
-                       const uint8_t* edge_mask,
-                       const float* deg, const float* dis, const int* ptr,
-                       const int* chunk_ptr, const int* chunk_row, int n_chunks,
-                       int num_nodes, int h, void* out0, void* out1, float* partial,
-                       cudaStream_t stream) {
-#define CAL_SPMM_F(FV)                                                                   \
-  case FV:                                                                               \
-    return launch_spmm<T, NB, FV>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr, \
-                                  chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,    \
-                                  out1, partial, stream);
-  switch (f) {
-    CAL_SPMM_F(1)
-    CAL_SPMM_F(2)
-    CAL_SPMM_F(4)
-    CAL_SPMM_F(8)
-    default:
-      break;
-  }
-#undef CAL_SPMM_F
-  return cudaErrorInvalidValue;
-}
-
 
 // ---- K5: the SDDMM chain head of the pair VJP ----------------------------
 
@@ -509,23 +418,22 @@ int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* s
                      int n_chunks, int num_nodes, int h, void* out0, void* out1,
                      float* partial, cudaStream_t stream) {
   if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  const int f = h / 32;
   if (dtype == 1 && branches == 2)
-    return (int)dispatch_f<__nv_bfloat16, 2>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg,
-                                             dis, ptr, chunk_ptr, chunk_row, n_chunks,
-                                             num_nodes, h, out0, out1, partial, stream);
+    return (int)launch_spmm<__nv_bfloat16, 2>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis,
+                                              ptr, chunk_ptr, chunk_row, n_chunks, num_nodes,
+                                              h, out0, out1, partial, stream);
   if (dtype == 1 && branches == 1)
-    return (int)dispatch_f<__nv_bfloat16, 1>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg,
-                                             dis, ptr, chunk_ptr, chunk_row, n_chunks,
-                                             num_nodes, h, out0, out1, partial, stream);
+    return (int)launch_spmm<__nv_bfloat16, 1>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis,
+                                              ptr, chunk_ptr, chunk_row, n_chunks, num_nodes,
+                                              h, out0, out1, partial, stream);
   if (dtype == 0 && branches == 2)
-    return (int)dispatch_f<float, 2>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
-                                     chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,
-                                     out1, partial, stream);
+    return (int)launch_spmm<float, 2>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
+                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0, out1,
+                                      partial, stream);
   if (dtype == 0 && branches == 1)
-    return (int)dispatch_f<float, 1>(f, x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
-                                     chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0,
-                                     out1, partial, stream);
+    return (int)launch_spmm<float, 1>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
+                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0, out1,
+                                      partial, stream);
   return (int)cudaErrorInvalidValue;
 }
 

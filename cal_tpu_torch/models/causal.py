@@ -1,7 +1,7 @@
-"""Causal attention models: CausalGCN and CausalGAT.
+"""Causal attention models: CausalGCN, CausalGIN and CausalGAT.
 
 Counterpart of cal_tpu/models/causal.py (``intervention_permutation`` and
-``CausalGNN`` with backbones 'gcn' and 'gat').  Input BN -> linear "gfn"
+``CausalGNN`` with backbones 'gcn', 'gin' and 'gat').  Input BN -> linear "gfn"
 projection -> K backbone layers -> factored edge attention and node
 attention -> BN -> both masked context/object GCN convs in ONE fused pass
 -> sum pooling -> three readout MLPs (context, object, intervention).
@@ -13,6 +13,10 @@ CSR kernels (the masked convs of both backbones in
 
 * backbone 'gcn': BN -> GCNConv -> ReLU per layer; honors ``with_random``
   and the attention-ablation flags;
+* backbone 'gin': GINConv (its own Linear -> BN -> ReLU -> Linear -> ReLU
+  MLP, no BN/ReLU wrapper) per layer; the aggregate is the dense product or
+  the coefficient SpMM (``ops/gin.py``); the masked convs stay GCN convs.
+  Like 'gat' it ignores the ablation flags and ``with_random``;
 * backbone 'gat': BN -> GATConv (4 heads, attention dropout 0.2 in
   training; the flash-GAT kernel on the dense layout, the sparse GAT
   kernels on the sparse one) -> ReLU per layer; the masked convs are still
@@ -30,10 +34,65 @@ import torch
 from torch import nn
 
 from cal_tpu_torch.graph import DenseGraphBatch, GraphBatch
-from cal_tpu_torch.nn.layers import GATConvLayer, GCNConvLayer, MaskedBatchNorm, ReadoutMLP
+from cal_tpu_torch.nn.layers import (
+    GATConvLayer,
+    GCNConvLayer,
+    GINConvLayer,
+    MaskedBatchNorm,
+    ReadoutMLP,
+)
 from cal_tpu_torch.ops.attention import edge_attention, global_add_pool, node_attention
 from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual
 from cal_tpu_torch.ops.spmm import gcn_aggregate_sparse_pair
+
+
+def build_backbone(model: nn.Module, num_features: int, hidden: int, num_layers: int,
+                   backbone: str, heads: int, gat_dropout: float, dtype: torch.dtype,
+                   gen: torch.Generator) -> None:
+    """Adds the stem and backbone layers that the causal models and the
+    baselines share, under the flax names: ``bn_feat``, ``conv_feat`` (gfn),
+    then per layer ``convs_{i}`` (GIN) or ``bns_conv_{i}`` + ``convs_{i}``
+    (GCN, GAT: 4 heads, attention dropout ``gat_dropout`` in training)."""
+    if backbone not in ("gcn", "gin", "gat"):
+        raise ValueError(backbone)
+    if backbone == "gat" and hidden % heads:
+        raise ValueError(f"hidden {hidden} is not a multiple of heads {heads}")
+    model.bn_feat = MaskedBatchNorm(num_features)
+    model.conv_feat = GCNConvLayer(num_features, hidden, gfn=True, dtype=dtype, generator=gen)
+    for i in range(num_layers):
+        if backbone == "gin":
+            model.add_module(f"convs_{i}", GINConvLayer(hidden, hidden, dtype=dtype,
+                                                        generator=gen))
+            continue
+        model.add_module(f"bns_conv_{i}", MaskedBatchNorm(hidden))
+        conv = (GCNConvLayer(hidden, hidden, dtype=dtype, generator=gen)
+                if backbone == "gcn" else
+                GATConvLayer(hidden, hidden // heads, heads, gat_dropout, dtype=dtype,
+                             generator=gen))
+        model.add_module(f"convs_{i}", conv)
+
+
+def run_backbone(model: nn.Module, g, backbone: str, num_layers: int, train: bool,
+                 dropout_seeds: Sequence[int] | None) -> torch.Tensor:
+    """The layers of ``build_backbone`` on ``g``: BN -> gfn -> ReLU, then per
+    layer GINConv, or BN -> GCNConv / GATConv -> ReLU (``dropout_seeds``, one
+    per layer, turn on GAT's attention dropout in training).  Node features
+    in ``model.dtype``."""
+    node_mask = g.node_mask
+    x = model.bn_feat(g.x.to(model.dtype), node_mask, train)
+    x = torch.relu(model.conv_feat(x))
+    for i in range(num_layers):
+        conv = getattr(model, f"convs_{i}")
+        if backbone == "gin":
+            x = conv(x, g, node_mask, train)
+            continue
+        x = getattr(model, f"bns_conv_{i}")(x, node_mask, train)
+        if backbone == "gat":
+            seed = dropout_seeds[i] if train and dropout_seeds is not None else None
+            x = torch.relu(conv(x, g, seed))
+        else:
+            x = torch.relu(conv(x, g))
+    return x
 
 
 def intervention_permutation(generator: torch.Generator,
@@ -64,15 +123,8 @@ class CausalGNN(nn.Module):
                  gat_dropout: float = 0.2,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if backbone == "gin":
-            raise NotImplementedError(
-                "backbone 'gin' not ported yet (ROADMAP queue 1 item 7)")
-        if backbone not in ("gcn", "gat"):
-            raise ValueError(backbone)
         if cat_or_add not in ("cat", "add"):
             raise ValueError(cat_or_add)
-        if backbone == "gat" and hidden % heads:
-            raise ValueError(f"hidden {hidden} is not a multiple of heads {heads}")
         gen = torch.Generator().manual_seed(seed)
         self.backbone = backbone
         self.hidden, self.num_layers, self.dtype = hidden, num_layers, dtype
@@ -82,16 +134,8 @@ class CausalGNN(nn.Module):
         self.without_node_attention = ablate and without_node_attention
         self.without_edge_attention = ablate and without_edge_attention
 
-        self.bn_feat = MaskedBatchNorm(num_features)
-        self.conv_feat = GCNConvLayer(num_features, hidden, gfn=True, dtype=dtype,
-                                      generator=gen)
-        for i in range(num_layers):
-            self.add_module(f"bns_conv_{i}", MaskedBatchNorm(hidden))
-            conv = (GCNConvLayer(hidden, hidden, dtype=dtype, generator=gen)
-                    if backbone == "gcn" else
-                    GATConvLayer(hidden, hidden // heads, heads, gat_dropout, dtype=dtype,
-                                 generator=gen))
-            self.add_module(f"convs_{i}", conv)
+        build_backbone(self, num_features, hidden, num_layers, backbone, heads, gat_dropout,
+                       dtype, gen)
         uniform = lambda shape, fan_in: nn.Parameter(
             torch.empty(shape).uniform_(-fan_in ** -0.5, fan_in ** -0.5,
                                         generator=gen))
@@ -119,19 +163,8 @@ class CausalGNN(nn.Module):
         dropout in training."""
         dt = self.dtype
         sparse = isinstance(g, GraphBatch)
-        x = g.x.to(dt)
         node_mask = g.node_mask
-
-        x = self.bn_feat(x, node_mask, train)
-        x = torch.relu(self.conv_feat(x))
-        for i in range(self.num_layers):
-            x = getattr(self, f"bns_conv_{i}")(x, node_mask, train)
-            conv = getattr(self, f"convs_{i}")
-            if self.backbone == "gat":
-                seed = dropout_seeds[i] if train and dropout_seeds is not None else None
-                x = torch.relu(conv(x, g, seed))
-            else:
-                x = torch.relu(conv(x, g))
+        x = run_backbone(self, g, self.backbone, self.num_layers, train, dropout_seeds)
 
         if self.without_edge_attention:
             # sigmoid(0 + 0) = 0.5 exactly: the constant ablation weights

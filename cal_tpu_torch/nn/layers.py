@@ -1,5 +1,5 @@
-"""Layers: mask-aware BatchNorm, reference-init linear layers, GCN and GAT
-convs, readout.
+"""Layers: mask-aware BatchNorm, reference-init linear layers, GCN, GIN and
+GAT convs, readout.
 
 Counterpart of cal_tpu/nn/layers.py.  Parameter names and layouts follow the
 flax modules exactly (``kernel`` is [in, out], ``bias`` [out]; BatchNorm has
@@ -24,6 +24,7 @@ from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
 from cal_tpu_torch.ops.gat import seed_words
 from cal_tpu_torch.ops.gat_sparse import gat_aggregate_sparse_fused
 from cal_tpu_torch.ops.gcn import gcn_aggregate
+from cal_tpu_torch.ops.gin import gin_aggregate
 
 
 def torch_linear_init(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
@@ -146,6 +147,25 @@ class GCNConvLayer(nn.Module):
         if self.gfn:
             return x
         return gcn_aggregate(x, g) + b
+
+
+class GINConvLayer(nn.Module):
+    """PyG ``GINConv`` with the reference MLP Linear -> BN -> ReLU -> Linear
+    -> ReLU and fixed eps 0 (counterpart of cal_tpu/nn/layers.py
+    ``GINConvLayer``; parameters ``lin1``, ``bn``, ``lin2``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.lin1 = TorchLinear(in_features, features, dtype=dtype, generator=generator)
+        self.bn = MaskedBatchNorm(features)
+        self.lin2 = TorchLinear(features, features, dtype=dtype, generator=generator)
+
+    def forward(self, x, g, node_mask=None, train: bool = False):
+        h = gin_aggregate(x.to(self.dtype), g)
+        h = torch.relu(self.bn(self.lin1(h), node_mask, train))
+        return torch.relu(self.lin2(h))
 
 
 class GATConvLayer(nn.Module):

@@ -1,5 +1,6 @@
 """Train and eval steps — counterpart of cal_tpu/train/steps.py (``init_state``,
-``_causal_step_fn``/``make_causal_train_step``, ``make_causal_eval_step``).
+``_causal_step_fn``/``make_causal_train_step``, ``make_causal_eval_step``,
+``_baseline_step_fn``/``make_baseline_train_step``, ``make_baseline_eval_step``).
 
 PyTorch runs the step eagerly: forward with ``train=True``, the three
 losses, backward (the dual masked conv's and, for CausalGAT, the flash-GAT
@@ -18,7 +19,7 @@ import torch
 
 from cal_tpu_torch.graph import DenseGraphBatch, GraphBatch, PackedDenseBatch, to_dense
 from cal_tpu_torch.models.factory import get_model
-from cal_tpu_torch.train.losses import causal_losses, correct_count
+from cal_tpu_torch.train.losses import causal_losses, correct_count, nll_loss
 from cal_tpu_torch.train.optim import make_optimizer, set_lr
 from cal_tpu_torch.utils.config import Config
 
@@ -47,6 +48,8 @@ def _as_graph(batch: PackedDenseBatch | GraphBatch, dtype: torch.dtype | None = 
 # state), so the attention-dropout seeds carry a stream word of their own
 # that keeps them apart from the intervention and eval seeds.
 _GAT_DROPOUT_STREAM = 0x6761745F
+# the GAT baseline's dropout before its classifier: a stream of its own
+_HEAD_DROPOUT_STREAM = 0x68656164
 
 
 def step_seed(seed: int, *counters: int) -> int:
@@ -57,8 +60,9 @@ def step_seed(seed: int, *counters: int) -> int:
 
 def dropout_seeds(model, seed: int, step: int) -> list[int] | None:
     """The GAT layers' attention-dropout seeds of train step ``step``, one
-    per layer (None for backbones without dropout): a rerun and a resumed
-    run draw the same masks."""
+    per layer (None for backbones without dropout), for the causal models
+    and the baselines alike: a rerun and a resumed run draw the same
+    masks."""
     if model.backbone != "gat":
         return None
     return [step_seed(seed, step, _GAT_DROPOUT_STREAM, i) for i in range(model.num_layers)]
@@ -70,6 +74,20 @@ def init_state(cfg: Config, num_features: int, num_classes: int,
     and its Adam optimizer."""
     model = get_model(cfg, num_features, num_classes).to(device)
     return TrainState(model, make_optimizer(model.parameters(), cfg.weight_decay))
+
+
+def _has_real_graph(batch: PackedDenseBatch | GraphBatch) -> bool:
+    real = (np.asarray(batch.graph_mask) if isinstance(batch, GraphBatch)
+            else np.asarray(batch.n_nodes) > 0)
+    return bool(real.any())
+
+
+def _fill_unused_grads(params) -> None:
+    for p in params:
+        if p.grad is None:
+            # unused by the forward (the gfn projection's bias): a zero
+            # gradient as jax.grad gives, so Adam still applies L2 to it
+            p.grad = torch.zeros_like(p)
 
 
 def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
@@ -93,9 +111,7 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
 
     def step(batch: PackedDenseBatch | GraphBatch,
              sums: torch.Tensor | None) -> torch.Tensor | None:
-        real = (np.asarray(batch.graph_mask) if isinstance(batch, GraphBatch)
-                else np.asarray(batch.n_nodes) > 0)
-        if not real.any():
+        if not _has_real_graph(batch):
             return sums
         generator.manual_seed(step_seed(seed, state.step))
         g = _as_graph(batch.to(device), model.dtype)
@@ -106,11 +122,7 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
                                                 g.graph_mask, c_w, o_w, co_w)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
-        for p in params:
-            if p.grad is None:
-                # unused by the forward (the gfn projection's bias): a zero
-                # gradient as jax.grad gives, so Adam still applies L2 to it
-                p.grad = torch.zeros_like(p)
+        _fill_unused_grads(params)
         set_lr(optimizer, schedule(state.step))
         optimizer.step()
         state.step += 1
@@ -118,6 +130,56 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
         m = torch.stack([total * n, c_l * n, o_l * n, co_l * n,
                          correct_count(o_logs, g.y, g.graph_mask).float(), n]).detach()
         return m if sums is None else sums + m
+
+    return step
+
+
+def make_baseline_train_step(state: TrainState, schedule, seed: int):
+    """Returns fn(host_batch, sums) -> sums for a baseline model.
+
+    ``sums`` is None or an f32 device tensor [loss*n, correct, n] summed
+    over the epoch (the NLL over real graphs times their count n, as
+    ``_baseline_step_fn``'s aux).  A batch without a real graph is skipped
+    on the host (no device work, the step count does not move), like the
+    JAX ``_gate_state``.  The GAT baseline's attention-dropout seeds derive
+    from (seed, step, layer) and its pre-classifier dropout generator from
+    (seed, step)."""
+    model, optimizer = state.model, state.optimizer
+    params = list(model.parameters())
+    device = params[0].device
+    generator = torch.Generator(device=device)
+
+    def step(batch: PackedDenseBatch | GraphBatch,
+             sums: torch.Tensor | None) -> torch.Tensor | None:
+        if not _has_real_graph(batch):
+            return sums
+        generator.manual_seed(step_seed(seed, state.step, _HEAD_DROPOUT_STREAM))
+        g = _as_graph(batch.to(device), model.dtype)
+        out = model(g, train=True, dropout_seeds=dropout_seeds(model, seed, state.step),
+                    generator=generator)
+        mask = g.graph_mask.to(out.dtype)
+        loss = nll_loss(out, g.y, mask)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _fill_unused_grads(params)
+        set_lr(optimizer, schedule(state.step))
+        optimizer.step()
+        state.step += 1
+        n = g.graph_mask.sum().float()
+        m = torch.stack([loss * n, correct_count(out, g.y, g.graph_mask).float(), n]).detach()
+        return m if sums is None else sums + m
+
+    return step
+
+
+def make_baseline_eval_step(model):
+    """Returns fn(batch) -> dict of the correct count and n (tensors)."""
+
+    @torch.no_grad()
+    def step(batch: PackedDenseBatch | GraphBatch):
+        g = _as_graph(batch, model.dtype)
+        out = model(g, train=False)
+        return {"correct": correct_count(out, g.y, g.graph_mask), "n": g.graph_mask.sum()}
 
     return step
 

@@ -35,7 +35,7 @@ def params_from_jax(params: Mapping, batch_stats: Mapping) -> dict:
     """flax ``params`` and ``batch_stats`` trees (NumPy leaves) -> the port's
     state dict.  Layouts carry over unchanged: kernels stay [in, out]."""
     flat = {**_flatten(params), **_flatten(batch_stats)}
-    return {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in flat.items()}
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in flat.items()}
 
 
 class Checkpointer:

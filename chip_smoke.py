@@ -63,8 +63,9 @@
       against the plain twins on the CPU (with the gap of the twins run on
       the card, and per kernel wrapper the gap with it alone on its kernel
       and with all but it), f32 card against CPU, and f32 sparse against
-      dense on the card; the device time of one warm sparse train step by
-      operator;
+      dense on the card for 3 weight seeds on each of 4 batches, with a
+      seeded fault (every 32nd edge masked out) that must read above the
+      limit; the device time of one warm sparse train step by operator;
 6. sparse CausalGAT (``--model CausalGAT --layout sparse``) at the same size:
    a. kernel phase: on the same two batches, holds the row statistics (K8),
       the coefficient SpMM and its transposed mode (K9, K9T) and the SDDMM
@@ -84,6 +85,23 @@
       training and eval batch), its checkpoint on both layouts;
    d. gradient check as 5.c, with attention dropout on for the bf16 and the
       f32 card-against-CPU steps; the device time of one sparse GAT step.
+7. CausalGIN and the GCN/GIN/GAT baselines:
+   a. kernel phase: on the same two batches, holds the coefficient SpMM
+      (K11), its transposed mode (K11T) and the SDDMM (K12) against their
+      plain twins, bf16 and f32 features, at coef = the edge mask (sparse
+      GIN's) and a random coefficient on every edge, the f32 Function's
+      backward against autograd of the twin, and times them beside
+      torch.sparse.mm and torch.sparse.sampled_addmm;
+   b. dense CausalGIN serving and training as 3.a-b (data_num 320);
+   c. sparse CausalGIN at the canonical size: serving (launches per batch
+      K1 1, K2 1, K4 2, K11 3, nothing dense), the dense checkpoint of 7.b
+      through both layouts, 3 epochs of training (per step K2T, K5, K6 1, K7
+      2, K11T 3, K12 never), its checkpoint on both layouts, the gradient
+      check as 5.c (the bf16 kernels held against the twins on the card:
+      GRAD_CONDITIONS) and the device time of one step;
+   d. each baseline (GCN, GIN, GAT) trains one epoch through ``main_syn`` on
+      the dense and the sparse layout, with exact launches (sparse GIN per
+      step K11 3, K11T 3, K4 1, K7 1).
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -161,20 +179,43 @@ POOL_TOL = (1e-3, 1e-4)
 # hub) in another order with fmaf and expf, on values of order 10-100.  K7
 # copies an f32 row and rounds it once: exact.
 CHAIN_TOL = (1e-3, 1e-4)
-# Whole-step gradients on the sparse layout: f32 sparse against f32 dense on
-# the card (the same math, sums in another order) as GRAD_TOL["float32"].
-# bf16: the kernels on the card against the plain twins on the CPU, both
-# deterministic, so the gap does not move between runs.  sparse_grad_check's
-# breakdown on an H100 read 1.50e-2 (CausalGCN) and 2.39e-2 (CausalGAT,
-# dropout on), where the twins themselves, run on the card, read 1.76e-2 and
-# 2.23e-2 against the CPU: the gap is the devices' f32 summation orders
-# (cuBLAS, BatchNorm, index_add_) flipping bf16 roundings of [V, H]
-# activations, which propagate through five convs and BatchNorms.  Each
-# wrapper put alone on its kernel moves the gap by at most 1.9e-3 (K8; every
-# GCN wrapper <= 1.1e-4, K3 lowers it by 2.6e-3): rounding, no kernel error,
-# where a broken kernel moves it by O(1).  So the twins' own card gap
-# (2.2e-2) plus ~2e-3 for each of the few wrappers that move it: 3e-2.
+# Whole-step gradients on the sparse layout.  bf16: the kernels on the card
+# against the plain twins, both deterministic, so the gap does not move
+# between runs.  sparse_grad_check's breakdown on an H100 read 1.50e-2
+# (CausalGCN) and 2.39e-2 (CausalGAT, dropout on) against the twins on the
+# CPU, where the twins themselves, run on the card, read 1.76e-2 and 2.23e-2
+# against the CPU: the gap is the devices' f32 summation orders (cuBLAS,
+# BatchNorm, index_add_) flipping bf16 roundings of [V, H] activations, which
+# propagate through five convs and BatchNorms.  Each wrapper put alone on its
+# kernel moves the gap by at most 1.9e-3 (K8; every GCN wrapper <= 1.1e-4, K3
+# lowers it by 2.6e-3): rounding, no kernel error, where a broken kernel
+# moves it by O(1).  So the twins' own card gap (2.2e-2) plus ~2e-3 for each
+# of the few wrappers that move it: 3e-2.
 SPARSE_GRAD_TOL_BF16 = 3e-2
+# f32: sparse against dense on the card (the same math, sums in another
+# order), held on every pair of LAYOUT_SEEDS (weights) x the first
+# LAYOUT_BATCHES test batches, each limit a constant above the largest
+# reading of correct kernels; a seeded fault, the sparse step with every
+# 32nd edge masked out (what a kernel that skipped the last edge of each
+# 32-edge group would compute), must read above it on the first pair.
+LAYOUT_SEEDS, LAYOUT_BATCHES = (SEED, SEED + 1, SEED + 2), 4
+# The sparse gradient checks by the conditioning of the model's gradients:
+# condition -> (reference of the bf16 kernels, f32 sparse-against-dense
+# limit).  Well conditioned (CausalGCN, CausalGAT): the twins on the CPU;
+# the f32 gap read 2.8e-6 to 3.0e-4 over the 12 pairs on an H100 80GB HBM3
+# (PERF.md section 6), so 1e-3.  A Linear feeding a BatchNorm an input of
+# large mean (each GIN layer's lin1 on unnormalized neighbour sums of ReLU
+# outputs):
+# lin1's weight gradient carries mean(h) times sum_v dh_v, which is 0
+# exactly and rounding noise in practice, so any change of summation order
+# moves it.  There the plain twins themselves read 7.2e-2 (bf16) card
+# against CPU, each kernel wrapper moving that by at most 2.5e-4, so the
+# bf16 kernels are held against the twins on the same card in deterministic
+# mode; the f32 gap read 3.8e-5 to 2.2e-3 over the 12 pairs, so 1e-2.
+GRAD_CONDITIONS = {
+    "well_conditioned": ("cpu_twins", 1e-3),
+    "linear_into_batchnorm_on_sums": ("card_twins", 1e-2),
+}
 SPARSE_TRAIN_EPOCHS = 3
 # Sparse GAT kernels vs their twins (same rounding points, csrc/gat_sparse.cu
 # header: x in the model dtype, everything else f32, so one tolerance for
@@ -185,6 +226,13 @@ SPARSE_TRAIN_EPOCHS = 3
 # keep bits are the same hash in kernel and twin.
 GAT_STATS_TOL = (1e-5, 1e-5)
 GAT_SPMM_TOL = (1e-4, 1e-4)
+# Coefficient SpMM kernels vs their twins (same rounding points,
+# csrc/coo_spmm.cu header: x and g read in their dtype, everything else f32,
+# so one tolerance for both dtypes).  K11/K11T: f32 sums over up to 29,400
+# edges (the padded run at V-1, random coefficients) in another order with
+# fmaf; K12: dot products of H terms in another order.
+COO_TOL = (1e-4, 1e-4)
+BASELINE_EPOCHS = 1       # each baseline's short run, per layout
 
 
 def emit(obj) -> None:
@@ -478,7 +526,7 @@ def profile_forward(torch, model, batch, to_dense, top=16, layout="dense") -> No
 
 
 def model_name(model) -> str:
-    return {"gcn": "CausalGCN", "gat": "CausalGAT"}[model.backbone]
+    return {"gcn": "CausalGCN", "gin": "CausalGIN", "gat": "CausalGAT"}[model.backbone]
 
 
 def counters(model: str, training: bool) -> tuple:
@@ -682,14 +730,41 @@ def _rel_l2(got, ref) -> float:
 
 
 def _grad_err(torch, got, ref, tol):
-    """Relative L2 error of all gradients as one vector (held to ``tol``),
-    and the tensor with the largest max|got - ref| / max|ref| (reported)."""
+    """Relative L2 error of all gradients as one vector (held to ``tol``
+    unless it is None: the caller holds it after reporting), and the tensor
+    with the largest max|got - ref| / max|ref| (reported)."""
     check(all(bool(torch.isfinite(g).all()) for g in got.values()), "gradient not finite")
     rel = _rel_l2(got, ref)
     worst = max((float((got[n] - ref[n]).abs().max()) / max(float(ref[n].abs().max()), 1e-30), n)
                 for n in ref)
-    check(rel <= tol, f"step gradients differ by {rel} (relative L2)")
+    if tol is not None:
+        check(rel <= tol, f"step gradients differ by {rel} (relative L2)")
     return rel, worst
+
+
+def _ulp_probe(torch, model, g, ref, seeds=None) -> float:
+    """The relative L2 gap that random 1-ulp noise on every f32 weight of
+    ``model`` opens in the step gradients on ``g`` (``ref``: the gradients
+    without noise): the gradients' own conditioning on this batch."""
+    import copy
+
+    noisy = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for p in noisy.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=gen).to(p.device) * 2 - 1
+            p.mul_(1.0 + sign * 2.0 ** -23)
+    return _rel_l2(_step_grads(torch, noisy, g, seeds)[1], ref)
+
+
+def _err_shares(got, ref, top=6) -> list:
+    """The tensors holding most of ||got - ref||^2: (name, share of the
+    squared error, ||ref[name]||^2 / ||ref||^2), largest share first."""
+    err = {n: float(((got[n] - ref[n]) ** 2).sum()) for n in ref}
+    norm = {n: float((ref[n] ** 2).sum()) for n in ref}
+    e_tot, r_tot = sum(err.values()) or 1.0, sum(norm.values()) or 1.0
+    return [(n, err[n] / e_tot, norm[n] / r_tot)
+            for n in sorted(err, key=lambda k: -err[k])[:top]]
 
 
 def grad_check(torch, test_set, batch, model: str):
@@ -884,6 +959,7 @@ def _twin_table() -> dict:
     """Every sparse kernel wrapper, forward and backward: label -> (module,
     attribute, plain twin).  The autograd Functions look the wrappers up at
     call time, so patching the attribute routes a step through the twin."""
+    import cal_tpu_torch.ops.coo_spmm as coo_mod
     import cal_tpu_torch.ops.gat_sparse as gat_mod
     import cal_tpu_torch.ops.pool as pool_mod
     import cal_tpu_torch.ops.spmm as spmm_mod
@@ -909,6 +985,9 @@ def _twin_table() -> dict:
         "K9T": (gat_mod, "gat_coef_spmm_t",
                 lambda *a: gat_mod.gat_coef_spmm_plain(*a, transpose=True)),
         "K10": (gat_mod, "gat_sddmm_chain", gat_mod.gat_sddmm_chain_plain),
+        "K11": (coo_mod, "coo_spmm", coo_mod.coo_spmm_plain),
+        "K11T": (coo_mod, "coo_spmm_t", coo_mod.coo_spmm_t_plain),
+        "K12": (coo_mod, "coo_sddmm", coo_mod.coo_sddmm_plain),
     }
 
 
@@ -926,9 +1005,9 @@ def sparse_twins(labels=None):
 
 
 def sparse_counters(training: bool = False) -> dict:
-    """Launch counters of the sparse serving or training path of either
-    model (and the dense kernels, which it must not launch)."""
-    from cal_tpu_torch.ops import gat_sparse, spmm
+    """Launch counters of the sparse serving or training path of any model
+    (and the dense kernels, which it must not launch)."""
+    from cal_tpu_torch.ops import coo_spmm, gat_sparse, spmm
     from cal_tpu_torch.ops.adj_build import adj_build
     from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd
     from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd
@@ -937,7 +1016,7 @@ def sparse_counters(training: bool = False) -> dict:
     ks = {"pair_sender_degree": spmm.pair_sender_degree, "pair_coef_spmm": spmm.pair_coef_spmm,
           "plain_coef_spmm": spmm.plain_coef_spmm, "segment_pool": segment_pool,
           "gat_row_stats": gat_sparse.gat_row_stats, "gat_coef_spmm": gat_sparse.gat_coef_spmm,
-          "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual,
+          "coo_spmm": coo_spmm.coo_spmm, "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual,
           "flash_gat_fwd": flash_gat_fwd}
     if training:
         ks.update(pair_coef_spmm_t=spmm.pair_coef_spmm_t,
@@ -946,6 +1025,7 @@ def sparse_counters(training: bool = False) -> dict:
                   segment_pool_bwd=segment_pool_bwd,
                   gat_coef_spmm_t=gat_sparse.gat_coef_spmm_t,
                   gat_sddmm_chain=gat_sparse.gat_sddmm_chain,
+                  coo_spmm_t=coo_spmm.coo_spmm_t, coo_sddmm=coo_spmm.coo_sddmm,
                   fused_gcn_dense_att_dual_bwd=fused_gcn_dense_att_dual_bwd,
                   flash_gat_bwd=flash_gat_bwd)
     return ks
@@ -955,21 +1035,51 @@ def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
     """Exact launches of ``sparse_counters`` for ``fwd`` forwards (eval
     batches and train steps) and ``steps`` backwards (None: serving).  Per
     forward: CausalGCN K1 4 (the pair and three plain convs), K2 1, K3 3;
-    CausalGAT K1 1, K2 1, K8 and K9 one per layer; both K4 2.  Per backward:
-    K2T, K5, K6 1, K7 2; CausalGCN K3T 3, CausalGAT K9T and K10 one per
-    layer.  No dense kernel."""
-    gat = model == "CausalGAT"
-    want = {"pair_sender_degree": (1 if gat else 4) * fwd, "pair_coef_spmm": fwd,
-            "plain_coef_spmm": 0 if gat else 3 * fwd, "segment_pool": 2 * fwd,
+    CausalGAT K1 1, K2 1, K8 and K9 one per layer; CausalGIN K1 1, K2 1, K11
+    one per layer; all K4 2.  Per backward: K2T, K5, K6 1, K7 2; CausalGCN
+    K3T 3, CausalGAT K9T and K10 one per layer, CausalGIN K11T one per layer
+    (K12 never: GIN's coefficient, the edge mask, needs no gradient).  No
+    dense kernel."""
+    gat, gin = model == "CausalGAT", model == "CausalGIN"
+    want = {"pair_sender_degree": (1 if gat or gin else 4) * fwd, "pair_coef_spmm": fwd,
+            "plain_coef_spmm": 0 if gat or gin else 3 * fwd, "segment_pool": 2 * fwd,
             "gat_row_stats": LAYERS * fwd if gat else 0,
             "gat_coef_spmm": LAYERS * fwd if gat else 0,
+            "coo_spmm": LAYERS * fwd if gin else 0,
             "adj_build": 0, "fused_gcn_dense_att_dual": 0, "flash_gat_fwd": 0}
     if steps is not None:
-        want.update(pair_coef_spmm_t=steps, plain_coef_spmm_t=0 if gat else 3 * steps,
+        want.update(pair_coef_spmm_t=steps,
+                    plain_coef_spmm_t=0 if gat or gin else 3 * steps,
                     pair_sddmm_chain=steps, pair_dpre=steps, segment_pool_bwd=2 * steps,
                     gat_coef_spmm_t=LAYERS * steps if gat else 0,
                     gat_sddmm_chain=LAYERS * steps if gat else 0,
+                    coo_spmm_t=LAYERS * steps if gin else 0, coo_sddmm=0,
                     fused_gcn_dense_att_dual_bwd=0, flash_gat_bwd=0)
+    return want
+
+
+def baseline_want(model: str, layout: str, fwd: int, steps: int) -> dict:
+    """Exact launches of ``sparse_counters(training=True)`` for a baseline's
+    training run of ``fwd`` forwards (train steps and eval batches) and
+    ``steps`` backwards.  Sparse: per forward GCN K1 and K3, GIN K11, GAT K8
+    and K9 one per layer, all K4 1; per backward GCN K3T, GIN K11T, GAT K9T
+    and K10 one per layer, all K7 1.  Dense: the adjacency build once a
+    batch and, for GAT, the flash forward one per layer a forward and its
+    backward one per layer a step (the GCN and GIN aggregates are plain
+    products).  Nothing else."""
+    want = dict.fromkeys(sparse_counters(training=True), 0)
+    if layout == "dense":
+        want["adj_build"] = fwd
+        if model == "GAT":
+            want.update(flash_gat_fwd=LAYERS * fwd, flash_gat_bwd=LAYERS * steps)
+        return want
+    want.update(segment_pool=fwd, segment_pool_bwd=steps)
+    per_layer = {"GCN": (("pair_sender_degree", "plain_coef_spmm"), ("plain_coef_spmm_t",)),
+                 "GIN": (("coo_spmm",), ("coo_spmm_t",)),
+                 "GAT": (("gat_row_stats", "gat_coef_spmm"),
+                         ("gat_coef_spmm_t", "gat_sddmm_chain"))}[model]
+    want.update({k: LAYERS * fwd for k in per_layer[0]})
+    want.update({k: LAYERS * steps for k in per_layer[1]})
     return want
 
 
@@ -1403,6 +1513,134 @@ def gat_kernel_rows(torch, g, label, peaks, flush):
     return out, keep_pairs
 
 
+def _library_sddmm(torch, g, x, gout):
+    """One torch.sparse.sampled_addmm over the receiver CSR (rows r,
+    columns s) of (gout @ x^T), i.e. <gout[r], x[s]> per stored edge, f32
+    (gout is f32; x cast outside the call), CSR built outside."""
+    a = torch.sparse_csr_tensor(g.recv.ptr.long(), g.senders.long(),
+                                torch.zeros(g.senders.shape[0], device="cuda"),
+                                size=(g.num_nodes, g.num_nodes))
+    xt = x.float().t()
+    return lambda: torch.sparse.sampled_addmm(a, gout, xt, beta=0.0)
+
+
+def coo_kernel_rows(torch, g, label, peaks, flush):
+    """K11, K11T and K12 against their twins on one sparse batch ``g`` (on
+    the card), x in bf16 and f32, at coef = the edge mask (sparse GIN's) and
+    at a random coefficient on every edge, dead ones too; the f32 Function's
+    backward (K11T, K12) against autograd of the forward twin; times at
+    coef = mask.  Returns {dtype: {kernel: row}}."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    bw, _, f32_peak = peaks
+    v, e = g.num_nodes, g.senders.shape[0]
+    n_nz = int(g.edge_mask.sum())
+    csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        x = torch.randn((v, H), generator=gen, device="cuda").to(dt)
+        gout = torch.randn((v, H), generator=gen, device="cuda")
+        mask = g.edge_mask.float()
+        rand = torch.randn(e, generator=gen, device="cuda")
+        rows = {}
+
+        def row(name, fn, plain, nbytes, flops, err, lib_fn, lib_call):
+            t_bytes, t_ops = nbytes / bw, flops / f32_peak
+            r = {"name": name, "batch": label, "dtype": dt_name, "max_abs_err": err,
+                 "atol": COO_TOL[0], "rtol": COO_TOL[1], "coef": "edge_mask",
+                 "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+                 "library_ms": None if lib_fn is None else time_ms(torch, lib_fn, flush),
+                 "library_call": lib_call, "bytes": nbytes, "flops": flops,
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "nodes": v, "edges": e, "nonzero_coef_edges": n_nz}
+            emit({"phase": "coo_kernel", **r})
+            rows[name] = r
+
+        def held(name, got, ref):
+            torch.cuda.synchronize()
+            check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name} {dt_name} misshapen")
+            check(bool(torch.isfinite(got).all()), f"{name} {dt_name} on {label} not finite")
+            err, over = max_excess(torch, got, ref, *COO_TOL)
+            check(over <= 0, f"{name} {dt_name} on {label} differs from its plain twin: {err}")
+            return err
+
+        errs = {"coo_spmm": [], "coo_spmm_t": []}
+        for coef in (mask, rand):
+            errs["coo_spmm"].append(held("coo_spmm", coo.coo_spmm(x, coef, g),
+                                         coo.coo_spmm_plain(x, coef, g)))
+            errs["coo_spmm_t"].append(held("coo_spmm_t", coo.coo_spmm_t(gout, coef, g),
+                                           coo.coo_spmm_t_plain(gout, coef, g)))
+        err = held("coo_sddmm", coo.coo_sddmm(x, gout, g), coo.coo_sddmm_plain(x, gout, g))
+
+        row("coo_spmm", lambda: coo.coo_spmm(x, mask, g), lambda: coo.coo_spmm_plain(x, mask, g),
+            v * H * elt + 8 * e + csr(g.recv) + v * H * 4, 2 * H * n_nz, max(errs["coo_spmm"]),
+            _library_spmm(torch, g, [mask], [x]),
+            "torch.sparse.mm(CSR [V, V] of the coefficients, x) in x's dtype, CSR built "
+            "outside the call")
+        row("coo_spmm_t", lambda: coo.coo_spmm_t(gout, mask, g),
+            lambda: coo.coo_spmm_t_plain(gout, mask, g),
+            v * H * 4 + 12 * e + csr(g.send) + v * H * 4, 2 * H * n_nz,
+            max(errs["coo_spmm_t"]), _library_spmm_t(torch, g, [mask], [gout]),
+            "torch.sparse.mm(transposed CSR [V, V] of the coefficients, g), CSR built "
+            "outside the call")
+        row("coo_sddmm", lambda: coo.coo_sddmm(x, gout, g), lambda: coo.coo_sddmm_plain(x, gout, g),
+            v * H * elt + v * H * 4 + 4 * e + csr(g.recv) + 4 * e, 2 * H * e, err,
+            _library_sddmm(torch, g, x, gout),
+            "torch.sparse.sampled_addmm(receiver CSR [V, V], g, x^T) in f32, CSR and the "
+            "cast of x built outside the call")
+
+        if dt == torch.float32:
+            # the Function's backward kernels against autograd of the twin
+            a = [t.clone().requires_grad_() for t in (x, rand)]
+            b = [t.clone().requires_grad_() for t in (x, rand)]
+            got = torch.autograd.grad((coo.coo_aggregate(*a, g) * gout).sum(), a)
+            auto = torch.autograd.grad((coo.coo_spmm_plain(*b, g) * gout).sum(), b)
+            errs = [held("coo VJP vs autograd", u, w) for u, w in zip(got, auto)]
+            emit({"phase": "coo_vs_autograd", "batch": label, "dtype": dt_name,
+                  "max_abs_err": max(errs), "tol": list(COO_TOL)})
+        out[dt_name] = rows
+    return out
+
+
+def baseline_phase(torch, model: str, layout: str, n_val: int, n_test: int) -> dict:
+    """One short bf16 training run of the ``model`` baseline through
+    ``main_syn --layout layout`` (dense: data_num DATA_NUM; sparse: the
+    canonical SPARSE_DATA_NUM) with every counter at 0 just before; fails
+    unless each kernel launched exactly ``baseline_want``'s count and every
+    epoch's loss is finite.  ``n_val``/``n_test``: the split sizes."""
+    from cal_tpu_torch.main_syn import main
+
+    data_num = SPARSE_DATA_NUM if layout == "sparse" else DATA_NUM
+    argv = ["--model", model, "--layout", layout, "--dtype", "bfloat16", "--hidden", str(H),
+            "--layers", str(LAYERS), "--batch_size", str(B), "--data_num", str(data_num),
+            "--seed", str(SEED), "--epochs", str(BASELINE_EPOCHS), "--device", "cuda"]
+    counts = sparse_counters(training=True)
+    for k in counts.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = main(argv)
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counts.items()}
+    steps = res["steps_per_epoch"] * BASELINE_EPOCHS
+    evals = (-(-n_val // B) - (-n_test // B)) * BASELINE_EPOCHS
+    want = baseline_want(model, layout, steps + evals, steps)
+    check(launches == want, f"{model} {layout} baseline launches {launches}, expected {want}")
+    losses = [h["loss"] for h in res["history"]]
+    check(all(map(math.isfinite, losses)), f"{model} {layout} baseline losses {losses}")
+    emit({"phase": "baseline", "model": model, "layout": layout, "data_num": data_num,
+          "epochs": BASELINE_EPOCHS, "losses": losses, "main_wall_s": wall,
+          "epoch_seconds": [h["seconds"] for h in res["history"]],
+          "train_seconds": [h["train_seconds"] for h in res["history"]],
+          "steps_per_epoch": res["steps_per_epoch"], "eval_batches": evals,
+          "val_acc": res["history"][-1]["val_acc"], "test_acc": res["history"][-1]["test_acc"],
+          "launches": {k: v for k, v in launches.items() if v},
+          "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
+    return launches
+
+
 def sparse_training_phase(torch, sparse_test, n_val: int, model: str = "CausalGCN") -> dict:
     """``model`` trained through ``main_syn --layout sparse`` with the
     counters at 0, then its checkpoint served through both layouts (``n_val``
@@ -1469,22 +1707,28 @@ def sparse_training_phase(torch, sparse_test, n_val: int, model: str = "CausalGC
 SPARSE_STEP_WRAPPERS = {
     "CausalGCN": ("K1", "K2", "K3", "K4", "K2T", "K3T", "K5", "K6", "K7"),
     "CausalGAT": ("K1", "K2", "K4", "K8", "K9", "K2T", "K5", "K6", "K7", "K9T", "K10"),
+    "CausalGIN": ("K1", "K2", "K4", "K11", "K2T", "K5", "K6", "K7", "K11T"),
 }
 
 
 def sparse_grad_check(torch, sparse_test, model: str = "CausalGCN") -> None:
     """One sparse step's gradients (CausalGAT with attention dropout on, one
     seed: the keep bits are the same hash on both devices).  bf16 at full
-    width: the kernels on the card against the plain twins on the CPU
-    (deterministic; held to SPARSE_GRAD_TOL_BF16), beside the gap of all
+    width: the kernels on the card against the plain twins, on the CPU or,
+    where the model's GRAD_CONDITIONS entry says so, on the card (both
+    deterministic; held to SPARSE_GRAD_TOL_BF16), beside the gap of all
     twins run on the card and, per wrapper, the gap with that wrapper alone
     on its kernel (the others on their twins) and with every wrapper but it
-    on its kernel.  f32 on 16 graphs, card against CPU; f32 at full width
-    without dropout, sparse against dense on the card."""
+    on its kernel, the tensors that hold most of the gap, and the gap of
+    the bf16 gradients (kernels and CPU twins) from the f32 gradients of the
+    same weights on the CPU.  f32 on 16 graphs, card against CPU; f32 at
+    full width without dropout, sparse against dense on the card on every
+    pair of ``_layout_gaps``, held to the condition's limit, which its
+    seeded fault must exceed.  Every number is reported before any is
+    held."""
     import copy
 
     from cal_tpu_torch.data.loader import Loader
-    from cal_tpu_torch.graph import to_dense
     from cal_tpu_torch.models.factory import get_model
     from cal_tpu_torch.train.steps import dropout_seeds
     from cal_tpu_torch.utils.config import Config
@@ -1498,9 +1742,12 @@ def sparse_grad_check(torch, sparse_test, model: str = "CausalGCN") -> None:
     t0 = time.perf_counter()
     loss_cpu, grads_cpu = _step_grads(torch, copy.deepcopy(net), host.to("cpu"), seeds)
     cpu_s = time.perf_counter() - t0
+    ref32 = get_model(cfg.replace(dtype="float32"), feat, cfg.num_classes)
+    ref32.load_state_dict(net.state_dict())
+    _, grads_ref32 = _step_grads(torch, ref32, host.to("cpu"), seeds)
     net = net.to("cuda")
     loss_k, grads_k = _step_grads(torch, net, batch, seeds)
-    bf16 = _grad_err(torch, grads_k, grads_cpu, SPARSE_GRAD_TOL_BF16)
+    bf16 = _grad_err(torch, grads_k, grads_cpu, None)
     # the twins' index_add_ in its deterministic mode on the card: the
     # breakdown does not move between runs
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1525,21 +1772,81 @@ def sparse_grad_check(torch, sparse_test, model: str = "CausalGCN") -> None:
     loss_cpu32, grads_cpu32 = _step_grads(torch, copy.deepcopy(m32), small.to("cpu"), seeds)
     m32 = m32.to("cuda")
     loss_gpu, grads_gpu = _step_grads(torch, m32, small.to("cuda"), seeds)
-    f32 = _grad_err(torch, grads_gpu, grads_cpu32, GRAD_TOL["float32"])
-    dense = next(Loader(sparse_test, B).host_batches()).to("cuda")
-    loss_s, grads_s = _step_grads(torch, m32, batch)
-    loss_d, grads_d = _step_grads(torch, m32, to_dense(dense, torch.float32))
-    lay = _grad_err(torch, grads_s, grads_d, GRAD_TOL["float32"])
+    f32 = _grad_err(torch, grads_gpu, grads_cpu32, None)
+    condition = grad_condition(net)
+    bf16_ref, layout_tol = GRAD_CONDITIONS[condition]
+    gaps, first, fault = _layout_gaps(torch, sparse_test, cfg, feat)
+    kernels_vs_card_twins = _rel_l2(grads_k, grads_p)
     emit({"phase": "sparse_grad_check", "model": model, "dropout": seeds is not None,
           "bf16_loss_kernels": loss_k, "bf16_loss_cpu_twins": loss_cpu,
           "bf16_loss_card_twins": loss_p, "bf16_rel_l2_err": bf16[0],
           "bf16_worst_tensor": bf16[1], "bf16_card_twins_rel_l2_err": [base, base_again],
+          "bf16_kernels_vs_card_twins_rel_l2": kernels_vs_card_twins,
+          "bf16_err_shares": _err_shares(grads_k, grads_cpu),
+          "bf16_kernels_vs_f32_rel_l2": _rel_l2(grads_k, grads_ref32),
+          "bf16_cpu_twins_vs_f32_rel_l2": _rel_l2(grads_cpu, grads_ref32),
           "bf16_tol": SPARSE_GRAD_TOL_BF16, "cpu_step_s": cpu_s,
           "f32_loss_card": loss_gpu, "f32_loss_cpu": loss_cpu32,
           "f32_rel_l2_err": f32[0], "f32_worst_tensor": f32[1], "f32_graphs": 16,
-          "f32_sparse_loss": loss_s, "f32_dense_loss": loss_d,
-          "f32_sparse_vs_dense_rel_l2_err": lay[0], "f32_sparse_vs_dense_worst_tensor": lay[1],
-          "f32_tol": GRAD_TOL["float32"], "params": len(grads_k)})
+          "f32_tol": GRAD_TOL["float32"], "condition": condition, "bf16_reference": bf16_ref,
+          "f32_sparse_vs_dense": [{"seed": sd, "batch": i, "rel_l2": gap, "one_ulp_probe": pr}
+                                  for sd, i, gap, pr in gaps],
+          "f32_sparse_vs_dense_worst_tensor": _grad_err(torch, *first, None)[1],
+          "f32_sparse_vs_dense_err_shares": _err_shares(*first),
+          "f32_sparse_vs_dense_tol": layout_tol, "seeded_fault_rel_l2": fault,
+          "params": len(grads_k)})
+    bf16_held = kernels_vs_card_twins if bf16_ref == "card_twins" else bf16[0]
+    held = [(f"bf16 kernels vs {bf16_ref}", bf16_held, SPARSE_GRAD_TOL_BF16),
+            ("f32 card vs CPU", f32[0], GRAD_TOL["float32"])]
+    held += [(f"f32 sparse vs dense (seed {sd}, batch {i})", gap, layout_tol)
+             for sd, i, gap, _ in gaps]
+    for name, rel, tol in held:
+        check(rel <= tol, f"{model} {name}: step gradients differ by {rel} (relative L2)")
+    check(fault > layout_tol, f"{model}: the seeded fault reads {fault} (relative L2), "
+          f"within the sparse-against-dense limit {layout_tol}")
+
+
+def grad_condition(model) -> str:
+    """The GRAD_CONDITIONS key of a model: a GIN layer feeds its BatchNorm
+    lin1 of unnormalized neighbour sums."""
+    from cal_tpu_torch.nn.layers import GINConvLayer
+
+    if any(isinstance(m, GINConvLayer) for m in model.modules()):
+        return "linear_into_batchnorm_on_sums"
+    return "well_conditioned"
+
+
+def _layout_gaps(torch, sparse_test, cfg, feat):
+    """f32 step gradients without dropout, sparse against dense on the card,
+    for each weight seed of LAYOUT_SEEDS on each of the first LAYOUT_BATCHES
+    test batches: [(seed, batch, relative L2 gap, the gap that 1-ulp noise
+    on every weight opens in the sparse gradients)]; the (sparse, dense)
+    gradients of the first pair; and the gap on the first pair of the
+    seeded fault (every 32nd edge of the sparse batch masked out)."""
+    import dataclasses
+    import itertools
+
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.models.factory import get_model
+
+    cut = lambda loader: list(itertools.islice(loader.host_batches(), LAYOUT_BATCHES))
+    pairs = list(zip(cut(Loader(sparse_test, B, layout="sparse")), cut(Loader(sparse_test, B))))
+    gaps, first, fault = [], None, None
+    for seed in LAYOUT_SEEDS:
+        m = get_model(cfg.replace(dtype="float32", seed=seed), feat, cfg.num_classes).to("cuda")
+        for i, (sparse, dense) in enumerate(pairs):
+            g = sparse.to("cuda")
+            grads_s = _step_grads(torch, m, g)[1]
+            grads_d = _step_grads(torch, m, to_dense(dense.to("cuda"), torch.float32))[1]
+            gaps.append((seed, i, _rel_l2(grads_s, grads_d), _ulp_probe(torch, m, g, grads_s)))
+            if first is None:
+                first = (grads_s, grads_d)
+                mask = g.edge_mask.clone()
+                mask[31::32] = 0
+                faulty = _step_grads(torch, m, dataclasses.replace(g, edge_mask=mask))[1]
+                fault = _rel_l2(faulty, grads_d)
+    return gaps, first, fault
 
 
 # kernel row -> (launch counter, model whose training run is its main path,
@@ -1576,6 +1883,17 @@ GAT_KERNEL_ROWS = {
                         "cal_tpu/ops/pallas_spmm.py:1772 on tiles_bwd (cal_tpu/ops/gat.py:312)"),
     "gat_sddmm_chain": ("cal_tpu_torch/csrc/gat_sparse.cu", "cal_tpu/ops/pallas_spmm.py:1864"),
 }
+# coefficient SpMM kernel row -> (source, the TPU kernel it replaces); launches
+# come from the sparse CausalGIN training run, its main path, where K12 runs
+# no time (no model's coefficient needs a gradient; the kernel phase launches
+# and holds it on its own)
+COO_KERNEL_ROWS = {
+    "coo_spmm": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:444"),
+    "coo_spmm_t": ("cal_tpu_torch/csrc/coo_spmm.cu",
+                   "cal_tpu/ops/pallas_spmm.py:444 on tiles_bwd (_coo_bwd, :585)"),
+    "coo_sddmm": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:513"),
+}
+OFF_MAIN_PATH = {"coo_sddmm"}
 # sparse backward kernel row -> (source, the TPU kernel it replaces); launches
 # come from the sparse training run, its main path
 SPARSE_BWD_KERNEL_ROWS = {
@@ -1625,7 +1943,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
-    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    _, val_set, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
     check(len(test_set) == TEST_GRAPHS, f"test split has {len(test_set)} graphs")
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
     check(tuple(batch.x.shape[:2]) == (B, 256), f"batch shape {tuple(batch.x.shape)}")
@@ -1673,6 +1991,8 @@ def main() -> int:
     sparse_bwd_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
     gat_rows, keep_syn = gat_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
     _, keep_red = gat_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    coo_rows = coo_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    coo_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
     del syn_batch, reddit_batch
     lap("sparse_kernels")
     sparse_launches = sparse_serving_phase(
@@ -1708,6 +2028,29 @@ def main() -> int:
                        next(Loader(sparse_test, B, layout="sparse").host_batches()),
                        "CausalGAT", layout="sparse")
     lap("sparse_gat")
+
+    # CausalGIN: dense serving and training (its checkpoint feeds the sparse
+    # serving phase's both-layout check), then sparse serving, training,
+    # one step's gradients and the step's device time
+    serving["CausalGIN"] = serving_phase(torch, test_set, "CausalGIN")
+    training["CausalGIN"] = training_phase(torch, "CausalGIN")
+    gin_serve_launches = sparse_serving_phase(
+        torch, sparse_test, os.path.join(HERE, "build", "chip_smoke_train_CausalGIN"),
+        "CausalGIN")
+    gin_train_launches = sparse_training_phase(torch, sparse_test, len(sparse_val), "CausalGIN")
+    sparse_grad_check(torch, sparse_test, "CausalGIN")
+    profile_train_step(torch, sparse_test,
+                       next(Loader(sparse_test, B, layout="sparse").host_batches()),
+                       "CausalGIN", layout="sparse")
+    lap("causal_gin")
+    # the GCN, GIN and GAT baselines: one short run each on both layouts
+    baseline_launches = {}
+    for model in ("GCN", "GIN", "GAT"):
+        baseline_launches[f"train_dense_{model}"] = baseline_phase(
+            torch, model, "dense", len(val_set), len(test_set))
+        baseline_launches[f"train_sparse_{model}"] = baseline_phase(
+            torch, model, "sparse", len(sparse_val), len(sparse_test))
+    lap("baselines")
 
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
@@ -1748,7 +2091,22 @@ def main() -> int:
                      "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "dtype": "bfloat16"})
-    check(all(r["launches"] > 0 for r in rows), "a kernel row has no launch")
+    for kernel, (src, rep) in COO_KERNEL_ROWS.items():
+        r = coo_rows["bfloat16"][kernel]
+        by_run = {"train_sparse_CausalGIN": gin_train_launches[kernel],
+                  **{run: c[kernel] for run, c in baseline_launches.items() if c[kernel]}}
+        if kernel in gin_serve_launches:
+            by_run["serve_sparse_CausalGIN"] = gin_serve_launches[kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": gin_train_launches[kernel], "launches_by_run": by_run,
+                     "on_main_path": kernel not in OFF_MAIN_PATH,
+                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "dtype": "bfloat16"})
+    check(len(rows) == 21, f"{len(rows)} kernel rows")
+    check(all((r["launches"] > 0) != (r["name"] in OFF_MAIN_PATH) for r in rows),
+          "a kernel row of the main path has no launch")
     emit({"phase": "timing", "seconds": laps, "total_s": time.perf_counter() - start})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -642,3 +642,84 @@ def test_gat_sparse_autograd_on_card_launches_kernels(cuda):
     assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1]
     assert all(torch.isfinite(t.float()).all() for t in first)
     assert all(torch.equal(u, r) for u, r in zip(first, grads()))
+
+
+# ---- coefficient SpMM: K11, K11T, K12 (csrc/coo_spmm.cu) -------------------
+# Same rounding points in kernel and twin (csrc/coo_spmm.cu header): x and g
+# read in their dtype, coefficients, products, sums and outputs f32, so one
+# tolerance for both dtypes.  K11/K11T: f32 sums over a row's edges (up to
+# thousands at the hub) in another order with fmaf: SPARSE_TOL["float32"].
+# K12: dot products of H terms in another order: (1e-4, 1e-4) as well.
+COO_TOL = (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("v,e,hub,pad,h,dtype,coef_kind", [
+    (300, 900, 0, 0, 32, "float32", "mask"),
+    (1000, 4000, 700, 300, 128, "bfloat16", "mask"),
+    (1000, 4000, 700, 300, 128, "float32", "random"),
+    (2048, 6000, 3000, 5000, 64, "bfloat16", "random"),
+    (512, 1500, 40, 33, 256, "bfloat16", "mask"),
+])
+def test_coo_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, coef_kind):
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h + 2, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(v * h + 2)
+    x = torch.randn((v, h), generator=gen, device=cuda).to(DT[dtype])
+    gout = torch.randn((v, h), generator=gen, device=cuda)
+    coef = (g.edge_mask.float() if coef_kind == "mask"
+            else torch.randn(g.senders.shape, generator=gen, device=cuda))
+    counters = (coo.coo_spmm, coo.coo_spmm_t, coo.coo_sddmm)
+    before = [k.launches for k in counters]
+    for got, ref in ((coo.coo_spmm(x, coef, g), coo.coo_spmm_plain(x, coef, g)),
+                     (coo.coo_spmm_t(gout, coef, g), coo.coo_spmm_t_plain(gout, coef, g)),
+                     (coo.coo_spmm_t(gout.to(DT[dtype]), coef, g),
+                      coo.coo_spmm_t_plain(gout.to(DT[dtype]), coef, g)),
+                     (coo.coo_sddmm(x, gout, g), coo.coo_sddmm_plain(x, gout, g))):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, atol=COO_TOL[0], rtol=COO_TOL[1])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 2, 1]
+
+
+def test_coo_aggregate_backward_matches_autograd_and_launches(cuda):
+    """The f32 Function on the card (K11, K11T, K12) against torch.autograd
+    of the forward twin; a coefficient without a gradient skips K12."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=11, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((1000, 128), generator=gen, device=cuda)
+    coef = torch.randn(g.senders.shape, generator=gen, device=cuda)
+    cot = torch.randn((1000, 128), generator=gen, device=cuda)
+    a = [t.clone().requires_grad_() for t in (x, coef)]
+    b = [t.clone().requires_grad_() for t in (x, coef)]
+    got = torch.autograd.grad((coo.coo_aggregate(*a, g) * cot).sum(), a)
+    ref = torch.autograd.grad((coo.coo_spmm_plain(*b, g) * cot).sum(), b)
+    for u, w in zip(got, ref):
+        torch.testing.assert_close(u, w, atol=COO_TOL[0], rtol=COO_TOL[1])
+    before = [coo.coo_spmm.launches, coo.coo_spmm_t.launches, coo.coo_sddmm.launches]
+    leaf = x.bfloat16().requires_grad_()
+    (dx,) = torch.autograd.grad(coo.coo_aggregate(leaf, g.edge_mask.float(), g).sum(), leaf)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16
+    assert [coo.coo_spmm.launches, coo.coo_spmm_t.launches, coo.coo_sddmm.launches] == [
+        before[0] + 1, before[1] + 1, before[2]]
+
+
+def test_coo_kernels_are_deterministic_and_raise_on_mixed_devices(cuda):
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, 2048, 6000, 3000, 5000, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((2048, 128), generator=gen, device=cuda)
+    coef = torch.randn(g.senders.shape, generator=gen, device=cuda)
+    assert torch.equal(coo.coo_spmm(x, coef, g), coo.coo_spmm(x, coef, g))
+    assert torch.equal(coo.coo_spmm_t(x, coef, g), coo.coo_spmm_t(x, coef, g))
+    assert torch.equal(coo.coo_sddmm(x, x, g), coo.coo_sddmm(x, x, g))
+    with pytest.raises(ValueError):
+        coo.coo_spmm(x.cpu(), coef, g)
+    with pytest.raises(ValueError):
+        coo.coo_spmm(x, coef.cpu(), g)
+    with pytest.raises(ValueError):
+        coo.coo_sddmm(x, x.cpu(), g)

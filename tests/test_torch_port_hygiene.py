@@ -45,10 +45,12 @@ def test_import_leaves_jax_out():
     code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.ops.adj_build, "
             "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.ops.flash_gat, "
             "cal_tpu_torch.ops.gat, cal_tpu_torch.ops.gat_sparse, cal_tpu_torch.ops.spmm, "
-            "cal_tpu_torch.ops.pool, "
+            "cal_tpu_torch.ops.pool, cal_tpu_torch.ops.coo_spmm, cal_tpu_torch.ops.gin, "
             "cal_tpu_torch.ops.segment, cal_tpu_torch.kernels.build, cal_tpu_torch.seed_sweep, "
+            "cal_tpu_torch.models.baselines, cal_tpu_torch.models.factory, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
-            "cal_tpu_torch.train.causal, cal_tpu_torch.train.losses, "
+            "cal_tpu_torch.train.causal, cal_tpu_torch.train.baseline, "
+            "cal_tpu_torch.train.losses, "
             "cal_tpu_torch.utils.logging\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
@@ -86,8 +88,10 @@ def test_kernel_modules_import_without_nvcc():
             "import cal_tpu_torch.ops.gat_sparse as gs\n"
             "assert gs.gat_row_stats.launches == gs.gat_coef_spmm.launches == 0\n"
             "assert gs.gat_coef_spmm_t.launches == gs.gat_sddmm_chain.launches == 0\n"
-            "assert sorted(build.sources()) == ['adj_build', 'flash_gat', 'fused_gcn', "
-            "'gat_sparse', 'pool', 'spmm']")
+            "import cal_tpu_torch.ops.coo_spmm as co\n"
+            "assert co.coo_spmm.launches == co.coo_spmm_t.launches == co.coo_sddmm.launches == 0\n"
+            "assert sorted(build.sources()) == ['adj_build', 'coo_spmm', 'flash_gat', "
+            "'fused_gcn', 'gat_sparse', 'pool', 'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr
 
