@@ -41,6 +41,7 @@ class HostGraph:
     senders: np.ndarray    # [e] int (undirected graphs store both directions)
     receivers: np.ndarray  # [e] int
     y: int
+    xg: np.ndarray | None = None   # [1, k*(1+feat)] group_degree super-nodes (TU data)
 
     @property
     def num_nodes(self) -> int:
@@ -75,13 +76,17 @@ class PackedDenseBatch:
 class DenseGraphBatch:
     """x [B, N, F]; adj [B, N, N] with adj[b, r, s] = multiplicity of edge
     s -> r (row = receiver, no self loops added); node_mask [B, N] bool;
-    y [B]; graph_mask [B] bool."""
+    y [B]; graph_mask [B] bool.  ``edge_flat`` (the sorted int32 flat edge
+    list of the packed batch, or None) and ``eg_budget`` (the largest edge
+    count of one graph) feed the edge-formulated GAT kernel."""
 
     x: torch.Tensor
     adj: torch.Tensor
     node_mask: torch.Tensor
     y: torch.Tensor
     graph_mask: torch.Tensor
+    edge_flat: torch.Tensor | None = None
+    eg_budget: int = 0
 
 
 def pack_dense(graphs: Sequence[HostGraph], num_graphs: int, node_budget: int,
@@ -116,13 +121,17 @@ def pack_dense(graphs: Sequence[HostGraph], num_graphs: int, node_budget: int,
 
 
 def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGraphBatch:
-    """Materialize adjacency and masks on the batch's device."""
+    """Materialize adjacency and masks on the batch's device.  The edge list
+    is passed on, as cal_tpu's ``to_dense`` does, only when the batch has an
+    edge budget and int32 indices (B*N*N < 2^31)."""
     dtype = dtype or p.x.dtype
     b, n, _ = p.x.shape
     adj = adj_build(p.edge_flat, b, n, dtype)
     node_mask = torch.arange(n, device=p.x.device)[None, :] < p.n_nodes[:, None]
+    carry = p.eg_budget > 0 and p.edge_flat.dtype == torch.int32
     return DenseGraphBatch(x=p.x.to(dtype), adj=adj, node_mask=node_mask,
-                           y=p.y, graph_mask=p.n_nodes > 0)
+                           y=p.y, graph_mask=p.n_nodes > 0,
+                           edge_flat=p.edge_flat if carry else None, eg_budget=p.eg_budget)
 
 
 # A CSR row is cut into groups of CHUNK_EDGES edges (one per warp lane) and

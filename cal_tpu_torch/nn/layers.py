@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from cal_tpu_torch.graph import GraphBatch
+from cal_tpu_torch.ops.edge_gat import edge_gat_dense_flat
 from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
 from cal_tpu_torch.ops.gat import seed_words
 from cal_tpu_torch.ops.gat_sparse import gat_aggregate_sparse_fused
@@ -168,6 +169,25 @@ class GINConvLayer(nn.Module):
         return torch.relu(self.lin2(h))
 
 
+# cal_tpu's switch from the flash kernel to the edge-formulated one
+# (cal_tpu/nn/layers.py GATConvLayer): at N >= 384 when the per-graph edge
+# window, ceil(eg_budget / 128) + 2 rows of 128 slots, fits in 3N.  The
+# constants encode a crossover measured on a TPU v5e
+# (benchmarks/sweep_gat_sparse.py), kept so the port computes the reference's
+# function with its dropout law; PERF.md holds the H100 sweep.
+EDGE_MIN_N = 384
+EDGE_WINDOW_PER_N = 3
+
+
+def takes_edge_kernel(g, n: int) -> bool:
+    """Whether a dense GAT conv on batch ``g`` with node budget ``n`` runs
+    the edge-formulated kernel (cal_tpu's predicate)."""
+    if g.edge_flat is None:
+        return False
+    eg_rows = -(-max(g.eg_budget, 1) // 128) + 2
+    return n >= EDGE_MIN_N and eg_rows * 128 <= EDGE_WINDOW_PER_N * n
+
+
 class GATConvLayer(nn.Module):
     """PyG-1.1.0 ``GATConv`` (counterpart of cal_tpu/nn/layers.py
     ``GATConvLayer``, its dense branch and its sparse fused branch).
@@ -178,14 +198,14 @@ class GATConvLayer(nn.Module):
     (``ops/gat_sparse.py``), whose dropout keep bits hash the edge id under
     the two 32-bit words of the layer's seed.  Below a node budget of 2048
     cal_tpu drops its tile plans and draws ``jax.random`` keep bits instead;
-    eval numerics are the same.  A dense batch always runs the flash-GAT
-    kernel (``ops/flash_gat.py``).  The JAX layer switches to its
-    edge-formulated kernel at N >= 384 with sparse edges, a crossover
-    measured on a TPU v5e; the port has no such kernel yet and calls flash at
-    every N.  Eval numerics are the same on both sides of that switch;
-    training dropout differs only on multigraphs at N >= 384, where the edge
-    kernel draws one keep bit per duplicate-edge slot and flash one per
-    (receiver, sender) cell."""
+    eval numerics are the same.  A dense batch runs, as cal_tpu's layer,
+    the edge-formulated kernel (``ops/edge_gat.py``) when
+    ``takes_edge_kernel`` holds (the batch carries its int32 edge list, N >=
+    384 and the edge window fits in 3N) and the flash kernel
+    (``ops/flash_gat.py``) otherwise.  Both compute the same attention; the
+    training dropout draws one keep bit per duplicate-edge slot on the edge
+    kernel and one per (receiver, sender) cell on flash, so the two laws
+    differ only on multigraphs."""
 
     def __init__(self, in_features: int, out_per_head: int, heads: int = 4,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -212,6 +232,8 @@ class GATConvLayer(nn.Module):
             words = seed_words(seed) if seed is not None else (0, 0)
             out = gat_aggregate_sparse_fused(xh.view(v, self.heads, d), att[:, :d], att[:, d:],
                                              words, g, rate).reshape(v, self.heads * d)
+        elif takes_edge_kernel(g, xh.shape[1]):
+            out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout, seed)
         else:
             out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
         return out.to(dt) + self.bias.to(dt)

@@ -1,5 +1,6 @@
 """Causal training and serving — counterpart of cal_tpu/train/causal.py
-(``train_causal_syn`` and ``evaluate_causal``).
+(``train_causal_syn``, ``evaluate_causal``, ``train_causal_real`` and
+``_finish_real_protocol``).
 
 Both serve CausalGCN and CausalGAT alike (the model comes from
 ``get_model``), on the dense layout and on the sparse one (``--layout
@@ -11,17 +12,22 @@ accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
 There is no device-side epoch here: ``--scan_epochs`` is accepted and runs
 the per-step loop, whose numerics the JAX package's scan reproduces
 (cal_tpu/train/steps.py make_causal_train_epoch).
+``train_causal_real``: the reference's k-fold 'test_max' protocol on a real
+dataset (a fresh model per fold, the epoch chosen afterwards from the
+fold-mean test accuracies, mean and std over folds, the ``sydall`` line).
 """
 from __future__ import annotations
 
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from cal_tpu_torch.data.kfold import k_fold
 from cal_tpu_torch.data.loader import Loader, compute_budgets, pack_ratio, want_pack
 from cal_tpu_torch.graph import HostGraph
-from cal_tpu_torch.models.factory import get_model
+from cal_tpu_torch.models.factory import CAUSAL, get_model
 from cal_tpu_torch.train.optim import cosine_lr
 from cal_tpu_torch.train.steps import (
     init_state,
@@ -71,6 +77,19 @@ def _refuse_packing(cfg: Config, graphs) -> None:
             "pass --pack_batches false")
 
 
+def _budgets(cfg: Config, graphs) -> dict:
+    """Budgets over ``graphs`` (one node budget N for every loader); the
+    sparse layout refuses budget packing when it is asked for or, in "auto",
+    when the graphs would need it, and prints the decision and the budgets."""
+    budgets = compute_budgets(graphs, cfg.batch_size, cfg.layout)
+    if cfg.layout == "sparse":
+        _refuse_packing(cfg, graphs)
+        print(f"pack_batches {cfg.pack_batches}: worst-case batch "
+              f"{pack_ratio(graphs, cfg.batch_size):.2f}x the mean batch, fixed sparse "
+              f"budgets V={budgets['node_budget']}, E={budgets['edge_budget']}")
+    return budgets
+
+
 def make_loaders(train_set, val_set, test_set, cfg: Config):
     """Loaders of the three splits with budgets over all of them (one node
     budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer.
@@ -78,13 +97,7 @@ def make_loaders(train_set, val_set, test_set, cfg: Config):
     "auto", when the splits would need it, and prints the decision and the
     budgets."""
     sets = (train_set, val_set, test_set)
-    graphs = [g for s in sets for g in s]
-    budgets = compute_budgets(graphs, cfg.batch_size, cfg.layout)
-    if cfg.layout == "sparse":
-        _refuse_packing(cfg, graphs)
-        print(f"pack_batches {cfg.pack_batches}: worst-case batch "
-              f"{pack_ratio(graphs, cfg.batch_size):.2f}x the mean batch, fixed sparse "
-              f"budgets V={budgets['node_budget']}, E={budgets['edge_budget']}")
+    budgets = _budgets(cfg, [g for s in sets for g in s])
     train, val, test = (Loader(s, cfg.batch_size, shuffle=(i == 0), budgets=budgets,
                                seed=(cfg.seed, 0, 0)[i], layout=cfg.layout)
                         for i, s in enumerate(sets))
@@ -220,3 +233,125 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
                               o * 100, len(test_set)))
     return {"test_acc_co": co, "test_acc_c": c, "test_acc_o": o,
             "ckpt_step": step, "graphs": int(n), "seconds": seconds}
+
+
+def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Config,
+                      verbose: bool = True) -> dict:
+    """The k-fold protocol on a real dataset (cal_tpu's ``train_causal_real``,
+    the reference's train_causal.py:63-160): stratified folds ('test_max':
+    val is test), budgets over the whole dataset, and per fold a train
+    loader shuffled from ``seed + fold`` (one shuffle drawn and dropped, as
+    cal_tpu's state init draws it), a fresh model whose weights, dropout and
+    intervention streams come from ``seed + fold``, and Adam on the cosine
+    schedule sized by fold 0's train loader.  Prints the per-epoch ``Causal
+    |`` lines, one ``syd:`` line per fold and the ``sydall Final`` line;
+    returns ``_finish_real_protocol``'s result with the per-epoch
+    ``history``."""
+    if cfg.folds < 2:
+        # test_max makes val the test fold; one fold leaves no train split
+        raise ValueError(
+            f"--folds must be >= 2 under the k-fold test_max protocol "
+            f"(got {cfg.folds}): with one fold the train split is empty")
+    if cfg.fold_parallel:
+        raise NotImplementedError(
+            "--fold_parallel true is not ported (ROADMAP queue 1 item 8d); the folds run "
+            "one after another")
+    if cfg.mesh_dp * cfg.mesh_edge > 1:
+        raise NotImplementedError(
+            "multi-GPU training not ported yet (ROADMAP queue 1 item 10)")
+    if cfg.model not in CAUSAL:
+        raise ValueError(f"the real-data protocol trains the causal models, not {cfg.model!r}")
+    device = resolve_device(cfg.device)
+    graphs = list(dataset)
+    labels = np.array([g.y for g in graphs])
+    folds = cfg.folds
+    accs = {k: np.zeros((folds, cfg.epochs)) for k in ("co", "c", "o", "train")}
+    random_guess = 1.0 / num_classes
+    budgets = _budgets(cfg, graphs)
+    schedule = None
+    history = []
+    for fold, (train_idx, test_idx, _) in enumerate(zip(*k_fold(labels, folds,
+                                                               cfg.epoch_select))):
+        fold_seed = cfg.seed + fold
+        train_loader = Loader([graphs[i] for i in train_idx], cfg.batch_size, shuffle=True,
+                              budgets=budgets, seed=fold_seed, layout=cfg.layout)
+        test_loader = Loader([graphs[i] for i in test_idx], cfg.batch_size, shuffle=False,
+                             budgets=budgets, layout=cfg.layout)
+        train_loader._chunks()
+        if schedule is None:
+            schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(train_loader))
+        state = init_state(cfg.replace(seed=fold_seed), graphs[0].x.shape[1], num_classes,
+                           device)
+        train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
+                                            cfg.with_random, fold_seed)
+        eval_step = make_causal_eval_step(state.model, cfg.eval_random)
+        test_batches = [b.to(device) for b in test_loader.host_batches()]
+        eval_gen = torch.Generator(device=device)
+        best_test, best_ep, best_c, best_o = 0.0, 0, 0.0, 0.0
+        for epoch in range(1, cfg.epochs + 1):
+            t0 = time.perf_counter()
+            sums = None
+            for batch in train_loader.host_batches():
+                sums = train_step(batch, sums)
+            loss, loss_c, loss_o, loss_co, correct_o, n = (
+                sums.tolist() if sums is not None else [0.0] * 6)
+            train_s = time.perf_counter() - t0
+            n = max(n, 1.0)
+            loss, loss_c, loss_o, loss_co, train_acc = (
+                loss / n, loss_c / n, loss_o / n, loss_co / n, correct_o / n)
+            eval_gen.manual_seed(step_seed(fold_seed, epoch, 2))
+            t_co, t_c, t_o, _ = _eval(eval_step, test_batches, eval_gen)
+            for k, v in (("co", t_co), ("c", t_c), ("o", t_o), ("train", train_acc)):
+                accs[k][fold, epoch - 1] = v
+            if t_co > best_test:
+                best_test, best_ep, best_c, best_o = t_co, epoch, t_c, t_o
+            history.append(dict(fold=fold, epoch=epoch, loss=loss, loss_c=loss_c, loss_o=loss_o,
+                                loss_co=loss_co, train_acc=train_acc, test_acc_co=t_co,
+                                test_acc_c=t_c, test_acc_o=t_o, train_seconds=train_s,
+                                seconds=time.perf_counter() - t0))
+            if verbose:
+                print(
+                    "Causal | dataset:[{}] fold:[{}] | Epoch:[{}/{}] Loss:[{:.4f}={:.4f}+{:.4f}+{:.4f}] "
+                    "Train:[{:.4f}] Test:[{:.2f}] Test_o:[{:.2f}] Test_c:[{:.2f}] (RG:{:.2f}) | "
+                    "Best Test:[{:.2f}] at Epoch:[{}]".format(
+                        cfg.dataset, fold, epoch, cfg.epochs, loss, loss_c, loss_o, loss_co,
+                        train_acc * 100, t_co * 100, t_o * 100, t_c * 100,
+                        random_guess * 100, best_test * 100, best_ep), flush=True)
+        print(
+            "syd: Causal fold:[{}] | Dataset:[{}] Model:[{}] | Best Test:[{:.2f}] at epoch [{}] | "
+            "Test_o:[{:.2f}] Test_c:[{:.2f}] (RG:{:.2f})".format(
+                fold, cfg.dataset, cfg.model, best_test * 100, best_ep, best_o * 100,
+                best_c * 100, random_guess * 100), flush=True)
+    result = _finish_real_protocol(cfg, folds, random_guess, accs["co"], accs["c"],
+                                   accs["o"], accs["train"])
+    return {**result, "history": history}
+
+
+def _finish_real_protocol(cfg: Config, folds: int, random_guess: float, test_accs,
+                          test_accs_c, test_accs_o, train_accs) -> dict:
+    """The reference's post-hoc selection (train_causal.py:124-132): the
+    co-branch epoch maximizes the fold-mean test accuracy, the o-branch takes
+    its own; mean and std (ddof 1) over folds; the ``sydall Final`` line."""
+    sel = int(test_accs.mean(axis=0).argmax())
+    sel_o = int(test_accs_o.mean(axis=0).argmax())
+    acc, acc_c, acc_o = test_accs[:, sel], test_accs_c[:, sel], test_accs_o[:, sel_o]
+    std = lambda a: float(a.std(ddof=1)) if folds > 1 else 0.0
+    result = {
+        "test_acc_mean": float(acc.mean()), "test_acc_std": std(acc),
+        "test_acc_c_mean": float(acc_c.mean()), "test_acc_c_std": std(acc_c),
+        "test_acc_o_mean": float(acc_o.mean()), "test_acc_o_std": std(acc_o),
+        "train_acc_mean": float(train_accs[:, -1].mean()),
+        "selected_epoch": sel + 1,
+    }
+    print("=" * 150)
+    print(
+        "sydall Final: Causal | Dataset:[{}] Model:[{}] seed:[{}]| Test Acc: {:.2f}±{:.2f} | "
+        "OTest: {:.2f}±{:.2f}, CTest: {:.2f}±{:.2f} (RG:{:.2f}) | [Settings] co:{},c:{},o:{},harf:{},dim:{},fc:{}".format(
+            cfg.dataset, cfg.model, cfg.seed,
+            result["test_acc_mean"] * 100, result["test_acc_std"] * 100,
+            result["test_acc_o_mean"] * 100, result["test_acc_o_std"] * 100,
+            result["test_acc_c_mean"] * 100, result["test_acc_c_std"] * 100,
+            random_guess * 100, cfg.co, cfg.c, cfg.o, cfg.harf_hidden, cfg.hidden,
+            cfg.fc_num), flush=True)
+    print("=" * 150)
+    return result

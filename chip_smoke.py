@@ -103,6 +103,24 @@
       the dense and the sparse layout, with exact launches (sparse GIN per
       step K11 3, K11T 3, K4 1, K7 1).
 
+8. the real-data protocol on SYNREDDIT (2,000 REDDIT-BINARY-shaped threads,
+   written by ``benchmarks.gen_reddit_synthetic`` in a subprocess), dense
+   layout, N = 3,840:
+   a. kernel phase: on its first batch of 128 graphs, holds the
+      edge-formulated GAT forward and backward (``csrc/edge_gat.cu``) against
+      their twins, bf16 and f32, at dropout 0 and 0.2, the f32 backward
+      against autograd of the forward twin, and the keep bits bit for bit on
+      a probe batch; times them beside the twins; times rows 1, 2 and 2b at
+      this N (held against the twins on 8 graphs);
+   b. drives ``cal_tpu_torch.main_real --model CausalGAT --dataset SYNREDDIT
+      --dtype bfloat16`` at full width for 2 folds of 2 epochs with the
+      counters at 0: per forward one adjacency build, one dual conv and three
+      edge forwards, per step one dual backward and three edge backwards, no
+      flash; finite losses, the ``sydall`` line; epoch seconds, peak device
+      memory, then the device time of one train step at N = 3,840;
+   c. times flash against edge (forward plus backward, bf16, dropout 0.2,
+      B = 128) at five (N, Eg') shapes beside the v5e rule's choice.
+
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -233,6 +251,23 @@ GAT_SPMM_TOL = (1e-4, 1e-4)
 # fmaf; K12: dot products of H terms in another order.
 COO_TOL = (1e-4, 1e-4)
 BASELINE_EPOCHS = 1       # each baseline's short run, per layout
+# Real-data phase: main_real on SYNREDDIT at full width; only the fold and
+# epoch counts are cut (the protocol runs 10 folds of 100 epochs).
+REAL_FOLDS, REAL_EPOCHS = 2, 2
+# Edge-formulated GAT kernels vs their twins (csrc/edge_gat.cu header: every
+# step in f32, xh and g read in their dtype).  out and dxh: sums over a row's
+# or a sender's slots (a SYNREDDIT hub holds ~2,000) in another order with
+# expf and fmaf, of order 1 (f32: 1e-4); in bf16 rounded once, so one bf16
+# ulp (2^-7 relative) where a sum straddles a rounding boundary.  dti, dtj:
+# f32 sums of the same slots' dpre, values of order 10-100 at a hub, as K5's
+# (CHAIN_TOL).  Rate 0.2 at the same tolerances: the keep bits are one
+# Philox stream in kernel and twin (checked bit for bit on a probe batch).
+EDGE_X_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
+EDGE_T_TOL = CHAIN_TOL
+# Flash against edge, (N, Eg' edges per graph): the shapes cal_tpu's v5e
+# sweep bracketed (N = 256 with sparse and denser graphs, the switch at 384,
+# a mid size) and SYNREDDIT's N = 3,840 with its largest graph's 8,752 edges.
+SWEEP_SHAPES = ((256, 512), (256, 1408), (384, 1152), (1024, 3072), (3840, 8752))
 
 
 def emit(obj) -> None:
@@ -659,6 +694,7 @@ def training_phase(torch, model: str) -> dict:
 
     from cal_tpu_torch.main_syn import main
     from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.ops.edge_gat import edge_gat_bwd, edge_gat_fwd
     from cal_tpu_torch.utils.checkpoint import Checkpointer
     from cal_tpu_torch.utils.config import Config
 
@@ -668,12 +704,15 @@ def training_phase(torch, model: str) -> dict:
               "--layers", str(LAYERS), "--batch_size", str(B), "--data_num", str(DATA_NUM),
               "--seed", str(SEED), "--save_dir", save_dir, "--device", "cuda"]
     kernels = counters(model, training=True)
-    for k in kernels:
+    for k in kernels + (edge_gat_fwd, edge_gat_bwd):
         k.launches = 0
     res = main(common + ["--epochs", str(TRAIN_EPOCHS), "--save_model", "true"])
     launches = {k.__name__: k.launches for k in kernels}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the {model} training path never launched: {launches}")
+    # N = 256 lies below the edge kernel's switch: flash only
+    check(edge_gat_fwd.launches == edge_gat_bwd.launches == 0,
+          f"the edge-formulated GAT kernel launched at N = 256 ({model})")
     steps = res["steps_per_epoch"] * TRAIN_EPOCHS
     check(launches["fused_gcn_dense_att_dual_bwd"] == steps,
           f"{launches['fused_gcn_dense_att_dual_bwd']} dual backward launches for {steps} steps")
@@ -1009,6 +1048,7 @@ def sparse_counters(training: bool = False) -> dict:
     (and the dense kernels, which it must not launch)."""
     from cal_tpu_torch.ops import coo_spmm, gat_sparse, spmm
     from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.edge_gat import edge_gat_bwd, edge_gat_fwd
     from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd
     from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd
     from cal_tpu_torch.ops.pool import segment_pool, segment_pool_bwd
@@ -1017,7 +1057,7 @@ def sparse_counters(training: bool = False) -> dict:
           "plain_coef_spmm": spmm.plain_coef_spmm, "segment_pool": segment_pool,
           "gat_row_stats": gat_sparse.gat_row_stats, "gat_coef_spmm": gat_sparse.gat_coef_spmm,
           "coo_spmm": coo_spmm.coo_spmm, "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual,
-          "flash_gat_fwd": flash_gat_fwd}
+          "flash_gat_fwd": flash_gat_fwd, "edge_gat_fwd": edge_gat_fwd}
     if training:
         ks.update(pair_coef_spmm_t=spmm.pair_coef_spmm_t,
                   plain_coef_spmm_t=spmm.plain_coef_spmm_t,
@@ -1027,7 +1067,7 @@ def sparse_counters(training: bool = False) -> dict:
                   gat_sddmm_chain=gat_sparse.gat_sddmm_chain,
                   coo_spmm_t=coo_spmm.coo_spmm_t, coo_sddmm=coo_spmm.coo_sddmm,
                   fused_gcn_dense_att_dual_bwd=fused_gcn_dense_att_dual_bwd,
-                  flash_gat_bwd=flash_gat_bwd)
+                  flash_gat_bwd=flash_gat_bwd, edge_gat_bwd=edge_gat_bwd)
     return ks
 
 
@@ -1046,7 +1086,8 @@ def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
             "gat_row_stats": LAYERS * fwd if gat else 0,
             "gat_coef_spmm": LAYERS * fwd if gat else 0,
             "coo_spmm": LAYERS * fwd if gin else 0,
-            "adj_build": 0, "fused_gcn_dense_att_dual": 0, "flash_gat_fwd": 0}
+            "adj_build": 0, "fused_gcn_dense_att_dual": 0, "flash_gat_fwd": 0,
+            "edge_gat_fwd": 0}
     if steps is not None:
         want.update(pair_coef_spmm_t=steps,
                     plain_coef_spmm_t=0 if gat or gin else 3 * steps,
@@ -1054,7 +1095,7 @@ def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
                     gat_coef_spmm_t=LAYERS * steps if gat else 0,
                     gat_sddmm_chain=LAYERS * steps if gat else 0,
                     coo_spmm_t=LAYERS * steps if gin else 0, coo_sddmm=0,
-                    fused_gcn_dense_att_dual_bwd=0, flash_gat_bwd=0)
+                    fused_gcn_dense_att_dual_bwd=0, flash_gat_bwd=0, edge_gat_bwd=0)
     return want
 
 
@@ -1849,6 +1890,328 @@ def _layout_gaps(torch, sparse_test, cfg, feat):
     return gaps, first, fault
 
 
+def real_data():
+    """SYNREDDIT (2,000 REDDIT-BINARY-shaped threads) written by the repo's
+    NumPy generator, in a subprocess, into build/, then read and expanded
+    ('deg+odeg10') by the port's TU reader.  Returns (root, dataset)."""
+    import shutil
+
+    from cal_tpu_torch.data.datasets import create_n_filter_triples, get_dataset
+
+    root = os.path.join(HERE, "build", "chip_smoke_real")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "benchmarks.gen_reddit_synthetic", "--root", root],
+                   cwd=HERE, check=True, capture_output=True, text=True, timeout=600)
+    t1 = time.perf_counter()
+    (name, feat_str, _), = create_n_filter_triples(["SYNREDDIT"])
+    ds = get_dataset(name, feat_str=feat_str, root=root)
+    ns = [g.num_nodes for g in ds]
+    es = [g.num_edges for g in ds]
+    emit({"phase": "real_data", "dataset": name, "feat_str": feat_str, "graphs": len(ds),
+          "features": ds.num_features, "classes": ds.num_classes,
+          "nodes_mean": statistics.mean(ns), "nodes_max": max(ns), "edges_max": max(es),
+          "generate_s": t1 - t0, "read_s": time.perf_counter() - t1})
+    check(len(ds) == 2000 and ds.num_classes == 2, f"SYNREDDIT has {len(ds)} graphs")
+    return root, ds
+
+
+def edge_keep_probe(torch, bsz, n):
+    """The forward kernel's keep bits, read off a probe batch, against the
+    twin's bit for bit.  Each graph's receivers r < n/2 take one edge from
+    sender n/2 + r; ti = tj = 0, so edge and self term weigh 1/2 each; xh is
+    0 on receivers and 1 on senders, so a receiver's head-h output is
+    keep(slot, h) * scale / 2 and a sender's (no edges) keep_self * scale."""
+    from cal_tpu_torch.ops.edge_gat import edge_gat_fwd, edge_keep
+
+    half, d = n // 2, H // HEADS
+    g = torch.arange(bsz, device="cuda").repeat_interleave(half)
+    r = torch.arange(half, device="cuda").repeat(bsz)
+    ef = ((g * n + r) * n + half + r).int()
+    zeros = torch.zeros((bsz, n, HEADS), device="cuda")
+    xh = torch.zeros((bsz, n, H), dtype=torch.bfloat16, device="cuda")
+    xh[:, half:] = 1.0
+    out = edge_gat_fwd(zeros, zeros, xh, ef, DROP_SEED, GAT_RATE).float().view(bsz, n, HEADS, d)
+    scale = 1.0 / (1.0 - GAT_RATE)
+    vals = set(out.unique().tolist())
+    check(vals <= {0.0, scale / 2, scale}, f"edge keep probe values {sorted(vals)[:8]}")
+    keep_e, keep_v = edge_keep(torch.arange(bsz * half, device="cuda"), bsz * n, HEADS,
+                               DROP_SEED, GAT_RATE)
+    got_e = (out[:, :half, :, 0] > 0).reshape(-1, HEADS)
+    got_v = (out[:, half:, :, 0] > 0).reshape(-1, HEADS)
+    want_v = keep_v.view(bsz, n, HEADS)[:, half:].reshape(-1, HEADS)
+    check(bool((out == out[..., :1]).all()), "a head's columns disagree on their keep bit")
+    check(torch.equal(got_e, keep_e), "edge kernel slot keep bits differ from the twin's")
+    check(torch.equal(got_v, want_v), "edge kernel self-term keep bits differ from the twin's")
+    emit({"phase": "edge_keep_bits", "slot_bits": keep_e.numel(), "self_bits": want_v.numel(),
+          "equal": True, "keep_fraction_slots": float(got_e.float().mean()),
+          "keep_fraction_self": float(got_v.float().mean()), "rate": GAT_RATE})
+
+
+def edge_kernel_rows(torch, batch, peaks, flush):
+    """The edge-formulated GAT kernels (csrc/edge_gat.cu) on a dense
+    SYNREDDIT batch (B = 128, N = 3,840): forward and backward against their
+    twins in bf16 and f32 at dropout 0 and GAT_RATE, the f32 backward against
+    autograd of the forward twin, the keep bits bit for bit; timed at
+    GAT_RATE (the forward also at rate 0) beside the twins.  No single
+    PyTorch call computes the masked multiplicity softmax with dropout, so
+    there is no library time."""
+    from cal_tpu_torch.ops.edge_gat import (
+        edge_gat_bwd, edge_gat_bwd_plain, edge_gat_fwd, edge_gat_fwd_plain, edge_slots)
+
+    bw, bf16_peak, f32_peak = peaks
+    ef = batch.edge_flat
+    bsz, n, _ = batch.x.shape
+    d = H // HEADS
+    live = int(edge_slots(ef, bsz, n)[0].numel())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    xh32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    att = (0.5 * torch.randn((HEADS, 2 * d), generator=gen, device="cuda"))
+    g32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    none = ("none: no single PyTorch call computes the masked, multiplicity-weighted "
+            "leaky-ReLU softmax over an edge list and its dropout")
+    rows = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        xh, g = xh32.to(dt), g32.to(dt)
+        x4 = xh.float().view(bsz, n, HEADS, d)
+        ti = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, :d])
+        tj = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, d:])
+        errs = {"fwd": [], "bwd": []}
+        for rate in (0.0, GAT_RATE):
+            out_k = edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate)
+            out_p = edge_gat_fwd_plain(ti, tj, xh, ef, DROP_SEED, rate)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out_k.float()).all()), f"edge forward {dt_name} not finite")
+            err, over = max_excess(torch, out_k, out_p, *EDGE_X_TOL[dt_name])
+            check(over <= 0, f"edge forward {dt_name} rate {rate} differs from its twin: {err}")
+            errs["fwd"].append(err)
+            bk = edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate)
+            bp = edge_gat_bwd_plain(ti, tj, xh, ef, g, DROP_SEED, rate)
+            torch.cuda.synchronize()
+            for nm, a, r in zip(("dti", "dtj", "dxh"), bk, bp):
+                tol = EDGE_X_TOL[dt_name] if nm == "dxh" else EDGE_T_TOL
+                check(bool(torch.isfinite(a.float()).all()), f"edge backward {dt_name} {nm} not finite")
+                err, over = max_excess(torch, a, r, *tol)
+                check(over <= 0, f"edge backward {dt_name} rate {rate} {nm} differs from its "
+                                 f"twin: {err}")
+                errs["bwd"].append(err)
+        extra = {}
+        if dt == torch.float32:
+            leaves = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+            out = edge_gat_fwd_plain(*leaves, ef, DROP_SEED, GAT_RATE)
+            auto = torch.autograd.grad((out * g).sum(), leaves)
+            auto_err = []
+            for nm, a, r in zip(("dti", "dtj", "dxh"), bk, auto):
+                tol = EDGE_X_TOL[dt_name] if nm == "dxh" else EDGE_T_TOL
+                err, over = max_excess(torch, a, r, *tol)
+                check(over <= 0, f"edge backward f32 {nm} differs from autograd: {err}")
+                auto_err.append(err)
+            extra["max_abs_err_vs_autograd"] = max(auto_err)
+            del leaves, out, auto
+        elt = xh.element_size()
+        plane, stats = bsz * n * H * elt, bsz * n * HEADS * 4
+        peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+        for name, fn, plain, nbytes, flops, err in (
+                ("edge_gat_fwd", lambda: edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, GAT_RATE),
+                 lambda: edge_gat_fwd_plain(ti, tj, xh, ef, DROP_SEED, GAT_RATE),
+                 2 * stats + live * 4 + 2 * plane, live * (2 * H + 8 * HEADS), max(errs["fwd"])),
+                ("edge_gat_bwd", lambda: edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, GAT_RATE),
+                 lambda: edge_gat_bwd_plain(ti, tj, xh, ef, g, DROP_SEED, GAT_RATE),
+                 4 * stats + live * 4 + 3 * plane, live * (4 * H + 16 * HEADS),
+                 max(errs["bwd"]))):
+            t_bytes, t_ops = nbytes / bw, flops / peak
+            row = {"name": name, "dtype": dt_name, "rate": GAT_RATE, "max_abs_err": err,
+                   "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "batch": [bsz, n, H], "slots": int(ef.shape[0]), "live_edges": live}
+            if name == "edge_gat_fwd":
+                row["kernel_ms_rate0"] = time_ms(torch, lambda: edge_gat_fwd(ti, tj, xh, ef), flush)
+            else:
+                row.update(extra)
+            emit({"phase": "kernel", **row})
+            rows.setdefault(dt_name, {})[name] = row
+    edge_keep_probe(torch, bsz, n)
+    return rows
+
+
+def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
+    """Rows 1, 2 and 2b (adjacency build, dual masked-GCN forward and
+    backward) at the SYNREDDIT node budget, N = 3,840: the kernels timed on
+    the whole batch (B = 128); held against the twins, and the twins timed,
+    on the first ``slice_graphs`` graphs, since the twins' f32 [B, N, N]
+    planes would need ~100 GB at B = 128."""
+    from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
+    from cal_tpu_torch.ops.fused_gcn import (
+        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd,
+        fused_gcn_dense_att_dual_bwd_plain, fused_gcn_dense_att_dual_plain)
+
+    bw, bf16_peak, _ = peaks
+    ef = batch.edge_flat
+    bsz, n, _ = batch.x.shape
+    dt, k = torch.bfloat16, slice_graphs
+    adj = adj_build(ef, bsz, n, dt)
+    check(torch.equal(adj, adj_build_plain(ef, bsz, n, dt)), "adj_build at N = 3,840 differs")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dt)
+    xc, xo, gc, go = (rand(bsz, n, H) for _ in range(4))
+    src, dst = rand(bsz, n), (2.0 * rand(bsz, n)).to(dt)
+    args, bargs = (xc, xo, adj, src, dst), (xc, xo, adj, src, dst, gc, go)
+    cut = lambda ts: tuple(t[:k].contiguous() for t in ts)
+    errs = []
+    for got, ref, tol in ((fused_gcn_dense_att_dual(*cut(args)),
+                           fused_gcn_dense_att_dual_plain(*cut(args)), DUAL_TOL["bfloat16"]),
+                          (fused_gcn_dense_att_dual_bwd(*cut(bargs)),
+                           fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
+                           DUAL_BWD_TOL["bfloat16"])):
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            check(bool(torch.isfinite(a.float()).all()), "dual kernel at N = 3,840 not finite")
+            err, over = max_excess(torch, a, r, *tol)
+            check(over <= 0, f"dual kernel at N = 3,840 differs from its twin: {err}")
+            errs.append(err)
+    elt, e = 2, ef.shape[0]
+    cells = bsz * n * n
+    for name, fn, plain, nbytes, flops, reps in (
+            ("adj_build", lambda: adj_build(ef, bsz, n, dt),
+             lambda: adj_build_plain(ef[:int((ef < k * n * n).sum())], k, n, dt),
+             e * 4 + cells * elt, 0, 10),
+            ("fused_gcn_dense_att_dual_fwd", lambda: fused_gcn_dense_att_dual(*args),
+             lambda: fused_gcn_dense_att_dual_plain(*cut(args)),
+             (cells + 4 * bsz * n * H + 2 * bsz * n) * elt, 4 * cells * H, 10),
+            ("fused_gcn_dense_att_dual_bwd", lambda: fused_gcn_dense_att_dual_bwd(*bargs),
+             lambda: fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
+             (cells + 6 * bsz * n * H + 4 * bsz * n) * elt, 12 * cells * H, 3)):
+        t_bytes, t_ops = nbytes / bw, flops / bf16_peak
+        emit({"phase": "dense_kernel_n3840", "name": name, "dtype": "bfloat16",
+              "batch": [bsz, n, H], "kernel_ms": time_ms(torch, fn, flush, reps, 1),
+              "plain_ms_on_slice": time_ms(torch, plain, flush, 3, 1), "slice_graphs": k,
+              "max_abs_err_on_slice": max(errs) if name != "adj_build" else 0.0,
+              "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    del adj, xc, xo, gc, go
+    torch.cuda.empty_cache()
+
+
+def real_counters() -> dict:
+    """The launch-counted wrappers of the dense CausalGAT training path."""
+    from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.edge_gat import edge_gat_bwd, edge_gat_fwd
+    from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd
+    from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd
+
+    return {k.__name__: k for k in (adj_build, fused_gcn_dense_att_dual,
+                                    fused_gcn_dense_att_dual_bwd, flash_gat_fwd, flash_gat_bwd,
+                                    edge_gat_fwd, edge_gat_bwd)}
+
+
+def real_protocol_phase(torch, root, ds) -> dict:
+    """``python -m cal_tpu_torch.main_real --model CausalGAT --dataset SYNREDDIT
+    --dtype bfloat16`` at full width (hidden 128, 3 layers, batch 128, 4
+    heads, dropout 0.2; N = 3,840) on REAL_FOLDS folds of REAL_EPOCHS epochs,
+    the counters at 0 just before: exact launches (per forward one
+    adjacency build, one dual conv and LAYERS edge forwards; per step one
+    dual backward and LAYERS edge backwards; no flash), finite losses, the
+    sydall line; epoch seconds and peak device memory."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cal_tpu_torch.data.kfold import k_fold
+    from cal_tpu_torch.main_real import main
+
+    kernels = real_counters()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(["--model", "CausalGAT", "--dataset", "SYNREDDIT", "--dtype", "bfloat16",
+                    "--folds", str(REAL_FOLDS), "--epochs", str(REAL_EPOCHS),
+                    "--data_root", root, "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log = buf.getvalue()
+    print("\n".join(ln for ln in log.splitlines() if "|" in ln or "=" * 20 in ln), flush=True)
+    launches = {name: k.launches for name, k in kernels.items()}
+    train_idx, test_idx, _ = k_fold(np.array([g.y for g in ds]), REAL_FOLDS, "test_max")
+    steps = REAL_EPOCHS * sum(-(-len(t) // B) for t in train_idx)
+    fwd = steps + REAL_EPOCHS * sum(-(-len(t) // B) for t in test_idx)
+    want = {"adj_build": fwd, "fused_gcn_dense_att_dual": fwd,
+            "fused_gcn_dense_att_dual_bwd": steps, "flash_gat_fwd": 0, "flash_gat_bwd": 0,
+            "edge_gat_fwd": LAYERS * fwd, "edge_gat_bwd": LAYERS * steps}
+    check(launches == want, f"main_real launches {launches} != {want}")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == REAL_FOLDS * REAL_EPOCHS and all(map(math.isfinite, losses)),
+          f"main_real losses {losses}")
+    check("sydall Final: Causal | Dataset:[SYNREDDIT]" in log, "main_real printed no sydall line")
+    emit({"phase": "real_protocol", "model": "CausalGAT", "dataset": "SYNREDDIT",
+          "folds": REAL_FOLDS, "epochs": REAL_EPOCHS, "hidden": H, "layers": LAYERS,
+          "batch": B, "dtype": "bfloat16", "steps": steps, "forwards": fwd,
+          "launches": launches, "losses": losses,
+          "epoch_seconds": [h["seconds"] for h in hist],
+          "train_seconds": [h["train_seconds"] for h in hist],
+          "wall_s": wall, "peak_device_memory_gb": peak / 1e9,
+          "result": {k: v for k, v in res.items() if k != "history"}})
+    return launches
+
+
+def crossover_sweep(torch, flush):
+    """Flash against edge-formulated GAT, forward plus backward, bf16 at
+    dropout GAT_RATE, B = 128, on random graphs of N nodes with Eg' edges
+    each (SWEEP_SHAPES).  It informs the switch; the port keeps cal_tpu's
+    v5e rule, whose verdict is printed beside each shape."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from cal_tpu_torch.nn.layers import takes_edge_kernel
+    from cal_tpu_torch.ops.adj_build import adj_build
+    from cal_tpu_torch.ops.edge_gat import edge_gat_bwd, edge_gat_fwd
+    from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd
+
+    d = H // HEADS
+    for n, eg in SWEEP_SHAPES:
+        rng = np.random.default_rng(n + eg)
+        r, s = rng.integers(0, n, (B, eg)), rng.integers(0, n, (B, eg))
+        keys = np.sort(((np.arange(B)[:, None] * n + r) * n + s).ravel())
+        ef = torch.from_numpy(keys.astype(np.int32)).to("cuda")
+        counts = adj_build(ef, B, n, torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        xh = torch.randn((B, n, H), generator=gen, device="cuda").to(torch.bfloat16)
+        att = 0.5 * torch.randn((HEADS, 2 * d), generator=gen, device="cuda")
+        x4 = xh.float().view(B, n, HEADS, d)
+        ti = torch.einsum("bnhd,hd->bnh", x4, att[:, :d])
+        tj = torch.einsum("bnhd,hd->bnh", x4, att[:, d:])
+        g = torch.randn((B, n, H), generator=gen, device="cuda")
+        gb = g.to(torch.bfloat16)
+        _, m, den = flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, GAT_RATE)
+        reps = 3 if n >= 1024 else 20
+        t = {"flash_fwd_ms": time_ms(torch, lambda: flash_gat_fwd(
+                 ti, tj, counts, xh, DROP_SEED, GAT_RATE), flush, reps, 1),
+             "flash_bwd_ms": time_ms(torch, lambda: flash_gat_bwd(
+                 ti, tj, counts, xh, m, den, g, DROP_SEED, GAT_RATE), flush, reps, 1),
+             "edge_fwd_ms": time_ms(torch, lambda: edge_gat_fwd(
+                 ti, tj, xh, ef, DROP_SEED, GAT_RATE), flush, reps, 1),
+             "edge_bwd_ms": time_ms(torch, lambda: edge_gat_bwd(
+                 ti, tj, xh, ef, gb, DROP_SEED, GAT_RATE), flush, reps, 1)}
+        flash = t["flash_fwd_ms"] + t["flash_bwd_ms"]
+        edge = t["edge_fwd_ms"] + t["edge_bwd_ms"]
+        rule = takes_edge_kernel(SimpleNamespace(edge_flat=ef, eg_budget=eg), n)
+        emit({"phase": "gat_crossover", "n": n, "eg": eg, "batch": B, "dtype": "bfloat16",
+              "rate": GAT_RATE, **t, "flash_ms": flash, "edge_ms": edge,
+              "faster": "edge" if edge < flash else "flash",
+              "v5e_rule_takes": "edge" if rule else "flash"})
+        del counts, ef, xh, g, gb, m, den
+    torch.cuda.empty_cache()
+
+
 # kernel row -> (launch counter, model whose training run is its main path,
 # source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -1894,6 +2257,12 @@ COO_KERNEL_ROWS = {
     "coo_sddmm": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:513"),
 }
 OFF_MAIN_PATH = {"coo_sddmm"}
+# edge-formulated GAT kernel row -> (source, the TPU kernel it replaces);
+# launches come from the main_real CausalGAT run on SYNREDDIT, its main path
+EDGE_KERNEL_ROWS = {
+    "edge_gat_fwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:323"),
+    "edge_gat_bwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:361"),
+}
 # sparse backward kernel row -> (source, the TPU kernel it replaces); launches
 # come from the sparse training run, its main path
 SPARSE_BWD_KERNEL_ROWS = {
@@ -2052,6 +2421,35 @@ def main() -> int:
             torch, model, "sparse", len(sparse_val), len(sparse_test))
     lap("baselines")
 
+    # the real-data protocol: SYNREDDIT on the dense layout at N = 3,840,
+    # where the GAT convs take the edge-formulated kernel; the kernels on one
+    # batch, rows 1, 2 and 2b at that N, main_real, a step profile, and the
+    # flash/edge crossover sweep
+    from cal_tpu_torch.data.loader import compute_budgets
+    from cal_tpu_torch.nn.layers import takes_edge_kernel
+
+    root, real_ds = real_data()
+    real_graphs = list(real_ds)
+    real_host = next(Loader(real_graphs, B, budgets=compute_budgets(real_graphs, B))
+                     .host_batches())
+    real_batch = real_host.to("cuda")
+    emit({"phase": "real_batch", "batch": list(real_host.x.shape),
+          "slots": int(real_host.edge_flat.shape[0]), "eg_budget": real_host.eg_budget,
+          "live_slots": int((real_host.edge_flat < B * 3840 * 3840).sum()),
+          "edge_flat_dtype": str(real_host.edge_flat.dtype)})
+    check(real_host.x.shape[1] == 3840 and takes_edge_kernel(real_host, 3840),
+          f"SYNREDDIT batch {real_host.x.shape}, eg_budget {real_host.eg_budget}: "
+          "not on the edge-formulated kernel")
+    edge_rows = edge_kernel_rows(torch, real_batch, peaks, flush)
+    dense_rows_at_scale(torch, real_batch, peaks, flush)
+    del real_batch
+    lap("real_kernels")
+    real_launches = real_protocol_phase(torch, root, real_ds)
+    profile_train_step(torch, real_graphs, real_host, "CausalGAT")
+    lap("real_protocol")
+    crossover_sweep(torch, flush)
+    lap("gat_crossover")
+
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
     rows = []
@@ -2104,7 +2502,16 @@ def main() -> int:
                      "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "dtype": "bfloat16"})
-    check(len(rows) == 21, f"{len(rows)} kernel rows")
+    for kernel, (src, rep) in EDGE_KERNEL_ROWS.items():
+        r = edge_rows["bfloat16"][kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": real_launches[kernel],
+                     "launches_by_run": {"real_CausalGAT_SYNREDDIT": real_launches[kernel]},
+                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "dtype": "bfloat16"})
+    check(len(rows) == 23, f"{len(rows)} kernel rows")
     check(all((r["launches"] > 0) != (r["name"] in OFF_MAIN_PATH) for r in rows),
           "a kernel row of the main path has no launch")
     emit({"phase": "timing", "seconds": laps, "total_s": time.perf_counter() - start})

@@ -723,3 +723,99 @@ def test_coo_kernels_are_deterministic_and_raise_on_mixed_devices(cuda):
         coo.coo_spmm(x, coef.cpu(), g)
     with pytest.raises(ValueError):
         coo.coo_sddmm(x, x.cpu(), g)
+
+
+# Edge-formulated GAT (csrc/edge_gat.cu) against its twins: f32 results (out
+# in f32, dti, dtj) are sums over a row's or a sender's slots in another
+# order with expf and fmaf: 1e-4.  In bf16, out and dxh are rounded once to
+# bf16, so a sum on the other side of a rounding boundary moves by one bf16
+# ulp (2^-7 relative at most).
+EDGE_TOL = (1e-4, 1e-4)
+EDGE_T_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 8e-3)}
+
+
+def _edge_inputs(device, b, n, heads, hd, per_graph, hub, dtype, seed):
+    """A sorted int32 edge list with random edges per graph, a hub receiver
+    (row 0 of graph 0, over 32 slots, duplicates among them), self loops,
+    an empty last graph and padding; ti, tj, xh and a cotangent."""
+    rng = np.random.default_rng(seed)
+    ef = []
+    for g in range(b - 1):
+        m = min(n - 2, max(2, n // 2))
+        r, s = rng.integers(0, m, per_graph), rng.integers(0, m, per_graph)
+        r[:3] = s[:3]                                           # self loops
+        ef.append((g * n + r) * n + s)
+    ef.append(rng.integers(1, n, hub))                          # graph 0, receiver 0
+    ef = np.sort(np.concatenate(ef))
+    ef = np.concatenate([ef, np.full(29, b * n * n)]).astype(np.int32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)
+    return (torch.from_numpy(ef).to(device), rand(b, n, heads), rand(b, n, heads),
+            rand(b, n, hd).to(DT[dtype]), rand(b, n, hd).to(DT[dtype]))
+
+
+@pytest.mark.parametrize("b,n,heads,hd,per_graph,hub,dtype,rate", [
+    (3, 24, 4, 32, 60, 40, "float32", 0.0),
+    (4, 64, 2, 64, 200, 300, "bfloat16", 0.2),
+    (8, 384, 4, 128, 900, 1500, "bfloat16", 0.0),
+    (8, 384, 4, 128, 900, 1500, "float32", 0.2),
+    (2, 100, 8, 256, 150, 70, "bfloat16", 0.2),
+    (3, 50, 1, 32, 80, 33, "float32", 0.2),
+])
+def test_edge_gat_kernels_match_plain(cuda, b, n, heads, hd, per_graph, hub, dtype, rate):
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_inputs(cuda, b, n, heads, hd, per_graph, hub, dtype, seed=n)
+    seed = 0x9E3779B97F4A7C15
+    before = (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches)
+    out = eg.edge_gat_fwd(ti, tj, xh, ef, seed, rate)
+    got = eg.edge_gat_bwd(ti, tj, xh, ef, g, seed, rate)
+    torch.cuda.synchronize()
+    assert (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.float(), eg.edge_gat_fwd_plain(ti, tj, xh, ef, seed, rate).float(),
+                               atol=EDGE_T_TOL[dtype][0], rtol=EDGE_T_TOL[dtype][1])
+    ref = eg.edge_gat_bwd_plain(ti, tj, xh, ef, g, seed, rate)
+    for name, a, r in zip(("dti", "dtj", "dxh"), got, ref):
+        tol = EDGE_T_TOL[dtype] if name == "dxh" else EDGE_TOL
+        assert torch.isfinite(a.float()).all(), name
+        torch.testing.assert_close(a.float(), r.float(), atol=tol[0], rtol=tol[1], msg=name)
+
+
+def test_edge_gat_backward_matches_autograd_and_launches(cuda):
+    """The f32 Function on the card against torch.autograd of the forward
+    twin at dropout 0.2 (the backward replays the forward's keep bits);
+    edge_gat_dense_flat launches one forward and one backward kernel."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_inputs(cuda, 4, 400, 4, 128, 800, 700, "float32", seed=3)
+    seed, rate = 12345, 0.2
+    a = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+    b = [t.clone().requires_grad_() for t in (ti, tj, xh)]
+    got = torch.autograd.grad((eg._EdgeGAT.apply(*a, ef, seed, rate) * g).sum(), a)
+    ref = torch.autograd.grad((eg.edge_gat_fwd_plain(*b, ef, seed, rate) * g).sum(), b)
+    for u, w in zip(got, ref):
+        torch.testing.assert_close(u, w, atol=EDGE_TOL[0], rtol=EDGE_TOL[1])
+    before = (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches)
+    leaf = xh.bfloat16().requires_grad_()
+    att = torch.randn(4, 32, device=cuda)
+    out = eg.edge_gat_dense_flat(leaf, ef, att, att, 0.2, seed)
+    (dx,) = torch.autograd.grad(out.float().sum(), leaf)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
+    assert (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_edge_gat_kernels_are_deterministic_and_raise(cuda):
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_inputs(cuda, 4, 256, 4, 128, 600, 2000, "bfloat16", seed=9)
+    assert torch.equal(eg.edge_gat_fwd(ti, tj, xh, ef, 7, 0.2), eg.edge_gat_fwd(ti, tj, xh, ef, 7, 0.2))
+    for u, w in zip(eg.edge_gat_bwd(ti, tj, xh, ef, g, 7, 0.2),
+                    eg.edge_gat_bwd(ti, tj, xh, ef, g, 7, 0.2)):
+        assert torch.equal(u, w)
+    with pytest.raises(ValueError):
+        eg.edge_gat_fwd(ti.cpu(), tj, xh, ef)
+    with pytest.raises(ValueError, match="int32"):
+        eg.edge_gat_fwd(ti, tj, xh, ef.long())
+    with pytest.raises(ValueError, match="heads"):
+        eg.edge_gat_fwd(ti, tj, xh[..., :96].contiguous(), ef)

@@ -42,7 +42,10 @@ def _run(code):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.ops.adj_build, "
+    code = ("import sys, cal_tpu_torch.main_syn, cal_tpu_torch.main_real, "
+            "cal_tpu_torch.ops.adj_build, cal_tpu_torch.ops.edge_gat, "
+            "cal_tpu_torch.data.tu, cal_tpu_torch.data.kfold, cal_tpu_torch.data.datasets, "
+            "cal_tpu_torch.data.feature_expansion, "
             "cal_tpu_torch.ops.fused_gcn, cal_tpu_torch.ops.flash_gat, "
             "cal_tpu_torch.ops.gat, cal_tpu_torch.ops.gat_sparse, cal_tpu_torch.ops.spmm, "
             "cal_tpu_torch.ops.pool, cal_tpu_torch.ops.coo_spmm, cal_tpu_torch.ops.gin, "
@@ -62,10 +65,13 @@ def test_import_leaves_jax_out():
 def test_main_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is available")
+    from cal_tpu_torch.main_real import main as main_real
     from cal_tpu_torch.main_syn import main
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--model", "CausalGCN", "--inference", "true", "--data_num", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main_real(["--model", "CausalGAT", "--dataset", "SYNREDDIT"])
 
 
 def test_kernel_modules_import_without_nvcc():
@@ -90,8 +96,10 @@ def test_kernel_modules_import_without_nvcc():
             "assert gs.gat_coef_spmm_t.launches == gs.gat_sddmm_chain.launches == 0\n"
             "import cal_tpu_torch.ops.coo_spmm as co\n"
             "assert co.coo_spmm.launches == co.coo_spmm_t.launches == co.coo_sddmm.launches == 0\n"
-            "assert sorted(build.sources()) == ['adj_build', 'coo_spmm', 'flash_gat', "
-            "'fused_gcn', 'gat_sparse', 'pool', 'spmm']")
+            "import cal_tpu_torch.ops.edge_gat as eg\n"
+            "assert eg.edge_gat_fwd.launches == eg.edge_gat_bwd.launches == 0\n"
+            "assert sorted(build.sources()) == ['adj_build', 'coo_spmm', 'edge_gat', "
+            "'flash_gat', 'fused_gcn', 'gat_sparse', 'pool', 'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr
 
