@@ -1,12 +1,16 @@
 """Static-shape batching for the dense and sparse layouts.
 
-Counterpart of cal_tpu/data/loader.py (``compute_budgets`` and ``Loader``,
-dense and sparse layouts without budget packing).  The budget rules are the
-same, so both packages batch to the same shapes: dense, the node budget N is
-the largest graph rounded up to 8, or to 128 when that pads by at most 15%;
-sparse, V and E cover the ``batch_size`` largest graphs (``pad_sizes_for``).
-Every epoch yields ceil(len / batch_size) batches; the last one is padded
-and masked.
+Counterpart of cal_tpu/data/loader.py (``compute_budgets``,
+``compute_packed_budgets`` and ``Loader``, dense and sparse layouts and the
+sparse layout's budget-packed mode).  The budget rules are the same, so both
+packages batch to the same shapes: dense, the node budget N is the largest
+graph rounded up to 8, or to 128 when that pads by at most 15%; sparse, V
+and E cover the ``batch_size`` largest graphs (``pad_sizes_for``); packed,
+V and E sit at 1.25x the mean batch.  Every epoch yields ceil(len /
+batch_size) batches (floor with ``drop_remainder``); the last one is padded
+and masked.  A packed epoch closes a batch early when the next graph would
+overflow a budget, and pads the epoch with empty batches to a fixed step
+count.
 
 The sparse packer works on whole-dataset concatenated arrays, as cal_tpu's
 native packer does: each graph's edges are sorted by (receiver, sender)
@@ -37,9 +41,29 @@ def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
 
 
+def compute_packed_budgets(graphs: Sequence[HostGraph], batch_size: int) -> dict:
+    """Budgets of budget-packed sparse batching (heavy-tailed datasets): V and
+    E at 1.25 times the mean batch (V at least the largest graph + 1,
+    E at least the largest graph's edges), rounded up to 128, so
+    ``batch_size`` becomes an upper bound on the graphs of a batch."""
+    headroom = 1.25
+    ns = np.array([g.num_nodes for g in graphs], np.int64)
+    es = np.array([g.num_edges for g in graphs], np.int64)
+    node_budget = int(max(headroom * batch_size * ns.mean(), ns.max() + 1))
+    edge_budget = int(max(headroom * batch_size * es.mean(), es.max(), 1))
+    return {"node_budget": _round_up(node_budget, 128),
+            "edge_budget": _round_up(edge_budget, 128),
+            "pack": True, "max_graph_nodes": int(ns.max())}
+
+
 def compute_budgets(graphs: Sequence[HostGraph], batch_size: int,
-                    layout: str = "dense") -> dict:
-    """Static budgets covering any batch drawn from ``graphs``."""
+                    layout: str = "dense", pack: bool = False) -> dict:
+    """Static budgets covering any batch drawn from ``graphs`` (``pack``:
+    the budget-packed ones, sparse layout only)."""
+    if pack:
+        if layout != "sparse":
+            raise ValueError("budget-packed batching is sparse-layout only")
+        return compute_packed_budgets(graphs, batch_size)
     if layout == "sparse":
         pad_n, pad_e = pad_sizes_for(graphs, batch_size)
         return {"node_budget": pad_n, "edge_budget": pad_e,
@@ -56,12 +80,18 @@ def compute_budgets(graphs: Sequence[HostGraph], batch_size: int,
             "edge_per_graph": max(e_sorted[0], 1)}
 
 
-def pack_ratio(graphs: Sequence[HostGraph], batch_size: int) -> float:
-    """Nodes of the worst-case batch (the ``batch_size`` largest graphs) over
-    those of a mean batch."""
+def batch_nodes(graphs: Sequence[HostGraph], batch_size: int) -> tuple[float, float]:
+    """Nodes of the worst-case batch (the ``batch_size`` largest graphs) and
+    of a mean batch."""
     ns = np.array([g.num_nodes for g in graphs], np.float64)
     k = min(batch_size, len(ns))
-    return float(np.sort(ns)[-k:].sum() / (ns.mean() * k))
+    return float(np.sort(ns)[-k:].sum()), float(ns.mean() * k)
+
+
+def pack_ratio(graphs: Sequence[HostGraph], batch_size: int) -> float:
+    """Nodes of the worst-case batch over those of a mean batch."""
+    worst, mean_batch = batch_nodes(graphs, batch_size)
+    return worst / mean_batch
 
 
 def want_pack(layout: str, pack_batches: str, graphs: Sequence[HostGraph],
@@ -104,8 +134,9 @@ class _SparseDataset:
         if len(idx) > num_graphs or tot_n > num_nodes or tot_e > num_edges:
             raise ValueError(f"batch needs ({len(idx)} graphs, {tot_n} nodes, {tot_e} edges)"
                              f" > budget ({num_graphs}, {num_nodes}, {num_edges})")
-        b_noff = np.concatenate([[0], np.cumsum(ns)[:-1]])
-        b_eoff = np.concatenate([[0], np.cumsum(es)[:-1]])
+        # each graph's first node and edge in the batch (any count, 0 included)
+        b_noff = np.cumsum(ns) - ns
+        b_eoff = np.cumsum(es) - es
         # global node / edge ids of the batch, in batch order
         nodes = np.repeat(self.node_off[idx] - b_noff, ns) + np.arange(tot_n)
         shift_e = np.repeat(self.edge_off[idx] - b_eoff, es)
@@ -130,11 +161,23 @@ class _SparseDataset:
 
 class Loader:
     """Shuffling, padding, static-shape batch iterator (dense or sparse
-    layout; the sparse budget-packed mode is not ported)."""
+    layout; budgets with ``"pack": True`` switch the sparse layout to
+    budget-packed batches).
+
+    Pack mode fixes the epoch at ``len(self)`` steps: the most batches that
+    the identity order and 16 simulated shuffles (drawn from ``seed ^
+    0x5EED``) pack into, plus one.  Each epoch draws permutations from the
+    loader's stream until one packs within that count (at most 32 draws)
+    and pads the epoch with empty chunks.  ``schedule_steps`` is the mean
+    count of the simulations: the optimizer steps an epoch takes, pad
+    batches excluded.  cal_tpu's loader also redraws an epoch whose chunks
+    overflow its tile budget (a TPU tile-plan size); the port has no tile
+    plans, so its shuffle stream equals cal_tpu's wherever cal_tpu's plans
+    are off or never force a redraw."""
 
     def __init__(self, graphs: Sequence[HostGraph], batch_size: int,
                  shuffle: bool = False, budgets: dict | None = None,
-                 seed: int = 0, layout: str = "dense"):
+                 seed: int = 0, layout: str = "dense", drop_remainder: bool = False):
         if layout not in ("dense", "sparse"):
             raise ValueError(f"unknown layout {layout!r}")
         self.graphs = list(graphs)
@@ -143,12 +186,54 @@ class Loader:
         self.layout = layout
         self.budgets = dict(budgets or compute_budgets(self.graphs, batch_size, layout))
         self.rng = np.random.default_rng(seed)
+        self.drop_remainder = drop_remainder
+        self.pack = bool(self.budgets.get("pack", False))
+        if self.pack:
+            if layout != "sparse":
+                raise ValueError("pack budgets require layout='sparse'")
+            if drop_remainder:
+                raise ValueError("pack mode keeps every graph per epoch")
+            self._sizes_n = np.array([g.num_nodes for g in self.graphs], np.int64)
+            self._sizes_e = np.array([g.num_edges for g in self.graphs], np.int64)
+            sim = np.random.default_rng(seed ^ 0x5EED)
+            counts = [len(self._pack_chunks(np.arange(len(self.graphs))))]
+            counts += [len(self._pack_chunks(sim.permutation(len(self.graphs))))
+                       for _ in range(16)]
+            # an empty split yields no batch, not even padding
+            self._steps_budget = max(counts) + 1 if self.graphs else 0
+            self._sched_steps = max(int(round(float(np.mean(counts)))), 1)
         # an empty split yields no batch and needs no packer
         self._sparse = (_SparseDataset(self.graphs) if layout == "sparse" and self.graphs
                         else None)
 
     def __len__(self) -> int:
-        return math.ceil(len(self.graphs) / self.batch_size)
+        if self.pack:
+            return self._steps_budget
+        n = len(self.graphs)
+        return n // self.batch_size if self.drop_remainder else math.ceil(n / self.batch_size)
+
+    @property
+    def schedule_steps(self) -> int:
+        """Optimizer steps per epoch (pack mode: without the pad batches)."""
+        return self._sched_steps if self.pack else len(self)
+
+    def _pack_chunks(self, order: np.ndarray) -> list:
+        """Greedy budget packing: close a batch when the next graph would
+        overflow the node or edge budget or the graph-count cap."""
+        nb, eb = self.budgets["node_budget"], self.budgets["edge_budget"]
+        bs = self.batch_size
+        chunks, cur, cn, ce = [], [], 0, 0
+        for j in order:
+            n, e = int(self._sizes_n[j]), int(self._sizes_e[j])
+            if cur and (cn + n > nb or ce + e > eb or len(cur) == bs):
+                chunks.append(np.asarray(cur))
+                cur, cn, ce = [], 0, 0
+            cur.append(int(j))
+            cn += n
+            ce += e
+        if cur:
+            chunks.append(np.asarray(cur))
+        return chunks
 
     def _make_batch_host(self, idx: np.ndarray):
         b = self.budgets
@@ -161,12 +246,26 @@ class Loader:
 
     def host_batches(self) -> Iterator[PackedDenseBatch | GraphBatch]:
         """One epoch of NumPy-leaf batches (same shuffle stream as the JAX
-        loader for the same seed)."""
+        loader for the same seed; pack mode ends with its empty batches)."""
         for idx in self._chunks():
             yield self._make_batch_host(idx)
 
     def _chunks(self):
         order = np.arange(len(self.graphs))
+        if self.pack and self.graphs:
+            for _ in range(32):
+                if self.shuffle:
+                    order = self.rng.permutation(len(self.graphs))
+                chunks = self._pack_chunks(order)
+                if len(chunks) <= self._steps_budget:
+                    break
+                if not self.shuffle:   # the identity order is one of the simulations
+                    raise AssertionError("unreachable: the identity order packed longer")
+            else:
+                raise RuntimeError(
+                    "budget packing exceeded the step budget 32 shuffles in a row: "
+                    "budgets too tight for this dataset")
+            return chunks + [np.empty((0,), np.int64)] * (self._steps_budget - len(chunks))
         if self.shuffle:
             self.rng.shuffle(order)
         bs = self.batch_size

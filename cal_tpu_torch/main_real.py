@@ -3,7 +3,7 @@ branch).
 
     python -m benchmarks.gen_reddit_synthetic --root data
     python -m cal_tpu_torch.main_real --model CausalGAT --dataset SYNREDDIT
-        [--dtype bfloat16] [--folds 10] [--epochs 100] [--layout dense]
+        [--dtype bfloat16] [--folds 10] [--epochs 100] [--layout sparse]
         [--device cpu]
 
 Reads ``{data_root}/{dataset}/raw/{dataset}_*.txt`` (TU text format; the
@@ -12,7 +12,8 @@ generators under ``benchmarks/``), expands the features by the dataset's
 ``feat_str`` rule and runs the reference's stratified k-fold 'test_max'
 protocol for a causal model (``train_causal_real``).  On the dense layout a
 dataset of large graphs (N >= 384) runs its GAT convs on the
-edge-formulated kernel.  OGB datasets (``ogbg-*``) are not ported and raise.
+edge-formulated kernel; on the sparse layout a heavy-tailed dataset
+(SYNREDDIT) gets budget-packed batches ("auto").  OGB datasets (``ogbg-*``) are not ported and raise.
 The port runs on CUDA unless ``--device cpu`` is given (the CPU runs the
 kernels' plain twins).
 """

@@ -1,7 +1,8 @@
 """Synthetic-dataset entry point of the port — counterpart of main_syn.py.
 
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGIN,CausalGAT}
-        [--layout sparse] [--dtype bfloat16] [--save_model true --save_dir <d>]
+        [--layout sparse [--pack_batches true]] [--dtype bfloat16]
+        [--save_model true --save_dir <d>]
         [--resume true] [--device cpu]
     python -m cal_tpu_torch.main_syn --model {CausalGCN,CausalGIN,CausalGAT}
         [--layout sparse] --inference true --save_dir <d>
@@ -17,11 +18,10 @@ three-branch eval sweep on the test split.  Baselines run
 as the reference's entry point does.  ``--layout sparse`` trains and serves
 every model on padded edge-list batches (the CSR kernels and their backward
 kernels); the parameters do not depend on the layout, so a checkpoint of
-either layout serves on both.  Budget-packed sparse batches of the causal
-models (``--pack_batches true``, or "auto" where the graphs' sizes would
-call for it) are not ported yet and raise; the baselines never pack.  The
-port runs on CUDA unless ``--device cpu`` is given (the CPU runs the
-kernels' plain twins).
+either layout serves on both.  The causal models' sparse batches are
+budget-packed with ``--pack_batches true``, or in "auto" where the graphs'
+sizes call for it; the baselines never pack.  The port runs on CUDA unless
+``--device cpu`` is given (the CPU runs the kernels' plain twins).
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ def get_model(cfg: Config, num_features: int, num_classes: int) -> CausalGNN | B
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.layout not in ("dense", "sparse"):
         raise NotImplementedError(
-            f"layout {cfg.layout!r} not ported yet (ROADMAP queue 1 items 9-10)")
+            f"layout {cfg.layout!r} not ported yet (ROADMAP queue 1 item 10)")
     if not cfg.use_pallas:
         raise NotImplementedError(
             "--use_pallas false (the unfused XLA-style path) is not ported")

@@ -109,7 +109,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             rows = x.reshape(-1, c)
             if mask is None:
-                n = torch.tensor(float(rows.shape[0]), device=x.device)
+                n = torch.full((), float(rows.shape[0]), device=x.device)  # no host copy
                 mean = rows.mean(dim=0)
                 var = ((rows - mean) ** 2).mean(dim=0)
             else:

@@ -29,10 +29,28 @@ points):
 * ``pair_dpre`` (K6, ``_pair_dpre_call``): the edge logit gradient and its
   sums into dsrc (by sender) and ddst (by receiver).
 
+The single sigmoid-weighted aggregate ``gcn_aggregate_sparse_sigmoid``
+(cal_tpu's ``gcn_aggregate_sparse_sigmoid_pallas``: one branch, w =
+sigmoid(src[s] + dst[r]) or 1 - it under ``negate``, differentiable in x,
+src and dst) runs the same four functions for one branch, also in
+``csrc/spmm.cu``:
+
+* ``sigmoid_sender_degree`` (K13): the branch's sender sums, giving deg and
+  dis [V];
+* ``sigmoid_coef_spmm`` (K14) and ``sigmoid_coef_spmm_t`` (K14T): its
+  coefficient SpMM over the receiver CSR and, for dx, the sender CSR;
+* ``sigmoid_sddmm_chain`` (K15): the per-edge dot products and chain
+  values and the ddis sums;
+* ``sigmoid_dpre`` (K16): dpre and its sums into dsrc and ddst.
+
+``gcn_aggregate_sparse_sigmoid_plain`` is the whole function in plain
+PyTorch ops, differentiated by autograd.
+
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain twin ``*_plain``, which rounds at the same points: x, the
-cotangents and the logits in the model dtype, everything else f32, each
-[V, H] output rounded once.  The backward computes in f32 and rounds each
+cotangents and the pair's logits in the model dtype (the single branch takes
+its logits in their own dtype, as cal_tpu does, and its kernels read them as
+f32), everything else f32, each [V, H] output rounded once.  The backward computes in f32 and rounds each
 gradient once to its input's dtype (cal_tpu's ``_pair_bwd`` returns f32).
 """
 from __future__ import annotations
@@ -123,16 +141,17 @@ def _lib():
     lib = build.load("spmm")
     if lib.coef_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.sender_degree_launch.argtypes = [vp, vp, i] + [vp] * 6 + [i, i, vp, vp, vp]
-        lib.sender_degree_launch.restype = ctypes.c_int
+        lib.sender_degree_launch.argtypes = [i, i, vp, vp, i] + [vp] * 6 + [i, i] + [vp] * 4
         lib.coef_spmm_launch.argtypes = [i, vp, vp, vp, vp, i] + [vp] * 8 + [i, i, i,
                                                                              vp, vp, vp, vp]
-        lib.coef_spmm_launch.restype = ctypes.c_int
-        lib.pair_sddmm_chain_launch.argtypes = [vp] * 6 + [i] + [vp] * 6 + [i] + [vp] * 4 + [
-            i, i, i, i] + [vp] * 5
-        lib.pair_sddmm_chain_launch.restype = ctypes.c_int
-        lib.pair_dpre_launch.argtypes = [vp] * 6 + [i] + [vp] * 4 + [i, i, i] + [vp] * 5
-        lib.pair_dpre_launch.restype = ctypes.c_int
+        lib.sig_coef_spmm_launch.argtypes = [vp, vp, vp, i, i] + [vp] * 8 + [i, i, i, vp, vp,
+                                                                             vp]
+        lib.sddmm_chain_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 6 + [i] + [
+            vp] * 4 + [i, i, i, i] + [vp] * 5
+        lib.dpre_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 4 + [i, i, i] + [vp] * 5
+        for f in (lib.sender_degree_launch, lib.coef_spmm_launch, lib.sig_coef_spmm_launch,
+                  lib.sddmm_chain_launch, lib.dpre_launch):
+            f.restype = ctypes.c_int
     return lib
 
 
@@ -183,20 +202,29 @@ def pair_sender_degree(src, dst, g: GraphBatch) -> torch.Tensor:
         return pair_sender_degree_plain(src, dst, g)
     if device.type != "cuda":
         raise ValueError(f"pair_sender_degree: unsupported device {device}")
-    _check_graph("pair_sender_degree", g, device)
-    if src is not None:
-        src, dst = src.contiguous(), dst.contiguous()
-    deg = torch.empty((2, v), dtype=torch.float32, device=device)
-    partial = torch.empty((g.send.num_chunks, 2), dtype=torch.float32, device=device)
-    err = _lib().sender_degree_launch(
-        None if src is None else src.data_ptr(), None if dst is None else dst.data_ptr(),
-        0 if src is None else _DTYPES[src.dtype], g.receivers.data_ptr(),
-        g.edge_mask.data_ptr(), g.send.perm.data_ptr(), g.send.ptr.data_ptr(),
-        g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(), g.send.num_chunks, v,
-        deg.data_ptr(), partial.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    build.check(err, "pair_sender_degree")
+    deg, _ = _sender_degree_launch("pair_sender_degree", src, dst, g, 2, False)
     pair_sender_degree.launches += 1
     return deg
+
+
+def _sender_degree_launch(what, src, dst, g: GraphBatch, nb: int, negate: bool):
+    """K1 (nb 2: the sums [2, V], dis None) or K13 (nb 1: deg = 1 + the sums
+    and dis, [V] each) on CUDA tensors."""
+    device, v = g.senders.device, g.num_nodes
+    _check_graph(what, g, device)
+    if src is not None:
+        src, dst = src.contiguous(), dst.contiguous()
+    deg = torch.empty((nb, v) if nb == 2 else (v,), dtype=torch.float32, device=device)
+    dis = None if nb == 2 else torch.empty(v, dtype=torch.float32, device=device)
+    partial = torch.empty((g.send.num_chunks, nb), dtype=torch.float32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _lib().sender_degree_launch(
+        nb, int(negate), ptr(src), ptr(dst), 0 if src is None else _DTYPES[src.dtype],
+        g.receivers.data_ptr(), g.edge_mask.data_ptr(), g.send.perm.data_ptr(),
+        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
+        g.send.num_chunks, v, deg.data_ptr(), ptr(dis), partial.data_ptr(), _stream(device))
+    build.check(err, what)
+    return deg, dis
 
 
 def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch, transpose: bool = False):
@@ -295,26 +323,39 @@ def pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g: GraphBatch):
         raise ValueError(f"{what}: inputs on different devices")
     if device.type == "cpu":
         return pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
+    out = _sddmm_chain_launch(what, [xc, xo], [gc, go], src, dst, dis, g, False)
+    pair_sddmm_chain.launches += 1
+    return out
+
+
+def _sddmm_chain_launch(what, xs, gs, src, dst, dis, g: GraphBatch, negate: bool):
+    """K5 (two x/g planes: vec [3, E], ddis_s and ddis_r [2, V]) or K15 (one:
+    vec [2, E], ddis_s and ddis_r [V]) on CUDA tensors."""
+    nb = len(xs)
+    device = xs[0].device
+    (v, h), e = xs[0].shape, g.senders.shape[0]
     _check_graph(what, g, device)
-    xs = [t.contiguous() for t in (xc, xo, gc, go)]
+    xs = [t.contiguous() for t in xs + gs]
     _check_kernel_width(what, h, xs)
     src, dst, dis = src.contiguous(), dst.contiguous(), dis.contiguous()
-    e = g.senders.shape[0]
-    edge_out = torch.empty((5, e), dtype=torch.float32, device=device)
-    ddis_s = torch.empty((2, v), dtype=torch.float32, device=device)
-    ddis_r = torch.empty((2, v), dtype=torch.float32, device=device)
-    partial = torch.empty((max(g.recv.num_chunks, g.send.num_chunks), 2), dtype=torch.float32,
+    shape = (nb, v) if nb == 2 else (v,)
+    edge_out = torch.empty((2 * nb + 1, e), dtype=torch.float32, device=device)
+    ddis_s = torch.empty(shape, dtype=torch.float32, device=device)
+    ddis_r = torch.empty(shape, dtype=torch.float32, device=device)
+    partial = torch.empty((max(g.recv.num_chunks, g.send.num_chunks), nb), dtype=torch.float32,
                           device=device)
-    err = _lib().pair_sddmm_chain_launch(
-        *(t.data_ptr() for t in xs), src.data_ptr(), dst.data_ptr(), _DTYPES[xc.dtype],
-        g.senders.data_ptr(), g.edge_mask.data_ptr(), dis.data_ptr(), g.recv.ptr.data_ptr(),
-        g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(), g.recv.num_chunks,
-        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
-        g.send.perm.data_ptr(), g.send.num_chunks, v, e, h, edge_out.data_ptr(),
-        ddis_s.data_ptr(), ddis_r.data_ptr(), partial.data_ptr(), _stream(device))
+    x1, g1 = (xs[1], xs[3]) if nb == 2 else (None, None)
+    err = _lib().sddmm_chain_launch(
+        nb, int(negate), xs[0].data_ptr(), None if x1 is None else x1.data_ptr(),
+        xs[nb].data_ptr(), None if g1 is None else g1.data_ptr(), src.data_ptr(),
+        dst.data_ptr(), _DTYPES[xs[0].dtype], g.senders.data_ptr(), g.edge_mask.data_ptr(),
+        dis.data_ptr(), g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(),
+        g.recv.chunk_row.data_ptr(), g.recv.num_chunks, g.send.ptr.data_ptr(),
+        g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(), g.send.perm.data_ptr(),
+        g.send.num_chunks, v, e, h, edge_out.data_ptr(), ddis_s.data_ptr(), ddis_r.data_ptr(),
+        partial.data_ptr(), _stream(device))
     build.check(err, what)
-    pair_sddmm_chain.launches += 1
-    return edge_out[:3], ddis_s, ddis_r
+    return edge_out[:nb + 1], ddis_s, ddis_r
 
 
 def pair_dpre(vec, ddeg, g: GraphBatch):
@@ -333,6 +374,14 @@ def pair_dpre(vec, ddeg, g: GraphBatch):
         return pair_dpre_plain(vec, ddeg, g)
     if device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {device}")
+    out = _dpre_launch(what, vec, ddeg, g, 2, False)
+    pair_dpre.launches += 1
+    return out
+
+
+def _dpre_launch(what, vec, ddeg, g: GraphBatch, nb: int, negate: bool):
+    """K6 (nb 2) or K16 (nb 1): (dsrc, ddst) [V] f32 on CUDA tensors."""
+    device, v, e = vec.device, g.num_nodes, g.senders.shape[0]
     _check_graph(what, g, device)
     vec, ddeg = vec.contiguous(), ddeg.contiguous()
     dpre = torch.empty(e, dtype=torch.float32, device=device)
@@ -340,14 +389,13 @@ def pair_dpre(vec, ddeg, g: GraphBatch):
     ddst = torch.empty(v, dtype=torch.float32, device=device)
     partial = torch.empty(max(g.recv.num_chunks, g.send.num_chunks), dtype=torch.float32,
                           device=device)
-    err = _lib().pair_dpre_launch(
-        vec.data_ptr(), ddeg.data_ptr(), g.senders.data_ptr(), g.recv.ptr.data_ptr(),
-        g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(), g.recv.num_chunks,
-        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
-        g.send.perm.data_ptr(), g.send.num_chunks, v, e, dpre.data_ptr(), dsrc.data_ptr(),
-        ddst.data_ptr(), partial.data_ptr(), _stream(device))
+    err = _lib().dpre_launch(
+        nb, int(negate), vec.data_ptr(), ddeg.data_ptr(), g.senders.data_ptr(),
+        g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(),
+        g.recv.num_chunks, g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(),
+        g.send.chunk_row.data_ptr(), g.send.perm.data_ptr(), g.send.num_chunks, v, e,
+        dpre.data_ptr(), dsrc.data_ptr(), ddst.data_ptr(), partial.data_ptr(), _stream(device))
     build.check(err, what)
-    pair_dpre.launches += 1
     return dsrc, ddst
 
 
@@ -422,3 +470,239 @@ def gcn_aggregate_sparse_plain(x, g: GraphBatch) -> torch.Tensor:
     ``gcn_aggregate_sparse_plain_pallas``): K1 at zero logits for the
     degree, then K3; differentiable in x (K3T)."""
     return _PlainAggregate.apply(x, g)
+
+
+# ---- row 12: one sigmoid-weighted branch (K13-K16) -----------------------
+
+def _sig_w(src, dst, s, r, live, negate: bool) -> torch.Tensor:
+    """Per-edge f32 weight sigmoid(src[s] + dst[r]) (1 - it under
+    ``negate``), 0 on dead edges."""
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r])
+    return torch.where(live, 1.0 - sig if negate else sig, torch.zeros((), device=s.device))
+
+
+def sigmoid_sender_degree_plain(src, dst, g: GraphBatch, negate: bool = False):
+    """Plain twin of K13: (deg, dis) [V] f32, deg = 1 + the sender sums of
+    the branch weights over live edges, dis = deg^-1/2."""
+    s, r, live = _live(g)
+    deg = torch.zeros(g.num_nodes, device=s.device).index_add_(
+        0, s, _sig_w(src, dst, s, r, live, negate)) + 1.0
+    return deg, torch.rsqrt(deg)
+
+
+def sigmoid_coef_spmm_plain(x, src, dst, deg, dis, g: GraphBatch, negate: bool = False,
+                            transpose: bool = False) -> torch.Tensor:
+    """Plain twin of K14: out[r] = sum over live e of (dis[s] w) dis[r] x[s]
+    + x[r] / deg[r], in f32, rounded once to x's dtype; ``transpose``: K14T,
+    rows and neighbours swapped (w stays a function of src[s] + dst[r])."""
+    s, r, live = _live(g)
+    row, nbr = (s, r) if transpose else (r, s)
+    coef = dis[nbr] * _sig_w(src, dst, s, r, live, negate) * dis[row]
+    x32 = x.float()
+    out = torch.zeros_like(x32).index_add_(0, row, coef[:, None] * x32[nbr])
+    return (out + x32 / deg[:, None]).to(x.dtype)
+
+
+def sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g: GraphBatch, negate: bool = False):
+    """Plain twin of K15: (vec [2, E], ddis_s [V], ddis_r [V]), all f32.
+    dc[e] = <g[r], x[s]>; vec = (dc dis[s] dis[r], w (1 - w)), zero on dead
+    edges; ddis_s sums dc w dis[r] by sender, ddis_r dc w dis[s] by
+    receiver."""
+    s, r, live = _live(g)
+    zero = torch.zeros((), device=s.device)
+    w = _sig_w(src, dst, s, r, live, negate)
+    dc = torch.where(live, (gout.float()[r] * x.float()[s]).sum(-1), zero)
+    vec = torch.stack([dc * dis[s] * dis[r], w * (1.0 - w)])
+    z = torch.zeros(g.num_nodes, device=s.device)
+    return vec, z.index_add(0, s, dc * w * dis[r]), z.index_add(0, r, dc * w * dis[s])
+
+
+def sigmoid_dpre_plain(vec, ddeg, g: GraphBatch, negate: bool = False):
+    """Plain twin of K16: dpre = (vec0 + ddeg[s]) vec1 (negated under
+    ``negate``) summed by sender (dsrc) and by receiver (ddst), [V] f32."""
+    s, r = g.senders.long(), g.receivers.long()
+    dpre = (vec[0] + ddeg[s]) * vec[1]
+    if negate:
+        dpre = -dpre
+    z = torch.zeros(g.num_nodes, device=s.device)
+    return z.index_add(0, s, dpre), z.index_add(0, r, dpre)
+
+
+def _check_logits(what, src, dst, x) -> None:
+    """The single branch takes its logits in their own dtype (one for both),
+    as cal_tpu's row 12 does; its kernels read them as f32."""
+    v = x.shape[0]
+    _check_features(what, (src[:, None], dst[:, None]), v, 1)
+    if src.device != x.device:
+        raise ValueError(f"{what}: logits and features on different devices")
+
+
+def sigmoid_sender_degree(src, dst, g: GraphBatch, negate: bool = False):
+    """K13: (deg, dis) [V] f32: 1 + the sender sums over live edges of
+    sigmoid(src[s] + dst[r]) (1 - it under ``negate``), and its rsqrt.
+    ``src``/``dst`` [V] of one dtype.  ``.launches`` counts launches."""
+    what = "sigmoid_sender_degree"
+    v = g.num_nodes
+    device = g.senders.device
+    _check_features(what, (src[:, None], dst[:, None]), v, 1)
+    if src.device != device:
+        raise ValueError(f"{what}: logits and graph on different devices")
+    if device.type == "cpu":
+        return sigmoid_sender_degree_plain(src, dst, g, negate)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    deg, dis = _sender_degree_launch(what, src.float(), dst.float(), g, 1, negate)
+    sigmoid_sender_degree.launches += 1
+    return deg, dis
+
+
+def _sig_coef_spmm(what, x, src, dst, deg, dis, g: GraphBatch, negate: bool, transpose: bool):
+    v, h = x.shape
+    _check_features(what, (x,), v, h)
+    _check_logits(what, src, dst, x)
+    for t in (deg, dis):
+        if t.dtype != torch.float32 or tuple(t.shape) != (v,):
+            raise ValueError(f"{what}: deg and dis must be [{v}] float32")
+    device = x.device
+    if any(t.device != device for t in (deg, dis, g.senders)):
+        raise ValueError(f"{what}: inputs on different devices")
+    if device.type == "cpu":
+        return sigmoid_coef_spmm_plain(x, src, dst, deg, dis, g, negate, transpose)
+    _check_graph(what, g, device)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _check_kernel_width(what, h, [x, out])
+    deg, dis, src, dst = (t.float().contiguous() for t in (deg, dis, src, dst))
+    # transposed: the sender CSR, neighbours through its perm, logits swapped
+    csr, nbr, perm = ((g.send, g.receivers, g.send.perm) if transpose
+                      else (g.recv, g.senders, None))
+    if transpose:
+        src, dst = dst, src
+    partial = torch.empty((csr.num_chunks, h), dtype=torch.float32, device=device)
+    err = _lib().sig_coef_spmm_launch(
+        x.data_ptr(), src.data_ptr(), dst.data_ptr(), _DTYPES[x.dtype], int(negate),
+        nbr.data_ptr(), None if perm is None else perm.data_ptr(), g.edge_mask.data_ptr(),
+        deg.data_ptr(), dis.data_ptr(), csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(),
+        csr.chunk_row.data_ptr(), csr.num_chunks, v, h, out.data_ptr(), partial.data_ptr(),
+        _stream(device))
+    build.check(err, what)
+    return out
+
+
+def sigmoid_coef_spmm(x, src, dst, deg, dis, g: GraphBatch, negate: bool = False):
+    """K14: the branch's aggregate [V, H] in x's dtype from K13's ``deg`` and
+    ``dis``.  ``.launches`` counts kernel launches."""
+    out = _sig_coef_spmm("sigmoid_coef_spmm", x, src, dst, deg, dis, g, negate, False)
+    if x.device.type == "cuda":
+        sigmoid_coef_spmm.launches += 1
+    return out
+
+
+def sigmoid_coef_spmm_t(gout, src, dst, deg, dis, g: GraphBatch, negate: bool = False):
+    """K14T: the x-gradient of K14 [V, H] in gout's dtype (self term g / deg
+    included).  ``src``/``dst`` are the forward's logits.  ``.launches``
+    counts kernel launches."""
+    dx = _sig_coef_spmm("sigmoid_coef_spmm_t", gout, src, dst, deg, dis, g, negate, True)
+    if gout.device.type == "cuda":
+        sigmoid_coef_spmm_t.launches += 1
+    return dx
+
+
+def sigmoid_sddmm_chain(x, gout, src, dst, dis, g: GraphBatch, negate: bool = False):
+    """K15: (vec [2, E], ddis_s [V], ddis_r [V]) f32 (see
+    ``sigmoid_sddmm_chain_plain``); x, gout and the logits of one dtype,
+    ``dis`` [V] f32.  One launch runs the receiver pass and the sender sums.
+    ``.launches`` counts kernel launches."""
+    what = "sigmoid_sddmm_chain"
+    v, h = x.shape
+    _check_features(what, (x, gout), v, h)
+    _check_logits(what, src, dst, x)
+    if dis.dtype != torch.float32 or tuple(dis.shape) != (v,):
+        raise ValueError(f"{what}: dis must be [{v}] float32")
+    device = x.device
+    if any(t.device != device for t in (dis, g.senders)):
+        raise ValueError(f"{what}: inputs on different devices")
+    if device.type == "cpu":
+        return sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate)
+    out = _sddmm_chain_launch(what, [x], [gout], src.float(), dst.float(), dis, g, negate)
+    sigmoid_sddmm_chain.launches += 1
+    return out
+
+
+def sigmoid_dpre(vec, ddeg, g: GraphBatch, negate: bool = False):
+    """K16: (dsrc, ddst) [V] f32 from K15's ``vec`` [2, E] and the degree
+    gradient ``ddeg`` [V] f32.  One launch runs the receiver pass and the
+    sender sums.  ``.launches`` counts kernel launches."""
+    what = "sigmoid_dpre"
+    v, e = g.num_nodes, g.senders.shape[0]
+    if tuple(vec.shape) != (2, e) or tuple(ddeg.shape) != (v,) or any(
+            t.dtype != torch.float32 for t in (vec, ddeg)):
+        raise ValueError(f"{what}: vec must be [2, {e}] and ddeg [{v}], float32")
+    device = vec.device
+    if any(t.device != device for t in (ddeg, g.senders)):
+        raise ValueError(f"{what}: inputs on different devices")
+    if device.type == "cpu":
+        return sigmoid_dpre_plain(vec, ddeg, g, negate)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    out = _dpre_launch(what, vec, ddeg, g, 1, negate)
+    sigmoid_dpre.launches += 1
+    return out
+
+
+sigmoid_sender_degree.launches = 0
+sigmoid_coef_spmm.launches = 0
+sigmoid_coef_spmm_t.launches = 0
+sigmoid_sddmm_chain.launches = 0
+sigmoid_dpre.launches = 0
+
+
+class _SigmoidAggregate(torch.autograd.Function):
+    """K13 + K14 forward; K14T, then (when a logit needs a gradient) K15, the
+    degree chain's elementwise step and K16 backward (cal_tpu ``_sig_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, g, negate):
+        deg, dis = sigmoid_sender_degree(src, dst, g, negate)
+        ctx.save_for_backward(x, src, dst, deg, dis)
+        ctx.g, ctx.negate = g, negate
+        return sigmoid_coef_spmm(x, src, dst, deg, dis, g, negate)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, src, dst, deg, dis = ctx.saved_tensors
+        g, negate = ctx.g, ctx.negate
+        need = ctx.needs_input_grad
+        dx = dsrc = ddst = None
+        if need[0]:
+            dx = sigmoid_coef_spmm_t(gout, src, dst, deg, dis, g, negate).to(x.dtype)
+        if need[1] or need[2]:
+            vec, ddis_s, ddis_r = sigmoid_sddmm_chain(x, gout.to(x.dtype), src, dst, dis, g,
+                                                      negate)
+            inv = 1.0 / deg
+            gx = (gout.float() * x.float()).sum(1)
+            ddeg = -gx * inv * inv + (ddis_s + ddis_r) * (-0.5) * dis * inv
+            dsrc, ddst = sigmoid_dpre(vec, ddeg, g, negate)
+            dsrc, ddst = dsrc.to(src.dtype), ddst.to(dst.dtype)
+        return dx, dsrc, ddst, None, None
+
+
+def gcn_aggregate_sparse_sigmoid(x, src, dst, g: GraphBatch, negate: bool = False):
+    """The single sigmoid-weighted sparse GCN aggregate (counterpart of
+    ``gcn_aggregate_sparse_sigmoid_pallas``): w = sigmoid(src[s] + dst[r]),
+    or 1 - it when ``negate``, on live edges; deg = 1 + the sender sums of
+    w; out = sum of dis[s] w dis[r] x[s] + x / deg, computed in f32 and
+    returned in x's dtype.  Differentiable in x, src and dst."""
+    return _SigmoidAggregate.apply(x, src, dst, g, bool(negate))
+
+
+def gcn_aggregate_sparse_sigmoid_plain(x, src, dst, g: GraphBatch, negate: bool = False):
+    """``gcn_aggregate_sparse_sigmoid`` in plain PyTorch ops (gathers and
+    ``index_add``), differentiated by autograd."""
+    s, r, live = _live(g)
+    w = _sig_w(src, dst, s, r, live, negate)
+    deg = torch.zeros(g.num_nodes, device=s.device).index_add(0, s, w) + 1.0
+    dis = torch.rsqrt(deg)
+    x32 = x.float()
+    out = torch.zeros_like(x32).index_add(0, r, (dis[s] * w * dis[r])[:, None] * x32[s])
+    return (out + x32 / deg[:, None]).to(x.dtype)

@@ -2,10 +2,12 @@
 (``train_causal_syn``, ``evaluate_causal``, ``train_causal_real`` and
 ``_finish_real_protocol``).
 
-Both serve CausalGCN and CausalGAT alike (the model comes from
-``get_model``), on the dense layout and on the sparse one (``--layout
-sparse``) with fixed budgets; budget-packed sparse batching is not ported
-and raises.
+Both serve the causal models alike (the model comes from ``get_model``), on
+the dense layout and on the sparse one (``--layout sparse``), whose batches
+are budget-packed when ``--pack_batches`` asks for it or, in "auto", when
+the graphs' sizes call for it (``_want_pack``); a packed epoch ends with
+empty batches, which the steps skip on the host, and the cosine schedule
+counts the real steps (``schedule_steps``).
 ``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
 cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
@@ -25,11 +27,18 @@ import numpy as np
 import torch
 
 from cal_tpu_torch.data.kfold import k_fold
-from cal_tpu_torch.data.loader import Loader, compute_budgets, pack_ratio, want_pack
+from cal_tpu_torch.data.loader import (
+    Loader,
+    batch_nodes,
+    compute_budgets,
+    pack_ratio,
+    want_pack,
+)
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import CAUSAL, get_model
 from cal_tpu_torch.train.optim import cosine_lr
 from cal_tpu_torch.train.steps import (
+    has_real_graph,
     init_state,
     make_causal_eval_step,
     make_causal_train_step,
@@ -67,35 +76,42 @@ def _eval(eval_step, batches, generator) -> tuple[float, float, float, int]:
     return co / d, c / d, o / d, n
 
 
-def _refuse_packing(cfg: Config, graphs) -> None:
-    """cal_tpu switches the sparse layout to budget-packed batches when
-    ``want_pack`` says so (train/causal.py ``_want_pack``); the port has no
-    packed batching yet and raises rather than train or serve unpacked."""
-    if want_pack(cfg.layout, cfg.pack_batches, graphs, cfg.batch_size):
-        raise NotImplementedError(
-            "budget-packed sparse batching is not ported yet (ROADMAP queue 1 item 9); "
-            "pass --pack_batches false")
+def _want_pack(cfg: Config, graphs) -> bool:
+    """``want_pack`` for ``cfg``; "auto" prints its decision to pack as
+    cal_tpu's ``_want_pack`` does."""
+    pack = want_pack(cfg.layout, cfg.pack_batches, graphs, cfg.batch_size)
+    if pack and cfg.pack_batches == "auto":
+        worst, mean_batch = batch_nodes(graphs, cfg.batch_size)
+        print(f"pack_batches auto: worst-case batch {worst:.0f} nodes is "
+              f"{worst / mean_batch:.1f}x the mean batch — enabling "
+              f"budget-packed batching")
+    return pack
 
 
 def _budgets(cfg: Config, graphs) -> dict:
-    """Budgets over ``graphs`` (one node budget N for every loader); the
-    sparse layout refuses budget packing when it is asked for or, in "auto",
-    when the graphs would need it, and prints the decision and the budgets."""
-    budgets = compute_budgets(graphs, cfg.batch_size, cfg.layout)
+    """Budgets over ``graphs`` (one node budget N for every loader), packed
+    when ``_want_pack`` says so; the sparse layout prints the decision and
+    the budgets."""
+    pack = _want_pack(cfg, graphs)
+    budgets = compute_budgets(graphs, cfg.batch_size, cfg.layout, pack=pack)
     if cfg.layout == "sparse":
-        _refuse_packing(cfg, graphs)
         print(f"pack_batches {cfg.pack_batches}: worst-case batch "
-              f"{pack_ratio(graphs, cfg.batch_size):.2f}x the mean batch, fixed sparse "
-              f"budgets V={budgets['node_budget']}, E={budgets['edge_budget']}")
+              f"{pack_ratio(graphs, cfg.batch_size):.2f}x the mean batch, "
+              f"{'packed' if pack else 'fixed'} sparse budgets "
+              f"V={budgets['node_budget']}, E={budgets['edge_budget']}")
     return budgets
+
+
+def _device_batches(loader: Loader, device) -> list:
+    """The loader's batches on ``device``, without those that hold no real
+    graph (a packed epoch's padding): they add nothing to the eval sums."""
+    return [b.to(device) for b in loader.host_batches() if has_real_graph(b)]
 
 
 def make_loaders(train_set, val_set, test_set, cfg: Config):
     """Loaders of the three splits with budgets over all of them (one node
-    budget N for every loader) and seeds [seed, 0, 0], as the JAX trainer.
-    The sparse layout refuses budget packing when it is asked for or, in
-    "auto", when the splits would need it, and prints the decision and the
-    budgets."""
+    budget N for every loader, packed when ``_want_pack`` says so) and seeds
+    [seed, 0, 0], as the JAX trainer."""
     sets = (train_set, val_set, test_set)
     budgets = _budgets(cfg, [g for s in sets for g in s])
     train, val, test = (Loader(s, cfg.batch_size, shuffle=(i == 0), budgets=budgets,
@@ -121,13 +137,13 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
     device = resolve_device(cfg.device)
     train_loader, val_loader, test_loader = make_loaders(train_set, val_set, test_set, cfg)
     state = init_state(cfg, train_set[0].x.shape[1], cfg.num_classes, device)
-    schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(train_loader))
+    schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, train_loader.schedule_steps)
     train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
                                         cfg.with_random, cfg.seed)
     eval_step = make_causal_eval_step(state.model, cfg.eval_random)
     # eval loaders don't shuffle: pack and copy them to the device once
-    val_batches = [b.to(device) for b in val_loader.host_batches()]
-    test_batches = [b.to(device) for b in test_loader.host_batches()]
+    val_batches = _device_batches(val_loader, device)
+    test_batches = _device_batches(test_loader, device)
     eval_gen = torch.Generator(device=device)
 
     metrics = MetricsLogger(cfg.metrics_path, cfg.tb_dir)
@@ -205,11 +221,12 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
                     num_classes: int | None = None) -> dict:
     """Restore the newest checkpoint from ``cfg.save_dir`` and run the
     three-branch eval sweep over ``test_set`` in ``cfg.layout`` (budgets
-    over the test set, as cal_tpu's).  Returns the accuracies, the
-    checkpoint step, the graph count and the sweep's wall seconds."""
+    over the test set, packed when ``_want_pack`` says so, as cal_tpu's).
+    Returns the accuracies, the checkpoint step, the graph count and the
+    sweep's wall seconds."""
     device = resolve_device(cfg.device)
-    _refuse_packing(cfg, test_set)
-    loader = Loader(test_set, cfg.batch_size, shuffle=False, layout=cfg.layout)
+    loader = Loader(test_set, cfg.batch_size, shuffle=False, layout=cfg.layout,
+                    budgets=_budgets(cfg, test_set))
     model = get_model(cfg, test_set[0].x.shape[1], num_classes or cfg.num_classes)
     ckpt = Checkpointer(cfg.save_dir)
     step = ckpt.latest_step()
@@ -225,7 +242,8 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    co, c, o, n = _eval(eval_step, (b.to(device) for b in loader.host_batches()), generator)
+    co, c, o, n = _eval(eval_step, (b.to(device) for b in loader.host_batches()
+                                    if has_real_graph(b)), generator)
     seconds = time.perf_counter() - t0
     print(
         "inference: ckpt epoch:[{}] | Test acc:[co:{:.2f},c:{:.2f},o:{:.2f}] "
@@ -243,7 +261,8 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
     loader shuffled from ``seed + fold`` (one shuffle drawn and dropped, as
     cal_tpu's state init draws it), a fresh model whose weights, dropout and
     intervention streams come from ``seed + fold``, and Adam on the cosine
-    schedule sized by fold 0's train loader.  Prints the per-epoch ``Causal
+    schedule sized by fold 0's train loader (its ``schedule_steps``: a
+    packed epoch's pad batches take no step).  Prints the per-epoch ``Causal
     |`` lines, one ``syd:`` line per fold and the ``sydall Final`` line;
     returns ``_finish_real_protocol``'s result with the per-epoch
     ``history``."""
@@ -279,13 +298,13 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
                              budgets=budgets, layout=cfg.layout)
         train_loader._chunks()
         if schedule is None:
-            schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(train_loader))
+            schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, train_loader.schedule_steps)
         state = init_state(cfg.replace(seed=fold_seed), graphs[0].x.shape[1], num_classes,
                            device)
         train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
                                             cfg.with_random, fold_seed)
         eval_step = make_causal_eval_step(state.model, cfg.eval_random)
-        test_batches = [b.to(device) for b in test_loader.host_batches()]
+        test_batches = _device_batches(test_loader, device)
         eval_gen = torch.Generator(device=device)
         best_test, best_ep, best_c, best_o = 0.0, 0, 0.0, 0.0
         for epoch in range(1, cfg.epochs + 1):

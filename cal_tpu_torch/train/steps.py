@@ -76,7 +76,9 @@ def init_state(cfg: Config, num_features: int, num_classes: int,
     return TrainState(model, make_optimizer(model.parameters(), cfg.weight_decay))
 
 
-def _has_real_graph(batch: PackedDenseBatch | GraphBatch) -> bool:
+def has_real_graph(batch: PackedDenseBatch | GraphBatch) -> bool:
+    """Whether a host batch (NumPy leaves) holds a real graph; a packed
+    epoch's padding batches hold none."""
     real = (np.asarray(batch.graph_mask) if isinstance(batch, GraphBatch)
             else np.asarray(batch.n_nodes) > 0)
     return bool(real.any())
@@ -103,7 +105,9 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
     move), like the JAX ``_gate_state``.  The intervention generator is
     re-seeded from (seed, step) each step, and the GAT layers' dropout seeds
     derive from (seed, step, layer).  Gradients stay in ``.grad`` until the
-    next step."""
+    next step.  ``step.on_device(batch, sums)`` takes a batch already on the
+    model's device that holds a real graph, and reads nothing back to the
+    host: the benchmark's timed loop runs it on batches staged once."""
     model, optimizer = state.model, state.optimizer
     params = list(model.parameters())
     device = params[0].device
@@ -111,10 +115,14 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
 
     def step(batch: PackedDenseBatch | GraphBatch,
              sums: torch.Tensor | None) -> torch.Tensor | None:
-        if not _has_real_graph(batch):
+        if not has_real_graph(batch):
             return sums
+        return on_device(batch.to(device), sums)
+
+    def on_device(batch: PackedDenseBatch | GraphBatch,
+                  sums: torch.Tensor | None) -> torch.Tensor:
         generator.manual_seed(step_seed(seed, state.step))
-        g = _as_graph(batch.to(device), model.dtype)
+        g = _as_graph(batch, model.dtype)
         c_logs, o_logs, co_logs = model(g, eval_random=with_random, train=True,
                                         generator=generator,
                                         dropout_seeds=dropout_seeds(model, seed, state.step))
@@ -131,6 +139,7 @@ def make_causal_train_step(state: TrainState, schedule, c_w: float, o_w: float,
                          correct_count(o_logs, g.y, g.graph_mask).float(), n]).detach()
         return m if sums is None else sums + m
 
+    step.on_device = on_device
     return step
 
 
@@ -151,7 +160,7 @@ def make_baseline_train_step(state: TrainState, schedule, seed: int):
 
     def step(batch: PackedDenseBatch | GraphBatch,
              sums: torch.Tensor | None) -> torch.Tensor | None:
-        if not _has_real_graph(batch):
+        if not has_real_graph(batch):
             return sums
         generator.manual_seed(step_seed(seed, state.step, _HEAD_DROPOUT_STREAM))
         g = _as_graph(batch.to(device), model.dtype)

@@ -121,6 +121,24 @@
    c. times flash against edge (forward plus backward, bf16, dropout 0.2,
       B = 128) at five (N, Eg') shapes beside the v5e rule's choice.
 
+9. packed sparse batches and the benchmark entry point:
+   a. (in the sparse kernel phase) row 12's kernels, K13 sender degree, K14
+      coefficient SpMM, K14T its transposed mode, K15 SDDMM chain, K16 chain
+      tail (``csrc/spmm.cu``), against their twins on the benchmark's
+      config-4 graph (V = 8,192, E = 131,072) and on the REDDIT-shaped batch,
+      bf16 and f32, ``negate`` both ways, timed beside torch.sparse.mm (K14,
+      K14T);
+   b. ``main_syn --model CausalGCN --layout sparse --pack_batches true`` at
+      the canonical size for PACK_EPOCHS epochs and ``main_real --model
+      CausalGCN --dataset SYNREDDIT --layout sparse`` ("auto" packs) for 2
+      folds of 2 epochs, each with exact K1-K7 launches for the real batches
+      of the replayed loaders (none for the padding batches);
+   c. ``cal_tpu_torch.bench.main`` at BENCH_SCALE of its timed steps: its
+      four lines in order, finite and positive, and one K13, K14, K14T, K15
+      and K16 launch per config-4 kernel iteration; from its config 3,
+      packed against worst-case-padded training on 256 REDDIT-shaped
+      threads, in graphs/s.
+
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -268,6 +286,12 @@ EDGE_T_TOL = CHAIN_TOL
 # sweep bracketed (N = 256 with sparse and denser graphs, the switch at 384,
 # a mid size) and SYNREDDIT's N = 3,840 with its largest graph's 8,752 edges.
 SWEEP_SHAPES = ((256, 512), (256, 1408), (384, 1152), (1024, 3072), (3840, 8752))
+# Packed sparse batches (phase 9): main_syn's packed run and the benchmark's
+# share of its timed steps (warm-ups kept); row 12's kernels are held at the
+# tolerances of the pair kernels whose rounding points they share (K13 as
+# K1: DEG_TOL; K14/K14T as K2: SPARSE_TOL; K15/K16 as K5/K6: CHAIN_TOL).
+PACK_EPOCHS = 2
+BENCH_SCALE = 0.25
 
 
 def emit(obj) -> None:
@@ -2212,6 +2236,262 @@ def crossover_sweep(torch, flush):
     torch.cuda.empty_cache()
 
 
+def _sig_coefs(torch, g, src, dst, dis, negate):
+    """Per-edge coefficients dis[s] w dis[r] of the single sigmoid branch
+    (dead edges 0), for the library calls."""
+    s, r = g.senders.long(), g.receivers.long()
+    live = (g.edge_mask & (s != r)).float()
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r])
+    return dis[s] * ((1.0 - sig) if negate else sig) * dis[r] * live
+
+
+def sigmoid_kernel_rows(torch, g, label, peaks, flush):
+    """K13-K16 (row 12) against their twins on one sparse batch ``g`` (on the
+    card), x in bf16 and f32 with f32 logits (config 4's), ``negate`` both
+    ways, with their times; returns {(dtype, negate): {kernel: row}}."""
+    from cal_tpu_torch.ops import spmm
+
+    bw, _, f32_peak = peaks
+    v, e = g.num_nodes, g.senders.shape[0]
+    n_live = int((g.edge_mask & (g.senders != g.receivers)).sum())
+    csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)          # ptr, chunk_ptr, chunk_row
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        x, gout = (torch.randn((v, H), generator=gen, device="cuda").to(dt) for _ in range(2))
+        src = torch.randn(v, generator=gen, device="cuda")
+        dst = 2.0 * torch.randn(v, generator=gen, device="cuda")
+        ddeg = torch.randn(v, generator=gen, device="cuda")
+        for negate in (False, True):
+            rows = {}
+
+            def row(name, fn, plain, nbytes, flops, err, tol, lib_fn=None, lib_call=None):
+                t_bytes, t_ops = nbytes / bw, flops / f32_peak
+                r = {"name": name, "batch": label, "dtype": dt_name, "negate": negate,
+                     "max_abs_err": err, "atol": tol[0], "rtol": tol[1],
+                     "kernel_ms": time_ms(torch, fn, flush),
+                     "plain_ms": time_ms(torch, plain, flush),
+                     "library_ms": None if lib_fn is None else time_ms(torch, lib_fn, flush),
+                     "library_call": lib_call, "bytes": nbytes, "flops": flops,
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "nodes": v, "edges": e, "live_edges": n_live}
+                emit({"phase": "sigmoid_kernel", **r})
+                rows[name] = r
+
+            def held(name, got, ref, tol):
+                got = (got,) if torch.is_tensor(got) else got
+                ref = (ref,) if torch.is_tensor(ref) else ref
+                torch.cuda.synchronize()
+                errs = []
+                for a, b in zip(got, ref, strict=True):
+                    check(a.dtype == b.dtype and a.shape == b.shape, f"{name} {dt_name} misshapen")
+                    check(bool(torch.isfinite(a.float()).all()),
+                          f"{name} {dt_name} negate={negate} on {label} not finite")
+                    err, over = max_excess(torch, a, b, *tol)
+                    check(over <= 0, f"{name} {dt_name} negate={negate} on {label} differs "
+                          f"from its plain twin: {err}")
+                    errs.append(err)
+                return max(errs)
+
+            deg, dis = spmm.sigmoid_sender_degree_plain(src, dst, g, negate)
+            err = held("sigmoid_sender_degree", spmm.sigmoid_sender_degree(src, dst, g, negate),
+                       (deg, dis), DEG_TOL)
+            row("sigmoid_sender_degree", lambda: spmm.sigmoid_sender_degree(src, dst, g, negate),
+                lambda: spmm.sigmoid_sender_degree_plain(src, dst, g, negate),
+                2 * v * 4 + 9 * e + csr(g.send) + 2 * v * 4, 4 * n_live, err, DEG_TOL,
+                None, "none: no single PyTorch call computes the sigmoid-weighted sender sums")
+            tol = SPARSE_TOL[dt_name]
+            coef = _sig_coefs(torch, g, src, dst, dis, negate)
+            for name, inp, transpose in (("sigmoid_coef_spmm", x, False),
+                                         ("sigmoid_coef_spmm_t", gout, True)):
+                fn = getattr(spmm, name)
+                err = held(name, fn(inp, src, dst, deg, dis, g, negate),
+                           spmm.sigmoid_coef_spmm_plain(inp, src, dst, deg, dis, g, negate,
+                                                        transpose), tol)
+                lib = (_library_spmm_t if transpose else _library_spmm)(torch, g, [coef], [inp])
+                row(name, lambda: fn(inp, src, dst, deg, dis, g, negate),
+                    lambda: spmm.sigmoid_coef_spmm_plain(inp, src, dst, deg, dis, g, negate,
+                                                         transpose),
+                    2 * v * H * elt + 2 * v * 4 + 2 * v * 4 + (9 if transpose else 5) * e
+                    + csr(g.send if transpose else g.recv), 2 * H * n_live, err, tol, lib,
+                    "torch.sparse.mm(CSR [V, V]" + (" transposed" if transpose else "")
+                    + ", x), coefficients materialized outside the call, no self term")
+            ref = spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate)
+            err = held("sigmoid_sddmm_chain",
+                       spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate), ref, CHAIN_TOL)
+            row("sigmoid_sddmm_chain",
+                lambda: spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate),
+                lambda: spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate),
+                2 * v * H * elt + 2 * v * 4 + 4 * v + 9 * e + 8 * e + 8 * v
+                + csr(g.recv) + csr(g.send), 2 * H * n_live, err, CHAIN_TOL,
+                None, "none: no single PyTorch call computes the SDDMM with its chain values")
+            vec = ref[0]
+            err = held("sigmoid_dpre", spmm.sigmoid_dpre(vec, ddeg, g, negate),
+                       spmm.sigmoid_dpre_plain(vec, ddeg, g, negate), CHAIN_TOL)
+            row("sigmoid_dpre", lambda: spmm.sigmoid_dpre(vec, ddeg, g, negate),
+                lambda: spmm.sigmoid_dpre_plain(vec, ddeg, g, negate),
+                8 * e + 4 * v + 8 * e + 8 * v + csr(g.recv) + csr(g.send), 3 * n_live, err,
+                CHAIN_TOL, None, "none: no single PyTorch call computes dpre with both sums")
+            out[(dt_name, negate)] = rows
+    return out
+
+
+def sigmoid_counters() -> dict:
+    from cal_tpu_torch.ops import spmm
+
+    return {k: getattr(spmm, k) for k in SIGMOID_KERNEL_ROWS}
+
+
+def packed_train_phase(torch, splits) -> dict:
+    """``main_syn --model CausalGCN --layout sparse --pack_batches true`` at
+    the canonical size for PACK_EPOCHS epochs, the counters at 0: exact K1-K7
+    launches for the epoch's real batches (the trainer's loaders replayed:
+    the same seeds give the same packed chunks) and none for its padding
+    batches, falling losses."""
+    import contextlib
+    import io
+
+    from cal_tpu_torch.main_syn import main
+    from cal_tpu_torch.train.causal import make_loaders
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model="CausalGCN", layout="sparse", pack_batches="true", batch_size=B,
+                 seed=SEED)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_l, val_l, test_l = make_loaders(*splits, cfg)
+    real = lambda chunks: sum(len(c) > 0 for c in chunks)
+    steps = sum(real(train_l._chunks()) for _ in range(PACK_EPOCHS))
+    pads = PACK_EPOCHS * len(train_l) - steps
+    evals = PACK_EPOCHS * (real(val_l._chunks()) + real(test_l._chunks()))
+    counts = sparse_counters(training=True)
+    for k in counts.values():
+        k.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(["--model", "CausalGCN", "--layout", "sparse", "--pack_batches", "true",
+                    "--dtype", "bfloat16", "--hidden", str(H), "--layers", str(LAYERS),
+                    "--batch_size", str(B), "--data_num", str(SPARSE_DATA_NUM), "--seed",
+                    str(SEED), "--epochs", str(PACK_EPOCHS), "--device", "cuda"])
+    launches = {n: k.launches for n, k in counts.items()}
+    want = sparse_want("CausalGCN", steps + evals, steps)
+    check(launches == want, f"packed training launches {launches}, expected {want}")
+    check("packed sparse budgets" in buf.getvalue(), "main_syn did not pack")
+    losses = [h["loss"] for h in res["history"]]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"packed training losses {losses}")
+    hist = res["history"]
+    emit({"phase": "packed_training", "model": "CausalGCN", "epochs": PACK_EPOCHS,
+          "budgets": {k: train_l.budgets[k] for k in ("node_budget", "edge_budget")},
+          "steps_per_epoch": len(train_l), "schedule_steps": train_l.schedule_steps,
+          "real_steps": steps, "pad_steps": pads, "eval_batches": evals,
+          "launches": launches, "losses": losses,
+          "epoch_seconds": [h["seconds"] for h in hist],
+          "train_seconds": [h["train_seconds"] for h in hist],
+          "test_acc_co": res["test_acc_co"], "test_acc_o": res["test_acc_o"]})
+    return launches
+
+
+def packed_real_phase(torch, root, ds) -> dict:
+    """``main_real --model CausalGCN --dataset SYNREDDIT --layout sparse
+    --dtype bfloat16`` (REAL_FOLDS folds of REAL_EPOCHS epochs; "auto" packs
+    these heavy-tailed threads), the counters at 0: exact K1-K7 launches for
+    the real batches of the replayed fold loaders, none for padding, the
+    sydall line."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cal_tpu_torch.data.kfold import k_fold
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
+    from cal_tpu_torch.main_real import main
+
+    graphs = list(ds)
+    budgets = compute_budgets(graphs, B, "sparse", pack=True)
+    real = lambda chunks: sum(len(c) > 0 for c in chunks)
+    steps = evals = 0
+    train_idx, test_idx, _ = k_fold(np.array([g.y for g in graphs]), REAL_FOLDS, "test_max")
+    for fold, (tr, te) in enumerate(zip(train_idx, test_idx)):
+        tl = Loader([graphs[i] for i in tr], B, shuffle=True, budgets=budgets,
+                    seed=SEED + fold, layout="sparse")
+        tl._chunks()
+        steps += sum(real(tl._chunks()) for _ in range(REAL_EPOCHS))
+        te_l = Loader([graphs[i] for i in te], B, budgets=budgets, layout="sparse")
+        evals += REAL_EPOCHS * real(te_l._chunks())
+    counts = sparse_counters(training=True)
+    for k in counts.values():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(["--model", "CausalGCN", "--dataset", "SYNREDDIT", "--layout", "sparse",
+                    "--dtype", "bfloat16", "--hidden", str(H), "--layers", str(LAYERS),
+                    "--batch_size", str(B), "--folds", str(REAL_FOLDS), "--epochs",
+                    str(REAL_EPOCHS), "--data_root", root, "--seed", str(SEED),
+                    "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    log = buf.getvalue()
+    launches = {n: k.launches for n, k in counts.items()}
+    want = sparse_want("CausalGCN", steps + evals, steps)
+    check(launches == want, f"packed main_real launches {launches}, expected {want}")
+    check("pack_batches auto: worst-case batch" in log, "main_real did not pack SYNREDDIT")
+    check("sydall Final: Causal | Dataset:[SYNREDDIT]" in log, "main_real printed no sydall")
+    losses = [h["loss"] for h in res["history"]]
+    check(all(map(math.isfinite, losses)), f"packed main_real losses {losses}")
+    emit({"phase": "packed_real_protocol", "model": "CausalGCN", "dataset": "SYNREDDIT",
+          "folds": REAL_FOLDS, "epochs": REAL_EPOCHS, "budgets": budgets, "steps": steps,
+          "eval_batches": evals, "launches": launches, "losses": losses,
+          "epoch_seconds": [h["seconds"] for h in res["history"]],
+          "train_seconds": [h["train_seconds"] for h in res["history"]], "wall_s": wall,
+          "result": {k: v for k, v in res.items() if k != "history"}})
+    return launches
+
+
+def bench_phase(torch) -> dict:
+    """``cal_tpu_torch.bench.main`` at BENCH_SCALE of its steps, the row-12
+    counters at 0 just before: its four lines in order, each value finite and
+    positive, and exactly one K13, K14, K14T, K15 and K16 launch per config-4
+    kernel iteration (configs 1-3 train the causal models, whose convs take
+    the pair kernels); then config 3's packed against worst-case-padded
+    training on 256 REDDIT-shaped threads, in graphs/s."""
+    import contextlib
+    import io
+
+    from cal_tpu_torch import bench
+
+    counts = sigmoid_counters()
+    for k in counts.values():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        lines, results = bench.main(["--scale", str(BENCH_SCALE)])
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counts.items()}
+    print(buf.getvalue(), end="", flush=True)
+    names = ["causal_train_edges_per_s", "causal_gat_train_edges_per_s",
+             "sparse_pack_train_edges_per_s", "spmm_tiled_edges_per_s"]
+    check([ln["metric"] for ln in lines] == names, f"bench lines {lines}")
+    vals = [v for ln in lines for k, v in ln.items() if k not in ("metric", "unit")]
+    check(all(math.isfinite(v) and v > 0 for v in vals), f"bench values {lines}")
+    check(buf.getvalue().startswith("# device: "), "bench printed no card line first")
+    iters = 2 * max(1, round(bench.SPMM_ITERS * BENCH_SCALE))
+    check(all(n == iters for n in launches.values()),
+          f"bench row-12 launches {launches}, expected {iters} each")
+    emit({"phase": "bench", "scale": BENCH_SCALE, "lines": lines, "launches": launches,
+          "kernel_iterations": iters, "wall_s": wall})
+    r = dict(results["sparse_pack_train_edges_per_s"])
+    worst = r.pop("worst")
+    keys = ("edges_per_s", "steps", "seconds", "batches", "budgets")
+    emit({"phase": "packed_vs_worst", "graphs": 256, "packed_graphs_per_s": r["graphs_per_s"],
+          "worst_graphs_per_s": worst["graphs_per_s"],
+          "speedup": r["graphs_per_s"] / worst["graphs_per_s"],
+          "packed": {k: r[k] for k in keys}, "worst": {k: worst[k] for k in keys}})
+    return launches
+
+
 # kernel row -> (launch counter, model whose training run is its main path,
 # source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -2262,6 +2542,20 @@ OFF_MAIN_PATH = {"coo_sddmm"}
 EDGE_KERNEL_ROWS = {
     "edge_gat_fwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:323"),
     "edge_gat_bwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:361"),
+}
+# row 12's kernel row -> (source, the TPU kernel it replaces); launches come
+# from ``cal_tpu_torch.bench`` (config 4), its main path
+SIGMOID_KERNEL_ROWS = {
+    "sigmoid_sender_degree": ("cal_tpu_torch/csrc/spmm.cu",
+                              "cal_tpu/ops/pallas_spmm.py:1126 and :1990 (_sig_fwd, :888)"),
+    "sigmoid_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu",
+                          "cal_tpu/ops/pallas_spmm.py:444 in _sig_fwd (:888)"),
+    "sigmoid_coef_spmm_t": ("cal_tpu_torch/csrc/spmm.cu",
+                            "cal_tpu/ops/pallas_spmm.py:444 on tiles_bwd in _sig_bwd (:913)"),
+    "sigmoid_sddmm_chain": ("cal_tpu_torch/csrc/spmm.cu",
+                            "cal_tpu/ops/pallas_spmm.py:513 and :1990 in _sig_bwd (:913)"),
+    "sigmoid_dpre": ("cal_tpu_torch/csrc/spmm.cu",
+                     "cal_tpu/ops/pallas_spmm.py:1126 and :1990 in _sig_bwd (:913)"),
 }
 # sparse backward kernel row -> (source, the TPU kernel it replaces); launches
 # come from the sparse training run, its main path
@@ -2339,8 +2633,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
-    _, sparse_val, sparse_test, _ = dataset_bias_split(ds, bias=0.5,
-                                                       total=SPARSE_DATA_NUM * 4, seed=SEED)
+    sparse_train, sparse_val, sparse_test, _ = dataset_bias_split(
+        ds, bias=0.5, total=SPARSE_DATA_NUM * 4, seed=SEED)
     del ds
     syn_batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
     reddit = reddit_graphs(B, seed=SEED, feat=10)
@@ -2362,7 +2656,14 @@ def main() -> int:
     _, keep_red = gat_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
     coo_rows = coo_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
     coo_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
-    del syn_batch, reddit_batch
+    # row 12 (K13-K16) on the benchmark's config-4 graph, its main path, and
+    # on the REDDIT-shaped batch
+    from cal_tpu_torch.bench import spmm_workload
+
+    bench_graph = spmm_workload(8192, 131072, H, "cuda", torch.bfloat16)[0]
+    sig_rows = sigmoid_kernel_rows(torch, bench_graph, "bench_config4", peaks, flush)
+    sigmoid_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    del syn_batch, reddit_batch, bench_graph
     lap("sparse_kernels")
     sparse_launches = sparse_serving_phase(
         torch, sparse_test, os.path.join(HERE, "build", "chip_smoke_train_CausalGCN"))
@@ -2450,6 +2751,15 @@ def main() -> int:
     crossover_sweep(torch, flush)
     lap("gat_crossover")
 
+    # packed sparse batches: main_syn --pack_batches true, main_real on
+    # SYNREDDIT --layout sparse, packed against worst-case graphs/s; then the
+    # benchmark entry point, whose config 4 is row 12's main path
+    packed_train_phase(torch, (sparse_train, sparse_val, sparse_test))
+    packed_real_phase(torch, root, real_ds)
+    lap("packed")
+    bench_launches = bench_phase(torch)
+    lap("bench")
+
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
     rows = []
@@ -2511,7 +2821,17 @@ def main() -> int:
                      "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "dtype": "bfloat16"})
-    check(len(rows) == 23, f"{len(rows)} kernel rows")
+    for kernel, (src, rep) in SIGMOID_KERNEL_ROWS.items():
+        r = sig_rows[("bfloat16", False)][kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": bench_launches[kernel],
+                     "launches_by_run": {"bench_config4": bench_launches[kernel]},
+                     "max_abs_err": max(t[kernel]["max_abs_err"] for t in sig_rows.values()),
+                     "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "dtype": "bfloat16"})
+    check(len(rows) == 28, f"{len(rows)} kernel rows")
     check(all((r["launches"] > 0) != (r["name"] in OFF_MAIN_PATH) for r in rows),
           "a kernel row of the main path has no launch")
     emit({"phase": "timing", "seconds": laps, "total_s": time.perf_counter() - start})

@@ -522,6 +522,84 @@ def test_sparse_backward_kernels_are_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))
 
 
+# ---- row 12, one sigmoid-weighted branch: K13-K16 (csrc/spmm.cu) ----------
+# Same rounding points in kernel and twin (csrc/spmm.cu header).  K13: f32
+# sums of sigmoids in another order with expf, rsqrtf against PyTorch's
+# rsqrt (2 ulp): DEG_TOL.  K14/K14T as K2 (SPARSE_TOL).  K15/K16 as K5/K6
+# (CHAIN_TOL).
+
+
+def _sigmoid_counters():
+    from cal_tpu_torch.ops import spmm
+
+    return (spmm.sigmoid_sender_degree, spmm.sigmoid_coef_spmm, spmm.sigmoid_coef_spmm_t,
+            spmm.sigmoid_sddmm_chain, spmm.sigmoid_dpre)
+
+
+@pytest.mark.parametrize("v,e,hub,pad,h,dtype,negate,logits", [
+    (300, 900, 0, 0, 32, "float32", False, "float32"),
+    (1000, 4000, 700, 300, 128, "bfloat16", True, "bfloat16"),
+    (1000, 4000, 700, 300, 128, "float32", True, "float32"),
+    (2048, 6000, 3000, 5000, 64, "bfloat16", False, "bfloat16"),
+    (512, 1500, 40, 33, 256, "float32", False, "float32"),
+    (1000, 4000, 700, 300, 128, "bfloat16", False, "float32"),   # the bench's config 4
+    (1000, 4000, 700, 300, 128, "bfloat16", True, "float32"),
+])
+def test_sigmoid_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, negate, logits):
+    from cal_tpu_torch.ops import spmm
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h + 2, isolated=7)
+    x, _, gout, _, src, dst = _bwd_inputs(cuda, v, h, dtype, v * h + 2)
+    src, dst = src.to(DT[logits]), dst.to(DT[logits])
+    before = [k.launches for k in _sigmoid_counters()]
+    ref_deg = spmm.sigmoid_sender_degree_plain(src, dst, g, negate)
+    for a, b in zip(spmm.sigmoid_sender_degree(src, dst, g, negate), ref_deg):
+        torch.testing.assert_close(a, b, atol=DEG_TOL[0], rtol=DEG_TOL[1])
+    deg, dis = ref_deg
+    atol, rtol = SPARSE_TOL[dtype]
+    for fn, transpose, inp in ((spmm.sigmoid_coef_spmm, False, x),
+                               (spmm.sigmoid_coef_spmm_t, True, gout)):
+        got = fn(inp, src, dst, deg, dis, g, negate)
+        ref = spmm.sigmoid_coef_spmm_plain(inp, src, dst, deg, dis, g, negate, transpose)
+        assert got.dtype == DT[dtype] and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    got = spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate)
+    ref = spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate)
+    for a, b in zip(got, ref, strict=True):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    ddeg = torch.randn(v, generator=torch.Generator(device=cuda).manual_seed(v), device=cuda)
+    for a, b in zip(spmm.sigmoid_dpre(ref[0], ddeg, g, negate),
+                    spmm.sigmoid_dpre_plain(ref[0], ddeg, g, negate), strict=True):
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(_sigmoid_counters(), before)] == [1] * 5
+
+
+def test_sigmoid_aggregate_matches_autograd_and_launches(cuda):
+    """The f32 Function on the card (K13-K16) against torch.autograd of the
+    plain function, both ``negate`` values, one launch of each kernel per
+    forward and backward; two runs give equal results."""
+    from cal_tpu_torch.ops import spmm
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=11, isolated=7)
+    x, _, gout, _, src, dst = _bwd_inputs(cuda, 1000, 128, "float32", 11)
+    for negate in (False, True):
+        res = []
+        for fn in (spmm.gcn_aggregate_sparse_sigmoid_plain, spmm.gcn_aggregate_sparse_sigmoid,
+                   spmm.gcn_aggregate_sparse_sigmoid):
+            before = [k.launches for k in _sigmoid_counters()]
+            leaves = [t.clone().requires_grad_() for t in (x, src, dst)]
+            out = fn(*leaves, g, negate)
+            res.append([out, *torch.autograd.grad(out, leaves, gout)])
+            torch.cuda.synchronize()
+            want = 0 if fn is spmm.gcn_aggregate_sparse_sigmoid_plain else 1
+            assert [k.launches - b for k, b in zip(_sigmoid_counters(), before)] == [want] * 5
+        for a, r in zip(res[1], res[0]):
+            torch.testing.assert_close(a, r, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+        assert all(torch.equal(a, b) for a, b in zip(res[1], res[2]))
+
+
 # ---- sparse GAT: K8, K9, K9T, K10 (csrc/gat_sparse.cu) ---------------------
 # Same rounding points in kernel and twin (csrc/gat_sparse.cu header): x in
 # the model dtype, every plane, weight, product, sum and output f32, so the

@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
             "cal_tpu_torch.models.baselines, cal_tpu_torch.models.factory, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.baseline, "
-            "cal_tpu_torch.train.losses, "
+            "cal_tpu_torch.train.losses, cal_tpu_torch.bench, cal_tpu_torch.utils.profiling, "
+            "cal_tpu_torch.data.loader, cal_tpu_torch.data.reddit_synthetic, "
             "cal_tpu_torch.utils.logging\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
@@ -91,6 +92,10 @@ def test_kernel_modules_import_without_nvcc():
             "assert sp.pair_coef_spmm_t.launches == sp.plain_coef_spmm_t.launches == 0\n"
             "assert sp.pair_sddmm_chain.launches == sp.pair_dpre.launches == 0\n"
             "assert po.segment_pool_bwd.launches == 0\n"
+            "assert sp.sigmoid_sender_degree.launches == sp.sigmoid_coef_spmm.launches == 0\n"
+            "assert sp.sigmoid_coef_spmm_t.launches == sp.sigmoid_sddmm_chain.launches == 0\n"
+            "assert sp.sigmoid_dpre.launches == 0\n"
+            "import cal_tpu_torch.bench\n"
             "import cal_tpu_torch.ops.gat_sparse as gs\n"
             "assert gs.gat_row_stats.launches == gs.gat_coef_spmm.launches == 0\n"
             "assert gs.gat_coef_spmm_t.launches == gs.gat_sddmm_chain.launches == 0\n"

@@ -321,17 +321,22 @@ def test_main_syn_sparse_inference_matches_dense(tmp_path):
         assert sparse[k] == dense[k] == trained[k]
 
 
-def test_sparse_paths_not_ported_raise(tmp_path):
-    """Budget-packed sparse batches are still to port: --pack_batches true
-    raises in training and in serving, for both models."""
-    base = ["--device", "cpu", "--data_num", "10", "--layout", "sparse", "--save_dir",
-            str(tmp_path), "--hidden", str(HIDDEN), "--layers", str(LAYERS),
-            "--pack_batches", "true"]
+def test_sparse_paths_not_ported_raise(tmp_path, capsys):
+    """Budget-packed sparse batches, once refused here, are ported:
+    --pack_batches true trains (with checkpoints) and serves packed batches
+    for both models, and serving gives the trained run's test accuracies."""
+    base = ["--device", "cpu", "--data_num", "20", "--node_num", "4", "--batch_size", "8",
+            "--layout", "sparse", "--hidden", str(HIDDEN), "--layers", str(LAYERS),
+            "--seed", "5", "--pack_batches", "true"]
     for model in ("CausalGCN", "CausalGAT"):
-        with pytest.raises(NotImplementedError, match="packed"):
-            main(["--model", model, *base, "--epochs", "1"])
-        with pytest.raises(NotImplementedError, match="packed"):
-            main(["--model", model, *base, "--inference", "true"])
+        argv = ["--model", model, *base, "--save_dir", str(tmp_path / model)]
+        capsys.readouterr()
+        trained = main(argv + ["--epochs", "1", "--save_model", "true"])
+        served = main(argv + ["--inference", "true"])
+        assert capsys.readouterr().out.count("packed sparse budgets") == 2
+        assert all(np.isfinite(h["loss"]) for h in trained["history"])
+        for k in ("test_acc_co", "test_acc_c", "test_acc_o"):
+            assert served[k] == trained[k], (model, k)
     _, tg = _host_graphs(count=3)
     assert want_pack("sparse", "true", tg, 2) and not want_pack("dense", "true", tg, 2)
     assert not want_pack("sparse", "false", tg, 2)
