@@ -1,50 +1,69 @@
 // Coefficient SpMM kernels for Hopper (sm_90a): the weighted neighbour sum
-// out[r] = sum_e coef[e] * x[s_e] over the receiver CSR (K11), the same
-// kernel over the sender CSR for its x-gradient (K11T), and the per-edge
-// dot product of its coefficient gradient (K12).
+// out[r] = sum_e coef[e] * x[s_e] over the receiver CSR (K11; per head, K19),
+// the same kernel over the sender CSR for its x-gradient (K11T; K19T), the
+// per-edge dot product of its coefficient gradient (K12; per head, K20), and
+// the per-receiver max of per-edge value planes (K21).
 //
-// Replaces (cal_tpu/ops/pallas_spmm.py coo_spmm and its VJP):
-//   K11  _spmm_call on tiles_fwd (_coo_fwd)             -> coo_spmm_launch, perm null
-//   K11T _spmm_call on tiles_bwd (_coo_bwd, dx)         -> coo_spmm_launch, perm given
-//   K12  _sddmm_call on tiles_fwd (_coo_bwd, dcoef)     -> coo_sddmm_launch
+// Replaces (cal_tpu/ops/pallas_spmm.py coo_spmm and coo_spmm_mh with their
+// VJPs, and tile_scatter_max):
+//   K11  _spmm_call on tiles_fwd (_coo_fwd)             -> coo_spmm_launch, heads 1, perm null
+//   K11T _spmm_call on tiles_bwd (_coo_bwd, dx)         -> coo_spmm_launch, heads 1, perm given
+//   K12  _sddmm_call on tiles_fwd (_coo_bwd, dcoef)     -> coo_sddmm_launch, heads 1
+//   K19  _spmm_mh_call on tiles_fwd (_coo_mh_fwd)       -> coo_spmm_launch, heads > 1, perm null
+//   K19T _spmm_mh_call on tiles_bwd (_coo_mh_bwd, dx)   -> coo_spmm_launch, heads > 1, perm given
+//   K20  _sddmm_mh_call on tiles_fwd (_coo_mh_bwd)      -> coo_sddmm_launch, heads > 1
+//   K21  tile_scatter_max (_tile_scatter_max_kernel)    -> segment_max_launch
 //
-// Contract (coo_spmm with a coefficient per edge, no loop manipulation):
-//   K11:  out[r]  = sum over e with r_e = r of coef[e] * x[s_e];
-//   K11T: dx[s]   = sum over e with s_e = s of coef[e] * g[r_e];
-//   K12:  dcoef[e] = <g[r_e], x[s_e]> for EVERY edge, dead ones included
-//         (cal_tpu's tile plan holds every edge of the batch; only its
-//         trailing [E + 1] pad entry is zeroed, which the port does not have).
+// Contract (coo_spmm with a coefficient per edge and head, no loop
+// manipulation; x rows hold `heads` heads of d = H / heads features, heads 1
+// for K11/K11T/K12):
+//   K11/K19:  out[r, h] = sum over e with r_e = r of coef[e, h] * x[s_e, h];
+//   K11T/K19T: dx[s, h] = sum over e with s_e = s of coef[e, h] * g[r_e, h];
+//   K12/K20:  dcoef[e, h] = <g[r_e, h], x[s_e, h]> for EVERY edge, dead ones
+//             included (cal_tpu's tile plan holds every edge of the batch;
+//             only its trailing [E + 1] pad entry is zeroed, which the port
+//             does not have);
+//   K21:      out[k, v] = max(-1e30, max over e with r_e = v of vals[k, e])
+//             for K value planes in edge order (dead edges already -1e30).
 // Liveness is the coefficient alone: a self loop is an ordinary edge (sparse
-// GIN passes coef = edge_mask), and no index is ever compared.  K11/K11T
-// skip edges of coefficient 0 (their product is 0 for finite features), so
-// the padded run at node V-1 costs one coefficient read per edge.
+// GIN passes coef = edge_mask; sparse GAT zeroes its dead and self-loop
+// edges), and no index is ever compared.  K11/K19 skip edges whose
+// coefficients are all 0 (their product is 0 for finite features), so the
+// padded run at node V-1 costs one coefficient read per edge and head.
 //
 // Rounding: x and g are read in their stored dtype (f32 or bf16, each its
-// own in K12); coefficients, products and sums are f32, and outputs are f32
-// ([V, H] for K11/K11T, [E] for K12).  The wrappers in ops/coo_spmm.py round
-// nothing; callers round a [V, H] result once to the model dtype.  On bf16
-// tile plans cal_tpu also rounds each product coef * x to bf16 before the
-// receiver sum (and g to bf16 in the VJP): exact for GIN's 0/1 coefficients
-// on bf16 features, not for a general coefficient.
+// own in K12/K20); coefficients, products and sums are f32, and outputs are
+// f32 ([V, H] for K11/K19, [E, heads] for K12/K20, [K, V] for K21).  The
+// wrappers in ops/coo_spmm.py round nothing; callers round a [V, H] result
+// once to the model dtype.  On bf16 tile plans cal_tpu also rounds each
+// product coef * x to bf16 before the receiver sum (and g to bf16 in the
+// VJP): exact for GIN's 0/1 coefficients on bf16 features, not for a general
+// coefficient.
 //
-// Design.  K11/K11T are the CSR walk of csrc/spmm.cu K2/K3, csr_rows.cuh's
-// csr_spmm_kernel (rows in groups of 32 edges, at most 64 chunks a row, one
-// warp a chunk), with the CooSpmm policy: the lanes read a group's 32
-// coefficients and neighbours at once, a ballot lists the edges of nonzero
-// coefficient, and for each in turn every lane accumulates H / 32 features
-// of the neighbour's row (8- or 16-byte loads).  A row of one chunk is
-// written by its warp; a longer row (a hub, the padded run) writes one f32
-// partial per chunk and a combine pass sums its <= 64 partials in chunk
-// order.  K12 keeps g[r] of its row in registers, walks every edge of the
-// group, reduces each dot product across the warp (a neighbour equal to the
-// previous edge's reuses its value: duplicates and the padded run), and the
-// edge's own lane writes it in edge order.  No float atomics: a result does
-// not change between runs.
+// Design.  K11/K11T/K19/K19T are the CSR walk of csrc/spmm.cu K2/K3,
+// csr_rows.cuh's csr_spmm_kernel (rows in groups of 32 edges, at most 64
+// chunks a row, one warp a chunk), with the CooSpmm policy: the lanes read a
+// group's coefficients and neighbours at once, a ballot lists the edges with
+// a nonzero coefficient, and for each in turn every lane accumulates H / 32
+// features of the neighbour's row (8- or 16-byte loads), weighted by the
+// coefficient of the head its features belong to (the group's coefficients
+// are shuffled head by head; heads divides 32, so a lane's features lie in
+// one head).  A row of one chunk is written by its warp; a longer row (a hub,
+// the padded run) writes one f32 partial per chunk and a combine pass sums
+// its <= 64 partials in chunk order.  K12/K20 keep g[r] of its row in
+// registers, walk every edge of the group, reduce each dot product across the
+// 32 / heads lanes of each head (a neighbour equal to the previous edge's
+// reuses its value: duplicates and the padded run), and write it in edge
+// order.  K21 walks the receiver CSR's chunks the same way, one warp a
+// chunk, a max over the chunk's edges per plane, and a combine pass takes
+// the max of a long row's <= 64 chunk maxima.  No float atomics: a result
+// does not change between runs.
 //
-// Bound: bytes.  K11 reads x [V, H] once (plus a neighbour row per live
-// edge, mostly from L2), 8 bytes of metadata per edge (12 through perm) and
-// writes f32 [V, H]; K12 reads x and g [V, H] and 8 bytes per edge and
-// writes 4 bytes per edge; H FMAs per edge are far below the FMA floor.
+// Bound: bytes.  K11/K19 read x [V, H] once (plus a neighbour row per live
+// edge, mostly from L2), 4 + 4 * heads bytes of metadata per edge (4 more
+// through perm) and write f32 [V, H]; K12/K20 read x and g [V, H] and 8
+// bytes per edge and write 4 * heads bytes per edge; K21 reads 4 K bytes per
+// edge and writes 4 K per node.  H FMAs per edge are far below the FMA floor.
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in
@@ -55,16 +74,18 @@
 
 namespace {
 
-// ---- K11 / K11T: coefficient SpMM over a CSR ---------------------------
+// ---- K11 / K11T, K19 / K19T: coefficient SpMM over a CSR ---------------
 
-// The csr_spmm_kernel policy of K11: one branch, liveness and coefficient
-// from coef alone, the f32 row written as summed.
-template <typename T>
+// The csr_spmm_kernel policy of K11 (NH = 1) and K19: one branch, NH
+// coefficients per edge, liveness and coefficients from coef alone, the f32
+// row written as summed.
+template <typename T, int NH>
 struct CooSpmm {
   using Elem = T;
   static constexpr int kBranches = 1;
-  const T* x[1];        // [V, H]: x (K11) or the cotangent g (K11T)
-  const float* coef;    // [E], edge order
+  static constexpr int kHeads = NH;
+  const T* x[1];        // [V, H]: x (K11/K19) or the cotangent g (K11T/K19T)
+  const float* coef;    // [E, NH], edge order
   const int* nbr;       // senders (receiver CSR) or receivers (sender CSR)
   const int* perm;      // null: edge i of the CSR is edge i; else edge perm[i]
   const int* ptr;
@@ -78,9 +99,14 @@ struct CooSpmm {
 
   __device__ __forceinline__ Row row(int) const { return Row{}; }
 
-  __device__ __forceinline__ bool edge(int e, const Row&, int& s, float (&cf)[1]) const {
-    cf[0] = coef[e];
-    if (cf[0] == 0.0f) return false;
+  __device__ __forceinline__ bool edge(int e, const Row&, int& s, float (&cf)[NH]) const {
+    bool live = false;
+#pragma unroll
+    for (int hd = 0; hd < NH; ++hd) {
+      cf[hd] = coef[(size_t)e * NH + hd];
+      live |= cf[hd] != 0.0f;
+    }
+    if (!live) return false;
     s = nbr[e];
     return true;
   }
@@ -91,12 +117,12 @@ struct CooSpmm {
   }
 };
 
-template <typename T>
+template <typename T, int NH>
 cudaError_t spmm_typed(const void* x, const float* coef, const int* nbr, const int* perm,
                        const int* ptr, const int* chunk_ptr, const int* chunk_row,
                        int n_chunks, int num_nodes, int h, float* out, float* partial,
                        cudaStream_t stream) {
-  CooSpmm<T> a;
+  CooSpmm<T, NH> a;
   a.x[0] = static_cast<const T*>(x);
   a.coef = coef;
   a.nbr = nbr;
@@ -112,7 +138,23 @@ cudaError_t spmm_typed(const void* x, const float* coef, const int* nbr, const i
   return launch_csr_spmm(a, stream);
 }
 
-// ---- K12: per-edge dot products over the receiver CSR -------------------
+template <typename T>
+cudaError_t spmm_heads(int heads, const void* x, const float* coef, const int* nbr,
+                       const int* perm, const int* ptr, const int* chunk_ptr,
+                       const int* chunk_row, int n_chunks, int num_nodes, int h, float* out,
+                       float* partial, cudaStream_t stream) {
+  switch (heads) {
+#define CASE(NH)                                                                          \
+  case NH:                                                                                \
+    return spmm_typed<T, NH>(x, coef, nbr, perm, ptr, chunk_ptr, chunk_row, n_chunks,     \
+                             num_nodes, h, out, partial, stream);
+    CASE(1) CASE(2) CASE(4) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- K12 / K20: per-edge dot products over the receiver CSR --------------
 
 template <typename TX, typename TG>
 struct SddmmArgs {
@@ -122,13 +164,14 @@ struct SddmmArgs {
   const int* ptr;
   const int* chunk_ptr;
   const int* chunk_row;
-  float* dcoef;         // [E]
+  float* dcoef;         // [E, NH]
   int n_chunks, h;
 };
 
-template <typename TX, typename TG, int F>
+template <typename TX, typename TG, int F, int NH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 coo_sddmm_kernel(const SddmmArgs<TX, TG> a) {
+  constexpr int kLanes = 32 / NH;   // lanes of one head
   const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= a.n_chunks) return;
@@ -152,17 +195,21 @@ coo_sddmm_kernel(const SddmmArgs<TX, TG> a) {
 #pragma unroll
         for (int f = 0; f < F; ++f) p = fmaf(gr[f], xs[f], p);
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
+        for (int off = kLanes / 2; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
         prev_s = s;
         prev_p = p;
       }
-      if (lane == j) dc = prev_p;
+      if (NH == 1) {
+        if (lane == j) dc = prev_p;
+      } else if (lane % kLanes == 0) {
+        a.dcoef[(size_t)(g0 + j) * NH + lane / kLanes] = prev_p;
+      }
     }
-    if (i < k.end) a.dcoef[i] = dc;
+    if (NH == 1 && i < k.end) a.dcoef[i] = dc;
   }
 }
 
-template <typename TX, typename TG>
+template <typename TX, typename TG, int NH>
 cudaError_t sddmm_typed(const void* x, const void* g, const int* senders, const int* ptr,
                         const int* chunk_ptr, const int* chunk_row, int n_chunks, int h,
                         float* dcoef, cudaStream_t stream) {
@@ -179,66 +226,142 @@ cudaError_t sddmm_typed(const void* x, const void* g, const int* senders, const 
   const int blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int threads = kWarpsPerBlock * 32;
   switch (h / 32) {
-    case 1: coo_sddmm_kernel<TX, TG, 1><<<blocks, threads, 0, stream>>>(a); break;
-    case 2: coo_sddmm_kernel<TX, TG, 2><<<blocks, threads, 0, stream>>>(a); break;
-    case 4: coo_sddmm_kernel<TX, TG, 4><<<blocks, threads, 0, stream>>>(a); break;
-    case 8: coo_sddmm_kernel<TX, TG, 8><<<blocks, threads, 0, stream>>>(a); break;
+    case 1: coo_sddmm_kernel<TX, TG, 1, NH><<<blocks, threads, 0, stream>>>(a); break;
+    case 2: coo_sddmm_kernel<TX, TG, 2, NH><<<blocks, threads, 0, stream>>>(a); break;
+    case 4: coo_sddmm_kernel<TX, TG, 4, NH><<<blocks, threads, 0, stream>>>(a); break;
+    case 8: coo_sddmm_kernel<TX, TG, 8, NH><<<blocks, threads, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+template <typename TX, typename TG>
+cudaError_t sddmm_heads(int heads, const void* x, const void* g, const int* senders,
+                        const int* ptr, const int* chunk_ptr, const int* chunk_row,
+                        int n_chunks, int h, float* dcoef, cudaStream_t stream) {
+  switch (heads) {
+#define CASE(NH)                                                                          \
+  case NH:                                                                                \
+    return sddmm_typed<TX, TG, NH>(x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks, h, \
+                                   dcoef, stream);
+    CASE(1) CASE(2) CASE(4) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TX>
-cudaError_t sddmm_by_g(int g_dtype, const void* x, const void* g, const int* senders,
-                       const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                       int n_chunks, int h, float* dcoef, cudaStream_t stream) {
+cudaError_t sddmm_by_g(int g_dtype, int heads, const void* x, const void* g,
+                       const int* senders, const int* ptr, const int* chunk_ptr,
+                       const int* chunk_row, int n_chunks, int h, float* dcoef,
+                       cudaStream_t stream) {
   if (g_dtype == 0)
-    return sddmm_typed<TX, float>(x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks, h,
+    return sddmm_heads<TX, float>(heads, x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks, h,
                                   dcoef, stream);
   if (g_dtype == 1)
-    return sddmm_typed<TX, __nv_bfloat16>(x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks,
-                                          h, dcoef, stream);
+    return sddmm_heads<TX, __nv_bfloat16>(heads, x, g, senders, ptr, chunk_ptr, chunk_row,
+                                          n_chunks, h, dcoef, stream);
   return cudaErrorInvalidValue;
+}
+
+// ---- K21: per-receiver max of value planes over the receiver CSR ---------
+
+constexpr float kNegBig = -1e30f;   // cal_tpu's init of tile_scatter_max
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+segment_max_kernel(const float* __restrict__ vals, int num_edges, int planes,
+                   const int* __restrict__ ptr, const int* __restrict__ chunk_ptr,
+                   const int* __restrict__ chunk_row, int n_chunks, int num_nodes,
+                   float* __restrict__ out, float* __restrict__ partial) {
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= n_chunks) return;
+  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
+  for (int q = 0; q < planes; ++q) {
+    const float* v = vals + (size_t)q * num_edges;
+    float m = kNegBig;
+    for (int i = k.beg + lane; i < k.end; i += kGroup) m = fmaxf(m, v[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    if (lane == 0) {
+      if (k.count == 1) out[(size_t)q * num_nodes + k.row] = m;
+      else partial[(size_t)c * planes + q] = m;
+    }
+  }
+}
+
+// the max of each long row's chunk maxima (rows of one chunk were written)
+__global__ void segment_max_combine(const int* __restrict__ chunk_ptr, int num_nodes,
+                                    int planes, const float* __restrict__ partial,
+                                    float* __restrict__ out) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= num_nodes) return;
+  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
+  if (c1 - c0 <= 1) return;
+  for (int q = 0; q < planes; ++q) {
+    float m = kNegBig;
+    for (int c = c0; c < c1; ++c) m = fmaxf(m, partial[(size_t)c * planes + q]);
+    out[(size_t)q * num_nodes + v] = m;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// K11 / K11T.  dtype of x: 0 = float32, 1 = bfloat16.  h % 32 == 0 and
-// h / 32 in {1, 2, 4, 8}; x rows aligned to h / 32 elements.  Forward (K11):
-// perm null, nbr = senders, the receiver CSR.  Transposed (K11T): perm = the
+// K11 / K11T (heads 1), K19 / K19T (heads 2, 4 or 8).  dtype of x: 0 =
+// float32, 1 = bfloat16.  h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows
+// aligned to h / 32 elements; coef [E, heads] f32.  Forward (K11/K19): perm
+// null, nbr = senders, the receiver CSR.  Transposed (K11T/K19T): perm = the
 // sender CSR's perm, nbr = receivers, the sender CSR, x = the cotangent.
 // Writes out [V, H] f32; partial holds n_chunks * h floats.
-int coo_spmm_launch(const void* x, int dtype, const float* coef, const int* nbr,
+int coo_spmm_launch(const void* x, int dtype, const float* coef, int heads, const int* nbr,
                     const int* perm, const int* ptr, const int* chunk_ptr,
                     const int* chunk_row, int n_chunks, int num_nodes, int h, float* out,
                     float* partial, cudaStream_t stream) {
   if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)spmm_typed<float>(x, coef, nbr, perm, ptr, chunk_ptr, chunk_row, n_chunks,
-                                  num_nodes, h, out, partial, stream);
+    return (int)spmm_heads<float>(heads, x, coef, nbr, perm, ptr, chunk_ptr, chunk_row,
+                                  n_chunks, num_nodes, h, out, partial, stream);
   if (dtype == 1)
-    return (int)spmm_typed<__nv_bfloat16>(x, coef, nbr, perm, ptr, chunk_ptr, chunk_row,
-                                          n_chunks, num_nodes, h, out, partial, stream);
+    return (int)spmm_heads<__nv_bfloat16>(heads, x, coef, nbr, perm, ptr, chunk_ptr,
+                                          chunk_row, n_chunks, num_nodes, h, out, partial,
+                                          stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// K12.  x_dtype, g_dtype: 0 = float32, 1 = bfloat16 (each its own).  The
-// receiver CSR (ptr, chunk_ptr, chunk_row, n_chunks) over the receiver-sorted
-// senders.  Writes dcoef [E] f32 in edge order.
-int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype,
+// K12 (heads 1), K20 (heads 2, 4 or 8).  x_dtype, g_dtype: 0 = float32, 1 =
+// bfloat16 (each its own).  The receiver CSR (ptr, chunk_ptr, chunk_row,
+// n_chunks) over the receiver-sorted senders.  Writes dcoef [E, heads] f32 in
+// edge order.
+int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype, int heads,
                      const int* senders, const int* ptr, const int* chunk_ptr,
                      const int* chunk_row, int n_chunks, int h, float* dcoef,
                      cudaStream_t stream) {
   if (n_chunks <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
   if (x_dtype == 0)
-    return (int)sddmm_by_g<float>(g_dtype, x, g, senders, ptr, chunk_ptr, chunk_row,
+    return (int)sddmm_by_g<float>(g_dtype, heads, x, g, senders, ptr, chunk_ptr, chunk_row,
                                   n_chunks, h, dcoef, stream);
   if (x_dtype == 1)
-    return (int)sddmm_by_g<__nv_bfloat16>(g_dtype, x, g, senders, ptr, chunk_ptr, chunk_row,
-                                          n_chunks, h, dcoef, stream);
+    return (int)sddmm_by_g<__nv_bfloat16>(g_dtype, heads, x, g, senders, ptr, chunk_ptr,
+                                          chunk_row, n_chunks, h, dcoef, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K21.  vals [planes, E] f32 in edge order; the receiver CSR.  Writes out
+// [planes, V] f32; partial holds n_chunks * planes floats.
+int segment_max_launch(const float* vals, int num_edges, int planes, const int* ptr,
+                       const int* chunk_ptr, const int* chunk_row, int n_chunks,
+                       int num_nodes, float* out, float* partial, cudaStream_t stream) {
+  if (n_chunks <= 0 || num_nodes <= 0 || planes <= 0) return (int)cudaErrorInvalidValue;
+  segment_max_kernel<<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32,
+                       0, stream>>>(vals, num_edges, planes, ptr, chunk_ptr, chunk_row,
+                                    n_chunks, num_nodes, out, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  segment_max_combine<<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes,
+                                                                   planes, partial, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

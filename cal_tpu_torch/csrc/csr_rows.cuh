@@ -2,8 +2,8 @@
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
 // a lane's features, the per-warp row sums with their combine pass for long
 // rows, the sender-CSR sum of per-edge f32 columns, and the coefficient SpMM
-// walk that K2/K3 and K11 instantiate.  Included by each source; it is not a
-// build target of its own.
+// walk that K2/K3, K11 and K19 instantiate.  Included by each source; it is
+// not a build target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -185,7 +185,7 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
   return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
 }
 
-// ---- coefficient SpMM over a CSR (K2/K3 of spmm.cu, K11 of coo_spmm.cu) --
+// ---- coefficient SpMM over a CSR (K2/K3 of spmm.cu, K11/K19 of coo_spmm.cu)
 //
 // out_b[r] = sum over the live edges e of row r of cf_b[e] * x_b[nbr_e], for
 // kBranches branches b.  One warp owns one chunk and walks its groups of 32
@@ -197,41 +197,62 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
 // ([n_chunks, kBranches, H]) and csr_spmm_combine sums its <= 64 partials in
 // chunk order before writing it.  The policy P holds the CSR (perm: null
 // when edge i of the CSR is edge i; ptr, chunk_ptr, chunk_row, n_chunks,
-// num_nodes, h), x[kBranches] of element type Elem, partial, and:
+// num_nodes, h), x[kBranches] of element type Elem, partial, optionally
+// kHeads (coefficients per branch and edge; default 1), and:
 //   Row row(int r)                                     the row's own state;
-//   bool edge(int e, const Row&, int& s, float (&cf)[kBranches])
-//       whether edge e is live, and then its neighbour s and coefficients;
+//   bool edge(int e, const Row&, int& s, float (&cf)[kBranches * kHeads])
+//       whether edge e is live, and then its neighbour s and coefficients
+//       (cf[b * kHeads + hd]: branch b, head hd);
 //   void write_row<F>(int r, int lane, const float (&acc)[kBranches][F])
 //       the row's output from the lane's F sums per branch.
+// With kHeads > 1 a row's h features are kHeads heads of h / kHeads, each
+// weighted by its own coefficient; a lane's F features lie in one head
+// (kHeads divides 32).
+template <typename P, typename = void>
+struct HeadsOf {
+  static constexpr int v = 1;
+};
+template <typename P>
+struct HeadsOf<P, decltype(void(P::kHeads))> {
+  static constexpr int v = P::kHeads;
+};
+
 template <typename P, int F>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_spmm_kernel(const P a) {
   constexpr int NB = P::kBranches;
+  constexpr int NH = HeadsOf<P>::v;
   using T = typename P::Elem;
   const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= a.n_chunks) return;
   const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
   const typename P::Row row = a.row(k.row);
+  const int head = lane * F / (a.h / NH);   // the head of the lane's features
   float acc[NB][F];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
   for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    // lane i: edge g0 + i -> (neighbour, coefficient per branch) when live
+    // lane i: edge g0 + i -> (neighbour, coefficients per branch) when live
     const int i = g0 + lane;
     int s_l = 0;
-    float cf_l[NB];
+    float cf_l[NB * NH];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) cf_l[b] = 0.0f;
+    for (int b = 0; b < NB * NH; ++b) cf_l[b] = 0.0f;
     const bool live = i < k.end && a.edge(a.perm == nullptr ? i : a.perm[i], row, s_l, cf_l);
     for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
       const int j = __ffs(m) - 1;
       const int s = __shfl_sync(kFull, s_l, j);
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        const float cf = __shfl_sync(kFull, cf_l[b], j);
+        float cf = 0.0f;
+#pragma unroll
+        for (int hd = 0; hd < NH; ++hd) {
+          const float v = __shfl_sync(kFull, cf_l[b * NH + hd], j);
+          if (NH == 1 || hd == head) cf = v;
+        }
         float xs[F];
         load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
 #pragma unroll

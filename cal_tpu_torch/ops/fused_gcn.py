@@ -1,15 +1,24 @@
-"""Both masked causal GCN convs in one kernel (dense layout), forward and
-backward.
+"""The dense masked GCN convs in one kernel each, forward and backward.
 
-Counterpart of cal_tpu/ops/pallas_gcn.py: ``SigmoidEdgeWeight`` and
-``fused_gcn_dense_att_dual`` with its custom VJP.  ``fused_gcn_dense_att_dual``
-is a ``torch.autograd.Function`` differentiable in xc, xo, src and dst (not in
-the adjacency, which is a count).  Its forward is ``_dual_fwd`` and its
-backward ``fused_gcn_dense_att_dual_bwd``: on CUDA tensors each launches the
-hand-written kernel in ``csrc/fused_gcn.cu``, on CPU tensors each runs its
-plain twin.  The twins reproduce the TPU kernels' rounding: the weighted
-adjacency m is built in f32 and cast to the compute dtype before a product,
-``x * dis`` and ``g * dis`` are formed in f32 and cast, every product
+Counterpart of cal_tpu/ops/pallas_gcn.py: ``SigmoidEdgeWeight``,
+``fused_gcn_dense_att_dual`` (both causal convs), ``fused_gcn_dense_att`` (one
+sigmoid-weighted conv) and ``fused_gcn_dense`` (the unweighted normalized
+aggregate), each with its custom VJP.  Each is a ``torch.autograd.Function``
+differentiable in its features and logits (not in the adjacency, which is a
+count):
+
+* ``fused_gcn_dense_att_dual``: forward ``_dual_fwd``, backward
+  ``fused_gcn_dense_att_dual_bwd`` (``_att_dual_fwd_kernel`` /
+  ``_att_dual_bwd_kernel``);
+* ``fused_gcn_dense_att`` (row 3): forward K18 (``_att_fwd_kernel``), backward
+  ``fused_gcn_dense_att_bwd``, K18B (``_att_bwd_kernel``);
+* ``fused_gcn_dense`` (row 4): forward K17 (``_mm_kernel``), backward
+  ``fused_gcn_dense_t``, K17T, the same kernel with the adjacency transposed.
+
+All run modes of the kernels in ``csrc/fused_gcn.cu`` on CUDA tensors and their
+plain twins on CPU tensors.  The twins reproduce the TPU kernels' rounding: the
+weighted adjacency m is built in f32 and cast to the compute dtype before a
+product, ``x * dis`` and ``g * dis`` are formed in f32 and cast, every product
 accumulates in f32, the remaining terms stay f32, and each result is cast
 once.
 """
@@ -36,15 +45,35 @@ class SigmoidEdgeWeight:
     dst: torch.Tensor
     negate: bool = False
 
+    def materialize(self) -> torch.Tensor:
+        """Dense [B, N, N] weights in src's dtype (the plain path)."""
+        att = torch.sigmoid(self.src.float()[:, None, :] + self.dst.float()[:, :, None])
+        return (1.0 - att if self.negate else att).to(self.src.dtype)
+
+
+_MODES = {"dual": 0, "sig": 1, "neg": 2, "plain": 3, "plain_t": 4}
+
+
+def _offdiag(adj):
+    """adj with a zero diagonal, f32."""
+    off = ~torch.eye(adj.shape[-1], dtype=torch.bool, device=adj.device)
+    return torch.where(off, adj.float(), torch.zeros((), device=adj.device))
+
 
 def _weights(adj, src, dst):
     """(sigmoid, off-diagonal adjacency, m_c, m_o), all f32 [B, N, N]."""
-    n = adj.shape[-1]
     sig = torch.sigmoid(src.float()[:, None, :] + dst.float()[:, :, None])
-    off = ~torch.eye(n, dtype=torch.bool, device=adj.device)
-    a_off = torch.where(off, adj.float(), torch.zeros((), device=adj.device))
+    a_off = _offdiag(adj)
     mc = a_off * sig
     return sig, a_off, mc, a_off - mc
+
+
+def _weights_single(adj, src, dst, negate):
+    """(sigmoid, off-diagonal adjacency, m = a_off * w), f32 [B, N, N], with
+    w = 1 - sigmoid when ``negate`` (cal_tpu's ``_att_weight``)."""
+    sig = torch.sigmoid(src.float()[:, None, :] + dst.float()[:, :, None])
+    a_off = _offdiag(adj)
+    return sig, a_off, a_off * (1.0 - sig if negate else sig)
 
 
 def _degree(m):
@@ -52,9 +81,11 @@ def _degree(m):
     return torch.rsqrt(deg), 1.0 / deg
 
 
-def _branch_plain(m, x, cdt):
+def _branch_plain(m, x, cdt, transpose=False):
     dis, inv = _degree(m)
     norm = (m * dis[:, None, :]) * dis[:, :, None]
+    if transpose:
+        norm = norm.transpose(1, 2)
     y = torch.bmm(norm.to(cdt).float(), x.to(cdt).float())
     return y + x * inv[:, :, None]
 
@@ -97,51 +128,112 @@ def fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go):
             dpre.sum(dim=-1).to(dst.dtype))
 
 
-def _check(what, ts, bsz, n):
-    xc, xo, adj, src, dst = ts[:5]
-    if xo.shape != xc.shape or adj.shape != (bsz, n, n) \
-            or src.shape != (bsz, n) or dst.shape != (bsz, n) \
-            or any(g.shape != xc.shape for g in ts[5:]):
+def fused_gcn_dense_plain(x, adj, transpose=False):
+    """Plain twin of K17 (K17T with ``transpose``): the unweighted
+    normalized aggregate ``D^-1/2 M D^-1/2 x + x/deg`` (Mᵀ for K17T, the
+    degree still M's column sums), with the kernel's rounding."""
+    return _branch_plain(_offdiag(adj), x.float(), x.dtype, transpose).to(x.dtype)
+
+
+def fused_gcn_dense_att_plain(x, adj, src, dst, negate=False):
+    """Plain twin of K18: one sigmoid-weighted masked conv (1 - sigmoid when
+    ``negate``), with the kernel's rounding."""
+    _, _, m = _weights_single(adj, src, dst, negate)
+    return _branch_plain(m, x.float(), x.dtype).to(x.dtype)
+
+
+def fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate=False):
+    """Plain twin of K18B: the VJP formulas of ``_att_bwd_kernel`` written
+    out, with its rounding.  Returns (dx, dsrc, ddst) in the input dtype."""
+    sig, a_off, m = _weights_single(adj, src, dst, negate)
+    dx, dm = _branch_bwd_plain(m, x.float(), g.float(), x.dtype)
+    dpre = dm * a_off * (sig * (1.0 - sig))
+    if negate:
+        dpre = -dpre
+    return (dx.to(x.dtype), dpre.sum(dim=-2).to(src.dtype), dpre.sum(dim=-1).to(dst.dtype))
+
+
+def _check(what, feats, adj, logits=()):
+    """feats: [B, N, H] tensors of one shape; adj [B, N, N]; logits [B, N]."""
+    x = feats[0]
+    bsz, n, _ = x.shape
+    ts = (*feats, adj, *logits)
+    if any(t.shape != x.shape for t in feats) or adj.shape != (bsz, n, n) \
+            or any(t.shape != (bsz, n) for t in logits):
         raise ValueError(f"{what}: shape mismatch "
                          + " ".join(str(tuple(t.shape)) for t in ts))
-    if any(t.dtype != xc.dtype for t in ts) or xc.dtype not in _DTYPES:
+    if any(t.dtype != x.dtype for t in ts) or x.dtype not in _DTYPES:
         raise ValueError(f"{what}: inputs must share one dtype (float32 or bfloat16)")
-    if any(t.device != xc.device for t in ts):
+    if any(t.device != x.device for t in ts):
         raise ValueError(f"{what}: inputs on different devices")
-    if xc.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {xc.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
 
 
 def _lib():
     lib = build.load("fused_gcn")
-    if lib.dual_gcn_fwd_launch.argtypes is None:
+    if lib.gcn_fwd_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dual_gcn_fwd_launch.argtypes = [vp] * 8 + [i, i, i, i, vp]
-        lib.dual_gcn_fwd_launch.restype = ctypes.c_int
-        lib.dual_gcn_bwd_launch.argtypes = [vp] * 12 + [i, i, i, i, vp]
-        lib.dual_gcn_bwd_launch.restype = ctypes.c_int
-        lib.dual_gcn_bwd_scratch_floats.argtypes = [i, i]
-        lib.dual_gcn_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.gcn_fwd_launch.argtypes = [vp] * 8 + [i, i, i, i, i, vp]
+        lib.gcn_fwd_launch.restype = ctypes.c_int
+        lib.gcn_bwd_launch.argtypes = [vp] * 12 + [i, i, i, i, i, vp]
+        lib.gcn_bwd_launch.restype = ctypes.c_int
+        lib.gcn_bwd_scratch_floats.argtypes = [i, i]
+        lib.gcn_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_launch(what, mode, xs, adj, src=None, dst=None):
+    """Launch the forward kernel in ``mode`` on contiguous CUDA tensors:
+    one output per feature tensor in ``xs``."""
+    bsz, n, h = xs[0].shape
+    outs = [torch.empty_like(x) for x in xs]
+    stats = torch.empty((2 * len(xs), bsz, n), dtype=torch.float32, device=adj.device)
+    x1, o1 = (xs[1], outs[1]) if len(xs) == 2 else (None, None)
+    err = _lib().gcn_fwd_launch(
+        adj.data_ptr(), xs[0].data_ptr(), _ptr(x1), _ptr(src), _ptr(dst), outs[0].data_ptr(),
+        _ptr(o1), stats.data_ptr(), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
+        torch.cuda.current_stream(adj.device).cuda_stream)
+    build.check(err, what)
+    return outs
+
+
+def _bwd_launch(what, mode, xs, gs, adj, src, dst):
+    """Launch the backward kernel in ``mode`` on contiguous CUDA tensors:
+    (dx per feature tensor, dsrc, ddst)."""
+    bsz, n, h = xs[0].shape
+    lib = _lib()
+    dxs = [torch.empty_like(x) for x in xs]
+    dsrc, ddst = torch.empty_like(src), torch.empty_like(dst)
+    scratch = torch.empty(lib.gcn_bwd_scratch_floats(bsz, n), dtype=torch.float32,
+                          device=adj.device)
+    two = len(xs) == 2
+    err = lib.gcn_bwd_launch(
+        adj.data_ptr(), xs[0].data_ptr(), _ptr(xs[1] if two else None), src.data_ptr(),
+        dst.data_ptr(), gs[0].data_ptr(), _ptr(gs[1] if two else None), dxs[0].data_ptr(),
+        _ptr(dxs[1] if two else None), dsrc.data_ptr(), ddst.data_ptr(), scratch.data_ptr(),
+        bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
+        torch.cuda.current_stream(adj.device).cuda_stream)
+    build.check(err, what)
+    return dxs, dsrc, ddst
+
+
+def _contig(*ts):
+    return [t.contiguous() for t in ts]
 
 
 def _dual_fwd(xc, xo, adj, src, dst):
     """Forward wrapper: the kernel on CUDA tensors, the plain twin on CPU
     tensors (no autograd)."""
-    bsz, n, h = xc.shape
-    ts = (xc, xo, adj, src, dst)
-    _check("fused_gcn_dense_att_dual", ts, bsz, n)
+    _check("fused_gcn_dense_att_dual", (xc, xo), adj, (src, dst))
     if xc.device.type == "cpu":
-        return fused_gcn_dense_att_dual_plain(*ts)
-    xc, xo, adj, src, dst = (t.contiguous() for t in ts)
-    oc = torch.empty_like(xc)
-    oo = torch.empty_like(xo)
-    stats = torch.empty((4, bsz, n), dtype=torch.float32, device=xc.device)
-    err = _lib().dual_gcn_fwd_launch(
-        adj.data_ptr(), xc.data_ptr(), xo.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        oc.data_ptr(), oo.data_ptr(), stats.data_ptr(), bsz, n, h, _DTYPES[xc.dtype],
-        torch.cuda.current_stream(xc.device).cuda_stream)
-    build.check(err, "fused_gcn_dense_att_dual")
+        return fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst)
+    xc, xo, adj, src, dst = _contig(xc, xo, adj, src, dst)
+    oc, oo = _fwd_launch("fused_gcn_dense_att_dual", "dual", (xc, xo), adj, src, dst)
     fused_gcn_dense_att_dual.launches += 1
     return oc, oo
 
@@ -150,23 +242,12 @@ def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go):
     """VJP of both masked convs: cotangents gc/go [B, N, H] of (oc, oo) ->
     (dxc, dxo, dsrc, ddst).  Launches the backward kernel on CUDA tensors,
     runs ``fused_gcn_dense_att_dual_bwd_plain`` on CPU tensors."""
-    bsz, n, h = xc.shape
-    ts = (xc, xo, adj, src, dst, gc, go)
-    _check("fused_gcn_dense_att_dual_bwd", ts, bsz, n)
+    _check("fused_gcn_dense_att_dual_bwd", (xc, xo, gc, go), adj, (src, dst))
     if xc.device.type == "cpu":
-        return fused_gcn_dense_att_dual_bwd_plain(*ts)
-    xc, xo, adj, src, dst, gc, go = (t.contiguous() for t in ts)
-    lib = _lib()
-    dxc, dxo = torch.empty_like(xc), torch.empty_like(xo)
-    dsrc, ddst = torch.empty_like(src), torch.empty_like(dst)
-    scratch = torch.empty(lib.dual_gcn_bwd_scratch_floats(bsz, n), dtype=torch.float32,
-                          device=xc.device)
-    err = lib.dual_gcn_bwd_launch(
-        adj.data_ptr(), xc.data_ptr(), xo.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        gc.data_ptr(), go.data_ptr(), dxc.data_ptr(), dxo.data_ptr(), dsrc.data_ptr(),
-        ddst.data_ptr(), scratch.data_ptr(), bsz, n, h, _DTYPES[xc.dtype],
-        torch.cuda.current_stream(xc.device).cuda_stream)
-    build.check(err, "fused_gcn_dense_att_dual_bwd")
+        return fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)
+    xc, xo, adj, src, dst, gc, go = _contig(xc, xo, adj, src, dst, gc, go)
+    (dxc, dxo), dsrc, ddst = _bwd_launch("fused_gcn_dense_att_dual_bwd", "dual", (xc, xo),
+                                         (gc, go), adj, src, dst)
     fused_gcn_dense_att_dual_bwd.launches += 1
     return dxc, dxo, dsrc, ddst
 
@@ -196,5 +277,104 @@ def fused_gcn_dense_att_dual(xc, xo, adj, src, dst):
     return _DualGCN.apply(xc, xo, adj, src, dst)
 
 
+# ---- row 3: one sigmoid-weighted conv (K18, K18B) ------------------------
+def _att_fwd(x, adj, src, dst, negate):
+    """K18 on CUDA tensors, its plain twin on CPU tensors (no autograd)."""
+    _check("fused_gcn_dense_att", (x,), adj, (src, dst))
+    if x.device.type == "cpu":
+        return fused_gcn_dense_att_plain(x, adj, src, dst, negate)
+    x, adj, src, dst = _contig(x, adj, src, dst)
+    (out,) = _fwd_launch("fused_gcn_dense_att", "neg" if negate else "sig", (x,), adj, src, dst)
+    fused_gcn_dense_att.launches += 1
+    return out
+
+
+def fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate=False):
+    """K18B: the VJP of one weighted conv, cotangent g [B, N, H] ->
+    (dx, dsrc, ddst).  Launches the kernel on CUDA tensors, runs
+    ``fused_gcn_dense_att_bwd_plain`` on CPU tensors."""
+    _check("fused_gcn_dense_att_bwd", (x, g), adj, (src, dst))
+    if x.device.type == "cpu":
+        return fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)
+    x, adj, src, dst, g = _contig(x, adj, src, dst, g)
+    (dx,), dsrc, ddst = _bwd_launch("fused_gcn_dense_att_bwd", "neg" if negate else "sig",
+                                    (x,), (g,), adj, src, dst)
+    fused_gcn_dense_att_bwd.launches += 1
+    return dx, dsrc, ddst
+
+
+class _AttGCN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, adj, src, dst, negate):
+        ctx.save_for_backward(x, adj, src, dst)
+        ctx.negate = negate
+        return _att_fwd(x, adj, src, dst, negate)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dsrc, ddst = fused_gcn_dense_att_bwd(*ctx.saved_tensors, g, ctx.negate)
+        return dx, None, dsrc, ddst, None
+
+
+def fused_gcn_dense_att(x, adj, src, dst, negate=False):
+    """One attention-weighted normalized GCN aggregate (row 3): edge s -> r
+    weighs sigmoid(src_s + dst_r), or 1 - that when ``negate``; equal to
+    ``gcn_aggregate_dense(x, adj, SigmoidEdgeWeight(src, dst, negate)
+    .materialize())`` up to rounding.  x [B, N, H], adj [B, N, N], src/dst
+    [B, N], one dtype.  Differentiable in x, src and dst; ``.launches``
+    counts K18 launches, ``fused_gcn_dense_att_bwd.launches`` K18B ones."""
+    return _AttGCN.apply(x, adj, src, dst, bool(negate))
+
+
+# ---- row 4: the unweighted normalized aggregate (K17, K17T) ---------------
+def _mm(what, x, adj, transpose):
+    _check(what, (x,), adj)
+    if x.device.type == "cpu":
+        return fused_gcn_dense_plain(x, adj, transpose)
+    x, adj = _contig(x, adj)
+    (out,) = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
+    return out
+
+
+def _mm_fwd(x, adj):
+    out = _mm("fused_gcn_dense", x, adj, False)
+    if x.device.type == "cuda":
+        fused_gcn_dense.launches += 1
+    return out
+
+
+def fused_gcn_dense_t(g, adj):
+    """K17T: ``D^-1/2 Mᵀ D^-1/2 g + g/deg`` (deg M's column sums), the VJP
+    of ``fused_gcn_dense``; the kernel on CUDA tensors, the plain twin on
+    CPU tensors.  ``.launches`` counts kernel launches."""
+    out = _mm("fused_gcn_dense_t", g, adj, True)
+    if g.device.type == "cuda":
+        fused_gcn_dense_t.launches += 1
+    return out
+
+
+class _PlainGCN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, adj):
+        ctx.save_for_backward(adj)
+        return _mm_fwd(x, adj)
+
+    @staticmethod
+    def backward(ctx, g):
+        (adj,) = ctx.saved_tensors
+        return fused_gcn_dense_t(g.to(adj.dtype), adj), None
+
+
+def fused_gcn_dense(x, adj):
+    """The unweighted normalized GCN aggregate (row 4): self loops dropped
+    and re-added, sender degree; x [B, N, H], adj [B, N, N] counts of x's
+    dtype.  Differentiable in x (K17T); ``.launches`` counts K17 launches."""
+    return _PlainGCN.apply(x, adj)
+
+
 fused_gcn_dense_att_dual.launches = 0
 fused_gcn_dense_att_dual_bwd.launches = 0
+fused_gcn_dense_att.launches = 0
+fused_gcn_dense_att_bwd.launches = 0
+fused_gcn_dense.launches = 0
+fused_gcn_dense_t.launches = 0

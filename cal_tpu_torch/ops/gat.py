@@ -12,7 +12,13 @@ heads] sparse), so the model path never calls them: the layer runs the
 flash-GAT kernel (``ops/flash_gat.py``, Philox dropout bits the backward
 replays) on the dense layout and the sparse GAT kernels
 (``ops/gat_sparse.py``) on the sparse one, and the tests hold those
-kernels' plain twins against these references.
+kernels' plain twins against these references.  ``gat_aggregate_sparse_mh``
+(cal_tpu's ``gat_aggregate_sparse_pallas``) keeps the score and softmax
+chain in torch ops and aggregates on the multi-head coefficient SpMM of
+``ops/coo_spmm.py``; only the on-card parity entry point calls it.  The
+sparse references apply attention dropout as cal_tpu's ``_alpha_dropout``
+does, with Bernoulli bits from an explicit ``torch.Generator``: first the
+edges' [E, heads] mask, then the self terms' [V, heads].
 
 The sparse layout's keep bits are an integer hash of the edge id, the head
 and a two-word seed, bit for bit cal_tpu's: the forward over the receiver
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from cal_tpu_torch.ops.coo_spmm import coo_spmm_mh
 from cal_tpu_torch.ops.segment import segment_sum
 
 NEG_SLOPE = 0.2   # PyG 1.1.0 GATConv default negative_slope
@@ -97,19 +104,22 @@ def gat_aggregate_dense(xh: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tens
     return torch.einsum("brsh,bshd->brhd", alpha.float(), xh.float()).to(xh.dtype)
 
 
-def gat_aggregate_sparse(xh: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
-                         edge_mask: torch.Tensor, att_dst: torch.Tensor,
-                         att_src: torch.Tensor) -> torch.Tensor:
-    """Sparse multi-head GAT without dropout: SDDMM edge scores, segment
-    softmax with the analytic self loop, SpMM.  xh [V, heads, d];
-    senders/receivers/edge_mask [E] (receiver-sorted); att_dst / att_src
-    [heads, d].  Dead edges and self-loop edges are dropped.  Computes in
-    xh's dtype, as the JAX version does."""
-    v, heads, _ = xh.shape
-    ti = torch.einsum("vhd,hd->vh", xh, att_dst)
-    tj = torch.einsum("vhd,hd->vh", xh, att_src)
-    s, r = senders.long(), receivers.long()
-    live = (edge_mask & (s != r))[:, None]
+def _alpha_dropout(alpha: torch.Tensor, rate: float,
+                   generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout on attention coefficients (cal_tpu ``_alpha_dropout``):
+    keep with probability 1 - rate, a uniform draw of ``generator`` per
+    entry."""
+    if rate <= 0.0 or generator is None:
+        return alpha
+    keep = torch.rand(alpha.shape, generator=generator, device=alpha.device) < 1.0 - rate
+    return torch.where(keep, alpha / (1.0 - rate), torch.zeros((), dtype=alpha.dtype,
+                                                                 device=alpha.device))
+
+
+def _sparse_alphas(ti, tj, s, r, live, v):
+    """(alpha_e [E, heads], alpha_self [V, heads]) of the segment softmax
+    with the analytic self loop, in ti's dtype."""
+    heads = ti.shape[1]
     score = torch.nn.functional.leaky_relu(ti[r] + tj[s], NEG_SLOPE)
     score = torch.where(live, score, torch.full_like(score, _BIG_NEG))
     self_score = torch.nn.functional.leaky_relu(ti + tj, NEG_SLOPE)
@@ -117,5 +127,50 @@ def gat_aggregate_sparse(xh: torch.Tensor, senders: torch.Tensor, receivers: tor
     num_e = torch.where(live, torch.exp(score - m[r]), torch.zeros_like(score))
     num_self = torch.exp(self_score - m)
     denom = segment_sum(num_e, r, v) + num_self
-    out = segment_sum((num_e / denom[r])[..., None] * xh[s], r, v)
-    return out + (num_self / denom)[..., None] * xh
+    return num_e / denom[r], num_self / denom
+
+
+def gat_aggregate_sparse(xh: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
+                         edge_mask: torch.Tensor, att_dst: torch.Tensor,
+                         att_src: torch.Tensor, dropout_rate: float = 0.0,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
+    """Sparse multi-head GAT: SDDMM edge scores, segment softmax with the
+    analytic self loop, attention dropout (with a ``generator``), SpMM.  xh
+    [V, heads, d]; senders/receivers/edge_mask [E] (receiver-sorted);
+    att_dst / att_src [heads, d].  Dead edges and self-loop edges are
+    dropped.  Computes in xh's dtype, as the JAX version does."""
+    v = xh.shape[0]
+    ti = torch.einsum("vhd,hd->vh", xh, att_dst)
+    tj = torch.einsum("vhd,hd->vh", xh, att_src)
+    s, r = senders.long(), receivers.long()
+    live = (edge_mask & (s != r))[:, None]
+    alpha_e, alpha_self = _sparse_alphas(ti, tj, s, r, live, v)
+    alpha_e = _alpha_dropout(alpha_e, dropout_rate, generator)
+    alpha_self = _alpha_dropout(alpha_self, dropout_rate, generator)
+    out = segment_sum(alpha_e[..., None] * xh[s], r, v)
+    return out + alpha_self[..., None] * xh
+
+
+def gat_aggregate_sparse_mh(xh: torch.Tensor, g, att_dst: torch.Tensor,
+                            att_src: torch.Tensor, dropout_rate: float = 0.0,
+                            generator: torch.Generator | None = None) -> torch.Tensor:
+    """``gat_aggregate_sparse`` with the message aggregation on the
+    multi-head coefficient SpMM (counterpart of cal_tpu's
+    ``gat_aggregate_sparse_pallas``).  xh [V, heads, d] and g a GraphBatch.
+    The score and softmax chain and the dropout (bits drawn as
+    ``gat_aggregate_sparse`` draws them) run in f32 torch ops; K19 sums
+    alpha_e x[s] per head by receiver, the self term is added in f32 and the
+    result rounded once to xh's dtype.  Differentiable in xh, att_dst and
+    att_src (K19T for the messages' dx, K20 for dalpha_e)."""
+    v, heads, d = xh.shape
+    xf = xh.float()
+    ti = torch.einsum("vhd,hd->vh", xf, att_dst.float())
+    tj = torch.einsum("vhd,hd->vh", xf, att_src.float())
+    s, r = g.senders.long(), g.receivers.long()
+    live = (g.edge_mask & (s != r))[:, None]
+    alpha_e, alpha_self = _sparse_alphas(ti, tj, s, r, live, v)
+    alpha_e = _alpha_dropout(alpha_e, dropout_rate, generator)
+    alpha_self = _alpha_dropout(alpha_self, dropout_rate, generator)
+    out = coo_spmm_mh(xf.reshape(v, heads * d), alpha_e.contiguous(), g, heads)
+    out = out.reshape(v, heads, d) + alpha_self[..., None] * xf
+    return out.to(xh.dtype)

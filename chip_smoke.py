@@ -139,6 +139,20 @@
       packed against worst-case-padded training on 256 REDDIT-shaped
       threads, in graphs/s.
 
+10. the parity entry point and the last four TPU kernel rows:
+   a. ``cal_tpu_torch.parity.main`` in this process at full size, every
+      counter at 0 just before: benchmarks/parity_tpu.py's eleven sections,
+      each kernel path against the port's plain reference on the card,
+      forward and gradients; a failure ends the smoke.  Rows 3, 4 and 9 and
+      K12 must launch there, their only run; K21 (row 14) has no run;
+   b. rows 4 and 3 (K17/K17T, K18/K18B, ``csrc/fused_gcn.cu``) against their
+      twins on the synthetic dense batch (B = 128, N = 256, H = 128), bf16 and
+      f32, both ``negate``s, timed beside torch.bmm on a prebuilt normalized
+      adjacency (row 4); row 9 (K19/K19T/K20, ``csrc/coo_spmm.cu``) at 4 heads
+      of 32 and row 14 (K21) at 4 planes on the serving batch, timed beside
+      torch.sparse.mm on a block-diagonal per-head CSR, a batched
+      torch.sparse.sampled_addmm (K20) and scatter_reduce_ amax.
+
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -1589,6 +1603,23 @@ def _library_sddmm(torch, g, x, gout):
     return lambda: torch.sparse.sampled_addmm(a, gout, xt, beta=0.0)
 
 
+def _library_sddmm_mh(torch, g, x, gout, heads):
+    """One batched torch.sparse.sampled_addmm over the receiver CSR
+    repeated per head [heads, V, V] of (gout_h @ x_h^T), i.e. <gout[r, h],
+    x[s, h]> per stored edge and head, f32; the CSR, the per-head split of
+    gout and x and the cast of x built outside the call.  Returns the call
+    and its result's values as [E, heads]."""
+    v, e = g.num_nodes, g.senders.shape[0]
+    d = gout.shape[1] // heads
+    a = torch.sparse_csr_tensor(g.recv.ptr.long()[None].expand(heads, -1).contiguous(),
+                                g.senders.long()[None].expand(heads, -1).contiguous(),
+                                torch.zeros((heads, e), device="cuda"), size=(heads, v, v))
+    gh = gout.float().view(v, heads, d).permute(1, 0, 2).contiguous()
+    xt = x.float().view(v, heads, d).permute(1, 2, 0).contiguous()
+    fn = lambda: torch.sparse.sampled_addmm(a, gh, xt, beta=0.0)
+    return fn, lambda: fn().values().T
+
+
 def coo_kernel_rows(torch, g, label, peaks, flush):
     """K11, K11T and K12 against their twins on one sparse batch ``g`` (on
     the card), x in bf16 and f32, at coef = the edge mask (sparse GIN's) and
@@ -2492,6 +2523,219 @@ def bench_phase(torch) -> dict:
     return launches
 
 
+def parity_phase(torch) -> dict:
+    """``cal_tpu_torch.parity.main`` in this process on the card at full
+    size, every kernel counter at 0 just before: the eleven sections of
+    benchmarks/parity_tpu.py, each kernel path against the port's plain
+    reference, forward and gradients.  A failure ends the smoke (the
+    entry point's SystemExit is not caught).  Returns the launches of the
+    run by kernel; rows 3, 4 and 9 (and K12) must have launched."""
+    from cal_tpu_torch import parity
+
+    counts = all_counters()
+    for k in counts.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = parity.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counts.items()}
+    reached = [n for n in ROW_KERNEL_ROWS if n not in OFF_MAIN_PATH] + ["coo_sddmm"]
+    check(all(launches[n] > 0 for n in reached), f"parity launches {launches}")
+    check(launches["segment_max"] == 0, "the parity run launched K21")
+    worst = {}
+    for r in results:
+        if "rel_max_err" in r:
+            key = r["section"].split(" vs ")[0]
+            worst[key] = max(worst.get(key, 0.0), r["rel_max_err"])
+    emit({"phase": "parity", "seconds": wall, "checks": len(results),
+          "worst_rel_max_err_by_section": worst, "launches": launches,
+          "rows_3_4": {r["name"]: r["rel_max_err"] for r in results
+                       if r["section"].startswith("fused dense GCN")}})
+    return launches
+
+
+def all_counters() -> dict:
+    """Every launch-counted kernel wrapper of the port, by row name."""
+    from cal_tpu_torch.ops import (
+        adj_build, coo_spmm, edge_gat, flash_gat, fused_gcn, gat_sparse, pool, spmm)
+
+    mods = (adj_build, fused_gcn, flash_gat, edge_gat, spmm, pool, gat_sparse, coo_spmm)
+    names = ([c for c, *_ in KERNEL_ROWS.values()] + list(SPARSE_KERNEL_ROWS)
+             + list(SPARSE_BWD_KERNEL_ROWS) + list(GAT_KERNEL_ROWS) + list(COO_KERNEL_ROWS)
+             + list(EDGE_KERNEL_ROWS) + list(SIGMOID_KERNEL_ROWS) + list(ROW_KERNEL_ROWS))
+    out = {}
+    for n in names:
+        out[n] = next(getattr(m, n) for m in mods if hasattr(getattr(m, n, None), "launches"))
+    return out
+
+
+def _row(torch, name, dt_name, fn, plain, nbytes, flops, peak, err, tol, bw, flush,
+         lib_fn=None, lib_call=None, **extra):
+    t_bytes, t_ops = nbytes / bw, flops / peak
+    r = {"name": name, "dtype": dt_name, "max_abs_err": err, "atol": tol[0], "rtol": tol[1],
+         "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
+         "library_ms": None if lib_fn is None else time_ms(torch, lib_fn, flush),
+         "library_call": lib_call, "bytes": nbytes, "flops": flops,
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations", **extra}
+    emit({"phase": "row_kernel", **r})
+    return r
+
+
+def _held(torch, name, dt_name, got, ref, tol):
+    torch.cuda.synchronize()
+    check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name} {dt_name} misshapen")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} {dt_name} not finite")
+    err, over = max_excess(torch, got, ref, *tol)
+    check(over <= 0, f"{name} {dt_name} differs from its plain twin: {err}")
+    return err
+
+
+def dense_row_kernels(torch, batch, peaks, flush):
+    """Rows 4 and 3 (K17, K17T, K18, K18B) against their twins on the
+    synthetic dense batch (B = 128, N = 256, H = 128), bf16 and f32, both
+    ``negate``s, timed beside torch.bmm on a prebuilt normalized adjacency
+    (rows 4); row 3 has no single PyTorch call.  Returns {dtype: {kernel:
+    row}}."""
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    bw, bf16_peak, f32_peak = peaks
+    bsz, n, _ = batch.x.shape
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+        adj = to_dense(batch, dt).adj
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+        x, g = (torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt) for _ in range(2))
+        src = torch.randn((bsz, n), generator=gen, device="cuda").to(dt)
+        dst = (2.0 * torch.randn((bsz, n), generator=gen, device="cuda")).to(dt)
+        tol, btol = DUAL_TOL[dt_name], DUAL_BWD_TOL[dt_name]
+        e17 = _held(torch, "K17", dt_name, fg._mm_fwd(x, adj), fg.fused_gcn_dense_plain(x, adj),
+                    tol)
+        e17t = _held(torch, "K17T", dt_name, fg.fused_gcn_dense_t(g, adj),
+                     fg.fused_gcn_dense_plain(g, adj, True), tol)
+        e18, e18b = [], []
+        for negate in (False, True):
+            e18.append(_held(torch, "K18", dt_name, fg._att_fwd(x, adj, src, dst, negate),
+                             fg.fused_gcn_dense_att_plain(x, adj, src, dst, negate), tol))
+            for nm, a, r in zip(("dx", "dsrc", "ddst"),
+                                fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate),
+                                fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)):
+                e18b.append(_held(torch, f"K18B {nm}", dt_name, a, r, btol))
+        # the library yardstick: the normalized adjacency (and its transpose)
+        # built outside the call, one batched product in x's dtype
+        m = fg._offdiag(adj)
+        deg = m.sum(dim=-2) + 1.0
+        dis = torch.rsqrt(deg)
+        norm = ((m * dis[:, None, :]) * dis[:, :, None]).to(dt)
+        norm_t = norm.transpose(1, 2).contiguous()
+        plane, adj_b, lg = bsz * n * H * elt, bsz * n * n * elt, bsz * n * elt
+        prod = 2 * bsz * n * n * H
+        rows = {}
+        rows["fused_gcn_dense"] = _row(
+            torch, "fused_gcn_dense", dt_name, lambda: fg._mm_fwd(x, adj),
+            lambda: fg.fused_gcn_dense_plain(x, adj), adj_b + 2 * plane, prod, peak, e17, tol,
+            bw, flush, lambda: torch.bmm(norm, x),
+            "torch.bmm(normalized adjacency, x) in x's dtype, adjacency built outside the call")
+        rows["fused_gcn_dense_t"] = _row(
+            torch, "fused_gcn_dense_t", dt_name, lambda: fg.fused_gcn_dense_t(g, adj),
+            lambda: fg.fused_gcn_dense_plain(g, adj, True), adj_b + 2 * plane, prod, peak,
+            e17t, tol, bw, flush, lambda: torch.bmm(norm_t, g),
+            "torch.bmm(transposed normalized adjacency, g), built outside the call")
+        rows["fused_gcn_dense_att"] = _row(
+            torch, "fused_gcn_dense_att", dt_name, lambda: fg._att_fwd(x, adj, src, dst, False),
+            lambda: fg.fused_gcn_dense_att_plain(x, adj, src, dst, False),
+            adj_b + 2 * plane + 2 * lg, prod, peak, max(e18), tol, bw, flush, None,
+            "none: no single PyTorch call computes the sigmoid-weighted normalized aggregate")
+        rows["fused_gcn_dense_att_bwd"] = _row(
+            torch, "fused_gcn_dense_att_bwd", dt_name,
+            lambda: fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, False),
+            lambda: fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, False),
+            adj_b + 3 * plane + 4 * lg, 3 * prod, peak, max(e18b), btol, bw, flush, None,
+            "none: no single PyTorch call computes the sigmoid-weighted aggregate's VJP")
+        out[dt_name] = rows
+    return out
+
+
+def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
+    """Row 9 (K19, K19T, K20) at ``heads`` heads of H / heads and row 14
+    (K21) at ``planes`` value planes against their twins on one sparse batch
+    ``g``, x in bf16 and f32 (the coefficients, K21's values and the
+    cotangent f32), timed beside torch.sparse.mm on a block-diagonal
+    per-head CSR (K19, K19T), a batched sampled_addmm over the receiver CSR
+    repeated per head (K20, held against K20's twin too) and scatter_reduce_
+    amax (K21).  Returns {dtype: {kernel: row}}."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    bw, _, f32_peak = peaks
+    v, e = g.num_nodes, g.senders.shape[0]
+    live = g.edge_mask & (g.senders != g.receivers)
+    n_nz = int(live.sum())
+    csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        x = torch.randn((v, H), generator=gen, device="cuda").to(dt)
+        gout = torch.randn((v, H), generator=gen, device="cuda")
+        coef = torch.rand((e, heads), generator=gen, device="cuda") * live[:, None]
+        vals = torch.randn((planes, e), generator=gen, device="cuda")
+        vals = torch.where(g.edge_mask[None], vals, torch.full_like(vals, -1e30))
+        e19 = _held(torch, "K19", dt_name, coo._coo_spmm_mh_fwd(x, coef, g, heads),
+                    coo.coo_spmm_plain(x, coef, g), COO_TOL)
+        e19t = _held(torch, "K19T", dt_name, coo.coo_spmm_mh_t(gout, coef, g, heads),
+                     coo.coo_spmm_t_plain(gout, coef, g), COO_TOL)
+        e20 = _held(torch, "K20", dt_name, coo.coo_sddmm_mh(x, gout, g, heads),
+                    coo.coo_sddmm_plain(x, gout, g, heads), COO_TOL)
+        lib20, lib20_vals = _library_sddmm_mh(torch, g, x, gout, heads)
+        _held(torch, "K20's sampled_addmm yardstick", dt_name, lib20_vals(),
+              coo.coo_sddmm_plain(x, gout, g, heads), COO_TOL)
+        e21 = _held(torch, "K21", dt_name, coo.segment_max(vals, g),
+                    coo.segment_max_plain(vals, g), (0.0, 0.0))
+        idx = g.receivers.long()[None].expand(planes, -1)
+        amax = torch.full((planes, v), -1e30, device="cuda")
+        extra = {"batch": label, "nodes": v, "edges": e, "nonzero_coef_edges": n_nz,
+                 "heads": heads}
+        rows = {}
+        rows["coo_spmm_mh"] = _row(
+            torch, "coo_spmm_mh", dt_name, lambda: coo._coo_spmm_mh_fwd(x, coef, g, heads),
+            lambda: coo.coo_spmm_plain(x, coef, g),
+            v * H * elt + 4 * e * (1 + heads) + csr(g.recv) + v * H * 4, 2 * H * n_nz,
+            f32_peak, e19, COO_TOL, bw, flush, _library_gat_spmm(torch, g, coef.T.contiguous(),
+                                                                 x, False),
+            "torch.sparse.mm(block-diagonal per-head CSR [heads*V, heads*V], per-head x "
+            "blocks) in x's dtype, built outside the call", **extra)
+        rows["coo_spmm_mh_t"] = _row(
+            torch, "coo_spmm_mh_t", dt_name, lambda: coo.coo_spmm_mh_t(gout, coef, g, heads),
+            lambda: coo.coo_spmm_t_plain(gout, coef, g),
+            v * H * 4 + 4 * e * (2 + heads) + csr(g.send) + v * H * 4, 2 * H * n_nz,
+            f32_peak, e19t, COO_TOL, bw, flush,
+            _library_gat_spmm(torch, g, coef.T.contiguous(), gout, True),
+            "torch.sparse.mm(transposed block-diagonal per-head CSR, per-head g blocks), "
+            "built outside the call", **extra)
+        rows["coo_sddmm_mh"] = _row(
+            torch, "coo_sddmm_mh", dt_name, lambda: coo.coo_sddmm_mh(x, gout, g, heads),
+            lambda: coo.coo_sddmm_plain(x, gout, g, heads),
+            v * H * elt + v * H * 4 + 4 * e + csr(g.recv) + 4 * heads * e, 2 * H * e,
+            f32_peak, e20, COO_TOL, bw, flush, lib20,
+            "torch.sparse.sampled_addmm(receiver CSR repeated per head [heads, V, V], "
+            "per-head g [heads, V, d], per-head x^T [heads, d, V]) in f32, CSR, split and "
+            "cast built outside the call", **extra)
+        rows["segment_max"] = _row(
+            torch, "segment_max", dt_name, lambda: coo.segment_max(vals, g),
+            lambda: coo.segment_max_plain(vals, g),
+            4 * planes * e + csr(g.recv) + 4 * planes * v, planes * e, f32_peak, e21,
+            (0.0, 0.0), bw, flush,
+            lambda: amax.scatter_reduce_(1, idx, vals, "amax"),
+            "Tensor.scatter_reduce_(1, receivers [K, E], vals, 'amax') into a [K, V] plane "
+            "at -1e30, index built outside the call", **{**extra, "planes": planes})
+        out[dt_name] = rows
+    return out
+
+
 # kernel row -> (launch counter, model whose training run is its main path,
 # source, the TPU kernel it replaces)
 KERNEL_ROWS = {
@@ -2536,7 +2780,9 @@ COO_KERNEL_ROWS = {
                    "cal_tpu/ops/pallas_spmm.py:444 on tiles_bwd (_coo_bwd, :585)"),
     "coo_sddmm": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:513"),
 }
-OFF_MAIN_PATH = {"coo_sddmm"}
+# the kernel rows no run of the port reaches: row 14 (K21), whose only path
+# is its tests (cal_tpu's too); it is held and timed in phase 10
+OFF_MAIN_PATH = {"segment_max"}
 # edge-formulated GAT kernel row -> (source, the TPU kernel it replaces);
 # launches come from the main_real CausalGAT run on SYNREDDIT, its main path
 EDGE_KERNEL_ROWS = {
@@ -2556,6 +2802,26 @@ SIGMOID_KERNEL_ROWS = {
                             "cal_tpu/ops/pallas_spmm.py:513 and :1990 in _sig_bwd (:913)"),
     "sigmoid_dpre": ("cal_tpu_torch/csrc/spmm.cu",
                      "cal_tpu/ops/pallas_spmm.py:1126 and :1990 in _sig_bwd (:913)"),
+}
+# rows 3, 4, 9 and 14's kernel row -> (source, the TPU kernel it replaces);
+# launches come from the parity entry point's run (cal_tpu_torch.parity), the
+# only run of the port that reaches rows 3, 4 and 9 (as benchmarks/
+# parity_tpu.py is cal_tpu's)
+ROW_KERNEL_ROWS = {
+    "fused_gcn_dense": ("cal_tpu_torch/csrc/fused_gcn.cu",
+                        "cal_tpu/ops/pallas_gcn.py:178 _mm_call (_mm_kernel :82)"),
+    "fused_gcn_dense_t": ("cal_tpu_torch/csrc/fused_gcn.cu",
+                          "cal_tpu/ops/pallas_gcn.py:178 _mm_call, transpose (VJP :202)"),
+    "fused_gcn_dense_att": ("cal_tpu_torch/csrc/fused_gcn.cu",
+                            "cal_tpu/ops/pallas_gcn.py:222 _att_fwd (_att_fwd_kernel :113)"),
+    "fused_gcn_dense_att_bwd": ("cal_tpu_torch/csrc/fused_gcn.cu",
+                                "cal_tpu/ops/pallas_gcn.py:238 _att_bwd (_att_bwd_kernel :124)"),
+    "coo_spmm_mh": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:696"),
+    "coo_spmm_mh_t": ("cal_tpu_torch/csrc/coo_spmm.cu",
+                      "cal_tpu/ops/pallas_spmm.py:696 on tiles_bwd (_coo_mh_bwd, :799)"),
+    "coo_sddmm_mh": ("cal_tpu_torch/csrc/coo_spmm.cu", "cal_tpu/ops/pallas_spmm.py:745"),
+    "segment_max": ("cal_tpu_torch/csrc/coo_spmm.cu",
+                    "cal_tpu/ops/pallas_spmm.py:1937 tile_scatter_max (kernel :1915)"),
 }
 # sparse backward kernel row -> (source, the TPU kernel it replaces); launches
 # come from the sparse training run, its main path
@@ -2760,6 +3026,17 @@ def main() -> int:
     bench_launches = bench_phase(torch)
     lap("bench")
 
+    # phase 10: the parity entry point at full size (rows 3, 4 and 9's only
+    # run), then rows 3, 4, 9 and 14's kernels against their twins, timed
+    parity_launches = parity_phase(torch)
+    lap("parity")
+    dense_rows = dense_row_kernels(torch, batch, peaks, flush)
+    serve_batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
+    row_rows = {dt: {**dense_rows[dt], **r} for dt, r in sparse_row_kernels(
+        torch, serve_batch, "synthetic", peaks, flush).items()}
+    del serve_batch
+    lap("row_kernels")
+
     # launches: the training run of the model whose slice brought the kernel
     # (its main path); every run's counts beside them
     rows = []
@@ -2805,9 +3082,11 @@ def main() -> int:
                   **{run: c[kernel] for run, c in baseline_launches.items() if c[kernel]}}
         if kernel in gin_serve_launches:
             by_run["serve_sparse_CausalGIN"] = gin_serve_launches[kernel]
+        # no model's coefficient needs a gradient: K12's run is the parity run
+        main_run = parity_launches if kernel == "coo_sddmm" else gin_train_launches
         rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": gin_train_launches[kernel], "launches_by_run": by_run,
-                     "on_main_path": kernel not in OFF_MAIN_PATH,
+                     "launches": main_run[kernel], "launches_by_run": by_run,
+                     "on_main_path": kernel != "coo_sddmm",
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2831,9 +3110,25 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "dtype": "bfloat16"})
-    check(len(rows) == 28, f"{len(rows)} kernel rows")
+    for kernel, (src, rep) in ROW_KERNEL_ROWS.items():
+        r = row_rows["bfloat16"][kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": parity_launches[kernel],
+                     "launches_by_run": {"parity": parity_launches[kernel]},
+                     "on_main_path": False,
+                     "max_abs_err": max(t[kernel]["max_abs_err"] for t in row_rows.values()),
+                     "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "dtype": "bfloat16"})
+    for r in rows:
+        r["launches_by_run"].setdefault("parity", parity_launches[r["name"]]
+                                        if r["name"] in parity_launches
+                                        else parity_launches[KERNEL_ROWS[r["name"]][0]])
+    check(len(rows) == 36, f"{len(rows)} kernel rows")
+    # every row has launches in the run that reaches it; row 14 has no run
     check(all((r["launches"] > 0) != (r["name"] in OFF_MAIN_PATH) for r in rows),
-          "a kernel row of the main path has no launch")
+          "a kernel row has no launch in the run that reaches it")
     emit({"phase": "timing", "seconds": laps, "total_s": time.perf_counter() - start})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -897,3 +897,135 @@ def test_edge_gat_kernels_are_deterministic_and_raise(cuda):
         eg.edge_gat_fwd(ti, tj, xh, ef.long())
     with pytest.raises(ValueError, match="heads"):
         eg.edge_gat_fwd(ti, tj, xh[..., :96].contiguous(), ef)
+
+
+# ---- rows 4 and 3: one dense masked conv (K17/K17T, K18/K18B) ------------
+# The dual kernels' modes, at their tolerances (DUAL_TOL, DUAL_BWD_TOL): the
+# same rounding points in kernel and twin.
+@pytest.mark.parametrize("b,n,h,dtype", [
+    (2, 24, 8, "float32"),
+    (3, 24, 40, "bfloat16"),
+    (4, 256, 128, "float32"),
+    (4, 256, 128, "bfloat16"),
+    (2, 384, 200, "bfloat16"),
+])
+def test_single_conv_kernels_match_plain(cuda, b, n, h, dtype):
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    x, _, adj, src, dst, g, _ = _dual_bwd_inputs(cuda, b, n, h, dtype, seed=n * h + 1)
+    counters = (fg.fused_gcn_dense, fg.fused_gcn_dense_t, fg.fused_gcn_dense_att,
+                fg.fused_gcn_dense_att_bwd)
+    before = [k.launches for k in counters]
+    atol, rtol = DUAL_TOL[dtype]
+    pairs = [(fg._mm_fwd(x, adj), fg.fused_gcn_dense_plain(x, adj)),
+             (fg.fused_gcn_dense_t(g, adj), fg.fused_gcn_dense_plain(g, adj, True))]
+    for negate in (False, True):
+        pairs.append((fg._att_fwd(x, adj, src, dst, negate),
+                      fg.fused_gcn_dense_att_plain(x, adj, src, dst, negate)))
+        pairs += list(zip(fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate),
+                          fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)))
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert got.dtype == DT[dtype] and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert [k.launches - v for k, v in zip(counters, before)] == [1, 1, 2, 2]
+
+
+def test_single_conv_functions_match_autograd_and_launch(cuda):
+    """The f32 Functions on the card against torch.autograd of their forward
+    twins; one launch of each kernel per call."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    x, _, adj, src, dst, g, _ = _dual_bwd_inputs(cuda, 3, 256, 128, "float32", 17)
+    for negate in (False, True):
+        a = [t.clone().requires_grad_() for t in (x, src, dst)]
+        b = [t.clone().requires_grad_() for t in (x, src, dst)]
+        before = (fg.fused_gcn_dense_att.launches, fg.fused_gcn_dense_att_bwd.launches)
+        got = torch.autograd.grad((fg.fused_gcn_dense_att(a[0], adj, a[1], a[2], negate)
+                                   * g).sum(), a)
+        ref = torch.autograd.grad((fg.fused_gcn_dense_att_plain(b[0], adj, b[1], b[2], negate)
+                                   * g).sum(), b)
+        for u, w in zip(got, ref):
+            torch.testing.assert_close(u, w, atol=DUAL_BWD_TOL["float32"][0],
+                                       rtol=DUAL_BWD_TOL["float32"][1])
+        assert (fg.fused_gcn_dense_att.launches, fg.fused_gcn_dense_att_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (got,) = torch.autograd.grad((fg.fused_gcn_dense(a, adj) * g).sum(), a)
+    (ref,) = torch.autograd.grad((fg.fused_gcn_dense_plain(b, adj) * g).sum(), b)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError):
+        fg.fused_gcn_dense(x, adj.bfloat16())
+    with pytest.raises(ValueError):
+        fg.fused_gcn_dense_att(x, adj, src.cpu(), dst)
+
+
+# ---- row 9: multi-head coefficient SpMM (K19/K19T/K20), row 14 (K21) ------
+@pytest.mark.parametrize("v,e,hub,pad,heads,h,dtype", [
+    (300, 900, 0, 0, 2, 32, "float32"),
+    (1000, 4000, 700, 300, 4, 128, "bfloat16"),
+    (1000, 4000, 700, 300, 4, 128, "float32"),
+    (2048, 6000, 3000, 5000, 8, 64, "bfloat16"),
+    (512, 1500, 40, 33, 8, 256, "float32"),
+])
+def test_coo_mh_kernels_match_plain(cuda, v, e, hub, pad, heads, h, dtype):
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + h + heads, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(v * h + heads)
+    x = torch.randn((v, h), generator=gen, device=cuda).to(DT[dtype])
+    gout = torch.randn((v, h), generator=gen, device=cuda)
+    coef = torch.rand((g.senders.shape[0], heads), generator=gen, device=cuda)
+    coef = coef * (g.edge_mask & (g.senders != g.receivers))[:, None]
+    counters = (coo.coo_spmm_mh, coo.coo_spmm_mh_t, coo.coo_sddmm_mh)
+    before = [k.launches for k in counters]
+    for got, ref in ((coo._coo_spmm_mh_fwd(x, coef, g, heads), coo.coo_spmm_plain(x, coef, g)),
+                     (coo.coo_spmm_mh_t(gout, coef, g, heads),
+                      coo.coo_spmm_t_plain(gout, coef, g)),
+                     (coo.coo_sddmm_mh(x, gout, g, heads),
+                      coo.coo_sddmm_plain(x, gout, g, heads))):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, atol=COO_TOL[0], rtol=COO_TOL[1])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1]
+
+
+def test_coo_mh_function_matches_autograd_and_launches(cuda):
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=12, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((1000, 128), generator=gen, device=cuda)
+    coef = torch.randn((g.senders.shape[0], 4), generator=gen, device=cuda)
+    cot = torch.randn((1000, 128), generator=gen, device=cuda)
+    a = [t.clone().requires_grad_() for t in (x, coef)]
+    b = [t.clone().requires_grad_() for t in (x, coef)]
+    got = torch.autograd.grad((coo.coo_spmm_mh(*a, g, 4) * cot).sum(), a)
+    ref = torch.autograd.grad((coo.coo_spmm_plain(*b, g) * cot).sum(), b)
+    for u, w in zip(got, ref):
+        torch.testing.assert_close(u, w, atol=COO_TOL[0], rtol=COO_TOL[1])
+    assert torch.equal(coo.coo_spmm_mh(x, coef, g, 4), coo.coo_spmm_mh(x, coef, g, 4))
+    assert torch.equal(coo.coo_sddmm_mh(x, cot, g, 4), coo.coo_sddmm_mh(x, cot, g, 4))
+
+
+@pytest.mark.parametrize("v,e,hub,pad,k", [
+    (300, 900, 0, 0, 1),
+    (1000, 4000, 700, 300, 3),
+    (2048, 6000, 3000, 5000, 4),
+])
+def test_segment_max_kernel_exact(cuda, v, e, hub, pad, k):
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sparse_graph(cuda, v, e, hub, pad, seed=v + k, isolated=7)
+    gen = torch.Generator(device=cuda).manual_seed(v + k)
+    vals = torch.randn((k, g.senders.shape[0]), generator=gen, device=cuda)
+    vals = torch.where(g.edge_mask[None], vals, torch.full_like(vals, -1e30))
+    before = coo.segment_max.launches
+    got = coo.segment_max(vals, g)
+    torch.cuda.synchronize()
+    assert coo.segment_max.launches == before + 1
+    assert torch.equal(got, coo.segment_max_plain(vals, g))
+    assert (got[:, -7:] == -1e30).all()                  # receivers without an edge
+    with pytest.raises(ValueError):
+        coo.segment_max(vals.double(), g)

@@ -51,6 +51,7 @@ def test_import_leaves_jax_out():
             "cal_tpu_torch.ops.pool, cal_tpu_torch.ops.coo_spmm, cal_tpu_torch.ops.gin, "
             "cal_tpu_torch.ops.segment, cal_tpu_torch.kernels.build, cal_tpu_torch.seed_sweep, "
             "cal_tpu_torch.models.baselines, cal_tpu_torch.models.factory, "
+            "cal_tpu_torch.parity, "
             "cal_tpu_torch.train.optim, cal_tpu_torch.train.steps, "
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.baseline, "
             "cal_tpu_torch.train.losses, cal_tpu_torch.bench, cal_tpu_torch.utils.profiling, "
