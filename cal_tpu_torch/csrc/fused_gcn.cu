@@ -551,301 +551,779 @@ int launch_fwd(int dtype, const void* adj, const void* x0, const void* x1, const
 // Products take T-valued inputs and accumulate in f32 (exact products for
 // bf16); t, dm and dpre stay f32, as in the TPU kernels.
 //
-// Bound on this card at B=128, N=256, H=128: three products per branch, 12.9
-// GFLOP for the dual mode.  In bf16 the 67 MB of traffic bound it (0.020 ms;
-// the products at the tensor cores' bf16 rate take 0.013 ms); in f32 the
-// products on the CUDA cores do (0.19 ms).  This version runs the products
-// with f32 FMA on the CUDA cores in both dtypes, so bf16 cannot come near its
-// bound.
+// Bound on this card: three products of 2 N^2 H per graph and branch (12.9
+// GFLOP for the dual mode at B=128, N=256, H=128 on a dense adjacency), over
+// the cells of real nodes only (padded slots hold no edge).  In bf16 the
+// traffic bounds it (67 MB at N = 256, 0.020 ms; adj alone is 3.8 GB at N =
+// 3,840, 1.1 ms); in f32 the products on the CUDA cores do on dense graphs.
 // Design: t_s needs the whole column product p_s and row product u_s, and
 // dsrc needs column sums over every receiver, so the work is split into
 // passes (the TPU kernel holds a whole [N, N] graph in VMEM instead):
-//   1. the forward's degree pass (deg^-1/2 and 1/deg of each branch);
-//   2. a node pass, one block per 32 nodes of a graph: for its nodes both
-//      as receivers (u, rows of m) and as senders (p, columns of m) it
-//      rebuilds each branch's m tiles from adj/src/dst in shared memory,
-//      runs the two products per branch with f32 FMA, writes dx, and reduces
-//      the three per-node dot products into t (an f32 [2, B, N] scratch);
-//   3. an edge pass, one block per 64 x 64 (receiver, sender) tile: G of each
-//      branch by f32 FMA, then dm and dpre in registers, row sums and
-//      column sums of the tile into f32 partial planes;
-//   4. a finalize pass summing the partial planes and casting once.
-// No atomics: the sums are deterministic.  The [N, N] intermediates never
-// reach device memory.  Tensor cores (mma.sync/wgmma) are later work.
+//   1. the forward's degree pass (deg^-1/2 and 1/deg of each branch), unless
+//      the caller hands over the forward's own statistics;
+//   2. a scale pass, one warp per node: T(dis x) and T(dis g) of each branch
+//      into a T scratch with 16-byte aligned rows, and g_n . x_n;
+//   3. a live-map pass: a byte per 64 x 32 cell of adj, 1 where an edge
+//      other than a self loop lies (a padded batch is mostly empty cells);
+//   4. a node pass, one block per 64 nodes of a graph in one of two roles:
+//      receivers (u = m T(dis x), along its rows of adj) or senders (p = m^T
+//      T(dis g), down its columns; writes dx), over the live steps of 64
+//      (f32: 32) neighbours only.  A step's m tile of every branch is built
+//      once from a coalesced adj tile (sigmoid in f32, rounded to T) into
+//      shared memory, one step ahead of the products that multiply it by the
+//      staged T(dis x) / T(dis g) rows; g.u or p.x go to an f32 [3 branches,
+//      B, N] scratch with g.x;
+//   5. an edge pass, one block per 128 x 128 (receiver, sender) tile: G of
+//      each branch, then dm and dpre straight from the accumulators, row and
+//      column sums by warp shuffles and shared memory into f32 partial
+//      planes; a tile without an edge writes zeros and reads nothing else;
+//   6. a finalize pass summing the partial planes and casting once.
+// bf16 runs all six products on the tensor cores (mma.sync m16n8k16, bf16 in,
+// f32 accumulate: the contract's rounding), each warp owning a 32 x 32 tile
+// of every branch; the sender role feeds m^T by ldmatrix.trans.  f32 keeps
+// full-f32 FMA on the CUDA cores (no TF32) over the same tiles and fragment
+// layout.  Tiles arrive by cp.async, three stages deep; rows that are not
+// 16-byte aligned are copied element by element.  No atomics: the sums are
+// deterministic; the [N, N] intermediates never reach device memory.  What
+// holds it on dense graphs: a sigmoid per element in each node role and the
+// edge pass on the CUDA cores, and mma.sync's fragments staged through
+// ldmatrix (no wgmma); TMA pipelines and persistent blocks are later work.
 
-constexpr int kNodeRows = 32;   // nodes per block (node pass)
-constexpr int kNodeCols = 128;  // feature columns per chunk (node pass)
-constexpr int kNodeK = 16;      // neighbours per step (node pass)
-constexpr int kEdgeTile = 64;   // receivers x senders per block (edge pass)
-constexpr int kEdgeK = 16;      // feature columns per step (edge pass)
+constexpr int kBwdRows = 64;     // nodes per block (node pass)
+constexpr int kNodeCols = 128;   // feature columns per chunk (node pass)
+constexpr int kStages = 3;       // tiles in flight (node and edge passes)
+constexpr int kEdgeTile = 128;   // receivers x senders per block (edge pass)
+constexpr int kEdgeThreads = kEdgeTile * kEdgeTile / 32;   // a warp per 32 x 32
+// neighbours per step (node pass) and feature columns per step (edge pass):
+// f32 tiles take twice the bytes, so half the width
+template <typename T> struct NodeK { static constexpr int v = sizeof(T) == 2 ? 64 : 32; };
+template <typename T> struct EdgeK { static constexpr int v = sizeof(T) == 2 ? 32 : 16; };
 
 __host__ __device__ __forceinline__ int n_tiles(int N) {
   return (N + kEdgeTile - 1) / kEdgeTile;
 }
 
-// each branch's m[r, s] (f32, as the forward builds it), rounded to T
-template <typename T, int M>
-__device__ __forceinline__ void m_of(const T* a, const T* srcb, const T* dstb, int r, int s,
-                                     int N, float (&m)[Nb<M>::v]) {
+// rows of the scaled scratch: H rounded up to 8 elements (16 bytes of bf16)
+__host__ __device__ __forceinline__ int padded_cols(int H) { return (H + 7) / 8 * 8; }
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(s)), "l"(g), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` committed groups are still in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// 16 bytes of a row into shared memory: columns [col, col + 16 / sizeof(T))
+// of `row`, zero from column `valid` on (valid = 0 for a row past the graph,
+// whose `row` is any readable address).  One cp.async when rows are 16-byte
+// aligned and `valid` is a multiple of the chunk (vec), element by element
+// otherwise.
+template <typename T>
+__device__ __forceinline__ void copy16(T* s, const T* row, int col, int valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const bool in = col < valid;
+    cp_async16(s, in ? row + col : row, in ? 16 : 0);
+  } else {
 #pragma unroll
-  for (int br = 0; br < Nb<M>::v; ++br) m[br] = 0.f;
-  if (r < N && s < N && r != s) {
-    weigh<M>(to_f(a[(size_t)r * N + s]), edge_sigmoid<T, M>(srcb, dstb, r, s), m);
-#pragma unroll
-    for (int br = 0; br < Nb<M>::v; ++br) m[br] = round_t<T>(m[br]);
+    for (int q = 0; q < V; ++q) s[q] = col + q < valid ? row[col + q] : from_f<T>(0.f);
   }
 }
 
-// two blocks an SM: at most 128 registers a thread
-template <typename T, int M>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_node_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
-                const T* __restrict__ x1, const T* __restrict__ g0,
-                const T* __restrict__ g1, const T* __restrict__ src,
-                const T* __restrict__ dst, const float* __restrict__ stats,
-                T* __restrict__ dx0, T* __restrict__ dx1, float* __restrict__ tvec,
-                int B, int N, int H) {
-  constexpr int NB = Nb<M>::v;
-  __shared__ float mrow[NB][kNodeRows][kNodeK + 1];   // m[n0 + i, k0 + k]
-  __shared__ float mcol[NB][kNodeRows][kNodeK + 1];   // m[k0 + k, n0 + i]
-  __shared__ __align__(16) float xd[NB][kNodeK][kNodeCols];   // T(dis_k x_k)
-  __shared__ __align__(16) float gd[NB][kNodeK][kNodeCols];   // T(dis_k g_k)
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
-  const int n0 = blockIdx.x * kNodeRows;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // rows ty*2 + i; cols tx*4 + j and 64 + tx*4 + j
-  const T* x[NB];
-  const T* g[NB];
-  T* dx[NB];
-  const float* dis[NB];
-  const float* inv[NB];
+// 8 consecutive elements of shared memory as f32, and 8 values stored as T
+// (16-byte aligned)
+__device__ __forceinline__ void lds8(float (&v)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(e[q]);
+}
+__device__ __forceinline__ void lds8(float (&v)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], c = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+}
+__device__ __forceinline__ void sts8(__nv_bfloat16* p, const float (&v)[8]) {
+  unsigned u[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    u[q] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+__device__ __forceinline__ void sts8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The products of one warp: acc[mt][nt] += A[32 rows, 16 k] B[16 k, 32 cols]
+// for one 16-deep slice at k, in mma.sync's fragment layout (fragment f of
+// (mt, nt) is row mt*16 + lane/4 + (f/2)*8, column nt*8 + (lane%4)*2 + f%2).
+// A at `a` with row pitch `lda` (kATrans: stored [k][row]); B at `b` with
+// pitch `ldb`, stored [k][col] (kBTrans) or [col][k].  bf16 on the tensor
+// cores; f32 by FMA on the CUDA cores, full f32.
+template <bool kATrans, bool kBTrans>
+__device__ __forceinline__ void warp_mma16(float (&acc)[2][4][4], const __nv_bfloat16* a, int lda,
+                                           const __nv_bfloat16* b, int ldb, int lane) {
+  unsigned af[2][4], bfr[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (kATrans)
+      ldsm_x4_trans(af[mt],
+                    a + (lane % 8 + (lane / 16) * 8) * lda + mt * 16 + ((lane / 8) % 2) * 8);
+    else
+      ldsm_x4(af[mt], a + (mt * 16 + lane % 16) * lda + (lane / 16) * 8);
+  }
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    unsigned t[4];
+    if (kBTrans)
+      ldsm_x4_trans(t, b + (lane % 8 + ((lane / 8) % 2) * 8) * ldb + np * 16 + (lane / 16) * 8);
+    else
+      ldsm_x4(t, b + (np * 16 + lane % 8 + (lane / 16) * 8) * ldb + ((lane / 8) % 2) * 8);
+    bfr[np * 2][0] = t[0];
+    bfr[np * 2][1] = t[1];
+    bfr[np * 2 + 1][0] = t[2];
+    bfr[np * 2 + 1][1] = t[3];
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+}
+template <bool kATrans, bool kBTrans>
+__device__ __forceinline__ void warp_mma16(float (&acc)[2][4][4], const float* a, int lda,
+                                           const float* b, int ldb, int lane) {
+#pragma unroll 4
+  for (int k = 0; k < 16; ++k) {
+    float av[2][2], bv[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + lane / 4 + h * 8;
+        av[mt][h] = kATrans ? a[k * lda + row] : a[row * lda + k];
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = nt * 8 + (lane % 4) * 2;
+      if (kBTrans) {
+        const float2 v = *reinterpret_cast<const float2*>(b + k * ldb + col);
+        bv[nt][0] = v.x;
+        bv[nt][1] = v.y;
+      } else {
+        bv[nt][0] = b[col * ldb + k];
+        bv[nt][1] = b[(col + 1) * ldb + k];
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          acc[mt][nt][f] = fmaf(av[mt][f / 2], bv[nt][f % 2], acc[mt][nt][f]);
+  }
+}
+
+// scratch (f32 words): stats [2 NB, B, N] | dots [3 NB, B, N] (g.u, p.x, g.x
+// of each branch) | part_src, part_dst [B, tiles, N] | xd, gd [NB, B, N, HP]
+// of T (T(dis x), T(dis g)) | live: the live map, a byte per 64 x 32 cell
+// of adj, [B, node_blocks(N), live_cols(N)]; each 64-word aligned
+struct BwdScratch {
+  size_t dots, part_src, part_dst, xd, gd, live, total;
+};
+
+__host__ __device__ __forceinline__ int node_blocks(int N) { return (N + kBwdRows - 1) / kBwdRows; }
+// column groups of the live map: 32 wide, the narrowest node step
+__host__ __device__ __forceinline__ int live_cols(int N) { return (N + 31) / 32; }
+
+__host__ __forceinline__ size_t round64(size_t v) { return (v + 63) / 64 * 64; }
+
+inline BwdScratch bwd_scratch(int B, int N, int H, int elt, int NB) {
+  const size_t plane = (size_t)B * N;
+  BwdScratch s;
+  s.dots = 2 * NB * plane;
+  s.part_src = s.dots + 3 * NB * plane;
+  s.part_dst = s.part_src + plane * n_tiles(N);
+  s.xd = round64(s.part_dst + plane * n_tiles(N));
+  const size_t scaled = round64((NB * plane * padded_cols(H) * elt + 3) / 4);
+  s.gd = s.xd + scaled;
+  s.live = s.gd + scaled;
+  s.total = s.live + round64(((size_t)B * node_blocks(N) * live_cols(N) + 3) / 4);
+  return s;
+}
+
+// pass 2: xd = T(dis x), gd = T(dis g) of each branch (rows padded to HP with
+// zeros) and g.x, one warp per node
+template <typename T, int M>
+__global__ void __launch_bounds__(kThreads)
+bwd_scale_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
+                 const T* __restrict__ g0, const T* __restrict__ g1,
+                 const float* __restrict__ stats, float* __restrict__ dots,
+                 T* __restrict__ xd, T* __restrict__ gd, int B, int N, int H) {
+  constexpr int NB = Nb<M>::v;
+  const int lane = threadIdx.x % 32, HP = padded_cols(H);
+  const size_t plane = (size_t)B * N;
+  const size_t node = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;   // b * N + n
+  if (node >= plane) return;
 #pragma unroll
   for (int br = 0; br < NB; ++br) {
-    x[br] = rows_of(x0, x1, br, b, N, H);
-    g[br] = rows_of(g0, g1, br, b, N, H);
-    dx[br] = rows_of(dx0, dx1, br, b, N, H);
-    dis[br] = plane_of(stats, 2 * br, b, B, N);
-    inv[br] = plane_of(stats, 2 * br + 1, b, B, N);
-  }
-  const T* a = adj + (size_t)b * N * N;
-  const T* srcb = src + (size_t)b * N;
-  const T* dstb = dst + (size_t)b * N;
-
-  float gu[NB][2], pxs[NB][2], gx[NB][2];   // [branch][row] partial dot products
-#pragma unroll
-  for (int br = 0; br < NB; ++br)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) gu[br][i] = pxs[br][i] = gx[br][i] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kNodeCols) {
-    float u[NB][2][8], p[NB][2][8];
-#pragma unroll
-    for (int br = 0; br < NB; ++br)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) u[br][i][j] = p[br][i][j] = 0.f;
-
-    for (int k0 = 0; k0 < N; k0 += kNodeK) {
-      for (int e = tid; e < kNodeRows * kNodeK; e += kThreads) {
-        const int i = e / kNodeK, k = e % kNodeK;
-        float m[NB];
-        m_of<T, M>(a, srcb, dstb, n0 + i, k0 + k, N, m);
-#pragma unroll
-        for (int br = 0; br < NB; ++br) mrow[br][i][k] = m[br];
-        m_of<T, M>(a, srcb, dstb, k0 + k, n0 + i, N, m);
-#pragma unroll
-        for (int br = 0; br < NB; ++br) mcol[br][i][k] = m[br];
-      }
-      for (int e = tid; e < NB * kNodeK * kNodeCols; e += kThreads) {
-        const int br = e / (kNodeK * kNodeCols), rem = e % (kNodeK * kNodeCols);
-        const int k = rem / kNodeCols, c = rem % kNodeCols;
-        const int nk = k0 + k, col = h0 + c;
-        float xv = 0.f, gv = 0.f;
-        if (nk < N && col < H) {
-          const size_t at = (size_t)nk * H + col;
-          xv = round_t<T>(__fmul_rn(to_f(x[br][at]), dis[br][nk]));
-          gv = round_t<T>(__fmul_rn(to_f(g[br][at]), dis[br][nk]));
-        }
-        xd[br][k][c] = xv;
-        gd[br][k][c] = gv;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kNodeK; ++k) {
-#pragma unroll
-        for (int br = 0; br < NB; ++br) {
-          const float4 x0v = *reinterpret_cast<const float4*>(&xd[br][k][tx * 4]);
-          const float4 x1v = *reinterpret_cast<const float4*>(&xd[br][k][64 + tx * 4]);
-          const float4 g0v = *reinterpret_cast<const float4*>(&gd[br][k][tx * 4]);
-          const float4 g1v = *reinterpret_cast<const float4*>(&gd[br][k][64 + tx * 4]);
-          const float xv[8] = {x0v.x, x0v.y, x0v.z, x0v.w, x1v.x, x1v.y, x1v.z, x1v.w};
-          const float gv[8] = {g0v.x, g0v.y, g0v.z, g0v.w, g1v.x, g1v.y, g1v.z, g1v.w};
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float ar = mrow[br][ty * 2 + i][k], ac = mcol[br][ty * 2 + i][k];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              u[br][i][j] = fmaf(ar, xv[j], u[br][i][j]);
-              p[br][i][j] = fmaf(ac, gv[j], p[br][i][j]);
-            }
-          }
-        }
-      }
-      __syncthreads();
+    const T* x = (br == 0 ? x0 : x1) + node * H;
+    const T* g = (br == 0 ? g0 : g1) + node * H;
+    T* xo = xd + (br * plane + node) * HP;
+    T* go = gd + (br * plane + node) * HP;
+    const float d = stats[2 * br * plane + node];
+    float gx = 0.f;
+    for (int h = lane; h < HP; h += 32) {
+      const float xv = h < H ? to_f(x[h]) : 0.f, gv = h < H ? to_f(g[h]) : 0.f;
+      xo[h] = from_f<T>(__fmul_rn(xv, d));
+      go[h] = from_f<T>(__fmul_rn(gv, d));
+      gx = fmaf(gv, xv, gx);
     }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) gx += __shfl_xor_sync(0xffffffffu, gx, off);
+    if (lane == 0) dots[(3 * br + 2) * plane + node] = gx;
+  }
+}
 
+// pass 3, the live map: a byte per (64-row strip, 32-column group) of each
+// graph's adjacency, 1 where an edge other than a self loop lies; one block
+// per strip, 16-byte row reads
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_live_kernel(const T* __restrict__ adj, unsigned char* __restrict__ live, int N) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  int* flag = reinterpret_cast<int*>(bwd_smem);   // [live_cols]
+  const int r0 = blockIdx.x * kBwdRows, b = blockIdx.y, cols = live_cols(N);
+  for (int i = threadIdx.x; i < cols; i += kThreads) flag[i] = 0;
+  __syncthreads();
+  const T* a = adj + (size_t)b * N * N;
+  const bool vec = N % V == 0 && aligned16(adj);
+  const int chunks = (N + V - 1) / V;   // per row
+  for (int c = threadIdx.x; c < kBwdRows * chunks; c += kThreads) {
+    const int r = r0 + c / chunks, s = (c % chunks) * V;
+    if (r >= N) break;
+    alignas(16) T v[V];
+    if (vec) {
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(a + (size_t)r * N + s);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) v[q] = s + q < N ? a[(size_t)r * N + s + q] : from_f<T>(0.f);
+    }
+    bool edge = false;
+#pragma unroll
+    for (int q = 0; q < V; ++q) edge = edge || (s + q != r && to_f(v[q]) != 0.f);
+    if (edge) flag[s / 32] = 1;   // a chunk lies in one group (32 % V == 0)
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cols; i += kThreads)
+    live[((size_t)b * node_blocks(N) + blockIdx.x) * cols + i] = flag[i];
+}
+
+// whether the live map has an edge in rows [r, r + rows) x columns [c, c + cs)
+// of graph b (rows and columns multiples of the map's 64 x 32 cells)
+__device__ __forceinline__ bool live_any(const unsigned char* live, int b, int N, int r,
+                                         int rows, int c, int cs) {
+  bool any = false;
+  for (int rb = r / kBwdRows; rb < node_blocks(N) && rb * kBwdRows < r + rows; ++rb)
+    for (int cb = c / 32; cb < live_cols(N) && cb * 32 < c + cs; ++cb)
+      any = any || live[((size_t)b * node_blocks(N) + rb) * live_cols(N) + cb];
+  return any;
+}
+
+// node pass shared memory (elements of T unless named): kStages stages of
+// [adj tile | NB right-operand tiles], two buffers of NB m tiles, then f32:
+// the reduction buffer, the block's own logits and the logits along the walk,
+// then the block's live steps (ints)
+template <typename T, int NB>
+struct NodeSmem {
+  static constexpr int K = NodeK<T>::v;
+  static constexpr int P = 16 / sizeof(T);                       // row padding: 16 bytes
+  static constexpr int kAdj = kBwdRows * K;                       // either orientation
+  static constexpr int kXPitch = kNodeCols + P;
+  static constexpr int kX = K * kXPitch;
+  static constexpr int kStage = kAdj + NB * kX;
+  static constexpr int kMRow = K + P;                             // m tile [node][k]
+  static constexpr int kMCol = kBwdRows + P;                      // m tile [k][node]
+  static constexpr int kM = kBwdRows * kMRow > K * kMCol ? kBwdRows * kMRow : K * kMCol;
+  static constexpr int kRed = 4 * kBwdRows * NB;                  // floats
+  __host__ __device__ static int steps(int N) { return (N + K - 1) / K; }
+  static size_t bytes(int N) {
+    return (kStages * kStage + 2 * NB * kM) * sizeof(T) +
+           (kRed + kBwdRows + steps(N) * K) * sizeof(float) + (steps(N) + 1) * sizeof(int);
+  }
+};
+
+// pass 4, one role: ROLE 0 (receivers) u = m T(dis x) and g.u; ROLE 1
+// (senders) p = m^T T(dis g), dx and p.x.  The block owns nodes n0.. and walks
+// the other end k of their edges in steps of K, over the feature columns in
+// chunks of kNodeCols; only the steps the live map marks are loaded and
+// multiplied (on padded batches most are not).
+template <typename T, int M, int ROLE>
+__device__ __forceinline__ void bwd_node_role(
+    unsigned char* smem, const T* __restrict__ adj, const T* __restrict__ x0,
+    const T* __restrict__ x1, const T* __restrict__ g0, const T* __restrict__ g1,
+    const T* __restrict__ src, const T* __restrict__ dst, const float* __restrict__ stats,
+    const T* __restrict__ xd, const T* __restrict__ gd, T* __restrict__ dx0,
+    T* __restrict__ dx1, float* __restrict__ dots, const unsigned char* __restrict__ live,
+    int B, int N, int H) {
+  using S = NodeSmem<T, Nb<M>::v>;
+  constexpr int NB = Nb<M>::v, V = 16 / sizeof(T), K = S::K;
+  // the adj / m tile: [node][k] for receivers, [k][node] for senders
+  constexpr int kTR = ROLE == 0 ? kBwdRows : K, kTC = ROLE == 0 ? K : kBwdRows;
+  constexpr int kMP = ROLE == 0 ? S::kMRow : S::kMCol;
+  T* stage = reinterpret_cast<T*>(smem);
+  T* mtile = stage + kStages * S::kStage;
+  float* red = reinterpret_cast<float*>(mtile + 2 * NB * S::kM);
+  float* lo = red + S::kRed;           // [node] dst of the receivers / src of the senders
+  float* lg = lo + kBwdRows;           // [k] src of the senders / dst of the receivers
+  int* live_steps = reinterpret_cast<int*>(lg + S::steps(N) * K);   // [count | steps]
+
+  const int n0 = blockIdx.x * kBwdRows, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;   // warp owns nodes wm*32.., columns wn*32..
+  const int HP = padded_cols(H);
+  const size_t plane = (size_t)B * N, gN = (size_t)b * N;
+  const T* a = adj + gN * N;
+  const T* rhs[NB];
+#pragma unroll
+  for (int br = 0; br < NB; ++br) rhs[br] = (ROLE == 0 ? xd : gd) + (br * plane + gN) * HP;
+  const T* walk = (ROLE == 0 ? src : dst) + gN;
+  const T* own = (ROLE == 0 ? dst : src) + gN;
+  for (int i = tid; i < S::steps(N) * K; i += kThreads) lg[i] = i < N ? to_f(walk[i]) : 0.f;
+  for (int i = tid; i < kBwdRows; i += kThreads) lo[i] = n0 + i < N ? to_f(own[n0 + i]) : 0.f;
+  // the live steps, in order: a flag per step, then warp 0 compacts them in
+  // place (a chunk's flags are all read before any of its slots is written)
+  int* step_of = live_steps + 1;
+  for (int j = tid; j < S::steps(N); j += kThreads)
+    step_of[j] = ROLE == 0 ? live_any(live, b, N, n0, kBwdRows, j * K, K)
+                           : live_any(live, b, N, j * K, K, n0, kBwdRows);
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int j0 = 0; j0 < S::steps(N); j0 += 32) {
+      const bool f = j0 + lane < S::steps(N) && step_of[j0 + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      __syncwarp();
+      if (f) step_of[count + __popc(m & ((1u << lane) - 1))] = j0 + lane;
+      count += __popc(m);
+      __syncwarp();
+    }
+    if (lane == 0) live_steps[0] = count;
+  }
+  __syncthreads();
+  const int nk = live_steps[0], chunks = (HP + kNodeCols - 1) / kNodeCols, total = nk * chunks;
+
+  const bool vec_a = N % V == 0 && aligned16(adj);
+  auto load = [&](int it) {
+    T* st = stage + (it % kStages) * S::kStage;
+    const int k0 = step_of[it % nk] * K, h0 = (it / nk) * kNodeCols;
+    for (int c = tid; c < kTR * kTC / V; c += kThreads) {
+      const int i = c / (kTC / V), j = (c % (kTC / V)) * V;
+      const int r = (ROLE == 0 ? n0 : k0) + i, s = (ROLE == 0 ? k0 : n0) + j;
+      copy16(st + i * kTC + j, r < N ? a + (size_t)r * N : a, s, r < N ? N : 0, vec_a);
+    }
 #pragma unroll
     for (int br = 0; br < NB; ++br)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int n = n0 + ty * 2 + i;
-        if (n >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = h0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-          if (col >= H) continue;
-          const size_t at = (size_t)n * H + col;
-          const float gv = to_f(g[br][at]), xv = to_f(x[br][at]);
-          const float pv = p[br][i][j];
-          dx[br][at] = from_f<T>(
-              __fadd_rn(__fmul_rn(pv, dis[br][n]), __fmul_rn(gv, inv[br][n])));
-          gu[br][i] += gv * u[br][i][j];
-          pxs[br][i] += pv * xv;
-          gx[br][i] += gv * xv;
-        }
+      for (int c = tid; c < K * kNodeCols / V; c += kThreads) {
+        const int k = c / (kNodeCols / V), j = (c % (kNodeCols / V)) * V, kr = k0 + k;
+        copy16(st + S::kAdj + br * S::kX + k * S::kXPitch + j,
+               kr < N ? rhs[br] + (size_t)kr * HP : rhs[br], h0 + j, kr < N ? HP : 0, true);
       }
-  }
+    cp_async_commit();
+  };
+  // m of every branch for the tile of step it, rounded to T, into m buffer
+  // it % 2: 8 consecutive elements of one tile row at a time, every sigmoid
+  // computed and the edges that do not exist masked after, so that the
+  // chains interleave; 8 elements without an edge skip their sigmoids
+  auto build = [&](int it) {
+    const int k0 = step_of[it % nk] * K;
+    const T* at = stage + (it % kStages) * S::kStage;
+    T* mt = mtile + (it % 2) * NB * S::kM;
+    for (int e = tid; e < kTR * kTC / 8; e += kThreads) {
+      const int bi = e / (kTC / 8), bj = (e % (kTC / 8)) * 8;
+      float av[8], l8[8], m8[NB][8];
+      lds8(av, at + bi * kTC + bj);   // 0 past the graph, as the logits
+      lds8(l8, ROLE == 0 ? lg + k0 + bj : lo + bj);
+      const float l1 = ROLE == 0 ? lo[bi] : lg[k0 + bi];
+      // the self loop: element dq of these 8, if any
+      const int dq = ROLE == 0 ? n0 + bi - k0 - bj : k0 + bi - n0 - bj;
+      if ((unsigned)dq < 8u) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) av[q] = q == dq ? 0.f : av[q];
+      }
+      bool has = false;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) has = has || av[q] != 0.f;
+      if (has) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float m[NB];
+          weigh<M>(av[q], sigmoid(l8[q] + l1), m);
+#pragma unroll
+          for (int br = 0; br < NB; ++br) m8[br][q] = m[br];
+        }
+      } else {
+#pragma unroll
+        for (int br = 0; br < NB; ++br)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) m8[br][q] = 0.f;
+      }
+#pragma unroll
+      for (int br = 0; br < NB; ++br) sts8(mt + br * S::kM + bi * kMP + bj, m8[br]);
+    }
+  };
 
-  // the 16 lanes of a half warp share a row: reduce, then one lane writes t
+  float acc[NB][2][4][4], dot[NB][2][2];   // dot: [branch][m tile][half] over the thread's columns
 #pragma unroll
   for (int br = 0; br < NB; ++br)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float vu = gu[br][i], vp = pxs[br][i], vx = gx[br][i];
+      dot[br][i][0] = dot[br][i][1] = 0.f;
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) {
-        vu += __shfl_xor_sync(0xffffffffu, vu, off);
-        vp += __shfl_xor_sync(0xffffffffu, vp, off);
-        vx += __shfl_xor_sync(0xffffffffu, vx, off);
-      }
-      const int n = n0 + ty * 2 + i;
-      if (tx == 0 && n < N) {
-        const float d = dis[br][n], iv = inv[br][n];
-        tvec[(br * (size_t)B + b) * N + n] = -0.5f * (vu + vp) * d * d * d - vx * iv * iv;
-      }
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[br][i][j][f] = 0.f;
     }
-}
-
-template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
-bwd_edge_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
-                const T* __restrict__ x1, const T* __restrict__ g0,
-                const T* __restrict__ g1, const T* __restrict__ src,
-                const T* __restrict__ dst, const float* __restrict__ stats,
-                const float* __restrict__ tvec, float* __restrict__ part_src,
-                float* __restrict__ part_dst, int B, int N, int H) {
-  constexpr int NB = Nb<M>::v;
-  __shared__ __align__(16) float gs[NB][kEdgeK][kEdgeTile];   // g[r0 + i, h0 + k]
-  __shared__ __align__(16) float xs[NB][kEdgeK][kEdgeTile];   // x[s0 + j, h0 + k]
-  __shared__ float colsum[kThreads / 16][kEdgeTile];
-
-  const int r0 = blockIdx.x * kEdgeTile, s0 = blockIdx.y * kEdgeTile;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // rows ty*4 + i, columns tx*4 + j
-  const T* x[NB];
-  const T* g[NB];
+  // a chunk's epilogue: g.u (receivers) or dx and p.x (senders); acc back to 0
+  auto epilogue = [&](int h0) {
 #pragma unroll
-  for (int br = 0; br < NB; ++br) {
-    x[br] = rows_of(x0, x1, br, b, N, H);
-    g[br] = rows_of(g0, g1, br, b, N, H);
-  }
+    for (int br = 0; br < NB; ++br) {
+      const T* g = rows_of(g0, g1, br, b, N, H);
+      const T* x = rows_of(x0, x1, br, b, N, H);
+      T* dx = rows_of(dx0, dx1, br, b, N, H);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + wm * 32 + mt * 16 + lane / 4 + h * 8;
+          if (n >= N) continue;
+          float dis_n = 0.f, inv_n = 0.f;
+          if (ROLE == 1) {
+            dis_n = stats[2 * br * plane + gN + n];
+            inv_n = stats[(2 * br + 1) * plane + gN + n];
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = h0 + wn * 32 + nt * 8 + (lane % 4) * 2 + c;
+              if (col >= H) continue;
+              const size_t at = (size_t)n * H + col;
+              const float v = acc[br][mt][nt][h * 2 + c], gv = to_f(g[at]);
+              if (ROLE == 0) {
+                dot[br][mt][h] += gv * v;
+              } else {
+                dx[at] = from_f<T>(__fadd_rn(__fmul_rn(v, dis_n), __fmul_rn(gv, inv_n)));
+                dot[br][mt][h] += v * to_f(x[at]);
+              }
+            }
+        }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[br][mt][nt][f] = 0.f;
+    }
+  };
 
-  float acc[NB][4][4];
+  // software pipeline: step it's products are issued, then step it + 1's
+  // sigmoids, so the CUDA cores build while the tensor cores multiply
+  static_assert(kStages >= 3, "the node pass builds one step ahead of its products");
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < total) load(it);
+    else cp_async_commit();
+  }
+  if (total > 0) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    build(0);
+  }
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 3>();
+    __syncthreads();   // m tile it built, step it + 1 staged; every warp done with step it - 1
+    if (it + kStages - 1 < total) load(it + kStages - 1);
+    else cp_async_commit();
+    const int h0 = (it / nk) * kNodeCols;
+    const T* xs = stage + (it % kStages) * S::kStage + S::kAdj;
+    if (h0 + wn * 32 < HP) {   // warps past the padded columns have no products
+#pragma unroll
+      for (int kk = 0; kk < K; kk += 16)
+#pragma unroll
+        for (int br = 0; br < NB; ++br) {
+          const T* mb = mtile + ((it % 2) * NB + br) * S::kM;
+          warp_mma16<ROLE == 1, true>(
+              acc[br], ROLE == 0 ? mb + wm * 32 * kMP + kk : mb + kk * kMP + wm * 32, kMP,
+              xs + br * S::kX + kk * S::kXPitch + wn * 32, S::kXPitch, lane);
+        }
+    }
+    if (it + 1 < total) build(it + 1);
+    if (it % nk == nk - 1) epilogue(h0);
+  }
+  if (nk == 0)   // no edge: u = p = 0
+    for (int h0 = 0; h0 < HP; h0 += kNodeCols) epilogue(h0);
+
+  // the 4 lanes of a row, then the 4 column warps, in a fixed order
 #pragma unroll
   for (int br = 0; br < NB; ++br)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[br][i][j] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kEdgeK) {
-    for (int e = tid; e < NB * kEdgeK * kEdgeTile; e += kThreads) {
-      const int br = e / (kEdgeK * kEdgeTile), rem = e % (kEdgeK * kEdgeTile);
-      const int k = rem / kEdgeTile, i = rem % kEdgeTile;
-      const int col = h0 + k;
-      const int r = r0 + i, s = s0 + i;
-      gs[br][k][i] = (r < N && col < H) ? to_f(g[br][(size_t)r * H + col]) : 0.f;
-      xs[br][k][i] = (s < N && col < H) ? to_f(x[br][(size_t)s * H + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kEdgeK; ++k) {
-#pragma unroll
-      for (int br = 0; br < NB; ++br) {
-        const float4 gv = *reinterpret_cast<const float4*>(&gs[br][k][ty * 4]);
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[br][k][tx * 4]);
-        const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[br][i][j] = fmaf(ga[i], xa[j], acc[br][i][j]);
+      for (int h = 0; h < 2; ++h) {
+        float v = dot[br][mt][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int i = wm * 32 + mt * 16 + lane / 4 + h * 8;
+        if (lane % 4 == 0) red[(wn * kBwdRows + i) * NB + br] = v;
       }
-    }
-    __syncthreads();
+  __syncthreads();
+  for (int e = tid; e < kBwdRows * NB; e += kThreads) {
+    const int br = e / kBwdRows, i = e % kBwdRows;
+    if (n0 + i >= N) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) v += red[(w * kBwdRows + i) * NB + br];
+    dots[(3 * br + ROLE) * plane + gN + n0 + i] = v;
   }
+}
 
-  const float* dis[NB];
-  const float* tv[NB];
+// pass 4: blockIdx.z picks the role (0 receivers, 1 senders)
+template <typename T, int M>
+__global__ void __launch_bounds__(kThreads)
+bwd_node_kernel(const T* __restrict__ adj, const T* __restrict__ x0, const T* __restrict__ x1,
+                const T* __restrict__ g0, const T* __restrict__ g1, const T* __restrict__ src,
+                const T* __restrict__ dst, const float* __restrict__ stats,
+                const T* __restrict__ xd, const T* __restrict__ gd, T* __restrict__ dx0,
+                T* __restrict__ dx1, float* __restrict__ dots,
+                const unsigned char* __restrict__ live, int B, int N, int H) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  if (blockIdx.z == 0)
+    bwd_node_role<T, M, 0>(bwd_smem, adj, x0, x1, g0, g1, src, dst, stats, xd, gd, dx0, dx1, dots,
+                           live, B, N, H);
+  else
+    bwd_node_role<T, M, 1>(bwd_smem, adj, x0, x1, g0, g1, src, dst, stats, xd, gd, dx0, dx1, dots,
+                           live, B, N, H);
+}
+
+// edge pass shared memory (elements of T unless named): the adj tile,
+// kStages stages of NB (g, x) tile pairs, then f32 per-row / per-column
+// factors and the reduction buffers
+template <typename T, int NB>
+struct EdgeSmem {
+  static constexpr int K = EdgeK<T>::v;
+  static constexpr int P = 16 / sizeof(T);
+  static constexpr int kWarps = kEdgeTile / 32;                   // warps along a tile side
+  static constexpr int kAdjPitch = kEdgeTile + P;
+  static constexpr int kAdj = kEdgeTile * kAdjPitch;
+  static constexpr int kPitch = K + P;
+  static constexpr int kOp = kEdgeTile * kPitch;                  // one g or x tile
+  static constexpr int kStage = 2 * NB * kOp;
+  static constexpr int kVec = (2 + 3 * NB + 2 * kWarps) * kEdgeTile;   // floats
+  static constexpr size_t kBytes = (kAdj + kStages * kStage) * sizeof(T) + kVec * sizeof(float);
+};
+
+// pass 5
+template <typename T, int M>
+__global__ void __launch_bounds__(kEdgeThreads)
+bwd_edge_kernel(const T* __restrict__ adj, const T* __restrict__ x0, const T* __restrict__ x1,
+                const T* __restrict__ g0, const T* __restrict__ g1, const T* __restrict__ src,
+                const T* __restrict__ dst, const float* __restrict__ stats,
+                const float* __restrict__ dots, const unsigned char* __restrict__ live,
+                float* __restrict__ part_src, float* __restrict__ part_dst, int B, int N, int H) {
+  constexpr int NB = Nb<M>::v, V = 16 / sizeof(T);
+  using S = EdgeSmem<T, NB>;
+  constexpr int K = S::K, W = S::kWarps;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* adjt = reinterpret_cast<T*>(bwd_smem);
+  T* stage = adjt + S::kAdj;
+  float* vsrc = reinterpret_cast<float*>(stage + kStages * S::kStage);   // src of the senders
+  float* vdst = vsrc + kEdgeTile;                                  // dst of the receivers
+  float* dis_r = vdst + kEdgeTile;                                 // [NB][tile]
+  float* dis_s = dis_r + NB * kEdgeTile;
+  float* t_s = dis_s + NB * kEdgeTile;
+  float* red_r = t_s + NB * kEdgeTile;                             // [column warp][tile]
+  float* red_c = red_r + W * kEdgeTile;                            // [row warp][tile]
+
+  const int r0 = blockIdx.x * kEdgeTile, s0 = blockIdx.y * kEdgeTile, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / W, wn = warp % W;   // warp owns receivers wm*32.., senders wn*32..
+
+  // a tile without an edge (the live map) has dpre = 0: its partial sums
+  // are zeros, and nothing else is read
+  if (!live_any(live, b, N, r0, kEdgeTile, s0, kEdgeTile)) {
+    for (int i = tid; i < kEdgeTile; i += kEdgeThreads) {
+      if (r0 + i < N) part_dst[((size_t)b * n_tiles(N) + blockIdx.y) * N + r0 + i] = 0.f;
+      if (s0 + i < N) part_src[((size_t)b * n_tiles(N) + blockIdx.x) * N + s0 + i] = 0.f;
+    }
+    return;
+  }
+  const size_t plane = (size_t)B * N, gN = (size_t)b * N;
+  const T* a = adj + gN * N;
+  const T* gp[NB];
+  const T* xp[NB];
 #pragma unroll
   for (int br = 0; br < NB; ++br) {
-    dis[br] = plane_of(stats, 2 * br, b, B, N);
-    tv[br] = plane_of(tvec, br, b, B, N);
+    gp[br] = rows_of(g0, g1, br, b, N, H);
+    xp[br] = rows_of(x0, x1, br, b, N, H);
   }
-  const T* a = adj + (size_t)b * N * N;
-  const T* srcb = src + (size_t)b * N;
-  const T* dstb = dst + (size_t)b * N;
-  float rows[4] = {0.f, 0.f, 0.f, 0.f}, cols[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int i = tid; i < kEdgeTile; i += kEdgeThreads) {
+    const int r = r0 + i, s = s0 + i;
+    vsrc[i] = s < N ? to_f(src[gN + s]) : 0.f;
+    vdst[i] = r < N ? to_f(dst[gN + r]) : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = s0 + tx * 4 + j;
-      float dpre = 0.f;
-      if (r < N && s < N && r != s) {
-        const float av = to_f(a[(size_t)r * N + s]);
-        const float sg = sigmoid(to_f(srcb[s]) + to_f(dstb[r]));
-        float dm[NB];
-#pragma unroll
-        for (int br = 0; br < NB; ++br)
-          dm[br] = acc[br][i][j] * dis[br][s] * dis[br][r] + tv[br][s];
-        const float dw = NB == 2 ? dm[0] - dm[NB - 1] : dm[0];
-        dpre = dw * av * (sg * (1.0f - sg));
-        if (M == kNeg) dpre = -dpre;
+    for (int br = 0; br < NB; ++br) {
+      dis_r[br * kEdgeTile + i] = r < N ? stats[2 * br * plane + gN + r] : 0.f;
+      float ds = 0.f, tv = 0.f;
+      if (s < N) {
+        ds = stats[2 * br * plane + gN + s];
+        const float iv = stats[(2 * br + 1) * plane + gN + s];
+        const float gu = dots[3 * br * plane + gN + s], px = dots[(3 * br + 1) * plane + gN + s];
+        const float gx = dots[(3 * br + 2) * plane + gN + s];
+        tv = -0.5f * (gu + px) * ds * ds * ds - gx * iv * iv;
       }
-      rows[i] += dpre;
-      cols[j] += dpre;
+      dis_s[br * kEdgeTile + i] = ds;
+      t_s[br * kEdgeTile + i] = tv;
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float v = rows[i];
-#pragma unroll
-    for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int r = r0 + ty * 4 + i;
-    if (tx == 0 && r < N) part_dst[((size_t)b * n_tiles(N) + blockIdx.y) * N + r] = v;
+  const bool vec_a = N % V == 0 && aligned16(adj);
+  for (int c = tid; c < kEdgeTile * kEdgeTile / V; c += kEdgeThreads) {
+    const int i = c / (kEdgeTile / V), j = (c % (kEdgeTile / V)) * V, r = r0 + i;
+    copy16(adjt + i * S::kAdjPitch + j, r < N ? a + (size_t)r * N : a, s0 + j, r < N ? N : 0,
+           vec_a);
   }
+  bool vec_x = H % V == 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) colsum[ty][tx * 4 + j] = cols[j];
+  for (int br = 0; br < NB; ++br) vec_x = vec_x && aligned16(gp[br]) && aligned16(xp[br]);
+  auto load = [&](int it) {
+    T* st = stage + (it % kStages) * S::kStage;
+    const int h0 = it * K;
+#pragma unroll
+    for (int op = 0; op < 2 * NB; ++op) {   // op: 2 br + (0 g, 1 x)
+      const T* base = op % 2 == 0 ? gp[op / 2] : xp[op / 2];
+      for (int c = tid; c < kEdgeTile * K / V; c += kEdgeThreads) {
+        const int i = c / (K / V), j = (c % (K / V)) * V;
+        const int row = (op % 2 == 0 ? r0 : s0) + i;
+        copy16(st + op * S::kOp + i * S::kPitch + j, row < N ? base + (size_t)row * H : base,
+               h0 + j, row < N ? H : 0, vec_x);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[NB][2][4][4];
+#pragma unroll
+  for (int br = 0; br < NB; ++br)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[br][i][j][f] = 0.f;
+
+  const int nh = (H + K - 1) / K;
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {   // the first group carries the adj tile
+    if (it < nh) load(it);
+    else cp_async_commit();
+  }
+  for (int it = 0; it < nh; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < nh) load(it + kStages - 1);
+    else cp_async_commit();
+    const T* st = stage + (it % kStages) * S::kStage;
+#pragma unroll
+    for (int kk = 0; kk < K; kk += 16)
+#pragma unroll
+      for (int br = 0; br < NB; ++br)
+        warp_mma16<false, false>(acc[br], st + 2 * br * S::kOp + wm * 32 * S::kPitch + kk,
+                                 S::kPitch, st + (2 * br + 1) * S::kOp + wn * 32 * S::kPitch + kk,
+                                 S::kPitch, lane);
+  }
+  cp_async_wait<0>();
   __syncthreads();
-  if (tid < kEdgeTile && s0 + tid < N) {
+  if (r0 == s0) {   // the self loops of a diagonal tile
+    for (int i = tid; i < kEdgeTile; i += kEdgeThreads) adjt[i * S::kAdjPitch + i] = from_f<T>(0.f);
+    __syncthreads();
+  }
+
+  // dm and dpre from the accumulators, with no branch: every factor is
+  // finite (0 past the graph) and the edges that do not exist have av = 0;
+  // a thread's rows and columns summed
+  float rows[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, cols[4][2] = {};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = wm * 32 + mt * 16 + lane / 4 + h * 8;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = wn * 32 + nt * 8 + (lane % 4) * 2 + c;
+          const float av = to_f(adjt[i * S::kAdjPitch + j]);
+          const float sg = sigmoid(vsrc[j] + vdst[i]);
+          float dm[NB];
+#pragma unroll
+          for (int br = 0; br < NB; ++br)
+            dm[br] = acc[br][mt][nt][h * 2 + c] * dis_s[br * kEdgeTile + j] *
+                         dis_r[br * kEdgeTile + i] + t_s[br * kEdgeTile + j];
+          const float dw = NB == 2 ? dm[0] - dm[NB - 1] : dm[0];
+          float dpre = dw * av * (sg * (1.0f - sg));
+          if (M == kNeg) dpre = -dpre;
+          rows[mt][h] += dpre;
+          cols[nt][c] += dpre;
+        }
+    }
+  // rows: the 4 lanes sharing a row, then the column warps; columns: the 8
+  // lanes sharing a column, then the row warps; in a fixed order
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = rows[mt][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (lane % 4 == 0) red_r[wn * kEdgeTile + wm * 32 + mt * 16 + lane / 4 + h * 8] = v;
+    }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = cols[nt][c];
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < 4) red_c[wm * kEdgeTile + wn * 32 + nt * 8 + lane * 2 + c] = v;
+    }
+  __syncthreads();
+  if (tid < 2 * kEdgeTile) {
+    const bool row = tid < kEdgeTile;
+    const int i = row ? tid : tid - kEdgeTile;
+    const float* red = row ? red_r : red_c;
     float v = 0.f;
-    for (int q = 0; q < kThreads / 16; ++q) v += colsum[q][tid];
-    part_src[((size_t)b * n_tiles(N) + blockIdx.x) * N + s0 + tid] = v;
+#pragma unroll
+    for (int w = 0; w < W; ++w) v += red[w * kEdgeTile + i];
+    if (row && r0 + i < N)
+      part_dst[((size_t)b * n_tiles(N) + blockIdx.y) * N + r0 + i] = v;
+    else if (!row && s0 + i < N)
+      part_src[((size_t)b * n_tiles(N) + blockIdx.x) * N + s0 + i] = v;
   }
 }
 
@@ -867,34 +1345,51 @@ __global__ void bwd_finalize_kernel(const float* __restrict__ part_src,
   ddst[i] = from_f<T>(vd);
 }
 
-// scratch (f32): stats [4, B, N] | t [2, B, N] | part_src, part_dst [B, tiles, N]
-// (the dual mode's sizes; a single branch uses the first half of stats and t)
-size_t bwd_scratch_floats(int B, int N) {
-  return (size_t)B * N * (6 + 2 * (size_t)n_tiles(N));
-}
-
 template <typename T, int M>
 int launch_bwd(const void* adj, const void* x0, const void* x1, const void* src,
                const void* dst, const void* g0, const void* g1, void* dx0, void* dx1,
-               void* dsrc, void* ddst, float* scratch, int B, int N, int H,
-               cudaStream_t stream) {
-  const size_t plane = (size_t)B * N;
-  float* stats = scratch;
-  float* tvec = stats + 4 * plane;
-  float* part_src = tvec + 2 * plane;
-  float* part_dst = part_src + plane * n_tiles(N);
-  int err = launch_degree<T, M>(adj, src, dst, stats, B, N, stream);
-  if (err != 0) return err;
+               void* dsrc, void* ddst, float* scratch, const float* fwd_stats, int B, int N,
+               int H, cudaStream_t stream) {
+  constexpr int NB = Nb<M>::v;
+  const BwdScratch sc = bwd_scratch(B, N, H, sizeof(T), NB);
+  const float* stats = fwd_stats != nullptr ? fwd_stats : scratch;
+  float* dots = scratch + sc.dots;
+  float* part_src = scratch + sc.part_src;
+  float* part_dst = scratch + sc.part_dst;
+  T* xd = reinterpret_cast<T*>(scratch + sc.xd);
+  T* gd = reinterpret_cast<T*>(scratch + sc.gd);
+  unsigned char* live = reinterpret_cast<unsigned char*>(scratch + sc.live);
+  int err = 0;
+  if (fwd_stats == nullptr && (err = launch_degree<T, M>(adj, src, dst, scratch, B, N, stream)))
+    return err;
   const T *a = static_cast<const T*>(adj), *x0_ = static_cast<const T*>(x0),
           *x1_ = static_cast<const T*>(x1), *g0_ = static_cast<const T*>(g0),
           *g1_ = static_cast<const T*>(g1), *s_ = static_cast<const T*>(src),
           *d_ = static_cast<const T*>(dst);
-  bwd_node_kernel<T, M><<<dim3((N + kNodeRows - 1) / kNodeRows, B), kThreads, 0, stream>>>(
-      a, x0_, x1_, g0_, g1_, s_, d_, stats, static_cast<T*>(dx0), static_cast<T*>(dx1), tvec,
-      B, N, H);
+  const size_t plane = (size_t)B * N;
+  const int warps = kThreads / 32;
+  bwd_scale_kernel<T, M><<<(unsigned)((plane + warps - 1) / warps), kThreads, 0, stream>>>(
+      x0_, x1_, g0_, g1_, stats, dots, xd, gd, B, N, H);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  bwd_edge_kernel<T, M><<<dim3(n_tiles(N), n_tiles(N), B), kThreads, 0, stream>>>(
-      a, x0_, x1_, g0_, g1_, s_, d_, stats, tvec, part_src, part_dst, B, N, H);
+  bwd_live_kernel<T><<<dim3(node_blocks(N), B), kThreads, live_cols(N) * sizeof(int), stream>>>(
+      a, live, N);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const size_t node_smem = NodeSmem<T, NB>::bytes(N);
+  cudaError_t e = cudaFuncSetAttribute(bwd_node_kernel<T, M>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)node_smem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_node_kernel<T, M><<<dim3(node_blocks(N), B, 2), kThreads, node_smem,
+                          stream>>>(a, x0_, x1_, g0_, g1_, s_, d_, stats, xd, gd,
+                                    static_cast<T*>(dx0), static_cast<T*>(dx1), dots, live, B, N,
+                                    H);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  constexpr size_t edge_smem = EdgeSmem<T, NB>::kBytes;
+  e = cudaFuncSetAttribute(bwd_edge_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)edge_smem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_edge_kernel<T, M><<<dim3(n_tiles(N), n_tiles(N), B), kEdgeThreads, edge_smem, stream>>>(
+      a, x0_, x1_, g0_, g1_, s_, d_, stats, dots, live, part_src, part_dst, B, N, H);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   bwd_finalize_kernel<T><<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0,
                            stream>>>(part_src, part_dst, static_cast<T*>(dsrc),
@@ -905,46 +1400,51 @@ int launch_bwd(const void* adj, const void* x0, const void* x1, const void* src,
 template <int M>
 int launch_bwd_typed(int dtype, const void* adj, const void* x0, const void* x1,
                      const void* src, const void* dst, const void* g0, const void* g1,
-                     void* dx0, void* dx1, void* dsrc, void* ddst, float* scratch, int B,
-                     int N, int H, cudaStream_t s) {
+                     void* dx0, void* dx1, void* dsrc, void* ddst, float* scratch,
+                     const float* stats, int B, int N, int H, cudaStream_t s) {
   if (dtype == 0)
     return launch_bwd<float, M>(adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc, ddst, scratch,
-                                B, N, H, s);
+                                stats, B, N, H, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16, M>(adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc, ddst,
-                                        scratch, B, N, H, s);
+                                        scratch, stats, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// f32 scratch elements gcn_bwd_launch needs for a [B, N] batch.
-extern "C" long long gcn_bwd_scratch_floats(int B, int N) {
-  return (long long)bwd_scratch_floats(B, N);
+// f32 scratch elements gcn_bwd_launch needs for a [B, N, H] batch of dtype
+// (0 float32, 1 bfloat16) in mode (0 dual, 1 sigmoid, 2 1 - sigmoid).
+extern "C" long long gcn_bwd_scratch_floats(int B, int N, int H, int dtype, int mode) {
+  return (long long)bwd_scratch(B, N, H, dtype == 0 ? 4 : 2, mode == kDual ? 2 : 1).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; every tensor is contiguous of that type:
 // adj [B,N,N], x0/x1/g0/g1/dx0/dx1 [B,N,H], src/dst/dsrc/ddst [B,N].
 // mode: 0 dual (branches 0 and 1), 1 sigmoid, 2 1 - sigmoid (branch 0 only;
-// x1, g1, dx1 unread).  scratch: f32, gcn_bwd_scratch_floats(B, N) elements.
+// x1, g1, dx1 unread).  scratch: f32, gcn_bwd_scratch_floats(B, N, H, dtype,
+// mode) elements, 16-byte aligned.  stats: null, or the forward's f32 [2
+// branches, B, N] statistics of these inputs (gcn_fwd_launch's), which spare
+// the degree pass.
 extern "C" int gcn_bwd_launch(const void* adj, const void* x0, const void* x1,
                               const void* src, const void* dst, const void* g0,
                               const void* g1, void* dx0, void* dx1, void* dsrc, void* ddst,
-                              void* scratch, int B, int N, int H, int dtype, int mode,
-                              void* stream) {
+                              void* scratch, const void* stats, int B, int N, int H, int dtype,
+                              int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
+  const float* st = static_cast<const float*>(stats);
   if (B == 0 || N == 0) return 0;
   switch (mode) {
     case kDual:
       return launch_bwd_typed<kDual>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                     ddst, sc, B, N, H, s);
+                                     ddst, sc, st, B, N, H, s);
     case kSig:
       return launch_bwd_typed<kSig>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                    ddst, sc, B, N, H, s);
+                                    ddst, sc, st, B, N, H, s);
     case kNeg:
       return launch_bwd_typed<kNeg>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                    ddst, sc, B, N, H, s);
+                                    ddst, sc, st, B, N, H, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

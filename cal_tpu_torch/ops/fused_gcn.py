@@ -176,9 +176,9 @@ def _lib():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gcn_fwd_launch.argtypes = [vp] * 8 + [i, i, i, i, i, vp]
         lib.gcn_fwd_launch.restype = ctypes.c_int
-        lib.gcn_bwd_launch.argtypes = [vp] * 12 + [i, i, i, i, i, vp]
+        lib.gcn_bwd_launch.argtypes = [vp] * 13 + [i, i, i, i, i, vp]
         lib.gcn_bwd_launch.restype = ctypes.c_int
-        lib.gcn_bwd_scratch_floats.argtypes = [i, i]
+        lib.gcn_bwd_scratch_floats.argtypes = [i] * 5
         lib.gcn_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
@@ -189,7 +189,8 @@ def _ptr(t):
 
 def _fwd_launch(what, mode, xs, adj, src=None, dst=None):
     """Launch the forward kernel in ``mode`` on contiguous CUDA tensors:
-    one output per feature tensor in ``xs``."""
+    (one output per feature tensor in ``xs``, the degree statistics
+    [2 * len(xs), B, N] f32: deg^-1/2 and 1/deg of each branch)."""
     bsz, n, h = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
     stats = torch.empty((2 * len(xs), bsz, n), dtype=torch.float32, device=adj.device)
@@ -199,24 +200,25 @@ def _fwd_launch(what, mode, xs, adj, src=None, dst=None):
         _ptr(o1), stats.data_ptr(), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
         torch.cuda.current_stream(adj.device).cuda_stream)
     build.check(err, what)
-    return outs
+    return outs, stats
 
 
-def _bwd_launch(what, mode, xs, gs, adj, src, dst):
+def _bwd_launch(what, mode, xs, gs, adj, src, dst, stats=None):
     """Launch the backward kernel in ``mode`` on contiguous CUDA tensors:
-    (dx per feature tensor, dsrc, ddst)."""
+    (dx per feature tensor, dsrc, ddst).  ``stats``: the forward's degree
+    statistics for these inputs, which spare the backward its degree pass."""
     bsz, n, h = xs[0].shape
     lib = _lib()
     dxs = [torch.empty_like(x) for x in xs]
     dsrc, ddst = torch.empty_like(src), torch.empty_like(dst)
-    scratch = torch.empty(lib.gcn_bwd_scratch_floats(bsz, n), dtype=torch.float32,
-                          device=adj.device)
+    words = lib.gcn_bwd_scratch_floats(bsz, n, h, _DTYPES[adj.dtype], _MODES[mode])
+    scratch = torch.empty(words, dtype=torch.float32, device=adj.device)
     two = len(xs) == 2
     err = lib.gcn_bwd_launch(
         adj.data_ptr(), xs[0].data_ptr(), _ptr(xs[1] if two else None), src.data_ptr(),
         dst.data_ptr(), gs[0].data_ptr(), _ptr(gs[1] if two else None), dxs[0].data_ptr(),
         _ptr(dxs[1] if two else None), dsrc.data_ptr(), ddst.data_ptr(), scratch.data_ptr(),
-        bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
+        _ptr(stats), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
         torch.cuda.current_stream(adj.device).cuda_stream)
     build.check(err, what)
     return dxs, dsrc, ddst
@@ -228,26 +230,34 @@ def _contig(*ts):
 
 def _dual_fwd(xc, xo, adj, src, dst):
     """Forward wrapper: the kernel on CUDA tensors, the plain twin on CPU
-    tensors (no autograd)."""
+    tensors (no autograd).  Returns ((oc, oo), the degree statistics for the
+    backward, None on the CPU)."""
     _check("fused_gcn_dense_att_dual", (xc, xo), adj, (src, dst))
     if xc.device.type == "cpu":
-        return fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst)
+        return fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst), None
     xc, xo, adj, src, dst = _contig(xc, xo, adj, src, dst)
-    oc, oo = _fwd_launch("fused_gcn_dense_att_dual", "dual", (xc, xo), adj, src, dst)
+    (oc, oo), stats = _fwd_launch("fused_gcn_dense_att_dual", "dual", (xc, xo), adj, src, dst)
     fused_gcn_dense_att_dual.launches += 1
-    return oc, oo
+    return (oc, oo), stats
 
 
-def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go):
+def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats=None):
     """VJP of both masked convs: cotangents gc/go [B, N, H] of (oc, oo) ->
     (dxc, dxo, dsrc, ddst).  Launches the backward kernel on CUDA tensors,
-    runs ``fused_gcn_dense_att_dual_bwd_plain`` on CPU tensors."""
+    runs ``fused_gcn_dense_att_dual_bwd_plain`` on CPU tensors.  ``stats``
+    (CUDA only): the forward kernel's degree statistics for these inputs
+    ([4, B, N] f32, which ``fused_gcn_dense_att_dual`` keeps for its
+    backward), sparing the kernel its degree pass; the same numbers."""
     _check("fused_gcn_dense_att_dual_bwd", (xc, xo, gc, go), adj, (src, dst))
     if xc.device.type == "cpu":
         return fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)
+    if stats is not None and (stats.shape != (4, *src.shape) or stats.dtype != torch.float32
+                              or stats.device != xc.device or not stats.is_contiguous()):
+        raise ValueError("fused_gcn_dense_att_dual_bwd: stats must be the forward's "
+                         f"contiguous [4, B, N] float32 on {xc.device}")
     xc, xo, adj, src, dst, gc, go = _contig(xc, xo, adj, src, dst, gc, go)
     (dxc, dxo), dsrc, ddst = _bwd_launch("fused_gcn_dense_att_dual_bwd", "dual", (xc, xo),
-                                         (gc, go), adj, src, dst)
+                                         (gc, go), adj, src, dst, stats)
     fused_gcn_dense_att_dual_bwd.launches += 1
     return dxc, dxo, dsrc, ddst
 
@@ -255,12 +265,14 @@ def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go):
 class _DualGCN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xc, xo, adj, src, dst):
-        ctx.save_for_backward(xc, xo, adj, src, dst)
-        return _dual_fwd(xc, xo, adj, src, dst)
+        outs, stats = _dual_fwd(xc, xo, adj, src, dst)
+        ctx.save_for_backward(xc, xo, adj, src, dst, stats)
+        return outs
 
     @staticmethod
     def backward(ctx, gc, go):
-        dxc, dxo, dsrc, ddst = fused_gcn_dense_att_dual_bwd(*ctx.saved_tensors, gc, go)
+        *args, stats = ctx.saved_tensors
+        dxc, dxo, dsrc, ddst = fused_gcn_dense_att_dual_bwd(*args, gc, go, stats)
         return dxc, dxo, None, dsrc, ddst
 
 
@@ -284,7 +296,7 @@ def _att_fwd(x, adj, src, dst, negate):
     if x.device.type == "cpu":
         return fused_gcn_dense_att_plain(x, adj, src, dst, negate)
     x, adj, src, dst = _contig(x, adj, src, dst)
-    (out,) = _fwd_launch("fused_gcn_dense_att", "neg" if negate else "sig", (x,), adj, src, dst)
+    (out,), _ = _fwd_launch("fused_gcn_dense_att", "neg" if negate else "sig", (x,), adj, src, dst)
     fused_gcn_dense_att.launches += 1
     return out
 
@@ -332,7 +344,7 @@ def _mm(what, x, adj, transpose):
     if x.device.type == "cpu":
         return fused_gcn_dense_plain(x, adj, transpose)
     x, adj = _contig(x, adj)
-    (out,) = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
+    (out,), _ = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
     return out
 
 

@@ -11,7 +11,8 @@
    dropout rate 0 and 0.2; every f32 backward also against torch.autograd of
    its forward twin; checks the dropout law (keep fraction, unbiased
    output); and times kernel, twin and (where one exists) a single PyTorch
-   call computing the same function, with CUDA events on a cold L2;
+   call computing the same function, with CUDA events on a cold L2, with
+   the dual backward's device time by pass (torch.profiler);
 3. for CausalGCN, then CausalGAT (hidden 128, 3 layers, bf16):
    a. serving: saves a seeded model with the port's checkpointer, drives
       ``cal_tpu_torch.main_syn --inference`` with the launch counters set to
@@ -163,6 +164,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -348,6 +350,13 @@ def time_ms(torch, fn, flush, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
+def live_cells(batch) -> int:
+    """sum over the batch's graphs of n_b^2: the (receiver, sender) cells of
+    real nodes.  The dense masked-GCN backward skips the m tiles without an
+    edge, so the products this run's data needs are over these cells."""
+    return int((batch.n_nodes.long() ** 2).sum())
+
+
 def max_excess(torch, got, ref, atol, rtol):
     """(max |got - ref|, max of |got - ref| - (atol + rtol |ref|))."""
     got, ref = got.float(), ref.float()
@@ -444,7 +453,7 @@ def kernel_phase(torch, batch, peaks, flush):
                 auto_err.append(err)
             extra["max_abs_err_vs_autograd"] = max(auto_err)
         b_bytes = (bsz * n * n + 6 * bsz * n * H + 4 * bsz * n) * elt
-        b_flops = 3 * 2 * 2 * bsz * n * n * H
+        b_flops = 3 * 2 * 2 * live_cells(batch) * H
         t_bytes = b_bytes / bw
         t_ops = b_flops / (bf16_peak if dt == torch.bfloat16 else f32_peak)
         bwd = {
@@ -456,6 +465,7 @@ def kernel_phase(torch, batch, peaks, flush):
             "library_ms": None, "bytes": b_bytes, "flops": b_flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "passes": profile_passes(torch, lambda: fused_gcn_dense_att_dual_bwd(*bargs)),
         }
         emit({"phase": "kernel", **bwd})
         results[dt_name] = (adj, dual, bwd) + flash_kernels(torch, adj_k, dt_name, peaks, flush)
@@ -561,6 +571,49 @@ def flash_kernels(torch, counts, dt_name, peaks, flush):
     return tuple(rows)
 
 
+def profile_passes(torch, fn, reps=3):
+    """Device ms a call of each kernel that ``fn`` launches (torch.profiler
+    over ``reps`` warm calls), slowest first: a multi-pass kernel's split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for k, t, c in _device_rows(prof):
+        m = re.search(r"\w+_kernel<[^>]*>", k)   # the kernel and its template arguments
+        rows.append({"kernel": m.group(0) if m else k[:80], "device_ms": t / reps,
+                     "calls": c / reps})
+    return rows
+
+
+def ptxas_kernels(log: str, key: str) -> dict:
+    """{kernel instance: registers and spill bytes} of the functions whose
+    mangled name holds ``key``, from nvcc's ``-Xptxas -v`` log."""
+    modes = {"0": "dual", "1": "sig", "2": "neg"}
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            k = re.search(r"\d+(" + key + r"\w*?_kernel)I(13__nv_bfloat16|f)(?:Li(\d)E)?",
+                          m.group(1))
+            name = None
+            if k:
+                name = f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'}" + (
+                    f", {modes.get(k.group(3), k.group(3))}>" if k.group(3) else ">")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if name and m:
+            out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", ln)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def _device_rows(prof):
     """(kernel, device ms, calls), slowest first: device-side events only.
     Operator-level rows and user annotations (Adam's "Optimizer.step") would
@@ -632,11 +685,14 @@ def plain_twins():
     from cal_tpu_torch.ops.adj_build import adj_build_plain
 
     stack = contextlib.ExitStack()
+    # the forward wrapper also returns the degree statistics that the
+    # autograd Function hands to the backward wrapper (the twins have none)
     for mod, name, plain in (
             (graph_mod, "adj_build", adj_build_plain),
-            (fused_mod, "_dual_fwd", fused_mod.fused_gcn_dense_att_dual_plain),
+            (fused_mod, "_dual_fwd",
+             lambda *a: (fused_mod.fused_gcn_dense_att_dual_plain(*a), None)),
             (fused_mod, "fused_gcn_dense_att_dual_bwd",
-             fused_mod.fused_gcn_dense_att_dual_bwd_plain),
+             lambda *a: fused_mod.fused_gcn_dense_att_dual_bwd_plain(*a[:7])),
             (flash_mod, "flash_gat_fwd", flash_mod.flash_gat_fwd_plain),
             (flash_mod, "flash_gat_bwd", flash_mod.flash_gat_bwd_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
@@ -2137,7 +2193,7 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
              (cells + 4 * bsz * n * H + 2 * bsz * n) * elt, 4 * cells * H, 10),
             ("fused_gcn_dense_att_dual_bwd", lambda: fused_gcn_dense_att_dual_bwd(*bargs),
              lambda: fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
-             (cells + 6 * bsz * n * H + 4 * bsz * n) * elt, 12 * cells * H, 3)):
+             (cells + 6 * bsz * n * H + 4 * bsz * n) * elt, 12 * live_cells(batch) * H, 3)):
         t_bytes, t_ops = nbytes / bw, flops / bf16_peak
         emit({"phase": "dense_kernel_n3840", "name": name, "dtype": "bfloat16",
               "batch": [bsz, n, H], "kernel_ms": time_ms(torch, fn, flush, reps, 1),
@@ -2654,7 +2710,8 @@ def dense_row_kernels(torch, batch, peaks, flush):
             torch, "fused_gcn_dense_att_bwd", dt_name,
             lambda: fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, False),
             lambda: fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, False),
-            adj_b + 3 * plane + 4 * lg, 3 * prod, peak, max(e18b), btol, bw, flush, None,
+            adj_b + 3 * plane + 4 * lg, 6 * live_cells(batch) * H, peak, max(e18b), btol, bw,
+            flush, None,
             "none: no single PyTorch call computes the sigmoid-weighted aggregate's VJP")
         out[dt_name] = rows
     return out
@@ -2868,7 +2925,8 @@ def main() -> int:
           "peaks_of": peaks_of, "bytes_per_s": peaks[0],
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for k, v in report.items()}})
+                    for k, v in report.items()},
+          "ptxas_dense_bwd": ptxas_kernels(report.get("fused_gcn", {}).get("log", ""), "bwd_")})
 
     t0 = time.perf_counter()
     ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)

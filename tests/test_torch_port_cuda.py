@@ -112,14 +112,25 @@ def _dual_bwd_inputs(device, b, n, h, dtype, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     adj = torch.randint(0, 3, (b, n, n), generator=gen, device=device).float()
     adj = adj * (torch.rand((b, n, n), generator=gen, device=device) < 0.1)
-    adj[0, 1, 1] = 3.0                                   # self loop, dropped
-    adj[-1] = 0.0                                        # padded graph slot
+    if n > 1:
+        adj[0, 1, 1] = 3.0                               # self loop, dropped
     xc, xo, gc, go = (torch.randn((b, n, h), generator=gen, device=device)
                       for _ in range(4))
-    xc[-1] = 0.0
+    if b > 1:
+        adj[-1] = 0.0                                    # padded graph slot
+        xc[-1] = 0.0
     src = torch.randn((b, n), generator=gen, device=device)
     dst = 2 * torch.randn((b, n), generator=gen, device=device)
     return tuple(t.to(DT[dtype]) for t in (xc, xo, adj, src, dst, gc, go))
+
+
+# Shapes across the backward's tiles: 64-node blocks walking 64-node (f32:
+# 32) steps and 128-column chunks (node pass), 128 x 128 tiles walking 32-
+# (f32: 16-) column steps (edge pass), 16-deep products, the live map's 64 x
+# 32 cells; N = 1 has no edge, N = 3,840 is SYNREDDIT's.
+BWD_TILE_SHAPES = [(1 if n == 3840 else 3, n, h, dtype)
+                   for n in (1, 63, 65, 129, 3840) for h in (8, 40, 200, 256)
+                   for dtype in ("bfloat16", "float32")]
 
 
 @pytest.mark.parametrize("b,n,h,dtype", [
@@ -129,7 +140,7 @@ def _dual_bwd_inputs(device, b, n, h, dtype, seed):
     (4, 256, 128, "bfloat16"),
     (2, 384, 128, "float32"),
     (2, 384, 200, "bfloat16"),
-])
+] + BWD_TILE_SHAPES)
 def test_dual_backward_kernel_matches_plain(cuda, b, n, h, dtype):
     args = _dual_bwd_inputs(cuda, b, n, h, dtype, seed=n + h)
     before = fused_gcn_dense_att_dual_bwd.launches
@@ -142,6 +153,69 @@ def test_dual_backward_kernel_matches_plain(cuda, b, n, h, dtype):
         assert a.dtype == DT[dtype] and a.shape == like.shape
         assert torch.isfinite(a.float()).all()
         torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("b,n,h,dtype", BWD_TILE_SHAPES)
+def test_single_conv_backward_kernel_matches_plain(cuda, b, n, h, dtype):
+    """K18B (the dual backward's one-branch modes, sig and neg) on the same
+    shapes, against fused_gcn_dense_att_bwd_plain."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    x, _, adj, src, dst, g, _ = _dual_bwd_inputs(cuda, b, n, h, dtype, seed=n + h + 5)
+    atol, rtol = DUAL_BWD_TOL[dtype]
+    for negate in (False, True):
+        before = fg.fused_gcn_dense_att_bwd.launches
+        got = fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate)
+        ref = fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)
+        torch.cuda.synchronize()
+        assert fg.fused_gcn_dense_att_bwd.launches == before + 1
+        for a, r, like in zip(got, ref, (x, src, dst)):
+            assert a.dtype == DT[dtype] and a.shape == like.shape
+            assert torch.isfinite(a.float()).all()
+            torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dual_backward_kernel_skips_empty_tiles(cuda, dtype):
+    """The kernels skip adjacency tiles without an edge (the live map): a
+    graph on a prefix of the slots, one whose edges lie only in far tiles,
+    one with self loops only, and an empty slot, against the plain twins."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    xc, xo, _, src, dst, gc, go = _dual_bwd_inputs(cuda, 4, 300, 72, dtype, 31)
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    adj = torch.zeros((4, 300, 300), device=cuda)
+    adj[0, :41, :41] = torch.randint(0, 3, (41, 41), generator=gen, device=cuda).float()
+    adj[1, 250:, 5:11] = 1.0                               # only far tiles
+    adj[1, 7, 290] = 2.0
+    adj[2].fill_diagonal_(1.0)                             # self loops only
+    adj = adj.to(DT[dtype])
+    atol, rtol = DUAL_BWD_TOL[dtype]
+    pairs = list(zip(fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go),
+                     fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)))
+    for negate in (False, True):
+        pairs += list(zip(fg.fused_gcn_dense_att_bwd(xc, adj, src, dst, gc, negate),
+                          fg.fused_gcn_dense_att_bwd_plain(xc, adj, src, dst, gc, negate)))
+    torch.cuda.synchronize()
+    for a, r in pairs:
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dual_backward_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two calls on one input give the same bits (dual and both
+    one-branch modes, several tiles in each direction and column chunks)."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    xc, xo, adj, src, dst, gc, go = _dual_bwd_inputs(cuda, 2, 300, 200, dtype, 23)
+    calls = [lambda: fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go)]
+    calls += [lambda neg=neg: fg.fused_gcn_dense_att_bwd(xc, adj, src, dst, gc, neg)
+              for neg in (False, True)]
+    for call in calls:
+        first, second = call(), call()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_dual_backward_kernel_matches_autograd(cuda):
@@ -166,6 +240,22 @@ def test_dual_autograd_on_card_launches_both_kernels(cuda):
     assert (fused_gcn_dense_att_dual.launches,
             fused_gcn_dense_att_dual_bwd.launches) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
+def test_dual_autograd_hands_the_forward_degrees_to_the_backward(cuda):
+    """The Function's backward takes the forward kernel's degree statistics
+    and skips its own degree pass: the same bits as the backward alone."""
+    for dtype in ("bfloat16", "float32"):
+        xc, xo, adj, src, dst, gc, go = _dual_bwd_inputs(cuda, 3, 200, 72, dtype, 29)
+        leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+        oc, oo = fused_gcn_dense_att_dual(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+        torch.autograd.backward((oc, oo), (gc, go))
+        ref = fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go)
+        for leaf, r in zip(leaves, ref):
+            assert torch.equal(leaf.grad, r)
+    with pytest.raises(ValueError, match="stats"):
+        fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go,
+                                     torch.zeros((2, 3, 200), device=cuda))
 
 
 def test_wrappers_raise_on_mixed_devices(cuda):

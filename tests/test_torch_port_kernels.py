@@ -141,19 +141,20 @@ def test_cpu_tensors_take_the_plain_twin():
             fused_gcn_dense_att_dual_bwd.launches) == before
 
 
-def _bwd_inputs(dtype):
-    """The data of tests/test_pallas_gcn.py (B=3, N=16, H=8): duplicate
-    edges, zero-degree senders, self loops of count 3 (dropped), a fully
-    padded slot; plus seeded cotangents that are non-zero at padded nodes."""
+def _bwd_inputs(dtype, b=3, n=16, h=8):
+    """The data of tests/test_pallas_gcn.py (by default B=3, N=16, H=8):
+    duplicate edges, zero-degree senders, self loops of count 3 (dropped), a
+    fully padded slot (when B > 1); plus seeded cotangents that are non-zero
+    at padded nodes."""
     rng = np.random.default_rng(0)
-    b, n, h = 3, 16, 8
     adj = rng.integers(0, 2, (b, n, n)).astype(np.float32)
     adj += (rng.random((b, n, n)) < 0.1)
     adj[:, :, n - 4:] = 0.0
     adj[0, np.arange(n), np.arange(n)] = 3.0
-    adj[b - 1] = 0.0
     xc = rng.normal(size=(b, n, h)).astype(np.float32)
-    xc[b - 1] = 0.0
+    if b > 1:
+        adj[b - 1] = 0.0
+        xc[b - 1] = 0.0
     xo = np.tanh(xc)
     src = rng.normal(size=(b, n)).astype(np.float32)
     dst = rng.normal(size=(b, n)).astype(np.float32)
@@ -175,8 +176,11 @@ BWD_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dual_backward_twin_matches_pallas_vjp(dtype):
-    jx, tx = _bwd_inputs(dtype)
+@pytest.mark.parametrize("b,n,h", [(3, 16, 8), (3, 20, 8), (2, 65, 40), (1, 130, 24)])
+def test_dual_backward_twin_matches_pallas_vjp(b, n, h, dtype):
+    """Beyond tests/test_pallas_gcn.py's data: N across the card kernel's
+    64-node blocks and 32- or 64-node steps, H off its 16-column MMA steps."""
+    jx, tx = _bwd_inputs(dtype, b, n, h)
     _, vjp = jax.vjp(lambda xc, xo, s, d: jax_dual(xc, xo, jx[2], s, d),
                      jx[0], jx[1], jx[3], jx[4])
     ref = vjp((jx[5], jx[6]))
