@@ -35,15 +35,21 @@
 // of 8 warps owning 32 rows x 32 columns of every branch; the sender factors
 // (src, deg^-1/2) sit in shared memory for the whole block, and the next
 // step's adjacency and x chunks are loaded into registers while the current
-// step's products run (plain-T reads the adjacency down a column, one element
-// at a time).  f32 keeps full f32 FMA on the CUDA cores, 4 rows x 8 columns
-// per branch and thread, without that prefetch.  The modes are compile-time:
-// a single-branch mode runs half the dual mode's products and no sigmoid.
-// The adjacency is read twice (degree pass and aggregate) and x once per row
-// tile, mostly from L2; TMA, deeper pipelines and wgmma are later work.
+// step's products run (plain-T reads its [32 senders, 64 rows] adjacency box
+// along the senders' rows, 16 bytes a thread, into a [sender][row] tile that
+// ldmatrix.trans feeds).  f32 keeps full f32 FMA on the CUDA cores, 4 rows x
+// 8 columns per branch and thread, without that prefetch.  The modes are
+// compile-time: a single-branch mode runs half the dual mode's products and
+// no sigmoid.  The adjacency is read twice (degree pass and aggregate) and x
+// once per row tile, mostly from L2; TMA, deeper pipelines and wgmma are
+// later work.  bf16 plain / plain-T on graphs of up to 256 nodes take the
+// one-launch cluster kernel at the end of this file instead.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -215,7 +221,10 @@ aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
         xs[br * kStep * kCols + i] = ok ? to_f(x[br][(size_t)s * H + col]) : 0.f;
     }
     for (int i = tid; i < kRows * kStep; i += kThreads) {
-      const int rr = i / kStep, k = i % kStep;
+      // plain-T reads M's entry (s0 + k, r0 + rr): neighbouring threads take
+      // neighbouring rows rr, i.e. neighbouring addresses of adj
+      const int rr = M == kPlainT ? i % kRows : i / kStep;
+      const int k = M == kPlainT ? i / kRows : i % kStep;
       float nv[NB];
       norm_of<T, M>(a, srcb, dstb, dis, r0 + rr, s0 + k, N, nv);
 #pragma unroll
@@ -262,6 +271,8 @@ aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
 // bf16: tensor-core products (mma.sync m16n8k16, f32 accumulate).
 constexpr int kALd = kStep + 8;   // norm tile row pitch (bf16), 80 B: ldmatrix without bank conflicts
 constexpr int kBLd = kCols + 8;   // x tile row pitch (bf16), 272 B
+constexpr int kTLd = kRows + 8;   // plain-T's [sender][row] norm tile pitch (bf16), 144 B
+static_assert(kStep * kTLd <= kRows * kALd, "plain-T's norm tile fits the norm tile buffer");
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -322,7 +333,7 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
   const bool vec_x =
       H % 8 == 0 && ((reinterpret_cast<uintptr_t>(x0) |
                       reinterpret_cast<uintptr_t>(NB == 2 ? x1 : x0)) % 16) == 0;
-  const bool vec_a = M != kPlainT && N % 8 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0;
+  const bool vec_a = N % 8 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0;
   const bf16 zero = __float2bfloat16(0.f);
 
   for (int i = tid; i < N; i += kThreads) {
@@ -330,8 +341,11 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
 #pragma unroll
     for (int br = 0; br < NB; ++br) fs[(1 + br) * N + i] = dis[br][i];
   }
-  // each thread builds 8 senders of one row of the norm tiles
+  // each thread builds 8 senders of one row of the norm tiles; plain-T: 8
+  // rows (receivers) of one sender, read along the sender's adjacency row
+  // (16-byte loads) into a [sender][row] tile that ldmatrix.trans feeds
   const int rr = tid / 4, g = tid % 4, r = r0 + rr;
+  const int ts = tid / (kRows / 8), tc = (tid % (kRows / 8)) * 8;   // plain-T
   const bool row_ok = r < N;
   const float dst_r = kLogits && row_ok ? to_f(dstb[r]) : 0.f;
   float dis_r[NB];
@@ -342,17 +356,26 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
   // current step's products run
   uint4 areg, xreg[2 * NB];
   auto load = [&](int s0) {
-    const int s = s0 + g * 8;
-    if (row_ok && vec_a && s < N) {
-      areg = *reinterpret_cast<const uint4*>(a + (size_t)r * N + s);
-    } else {
-      alignas(16) bf16 t[8];
+    if constexpr (M == kPlainT) {
+      const int s = s0 + ts, rc = r0 + tc;
+      if (s < N && vec_a && rc < N) {
+        areg = *reinterpret_cast<const uint4*>(a + (size_t)s * N + rc);
+      } else {
+        alignas(16) bf16 t[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const size_t at = M == kPlainT ? (size_t)(s + j) * N + r : (size_t)r * N + s + j;
-        t[j] = (row_ok && s + j < N) ? a[at] : zero;
+        for (int j = 0; j < 8; ++j) t[j] = (s < N && rc + j < N) ? a[(size_t)s * N + rc + j] : zero;
+        areg = *reinterpret_cast<const uint4*>(t);
       }
-      areg = *reinterpret_cast<const uint4*>(t);
+    } else {
+      const int s = s0 + g * 8;
+      if (row_ok && vec_a && s < N) {
+        areg = *reinterpret_cast<const uint4*>(a + (size_t)r * N + s);
+      } else {
+        alignas(16) bf16 t[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) t[j] = (row_ok && s + j < N) ? a[(size_t)r * N + s + j] : zero;
+        areg = *reinterpret_cast<const uint4*>(t);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 2 * NB; ++j) {
@@ -373,31 +396,42 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
   auto store = [&](int s0) {
     const bf16* av = reinterpret_cast<const bf16*>(&areg);
     alignas(16) bf16 n8[NB][8];
+    if constexpr (M == kPlainT) {
+      // entry (sender s, receiver rc) of M: (m * dis_rc) * dis_s, rc being
+      // M's sender
+      const int s = s0 + ts;
+      const float dis_s = s < N ? fs[N + s] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int s = s0 + g * 8 + j;
-      float nv[NB];
+      for (int j = 0; j < 8; ++j) {
+        const int rc = r0 + tc + j;
+        const float nv = s < N && rc < N && s != rc
+                             ? __fmul_rn(__fmul_rn(__bfloat162float(av[j]), fs[N + rc]), dis_s)
+                             : 0.f;
+        n8[0][j] = __float2bfloat16(nv);
+      }
+      *reinterpret_cast<uint4*>(&As[0][ts * kTLd + tc]) = *reinterpret_cast<const uint4*>(n8[0]);
+    } else {
 #pragma unroll
-      for (int br = 0; br < NB; ++br) nv[br] = 0.f;
-      if (row_ok && s < N && s != r) {
-        float m[NB];
-        weigh<M == kPlainT ? kPlain : M>(__bfloat162float(av[j]),
-                                         kLogits ? sigmoid(fs[s] + dst_r) : 0.f, m);
+      for (int j = 0; j < 8; ++j) {
+        const int s = s0 + g * 8 + j;
+        float nv[NB];
 #pragma unroll
-        for (int br = 0; br < NB; ++br) {
-          const float dis_s = fs[(1 + br) * N + s];
-          // (m * dis_sender) * dis_receiver; the sender of plain-T's entry is r
-          nv[br] = M == kPlainT ? __fmul_rn(__fmul_rn(m[br], dis_r[br]), dis_s)
-                                : __fmul_rn(__fmul_rn(m[br], dis_s), dis_r[br]);
+        for (int br = 0; br < NB; ++br) nv[br] = 0.f;
+        if (row_ok && s < N && s != r) {
+          float m[NB];
+          weigh<M>(__bfloat162float(av[j]), kLogits ? sigmoid(fs[s] + dst_r) : 0.f, m);
+#pragma unroll
+          for (int br = 0; br < NB; ++br)   // (m * dis_sender) * dis_receiver
+            nv[br] = __fmul_rn(__fmul_rn(m[br], fs[(1 + br) * N + s]), dis_r[br]);
         }
+#pragma unroll
+        for (int br = 0; br < NB; ++br) n8[br][j] = __float2bfloat16(nv[br]);
       }
 #pragma unroll
-      for (int br = 0; br < NB; ++br) n8[br][j] = __float2bfloat16(nv[br]);
+      for (int br = 0; br < NB; ++br)
+        *reinterpret_cast<uint4*>(&As[br][rr * kALd + g * 8]) =
+            *reinterpret_cast<const uint4*>(n8[br]);
     }
-#pragma unroll
-    for (int br = 0; br < NB; ++br)
-      *reinterpret_cast<uint4*>(&As[br][rr * kALd + g * 8]) =
-          *reinterpret_cast<const uint4*>(n8[br]);
 #pragma unroll
     for (int j = 0; j < 2 * NB; ++j) {
       const int idx = tid + (j % 2) * kThreads;
@@ -428,8 +462,13 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
       for (int br = 0; br < NB; ++br) {
         unsigned af[2][4], bfr[4][2];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldsm_x4(af[mt], &As[br][(wm * 32 + mt * 16 + lane % 16) * kALd + kk + (lane / 16) * 8]);
+        for (int mt = 0; mt < 2; ++mt) {
+          if constexpr (M == kPlainT)   // the [sender][row] tile, transposed
+            ldsm_x4_trans(af[mt], &As[br][(kk + lane % 8 + (lane / 16) * 8) * kTLd + wm * 32 +
+                                          mt * 16 + ((lane / 8) % 2) * 8]);
+          else
+            ldsm_x4(af[mt], &As[br][(wm * 32 + mt * 16 + lane % 16) * kALd + kk + (lane / 16) * 8]);
+        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           unsigned t[4];
@@ -481,6 +520,25 @@ int launch_degree(const void* adj, const void* src, const void* dst, float* stat
   return (int)cudaGetLastError();
 }
 
+// Raise kernel fn's dynamic shared memory cap on the current device to
+// `bytes`, calling cudaFuncSetAttribute only when no earlier call there set
+// as much.  cap: the kernel's own per-device record (a function-local static
+// of its launcher).
+constexpr int kMaxDevices = 64;
+cudaError_t raise_smem(const void* fn, std::atomic<int>* cap, size_t bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cap[dev].load() >= (int)bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) {
+    int seen = cap[dev].load();
+    while (seen < (int)bytes && !cap[dev].compare_exchange_weak(seen, (int)bytes)) {
+    }
+  }
+  return e;
+}
+
 template <int M>
 int launch_fwd_f32(const void* adj, const void* x0, const void* x1, const void* src,
                    const void* dst, void* o0, void* o1, float* stats, int B, int N, int H,
@@ -489,8 +547,8 @@ int launch_fwd_f32(const void* adj, const void* x0, const void* x1, const void* 
   int err = launch_degree<float, M>(adj, src, dst, stats, B, N, stream);
   if (err != 0) return err;
   const size_t smem = NB * (kStep * kCols + kRows * (kStep + 1)) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(aggregate_fma_kernel<float, M>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<int> cap[kMaxDevices];
+  cudaError_t e = raise_smem((const void*)aggregate_fma_kernel<float, M>, cap, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((N + kRows - 1) / kRows, B, (H + kCols - 1) / kCols);
   aggregate_fma_kernel<float, M><<<grid, kThreads, smem, stream>>>(
@@ -510,8 +568,8 @@ int launch_fwd_bf16(const void* adj, const void* x0, const void* x1, const void*
   int err = launch_degree<bf16, M>(adj, src, dst, stats, B, N, stream);
   if (err != 0) return err;
   const size_t smem = (1 + NB) * (size_t)N * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(aggregate_mma_kernel<M>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<int> cap[kMaxDevices];
+  cudaError_t e = raise_smem((const void*)aggregate_mma_kernel<M>, cap, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((N + kRows - 1) / kRows, B, (H + kCols - 1) / kCols);
   aggregate_mma_kernel<M><<<grid, kThreads, smem, stream>>>(
@@ -1411,6 +1469,376 @@ int launch_bwd_typed(int dtype, const void* adj, const void* x0, const void* x1,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Row 4 in one launch: K17 and K17T in bf16 for graphs of up to 256 nodes.
+//
+// Replaces (cal_tpu/ops/pallas_gcn.py) _mm_kernel with transpose False (K17)
+// and True (K17T), whose grid step holds one graph's [N, N] adjacency in VMEM.
+// Contract: the plain modes above (the degree M's column sums in both).
+//
+// Bound on this card: bytes, adj + x + out (33.6 MB at B = 128, N = 256, H =
+// 128: 0.0100 ms); the products (2.1 GFLOP) take a fifth of that on the
+// tensor cores.  The two-pass path above reads adj twice.
+// Design: a thread-block cluster of cs = ceil(N / 128) CTAs (1 or 2) takes a
+// graph; CTA q owns output rows [128 q, 128 q + 128) with 16 warps.  The
+// clusters are persistent: as many as fit at once (one CTA an SM), each
+// walking the graphs b, b + G, ...  Per graph:
+//   1. cp.async brings the CTA's adjacency slab into shared memory, the only
+//      read of adj: K17 its 128 receiver rows [128, N]; K17T its 128 output
+//      rows, which are adjacency columns, as an [N, 128] box of row pieces
+//      (the column read is coalesced).  Two slab buffers: the next graph's
+//      slab is in flight while this one is computed.
+//   2. degrees: column sums of the slab on the tensor cores (a ones matrix
+//      times the slab: counts sum exactly in f32), the diagonal subtracted.
+//      K17 sums its 128 rows and every CTA adds all ranks' partial sums in
+//      rank order, read over distributed shared memory; a K17T CTA holds
+//      whole columns, so it has its own 128 degrees and reads the others'.
+//      Every order is fixed: two calls give the same bits.
+//   3. each CTA rounds its slab into the bf16 norm tile in place, 8 entries
+//      a thread at a time (the diagonal and the padding 0).
+//   4. x of the graph, whole, at a padded pitch for ldmatrix: issued by
+//      cp.async once the last graph's products are done with the buffer, so
+//      it lands during steps 2 and 3.
+//   5. mma.sync m16n8k16 (bf16 in, f32 accumulate), warps of 32 rows x 32
+//      columns; K17T feeds its [sender][row] slab through ldmatrix.trans.
+//   6. the epilogue adds x_r / deg_r from shared memory, rounds to bf16,
+//      stages the tile in the x buffer and writes 16-byte row pieces.
+// H > 128 walks chunks of 128 features with the norm tile kept.  The norm
+// rounding, the product order and the epilogue are the two-pass kernels':
+// the outputs equal theirs bit for bit.  Shared memory: 209 KB (K17) / 212
+// KB (K17T) at N = 256, which sets the limit.
+// Measured and dropped on the way (H100): x multicast over the cluster (one
+// bulk copy per 256-byte row into every CTA: ~6 us to deliver 96 KB, the
+// issuing warp holding the rest back); forming the norm entries in the
+// MMA's A fragments (four warps redo each entry: ALU-bound, slower than one
+// pass through shared memory); CTAs of 64 rows (at N = 256 four-CTA
+// clusters lost ~4k cycles a graph to skew at the degree exchange and 30
+// clusters of 4 left 12 SMs idle; up to N = 512 they were no faster than the
+// two-pass path).  Larger graphs, f32 and H that is not a multiple of 8 take
+// the two-pass path (ops/fused_gcn.py: plain_cluster_size).
+constexpr int kCRows = 128;                         // output rows per CTA
+constexpr int kCThreads = kCRows * 4;               // 16 warps of 32 x 32 output tiles
+constexpr int kMaxClusterN = 2 * kCRows;            // the largest graph of the path
+constexpr int kCCols = 128;                         // feature columns per chunk
+constexpr int kXLd = kCCols + 8;                    // x chunk pitch (bf16): 272 B
+
+__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// byte offsets of the cluster kernel's shared memory: f32 pub [2][pubn] (by
+// graph parity: K17 the partial column sums of the CTA's rows [kp], K17T the
+// degrees of its own columns [128]), dis (deg^-1/2 of every node, 0 past N
+// [kp + 128]), inv (1/deg of the CTA's rows [128]); bf16 two slab buffers
+// and the x chunk [kp][kXLd]
+struct PlainSmem {
+  int kp, la, pubn, slab_elems, pub, dis, inv, slab, xs, total;
+  __host__ __device__ PlainSmem(int N, bool trans) {
+    kp = pad16(N);
+    la = trans ? kCRows + 8 : kp + 8;   // slab pitch: ldmatrix without bank conflicts
+    pubn = trans ? kCRows : kp;
+    slab_elems = trans ? kp * la : kCRows * la;
+    pub = 0;
+    dis = pub + 4 * 2 * pubn;
+    inv = dis + 4 * (kp + kCRows);
+    slab = inv + 4 * kCRows;
+    xs = slab + 2 * 2 * slab_elems;
+    total = xs + 2 * kp * kXLd;
+  }
+};
+
+// every thread of the cluster: writes before it are visible to all after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// column sums of 16 columns [c0, c0 + 16) of a [k][column] bf16 tile over
+// rows [0, rows16) (a multiple of 16) on the tensor cores: ones x tile.
+// Lanes 0-3 end with columns c0 + 2 lane + {0, 1} in d[0][0..1] and c0 + 8 +
+// 2 lane + {0, 1} in d[1][0..1].
+__device__ __forceinline__ void column_sums16(float (&d)[2][4], const __nv_bfloat16* tile,
+                                              int ld, int c0, int rows16, int lane) {
+  const unsigned one2 = 0x3F803F80u;   // two bf16 ones
+  const unsigned ones[4] = {one2, one2, one2, one2};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) d[h][f] = 0.f;
+  for (int kk = 0; kk < rows16; kk += 16) {
+    unsigned t[4];
+    ldsm_x4_trans(t, tile + (kk + lane % 8 + ((lane / 8) % 2) * 8) * ld + c0 + (lane / 16) * 8);
+    mma_bf16(d[0], ones, t[0], t[1]);
+    mma_bf16(d[1], ones, t[2], t[3]);
+  }
+}
+
+template <bool kTrans>
+__global__ void __launch_bounds__(kCThreads, 1)
+plain_cluster_kernel(const __nv_bfloat16* __restrict__ adj, const __nv_bfloat16* __restrict__ x,
+                     __nv_bfloat16* __restrict__ out, int B, int N, int H) {
+  using bf16 = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  constexpr int R = kCRows, kT = kCThreads, kWarps = kT / 32;
+  extern __shared__ __align__(16) unsigned char plain_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int r0 = q * R, rows = min(R, N - r0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;   // warp owns rows wm*32.., columns wn*32..
+  const PlainSmem L(N, kTrans);
+  const int kp = L.kp, la = L.la;
+  float* pub = reinterpret_cast<float*>(plain_smem + L.pub);
+  float* dis = reinterpret_cast<float*>(plain_smem + L.dis);
+  float* inv = reinterpret_cast<float*>(plain_smem + L.inv);
+  bf16* slabs = reinterpret_cast<bf16*>(plain_smem + L.slab);
+  bf16* xs = reinterpret_cast<bf16*>(plain_smem + L.xs);
+  const int G = gridDim.y, count = (B - (int)blockIdx.y + G - 1) / G;   // this cluster's graphs
+  const int chunks = (H + kCCols - 1) / kCCols;
+  const bool vec_a = N % 8 == 0 && aligned16(adj);
+
+  for (int s = N + tid; s < kp + R; s += kT) dis[s] = 0.f;   // never written again
+
+  // the cluster's graph i: this CTA's adjacency slab, zero past the graph
+  auto load_slab = [&](int i) {
+    const bf16* a = adj + (blockIdx.y + (size_t)i * G) * N * N;
+    bf16* slab = slabs + (i % 2) * L.slab_elems;
+    if constexpr (kTrans) {
+      for (int c = tid; c < kp * (R / 8); c += kT) {
+        const int s = c / (R / 8), j = (c % (R / 8)) * 8;
+        copy16(slab + s * la + j, s < N ? a + (size_t)s * N + r0 : a, j, s < N ? rows : 0, vec_a);
+      }
+    } else {
+      for (int c = tid; c < R * (kp / 8); c += kT) {
+        const int rl = c / (kp / 8), j = (c % (kp / 8)) * 8;
+        copy16(slab + rl * la + j, rl < rows ? a + (size_t)(r0 + rl) * N : a, j,
+               rl < rows ? N : 0, vec_a);
+      }
+    }
+    cp_async_commit();
+  };
+  // and its x chunk h0, zero past the graph and the chunk
+  auto load_x = [&](int i, int h0) {
+    const bf16* xb = x + (blockIdx.y + (size_t)i * G) * N * H + h0;
+    const int w = min(kCCols, H - h0);
+    for (int c = tid; c < kp * (kCCols / 8); c += kT) {
+      const int s = c / (kCCols / 8), j = (c % (kCCols / 8)) * 8;
+      copy16(xs + s * kXLd + j, s < N ? xb + (size_t)s * H : xb, j, s < N ? w : 0, true);
+    }
+    cp_async_commit();
+  };
+
+  // 2. degrees of the cluster's graph i from its slab into pub[i % 2]
+  auto degrees = [&](int i) {
+    const bf16* slab = slabs + (i % 2) * L.slab_elems;
+    float* mine = pub + (i % 2) * L.pubn;
+    if constexpr (kTrans) {
+      if (warp < R / 16) {   // 16 own columns a warp, all rows
+        float d[2][4];
+        column_sums16(d, slab, la, warp * 16, kp, lane);
+        if (lane < 4) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cl = warp * 16 + h * 8 + lane * 2 + e, r = r0 + cl;
+              const float self = r < N ? __bfloat162float(slab[r * la + cl]) : 0.f;
+              mine[cl] = __fadd_rn(__fsub_rn(d[h][e], self), 1.0f);
+            }
+        }
+      }
+    } else {
+      for (int c0 = warp * 16; c0 < kp; c0 += 16 * kWarps) {   // over the CTA's rows
+        float d[2][4];
+        column_sums16(d, slab, la, c0, R, lane);
+        if (lane < 4) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int s = c0 + h * 8 + lane * 2 + e;
+              const float self =
+                  s >= r0 && s < r0 + rows ? __bfloat162float(slab[(s - r0) * la + s]) : 0.f;
+              mine[s] = __fsub_rn(d[h][e], self);
+            }
+        }
+      }
+    }
+  };
+
+  // cp.async groups, oldest first: slab i, x i, then slab i + 1, issued as
+  // graph i starts (committed empty past the last graph)
+  load_slab(0);
+  load_x(0, 0);
+  for (int i = 0; i < count; ++i) {
+    const size_t b = blockIdx.y + (size_t)i * G;
+    bf16* slab = slabs + (i % 2) * L.slab_elems;
+    const float* mine = pub + (i % 2) * L.pubn;
+    // 1. this graph's slab; the next graph's into the other buffer
+    if (i + 1 < count) load_slab(i + 1);
+    else cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();
+    degrees(i);
+    cluster_sync();   // every rank's sums are visible
+    if constexpr (kTrans) {
+      for (int s = tid; s < N; s += kT)
+        dis[s] = rsqrtf(cluster.map_shared_rank(mine, s / R)[s % R]);
+      if (tid < R) inv[tid] = 1.0f / mine[tid];
+    } else {
+      for (int s = tid; s < kp; s += kT) {
+        float part[2];   // the ranks' sums, loads in flight together
+#pragma unroll
+        for (int p = 0; p < 2; ++p) part[p] = p < cs ? cluster.map_shared_rank(mine, p)[s] : 0.f;
+        const float deg = (part[0] + part[1]) + 1.0f;   // rank order
+        if (s < N) dis[s] = rsqrtf(deg);
+        if (s >= r0 && s < r0 + R) inv[s - r0] = 1.0f / deg;
+      }
+    }
+    __syncthreads();
+    // 3. the norm tile in place, 8 entries at a time: K17 entry (row r0 + e,
+    // sender j), K17T entry (sender e, row r0 + j) of M, both (m * dis_j) *
+    // dis_e (M's sender factor first).  A thread keeps one 8-column piece
+    // (its 8 factors in registers) and walks the slab's rows.
+    {
+      const int per = kTrans ? R / 8 : kp / 8;     // pieces per slab row (<= 32)
+      const int groups = kT / per;                 // threads down a column of pieces
+      if (tid < groups * per) {
+        const int j0 = (tid % per) * 8, jb = kTrans ? r0 : 0;
+        const float4 f0 = *reinterpret_cast<const float4*>(dis + jb + j0);
+        const float4 f1 = *reinterpret_cast<const float4*>(dis + jb + j0 + 4);
+        const float fj[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll 2
+        for (int e = tid / per; e < (kTrans ? kp : R); e += groups) {
+          bf16* p = slab + e * la + j0;
+          const uint4 u = *reinterpret_cast<const uint4*>(p);
+          const bf16* av = reinterpret_cast<const bf16*>(&u);
+          const float fe = dis[kTrans ? e : r0 + e];
+          const int self = kTrans ? e - r0 - j0 : r0 + e - j0;   // the diagonal's place, if in [0, 8)
+          uint4 n8;
+          unsigned* w8 = reinterpret_cast<unsigned*>(&n8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float a0 = 2 * j == self ? 0.f
+                                           : __fmul_rn(__fmul_rn(__bfloat162float(av[2 * j]), fj[2 * j]), fe);
+            const float a1 = 2 * j + 1 == self
+                                 ? 0.f
+                                 : __fmul_rn(__fmul_rn(__bfloat162float(av[2 * j + 1]), fj[2 * j + 1]), fe);
+            const __nv_bfloat162 v2 = __floats2bfloat162_rn(a0, a1);
+            w8[j] = *reinterpret_cast<const unsigned*>(&v2);
+          }
+          *reinterpret_cast<uint4*>(p) = n8;
+        }
+      }
+    }
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int h0 = ch * kCCols, w = min(kCCols, H - h0);
+      if (ch > 0) load_x(i, h0);   // the buffer is free: the last chunk's epilogue synced
+      if (ch == 0) cp_async_wait<1>();   // x i (slab i + 1 may fly)
+      else cp_async_wait<0>();
+      __syncthreads();
+      // 5. the products
+      float acc[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[mt][nt][f] = 0.f;
+      if (wn * 32 < w) {   // warps past the chunk's columns have no products
+        for (int kk = 0; kk < kp; kk += 16)
+          warp_mma16<kTrans, true>(acc, kTrans ? slab + kk * la + wm * 32 : slab + wm * 32 * la + kk,
+                                   la, xs + kk * kXLd + wn * 32, kXLd, lane);
+      }
+      // 6. + x_r / deg_r, rounded to bf16; the tile through the x buffer's
+      // first rows, stored in 16-byte row pieces
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + mt * 16 + lane / 4 + h * 8;
+          if (row >= rows) continue;
+          const float iv = inv[row];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                xs + (r0 + row) * kXLd + wn * 32 + nt * 8 + (lane % 4) * 2));
+            acc[mt][nt][2 * h] = __fadd_rn(acc[mt][nt][2 * h], __fmul_rn(xv.x, iv));
+            acc[mt][nt][2 * h + 1] = __fadd_rn(acc[mt][nt][2 * h + 1], __fmul_rn(xv.y, iv));
+          }
+        }
+      __syncthreads();   // every warp is done reading the chunk
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + mt * 16 + lane / 4 + h * 8;
+          if (row >= rows) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            *reinterpret_cast<__nv_bfloat162*>(xs + row * kXLd + wn * 32 + nt * 8 + (lane % 4) * 2) =
+                __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      __syncthreads();
+      for (int e = tid; e < rows * (w / 8); e += kT) {
+        const int rl = e / (w / 8), c = (e % (w / 8)) * 8;
+        *reinterpret_cast<uint4*>(out + (b * N + r0 + rl) * H + h0 + c) =
+            *reinterpret_cast<const uint4*>(xs + rl * kXLd + c);
+      }
+      __syncthreads();   // the x buffer (and this slab buffer) are free
+    }
+    // 4. the next graph's x, landing while its slab turns into norms
+    if (i + 1 < count) load_x(i + 1, 0);
+  }
+  cluster_sync();   // no peer reads this CTA's pub any more
+}
+
+// how a launch of the cluster kernel runs: its dynamic shared memory and the
+// clusters that fit on the current device at once
+struct PlainPlan {
+  size_t smem;
+  int clusters;
+};
+
+template <bool kTrans>
+cudaError_t plain_plan(int N, int cluster, PlainPlan* plan, cudaLaunchConfig_t* cfg,
+                       cudaLaunchAttribute* attr) {
+  plan->smem = PlainSmem(N, kTrans).total;
+  static std::atomic<int> cap[kMaxDevices];
+  cudaError_t e = raise_smem((const void*)plain_cluster_kernel<kTrans>, cap, plan->smem);
+  if (e != cudaSuccess) return e;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->blockDim = dim3(kCThreads, 1, 1);
+  cfg->dynamicSmemBytes = plan->smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(&plan->clusters, plain_cluster_kernel<kTrans>, cfg);
+}
+
+template <bool kTrans>
+int launch_plain_cluster(const void* adj, const void* x, void* out, int B, int N, int H,
+                         int cluster, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if (N > kMaxClusterN || cluster != (N + kCRows - 1) / kCRows || H % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  PlainPlan plan;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = plain_plan<kTrans>(N, cluster, &plan, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  if (plan.clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(cluster, min(B, plan.clusters), 1);
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, plain_cluster_kernel<kTrans>, static_cast<const bf16*>(adj),
+                         static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, H);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f32 scratch elements gcn_bwd_launch needs for a [B, N, H] batch of dtype
@@ -1471,4 +1899,29 @@ extern "C" int gcn_fwd_launch(const void* adj, const void* x0, const void* x1,
       return launch_fwd<kPlainT>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K17 (transpose 0) or K17T (1) in one launch, bf16: adj [B,N,N], x/out
+// [B,N,H] contiguous; N <= 256, cluster = ceil(N / 128) CTAs per graph, H a
+// multiple of 8, x and out 16-byte aligned (else cudaErrorInvalidValue).
+extern "C" int gcn_plain_cluster_launch(const void* adj, const void* x, void* out, int B, int N,
+                                        int H, int transpose, int cluster, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || N == 0 || H == 0) return 0;
+  return transpose ? launch_plain_cluster<true>(adj, x, out, B, N, H, cluster, s)
+                   : launch_plain_cluster<false>(adj, x, out, B, N, H, cluster, s);
+}
+
+// that launch's plan at N on the current device: plan[0] its dynamic shared
+// memory (bytes), plan[1] the clusters resident at once
+extern "C" int gcn_plain_cluster_plan(int N, int transpose, long long* plan) {
+  PlainPlan p{};
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int cluster = (N + kCRows - 1) / kCRows;
+  const cudaError_t e = transpose ? plain_plan<true>(N, cluster, &p, &cfg, &attr)
+                                  : plain_plan<false>(N, cluster, &p, &cfg, &attr);
+  plan[0] = (long long)p.smem;
+  plan[1] = p.clusters;
+  return (int)e;
 }

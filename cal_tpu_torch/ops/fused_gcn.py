@@ -13,7 +13,9 @@ count):
 * ``fused_gcn_dense_att`` (row 3): forward K18 (``_att_fwd_kernel``), backward
   ``fused_gcn_dense_att_bwd``, K18B (``_att_bwd_kernel``);
 * ``fused_gcn_dense`` (row 4): forward K17 (``_mm_kernel``), backward
-  ``fused_gcn_dense_t``, K17T, the same kernel with the adjacency transposed.
+  ``fused_gcn_dense_t``, K17T, the same kernel with the adjacency transposed;
+  in bf16 on graphs of up to 256 nodes both run in one launch that reads the
+  adjacency once (``plain_cluster_size``), else in two passes.
 
 All run modes of the kernels in ``csrc/fused_gcn.cu`` on CUDA tensors and their
 plain twins on CPU tensors.  The twins reproduce the TPU kernels' rounding: the
@@ -180,6 +182,10 @@ def _lib():
         lib.gcn_bwd_launch.restype = ctypes.c_int
         lib.gcn_bwd_scratch_floats.argtypes = [i] * 5
         lib.gcn_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.gcn_plain_cluster_launch.argtypes = [vp] * 3 + [i] * 5 + [vp]
+        lib.gcn_plain_cluster_launch.restype = ctypes.c_int
+        lib.gcn_plain_cluster_plan.argtypes = [i, i, vp]
+        lib.gcn_plain_cluster_plan.restype = ctypes.c_int
     return lib
 
 
@@ -339,12 +345,35 @@ def fused_gcn_dense_att(x, adj, src, dst, negate=False):
 
 
 # ---- row 4: the unweighted normalized aggregate (K17, K17T) ---------------
+CLUSTER_ROWS = 128    # output rows a CTA of the one-launch path owns
+MAX_CLUSTER_N = 256   # its largest graph: two slab buffers and x fill shared memory
+
+
+def plain_cluster_size(dtype, n, h):
+    """CTAs per graph of K17/K17T's one-launch path (a thread-block cluster
+    that reads the adjacency once): ceil(N / 128), for bfloat16 with H a
+    multiple of 8 and 0 < N <= 256; 0 otherwise, the two-pass path (a
+    degree pass, then the aggregate)."""
+    if dtype != torch.bfloat16 or h % 8 or not 0 < n <= MAX_CLUSTER_N:
+        return 0
+    return -(-n // CLUSTER_ROWS)
+
+
 def _mm(what, x, adj, transpose):
     _check(what, (x,), adj)
     if x.device.type == "cpu":
         return fused_gcn_dense_plain(x, adj, transpose)
     x, adj = _contig(x, adj)
-    (out,), _ = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
+    bsz, n, h = x.shape
+    cluster = plain_cluster_size(x.dtype, n, h) if x.data_ptr() % 16 == 0 else 0
+    if not cluster:
+        (out,), _ = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
+        return out
+    out = torch.empty_like(x)
+    err = _lib().gcn_plain_cluster_launch(
+        adj.data_ptr(), x.data_ptr(), out.data_ptr(), bsz, n, h, int(transpose), cluster,
+        torch.cuda.current_stream(adj.device).cuda_stream)
+    build.check(err, what)
     return out
 
 

@@ -149,15 +149,23 @@
    b. rows 4 and 3 (K17/K17T, K18/K18B, ``csrc/fused_gcn.cu``) against their
       twins on the synthetic dense batch (B = 128, N = 256, H = 128), bf16 and
       f32, both ``negate``s, timed beside torch.bmm on a prebuilt normalized
-      adjacency (row 4); row 9 (K19/K19T/K20, ``csrc/coo_spmm.cu``) at 4 heads
-      of 32 and row 14 (K21) at 4 planes on the serving batch, timed beside
-      torch.sparse.mm on a block-diagonal per-head CSR, a batched
-      torch.sparse.sampled_addmm (K20) and scatter_reduce_ amax.
+      adjacency (row 4; bf16 on its one-launch cluster path), and K17/K17T
+      once more on the two-pass path (B = 16, N = 640); row 9 (K19/K19T/K20,
+      ``csrc/coo_spmm.cu``) at 4 heads of 32 and row 14 (K21) at 4 planes on
+      the serving batch, timed beside torch.sparse.mm on a block-diagonal
+      per-head CSR, a batched torch.sparse.sampled_addmm (K20) and
+      scatter_reduce_ amax; then a digest of the dense masked-conv kernels'
+      outputs (rows 2, 2b, 3, 3b, 4, 4-dx) on seeded inputs.
 
 Prints one JSON line per result, then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 CUDA or the package is missing, or when any check fails.
+
+    python3 chip_smoke.py --digests
+
+prints only the digest line: run from the root of another tree of the port
+(a copy of this file there), it gives that tree's bits for an A/B.
 """
 from __future__ import annotations
 
@@ -590,20 +598,24 @@ def profile_passes(torch, fn, reps=3):
     return rows
 
 
-def ptxas_kernels(log: str, key: str) -> dict:
-    """{kernel instance: registers and spill bytes} of the functions whose
-    mangled name holds ``key``, from nvcc's ``-Xptxas -v`` log."""
-    modes = {"0": "dual", "1": "sig", "2": "neg"}
+def ptxas_kernels(log: str, names: str) -> dict:
+    """{kernel instance: registers, spill bytes and static shared memory} of
+    the functions whose mangled name matches ``names`` (an alternation of
+    kernel names), from nvcc's ``-Xptxas -v`` log."""
+    modes = {"0": "dual", "1": "sig", "2": "neg", "3": "plain", "4": "plain_t"}
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\w+)", ln)
         if m:
-            k = re.search(r"\d+(" + key + r"\w*?_kernel)I(13__nv_bfloat16|f)(?:Li(\d)E)?",
-                          m.group(1))
+            k = re.search(r"\d+(" + names + r")I(13__nv_bfloat16|f)?(?:L([ib])(\d)E)?", m.group(1))
             name = None
             if k:
-                name = f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'}" + (
-                    f", {modes.get(k.group(3), k.group(3))}>" if k.group(3) else ">")
+                args = [] if k.group(2) is None else ["bf16" if k.group(2) != "f" else "f32"]
+                if k.group(3) == "b":   # row 4's cluster kernel: transpose
+                    args.append("K17T" if k.group(4) == "1" else "K17")
+                elif k.group(3):
+                    args.append(modes.get(k.group(4), k.group(4)))
+                name = f"{k.group(1)}<{', '.join(args)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if name and m:
@@ -611,6 +623,8 @@ def ptxas_kernels(log: str, key: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if name and m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -2611,6 +2625,24 @@ def parity_phase(torch) -> dict:
     return launches
 
 
+def plain_cluster_plan() -> dict:
+    """Row 4's cluster kernel on this card at the path's limit (N = 256, the
+    dense batch's): dynamic shared memory (bytes) and the clusters resident
+    at once (each walks B / clusters graphs)."""
+    import ctypes
+
+    from cal_tpu_torch.kernels import build
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    out = {}
+    for k in ("K17", "K17T"):
+        plan = (ctypes.c_longlong * 2)()
+        build.check(fg._lib().gcn_plain_cluster_plan(fg.MAX_CLUSTER_N, int(k == "K17T"), plan),
+                    "gcn_plain_cluster_plan")
+        out[k] = {"n": fg.MAX_CLUSTER_N, "smem": plan[0], "clusters": plan[1]}
+    return out
+
+
 def all_counters() -> dict:
     """Every launch-counted kernel wrapper of the port, by row name."""
     from cal_tpu_torch.ops import (
@@ -2691,16 +2723,19 @@ def dense_row_kernels(torch, batch, peaks, flush):
         plane, adj_b, lg = bsz * n * H * elt, bsz * n * n * elt, bsz * n * elt
         prod = 2 * bsz * n * n * H
         rows = {}
+        cluster = fg.plain_cluster_size(dt, n, H)
+        path = {"path": "cluster" if cluster else "two_pass", "cluster": cluster}
         rows["fused_gcn_dense"] = _row(
             torch, "fused_gcn_dense", dt_name, lambda: fg._mm_fwd(x, adj),
             lambda: fg.fused_gcn_dense_plain(x, adj), adj_b + 2 * plane, prod, peak, e17, tol,
             bw, flush, lambda: torch.bmm(norm, x),
-            "torch.bmm(normalized adjacency, x) in x's dtype, adjacency built outside the call")
+            "torch.bmm(normalized adjacency, x) in x's dtype, adjacency built outside the call",
+            **path)
         rows["fused_gcn_dense_t"] = _row(
             torch, "fused_gcn_dense_t", dt_name, lambda: fg.fused_gcn_dense_t(g, adj),
             lambda: fg.fused_gcn_dense_plain(g, adj, True), adj_b + 2 * plane, prod, peak,
             e17t, tol, bw, flush, lambda: torch.bmm(norm_t, g),
-            "torch.bmm(transposed normalized adjacency, g), built outside the call")
+            "torch.bmm(transposed normalized adjacency, g), built outside the call", **path)
         rows["fused_gcn_dense_att"] = _row(
             torch, "fused_gcn_dense_att", dt_name, lambda: fg._att_fwd(x, adj, src, dst, False),
             lambda: fg.fused_gcn_dense_att_plain(x, adj, src, dst, False),
@@ -2714,6 +2749,83 @@ def dense_row_kernels(torch, batch, peaks, flush):
             flush, None,
             "none: no single PyTorch call computes the sigmoid-weighted aggregate's VJP")
         out[dt_name] = rows
+    plain_two_pass(torch, peaks, flush)
+    return out
+
+
+def plain_two_pass(torch, peaks, flush, bsz=16, n=640):
+    """K17 and K17T (bf16) past the one-launch path's limit (N > 256): the
+    two-pass path, a degree pass and the aggregate, on a seeded adjacency of
+    counts (about 13 edges a node, 1 in 10 of them doubled), held against the
+    twins and timed beside torch.bmm."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    bw, bf16_peak, _ = peaks
+    dt = torch.bfloat16
+    check(fg.plain_cluster_size(dt, n, H) == 0, f"N = {n} is not on the two-pass path")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    adj = ((torch.rand((bsz, n, n), generator=gen, device="cuda") < 0.02).float()
+           + (torch.rand((bsz, n, n), generator=gen, device="cuda") < 0.002)).to(dt)
+    x, g = (torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt) for _ in range(2))
+    tol = DUAL_TOL["bfloat16"]
+    before = (fg.fused_gcn_dense.launches, fg.fused_gcn_dense_t.launches)
+    e17 = _held(torch, "K17 two-pass", "bfloat16", fg._mm_fwd(x, adj),
+                fg.fused_gcn_dense_plain(x, adj), tol)
+    e17t = _held(torch, "K17T two-pass", "bfloat16", fg.fused_gcn_dense_t(g, adj),
+                 fg.fused_gcn_dense_plain(g, adj, True), tol)
+    check((fg.fused_gcn_dense.launches, fg.fused_gcn_dense_t.launches)
+          == (before[0] + 1, before[1] + 1), "K17 / K17T two-pass launches")
+    m = fg._offdiag(adj)
+    dis = torch.rsqrt(m.sum(dim=-2) + 1.0)
+    norm = ((m * dis[:, None, :]) * dis[:, :, None]).to(dt)
+    norm_t = norm.transpose(1, 2).contiguous()
+    nbytes = (bsz * n * n + 2 * bsz * n * H) * 2
+    extra = {"path": "two_pass", "batch": [bsz, n, H]}
+    _row(torch, "fused_gcn_dense", "bfloat16", lambda: fg._mm_fwd(x, adj),
+         lambda: fg.fused_gcn_dense_plain(x, adj), nbytes, 2 * bsz * n * n * H, bf16_peak, e17,
+         tol, bw, flush, lambda: torch.bmm(norm, x),
+         "torch.bmm(normalized adjacency, x), adjacency built outside the call", **extra)
+    _row(torch, "fused_gcn_dense_t", "bfloat16", lambda: fg.fused_gcn_dense_t(g, adj),
+         lambda: fg.fused_gcn_dense_plain(g, adj, True), nbytes, 2 * bsz * n * n * H,
+         bf16_peak, e17t, tol, bw, flush, lambda: torch.bmm(norm_t, g),
+         "torch.bmm(transposed normalized adjacency, g), built outside the call", **extra)
+
+
+def dense_digests(torch, batch) -> dict:
+    """sha256 of the dense masked-conv kernels' outputs (rows 2, 2b, 3, 3b, 4
+    and 4-dx) on seeded inputs over the synthetic dense batch's adjacency, bf16
+    and f32.  Two trees whose digests agree computed the same bits; the calls
+    are the public functions, so the digests of another tree of the port come
+    from this function with that tree's package imported (``--digests``)."""
+    import hashlib
+
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    bsz, n, _ = batch.x.shape
+    out = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        adj = to_dense(batch, dt).adj
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        xc, xo, gc, go = (torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt)
+                          for _ in range(4))
+        src = torch.randn((bsz, n), generator=gen, device="cuda").to(dt)
+        dst = (2.0 * torch.randn((bsz, n), generator=gen, device="cuda")).to(dt)
+        calls = {
+            "row2": lambda: fg.fused_gcn_dense_att_dual(xc, xo, adj, src, dst),
+            "row2b": lambda: fg.fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go),
+            "row3": lambda: [fg.fused_gcn_dense_att(xc, adj, src, dst, neg)
+                             for neg in (False, True)],
+            "row3b": lambda: [t for neg in (False, True)
+                              for t in fg.fused_gcn_dense_att_bwd(xc, adj, src, dst, gc, neg)],
+            "row4": lambda: [fg.fused_gcn_dense(xc, adj)],
+            "row4_dx": lambda: [fg.fused_gcn_dense_t(gc, adj)],
+        }
+        for name, fn in calls.items():
+            digest = hashlib.sha256()
+            for t in fn():
+                digest.update(t.detach().float().cpu().numpy().tobytes())
+            out[f"{name}_{dt_name}"] = digest.hexdigest()[:16]
     return out
 
 
@@ -2891,14 +3003,21 @@ SPARSE_BWD_KERNEL_ROWS = {
 }
 
 
+def missing(torch) -> bool:
+    """True (and the reason on stderr) when there is no card or no package."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return True
+    if not os.path.isdir(os.path.join(HERE, "cal_tpu_torch")):
+        print("chip_smoke: the cal_tpu_torch package is missing", file=sys.stderr)
+        return True
+    return False
+
+
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not os.path.isdir(os.path.join(HERE, "cal_tpu_torch")):
-        print("chip_smoke: the cal_tpu_torch package is missing", file=sys.stderr)
+    if missing(torch):
         return 2
     from cal_tpu_torch.data.loader import Loader
     from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
@@ -2926,7 +3045,12 @@ def main() -> int:
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, v in report.items()},
-          "ptxas_dense_bwd": ptxas_kernels(report.get("fused_gcn", {}).get("log", ""), "bwd_")})
+          "ptxas_dense_bwd": ptxas_kernels(report.get("fused_gcn", {}).get("log", ""),
+                                           r"bwd_\w*?_kernel"),
+          "ptxas_dense_fwd": ptxas_kernels(
+              report.get("fused_gcn", {}).get("log", ""),
+              "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|degree_kernel"),
+          "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
     ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
@@ -3089,6 +3213,7 @@ def main() -> int:
     parity_launches = parity_phase(torch)
     lap("parity")
     dense_rows = dense_row_kernels(torch, batch, peaks, flush)
+    emit({"phase": "dense_digests", **dense_digests(torch, batch)})
     serve_batch = next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda")
     row_rows = {dt: {**dense_rows[dt], **r} for dt, r in sparse_row_kernels(
         torch, serve_batch, "synthetic", peaks, flush).items()}
@@ -3195,5 +3320,23 @@ def main() -> int:
     return 0
 
 
+def digests_main() -> int:
+    """``--digests``: only the dense_digests line, for comparing the bits of
+    two trees of the port (run this file from the other tree's root)."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
+    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    batch = next(Loader(test_set, B).host_batches()).to("cuda")
+    emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(digests_main() if sys.argv[1:] == ["--digests"] else main())

@@ -991,13 +991,25 @@ def test_edge_gat_kernels_are_deterministic_and_raise(cuda):
 
 # ---- rows 4 and 3: one dense masked conv (K17/K17T, K18/K18B) ------------
 # The dual kernels' modes, at their tolerances (DUAL_TOL, DUAL_BWD_TOL): the
-# same rounding points in kernel and twin.
+# same rounding points in kernel and twin.  bf16 K17/K17T take the one-launch
+# cluster path up to N = 256 with H a multiple of 8 (two feature chunks at H
+# = 200), the two-pass path past it (plain_cluster_size); parity's N = 232
+# and 248, N = 1.
 @pytest.mark.parametrize("b,n,h,dtype", [
     (2, 24, 8, "float32"),
     (3, 24, 40, "bfloat16"),
     (4, 256, 128, "float32"),
     (4, 256, 128, "bfloat16"),
     (2, 384, 200, "bfloat16"),
+    (8, 232, 128, "bfloat16"),
+    (8, 248, 128, "bfloat16"),
+    (2, 257, 128, "bfloat16"),
+    (3, 200, 200, "bfloat16"),
+    (2, 513, 128, "bfloat16"),
+    (2, 640, 136, "bfloat16"),
+    (2, 1, 128, "bfloat16"),
+    (2, 1, 8, "float32"),
+    (3, 256, 100, "bfloat16"),
 ])
 def test_single_conv_kernels_match_plain(cuda, b, n, h, dtype):
     from cal_tpu_torch.ops import fused_gcn as fg
@@ -1020,6 +1032,22 @@ def test_single_conv_kernels_match_plain(cuda, b, n, h, dtype):
         assert torch.isfinite(got.float()).all()
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
     assert [k.launches - v for k, v in zip(counters, before)] == [1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("n,h", [(256, 128), (200, 200), (513, 64)])
+def test_plain_conv_kernels_are_deterministic(cuda, n, h):
+    """Two calls of K17 and of K17T give the same bits on either path; the
+    cluster path (N <= 512) also equals the two-pass kernels bit for bit
+    (exact integer degrees, the same norm rounding and product order)."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    x, _, adj, _, _, g, _ = _dual_bwd_inputs(cuda, 4, n, h, "bfloat16", seed=n + h)
+    for t, transpose in ((x, False), (g, True)):
+        one = fg._mm("K17", t, adj, transpose)
+        assert torch.equal(one, fg._mm("K17", t, adj, transpose))
+        if fg.plain_cluster_size(t.dtype, n, h):
+            (two,), _ = fg._fwd_launch("K17", "plain_t" if transpose else "plain", (t,), adj)
+            assert torch.equal(one, two)
 
 
 def test_single_conv_functions_match_autograd_and_launch(cuda):

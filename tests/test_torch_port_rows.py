@@ -33,6 +33,7 @@ from cal_tpu_torch.ops.fused_gcn import (
     fused_gcn_dense_att,
     fused_gcn_dense_att_bwd,
     fused_gcn_dense_t,
+    plain_cluster_size,
 )
 from cal_tpu_torch.ops.gat import gat_aggregate_sparse_mh
 from cal_tpu_torch.ops.gcn import gcn_aggregate_dense, gcn_aggregate_sparse_coo
@@ -50,14 +51,14 @@ MH_TOL = dict(rtol=1e-5, atol=1e-5)
 B, N, H = 3, 40, 32
 
 
-def _dense_inputs(seed, dtype):
+def _dense_inputs(seed, dtype, b=B, n=N):
     rng = np.random.default_rng(seed)
-    adj = (rng.random((B, N, N)) < 0.15).astype(np.float32)
-    adj += rng.random((B, N, N)) < 0.03                  # duplicate edges
-    adj[B - 1] = 0.0                                     # a padded graph slot
-    x = rng.standard_normal((B, N, H)).astype(np.float32)
-    src, dst = (rng.standard_normal((B, N)).astype(np.float32) for _ in range(2))
-    g = rng.standard_normal((B, N, H)).astype(np.float32)
+    adj = (rng.random((b, n, n)) < 0.15).astype(np.float32)
+    adj += rng.random((b, n, n)) < 0.03                  # duplicate edges
+    adj[b - 1] = 0.0                                     # a padded graph slot
+    x = rng.standard_normal((b, n, H)).astype(np.float32)
+    src, dst = (rng.standard_normal((b, n)).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal((b, n, H)).astype(np.float32)
     j = [jnp.asarray(a, JDT[dtype]) for a in (x, adj, src, dst, g)]
     t = [torch.from_numpy(a).to(TDT[dtype]) for a in (x, adj, src, dst, g)]
     return j, t
@@ -69,11 +70,14 @@ def _close(got, ref, dtype, what):
                                rtol=tol, atol=tol, err_msg=what)
 
 
+# N = 40 (the Pallas tests' size); 256 and 257 straddle the limit of the
+# kernels' one-launch path (plain_cluster_size), at B = 2
+@pytest.mark.parametrize("b,n", [(B, N), (2, 256), (2, 257)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_row4_twins_match_pallas(dtype):
+def test_row4_twins_match_pallas(dtype, b, n):
     """K17 and K17T twins (through the autograd Function and directly)
     against fused_gcn_dense and its VJP, the same _mm_kernel transposed."""
-    (jx, jadj, _, _, jg), (x, adj, _, _, g) = _dense_inputs(0, dtype)
+    (jx, jadj, _, _, jg), (x, adj, _, _, g) = _dense_inputs(0, dtype, b, n)
     ref, vjp = jax.vjp(lambda a: jax_fused_gcn_dense(a, jadj), jx)
     (ref_dx,) = vjp(jg)
     leaf = x.clone().requires_grad_()
@@ -83,6 +87,24 @@ def test_row4_twins_match_pallas(dtype):
     _close(out, ref, dtype, "K17")
     _close(dx, ref_dx, dtype, "K17T")
     torch.testing.assert_close(fused_gcn_dense_t(g, adj), dx, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,n,h,cluster", [
+    (torch.bfloat16, 256, 128, 2),    # chip_smoke.py's dense batch: the path's limit
+    (torch.bfloat16, 232, 128, 2),    # the parity entry point's sizes
+    (torch.bfloat16, 248, 128, 2),
+    (torch.bfloat16, 128, 128, 1),
+    (torch.bfloat16, 257, 128, 0),    # one past the limit: two passes
+    (torch.bfloat16, 512, 128, 0),
+    (torch.bfloat16, 1, 8, 1),
+    (torch.bfloat16, 200, 200, 2),    # two feature chunks
+    (torch.bfloat16, 256, 100, 0),    # H not a multiple of 8
+    (torch.bfloat16, 0, 128, 0),
+    (torch.float32, 256, 128, 0),     # f32 keeps the two-pass FMA kernels
+])
+def test_row4_path_chooser(dtype, n, h, cluster):
+    """Which path K17/K17T take on the card, and with how many CTAs a graph."""
+    assert plain_cluster_size(dtype, n, h) == cluster
 
 
 @pytest.mark.parametrize("negate", [False, True])
