@@ -40,21 +40,22 @@
 // VJP): exact for GIN's 0/1 coefficients on bf16 features, not for a general
 // coefficient.
 //
-// Design.  K11/K11T/K19/K19T are the CSR walk of csrc/spmm.cu K2/K3,
-// csr_rows.cuh's csr_spmm_kernel (rows in groups of 32 edges, at most 64
-// chunks a row, one warp a chunk), with the CooSpmm policy: the lanes read a
-// group's coefficients and neighbours at once, a ballot lists the edges with
-// a nonzero coefficient, and for each in turn every lane accumulates H / 32
-// features of the neighbour's row (8- or 16-byte loads), weighted by the
-// coefficient of the head its features belong to (the group's coefficients
-// are shuffled head by head; heads divides 32, so a lane's features lie in
-// one head).  A row of one chunk is written by its warp; a longer row (a hub,
-// the padded run) writes one f32 partial per chunk and a combine pass sums
-// its <= 64 partials in chunk order.  K12/K20 keep g[r] of its row in
-// registers, walk every edge of the group, reduce each dot product across the
-// 32 / heads lanes of each head (a neighbour equal to the previous edge's
-// reuses its value: duplicates and the padded run), and write it in edge
-// order.  K21 walks the receiver CSR's chunks the same way, one warp a
+// Design.  K11/K11T/K19/K19T are csr_rows.cuh's coefficient SpMM walk
+// (csr_spmm_kernel, as K2/K3/K14 in csrc/spmm.cu) with the CooSpmm policy: a
+// light row (<= 32 edges) is one lane group's item (16-byte loads, 32 / G
+// rows a warp), addressed by row; the chunks of a heavier row (a hub, the
+// padded run) are items from the host-built list, each writing an f32
+// partial that a pass over the heavy rows alone sums in chunk order.  A
+// group reads a window's coefficients and neighbours at once, a ballot lists
+// the edges with a nonzero coefficient, and it loads up to kInFlight
+// neighbour rows before their FMAs, each feature weighted by the coefficient
+// of the head it belongs to (a lane's features lie in one head).  The padded
+// run at node V-1 holds coefficient 0: its edges cost a coefficient read
+// each (K11 sums whatever is nonzero) and no neighbour row.  K12/K20 give
+// one warp a chunk, keep g[r] of its row in registers, walk every edge of
+// the group, reduce each dot product across the 32 / heads lanes of each
+// head (a neighbour equal to the previous edge's reuses its value:
+// duplicates and the padded run), and write it in edge order.  K21 walks the receiver CSR's chunks the same way, one warp a
 // chunk, a max over the chunk's edges per plane, and a combine pass takes
 // the max of a long row's <= 64 chunk maxima.  No float atomics: a result
 // does not change between runs.
@@ -80,20 +81,17 @@ namespace {
 // coefficients per edge, liveness and coefficients from coef alone, the f32
 // row written as summed.
 template <typename T, int NH>
-struct CooSpmm {
+struct CooSpmm : CsrRows {
   using Elem = T;
   static constexpr int kBranches = 1;
   static constexpr int kHeads = NH;
+  static constexpr bool kMaskedDead = false;   // liveness is the coefficient
   const T* x[1];        // [V, H]: x (K11/K19) or the cotangent g (K11T/K19T)
   const float* coef;    // [E, NH], edge order
   const int* nbr;       // senders (receiver CSR) or receivers (sender CSR)
-  const int* perm;      // null: edge i of the CSR is edge i; else edge perm[i]
-  const int* ptr;
-  const int* chunk_ptr;
-  const int* chunk_row;
   float* out;           // [V, H]
-  float* partial;       // [n_chunks, H]
-  int n_chunks, num_nodes, h;
+  float* partial;       // [n_heavy_chunks, H]
+  int h;
 
   struct Row {};
 
@@ -106,9 +104,8 @@ struct CooSpmm {
       cf[hd] = coef[(size_t)e * NH + hd];
       live |= cf[hd] != 0.0f;
     }
-    if (!live) return false;
     s = nbr[e];
-    return true;
+    return live;
   }
 
   template <int F>
@@ -118,36 +115,26 @@ struct CooSpmm {
 };
 
 template <typename T, int NH>
-cudaError_t spmm_typed(const void* x, const float* coef, const int* nbr, const int* perm,
-                       const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                       int n_chunks, int num_nodes, int h, float* out, float* partial,
-                       cudaStream_t stream) {
+cudaError_t spmm_typed(const void* x, const float* coef, const int* nbr, const CsrRows& csr,
+                       int h, float* out, float* partial, cudaStream_t stream) {
   CooSpmm<T, NH> a;
+  static_cast<CsrRows&>(a) = csr;
   a.x[0] = static_cast<const T*>(x);
   a.coef = coef;
   a.nbr = nbr;
-  a.perm = perm;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
   a.out = out;
   a.partial = partial;
-  a.n_chunks = n_chunks;
-  a.num_nodes = num_nodes;
   a.h = h;
   return launch_csr_spmm(a, stream);
 }
 
 template <typename T>
 cudaError_t spmm_heads(int heads, const void* x, const float* coef, const int* nbr,
-                       const int* perm, const int* ptr, const int* chunk_ptr,
-                       const int* chunk_row, int n_chunks, int num_nodes, int h, float* out,
-                       float* partial, cudaStream_t stream) {
+                       const CsrRows& csr, int h, float* out, float* partial,
+                       cudaStream_t stream) {
   switch (heads) {
-#define CASE(NH)                                                                          \
-  case NH:                                                                                \
-    return spmm_typed<T, NH>(x, coef, nbr, perm, ptr, chunk_ptr, chunk_row, n_chunks,     \
-                             num_nodes, h, out, partial, stream);
+#define CASE(NH) \
+  case NH: return spmm_typed<T, NH>(x, coef, nbr, csr, h, out, partial, stream);
     CASE(1) CASE(2) CASE(4) CASE(8)
 #undef CASE
     default: return cudaErrorInvalidValue;
@@ -311,22 +298,23 @@ extern "C" {
 
 // K11 / K11T (heads 1), K19 / K19T (heads 2, 4 or 8).  dtype of x: 0 =
 // float32, 1 = bfloat16.  h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows
-// aligned to h / 32 elements; coef [E, heads] f32.  Forward (K11/K19): perm
-// null, nbr = senders, the receiver CSR.  Transposed (K11T/K19T): perm = the
-// sender CSR's perm, nbr = receivers, the sender CSR, x = the cotangent.
-// Writes out [V, H] f32; partial holds n_chunks * h floats.
+// aligned as launch_csr_spmm says; coef [E, heads] f32.  Forward (K11/K19):
+// perm null, nbr = senders, the receiver CSR.  Transposed (K11T/K19T): perm
+// = the sender CSR's perm, nbr = receivers, the sender CSR, x = the
+// cotangent.  The CSR is graph.EdgeCsr's (heavy_chunks and heavy_masked
+// included); arrivals holds n_heavy_chunks ints, 0 before the launch and
+// after it.  Writes out [V, H] f32; partial holds n_heavy_chunks * h floats.
 int coo_spmm_launch(const void* x, int dtype, const float* coef, int heads, const int* nbr,
                     const int* perm, const int* ptr, const int* chunk_ptr,
-                    const int* chunk_row, int n_chunks, int num_nodes, int h, float* out,
+                    const int* chunk_row, const int* heavy_chunks, const uint8_t* heavy_masked,
+                    int n_heavy_chunks, int* arrivals, int num_nodes, int h, float* out,
                     float* partial, cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)spmm_heads<float>(heads, x, coef, nbr, perm, ptr, chunk_ptr, chunk_row,
-                                  n_chunks, num_nodes, h, out, partial, stream);
+  if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
+                    arrivals, perm, n_heavy_chunks, num_nodes};
+  if (dtype == 0) return (int)spmm_heads<float>(heads, x, coef, nbr, csr, h, out, partial, stream);
   if (dtype == 1)
-    return (int)spmm_heads<__nv_bfloat16>(heads, x, coef, nbr, perm, ptr, chunk_ptr,
-                                          chunk_row, n_chunks, num_nodes, h, out, partial,
-                                          stream);
+    return (int)spmm_heads<__nv_bfloat16>(heads, x, coef, nbr, csr, h, out, partial, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,10 @@
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
 // a lane's features, the per-warp row sums with their combine pass for long
 // rows, the sender-CSR sum of per-edge f32 columns, and the coefficient SpMM
-// walk that K2/K3, K11 and K19 instantiate.  Included by each source; it is
-// not a build target of its own.
+// walk that K2/K3, K11, K14 and K19 instantiate (light rows by row, several
+// a warp; heavy rows by chunk from a host-built list, each summed by its
+// last chunk to finish).  Included by each source; it is not a build target
+// of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +77,36 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[F]
 #pragma unroll
     for (int j = 0; j < F; ++j) p[j] = from_f<T>(v[j]);
   }
+}
+
+// F values of type T at p (aligned to min(16, F * sizeof(T)) bytes, at least
+// 8) as 32-bit words, and element f of such words as f32: load_vec in two
+// steps, so that a row's registers stay narrow until its FMAs.
+template <typename T, int F>
+__device__ __forceinline__ void load_words(const T* __restrict__ p,
+                                           uint32_t (&w)[F * sizeof(T) / 4]) {
+  constexpr int kBytes = F * (int)sizeof(T);
+  static_assert(kBytes % 8 == 0, "a lane loads 8 or 16 bytes at a time");
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < kBytes / 16; ++k) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + k);
+      w[4 * k] = u.x;
+      w[4 * k + 1] = u.y;
+      w[4 * k + 2] = u.z;
+      w[4 * k + 3] = u.w;
+    }
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = u.x;
+    w[1] = u.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float word_elem(const uint32_t* w, int f) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w[f]);
+  else return __uint_as_float(f % 2 ? w[f / 2] & 0xffff0000u : w[f / 2] << 16);
 }
 
 struct Chunk {
@@ -185,29 +217,75 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
   return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
 }
 
-// ---- coefficient SpMM over a CSR (K2/K3 of spmm.cu, K11/K19 of coo_spmm.cu)
+// ---- coefficient SpMM over a CSR (K2/K3/K14 of spmm.cu, K11/K19 of coo_spmm.cu)
 //
 // out_b[r] = sum over the live edges e of row r of cf_b[e] * x_b[nbr_e], for
-// kBranches branches b.  One warp owns one chunk and walks its groups of 32
-// edges: lane i reads edge i's neighbour and coefficients through the
-// policy, a ballot lists the group's live edges in edge order, and for each
-// in turn every lane accumulates H / 32 features of each branch of the
-// neighbour's row (8- or 16-byte loads).  A row of one chunk is written by
-// its warp through the policy; a longer row writes one f32 partial per chunk
-// ([n_chunks, kBranches, H]) and csr_spmm_combine sums its <= 64 partials in
-// chunk order before writing it.  The policy P holds the CSR (perm: null
-// when edge i of the CSR is edge i; ptr, chunk_ptr, chunk_row, n_chunks,
-// num_nodes, h), x[kBranches] of element type Elem, partial, optionally
-// kHeads (coefficients per branch and edge; default 1), and:
+// kBranches branches b; each feature's sum is f32, by fmaf in edge order from
+// 0.  Real batches hold many rows of a few edges and a few rows of thousands
+// (the REDDIT-shaped batch: 97.5% of its rows hold at most 4 edges, 201 rows
+// more than 32), so the walk's unit is a lane group, not a warp:
+//  - a group is G lanes of F features each (LightShape: 16-byte loads where
+//    a head allows, G = H / F <= 32), so 32 / G groups a warp;
+//  - a light row (one chunk: at most kGroup = 32 edges) is one group's item,
+//    addressed by row: the group reads its ptr pair, then the metadata of up
+//    to 32 edges at once (32 / G a lane), and writes the row through the
+//    policy;
+//  - a heavy row keeps graph.edge_csr's split into <= 64 chunks; its chunks,
+//    listed on the host (EdgeCsr.heavy_chunks), are the first items of the
+//    launch, each writing one f32 partial; the row's last chunk to finish
+//    (an int arrival counter) sums its partials in chunk order and writes
+//    the row, so every batch takes one launch and no pass visits all rows
+//    (the counters, EdgeCsr.arrivals, are 0 again when the launch ends);
+//    a chunk of masked-out edges alone (the padded run at node V-1) is not
+//    walked by a policy whose liveness needs the mask (K2, K3, K14);
+//  - a group reads the metadata of kWindowEdges edges at once (a window)
+//    and lists its live edges with a ballot, then loads the neighbour rows
+//    of up to kInFlight / kBranches of them before their FMAs: registers,
+//    not loads in flight, bound how many rows an SM keeps going.
+// Every sum has one owner and one order and there are no float atomics: a
+// result does not change between runs, and it equals the one-warp-a-chunk
+// walk's bit for bit (the same fmaf order per feature, the same partials,
+// summed in the same order).  Control flow is warp-uniform (__any_sync); a
+// group whose edges are done idles.
+//
+// The policy P derives from CsrRows (perm null when edge i of the CSR is edge
+// i) and holds x[kBranches] of element type Elem, partial ([C_h, kBranches, h]
+// f32, in heavy_chunks order), h, optionally kHeads (coefficients per branch
+// and edge; default 1), and:
+//   kMaskedDead                   whether an edge whose edge_mask is off is
+//       never live (then a heavy chunk of such edges alone is not walked);
 //   Row row(int r)                                     the row's own state;
 //   bool edge(int e, const Row&, int& s, float (&cf)[kBranches * kHeads])
-//       whether edge e is live, and then its neighbour s and coefficients
-//       (cf[b * kHeads + hd]: branch b, head hd);
+//       whether edge e is live, and its neighbour s and coefficients
+//       (cf[b * kHeads + hd]: branch b, head hd); without a branch, so that
+//       a window's loads are in flight together (s and cf of a dead edge are
+//       read and not used);
 //   void write_row<F>(int r, int lane, const float (&acc)[kBranches][F])
-//       the row's output from the lane's F sums per branch.
+//       the row's output from the F sums per branch of a lane of its group
+//       (features lane * F on).
 // With kHeads > 1 a row's h features are kHeads heads of h / kHeads, each
-// weighted by its own coefficient; a lane's F features lie in one head
-// (kHeads divides 32).
+// weighted by its own coefficient; a lane's F features lie in one head (a
+// narrower load where a head holds fewer than 16 bytes).
+//
+// Bound: bytes: x [V, kBranches H] once (plus a neighbour row per live edge,
+// mostly from L2), the output once, a few bytes of metadata per edge.  The
+// walk's own limit is latency: a light row is a chain of dependent loads
+// (ptr, metadata, neighbour rows, the self term, store), so the design keeps
+// as many rows in flight as registers allow (32 / G a warp, no
+// __launch_bounds__: with one ptxas trades spills for occupancy here).
+
+// The CSR of a walk: graph.EdgeCsr on the device.
+struct CsrRows {
+  const int* ptr;
+  const int* chunk_ptr;
+  const int* chunk_row;
+  const int* heavy_chunks;      // the chunks of the rows of more than one, ascending
+  const uint8_t* heavy_masked;  // per heavy chunk: all its edges masked out
+  int* arrivals;                // per heavy chunk, 0 between launches: see csr_spmm_kernel
+  const int* perm;              // null: edge i of the CSR is edge i; else edge perm[i]
+  int n_heavy_chunks, num_nodes;
+};
+
 template <typename P, typename = void>
 struct HeadsOf {
   static constexpr int v = 1;
@@ -217,104 +295,190 @@ struct HeadsOf<P, decltype(void(P::kHeads))> {
   static constexpr int v = P::kHeads;
 };
 
-template <typename P, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_kernel(const P a) {
+constexpr int kInFlight = 2;     // neighbour-row loads (rows x branches) a group issues
+                                 // before their FMAs
+constexpr int kWindowEdges = 32;  // edges whose metadata a group reads at once
+
+// A light row's lane group at H = 32 Q: F features a lane (16 bytes, or Q
+// when more, or a head's width when less), G = H / F lanes.
+template <typename T, int Q, int NH>
+struct LightShape {
+  static constexpr int kWide = 16 / (int)sizeof(T) > Q ? 16 / (int)sizeof(T) : Q;
+  static constexpr int F = kWide < 32 * Q / NH ? kWide : 32 * Q / NH;
+  static constexpr int G = 32 * Q / F;
+};
+
+// A group's sums over the live edges at CSR positions [beg, end): acc[b][f]
+// for its lane gl's F features (first lane of the group: base), windows of W
+// edges a lane.  Every lane of the warp calls it.
+template <typename P, int F, int G, int W, int U>
+__device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
+                                           const typename P::Row& row, int gl, int base,
+                                           float (&acc)[P::kBranches][F]) {
   constexpr int NB = P::kBranches;
   constexpr int NH = HeadsOf<P>::v;
   using T = typename P::Elem;
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const typename P::Row row = a.row(k.row);
-  const int head = lane * F / (a.h / NH);   // the head of the lane's features
-  float acc[NB][F];
+  const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
+  const int head = gl * F / (a.h / NH);   // the head of the lane's features
+  for (int w0 = beg; __any_sync(kFull, w0 < end); w0 += W * G) {
+    int s_l[W];
+    float cf_l[W][NB * NH];
+    bool live[W];
 #pragma unroll
-  for (int b = 0; b < NB; ++b)
+    for (int k = 0; k < W; ++k) {
+      // past the range a lane reads the range's last edge again (a valid
+      // index, no branch), never live
+      const int i = w0 + k * G + gl;
+      const int ic = max(min(i, end - 1), 0);
+      const bool got = a.edge(a.perm == nullptr ? ic : a.perm[ic], row, s_l[k], cf_l[k]);
+      live[k] = i < end && got;
+    }
 #pragma unroll
-    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    // lane i: edge g0 + i -> (neighbour, coefficients per branch) when live
-    const int i = g0 + lane;
-    int s_l = 0;
-    float cf_l[NB * NH];
+    for (int k = 0; k < W; ++k) {
+      unsigned m = (__ballot_sync(kFull, live[k]) >> base) & gbits;
+      while (__any_sync(kFull, m != 0)) {
+        // the next U live edges of the group, in edge order
+        bool ok[U];
+        int s[U];
+        float cf[U][NB];
 #pragma unroll
-    for (int b = 0; b < NB * NH; ++b) cf_l[b] = 0.0f;
-    const bool live = i < k.end && a.edge(a.perm == nullptr ? i : a.perm[i], row, s_l, cf_l);
-    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const int s = __shfl_sync(kFull, s_l, j);
+        for (int u = 0; u < U; ++u) {
+          ok[u] = m != 0;
+          const int j = base + (ok[u] ? __ffs(m) - 1 : 0);
+          m &= m - 1;
+          s[u] = __shfl_sync(kFull, s_l[k], j);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float cf = 0.0f;
+          for (int b = 0; b < NB; ++b) {
+            cf[u][b] = 0.0f;
 #pragma unroll
-        for (int hd = 0; hd < NH; ++hd) {
-          const float v = __shfl_sync(kFull, cf_l[b * NH + hd], j);
-          if (NH == 1 || hd == head) cf = v;
+            for (int hd = 0; hd < NH; ++hd) {
+              const float v = __shfl_sync(kFull, cf_l[k][b * NH + hd], j);
+              if (NH == 1 || hd == head) cf[u][b] = v;
+            }
+          }
         }
-        float xs[F];
-        load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
+        uint32_t xs[U][NB][F * sizeof(T) / 4];   // the rows as loaded, widened at their FMAs
 #pragma unroll
-        for (int f = 0; f < F; ++f) acc[b][f] = fmaf(cf, xs[f], acc[b][f]);
+        for (int u = 0; u < U; ++u)
+          if (ok[u])
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+              load_words<T, F>(a.x[b] + (size_t)s[u] * a.h + gl * F, xs[u][b]);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u])
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+#pragma unroll
+              for (int f = 0; f < F; ++f)
+                acc[b][f] = fmaf(cf[u][b], word_elem<T>(xs[u][b], f), acc[b][f]);
       }
     }
   }
-  if (k.count == 1) {
-    a.template write_row<F>(k.row, lane, acc);
-  } else {
+}
+
+// A heavy row's output from the partials of its n chunks at places [i0,
+// i0 + n) of the list: their sum in chunk order, from 0, read from L2 (other
+// SMs wrote them in this launch).  One partial at a time: the registers of
+// a deeper pipeline would cost every row of the launch occupancy.
+template <typename P, int F>
+__device__ __forceinline__ void combine_row(const P& a, int r, int i0, int n, int gl) {
+  constexpr int NB = P::kBranches;
+  static_assert(F % 4 == 0, "partials are read as float4");
+  float acc[NB][F] = {};
+  for (int c = 0; c < n; ++c)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const float4* p = reinterpret_cast<const float4*>(
+          a.partial + ((size_t)(i0 + c) * NB + b) * a.h + gl * F);
+#pragma unroll
+      for (int v = 0; v < F / 4; ++v) {
+        const float4 t = __ldcg(p + v);
+        acc[b][4 * v] += t.x;
+        acc[b][4 * v + 1] += t.y;
+        acc[b][4 * v + 2] += t.z;
+        acc[b][4 * v + 3] += t.w;
+      }
+    }
+  a.template write_row<F>(r, gl, acc);
+}
+
+// One item a lane group, 32 / G a warp: items [0, n_heavy_chunks) are the
+// chunks on the heavy list (partial i for item i), the others the rows (a
+// light row written through the policy, a heavy row's group idle).  Heavy
+// chunks come first, so their longer walks start first.  A heavy chunk's
+// group stores its partial, makes it visible (__threadfence) and counts
+// itself in arrivals[i0], i0 the place of its row's first chunk; the group
+// that counts last sums the row's partials and writes the row, then sets
+// arrivals[i0] back to 0 for the next launch.  So one launch writes every
+// row, and no float is summed atomically.
+template <typename P, int Q>
+__global__ void csr_spmm_kernel(const P a) {
+  constexpr int NB = P::kBranches;
+  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v>;
+  constexpr int F = S::F, G = S::G;
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int gl = lane % G;
+  const int item = first + lane / G;
+  const bool heavy = item < a.n_heavy_chunks;
+  int r = item - a.n_heavy_chunks, beg = 0, end = 0, i0 = 0, n = 0;
+  if (heavy) {
+    const int c = a.heavy_chunks[item];
+    const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+    r = k.row;
+    beg = k.beg;
+    // a chunk of masked-out edges alone sums to +0 under a masked policy
+    end = P::kMaskedDead && a.heavy_masked[item] ? k.beg : k.end;
+    i0 = item - (c - a.chunk_ptr[r]);
+    n = k.count;
+  } else if (r < a.num_nodes) {
+    beg = a.ptr[r];
+    end = a.ptr[r + 1];
+  }
+  const bool light = !heavy && r < a.num_nodes && end - beg <= kGroup;
+  float acc[NB][F] = {};
+  walk_edges<P, F, G, kWindowEdges / G, (kInFlight > NB ? kInFlight / NB : 1)>(
+      a, beg, heavy || light ? end : beg, a.row(min(r, a.num_nodes - 1)), gl, lane - gl, acc);
+  if (light) a.template write_row<F>(r, gl, acc);
+  if (!__any_sync(kFull, heavy)) return;
+  if (heavy) {
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      store_vec<float, F>(a.partial + ((size_t)c * NB + b) * a.h + lane * F, acc[b]);
+      store_vec<float, F>(a.partial + ((size_t)item * NB + b) * a.h + gl * F, acc[b]);
+    __threadfence();
+  }
+  __syncwarp();
+  int last = 0;
+  if (heavy && gl == 0) last = atomicAdd(a.arrivals + i0, 1) == n - 1;
+  if (__shfl_sync(kFull, last, lane - gl)) {
+    __threadfence();
+    combine_row<P, F>(a, r, i0, n, gl);
+    if (gl == 0) a.arrivals[i0] = 0;
   }
 }
 
-template <typename P, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_combine(const P a) {
-  constexpr int NB = P::kBranches;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= a.num_nodes) return;
-  const int c0 = a.chunk_ptr[r], c1 = a.chunk_ptr[r + 1];
-  if (c1 - c0 <= 1) return;
-  float acc[NB][F];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[b][f] = 0.0f;
-#pragma unroll 4
-  for (int c = c0; c < c1; ++c)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float p[F];
-      load_vec<float, F>(a.partial + ((size_t)c * NB + b) * a.h + lane * F, p);
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[b][f] += p[f];
-    }
-  a.template write_row<F>(r, lane, acc);
-}
-
-template <typename P, int F>
-cudaError_t launch_csr_spmm_f(const P& a, cudaStream_t stream) {
-  const int threads = kWarpsPerBlock * 32;
-  csr_spmm_kernel<P, F><<<(a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
-                          stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  csr_spmm_combine<P, F><<<(a.num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
-                           stream>>>(a);
+template <typename P, int Q>
+cudaError_t launch_csr_spmm_q(const P& a, cudaStream_t stream) {
+  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v>;
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / S::G;
+  const int items = a.n_heavy_chunks + a.num_nodes;
+  csr_spmm_kernel<P, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock, kWarpsPerBlock * 32,
+                          0, stream>>>(a);
   return cudaGetLastError();
 }
 
-// h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows aligned to h / 32 elements.
+// h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows aligned to a light lane's
+// load (LightShape: min(16, F * sizeof(Elem)) bytes).
 template <typename P>
 cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
+  if (a.num_nodes <= 0 || a.n_heavy_chunks < 0) return cudaErrorInvalidValue;
   switch (a.h / 32) {
-    case 1: return launch_csr_spmm_f<P, 1>(a, stream);
-    case 2: return launch_csr_spmm_f<P, 2>(a, stream);
-    case 4: return launch_csr_spmm_f<P, 4>(a, stream);
-    case 8: return launch_csr_spmm_f<P, 8>(a, stream);
+    case 1: return launch_csr_spmm_q<P, 1>(a, stream);
+    case 2: return launch_csr_spmm_q<P, 2>(a, stream);
+    case 4: return launch_csr_spmm_q<P, 4>(a, stream);
+    case 8: return launch_csr_spmm_q<P, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

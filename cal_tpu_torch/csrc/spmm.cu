@@ -83,25 +83,30 @@
 // Design.  Rows (senders for K1, K2T, K3T; receivers for K2, K3, K5, K6)
 // come in CSR form (graph.EdgeCsr; the sender CSR reads edge perm[i]): a
 // row's edges form groups of kGroup = 32 and the groups at most kMaxChunks =
-// 64 chunks of equal group counts.  One warp owns one chunk and walks its
-// groups: the lanes read a group's 32 edges' metadata at once (lane i <->
-// edge i) and compute liveness, weight and coefficient; K1 and K6 keep
-// per-lane sums and end with a butterfly shuffle; K2/K3 (csr_rows.cuh's
-// csr_spmm_kernel with the GcnSpmm policy) take the group's live edges from
-// a ballot and, for each in turn, broadcast its neighbour and coefficient
-// while every lane accumulates H / 32 features of each branch (8- or
-// 16-byte loads of the neighbour's row).  K5 keeps g[r] of
-// its row in registers, takes each live edge from the ballot, reduces the
-// dot products with x[s] across the warp, and the edge's own lane then
-// forms its per-edge outputs.  A row of a single chunk is written by its
-// warp directly (K2/K3 with the self term fused); a longer row (a hub, or
-// the padded-edge run at node V-1, in both CSRs) writes one f32 partial per
-// chunk, and a second pass sums its <= 64 partials in chunk order.  Sums by
-// sender that K5 and K6 need from their receiver walk (ddis_s, dsrc) are
-// taken by a second kernel over the sender CSR (sender_sum_kernel) from
-// per-edge f32 columns that the first one wrote: K1's structure, per-lane
-// sums and a butterfly.  So no row is serialized on one warp, every sum has
-// one owner, no float atomics: a result does not change between runs.
+// 64 chunks of equal group counts.  K1, K5 and K6 give one warp a chunk: the
+// lanes read a group's 32 edges' metadata at once (lane i <-> edge i) and
+// compute liveness, weight and coefficient; K1 and K6 keep per-lane sums and
+// end with a butterfly shuffle; K5 keeps g[r] of its row in registers,
+// takes each live edge from a ballot, reduces the dot products with x[s]
+// across the warp, and the edge's own lane then forms its per-edge outputs.
+// A row of a single chunk is written by its warp directly; a longer row (a
+// hub, or the padded-edge run at node V-1, in both CSRs) writes one f32
+// partial per chunk, and a second pass sums its <= 64 partials in chunk
+// order.  K2/K3/K14 (and their transposed modes) are csr_rows.cuh's
+// coefficient SpMM walk with the GcnSpmm / SigSpmm policies: a light row (<=
+// 32 edges, most rows of real batches) is one lane group's item (16-byte
+// loads of its features, 32 / G rows a warp), addressed by row; the chunks
+// of the heavier rows are items from the host-built list, whose partials a
+// pass over those rows alone sums in chunk order; a group loads up to
+// kInFlight neighbour rows of a window's live edges before their FMAs, and
+// the self term is fused into the row's write.  The padded run's edges are
+// self loops at node V-1, never live: each costs its mask and neighbour
+// read, and no neighbour row.  Sums by sender that K5 and K6 need from their
+// receiver walk (ddis_s, dsrc) are taken by a second kernel over the sender
+// CSR (sender_sum_kernel) from per-edge f32 columns that the first one
+// wrote: K1's structure, per-lane sums and a butterfly.  So no row is
+// serialized on one warp, every sum has one owner, no float atomics: a
+// result does not change between runs.
 //
 // Bound: bytes.  K2 reads x [V, 2H] once (plus a neighbour row per live
 // edge, mostly from L2) and writes [V, 2H]; the metadata is 9 bytes per edge
@@ -212,26 +217,24 @@ cudaError_t degree_typed(int branches, bool negate, const void* src, const void*
 // ---- K2 / K3: coefficient SpMM over the receiver CSR (K2T / K3T: sender) --
 
 // The csr_spmm_kernel policy of K2 (NB = 2) and K3 (NB = 1): liveness from
-// the mask and s != r, the coefficient chain built per edge, the self term
-// added when the row is written.
+// the mask and s != r, the coefficient chain built per edge (for every edge
+// the walk reads; a dead edge's neighbour is a node all the same), the self
+// term added when the row is written.
 template <typename T, int NB, typename L = T>
-struct GcnSpmm {
+struct GcnSpmm : CsrRows {
   using Elem = T;
   static constexpr int kBranches = NB;
+  static constexpr bool kMaskedDead = true;
   const T* x[NB];
   T* out[NB];
   const L* src;       // transposed mode: the forward's dst
   const L* dst;       // transposed mode: the forward's src
   const int* nbr;     // senders (receiver CSR) or receivers (sender CSR)
-  const int* perm;    // null: edge i of the CSR is edge i; else edge perm[i]
   const uint8_t* edge_mask;
   const float* deg;   // [NB, V]
   const float* dis;   // [NB, V]
-  const int* ptr;
-  const int* chunk_ptr;
-  const int* chunk_row;
-  float* partial;     // [n_chunks, NB, H]
-  int n_chunks, num_nodes, h;
+  float* partial;     // [n_heavy_chunks, NB, H]
+  int h;
 
   struct Row {
     int r;
@@ -250,7 +253,7 @@ struct GcnSpmm {
 
   __device__ __forceinline__ bool edge(int e, const Row& w, int& s, float (&cf)[NB]) const {
     s = nbr[e];
-    if (!edge_mask[e] || s == w.r) return false;
+    const bool live = edge_mask[e] && s != w.r;
     if constexpr (NB == 2) {
       const float sg = sigmoid_f(to_f(src[s]) + w.dst_r);
       cf[0] = (dis[s] * sg) * w.dis_r[0];
@@ -258,7 +261,7 @@ struct GcnSpmm {
     } else {
       cf[0] = dis[s] * w.dis_r[0];
     }
-    return true;
+    return live;
   }
 
   // out_b[r] = acc_b + x_b[r] / deg_b[r], rounded once to T.
@@ -280,12 +283,11 @@ struct GcnSpmm {
 
 template <typename T, int NB>
 cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const void* dst,
-                        const int* nbr, const int* perm, const uint8_t* edge_mask,
-                        const float* deg, const float* dis, const int* ptr,
-                        const int* chunk_ptr, const int* chunk_row, int n_chunks,
-                        int num_nodes, int h, void* out0, void* out1, float* partial,
-                        cudaStream_t stream) {
+                        const int* nbr, const uint8_t* edge_mask, const float* deg,
+                        const float* dis, const CsrRows& csr, int h, void* out0, void* out1,
+                        float* partial, cudaStream_t stream) {
   GcnSpmm<T, NB> a;
+  static_cast<CsrRows&>(a) = csr;
   a.x[0] = static_cast<const T*>(x0);
   a.out[0] = static_cast<T*>(out0);
   if constexpr (NB == 2) {
@@ -295,16 +297,10 @@ cudaError_t launch_spmm(const void* x0, const void* x1, const void* src, const v
   a.src = static_cast<const T*>(src);
   a.dst = static_cast<const T*>(dst);
   a.nbr = nbr;
-  a.perm = perm;
   a.edge_mask = edge_mask;
   a.deg = deg;
   a.dis = dis;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
   a.partial = partial;
-  a.n_chunks = n_chunks;
-  a.num_nodes = num_nodes;
   a.h = h;
   return launch_csr_spmm(a, stream);
 }
@@ -324,36 +320,30 @@ struct SigSpmm : GcnSpmm<T, 1, float> {
 
   __device__ __forceinline__ bool edge(int e, const Row& w, int& s, float (&cf)[1]) const {
     s = this->nbr[e];
-    if (!this->edge_mask[e] || s == w.r) return false;
+    const bool live = this->edge_mask[e] && s != w.r;
     float wt[1];
     branch_weights<1, NEG>(this->src[s] + w.dst_r, wt);
     cf[0] = (this->dis[s] * wt[0]) * w.dis_r;
-    return true;
+    return live;
   }
 };
 
 template <typename T, bool NEG>
 cudaError_t launch_sig_spmm(const void* x, const float* src, const float* dst, const int* nbr,
-                            const int* perm, const uint8_t* edge_mask, const float* deg,
-                            const float* dis, const int* ptr, const int* chunk_ptr,
-                            const int* chunk_row, int n_chunks, int num_nodes, int h, void* out,
-                            float* partial, cudaStream_t stream) {
+                            const uint8_t* edge_mask, const float* deg, const float* dis,
+                            const CsrRows& csr, int h, void* out, float* partial,
+                            cudaStream_t stream) {
   SigSpmm<T, NEG> a;
+  static_cast<CsrRows&>(a) = csr;
   a.x[0] = static_cast<const T*>(x);
   a.out[0] = static_cast<T*>(out);
   a.src = src;
   a.dst = dst;
   a.nbr = nbr;
-  a.perm = perm;
   a.edge_mask = edge_mask;
   a.deg = deg;
   a.dis = dis;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
   a.partial = partial;
-  a.n_chunks = n_chunks;
-  a.num_nodes = num_nodes;
   a.h = h;
   return launch_csr_spmm(a, stream);
 }
@@ -601,50 +591,50 @@ int sender_degree_launch(int branches, int negate, const void* src, const void* 
 
 // branches: 2 (pair: x0 = xc, x1 = xo, logits src/dst) or 1 (plain: x0,
 // src/dst unused).  h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x rows aligned
-// to h / 32 elements.  Forward (K2/K3): perm null, nbr = senders, the
+// as launch_csr_spmm says.  Forward (K2/K3): perm null, nbr = senders, the
 // receiver CSR.  Transposed (K2T/K3T): perm = the sender CSR's perm, nbr =
-// receivers, the sender CSR, and the logits swapped (src <- dst, dst <- src).
+// receivers, the sender CSR, and the logits swapped (src <- dst, dst <-
+// src).  The CSR is graph.EdgeCsr's (heavy_chunks and heavy_masked
+// included); arrivals holds n_heavy_chunks ints, 0 before the launch and
+// after it; partial holds branches * n_heavy_chunks * h floats.
 int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* src,
                      const void* dst, int dtype, const int* nbr, const int* perm,
                      const uint8_t* edge_mask, const float* deg, const float* dis,
                      const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                     int n_chunks, int num_nodes, int h, void* out0, void* out1,
+                     const int* heavy_chunks, const uint8_t* heavy_masked, int n_heavy_chunks,
+                     int* arrivals, int num_nodes, int h, void* out0, void* out1,
                      float* partial, cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && branches == 2)
-    return (int)launch_spmm<__nv_bfloat16, 2>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis,
-                                              ptr, chunk_ptr, chunk_row, n_chunks, num_nodes,
-                                              h, out0, out1, partial, stream);
-  if (dtype == 1 && branches == 1)
-    return (int)launch_spmm<__nv_bfloat16, 1>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis,
-                                              ptr, chunk_ptr, chunk_row, n_chunks, num_nodes,
-                                              h, out0, out1, partial, stream);
-  if (dtype == 0 && branches == 2)
-    return (int)launch_spmm<float, 2>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
-                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0, out1,
-                                      partial, stream);
-  if (dtype == 0 && branches == 1)
-    return (int)launch_spmm<float, 1>(x0, x1, src, dst, nbr, perm, edge_mask, deg, dis, ptr,
-                                      chunk_ptr, chunk_row, n_chunks, num_nodes, h, out0, out1,
-                                      partial, stream);
+  if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
+                    arrivals, perm, n_heavy_chunks, num_nodes};
+#define SPMM(T, NB) \
+  launch_spmm<T, NB>(x0, x1, src, dst, nbr, edge_mask, deg, dis, csr, h, out0, out1, partial, stream)
+  if (dtype == 1 && branches == 2) return (int)SPMM(__nv_bfloat16, 2);
+  if (dtype == 1 && branches == 1) return (int)SPMM(__nv_bfloat16, 1);
+  if (dtype == 0 && branches == 2) return (int)SPMM(float, 2);
+  if (dtype == 0 && branches == 1) return (int)SPMM(float, 1);
+#undef SPMM
   return (int)cudaErrorInvalidValue;
 }
 
 // K14 / K14T.  dtype: 0 = float32, 1 = bfloat16 (x); src and dst f32.
 // Forward (K14): perm null, nbr = senders, the receiver CSR.  Transposed
 // (K14T): perm = the sender CSR's perm, nbr = receivers, the sender CSR, and
-// the logits swapped (src <- dst, dst <- src).  h % 32 == 0 and h / 32 in
-// {1, 2, 4, 8}; deg and dis [V] f32 (K13's).
+// the logits swapped (src <- dst, dst <- src).  h, the CSR and arrivals as
+// coef_spmm_launch; deg and dis [V] f32 (K13's); partial holds
+// n_heavy_chunks * h floats.
 int sig_coef_spmm_launch(const void* x, const float* src, const float* dst, int dtype,
                          int negate, const int* nbr, const int* perm, const uint8_t* edge_mask,
                          const float* deg, const float* dis, const int* ptr,
-                         const int* chunk_ptr, const int* chunk_row, int n_chunks,
+                         const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
+                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
                          int num_nodes, int h, void* out, float* partial,
                          cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-#define SIG_SPMM(T, NEG)                                                                 \
-  launch_sig_spmm<T, NEG>(x, src, dst, nbr, perm, edge_mask, deg, dis, ptr, chunk_ptr,   \
-                          chunk_row, n_chunks, num_nodes, h, out, partial, stream)
+  if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
+                    arrivals, perm, n_heavy_chunks, num_nodes};
+#define SIG_SPMM(T, NEG) \
+  launch_sig_spmm<T, NEG>(x, src, dst, nbr, edge_mask, deg, dis, csr, h, out, partial, stream)
   if (dtype == 1) return (int)(negate ? SIG_SPMM(__nv_bfloat16, true)
                                       : SIG_SPMM(__nv_bfloat16, false));
   if (dtype == 0) return (int)(negate ? SIG_SPMM(float, true) : SIG_SPMM(float, false));

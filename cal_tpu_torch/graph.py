@@ -136,9 +136,12 @@ def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGrap
 
 # A CSR row is cut into groups of CHUNK_EDGES edges (one per warp lane) and
 # the groups into at most MAX_CHUNKS chunks of equal group counts; one warp
-# of the SpMM and degree kernels owns one chunk, and a second pass sums a
-# long row's chunks.  csrc/spmm.cu derives the same split from the row
-# length with the same two constants.
+# of the degree kernels owns one chunk, and a second pass sums a long row's
+# chunks.  csrc/csr_rows.cuh derives the same split from the row length with
+# the same two constants.  A row of one chunk (at most CHUNK_EDGES edges) is
+# light: the coefficient SpMM walk takes it by row, several a warp, and
+# takes only the chunks of the other (heavy) rows from their list, whose
+# last chunk to finish sums the row.
 CHUNK_EDGES = 32
 MAX_CHUNKS = 64
 
@@ -157,11 +160,23 @@ class EdgeCsr:
     cut into ``ceil(groups / per)`` chunks of ``per = ceil(groups /
     MAX_CHUNKS)`` groups: ``chunk_ptr`` [V+1] gives each row's first chunk,
     ``chunk_row`` [C] each chunk's row.  Every row has at least one chunk,
-    so a kernel that writes per chunk writes every row exactly once."""
+    so a kernel that writes per chunk writes every row exactly once.
+    ``heavy_chunks`` [C_h] lists, ascending, the chunks of the heavy rows
+    (rows of more than one chunk): the light rows, one chunk each, and the
+    listed chunks cover every row exactly once.  ``heavy_masked`` [C_h]
+    marks the listed chunks whose edges are all masked out (the padded run
+    at node V-1), which no masked conv has to walk: it holds for the
+    batch's edge_mask and for any mask that turns more edges off.
+    ``arrivals`` [C_h] int32 zeros are the walk's per-chunk arrival
+    counters on the device, 0 between launches (a launch sets back what it
+    counted): the batch's launches on one stream share them."""
 
     ptr: object
     chunk_ptr: object
     chunk_row: object
+    heavy_chunks: object
+    heavy_masked: object
+    arrivals: object
     perm: object = None
 
     @property
@@ -170,13 +185,17 @@ class EdgeCsr:
 
     def to(self, device) -> "EdgeCsr":
         return EdgeCsr(*(_tensor(a, device) for a in (self.ptr, self.chunk_ptr,
-                                                       self.chunk_row)),
+                                                       self.chunk_row, self.heavy_chunks,
+                                                       self.heavy_masked, self.arrivals)),
                        perm=None if self.perm is None else _tensor(self.perm, device))
 
 
-def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None) -> EdgeCsr:
+def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None,
+             edge_mask: np.ndarray | None = None) -> EdgeCsr:
     """CSR of edges whose row ids, taken in row order, are ``rows``
-    (non-decreasing; ``rows = keys[perm]`` when ``perm`` is given)."""
+    (non-decreasing; ``rows = keys[perm]`` when ``perm`` is given).
+    ``edge_mask`` (in edge order; None: every edge in) marks the heavy
+    chunks that hold masked-out edges alone."""
     counts = np.bincount(rows, minlength=num_nodes)
     ptr = np.zeros(num_nodes + 1, np.int32)
     np.cumsum(counts, out=ptr[1:])
@@ -186,7 +205,19 @@ def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None) -
     chunk_ptr = np.zeros(num_nodes + 1, np.int32)
     np.cumsum(chunks, out=chunk_ptr[1:])
     chunk_row = np.repeat(np.arange(num_nodes, dtype=np.int32), chunks)
-    return EdgeCsr(ptr, chunk_ptr, chunk_row,
+    heavy = chunks > 1
+    heavy_chunks = np.flatnonzero(heavy[chunk_row]).astype(np.int32)
+    masked = np.zeros(heavy_chunks.size, bool)
+    if edge_mask is not None and heavy_chunks.size:
+        live = np.asarray(edge_mask, bool)
+        live = live if perm is None else live[perm]
+        cum = np.concatenate([[0], np.cumsum(live)])
+        r = chunk_row[heavy_chunks]
+        span = per[r] * CHUNK_EDGES
+        beg = ptr[r] + (heavy_chunks - chunk_ptr[r]) * span
+        masked = cum[np.minimum(beg + span, ptr[r + 1])] == cum[beg]
+    return EdgeCsr(ptr, chunk_ptr, chunk_row, heavy_chunks, masked,
+                   np.zeros(heavy_chunks.size, np.int32),
                    None if perm is None else perm.astype(np.int32))
 
 
@@ -244,8 +275,8 @@ def sparse_batch(x, senders, receivers, edge_mask, node_mask, node_graph, y, gra
         x=np.asarray(x, np.float32), senders=senders, receivers=receivers,
         edge_mask=np.asarray(edge_mask, bool), node_mask=np.asarray(node_mask, bool),
         node_graph=np.asarray(node_graph, np.int32), y=np.asarray(y, np.int32),
-        graph_mask=np.asarray(graph_mask, bool), recv=edge_csr(receivers, v),
-        send=edge_csr(senders[send_perm], v, send_perm))
+        graph_mask=np.asarray(graph_mask, bool), recv=edge_csr(receivers, v, None, edge_mask),
+        send=edge_csr(senders[send_perm], v, send_perm, edge_mask))
 
 
 def pad_sizes_for(graphs: Sequence[HostGraph], batch_size: int,

@@ -53,7 +53,9 @@ from cal_tpu_torch.ops.spmm import (
     _check_features,
     _check_graph,
     _check_kernel_width,
+    _check_walk_width,
     _stream,
+    _walk_csr,
 )
 
 NEG_BIG = -1e30            # tile_scatter_max's init
@@ -107,7 +109,8 @@ def _lib():
     lib = build.load("coo_spmm")
     if lib.coo_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.coo_spmm_launch.argtypes = [vp, i, vp, i] + [vp] * 5 + [i, i, i, vp, vp, vp]
+        lib.coo_spmm_launch.argtypes = ([vp, i, vp, i, vp, vp] + [vp, vp, vp, vp, vp, i, vp]
+                                        + [i, i, vp, vp, vp])
         lib.coo_spmm_launch.restype = ctypes.c_int
         lib.coo_sddmm_launch.argtypes = [vp, i, vp, i, i] + [vp] * 4 + [i, i, vp, vp]
         lib.coo_sddmm_launch.restype = ctypes.c_int
@@ -141,15 +144,14 @@ def _spmm(what, x, coef, g: GraphBatch, transpose: bool, heads: int | None = Non
         return (coo_spmm_t_plain if transpose else coo_spmm_plain)(x, coef, g)
     _check_graph(what, g, device)
     x, coef = x.contiguous(), coef.contiguous()
-    _check_kernel_width(what, h, [x])
+    _check_walk_width(what, h, [x], heads or 1)
     out = torch.empty((v, h), dtype=torch.float32, device=device)
     csr, nbr, perm = ((g.send, g.receivers, g.send.perm.data_ptr()) if transpose
                       else (g.recv, g.senders, None))
-    partial = torch.empty((csr.num_chunks, h), dtype=torch.float32, device=device)
+    partial = torch.empty((csr.heavy_chunks.shape[0], h), dtype=torch.float32, device=device)
     err = _lib().coo_spmm_launch(
         x.data_ptr(), _DTYPES[x.dtype], coef.data_ptr(), heads or 1, nbr.data_ptr(), perm,
-        csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(), csr.chunk_row.data_ptr(),
-        csr.num_chunks, v, h, out.data_ptr(), partial.data_ptr(), _stream(device))
+        *_walk_csr(csr), v, h, out.data_ptr(), partial.data_ptr(), _stream(device))
     build.check(err, what)
     return out
 

@@ -142,10 +142,11 @@ def _lib():
     if lib.coef_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.sender_degree_launch.argtypes = [i, i, vp, vp, i] + [vp] * 6 + [i, i] + [vp] * 4
-        lib.coef_spmm_launch.argtypes = [i, vp, vp, vp, vp, i] + [vp] * 8 + [i, i, i,
-                                                                             vp, vp, vp, vp]
-        lib.sig_coef_spmm_launch.argtypes = [vp, vp, vp, i, i] + [vp] * 8 + [i, i, i, vp, vp,
-                                                                             vp]
+        csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
+        lib.coef_spmm_launch.argtypes = ([i, vp, vp, vp, vp, i] + [vp] * 5 + csr
+                                         + [i, i, vp, vp, vp, vp])
+        lib.sig_coef_spmm_launch.argtypes = ([vp, vp, vp, i, i] + [vp] * 5 + csr
+                                             + [i, i, vp, vp, vp])
         lib.sddmm_chain_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 6 + [i] + [
             vp] * 4 + [i, i, i, i] + [vp] * 5
         lib.dpre_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 4 + [i, i, i] + [vp] * 5
@@ -160,11 +161,14 @@ def _stream(device) -> int:
 
 
 def _check_graph(what, g: GraphBatch, device) -> None:
-    ts = (g.senders, g.receivers, g.edge_mask, g.recv.ptr, g.recv.chunk_ptr,
-          g.recv.chunk_row, g.send.ptr, g.send.chunk_ptr, g.send.chunk_row, g.send.perm)
+    ints = (g.senders, g.receivers, g.recv.ptr, g.recv.chunk_ptr, g.recv.chunk_row,
+            g.recv.heavy_chunks, g.recv.arrivals, g.send.ptr, g.send.chunk_ptr,
+            g.send.chunk_row, g.send.heavy_chunks, g.send.arrivals, g.send.perm)
+    bools = (g.edge_mask, g.recv.heavy_masked, g.send.heavy_masked)
+    ts = ints + bools
     if any(t.device != device for t in ts):
         raise ValueError(f"{what}: graph and features on different devices")
-    if any(t.dtype != torch.int32 for t in ts[:2] + ts[3:]) or g.edge_mask.dtype != torch.bool:
+    if any(t.dtype != torch.int32 for t in ints) or any(t.dtype != torch.bool for t in bools):
         raise ValueError(f"{what}: graph index arrays must be int32, edge_mask bool")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: graph arrays must be contiguous")
@@ -180,12 +184,30 @@ def _check_features(what, xs, v, h) -> None:
         raise ValueError(f"{what}: features on different or unsupported devices")
 
 
-def _check_kernel_width(what, h, tensors) -> None:
+def _check_kernel_width(what, h, tensors, align=None) -> None:
     if h % 32 or h // 32 not in (1, 2, 4, 8):
         raise ValueError(f"{what}: the kernel takes H in 32, 64, 128, 256, got {h}")
-    align = (h // 32) * tensors[0].element_size()
+    align = align or (h // 32) * tensors[0].element_size()
     if any(t.data_ptr() % align for t in tensors):
         raise ValueError(f"{what}: feature rows must be {align}-byte aligned")
+
+
+def _check_walk_width(what, h, tensors, heads: int = 1) -> None:
+    """H and the alignment of the walk's feature rows: a lane group's load
+    of F features (csr_rows.cuh ``LightShape``: 16 bytes, or H / 32
+    features when more, or a head's width when less)."""
+    elt = tensors[0].element_size()
+    f = min(max(16 // elt, h // 32), h // heads)
+    _check_kernel_width(what, h, tensors, min(16, f * elt))
+
+
+def _walk_csr(csr):
+    """The CSR arguments of the walk's C entry points: ptr, chunk_ptr,
+    chunk_row, heavy_chunks, heavy_masked, their count and the arrival
+    counters."""
+    return (csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(), csr.chunk_row.data_ptr(),
+            csr.heavy_chunks.data_ptr(), csr.heavy_masked.data_ptr(),
+            int(csr.heavy_chunks.shape[0]), csr.arrivals.data_ptr())
 
 
 def pair_sender_degree(src, dst, g: GraphBatch) -> torch.Tensor:
@@ -249,7 +271,7 @@ def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch, transpose: bool = Fa
     _check_graph(what, g, device)
     xs = [x.contiguous() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
-    _check_kernel_width(what, h, xs + outs)
+    _check_walk_width(what, h, xs + outs)
     deg, dis = deg.contiguous(), dis.contiguous()
     if src is not None:
         src, dst = src.contiguous(), dst.contiguous()
@@ -258,13 +280,13 @@ def _coef_spmm(what, xs, src, dst, deg, dis, g: GraphBatch, transpose: bool = Fa
                       else (g.recv, g.senders, None))
     if transpose:
         src, dst = dst, src
-    partial = torch.empty((csr.num_chunks, nb * h), dtype=torch.float32, device=device)
+    partial = torch.empty((csr.heavy_chunks.shape[0], nb * h), dtype=torch.float32,
+                          device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib().coef_spmm_launch(
         nb, xs[0].data_ptr(), ptr(xs[1] if nb == 2 else None), ptr(src), ptr(dst),
         _DTYPES[xs[0].dtype], nbr.data_ptr(), ptr(perm), g.edge_mask.data_ptr(),
-        deg.data_ptr(), dis.data_ptr(), csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(),
-        csr.chunk_row.data_ptr(), csr.num_chunks, v, h, outs[0].data_ptr(),
+        deg.data_ptr(), dis.data_ptr(), *_walk_csr(csr), v, h, outs[0].data_ptr(),
         ptr(outs[1] if nb == 2 else None), partial.data_ptr(), _stream(device))
     build.check(err, what)
     return outs
@@ -571,20 +593,19 @@ def _sig_coef_spmm(what, x, src, dst, deg, dis, g: GraphBatch, negate: bool, tra
     _check_graph(what, g, device)
     x = x.contiguous()
     out = torch.empty_like(x)
-    _check_kernel_width(what, h, [x, out])
+    _check_walk_width(what, h, [x, out])
     deg, dis, src, dst = (t.float().contiguous() for t in (deg, dis, src, dst))
     # transposed: the sender CSR, neighbours through its perm, logits swapped
     csr, nbr, perm = ((g.send, g.receivers, g.send.perm) if transpose
                       else (g.recv, g.senders, None))
     if transpose:
         src, dst = dst, src
-    partial = torch.empty((csr.num_chunks, h), dtype=torch.float32, device=device)
+    partial = torch.empty((csr.heavy_chunks.shape[0], h), dtype=torch.float32, device=device)
     err = _lib().sig_coef_spmm_launch(
         x.data_ptr(), src.data_ptr(), dst.data_ptr(), _DTYPES[x.dtype], int(negate),
         nbr.data_ptr(), None if perm is None else perm.data_ptr(), g.edge_mask.data_ptr(),
-        deg.data_ptr(), dis.data_ptr(), csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(),
-        csr.chunk_row.data_ptr(), csr.num_chunks, v, h, out.data_ptr(), partial.data_ptr(),
-        _stream(device))
+        deg.data_ptr(), dis.data_ptr(), *_walk_csr(csr), v, h, out.data_ptr(),
+        partial.data_ptr(), _stream(device))
     build.check(err, what)
     return out
 

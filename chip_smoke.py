@@ -128,7 +128,11 @@
       tail (``csrc/spmm.cu``), against their twins on the benchmark's
       config-4 graph (V = 8,192, E = 131,072) and on the REDDIT-shaped batch,
       bf16 and f32, ``negate`` both ways, timed beside torch.sparse.mm (K14,
-      K14T);
+      K14T); the three sparse batches' degree profiles (``csr_profile``),
+      rows 9's K19/K19T/K20 and row 14 on the REDDIT batch too, the
+      coefficient SpMM walk's REDDIT rows (``walk_rows``: K2-K19T beside
+      bound and library call), a ``copy_`` floor of its bytes and the walk's
+      ``sparse_digests`` on the serving and REDDIT batches;
    b. ``main_syn --model CausalGCN --layout sparse --pack_batches true`` at
       the canonical size for PACK_EPOCHS epochs and ``main_real --model
       CausalGCN --dataset SYNREDDIT --layout sparse`` ("auto" packs) for 2
@@ -164,8 +168,17 @@ CUDA or the package is missing, or when any check fails.
 
     python3 chip_smoke.py --digests
 
-prints only the digest line: run from the root of another tree of the port
-(a copy of this file there), it gives that tree's bits for an A/B.
+prints only the digest lines (dense and sparse): run from the root of
+another tree of the port (a copy of this file there), it gives that tree's
+bits for an A/B.
+
+    python3 chip_smoke.py --walk
+
+builds the kernels and runs the coefficient SpMM walk alone: the ptxas
+report of its instances, each sparse batch's degree profile and ``copy_``
+floor, every sparse kernel held against its twin and timed on the serving
+and REDDIT batches (row 12 also on config 4's graph), the walk's rows by
+batch, and both digest lines; from another tree's root, for an A/B.
 """
 from __future__ import annotations
 
@@ -2829,6 +2842,115 @@ def dense_digests(torch, batch) -> dict:
     return out
 
 
+def sparse_digests(torch, batches: dict) -> dict:
+    """sha256 of every instantiation of the coefficient SpMM walk (K2, K2T,
+    K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
+    HEADS heads) on seeded inputs over each sparse batch, bf16 and f32.  The
+    degrees and coefficients are seeded too (no kernel's output feeds
+    another), so equal digests mean the walks computed the same bits; from
+    another tree's root with ``--digests``, as ``dense_digests``."""
+    import hashlib
+
+    from cal_tpu_torch.ops import coo_spmm as coo
+    from cal_tpu_torch.ops import spmm
+
+    out = {}
+    for label, g in batches.items():
+        v, e = g.num_nodes, g.senders.shape[0]
+        live = g.edge_mask & (g.senders != g.receivers)
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+            xc, xo = (torch.randn((v, H), generator=gen, device="cuda").to(dt)
+                      for _ in range(2))
+            src = torch.randn(v, generator=gen, device="cuda").to(dt)
+            dst = (2.0 * torch.randn(v, generator=gen, device="cuda")).to(dt)
+            deg = 1.0 + 4.0 * torch.rand((2, v), generator=gen, device="cuda")
+            dis = torch.rsqrt(deg)
+            coef = torch.randn(e, generator=gen, device="cuda")
+            coef = coef * (torch.rand(e, generator=gen, device="cuda") < 0.9)
+            coef_mh = torch.rand((e, HEADS), generator=gen, device="cuda") * live[:, None]
+            s32, d32 = src.float(), dst.float()
+            calls = {
+                "K2": lambda: spmm.pair_coef_spmm(xc, xo, src, dst, deg, dis, g),
+                "K2T": lambda: spmm.pair_coef_spmm_t(xc, xo, src, dst, deg, dis, g),
+                "K3": lambda: [spmm.plain_coef_spmm(xc, deg[:1], dis[:1], g)],
+                "K3T": lambda: [spmm.plain_coef_spmm_t(xc, deg[:1], dis[:1], g)],
+                "K11": lambda: [coo.coo_spmm(xc, coef, g)],
+                "K11T": lambda: [coo.coo_spmm_t(xc, coef, g)],
+                "K14": lambda: [spmm.sigmoid_coef_spmm(xc, s32, d32, deg[0], dis[0], g, neg)
+                                for neg in (False, True)],
+                "K14T": lambda: [spmm.sigmoid_coef_spmm_t(xc, s32, d32, deg[0], dis[0], g, neg)
+                                 for neg in (False, True)],
+                "K19": lambda: [coo._coo_spmm_mh_fwd(xc, coef_mh, g, HEADS)],
+                "K19T": lambda: [coo.coo_spmm_mh_t(xc, coef_mh, g, HEADS)],
+            }
+            for name, fn in calls.items():
+                digest = hashlib.sha256()
+                for t in fn():
+                    digest.update(t.detach().float().cpu().numpy().tobytes())
+                out[f"{name}_{label}_{dt_name}"] = digest.hexdigest()[:16]
+    return out
+
+
+def csr_profile(g, label) -> dict:
+    """The degree profile of one sparse batch as the coefficient SpMM walk
+    sees it, for both CSRs: chunks, rows by edge count, rows of more than one
+    chunk (the heavy rows) and their edges, and the run at node V-1 (the
+    padded edges of a padded batch) with its dead edges and chunks.  From
+    ptr and chunk_ptr alone, so it reads any tree's batches."""
+    import numpy as np
+
+    v = g.num_nodes
+    mask = g.edge_mask.cpu().numpy()
+    out = {"phase": "csr_profile", "batch": label, "V": v, "E": int(mask.size),
+           "live_edges": int((g.edge_mask & (g.senders != g.receivers)).sum())}
+    for name, csr in (("recv", g.recv), ("send", g.send)):
+        n = np.diff(csr.ptr.cpu().numpy())
+        chunks = np.diff(csr.chunk_ptr.cpu().numpy())
+        last = np.arange(csr.ptr[v - 1].item(), csr.ptr[v].item())
+        if csr.perm is not None:
+            last = csr.perm.cpu().numpy()[last]
+        out[name] = {
+            "chunks": csr.num_chunks,
+            "rows_by_edges": {"0": int((n == 0).sum()), "1": int((n == 1).sum()),
+                              "2-4": int(((n >= 2) & (n <= 4)).sum()),
+                              "5-32": int(((n >= 5) & (n <= 32)).sum()),
+                              ">32": int((n > 32).sum())},
+            "multi_chunk_rows": int((chunks > 1).sum()),
+            "multi_chunk_edges": int(n[chunks > 1].sum()),
+            "max_row_edges": int(n.max()), "mean_row_edges": float(n.mean()),
+            "last_node_run": {"edges": int(n[-1]), "dead": int((~mask[last]).sum()),
+                              "chunks": int(chunks[-1])}}
+    return out
+
+
+def ptxas_walk(report: dict) -> dict:
+    """{instance: registers, spill bytes} of the coefficient SpMM walk's
+    kernels (csr_spmm_kernel, csr_spmm_combine) in spmm.cu and coo_spmm.cu,
+    from nvcc's ``-Xptxas -v`` logs; an instance is named by its policy,
+    element type and integer template arguments (branches or heads, NEG,
+    H / 32)."""
+    out = {}
+    for lib in ("spmm", "coo_spmm"):
+        name = None
+        for ln in report.get(lib, {}).get("log", "").splitlines():
+            m = re.search(r"Function properties for (\w+)", ln)
+            if m:
+                k = re.search(r"(csr_spmm_kernel|csr_spmm_combine)I\w*?(GcnSpmm|SigSpmm|CooSpmm)"
+                              r"I(13__nv_bfloat16|f)(\w*)", m.group(1))
+                name = None if k is None else "{}<{}, {}, {}>".format(
+                    k.group(1), k.group(2), "bf16" if k.group(3) != "f" else "f32",
+                    ", ".join(re.findall(r"L[ib](\d+)E", k.group(4))))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if name and m:
+                out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+            m = re.search(r"Used (\d+) registers", ln)
+            if name and m:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
     """Row 9 (K19, K19T, K20) at ``heads`` heads of H / heads and row 14
     (K21) at ``planes`` value planes against their twins on one sparse batch
@@ -3050,6 +3172,7 @@ def main() -> int:
           "ptxas_dense_fwd": ptxas_kernels(
               report.get("fused_gcn", {}).get("log", ""),
               "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|degree_kernel"),
+          "ptxas_walk": ptxas_walk(report),
           "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
@@ -3096,21 +3219,30 @@ def main() -> int:
           "reddit_batch": {"V": reddit_batch.num_nodes, "E": reddit_batch.senders.shape[0],
                            "live_edges": int(reddit_batch.edge_mask.sum()),
                            "max_in_degree": deg(reddit_batch)}})
-    sparse_rows = sparse_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
-    sparse_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
-    bwd_rows = sparse_bwd_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
-    sparse_bwd_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
-    gat_rows, keep_syn = gat_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
-    _, keep_red = gat_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
-    coo_rows = coo_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
-    coo_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
     # row 12 (K13-K16) on the benchmark's config-4 graph, its main path, and
-    # on the REDDIT-shaped batch
+    # on the REDDIT-shaped batch; the coefficient SpMM walk's every
+    # instantiation on the REDDIT batch (rows 9's K19/K19T too)
     from cal_tpu_torch.bench import spmm_workload
 
     bench_graph = spmm_workload(8192, 131072, H, "cuda", torch.bfloat16)[0]
+    for label, g in (("synthetic", syn_batch), ("reddit", reddit_batch),
+                     ("bench_config4", bench_graph)):
+        emit(csr_profile(g, label))
+    sparse_rows = sparse_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    red_rows = [sparse_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)]
+    bwd_rows = sparse_bwd_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    red_rows.append(sparse_bwd_kernel_rows(torch, reddit_batch, "reddit", peaks, flush))
+    gat_rows, keep_syn = gat_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    _, keep_red = gat_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    coo_rows = coo_kernel_rows(torch, syn_batch, "synthetic", peaks, flush)
+    red_rows.append(coo_kernel_rows(torch, reddit_batch, "reddit", peaks, flush))
     sig_rows = sigmoid_kernel_rows(torch, bench_graph, "bench_config4", peaks, flush)
-    sigmoid_kernel_rows(torch, reddit_batch, "reddit", peaks, flush)
+    red_rows.append(sigmoid_kernel_rows(torch, reddit_batch, "reddit", peaks, flush))
+    red_rows.append(sparse_row_kernels(torch, reddit_batch, "reddit", peaks, flush))
+    emit(walk_table("reddit", *red_rows))
+    emit(copy_floor(torch, reddit_batch, "reddit", flush))
+    emit({"phase": "sparse_digests", **sparse_digests(
+        torch, {"synthetic": syn_batch, "reddit": reddit_batch})})
     del syn_batch, reddit_batch, bench_graph
     lap("sparse_kernels")
     sparse_launches = sparse_serving_phase(
@@ -3320,9 +3452,112 @@ def main() -> int:
     return 0
 
 
+# the coefficient SpMM walk's instantiations: kernel -> its row's name
+WALK_KERNELS = {"K2": "pair_coef_spmm", "K2T": "pair_coef_spmm_t", "K3": "plain_coef_spmm",
+                "K3T": "plain_coef_spmm_t", "K11": "coo_spmm", "K11T": "coo_spmm_t",
+                "K14": "sigmoid_coef_spmm", "K14T": "sigmoid_coef_spmm_t",
+                "K19": "coo_spmm_mh", "K19T": "coo_spmm_mh_t"}
+
+
+def walk_table(label, *tables) -> dict:
+    """The walk's rows of one batch from the row functions' returns ({dtype:
+    {row name: row}}; row 12's keyed (dtype, negate), negate False taken):
+    {kernel: {dtype: kernel, library and bound ms}}."""
+    out = {}
+    for t in tables:
+        for key, rows in t.items():
+            if isinstance(key, tuple) and key[1]:
+                continue
+            dt_name = key[0] if isinstance(key, tuple) else key
+            for k, name in WALK_KERNELS.items():
+                if name in rows:
+                    r = rows[name]
+                    out.setdefault(k, {})[dt_name] = {
+                        "kernel_ms": r["kernel_ms"], "library_ms": r["library_ms"],
+                        "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+    return {"phase": "walk_rows", "batch": label, "kernels": out}
+
+
+def copy_floor(torch, g, label, flush) -> dict:
+    """The time of one ``copy_`` of a bf16 [V, H] into an f32 [V, H] on
+    batch ``g``'s V, cold L2 as the kernel rows: the bytes K11 must move
+    (x read once, the f32 output written once) on this timing protocol."""
+    x = torch.randn((g.num_nodes, H), device="cuda").bfloat16()
+    out = torch.empty((g.num_nodes, H), device="cuda")
+    return {"phase": "copy_floor", "batch": label, "bytes": g.num_nodes * H * 6,
+            "ms": time_ms(torch, lambda: out.copy_(x), flush)}
+
+
+def sparse_batches(torch) -> dict:
+    """The sparse kernel batches: a serving batch of the canonical dataset
+    (V 31,744), a batch of 128 REDDIT-shaped threads and the benchmark's
+    config-4 graph, on the card."""
+    from cal_tpu_torch.bench import spmm_workload
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+
+    ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
+    _, _, sparse_test, _ = dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4, seed=SEED)
+    return {"synthetic": next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda"),
+            "reddit": next(Loader(reddit_graphs(B, seed=SEED, feat=10), B,
+                                  layout="sparse").host_batches()).to("cuda"),
+            "bench_config4": spmm_workload(8192, 131072, H, "cuda", torch.bfloat16)[0]}
+
+
+def walk_main() -> int:
+    """``--walk``: the coefficient SpMM walk alone, for an A/B of two trees
+    (run this file from the other tree's root): the build's ptxas report of
+    the walk, each sparse batch's csr_profile, every sparse kernel held
+    against its twin and timed on the serving and REDDIT batches (row 12
+    also on config 4's graph), the walk's rows by batch, and the digests."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+    from cal_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks, _ = peaks_for(name)
+    report = build.build_all()
+    emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
+          "ptxas_walk": ptxas_walk(report)})
+    batches = sparse_batches(torch)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    for label, g in batches.items():
+        emit(csr_profile(g, label))
+        emit(copy_floor(torch, g, label, flush))
+    for label in ("synthetic", "reddit"):
+        g = batches[label]
+        emit(walk_table(label, sparse_kernel_rows(torch, g, label, peaks, flush),
+                        sparse_bwd_kernel_rows(torch, g, label, peaks, flush),
+                        coo_kernel_rows(torch, g, label, peaks, flush),
+                        sigmoid_kernel_rows(torch, g, label, peaks, flush),
+                        sparse_row_kernels(torch, g, label, peaks, flush)))
+    g = batches["bench_config4"]
+    emit(walk_table("bench_config4", sigmoid_kernel_rows(torch, g, "bench_config4", peaks,
+                                                         flush)))
+    emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
+        torch, {k: batches[k] for k in ("synthetic", "reddit")})})
+    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
+    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    batch = next(Loader(test_set, B).host_batches()).to("cuda")
+    emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
+    emit({"phase": "walk_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
+    return 0
+
+
 def digests_main() -> int:
-    """``--digests``: only the dense_digests line, for comparing the bits of
-    two trees of the port (run this file from the other tree's root)."""
+    """``--digests``: only the dense_digests and sparse_digests lines, for
+    comparing the bits of two trees of the port (run this file from the
+    other tree's root)."""
     import torch
 
     if missing(torch):
@@ -3335,8 +3570,12 @@ def digests_main() -> int:
     _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
     emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
+    batches = sparse_batches(torch)
+    emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
+        torch, {k: batches[k] for k in ("synthetic", "reddit")})})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(digests_main() if sys.argv[1:] == ["--digests"] else main())
+    modes = {"--digests": digests_main, "--walk": walk_main}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

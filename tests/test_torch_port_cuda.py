@@ -378,16 +378,26 @@ def _sparse_graph(device, v, e, hub, pad, seed, isolated=0):
     """A receiver-sorted GraphBatch with self loops, a hub (``hub`` in- and
     out-edges at node 3), ``pad`` padded edges at node V-1 and the last
     ``isolated`` nodes without edges; node_graph cuts V into 5 graphs and
-    the trash segment."""
+    the trash segment.  A tuple ``hub`` gives nodes 3, 4, ... rows of
+    exactly those lengths in both CSRs (the e random edges avoid them): the
+    walk's degree classes beside the random rows (e / V of ~2 makes most of
+    those leaves of 1-4 edges, some empty)."""
     from cal_tpu_torch.graph import sparse_batch
 
     rng = np.random.default_rng(seed)
     live_v = v - 1 - isolated
-    s = rng.integers(0, live_v, e)
-    r = rng.integers(0, live_v, e)
+    rows = hub if isinstance(hub, tuple) else ()
+    lo = 3 + len(rows) if rows else 0
+    s = rng.integers(lo, live_v, e)
+    r = rng.integers(lo, live_v, e)
     s[: e // 30] = r[: e // 30]                           # self loops
-    s = np.concatenate([s, np.full(hub, 3), rng.integers(0, live_v, hub)])
-    r = np.concatenate([r, rng.integers(0, live_v, hub), np.full(hub, 3)])
+    if rows:
+        for node, n in enumerate(rows, start=3):
+            s = np.concatenate([s, np.full(n, node), rng.integers(lo, live_v, n)])
+            r = np.concatenate([r, rng.integers(lo, live_v, n), np.full(n, node)])
+    else:
+        s = np.concatenate([s, np.full(hub, 3), rng.integers(0, live_v, hub)])
+        r = np.concatenate([r, rng.integers(0, live_v, hub), np.full(hub, 3)])
     o = np.argsort(r, kind="stable")
     s = np.concatenate([s[o], np.full(pad, v - 1)])
     r = np.concatenate([r[o], np.full(pad, v - 1)])
@@ -397,13 +407,28 @@ def _sparse_graph(device, v, e, hub, pad, seed, isolated=0):
                         np.zeros(5, np.int32), np.ones(5, bool)).to(device)
 
 
+# rows of the walk's degree classes (_sparse_graph with a tuple hub):
+# leaves, empty rows, rows of exactly 32 and 33 edges, a row past the 64-chunk
+# cap (> 2,048 edges), padded runs of one chunk and of several
+WALK_CASES = [
+    (3000, 6000, (32, 33, 2100), 300, 32, "float32"),
+    (3000, 6000, (32, 33, 2100), 20, 32, "bfloat16"),
+    (3000, 6000, (32, 33, 2100), 300, 64, "float32"),
+    (3000, 6000, (32, 33, 2100), 300, 64, "bfloat16"),
+    (3000, 6000, (32, 33, 2100), 2500, 128, "float32"),
+    (3000, 6000, (32, 33, 2100), 300, 128, "bfloat16"),
+    (3000, 6000, (32, 33, 2100), 20, 256, "float32"),
+    (3000, 6000, (32, 33, 2100), 300, 256, "bfloat16"),
+]
+
+
 @pytest.mark.parametrize("v,e,hub,pad,h,dtype", [
     (300, 900, 0, 0, 32, "float32"),
     (1000, 4000, 700, 300, 128, "bfloat16"),
     (1000, 4000, 700, 300, 128, "float32"),
     (2048, 6000, 3000, 5000, 64, "bfloat16"),
     (512, 1500, 40, 33, 256, "bfloat16"),
-])
+] + WALK_CASES)
 def test_sparse_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
     from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
     from cal_tpu_torch.ops.spmm import (
@@ -497,7 +522,7 @@ def _bwd_inputs(device, v, h, dtype, seed):
     (1000, 4000, 700, 300, 128, "float32"),
     (2048, 6000, 3000, 5000, 64, "bfloat16"),
     (512, 1500, 40, 33, 256, "bfloat16"),
-])
+] + WALK_CASES)
 def test_sparse_backward_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
     from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.pool import segment_pool_bwd, segment_pool_bwd_plain
@@ -634,7 +659,7 @@ def _sigmoid_counters():
     (512, 1500, 40, 33, 256, "float32", False, "float32"),
     (1000, 4000, 700, 300, 128, "bfloat16", False, "float32"),   # the bench's config 4
     (1000, 4000, 700, 300, 128, "bfloat16", True, "float32"),
-])
+] + [(*c, i % 2 == 1, "float32") for i, c in enumerate(WALK_CASES)])
 def test_sigmoid_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, negate, logits):
     from cal_tpu_torch.ops import spmm
 
@@ -827,7 +852,7 @@ COO_TOL = (1e-4, 1e-4)
     (1000, 4000, 700, 300, 128, "float32", "random"),
     (2048, 6000, 3000, 5000, 64, "bfloat16", "random"),
     (512, 1500, 40, 33, 256, "bfloat16", "mask"),
-])
+] + [(*c, ("mask", "random")[i % 2]) for i, c in enumerate(WALK_CASES)])
 def test_coo_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, coef_kind):
     from cal_tpu_torch.ops import coo_spmm as coo
 
@@ -1086,7 +1111,8 @@ def test_single_conv_functions_match_autograd_and_launch(cuda):
     (1000, 4000, 700, 300, 4, 128, "float32"),
     (2048, 6000, 3000, 5000, 8, 64, "bfloat16"),
     (512, 1500, 40, 33, 8, 256, "float32"),
-])
+] + [(v, e, hub, pad, heads, h, dt) for (v, e, hub, pad, h, dt), heads in
+     zip(WALK_CASES, (2, 8, 4, 8, 2, 4, 8, 8))])
 def test_coo_mh_kernels_match_plain(cuda, v, e, hub, pad, heads, h, dtype):
     from cal_tpu_torch.ops import coo_spmm as coo
 

@@ -104,7 +104,8 @@ def test_sparse_host_batches_match_jax(bs, shuffle):
                            budgets["node_budget"], budgets["edge_budget"])
         v = tb.num_nodes
         for csr_t, csr_r in ((tb.recv, ref.recv), (tb.send, ref.send)):
-            for f in ("ptr", "chunk_ptr", "chunk_row", "perm"):
+            for f in ("ptr", "chunk_ptr", "chunk_row", "heavy_chunks", "heavy_masked",
+                      "arrivals", "perm"):
                 a, b = getattr(csr_t, f), getattr(csr_r, f)
                 assert (a is None) == (b is None)
                 if a is not None:
@@ -356,3 +357,89 @@ def test_reddit_threads_match_the_benchmark_generator():
         assert g.x.shape == (g.num_nodes, 5) and g.num_nodes >= 60
         pairs = set(zip(g.senders.tolist(), g.receivers.tolist()))
         assert all((v, u) in pairs for u, v in pairs)
+
+
+def _assert_walk_lists(csr, v, edge_mask=None):
+    """EdgeCsr's heavy list: the chunks of the rows of more than one, so
+    that the light rows (one chunk each, taken by row) and the listed chunks
+    cover every row exactly once; heavy_masked marks the listed chunks whose
+    edges are all masked out (none without a mask)."""
+    chunks = np.diff(csr.chunk_ptr)
+    heavy_rows = np.unique(csr.chunk_row[csr.heavy_chunks])
+    np.testing.assert_array_equal(heavy_rows, np.flatnonzero(chunks > 1))
+    assert csr.heavy_chunks.dtype == np.int32 and (np.diff(csr.heavy_chunks) > 0).all()
+    # each light row by row alone, each heavy row by all its chunks, once each
+    light = chunks == 1
+    listed = np.bincount(csr.chunk_row[csr.heavy_chunks], minlength=v)
+    assert (listed[light] == 0).all() and (listed[~light] == chunks[~light]).all()
+    # a light row holds at most CHUNK_EDGES edges, a heavy one more
+    np.testing.assert_array_equal(light, np.diff(csr.ptr) <= CHUNK_EDGES)
+    # heavy row q's chunks sit at places chunk_ptr[r] - (r - q) on the list
+    for q, r in enumerate(heavy_rows):
+        at = csr.chunk_ptr[r] - (r - q)
+        np.testing.assert_array_equal(csr.heavy_chunks[at:at + chunks[r]],
+                                      np.arange(csr.chunk_ptr[r], csr.chunk_ptr[r + 1]))
+    # a chunk's edges: edge_csr's split of its row, edge by edge
+    live = np.ones(csr.ptr[-1], bool) if edge_mask is None else np.asarray(edge_mask)
+    live = live if csr.perm is None else live[csr.perm]
+    want = []
+    for c in csr.heavy_chunks:
+        r = csr.chunk_row[c]
+        groups = -(-(csr.ptr[r + 1] - csr.ptr[r]) // CHUNK_EDGES)
+        span = -(-groups // MAX_CHUNKS) * CHUNK_EDGES
+        beg = csr.ptr[r] + (c - csr.chunk_ptr[r]) * span
+        assert beg < csr.ptr[r + 1]
+        want.append(not live[beg:min(beg + span, csr.ptr[r + 1])].any())
+    np.testing.assert_array_equal(csr.heavy_masked, np.array(want, bool))
+    assert csr.heavy_masked.dtype == bool
+    np.testing.assert_array_equal(csr.arrivals, np.zeros(csr.heavy_chunks.size, np.int32))
+
+
+@pytest.mark.parametrize("bs,orientation", [(4, "recv"), (4, "send"), (16, "recv"),
+                                            (16, "send")])
+def test_walk_heavy_lists_on_reddit_batches(bs, orientation):
+    """The heavy-row lists of REDDIT-shaped batches (hub rows of hundreds of
+    edges, the padded run at V-1) as the sparse Loader builds them."""
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+
+    graphs = reddit_graphs(2 * bs, seed=5, feat=3)
+    n = 0
+    for b in Loader(graphs, bs, layout="sparse").host_batches():
+        csr = getattr(b, orientation)
+        _assert_walk_lists(csr, b.num_nodes, b.edge_mask)
+        assert csr.heavy_chunks.size > 0
+        t = csr.to("cpu")
+        assert t.heavy_chunks.dtype == torch.int32 and t.heavy_masked.dtype == torch.bool
+        np.testing.assert_array_equal(t.heavy_chunks.numpy(), csr.heavy_chunks)
+        n += 1
+    assert n == 2
+
+
+@pytest.mark.parametrize("lengths", [(), (0, 1, 32), (33,), (32, 33, 2048, 2049, 4100),
+                                     (5, 0, 70000)])
+def test_walk_heavy_lists_by_row_length(lengths):
+    """Rows of given lengths (0, 1, 32: light; 33 up: heavy, 2,049 and up
+    past the 64-chunk cap), with a light row between each."""
+    from cal_tpu_torch.graph import edge_csr
+
+    counts = [c for n in lengths for c in (n, 1)]
+    rows = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    for mask in (None, np.arange(rows.size) % 97 < 90):
+        csr = edge_csr(rows, len(counts) + 1, None, mask)
+        _assert_walk_lists(csr, len(counts) + 1, mask)
+        assert np.unique(csr.chunk_row[csr.heavy_chunks]).tolist() == [
+            2 * i for i, n in enumerate(lengths) if n > CHUNK_EDGES]
+        assert (np.diff(csr.chunk_ptr) <= MAX_CHUNKS).all()
+    assert (csr.heavy_masked.size == 0) == (csr.heavy_chunks.size == 0)
+
+
+def test_walk_masks_the_padded_run():
+    """A padded batch's run at node V-1 (masked-out edges alone) is marked in
+    both CSRs, chunk by chunk, and no chunk holding a real edge is."""
+    graphs = _host_graphs(seed=4, count=6, hub=80)[1]
+    b = batch_graphs(graphs, 6, 400, 2000)
+    for csr in (b.recv, b.send):
+        _assert_walk_lists(csr, b.num_nodes, b.edge_mask)
+        last = csr.chunk_row[csr.heavy_chunks] == b.num_nodes - 1
+        assert last.sum() > 1 and csr.heavy_masked[last].all()
+        assert not csr.heavy_masked[~last].any()
