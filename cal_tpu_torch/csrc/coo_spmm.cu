@@ -24,7 +24,8 @@
 //             only its trailing [E + 1] pad entry is zeroed, which the port
 //             does not have);
 //   K21:      out[k, v] = max(-1e30, max over e with r_e = v of vals[k, e])
-//             for K value planes in edge order (dead edges already -1e30).
+//             for K value planes in edge order, over every edge (the
+//             callers set dead edges to -1e30; the kernel does not rely on it).
 // Liveness is the coefficient alone: a self loop is an ordinary edge (sparse
 // GIN passes coef = edge_mask; sparse GAT zeroes its dead and self-loop
 // edges), and no index is ever compared.  K11/K19 skip edges whose
@@ -55,10 +56,14 @@
 // one warp a chunk, keep g[r] of its row in registers, walk every edge of
 // the group, reduce each dot product across the 32 / heads lanes of each
 // head (a neighbour equal to the previous edge's reuses its value:
-// duplicates and the padded run), and write it in edge order.  K21 walks the receiver CSR's chunks the same way, one warp a
-// chunk, a max over the chunk's edges per plane, and a combine pass takes
-// the max of a long row's <= 64 chunk maxima.  No float atomics: a result
-// does not change between runs.
+// duplicates and the padded run), and write it in edge order.  K21 is
+// csr_rows.cuh's per-row reduction (csr_reduce_kernel) with MaxOp over the
+// receiver CSR, in one launch: a light row is one 4-lane group's item (16-
+// byte loads of 4 planes at once, 8 rows a warp); a heavy row's chunks (the
+// padded run's 62 included: K21 reads whatever the caller put there) are a
+// warp's each, and the row's last chunk to arrive takes the max of the
+// chunks' partials.  No float atomics: a result does not change between
+// runs, and a max is exact in any order, so K21 equals its twin bit for bit.
 //
 // Bound: bytes.  K11/K19 read x [V, H] once (plus a neighbour row per live
 // edge, mostly from L2), 4 + 4 * heads bytes of metadata per edge (4 more
@@ -251,47 +256,6 @@ cudaError_t sddmm_by_g(int g_dtype, int heads, const void* x, const void* g,
   return cudaErrorInvalidValue;
 }
 
-// ---- K21: per-receiver max of value planes over the receiver CSR ---------
-
-constexpr float kNegBig = -1e30f;   // cal_tpu's init of tile_scatter_max
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segment_max_kernel(const float* __restrict__ vals, int num_edges, int planes,
-                   const int* __restrict__ ptr, const int* __restrict__ chunk_ptr,
-                   const int* __restrict__ chunk_row, int n_chunks, int num_nodes,
-                   float* __restrict__ out, float* __restrict__ partial) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= n_chunks) return;
-  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
-  for (int q = 0; q < planes; ++q) {
-    const float* v = vals + (size_t)q * num_edges;
-    float m = kNegBig;
-    for (int i = k.beg + lane; i < k.end; i += kGroup) m = fmaxf(m, v[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-    if (lane == 0) {
-      if (k.count == 1) out[(size_t)q * num_nodes + k.row] = m;
-      else partial[(size_t)c * planes + q] = m;
-    }
-  }
-}
-
-// the max of each long row's chunk maxima (rows of one chunk were written)
-__global__ void segment_max_combine(const int* __restrict__ chunk_ptr, int num_nodes,
-                                    int planes, const float* __restrict__ partial,
-                                    float* __restrict__ out) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= num_nodes) return;
-  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
-  if (c1 - c0 <= 1) return;
-  for (int q = 0; q < planes; ++q) {
-    float m = kNegBig;
-    for (int c = c0; c < c1; ++c) m = fmaxf(m, partial[(size_t)c * planes + q]);
-    out[(size_t)q * num_nodes + v] = m;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -336,20 +300,24 @@ int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype, int
   return (int)cudaErrorInvalidValue;
 }
 
-// K21.  vals [planes, E] f32 in edge order; the receiver CSR.  Writes out
-// [planes, V] f32; partial holds n_chunks * planes floats.
+// K21.  vals [planes, E] f32 in edge order; the receiver CSR as
+// coo_spmm_launch takes it (heavy_masked unread: every edge is walked).
+// Writes out [planes, V] f32; partial holds n_heavy_chunks * planes floats.
 int segment_max_launch(const float* vals, int num_edges, int planes, const int* ptr,
-                       const int* chunk_ptr, const int* chunk_row, int n_chunks,
+                       const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
+                       const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
                        int num_nodes, float* out, float* partial, cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || planes <= 0) return (int)cudaErrorInvalidValue;
-  segment_max_kernel<<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32,
-                       0, stream>>>(vals, num_edges, planes, ptr, chunk_ptr, chunk_row,
-                                    n_chunks, num_nodes, out, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  segment_max_combine<<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes,
-                                                                   planes, partial, out);
-  return (int)cudaGetLastError();
+  RowReduce a;
+  static_cast<CsrRows&>(a) = CsrRows{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
+                                     heavy_masked, arrivals, nullptr, n_heavy_chunks,
+                                     num_nodes};
+  a.vals = vals;
+  a.num_edges = num_edges;
+  a.planes = planes;
+  a.vec = num_edges % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  a.out = out;
+  a.partial = partial;
+  return (int)launch_csr_reduce<MaxOp>(a, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 // Shared CSR-row machinery of the sparse kernels (spmm.cu, gat_sparse.cu,
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
 // a lane's features, the per-warp row sums with their combine pass for long
-// rows, the sender-CSR sum of per-edge f32 columns, and the coefficient SpMM
-// walk that K2/K3, K11, K14 and K19 instantiate (light rows by row, several
-// a warp; heavy rows by chunk from a host-built list, each summed by its
-// last chunk to finish).  Included by each source; it is not a build target
-// of its own.
+// rows, the sender-CSR sum of per-edge f32 columns, the coefficient SpMM
+// walk that K2/K3, K11, K14 and K19 instantiate, and the per-row reduction of
+// per-edge value planes that K21 instantiates (both: light rows by row,
+// several a warp; heavy rows by chunk from a host-built list, each finished
+// by its last chunk to arrive).  Included by each source; it is not a build
+// target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -481,6 +482,156 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
     case 8: return launch_csr_spmm_q<P, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---- per-row reductions of per-edge value planes (K21) -------------------
+//
+// out[q][r] = init op v_q[e_1] op v_q[e_2] ... over the edges of row r, for
+// `planes` f32 planes v_q of E values, with an associative Op (K21: max from
+// -1e30).  The unit is the walk's: a light row (one chunk, at most kGroup
+// edges) is one item of a group of kReduceGroup lanes (8 rows a warp, as
+// most rows of a real batch hold 1-4 edges); a heavy row's chunks (the
+// host-built EdgeCsr.heavy_chunks, the padded run at node V-1 included: the
+// values are the caller's, dead or not) are the first warps' items, a warp
+// each, and the row's last chunk to arrive (EdgeCsr.arrivals, 0 again when
+// the launch ends) reduces the chunks' partials and writes the row.  One
+// launch, no pass over all rows.  A lane reads 16 bytes of a plane at a time
+// where the planes allow (perm null, E % 4 == 0, 16-byte aligned), the loads
+// of kPlaneBatch planes in flight together.  Every output has one owner and
+// one order (lanes, then the group's shuffle tree; partials likewise): a sum
+// on this walk is deterministic, though not in the order of the row sums
+// above (finish_row), whose kernels still end with launch_combine.
+//
+// Bound: bytes, 4 planes bytes per edge and per row, plus the CSR; the walk
+// is latency: ptr, the values, the store, a chain per row.
+
+// The arguments of a reduction: the CSR (EdgeCsr) and the planes.
+struct RowReduce : CsrRows {
+  const float* vals;   // [planes, num_edges]: CSR position i reads edge i (perm null) or perm[i]
+  int num_edges, planes;
+  bool vec;            // perm null, num_edges % 4 == 0, vals 16-byte aligned: float4 loads
+  float* out;          // [planes, num_nodes]
+  float* partial;      // [n_heavy_chunks, planes]
+};
+
+struct MaxOp {
+  static constexpr float kInit = -1e30f;   // cal_tpu's init of tile_scatter_max
+  __device__ static __forceinline__ float apply(float a, float b) { return fmaxf(a, b); }
+};
+
+constexpr int kReduceGroup = 4;   // lanes of a light row's group
+constexpr int kPlaneBatch = 4;    // planes a lane reads together
+
+// acc[j] = the reduction of plane q0 + j over CSR positions [beg, end) by the
+// G lanes of a group (gl: the lane's place in it); every lane of the warp
+// calls it, and each of a group's lanes ends with the group's result.
+template <typename Op, int G>
+__device__ __forceinline__ void reduce_span(const RowReduce& a, int q0, int beg, int end,
+                                            int gl, float (&acc)[kPlaneBatch]) {
+#pragma unroll
+  for (int j = 0; j < kPlaneBatch; ++j) acc[j] = Op::kInit;
+  if (a.vec) {
+    for (int i = (beg & ~3) + 4 * gl; i < end; i += 4 * G) {
+      float4 t[kPlaneBatch];
+#pragma unroll
+      for (int j = 0; j < kPlaneBatch; ++j)
+        if (q0 + j < a.planes)
+          t[j] = __ldg(
+              reinterpret_cast<const float4*>(a.vals + (size_t)(q0 + j) * a.num_edges + i));
+#pragma unroll
+      for (int j = 0; j < kPlaneBatch; ++j) {
+        if (q0 + j >= a.planes) continue;
+        const float e[4] = {t[j].x, t[j].y, t[j].z, t[j].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (i + u >= beg && i + u < end) acc[j] = Op::apply(acc[j], e[u]);
+      }
+    }
+  } else {
+    for (int i = beg + gl; i < end; i += G) {
+      const size_t e = a.perm == nullptr ? i : a.perm[i];
+#pragma unroll
+      for (int j = 0; j < kPlaneBatch; ++j)
+        if (q0 + j < a.planes)
+          acc[j] = Op::apply(acc[j], a.vals[(size_t)(q0 + j) * a.num_edges + e]);
+    }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < kPlaneBatch; ++j)
+      acc[j] = Op::apply(acc[j], __shfl_xor_sync(kFull, acc[j], off));
+}
+
+// A heavy chunk, a warp: its partials, then, for the row's last chunk to
+// arrive, the row from all of them.
+template <typename Op>
+__device__ __forceinline__ void reduce_heavy_chunk(const RowReduce& a, int item, int lane) {
+  const int c = a.heavy_chunks[item];
+  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+  const int i0 = item - (c - a.chunk_ptr[k.row]);   // the row's first chunk on the list
+  for (int q0 = 0; q0 < a.planes; q0 += kPlaneBatch) {
+    float acc[kPlaneBatch];
+    reduce_span<Op, 32>(a, q0, k.beg, k.end, lane, acc);
+#pragma unroll
+    for (int j = 0; j < kPlaneBatch; ++j)
+      if (lane == j && q0 + j < a.planes) a.partial[(size_t)item * a.planes + q0 + j] = acc[j];
+  }
+  __threadfence();
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(a.arrivals + i0, 1) == k.count - 1;
+  if (!__shfl_sync(kFull, last, 0)) return;
+  __threadfence();
+  for (int q = 0; q < a.planes; ++q) {
+    float m = Op::kInit;
+    for (int j = lane; j < k.count; j += 32)
+      m = Op::apply(m, __ldcg(a.partial + (size_t)(i0 + j) * a.planes + q));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = Op::apply(m, __shfl_xor_sync(kFull, m, off));
+    if (lane == 0) a.out[(size_t)q * a.num_nodes + k.row] = m;
+  }
+  if (lane == 0) a.arrivals[i0] = 0;
+}
+
+// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
+// take the rows, 32 / kReduceGroup a warp (a heavy row's group idles).
+template <typename Op>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const RowReduce a) {
+  constexpr int G = kReduceGroup;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp < a.n_heavy_chunks) {
+    reduce_heavy_chunk<Op>(a, warp, lane);
+    return;
+  }
+  const int first = (warp - a.n_heavy_chunks) * (32 / G);
+  if (first >= a.num_nodes) return;
+  const int r = first + lane / G, gl = lane % G;
+  int beg = 0, end = 0;
+  if (r < a.num_nodes) {
+    beg = a.ptr[r];
+    end = a.ptr[r + 1];
+  }
+  const bool light = r < a.num_nodes && end - beg <= kGroup;
+  if (!light) end = beg;
+  for (int q0 = 0; q0 < a.planes; q0 += kPlaneBatch) {
+    float acc[kPlaneBatch];
+    reduce_span<Op, G>(a, q0, beg, end, gl, acc);
+    if (light && gl == 0)
+#pragma unroll
+      for (int j = 0; j < kPlaneBatch; ++j)
+        if (q0 + j < a.planes) a.out[(size_t)(q0 + j) * a.num_nodes + r] = acc[j];
+  }
+}
+
+template <typename Op>
+cudaError_t launch_csr_reduce(const RowReduce& a, cudaStream_t stream) {
+  if (a.num_nodes <= 0 || a.n_heavy_chunks < 0 || a.planes <= 0) return cudaErrorInvalidValue;
+  const int warps = a.n_heavy_chunks + (a.num_nodes + 32 / kReduceGroup - 1) / (32 / kReduceGroup);
+  csr_reduce_kernel<Op><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
+                          stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace

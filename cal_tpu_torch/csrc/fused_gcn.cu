@@ -20,30 +20,56 @@
 // others.  plain-T sums norm[s,r] * x[s,:] instead (the product with M^T,
 // the degree still M's column sums): out_r = T(sum_s norm[s,r] x[s] + x[r]/deg_r).
 //
-// Bound on this card: bytes in bf16 (adj + the x and out planes, ~50 MB for
-// the dual mode at B=128, N=256, H=128, against 4.3 GFLOP of products); in
-// f32 the products on the CUDA cores (no tensor cores, to keep full f32) are
-// the bound.
-// Design: a degree pass (one block per 32 columns of a graph, 8 row groups
-// reduced in shared memory) writes deg^-1/2 and 1/deg of each branch to a
-// [2 * branches, B, N] f32 scratch.  The aggregate is a row-tiled product: one
-// block per (64 rows of one graph, 128 feature columns) walks the senders in
-// steps of 32, builds each branch's norm tile from adj/src/dst in shared memory
-// (the weights and the [N, N] products never reach device memory) and stages
-// the x tiles.  bf16 runs the products on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 accumulate: exactly the contract's rounding), each
-// of 8 warps owning 32 rows x 32 columns of every branch; the sender factors
-// (src, deg^-1/2) sit in shared memory for the whole block, and the next
-// step's adjacency and x chunks are loaded into registers while the current
-// step's products run (plain-T reads its [32 senders, 64 rows] adjacency box
-// along the senders' rows, 16 bytes a thread, into a [sender][row] tile that
-// ldmatrix.trans feeds).  f32 keeps full f32 FMA on the CUDA cores, 4 rows x
-// 8 columns per branch and thread, without that prefetch.  The modes are
-// compile-time: a single-branch mode runs half the dual mode's products and
-// no sigmoid.  The adjacency is read twice (degree pass and aggregate) and x
-// once per row tile, mostly from L2; TMA, deeper pipelines and wgmma are
-// later work.  bf16 plain / plain-T on graphs of up to 256 nodes take the
-// one-launch cluster kernel at the end of this file instead.
+// Bound on this card: bytes in bf16: adj once, the x planes and the outputs
+// (3.9 GB for the dual mode at B = 128, N = 3,840, H = 128, 1.17 ms, of which
+// adj is 3.77 GB; 50 MB at N = 256).  The products a batch needs are those of
+// its edges' cells, a few percent of 4 N^2 H per graph on a padded batch.  In
+// f32 the products on the CUDA cores (no tensor cores, to keep full f32)
+// bound a dense graph.
+// Design: adj is read in full once, by the degree pass, which also writes
+// the live map that the aggregate and the backward walk.
+//   1. degree pass: a block per 32 lanes' columns of a graph, warp w summing
+//      rows w, w + 8, ... of its columns with 16-byte loads (8 bf16 a lane),
+//      four rows in flight, or, where that would leave SMs short of blocks
+//      (as at N = 256), a column a lane (launch_degree chooses); then warp 0
+//      adds the other warps' sums in warp order: the order of a walk by
+//      columns, so the degrees do not depend on the path.  Neither path
+//      forms a sigmoid where a count is 0 (the terms left out are +0, the
+//      sums unchanged).  It writes deg^-1/2 and 1/deg of each branch to a
+//      [2 * branches, B, N] f32 plane and the live map: a byte per (64-row
+//      strip, 32-column group) of each graph, 1 where an edge other than a
+//      self loop lies (the backward's format, which takes it from the
+//      forward).
+//   2. aggregate: a row-tiled product, one block per (64 rows of one graph,
+//      128 feature columns), over the live steps of 32 senders of its strip
+//      only, compacted in order from the live map (the products sum in the
+//      order of a walk over every step; a skipped step's products are 0).
+//      A block whose strip has none writes the self term x_r / deg_r and
+//      reads nothing else: on a padded batch most blocks.  A step builds
+//      each branch's norm tile from adj/src/dst in shared memory (the
+//      weights and the [N, N] products never reach device memory) and stages
+//      the x tiles.  bf16 runs the products on the tensor cores with mma.sync
+//      m16n8k16 (bf16 in, f32 accumulate: exactly the contract's rounding),
+//      each of 8 warps owning 32 rows x 32 columns of every branch; a live
+//      step's adjacency tile, x tiles and sender factors (src, deg^-1/2)
+//      arrive by cp.async in a ring of three stages, two steps ahead of the
+//      products (a large graph's strip walks ~100 live steps in a row, so
+//      their loads must overlap), and the norm tile is built from the
+//      staged tile (plain-T stages its [32 senders, 64 rows] box along the
+//      senders' rows and builds the [sender][row] tile that ldmatrix.trans
+//      feeds).  f32 keeps full f32 FMA on the CUDA cores, 4 rows x 8 columns
+//      per branch and thread, over the same live steps without the ring.
+// The modes are compile-time: a single-branch mode runs half the dual mode's
+// products, the plain modes no sigmoid.  What bounds it: on a padded batch the degree
+// pass's read of adj (SYNREDDIT at N = 3,840: ~1% of the cells live); on a
+// dense graph every step is live and the aggregate re-reads x per row tile
+// from L2 through mma.sync (no wgmma).  What remains: adj is a dense count
+// read in full for a few edges a row, so an edge-list contract is the next
+// floor; TMA, deeper pipelines and wgmma for dense graphs are later work.  In
+// the forward a cell without an edge forms no sigmoid, so a non-finite logit
+// reaches only its edges' cells (the backward forms them on every cell of a
+// tile that holds an edge).  bf16 plain / plain-T on graphs of up to 256 nodes take
+// the one-launch cluster kernel at the end of this file instead.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,6 +105,45 @@ template <typename T> __device__ __forceinline__ float round_t(float v) {
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(s)), "l"(g), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` committed groups are still in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// 16 bytes of a row into shared memory: columns [col, col + 16 / sizeof(T))
+// of `row`, zero from column `valid` on (valid = 0 for a row past the graph,
+// whose `row` is any readable address).  One cp.async when rows are 16-byte
+// aligned and `valid` is a multiple of the chunk (vec), element by element
+// otherwise.
+template <typename T>
+__device__ __forceinline__ void copy16(T* s, const T* row, int col, int valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const bool in = col < valid;
+    cp_async16(s, in ? row + col : row, in ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) s[q] = col + q < valid ? row[col + q] : from_f<T>(0.f);
+  }
+}
+
 // m[r, s] of each branch from the count av and the sigmoid sg (unread in the
 // plain modes), f32, as the TPU kernels build it
 template <int M>
@@ -113,54 +178,239 @@ __device__ __forceinline__ void norm_of(const T* a, const T* srcb, const T* dstb
   for (int br = 0; br < NB; ++br) nv[br] = 0.f;
   if (i < N && k < N && i != k) {
     const int r = M == kPlainT ? k : i, s = M == kPlainT ? i : k;
-    float m[NB];
-    weigh<M == kPlainT ? kPlain : M>(to_f(a[(size_t)r * N + s]),
-                                     edge_sigmoid<T, M>(srcb, dstb, r, s), m);
+    const float av = to_f(a[(size_t)r * N + s]);
+    float m[NB];   // a zero count forms no sigmoid: its +0 terms are the same
+    weigh<M == kPlainT ? kPlain : M>(av, av != 0.f ? edge_sigmoid<T, M>(srcb, dstb, r, s) : 0.f,
+                                     m);
 #pragma unroll
     for (int br = 0; br < NB; ++br)
       nv[br] = round_t<T>(__fmul_rn(__fmul_rn(m[br], dis[br][s]), dis[br][r]));
   }
 }
 
-constexpr int kDegCols = 32, kDegGroups = kThreads / kDegCols;
+// The live map: a byte per (64-row strip, 32-column group) of each graph's
+// adjacency, [B, live_strips(N), live_cols(N)], 1 where an edge other than a
+// self loop lies.  Its cell is the aggregate's tile of one step (kRows x
+// kStep); the backward's node and edge passes walk it too.
+constexpr int kLiveRows = 64, kLiveCols = 32;
+static_assert(kRows == kLiveRows && kStep == kLiveCols, "a step of the aggregate is one cell");
 
-// stats layout: [2 br] deg^-1/2, [2 br + 1] 1/deg of branch br, each [B, N].
+__host__ __device__ __forceinline__ int live_strips(int N) {
+  return (N + kLiveRows - 1) / kLiveRows;
+}
+__host__ __device__ __forceinline__ int live_cols(int N) { return (N + kLiveCols - 1) / kLiveCols; }
+__host__ __device__ __forceinline__ int steps_of(int N) { return (N + kStep - 1) / kStep; }
+
+// whether the live map has an edge in rows [r, r + rows) x columns [c, c + cs)
+// of graph b (r and c multiples of the map's cells)
+__device__ __forceinline__ bool live_any(const unsigned char* live, int b, int N, int r,
+                                         int rows, int c, int cs) {
+  bool any = false;
+  for (int rb = r / kLiveRows; rb < live_strips(N) && rb * kLiveRows < r + rows; ++rb)
+    for (int cb = c / kLiveCols; cb < live_cols(N) && cb * kLiveCols < c + cs; ++cb)
+      any = any || live[((size_t)b * live_strips(N) + rb) * live_cols(N) + cb];
+  return any;
+}
+
+// The live steps of a block, in order: list[0] their count, list[1..] the
+// steps j in [0, steps) for which live_step(j) holds.  A flag per step, then
+// warp 0 compacts them in place (a chunk's flags are all read before any of
+// its slots is written).  Every thread of the block calls it.
+template <typename F>
+__device__ __forceinline__ int live_steps(int* list, int steps, F live_step) {
+  int* step_of = list + 1;
+  for (int j = threadIdx.x; j < steps; j += blockDim.x) step_of[j] = live_step(j);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int j0 = 0; j0 < steps; j0 += 32) {
+      const bool f = j0 + lane < steps && step_of[j0 + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      __syncwarp();
+      if (f) step_of[count + __popc(m & ((1u << lane) - 1))] = j0 + lane;
+      count += __popc(m);
+      __syncwarp();
+    }
+    if (lane == 0) list[0] = count;
+  }
+  __syncthreads();
+  return list[0];
+}
+
+// whether step j of the aggregate block on rows r0.. of graph b is live:
+// M's cell (rows r0.., senders 32 j..), or in plain-T the transposed box (M's
+// rows 32 j.., columns r0..)
+template <int M>
+__device__ __forceinline__ bool step_live(const unsigned char* live, int b, int N, int r0, int j) {
+  return M == kPlainT ? live_any(live, b, N, j * kStep, kStep, r0, kRows)
+                      : live_any(live, b, N, r0, kRows, j * kStep, kStep);
+}
+
+constexpr int kDegWarps = kThreads / 32;   // row groups: warp w sums rows w, w + 8, ...
+constexpr int kDegRows = 4;                // rows a warp of the wide pass has in flight
+
+// deg^-1/2 and 1/deg of the block's columns from each warp's column sums:
+// warp 0 adds warps 1..7's in warp order (part: theirs, [NB][7][cols])
+template <int NB, int V, int kBlockCols>
+__device__ __forceinline__ void finish_degrees(float (&sum)[NB][V],
+                                               float (*part)[kDegWarps - 1][kBlockCols],
+                                               float* stats, int b, int B, int N, int c) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (warp > 0) {
+#pragma unroll
+    for (int br = 0; br < NB; ++br)
+#pragma unroll
+      for (int q = 0; q < V; ++q) part[br][warp - 1][lane * V + q] = sum[br][q];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const size_t plane = (size_t)B * N;
+#pragma unroll
+  for (int br = 0; br < NB; ++br)
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      if (c + q >= N) continue;
+      float s = sum[br][q];
+      for (int g = 0; g < kDegWarps - 1; ++g) s += part[br][g][lane * V + q];
+      const float deg = s + 1.0f;
+      const size_t i = (size_t)b * N + c + q;
+      stats[2 * br * plane + i] = rsqrtf(deg);
+      stats[(2 * br + 1) * plane + i] = 1.0f / deg;
+    }
+}
+
+// The degree pass, wide: a block takes 32 V columns of a graph (16 bytes, V
+// = 16 / sizeof(T), a lane), each warp kDegRows rows in flight.  stats
+// layout: [2 br] deg^-1/2, [2 br + 1] 1/deg of branch br, each [B, N]; live:
+// the live map.  Dynamic shared memory: live_strips(N) words.
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
-degree_kernel(const T* __restrict__ adj, const T* __restrict__ src,
-              const T* __restrict__ dst, float* __restrict__ stats, int B, int N) {
-  constexpr int NB = Nb<M>::v;
-  __shared__ float part[NB][kDegGroups][kDegCols];
-  const int b = blockIdx.y;
-  const int tx = threadIdx.x % kDegCols, ty = threadIdx.x / kDegCols;
-  const int s = blockIdx.x * kDegCols + tx;
+degree_wide_kernel(const T* __restrict__ adj, const T* __restrict__ src,
+                   const T* __restrict__ dst, float* __restrict__ stats,
+                   unsigned char* __restrict__ live, int B, int N) {
+  constexpr int NB = Nb<M>::v, V = 16 / sizeof(T), kBlockCols = 32 * V;
+  constexpr bool kLogits = M != kPlain && M != kPlainT;
+  // a count is non-zero when its bits other than the sign are
+  constexpr unsigned kMag = sizeof(T) == 2 ? 0x7fff7fffu : 0x7fffffffu;
+  __shared__ float part[NB][kDegWarps - 1][kBlockCols];
+  extern __shared__ unsigned strip_bits[];   // per strip: bit g, column group g of the block
+  const int b = blockIdx.y, c0 = blockIdx.x * kBlockCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, c = c0 + lane * V;
+  for (int i = tid; i < live_strips(N); i += kThreads) strip_bits[i] = 0u;
   const T* a = adj + (size_t)b * N * N;
-  const T* srcb = src + (size_t)b * N;
   const T* dstb = dst + (size_t)b * N;
-  float sum[NB];
+  float lsrc[V];   // the logits of the lane's senders
 #pragma unroll
-  for (int br = 0; br < NB; ++br) sum[br] = 0.f;
-  if (s < N) {
-    for (int r = ty; r < N; r += kDegGroups) {
-      if (r == s) continue;
-      float m[NB];
-      weigh<M>(to_f(a[(size_t)r * N + s]), edge_sigmoid<T, M>(srcb, dstb, r, s), m);
+  for (int q = 0; q < V; ++q)
+    lsrc[q] = kLogits && c + q < N ? to_f(src[(size_t)b * N + c + q]) : 0.f;
+  float sum[NB][V];
 #pragma unroll
-      for (int br = 0; br < NB; ++br) sum[br] += m[br];
+  for (int br = 0; br < NB; ++br)
+#pragma unroll
+    for (int q = 0; q < V; ++q) sum[br][q] = 0.f;
+  const bool vec = N % V == 0 && aligned16(adj);
+  const unsigned gbit = 1u << (lane / (kLiveCols / V));
+  bool has = false;   // an edge in the lane's columns of the current strip
+  __syncthreads();    // strip bits cleared
+
+  for (int r0 = warp; r0 < N; r0 += kDegRows * kDegWarps) {
+    uint4 w[kDegRows];
+#pragma unroll
+    for (int u = 0; u < kDegRows; ++u) {
+      const int r = r0 + u * kDegWarps;
+      if (r < N && c < N && vec) {
+        w[u] = __ldg(reinterpret_cast<const uint4*>(a + (size_t)r * N + c));
+      } else {
+        alignas(16) T e[V];
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          e[q] = r < N && c + q < N ? a[(size_t)r * N + c + q] : from_f<T>(0.f);
+        w[u] = *reinterpret_cast<const uint4*>(e);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDegRows; ++u) {
+      const int r = r0 + u * kDegWarps;
+      if (((w[u].x | w[u].y | w[u].z | w[u].w) & kMag) != 0u) {   // a count in the lane's columns
+        const T* v = reinterpret_cast<const T*>(&w[u]);
+        const float dr = kLogits ? to_f(dstb[r]) : 0.f;
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float av = c + q == r ? 0.f : to_f(v[q]);   // the self loop is dropped
+          has = has || av != 0.f;
+          if constexpr (!kLogits) {
+            sum[0][q] += av;   // +0 where there is no count: the sum unchanged
+          } else if (av != 0.f) {
+            float m[NB];
+            weigh<M>(av, sigmoid(lsrc[q] + dr), m);
+#pragma unroll
+            for (int br = 0; br < NB; ++br) sum[br][q] += m[br];
+          }
+        }
+      }
+      // the warp's last row of a strip (or of the graph): the lane's live bit
+      if (r % kLiveRows + kDegWarps >= kLiveRows || r + kDegWarps >= N) {
+        if (has) atomicOr(&strip_bits[r / kLiveRows], gbit);
+        has = false;
+      }
     }
   }
-#pragma unroll
-  for (int br = 0; br < NB; ++br) part[br][ty][tx] = sum[br];
-  __syncthreads();
-  if (ty != 0 || s >= N) return;
-  const size_t plane = (size_t)B * N, i = (size_t)b * N + s;
-#pragma unroll
-  for (int br = 0; br < NB; ++br) {
-    for (int g = 1; g < kDegGroups; ++g) sum[br] += part[br][g][tx];
-    const float deg = sum[br] + 1.0f;
-    stats[2 * br * plane + i] = rsqrtf(deg);
-    stats[(2 * br + 1) * plane + i] = 1.0f / deg;
+  finish_degrees<NB, V, kBlockCols>(sum, part, stats, b, B, N, c);   // synchronises first
+  const int strips = live_strips(N), cols = live_cols(N);
+  for (int i = tid; i < strips * V; i += kThreads) {   // the block's V column groups
+    const int k = i / V, g = i % V, col = c0 / kLiveCols + g;
+    if (col < cols) live[((size_t)b * strips + k) * cols + col] = (strip_bits[k] >> g) & 1u;
   }
+}
+
+// The degree pass, a column a lane: a block takes 32 columns (one live-map
+// group) of a graph and each lane walks its column, warp w the rows w, w +
+// 8, ... strip by strip, one load and one term a row, the sigmoid selected
+// only where the count is not 0 (a zero count's term is +0: the wide pass's
+// sums, in its order), then one warp vote a strip for the live map.  Held
+// to 32 registers (eight blocks an SM), which ptxas meets without a spill:
+// at B = 128, N = 256 its 1,024 blocks then run in one wave.  Dynamic
+// shared memory: live_strips(N) bytes, a strip's flag.
+template <typename T, int M>
+__global__ void __launch_bounds__(kThreads, 8)
+degree_col_kernel(const T* __restrict__ adj, const T* __restrict__ src,
+                  const T* __restrict__ dst, float* __restrict__ stats,
+                  unsigned char* __restrict__ live, int B, int N) {
+  constexpr int NB = Nb<M>::v;
+  constexpr bool kLogits = M != kPlain && M != kPlainT;
+  __shared__ float part[NB][kDegWarps - 1][32];
+  extern __shared__ unsigned char strip_live[];
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int s = blockIdx.x * 32 + lane;
+  const int strips = live_strips(N);
+  for (int k = tid; k < strips; k += kThreads) strip_live[k] = 0;
+  __syncthreads();
+  const T* a = adj + (size_t)b * N * N;
+  const T* dstb = dst + (size_t)b * N;
+  const bool in = s < N;
+  const float ls = kLogits && in ? to_f(src[(size_t)b * N + s]) : 0.f;
+  float sum[NB][1];
+#pragma unroll
+  for (int br = 0; br < NB; ++br) sum[br][0] = 0.f;
+  for (int k0 = 0; k0 < N; k0 += kLiveRows) {   // warp-uniform: every lane votes
+    const int end = min(k0 + kLiveRows, N);
+    bool has = false;
+    for (int r = k0 + warp; r < end; r += kDegWarps) {
+      const float av = in && r != s ? to_f(a[(size_t)r * N + s]) : 0.f;   // no self loop
+      const bool edge = av != 0.f;
+      has = has || edge;
+      float m[NB];
+      weigh<M>(av, kLogits && edge ? sigmoid(ls + to_f(dstb[r])) : 0.f, m);
+#pragma unroll
+      for (int br = 0; br < NB; ++br) sum[br][0] += m[br];
+    }
+    if (__any_sync(0xffffffffu, has) && lane == 0) strip_live[k0 / kLiveRows] = 1;
+  }
+  finish_degrees<NB, 1, 32>(sum, part, stats, b, B, N, s);   // synchronises the block first
+  const int cols = live_cols(N);
+  for (int k = tid; k < strips; k += kThreads)
+    live[((size_t)b * strips + k) * cols + blockIdx.x] = strip_live[k];
 }
 
 // graph b's rows of branch br: plane 0 or 1 of a [B, N, H] pair
@@ -174,17 +424,77 @@ __device__ __forceinline__ const float* plane_of(const float* p, int k, int b, i
   return p + (size_t)k * B * N + (size_t)b * N;
 }
 
-// f32: full-f32 FMA on the CUDA cores.
+// An aggregate block without a live step: out_r = T(0 + x_r / deg_r) over
+// its rows r0.. and columns h0.., the epilogue of a sum that stayed 0.  A
+// thread's 16-byte chunks of a branch are all loaded before the first store
+// (on a padded batch most blocks do nothing else, so the loads in flight set
+// their pace); element by element where rows are not aligned.
+template <typename T, int NB>
+__device__ __forceinline__ void self_term(const T* x0, const T* x1, const float* stats, T* o0,
+                                          T* o1, int b, int B, int N, int H, int r0, int h0) {
+  constexpr int V = 16 / sizeof(T), kChunks = kRows * kCols / V / kThreads;
+  static_assert(kRows * kCols % (V * kThreads) == 0, "whole chunks a thread");
+  const bool vec = H % V == 0 && aligned16(x0) && aligned16(o0) &&
+                   (NB == 1 || (aligned16(x1) && aligned16(o1)));
+  if (vec) {
+#pragma unroll 1
+    for (int br = 0; br < NB; ++br) {
+      const T* x = rows_of(x0, x1, br, b, N, H);
+      T* out = rows_of(o0, o1, br, b, N, H);
+      const float* inv = plane_of(stats, 2 * br + 1, b, B, N);
+      uint4 u[kChunks];
+      float iv[kChunks];
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        const int r = r0 + i / (kCols / V), col = h0 + (i % (kCols / V)) * V;
+        const bool ok = r < N && col < H;
+        u[j] = ok ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * H + col))
+                  : make_uint4(0, 0, 0, 0);
+        iv[j] = ok ? inv[r] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        const int r = r0 + i / (kCols / V), col = h0 + (i % (kCols / V)) * V;
+        if (r >= N || col >= H) continue;
+        T* e = reinterpret_cast<T*>(&u[j]);
+#pragma unroll
+        for (int q = 0; q < V; ++q) e[q] = from_f<T>(__fadd_rn(0.f, __fmul_rn(to_f(e[q]), iv[j])));
+        *reinterpret_cast<uint4*>(out + (size_t)r * H + col) = u[j];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int br = 0; br < NB; ++br) {
+    const T* x = rows_of(x0, x1, br, b, N, H);
+    T* out = rows_of(o0, o1, br, b, N, H);
+    const float* inv = plane_of(stats, 2 * br + 1, b, B, N);
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int r = r0 + i / kCols, col = h0 + i % kCols;
+      if (r < N && col < H) {
+        const size_t at = (size_t)r * H + col;
+        out[at] = from_f<T>(__fadd_rn(0.f, __fmul_rn(to_f(x[at]), inv[r])));
+      }
+    }
+  }
+}
+
+// f32: full-f32 FMA on the CUDA cores.  Dynamic shared memory: the x and
+// norm tiles, then the live-step list.
 template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
                      const T* __restrict__ x1, const T* __restrict__ src,
                      const T* __restrict__ dst, const float* __restrict__ stats,
-                     T* __restrict__ o0, T* __restrict__ o1, int B, int N, int H) {
+                     const unsigned char* __restrict__ live, T* __restrict__ o0,
+                     T* __restrict__ o1, int B, int N, int H) {
   constexpr int NB = Nb<M>::v;
   extern __shared__ float smem[];
   float* xs = smem;                           // [NB][kStep][kCols]
   float* ns = xs + NB * kStep * kCols;        // [NB][kRows][kStep + 1]
+  int* list = reinterpret_cast<int*>(ns + NB * kRows * (kStep + 1));   // live steps
 
   const int r0 = blockIdx.x * kRows;
   const int b = blockIdx.y;
@@ -192,16 +502,11 @@ aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;  // rows ty*4 + i; cols tx*4 + j and 64 + tx*4 + j
 
-  const T* x[NB];
-  const float* dis[NB];
-#pragma unroll
-  for (int br = 0; br < NB; ++br) {
-    x[br] = rows_of(x0, x1, br, b, N, H);
-    dis[br] = plane_of(stats, 2 * br, b, B, N);
+  if (live_steps(list, steps_of(N), [&](int j) { return step_live<M>(live, b, N, r0, j); }) ==
+      0) {
+    self_term<T, NB>(x0, x1, stats, o0, o1, b, B, N, H, r0, h0);
+    return;
   }
-  const T* a = adj + (size_t)b * N * N;
-  const T* srcb = src + (size_t)b * N;
-  const T* dstb = dst + (size_t)b * N;
 
   float acc[NB][4][8];
 #pragma unroll
@@ -211,22 +516,31 @@ aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[br][i][j] = 0.f;
 
-  for (int s0 = 0; s0 < N; s0 += kStep) {
+  // the per-graph pointers are formed from the parameters at their uses,
+  // and the step count is read from shared memory: registers the
+  // accumulators need
+  for (int js = 0; js < list[0]; ++js) {
+    const int s0 = list[1 + js] * kStep;
     for (int i = tid; i < kStep * kCols; i += kThreads) {
       const int k = i / kCols, c = i % kCols;
       const int s = s0 + k, col = h0 + c;
       const bool ok = s < N && col < H;
 #pragma unroll
       for (int br = 0; br < NB; ++br)
-        xs[br * kStep * kCols + i] = ok ? to_f(x[br][(size_t)s * H + col]) : 0.f;
+        xs[br * kStep * kCols + i] =
+            ok ? to_f(rows_of(x0, x1, br, b, N, H)[(size_t)s * H + col]) : 0.f;
     }
     for (int i = tid; i < kRows * kStep; i += kThreads) {
       // plain-T reads M's entry (s0 + k, r0 + rr): neighbouring threads take
       // neighbouring rows rr, i.e. neighbouring addresses of adj
       const int rr = M == kPlainT ? i % kRows : i / kStep;
       const int k = M == kPlainT ? i / kRows : i % kStep;
+      const float* dis[NB];
+#pragma unroll
+      for (int br = 0; br < NB; ++br) dis[br] = plane_of(stats, 2 * br, b, B, N);
       float nv[NB];
-      norm_of<T, M>(a, srcb, dstb, dis, r0 + rr, s0 + k, N, nv);
+      norm_of<T, M>(adj + (size_t)b * N * N, src + (size_t)b * N, dst + (size_t)b * N, dis,
+                    r0 + rr, s0 + k, N, nv);
 #pragma unroll
       for (int br = 0; br < NB; ++br) ns[(br * kRows + rr) * (kStep + 1) + k] = nv[br];
     }
@@ -263,7 +577,8 @@ aggregate_fma_kernel(const T* __restrict__ adj, const T* __restrict__ x0,
 #pragma unroll
       for (int br = 0; br < NB; ++br)
         rows_of(o0, o1, br, b, N, H)[at] = from_f<T>(__fadd_rn(
-            acc[br][i][j], __fmul_rn(to_f(x[br][at]), plane_of(stats, 2 * br + 1, b, B, N)[r])));
+            acc[br][i][j], __fmul_rn(to_f(rows_of(x0, x1, br, b, N, H)[at]),
+                                     plane_of(stats, 2 * br + 1, b, B, N)[r])));
     }
   }
 }
@@ -273,10 +588,6 @@ constexpr int kALd = kStep + 8;   // norm tile row pitch (bf16), 80 B: ldmatrix 
 constexpr int kBLd = kCols + 8;   // x tile row pitch (bf16), 272 B
 constexpr int kTLd = kRows + 8;   // plain-T's [sender][row] norm tile pitch (bf16), 144 B
 static_assert(kStep * kTLd <= kRows * kALd, "plain-T's norm tile fits the norm tile buffer");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -297,6 +608,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// aggregate_mma_kernel's dynamic shared memory: kFwdStages stages, each
+// the tiles of one live step as cp.async brings them (bytes: the adj tile,
+// NB x tiles, the senders' src as T and deg^-1/2 of each branch as f32),
+// then the live-step list (ints)
+constexpr int kFwdStages = 3;                      // steps in flight
+constexpr int kAdjTile = kRows * kStep;            // [row][sender], plain-T [sender][row]
+constexpr int kXTile = kStep * kBLd;               // [sender][column]
+template <int M>
+struct MmaSmem {
+  static constexpr int NB = Nb<M>::v;
+  static constexpr int kX = kAdjTile * 2;                // byte offsets in a stage
+  static constexpr int kSrc = kX + NB * kXTile * 2;
+  static constexpr int kDis = kSrc + kStep * 2;
+  static constexpr int kStage = kDis + NB * kStep * 4;
+  static_assert(kX % 16 == 0 && kSrc % 16 == 0 && kDis % 16 == 0 && kStage % 16 == 0,
+                "16-byte copies");
+  __host__ __device__ static size_t bytes(int N) {
+    return (size_t)kFwdStages * kStage + (steps_of(N) + 1) * sizeof(int);
+  }
+};
+
 template <int M>
 __global__ void __launch_bounds__(kThreads, 2)
 aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
@@ -304,14 +636,17 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
                      const __nv_bfloat16* __restrict__ x1,
                      const __nv_bfloat16* __restrict__ src,
                      const __nv_bfloat16* __restrict__ dst,
-                     const float* __restrict__ stats, __nv_bfloat16* __restrict__ o0,
-                     __nv_bfloat16* __restrict__ o1, int B, int N, int H) {
+                     const float* __restrict__ stats, const unsigned char* __restrict__ live,
+                     __nv_bfloat16* __restrict__ o0, __nv_bfloat16* __restrict__ o1, int B,
+                     int N, int H) {
   using bf16 = __nv_bfloat16;
+  using S = MmaSmem<M>;
   constexpr int NB = Nb<M>::v;
   constexpr bool kLogits = M != kPlain && M != kPlainT;
-  extern __shared__ float fs[];                          // per sender: src, dis of each branch
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  int* list = reinterpret_cast<int*>(mma_smem + kFwdStages * S::kStage);
   __shared__ __align__(16) bf16 As[NB][kRows * kALd];   // norm tiles [row][sender]
-  __shared__ __align__(16) bf16 Bs[NB][kStep * kBLd];   // x tiles [sender][column]
+  __shared__ float rowf[1 + NB][kRows];   // the block's rows: dst, deg^-1/2 of each branch
 
   const int r0 = blockIdx.x * kRows;
   const int b = blockIdx.y;
@@ -319,110 +654,112 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;   // warp owns rows wm*32.., columns wn*32..
 
-  // the output planes and 1/deg are formed in the epilogue only (registers)
-  const bf16* xb[NB];
-  const float* dis[NB];
-#pragma unroll
-  for (int br = 0; br < NB; ++br) {
-    xb[br] = rows_of(x0, x1, br, b, N, H);
-    dis[br] = plane_of(stats, 2 * br, b, B, N);
+  const int nk = live_steps(list, steps_of(N),
+                            [&](int j) { return step_live<M>(live, b, N, r0, j); });
+  if (nk == 0) {
+    self_term<bf16, NB>(x0, x1, stats, o0, o1, b, B, N, H, r0, h0);
+    return;
   }
+  const int* step_of = list + 1;
   const bf16* a = adj + (size_t)b * N * N;
-  const bf16* srcb = src + (size_t)b * N;
-  const bf16* dstb = dst + (size_t)b * N;
-  const bool vec_x =
-      H % 8 == 0 && ((reinterpret_cast<uintptr_t>(x0) |
-                      reinterpret_cast<uintptr_t>(NB == 2 ? x1 : x0)) % 16) == 0;
-  const bool vec_a = N % 8 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0;
-  const bf16 zero = __float2bfloat16(0.f);
+  const bool vec_x = H % 8 == 0 && aligned16(x0) && (NB == 1 || aligned16(x1));
+  const bool vec_a = N % 8 == 0 && aligned16(adj);
+  const bool vec_s = N % 8 == 0 && aligned16(src), vec_d = N % 4 == 0 && aligned16(stats);
+  auto stage_of = [&](int js) { return mma_smem + (js % kFwdStages) * S::kStage; };
 
-  for (int i = tid; i < N; i += kThreads) {
-    if constexpr (kLogits) fs[i] = to_f(srcb[i]);
-#pragma unroll
-    for (int br = 0; br < NB; ++br) fs[(1 + br) * N + i] = dis[br][i];
-  }
-  // each thread builds 8 senders of one row of the norm tiles; plain-T: 8
-  // rows (receivers) of one sender, read along the sender's adjacency row
-  // (16-byte loads) into a [sender][row] tile that ldmatrix.trans feeds
-  const int rr = tid / 4, g = tid % 4, r = r0 + rr;
-  const int ts = tid / (kRows / 8), tc = (tid % (kRows / 8)) * 8;   // plain-T
-  const bool row_ok = r < N;
-  const float dst_r = kLogits && row_ok ? to_f(dstb[r]) : 0.f;
-  float dis_r[NB];
-#pragma unroll
-  for (int br = 0; br < NB; ++br) dis_r[br] = row_ok ? dis[br][r] : 0.f;
-
-  // the next step's adjacency and x chunks travel in registers while the
-  // current step's products run
-  uint4 areg, xreg[2 * NB];
-  auto load = [&](int s0) {
+  // the tiles of the live step in slot js into its stage: 16 bytes a thread
+  // of adj (M's rows r0.. at senders s0.., or in plain-T M's rows s0.. at
+  // columns r0..), two of each x tile, and the senders' factors (0 past N)
+  auto issue = [&](int js) {
+    unsigned char* sb = stage_of(js);
+    bf16* st = reinterpret_cast<bf16*>(sb);
+    const int s0 = step_of[js] * kStep;
     if constexpr (M == kPlainT) {
-      const int s = s0 + ts, rc = r0 + tc;
-      if (s < N && vec_a && rc < N) {
-        areg = *reinterpret_cast<const uint4*>(a + (size_t)s * N + rc);
-      } else {
-        alignas(16) bf16 t[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) t[j] = (s < N && rc + j < N) ? a[(size_t)s * N + rc + j] : zero;
-        areg = *reinterpret_cast<const uint4*>(t);
-      }
+      const int i = tid / (kRows / 8), j = (tid % (kRows / 8)) * 8, s = s0 + i;
+      copy16(st + i * kRows + j, s < N ? a + (size_t)s * N : a, r0 + j, s < N ? N : 0, vec_a);
     } else {
-      const int s = s0 + g * 8;
-      if (row_ok && vec_a && s < N) {
-        areg = *reinterpret_cast<const uint4*>(a + (size_t)r * N + s);
-      } else {
-        alignas(16) bf16 t[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) t[j] = (row_ok && s + j < N) ? a[(size_t)r * N + s + j] : zero;
-        areg = *reinterpret_cast<const uint4*>(t);
-      }
+      const int i = tid / (kStep / 8), j = (tid % (kStep / 8)) * 8, r = r0 + i;
+      copy16(st + i * kStep + j, r < N ? a + (size_t)r * N : a, s0 + j, r < N ? N : 0, vec_a);
     }
 #pragma unroll
-    for (int j = 0; j < 2 * NB; ++j) {
-      const int idx = tid + (j % 2) * kThreads;
-      const int k = idx / (kCols / 8), c = (idx % (kCols / 8)) * 8;
-      const int sk = s0 + k, col = h0 + c;
-      const bf16* xp = xb[j / 2] + (size_t)sk * H + col;
-      if (vec_x && sk < N && col + 8 <= H) {
-        xreg[j] = *reinterpret_cast<const uint4*>(xp);
-      } else {
-        alignas(16) bf16 t[8];
+    for (int br = 0; br < NB; ++br) {
+      const bf16* xb = rows_of(x0, x1, br, b, N, H);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) t[q] = (sk < N && col + q < H) ? xp[q] : zero;
-        xreg[j] = *reinterpret_cast<const uint4*>(t);
+      for (int h = 0; h < 2; ++h) {
+        const int idx = tid + h * kThreads;
+        const int k = idx / (kCols / 8), c = (idx % (kCols / 8)) * 8, sk = s0 + k;
+        copy16(st + kAdjTile + br * kXTile + k * kBLd + c, sk < N ? xb + (size_t)sk * H : xb,
+               h0 + c, sk < N ? H : 0, vec_x);
       }
+    }
+    if (kLogits && tid < kStep / 8) {
+      copy16(reinterpret_cast<bf16*>(sb + S::kSrc) + tid * 8, src + (size_t)b * N, s0 + tid * 8,
+             N, vec_s);
+    } else if (tid >= kStep / 8 && tid < kStep / 8 + NB * kStep / 4) {
+      const int q = tid - kStep / 8, br = q / (kStep / 4), c = (q % (kStep / 4)) * 4;
+      copy16(reinterpret_cast<float*>(sb + S::kDis) + br * kStep + c,
+             plane_of(stats, 2 * br, b, B, N), s0 + c, N, vec_d);
     }
   };
-  auto store = [&](int s0) {
-    const bf16* av = reinterpret_cast<const bf16*>(&areg);
+  // start the first live steps' copies, then stage the block's rows'
+  // factors meanwhile (0 past N)
+#pragma unroll
+  for (int js = 0; js < kFwdStages - 1; ++js) {
+    if (js < nk) issue(js);
+    cp_async_commit();
+  }
+  for (int i = tid; i < kRows; i += kThreads) {
+    const bool ok = r0 + i < N;
+    if constexpr (kLogits) rowf[0][i] = ok ? to_f(dst[(size_t)b * N + r0 + i]) : 0.f;
+#pragma unroll
+    for (int br = 0; br < NB; ++br)
+      rowf[1 + br][i] = ok ? plane_of(stats, 2 * br, b, B, N)[r0 + i] : 0.f;
+  }
+
+  // the norm tiles of the step in slot js from its adjacency tile: each
+  // thread 8 senders of one row (plain-T: 8 rows of one sender, into the
+  // [sender][row] tile that ldmatrix.trans feeds)
+  auto build = [&](int js) {
+    const unsigned char* sb = stage_of(js);
+    const bf16* st = reinterpret_cast<const bf16*>(sb);
+    const bf16* ssrc = reinterpret_cast<const bf16*>(sb + S::kSrc);      // [kStep]
+    const float* sdis = reinterpret_cast<const float*>(sb + S::kDis);   // [NB][kStep]
+    const int s0 = step_of[js] * kStep;
     alignas(16) bf16 n8[NB][8];
     if constexpr (M == kPlainT) {
       // entry (sender s, receiver rc) of M: (m * dis_rc) * dis_s, rc being
       // M's sender
-      const int s = s0 + ts;
-      const float dis_s = s < N ? fs[N + s] : 0.f;
+      const int ts = tid / (kRows / 8), tc = (tid % (kRows / 8)) * 8, s = s0 + ts;
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + ts * kRows + tc);
+      const bf16* av = reinterpret_cast<const bf16*>(&raw);
+      const float dis_s = sdis[ts];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int rc = r0 + tc + j;
         const float nv = s < N && rc < N && s != rc
-                             ? __fmul_rn(__fmul_rn(__bfloat162float(av[j]), fs[N + rc]), dis_s)
+                             ? __fmul_rn(__fmul_rn(__bfloat162float(av[j]), rowf[1][tc + j]),
+                                         dis_s)
                              : 0.f;
         n8[0][j] = __float2bfloat16(nv);
       }
       *reinterpret_cast<uint4*>(&As[0][ts * kTLd + tc]) = *reinterpret_cast<const uint4*>(n8[0]);
     } else {
+      const int rr = tid / 4, g = tid % 4, r = r0 + rr;
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + rr * kStep + g * 8);
+      const bf16* av = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int s = s0 + g * 8 + j;
+        const int k = g * 8 + j, s = s0 + k;
         float nv[NB];
 #pragma unroll
         for (int br = 0; br < NB; ++br) nv[br] = 0.f;
-        if (row_ok && s < N && s != r) {
+        const float cnt = __bfloat162float(av[j]);
+        if (r < N && s < N && s != r && cnt != 0.f) {   // a zero count: +0, no sigmoid
           float m[NB];
-          weigh<M>(__bfloat162float(av[j]), kLogits ? sigmoid(fs[s] + dst_r) : 0.f, m);
+          weigh<M>(cnt, kLogits ? sigmoid(__bfloat162float(ssrc[k]) + rowf[0][rr]) : 0.f, m);
 #pragma unroll
           for (int br = 0; br < NB; ++br)   // (m * dis_sender) * dis_receiver
-            nv[br] = __fmul_rn(__fmul_rn(m[br], fs[(1 + br) * N + s]), dis_r[br]);
+            nv[br] = __fmul_rn(__fmul_rn(m[br], sdis[br * kStep + k]), rowf[1 + br][rr]);
         }
 #pragma unroll
         for (int br = 0; br < NB; ++br) n8[br][j] = __float2bfloat16(nv[br]);
@@ -431,12 +768,6 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
       for (int br = 0; br < NB; ++br)
         *reinterpret_cast<uint4*>(&As[br][rr * kALd + g * 8]) =
             *reinterpret_cast<const uint4*>(n8[br]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2 * NB; ++j) {
-      const int idx = tid + (j % 2) * kThreads;
-      const int k = idx / (kCols / 8), c = (idx % (kCols / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Bs[j / 2][k * kBLd + c]) = xreg[j];
     }
   };
 
@@ -450,12 +781,15 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
 #pragma unroll
         for (int f = 0; f < 4; ++f) acc[br][mt][nt][f] = 0.f;
 
-  load(0);
-  __syncthreads();   // sender factors staged
-  for (int s0 = 0; s0 < N; s0 += kStep) {
-    store(s0);
+  static_assert(kFwdStages >= 2, "a step's copies are in flight while another is multiplied");
+  for (int js = 0; js < nk; ++js) {
+    cp_async_wait<kFwdStages - 2>();
+    __syncthreads();   // step js staged (rows' factors too); every warp done with step js - 1
+    if (js + kFwdStages - 1 < nk) issue(js + kFwdStages - 1);
+    cp_async_commit();
+    build(js);
     __syncthreads();
-    if (s0 + kStep < N) load(s0 + kStep);
+    const bf16* xs = reinterpret_cast<const bf16*>(stage_of(js)) + kAdjTile;
 #pragma unroll
     for (int kk = 0; kk < kStep; kk += 16) {
 #pragma unroll
@@ -472,8 +806,8 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           unsigned t[4];
-          ldsm_x4_trans(t, &Bs[br][(kk + lane % 8 + ((lane / 8) % 2) * 8) * kBLd +
-                                   wn * 32 + np * 16 + (lane / 16) * 8]);
+          ldsm_x4_trans(t, xs + br * kXTile + (kk + lane % 8 + ((lane / 8) % 2) * 8) * kBLd +
+                               wn * 32 + np * 16 + (lane / 16) * 8);
           bfr[np * 2][0] = t[0];
           bfr[np * 2][1] = t[1];
           bfr[np * 2 + 1][0] = t[2];
@@ -485,12 +819,13 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
           for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[br][mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int br = 0; br < NB; ++br) {
     const float* inv = plane_of(stats, 2 * br + 1, b, B, N);
+    const bf16* xb = rows_of(x0, x1, br, b, N, H);
     bf16* out = rows_of(o0, o1, br, b, N, H);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -502,22 +837,10 @@ aggregate_mma_kernel(const __nv_bfloat16* __restrict__ adj,
           const int col = h0 + wn * 32 + nt * 8 + (lane % 4) * 2 + f % 2;
           if (r >= N || col >= H) continue;
           const size_t at = (size_t)r * H + col;
-          const float xv = __bfloat162float(xb[br][at]);
+          const float xv = __bfloat162float(xb[at]);
           out[at] = __float2bfloat16(__fadd_rn(acc[br][mt][nt][f], __fmul_rn(xv, inv[r])));
         }
   }
-}
-
-template <typename T, int M>
-int launch_degree(const void* adj, const void* src, const void* dst, float* stats,
-                  int B, int N, cudaStream_t stream) {
-  // plain-T's degree is plain's: M's column sums
-  constexpr int MD = M == kPlainT ? kPlain : M;
-  dim3 grid((N + kDegCols - 1) / kDegCols, B);
-  degree_kernel<T, MD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(adj), static_cast<const T*>(src), static_cast<const T*>(dst),
-      stats, B, N);
-  return (int)cudaGetLastError();
 }
 
 // Raise kernel fn's dynamic shared memory cap on the current device to
@@ -539,14 +862,51 @@ cudaError_t raise_smem(const void* fn, std::atomic<int>* cap, size_t bytes) {
   return e;
 }
 
+// The degree pass, on one of two kernels with one result (the same
+// statistics bit for bit and the same live map; neither forms a sigmoid
+// where a count is 0): 16 bytes a lane (degree_wide_kernel) where 32 lanes'
+// columns of a graph a block still give every SM four blocks, else a column
+// a lane (degree_col_kernel, 32 columns a block), which keeps more blocks in
+// flight.  Measured (H100, chip_smoke.py --rows): at B = 128, N = 3,840 the
+// wide pass (1,920 blocks in bf16) reads adj at ~3.1 TB/s; at B = 128, N =
+// 256 (128 wide blocks in bf16) the column pass (1,024 blocks) was the
+// fastest of the lane widths tried.
+template <typename T, int M>
+int launch_degree(const void* adj, const void* src, const void* dst, float* stats,
+                  unsigned char* live, int B, int N, cudaStream_t stream) {
+  // plain-T's degree and live map are plain's: M's column sums and cells
+  constexpr int MD = M == kPlainT ? kPlain : M;
+  constexpr int kWideCols = 32 * 16 / (int)sizeof(T);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool wide = (long long)B * ((N + kWideCols - 1) / kWideCols) >= 4LL * sms;
+  const T *a = static_cast<const T*>(adj), *s = static_cast<const T*>(src),
+          *d = static_cast<const T*>(dst);
+  if (!wide) {   // the strip flags: live_strips(N) bytes, far below the default limit
+    degree_col_kernel<T, MD><<<dim3((N + 31) / 32, B), kThreads, live_strips(N), stream>>>(
+        a, s, d, stats, live, B, N);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = live_strips(N) * sizeof(unsigned);   // the strip bits
+  static std::atomic<int> cap[kMaxDevices];
+  e = raise_smem((const void*)degree_wide_kernel<T, MD>, cap, smem);
+  if (e != cudaSuccess) return (int)e;
+  degree_wide_kernel<T, MD><<<dim3((N + kWideCols - 1) / kWideCols, B), kThreads, smem,
+                              stream>>>(a, s, d, stats, live, B, N);
+  return (int)cudaGetLastError();
+}
+
 template <int M>
 int launch_fwd_f32(const void* adj, const void* x0, const void* x1, const void* src,
-                   const void* dst, void* o0, void* o1, float* stats, int B, int N, int H,
-                   cudaStream_t stream) {
+                   const void* dst, void* o0, void* o1, float* stats, unsigned char* live,
+                   int B, int N, int H, cudaStream_t stream) {
   constexpr int NB = Nb<M>::v;
-  int err = launch_degree<float, M>(adj, src, dst, stats, B, N, stream);
+  int err = launch_degree<float, M>(adj, src, dst, stats, live, B, N, stream);
   if (err != 0) return err;
-  const size_t smem = NB * (kStep * kCols + kRows * (kStep + 1)) * sizeof(float);
+  const size_t smem = NB * (kStep * kCols + kRows * (kStep + 1)) * sizeof(float) +
+                      (steps_of(N) + 1) * sizeof(int);
   static std::atomic<int> cap[kMaxDevices];
   cudaError_t e = raise_smem((const void*)aggregate_fma_kernel<float, M>, cap, smem);
   if (e != cudaSuccess) return (int)e;
@@ -554,20 +914,19 @@ int launch_fwd_f32(const void* adj, const void* x0, const void* x1, const void* 
   aggregate_fma_kernel<float, M><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(adj), static_cast<const float*>(x0),
       static_cast<const float*>(x1), static_cast<const float*>(src),
-      static_cast<const float*>(dst), stats, static_cast<float*>(o0),
+      static_cast<const float*>(dst), stats, live, static_cast<float*>(o0),
       static_cast<float*>(o1), B, N, H);
   return (int)cudaGetLastError();
 }
 
 template <int M>
 int launch_fwd_bf16(const void* adj, const void* x0, const void* x1, const void* src,
-                    const void* dst, void* o0, void* o1, float* stats, int B, int N, int H,
-                    cudaStream_t stream) {
+                    const void* dst, void* o0, void* o1, float* stats, unsigned char* live,
+                    int B, int N, int H, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  constexpr int NB = Nb<M>::v;
-  int err = launch_degree<bf16, M>(adj, src, dst, stats, B, N, stream);
+  int err = launch_degree<bf16, M>(adj, src, dst, stats, live, B, N, stream);
   if (err != 0) return err;
-  const size_t smem = (1 + NB) * (size_t)N * sizeof(float);
+  const size_t smem = MmaSmem<M>::bytes(N);
   static std::atomic<int> cap[kMaxDevices];
   cudaError_t e = raise_smem((const void*)aggregate_mma_kernel<M>, cap, smem);
   if (e != cudaSuccess) return (int)e;
@@ -575,17 +934,19 @@ int launch_fwd_bf16(const void* adj, const void* x0, const void* x1, const void*
   aggregate_mma_kernel<M><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(adj), static_cast<const bf16*>(x0),
       static_cast<const bf16*>(x1), static_cast<const bf16*>(src),
-      static_cast<const bf16*>(dst), stats, static_cast<bf16*>(o0),
+      static_cast<const bf16*>(dst), stats, live, static_cast<bf16*>(o0),
       static_cast<bf16*>(o1), B, N, H);
   return (int)cudaGetLastError();
 }
 
 template <int M>
 int launch_fwd(int dtype, const void* adj, const void* x0, const void* x1, const void* src,
-               const void* dst, void* o0, void* o1, float* stats, int B, int N, int H,
-               cudaStream_t stream) {
-  if (dtype == 0) return launch_fwd_f32<M>(adj, x0, x1, src, dst, o0, o1, stats, B, N, H, stream);
-  if (dtype == 1) return launch_fwd_bf16<M>(adj, x0, x1, src, dst, o0, o1, stats, B, N, H, stream);
+               const void* dst, void* o0, void* o1, float* stats, unsigned char* live, int B,
+               int N, int H, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_fwd_f32<M>(adj, x0, x1, src, dst, o0, o1, stats, live, B, N, H, stream);
+  if (dtype == 1)
+    return launch_fwd_bf16<M>(adj, x0, x1, src, dst, o0, o1, stats, live, B, N, H, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -617,13 +978,13 @@ int launch_fwd(int dtype, const void* adj, const void* x0, const void* x1, const
 // Design: t_s needs the whole column product p_s and row product u_s, and
 // dsrc needs column sums over every receiver, so the work is split into
 // passes (the TPU kernel holds a whole [N, N] graph in VMEM instead):
-//   1. the forward's degree pass (deg^-1/2 and 1/deg of each branch), unless
-//      the caller hands over the forward's own statistics;
+//   1. the forward's degree pass (deg^-1/2 and 1/deg of each branch, and the
+//      live map: a byte per 64 x 32 cell of adj, 1 where an edge other than
+//      a self loop lies; a padded batch is mostly empty cells), unless the
+//      caller hands over the forward's own statistics and live map;
 //   2. a scale pass, one warp per node: T(dis x) and T(dis g) of each branch
 //      into a T scratch with 16-byte aligned rows, and g_n . x_n;
-//   3. a live-map pass: a byte per 64 x 32 cell of adj, 1 where an edge
-//      other than a self loop lies (a padded batch is mostly empty cells);
-//   4. a node pass, one block per 64 nodes of a graph in one of two roles:
+//   3. a node pass, one block per 64 nodes of a graph in one of two roles:
 //      receivers (u = m T(dis x), along its rows of adj) or senders (p = m^T
 //      T(dis g), down its columns; writes dx), over the live steps of 64
 //      (f32: 32) neighbours only.  A step's m tile of every branch is built
@@ -631,11 +992,11 @@ int launch_fwd(int dtype, const void* adj, const void* x0, const void* x1, const
 //      shared memory, one step ahead of the products that multiply it by the
 //      staged T(dis x) / T(dis g) rows; g.u or p.x go to an f32 [3 branches,
 //      B, N] scratch with g.x;
-//   5. an edge pass, one block per 128 x 128 (receiver, sender) tile: G of
+//   4. an edge pass, one block per 128 x 128 (receiver, sender) tile: G of
 //      each branch, then dm and dpre straight from the accumulators, row and
 //      column sums by warp shuffles and shared memory into f32 partial
 //      planes; a tile without an edge writes zeros and reads nothing else;
-//   6. a finalize pass summing the partial planes and casting once.
+//   5. a finalize pass summing the partial planes and casting once.
 // bf16 runs all six products on the tensor cores (mma.sync m16n8k16, bf16 in,
 // f32 accumulate: the contract's rounding), each warp owning a 32 x 32 tile
 // of every branch; the sender role feeds m^T by ldmatrix.trans.  f32 keeps
@@ -663,41 +1024,6 @@ __host__ __device__ __forceinline__ int n_tiles(int N) {
 
 // rows of the scaled scratch: H rounded up to 8 elements (16 bytes of bf16)
 __host__ __device__ __forceinline__ int padded_cols(int H) { return (H + 7) / 8 * 8; }
-
-__device__ __forceinline__ void cp_async16(void* s, const void* g, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(s)), "l"(g), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most `pending` committed groups are still in flight
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
-}
-
-// 16 bytes of a row into shared memory: columns [col, col + 16 / sizeof(T))
-// of `row`, zero from column `valid` on (valid = 0 for a row past the graph,
-// whose `row` is any readable address).  One cp.async when rows are 16-byte
-// aligned and `valid` is a multiple of the chunk (vec), element by element
-// otherwise.
-template <typename T>
-__device__ __forceinline__ void copy16(T* s, const T* row, int col, int valid, bool vec) {
-  constexpr int V = 16 / sizeof(T);
-  if (vec) {
-    const bool in = col < valid;
-    cp_async16(s, in ? row + col : row, in ? 16 : 0);
-  } else {
-#pragma unroll
-    for (int q = 0; q < V; ++q) s[q] = col + q < valid ? row[col + q] : from_f<T>(0.f);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ bool aligned16(const T* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
 
 // 8 consecutive elements of shared memory as f32, and 8 values stored as T
 // (16-byte aligned)
@@ -798,15 +1124,13 @@ __device__ __forceinline__ void warp_mma16(float (&acc)[2][4][4], const float* a
 
 // scratch (f32 words): stats [2 NB, B, N] | dots [3 NB, B, N] (g.u, p.x, g.x
 // of each branch) | part_src, part_dst [B, tiles, N] | xd, gd [NB, B, N, HP]
-// of T (T(dis x), T(dis g)) | live: the live map, a byte per 64 x 32 cell
-// of adj, [B, node_blocks(N), live_cols(N)]; each 64-word aligned
+// of T (T(dis x), T(dis g)) | live: the live map [B, live_strips(N),
+// live_cols(N)] bytes; each 64-word aligned
 struct BwdScratch {
   size_t dots, part_src, part_dst, xd, gd, live, total;
 };
 
-__host__ __device__ __forceinline__ int node_blocks(int N) { return (N + kBwdRows - 1) / kBwdRows; }
-// column groups of the live map: 32 wide, the narrowest node step
-__host__ __device__ __forceinline__ int live_cols(int N) { return (N + 31) / 32; }
+static_assert(kBwdRows == kLiveRows, "a node block is one strip of the live map");
 
 __host__ __forceinline__ size_t round64(size_t v) { return (v + 63) / 64 * 64; }
 
@@ -820,7 +1144,7 @@ inline BwdScratch bwd_scratch(int B, int N, int H, int elt, int NB) {
   const size_t scaled = round64((NB * plane * padded_cols(H) * elt + 3) / 4);
   s.gd = s.xd + scaled;
   s.live = s.gd + scaled;
-  s.total = s.live + round64(((size_t)B * node_blocks(N) * live_cols(N) + 3) / 4);
+  s.total = s.live + round64(((size_t)B * live_strips(N) * live_cols(N) + 3) / 4);
   return s;
 }
 
@@ -857,52 +1181,6 @@ bwd_scale_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
   }
 }
 
-// pass 3, the live map: a byte per (64-row strip, 32-column group) of each
-// graph's adjacency, 1 where an edge other than a self loop lies; one block
-// per strip, 16-byte row reads
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_live_kernel(const T* __restrict__ adj, unsigned char* __restrict__ live, int N) {
-  constexpr int V = 16 / sizeof(T);
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  int* flag = reinterpret_cast<int*>(bwd_smem);   // [live_cols]
-  const int r0 = blockIdx.x * kBwdRows, b = blockIdx.y, cols = live_cols(N);
-  for (int i = threadIdx.x; i < cols; i += kThreads) flag[i] = 0;
-  __syncthreads();
-  const T* a = adj + (size_t)b * N * N;
-  const bool vec = N % V == 0 && aligned16(adj);
-  const int chunks = (N + V - 1) / V;   // per row
-  for (int c = threadIdx.x; c < kBwdRows * chunks; c += kThreads) {
-    const int r = r0 + c / chunks, s = (c % chunks) * V;
-    if (r >= N) break;
-    alignas(16) T v[V];
-    if (vec) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(a + (size_t)r * N + s);
-    } else {
-#pragma unroll
-      for (int q = 0; q < V; ++q) v[q] = s + q < N ? a[(size_t)r * N + s + q] : from_f<T>(0.f);
-    }
-    bool edge = false;
-#pragma unroll
-    for (int q = 0; q < V; ++q) edge = edge || (s + q != r && to_f(v[q]) != 0.f);
-    if (edge) flag[s / 32] = 1;   // a chunk lies in one group (32 % V == 0)
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cols; i += kThreads)
-    live[((size_t)b * node_blocks(N) + blockIdx.x) * cols + i] = flag[i];
-}
-
-// whether the live map has an edge in rows [r, r + rows) x columns [c, c + cs)
-// of graph b (rows and columns multiples of the map's 64 x 32 cells)
-__device__ __forceinline__ bool live_any(const unsigned char* live, int b, int N, int r,
-                                         int rows, int c, int cs) {
-  bool any = false;
-  for (int rb = r / kBwdRows; rb < node_blocks(N) && rb * kBwdRows < r + rows; ++rb)
-    for (int cb = c / 32; cb < live_cols(N) && cb * 32 < c + cs; ++cb)
-      any = any || live[((size_t)b * node_blocks(N) + rb) * live_cols(N) + cb];
-  return any;
-}
-
 // node pass shared memory (elements of T unless named): kStages stages of
 // [adj tile | NB right-operand tiles], two buffers of NB m tiles, then f32:
 // the reduction buffer, the block's own logits and the logits along the walk,
@@ -926,7 +1204,7 @@ struct NodeSmem {
   }
 };
 
-// pass 4, one role: ROLE 0 (receivers) u = m T(dis x) and g.u; ROLE 1
+// pass 3, one role: ROLE 0 (receivers) u = m T(dis x) and g.u; ROLE 1
 // (senders) p = m^T T(dis g), dx and p.x.  The block owns nodes n0.. and walks
 // the other end k of their edges in steps of K, over the feature columns in
 // chunks of kNodeCols; only the steps the live map marks are loaded and
@@ -949,7 +1227,7 @@ __device__ __forceinline__ void bwd_node_role(
   float* red = reinterpret_cast<float*>(mtile + 2 * NB * S::kM);
   float* lo = red + S::kRed;           // [node] dst of the receivers / src of the senders
   float* lg = lo + kBwdRows;           // [k] src of the senders / dst of the receivers
-  int* live_steps = reinterpret_cast<int*>(lg + S::steps(N) * K);   // [count | steps]
+  int* step_list = reinterpret_cast<int*>(lg + S::steps(N) * K);   // [count | steps]
 
   const int n0 = blockIdx.x * kBwdRows, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -964,27 +1242,13 @@ __device__ __forceinline__ void bwd_node_role(
   const T* own = (ROLE == 0 ? dst : src) + gN;
   for (int i = tid; i < S::steps(N) * K; i += kThreads) lg[i] = i < N ? to_f(walk[i]) : 0.f;
   for (int i = tid; i < kBwdRows; i += kThreads) lo[i] = n0 + i < N ? to_f(own[n0 + i]) : 0.f;
-  // the live steps, in order: a flag per step, then warp 0 compacts them in
-  // place (a chunk's flags are all read before any of its slots is written)
-  int* step_of = live_steps + 1;
-  for (int j = tid; j < S::steps(N); j += kThreads)
-    step_of[j] = ROLE == 0 ? live_any(live, b, N, n0, kBwdRows, j * K, K)
-                           : live_any(live, b, N, j * K, K, n0, kBwdRows);
-  __syncthreads();
-  if (warp == 0) {
-    int count = 0;
-    for (int j0 = 0; j0 < S::steps(N); j0 += 32) {
-      const bool f = j0 + lane < S::steps(N) && step_of[j0 + lane];
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      __syncwarp();
-      if (f) step_of[count + __popc(m & ((1u << lane) - 1))] = j0 + lane;
-      count += __popc(m);
-      __syncwarp();
-    }
-    if (lane == 0) live_steps[0] = count;
-  }
-  __syncthreads();
-  const int nk = live_steps[0], chunks = (HP + kNodeCols - 1) / kNodeCols, total = nk * chunks;
+  // the live steps, in order
+  const int* step_of = step_list + 1;
+  const int nk = live_steps(step_list, S::steps(N), [&](int j) {
+    return ROLE == 0 ? live_any(live, b, N, n0, kBwdRows, j * K, K)
+                     : live_any(live, b, N, j * K, K, n0, kBwdRows);
+  });
+  const int chunks = (HP + kNodeCols - 1) / kNodeCols, total = nk * chunks;
 
   const bool vec_a = N % V == 0 && aligned16(adj);
   auto load = [&](int it) {
@@ -1161,7 +1425,7 @@ __device__ __forceinline__ void bwd_node_role(
   }
 }
 
-// pass 4: blockIdx.z picks the role (0 receivers, 1 senders)
+// pass 3: blockIdx.z picks the role (0 receivers, 1 senders)
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
 bwd_node_kernel(const T* __restrict__ adj, const T* __restrict__ x0, const T* __restrict__ x1,
@@ -1196,7 +1460,7 @@ struct EdgeSmem {
   static constexpr size_t kBytes = (kAdj + kStages * kStage) * sizeof(T) + kVec * sizeof(float);
 };
 
-// pass 5
+// pass 4
 template <typename T, int M>
 __global__ void __launch_bounds__(kEdgeThreads)
 bwd_edge_kernel(const T* __restrict__ adj, const T* __restrict__ x0, const T* __restrict__ x1,
@@ -1406,19 +1670,22 @@ __global__ void bwd_finalize_kernel(const float* __restrict__ part_src,
 template <typename T, int M>
 int launch_bwd(const void* adj, const void* x0, const void* x1, const void* src,
                const void* dst, const void* g0, const void* g1, void* dx0, void* dx1,
-               void* dsrc, void* ddst, float* scratch, const float* fwd_stats, int B, int N,
-               int H, cudaStream_t stream) {
+               void* dsrc, void* ddst, float* scratch, const float* fwd_stats,
+               const unsigned char* fwd_live, int B, int N, int H, cudaStream_t stream) {
   constexpr int NB = Nb<M>::v;
   const BwdScratch sc = bwd_scratch(B, N, H, sizeof(T), NB);
+  if ((fwd_stats == nullptr) != (fwd_live == nullptr)) return (int)cudaErrorInvalidValue;
   const float* stats = fwd_stats != nullptr ? fwd_stats : scratch;
   float* dots = scratch + sc.dots;
   float* part_src = scratch + sc.part_src;
   float* part_dst = scratch + sc.part_dst;
   T* xd = reinterpret_cast<T*>(scratch + sc.xd);
   T* gd = reinterpret_cast<T*>(scratch + sc.gd);
-  unsigned char* live = reinterpret_cast<unsigned char*>(scratch + sc.live);
+  unsigned char* own_live = reinterpret_cast<unsigned char*>(scratch + sc.live);
+  const unsigned char* live = fwd_live != nullptr ? fwd_live : own_live;
   int err = 0;
-  if (fwd_stats == nullptr && (err = launch_degree<T, M>(adj, src, dst, scratch, B, N, stream)))
+  if (fwd_stats == nullptr &&
+      (err = launch_degree<T, M>(adj, src, dst, scratch, own_live, B, N, stream)))
     return err;
   const T *a = static_cast<const T*>(adj), *x0_ = static_cast<const T*>(x0),
           *x1_ = static_cast<const T*>(x1), *g0_ = static_cast<const T*>(g0),
@@ -1429,15 +1696,12 @@ int launch_bwd(const void* adj, const void* x0, const void* x1, const void* src,
   bwd_scale_kernel<T, M><<<(unsigned)((plane + warps - 1) / warps), kThreads, 0, stream>>>(
       x0_, x1_, g0_, g1_, stats, dots, xd, gd, B, N, H);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  bwd_live_kernel<T><<<dim3(node_blocks(N), B), kThreads, live_cols(N) * sizeof(int), stream>>>(
-      a, live, N);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
   const size_t node_smem = NodeSmem<T, NB>::bytes(N);
   cudaError_t e = cudaFuncSetAttribute(bwd_node_kernel<T, M>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)node_smem);
   if (e != cudaSuccess) return (int)e;
-  bwd_node_kernel<T, M><<<dim3(node_blocks(N), B, 2), kThreads, node_smem,
+  bwd_node_kernel<T, M><<<dim3(live_strips(N), B, 2), kThreads, node_smem,
                           stream>>>(a, x0_, x1_, g0_, g1_, s_, d_, stats, xd, gd,
                                     static_cast<T*>(dx0), static_cast<T*>(dx1), dots, live, B, N,
                                     H);
@@ -1459,13 +1723,14 @@ template <int M>
 int launch_bwd_typed(int dtype, const void* adj, const void* x0, const void* x1,
                      const void* src, const void* dst, const void* g0, const void* g1,
                      void* dx0, void* dx1, void* dsrc, void* ddst, float* scratch,
-                     const float* stats, int B, int N, int H, cudaStream_t s) {
+                     const float* stats, const unsigned char* live, int B, int N, int H,
+                     cudaStream_t s) {
   if (dtype == 0)
     return launch_bwd<float, M>(adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc, ddst, scratch,
-                                stats, B, N, H, s);
+                                stats, live, B, N, H, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16, M>(adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc, ddst,
-                                        scratch, stats, B, N, H, s);
+                                        scratch, stats, live, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1851,28 +2116,29 @@ extern "C" long long gcn_bwd_scratch_floats(int B, int N, int H, int dtype, int 
 // adj [B,N,N], x0/x1/g0/g1/dx0/dx1 [B,N,H], src/dst/dsrc/ddst [B,N].
 // mode: 0 dual (branches 0 and 1), 1 sigmoid, 2 1 - sigmoid (branch 0 only;
 // x1, g1, dx1 unread).  scratch: f32, gcn_bwd_scratch_floats(B, N, H, dtype,
-// mode) elements, 16-byte aligned.  stats: null, or the forward's f32 [2
-// branches, B, N] statistics of these inputs (gcn_fwd_launch's), which spare
-// the degree pass.
+// mode) elements, 16-byte aligned.  stats and live: both null, or the
+// forward's f32 [2 branches, B, N] statistics and live map of these inputs
+// (gcn_fwd_launch's), which spare the degree pass.
 extern "C" int gcn_bwd_launch(const void* adj, const void* x0, const void* x1,
                               const void* src, const void* dst, const void* g0,
                               const void* g1, void* dx0, void* dx1, void* dsrc, void* ddst,
-                              void* scratch, const void* stats, int B, int N, int H, int dtype,
-                              int mode, void* stream) {
+                              void* scratch, const void* stats, const void* live, int B, int N,
+                              int H, int dtype, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
   const float* st = static_cast<const float*>(stats);
+  const unsigned char* lv = static_cast<const unsigned char*>(live);
   if (B == 0 || N == 0) return 0;
   switch (mode) {
     case kDual:
       return launch_bwd_typed<kDual>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                     ddst, sc, st, B, N, H, s);
+                                     ddst, sc, st, lv, B, N, H, s);
     case kSig:
       return launch_bwd_typed<kSig>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                    ddst, sc, st, B, N, H, s);
+                                    ddst, sc, st, lv, B, N, H, s);
     case kNeg:
       return launch_bwd_typed<kNeg>(dtype, adj, x0, x1, src, dst, g0, g1, dx0, dx1, dsrc,
-                                    ddst, sc, st, B, N, H, s);
+                                    ddst, sc, st, lv, B, N, H, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1882,21 +2148,24 @@ extern "C" int gcn_bwd_launch(const void* adj, const void* x0, const void* x1,
 // adj [B,N,N], x0/x1/o0/o1 [B,N,H], src/dst [B,N].  mode: 0 dual (x0 -> o0
 // with sigmoid, x1 -> o1 with 1 - sigmoid), 1 sigmoid, 2 1 - sigmoid, 3 plain
 // (src, dst unread), 4 plain transposed; modes 1-4 read x0 and write o0 only.
-// stats: f32 scratch [4, B, N] (dual) or [2, B, N].
+// Writes stats, f32 [4, B, N] (dual) or [2, B, N], and live, the live map:
+// [B, ceil(N / 64), ceil(N / 32)] bytes.
 extern "C" int gcn_fwd_launch(const void* adj, const void* x0, const void* x1,
                               const void* src, const void* dst, void* o0, void* o1,
-                              void* stats, int B, int N, int H, int dtype, int mode,
+                              void* stats, void* live, int B, int N, int H, int dtype, int mode,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
+  unsigned char* lv = static_cast<unsigned char*>(live);
   if (B == 0 || N == 0 || H == 0) return 0;
   switch (mode) {
-    case kDual: return launch_fwd<kDual>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
-    case kSig: return launch_fwd<kSig>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
-    case kNeg: return launch_fwd<kNeg>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
-    case kPlain: return launch_fwd<kPlain>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
+    case kDual: return launch_fwd<kDual>(dtype, adj, x0, x1, src, dst, o0, o1, st, lv, B, N, H, s);
+    case kSig: return launch_fwd<kSig>(dtype, adj, x0, x1, src, dst, o0, o1, st, lv, B, N, H, s);
+    case kNeg: return launch_fwd<kNeg>(dtype, adj, x0, x1, src, dst, o0, o1, st, lv, B, N, H, s);
+    case kPlain:
+      return launch_fwd<kPlain>(dtype, adj, x0, x1, src, dst, o0, o1, st, lv, B, N, H, s);
     case kPlainT:
-      return launch_fwd<kPlainT>(dtype, adj, x0, x1, src, dst, o0, o1, st, B, N, H, s);
+      return launch_fwd<kPlainT>(dtype, adj, x0, x1, src, dst, o0, o1, st, lv, B, N, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,8 +16,8 @@ order (the caller zeroes dead and self-loop edges; no trailing pad row),
 ``torch.autograd.Function`` differentiable in x and coef (sparse GAT's
 aggregation, ``ops/gat.py::gat_aggregate_sparse_mh``).  ``segment_max``
 (row 14, cal_tpu's ``tile_scatter_max``) takes K value planes [K, E] in edge
-order, dead edges already -1e30, to [K, V] f32 receiver maxima initialised
-to -1e30; forward only.
+order to [K, V] f32 receiver maxima over every edge, initialised to -1e30
+(callers set dead edges to -1e30); forward only.
 
 Kernels in ``csrc/coo_spmm.cu`` (its header gives the design and the
 rounding points):
@@ -32,8 +32,9 @@ rounding points):
 * ``coo_spmm_mh`` (K19, ``_spmm_mh_call``), ``coo_spmm_mh_t`` (K19T, the same
   on ``tiles_bwd``) and ``coo_sddmm_mh`` (K20, ``_sddmm_mh_call``): K11, K11T
   and K12 per head, f32 [V, H] and [E, heads];
-* ``segment_max`` (K21, ``tile_scatter_max``): one owner per receiver over
-  the receiver CSR, no float atomics.
+* ``segment_max`` (K21, ``tile_scatter_max``): one launch over the receiver
+  CSR (light rows by row, heavy rows by chunk), one owner per receiver, no
+  float atomics.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain twin ``*_plain``, which rounds at the same points: x and g
@@ -114,7 +115,7 @@ def _lib():
         lib.coo_spmm_launch.restype = ctypes.c_int
         lib.coo_sddmm_launch.argtypes = [vp, i, vp, i, i] + [vp] * 4 + [i, i, vp, vp]
         lib.coo_sddmm_launch.restype = ctypes.c_int
-        lib.segment_max_launch.argtypes = [vp, i, i, vp, vp, vp, i, i, vp, vp, vp]
+        lib.segment_max_launch.argtypes = [vp, i, i] + [vp] * 5 + [i, vp] + [i, vp, vp, vp]
         lib.segment_max_launch.restype = ctypes.c_int
     return lib
 
@@ -300,8 +301,9 @@ def coo_spmm_mh(x, coef, g: GraphBatch, heads: int) -> torch.Tensor:
 # ---- row 14: per-receiver max (K21) ---------------------------------------
 def segment_max(vals, g: GraphBatch) -> torch.Tensor:
     """K21: [K, V] f32 per-receiver maxima of vals [K, E] f32 in edge order
-    (dead edges already -1e30), initialised to -1e30 (counterpart of
-    ``tile_scatter_max``).  ``.launches`` counts kernel launches."""
+    over every edge (callers set dead edges to -1e30), initialised to -1e30
+    (counterpart of ``tile_scatter_max``).  ``.launches`` counts kernel
+    launches."""
     what = "segment_max"
     e = g.senders.shape[0]
     if vals.dim() != 2 or vals.shape[1] != e or vals.dtype != torch.float32:
@@ -316,11 +318,9 @@ def segment_max(vals, g: GraphBatch) -> torch.Tensor:
     vals = vals.contiguous()
     k, v = vals.shape[0], g.num_nodes
     out = torch.empty((k, v), dtype=torch.float32, device=device)
-    partial = torch.empty((g.recv.num_chunks, k), dtype=torch.float32, device=device)
-    err = _lib().segment_max_launch(
-        vals.data_ptr(), e, k, g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(),
-        g.recv.chunk_row.data_ptr(), g.recv.num_chunks, v, out.data_ptr(),
-        partial.data_ptr(), _stream(device))
+    partial = torch.empty((g.recv.heavy_chunks.shape[0], k), dtype=torch.float32, device=device)
+    err = _lib().segment_max_launch(vals.data_ptr(), e, k, *_walk_csr(g.recv), v, out.data_ptr(),
+                                    partial.data_ptr(), _stream(device))
     build.check(err, what)
     segment_max.launches += 1
     return out

@@ -18,7 +18,10 @@ count):
   adjacency once (``plain_cluster_size``), else in two passes.
 
 All run modes of the kernels in ``csrc/fused_gcn.cu`` on CUDA tensors and their
-plain twins on CPU tensors.  The twins reproduce the TPU kernels' rounding: the
+plain twins on CPU tensors.  A forward kernel also writes the degree
+statistics and the live map (``live_shape``: which 64 x 32 cells of adj hold
+an edge); the weighted convs' Functions hand both to their backward, which
+then reads adj only in the live cells.  The twins reproduce the TPU kernels' rounding: the
 weighted adjacency m is built in f32 and cast to the compute dtype before a
 product, ``x * dis`` and ``g * dis`` are formed in f32 and cast, every product
 accumulates in f32, the remaining terms stay f32, and each result is cast
@@ -176,9 +179,9 @@ def _lib():
     lib = build.load("fused_gcn")
     if lib.gcn_fwd_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gcn_fwd_launch.argtypes = [vp] * 8 + [i, i, i, i, i, vp]
+        lib.gcn_fwd_launch.argtypes = [vp] * 9 + [i, i, i, i, i, vp]
         lib.gcn_fwd_launch.restype = ctypes.c_int
-        lib.gcn_bwd_launch.argtypes = [vp] * 13 + [i, i, i, i, i, vp]
+        lib.gcn_bwd_launch.argtypes = [vp] * 14 + [i, i, i, i, i, vp]
         lib.gcn_bwd_launch.restype = ctypes.c_int
         lib.gcn_bwd_scratch_floats.argtypes = [i] * 5
         lib.gcn_bwd_scratch_floats.restype = ctypes.c_longlong
@@ -193,26 +196,57 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+LIVE_ROWS, LIVE_COLS = 64, 32   # the live map's cell: a strip of rows x a group of columns
+
+
+def live_shape(bsz, n):
+    """Shape of the live map of a [B, N, N] adjacency: a byte per (64-row
+    strip, 32-column group) of each graph, 1 where an edge other than a self
+    loop lies."""
+    return bsz, -(-n // LIVE_ROWS), -(-n // LIVE_COLS)
+
+
 def _fwd_launch(what, mode, xs, adj, src=None, dst=None):
     """Launch the forward kernel in ``mode`` on contiguous CUDA tensors:
     (one output per feature tensor in ``xs``, the degree statistics
-    [2 * len(xs), B, N] f32: deg^-1/2 and 1/deg of each branch)."""
+    [2 * len(xs), B, N] f32: deg^-1/2 and 1/deg of each branch, the live map
+    ``live_shape(B, N)`` uint8)."""
     bsz, n, h = xs[0].shape
     outs = [torch.empty_like(x) for x in xs]
     stats = torch.empty((2 * len(xs), bsz, n), dtype=torch.float32, device=adj.device)
+    live = torch.empty(live_shape(bsz, n), dtype=torch.uint8, device=adj.device)
     x1, o1 = (xs[1], outs[1]) if len(xs) == 2 else (None, None)
     err = _lib().gcn_fwd_launch(
         adj.data_ptr(), xs[0].data_ptr(), _ptr(x1), _ptr(src), _ptr(dst), outs[0].data_ptr(),
-        _ptr(o1), stats.data_ptr(), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
-        torch.cuda.current_stream(adj.device).cuda_stream)
+        _ptr(o1), stats.data_ptr(), live.data_ptr(), bsz, n, h, _DTYPES[adj.dtype],
+        _MODES[mode], torch.cuda.current_stream(adj.device).cuda_stream)
     build.check(err, what)
-    return outs, stats
+    return outs, stats, live
 
 
-def _bwd_launch(what, mode, xs, gs, adj, src, dst, stats=None):
+def _check_handed(what, stats, live, branches, x):
+    """The forward's degree statistics and live map, handed to a backward on
+    x's device: both or neither, each of the forward's shape."""
+    if stats is None and live is None:
+        return
+    bsz, n, _ = x.shape
+    if stats is None or live is None:
+        raise ValueError(f"{what}: stats and live come together, from one forward call")
+    if (stats.shape != (2 * branches, bsz, n) or stats.dtype != torch.float32
+            or stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError(f"{what}: stats must be the forward's contiguous "
+                         f"[{2 * branches}, B, N] float32 on {x.device}")
+    if (live.shape != live_shape(bsz, n) or live.dtype != torch.uint8
+            or live.device != x.device or not live.is_contiguous()):
+        raise ValueError(f"{what}: live must be the forward's contiguous "
+                         f"{list(live_shape(bsz, n))} uint8 on {x.device}")
+
+
+def _bwd_launch(what, mode, xs, gs, adj, src, dst, stats=None, live=None):
     """Launch the backward kernel in ``mode`` on contiguous CUDA tensors:
-    (dx per feature tensor, dsrc, ddst).  ``stats``: the forward's degree
-    statistics for these inputs, which spare the backward its degree pass."""
+    (dx per feature tensor, dsrc, ddst).  ``stats`` and ``live``: the
+    forward's degree statistics and live map for these inputs, which spare
+    the backward its degree pass."""
     bsz, n, h = xs[0].shape
     lib = _lib()
     dxs = [torch.empty_like(x) for x in xs]
@@ -224,7 +258,7 @@ def _bwd_launch(what, mode, xs, gs, adj, src, dst, stats=None):
         adj.data_ptr(), xs[0].data_ptr(), _ptr(xs[1] if two else None), src.data_ptr(),
         dst.data_ptr(), gs[0].data_ptr(), _ptr(gs[1] if two else None), dxs[0].data_ptr(),
         _ptr(dxs[1] if two else None), dsrc.data_ptr(), ddst.data_ptr(), scratch.data_ptr(),
-        _ptr(stats), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
+        _ptr(stats), _ptr(live), bsz, n, h, _DTYPES[adj.dtype], _MODES[mode],
         torch.cuda.current_stream(adj.device).cuda_stream)
     build.check(err, what)
     return dxs, dsrc, ddst
@@ -236,34 +270,34 @@ def _contig(*ts):
 
 def _dual_fwd(xc, xo, adj, src, dst):
     """Forward wrapper: the kernel on CUDA tensors, the plain twin on CPU
-    tensors (no autograd).  Returns ((oc, oo), the degree statistics for the
-    backward, None on the CPU)."""
+    tensors (no autograd).  Returns ((oc, oo), the degree statistics and the
+    live map for the backward, both None on the CPU)."""
     _check("fused_gcn_dense_att_dual", (xc, xo), adj, (src, dst))
     if xc.device.type == "cpu":
-        return fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst), None
+        return fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst), None, None
     xc, xo, adj, src, dst = _contig(xc, xo, adj, src, dst)
-    (oc, oo), stats = _fwd_launch("fused_gcn_dense_att_dual", "dual", (xc, xo), adj, src, dst)
+    (oc, oo), stats, live = _fwd_launch("fused_gcn_dense_att_dual", "dual", (xc, xo), adj, src,
+                                        dst)
     fused_gcn_dense_att_dual.launches += 1
-    return (oc, oo), stats
+    return (oc, oo), stats, live
 
 
-def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats=None):
+def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats=None, live=None):
     """VJP of both masked convs: cotangents gc/go [B, N, H] of (oc, oo) ->
     (dxc, dxo, dsrc, ddst).  Launches the backward kernel on CUDA tensors,
     runs ``fused_gcn_dense_att_dual_bwd_plain`` on CPU tensors.  ``stats``
-    (CUDA only): the forward kernel's degree statistics for these inputs
-    ([4, B, N] f32, which ``fused_gcn_dense_att_dual`` keeps for its
-    backward), sparing the kernel its degree pass; the same numbers."""
-    _check("fused_gcn_dense_att_dual_bwd", (xc, xo, gc, go), adj, (src, dst))
+    and ``live`` (CUDA only, together): the forward kernel's degree
+    statistics ([4, B, N] f32) and live map (``live_shape(B, N)`` uint8) for
+    these inputs, which ``fused_gcn_dense_att_dual`` keeps for its backward,
+    sparing the kernel its degree pass; the same numbers."""
+    what = "fused_gcn_dense_att_dual_bwd"
+    _check(what, (xc, xo, gc, go), adj, (src, dst))
     if xc.device.type == "cpu":
         return fused_gcn_dense_att_dual_bwd_plain(xc, xo, adj, src, dst, gc, go)
-    if stats is not None and (stats.shape != (4, *src.shape) or stats.dtype != torch.float32
-                              or stats.device != xc.device or not stats.is_contiguous()):
-        raise ValueError("fused_gcn_dense_att_dual_bwd: stats must be the forward's "
-                         f"contiguous [4, B, N] float32 on {xc.device}")
+    _check_handed(what, stats, live, 2, xc)
     xc, xo, adj, src, dst, gc, go = _contig(xc, xo, adj, src, dst, gc, go)
-    (dxc, dxo), dsrc, ddst = _bwd_launch("fused_gcn_dense_att_dual_bwd", "dual", (xc, xo),
-                                         (gc, go), adj, src, dst, stats)
+    (dxc, dxo), dsrc, ddst = _bwd_launch(what, "dual", (xc, xo), (gc, go), adj, src, dst,
+                                         stats, live)
     fused_gcn_dense_att_dual_bwd.launches += 1
     return dxc, dxo, dsrc, ddst
 
@@ -271,14 +305,14 @@ def fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats=None):
 class _DualGCN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xc, xo, adj, src, dst):
-        outs, stats = _dual_fwd(xc, xo, adj, src, dst)
-        ctx.save_for_backward(xc, xo, adj, src, dst, stats)
+        outs, stats, live = _dual_fwd(xc, xo, adj, src, dst)
+        ctx.save_for_backward(xc, xo, adj, src, dst, stats, live)
         return outs
 
     @staticmethod
     def backward(ctx, gc, go):
-        *args, stats = ctx.saved_tensors
-        dxc, dxo, dsrc, ddst = fused_gcn_dense_att_dual_bwd(*args, gc, go, stats)
+        *args, stats, live = ctx.saved_tensors
+        dxc, dxo, dsrc, ddst = fused_gcn_dense_att_dual_bwd(*args, gc, go, stats, live)
         return dxc, dxo, None, dsrc, ddst
 
 
@@ -297,26 +331,34 @@ def fused_gcn_dense_att_dual(xc, xo, adj, src, dst):
 
 # ---- row 3: one sigmoid-weighted conv (K18, K18B) ------------------------
 def _att_fwd(x, adj, src, dst, negate):
-    """K18 on CUDA tensors, its plain twin on CPU tensors (no autograd)."""
+    """K18 on CUDA tensors, its plain twin on CPU tensors (no autograd).
+    Returns (out, the degree statistics and the live map for the backward,
+    both None on the CPU)."""
     _check("fused_gcn_dense_att", (x,), adj, (src, dst))
     if x.device.type == "cpu":
-        return fused_gcn_dense_att_plain(x, adj, src, dst, negate)
+        return fused_gcn_dense_att_plain(x, adj, src, dst, negate), None, None
     x, adj, src, dst = _contig(x, adj, src, dst)
-    (out,), _ = _fwd_launch("fused_gcn_dense_att", "neg" if negate else "sig", (x,), adj, src, dst)
+    (out,), stats, live = _fwd_launch("fused_gcn_dense_att", "neg" if negate else "sig", (x,),
+                                      adj, src, dst)
     fused_gcn_dense_att.launches += 1
-    return out
+    return out, stats, live
 
 
-def fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate=False):
+def fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate=False, stats=None, live=None):
     """K18B: the VJP of one weighted conv, cotangent g [B, N, H] ->
     (dx, dsrc, ddst).  Launches the kernel on CUDA tensors, runs
-    ``fused_gcn_dense_att_bwd_plain`` on CPU tensors."""
-    _check("fused_gcn_dense_att_bwd", (x, g), adj, (src, dst))
+    ``fused_gcn_dense_att_bwd_plain`` on CPU tensors.  ``stats`` and
+    ``live`` (CUDA only, together): K18's degree statistics ([2, B, N] f32)
+    and live map for these inputs and ``negate``, sparing the kernel its
+    degree pass; the same numbers."""
+    what = "fused_gcn_dense_att_bwd"
+    _check(what, (x, g), adj, (src, dst))
     if x.device.type == "cpu":
         return fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)
+    _check_handed(what, stats, live, 1, x)
     x, adj, src, dst, g = _contig(x, adj, src, dst, g)
-    (dx,), dsrc, ddst = _bwd_launch("fused_gcn_dense_att_bwd", "neg" if negate else "sig",
-                                    (x,), (g,), adj, src, dst)
+    (dx,), dsrc, ddst = _bwd_launch(what, "neg" if negate else "sig", (x,), (g,), adj, src,
+                                    dst, stats, live)
     fused_gcn_dense_att_bwd.launches += 1
     return dx, dsrc, ddst
 
@@ -324,13 +366,15 @@ def fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate=False):
 class _AttGCN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, adj, src, dst, negate):
-        ctx.save_for_backward(x, adj, src, dst)
+        out, stats, live = _att_fwd(x, adj, src, dst, negate)
+        ctx.save_for_backward(x, adj, src, dst, stats, live)
         ctx.negate = negate
-        return _att_fwd(x, adj, src, dst, negate)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        dx, dsrc, ddst = fused_gcn_dense_att_bwd(*ctx.saved_tensors, g, ctx.negate)
+        x, adj, src, dst, stats, live = ctx.saved_tensors
+        dx, dsrc, ddst = fused_gcn_dense_att_bwd(x, adj, src, dst, g, ctx.negate, stats, live)
         return dx, None, dsrc, ddst, None
 
 
@@ -367,7 +411,7 @@ def _mm(what, x, adj, transpose):
     bsz, n, h = x.shape
     cluster = plain_cluster_size(x.dtype, n, h) if x.data_ptr() % 16 == 0 else 0
     if not cluster:
-        (out,), _ = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
+        (out,), _, _ = _fwd_launch(what, "plain_t" if transpose else "plain", (x,), adj)
         return out
     out = torch.empty_like(x)
     err = _lib().gcn_plain_cluster_launch(

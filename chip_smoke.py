@@ -111,14 +111,17 @@
       edge-formulated GAT forward and backward (``csrc/edge_gat.cu``) against
       their twins, bf16 and f32, at dropout 0 and 0.2, the f32 backward
       against autograd of the forward twin, and the keep bits bit for bit on
-      a probe batch; times them beside the twins; times rows 1, 2 and 2b at
-      this N (held against the twins on 8 graphs);
+      a probe batch; times them beside the twins; times rows 1, 2 (split
+      into its degree pass and aggregate) and 2b (handed the forward's
+      statistics and live map, and alone) at this N, held against the twins
+      on 8 graphs, the hand-over's bits against the backward alone;
    b. drives ``cal_tpu_torch.main_real --model CausalGAT --dataset SYNREDDIT
       --dtype bfloat16`` at full width for 2 folds of 2 epochs with the
       counters at 0: per forward one adjacency build, one dual conv and three
       edge forwards, per step one dual backward and three edge backwards, no
       flash; finite losses, the ``sydall`` line; epoch seconds, peak device
-      memory, then the device time of one train step at N = 3,840;
+      memory; then emits a.'s rows 1, 2 and 2b lines with these launches,
+      and the device time of one train step at N = 3,840;
    c. times flash against edge (forward plus backward, bf16, dropout 0.2,
       B = 128) at five (N, Eg') shapes beside the v5e rule's choice.
 
@@ -171,6 +174,16 @@ CUDA or the package is missing, or when any check fails.
 prints only the digest lines (dense and sparse): run from the root of
 another tree of the port (a copy of this file there), it gives that tree's
 bits for an A/B.
+
+    python3 chip_smoke.py --rows
+
+builds the kernels and runs the dense masked-GCN rows and K21 alone: the
+ptxas report of the dense kernels and K21, row 2 (the dual forward) at N =
+256 split into its degree pass and aggregate, rows 3 and 4 at N = 256 (and
+K17/K17T two-pass at N = 640), K21 on the serving and REDDIT batches beside
+scatter_reduce_ amax, the digests, and rows 1, 2 and 2b at N = 3,840 on the
+first SYNREDDIT batch (2b with and without the forward's hand-over); from
+another tree's root, for an A/B.
 
     python3 chip_smoke.py --walk
 
@@ -594,7 +607,9 @@ def flash_kernels(torch, counts, dt_name, peaks, flush):
 
 def profile_passes(torch, fn, reps=3):
     """Device ms a call of each kernel that ``fn`` launches (torch.profiler
-    over ``reps`` warm calls), slowest first: a multi-pass kernel's split."""
+    over ``reps`` warm calls), slowest first: a multi-pass kernel's split.
+    The profiler can miss a window's first kernels, so ``ms_per_launch``
+    (time over the launches it recorded) is the figure to read."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -607,7 +622,7 @@ def profile_passes(torch, fn, reps=3):
     for k, t, c in _device_rows(prof):
         m = re.search(r"\w+_kernel<[^>]*>", k)   # the kernel and its template arguments
         rows.append({"kernel": m.group(0) if m else k[:80], "device_ms": t / reps,
-                     "calls": c / reps})
+                     "calls": c / reps, "ms_per_launch": t / c})
     return rows
 
 
@@ -620,7 +635,8 @@ def ptxas_kernels(log: str, names: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\w+)", ln)
         if m:
-            k = re.search(r"\d+(" + names + r")I(13__nv_bfloat16|f)?(?:L([ib])(\d)E)?", m.group(1))
+            k = re.search(r"\d+(" + names + r")I(13__nv_bfloat16|f)?(?:L([ib])(\d)E)?"
+                          r"(?:Li(\d+)E)?", m.group(1))
             name = None
             if k:
                 args = [] if k.group(2) is None else ["bf16" if k.group(2) != "f" else "f32"]
@@ -628,6 +644,8 @@ def ptxas_kernels(log: str, names: str) -> dict:
                     args.append("K17T" if k.group(4) == "1" else "K17")
                 elif k.group(3):
                     args.append(modes.get(k.group(4), k.group(4)))
+                if k.group(5):          # the degree pass's load width
+                    args.append(f"{k.group(5)} B")
                 name = f"{k.group(1)}<{', '.join(args)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -712,12 +730,13 @@ def plain_twins():
     from cal_tpu_torch.ops.adj_build import adj_build_plain
 
     stack = contextlib.ExitStack()
-    # the forward wrapper also returns the degree statistics that the
-    # autograd Function hands to the backward wrapper (the twins have none)
+    # the forward wrapper also returns the degree statistics and the live
+    # map that the autograd Function hands to the backward wrapper (the twins
+    # have neither)
     for mod, name, plain in (
             (graph_mod, "adj_build", adj_build_plain),
             (fused_mod, "_dual_fwd",
-             lambda *a: (fused_mod.fused_gcn_dense_att_dual_plain(*a), None)),
+             lambda *a: (fused_mod.fused_gcn_dense_att_dual_plain(*a), None, None)),
             (fused_mod, "fused_gcn_dense_att_dual_bwd",
              lambda *a: fused_mod.fused_gcn_dense_att_dual_bwd_plain(*a[:7])),
             (flash_mod, "flash_gat_fwd", flash_mod.flash_gat_fwd_plain),
@@ -2174,16 +2193,60 @@ def edge_kernel_rows(torch, batch, peaks, flush):
     return rows
 
 
+def _digest(ts) -> str:
+    """sha256 of tensors' values as f32, its first 16 hex digits."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for x in ts:
+        digest.update(x.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def forward_split(torch, fn, tries=3) -> dict:
+    """Device ms of one warm call of a dense forward, by pass: the degree
+    pass (which reads adj in full) and the aggregate, each launched once a
+    call (torch.profiler; ms a launch, so a launch the profiler missed does
+    not count).  A window in which the profiler recorded no launch of a pass
+    is taken again, up to ``tries`` windows; a pass still unrecorded reads
+    None, never 0."""
+    keys = ("degree_", "aggregate_")
+    for _ in range(tries):
+        rows = profile_passes(torch, fn)
+        got = {k: [r["ms_per_launch"] for r in rows if k in r["kernel"]] for k in keys}
+        if all(got.values()):
+            break
+    return {"degree_ms": sum(got["degree_"]) if got["degree_"] else None,
+            "aggregate_ms": sum(got["aggregate_"]) if got["aggregate_"] else None,
+            "passes": rows}
+
+
+def live_tiles(torch, edge_flat, bsz, n) -> int:
+    """The live map's 64 x 32 cells of a dense batch that hold an edge other
+    than a self loop, counted from its flat edge list: the cells of adj that
+    a kernel handed the map must read."""
+    e = edge_flat.long()
+    e = e[(e >= 0) & (e < bsz * n * n)]
+    b, r, c = e // (n * n), e // n % n, e % n
+    cell = (b * -(-n // 64) + r // 64) * -(-n // 32) + c // 32
+    return int(torch.unique(cell[r != c]).numel())
+
+
 def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
     """Rows 1, 2 and 2b (adjacency build, dual masked-GCN forward and
     backward) at the SYNREDDIT node budget, N = 3,840: the kernels timed on
     the whole batch (B = 128); held against the twins, and the twins timed,
     on the first ``slice_graphs`` graphs, since the twins' f32 [B, N, N]
-    planes would need ~100 GB at B = 128."""
+    planes would need ~100 GB at B = 128.  Row 2's line splits its device
+    time into the degree pass and the aggregate; row 2b's is timed as the
+    training step runs it, handed what the forward hands it (``kernel_ms``;
+    its bound counts adj's bytes in the live cells only, since that is all
+    such a call must read), and alone (``kernel_ms_own_degree``: its own
+    degree pass, a full read of adj, in ``bound_ms_own_degree``).  Both
+    carry digests of their outputs on the whole batch.  Returns the three
+    lines (the caller emits them)."""
+    from cal_tpu_torch.ops import fused_gcn as fg
     from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
-    from cal_tpu_torch.ops.fused_gcn import (
-        fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd,
-        fused_gcn_dense_att_dual_bwd_plain, fused_gcn_dense_att_dual_plain)
 
     bw, bf16_peak, _ = peaks
     ef = batch.edge_flat
@@ -2198,10 +2261,11 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
     args, bargs = (xc, xo, adj, src, dst), (xc, xo, adj, src, dst, gc, go)
     cut = lambda ts: tuple(t[:k].contiguous() for t in ts)
     errs = []
-    for got, ref, tol in ((fused_gcn_dense_att_dual(*cut(args)),
-                           fused_gcn_dense_att_dual_plain(*cut(args)), DUAL_TOL["bfloat16"]),
-                          (fused_gcn_dense_att_dual_bwd(*cut(bargs)),
-                           fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
+    for got, ref, tol in ((fg.fused_gcn_dense_att_dual(*cut(args)),
+                           fg.fused_gcn_dense_att_dual_plain(*cut(args)), DUAL_TOL["bfloat16"]),
+                          (fg.fused_gcn_dense_att_dual_bwd(*cut(bargs),
+                                                           *fg._dual_fwd(*cut(args))[1:]),
+                           fg.fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
                            DUAL_BWD_TOL["bfloat16"])):
         torch.cuda.synchronize()
         for a, r in zip(got, ref):
@@ -2209,27 +2273,68 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
             err, over = max_excess(torch, a, r, *tol)
             check(over <= 0, f"dual kernel at N = 3,840 differs from its twin: {err}")
             errs.append(err)
+    handed = fg._dual_fwd(*args)[1:]   # what the forward hands its backward
+    own = fg.fused_gcn_dense_att_dual_bwd(*bargs)
+    check(all(torch.equal(a, b) for a, b in zip(
+        fg.fused_gcn_dense_att_dual_bwd(*bargs, *handed), own)),
+        "row 2b at N = 3,840: the hand-over changed the bits")
+    digests = {"fused_gcn_dense_att_dual_fwd": _digest(fg.fused_gcn_dense_att_dual(*args)),
+               "fused_gcn_dense_att_dual_bwd": _digest(own)}
+    del own
+    extra = {
+        "fused_gcn_dense_att_dual_fwd": lambda: forward_split(
+            torch, lambda: fg.fused_gcn_dense_att_dual(*args)),
+        "fused_gcn_dense_att_dual_bwd": lambda: {
+            "kernel_ms_own_degree": time_ms(
+                torch, lambda: fg.fused_gcn_dense_att_dual_bwd(*bargs), flush, 3, 1),
+            "bytes_own_degree": cells * elt + b_rest,
+            "bound_ms_own_degree": max((cells * elt + b_rest) / bw,
+                                       12 * live_cells(batch) * H / bf16_peak) * 1e3,
+            "handed": len(handed),
+            "passes": profile_passes(torch, lambda: fg.fused_gcn_dense_att_dual_bwd(
+                *bargs, *handed)),
+            "passes_own_degree": profile_passes(
+                torch, lambda: fg.fused_gcn_dense_att_dual_bwd(*bargs))},
+    }
     elt, e = 2, ef.shape[0]
     cells = bsz * n * n
+    # row 2b beside adj: the x, g and dx planes, the logits and their
+    # gradients; handed, the statistics (f32) and the live map besides
+    b_rest = (6 * bsz * n * H + 4 * bsz * n) * elt
+    b_handed = (live_tiles(torch, ef, bsz, n) * 64 * 32 * elt + b_rest + 4 * bsz * n * 4
+                + bsz * -(-n // 64) * -(-n // 32))
+    lines = []
     for name, fn, plain, nbytes, flops, reps in (
             ("adj_build", lambda: adj_build(ef, bsz, n, dt),
              lambda: adj_build_plain(ef[:int((ef < k * n * n).sum())], k, n, dt),
              e * 4 + cells * elt, 0, 10),
-            ("fused_gcn_dense_att_dual_fwd", lambda: fused_gcn_dense_att_dual(*args),
-             lambda: fused_gcn_dense_att_dual_plain(*cut(args)),
+            ("fused_gcn_dense_att_dual_fwd", lambda: fg.fused_gcn_dense_att_dual(*args),
+             lambda: fg.fused_gcn_dense_att_dual_plain(*cut(args)),
              (cells + 4 * bsz * n * H + 2 * bsz * n) * elt, 4 * cells * H, 10),
-            ("fused_gcn_dense_att_dual_bwd", lambda: fused_gcn_dense_att_dual_bwd(*bargs),
-             lambda: fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
-             (cells + 6 * bsz * n * H + 4 * bsz * n) * elt, 12 * live_cells(batch) * H, 3)):
+            ("fused_gcn_dense_att_dual_bwd",
+             lambda: fg.fused_gcn_dense_att_dual_bwd(*bargs, *handed),
+             lambda: fg.fused_gcn_dense_att_dual_bwd_plain(*cut(bargs)),
+             b_handed, 12 * live_cells(batch) * H, 3)):
         t_bytes, t_ops = nbytes / bw, flops / bf16_peak
-        emit({"phase": "dense_kernel_n3840", "name": name, "dtype": "bfloat16",
-              "batch": [bsz, n, H], "kernel_ms": time_ms(torch, fn, flush, reps, 1),
-              "plain_ms_on_slice": time_ms(torch, plain, flush, 3, 1), "slice_graphs": k,
-              "max_abs_err_on_slice": max(errs) if name != "adj_build" else 0.0,
-              "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        line = {"phase": "dense_kernel_n3840", "name": name, "dtype": "bfloat16",
+                "batch": [bsz, n, H], "kernel_ms": time_ms(torch, fn, flush, reps, 1),
+                "plain_ms_on_slice": time_ms(torch, plain, flush, 3, 1), "slice_graphs": k,
+                "max_abs_err_on_slice": max(errs) if name != "adj_build" else 0.0,
+                "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if name in extra:
+            line.update(extra[name]())
+            line["digest"] = digests[name]
+        lines.append(line)
     del adj, xc, xo, gc, go
     torch.cuda.empty_cache()
+    return lines
+
+
+# the N = 3,840 kernel lines -> their counter in real_protocol_phase
+REAL_COUNTER = {"adj_build": "adj_build",
+                "fused_gcn_dense_att_dual_fwd": "fused_gcn_dense_att_dual",
+                "fused_gcn_dense_att_dual_bwd": "fused_gcn_dense_att_dual_bwd"}
 
 
 def real_counters() -> dict:
@@ -2720,7 +2825,8 @@ def dense_row_kernels(torch, batch, peaks, flush):
                      fg.fused_gcn_dense_plain(g, adj, True), tol)
         e18, e18b = [], []
         for negate in (False, True):
-            e18.append(_held(torch, "K18", dt_name, fg._att_fwd(x, adj, src, dst, negate),
+            e18.append(_held(torch, "K18", dt_name,
+                             fg.fused_gcn_dense_att(x, adj, src, dst, negate),
                              fg.fused_gcn_dense_att_plain(x, adj, src, dst, negate), tol))
             for nm, a, r in zip(("dx", "dsrc", "ddst"),
                                 fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate),
@@ -2738,22 +2844,27 @@ def dense_row_kernels(torch, batch, peaks, flush):
         rows = {}
         cluster = fg.plain_cluster_size(dt, n, H)
         path = {"path": "cluster" if cluster else "two_pass", "cluster": cluster}
+        # the two-pass forwards' device time by pass (degree, aggregate)
+        split = lambda fn: {} if cluster else forward_split(torch, fn)
         rows["fused_gcn_dense"] = _row(
             torch, "fused_gcn_dense", dt_name, lambda: fg._mm_fwd(x, adj),
             lambda: fg.fused_gcn_dense_plain(x, adj), adj_b + 2 * plane, prod, peak, e17, tol,
             bw, flush, lambda: torch.bmm(norm, x),
             "torch.bmm(normalized adjacency, x) in x's dtype, adjacency built outside the call",
-            **path)
+            **path, **split(lambda: fg._mm_fwd(x, adj)))
         rows["fused_gcn_dense_t"] = _row(
             torch, "fused_gcn_dense_t", dt_name, lambda: fg.fused_gcn_dense_t(g, adj),
             lambda: fg.fused_gcn_dense_plain(g, adj, True), adj_b + 2 * plane, prod, peak,
             e17t, tol, bw, flush, lambda: torch.bmm(norm_t, g),
-            "torch.bmm(transposed normalized adjacency, g), built outside the call", **path)
+            "torch.bmm(transposed normalized adjacency, g), built outside the call", **path,
+            **split(lambda: fg.fused_gcn_dense_t(g, adj)))
         rows["fused_gcn_dense_att"] = _row(
-            torch, "fused_gcn_dense_att", dt_name, lambda: fg._att_fwd(x, adj, src, dst, False),
+            torch, "fused_gcn_dense_att", dt_name,
+            lambda: fg._att_fwd(x, adj, src, dst, False),
             lambda: fg.fused_gcn_dense_att_plain(x, adj, src, dst, False),
             adj_b + 2 * plane + 2 * lg, prod, peak, max(e18), tol, bw, flush, None,
-            "none: no single PyTorch call computes the sigmoid-weighted normalized aggregate")
+            "none: no single PyTorch call computes the sigmoid-weighted normalized aggregate",
+            **forward_split(torch, lambda: fg._att_fwd(x, adj, src, dst, False)))
         rows["fused_gcn_dense_att_bwd"] = _row(
             torch, "fused_gcn_dense_att_bwd", dt_name,
             lambda: fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, False),
@@ -2797,11 +2908,13 @@ def plain_two_pass(torch, peaks, flush, bsz=16, n=640):
     _row(torch, "fused_gcn_dense", "bfloat16", lambda: fg._mm_fwd(x, adj),
          lambda: fg.fused_gcn_dense_plain(x, adj), nbytes, 2 * bsz * n * n * H, bf16_peak, e17,
          tol, bw, flush, lambda: torch.bmm(norm, x),
-         "torch.bmm(normalized adjacency, x), adjacency built outside the call", **extra)
+         "torch.bmm(normalized adjacency, x), adjacency built outside the call", **extra,
+         **forward_split(torch, lambda: fg._mm_fwd(x, adj)))
     _row(torch, "fused_gcn_dense_t", "bfloat16", lambda: fg.fused_gcn_dense_t(g, adj),
          lambda: fg.fused_gcn_dense_plain(g, adj, True), nbytes, 2 * bsz * n * n * H,
          bf16_peak, e17t, tol, bw, flush, lambda: torch.bmm(norm_t, g),
-         "torch.bmm(transposed normalized adjacency, g), built outside the call", **extra)
+         "torch.bmm(transposed normalized adjacency, g), built outside the call", **extra,
+         **forward_split(torch, lambda: fg.fused_gcn_dense_t(g, adj)))
 
 
 def dense_digests(torch, batch) -> dict:
@@ -2810,8 +2923,6 @@ def dense_digests(torch, batch) -> dict:
     and f32.  Two trees whose digests agree computed the same bits; the calls
     are the public functions, so the digests of another tree of the port come
     from this function with that tree's package imported (``--digests``)."""
-    import hashlib
-
     from cal_tpu_torch.graph import to_dense
     from cal_tpu_torch.ops import fused_gcn as fg
 
@@ -2835,22 +2946,18 @@ def dense_digests(torch, batch) -> dict:
             "row4_dx": lambda: [fg.fused_gcn_dense_t(gc, adj)],
         }
         for name, fn in calls.items():
-            digest = hashlib.sha256()
-            for t in fn():
-                digest.update(t.detach().float().cpu().numpy().tobytes())
-            out[f"{name}_{dt_name}"] = digest.hexdigest()[:16]
+            out[f"{name}_{dt_name}"] = _digest(fn())
     return out
 
 
 def sparse_digests(torch, batches: dict) -> dict:
     """sha256 of every instantiation of the coefficient SpMM walk (K2, K2T,
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
-    HEADS heads) on seeded inputs over each sparse batch, bf16 and f32.  The
+    HEADS heads) and of K21 (4 planes, dead edges left random) on seeded
+    inputs over each sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
     another tree's root with ``--digests``, as ``dense_digests``."""
-    import hashlib
-
     from cal_tpu_torch.ops import coo_spmm as coo
     from cal_tpu_torch.ops import spmm
 
@@ -2869,6 +2976,7 @@ def sparse_digests(torch, batches: dict) -> dict:
             coef = torch.randn(e, generator=gen, device="cuda")
             coef = coef * (torch.rand(e, generator=gen, device="cuda") < 0.9)
             coef_mh = torch.rand((e, HEADS), generator=gen, device="cuda") * live[:, None]
+            vals = torch.randn((4, e), generator=gen, device="cuda")
             s32, d32 = src.float(), dst.float()
             calls = {
                 "K2": lambda: spmm.pair_coef_spmm(xc, xo, src, dst, deg, dis, g),
@@ -2883,12 +2991,10 @@ def sparse_digests(torch, batches: dict) -> dict:
                                  for neg in (False, True)],
                 "K19": lambda: [coo._coo_spmm_mh_fwd(xc, coef_mh, g, HEADS)],
                 "K19T": lambda: [coo.coo_spmm_mh_t(xc, coef_mh, g, HEADS)],
+                "K21": lambda: [coo.segment_max(vals, g)],
             }
             for name, fn in calls.items():
-                digest = hashlib.sha256()
-                for t in fn():
-                    digest.update(t.detach().float().cpu().numpy().tobytes())
-                out[f"{name}_{label}_{dt_name}"] = digest.hexdigest()[:16]
+                out[f"{name}_{label}_{dt_name}"] = _digest(fn())
     return out
 
 
@@ -2984,10 +3090,6 @@ def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
         lib20, lib20_vals = _library_sddmm_mh(torch, g, x, gout, heads)
         _held(torch, "K20's sampled_addmm yardstick", dt_name, lib20_vals(),
               coo.coo_sddmm_plain(x, gout, g, heads), COO_TOL)
-        e21 = _held(torch, "K21", dt_name, coo.segment_max(vals, g),
-                    coo.segment_max_plain(vals, g), (0.0, 0.0))
-        idx = g.receivers.long()[None].expand(planes, -1)
-        amax = torch.full((planes, v), -1e30, device="cuda")
         extra = {"batch": label, "nodes": v, "edges": e, "nonzero_coef_edges": n_nz,
                  "heads": heads}
         rows = {}
@@ -3015,16 +3117,31 @@ def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
             "torch.sparse.sampled_addmm(receiver CSR repeated per head [heads, V, V], "
             "per-head g [heads, V, d], per-head x^T [heads, d, V]) in f32, CSR, split and "
             "cast built outside the call", **extra)
-        rows["segment_max"] = _row(
-            torch, "segment_max", dt_name, lambda: coo.segment_max(vals, g),
-            lambda: coo.segment_max_plain(vals, g),
-            4 * planes * e + csr(g.recv) + 4 * planes * v, planes * e, f32_peak, e21,
-            (0.0, 0.0), bw, flush,
-            lambda: amax.scatter_reduce_(1, idx, vals, "amax"),
-            "Tensor.scatter_reduce_(1, receivers [K, E], vals, 'amax') into a [K, V] plane "
-            "at -1e30, index built outside the call", **{**extra, "planes": planes})
+        rows["segment_max"] = segment_max_row(torch, g, label, peaks, flush, planes,
+                                              dt_name, vals)
         out[dt_name] = rows
     return out
+
+
+def segment_max_row(torch, g, label, peaks, flush, planes, dt_name, vals):
+    """Row 14 (K21) at ``planes`` value planes [K, E] f32 on sparse batch
+    ``g``, bit for bit against its twin, timed beside scatter_reduce_ amax."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    v, e = g.num_nodes, g.senders.shape[0]
+    csr = 4 * (2 * (v + 1) + g.recv.num_chunks)
+    e21 = _held(torch, "K21", dt_name, coo.segment_max(vals, g),
+                coo.segment_max_plain(vals, g), (0.0, 0.0))
+    idx = g.receivers.long()[None].expand(planes, -1)
+    amax = torch.full((planes, v), -1e30, device="cuda")
+    return _row(
+        torch, "segment_max", dt_name, lambda: coo.segment_max(vals, g),
+        lambda: coo.segment_max_plain(vals, g), 4 * planes * e + csr + 4 * planes * v,
+        planes * e, peaks[2], e21, (0.0, 0.0), peaks[0], flush,
+        lambda: amax.scatter_reduce_(1, idx, vals, "amax"),
+        "Tensor.scatter_reduce_(1, receivers [K, E], vals, 'amax') into a [K, V] plane "
+        "at -1e30, index built outside the call",
+        batch=label, nodes=v, edges=e, planes=planes)
 
 
 # kernel row -> (launch counter, model whose training run is its main path,
@@ -3171,7 +3288,8 @@ def main() -> int:
                                            r"bwd_\w*?_kernel"),
           "ptxas_dense_fwd": ptxas_kernels(
               report.get("fused_gcn", {}).get("log", ""),
-              "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|degree_kernel"),
+              "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|"
+              "degree_wide_kernel|degree_col_kernel"),
           "ptxas_walk": ptxas_walk(report),
           "plain_cluster_plan": plain_cluster_plan()})
 
@@ -3322,10 +3440,12 @@ def main() -> int:
           f"SYNREDDIT batch {real_host.x.shape}, eg_budget {real_host.eg_budget}: "
           "not on the edge-formulated kernel")
     edge_rows = edge_kernel_rows(torch, real_batch, peaks, flush)
-    dense_rows_at_scale(torch, real_batch, peaks, flush)
+    at_scale = dense_rows_at_scale(torch, real_batch, peaks, flush)
     del real_batch
     lap("real_kernels")
     real_launches = real_protocol_phase(torch, root, real_ds)
+    for line in at_scale:   # launches: main_real's run, the rows' main path at this N
+        emit({**line, "launches": real_launches[REAL_COUNTER[line["name"]]]})
     profile_train_step(torch, real_graphs, real_host, "CausalGAT")
     lap("real_protocol")
     crossover_sweep(torch, flush)
@@ -3554,6 +3674,114 @@ def walk_main() -> int:
     return 0
 
 
+def ptxas_k21(report: dict) -> dict:
+    """{kernel: registers, spill bytes} of K21's kernel in coo_spmm.cu
+    (csr_reduce_kernel), from nvcc's ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in report.get("coo_spmm", {}).get("log", "").splitlines():
+        m = re.search(r"Function properties for \w*?(csr_reduce_kernel)", ln)
+        if "Function properties for" in ln:
+            name = m.group(1) if m else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if name and m:
+            out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", ln)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def dual_row(torch, batch, peaks, flush) -> None:
+    """Row 2 (the dual forward) on the synthetic dense batch (N = 256), bf16
+    and f32, against its twin, timed and split into the degree pass and the
+    aggregate."""
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    bw, bf16_peak, f32_peak = peaks
+    bsz, n, _ = batch.x.shape
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elt = torch.tensor([], dtype=dt).element_size()
+        adj = to_dense(batch, dt).adj
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        xc, xo = (torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt) for _ in range(2))
+        src = torch.randn((bsz, n), generator=gen, device="cuda").to(dt)
+        dst = (2.0 * torch.randn((bsz, n), generator=gen, device="cuda")).to(dt)
+        args = (xc, xo, adj, src, dst)
+        got, ref = fg.fused_gcn_dense_att_dual(*args), fg.fused_gcn_dense_att_dual_plain(*args)
+        err = max(_held(torch, "row 2", dt_name, a, r, DUAL_TOL[dt_name])
+                  for a, r in zip(got, ref))
+        line = _row(torch, "fused_gcn_dense_att_dual_fwd", dt_name,
+                    lambda: fg.fused_gcn_dense_att_dual(*args),
+                    lambda: fg.fused_gcn_dense_att_dual_plain(*args),
+                    (bsz * n * n + 4 * bsz * n * H + 2 * bsz * n) * elt, 4 * bsz * n * n * H,
+                    bf16_peak if dt == torch.bfloat16 else f32_peak, err, DUAL_TOL[dt_name],
+                    bw, flush, batch=[bsz, n, H])
+        emit({"phase": "row2_split", "dtype": dt_name, "kernel_ms": line["kernel_ms"],
+              **forward_split(torch, lambda: fg.fused_gcn_dense_att_dual(*args))})
+
+
+def rows_main() -> int:
+    """``--rows``: the dense masked-GCN rows and K21 alone, for an A/B of two
+    trees (run this file from the other tree's root): the build's ptxas
+    report of the dense kernels and K21; row 2 at N = 256 (bf16, f32) split
+    into the degree pass and the aggregate; rows 4 and 3 (K17/K17T, K18/K18B;
+    f32 K17 on the two-pass path) at N = 256 and K17/K17T two-pass at N =
+    640; K21 on the serving and REDDIT batches beside scatter_reduce_ amax;
+    the dense and sparse digests; then rows 1, 2 and 2b at N = 3,840 on the
+    first SYNREDDIT batch (2b handed the forward's statistics and live map,
+    and alone), with their digests."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+    from cal_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks, _ = peaks_for(name)
+    report = build.build_all()
+    log = report.get("fused_gcn", {}).get("log", "")
+    emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
+          "ptxas_dense_fwd": ptxas_kernels(
+              log, "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|"
+              "degree_wide_kernel|degree_col_kernel"),
+          "ptxas_dense_bwd": ptxas_kernels(log, r"bwd_\w*?_kernel"),
+          "ptxas_k21": ptxas_k21(report)})
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
+    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    batch = next(Loader(test_set, B).host_batches()).to("cuda")
+    dual_row(torch, batch, peaks, flush)
+    dense_row_kernels(torch, batch, peaks, flush)
+    emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
+    batches = sparse_batches(torch)
+    for label in ("synthetic", "reddit"):
+        g = batches[label]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        vals = torch.randn((4, g.senders.shape[0]), generator=gen, device="cuda")
+        vals = torch.where(g.edge_mask[None], vals, torch.full_like(vals, -1e30))
+        segment_max_row(torch, g, label, peaks, flush, 4, "float32", vals)
+    emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
+        torch, {k: batches[k] for k in ("synthetic", "reddit")})})
+    del batches
+    _, real_ds = real_data()
+    graphs = list(real_ds)
+    real_batch = next(Loader(graphs, B, budgets=compute_budgets(graphs, B))
+                      .host_batches()).to("cuda")
+    for line in dense_rows_at_scale(torch, real_batch, peaks, flush):
+        emit(line)
+    emit({"phase": "rows_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
+    return 0
+
+
 def digests_main() -> int:
     """``--digests``: only the dense_digests and sparse_digests lines, for
     comparing the bits of two trees of the port (run this file from the
@@ -3577,5 +3805,5 @@ def digests_main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--digests": digests_main, "--walk": walk_main}
+    modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

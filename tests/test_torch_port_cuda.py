@@ -1047,7 +1047,7 @@ def test_single_conv_kernels_match_plain(cuda, b, n, h, dtype):
     pairs = [(fg._mm_fwd(x, adj), fg.fused_gcn_dense_plain(x, adj)),
              (fg.fused_gcn_dense_t(g, adj), fg.fused_gcn_dense_plain(g, adj, True))]
     for negate in (False, True):
-        pairs.append((fg._att_fwd(x, adj, src, dst, negate),
+        pairs.append((fg._att_fwd(x, adj, src, dst, negate)[0],
                       fg.fused_gcn_dense_att_plain(x, adj, src, dst, negate)))
         pairs += list(zip(fg.fused_gcn_dense_att_bwd(x, adj, src, dst, g, negate),
                           fg.fused_gcn_dense_att_bwd_plain(x, adj, src, dst, g, negate)))
@@ -1071,7 +1071,7 @@ def test_plain_conv_kernels_are_deterministic(cuda, n, h):
         one = fg._mm("K17", t, adj, transpose)
         assert torch.equal(one, fg._mm("K17", t, adj, transpose))
         if fg.plain_cluster_size(t.dtype, n, h):
-            (two,), _ = fg._fwd_launch("K17", "plain_t" if transpose else "plain", (t,), adj)
+            (two,), _, _ = fg._fwd_launch("K17", "plain_t" if transpose else "plain", (t,), adj)
             assert torch.equal(one, two)
 
 
@@ -1102,6 +1102,232 @@ def test_single_conv_functions_match_autograd_and_launch(cuda):
         fg.fused_gcn_dense(x, adj.bfloat16())
     with pytest.raises(ValueError):
         fg.fused_gcn_dense_att(x, adj, src.cpu(), dst)
+
+
+# ---- rows 2 and 3's forward on padded batches: one read of adj, live steps --
+def _padded_adj(device, b, n, sizes, seed):
+    """[b, n, n] f32 counts: graph i on its first sizes[i] slots (about 3
+    edges a node, some doubled, every 7th node a self loop), nothing past
+    them: most 64 x 32 cells of a large slot hold no edge."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    adj = torch.zeros((b, n, n), device=device)
+    for i, k in enumerate(sizes):
+        if k == 0:
+            continue
+        r, s = (torch.randint(0, k, (3 * k,), generator=gen, device=device) for _ in range(2))
+        adj[i].index_put_((r, s), torch.ones(3 * k, device=device), accumulate=True)
+        d = torch.arange(0, k, 7, device=device)
+        adj[i, d, d] = 1.0
+    return adj
+
+
+def _ref_live(adj):
+    """The live map by its definition: a byte per (64-row strip, 32-column
+    group) of each graph, 1 where an edge other than a self loop lies."""
+    b, n, _ = adj.shape
+    a = adj.float().clone()
+    idx = torch.arange(n, device=adj.device)
+    a[:, idx, idx] = 0.0
+    sp, cp = -(-n // 64) * 64, -(-n // 32) * 32
+    a = torch.nn.functional.pad(a, (0, cp - n, 0, sp - n))
+    return (a.view(b, sp // 64, 64, cp // 32, 32) != 0).any(dim=4).any(dim=2).to(torch.uint8)
+
+
+def _device_kernels(fn):
+    """Names of the kernels one call of ``fn`` launches (torch.profiler, after
+    an unrecorded warm-up call inside it; memory copies and sets are not
+    kernels).  A window in which the profiler recorded nothing is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        names = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: names.extend(
+                         e.name for e in p.events()
+                         if str(e.device_type).endswith("CUDA")
+                         and not e.name.startswith(("Memcpy", "Memset")))) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if names:
+            return names
+    raise AssertionError("the profiler recorded no kernel")
+
+
+# padded slots past the graphs (N = 3,840 is SYNREDDIT's budget), a graph
+# filling its slot, empty and one-node slots, N % 8 != 0 (the element-wise
+# adjacency reads), H past one 128-column chunk
+PADDED_CASES = [(3, 384, (30, 120, 0), 32), (2, 700, (650, 5), 40),
+                (4, 129, (1, 64, 65, 129), 128), (2, 260, (100, 259), 200),
+                (2, 3840, (400, 3800), 128)]
+
+
+@pytest.mark.parametrize("b,n,sizes,h", PADDED_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_forward_kernels_match_plain_on_padded_batches(cuda, b, n, sizes, h, dtype):
+    """Every forward mode over its live steps only (the dual pair, K18 at
+    both negates, the two-pass K17 and K17T, called past the cluster path)
+    against its twin; each writes the live map of its definition."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    adj = _padded_adj(cuda, b, n, sizes, seed=n + h).to(DT[dtype])
+    gen = torch.Generator(device=cuda).manual_seed(n * h)
+    xc, xo = (torch.randn((b, n, h), generator=gen, device=cuda).to(DT[dtype]) for _ in range(2))
+    src = torch.randn((b, n), generator=gen, device=cuda).to(DT[dtype])
+    dst = (2 * torch.randn((b, n), generator=gen, device=cuda)).to(DT[dtype])
+    want_live = _ref_live(adj)
+    (oc, oo), stats, live = fg._dual_fwd(xc, xo, adj, src, dst)
+    assert stats.shape == (4, b, n) and torch.equal(live, want_live)
+    pairs = list(zip((oc, oo), fg.fused_gcn_dense_att_dual_plain(xc, xo, adj, src, dst)))
+    for negate in (False, True):
+        out, _, live = fg._att_fwd(xc, adj, src, dst, negate)
+        assert torch.equal(live, want_live)
+        pairs.append((out, fg.fused_gcn_dense_att_plain(xc, adj, src, dst, negate)))
+    for mode, transpose in (("plain", False), ("plain_t", True)):
+        (out,), _, live = fg._fwd_launch("K17", mode, (xc,), adj)
+        assert torch.equal(live, want_live)
+        pairs.append((out, fg.fused_gcn_dense_plain(xc, adj, transpose)))
+    torch.cuda.synchronize()
+    atol, rtol = DUAL_TOL[dtype]
+    for got, ref in pairs:
+        assert got.dtype == DT[dtype] and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _ref_degree(adj, src, dst, mode):
+    """The degree pass's statistics in its order: column s of row group w
+    sums rows w, w + 8, ... in order, then group 0 adds groups 1..7 in
+    order; deg^-1/2 and 1/deg of each branch, [2 branches, B, N]."""
+    b, n, _ = adj.shape
+    a = adj.float().clone()
+    idx = torch.arange(n, device=adj.device)
+    a[:, idx, idx] = 0.0
+    if mode == "plain":
+        ms = [a]
+    else:
+        sg = 1.0 / (1.0 + torch.exp(-(src.float()[:, None, :] + dst.float()[:, :, None])))
+        mc = a * sg
+        ms = {"dual": [mc, a - mc], "sig": [mc], "neg": [a * (1.0 - sg)]}[mode]
+    out = []
+    for m in ms:
+        part = torch.zeros((8, b, n), device=adj.device)
+        for r in range(n):
+            part[r % 8] += m[:, r, :]
+        t = part[0]
+        for w in range(1, 8):
+            t = t + part[w]
+        deg = t + 1.0
+        out += [torch.rsqrt(deg), 1.0 / deg]
+    return torch.stack(out)
+
+
+def _wide_batch(elt, n):
+    """The smallest batch on which the degree pass reads 16 bytes a lane: its
+    32 lanes' columns of a graph a block must give the card's SMs four
+    blocks each (else a lane walks one column)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-4 * sms // -(-n // (32 * 16 // elt)))
+
+
+# both paths (16 bytes a lane, or a column a lane), rows read whole (N a
+# multiple of the lane's elements) or element by element
+@pytest.mark.parametrize("n,dtype,wide", [(512, "bfloat16", True), (516, "bfloat16", True),
+                                          (384, "bfloat16", False), (700, "bfloat16", False),
+                                          (512, "float32", True), (514, "float32", True),
+                                          (700, "float32", False), (701, "float32", False)])
+def test_degree_pass_matches_a_reference_in_its_order(cuda, n, dtype, wide):
+    """Row reads on both paths, sigmoids only where a count is not 0: the
+    statistics equal a column walk in the same order bit for bit, in every
+    weight mode."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    b = _wide_batch(2 if dtype == "bfloat16" else 4, n) if wide else 3
+    sizes = [(n, n // 3, 0)[i % 3] for i in range(b)]
+    adj = _padded_adj(cuda, b, n, sizes, seed=n + int(wide)).to(DT[dtype])
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randn((b, n, 8), generator=gen, device=cuda).to(DT[dtype])
+    src = torch.randn((b, n), generator=gen, device=cuda).to(DT[dtype])
+    dst = (2 * torch.randn((b, n), generator=gen, device=cuda)).to(DT[dtype])
+    for mode in ("dual", "sig", "neg", "plain"):
+        xs = (x, x) if mode == "dual" else (x,)
+        logits = () if mode == "plain" else (src, dst)
+        _, stats, _ = fg._fwd_launch("degree", mode, xs, adj, *logits)
+        assert torch.equal(stats, _ref_degree(adj, src, dst, mode)), mode
+
+
+@pytest.mark.parametrize("n,dtype,wide", [(512, "bfloat16", True), (384, "bfloat16", False),
+                                          (512, "float32", True), (384, "float32", False)])
+def test_forward_keeps_non_finite_logits_to_their_edges(cuda, n, dtype, wide):
+    """A slot without an edge may carry a non-finite logit: on both degree
+    paths and in the aggregate a zero count forms no sigmoid, so the outputs,
+    the statistics and the live map equal those of the same batch with that
+    logit set to 0, bit for bit, in every weighted mode."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    b = _wide_batch(2 if dtype == "bfloat16" else 4, n) if wide else 3
+    sizes = [(n - 40, n // 3, 0)[i % 3] for i in range(b)]
+    adj = _padded_adj(cuda, b, n, sizes, seed=n + 7).to(DT[dtype])
+    gen = torch.Generator(device=cuda).manual_seed(n + 8)
+    x = torch.randn((b, n, 40), generator=gen, device=cuda).to(DT[dtype])
+    src = torch.randn((b, n), generator=gen, device=cuda).to(DT[dtype])
+    dst = (2 * torch.randn((b, n), generator=gen, device=cuda)).to(DT[dtype])
+    bare = torch.arange(n, device=cuda)[None, :] >= torch.tensor(sizes, device=cuda)[:, None]
+    bad = (src.masked_fill(bare, float("nan")), dst.masked_fill(bare, float("inf")))
+    zero = (src.masked_fill(bare, 0.0), dst.masked_fill(bare, 0.0))
+    for mode in ("dual", "sig", "neg"):
+        xs = (x, x) if mode == "dual" else (x,)
+        got, ref = (fg._fwd_launch("forward", mode, xs, adj, *lg) for lg in (bad, zero))
+        for a, r in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
+            assert torch.equal(a, r), mode
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_takes_the_forward_live_map(cuda, dtype):
+    """The Functions hand the forward's statistics and live map to the
+    backward, which then runs no degree pass (so no read of adj beyond its
+    live tiles): the same bits as the backward alone, which builds its own,
+    for the dual pair and K18B at both negates; one launch a call."""
+    from cal_tpu_torch.ops import fused_gcn as fg
+
+    adj = _padded_adj(cuda, 3, 700, (650, 40, 0), seed=3).to(DT[dtype])
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xc, xo, gc, go = (torch.randn((3, 700, 72), generator=gen, device=cuda).to(DT[dtype])
+                      for _ in range(4))
+    src = torch.randn((3, 700), generator=gen, device=cuda).to(DT[dtype])
+    dst = (2 * torch.randn((3, 700), generator=gen, device=cuda)).to(DT[dtype])
+    ref = fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go)
+    leaves = [t.clone().requires_grad_() for t in (xc, xo, src, dst)]
+    before = (fused_gcn_dense_att_dual.launches, fused_gcn_dense_att_dual_bwd.launches)
+    oc, oo = fused_gcn_dense_att_dual(leaves[0], leaves[1], adj, leaves[2], leaves[3])
+    torch.autograd.backward((oc, oo), (gc, go))
+    assert (fused_gcn_dense_att_dual.launches, fused_gcn_dense_att_dual_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for leaf, r in zip(leaves, ref):
+        assert torch.equal(leaf.grad, r)
+    _, stats, live = fg._dual_fwd(xc, xo, adj, src, dst)
+    handed = lambda: fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats, live)
+    for a, r in zip(handed(), ref):
+        assert torch.equal(a, r)
+    names = _device_kernels(handed)
+    assert not any("degree_" in k for k in names), names
+    names = _device_kernels(lambda: fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go))
+    assert sum("degree_" in k for k in names) == 1, names
+    for negate in (False, True):
+        ref = fg.fused_gcn_dense_att_bwd(xc, adj, src, dst, gc, negate)
+        leaves = [t.clone().requires_grad_() for t in (xc, src, dst)]
+        before = (fg.fused_gcn_dense_att.launches, fg.fused_gcn_dense_att_bwd.launches)
+        out = fg.fused_gcn_dense_att(leaves[0], adj, leaves[1], leaves[2], negate)
+        out.backward(gc)
+        assert (fg.fused_gcn_dense_att.launches, fg.fused_gcn_dense_att_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        for leaf, r in zip(leaves, ref):
+            assert torch.equal(leaf.grad, r)
+    with pytest.raises(ValueError, match="together"):
+        fused_gcn_dense_att_dual_bwd(xc, xo, adj, src, dst, gc, go, stats)
 
 
 # ---- row 9: multi-head coefficient SpMM (K19/K19T/K20), row 14 (K21) ------
@@ -1153,23 +1379,37 @@ def test_coo_mh_function_matches_autograd_and_launches(cuda):
     assert torch.equal(coo.coo_sddmm_mh(x, cot, g, 4), coo.coo_sddmm_mh(x, cot, g, 4))
 
 
+# E % 4 != 0 (element-wise reads), more planes than one batch of four, the
+# walk's degree classes, a padded run of many chunks with dead values left
+# random (K21 reads every edge)
 @pytest.mark.parametrize("v,e,hub,pad,k", [
     (300, 900, 0, 0, 1),
+    (300, 901, 0, 2, 2),
     (1000, 4000, 700, 300, 3),
     (2048, 6000, 3000, 5000, 4),
+    (3000, 6000, (32, 33, 2100), 2500, 6),
+    (3000, 6000, (32, 33, 2100), 300, 4),
 ])
 def test_segment_max_kernel_exact(cuda, v, e, hub, pad, k):
+    """K21 bit for bit against its twin, in one kernel launch a call that
+    leaves the arrival counters at 0."""
     from cal_tpu_torch.ops import coo_spmm as coo
 
     g = _sparse_graph(cuda, v, e, hub, pad, seed=v + k, isolated=7)
     gen = torch.Generator(device=cuda).manual_seed(v + k)
     vals = torch.randn((k, g.senders.shape[0]), generator=gen, device=cuda)
-    vals = torch.where(g.edge_mask[None], vals, torch.full_like(vals, -1e30))
+    if k != 6:
+        vals = torch.where(g.edge_mask[None], vals, torch.full_like(vals, -1e30))
     before = coo.segment_max.launches
     got = coo.segment_max(vals, g)
     torch.cuda.synchronize()
     assert coo.segment_max.launches == before + 1
     assert torch.equal(got, coo.segment_max_plain(vals, g))
-    assert (got[:, -7:] == -1e30).all()                  # receivers without an edge
+    # receivers without an edge (node V-1 holds the dead edges, random at k = 6)
+    assert ((got[:, -7:-1] if k == 6 else got[:, -7:]) == -1e30).all()
+    assert not g.recv.arrivals.any()
+    names = _device_kernels(lambda: coo.segment_max(vals, g))
+    assert len(names) == 1 and "csr_reduce_kernel" in names[0], names
+    assert torch.equal(coo.segment_max(vals, g), got) and not g.recv.arrivals.any()
     with pytest.raises(ValueError):
         coo.segment_max(vals.double(), g)
