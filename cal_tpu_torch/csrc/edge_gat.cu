@@ -1,17 +1,17 @@
-// Edge-formulated dense multi-head GAT attention, forward and backward, for
-// Hopper (sm_90a).
+// Edge-formulated dense multi-head GAT attention for Hopper (sm_90a): the
+// per-batch edge index and the forward.  The backward is edge_gat_bwd.cu;
+// the shared device code edge_gat.cuh.
 //
-// Replaces: cal_tpu/ops/pallas_gat_sparse.py::_fwd_kernel and ::_bwd_kernel
-// (_edge_gat_fwd_call and _edge_gat_bwd, the custom VJP of _edge_gat_core,
-// reached by edge_gat_dense from the dense GATConvLayer at N >= 384).
+// Replaces: cal_tpu/ops/pallas_gat_sparse.py::_fwd_kernel (_edge_gat_fwd_call,
+// the forward of _edge_gat_core, reached by edge_gat_dense from the dense
+// GATConvLayer at N >= 384).
 //
 // Contract.  edge_flat [E] int32 holds (g*N + r)*N + s per directed edge
-// s -> r, sorted ascending; values >= B*N*N are padding.  Row v = g*N + r
+// s -> r, sorted ascending; values >= B*N*N are padding.  Node v = g*N + r
 // owns the run of slots e with v*N <= edge_flat[e] < (v+1)*N.  Slots with
-// r == s are dropped and every row gets one analytic self term of weight 1
+// r == s are dropped and every node gets one analytic self term of weight 1
 // (PyG 1.1.0: remove, then add); each duplicate slot is its own softmax term.
-// Per head h (ti, tj, dti, dtj [B*N, heads] f32; xh, out, g, dxh [B*N,
-// heads*d] of type T; everything else f32):
+// Per head h (ti, tj [B*N, heads] f32; xh, out [B*N, heads*d] of type T):
 //   pre_e  = ti[v,h] + tj[u,h] for the slot's sender u = g*N + s;
 //   pre_v  = ti[v,h] + tj[v,h] (self);  score = max(pre, 0.2 pre)
 //   m_v    = max of the row's scores and its self score; den_v = sum exp(score - m_v)
@@ -19,599 +19,479 @@
 //   keep_e = philox4x32_10(counter e*heads + h, key (s0, s1))[0] >= thresh;
 //   keep_v = the same at counter 2^40 + v*heads + h (a disjoint range)
 //   out_v  = scale (sum_e keep_e alpha_e xh_u + keep_v alpha_v xh_v)   (head h's columns)
-// Backward, with c = scale and g_v the cotangent of out_v:
-//   da_e   = c keep_e (g_v . xh_u)_h;  da_v = c keep_v (g_v . xh_v)_h
-//   t_v    = sum_e alpha_e da_e + alpha_v da_v
-//   dpre   = (pre >= 0 ? 1 : 0.2) alpha (da - t_v)
-//   dti_v  = sum_e dpre_e + dpre_v;   dtj_u = sum_{e: sender u} dpre_e + dpre_u
-//   dxh_u  = T(sum_{e: sender u} c keep_e alpha_e g_{r_e} + c keep_u alpha_u g_u)
+// The forward also writes m_v and 1 / den_v of the nodes with slots, which
+// the backward takes (edge_gat_bwd.cu header).
 //
-// Bound on this card: bytes.  At B=128, N=3,840, heads*d=128 in bf16 the
-// forward must read xh (126 MB) and write out (126 MB) whole, padded rows
-// included; ti and tj (7.9 MB each) and the ~0.1 M live edges of a
-// SYNREDDIT batch add little: 0.08 ms at 3.35 TB/s.  The backward reads xh
-// and g and writes dxh: 0.12 ms.  The arithmetic (a dot product of d terms
-// per edge and head) is small beside that; the mean SYNREDDIT graph fills
-// ~10% of N, so most rows hold only their self term.
-// Design: one warp per receiver row, which owns every sum of the row (no
-// atomics anywhere).  A binary search per row (row_ptr_kernel) turns the
-// sorted list into row pointers.  The forward takes the row's softmax
-// statistics in one online (max, sum) pass with a lane per edge, then walks
-// the row's edges in chunks of 32: each lane forms its edge's weights (keep
-// bits included) into shared memory, and the warp accumulates weight x xh
-// rows with each lane owning heads*d/32 consecutive columns, so every xh row
-// is read with one coalesced warp load.  Rows without edges (padded nodes,
-// empty graphs) write their self term.  The backward is the port's
-// receiver-then-sender pattern: a row kernel recomputes the statistics, forms
-// da per edge (warp dot products of g_v with xh_u), t_v and dti_v, and writes
-// per-edge f32 columns dpre and c keep alpha plus the self terms; a sender
-// kernel walks the edges in sender order (a permutation sorted by the
-// wrapper) and sums dtj and dxh, one warp per sender.  The keep bits are
-// recomputed from the slot index, so the backward replays the forward's mask.
-// Tensor cores and a persistent schedule are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Bound on this card: bytes.  At B = 128, N = 3,840, heads*d = 128 in bf16
+// the forward must read xh (126 MB) and write out (126 MB) whole, padded
+// rows included; ti and tj and the ~0.1 M live slots of a SYNREDDIT batch
+// add little: 0.08 ms at 3.35 TB/s.  About 90% of the rows hold no slot.
+//
+// Design.  The batch's index (edge_index_launch, once a batch) lists the
+// nodes with slots by size (edge_gat.cuh).  Two launches:
+//  - the walk (persistent, its item count on the device): the heavy rows'
+//    32-slot chunks first, then the light rows, a lane group each.  A group
+//    reads its span's senders and their tj at once (K slots a lane), forms
+//    the span's max and sum by group shuffles, the weights with their keep
+//    bits, then walks the slots in order, kUnroll neighbour rows of 32
+//    bytes a lane in flight (two: four took 40 more registers, one block an
+//    SM, and 0.118 ms against 0.081; PERF.md §6).  A light row writes
+//    out_v; a heavy row's chunk writes (m, l, acc) against its own max, and
+//    the row's last chunk to arrive rescales them (online softmax), sums
+//    them in chunk order and writes out_v;
+//  - the stream: a node without slots has alpha_v = exp(0) * 1 = 1, so
+//    out_v = keep_v scale xh_v: 32-byte vectors a lane, several nodes a warp,
+//    no reduction; the weight is still formed from the logits (one expf a
+//    node and head), so a non-finite logit propagates as in the plain twin,
+//    and the bits are those of the one-warp-a-row kernel this replaced.
+// The stream in the walk's launch, in turns with its items, was slower (its
+// registers held the stream to one block an SM: 0.297 ms against 0.163).
+// A light row sums its slots in slot order, as before; its statistics are
+// summed in another order (a group's tree), and a heavy row in chunks, so a
+// row with slots can differ from the earlier kernel in its last bits.
+//
+// The index: the receiver runs come from one pass over adjacent keys of the
+// sorted list (a run starts where the node changes), the sender order from
+// one stable sort of the keys (g*N + s)*N + r (torch.sort, in the wrapper)
+// and the same pass over it; a second pass lists the light nodes (one
+// warp-aggregated atomic a warp: the lists' order follows the schedule,
+// which no result depends on) and the heavy rows' chunks.  No host
+// synchronization.
+#include "edge_gat.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHeads = 8;
-constexpr float kNegSlope = 0.2f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kSelfCounter = 1ull << 40;
+constexpr int kUnroll = 2;   // neighbour rows a group loads before their FMAs
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// ---------------------------------------------------------------------------
+// The per-batch index.
+
+__device__ __forceinline__ int node_of(int key, int N, int total, int rows) {
+  return key >= 0 && key < total ? key / N : rows;
 }
 
-__device__ __forceinline__ float leaky(float x) { return fmaxf(x, kNegSlope * x); }
+// keys[i] = (g*N + s)*N + r of slot i (padding: B*N*N), the sender-major key
+__global__ void edge_keys_kernel(const int* __restrict__ ef, int E, int N, int rows,
+                                 int* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  const int total = rows * N, nn = N * N, k = ef[i];
+  keys[i] = k >= 0 && k < total ? ((k / nn) * N + k % N) * N + (k / N) % N : total;
+}
 
-// Philox-4x32-10 (Salmon et al., SC'11): the first output word for the
-// counter (lo, hi, 0, 0) under the key (k0, k1), as csrc/flash_gat.cu
-__device__ __forceinline__ uint32_t philox_bits(uint64_t ctr, uint32_t k0, uint32_t k1) {
-  uint32_t c0 = (uint32_t)ctr, c1 = (uint32_t)(ctr >> 32), c2 = 0, c3 = 0;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
+// The run of each node in both orders (a run starts and ends where the node
+// of adjacent keys changes), the receiver of each sender-order place and the
+// sender-order place of each slot.
+__global__ void edge_runs_kernel(const int* __restrict__ ef, const int* __restrict__ keyt,
+                                 const long long* __restrict__ perm, int E, int N, int rows,
+                                 int2* rrange, int2* srange, int* __restrict__ spos,
+                                 int* __restrict__ srecv) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  const int total = rows * N;
+  const int v = node_of(ef[i], N, total, rows);
+  if (v < rows) {
+    if (i == 0 || node_of(ef[i - 1], N, total, rows) != v) rrange[v].x = i;
+    if (i + 1 == E || node_of(ef[i + 1], N, total, rows) != v) rrange[v].y = i + 1;
   }
-  return c0;
-}
-
-// keep bit of one (slot, head) or (row, head) counter; thresh 0 keeps all
-__device__ __forceinline__ bool keep_at(uint64_t ctr, uint32_t s0, uint32_t s1,
-                                        uint32_t thresh) {
-  return thresh == 0 || philox_bits(ctr, s0, s1) >= thresh;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// sum over the lph lanes (a power of two) that hold one head's columns
-__device__ __forceinline__ float group_sum(float v, int lph) {
-  for (int o = lph >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// CPL consecutive values of type T (16-, 8- or narrower vector loads) as f32
-template <typename T, int CPL>
-__device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&v)[CPL]) {
-  constexpr int kBytes = CPL * (int)sizeof(T);
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPer = 16 / (int)sizeof(T);
-#pragma unroll
-    for (int q = 0; q < kBytes / 16; ++q) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + q);
-      const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) v[q * kPer + i] = to_f(t[i]);
-    }
-  } else if constexpr (kBytes == 8) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) v[i] = to_f(t[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) v[i] = to_f(p[i]);
+  const int kt = keyt[i];   // in [0, total]; total / N = rows
+  const int u = kt / N;
+  if (u < rows) {
+    if (i == 0 || keyt[i - 1] / N != u) srange[u].x = i;
+    if (i + 1 == E || keyt[i + 1] / N != u) srange[u].y = i + 1;
   }
+  srecv[i] = u < rows ? (kt / (N * N)) * N + kt % N : -1;
+  spos[(int)perm[i]] = i;
 }
 
-template <typename T, int CPL>
-__device__ __forceinline__ void store_cols(T* __restrict__ p, const float (&v)[CPL]) {
-  constexpr int kBytes = CPL * (int)sizeof(T);
-  alignas(16) T t[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) t[i] = from_f<T>(v[i]);
-  if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-    for (int q = 0; q < kBytes / 16; ++q)
-      reinterpret_cast<uint4*>(p)[q] = reinterpret_cast<const uint4*>(t)[q];
-  } else if constexpr (kBytes == 8) {
-    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(t);
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) p[i] = t[i];
+// One place a lane that asks, from one atomic a warp; every lane of the
+// warp calls it.
+__device__ __forceinline__ int append(int* count, bool pred) {
+  const unsigned b = __ballot_sync(kFull, pred);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (b != 0u) {
+    const int leader = __ffs(b) - 1;
+    if (lane == leader) base = atomicAdd(count, __popc(b));
+    base = __shfl_sync(kFull, base, leader);
   }
+  return base + __popc(b & ((1u << lane) - 1u));
 }
 
-// ptr[v] = first slot e with keys[e] >= v*N, for v in [0, rows]: the row
-// pointers of a sorted key list (rows = B*N, keys < 2^31)
-__global__ void row_ptr_kernel(const int* __restrict__ keys, int E, int N, int rows,
-                               int* __restrict__ ptr) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v > rows) return;
-  const long long target = (long long)v * N;
-  int lo = 0, hi = E;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long long)keys[mid] < target) lo = mid + 1; else hi = mid;
+__device__ __forceinline__ void push_chunks(int2* list, int* count, int v, int len) {
+  const int n = (len + kSpan - 1) / kSpan;
+  const int p0 = atomicAdd(count, n);
+  for (int c = 0; c < n; ++c) list[p0 + c] = make_int2(v, p0);
+}
+
+// At the first slot of each run: the node onto its light list, or its
+// chunks onto its heavy list; a receiver without sender slots also onto the
+// light sender list (the backward's sender pass writes its dtj and dxh).
+__global__ void edge_lists_kernel(const int* __restrict__ ef, const int* __restrict__ keyt,
+                                  int E, int N, int rows, const int2* __restrict__ rrange,
+                                  const int2* __restrict__ srange, int* __restrict__ light_r,
+                                  int2* __restrict__ heavy_r, int* __restrict__ light_s,
+                                  int2* __restrict__ heavy_s, int* __restrict__ counts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < E;
+  const int total = rows * N;
+  const int v = in ? node_of(ef[i], N, total, rows) : rows;
+  const bool rstart = v < rows && (i == 0 || node_of(ef[i - 1], N, total, rows) != v);
+  int rlen = 0, vslen = 1;
+  if (rstart) {
+    const int2 rr = rrange[v], sr = srange[v];
+    rlen = rr.y - rr.x;
+    vslen = sr.y - sr.x;
   }
-  ptr[v] = lo;
+  const int u = in ? keyt[i] / N : rows;
+  const bool sstart = u < rows && (i == 0 || keyt[i - 1] / N != u);
+  int slen = 0;
+  if (sstart) {
+    const int2 sr = srange[u];
+    slen = sr.y - sr.x;
+  }
+  int q = append(counts + 0, rstart && rlen <= kSpan);
+  if (rstart && rlen <= kSpan) light_r[q] = v;
+  q = append(counts + 2, sstart && slen <= kSpan);
+  if (sstart && slen <= kSpan) light_s[q] = u;
+  q = append(counts + 2, rstart && vslen == 0);
+  if (rstart && vslen == 0) light_s[q] = v;
+  if (rstart && rlen > kSpan) push_chunks(heavy_r, counts + 1, v, rlen);
+  if (sstart && slen > kSpan) push_chunks(heavy_s, counts + 3, u, slen);
 }
 
-// Per-row prologue shared by the forward and the backward row kernel.
-struct Row {
-  int v, r, gN, e0, e1;
-  long long vN;
-  float ti[kMaxHeads], self_pre[kMaxHeads], m[kMaxHeads], inv[kMaxHeads];
+// ---------------------------------------------------------------------------
+// Forward.
+
+struct FwdArgs {
+  const float* ti;
+  const float* tj;
+  const void* xh;
+  const int* ef;
+  void* out;
+  float* stat_m;     // [rows, heads] m_v of the nodes with slots
+  float* stat_inv;   // [rows, heads] 1 / den_v
+  float* part_ml;    // [cap_h, 2 heads] a heavy chunk's (m, l)
+  float* part_acc;   // [cap_h, hd] its sum of weight x xh_u (weights against its m)
+  Index ix;
+  int N, rows;
+  uint32_t s0, s1, thresh;
+  float scale;
 };
 
-// The row's receiver half of the scores and its self scores, then the
-// softmax statistics over its edge run and self term: one online (max, sum)
-// pass with a lane per edge, combined across the warp.  m and inv (the
-// reciprocal denominator) come out equal in every lane.
-__device__ __forceinline__ void row_stats(Row& w, const float* __restrict__ ti,
-                                          const float* __restrict__ tj,
-                                          const int* __restrict__ ef, int heads, int lane) {
-  float l[kMaxHeads];
+// Node v over its slots [beg, end) (at most kSpan): a light row (c < 0)
+// writes out_v and its statistics; chunk c of a heavy row writes its partial
+// at place c and, arriving last of the row's n (places p0 on), merges them.
+template <typename T, int HEADS, int HD>
+__device__ __forceinline__ void fwd_span(const FwdArgs& a, const Lane& L, int v, int beg,
+                                         int end, int c, int p0, int n) {
+  using S = Shape<T, HEADS, HD>;
+  constexpr int F = S::F, G = S::G, K = S::K, W = S::W;
+  const T* __restrict__ xh = static_cast<const T*>(a.xh);
+  const int r = v % a.N, gN = v - r, hl = L.gl / S::LPH;
+  const long long vN = (long long)v * a.N;
+  const bool light = c < 0;
+  float tiv[HEADS], tjv[HEADS], self[HEADS];
+  load_heads<HEADS>(a.ti + (size_t)v * HEADS, tiv);
+  load_heads<HEADS>(a.tj + (size_t)v * HEADS, tjv);
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    const bool on = h < heads;
-    w.ti[h] = on ? ti[(size_t)w.v * heads + h] : 0.f;
-    w.self_pre[h] = on ? w.ti[h] + tj[(size_t)w.v * heads + h] : 0.f;
-    w.m[h] = leaky(w.self_pre[h]);
-    l[h] = lane == 0 ? 1.f : 0.f;          // the self term, counted once
+  for (int h = 0; h < HEADS; ++h) self[h] = leaky(tiv[h] + tjv[h]);
+
+  // this lane's slots beg + gl + k G: the sender (-1: none, or a self loop)
+  // and the scores, then exp(score - m) and the weights
+  int s[K];
+  float p[K][HEADS];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = beg + L.gl + k * G;
+    s[k] = -1;
+    if (e < end) {
+      const int sk = (int)((long long)a.ef[e] - vN);
+      if (sk != r) s[k] = sk;
+    }
   }
-  for (int e = w.e0 + lane; e < w.e1; e += 32) {
-    const int s = (int)((long long)ef[e] - w.vN);
-    if (s == w.r) continue;
-    const float* tjs = tj + (size_t)(w.gN + s) * heads;
 #pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h >= heads) break;
-      const float sc = leaky(w.ti[h] + tjs[h]);
-      if (sc > w.m[h]) {
-        l[h] = l[h] * expf(w.m[h] - sc) + 1.f;
-        w.m[h] = sc;
-      } else {
-        l[h] += expf(sc - w.m[h]);
+  for (int k = 0; k < K; ++k) {
+    float t[HEADS];
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) t[h] = 0.f;
+    if (s[k] >= 0) load_heads<HEADS>(a.tj + (size_t)(gN + s[k]) * HEADS, t);
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) p[k][h] = leaky(tiv[h] + t[h]);
+  }
+  float m[HEADS], l[HEADS], inv[HEADS];
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) {
+    m[h] = self[h];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (s[k] >= 0) m[h] = fmaxf(m[h], p[k][h]);
+    m[h] = lanes_max<G>(m[h], L.mask);
+    l[h] = light && L.gl == 0 ? expf(self[h] - m[h]) : 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (s[k] >= 0) {
+        p[k][h] = expf(p[k][h] - m[h]);
+        l[h] += p[k][h];
       }
-    }
+    l[h] = lanes_sum<G>(l[h], L.mask);
+    inv[h] = light ? 1.f / l[h] : 1.f;
   }
+  const float wscale = light ? a.scale : 1.f;
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
+  for (int k = 0; k < K; ++k) {
+    const uint64_t e = (uint64_t)(beg + L.gl + k * G);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(kFull, w.m[h], o);
-      const float l2 = __shfl_xor_sync(kFull, l[h], o);
-      const float mm = fmaxf(w.m[h], m2);
-      l[h] = l[h] * expf(w.m[h] - mm) + l2 * expf(m2 - mm);
-      w.m[h] = mm;
-    }
-    w.inv[h] = 1.f / l[h];
+    for (int h = 0; h < HEADS; ++h)
+      p[k][h] = s[k] >= 0 && keep_at(e * HEADS + h, a.s0, a.s1, a.thresh)
+                    ? p[k][h] * inv[h] * wscale : 0.f;
   }
-}
 
-__device__ __forceinline__ bool open_row(Row& w, const int* __restrict__ ptr, int rows, int N,
-                                         int warp) {
-  w.v = blockIdx.x * kWarps + warp;
-  if (w.v >= rows) return false;
-  w.r = w.v % N;
-  w.gN = w.v - w.r;
-  w.vN = (long long)w.v * N;
-  w.e0 = ptr[w.v];
-  w.e1 = ptr[w.v + 1];
-  return true;
-}
-
-// ---------------------------------------------------------------------------
-// Forward.  One warp per row; grid ceil(B*N / kWarps).
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kThreads)
-edge_gat_fwd_kernel(const float* __restrict__ ti, const float* __restrict__ tj,
-                    const T* __restrict__ xh, const int* __restrict__ ef,
-                    const int* __restrict__ ptr, T* __restrict__ out, int rows, int N,
-                    int heads, uint32_t s0, uint32_t s1, uint32_t thresh, float scale) {
-  __shared__ float w_s[kWarps][32][kMaxHeads];   // the chunk's edge weights
-  __shared__ int src_s[kWarps][32];              // the chunk's senders (-1: none)
-  constexpr int kHd = 32 * CPL;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  Row w;
-  if (!open_row(w, ptr, rows, N, warp)) return;
-  row_stats(w, ti, tj, ef, heads, lane);
-  const int hl = lane * CPL / (kHd / heads);      // the head of this lane's columns
-
-  float ws = 0.f;                                 // self weight of this lane's head
+  float acc[F];
+  if (light) {
+    const float as = expf(pick(self, hl) - pick(m, hl)) * pick(inv, hl);
+    const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.s0, a.s1, a.thresh)
+                         ? as * a.scale : 0.f;
+    uint32_t xw[W];
+    load_words<T, F>(xh + (size_t)v * HD + L.gl * F, xw);
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h)
-    if (h == hl) {
-      const float a = expf(leaky(w.self_pre[h]) - w.m[h]) * w.inv[h];
-      ws = keep_at(kSelfCounter + (uint64_t)w.v * heads + h, s0, s1, thresh) ? a * scale : 0.f;
-    }
-  float acc[CPL], x[CPL];
-  load_cols<T, CPL>(xh + (size_t)w.v * kHd + lane * CPL, x);
+    for (int i = 0; i < F; ++i) acc[i] = ws * word_elem<T>(xw, i);
+  } else {
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) acc[i] = ws * x[i];
-
-  for (int base = w.e0; base < w.e1; base += 32) {
-    const int e = base + lane;
-    int s = -1;
-    if (e < w.e1) {
-      s = (int)((long long)ef[e] - w.vN);
-      if (s == w.r) s = -1;
-    }
-    if (s >= 0) {
-      const float* tjs = tj + (size_t)(w.gN + s) * heads;
+    for (int i = 0; i < F; ++i) acc[i] = 0.f;
+  }
+  // the slots in order, slot k G + o owned by lane o
+  const int cnt = end - beg;
 #pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h) {
-        if (h >= heads) break;
-        const float a = expf(leaky(w.ti[h] + tjs[h]) - w.m[h]) * w.inv[h];
-        w_s[warp][lane][h] =
-            keep_at((uint64_t)e * heads + h, s0, s1, thresh) ? a * scale : 0.f;
+  for (int k = 0; k < K; ++k) {
+    if (k * G >= cnt) break;
+    for (int o = 0; o < G && k * G + o < cnt; o += kUnroll) {
+      int sj[kUnroll];
+      float wj[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int src = L.base + min(o + u, G - 1);
+        sj[u] = __shfl_sync(L.mask, s[k], src);
+        wj[u] = 0.f;
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          const float t = __shfl_sync(L.mask, p[k][h], src);
+          if (h == hl) wj[u] = t;
+        }
+        if (o + u >= G || k * G + o + u >= cnt) sj[u] = -1;
       }
-    }
-    src_s[warp][lane] = s;
-    __syncwarp();
-    const int cnt = min(32, w.e1 - base);
-    for (int j = 0; j < cnt; ++j) {
-      const int sj = src_s[warp][j];
-      if (sj < 0) continue;
-      const float wj = w_s[warp][j][hl];
-      load_cols<T, CPL>(xh + (size_t)(w.gN + sj) * kHd + lane * CPL, x);
+      uint32_t xw[kUnroll][W];
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) acc[i] = fmaf(wj, x[i], acc[i]);
-    }
-    __syncwarp();
-  }
-  store_cols<T, CPL>(out + (size_t)w.v * kHd + lane * CPL, acc);
-}
-
-// ---------------------------------------------------------------------------
-// Backward, receiver side.  One warp per row.  Writes dti and the self terms
-// dpre_v (dself) and c keep_v alpha_v (wself), [B*N, heads], and per slot
-// dpre_e (de) and c keep_e alpha_e (we), [E, heads] (zeros on self-loop
-// slots).  de holds da_e between the two edge passes; each slot is written
-// and read back by the same lane.
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kThreads)
-edge_gat_bwd_row_kernel(const float* __restrict__ ti, const float* __restrict__ tj,
-                        const T* __restrict__ xh, const T* __restrict__ g,
-                        const int* __restrict__ ef, const int* __restrict__ ptr,
-                        float* __restrict__ dti, float* __restrict__ dself,
-                        float* __restrict__ wself, float* de, float* __restrict__ we,
-                        int rows, int N, int heads, uint32_t s0, uint32_t s1, uint32_t thresh,
-                        float scale) {
-  __shared__ float a_s[kWarps][32][kMaxHeads];   // the chunk's alpha (before dropout)
-  __shared__ unsigned k_s[kWarps][32];           // the chunk's keep bits, one per head
-  __shared__ int src_s[kWarps][32];
-  constexpr int kHd = 32 * CPL;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  Row w;
-  if (!open_row(w, ptr, rows, N, warp)) return;
-  row_stats(w, ti, tj, ef, heads, lane);
-  const int lph = (kHd / heads) / CPL;           // lanes per head
-
-  float gr[CPL], x[CPL];
-  load_cols<T, CPL>(g + (size_t)w.v * kHd + lane * CPL, gr);
-  load_cols<T, CPL>(xh + (size_t)w.v * kHd + lane * CPL, x);
-  float q = 0.f;
+      for (int u = 0; u < kUnroll; ++u)
+        if (sj[u] >= 0) load_words<T, F>(xh + (size_t)(gN + sj[u]) * HD + L.gl * F, xw[u]);
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) q = fmaf(gr[i], x[i], q);
-  q = group_sum(q, lph);
-  float a_self[kMaxHeads], da_self[kMaxHeads], w_self[kMaxHeads], t[kMaxHeads];
+      for (int u = 0; u < kUnroll; ++u)
+        if (sj[u] >= 0)
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    const float dot = __shfl_sync(kFull, q, (h * lph) & 31);
-    const bool k = h < heads &&
-                   keep_at(kSelfCounter + (uint64_t)w.v * heads + h, s0, s1, thresh);
-    a_self[h] = expf(leaky(w.self_pre[h]) - w.m[h]) * w.inv[h];
-    da_self[h] = k ? scale * dot : 0.f;
-    w_self[h] = k ? scale * a_self[h] : 0.f;
-    t[h] = a_self[h] * da_self[h];
-  }
-
-  // pass 1: da per slot (stashed in de by the slot's lane) and t
-  for (int base = w.e0; base < w.e1; base += 32) {
-    const int e = base + lane;
-    int s = -1;
-    unsigned kb = 0;
-    if (e < w.e1) {
-      s = (int)((long long)ef[e] - w.vN);
-      if (s == w.r) s = -1;
-    }
-    if (s >= 0) {
-      const float* tjs = tj + (size_t)(w.gN + s) * heads;
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h) {
-        if (h >= heads) break;
-        a_s[warp][lane][h] = expf(leaky(w.ti[h] + tjs[h]) - w.m[h]) * w.inv[h];
-        if (keep_at((uint64_t)e * heads + h, s0, s1, thresh)) kb |= 1u << h;
-      }
-    }
-    src_s[warp][lane] = s;
-    k_s[warp][lane] = kb;
-    __syncwarp();
-    float da_own[kMaxHeads];
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) da_own[h] = 0.f;
-    const int cnt = min(32, w.e1 - base);
-    for (int j = 0; j < cnt; ++j) {
-      const int sj = src_s[warp][j];
-      if (sj < 0) continue;
-      load_cols<T, CPL>(xh + (size_t)(w.gN + sj) * kHd + lane * CPL, x);
-      float p = 0.f;
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) p = fmaf(gr[i], x[i], p);
-      p = group_sum(p, lph);
-      const unsigned kbj = k_s[warp][j];
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h) {
-        const float dot = __shfl_sync(kFull, p, (h * lph) & 31);
-        if (h >= heads) continue;
-        const float da = (kbj >> h) & 1u ? scale * dot : 0.f;
-        t[h] = fmaf(a_s[warp][j][h], da, t[h]);
-        if (lane == j) da_own[h] = da;
-      }
-    }
-    if (s >= 0)
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h)
-        if (h < heads) de[(size_t)e * heads + h] = da_own[h];
-    __syncwarp();
-  }
-
-  // pass 2: dpre and c keep alpha per slot, dti
-  float dti_l[kMaxHeads];
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) dti_l[h] = 0.f;
-  for (int e = w.e0 + lane; e < w.e1; e += 32) {
-    const int s = (int)((long long)ef[e] - w.vN);
-    float* de_e = de + (size_t)e * heads;
-    float* we_e = we + (size_t)e * heads;
-    if (s == w.r) {
-      for (int h = 0; h < heads; ++h) de_e[h] = we_e[h] = 0.f;
-      continue;
-    }
-    const float* tjs = tj + (size_t)(w.gN + s) * heads;
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h >= heads) break;
-      const float pre = w.ti[h] + tjs[h];
-      const float a = expf(leaky(pre) - w.m[h]) * w.inv[h];
-      const float ds = a * (de_e[h] - t[h]);
-      const float dp = pre >= 0.f ? ds : kNegSlope * ds;
-      de_e[h] = dp;
-      we_e[h] = keep_at((uint64_t)e * heads + h, s0, s1, thresh) ? scale * a : 0.f;
-      dti_l[h] += dp;
+          for (int i = 0; i < F; ++i) acc[i] = fmaf(wj[u], word_elem<T>(xw[u], i), acc[i]);
     }
   }
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    const float sum = warp_sum(dti_l[h]);
-    if (lane == 0 && h < heads) {
-      const float ds = a_self[h] * (da_self[h] - t[h]);
-      const float dp = w.self_pre[h] >= 0.f ? ds : kNegSlope * ds;
-      const size_t at = (size_t)w.v * heads + h;
-      dti[at] = sum + dp;
-      dself[at] = dp;
-      wself[at] = w_self[h];
+  T* __restrict__ out = static_cast<T*>(a.out) + (size_t)v * HD + L.gl * F;
+  if (light) {
+    store_vec<T, F>(out, acc);
+    if (L.gl == 0) {
+      store_heads<HEADS>(a.stat_m + (size_t)v * HEADS, m);
+      store_heads<HEADS>(a.stat_inv + (size_t)v * HEADS, inv);
     }
+    return;
+  }
+
+  // a heavy chunk: its partial, then the row's merge by its last chunk
+  if (L.gl == 0) {
+    store_heads<HEADS>(a.part_ml + (size_t)c * 2 * HEADS, m);
+    store_heads<HEADS>(a.part_ml + (size_t)c * 2 * HEADS + HEADS, l);
+  }
+  store_vec<float, F>(a.part_acc + (size_t)c * HD + L.gl * F, acc);
+  if (!arrived_last(a.ix.arr_r, p0, n, L)) return;
+  // the row's max and denominator over its chunks: the lanes take the
+  // chunks in turn, then a group tree (a chain of n dependent loads a lane
+  // made the hubs' merge the walk's longest path)
+  float M[HEADS], den[HEADS];
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) M[h] = self[h];
+  for (int q = L.gl; q < n; q += G) {
+    float mq[HEADS];
+    load_heads_cg<HEADS>(a.part_ml + (size_t)(p0 + q) * 2 * HEADS, mq);
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) M[h] = fmaxf(M[h], mq[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) {
+    M[h] = lanes_max<G>(M[h], L.mask);
+    den[h] = L.gl == 0 ? expf(self[h] - M[h]) : 0.f;
+  }
+  for (int q = L.gl; q < n; q += G) {
+    float mq[HEADS], lq[HEADS];
+    load_heads_cg<HEADS>(a.part_ml + (size_t)(p0 + q) * 2 * HEADS, mq);
+    load_heads_cg<HEADS>(a.part_ml + (size_t)(p0 + q) * 2 * HEADS + HEADS, lq);
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) den[h] = fmaf(lq[h], expf(mq[h] - M[h]), den[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) inv[h] = 1.f / lanes_sum<G>(den[h], L.mask);
+  const float Mh = pick(M, hl), ih = pick(inv, hl);
+  const float as = expf(pick(self, hl) - Mh) * ih;
+  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.s0, a.s1, a.thresh)
+                       ? as * a.scale : 0.f;
+  uint32_t xw[W];
+  load_words<T, F>(xh + (size_t)v * HD + L.gl * F, xw);
+#pragma unroll
+  for (int i = 0; i < F; ++i) acc[i] = ws * word_elem<T>(xw, i);
+  // the accumulators in chunk order
+  for (int q = 0; q < n; ++q) {
+    const size_t at = (size_t)(p0 + q);
+    const float f = expf(__ldcg(a.part_ml + at * 2 * HEADS + hl) - Mh) * ih * a.scale;
+    const float4* pa = reinterpret_cast<const float4*>(a.part_acc + at * HD + L.gl * F);
+#pragma unroll
+    for (int i4 = 0; i4 < F / 4; ++i4) {
+      const float4 t = __ldcg(pa + i4);
+      acc[4 * i4] = fmaf(f, t.x, acc[4 * i4]);
+      acc[4 * i4 + 1] = fmaf(f, t.y, acc[4 * i4 + 1]);
+      acc[4 * i4 + 2] = fmaf(f, t.z, acc[4 * i4 + 2]);
+      acc[4 * i4 + 3] = fmaf(f, t.w, acc[4 * i4 + 3]);
+    }
+  }
+  store_vec<T, F>(out, acc);
+  if (L.gl == 0) {
+    store_heads<HEADS>(a.stat_m + (size_t)v * HEADS, M);
+    store_heads<HEADS>(a.stat_inv + (size_t)v * HEADS, inv);
+    a.ix.arr_r[p0] = 0;
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward, sender side.  One warp per sender u over its slots in sender
-// order (keyt: the sorted keys (g*N + s)*N + r, perm: their slots, sptr: row
-// pointers over keyt): dtj_u = sum de + dself_u; dxh_u = sum we g_r + wself_u g_u.
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kThreads)
-edge_gat_bwd_col_kernel(const T* __restrict__ g, const int* __restrict__ keyt,
-                        const int* __restrict__ perm, const int* __restrict__ sptr,
-                        const float* __restrict__ de, const float* __restrict__ we,
-                        const float* __restrict__ dself, const float* __restrict__ wself,
-                        float* __restrict__ dtj, T* __restrict__ dxh, int rows, int N,
-                        int heads) {
-  __shared__ int r_s[kWarps][32], e_s[kWarps][32];
-  constexpr int kHd = 32 * CPL;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int u = blockIdx.x * kWarps + warp;
-  if (u >= rows) return;
-  const int s = u % N, gN = u - s;
-  const long long uN = (long long)u * N;
-  const int k0 = sptr[u], k1 = sptr[u + 1];
-  const int hl = lane * CPL / (kHd / heads);
-
-  float acc[CPL], x[CPL];
-  load_cols<T, CPL>(g + (size_t)u * kHd + lane * CPL, x);
-  const float ws = wself[(size_t)u * heads + hl];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) acc[i] = ws * x[i];
-  float dtj_l[kMaxHeads];
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) dtj_l[h] = 0.f;
-
-  for (int base = k0; base < k1; base += 32) {
-    const int k = base + lane;
-    if (k < k1) {
-      const int e = perm[k];
-      r_s[warp][lane] = (int)((long long)keyt[k] - uN);
-      e_s[warp][lane] = e;
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h)
-        if (h < heads) dtj_l[h] += de[(size_t)e * heads + h];
-    }
-    __syncwarp();
-    const int cnt = min(32, k1 - base);
-    for (int j = 0; j < cnt; ++j) {
-      const float wj = we[(size_t)e_s[warp][j] * heads + hl];
-      if (wj == 0.f) continue;                   // dropped or a self-loop slot
-      load_cols<T, CPL>(g + (size_t)(gN + r_s[warp][j]) * kHd + lane * CPL, x);
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) acc[i] = fmaf(wj, x[i], acc[i]);
-    }
-    __syncwarp();
+// The nodes with slots: heavy chunks first (their merges are the tail), then
+// light rows, a lane group an item, over a persistent grid; the next item's
+// list entry and span are loaded while this one is walked.  No
+// __launch_bounds__ on the walks: with one, ptxas trades spills for
+// occupancy in some instances (as csr_rows.cuh's walk).
+template <typename T, int HEADS, int HD>
+__global__ void edge_fwd_walk_kernel(const FwdArgs a) {
+  using S = Shape<T, HEADS, HD>;
+  const Lane L = lane_of<S::G>();
+  const int nh = a.ix.counts[1], items = nh + a.ix.counts[0];
+  int it = (blockIdx.x * kThreads + (int)threadIdx.x) / S::G, c = -1;
+  const int stride = walk_stride(it, nh, items, gridDim.x * (kThreads / S::G));
+  Chunk2 k = {0, 0, 0, 0, 0};
+  if (it < items) k = walk_item(a.ix.heavy_r, a.ix.light_r, a.ix.rrange, nh, it, c);
+  while (it < items) {
+    const Chunk2 cur = k;
+    const int cc = c, next = it + stride;
+    if (next < items) k = walk_item(a.ix.heavy_r, a.ix.light_r, a.ix.rrange, nh, next, c);
+    fwd_span<T, HEADS, HD>(a, L, cur.v, cur.beg, cur.end, cc, cur.p0, cur.n);
+    it = next;
   }
+}
+
+// The nodes without slots: out_v = keep_v scale alpha_v xh_v, alpha_v =
+// exp(score - score) (1, or NaN for a non-finite logit), a group a node.
+template <typename T, int HEADS, int HD>
+__global__ void __launch_bounds__(kThreads) edge_fwd_stream_kernel(const FwdArgs a) {
+  using S = Shape<T, HEADS, HD>;
+  constexpr int F = S::F;
+  const Lane L = lane_of<S::G>();
+  const int v = (blockIdx.x * kThreads + (int)threadIdx.x) / S::G;
+  if (v >= a.rows) return;
+  const int h = L.gl / S::LPH;
+  const int2 rr = a.ix.rrange[v];
+  const float sc = leaky(__ldg(a.ti + (size_t)v * HEADS + h) + __ldg(a.tj + (size_t)v * HEADS + h));
+  uint32_t xw[S::W];
+  load_words<T, F>(static_cast<const T*>(a.xh) + (size_t)v * HD + L.gl * F, xw);
+  if (rr.y > rr.x) return;
+  const float as = expf(sc - sc);
+  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + h, a.s0, a.s1, a.thresh)
+                       ? as * a.scale : 0.f;
+  float o[F];
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    const float sum = warp_sum(dtj_l[h]);
-    if (lane == 0 && h < heads) dtj[(size_t)u * heads + h] = sum + dself[(size_t)u * heads + h];
+  for (int i = 0; i < F; ++i) o[i] = ws * word_elem<T>(xw, i);
+  store_vec<T, F>(static_cast<T*>(a.out) + (size_t)v * HD + L.gl * F, o);
+}
+
+template <typename T, int HEADS, int HD>
+struct Fwd {
+  static int run(const FwdArgs& a, cudaStream_t stream) {
+    using S = Shape<T, HEADS, HD>;
+    static const int blocks = persistent_blocks((const void*)edge_fwd_walk_kernel<T, HEADS, HD>);
+    edge_fwd_walk_kernel<T, HEADS, HD><<<blocks, kThreads, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long per_block = kThreads / S::G;
+    edge_fwd_stream_kernel<T, HEADS, HD>
+        <<<(unsigned)((a.rows + per_block - 1) / per_block), kThreads, 0, stream>>>(a);
+    return (int)cudaGetLastError();
   }
-  store_cols<T, CPL>(dxh + (size_t)u * kHd + lane * CPL, acc);
-}
-
-int row_ptr(const int* keys, int E, int N, int rows, int* ptr, cudaStream_t stream) {
-  row_ptr_kernel<<<(unsigned)((rows + 1 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      keys, E, N, rows, ptr);
-  return (int)cudaGetLastError();
-}
-
-unsigned row_blocks(int rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
-
-template <typename T, int CPL>
-int launch_fwd(const void* ti, const void* tj, const void* xh, const int* ef, int E, int* ptr,
-               void* out, int rows, int N, int heads, uint32_t s0, uint32_t s1,
-               uint32_t thresh, float scale, cudaStream_t stream) {
-  int err = row_ptr(ef, E, N, rows, ptr, stream);
-  if (err != 0) return err;
-  edge_gat_fwd_kernel<T, CPL><<<row_blocks(rows), kThreads, 0, stream>>>(
-      static_cast<const float*>(ti), static_cast<const float*>(tj), static_cast<const T*>(xh),
-      ef, ptr, static_cast<T*>(out), rows, N, heads, s0, s1, thresh, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int CPL>
-int launch_bwd(const void* ti, const void* tj, const void* xh, const void* g, const int* ef,
-               const int* keyt, const int* perm, int E, int* ptr, int* sptr, float* scratch,
-               void* dti, void* dtj, void* dxh, int rows, int N, int heads, uint32_t s0,
-               uint32_t s1, uint32_t thresh, float scale, cudaStream_t stream) {
-  const size_t slots = (size_t)E * heads, nodes = (size_t)rows * heads;
-  float* de = scratch;
-  float* we = de + slots;
-  float* dself = we + slots;
-  float* wself = dself + nodes;
-  int err = row_ptr(ef, E, N, rows, ptr, stream);
-  if (err == 0) err = row_ptr(keyt, E, N, rows, sptr, stream);
-  if (err != 0) return err;
-  edge_gat_bwd_row_kernel<T, CPL><<<row_blocks(rows), kThreads, 0, stream>>>(
-      static_cast<const float*>(ti), static_cast<const float*>(tj), static_cast<const T*>(xh),
-      static_cast<const T*>(g), ef, ptr, static_cast<float*>(dti), dself, wself, de, we, rows,
-      N, heads, s0, s1, thresh, scale);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  edge_gat_bwd_col_kernel<T, CPL><<<row_blocks(rows), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), keyt, perm, sptr, de, we, dself, wself,
-      static_cast<float*>(dtj), static_cast<T*>(dxh), rows, N, heads);
-  return (int)cudaGetLastError();
-}
-
-// columns per lane (heads * d / 32) as a template argument
-template <typename T, typename... A>
-int fwd_by_width(int hd, A... args) {
-  switch (hd) {
-    case 32: return launch_fwd<T, 1>(args...);
-    case 64: return launch_fwd<T, 2>(args...);
-    case 128: return launch_fwd<T, 4>(args...);
-    case 256: return launch_fwd<T, 8>(args...);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, typename... A>
-int bwd_by_width(int hd, A... args) {
-  switch (hd) {
-    case 32: return launch_bwd<T, 1>(args...);
-    case 64: return launch_bwd<T, 2>(args...);
-    case 128: return launch_bwd<T, 4>(args...);
-    case 256: return launch_bwd<T, 8>(args...);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-bool bad_shape(int heads, int hd) {
-  return heads < 1 || heads > kMaxHeads || (heads & (heads - 1)) != 0 || hd % heads != 0;
-}
+};
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (xh, out).  ti, tj [B*N, heads] f32;
-// xh, out [B*N, hd] with hd = heads * d in {32, 64, 128, 256} and heads a
-// power of two <= 8; edge_flat [E] int32 sorted, B*N*N < 2^31; ptr int32
-// scratch of B*N + 1.  thresh = uint32(rate * 2^32), 0 for no dropout; (s1,
-// s0) the 64-bit dropout seed; scale = 1 / (1 - rate).  All contiguous,
-// 16-byte aligned.
-extern "C" int edge_gat_fwd_launch(const void* ti, const void* tj, const void* xh,
-                                   const void* edge_flat, int E, void* ptr, void* out, int B,
-                                   int N, int heads, int hd, int dtype, uint32_t s0,
-                                   uint32_t s1, uint32_t thresh, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)B * N;
-  if (rows == 0) return 0;
-  if (bad_shape(heads, hd) || rows * N >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const int* ef = static_cast<const int*>(edge_flat);
-  int* p = static_cast<int*>(ptr);
-  if (dtype == 0)
-    return fwd_by_width<float>(hd, ti, tj, xh, ef, E, p, out, (int)rows, N, heads, s0, s1,
-                               thresh, scale, s);
-  if (dtype == 1)
-    return fwd_by_width<__nv_bfloat16>(hd, ti, tj, xh, ef, E, p, out, (int)rows, N, heads, s0,
-                                       s1, thresh, scale, s);
-  return (int)cudaErrorInvalidValue;
+// keys [E] int32 <- the sender-major key of each slot of edge_flat [E]
+// (int32, sorted; rows = B*N, B*N*N < 2^31).
+extern "C" int edge_keys_launch(const void* edge_flat, int E, int N, int rows, void* keys,
+                                void* stream) {
+  if (E <= 0) return 0;
+  edge_keys_kernel<<<(unsigned)((E + kThreads - 1) / kThreads), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(edge_flat), E,
+                                                          N, rows, static_cast<int*>(keys));
+  return (int)cudaGetLastError();
 }
 
-// As edge_gat_fwd_launch; g [B*N, hd] of the dtype (cotangent of out);
-// keyt [E] int32: the sorted sender-major keys (g*N + s)*N + r (padding
-// B*N*N), perm [E] int32 their slots; ptr, sptr int32 scratch of B*N + 1;
-// scratch f32 of 2 * E * heads + 2 * B * N * heads.  dti, dtj [B*N, heads]
-// f32, dxh [B*N, hd] of the dtype.
-extern "C" int edge_gat_bwd_launch(const void* ti, const void* tj, const void* xh,
-                                   const void* g, const void* edge_flat, const void* keyt,
-                                   const void* perm, int E, void* ptr, void* sptr,
-                                   void* scratch, void* dti, void* dtj, void* dxh, int B, int N,
-                                   int heads, int hd, int dtype, uint32_t s0, uint32_t s1,
-                                   uint32_t thresh, float scale, void* stream) {
+// The index of edge_flat from its keys sorted stably (keyt int32) and their
+// slots (perm int64).  ix: the 11 pointers of edge_gat.cuh's Index, in its
+// order; rrange, srange, counts and the arrival counters zeroed.
+extern "C" int edge_index_launch(const void* edge_flat, const void* keyt, const void* perm, int E,
+                                 int N, int rows, void* const* ix, void* stream) {
+  if (E <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)((E + kThreads - 1) / kThreads);
+  const int* ef = static_cast<const int*>(edge_flat);
+  const int* kt = static_cast<const int*>(keyt);
+  edge_runs_kernel<<<grid, kThreads, 0, s>>>(
+      ef, kt, static_cast<const long long*>(perm), E, N, rows, static_cast<int2*>(ix[0]),
+      static_cast<int2*>(ix[1]), static_cast<int*>(ix[2]), static_cast<int*>(ix[3]));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_lists_kernel<<<grid, kThreads, 0, s>>>(
+      ef, kt, E, N, rows, static_cast<const int2*>(ix[0]), static_cast<const int2*>(ix[1]),
+      static_cast<int*>(ix[4]), static_cast<int2*>(ix[5]), static_cast<int*>(ix[6]),
+      static_cast<int2*>(ix[7]), static_cast<int*>(ix[8]));
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (xh, out).  ti, tj [B*N, heads] f32; xh,
+// out [B*N, hd], heads in {1, 2, 4, 8}, hd in {32, 64, 128, 256};
+// edge_flat [E] int32 sorted, B*N*N < 2^31; ix as edge_index_launch built
+// it; stat_m, stat_inv [B*N, heads] f32 (written for the nodes with slots);
+// part_ml [cap_h, 2 heads] and part_acc [cap_h, hd] f32 scratch.  thresh =
+// uint32(rate * 2^32), 0 for no dropout; (s1, s0) the 64-bit dropout seed;
+// scale = 1 / (1 - rate).  All contiguous, 16-byte aligned.
+extern "C" int edge_gat_fwd_launch(const void* ti, const void* tj, const void* xh,
+                                   const void* edge_flat, void* const* ix, void* out,
+                                   void* stat_m, void* stat_inv, void* part_ml, void* part_acc,
+                                   int B, int N, int heads, int hd, int dtype, uint32_t s0,
+                                   uint32_t s1, uint32_t thresh, float scale, void* stream) {
   const long long rows = (long long)B * N;
   if (rows == 0) return 0;
   if (bad_shape(heads, hd) || rows * N >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const int* ef = static_cast<const int*>(edge_flat);
-  const int* kt = static_cast<const int*>(keyt);
-  const int* pm = static_cast<const int*>(perm);
-  int* p = static_cast<int*>(ptr);
-  int* sp = static_cast<int*>(sptr);
-  float* sc = static_cast<float*>(scratch);
-  if (dtype == 0)
-    return bwd_by_width<float>(hd, ti, tj, xh, g, ef, kt, pm, E, p, sp, sc, dti, dtj, dxh,
-                               (int)rows, N, heads, s0, s1, thresh, scale, s);
-  if (dtype == 1)
-    return bwd_by_width<__nv_bfloat16>(hd, ti, tj, xh, g, ef, kt, pm, E, p, sp, sc, dti, dtj,
-                                       dxh, (int)rows, N, heads, s0, s1, thresh, scale, s);
-  return (int)cudaErrorInvalidValue;
+  FwdArgs a;
+  a.ti = static_cast<const float*>(ti);
+  a.tj = static_cast<const float*>(tj);
+  a.xh = xh;
+  a.ef = static_cast<const int*>(edge_flat);
+  a.out = out;
+  a.stat_m = static_cast<float*>(stat_m);
+  a.stat_inv = static_cast<float*>(stat_inv);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.ix = index_from(ix);
+  a.N = N;
+  a.rows = (int)rows;
+  a.s0 = s0;
+  a.s1 = s1;
+  a.thresh = thresh;
+  a.scale = scale;
+  return dispatch<Fwd>(dtype, heads, hd, a, static_cast<cudaStream_t>(stream));
 }

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from cal_tpu_torch.ops.adj_build import adj_build
+from cal_tpu_torch.ops.edge_gat import EdgeIndex
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +79,10 @@ class DenseGraphBatch:
     s -> r (row = receiver, no self loops added); node_mask [B, N] bool;
     y [B]; graph_mask [B] bool.  ``edge_flat`` (the sorted int32 flat edge
     list of the packed batch, or None) and ``eg_budget`` (the largest edge
-    count of one graph) feed the edge-formulated GAT kernel."""
+    count of one graph) feed the edge-formulated GAT kernel, and
+    ``edge_index`` (``ops.edge_gat.EdgeIndex`` of ``edge_flat``, or None)
+    its walk: built on the batch's device when a layer first needs it, then
+    shared by every GAT layer's forward and backward of the batch."""
 
     x: torch.Tensor
     adj: torch.Tensor
@@ -87,6 +91,7 @@ class DenseGraphBatch:
     graph_mask: torch.Tensor
     edge_flat: torch.Tensor | None = None
     eg_budget: int = 0
+    edge_index: EdgeIndex | None = None
 
 
 def pack_dense(graphs: Sequence[HostGraph], num_graphs: int, node_budget: int,
@@ -123,7 +128,8 @@ def pack_dense(graphs: Sequence[HostGraph], num_graphs: int, node_budget: int,
 def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGraphBatch:
     """Materialize adjacency and masks on the batch's device.  The edge list
     is passed on, as cal_tpu's ``to_dense`` does, only when the batch has an
-    edge budget and int32 indices (B*N*N < 2^31)."""
+    edge budget and int32 indices (B*N*N < 2^31), with its (not yet built)
+    EdgeIndex."""
     dtype = dtype or p.x.dtype
     b, n, _ = p.x.shape
     adj = adj_build(p.edge_flat, b, n, dtype)
@@ -131,7 +137,8 @@ def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGrap
     carry = p.eg_budget > 0 and p.edge_flat.dtype == torch.int32
     return DenseGraphBatch(x=p.x.to(dtype), adj=adj, node_mask=node_mask,
                            y=p.y, graph_mask=p.n_nodes > 0,
-                           edge_flat=p.edge_flat if carry else None, eg_budget=p.eg_budget)
+                           edge_flat=p.edge_flat if carry else None, eg_budget=p.eg_budget,
+                           edge_index=EdgeIndex(p.edge_flat, b, n) if carry else None)
 
 
 # A CSR row is cut into groups of CHUNK_EDGES edges (one per warp lane) and

@@ -233,7 +233,8 @@ class GATConvLayer(nn.Module):
             out = gat_aggregate_sparse_fused(xh.view(v, self.heads, d), att[:, :d], att[:, d:],
                                              words, g, rate).reshape(v, self.heads * d)
         elif takes_edge_kernel(g, xh.shape[1]):
-            out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout, seed)
+            out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout, seed,
+                                      g.edge_index)
         else:
             out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
         return out.to(dt) + self.bias.to(dt)

@@ -10,8 +10,11 @@ the count adjacency).  The score halves ``ti``/``tj`` [B, N, heads] are
 formed in f32 with plain tensor ops, as in ``flash_gat_dense_flat``.
 ``_EdgeGAT`` is a ``torch.autograd.Function`` differentiable in ti, tj and
 xh.  On CUDA tensors ``edge_gat_fwd`` / ``edge_gat_bwd`` launch the
-hand-written kernels in ``csrc/edge_gat.cu``; on CPU tensors they run their
-plain twins, which write the formulas out per edge slot.
+hand-written kernels in ``csrc/edge_gat.cu`` / ``csrc/edge_gat_bwd.cu`` over
+the batch's ``EdgeIndex`` (built once a batch, on first use, and shared by
+every layer), the backward taking the forward's softmax statistics; on CPU
+tensors they run their plain twins, which write the formulas out per edge
+slot.
 
 Attention dropout: each (slot, head) draws its keep bit from Philox-4x32-10
 (``flash_gat.philox_bits``) at counter ``slot * heads + h`` under the
@@ -156,10 +159,19 @@ def _lib():
     lib = build.load("edge_gat")
     if lib.edge_gat_fwd_launch.argtypes is None:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.edge_gat_fwd_launch.argtypes = [vp] * 4 + [i, vp, vp] + [i] * 5 + [u, u, u, f, vp]
-        lib.edge_gat_fwd_launch.restype = ctypes.c_int
-        lib.edge_gat_bwd_launch.argtypes = ([vp] * 7 + [i] + [vp] * 6 + [i] * 5
-                                            + [u, u, u, f, vp])
+        lib.edge_keys_launch.argtypes = [vp, i, i, i, vp, vp]
+        lib.edge_index_launch.argtypes = [vp, vp, vp, i, i, i, vp, vp]
+        lib.edge_gat_fwd_launch.argtypes = [vp] * 10 + [i] * 5 + [u, u, u, f, vp]
+        for fn in (lib.edge_keys_launch, lib.edge_index_launch, lib.edge_gat_fwd_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd():
+    lib = build.load("edge_gat_bwd")
+    if lib.edge_gat_bwd_launch.argtypes is None:
+        vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.edge_gat_bwd_launch.argtypes = [vp] * 12 + [i] * 7 + [u, u, u, f, vp]
         lib.edge_gat_bwd_launch.restype = ctypes.c_int
     return lib
 
@@ -175,60 +187,271 @@ def _seed_args(seed: int, rate: float):
         _scale(rate)
 
 
-def edge_gat_fwd(ti, tj, xh, edge_flat, seed: int = 0, rate: float = 0.0):
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# A node with at most SPAN slots as receiver (or as sender) is walked by one
+# lane group; a heavier one is cut into chunks of SPAN slots, one group each
+# (csrc/edge_gat.cuh kSpan).
+SPAN = 32
+
+
+class EdgeIndex:
+    """The index of a dense batch's sorted edge list that the edge GAT
+    kernels walk: built once, on first use (``build``), on the list's
+    device, and shared by every GAT layer's forward and backward of the
+    batch (``graph.DenseGraphBatch.edge_index``).
+
+    Over ``rows = B*N`` nodes and the list's E slots, in receiver order (the
+    list's own, by ``(g*N + r)*N + s``) and in sender order (the slots
+    sorted stably by ``(g*N + s)*N + r``), int32:
+
+    - ``rrange`` [rows, 2]: node v's receiver slots [first, end); (0, 0)
+      when it has none; ``srange`` [rows, 2] its sender-order places;
+    - ``spos`` [E]: the sender-order place of each slot; ``srecv`` [E]: the
+      receiver node at each sender-order place (-1 for padding);
+    - ``light_r``: the nodes with 1..SPAN receiver slots; ``heavy_r`` [., 2]:
+      one (node, place of its first chunk) per SPAN-slot chunk of a heavier
+      receiver, a node's chunks at consecutive places in slot order;
+      ``light_s`` / ``heavy_s`` the same over sender runs, ``light_s`` also
+      holding the receivers without sender slots; ``counts`` [4] the valid
+      lengths of the four lists (the arrays have capacity ``cap_l`` and
+      ``cap_h``);
+    - ``arrivals`` [2, cap_h]: the kernels' arrival counters of the heavy
+      rows, 0 between launches (a launch sets back what it counted): the
+      batch's launches share them, so they must run one after another, on
+      the CUDA stream the index was built on (``stream``; a launch on
+      another stream raises).
+
+    On CUDA the lists' order follows the build's schedule (no result depends
+    on it) and nothing synchronizes the host; on the CPU (``build_plain``)
+    they are ascending."""
+
+    def __init__(self, edge_flat: torch.Tensor, bsz: int, n: int):
+        self.edge_flat, self.bsz, self.n = edge_flat, bsz, n
+        self.num_slots = int(edge_flat.shape[0])
+        self.rows = bsz * n
+        self.cap_l = min(self.rows, 2 * self.num_slots)
+        self.cap_h = self.num_slots // 16 + 1   # > sum of ceil(len / SPAN) over rows of > SPAN
+        self.zeroed = self.rest = self._ptrs = self.stream = None
+
+    @property
+    def device(self):
+        return self.edge_flat.device
+
+    def _alloc(self):
+        dev, rows, e = self.device, self.rows, self.num_slots
+        if dev.type == "cuda":
+            self.stream = torch.cuda.current_stream(dev).cuda_stream
+        zeroed = torch.zeros(4 * rows + 8 + 2 * self.cap_h, dtype=torch.int32, device=dev)
+        rest = torch.empty(2 * e + 2 * self.cap_l + 4 * self.cap_h, dtype=torch.int32,
+                           device=dev)
+        return zeroed, rest
+
+    def _views(self):
+        rows, e, cl, ch = self.rows, self.num_slots, self.cap_l, self.cap_h
+        z, r = self.zeroed, self.rest
+        o = 2 * e + 2 * cl
+        return {"rrange": z[:2 * rows].view(rows, 2), "srange": z[2 * rows:4 * rows].view(rows, 2),
+                "counts": z[4 * rows:4 * rows + 4],
+                "arrivals": z[4 * rows + 8:].view(2, ch),
+                "spos": r[:e], "srecv": r[e:2 * e], "light_r": r[2 * e:2 * e + cl],
+                "light_s": r[2 * e + cl:o], "heavy_r": r[o:o + 2 * ch].view(ch, 2),
+                "heavy_s": r[o + 2 * ch:].view(ch, 2)}
+
+    def __getattr__(self, name):
+        if name in ("rrange", "srange", "counts", "arrivals", "spos", "srecv", "light_r",
+                    "light_s", "heavy_r", "heavy_s"):
+            return self.build()._views()[name]
+        raise AttributeError(name)
+
+    def build(self) -> "EdgeIndex":
+        """Build the index on the list's device, once."""
+        if self.zeroed is None:
+            if self.device.type == "cuda":
+                self._build_cuda()
+            else:
+                self.build_plain()
+        return self
+
+    def _build_cuda(self):
+        ef = _aligned(self.edge_flat)
+        e, n, rows = self.num_slots, self.n, self.rows
+        if ef.dtype != torch.int32 or rows * n >= 2**31:
+            raise ValueError("EdgeIndex: the kernels take int32 edge_flat with B*N*N < 2^31")
+        lib, stream = _lib(), _stream(ef)
+        keys = torch.empty(e, dtype=torch.int32, device=ef.device)
+        build.check(lib.edge_keys_launch(ef.data_ptr(), e, n, rows, keys.data_ptr(), stream),
+                    "edge_index keys")
+        keyt, perm = torch.sort(keys, stable=True)
+        self.zeroed, self.rest = self._alloc()
+        build.check(lib.edge_index_launch(ef.data_ptr(), keyt.data_ptr(), perm.data_ptr(), e, n,
+                                          rows, self.pointers(), stream), "edge_index")
+
+    def build_plain(self) -> "EdgeIndex":
+        """The same index with plain tensor ops (lists ascending), on the
+        list's device: the CPU path, and the reference of the kernels."""
+        ef = self.edge_flat.long()
+        dev, rows, n, e = ef.device, self.rows, self.n, self.num_slots
+        total = rows * n
+        real = (ef >= 0) & (ef < total)
+        key = torch.where(real, (ef // (n * n) * n + ef % n) * n + (ef // n) % n,
+                          torch.full((), total, device=dev))
+        keyt, perm = torch.sort(key, stable=True)
+        bounds = torch.arange(rows + 1, device=dev) * n
+        node = torch.arange(rows, device=dev)
+        zeroed, rest = self._alloc()
+        self.zeroed, self.rest = zeroed, rest.fill_(-1)
+        v = self._views()
+        lens = []
+        for name, keys in (("rrange", ef), ("srange", keyt)):
+            ptr = torch.searchsorted(keys, bounds)
+            beg, end = ptr[:-1], ptr[1:]
+            live = end > beg
+            v[name][:, 0] = torch.where(live, beg, 0)
+            v[name][:, 1] = torch.where(live, end, 0)
+            lens.append(end - beg)
+        rlen, slen = lens
+        v["spos"][perm] = torch.arange(e, dtype=torch.int32, device=dev)
+        v["srecv"][:] = torch.where(keyt < total, keyt // (n * n) * n + keyt % n, -1)
+        lists = (node[(rlen >= 1) & (rlen <= SPAN)], None,
+                 node[((slen >= 1) & (slen <= SPAN)) | ((slen == 0) & (rlen > 0))], None)
+        for i, (name, length) in enumerate((("light_r", rlen), ("heavy_r", rlen),
+                                            ("light_s", slen), ("heavy_s", slen))):
+            if lists[i] is None:
+                heavy = node[length > SPAN]
+                nch = (length[heavy] + SPAN - 1) // SPAN
+                p0 = torch.cumsum(nch, 0) - nch
+                items = torch.stack([heavy.repeat_interleave(nch), p0.repeat_interleave(nch)], 1)
+            else:
+                items = lists[i]
+            v[name][:items.shape[0]] = items
+            v["counts"][i] = items.shape[0]
+        return self
+
+    def as_lists(self) -> dict:
+        """The index as Python lists, whatever order the build listed its
+        nodes in: the ranges and maps as they are, the light lists sorted,
+        the heavy lists as sorted (node, chunk) pairs.  Raises if a node's
+        chunks do not take consecutive places from the place its entries
+        name, or if an arrival counter is not 0."""
+        counts = self.counts.tolist()
+        out = {k: getattr(self, k).tolist() for k in ("spos", "srecv", "rrange", "srange")}
+        out["light_r"] = sorted(self.light_r[:counts[0]].tolist())
+        out["light_s"] = sorted(self.light_s[:counts[2]].tolist())
+        for name, cnt in (("heavy_r", counts[1]), ("heavy_s", counts[3])):
+            items = getattr(self, name)[:cnt].tolist()
+            for p, (v, p0) in enumerate(items):
+                if items[p0] != [v, p0] or (p != p0 and items[p - 1][0] != v):
+                    raise ValueError(f"{name}: place {p} ({v}, {p0}) out of its node's run")
+            out[name] = sorted((v, p - p0) for p, (v, p0) in enumerate(items))
+        if self.arrivals.any():
+            raise ValueError("an arrival counter is not 0")
+        return out
+
+    def pointers(self):
+        """The 11 device pointers of csrc/edge_gat.cuh's ``Index``."""
+        if self._ptrs is None:
+            v = self._views()
+            names = ("rrange", "srange", "spos", "srecv", "light_r", "heavy_r", "light_s",
+                     "heavy_s", "counts")
+            ptrs = [v[k].data_ptr() for k in names] + [v["arrivals"][i].data_ptr() for i in (0, 1)]
+            self._ptrs = (ctypes.c_void_p * 11)(*ptrs)
+        return self._ptrs
+
+
+def _index_for(index, edge_flat, bsz: int, n: int) -> EdgeIndex:
+    """``index`` built (a new one for ``edge_flat`` when None), checked
+    against the list it is handed with and the stream of the launch."""
+    if index is None:
+        index = EdgeIndex(edge_flat, bsz, n)
+    if (index.num_slots, index.bsz, index.n) != (edge_flat.shape[0], bsz, n) \
+            or index.device != edge_flat.device:
+        raise ValueError(f"edge index of {index.num_slots} slots, B {index.bsz}, N {index.n} on "
+                         f"{index.device} does not fit edge_flat {tuple(edge_flat.shape)} on "
+                         f"{edge_flat.device} at B {bsz}, N {n}")
+    index.build()
+    if index.stream is not None and index.stream != _stream(edge_flat):
+        raise ValueError("edge index built on another CUDA stream: the launches over it share "
+                         "its arrival counters and must run in order on its stream")
+    return index
+
+
+def _fwd_launch(ti, tj, xh, edge_flat, seed, rate, index):
+    """The forward kernels on CUDA tensors: (out, stats [2, B*N, heads] f32:
+    m_v and 1 / den_v of the nodes with slots)."""
+    bsz, n, heads = ti.shape
+    hd = xh.shape[-1]
+    out = torch.empty_like(xh)
+    stats = torch.empty((2, bsz * n, heads), dtype=torch.float32, device=xh.device)
+    part_ml = torch.empty((index.cap_h, 2 * heads), dtype=torch.float32, device=xh.device)
+    part_acc = torch.empty((index.cap_h, hd), dtype=torch.float32, device=xh.device)
+    err = _lib().edge_gat_fwd_launch(
+        ti.data_ptr(), tj.data_ptr(), xh.data_ptr(), edge_flat.data_ptr(), index.pointers(),
+        out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), part_ml.data_ptr(),
+        part_acc.data_ptr(), bsz, n, heads, hd, _DTYPES[xh.dtype], *_seed_args(seed, rate),
+        _stream(xh))
+    build.check(err, "edge_gat_fwd")
+    return out, stats
+
+
+def edge_gat_fwd(ti, tj, xh, edge_flat, seed: int = 0, rate: float = 0.0,
+                 index: EdgeIndex | None = None, with_stats: bool = False):
     """Forward: ti, tj [B, N, heads] f32; xh [B, N, heads * d] (float32 or
-    bfloat16); edge_flat [E] sorted -> out [B, N, heads * d] in xh's dtype.
-    Launches the kernel on CUDA tensors, runs ``edge_gat_fwd_plain`` on CPU
-    tensors."""
+    bfloat16); edge_flat [E] sorted -> out [B, N, heads * d] in xh's dtype,
+    or (out, stats) with ``with_stats``: the softmax statistics that
+    ``edge_gat_bwd`` takes ([2, B*N, heads] f32; None on the CPU).  Launches
+    the kernels on CUDA tensors, over ``index`` (the batch's EdgeIndex of
+    ``edge_flat``; built for this call when None), and runs
+    ``edge_gat_fwd_plain`` on CPU tensors."""
     _check("edge_gat_fwd", ti, tj, xh, edge_flat)
     if ti.device.type == "cpu":
-        return edge_gat_fwd_plain(ti, tj, xh, edge_flat, seed, rate)
+        out = edge_gat_fwd_plain(ti, tj, xh, edge_flat, seed, rate)
+        return (out, None) if with_stats else out
     ti, tj, xh, edge_flat = (_aligned(t) for t in (ti, tj, xh, edge_flat))
-    bsz, n, heads = ti.shape
-    out = torch.empty_like(xh)
-    ptr = torch.empty(bsz * n + 1, dtype=torch.int32, device=xh.device)
-    err = _lib().edge_gat_fwd_launch(
-        ti.data_ptr(), tj.data_ptr(), xh.data_ptr(), edge_flat.data_ptr(), edge_flat.shape[0],
-        ptr.data_ptr(), out.data_ptr(), bsz, n, heads, xh.shape[-1], _DTYPES[xh.dtype],
-        *_seed_args(seed, rate), torch.cuda.current_stream(xh.device).cuda_stream)
-    build.check(err, "edge_gat_fwd")
+    index = _index_for(index, edge_flat, *ti.shape[:2])
+    out, stats = _fwd_launch(ti, tj, xh, edge_flat, seed, rate, index)
     edge_gat_fwd.launches += 1
-    return out
+    return (out, stats) if with_stats else out
 
 
-def _sender_order(edge_flat: torch.Tensor, bsz: int, n: int):
-    """(keyt, perm): the keys (g*N + s)*N + r of the slots sorted ascending
-    (padding keeps B*N*N) and the slot of each, int32 — the sender-major
-    order that the backward's sender kernel walks."""
-    ef = edge_flat.long()
-    total = bsz * n * n
-    key = torch.where(ef < total, (ef // (n * n) * n + ef % n) * n + (ef // n) % n,
-                      torch.full((), total, device=ef.device))
-    keyt, perm = torch.sort(key, stable=True)
-    return keyt.int(), perm.int()
+def _bwd_scratch(slots: int, rows: int, heads: int, hd: int, cap_h: int) -> int:
+    """f32 scratch of the backward (csrc/edge_gat_bwd.cu edge_gat_bwd_launch)."""
+    r4 = lambda x: (x + 3) // 4 * 4
+    return 2 * r4(slots * heads) + 2 * r4(rows * heads) + 4 * r4(cap_h * heads) + r4(cap_h * hd)
 
 
-def edge_gat_bwd(ti, tj, xh, edge_flat, g, seed: int = 0, rate: float = 0.0):
+def edge_gat_bwd(ti, tj, xh, edge_flat, g, seed: int = 0, rate: float = 0.0,
+                 index: EdgeIndex | None = None, stats: torch.Tensor | None = None):
     """VJP of ``edge_gat_fwd``'s out: g [B, N, heads * d] in xh's dtype ->
     (dti, dtj [B, N, heads] f32, dxh in xh's dtype).  Launches the backward
-    kernels on CUDA tensors, runs ``edge_gat_bwd_plain`` on CPU tensors."""
+    kernels on CUDA tensors, over ``index`` (built when None) and the
+    forward's ``stats`` (formed by the forward kernels when None), and runs
+    ``edge_gat_bwd_plain`` on CPU tensors."""
     _check("edge_gat_bwd", ti, tj, xh, edge_flat, g)
     if ti.device.type == "cpu":
         return edge_gat_bwd_plain(ti, tj, xh, edge_flat, g, seed, rate)
     ti, tj, xh, edge_flat, g = (_aligned(t) for t in (ti, tj, xh, edge_flat, g))
     bsz, n, heads = ti.shape
-    e = edge_flat.shape[0]
-    keyt, perm = _sender_order(edge_flat, bsz, n)
+    hd = xh.shape[-1]
+    index = _index_for(index, edge_flat, bsz, n)
+    if stats is None:
+        stats = _fwd_launch(ti, tj, xh, edge_flat, seed, rate, index)[1]
+    elif stats.shape != (2, bsz * n, heads) or stats.dtype != torch.float32 \
+            or stats.device != ti.device:
+        raise ValueError(f"edge_gat_bwd: stats {tuple(stats.shape)} {stats.dtype} on "
+                         f"{stats.device}, want (2, {bsz * n}, {heads}) float32")
+    stats = _aligned(stats)
     dti, dtj = torch.empty_like(ti), torch.empty_like(ti)
     dxh = torch.empty_like(xh)
-    ptrs = torch.empty(2, bsz * n + 1, dtype=torch.int32, device=xh.device)
-    scratch = torch.empty(2 * (e + bsz * n) * heads, dtype=torch.float32, device=xh.device)
-    err = _lib().edge_gat_bwd_launch(
+    scratch = torch.empty(_bwd_scratch(index.num_slots, bsz * n, heads, hd, index.cap_h),
+                          dtype=torch.float32, device=xh.device)
+    err = _lib_bwd().edge_gat_bwd_launch(
         ti.data_ptr(), tj.data_ptr(), xh.data_ptr(), g.data_ptr(), edge_flat.data_ptr(),
-        keyt.data_ptr(), perm.data_ptr(), e, ptrs[0].data_ptr(), ptrs[1].data_ptr(),
-        scratch.data_ptr(), dti.data_ptr(), dtj.data_ptr(), dxh.data_ptr(), bsz, n, heads,
-        xh.shape[-1], _DTYPES[xh.dtype], *_seed_args(seed, rate),
-        torch.cuda.current_stream(xh.device).cuda_stream)
+        index.pointers(), stats[0].data_ptr(), stats[1].data_ptr(), scratch.data_ptr(),
+        dti.data_ptr(), dtj.data_ptr(), dxh.data_ptr(), index.num_slots, index.cap_h, bsz, n,
+        heads, hd, _DTYPES[xh.dtype], *_seed_args(seed, rate), _stream(xh))
     build.check(err, "edge_gat_bwd")
     edge_gat_bwd.launches += 1
     return dti, dtj, dxh
@@ -239,31 +462,38 @@ edge_gat_bwd.launches = 0
 
 
 class _EdgeGAT(torch.autograd.Function):
+    """Differentiable in ti, tj and xh.  The forward hands its softmax
+    statistics and the batch's index to the backward."""
+
     @staticmethod
-    def forward(ctx, ti, tj, xh, edge_flat, seed, rate):
-        out = edge_gat_fwd(ti, tj, xh, edge_flat, seed, rate)
-        ctx.save_for_backward(ti, tj, xh, edge_flat)
-        ctx.seed, ctx.rate = seed, rate
+    def forward(ctx, ti, tj, xh, edge_flat, seed, rate, index=None):
+        if index is None:
+            index = EdgeIndex(edge_flat, *ti.shape[:2])
+        out, stats = edge_gat_fwd(ti, tj, xh, edge_flat, seed, rate, index, with_stats=True)
+        ctx.save_for_backward(ti, tj, xh, edge_flat, *(() if stats is None else (stats,)))
+        ctx.seed, ctx.rate, ctx.index = seed, rate, index
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ti, tj, xh, edge_flat = ctx.saved_tensors
-        dti, dtj, dxh = edge_gat_bwd(ti, tj, xh, edge_flat, g.to(xh.dtype), ctx.seed, ctx.rate)
-        return dti, dtj, dxh, None, None, None
+        ti, tj, xh, edge_flat, *stats = ctx.saved_tensors
+        dti, dtj, dxh = edge_gat_bwd(ti, tj, xh, edge_flat, g.to(xh.dtype), ctx.seed, ctx.rate,
+                                     ctx.index, stats[0] if stats else None)
+        return dti, dtj, dxh, None, None, None, None
 
 
 def edge_gat_dense_flat(xh_flat: torch.Tensor, edge_flat: torch.Tensor, att_dst: torch.Tensor,
                         att_src: torch.Tensor, dropout_rate: float = 0.0,
-                        seed: int | None = None) -> torch.Tensor:
+                        seed: int | None = None, index: EdgeIndex | None = None) -> torch.Tensor:
     """Dense multi-head GAT over the batch's edge list, on xh in its
     [B, N, heads * d] layout.
 
     edge_flat [E]: the sorted flat (g*N + r)*N + s list of the packed batch
     (padding >= B*N*N); att_dst / att_src [heads, d].  Dropout runs at
     ``dropout_rate`` when a ``seed`` (a non-negative int below 2^64) is
-    given.  Returns [B, N, heads * d] in xh's dtype; differentiable in xh,
-    att_dst and att_src."""
+    given; ``index`` is the batch's EdgeIndex of ``edge_flat`` (built for
+    the call when None).  Returns [B, N, heads * d] in xh's dtype;
+    differentiable in xh, att_dst and att_src."""
     bsz, n, _ = xh_flat.shape
     heads, d = att_dst.shape
     x4 = xh_flat.float().view(bsz, n, heads, d)
@@ -271,4 +501,5 @@ def edge_gat_dense_flat(xh_flat: torch.Tensor, edge_flat: torch.Tensor, att_dst:
     ti = torch.einsum("bnhd,hd->bnh", x4, att_dst.to(dt).float())
     tj = torch.einsum("bnhd,hd->bnh", x4, att_src.to(dt).float())
     rate = float(dropout_rate) if seed is not None and dropout_rate > 0.0 else 0.0
-    return _EdgeGAT.apply(ti, tj, xh_flat, edge_flat, 0 if seed is None else int(seed), rate)
+    return _EdgeGAT.apply(ti, tj, xh_flat, edge_flat, 0 if seed is None else int(seed), rate,
+                          index)

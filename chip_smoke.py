@@ -107,11 +107,14 @@
 8. the real-data protocol on SYNREDDIT (2,000 REDDIT-BINARY-shaped threads,
    written by ``benchmarks.gen_reddit_synthetic`` in a subprocess), dense
    layout, N = 3,840:
-   a. kernel phase: on its first batch of 128 graphs, holds the
-      edge-formulated GAT forward and backward (``csrc/edge_gat.cu``) against
-      their twins, bf16 and f32, at dropout 0 and 0.2, the f32 backward
-      against autograd of the forward twin, and the keep bits bit for bit on
-      a probe batch; times them beside the twins; times rows 1, 2 (split
+   a. kernel phase: on its first batch of 128 graphs, builds the batch's
+      edge index (timed on a line of its own, held against its plain
+      build), holds the edge-formulated GAT forward and backward
+      (``csrc/edge_gat.cu``, ``edge_gat_bwd.cu``) against their twins, bf16
+      and f32, at dropout 0 and 0.2, over the index and without it, the f32
+      backward against autograd of the forward twin, and the keep bits bit
+      for bit on a probe batch; times them as a layer's step calls them
+      beside the twins; times rows 1, 2 (split
       into its degree pass and aggregate) and 2b (handed the forward's
       statistics and live map, and alone) at this N, held against the twins
       on 8 graphs, the hand-over's bits against the backward alone;
@@ -171,9 +174,9 @@ CUDA or the package is missing, or when any check fails.
 
     python3 chip_smoke.py --digests
 
-prints only the digest lines (dense and sparse): run from the root of
-another tree of the port (a copy of this file there), it gives that tree's
-bits for an A/B.
+prints only the digest lines (dense, sparse, and the edge GAT's on the
+first SYNREDDIT batch): run from the root of another tree of the port (a
+copy of this file there), it gives that tree's bits for an A/B.
 
     python3 chip_smoke.py --rows
 
@@ -184,6 +187,17 @@ K17/K17T two-pass at N = 640), K21 on the serving and REDDIT batches beside
 scatter_reduce_ amax, the digests, and rows 1, 2 and 2b at N = 3,840 on the
 first SYNREDDIT batch (2b with and without the forward's hand-over); from
 another tree's root, for an A/B.
+
+    python3 chip_smoke.py --edge
+
+builds the kernels and runs rows 6 and 6b (the edge-formulated GAT,
+``csrc/edge_gat.cu`` and ``edge_gat_bwd.cu``) alone on the first SYNREDDIT
+batch: the ptxas report of the edge kernels, the per-batch edge index timed
+on its own line (and held against its plain build), the forward and
+backward held against their twins and timed in bf16 and f32 at dropout 0
+and 0.2 as a layer's step calls them (over the batch's index, the backward
+handed the forward's statistics), and the edge digests (whole outputs, and
+the rows of nodes without a slot); from another tree's root, for an A/B.
 
     python3 chip_smoke.py --walk
 
@@ -2105,55 +2119,120 @@ def edge_keep_probe(torch, bsz, n):
           "keep_fraction_self": float(got_v.float().mean()), "rate": GAT_RATE})
 
 
-def edge_kernel_rows(torch, batch, peaks, flush):
-    """The edge-formulated GAT kernels (csrc/edge_gat.cu) on a dense
-    SYNREDDIT batch (B = 128, N = 3,840): forward and backward against their
-    twins in bf16 and f32 at dropout 0 and GAT_RATE, the f32 backward against
-    autograd of the forward twin, the keep bits bit for bit; timed at
-    GAT_RATE (the forward also at rate 0) beside the twins.  No single
-    PyTorch call computes the masked multiplicity softmax with dropout, so
-    there is no library time."""
+def edge_inputs(torch, batch, dt):
+    """Seeded (ti, tj, xh, g) of the edge GAT kernels on a dense batch in
+    dtype ``dt``: xh and its cotangent g random, the score halves formed
+    from xh as the layer forms them."""
+    bsz, n, _ = batch.x.shape
+    d = H // HEADS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    xh32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    att = (0.5 * torch.randn((HEADS, 2 * d), generator=gen, device="cuda"))
+    g32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    xh, g = xh32.to(dt), g32.to(dt)
+    x4 = xh.float().view(bsz, n, HEADS, d)
+    ti = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, :d])
+    tj = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, d:])
+    return ti, tj, xh, g
+
+
+def edge_layer_calls(eg, ti, tj, xh, ef, g, rate):
+    """(forward, backward) of the edge GAT kernels as a layer's step calls
+    them: over the batch's index, built once, the backward handed the
+    forward's statistics."""
+    idx = eg.EdgeIndex(ef, *ti.shape[:2]).build()
+    stats = eg.edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate, idx, with_stats=True)[1]
+    return (lambda: eg.edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate, idx, with_stats=True),
+            lambda: eg.edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate, idx, stats))
+
+
+def edge_index_line(torch, ef, bsz, n, flush) -> dict:
+    """The per-batch edge index (ops/edge_gat.py EdgeIndex): its build
+    timed on its own (cold L2), its list sizes, and whether the kernels'
+    build equals the plain build."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    idx = eg.EdgeIndex(ef, bsz, n).build()
+    counts = idx.counts.tolist()
+    same = idx.as_lists() == eg.EdgeIndex(ef, bsz, n).build_plain().as_lists()
+    check(same, "the edge index the kernels build differs from the plain build")
+    build = lambda: eg.EdgeIndex(ef, bsz, n).build()
+    return {"phase": "edge_index", "root": HERE, "batch": [bsz, n], "slots": int(ef.shape[0]),
+            "ms": time_ms(torch, build, flush), "passes": profile_passes(torch, build),
+            "light_r": counts[0], "heavy_r_chunks": counts[1], "light_s": counts[2],
+            "heavy_s_chunks": counts[3], "equals_plain_build": same}
+
+
+def edge_slot_nodes(torch, ef, bsz, n):
+    """(receivers, nodes) with a slot: the counts of the nodes that hold a
+    live slot other than a self loop as receiver, and either way.  Only
+    their rows of xh and of the forward's statistics enter the walks; the
+    other nodes' outputs follow from their logits and xh or g alone."""
+    from cal_tpu_torch.ops.edge_gat import edge_slots
+
+    _, rv, sv = edge_slots(ef, bsz, n)
+    used = torch.zeros(bsz * n, dtype=torch.bool, device=ef.device)
+    used[rv] = True
+    recv = int(used.sum())
+    used[sv] = True
+    return recv, int(used.sum())
+
+
+def edge_kernel_rows(torch, batch, peaks, flush, rates=(GAT_RATE,), autograd=True):
+    """The edge-formulated GAT kernels (csrc/edge_gat.cu, edge_gat_bwd.cu) on
+    a dense SYNREDDIT batch (B = 128, N = 3,840): forward and backward
+    against their twins in bf16 and f32 at dropout 0 and GAT_RATE (``autograd``:
+    the f32 backward also against autograd of the forward twin, and the keep
+    bits bit for bit); timed at each of ``rates`` as a layer's step calls
+    them (over the batch's index; the backward handed the forward's
+    statistics), the forward also building its own index (``kernel_ms_own_index``),
+    beside the twins; the index's own line.  The bounds count what each
+    call must move: the forward reads ti, tj, xh and the live slots and
+    writes out and the statistics of the receivers with slots; the backward
+    reads ti, tj, g, the live slots, xh only of the nodes with a slot either
+    way and the statistics only of the receivers with slots, and writes
+    dti, dtj and dxh.  No single PyTorch call computes the masked
+    multiplicity softmax with dropout, so there is no library time."""
+    from cal_tpu_torch.ops import edge_gat as eg
     from cal_tpu_torch.ops.edge_gat import (
         edge_gat_bwd, edge_gat_bwd_plain, edge_gat_fwd, edge_gat_fwd_plain, edge_slots)
 
     bw, bf16_peak, f32_peak = peaks
     ef = batch.edge_flat
     bsz, n, _ = batch.x.shape
-    d = H // HEADS
     live = int(edge_slots(ef, bsz, n)[0].numel())
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    xh32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
-    att = (0.5 * torch.randn((HEADS, 2 * d), generator=gen, device="cuda"))
-    g32 = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    recv, slotted = edge_slot_nodes(torch, ef, bsz, n)
     none = ("none: no single PyTorch call computes the masked, multiplicity-weighted "
             "leaky-ReLU softmax over an edge list and its dropout")
+    emit(edge_index_line(torch, ef, bsz, n, flush))
     rows = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        xh, g = xh32.to(dt), g32.to(dt)
-        x4 = xh.float().view(bsz, n, HEADS, d)
-        ti = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, :d])
-        tj = torch.einsum("bnhd,hd->bnh", x4, att.to(dt).float()[:, d:])
+        ti, tj, xh, g = edge_inputs(torch, batch, dt)
         errs = {"fwd": [], "bwd": []}
         for rate in (0.0, GAT_RATE):
-            out_k = edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate)
+            fwd, bwd = edge_layer_calls(eg, ti, tj, xh, ef, g, rate)
             out_p = edge_gat_fwd_plain(ti, tj, xh, ef, DROP_SEED, rate)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out_k.float()).all()), f"edge forward {dt_name} not finite")
-            err, over = max_excess(torch, out_k, out_p, *EDGE_X_TOL[dt_name])
-            check(over <= 0, f"edge forward {dt_name} rate {rate} differs from its twin: {err}")
-            errs["fwd"].append(err)
-            bk = edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate)
+            for out_k in (fwd(), edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate)):
+                out_k = out_k[0] if isinstance(out_k, tuple) else out_k
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out_k.float()).all()),
+                      f"edge forward {dt_name} not finite")
+                err, over = max_excess(torch, out_k, out_p, *EDGE_X_TOL[dt_name])
+                check(over <= 0, f"edge forward {dt_name} rate {rate} differs from its twin: {err}")
+                errs["fwd"].append(err)
             bp = edge_gat_bwd_plain(ti, tj, xh, ef, g, DROP_SEED, rate)
-            torch.cuda.synchronize()
-            for nm, a, r in zip(("dti", "dtj", "dxh"), bk, bp):
-                tol = EDGE_X_TOL[dt_name] if nm == "dxh" else EDGE_T_TOL
-                check(bool(torch.isfinite(a.float()).all()), f"edge backward {dt_name} {nm} not finite")
-                err, over = max_excess(torch, a, r, *tol)
-                check(over <= 0, f"edge backward {dt_name} rate {rate} {nm} differs from its "
-                                 f"twin: {err}")
-                errs["bwd"].append(err)
+            for bk in (bwd(), edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate)):
+                torch.cuda.synchronize()
+                for nm, a, r in zip(("dti", "dtj", "dxh"), bk, bp):
+                    tol = EDGE_X_TOL[dt_name] if nm == "dxh" else EDGE_T_TOL
+                    check(bool(torch.isfinite(a.float()).all()),
+                          f"edge backward {dt_name} {nm} not finite")
+                    err, over = max_excess(torch, a, r, *tol)
+                    check(over <= 0, f"edge backward {dt_name} rate {rate} {nm} differs from "
+                                     f"its twin: {err}")
+                    errs["bwd"].append(err)
         extra = {}
-        if dt == torch.float32:
+        if autograd and dt == torch.float32:
             leaves = [t.clone().requires_grad_() for t in (ti, tj, xh)]
             out = edge_gat_fwd_plain(*leaves, ef, DROP_SEED, GAT_RATE)
             auto = torch.autograd.grad((out * g).sum(), leaves)
@@ -2166,31 +2245,72 @@ def edge_kernel_rows(torch, batch, peaks, flush):
             extra["max_abs_err_vs_autograd"] = max(auto_err)
             del leaves, out, auto
         elt = xh.element_size()
-        plane, stats = bsz * n * H * elt, bsz * n * HEADS * 4
+        plane, stats, row_stats = bsz * n * H * elt, bsz * n * HEADS * 4, 2 * HEADS * 4
         peak = bf16_peak if dt == torch.bfloat16 else f32_peak
-        for name, fn, plain, nbytes, flops, err in (
-                ("edge_gat_fwd", lambda: edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, GAT_RATE),
-                 lambda: edge_gat_fwd_plain(ti, tj, xh, ef, DROP_SEED, GAT_RATE),
-                 2 * stats + live * 4 + 2 * plane, live * (2 * H + 8 * HEADS), max(errs["fwd"])),
-                ("edge_gat_bwd", lambda: edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, GAT_RATE),
-                 lambda: edge_gat_bwd_plain(ti, tj, xh, ef, g, DROP_SEED, GAT_RATE),
-                 4 * stats + live * 4 + 3 * plane, live * (4 * H + 16 * HEADS),
-                 max(errs["bwd"]))):
-            t_bytes, t_ops = nbytes / bw, flops / peak
-            row = {"name": name, "dtype": dt_name, "rate": GAT_RATE, "max_abs_err": err,
-                   "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
-                   "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "batch": [bsz, n, H], "slots": int(ef.shape[0]), "live_edges": live}
-            if name == "edge_gat_fwd":
-                row["kernel_ms_rate0"] = time_ms(torch, lambda: edge_gat_fwd(ti, tj, xh, ef), flush)
-            else:
-                row.update(extra)
-            emit({"phase": "kernel", **row})
-            rows.setdefault(dt_name, {})[name] = row
-    edge_keep_probe(torch, bsz, n)
+        for rate in rates:
+            fwd, bwd = edge_layer_calls(eg, ti, tj, xh, ef, g, rate)
+            for name, fn, plain, nbytes, flops, err in (
+                    ("edge_gat_fwd", fwd,
+                     lambda: edge_gat_fwd_plain(ti, tj, xh, ef, DROP_SEED, rate),
+                     2 * stats + live * 4 + 2 * plane + recv * row_stats,
+                     live * (2 * H + 8 * HEADS), max(errs["fwd"])),
+                    ("edge_gat_bwd", bwd,
+                     lambda: edge_gat_bwd_plain(ti, tj, xh, ef, g, DROP_SEED, rate),
+                     4 * stats + live * 4 + 2 * plane + slotted * H * elt + recv * row_stats,
+                     live * (4 * H + 16 * HEADS), max(errs["bwd"]))):
+                t_bytes, t_ops = nbytes / bw, flops / peak
+                row = {"name": name, "dtype": dt_name, "rate": rate, "max_abs_err": err,
+                       "kernel_ms": time_ms(torch, fn, flush),
+                       "plain_ms": time_ms(torch, plain, flush),
+                       "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "batch": [bsz, n, H], "slots": int(ef.shape[0]), "live_edges": live,
+                       "receivers_with_slots": recv, "nodes_with_slots": slotted, "root": HERE}
+                if rate == GAT_RATE:   # device ms by kernel, warm
+                    row["passes"] = profile_passes(torch, fn)
+                if name == "edge_gat_fwd":
+                    row["kernel_ms_own_index"] = time_ms(
+                        torch, lambda: edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate), flush)
+                    if rate > 0:
+                        row["kernel_ms_rate0"] = time_ms(torch, edge_layer_calls(
+                            eg, ti, tj, xh, ef, g, 0.0)[0], flush)
+                else:
+                    row.update(extra)
+                emit({"phase": "kernel", **row})
+                rows.setdefault(dt_name, {})[name] = row
+    if autograd:
+        edge_keep_probe(torch, bsz, n)
     return rows
+
+
+def edge_digests(torch, batch) -> dict:
+    """sha256 of the edge GAT kernels' outputs (out, dti, dtj, dxh) on the
+    seeded inputs of ``edge_inputs`` over a dense batch, bf16 and f32, at
+    dropout 0 and GAT_RATE: of each whole output, and (``_empty``) of its
+    rows on the nodes without a live slot either way, whose bits no
+    redesign of the walk may move.  The calls are the public ones, so
+    another tree's digests come from this function with its package
+    (``--digests``, ``--edge``)."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef = batch.edge_flat
+    bsz, n, _ = batch.x.shape
+    live = ef[(ef >= 0) & (ef < bsz * n * n)].long()
+    used = torch.zeros(bsz * n, dtype=torch.bool, device=ef.device)
+    used[live // n] = True
+    used[live // (n * n) * n + live % n] = True
+    out = {"empty_nodes": int((~used).sum())}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        ti, tj, xh, g = edge_inputs(torch, batch, dt)
+        for rate in (0.0, GAT_RATE):
+            res = (eg.edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate),
+                   *eg.edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate))
+            for name, t in zip(("out", "dti", "dtj", "dxh"), res):
+                flat = t.reshape(bsz * n, -1)
+                out[f"edge_{name}_{dt_name}_{rate}"] = _digest([flat])
+                out[f"edge_{name}_{dt_name}_{rate}_empty"] = _digest([flat[~used]])
+    return out
 
 
 def _digest(ts) -> str:
@@ -3057,6 +3177,34 @@ def ptxas_walk(report: dict) -> dict:
     return out
 
 
+def ptxas_edge(report: dict) -> dict:
+    """{instance: registers, spill bytes} of the edge GAT kernels (every
+    ``*_kernel`` of edge_gat.cu and edge_gat_bwd.cu), from nvcc's ``-Xptxas
+    -v`` logs; an instance is named by its element type and integer template
+    arguments (heads, then heads * d or columns a lane)."""
+    out = {}
+    for lib in sorted(k for k in report if k.startswith("edge_gat")):
+        name = None
+        for ln in report[lib]["log"].splitlines():
+            m = re.search(r"Function properties for (\w+)", ln)
+            if m:
+                k = re.search(r"\d+([A-Za-z]\w*?_kernel)(I\w*E)?", m.group(1))
+                name = None
+                if k:
+                    t = re.search(r"I(13__nv_bfloat16|f)", k.group(2) or "")
+                    ints = re.findall(r"Li(\d+)E", k.group(2) or "")
+                    parts = ([("bf16" if t.group(1) != "f" else "f32")] if t else []) + ints
+                    name = f"{k.group(1)}<{', '.join(parts)}>" if parts else k.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if name and m:
+                out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+            m = re.search(r"Used (\d+) registers", ln)
+            if name and m:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
     """Row 9 (K19, K19T, K20) at ``heads`` heads of H / heads and row 14
     (K21) at ``planes`` value planes against their twins on one sparse batch
@@ -3195,7 +3343,8 @@ OFF_MAIN_PATH = {"segment_max"}
 # launches come from the main_real CausalGAT run on SYNREDDIT, its main path
 EDGE_KERNEL_ROWS = {
     "edge_gat_fwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:323"),
-    "edge_gat_bwd": ("cal_tpu_torch/csrc/edge_gat.cu", "cal_tpu/ops/pallas_gat_sparse.py:361"),
+    "edge_gat_bwd": ("cal_tpu_torch/csrc/edge_gat_bwd.cu",
+                     "cal_tpu/ops/pallas_gat_sparse.py:361"),
 }
 # row 12's kernel row -> (source, the TPU kernel it replaces); launches come
 # from ``cal_tpu_torch.bench`` (config 4), its main path
@@ -3291,6 +3440,7 @@ def main() -> int:
               "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|"
               "degree_wide_kernel|degree_col_kernel"),
           "ptxas_walk": ptxas_walk(report),
+          "ptxas_edge": ptxas_edge(report),
           "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
@@ -3782,8 +3932,49 @@ def rows_main() -> int:
     return 0
 
 
+def real_batch(torch):
+    """The first dense batch of SYNREDDIT (B = 128, N = 3,840), on the card."""
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
+
+    _, real_ds = real_data()
+    graphs = list(real_ds)
+    return next(Loader(graphs, B, budgets=compute_budgets(graphs, B)).host_batches()).to("cuda")
+
+
+def edge_main() -> int:
+    """``--edge``: rows 6 and 6b alone, for an A/B of two trees (run this
+    file from the other tree's root): the build's ptxas report of the edge
+    kernels, the first SYNREDDIT batch's edge index line, the forward and
+    backward held against their twins and timed in bf16 and f32 at dropout
+    0 and GAT_RATE as a layer's step calls them, and the edge digests."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks, _ = peaks_for(name)
+    report = build.build_all()
+    emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
+          "build_seconds": {k: v["seconds"] for k, v in report.items()},
+          "ptxas_edge": ptxas_edge(report)})
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    batch = real_batch(torch)
+    edge_kernel_rows(torch, batch, peaks, flush, rates=(0.0, GAT_RATE), autograd=False)
+    emit({"phase": "edge_digests", "root": HERE, **edge_digests(torch, batch)})
+    emit({"phase": "edge_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
+    return 0
+
+
 def digests_main() -> int:
-    """``--digests``: only the dense_digests and sparse_digests lines, for
+    """``--digests``: only the dense_digests, sparse_digests and
+    edge_digests lines (the last on the first SYNREDDIT batch), for
     comparing the bits of two trees of the port (run this file from the
     other tree's root)."""
     import torch
@@ -3801,9 +3992,12 @@ def digests_main() -> int:
     batches = sparse_batches(torch)
     emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
         torch, {k: batches[k] for k in ("synthetic", "reddit")})})
+    del batches
+    emit({"phase": "edge_digests", "root": HERE, **edge_digests(torch, real_batch(torch))})
     return 0
 
 
 if __name__ == "__main__":
-    modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main}
+    modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main,
+             "--edge": edge_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

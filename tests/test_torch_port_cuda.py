@@ -9,6 +9,7 @@ without the suite's conftest (which sets JAX up):
 import numpy as np
 import pytest
 import torch
+from edge_lists import hub_edges
 
 from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
 from cal_tpu_torch.ops.flash_gat import (
@@ -1013,6 +1014,164 @@ def test_edge_gat_kernels_are_deterministic_and_raise(cuda):
     with pytest.raises(ValueError, match="heads"):
         eg.edge_gat_fwd(ti, tj, xh[..., :96].contiguous(), ef)
 
+
+def _edge_case(device, case, dtype="float32", heads=4, hd=128, seed=5):
+    """(edge_flat, ti, tj, xh, g) of an index case on ``device``."""
+    if case == "special":
+        b, n = 3, 48
+        ef = torch.from_numpy(hub_edges(b, n)).to(device)
+    elif case == "empty":
+        b, n = 4, 64
+        ef = torch.full((96,), b * n * n, dtype=torch.int32, device=device)
+    else:
+        return _edge_inputs(device, 8, 384, heads, hd, 900, 1500, dtype, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *sh: torch.randn(sh, generator=gen, device=device)
+    return ef, rand(b, n, heads), rand(b, n, heads), rand(b, n, hd).to(DT[dtype]), \
+        rand(b, n, hd).to(DT[dtype])
+
+
+@pytest.mark.parametrize("case", ["special", "empty", "random_hub"])
+def test_edge_index_kernels_match_plain_build(cuda, case):
+    """The index the kernels build on the card equals the plain build
+    (EdgeIndex.build_plain, torch ops) of the same list, up to the order
+    of its node lists, and leaves every arrival counter at 0."""
+    from cal_tpu_torch.ops.edge_gat import EdgeIndex
+
+    ef, ti = _edge_case(cuda, case)[:2]
+    b, n = ti.shape[:2]
+    got = EdgeIndex(ef, b, n).build()
+    torch.cuda.synchronize()
+    assert got.as_lists() == EdgeIndex(ef, b, n).build_plain().as_lists()
+
+
+def _empty_nodes(ef, b, n):
+    """Mask [B*N] of the nodes without a live slot as receiver or sender."""
+    total = b * n * n
+    live = ef[(ef >= 0) & (ef < total)].long()
+    used = torch.zeros(b * n, dtype=torch.bool, device=ef.device)
+    used[live // n] = True
+    used[live // (n * n) * n + live % n] = True
+    return ~used
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.2, 0.9999])
+def test_edge_gat_special_rows_match_plain(cuda, dtype, rate):
+    """Hubs over several chunks, rows of self loops only, an empty graph and
+    (rate 0.9999) rows whose slots are all dropped, against the twins at
+    EDGE_TOL / EDGE_T_TOL; the nodes without a slot either way bit for bit;
+    one launch of each wrapper a call."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_case(cuda, "special", dtype)
+    b, n, heads = ti.shape
+    seed = 0x5DEECE66D
+    before = (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches)
+    out = eg.edge_gat_fwd(ti, tj, xh, ef, seed, rate)
+    got = eg.edge_gat_bwd(ti, tj, xh, ef, g, seed, rate)
+    torch.cuda.synchronize()
+    assert (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = eg.edge_gat_fwd_plain(ti, tj, xh, ef, seed, rate)
+    ref = eg.edge_gat_bwd_plain(ti, tj, xh, ef, g, seed, rate)
+    torch.testing.assert_close(out.float(), want.float(), atol=EDGE_T_TOL[dtype][0],
+                               rtol=EDGE_T_TOL[dtype][1])
+    for name, a, r in zip(("dti", "dtj", "dxh"), got, ref):
+        tol = EDGE_T_TOL[dtype] if name == "dxh" else EDGE_TOL
+        torch.testing.assert_close(a.float(), r.float(), atol=tol[0], rtol=tol[1], msg=name)
+    empty = _empty_nodes(ef, b, n)
+    assert int(empty.sum()) > n        # graph 1 and the unused nodes
+    for a, r in zip((out,) + got, (want,) + ref):
+        assert torch.equal(a.reshape(b * n, -1)[empty], r.reshape(b * n, -1)[empty])
+
+
+def test_edge_gat_all_empty_batch_bits(cuda):
+    """A batch without a live slot: every output equals the twin's bit for
+    bit (out and dxh keep_v scale times xh and g, dti = dtj = 0)."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    for dtype in ("float32", "bfloat16"):
+        ef, ti, tj, xh, g = _edge_case(cuda, "empty", dtype)
+        for rate in (0.0, 0.2):
+            assert torch.equal(eg.edge_gat_fwd(ti, tj, xh, ef, 3, rate),
+                               eg.edge_gat_fwd_plain(ti, tj, xh, ef, 3, rate))
+            for a, r in zip(eg.edge_gat_bwd(ti, tj, xh, ef, g, 3, rate),
+                            eg.edge_gat_bwd_plain(ti, tj, xh, ef, g, 3, rate)):
+                assert torch.equal(a, r)
+
+
+def test_edge_gat_nonfinite_logit_in_empty_row(cuda):
+    """A non-finite logit (inf, -inf, NaN) on nodes without slots gives NaN
+    where the twin gives NaN, and the twin's values elsewhere."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_case(cuda, "special", "float32")
+    ti, tj = ti.clone(), tj.clone()
+    ti[1, 3, 0], ti[1, 7, 2], tj[0, 45, 1] = float("inf"), float("-inf"), float("nan")
+    for rate in (0.0, 0.2):
+        out = eg.edge_gat_fwd(ti, tj, xh, ef, 11, rate)
+        want = eg.edge_gat_fwd_plain(ti, tj, xh, ef, 11, rate)
+        assert bool(torch.isnan(want).any())
+        torch.testing.assert_close(out, want, atol=EDGE_TOL[0], rtol=EDGE_TOL[1], equal_nan=True)
+        for a, r in zip(eg.edge_gat_bwd(ti, tj, xh, ef, g, 11, rate),
+                        eg.edge_gat_bwd_plain(ti, tj, xh, ef, g, 11, rate)):
+            torch.testing.assert_close(a, r, atol=EDGE_TOL[0], rtol=EDGE_TOL[1], equal_nan=True)
+
+
+def test_edge_gat_index_and_stats_handed_give_the_same_bits(cuda):
+    """The batch's index handed (built once, used by two layers' calls) or
+    built per call, and the forward's statistics handed or formed again:
+    equal bits, two calls equal bits, one launch of each wrapper a call;
+    edge_gat_dense_flat on the batch's index equals it without."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_case(cuda, "random_hub", "bfloat16")
+    b, n, heads = ti.shape
+    idx = eg.EdgeIndex(ef, b, n)
+    before = (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches)
+    out, stats = eg.edge_gat_fwd(ti, tj, xh, ef, 5, 0.2, idx, with_stats=True)
+    outs = [out, eg.edge_gat_fwd(ti, tj, xh, ef, 5, 0.2, idx), eg.edge_gat_fwd(ti, tj, xh, ef, 5, 0.2)]
+    grads = [eg.edge_gat_bwd(ti, tj, xh, ef, g, 5, 0.2, idx, stats),
+             eg.edge_gat_bwd(ti, tj, xh, ef, g, 5, 0.2, idx, stats),
+             eg.edge_gat_bwd(ti, tj, xh, ef, g, 5, 0.2)]
+    torch.cuda.synchronize()
+    assert (eg.edge_gat_fwd.launches, eg.edge_gat_bwd.launches) == (before[0] + 3, before[1] + 3)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    for other in grads[1:]:
+        assert all(torch.equal(u, w) for u, w in zip(grads[0], other))
+    assert stats.shape == (2, b * n, heads) and stats.dtype == torch.float32
+    att = torch.randn(heads, xh.shape[-1] // heads, device=cuda)
+    runs = []
+    for index in (idx, None):
+        leaf = xh.detach().clone().requires_grad_()
+        o = eg.edge_gat_dense_flat(leaf, ef, att, att, 0.2, 99, index)
+        (dx,) = torch.autograd.grad(o.float().sum(), leaf)
+        runs.append((o, dx))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    with pytest.raises(ValueError, match="edge index"):
+        eg.edge_gat_fwd(ti[:2].contiguous(), tj[:2].contiguous(), xh[:2].contiguous(), ef, 5, 0.2,
+                        idx)
+
+
+
+def test_edge_index_raises_on_another_stream(cuda):
+    """The launches over a batch's index share its arrival counters, so they
+    run on the stream the index was built on: a forward or backward over it
+    on another stream raises; on its own stream it runs."""
+    from cal_tpu_torch.ops import edge_gat as eg
+
+    ef, ti, tj, xh, g = _edge_case(cuda, "special", "float32")
+    idx = eg.EdgeIndex(ef, *ti.shape[:2]).build()
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        with pytest.raises(ValueError, match="stream"):
+            eg.edge_gat_fwd(ti, tj, xh, ef, 1, 0.2, idx)
+        with pytest.raises(ValueError, match="stream"):
+            eg.edge_gat_bwd(ti, tj, xh, ef, g, 1, 0.2, idx)
+    torch.testing.assert_close(eg.edge_gat_fwd(ti, tj, xh, ef, 1, 0.2, idx),
+                               eg.edge_gat_fwd_plain(ti, tj, xh, ef, 1, 0.2),
+                               atol=EDGE_TOL[0], rtol=EDGE_TOL[1])
 
 # ---- rows 4 and 3: one dense masked conv (K17/K17T, K18/K18B) ------------
 # The dual kernels' modes, at their tolerances (DUAL_TOL, DUAL_BWD_TOL): the

@@ -563,6 +563,75 @@ def _gin_noise_param(key):
     return key.endswith(".lin1.bias") or (".bn." in key and key.endswith(".mean"))
 
 
+def _jax_gin_baseline_reference(tiled, wd, kw, path):
+    """cal_tpu's GIN baseline trainer with ``kw`` (tile plans on when
+    ``tiled``), pickled to ``path``: the initial weights, each epoch's (loss,
+    train accuracy), the loaders' tile flags, whether coo_spmm was traced,
+    the result's accuracies and epoch, its final parameters and statistics
+    as the port's state dict (NumPy), and the trainer's stdout."""
+    import contextlib
+    import io
+    import pickle
+
+    jtrain, jval, jtest = _tiny_split("jax")
+    init, patch = _record_init(jax_baseline_mod)
+    epochs, tiles, traced = [], [], []
+    real_epoch, real_coo = jax_baseline_mod._run_epoch, jax_pallas_spmm.coo_spmm
+
+    def run_epoch(*a):
+        out = real_epoch(*a)
+        epochs.append(tuple(float(v) for v in out[1:]))
+        return out
+
+    def loader(*a, **k):
+        ld = JaxLoader(*a, **{**k, "spmm_tiles": tiled})
+        tiles.append(ld.spmm_tiles)
+        return ld
+
+    def coo(*a):
+        traced.append(1)
+        return real_coo(*a)
+
+    out = io.StringIO()
+    with patch, mock.patch.object(jax_baseline_mod, "_run_epoch", run_epoch), \
+            mock.patch.object(jax_baseline_mod, "Loader", loader), \
+            mock.patch.object(jax_pallas_spmm, "coo_spmm", coo), contextlib.redirect_stdout(out):
+        ref = jax_train_baseline_syn(jtrain, jval, jtest, JaxConfig(scan_epochs=False, **kw))
+    want = params_from_jax(ref["state"].params, ref["state"].batch_stats)
+    with open(path, "wb") as f:
+        pickle.dump({"init": init, "epochs": epochs, "tiles": tiles, "traced": bool(traced),
+                     "result": {k: ref[k] for k in ("best_val_acc", "test_acc", "epoch")},
+                     "want": {k: v.numpy() for k, v in want.items()},
+                     "stdout": out.getvalue()}, f)
+
+
+def _single_thread_reference(fn, *args):
+    """``fn(*args, path)`` run in a fresh Python with XLA's CPU Eigen pool
+    off, and what it pickled to ``path``.  XLA splits a CPU reduction over
+    as many threads as the machine has cores, so cal_tpu's f32 numbers
+    depend on the core count; one thread makes the reference the same
+    everywhere."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ref.pkl")
+        code = (f"import sys; sys.path.insert(0, {here!r}); import conftest; "
+                f"import {__name__.rsplit('.', 1)[-1]} as m; "
+                f"m.{fn.__name__}(*{args!r}, {path!r})")
+        run = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.path.dirname(here),
+                             capture_output=True, text=True, timeout=600)
+        assert run.returncode == 0, run.stderr[-4000:]
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+
 @pytest.mark.parametrize("tiled,wd", [(False, 0.0), (True, GIN_TRAIN_WD)],
                          ids=["default_wd", "tiled"])
 def test_train_gin_baseline_matches_jax_params(tiled, wd, capsys):
@@ -573,41 +642,20 @@ def test_train_gin_baseline_matches_jax_params(tiled, wd, capsys):
     ``_gin_noise_param`` names.  ``tiled``: cal_tpu's loaders build tile
     plans, so its GIN aggregates through coo_spmm (Pallas in interpret
     mode), the function that K11 ports; at GIN_TRAIN_WD every line but the
-    loss digits and every parameter are held."""
+    loss digits and every parameter are held.  cal_tpu's run is made in a
+    subprocess with one XLA CPU thread (``_single_thread_reference``): the
+    lin1 bias's gradient is rounding noise plus the weight-decay term, and
+    with XLA's multi-threaded reductions its rounding followed the core
+    count."""
     kw = dict(model="GIN", epochs=3, batch_size=32, hidden=16, layers=1, lr=0.01, seed=3,
               layout="sparse", weight_decay=wd)
-    jtrain, jval, jtest = _tiny_split("jax")
-    init, patch = _record_init(jax_baseline_mod)
-    epochs, tiles = [], []
-    real_epoch = jax_baseline_mod._run_epoch
-
-    def run_epoch(*a):
-        out = real_epoch(*a)
-        epochs.append(out[1:])
-        return out
-
-    def loader(*a, **k):
-        ld = JaxLoader(*a, **{**k, "spmm_tiles": tiled})
-        tiles.append(ld.spmm_tiles)
-        return ld
-
-    traced = []
-    real_coo = jax_pallas_spmm.coo_spmm
-
-    def coo(*a):
-        traced.append(1)
-        return real_coo(*a)
-
-    with patch, mock.patch.object(jax_baseline_mod, "_run_epoch", run_epoch), \
-            mock.patch.object(jax_baseline_mod, "Loader", loader), \
-            mock.patch.object(jax_pallas_spmm, "coo_spmm", coo):
-        capsys.readouterr()
-        ref = jax_train_baseline_syn(jtrain, jval, jtest, JaxConfig(scan_epochs=False, **kw))
-        ref_out = capsys.readouterr().out
-    assert tiles == [tiled] * 3 and bool(traced) == tiled
+    ref = _single_thread_reference(_jax_gin_baseline_reference, tiled, wd, kw)
+    epochs = ref["epochs"]
+    assert ref["tiles"] == [tiled] * 3 and ref["traced"] == tiled
     train, val, test = _tiny_split("torch")
     built = []
-    build = _from_init(init, "GIN")
+    build = _from_init(ref["init"], "GIN")
+    capsys.readouterr()
     with mock.patch.object(steps_mod, "get_model", lambda *a: built.append(build(*a)) or built[-1]):
         res = train_baseline_syn(train, val, test, Config(device="cpu", **kw))
     out = capsys.readouterr().out
@@ -615,7 +663,7 @@ def test_train_gin_baseline_matches_jax_params(tiled, wd, capsys):
                                rtol=1e-4)
     assert [h["train_acc"] for h in res["history"]] == pytest.approx([e[1] for e in epochs],
                                                                      abs=1e-12)
-    want = params_from_jax(ref["state"].params, ref["state"].batch_stats)
+    want = ref["want"]
     got = built[0].state_dict()
     held = [k for k in want if wd > 0 or not _gin_noise_param(k)]
     assert set(got) == set(want) and len(held) >= len(want) - 2
@@ -624,10 +672,10 @@ def test_train_gin_baseline_matches_jax_params(tiled, wd, capsys):
                                    err_msg=k)
     if wd > 0:
         for k in ("best_val_acc", "test_acc", "epoch"):
-            assert res[k] == pytest.approx(ref[k], abs=1e-12), k
+            assert res[k] == pytest.approx(ref["result"][k], abs=1e-12), k
         strip = lambda text: [ln.split("Loss:")[0] + ln.split("Train:")[-1]
                               for ln in text.splitlines() if ln.startswith(("BIAS:", "syd:"))]
-        assert strip(out) == strip(ref_out) and len(strip(out)) == 4
+        assert strip(out) == strip(ref["stdout"]) and len(strip(out)) == 4
 
 
 def test_train_causal_syn_gin_sparse_matches_jax(tmp_path):

@@ -105,7 +105,7 @@ def test_kernel_modules_import_without_nvcc():
             "import cal_tpu_torch.ops.edge_gat as eg\n"
             "assert eg.edge_gat_fwd.launches == eg.edge_gat_bwd.launches == 0\n"
             "assert sorted(build.sources()) == ['adj_build', 'coo_spmm', 'edge_gat', "
-            "'flash_gat', 'fused_gcn', 'gat_sparse', 'pool', 'spmm']")
+            "'edge_gat_bwd', 'flash_gat', 'fused_gcn', 'gat_sparse', 'pool', 'spmm']")
     res = _run(code)
     assert res.returncode == 0, res.stderr
 
