@@ -20,26 +20,62 @@
 //   dpre   = (pre >= 0 ? 1 : 0.2) * alpha * (da - t_r)
 //   dti_r  = c sum_s dpre;  dtj_s = c sum_r dpre;  dxh_s = T(c sum_r keep alpha g_r)
 //
-// Bound on this card: at B=128, N=256, heads=4, d=32 the forward moves
-// ~44 MB in bf16 (0.013 ms at 3.35 TB/s) against 2.1 GFLOP of products and
-// 34 M exponentials; the products run here in full f32 on the CUDA cores
-// (0.032 ms at 67 TFLOP/s), which makes them the bound.
-// Design: no [N, N] score plane reaches device memory.  The forward runs one
-// block per (head, 32 receivers, graph): a warp per row takes the masked max
-// and then the denominator over all senders (two passes over the counts
-// row, the second mostly from L1/L2), then the block walks the senders in
-// chunks of 64, rebuilds keep * alpha for the 32 x 64 chunk in shared memory
-// and accumulates alpha x xh in registers (4 rows x ceil(d / 32) x 32
-// columns a thread, the column groups a template argument).  The backward
-// needs row sums (t, dti) and column sums (dtj, dxh): a row kernel (one
-// block per head, 32 receivers, graph) forms g . xh for each cell from
-// shared memory and reduces t and dti per row in one sweep, and writes t; a
-// column kernel (one block per head, 32 senders, graph) recomputes alpha and
-// g . xh per cell, reduces dtj per column and accumulates dxh = sum_r
-// alpha_drop g_r in registers.
-// Every sum has one owner: no atomics, no partial planes, the same bits
-// every run.
-// Tensor cores (mma.sync in bf16) and a single-pass softmax are later work.
+// Bound on this card: what a call must do is read the counts plane once,
+// the xh (and g) planes and the per-head vectors once, write the outputs
+// once, and multiply on the live cells only (ceff > 0: 1.6% of the plane
+// on the synthetic batches).  At B=128, N=256, heads=4, d=32 the forward
+// moves ~44 MB in bf16 (0.013 ms at 3.35 TB/s) against 2 * live * heads * d
+// products (34 MFLOP for a batch's 131,376 live cells), so bytes bound
+// both kernels in both dtypes.  The kernels run at 5x (forward) and 9x
+// (backward) that bound: each row is a chain of dependent loads (counts,
+// then tj, then the gathered rows), so the warps in flight set the pace.
+//
+// Design: every step after the counts read runs on the live cells alone.
+// A warp owns a row (the forward and the backward's receiver kernel: a
+// receiver; the sender kernel: a sender) and takes its cells in chunks of
+// 256.  A chunk streams in 16 bytes a lane, and its live cells (ceff > 0,
+// the diagonal always live) are compacted into a list in shared memory
+// (popcounts and a warp prefix scan; the list keeps ascending cell order
+// and holds at most one chunk, so any density and any N run).  Everything
+// after that touches the list only: the max, the denominator, the keep
+// bits, alpha, the gathers of xh (or g) rows and the sums.  A warp owns
+// every head of its row: ceff and the live test are shared by the heads,
+// and a lane's 4 columns of a gathered row belong to one head (a head
+// takes a power of two of lanes, so its dot products are a shuffle
+// butterfly).  Per (cell, head) scalars are formed by "pair lanes" (lane =
+// entry * hp + head) and handed to the column lanes through a small
+// per-warp buffer.  More than 32 heads, or 128 column slots, run as head
+// groups, one launch each, each reading the counts again (a group holds up
+// to 16 heads of d <= 32, or 4 of d = 128).  Each kernel is held to 64
+// registers (four blocks an SM): more warps in flight beat the few spills
+// the cap costs.
+// - Forward: one read of the counts.  A row whose live cells fit one list
+//   (every row at N <= 256) takes its max, then its denominator, then sums
+//   alpha xh_s in ascending sender order, alpha = exp(l - m) * ceff * (1 /
+//   den) as the parent formed it.  A longer row folds its list in when the
+//   next chunk would overflow it and carries (m, den, out) online, rescaled
+//   by exp(m_old - m_new).  A row whose only live cell is its diagonal (a
+//   padded node) costs a copy: m = l, den = 1, out = scale * keep * xh_r.
+// - Backward: two launches, the counts read once in each.  The receiver
+//   kernel forms da for each live cell and head from the row's g
+//   (registers) and the gathered xh_s, writes dti, and hands the sender
+//   kernel a 16-byte record (ti, m, 1 / den, t) per (receiver, head), since
+//   the column sums need every t_r of their receivers first.  The sender
+//   kernel (a block reads a tile of 8 senders' columns, a thread a row, 16
+//   bytes each, and ballots give each sender its live receivers) gathers
+//   g_r per live cell, forms da again from it (d products a head) and sums
+//   dtj and dxh = sum keep alpha g_r in ascending receiver order.  One
+//   block per graph with a barrier between the phases would keep da in
+//   shared memory, but a graph's live cells and its senders' sums do not
+//   fit a block at every density and N, and the second dot costs d FMAs a
+//   cell on rows the sender side gathers anyway.
+// Every sum has one owner and one order: no atomics, the same bits every
+// run.  m keeps the parent's bits (a max), and so does dxh where it is
+// handed the same m and den (the parent's fmaf chain in the parent's
+// order); den, out, dti and dtj add in another order than the parent's.
+// Non-finite inputs: a non-finite xh_s (or g_r) of a cell with ceff == 0
+// no longer reaches out_r (or the backward): the parent multiplied it by
+// 0, this kernel never reads it.  Dropped live cells still multiply by 0.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -48,24 +84,25 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;        // receivers (forward, row kernel) or senders (column kernel)
-constexpr int kChunk = 64;       // senders (forward, row kernel) or receivers (column kernel)
-constexpr int kMaxGroups = 4;    // column groups of 32 a thread keeps: head width d <= 128
+constexpr int kChunk = 256;      // cells of a row (a column) that one list holds: 32 lanes x kPer
+constexpr int kPer = 8;          // cells a lane reads of a chunk: 16 bytes of bf16
+constexpr int kPairs = 64;       // (cell, head) pairs a batch, two a lane
+// Blocks an SM must hold, which caps a kernel's registers (65,536 / (256
+// blocks)): the kernels wait on chains of dependent loads, and a warp more
+// in flight beats the few spills the cap costs.
+constexpr int kFwdBlocks = 4, kRowBlocks = 4, kColBlocks = 4;
+constexpr int kMaxGroups = 4;    // 32-lane column groups a lane keeps: 128 slots of 4 columns
+constexpr int kMaxHeadDim = 128;
 constexpr float kNegSlope = 0.2f;
 constexpr float kBigNeg = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == kChunk, "the sender kernel reads a chunk a thread a row");
+static_assert(kWarps == kPer, "the sender kernel gives each of a tile's senders a warp");
 
 __device__ __forceinline__ float leaky(float x) { return fmaxf(x, kNegSlope * x); }
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Philox-4x32-10 (Salmon et al., SC'11): the first output word for the
 // counter (lo, hi, 0, 0) under the key (k0, k1)
@@ -91,409 +128,663 @@ __device__ __forceinline__ bool keep_cell(uint64_t cell, uint32_t s0, uint32_t s
   return thresh == 0 || philox_bits(cell, s0, s1) >= thresh;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// A launch's head group [h0, h0 + hg) and its lane plan, the same in every
+// lane.  Column slot q = lane + 32 k holds columns 4 (q % lph) .. + 3 of
+// group head q / lph; pair lane (entry jl = lane / hp, head hl = lane % hp).
+struct Geo {
+  int N, heads, d, hd;   // hd = heads * d: the row stride of xh, g, out and dxh
+  int h0, hg;
+  int lph;               // lanes a head's columns take: a power of two >= ceil(d / 4)
+  int hp;                // pair lanes an entry takes: a power of two >= hg
+  int xvec;              // d % 4 == 0: a slot's 4 columns are one aligned vector
+  int cvec;              // the counts rows' 8-cell pieces are 16-byte aligned
+};
+
+struct Args {
+  const float* ti;
+  const float* tj;
+  const void* counts;
+  const void* xh;
+  const float* m;        // backward: the forward's statistics
+  const float* den;
+  const float* g;        // backward: the cotangent of out
+  float* out;            // forward: out, m and den
+  float* m_out;
+  float* den_out;
+  float* dti;            // backward: dti, dtj, dxh and the receivers' records
+  float* dtj;
+  void* dxh;
+  float4* rec;           // (ti, m, 1 / den, t) of each (receiver, head): receiver to sender kernel
+  Geo geo;
+  uint32_t s0, s1, thresh;
+  float scale;
+};
+
+// A lane's column slots: the row offset of its 4 columns, how many exist
+// (0 where the slot is padding) and their group head.
+template <int KG>
+struct Cols {
+  int off[KG], n[KG], head[KG];
+  bool lead[KG];         // the first lane of its head's lph lanes
+};
+
+template <int KG>
+__device__ __forceinline__ Cols<KG> cols_of(const Geo& g, int lane) {
+  Cols<KG> c;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int k = 0; k < KG; ++k) {
+    const int slot = lane + 32 * k, h = slot / g.lph, c0 = (slot % g.lph) * 4;
+    const bool ok = h < g.hg && c0 < g.d;
+    c.head[k] = ok ? h : 0;
+    c.n[k] = ok ? min(4, g.d - c0) : 0;
+    c.off[k] = ok ? (g.h0 + h) * g.d + c0 : 0;
+    c.lead[k] = ok && c0 == 0;
+  }
+  return c;
+}
+
+// the n (<= 4) columns at p as f32, 0 past n; one vector load where allowed
+__device__ __forceinline__ void load4(const float* p, int n, bool vec, float (&v)[4]) {
+  if (vec && n == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = q < n ? __ldg(p + q) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, bool vec, float (&v)[4]) {
+  if (vec && n == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf_lo(t.x), v[1] = bf_hi(t.x), v[2] = bf_lo(t.y), v[3] = bf_hi(t.y);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = q < n ? to_f(p[q]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, int n, bool vec, const float (&v)[4]) {
+  if (vec && n == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < n) p[q] = v[q];
+  }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int n, bool vec, const float (&v)[4]) {
+  if (vec && n == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<uint32_t*>(&lo);
+    t.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < n) p[q] = __float2bfloat16(v[q]);
+  }
+}
+
+// the 8 counts at p as f32, 0 past n (n <= 0 reads nothing); 16-byte loads
+// where the row allows them
+__device__ __forceinline__ void load8(const float* p, int n, bool vec, float (&c)[kPer]) {
+  if (vec && n >= kPer) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    c[0] = a.x, c[1] = a.y, c[2] = a.z, c[3] = a.w, c[4] = b.x, c[5] = b.y, c[6] = b.z,
+    c[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) c[i] = i < n ? __ldg(p + i) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int n, bool vec,
+                                      float (&c)[kPer]) {
+  if (vec && n >= kPer) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    c[0] = bf_lo(t.x), c[1] = bf_hi(t.x), c[2] = bf_lo(t.y), c[3] = bf_hi(t.y);
+    c[4] = bf_lo(t.z), c[5] = bf_hi(t.z), c[6] = bf_lo(t.w), c[7] = bf_hi(t.w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) c[i] = i < n ? to_f(p[i]) : 0.f;
+  }
+}
+
+// sum / max over the lanes of one pair head (the lanes equal mod hp)
+__device__ __forceinline__ float heads_sum(float v, int hp) {
+  for (int o = 16; o >= hp; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ float heads_max(float v, int hp) {
+  for (int o = 16; o >= hp; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// ceff of cell (r, s) of one graph's counts
-template <typename T>
-__device__ __forceinline__ float ceff_of(const T* cnt, int r, int s, int N) {
-  return r == s ? 1.f : to_f(cnt[(size_t)r * N + s]);
+// sum over the lph lanes of one column head (an aligned power-of-two group)
+__device__ __forceinline__ float group_sum(float v, int lph) {
+  for (int o = lph >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Warp prefix scan of the lanes' live counts: returns this lane's offset,
+// total = the warp's count.
+__device__ __forceinline__ int live_offset(unsigned live, int lane, int& total) {
+  const int cnt = __popc(live);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  total = __shfl_sync(kFull, incl, 31);
+  return incl - cnt;
+}
+
+__device__ __forceinline__ void list_put(unsigned live, int first, const float (&ce)[kPer],
+                                         int* ls, float* lc, int pos) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (live >> i & 1u) {
+      ls[pos] = first + i;
+      lc[pos] = ce[i];
+      ++pos;
+    }
+}
+
+// Rows gathered at once, kept as f32: more where a lane keeps fewer columns.
+__host__ __device__ constexpr int rows_at_once(int kg) { return kg == 1 ? 4 : kg == 2 ? 2 : 1; }
+
+// the lane's columns of rows ls[j0 .. j0 + G) (those below n) of a plane
+// whose rows are hd apart
+template <typename T, int KG, int G>
+__device__ __forceinline__ void gather(float (&x)[G][KG][4], const T* plane, int hd,
+                                       const int* ls, int j0, int n, const Cols<KG>& cl,
+                                       bool vec) {
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    if (j0 + u >= n) break;
+    const T* p = plane + (size_t)ls[j0 + u] * hd;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) load4(p + cl.off[k], cl.n[k], vec, x[u][k]);
+  }
+}
+
+// the live cells of a chunk (cells c0 + 8 lane + i) of row r; the diagonal
+// is forced to 1
+__device__ __forceinline__ unsigned chunk_live(int c0, int lane, int r, int N,
+                                               float (&ce)[kPer]) {
+  const int s = c0 + kPer * lane;
+  unsigned live = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (s + i == r) ce[i] = 1.f;
+    if (s + i < N && ce[i] > 0.f) live |= 1u << i;
+  }
+  return live;
 }
 
 // ---------------------------------------------------------------------------
-// Forward.  Grid (heads, ceil(N / kTile), B).  Shared memory: tj of the head
-// [N], keep * alpha of the chunk [kTile][kChunk], xh of the chunk [kChunk][d].
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ ti, const float* __restrict__ tj,
-                 const T* __restrict__ counts, const T* __restrict__ xh,
-                 float* __restrict__ out, float* __restrict__ m_out,
-                 float* __restrict__ den_out, int N, int heads, int d, uint32_t s0,
-                 uint32_t s1, uint32_t thresh, float scale) {
-  extern __shared__ float smem[];
-  float* tj_s = smem;                       // [N]
-  float* p = tj_s + N;                      // [kTile][kChunk]
-  float* xs = p + kTile * kChunk;           // [kChunk][d]
-  __shared__ float ti_s[kTile], m_s[kTile], inv_s[kTile];
-
-  const int h = blockIdx.x, r0 = blockIdx.y * kTile, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hd = heads * d;
+// Forward.  Grid (ceil(N / 8), B): a warp a receiver, every head of the
+// launch's group.  Writes out, m and den.
+template <typename T, int KG>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+flash_fwd_kernel(const Args a) {
+  constexpr int G = rows_at_once(KG);
+  __shared__ int ls_[kWarps][kChunk];      // the list: senders
+  __shared__ float lc_[kWarps][kChunk];    //           and their ceff
+  __shared__ float wb_[kWarps][kPairs];    // a batch's keep * alpha by (entry, head)
+  const Geo g = a.geo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
+  int* ls = ls_[warp];
+  float* lc = lc_[warp];
+  float* wb = wb_[warp];
+  const int N = g.N, heads = g.heads, hp = g.hp, jstep = 32 / hp, eb = kPairs / hp;
   const size_t bn = (size_t)b * N;
-  const T* cnt = counts + bn * N;
-  for (int s = tid; s < N; s += kThreads) tj_s[s] = tj[(bn + s) * heads + h];
-  if (tid < kTile) ti_s[tid] = r0 + tid < N ? ti[(bn + r0 + tid) * heads + h] : 0.f;
-  __syncthreads();
+  const T* cnt = static_cast<const T*>(a.counts) + bn * N;
+  const T* xplane = static_cast<const T*>(a.xh) + bn * g.hd;
+  const int jl = lane / hp, hl = lane % hp;
+  const bool hv = hl < g.hg;
+  const int hgl = g.h0 + (hv ? hl : 0);
+  const float* tjb = a.tj + bn * heads + hgl;          // tj of sender s: tjb[s * heads]
+  const Cols<KG> cl = cols_of<KG>(g, lane);
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= N) return;                      // warp-uniform; the kernel has no block barrier
+  const float tir = hv ? a.ti[(bn + r) * heads + hgl] : 0.f;
+  const uint64_t rowcell = (((uint64_t)b * heads + hgl) * N + r) * N;
+  float* orow = a.out + (bn + r) * g.hd;
+  float acc[KG][4];
+#pragma unroll
+  for (int k = 0; k < KG; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[k][q] = 0.f;
+  float mrun = kBigNeg, drun = 0.f;
+  bool first = true;
+  int n = 0;
 
-  // row statistics, one warp per row
-  for (int i = warp; i < kTile; i += kWarps) {
-    const int r = r0 + i;
-    if (r >= N) {
-      if (lane == 0) m_s[i] = inv_s[i] = 0.f;
-      continue;
-    }
-    const float tir = ti_s[i];
+  // One pass over the list: (m, den) and the sums; `last` ends the row.
+  // Exact when the row is one list: alpha = exp(l - m) * ceff * (1 / den);
+  // else the online form, (m, den, acc) rescaled by exp(m_old - m_new).
+  auto flush = [&](bool last) {
+    const bool exact = first && last;
     float mx = kBigNeg;
-    for (int s = lane; s < N; s += 32)
-      if (ceff_of(cnt, r, s, N) > 0.f) mx = fmaxf(mx, leaky(tir + tj_s[s]));
-    mx = warp_max(mx);
-    float den = 0.f;
-    for (int s = lane; s < N; s += 32) {
-      const float c = ceff_of(cnt, r, s, N);
-      if (c > 0.f) den += expf(leaky(tir + tj_s[s]) - mx) * c;
-    }
-    den = warp_sum(den);
-    if (lane == 0) {
-      m_s[i] = mx;
-      inv_s[i] = 1.f / den;
-      m_out[(bn + r) * heads + h] = mx;
-      den_out[(bn + r) * heads + h] = den;
-    }
-  }
-
-  // out rows warp + kWarps * i, columns lane + 32 * k
-  float acc[kTile / kWarps][NG];
-#pragma unroll
-  for (int i = 0; i < kTile / kWarps; ++i)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) acc[i][k] = 0.f;
-  const uint64_t cell0 = ((uint64_t)b * heads + h) * N;
-  for (int c0 = 0; c0 < N; c0 += kChunk) {
-    __syncthreads();                        // row stats ready / previous chunk consumed
-    for (int e = tid; e < kTile * kChunk; e += kThreads) {
-      const int i = e / kChunk, j = e % kChunk, r = r0 + i, s = c0 + j;
-      float a = 0.f;
-      if (r < N && s < N) {
-        const float c = ceff_of(cnt, r, s, N);
-        if (c > 0.f && keep_cell((cell0 + r) * N + s, s0, s1, thresh))
-          a = expf(leaky(ti_s[i] + tj_s[s]) - m_s[i]) * c * inv_s[i];
+    if (hv)
+      for (int j = jl; j < n; j += jstep)
+        mx = fmaxf(mx, leaky(tir + tjb[(size_t)ls[j] * heads]));
+    mx = heads_max(mx, hp);
+    const float mnew = fmaxf(mrun, mx);
+    if (exact && n == 1) {               // the diagonal alone: a copy of xh_r
+      float wd = 0.f;
+      if (hv && jl == 0) {
+        wd = keep_cell(rowcell + r, a.s0, a.s1, a.thresh) ? 1.f : 0.f;
+        a.m_out[(bn + r) * heads + hgl] = mnew;
+        a.den_out[(bn + r) * heads + hgl] = 1.f;
       }
-      p[e] = a;
-    }
-    for (int e = tid; e < kChunk * d; e += kThreads) {
-      const int j = e / d, col = e % d, s = c0 + j;
-      xs[e] = s < N ? to_f(xh[(bn + s) * hd + h * d + col]) : 0.f;
-    }
-    __syncthreads();
-    const int len = min(kChunk, N - c0);
-    for (int j = 0; j < len; ++j) {
-      float xv[NG];
+      const T* xr = xplane + (size_t)r * g.hd;
 #pragma unroll
-      for (int k = 0; k < NG; ++k) {
-        const int col = lane + 32 * k;
-        xv[k] = col < d ? xs[j * d + col] : 0.f;
+      for (int k = 0; k < KG; ++k) {
+        const float wk = __shfl_sync(kFull, wd, cl.head[k]);
+        float v[4];
+        load4(xr + cl.off[k], cl.n[k], g.xvec, v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = a.scale * fmaf(wk, v[q], 0.f);
+        store4(orow + cl.off[k], cl.n[k], g.xvec, v);
       }
+      return;
+    }
+    float dl = 0.f;
+    if (hv)
+      for (int j = jl; j < n; j += jstep)
+        dl += expf(leaky(tir + tjb[(size_t)ls[j] * heads]) - mnew) * lc[j];
+    dl = heads_sum(dl, hp);
+    const float fac = first ? 0.f : expf(mrun - mnew);
+    const float dnew = first ? dl : fmaf(drun, fac, dl);
+    const float inv = 1.f / dnew;
+    if (!first) {
 #pragma unroll
-      for (int i = 0; i < kTile / kWarps; ++i) {
-        const float a = p[(warp + kWarps * i) * kChunk + j];
+      for (int k = 0; k < KG; ++k) {
+        const float f = __shfl_sync(kFull, fac, cl.head[k]);
 #pragma unroll
-        for (int k = 0; k < NG; ++k) acc[i][k] = fmaf(a, xv[k], acc[i][k]);
+        for (int q = 0; q < 4; ++q) acc[k][q] *= f;
       }
     }
-  }
+    for (int jb = 0; jb < n; jb += eb) {
+      const int nb = min(eb, n - jb);
 #pragma unroll
-  for (int i = 0; i < kTile / kWarps; ++i) {
-    const int r = r0 + warp + kWarps * i;
-    if (r >= N) continue;
+      for (int i = 0; i < kPairs / 32; ++i) {
+        const int j = jl + jstep * i;
+        if (j >= nb) break;
+        float wv = 0.f;
+        const int s = ls[jb + j];
+        if (hv && keep_cell(rowcell + s, a.s0, a.s1, a.thresh)) {
+          const float e = expf(leaky(tir + tjb[(size_t)s * heads]) - mnew);
+          wv = exact ? e * lc[jb + j] * inv : e * lc[jb + j];
+        }
+        wb[j * hp + hl] = wv;
+      }
+      __syncwarp();
+      for (int jj = 0; jj < nb; jj += G) {
+        float xa[G][KG][4];
+        gather(xa, xplane, g.hd, ls, jb + jj, n, cl, g.xvec);
 #pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const int col = lane + 32 * k;
-      if (col < d) out[(bn + r) * hd + h * d + col] = scale * acc[i][k];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, row kernel.  Grid (heads, ceil(N / kTile), B).  Per receiver r:
-// t_r, dti_r.  Shared memory: tj [N], g rows [kTile][d + 1], xh chunk
-// [kChunk][d + 1] (the odd stride spreads the dot products over the banks).
-// Thread tid owns row i = tid / 8 and the chunk's senders tid % 8 + 8 jj.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_row_kernel(const float* __restrict__ ti, const float* __restrict__ tj,
-                     const T* __restrict__ counts, const T* __restrict__ xh,
-                     const float* __restrict__ m, const float* __restrict__ den,
-                     const float* __restrict__ g, float* __restrict__ dti,
-                     float* __restrict__ t_out, int N, int heads, int d, uint32_t s0,
-                     uint32_t s1, uint32_t thresh, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* tj_s = smem;                       // [N]
-  float* gs = tj_s + N;                     // [kTile][ld]
-  float* xs = gs + kTile * ld;              // [kChunk][ld]
-
-  const int h = blockIdx.x, r0 = blockIdx.y * kTile, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int hd = heads * d;
-  const size_t bn = (size_t)b * N;
-  const T* cnt = counts + bn * N;
-  for (int s = tid; s < N; s += kThreads) tj_s[s] = tj[(bn + s) * heads + h];
-  for (int e = tid; e < kTile * d; e += kThreads) {
-    const int i = e / d, col = e % d, r = r0 + i;
-    gs[i * ld + col] = r < N ? g[(bn + r) * hd + h * d + col] : 0.f;
-  }
-  const int i = tid / 8, q = tid % 8, r = r0 + i;
-  const bool live = r < N;
-  const float tir = live ? ti[(bn + r) * heads + h] : 0.f;
-  const float mr = live ? m[(bn + r) * heads + h] : 0.f;
-  const float inv = live ? 1.f / den[(bn + r) * heads + h] : 0.f;
-  const uint64_t rowcell = ((((uint64_t)b * heads + h) * N) + r) * N;
-  // one sweep: with lk = (pre >= 0 ? 1 : 0.2), sum_s dpre = sum_s lk alpha da
-  // - t sum_s lk alpha, so t, u = sum lk alpha da and w = sum lk alpha are
-  // reduced together and dti = c (u - t w)
-  float t = 0.f, u = 0.f, w = 0.f;
-  constexpr int kPer = kChunk / 8;
-  for (int c0 = 0; c0 < N; c0 += kChunk) {
-    __syncthreads();                        // g rows ready / previous chunk consumed
-    for (int e = tid; e < kChunk * d; e += kThreads) {
-      const int j = e / d, col = e % d, s = c0 + j;
-      xs[j * ld + col] = s < N ? to_f(xh[(bn + s) * hd + h * d + col]) : 0.f;
-    }
-    __syncthreads();
-    float dot[kPer];
+        for (int u = 0; u < G; ++u) {
+          if (jj + u >= nb) break;
 #pragma unroll
-    for (int jj = 0; jj < kPer; ++jj) dot[jj] = 0.f;
-    for (int col = 0; col < d; ++col) {
-      const float gv = gs[i * ld + col];
+          for (int k = 0; k < KG; ++k) {
+            const float wv = wb[(jj + u) * hp + cl.head[k]];
 #pragma unroll
-      for (int jj = 0; jj < kPer; ++jj)
-        dot[jj] = fmaf(gv, xs[(q + 8 * jj) * ld + col], dot[jj]);
-    }
-    if (!live) continue;
-#pragma unroll
-    for (int jj = 0; jj < kPer; ++jj) {
-      const int s = c0 + q + 8 * jj;
-      if (s >= N) continue;
-      const float c = ceff_of(cnt, r, s, N);
-      if (!(c > 0.f)) continue;
-      const float pre = tir + tj_s[s];
-      const float alpha = expf(leaky(pre) - mr) * (c * inv);
-      const float lka = pre >= 0.f ? alpha : kNegSlope * alpha;
-      const float da = keep_cell(rowcell + s, s0, s1, thresh) ? dot[jj] : 0.f;
-      t = fmaf(da, alpha, t);
-      u = fmaf(da, lka, u);
-      w += lka;
-    }
-  }
-  // the 8 threads of a row are 8 neighbouring lanes
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) {
-    t += __shfl_xor_sync(0xffffffffu, t, o);
-    u += __shfl_xor_sync(0xffffffffu, u, o);
-    w += __shfl_xor_sync(0xffffffffu, w, o);
-  }
-  if (live && q == 0) {
-    t_out[(bn + r) * heads + h] = t;
-    dti[(bn + r) * heads + h] = scale * (u - t * w);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, column kernel.  Grid (heads, ceil(N / kTile), B).  Per sender s:
-// dtj_s and dxh_s.  Shared memory: xh of the tile's senders [kTile][d + 1],
-// g rows of the chunk [kChunk][d + 1], keep * alpha of the chunk
-// [kChunk][kTile + 1], the chunk's receiver terms (ti, m, 1/den, t) and the
-// dtj reduction [kWarps][kTile].  Cell phase: thread tid owns sender
-// q = tid % 32 and receivers tid / 32 + 8 ii; product phase: senders
-// warp + 8 i, columns lane + 32 k.
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_col_kernel(const float* __restrict__ ti, const float* __restrict__ tj,
-                     const T* __restrict__ counts, const T* __restrict__ xh,
-                     const float* __restrict__ m, const float* __restrict__ den,
-                     const float* __restrict__ g, const float* __restrict__ t_in,
-                     float* __restrict__ dtj, T* __restrict__ dxh, int N, int heads, int d,
-                     uint32_t s0, uint32_t s1, uint32_t thresh, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* xs = smem;                         // [kTile][ld]
-  float* gs = xs + kTile * ld;              // [kChunk][ld]
-  float* ad = gs + kChunk * ld;             // [kChunk][kTile + 1]
-  float* rv = ad + kChunk * (kTile + 1);    // [4][kChunk]: ti, m, 1/den, t
-  float* red = rv + 4 * kChunk;             // [kWarps][kTile]
-
-  const int h = blockIdx.x, st = blockIdx.y * kTile, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hd = heads * d;
-  const size_t bn = (size_t)b * N;
-  const T* cnt = counts + bn * N;
-  for (int e = tid; e < kTile * d; e += kThreads) {
-    const int j = e / d, col = e % d, s = st + j;
-    xs[j * ld + col] = s < N ? to_f(xh[(bn + s) * hd + h * d + col]) : 0.f;
-  }
-  const int q = lane, s = st + q;
-  const bool live = s < N;
-  const float tjs = live ? tj[(bn + s) * heads + h] : 0.f;
-  const uint64_t cell0 = ((uint64_t)b * heads + h) * N;
-  float dtj_acc = 0.f;
-  float acc[kTile / kWarps][NG];
-#pragma unroll
-  for (int i = 0; i < kTile / kWarps; ++i)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) acc[i][k] = 0.f;
-  constexpr int kPer = kChunk / kWarps;
-  for (int c0 = 0; c0 < N; c0 += kChunk) {
-    __syncthreads();                        // xs ready / previous chunk consumed
-    for (int e = tid; e < kChunk * d; e += kThreads) {
-      const int i = e / d, col = e % d, r = c0 + i;
-      gs[i * ld + col] = r < N ? g[(bn + r) * hd + h * d + col] : 0.f;
-    }
-    if (tid < kChunk) {
-      const int r = c0 + tid;
-      const bool ok = r < N;
-      const size_t k = (bn + r) * heads + h;
-      rv[tid] = ok ? ti[k] : 0.f;
-      rv[kChunk + tid] = ok ? m[k] : 0.f;
-      rv[2 * kChunk + tid] = ok ? 1.f / den[k] : 0.f;
-      rv[3 * kChunk + tid] = ok ? t_in[k] : 0.f;
-    }
-    __syncthreads();
-    float dot[kPer];
-#pragma unroll
-    for (int ii = 0; ii < kPer; ++ii) dot[ii] = 0.f;
-    for (int col = 0; col < d; ++col) {
-      const float xv = xs[q * ld + col];
-#pragma unroll
-      for (int ii = 0; ii < kPer; ++ii)
-        dot[ii] = fmaf(gs[(warp + kWarps * ii) * ld + col], xv, dot[ii]);
-    }
-#pragma unroll
-    for (int ii = 0; ii < kPer; ++ii) {
-      const int i = warp + kWarps * ii, r = c0 + i;
-      float a_drop = 0.f;
-      if (live && r < N) {
-        const float c = ceff_of(cnt, r, s, N);
-        if (c > 0.f) {
-          const float pre = rv[i] + tjs;
-          const float alpha = expf(leaky(pre) - rv[kChunk + i]) * (c * rv[2 * kChunk + i]);
-          const bool keep = keep_cell((cell0 + r) * N + s, s0, s1, thresh);
-          const float da = keep ? dot[ii] : 0.f;
-          a_drop = keep ? alpha : 0.f;
-          const float ds = alpha * (da - rv[3 * kChunk + i]);
-          dtj_acc += pre >= 0.f ? ds : kNegSlope * ds;
+            for (int q = 0; q < 4; ++q) acc[k][q] = fmaf(wv, xa[u][k][q], acc[k][q]);
+          }
         }
       }
-      ad[i * (kTile + 1) + q] = a_drop;
+      __syncwarp();
+    }
+    mrun = mnew;
+    drun = dnew;
+    if (last) {
+      if (hv && jl == 0) {
+        a.m_out[(bn + r) * heads + hgl] = mnew;
+        a.den_out[(bn + r) * heads + hgl] = dnew;
+      }
+#pragma unroll
+      for (int k = 0; k < KG; ++k) {
+        const float f = exact ? a.scale : a.scale * __shfl_sync(kFull, inv, cl.head[k]);
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = exact ? f * acc[k][q] : acc[k][q] * f;
+        store4(orow + cl.off[k], cl.n[k], g.xvec, v);
+      }
+    }
+  };
+
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    float ce[kPer];
+    load8(cnt + (size_t)r * N + c0 + kPer * lane, N - c0 - kPer * lane, g.cvec, ce);
+    const unsigned live = chunk_live(c0, lane, r, N, ce);
+    int total;
+    const int off = live_offset(live, lane, total);
+    if (n + total > kChunk) {            // the list is full: fold it in, start anew
+      flush(false);
+      first = false;
+      n = 0;
+    }
+    list_put(live, c0 + kPer * lane, ce, ls, lc, n + off);
+    n += total;
+    __syncwarp();
+  }
+  flush(true);
+}
+
+// ---------------------------------------------------------------------------
+// Backward, receiver kernel.  Grid as the forward's: a warp a receiver.
+// Per head: t_r = sum da alpha and dti_r; with lk = (pre >= 0 ? 1 : 0.2),
+// sum_s dpre = u - t w for u = sum lk alpha da and w = sum lk alpha.
+template <typename T, int KG>
+__global__ void __launch_bounds__(kThreads, kRowBlocks)
+flash_bwd_row_kernel(const Args a) {
+  constexpr int G = rows_at_once(KG), R = kPairs / 32;
+  __shared__ int ls_[kWarps][kChunk];
+  __shared__ float lc_[kWarps][kChunk];
+  __shared__ float db_[kWarps][kPairs];    // a batch's g_r . xh_s by (entry, head)
+  const Geo g = a.geo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
+  int* ls = ls_[warp];
+  float* lc = lc_[warp];
+  float* db = db_[warp];
+  const int N = g.N, heads = g.heads, hp = g.hp, jstep = 32 / hp, eb = kPairs / hp;
+  const size_t bn = (size_t)b * N;
+  const T* cnt = static_cast<const T*>(a.counts) + bn * N;
+  const T* xplane = static_cast<const T*>(a.xh) + bn * g.hd;
+  const int jl = lane / hp, hl = lane % hp;
+  const bool hv = hl < g.hg;
+  const int hgl = g.h0 + (hv ? hl : 0);
+  const float* tjb = a.tj + bn * heads + hgl;
+  const Cols<KG> cl = cols_of<KG>(g, lane);
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= N) return;
+  const size_t rk = (bn + r) * heads + hgl;
+  const float tir = hv ? a.ti[rk] : 0.f;
+  const float mr = hv ? a.m[rk] : 0.f;
+  const float inv = hv ? 1.f / a.den[rk] : 0.f;
+  const uint64_t rowcell = (((uint64_t)b * heads + hgl) * N + r) * N;
+  float gv[KG][4];
+#pragma unroll
+  for (int k = 0; k < KG; ++k) load4(a.g + (bn + r) * g.hd + cl.off[k], cl.n[k], g.xvec, gv[k]);
+  float t = 0.f, u = 0.f, wsum = 0.f;
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    float ce[kPer];
+    load8(cnt + (size_t)r * N + c0 + kPer * lane, N - c0 - kPer * lane, g.cvec, ce);
+    const unsigned live = chunk_live(c0, lane, r, N, ce);
+    int n;
+    const int off = live_offset(live, lane, n);
+    __syncwarp();                        // the previous list is consumed
+    list_put(live, c0 + kPer * lane, ce, ls, lc, off);
+    __syncwarp();
+    for (int jb = 0; jb < n; jb += eb) {
+      const int nb = min(eb, n - jb);
+      float pa[R], pl[R];                // alpha and lk alpha of the lane's pairs
+      bool pk[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = jl + jstep * i;
+        pa[i] = pl[i] = 0.f;
+        pk[i] = false;
+        if (j >= nb || !hv) continue;
+        const int s = ls[jb + j];
+        const float pre = tir + tjb[(size_t)s * heads];
+        pa[i] = expf(leaky(pre) - mr) * (lc[jb + j] * inv);
+        pl[i] = pre >= 0.f ? pa[i] : kNegSlope * pa[i];
+        pk[i] = keep_cell(rowcell + s, a.s0, a.s1, a.thresh);
+      }
+      for (int jj = 0; jj < nb; jj += G) {
+        float xa[G][KG][4];
+        gather(xa, xplane, g.hd, ls, jb + jj, n, cl, g.xvec);
+#pragma unroll
+        for (int v = 0; v < G; ++v) {
+          if (jj + v >= nb) break;
+#pragma unroll
+          for (int k = 0; k < KG; ++k) {
+            float p = 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) p = fmaf(gv[k][q], xa[v][k][q], p);
+            p = group_sum(p, g.lph);
+            if (cl.lead[k]) db[(jj + v) * hp + cl.head[k]] = p;
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = jl + jstep * i;
+        if (j >= nb || !hv) continue;
+        const float da = pk[i] ? db[j * hp + hl] : 0.f;
+        t = fmaf(da, pa[i], t);
+        u = fmaf(da, pl[i], u);
+        wsum += pl[i];
+      }
+      __syncwarp();
+    }
+  }
+  t = heads_sum(t, hp);
+  u = heads_sum(u, hp);
+  wsum = heads_sum(wsum, hp);
+  if (hv && jl == 0) {
+    a.rec[rk] = make_float4(tir, mr, inv, t);
+    a.dti[rk] = a.scale * (u - t * wsum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, sender kernel.  Grid (ceil(N / 8), B): a block a tile of 8
+// senders, warp q sender st + q.  Per chunk of 256 receivers, thread i
+// reads row r0 + i's 8 cells of the tile (16 bytes in bf16) and the ballots
+// give each sender its live receivers; warp q lists them in ascending
+// order and sums dtj_s and dxh_s over them.
+template <typename T, int KG>
+__global__ void __launch_bounds__(kThreads, kColBlocks)
+flash_bwd_col_kernel(const Args a) {
+  constexpr int G = rows_at_once(KG), R = kPairs / 32;
+  __shared__ unsigned bm[kPer][kWarps];    // [sender of the tile][32-receiver word]
+  __shared__ float cv[kChunk][kPer + 1];   // ceff of the chunk's cells of the tile
+  __shared__ int lr_[kWarps][kChunk];
+  __shared__ float lc_[kWarps][kChunk];
+  __shared__ float wb_[kWarps][kPairs];    // keep * alpha by (entry, head)
+  __shared__ float db_[kWarps][kPairs];    // g_r . xh_s by (entry, head)
+  const Geo g = a.geo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, b = blockIdx.y;
+  int* lr = lr_[warp];
+  float* lc = lc_[warp];
+  float* wb = wb_[warp];
+  float* db = db_[warp];
+  const int N = g.N, heads = g.heads, hp = g.hp, jstep = 32 / hp, eb = kPairs / hp;
+  const size_t bn = (size_t)b * N;
+  const T* cnt = static_cast<const T*>(a.counts) + bn * N;
+  const float* gplane = a.g + bn * g.hd;
+  const int jl = lane / hp, hl = lane % hp;
+  const bool hv = hl < g.hg;
+  const int hgl = g.h0 + (hv ? hl : 0);
+  const uint64_t hcell = ((uint64_t)b * heads + hgl) * N;
+  const Cols<KG> cl = cols_of<KG>(g, lane);
+  const int st = blockIdx.x * kPer, s = st + warp;
+  const bool sv = s < N;
+  const float tjs = sv && hv ? a.tj[(bn + s) * heads + hgl] : 0.f;
+  float xv[KG][4], acc[KG][4];
+#pragma unroll
+  for (int k = 0; k < KG; ++k) {
+    load4(static_cast<const T*>(a.xh) + (bn + (sv ? s : 0)) * g.hd + cl.off[k],
+          sv ? cl.n[k] : 0, g.xvec, xv[k]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[k][q] = 0.f;
+  }
+  float dtj = 0.f;
+  for (int r0 = 0; r0 < N; r0 += kChunk) {
+    const int r = r0 + tid;
+    float ce[kPer];
+    load8(cnt + (size_t)(r < N ? r : 0) * N + st, r < N ? N - st : 0, g.cvec, ce);
+    __syncthreads();                     // the previous chunk's bits are consumed
+    {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        if (st + i == r) ce[i] = 1.f;
+        cv[tid][i] = ce[i];
+        const unsigned word = __ballot_sync(kFull, r < N && st + i < N && ce[i] > 0.f);
+        if (lane == 0) bm[i][warp] = word;
+      }
     }
     __syncthreads();
-    const int len = min(kChunk, N - c0);
-    for (int j = 0; j < len; ++j) {
-      float gv[NG];
+    const unsigned word = lane < kWarps ? bm[warp][lane] : 0u;
+    int n;
+    int pos = live_offset(word, lane, n);
+    for (unsigned x = word; x; x &= x - 1u) {
+      const int rl = 32 * lane + __ffs(x) - 1;
+      lr[pos] = r0 + rl;
+      lc[pos] = cv[rl][warp];
+      ++pos;
+    }
+    __syncwarp();
+    if (!sv) continue;
+    for (int jb = 0; jb < n; jb += eb) {
+      const int nb = min(eb, n - jb);
+      float pa[R], pp[R], pt[R];
+      bool pk[R];
 #pragma unroll
-      for (int k = 0; k < NG; ++k) {
-        const int col = lane + 32 * k;
-        gv[k] = col < d ? gs[j * ld + col] : 0.f;
+      for (int i = 0; i < R; ++i) {
+        const int j = jl + jstep * i;
+        pa[i] = pp[i] = pt[i] = 0.f;
+        pk[i] = false;
+        if (j >= nb) continue;
+        float ad = 0.f;
+        if (hv) {
+          const int r = lr[jb + j];
+          const float4 rr = a.rec[(bn + r) * heads + hgl];   // (ti, m, 1 / den, t)
+          pp[i] = rr.x + tjs;
+          pa[i] = expf(leaky(pp[i]) - rr.y) * (lc[jb + j] * rr.z);
+          pt[i] = rr.w;
+          pk[i] = keep_cell((hcell + r) * N + s, a.s0, a.s1, a.thresh);
+          ad = pk[i] ? pa[i] : 0.f;
+        }
+        wb[j * hp + hl] = ad;
       }
+      __syncwarp();
+      for (int jj = 0; jj < nb; jj += G) {
+        float ga[G][KG][4];
+        gather(ga, gplane, g.hd, lr, jb + jj, n, cl, g.xvec);
 #pragma unroll
-      for (int i = 0; i < kTile / kWarps; ++i) {
-        const float a = ad[j * (kTile + 1) + warp + kWarps * i];
+        for (int v = 0; v < G; ++v) {
+          if (jj + v >= nb) break;
 #pragma unroll
-        for (int k = 0; k < NG; ++k) acc[i][k] = fmaf(a, gv[k], acc[i][k]);
+          for (int k = 0; k < KG; ++k) {
+            const float wv = wb[(jj + v) * hp + cl.head[k]];
+            float p = 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[k][q] = fmaf(wv, ga[v][k][q], acc[k][q]);
+              p = fmaf(ga[v][k][q], xv[k][q], p);
+            }
+            p = group_sum(p, g.lph);
+            if (cl.lead[k]) db[(jj + v) * hp + cl.head[k]] = p;
+          }
+        }
       }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = jl + jstep * i;
+        if (j >= nb || !hv) continue;
+        const float da = pk[i] ? db[j * hp + hl] : 0.f;
+        const float ds = pa[i] * (da - pt[i]);
+        dtj += pp[i] >= 0.f ? ds : kNegSlope * ds;
+      }
+      __syncwarp();
     }
   }
-  red[warp * kTile + q] = dtj_acc;
-  __syncthreads();
-  if (tid < kTile && st + tid < N) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w * kTile + tid];
-    dtj[(bn + st + tid) * heads + h] = scale * sum;
-  }
+  dtj = heads_sum(dtj, hp);
+  if (!sv) return;
+  if (hv && jl == 0) a.dtj[(bn + s) * heads + hgl] = a.scale * dtj;
+  T* dxh = static_cast<T*>(a.dxh) + (bn + s) * g.hd;
 #pragma unroll
-  for (int i = 0; i < kTile / kWarps; ++i) {
-    const int sj = st + warp + kWarps * i;
-    if (sj >= N) continue;
+  for (int k = 0; k < KG; ++k) {
+    float v[4];
 #pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const int col = lane + 32 * k;
-      if (col < d) dxh[(bn + sj) * hd + h * d + col] = from_f<T>(scale * acc[i][k]);
-    }
+    for (int q = 0; q < 4; ++q) v[q] = a.scale * acc[k][q];
+    store4(dxh + cl.off[k], cl.n[k], g.xvec, v);
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
 }
 
-template <typename T, int NG>
-int launch_fwd(const void* ti, const void* tj, const void* counts, const void* xh, void* out,
-               void* m, void* den, int B, int N, int heads, int d, uint32_t s0, uint32_t s1,
-               uint32_t thresh, float scale, cudaStream_t stream) {
-  const size_t smem = ((size_t)N + kTile * kChunk + (size_t)kChunk * d) * sizeof(float);
-  int err = set_smem(flash_fwd_kernel<T, NG>, smem);
-  if (err != 0) return err;
-  dim3 grid(heads, (N + kTile - 1) / kTile, B);
-  flash_fwd_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(ti), static_cast<const float*>(tj),
-      static_cast<const T*>(counts), static_cast<const T*>(xh), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(den), N, heads, d, s0, s1, thresh, scale);
-  return (int)cudaGetLastError();
+// The launches' head groups: each holds at most 32 heads and 128 column
+// slots (kMaxGroups lanes' worth), so a lane keeps at most 16 columns.
+bool aligned(const void* p, int bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, int NG>
-int launch_bwd(const void* ti, const void* tj, const void* counts, const void* xh,
-               const void* m, const void* den, const void* g, void* dti, void* dtj, void* dxh,
-               void* t_scratch, int B, int N, int heads, int d, uint32_t s0, uint32_t s1,
-               uint32_t thresh, float scale, cudaStream_t stream) {
-  const int ld = d + 1;
-  const size_t smem_row = ((size_t)N + (size_t)(kTile + kChunk) * ld) * sizeof(float);
-  const size_t smem_col = ((size_t)(kTile + kChunk) * ld + kChunk * (kTile + 1) + 4 * kChunk +
-                           kWarps * kTile) * sizeof(float);
-  int err = set_smem(flash_bwd_row_kernel<T>, smem_row);
-  if (err != 0) return err;
-  if ((err = set_smem(flash_bwd_col_kernel<T, NG>, smem_col)) != 0) return err;
-  dim3 grid(heads, (N + kTile - 1) / kTile, B);
-  const float* ti_ = static_cast<const float*>(ti);
-  const float* tj_ = static_cast<const float*>(tj);
-  const T* c_ = static_cast<const T*>(counts);
-  const T* x_ = static_cast<const T*>(xh);
-  const float* m_ = static_cast<const float*>(m);
-  const float* d_ = static_cast<const float*>(den);
-  const float* g_ = static_cast<const float*>(g);
-  float* t_ = static_cast<float*>(t_scratch);
-  flash_bwd_row_kernel<T><<<grid, kThreads, smem_row, stream>>>(
-      ti_, tj_, c_, x_, m_, d_, g_, static_cast<float*>(dti), t_, N, heads, d, s0, s1, thresh,
-      scale);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  flash_bwd_col_kernel<T, NG><<<grid, kThreads, smem_col, stream>>>(
-      ti_, tj_, c_, x_, m_, d_, g_, t_, static_cast<float*>(dtj), static_cast<T*>(dxh), N,
-      heads, d, s0, s1, thresh, scale);
-  return (int)cudaGetLastError();
-}
-
-// the kernels' column groups of 32 (NG = ceil(d / 32)) as a template
-// argument, so a thread keeps and multiplies only the columns that exist
-template <typename T, typename... A>
-int fwd_by_groups(int d, A... args) {
-  switch ((d + 31) / 32) {
-    case 1: return launch_fwd<T, 1>(args...);
-    case 2: return launch_fwd<T, 2>(args...);
-    case 3: return launch_fwd<T, 3>(args...);
-    case 4: return launch_fwd<T, 4>(args...);
+// the launches' vector flags: rows of 4 columns (d % 4 == 0) on 16-byte
+// aligned planes, counts rows of 16-byte pieces
+template <typename T, typename Launch>
+int by_groups(const Args& a, int B, int N, int heads, int d, Launch launch) {
+  const int lph = pow2_at_least((d + 3) / 4);
+  const int hg_max = min(32, 32 * kMaxGroups / lph);
+  const int vec = 16 / (int)sizeof(T);
+  const bool xvec = d % 4 == 0 && aligned(a.xh, 16) && aligned(a.g, 16) && aligned(a.out, 16) &&
+                    aligned(a.dxh, 16);
+  for (int h0 = 0; h0 < heads; h0 += hg_max) {
+    Geo g;
+    g.N = N, g.heads = heads, g.d = d, g.hd = heads * d, g.h0 = h0;
+    g.hg = min(hg_max, heads - h0);
+    g.lph = lph, g.hp = pow2_at_least(g.hg);
+    g.xvec = xvec, g.cvec = N % vec == 0 && aligned(a.counts, 16);
+    const int kg = (g.hg * lph + 31) / 32;
+    dim3 grid((N + kWarps - 1) / kWarps, B);
+    const int err = launch(g, kg, grid);
+    if (err != 0) return err;
   }
-  return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
-template <typename T, typename... A>
-int bwd_by_groups(int d, A... args) {
-  switch ((d + 31) / 32) {
-    case 1: return launch_bwd<T, 1>(args...);
-    case 2: return launch_bwd<T, 2>(args...);
-    case 3: return launch_bwd<T, 3>(args...);
-    case 4: return launch_bwd<T, 4>(args...);
+#define FLASH_KERNEL_TABLE(NAME)                                                     \
+  template <typename T>                                                              \
+  int launch_##NAME(int kg, dim3 grid, const Args& a, cudaStream_t stream) {         \
+    switch (kg) {                                                                    \
+      case 1: NAME<T, 1><<<grid, kThreads, 0, stream>>>(a); break;                   \
+      case 2: NAME<T, 2><<<grid, kThreads, 0, stream>>>(a); break;                   \
+      case 3: NAME<T, 3><<<grid, kThreads, 0, stream>>>(a); break;                   \
+      case 4: NAME<T, 4><<<grid, kThreads, 0, stream>>>(a); break;                   \
+      default: return (int)cudaErrorInvalidValue;                                    \
+    }                                                                                \
+    return (int)cudaGetLastError();                                                  \
   }
-  return (int)cudaErrorInvalidValue;
+
+FLASH_KERNEL_TABLE(flash_fwd_kernel)
+FLASH_KERNEL_TABLE(flash_bwd_row_kernel)
+FLASH_KERNEL_TABLE(flash_bwd_col_kernel)
+
+template <typename T>
+int fwd(Args a, int B, int N, int heads, int d, cudaStream_t stream) {
+  return by_groups<T>(a, B, N, heads, d, [&](const Geo& g, int kg, dim3 grid) {
+    a.geo = g;
+    return launch_flash_fwd_kernel<T>(kg, grid, a, stream);
+  });
+}
+
+template <typename T>
+int bwd(Args a, int B, int N, int heads, int d, cudaStream_t stream) {
+  return by_groups<T>(a, B, N, heads, d, [&](const Geo& g, int kg, dim3 grid) {
+    a.geo = g;
+    const int err = launch_flash_bwd_row_kernel<T>(kg, grid, a, stream);
+    return err != 0 ? err : launch_flash_bwd_col_kernel<T>(kg, grid, a, stream);
+  });
 }
 
 }  // namespace
@@ -506,35 +797,42 @@ extern "C" int flash_gat_fwd_launch(const void* ti, const void* tj, const void* 
                                     const void* xh, void* out, void* m, void* den, int B,
                                     int N, int heads, int d, int dtype, uint32_t s0,
                                     uint32_t s1, uint32_t thresh, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || N == 0 || heads == 0 || d == 0) return 0;
-  if (d > 32 * kMaxGroups) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return fwd_by_groups<float>(d, ti, tj, counts, xh, out, m, den, B, N, heads, d, s0, s1,
-                                thresh, scale, s);
-  if (dtype == 1)
-    return fwd_by_groups<__nv_bfloat16>(d, ti, tj, counts, xh, out, m, den, B, N, heads, d, s0,
-                                        s1, thresh, scale, s);
+  if (d > kMaxHeadDim || B > 65535) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.ti = static_cast<const float*>(ti), a.tj = static_cast<const float*>(tj);
+  a.counts = counts, a.xh = xh;
+  a.out = static_cast<float*>(out), a.m_out = static_cast<float*>(m);
+  a.den_out = static_cast<float*>(den);
+  a.s0 = s0, a.s1 = s1, a.thresh = thresh, a.scale = scale;
+  if (dtype == 0) return fwd<float>(a, B, N, heads, d, st);
+  if (dtype == 1) return fwd<__nv_bfloat16>(a, B, N, heads, d, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // As flash_gat_fwd_launch; g [B, N, heads * d] f32 (cotangent of out), m and
 // den the forward's; dti, dtj [B, N, heads] f32; dxh of the dtype;
-// t_scratch f32 [B, N, heads].
+// t_scratch f32 [B, N, heads, 4], 16-byte aligned: each (receiver, head)'s
+// (ti, m, 1 / den, t), from the receiver to the sender kernel.
 extern "C" int flash_gat_bwd_launch(const void* ti, const void* tj, const void* counts,
                                     const void* xh, const void* m, const void* den,
                                     const void* g, void* dti, void* dtj, void* dxh,
                                     void* t_scratch, int B, int N, int heads, int d, int dtype,
                                     uint32_t s0, uint32_t s1, uint32_t thresh, float scale,
                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || N == 0 || heads == 0 || d == 0) return 0;
-  if (d > 32 * kMaxGroups) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return bwd_by_groups<float>(d, ti, tj, counts, xh, m, den, g, dti, dtj, dxh, t_scratch, B,
-                                N, heads, d, s0, s1, thresh, scale, s);
-  if (dtype == 1)
-    return bwd_by_groups<__nv_bfloat16>(d, ti, tj, counts, xh, m, den, g, dti, dtj, dxh,
-                                        t_scratch, B, N, heads, d, s0, s1, thresh, scale, s);
+  if (d > kMaxHeadDim || B > 65535) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.ti = static_cast<const float*>(ti), a.tj = static_cast<const float*>(tj);
+  a.counts = counts, a.xh = xh;
+  a.m = static_cast<const float*>(m), a.den = static_cast<const float*>(den);
+  a.g = static_cast<const float*>(g);
+  a.dti = static_cast<float*>(dti), a.dtj = static_cast<float*>(dtj);
+  a.rec = static_cast<float4*>(t_scratch), a.dxh = dxh;
+  a.s0 = s0, a.s1 = s1, a.thresh = thresh, a.scale = scale;
+  if (dtype == 0) return bwd<float>(a, B, N, heads, d, st);
+  if (dtype == 1) return bwd<__nv_bfloat16>(a, B, N, heads, d, st);
   return (int)cudaErrorInvalidValue;
 }

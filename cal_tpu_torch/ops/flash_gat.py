@@ -33,7 +33,7 @@ from cal_tpu_torch.kernels import build
 NEG_SLOPE = 0.2
 _BIG_NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128          # the kernels keep up to 4 x 32 columns per thread
+MAX_HEAD_DIM = 128          # a head's columns fit one warp, 4 a lane
 _M32 = 0xFFFFFFFF
 
 
@@ -221,7 +221,7 @@ def flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: float = 0.
     dti = torch.empty_like(ti)
     dtj = torch.empty_like(ti)
     dxh = torch.empty_like(xh)
-    t_scratch = torch.empty_like(ti)
+    t_scratch = torch.empty((bsz, n, heads, 4), dtype=torch.float32, device=ti.device)
     err = _lib().flash_gat_bwd_launch(
         ti.data_ptr(), tj.data_ptr(), counts.data_ptr(), xh.data_ptr(), m.data_ptr(),
         den.data_ptr(), g.data_ptr(), dti.data_ptr(), dtj.data_ptr(), dxh.data_ptr(),

@@ -199,6 +199,15 @@ and 0.2 as a layer's step calls them (over the batch's index, the backward
 handed the forward's statistics), and the edge digests (whole outputs, and
 the rows of nodes without a slot); from another tree's root, for an A/B.
 
+    python3 chip_smoke.py --flash
+
+builds the flash-GAT kernels (``csrc/flash_gat.cu``) and runs rows 5 and 5b
+alone on the counts of the first dense test batch (B = 128, N = 256): the
+ptxas report of every flash kernel instance, the forward and backward held
+against their twins in bf16 and f32 at dropout 0 and 0.2 and timed at both
+rates (cold L2; the warm split by kernel), and the flash digests (out, m,
+den, dti, dtj, dxh); from another tree's root, for an A/B.
+
     python3 chip_smoke.py --walk
 
 builds the kernels and runs the coefficient SpMM walk alone: the ptxas
@@ -520,15 +529,18 @@ def kernel_phase(torch, batch, peaks, flush):
     return results
 
 
-def flash_kernels(torch, counts, dt_name, peaks, flush):
-    """The flash-GAT forward and backward kernels against their twins at
-    rate 0 and GAT_RATE, the f32 backward against autograd of the forward
-    twin, the dropout law, and their rows (timed at GAT_RATE, the training
-    path; the forward also at rate 0, the serving path)."""
-    from cal_tpu_torch.ops.flash_gat import (
-        dropout_keep, flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd, flash_gat_fwd_plain)
+def flash_live_cells(torch, counts) -> int:
+    """The cells a flash-GAT call must work on: ceff > 0 in the [B, N, N]
+    counts plane, the analytic self loops included (one count for all
+    heads)."""
+    eye = torch.eye(counts.shape[-1], dtype=torch.bool, device=counts.device)
+    return int(((counts > 0) | eye).sum())
 
-    bw, bf16_peak, f32_peak = peaks
+
+def flash_inputs(torch, counts):
+    """The seeded flash-GAT inputs over a counts plane: ti, tj (formed as
+    flash_gat_dense_flat forms them), xh of the counts' dtype and the f32
+    cotangent g."""
     dt = counts.dtype
     bsz, n, _ = counts.shape
     d = H // HEADS
@@ -539,8 +551,29 @@ def flash_kernels(torch, counts, dt_name, peaks, flush):
     ti = torch.einsum("bnhd,hd->bnh", x4, att[:, :d])          # as flash_gat_dense_flat
     tj = torch.einsum("bnhd,hd->bnh", x4, att[:, d:])
     g = torch.randn((bsz, n, H), generator=gen, device="cuda")
+    return ti, tj, xh, g
+
+
+def flash_kernels(torch, counts, dt_name, peaks, flush, rates=(GAT_RATE,), split=False):
+    """The flash-GAT forward and backward kernels against their twins at
+    rate 0 and GAT_RATE, the f32 backward against autograd of the forward
+    twin, the dropout law, and their rows, timed at each of ``rates``
+    (GAT_RATE is the training path; the forward also at rate 0, the serving
+    path).  The bound counts what a call must do: the bytes of every input
+    and output once, the products on the live cells only (``live_cells``:
+    ceff > 0, self loops included), 2 H a cell forward and 4 H backward.
+    ``split``: each row also carries the warm device ms by kernel."""
+    from cal_tpu_torch.ops.flash_gat import (
+        dropout_keep, flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd, flash_gat_fwd_plain)
+
+    bw, bf16_peak, f32_peak = peaks
+    dt = counts.dtype
+    bsz, n, _ = counts.shape
+    ti, tj, xh, g = flash_inputs(torch, counts)
+    live = flash_live_cells(torch, counts)
     atol, rtol = FLASH_TOL
     errs = {"fwd": [], "bwd": []}
+    stats_ref = {}
     for rate in (0.0, GAT_RATE):
         got = flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, rate)
         ref = flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, rate)
@@ -551,6 +584,7 @@ def flash_kernels(torch, counts, dt_name, peaks, flush):
             check(over <= 0, f"flash forward {dt_name} rate {rate} {nm} differs from its "
                              f"plain twin: {err}")
             errs["fwd"].append(err)
+        stats_ref[rate] = ref[1], ref[2]
         bgot = flash_gat_bwd(ti, tj, counts, xh, ref[1], ref[2], g, DROP_SEED, rate)
         bref = flash_gat_bwd_plain(ti, tj, counts, xh, ref[1], ref[2], g, DROP_SEED, rate)
         torch.cuda.synchronize()
@@ -589,34 +623,60 @@ def flash_kernels(torch, counts, dt_name, peaks, flush):
     stats = bsz * n * HEADS * 4                                  # one [B, N, heads] f32 plane
     none = ("none: no single PyTorch call computes the masked, multiplicity-weighted "
             "leaky-ReLU softmax and its dropout")
-    m, den = ref[1], ref[2]
     rows = []
-    for name, fn, plain, nbytes, flops, err in (
-            ("flash_gat_fwd",
-             lambda: flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, GAT_RATE),
-             lambda: flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, GAT_RATE),
-             4 * stats + bsz * n * n * elt + bsz * n * H * (elt + 4),
-             2 * bsz * n * n * H, max(errs["fwd"])),
-            ("flash_gat_bwd",
-             lambda: flash_gat_bwd(ti, tj, counts, xh, m, den, g, DROP_SEED, GAT_RATE),
-             lambda: flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, DROP_SEED, GAT_RATE),
-             6 * stats + bsz * n * n * elt + bsz * n * H * (2 * elt + 4),
-             4 * bsz * n * n * H, max(errs["bwd"]))):
-        t_bytes, t_ops = nbytes / bw, flops / peak
-        row = {"name": name, "dtype": dt_name, "rate": GAT_RATE, "max_abs_err": err,
-               "atol": atol, "rtol": rtol,
-               "kernel_ms": time_ms(torch, fn, flush), "plain_ms": time_ms(torch, plain, flush),
-               "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        if name == "flash_gat_fwd":
-            row["kernel_ms_rate0"] = time_ms(
-                torch, lambda: flash_gat_fwd(ti, tj, counts, xh), flush)
-        else:
-            row.update(extra)
-        emit({"phase": "kernel", **row})
-        rows.append(row)
+    for rate in rates:
+        m, den = stats_ref[rate]
+        for name, fn, plain, nbytes, flops, err in (
+                ("flash_gat_fwd",
+                 lambda: flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, rate),
+                 lambda: flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, rate),
+                 4 * stats + bsz * n * n * elt + bsz * n * H * (elt + 4),
+                 2 * live * H, max(errs["fwd"])),
+                ("flash_gat_bwd",
+                 lambda: flash_gat_bwd(ti, tj, counts, xh, m, den, g, DROP_SEED, rate),
+                 lambda: flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, DROP_SEED, rate),
+                 6 * stats + bsz * n * n * elt + bsz * n * H * (2 * elt + 4),
+                 4 * live * H, max(errs["bwd"]))):
+            t_bytes, t_ops = nbytes / bw, flops / peak
+            row = {"name": name, "dtype": dt_name, "rate": rate, "max_abs_err": err,
+                   "atol": atol, "rtol": rtol,
+                   "kernel_ms": time_ms(torch, fn, flush),
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": None, "library_call": none, "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "live_cells": live, "cells": bsz * n * n, "root": HERE}
+            if name == "flash_gat_fwd" and rate > 0:
+                row["kernel_ms_rate0"] = time_ms(
+                    torch, lambda: flash_gat_fwd(ti, tj, counts, xh), flush)
+            elif name == "flash_gat_bwd":
+                row.update(extra)
+            if split:
+                row["passes"] = profile_passes(torch, fn)
+            emit({"phase": "kernel", **row})
+            if rate == GAT_RATE:
+                rows.append(row)
     return tuple(rows)
+
+
+def flash_digests(torch, counts) -> dict:
+    """sha256 of the flash-GAT kernels' outputs (out, m, den, dti, dtj, dxh)
+    on ``flash_inputs`` over a counts plane, at dropout 0 and GAT_RATE; the
+    backward is handed the plain twin's m and den, so its digests compare
+    kernels on equal inputs.  Public calls only, so another tree's digests
+    come from this function with its package (``--flash``)."""
+    from cal_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd, flash_gat_fwd_plain
+
+    dt_name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[counts.dtype]
+    ti, tj, xh, g = flash_inputs(torch, counts)
+    out = {}
+    for rate in (0.0, GAT_RATE):
+        fwd = flash_gat_fwd(ti, tj, counts, xh, DROP_SEED, rate)
+        _, m, den = flash_gat_fwd_plain(ti, tj, counts, xh, DROP_SEED, rate)
+        bwd = flash_gat_bwd(ti, tj, counts, xh, m, den, g, DROP_SEED, rate)
+        for name, t in zip(("out", "m", "den", "dti", "dtj", "dxh"), (*fwd, *bwd)):
+            out[f"flash_{name}_{dt_name}_{rate}"] = _digest([t])
+    return out
 
 
 def profile_passes(torch, fn, reps=3):
@@ -3177,24 +3237,39 @@ def ptxas_walk(report: dict) -> dict:
     return out
 
 
-def ptxas_edge(report: dict) -> dict:
-    """{instance: registers, spill bytes} of the edge GAT kernels (every
-    ``*_kernel`` of edge_gat.cu and edge_gat_bwd.cu), from nvcc's ``-Xptxas
-    -v`` logs; an instance is named by its element type and integer template
-    arguments (heads, then heads * d or columns a lane)."""
+def _mangled_kernel(mangled: str):
+    """(kernel name, the mangled template arguments after it) of an Itanium
+    mangled function name whose last name component ends in ``_kernel``
+    (possibly inside namespaces: ``_ZN<len><name>...``), else (None, "")."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else -1
+    while 0 <= i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        ident, i = mangled[j:j + n], j + n
+        if ident.endswith("_kernel"):
+            return ident, mangled[i:]
+    return None, ""
+
+
+def ptxas_instances(report: dict, libs) -> dict:
+    """{instance: registers, spill bytes} of every ``*_kernel`` of the
+    libraries ``libs``, from nvcc's ``-Xptxas -v`` logs; an instance is
+    named by its element type and integer template arguments."""
     out = {}
-    for lib in sorted(k for k in report if k.startswith("edge_gat")):
+    for lib in libs:
         name = None
-        for ln in report[lib]["log"].splitlines():
+        for ln in report.get(lib, {}).get("log", "").splitlines():
             m = re.search(r"Function properties for (\w+)", ln)
             if m:
-                k = re.search(r"\d+([A-Za-z]\w*?_kernel)(I\w*E)?", m.group(1))
+                kernel, targs = _mangled_kernel(m.group(1))
                 name = None
-                if k:
-                    t = re.search(r"I(13__nv_bfloat16|f)", k.group(2) or "")
-                    ints = re.findall(r"Li(\d+)E", k.group(2) or "")
+                if kernel:
+                    t = re.search(r"^I(13__nv_bfloat16|f)", targs)
+                    ints = re.findall(r"Li(\d+)E", targs)
                     parts = ([("bf16" if t.group(1) != "f" else "f32")] if t else []) + ints
-                    name = f"{k.group(1)}<{', '.join(parts)}>" if parts else k.group(1)
+                    name = f"{kernel}<{', '.join(parts)}>" if parts else kernel
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if name and m:
@@ -3203,6 +3278,19 @@ def ptxas_edge(report: dict) -> dict:
             if name and m:
                 out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_edge(report: dict) -> dict:
+    """Registers and spills of the edge GAT kernels (every ``*_kernel`` of
+    edge_gat.cu and edge_gat_bwd.cu; template arguments: heads, then heads
+    * d or columns a lane)."""
+    return ptxas_instances(report, sorted(k for k in report if k.startswith("edge_gat")))
+
+
+def ptxas_flash(report: dict) -> dict:
+    """Registers and spills of the flash GAT kernels (flash_gat.cu; the
+    template argument: the 32-lane column groups a lane keeps)."""
+    return ptxas_instances(report, ["flash_gat"])
 
 
 def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
@@ -3441,6 +3529,7 @@ def main() -> int:
               "degree_wide_kernel|degree_col_kernel"),
           "ptxas_walk": ptxas_walk(report),
           "ptxas_edge": ptxas_edge(report),
+          "ptxas_flash": ptxas_flash(report),
           "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
@@ -3635,7 +3724,8 @@ def main() -> int:
                      "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     "dtype": "bfloat16"})
+                     "dtype": "bfloat16",
+                     **({"live_cells": r["live_cells"]} if "live_cells" in r else {})})
     for table, kernel_rows, main_run in (
             (SPARSE_KERNEL_ROWS, sparse_rows, sparse_launches),
             (SPARSE_BWD_KERNEL_ROWS, bwd_rows, sparse_train_launches)):
@@ -3972,6 +4062,55 @@ def edge_main() -> int:
     return 0
 
 
+def dense_batch(torch):
+    """The first dense test batch of the synthetic set (B = 128, N = 256),
+    on the card."""
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+
+    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
+    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    return next(Loader(test_set, B).host_batches()).to("cuda")
+
+
+def flash_main() -> int:
+    """``--flash``: rows 5 and 5b alone, for an A/B of two trees (run this
+    file from the other tree's root): the ptxas report of the flash kernels,
+    the forward and backward held against their twins in bf16 and f32 at
+    dropout 0 and GAT_RATE and timed at both rates on the first dense test
+    batch's counts (cold L2, with the warm split by kernel), and the flash
+    digests."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.kernels import build
+    from cal_tpu_torch.ops.adj_build import adj_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks, _ = peaks_for(name)
+    report = build.build_all(["adj_build", "flash_gat"])
+    emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
+          "build_seconds": {k: v["seconds"] for k, v in report.items()},
+          "ptxas_flash": ptxas_flash(report)})
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    batch = dense_batch(torch)
+    bsz, n, _ = batch.x.shape
+    digests = {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        counts = adj_build(batch.edge_flat, bsz, n, dt)
+        flash_kernels(torch, counts, dt_name, peaks, flush, rates=(0.0, GAT_RATE), split=True)
+        digests.update(flash_digests(torch, counts))
+    emit({"phase": "flash_digests", "root": HERE, **digests})
+    emit({"phase": "flash_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
+    return 0
+
+
 def digests_main() -> int:
     """``--digests``: only the dense_digests, sparse_digests and
     edge_digests lines (the last on the first SYNREDDIT batch), for
@@ -3981,13 +4120,8 @@ def digests_main() -> int:
 
     if missing(torch):
         return 2
-    from cal_tpu_torch.data.loader import Loader
-    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
-    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
-    batch = next(Loader(test_set, B).host_batches()).to("cuda")
+    batch = dense_batch(torch)
     emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
     batches = sparse_batches(torch)
     emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
@@ -3999,5 +4133,5 @@ def digests_main() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main,
-             "--edge": edge_main}
+             "--edge": edge_main, "--flash": flash_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -268,35 +268,66 @@ def test_wrappers_raise_on_mixed_devices(cuda):
                                      x, x)
 
 
-def _flash_inputs(device, b, n, heads, d, dtype, seed):
-    """Score halves with a wide spread, multigraph counts (a self-loop count
-    that the kernel overrides, an isolated node, a padded graph slot), xh and
-    the output cotangent."""
+def _flash_inputs(device, b, n, heads, d, dtype, seed, density="random"):
+    """Score halves with a wide spread, the output cotangent, xh and counts
+    of one of the densities the kernels treat apart: "random" multigraph
+    counts (a self-loop count that the kernel overrides, an isolated node,
+    a padded graph slot); "self_loops" (no edge: every row's only live cell
+    is its diagonal; the last graph all padding, xh 0); "full" (every cell
+    counts 1-3); "hubs" (sparse, with receiver 0 hearing every node and
+    sender n - 1 heard by every node)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     ti = 2 * torch.randn((b, n, heads), generator=gen, device=device)
     tj = 2 * torch.randn((b, n, heads), generator=gen, device=device)
     counts = torch.randint(0, 3, (b, n, n), generator=gen, device=device).float()
-    counts = counts * (torch.rand((b, n, n), generator=gen, device=device) < 0.1)
-    counts[0, 1, 1] = 3.0
-    counts[0, 2, :] = 0.0
-    counts[0, :, 2] = 0.0
-    counts[-1] = 0.0
     xh = torch.randn((b, n, heads * d), generator=gen, device=device)
     g = torch.randn((b, n, heads * d), generator=gen, device=device)
+    if density == "full":
+        counts = counts + 1.0
+    else:
+        counts = counts * (torch.rand((b, n, n), generator=gen, device=device) < 0.1)
+    if density == "random":
+        counts[0, 1, 1] = 3.0
+        counts[0, 2, :] = 0.0
+        counts[0, :, 2] = 0.0
+        counts[-1] = 0.0
+    elif density == "self_loops":
+        counts.zero_()
+        xh[-1] = 0.0
+        ti[-1] = tj[-1] = 0.0
+    elif density == "hubs":
+        counts[:, 0, :] = 1.0
+        counts[:, :, n - 1] = 1.0
     return ti, tj, counts.to(DT[dtype]), xh.to(DT[dtype]), g
 
 
-@pytest.mark.parametrize("b,n,heads,d,dtype,rate", [
-    (4, 256, 4, 32, "bfloat16", 0.0),
-    (4, 256, 4, 32, "bfloat16", 0.2),
-    (2, 256, 4, 32, "float32", 0.2),
-    (3, 70, 4, 32, "float32", 0.0),
-    (3, 70, 4, 32, "bfloat16", 0.2),
-    (2, 45, 3, 40, "float32", 0.2),
-    (2, 33, 2, 8, "bfloat16", 0.0),
-])
-def test_flash_gat_kernels_match_plain(cuda, b, n, heads, d, dtype, rate):
-    ti, tj, counts, xh, g = _flash_inputs(cuda, b, n, heads, d, dtype, seed=n + d)
+_DENSITY_CASES = [
+    (b, n, heads, d, dtype, rate, density)
+    for b, n, heads, d, dtype, density in (
+        (3, 256, 4, 32, "bfloat16", "self_loops"),
+        (3, 256, 4, 32, "float32", "full"),
+        (3, 256, 4, 32, "bfloat16", "hubs"),
+        (2, 33, 4, 32, "float32", "hubs"),
+        (2, 384, 4, 32, "bfloat16", "full"),
+        (2, 384, 4, 32, "float32", "full"),
+    )
+    for rate in (0.0, 0.2)]
+
+
+@pytest.mark.parametrize("b,n,heads,d,dtype,rate,density", [
+    (4, 256, 4, 32, "bfloat16", 0.0, "random"),
+    (4, 256, 4, 32, "bfloat16", 0.2, "random"),
+    (2, 256, 4, 32, "float32", 0.2, "random"),
+    (3, 70, 4, 32, "float32", 0.0, "random"),
+    (3, 70, 4, 32, "bfloat16", 0.2, "random"),
+    (2, 45, 3, 40, "float32", 0.2, "random"),
+    (2, 33, 2, 8, "bfloat16", 0.0, "random"),
+    (2, 40, 3, 6, "bfloat16", 0.2, "random"),
+    (2, 64, 9, 128, "float32", 0.2, "random"),
+] + _DENSITY_CASES)
+def test_flash_gat_kernels_match_plain(cuda, b, n, heads, d, dtype, rate, density):
+    ti, tj, counts, xh, g = _flash_inputs(cuda, b, n, heads, d, dtype, seed=n + d,
+                                          density=density)
     seed = 0x1234_5678_9ABC
     before = (flash_gat_fwd.launches, flash_gat_bwd.launches)
     got = flash_gat_fwd(ti, tj, counts, xh, seed, rate)
@@ -318,6 +349,29 @@ def test_flash_gat_kernels_match_plain(cuda, b, n, heads, d, dtype, rate):
     assert bgot[2].dtype == DT[dtype] and torch.isfinite(bgot[2].float()).all()
     atol, rtol = FLASH_DXH_TOL[dtype]
     torch.testing.assert_close(bgot[2].float(), bref[2].float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_flash_gat_diagonal_only_rows_copy_xh(cuda, dtype, rate):
+    """A row whose only live cell is its diagonal (a padded node) gives, bit
+    for bit, m = leaky(ti + tj), den = 1 and out = keep * scale * xh_r."""
+    b, n, heads, d = 2, 96, 4, 32
+    ti, tj, counts, xh, _ = _flash_inputs(cuda, b, n, heads, d, dtype, seed=11)
+    counts[:, 40:] = 0.0                       # rows 40.. have no edge
+    counts[:, :, 40:] = 0.0
+    seed = 0xBEEF_0000_1234
+    out, m, den = flash_gat_fwd(ti, tj, counts, xh, seed, rate)
+    torch.cuda.synchronize()
+    pre = ti[:, 40:] + tj[:, 40:]
+    assert torch.equal(m[:, 40:], torch.maximum(pre, 0.2 * pre))
+    assert torch.equal(den[:, 40:], torch.ones_like(den[:, 40:]))
+    keep = dropout_keep(seed, b, heads, n, rate, cuda).diagonal(dim1=2, dim2=3)  # [B, heads, N]
+    keep = keep.transpose(1, 2)[:, 40:, :, None].expand(-1, -1, -1, d).reshape(b, n - 40, -1)
+    scale = 1.0 / (1.0 - rate) if rate > 0 else 1.0
+    want = torch.where(keep, scale * xh[:, 40:].float(), torch.zeros((), device=cuda))
+    assert torch.equal(out[:, 40:], want)
+    assert rate == 0.0 or not keep.all()
 
 
 def test_flash_gat_backward_matches_autograd(cuda):

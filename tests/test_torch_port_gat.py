@@ -158,6 +158,61 @@ def test_backward_twin_matches_pallas_vjp(dtype):
                                    err_msg=name, **tol)
 
 
+def _density_counts(density, b, n, rng):
+    """Count planes of the densities the kernels treat apart: no edge at all
+    (every row's only live cell its diagonal), every cell live (counts
+    1-3), sparse with a hub receiver (0) and a hub sender (n - 1) over every
+    node, and sparse multigraph counts."""
+    if density == "self_loops":
+        return np.zeros((b, n, n), np.float32)
+    if density == "full":
+        return rng.integers(1, 4, (b, n, n)).astype(np.float32)
+    counts = ((rng.random((b, n, n)) < 0.2) + (rng.random((b, n, n)) < 0.05)).astype(np.float32)
+    if density == "hubs":
+        counts[:, 0, :] = 1.0
+        counts[:, :, n - 1] = 1.0
+    return counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("density,n", [("self_loops", 12), ("full", 12), ("hubs", 12),
+                                       ("sparse", 33)])
+def test_twins_match_pallas_across_densities(density, n, dtype):
+    """At rate 0, on each density (and N = 33, not a multiple of 32): the
+    forward twin's (out, m, den) against ``_flash_fwd_call`` and the
+    backward twin's (dti, dtj, dxh) against jax.vjp of ``_flash_core``, both
+    in interpret mode.  With no edge, the second graph is all padding: its
+    xh and score halves are 0."""
+    b, heads, d = 2, 2, 8
+    rng = np.random.default_rng(n + len(density))
+    counts = _density_counts(density, b, n, rng)
+    xh = rng.standard_normal((b, n, heads * d)).astype(np.float32)
+    ti, tj = (rng.standard_normal((b, n, heads)).astype(np.float32) for _ in range(2))
+    if density == "self_loops":
+        xh[-1] = ti[-1] = tj[-1] = 0.0
+    g = rng.standard_normal((b, n, heads * d)).astype(np.float32)
+    jc, jxh = (jnp.asarray(a, jnp.dtype(dtype)) for a in (counts, xh))
+    tc, txh = (torch.tensor(np.asarray(a, np.float32)).to(TORCH_DT[dtype]) for a in (jc, jxh))
+    seed = jnp.zeros((1, 128), jnp.int32)
+    jti, jtjt = jnp.asarray(ti), jnp.asarray(tj.transpose(0, 2, 1))
+    jout, jm, jden = _flash_fwd_call(jti, jtjt, jc, jxh, seed, 0.0)
+    out, m, den = flash_gat_fwd_plain(torch.from_numpy(ti), torch.from_numpy(tj), tc, txh)
+    for a, r in ((out, jout), (m, jm), (den, jden)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=2e-5, atol=2e-5)
+    _, vjp = jax.vjp(lambda a, bt, x: _flash_core(a, bt, jc, x, seed, 0.0), jti, jtjt, jxh)
+    jdti, jdtjt, jdxh = vjp(jnp.asarray(g))
+    dti, dtj, dxh = flash_gat_bwd_plain(torch.from_numpy(ti), torch.from_numpy(tj), tc, txh,
+                                        m, den, torch.from_numpy(g))
+    np.testing.assert_allclose(dti.numpy(), np.asarray(jdti), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(dtj.numpy(), np.asarray(jdtjt).transpose(0, 2, 1),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(dxh.float().numpy(), np.asarray(jdxh, np.float32),
+                               **FLASH_TOL[dtype])
+    if density == "self_loops":                 # every row attends to itself alone
+        np.testing.assert_array_equal(den.numpy(), 1.0)
+        np.testing.assert_allclose(out.numpy(), txh.float().numpy(), **FLASH_TOL[dtype])
+
+
 def _twin_inputs(b=2, n=24, heads=2, d=8, seed=3):
     g = torch.Generator().manual_seed(seed)
     ti, tj = (2 * torch.randn((b, n, heads), generator=g) for _ in range(2))
