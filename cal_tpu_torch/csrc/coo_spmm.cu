@@ -315,6 +315,8 @@ int segment_max_launch(const float* vals, int num_edges, int planes, const int* 
   a.num_edges = num_edges;
   a.planes = planes;
   a.vec = num_edges % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  a.edge_major = false;
+  a.skip_masked = false;   // K21 reads whatever the caller put there
   a.out = out;
   a.partial = partial;
   return (int)launch_csr_reduce<MaxOp>(a, stream);

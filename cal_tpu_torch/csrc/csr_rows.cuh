@@ -3,10 +3,10 @@
 // a lane's features, the per-warp row sums with their combine pass for long
 // rows, the sender-CSR sum of per-edge f32 columns, the coefficient SpMM
 // walk that K2/K3, K11, K14 and K19 instantiate, and the per-row reduction of
-// per-edge value planes that K21 instantiates (both: light rows by row,
-// several a warp; heavy rows by chunk from a host-built list, each finished
-// by its last chunk to arrive).  Included by each source; it is not a build
-// target of its own.
+// per-edge value planes that K21 (a max) and K10's sender sums instantiate
+// (both: light rows by row, several a warp; heavy rows by chunk from a
+// host-built list, each finished by its last chunk to arrive).  Included by
+// each source; it is not a build target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -300,11 +300,11 @@ constexpr int kInFlight = 2;     // neighbour-row loads (rows x branches) a grou
                                  // before their FMAs
 constexpr int kWindowEdges = 32;  // edges whose metadata a group reads at once
 
-// A light row's lane group at H = 32 Q: F features a lane (16 bytes, or Q
-// when more, or a head's width when less), G = H / F lanes.
-template <typename T, int Q, int NH>
+// A light row's lane group at H = 32 Q: F features a lane (kBytes bytes,
+// or Q when more, or a head's width when less), G = H / F lanes.
+template <typename T, int Q, int NH, int kBytes = 16>
 struct LightShape {
-  static constexpr int kWide = 16 / (int)sizeof(T) > Q ? 16 / (int)sizeof(T) : Q;
+  static constexpr int kWide = kBytes / (int)sizeof(T) > Q ? kBytes / (int)sizeof(T) : Q;
   static constexpr int F = kWide < 32 * Q / NH ? kWide : 32 * Q / NH;
   static constexpr int G = 32 * Q / F;
 };
@@ -488,28 +488,36 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
 //
 // out[q][r] = init op v_q[e_1] op v_q[e_2] ... over the edges of row r, for
 // `planes` f32 planes v_q of E values, with an associative Op (K21: max from
-// -1e30).  The unit is the walk's: a light row (one chunk, at most kGroup
-// edges) is one item of a group of kReduceGroup lanes (8 rows a warp, as
-// most rows of a real batch hold 1-4 edges); a heavy row's chunks (the
-// host-built EdgeCsr.heavy_chunks, the padded run at node V-1 included: the
-// values are the caller's, dead or not) are the first warps' items, a warp
+// -1e30 over the receiver CSR; K10's dtj: a sum from 0 over the sender CSR,
+// its values edge-major, [E, planes]).  The unit is the walk's: a light row
+// (one chunk, at most kGroup edges) is one item of a group of kReduceGroup
+// lanes (8 rows a warp, as most rows of a real batch hold 1-4 edges); a
+// heavy row's chunks (the host-built EdgeCsr.heavy_chunks, the padded run at
+// node V-1 included unless skip_masked: the values are the caller's, dead or
+// not) are the first warps' items, a warp
 // each, and the row's last chunk to arrive (EdgeCsr.arrivals, 0 again when
 // the launch ends) reduces the chunks' partials and writes the row.  One
 // launch, no pass over all rows.  A lane reads 16 bytes of a plane at a time
 // where the planes allow (perm null, E % 4 == 0, 16-byte aligned), the loads
-// of kPlaneBatch planes in flight together.  Every output has one owner and
-// one order (lanes, then the group's shuffle tree; partials likewise): a sum
-// on this walk is deterministic, though not in the order of the row sums
-// above (finish_row), whose kernels still end with launch_combine.
+// of kPlaneBatch planes in flight together; edge-major values give a lane an
+// edge's four planes in one 16-byte load, through perm too.  Every output
+// has one owner and one order (lanes, then the group's shuffle tree;
+// partials likewise): a sum on this walk is deterministic, though not in the
+// order of the row sums above (finish_row), whose kernels still end with
+// launch_combine.
 //
 // Bound: bytes, 4 planes bytes per edge and per row, plus the CSR; the walk
 // is latency: ptr, the values, the store, a chain per row.
 
 // The arguments of a reduction: the CSR (EdgeCsr) and the planes.
 struct RowReduce : CsrRows {
-  const float* vals;   // [planes, num_edges]: CSR position i reads edge i (perm null) or perm[i]
+  const float* vals;   // [planes, num_edges] (edge_major: [num_edges, planes]): CSR
+                       // position i reads edge i (perm null) or perm[i]
   int num_edges, planes;
   bool vec;            // perm null, num_edges % 4 == 0, vals 16-byte aligned: float4 loads
+  bool edge_major;     // vals [num_edges, planes], 16-byte aligned
+  bool skip_masked;    // a dead edge's value is Op's identity: a heavy chunk of
+                       // masked-out edges alone (heavy_masked) is not read
   float* out;          // [planes, num_nodes]
   float* partial;      // [n_heavy_chunks, planes]
 };
@@ -517,6 +525,11 @@ struct RowReduce : CsrRows {
 struct MaxOp {
   static constexpr float kInit = -1e30f;   // cal_tpu's init of tile_scatter_max
   __device__ static __forceinline__ float apply(float a, float b) { return fmaxf(a, b); }
+};
+
+struct SumOp {
+  static constexpr float kInit = 0.0f;
+  __device__ static __forceinline__ float apply(float a, float b) { return a + b; }
 };
 
 constexpr int kReduceGroup = 4;   // lanes of a light row's group
@@ -547,13 +560,24 @@ __device__ __forceinline__ void reduce_span(const RowReduce& a, int q0, int beg,
           if (i + u >= beg && i + u < end) acc[j] = Op::apply(acc[j], e[u]);
       }
     }
+  } else if (a.edge_major && a.planes % 4 == 0) {
+    static_assert(kPlaneBatch == 4, "an edge's batch of planes is one float4");
+    for (int i = beg + gl; i < end; i += G) {
+      const size_t e = a.perm == nullptr ? i : a.perm[i];
+      const float4 t = __ldg(reinterpret_cast<const float4*>(a.vals + e * a.planes + q0));
+      acc[0] = Op::apply(acc[0], t.x);
+      acc[1] = Op::apply(acc[1], t.y);
+      acc[2] = Op::apply(acc[2], t.z);
+      acc[3] = Op::apply(acc[3], t.w);
+    }
   } else {
     for (int i = beg + gl; i < end; i += G) {
       const size_t e = a.perm == nullptr ? i : a.perm[i];
 #pragma unroll
       for (int j = 0; j < kPlaneBatch; ++j)
         if (q0 + j < a.planes)
-          acc[j] = Op::apply(acc[j], a.vals[(size_t)(q0 + j) * a.num_edges + e]);
+          acc[j] = Op::apply(acc[j], a.edge_major ? a.vals[e * a.planes + q0 + j]
+                                                  : a.vals[(size_t)(q0 + j) * a.num_edges + e]);
     }
   }
 #pragma unroll
@@ -570,9 +594,10 @@ __device__ __forceinline__ void reduce_heavy_chunk(const RowReduce& a, int item,
   const int c = a.heavy_chunks[item];
   const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
   const int i0 = item - (c - a.chunk_ptr[k.row]);   // the row's first chunk on the list
+  const int end = a.skip_masked && a.heavy_masked[item] ? k.beg : k.end;
   for (int q0 = 0; q0 < a.planes; q0 += kPlaneBatch) {
     float acc[kPlaneBatch];
-    reduce_span<Op, 32>(a, q0, k.beg, k.end, lane, acc);
+    reduce_span<Op, 32>(a, q0, k.beg, end, lane, acc);
 #pragma unroll
     for (int j = 0; j < kPlaneBatch; ++j)
       if (lane == j && q0 + j < a.planes) a.partial[(size_t)item * a.planes + q0 + j] = acc[j];

@@ -16,7 +16,8 @@
 //   pre_e,h = tj[h][s] + ti[h][r], score = leaky_relu(pre, 0.2);
 //   K8:  m[h][r]  = max(leaky_relu(ti[h][r] + tj[h][r]), max over live in-edges
 //                   of score)  (the self score folded in, as ops/gat.py:277-278),
-//        den[h][r] = sum over live in-edges of exp(score - m[h][r])  (no self term);
+//        den[h][r] = sum over live in-edges of exp(score - m[h][r])  (no self term;
+//                   +0 for a row without a live in-edge);
 //   q_e,h = exp(score - m[h][r]) on live edges, times keep_e,h / (1 - rate)
 //   when dropout is on; keep_e,h is the murmur-style hash of the edge id
 //   (e * NH + h, salt 0) of cal_tpu/ops/gat.py _keep_mask, bit for bit;
@@ -32,30 +33,66 @@
 // planes, w, q, every product and sum and every output are f32.  The plain
 // twins in ops/gat_sparse.py round at exactly these points.  cal_tpu's bf16
 // tile plans also round the gathered planes, w and each message to bf16:
-// the port does not.
+// the port does not.  m is a max, exact in any order; den, dti and dtj are
+// sums in the walk's order (a lane's edges, the group's shuffle tree, a
+// heavy row's chunks in order), not the twin's, so they may differ from it
+// (and from earlier designs of these kernels) in the last bits; K10 scales a
+// kept dot product by 1 / (1 - rate), the twin divides by 1 - rate.
 //
-// Design.  As spmm.cu (csr_rows.cuh): a CSR row's edges form groups of 32,
-// the groups at most 64 chunks, and one warp owns one chunk.  K8 sweeps its
-// chunk twice (the max, then the exponential sums against it), each lane
-// over its own edges, and reduces across the warp; a row of several chunks
-// writes one (max, sum) pair per chunk and head, which a second pass
-// combines as l = sum_c l_c exp(m_c - m).  K9 takes each live edge of a
-// group from a ballot, broadcasts its neighbour and its NH weights, and every
-// lane accumulates the H / 32 features it owns (all of one head: d is a
-// multiple of H / 32); long rows write f32 partials that a second pass sums
-// in chunk order.  The transposed mode walks the sender CSR through perm,
-// so q and the keep bit stay keyed on the forward edge id: both walks draw
-// the same bit.  K10 keeps w[r] of its row in registers, reduces each live
-// edge's per-head dot products over the head's d / (H / 32) lanes, and the
-// edge's own lane forms dpre, keeps the receiver sum and writes the sender
-// term per edge; the sender sums are then taken over the sender CSR by
-// csr_rows.cuh's sender_sum_kernel.  Every sum has one owner, no float
-// atomics: a result does not change between runs.
+// Design.  K8 and K10 run on csr_rows.cuh's items (graph.EdgeCsr): a light
+// row (one chunk, at most 32 edges; most rows of a real batch hold 1-4) is
+// one lane group's item, several a warp; the chunks of a heavy row, listed
+// on the host (heavy_chunks), are the first items of the launch, each
+// writing f32 partials, and the row's last chunk to arrive (an int counter
+// in EdgeCsr.arrivals, 0 again when the launch ends) combines them in chunk
+// order and writes the row.  No pass visits all V rows, and no float is
+// summed atomically: a result does not change between runs.
+//  - K8, one launch: a light row is a group of kStatsGroup lanes; each lane
+//    reads its edges' sender, mask and NH sender halves once and keeps the
+//    scores in registers, the group takes the max (from the self score) and
+//    then the exponential sums against it.  A heavy chunk is a warp's item:
+//    each lane merges (max, sum) online over its edges, the warp merges its
+//    lanes, and the row's last chunk takes m = max_c m_c and l = sum in chunk
+//    order of l_c exp(m_c - m).  A chunk of masked edges alone (heavy_masked:
+//    the padded run at node V-1) is not walked: its pair is (self score, 0).
+//  - K9 (the design of the first port): one warp a chunk, a ballot lists the
+//    live edges of a group of 32, every lane accumulates its features; long
+//    rows' partials are summed by a second pass (gat_coef_spmm_combine).  The
+//    transposed mode walks the sender CSR through perm, so q and the keep
+//    bit stay keyed on the forward edge id: both walks draw the same bit.
+//  - K10, two launches.  The receiver pass is csr_spmm_kernel's lane-group
+//    walk with wider lanes (ChainShape: 32 bytes of x a lane, G = H / F
+//    lanes an item, 4 rows a warp at H = 128 in bf16): the group keeps w[r]
+//    in registers, reads a window's metadata and sender halves at once,
+//    lists its live edges with a ballot, loads the neighbour rows x[s] of
+//    kChainInFlight of them before their dot products, reduces each head's
+//    over the head's lanes, and the edge's own lane forms dpre (a window
+//    slot empty in the whole warp is skipped), stores it to the edge plane
+//    ([E, NH], one 16-byte store at NH = 4) and adds it to the row's dti; a
+//    heavy masked chunk stores zeros there.  Instruction count, not latency,
+//    bounds this pass (every lane of a group runs its slot's NH heads of
+//    dpre), so wider lanes, more rows a warp, and registers enough for them
+//    (2 blocks an SM) beat occupancy.  The sender pass is csr_reduce_kernel with SumOp over
+//    the sender CSR: an edge's NH values in one load through perm, a light
+//    sender a 4-lane group's, heavy senders by chunk (a chunk of masked edges
+//    alone not read: its values are 0), finished by g.send's arrivals.
+// K8, K10's receiver pass and K9 share g.recv's counters on one stream.
 //
-// Bound: bytes.  K8 reads two planes and 5 bytes of metadata per edge; K9
+// Bound: bytes.  K8 reads two planes, 5 bytes of metadata per edge and NH
+// sender halves per live edge (mostly from L2) and writes two planes; K9
 // reads x [V, H] (a neighbour row per live edge, mostly from L2) and writes
-// [V, H] f32; K10 reads x and w and writes NH f32 per edge; H FMAs and NH
-// exponentials per edge are far below the FMA or SFU floor.
+// [V, H] f32; K10 reads x and w, the planes and the metadata of both CSRs and
+// writes NH f32 per edge and two planes; H FMAs and NH exponentials per edge
+// are far below the FMA or SFU floor.  The walks' own limit is latency: a
+// light row is a chain of dependent loads (ptr, metadata, sender halves or
+// neighbour rows, store).
+//
+// The constants below (K8's 4-lane groups and 4 blocks an SM; K10's 32-byte
+// lanes, 2 neighbour rows in flight and 2 blocks an SM; the [E, NH] edge
+// plane; tj read from its [NH, V] planes) are the measured winners: PERF.md
+// gives the times of the alternatives (an online (max, sum) merge for K8's
+// light rows, an [NH, E] edge plane, a [V, NH] copy of tj, other group,
+// block and in-flight counts).
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in
@@ -68,6 +105,10 @@
 namespace {
 
 constexpr float kNegSlope = 0.2f;   // PyG 1.1.0 GATConv negative_slope
+constexpr int kStatsGroup = 4;      // lanes of a K8 light row
+constexpr int kStatsBlocks = 4;     // K8's blocks an SM (__launch_bounds__)
+constexpr int kChainBlocks = 2;     // K10 receiver pass's blocks an SM
+constexpr int kChainInFlight = 2;   // neighbour rows K10 loads before their products
 
 __device__ __forceinline__ float leaky(float p) { return p >= 0.0f ? p : p * kNegSlope; }
 
@@ -89,85 +130,213 @@ __device__ __forceinline__ bool keep_bit(uint32_t id, const Dropout& d) {
   return x < d.thresh;
 }
 
+// The sender halves tj[h][s] of node s, every head, from the [NH, V] planes.
+template <int NH>
+__device__ __forceinline__ void tj_at(const float* __restrict__ tj, int s, size_t V,
+                                      float (&t)[NH]) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h) t[h] = __ldg(tj + h * V + s);
+}
+
 // ---- K8: per-receiver max and exponential sum ----------------------------
 
-template <int NH>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_row_stats_kernel(const float* __restrict__ tj, const float* __restrict__ ti,
-                     const int* __restrict__ senders, const uint8_t* __restrict__ edge_mask,
-                     const int* __restrict__ ptr, const int* __restrict__ chunk_ptr,
-                     const int* __restrict__ chunk_row, int n_chunks, int num_nodes,
-                     float* __restrict__ m_out, float* __restrict__ den_out,
-                     float* __restrict__ partial) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= n_chunks) return;
-  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
-  const int r = k.row;
-  const size_t V = num_nodes;
-  float ti_r[NH], mx[NH], l[NH];
+struct StatsArgs : CsrRows {
+  const float* tj;            // [NH, V]
+  const float* ti;            // [NH, V]
+  const int* senders;         // receiver CSR order = edge order
+  const uint8_t* edge_mask;
+  float* m;                   // [NH, V]
+  float* den;                 // [NH, V]
+  float* partial;             // [n_heavy_chunks, 2 NH]: a heavy chunk's (m_c, l_c) per head
+};
+
+// One score into a running (max, sum of exp(score - max)) pair.
+__device__ __forceinline__ void online_add(float& mx, float& l, float sc) {
+  if (sc > mx) {
+    l = l * expf(mx - sc) + 1.0f;
+    mx = sc;
+  } else {
+    l += expf(sc - mx);
+  }
+}
+
+// The (max, sum) pairs of the lanes of each group of G lanes merged: every
+// lane ends with its group's pair (a fixed shuffle order).
+template <int NH, int G>
+__device__ __forceinline__ void merge_pairs(float (&mx)[NH], float (&l)[NH]) {
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
-    ti_r[h] = ti[h * V + r];
-    mx[h] = leaky(ti_r[h] + tj[h * V + r]);      // the self score
+    float m = mx[h];
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    l[h] *= expf(mx[h] - m);
+    mx[h] = m;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) l[h] += __shfl_xor_sync(kFull, l[h], off);
+  }
+}
+
+// Row r's receiver halves and self scores, the start of its max.
+template <int NH>
+__device__ __forceinline__ void stats_row(const StatsArgs& a, int r, float (&ti_r)[NH],
+                                          float (&mx)[NH], float (&l)[NH]) {
+  const size_t V = a.num_nodes;
+  float t[NH];
+  tj_at<NH>(a.tj, r, V, t);
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    ti_r[h] = __ldg(a.ti + h * V + r);
+    mx[h] = leaky(ti_r[h] + t[h]);
     l[h] = 0.0f;
   }
-  for (int i = k.beg + lane; i < k.end; i += kGroup) {
-    const int s = senders[i];
-    if (edge_mask[i] && s != r) {
+}
+
+// The live edges at CSR positions i0, i0 + step, ... < end of row r merged
+// online into (mx, l).
+template <int NH>
+__device__ __forceinline__ void stats_online(const StatsArgs& a, int r, int i0, int end,
+                                             int step, const float (&ti_r)[NH],
+                                             float (&mx)[NH], float (&l)[NH]) {
+  const size_t V = a.num_nodes;
+  for (int i = i0; i < end; i += step) {
+    const int s = a.senders[i];
+    if (a.edge_mask[i] && s != r) {
+      float t[NH];
+      tj_at<NH>(a.tj, s, V, t);
 #pragma unroll
-      for (int h = 0; h < NH; ++h) mx[h] = fmaxf(mx[h], leaky(tj[h * V + s] + ti_r[h]));
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int h = 0; h < NH; ++h) mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], off));
-  for (int i = k.beg + lane; i < k.end; i += kGroup) {
-    const int s = senders[i];
-    if (edge_mask[i] && s != r) {
-#pragma unroll
-      for (int h = 0; h < NH; ++h) l[h] += expf(leaky(tj[h * V + s] + ti_r[h]) - mx[h]);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int h = 0; h < NH; ++h) l[h] += __shfl_xor_sync(kFull, l[h], off);
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      if (k.count == 1) {
-        m_out[h * V + r] = mx[h];
-        den_out[h * V + r] = l[h];
-      } else {
-        partial[2 * NH * c + h] = mx[h];
-        partial[2 * NH * c + NH + h] = l[h];
-      }
+      for (int h = 0; h < NH; ++h) online_add(mx[h], l[h], leaky(t[h] + ti_r[h]));
     }
   }
 }
 
-// (m, l) of every row of more than one chunk: m = max_c m_c, l = sum in chunk
-// order of l_c exp(m_c - m).
+// A heavy chunk, a warp: its (m_c, l_c) pairs, then, for the row's last
+// chunk to arrive, the row from all of them.
 template <int NH>
-__global__ void gat_row_stats_combine(const int* __restrict__ chunk_ptr, int num_nodes,
-                                      const float* __restrict__ partial,
-                                      float* __restrict__ m_out, float* __restrict__ den_out) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= num_nodes) return;
-  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
-  if (c1 - c0 <= 1) return;
+__device__ __forceinline__ void stats_heavy_chunk(const StatsArgs& a, int item, int lane) {
+  const int c = a.heavy_chunks[item];
+  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+  const int r = k.row;
+  const size_t V = a.num_nodes;
+  const int i0 = item - (c - a.chunk_ptr[r]);   // the row's first chunk on the list
+  float ti_r[NH], mx[NH], l[NH];
+  stats_row<NH>(a, r, ti_r, mx, l);
+  if (!a.heavy_masked[item]) stats_online<NH>(a, r, k.beg + lane, k.end, 32, ti_r, mx, l);
+  merge_pairs<NH, 32>(mx, l);
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      a.partial[(size_t)item * 2 * NH + h] = mx[h];
+      a.partial[(size_t)item * 2 * NH + NH + h] = l[h];
+    }
+    __threadfence();
+  }
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(a.arrivals + i0, 1) == k.count - 1;
+  if (!__shfl_sync(kFull, last, 0)) return;
+  __threadfence();
+  // lanes j and j + 32 hold chunks j and j + 32 of the row (at most 64)
+  const int n = k.count;
+  const float* p = a.partial + (size_t)i0 * 2 * NH;
+  const float kNegInf = __int_as_float(0xff800000u);
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
-    float mx = partial[2 * NH * c0 + h];
-    for (int c = c0 + 1; c < c1; ++c) mx = fmaxf(mx, partial[2 * NH * c + h]);
-    float l = 0.0f;
-    for (int c = c0; c < c1; ++c)
-      l += partial[2 * NH * c + NH + h] * expf(partial[2 * NH * c + h] - mx);
-    m_out[(size_t)h * num_nodes + v] = mx;
-    den_out[(size_t)h * num_nodes + v] = l;
+    const float m0 = lane < n ? __ldcg(p + lane * 2 * NH + h) : kNegInf;
+    const float m1 = lane + 32 < n ? __ldcg(p + (lane + 32) * 2 * NH + h) : kNegInf;
+    float mr = fmaxf(m0, m1);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mr = fmaxf(mr, __shfl_xor_sync(kFull, mr, off));
+    const float t0 = lane < n ? __ldcg(p + lane * 2 * NH + NH + h) * expf(m0 - mr) : 0.0f;
+    const float t1 =
+        lane + 32 < n ? __ldcg(p + (lane + 32) * 2 * NH + NH + h) * expf(m1 - mr) : 0.0f;
+    float sum = 0.0f;   // in chunk order
+    for (int j = 0; j < n; ++j) sum += __shfl_sync(kFull, j < 32 ? t0 : t1, j & 31);
+    if (lane == 0) {
+      a.m[h * V + r] = mr;
+      a.den[h * V + r] = sum;
+    }
   }
+  if (lane == 0) a.arrivals[i0] = 0;
+}
+
+// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
+// take the rows, 32 / kStatsGroup a warp (a heavy row's group idles).
+template <int NH>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kStatsBlocks)
+gat_row_stats_kernel(const StatsArgs a) {
+  constexpr int G = kStatsGroup, K = kGroup / G;   // a lane's edges of a light row
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp < a.n_heavy_chunks) {
+    stats_heavy_chunk<NH>(a, warp, lane);
+    return;
+  }
+  const int first = (warp - a.n_heavy_chunks) * (32 / G);
+  if (first >= a.num_nodes) return;
+  const int r = first + lane / G, gl = lane % G;
+  const size_t V = a.num_nodes;
+  int beg = 0, end = 0;
+  if (r < a.num_nodes) {
+    beg = a.ptr[r];
+    end = a.ptr[r + 1];
+  }
+  const bool light = r < a.num_nodes && end - beg <= kGroup;
+  if (!light) end = beg;
+  float ti_r[NH], mx[NH], l[NH];
+  stats_row<NH>(a, min(r, a.num_nodes - 1), ti_r, mx, l);
+  // every edge's metadata, then every live edge's sender halves, in flight
+  // together; the scores stay in registers between the max and the sums
+  int s[K];
+  bool live[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = beg + gl + k * G;
+    s[k] = 0;
+    live[k] = false;
+    if (i < end) {
+      s[k] = a.senders[i];
+      live[k] = a.edge_mask[i] && s[k] != r;
+    }
+  }
+  float sc[K][NH];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (live[k]) {
+      tj_at<NH>(a.tj, s[k], V, sc[k]);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        sc[k][h] = leaky(sc[k][h] + ti_r[h]);
+        mx[h] = fmaxf(mx[h], sc[k][h]);
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], off));
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (live[k])
+#pragma unroll
+      for (int h = 0; h < NH; ++h) l[h] += expf(sc[k][h] - mx[h]);
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) l[h] += __shfl_xor_sync(kFull, l[h], off);
+  if (light && gl == 0)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      a.m[h * V + r] = mx[h];
+      a.den[h * V + r] = l[h];
+    }
+}
+
+template <int NH>
+cudaError_t launch_row_stats(const StatsArgs& a, cudaStream_t stream) {
+  const int warps = a.n_heavy_chunks + (a.num_nodes + 32 / kStatsGroup - 1) / (32 / kStatsGroup);
+  gat_row_stats_kernel<NH><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32,
+                             0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---- K9 / K9T: coefficient SpMM with the weights rebuilt per edge --------
@@ -291,91 +460,191 @@ cudaError_t launch_gat_spmm(const GatSpmmArgs<T>& a, cudaStream_t stream) {
 // ---- K10: the SDDMM chain of the backward --------------------------------
 
 template <typename T>
-struct GatChainArgs {
-  const T* x;          // [V, H] xh
-  const float* w;      // [V, H] gout / denom
-  const float* tj;     // [NH, V]
-  const float* ti;
+struct GatChainArgs : CsrRows {
+  const T* x;                 // [V, H] xh
+  const float* w;             // [V, H] gout / denom
+  const float* tj;            // [NH, V]
+  const float* ti;            // [NH, V]
   const float* m;
   const float* dD;
-  const int* senders;
+  const int* senders;         // receiver CSR order = edge order
   const uint8_t* edge_mask;
-  const int* ptr;      // receiver CSR
-  const int* chunk_ptr;
-  const int* chunk_row;
-  float* edge_out;     // [NH, E]: each edge's dpre, summed by sender afterwards
-  float* dti;          // [NH, V]
-  float* partial;      // [n_chunks, NH]
-  int n_chunks, num_nodes, num_edges, h;
+  float* edge_out;            // each edge's dpre: [E, NH]
+  float* dti;                 // [NH, V]
+  float* partial;             // [n_heavy_chunks, NH]: a heavy chunk's dti sums
+  int h;
   Dropout drop;
 };
 
-template <typename T, int NH, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_sddmm_chain_kernel(const GatChainArgs<T> a) {
-  constexpr int kLanesPerHead = 32 / NH;
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+// K10's lane group: 32 bytes of x a lane, so at H = 128 4 rows a warp in
+// bf16 and 2 in f32 (the walk's 16 bytes give half that: each lane's dpre
+// work would be spent on fewer rows).
+template <typename T, int Q, int NH>
+using ChainShape = LightShape<T, Q, NH, 32>;
+
+// The receiver pass: one item a lane group, 32 / G a warp, as
+// csr_spmm_kernel (items [0, n_heavy_chunks) the heavy chunks, partial i for
+// item i; the others the rows, a heavy row's group idle).
+template <typename T, int NH, int Q>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kChainBlocks)
+gat_chain_kernel(const GatChainArgs<T> a) {
+  using S = ChainShape<T, Q, NH>;
+  constexpr int F = S::F, G = S::G, W = kWindowEdges / G;
+  constexpr int kLph = 32 * Q / NH / F;   // lanes of one head
+  constexpr int U = kChainInFlight;
+  constexpr int kWords = F * sizeof(T) / 4;
   const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const int r = k.row;
-  const size_t V = a.num_nodes, E = a.num_edges;
+  const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int gl = lane % G, base = lane - gl;
+  const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
+  const int item = first + lane / G;
+  const bool heavy = item < a.n_heavy_chunks;
+  int r = item - a.n_heavy_chunks, beg = 0, end = 0, i0 = 0, n = 0;
+  bool masked = false;
+  if (heavy) {
+    const int c = a.heavy_chunks[item];
+    const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+    r = k.row;
+    beg = k.beg;
+    end = k.end;
+    masked = a.heavy_masked[item];
+    i0 = item - (c - a.chunk_ptr[r]);
+    n = k.count;
+  } else if (r < a.num_nodes) {
+    beg = a.ptr[r];
+    end = a.ptr[r + 1];
+  }
+  const bool light = !heavy && r < a.num_nodes && end - beg <= kGroup;
+  // a chunk of masked-out edges alone is not walked: its edges' dpre are 0
+  const int wend = (heavy && !masked) || light ? end : beg;
+  const size_t V = a.num_nodes;
+  const int rr = min(r, a.num_nodes - 1);
   float wr[F];
-  load_vec<float, F>(a.w + (size_t)r * a.h + lane * F, wr);
+  load_vec<float, F>(a.w + (size_t)rr * a.h + gl * F, wr);
+  const float inv_keep = 1.0f / a.drop.keep_p;
   float ti_r[NH], m_r[NH], dd_r[NH], acc[NH];
 #pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    ti_r[h] = a.ti[h * V + r];
-    m_r[h] = a.m[h * V + r];
-    dd_r[h] = a.dD[h * V + r];
-    acc[h] = 0.0f;
+  for (int hd = 0; hd < NH; ++hd) {
+    ti_r[hd] = __ldg(a.ti + hd * V + rr);
+    m_r[hd] = __ldg(a.m + hd * V + rr);
+    dd_r[hd] = __ldg(a.dD + hd * V + rr);
+    acc[hd] = 0.0f;
   }
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    const int i = g0 + lane;
-    int s_l = 0;
-    bool live = false;
-    if (i < k.end) {
-      s_l = a.senders[i];
-      live = a.edge_mask[i] && s_l != r;
-    }
-    // each live edge's per-head dot products, reduced over the head's lanes;
-    // the edge's own lane keeps them
-    float dqm[NH];
+  for (int w0 = beg; __any_sync(kFull, w0 < wend); w0 += W * G) {
+    // the window's metadata and the live edges' sender halves, in flight
+    // together (past the range a lane reads nothing and is never live)
+    int s_l[W];
+    bool live[W];
+    float tjs[W][NH], dqm[W][NH];
 #pragma unroll
-    for (int h = 0; h < NH; ++h) dqm[h] = 0.0f;
-    for (unsigned msk = __ballot_sync(kFull, live); msk != 0; msk &= msk - 1) {
-      const int j = __ffs(msk) - 1;
-      const int s = __shfl_sync(kFull, s_l, j);
-      float xs[F];
-      load_vec<T, F>(a.x + (size_t)s * a.h + lane * F, xs);
-      float p = 0.0f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) p = fmaf(wr[f], xs[f], p);
-#pragma unroll
-      for (int off = kLanesPerHead / 2; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float t = __shfl_sync(kFull, p, h * kLanesPerHead);
-        if (lane == j) dqm[h] = t;
+    for (int k = 0; k < W; ++k) {
+      const int i = w0 + k * G + gl;
+      s_l[k] = 0;
+      live[k] = false;
+      if (i < wend) {
+        s_l[k] = a.senders[i];
+        live[k] = a.edge_mask[i] && s_l[k] != r;
       }
-    }
-    if (i < k.end) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        float dpre = 0.0f;
-        if (live) {
-          const float pre = a.tj[h * V + s_l] + ti_r[h];
-          const float q = expf(leaky(pre) - m_r[h]);
-          float d = dqm[h];
-          if (a.drop.on) d = keep_bit((uint32_t)i * NH + h, a.drop) ? d / a.drop.keep_p : 0.0f;
-          dpre = q * (d + dd_r[h]) * (pre > 0.0f ? 1.0f : kNegSlope);
+      for (int hd = 0; hd < NH; ++hd) dqm[k][hd] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (live[k]) tj_at<NH>(a.tj, s_l[k], V, tjs[k]);
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      unsigned msk = (__ballot_sync(kFull, live[k]) >> base) & gbits;
+      while (__any_sync(kFull, msk != 0)) {
+        // the next U live edges of the group, in edge order: their neighbour
+        // rows loaded, then their dot products with w[r], reduced per head;
+        // the edge's own lane keeps its NH values
+        bool ok[U];
+        int j[U];
+        uint32_t xs[U][kWords];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          ok[u] = msk != 0;
+          j[u] = base + (ok[u] ? __ffs(msk) - 1 : 0);
+          msk &= msk - 1;
+          const int s = __shfl_sync(kFull, s_l[k], j[u]);
+          if (ok[u]) load_words<T, F>(a.x + (size_t)s * a.h + gl * F, xs[u]);
         }
-        a.edge_out[h * E + i] = dpre;
-        acc[h] += dpre;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float p = 0.0f;
+          if (ok[u])
+#pragma unroll
+            for (int f = 0; f < F; ++f) p = fmaf(wr[f], word_elem<T>(xs[u], f), p);
+#pragma unroll
+          for (int off = kLph / 2; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
+#pragma unroll
+          for (int hd = 0; hd < NH; ++hd) {
+            const float t = __shfl_sync(kFull, p, base + hd * kLph);
+            if (ok[u] && lane == j[u]) dqm[k][hd] = t;
+          }
+        }
       }
     }
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = w0 + k * G + gl;
+      if (!__any_sync(kFull, i < wend)) continue;   // a slot past every item's range
+      float dp[NH] = {};
+      if (live[k])
+#pragma unroll
+        for (int hd = 0; hd < NH; ++hd) {
+          const float pre = tjs[k][hd] + ti_r[hd];
+          const float q = expf(leaky(pre) - m_r[hd]);
+          float d = dqm[k][hd];
+          if (a.drop.on) d = keep_bit((uint32_t)i * NH + hd, a.drop) ? d * inv_keep : 0.0f;
+          dp[hd] = q * (d + dd_r[hd]) * (pre > 0.0f ? 1.0f : kNegSlope);
+          acc[hd] += dp[hd];
+        }
+      if (i < wend) store_vec<float, NH>(a.edge_out + (size_t)i * NH, dp);
+    }
   }
-  finish_row<NH>(acc, k, c, lane, a.num_nodes, a.dti, a.partial);
+  if (heavy && masked) {
+    const float zero[NH] = {};
+    for (int i = beg + gl; i < end; i += G)
+      store_vec<float, NH>(a.edge_out + (size_t)i * NH, zero);
+  }
+#pragma unroll
+  for (int hd = 0; hd < NH; ++hd)
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) acc[hd] += __shfl_xor_sync(kFull, acc[hd], off);
+  if (light && gl == 0)
+#pragma unroll
+    for (int hd = 0; hd < NH; ++hd) a.dti[hd * V + r] = acc[hd];
+  if (!__any_sync(kFull, heavy)) return;
+  if (heavy && gl == 0) {
+#pragma unroll
+    for (int hd = 0; hd < NH; ++hd) a.partial[(size_t)item * NH + hd] = acc[hd];
+    __threadfence();
+  }
+  __syncwarp();
+  int last = 0;
+  if (heavy && gl == 0) last = atomicAdd(a.arrivals + i0, 1) == n - 1;
+  if (__shfl_sync(kFull, last, base)) {
+    __threadfence();
+    if (gl < NH) {   // lane gl sums head gl's partials in chunk order
+      float sum = 0.0f;
+#pragma unroll 8
+      for (int c = 0; c < n; ++c) sum += __ldcg(a.partial + (size_t)(i0 + c) * NH + gl);
+      a.dti[gl * V + r] = sum;
+    }
+    if (gl == 0) a.arrivals[i0] = 0;
+  }
+}
+
+template <typename T, int NH, int Q>
+cudaError_t launch_chain(const GatChainArgs<T>& a, cudaStream_t stream) {
+  using S = ChainShape<T, Q, NH>;
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / S::G;
+  const int items = a.n_heavy_chunks + a.num_nodes;
+  gat_chain_kernel<T, NH, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
+                               kWarpsPerBlock * 32, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // Calls fn(integral_constant<NH>, integral_constant<F>) for NH, F in {1, 2, 4, 8}.
@@ -448,64 +717,44 @@ cudaError_t gat_spmm_typed(const void* x, const float* tj, const float* ti, cons
 template <typename T>
 cudaError_t gat_chain_typed(GatChainArgs<T>& a, const void* x, int heads, cudaStream_t stream) {
   a.x = static_cast<const T*>(x);
-  return with_heads_f(heads, a.h / 32, [&](auto nh, auto f) {
-    constexpr int NH = decltype(nh)::value, F = decltype(f)::value;
-    gat_sddmm_chain_kernel<T, NH, F><<<(a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                                       kWarpsPerBlock * 32, 0, stream>>>(a);
-    return cudaGetLastError();
+  return with_heads_f(heads, a.h / 32, [&](auto nh, auto q) {
+    return launch_chain<T, decltype(nh)::value, decltype(q)::value>(a, stream);
   });
-}
-
-template <int NH>
-cudaError_t launch_row_stats(const float* tj, const float* ti, const int* senders,
-                             const uint8_t* edge_mask, const int* ptr, const int* chunk_ptr,
-                             const int* chunk_row, int n_chunks, int num_nodes, float* m,
-                             float* den, float* partial, cudaStream_t stream) {
-  gat_row_stats_kernel<NH><<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                             kWarpsPerBlock * 32, 0, stream>>>(
-      tj, ti, senders, edge_mask, ptr, chunk_ptr, chunk_row, n_chunks, num_nodes, m, den,
-      partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gat_row_stats_combine<NH><<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes,
-                                                                         partial, m, den);
-  return cudaGetLastError();
-}
-
-// K10's two row sums: dti over its receiver chunks, dtj over the sender CSR.
-template <int NH>
-cudaError_t launch_chain_sums(float* dti, const float* edge_out, int num_nodes, int num_edges,
-                              const int* chunk_ptr, const int* sptr, const int* schunk_ptr,
-                              const int* schunk_row, const int* sperm, int s_chunks, float* dtj,
-                              float* partial, cudaStream_t stream) {
-  cudaError_t err = launch_combine<NH>(chunk_ptr, num_nodes, partial, dti, stream);
-  if (err != cudaSuccess) return err;
-  return launch_sender_sum<NH>(edge_out, num_edges, sperm, sptr, schunk_ptr, schunk_row,
-                               s_chunks, num_nodes, dtj, partial, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K8.  tj, ti [heads, V] f32; the receiver CSR (edges in row order) and its
-// senders.  Writes m and den [heads, V] f32; partial holds 2 * heads *
-// n_chunks floats.
+// K8.  tj, ti [heads, V] f32; the receiver CSR (graph.EdgeCsr: ptr,
+// chunk_ptr, chunk_row, heavy_chunks, heavy_masked, their count, arrivals:
+// n_heavy_chunks ints, 0 before the launch and after it) and its senders.
+// Writes m and den [heads, V] f32; partial holds 2 * heads * n_heavy_chunks
+// floats.  One launch.
 int gat_row_stats_launch(const float* tj, const float* ti, int heads, const int* senders,
                          const uint8_t* edge_mask, const int* ptr, const int* chunk_ptr,
-                         const int* chunk_row, int n_chunks, int num_nodes, float* m, float* den,
-                         float* partial, cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || !valid_heads(heads)) return (int)cudaErrorInvalidValue;
+                         const int* chunk_row, const int* heavy_chunks,
+                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
+                         int num_nodes, float* m, float* den, float* partial,
+                         cudaStream_t stream) {
+  if (num_nodes <= 0 || n_heavy_chunks < 0 || !valid_heads(heads))
+    return (int)cudaErrorInvalidValue;
+  StatsArgs a;
+  static_cast<CsrRows&>(a) = CsrRows{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
+                                     heavy_masked, arrivals, nullptr, n_heavy_chunks,
+                                     num_nodes};
+  a.tj = tj;
+  a.ti = ti;
+  a.senders = senders;
+  a.edge_mask = edge_mask;
+  a.m = m;
+  a.den = den;
+  a.partial = partial;
   switch (heads) {
-    case 1: return (int)launch_row_stats<1>(tj, ti, senders, edge_mask, ptr, chunk_ptr, chunk_row,
-                                            n_chunks, num_nodes, m, den, partial, stream);
-    case 2: return (int)launch_row_stats<2>(tj, ti, senders, edge_mask, ptr, chunk_ptr, chunk_row,
-                                            n_chunks, num_nodes, m, den, partial, stream);
-    case 4: return (int)launch_row_stats<4>(tj, ti, senders, edge_mask, ptr, chunk_ptr, chunk_row,
-                                            n_chunks, num_nodes, m, den, partial, stream);
-    default: return (int)launch_row_stats<8>(tj, ti, senders, edge_mask, ptr, chunk_ptr,
-                                             chunk_row, n_chunks, num_nodes, m, den, partial,
-                                             stream);
+    case 1: return (int)launch_row_stats<1>(a, stream);
+    case 2: return (int)launch_row_stats<2>(a, stream);
+    case 4: return (int)launch_row_stats<4>(a, stream);
+    default: return (int)launch_row_stats<8>(a, stream);
   }
 }
 
@@ -537,26 +786,32 @@ int gat_coef_spmm_launch(const void* x, int dtype, const float* tj, const float*
 }
 
 // K10.  dtype: 0 = float32, 1 = bfloat16 (x); w [V, h] f32; tj, ti, m, dD
-// [heads, V] f32.  The receiver CSR (ptr, chunk_ptr, chunk_row, r_chunks)
-// for the per-edge pass, the sender CSR (sptr, schunk_ptr, schunk_row, sperm,
-// s_chunks) for the dtj sums.  Writes edge_out [heads, E] (scratch), dtj and
-// dti [heads, V] f32; partial holds heads * max(r_chunks, s_chunks) floats.
-// Dropout as K9.
+// [heads, V] f32.  The receiver CSR (as gat_row_stats_launch) for the
+// per-edge pass, the sender CSR (the same seven arguments, its own counters)
+// and its perm for the dtj sums.  Writes edge_out (scratch: [E, heads] f32),
+// dtj and dti [heads, V] f32; partial holds heads * max(n_heavy_chunks,
+// s_heavy_chunks) floats.  Dropout as K9.  h % 32 == 0, h / 32 and heads in
+// {1, 2, 4, 8}; x rows aligned to a light lane's load (csr_rows.cuh
+// LightShape), w rows and edge_out to 16 bytes.  Two launches.
 int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float* tj,
                            const float* ti, const float* m, const float* dD, int heads,
                            const int* senders, const uint8_t* edge_mask, const int* ptr,
-                           const int* chunk_ptr, const int* chunk_row, int r_chunks,
+                           const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
+                           const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
                            const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                           const int* sperm, int s_chunks, int num_nodes, int num_edges, int h,
-                           unsigned s0, unsigned s1, unsigned thresh, float keep_p, int drop,
-                           float* edge_out, float* dtj, float* dti, float* partial,
-                           cudaStream_t stream) {
-  if (r_chunks <= 0 || s_chunks <= 0 || num_nodes <= 0 || num_edges <= 0 ||
+                           const int* sheavy_chunks, const uint8_t* sheavy_masked,
+                           int s_heavy_chunks, int* sarrivals, const int* sperm, int num_nodes,
+                           int num_edges, int h, unsigned s0, unsigned s1, unsigned thresh,
+                           float keep_p, int drop, float* edge_out, float* dtj, float* dti,
+                           float* partial, cudaStream_t stream) {
+  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0 ||
       !valid_width(heads, h))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
-  const Dropout d = make_dropout(s0, s1, thresh, keep_p, drop);
+  const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
+                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
   auto fill = [&](auto& a) {
+    static_cast<CsrRows&>(a) = recv;
     a.w = w;
     a.tj = tj;
     a.ti = ti;
@@ -564,17 +819,11 @@ int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float
     a.dD = dD;
     a.senders = senders;
     a.edge_mask = edge_mask;
-    a.ptr = ptr;
-    a.chunk_ptr = chunk_ptr;
-    a.chunk_row = chunk_row;
     a.edge_out = edge_out;
     a.dti = dti;
     a.partial = partial;
-    a.n_chunks = r_chunks;
-    a.num_nodes = num_nodes;
-    a.num_edges = num_edges;
     a.h = h;
-    a.drop = d;
+    a.drop = make_dropout(s0, s1, thresh, keep_p, drop);
   };
   if (dtype == 1) {
     GatChainArgs<__nv_bfloat16> a;
@@ -586,20 +835,19 @@ int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float
     err = gat_chain_typed(a, x, heads, stream);
   }
   if (err != cudaSuccess) return (int)err;
-  switch (heads) {
-    case 1: return (int)launch_chain_sums<1>(dti, edge_out, num_nodes, num_edges, chunk_ptr, sptr,
-                                             schunk_ptr, schunk_row, sperm, s_chunks, dtj,
-                                             partial, stream);
-    case 2: return (int)launch_chain_sums<2>(dti, edge_out, num_nodes, num_edges, chunk_ptr, sptr,
-                                             schunk_ptr, schunk_row, sperm, s_chunks, dtj,
-                                             partial, stream);
-    case 4: return (int)launch_chain_sums<4>(dti, edge_out, num_nodes, num_edges, chunk_ptr, sptr,
-                                             schunk_ptr, schunk_row, sperm, s_chunks, dtj,
-                                             partial, stream);
-    default: return (int)launch_chain_sums<8>(dti, edge_out, num_nodes, num_edges, chunk_ptr,
-                                              sptr, schunk_ptr, schunk_row, sperm, s_chunks, dtj,
-                                              partial, stream);
-  }
+  RowReduce rd;
+  static_cast<CsrRows&>(rd) = CsrRows{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
+                                      sheavy_masked, sarrivals, sperm, s_heavy_chunks,
+                                      num_nodes};
+  rd.vals = edge_out;
+  rd.num_edges = num_edges;
+  rd.planes = heads;
+  rd.vec = false;   // through perm
+  rd.edge_major = true;
+  rd.skip_masked = true;   // a dead edge's dpre is 0
+  rd.out = dtj;
+  rd.partial = partial;
+  return (int)launch_csr_reduce<SumOp>(rd, stream);
 }
 
 }  // extern "C"

@@ -13,7 +13,7 @@ Kernels in ``csrc/gat_sparse.cu`` (its header gives the contract, the design
 and the rounding points); the [heads, V] planes tj, ti, m, den, dD are f32:
 
 * ``gat_row_stats`` (K8, ``_gat_max_call`` and ``_gat_den_call`` in one
-  pass): the per-receiver max of the live scores and the self score, and
+  launch): the per-receiver max of the live scores and the self score, and
   the sum of the live edges' exp(score - m);
 * ``gat_coef_spmm`` (K9, ``_gat_coef_spmm_call``): sum over live in-edges of
   q * keep / (1 - rate) * x[s], per head, [V, H] f32;
@@ -21,7 +21,8 @@ and the rounding points); the [heads, V] planes tj, ti, m, den, dD are f32:
   same weights summed over the sender CSR, dxh's message term;
 * ``gat_sddmm_chain`` (K10, ``_gat_sddmm_chain_call``): per live edge and
   head, dpre = q (<w[r], x[s]> keep / (1 - rate) + dD[r]) leaky'(pre),
-  summed by sender (dtj) and by receiver (dti).
+  summed by receiver (dti) in a walk of the receiver CSR that writes each
+  edge's dpre, then by sender (dtj) over the sender CSR: two launches.
 
 The score halves, the self-loop terms, dD, sdot and the ``dti ad + dtj
 asr`` fold stay plain torch, as they are plain XLA in cal_tpu.  On CUDA
@@ -38,7 +39,15 @@ from torch.nn.functional import leaky_relu
 from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.kernels import build
 from cal_tpu_torch.ops.gat import NEG_SLOPE, head_ids, keep_mask, keep_threshold
-from cal_tpu_torch.ops.spmm import _DTYPES, _check_graph, _check_kernel_width, _live, _stream
+from cal_tpu_torch.ops.spmm import (
+    _DTYPES,
+    _check_graph,
+    _check_kernel_width,
+    _check_walk_width,
+    _live,
+    _stream,
+    _walk_csr,
+)
 
 _HEADS = (1, 2, 4, 8)
 
@@ -109,14 +118,14 @@ def _lib():
     lib = build.load("gat_sparse")
     if lib.gat_row_stats_launch.argtypes is None:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.gat_row_stats_launch.argtypes = [vp, vp, i] + [vp] * 5 + [i, i, vp, vp, vp, vp]
+        csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
+        lib.gat_row_stats_launch.argtypes = [vp, vp, i, vp, vp] + csr + [i, vp, vp, vp, vp]
         lib.gat_row_stats_launch.restype = ctypes.c_int
         lib.gat_coef_spmm_launch.argtypes = ([vp, i, vp, vp, vp, i] + [vp] * 6
                                              + [i, i, i, u, u, u, f, i, vp, vp, vp])
         lib.gat_coef_spmm_launch.restype = ctypes.c_int
-        lib.gat_sddmm_chain_launch.argtypes = ([vp, i] + [vp] * 5 + [i] + [vp] * 5 + [i]
-                                               + [vp] * 4 + [i, i, i, i, u, u, u, f, i]
-                                               + [vp] * 5)
+        lib.gat_sddmm_chain_launch.argtypes = ([vp, i] + [vp] * 5 + [i, vp, vp] + csr + csr
+                                               + [vp, i, i, i, u, u, u, f, i] + [vp] * 5)
         lib.gat_sddmm_chain_launch.restype = ctypes.c_int
     return lib
 
@@ -155,8 +164,8 @@ def _dropout_args(words, rate: float):
 
 def gat_row_stats(tj, ti, g: GraphBatch):
     """K8: (m, den) [heads, V] f32 from the score halves tj (sender) and ti
-    (receiver) [heads, V] f32 (see ``gat_row_stats_plain``).
-    ``.launches`` counts kernel launches."""
+    (receiver) [heads, V] f32 (see ``gat_row_stats_plain``), in one kernel
+    launch over the receiver CSR.  ``.launches`` counts kernel launches."""
     what = "gat_row_stats"
     heads = _check_planes(what, (tj, ti), g.num_nodes)
     device = _device(what, (tj, ti), g)
@@ -165,11 +174,11 @@ def gat_row_stats(tj, ti, g: GraphBatch):
     _check_graph(what, g, device)
     tj, ti = tj.contiguous(), ti.contiguous()
     m, den = torch.empty_like(tj), torch.empty_like(tj)
-    partial = torch.empty((g.recv.num_chunks, 2 * heads), dtype=torch.float32, device=device)
+    partial = torch.empty((g.recv.heavy_chunks.shape[0], 2 * heads), dtype=torch.float32,
+                          device=device)
     err = _lib().gat_row_stats_launch(
         tj.data_ptr(), ti.data_ptr(), heads, g.senders.data_ptr(), g.edge_mask.data_ptr(),
-        g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(),
-        g.recv.num_chunks, g.num_nodes, m.data_ptr(), den.data_ptr(), partial.data_ptr(),
+        *_walk_csr(g.recv), g.num_nodes, m.data_ptr(), den.data_ptr(), partial.data_ptr(),
         _stream(device))
     build.check(err, what)
     gat_row_stats.launches += 1
@@ -227,8 +236,9 @@ def gat_coef_spmm_t(x, tj, ti, m, words, rate: float, g: GraphBatch) -> torch.Te
 
 def gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate: float, g: GraphBatch):
     """K10: (dtj, dti) [heads, V] f32 (see ``gat_sddmm_chain_plain``); x
-    [V, H] f32 or bf16, w [V, H] f32.  One launch runs the receiver pass and
-    the sender sums.  ``.launches`` counts kernel launches."""
+    [V, H] f32 or bf16, w [V, H] f32.  Two kernel launches: the receiver
+    pass (per-edge dpre and dti) and the sender sums (dtj).  ``.launches``
+    counts calls."""
     what = "gat_sddmm_chain"
     v = g.num_nodes
     heads = _check_planes(what, (tj, ti, m, dD), v)
@@ -242,21 +252,19 @@ def gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate: float, g: GraphBatch):
     _check_graph(what, g, device)
     x, w = x.contiguous(), w.contiguous()
     hd = x.shape[1]
-    _check_kernel_width(what, hd, [x])
-    _check_kernel_width(what, hd, [w])
+    _check_walk_width(what, hd, [x], heads)
+    _check_kernel_width(what, hd, [w], 16)
     tj, ti, m, dD = (t.contiguous() for t in (tj, ti, m, dD))
     e = g.senders.shape[0]
-    edge_out = torch.empty((heads, e), dtype=torch.float32, device=device)
+    edge_out = torch.empty((e, heads), dtype=torch.float32, device=device)
     dtj, dti = torch.empty_like(tj), torch.empty_like(tj)
-    partial = torch.empty((max(g.recv.num_chunks, g.send.num_chunks), heads),
-                          dtype=torch.float32, device=device)
+    partial = torch.empty((max(g.recv.heavy_chunks.shape[0], g.send.heavy_chunks.shape[0]),
+                           heads), dtype=torch.float32, device=device)
     err = _lib().gat_sddmm_chain_launch(
         x.data_ptr(), _DTYPES[x.dtype], w.data_ptr(), tj.data_ptr(), ti.data_ptr(),
         m.data_ptr(), dD.data_ptr(), heads, g.senders.data_ptr(), g.edge_mask.data_ptr(),
-        g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(),
-        g.recv.num_chunks, g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(),
-        g.send.chunk_row.data_ptr(), g.send.perm.data_ptr(), g.send.num_chunks, v, e, hd,
-        *drop, edge_out.data_ptr(), dtj.data_ptr(), dti.data_ptr(), partial.data_ptr(),
+        *_walk_csr(g.recv), *_walk_csr(g.send), g.send.perm.data_ptr(), v, e, hd, *drop,
+        edge_out.data_ptr(), dtj.data_ptr(), dti.data_ptr(), partial.data_ptr(),
         _stream(device))
     build.check(err, what)
     gat_sddmm_chain.launches += 1

@@ -1620,13 +1620,30 @@ def _library_gat_spmm(torch, g, q, x, transpose: bool):
     return lambda: torch.sparse.mm(a, xs)
 
 
-def gat_kernel_rows(torch, g, label, peaks, flush):
+def gat_inputs(torch, v, dt, seed=SEED + 4):
+    """Seeded inputs of row 13's kernels on V nodes: (xh [V, HEADS, d] in
+    dt, att [2, HEADS, d], x = xh as [V, H], ti, tj [HEADS, V] from them, w
+    [V, H] and dD [HEADS, V] f32), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xh = torch.randn((v, HEADS, H // HEADS), generator=gen, device="cuda").to(dt)
+    att = 0.3 * torch.randn((2, HEADS, H // HEADS), generator=gen, device="cuda")
+    ti = torch.einsum("vhd,hd->hv", xh.float(), att[0]).contiguous()
+    tj = torch.einsum("vhd,hd->hv", xh.float(), att[1]).contiguous()
+    w = torch.randn((v, H), generator=gen, device="cuda")
+    dD = torch.randn((HEADS, v), generator=gen, device="cuda")
+    return xh, att, xh.reshape(v, H), ti, tj, w, dD
+
+
+def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
     """K8, K9, K9T and K10 against their twins on one sparse batch ``g`` (on
     the card), bf16 and f32 features, at dropout rate 0 and GAT_RATE (the
-    same tolerance: identical keep bits), the f32 Function VJP against
-    autograd of the twins, the dropout law from K9 itself, and their times
-    (at GAT_RATE, the training path; K9 also at rate 0, the serving path).
-    Returns ({dtype: {kernel: row}}, (kept pairs, live pairs))."""
+    same tolerance: identical keep bits), each call's counters on both CSRs
+    back at 0, K8 and K10 equal bit for bit on a second call, the f32
+    Function VJP against autograd of the twins, the dropout law from K9
+    itself, and their times (at GAT_RATE, the training path; K9, K9T and
+    K10 also at rate 0, ``kernel_ms_rate0``).  ``split``: each row also
+    carries the warm device ms by launch (``passes``).  Returns ({dtype:
+    {kernel: row}}, (kept pairs, live pairs))."""
     from cal_tpu_torch.ops import gat_sparse as gs
     from cal_tpu_torch.ops.gat import head_ids, keep_mask
 
@@ -1642,14 +1659,7 @@ def gat_kernel_rows(torch, g, label, peaks, flush):
     out = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         elt = torch.tensor([], dtype=dt).element_size()
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-        xh = torch.randn((v, HEADS, d), generator=gen, device="cuda").to(dt)
-        att = 0.3 * torch.randn((2, HEADS, d), generator=gen, device="cuda")
-        x = xh.reshape(v, H)
-        ti = torch.einsum("vhd,hd->hv", xh.float(), att[0]).contiguous()
-        tj = torch.einsum("vhd,hd->hv", xh.float(), att[1]).contiguous()
-        w = torch.randn((v, H), generator=gen, device="cuda")
-        dD = torch.randn((HEADS, v), generator=gen, device="cuda")
+        xh, att, x, ti, tj, w, dD = gat_inputs(torch, v, dt)
         rows = {}
 
         def held(name, got, ref, tol):
@@ -1675,12 +1685,22 @@ def gat_kernel_rows(torch, g, label, peaks, flush):
                   "library_call": lib_call, "bytes": nbytes, "flops": flops,
                   "bound_ms": max(t_bytes, t_ops) * 1e3,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                  "nodes": v, "edges": e, "live_edges": n_live, **extra}
+                  "nodes": v, "edges": e, "live_edges": n_live, "root": HERE, **extra}
+            if split:
+                rr["passes"] = profile_passes(torch, fn)
             emit({"phase": "gat_kernel", **rr})
             rows[name] = rr
 
+        def settled(name):
+            torch.cuda.synchronize()
+            check(not g.recv.arrivals.any() and not g.send.arrivals.any(),
+                  f"{name} {dt_name} on {label} left arrival counters set")
+
         m, den = gs.gat_row_stats(tj, ti, g)
+        settled("gat_row_stats")
         err8 = held("gat_row_stats", (m, den), gs.gat_row_stats_plain(tj, ti, g), GAT_STATS_TOL)
+        check(all(torch.equal(a, b) for a, b in zip((m, den), gs.gat_row_stats(tj, ti, g))),
+              f"gat_row_stats {dt_name} on {label} differs between two calls")
         errs = {"gat_coef_spmm": [], "gat_coef_spmm_t": [], "gat_sddmm_chain": []}
         for rate in (0.0, GAT_RATE):
             errs["gat_coef_spmm"].append(held(
@@ -1690,9 +1710,14 @@ def gat_kernel_rows(torch, g, label, peaks, flush):
                 "gat_coef_spmm_t", gs.gat_coef_spmm_t(w, tj, ti, m, words, rate, g),
                 gs.gat_coef_spmm_plain(w, tj, ti, m, words, rate, g, transpose=True),
                 GAT_SPMM_TOL))
+            chain = gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate, g)
+            settled("gat_sddmm_chain")
             errs["gat_sddmm_chain"].append(held(
-                "gat_sddmm_chain", gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate, g),
+                "gat_sddmm_chain", chain,
                 gs.gat_sddmm_chain_plain(x, w, tj, ti, m, dD, words, rate, g), CHAIN_TOL))
+            check(all(torch.equal(a, b) for a, b in zip(
+                chain, gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate, g))),
+                f"gat_sddmm_chain {dt_name} on {label} differs between two calls")
 
         # the library yardsticks: the max and the exp sums as two calls, the
         # per-head SpMMs as one sparse.mm each way
@@ -1729,13 +1754,17 @@ def gat_kernel_rows(torch, g, label, peaks, flush):
             2 * H * n_live + 8 * HEADS * n_live, max(errs["gat_coef_spmm_t"]), GAT_SPMM_TOL,
             _library_gat_spmm(torch, g, qk, w, True),
             "torch.sparse.mm(block-diagonal transposed CSR of the per-head weights, "
-            "per-head w blocks), weights materialized outside the call")
+            "per-head w blocks), weights materialized outside the call",
+            kernel_ms_rate0=time_ms(
+                torch, lambda: gs.gat_coef_spmm_t(w, tj, ti, m, words, 0.0, g), flush))
         row("gat_sddmm_chain", lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, GAT_RATE, g),
             lambda: gs.gat_sddmm_chain_plain(x, w, tj, ti, m, dD, words, GAT_RATE, g),
             v * H * (elt + 4) + 4 * plane + 5 * e + csr(g.recv) + 4 * e + csr(g.send)
             + 2 * plane, 2 * H * n_live + 10 * HEADS * n_live, max(errs["gat_sddmm_chain"]),
             CHAIN_TOL, None, "none: no single PyTorch call computes the per-head SDDMM chain "
-            "(dot products, keep bits, dq, dpre) and its sums by sender and by receiver")
+            "(dot products, keep bits, dq, dpre) and its sums by sender and by receiver",
+            kernel_ms_rate0=time_ms(
+                torch, lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, 0.0, g), flush))
 
         if dt == torch.float32:
             # the Function's backward kernels against autograd of the twins
@@ -3133,14 +3162,17 @@ def dense_digests(torch, batch) -> dict:
 def sparse_digests(torch, batches: dict) -> dict:
     """sha256 of every instantiation of the coefficient SpMM walk (K2, K2T,
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
-    HEADS heads) and of K21 (4 planes, dead edges left random) on seeded
-    inputs over each sparse batch, bf16 and f32 (K21's values f32).  The
+    HEADS heads), of K21 (4 planes, dead edges left random) and of K8's and
+    K10's outputs (each apart, K10 at GAT_RATE) on seeded inputs over each
+    sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
     another tree's root with ``--digests``, as ``dense_digests``."""
     from cal_tpu_torch.ops import coo_spmm as coo
+    from cal_tpu_torch.ops import gat_sparse as gs
     from cal_tpu_torch.ops import spmm
 
+    words = (DROP_SEED & 0xFFFFFFFF, DROP_SEED >> 32)
     out = {}
     for label, g in batches.items():
         v, e = g.num_nodes, g.senders.shape[0]
@@ -3175,6 +3207,14 @@ def sparse_digests(torch, batches: dict) -> dict:
             }
             for name, fn in calls.items():
                 out[f"{name}_{label}_{dt_name}"] = _digest(fn())
+            # row 13's K8 (m, den) and K10 (dtj, dti, handed the twin's m), apart:
+            # m is a max, equal bit for bit across designs; the sums need not be
+            _, _, x, ti, tj, w, dD = gat_inputs(torch, v, dt, SEED + 31)
+            m_ref = gs.gat_row_stats_plain(tj, ti, g)[0]
+            for name, t in zip(("K8_m", "K8_den", "K10_dtj", "K10_dti"),
+                               (*gs.gat_row_stats(tj, ti, g),
+                                *gs.gat_sddmm_chain(x, w, tj, ti, m_ref, dD, words, GAT_RATE, g))):
+                out[f"{name}_{label}_{dt_name}"] = _digest([t])
     return out
 
 
@@ -3530,6 +3570,7 @@ def main() -> int:
           "ptxas_walk": ptxas_walk(report),
           "ptxas_edge": ptxas_edge(report),
           "ptxas_flash": ptxas_flash(report),
+          "ptxas_gat": ptxas_instances(report, ["gat_sparse"]),
           "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
@@ -4111,6 +4152,42 @@ def flash_main() -> int:
     return 0
 
 
+def gat_main() -> int:
+    """``--gat``: row 13 (K8, K9, K9T, K10) alone, for an A/B of two trees
+    (run this file from the other tree's root): the ptxas report of
+    gat_sparse.cu's kernels, the four held against their twins and timed in
+    bf16 and f32 at dropout 0 and GAT_RATE on the serving and REDDIT batches
+    (cold L2, with the warm split by launch), and the sparse digests (K8's m
+    and den, K10's dtj and dti among them)."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks, _ = peaks_for(name)
+    report = build.build_all(["gat_sparse", "spmm", "coo_spmm", "pool"])
+    emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
+          "build_seconds": {k: v["seconds"] for k, v in report.items()},
+          "ptxas_gat": ptxas_instances(report, ["gat_sparse"])})
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    batches = sparse_batches(torch)
+    for label in ("synthetic", "reddit"):
+        g = batches[label]
+        emit(csr_profile(g, label))
+        gat_kernel_rows(torch, g, label, peaks, flush, split=True)
+    emit({"phase": "sparse_digests", "root": HERE, **sparse_digests(
+        torch, {k: batches[k] for k in ("synthetic", "reddit")})})
+    emit({"phase": "gat_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
+    return 0
+
+
 def digests_main() -> int:
     """``--digests``: only the dense_digests, sparse_digests and
     edge_digests lines (the last on the first SYNREDDIT batch), for
@@ -4133,5 +4210,5 @@ def digests_main() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main,
-             "--edge": edge_main, "--flash": flash_main}
+             "--edge": edge_main, "--flash": flash_main, "--gat": gat_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

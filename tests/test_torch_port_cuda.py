@@ -429,14 +429,15 @@ SPARSE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 8e-3)}
 POOL_TOL = (1e-3, 1e-4)
 
 
-def _sparse_graph(device, v, e, hub, pad, seed, isolated=0):
+def _sparse_graph(device, v, e, hub, pad, seed, isolated=0, masked_rows=()):
     """A receiver-sorted GraphBatch with self loops, a hub (``hub`` in- and
     out-edges at node 3), ``pad`` padded edges at node V-1 and the last
     ``isolated`` nodes without edges; node_graph cuts V into 5 graphs and
     the trash segment.  A tuple ``hub`` gives nodes 3, 4, ... rows of
     exactly those lengths in both CSRs (the e random edges avoid them): the
     walk's degree classes beside the random rows (e / V of ~2 makes most of
-    those leaves of 1-4 edges, some empty)."""
+    those leaves of 1-4 edges, some empty).  The in-edges of the receivers
+    ``masked_rows`` are masked out as well as the padded ones."""
     from cal_tpu_torch.graph import sparse_batch
 
     rng = np.random.default_rng(seed)
@@ -456,7 +457,7 @@ def _sparse_graph(device, v, e, hub, pad, seed, isolated=0):
     o = np.argsort(r, kind="stable")
     s = np.concatenate([s[o], np.full(pad, v - 1)])
     r = np.concatenate([r[o], np.full(pad, v - 1)])
-    mask = np.arange(s.size) < s.size - pad
+    mask = (np.arange(s.size) < s.size - pad) & ~np.isin(r, masked_rows)
     ng = np.minimum(np.arange(v) * 5 // max(v - 40, 1), 5).astype(np.int32)
     return sparse_batch(np.zeros((v, 1), np.float32), s, r, mask, ng < 5, ng,
                         np.zeros(5, np.int32), np.ones(5, bool)).to(device)
@@ -828,6 +829,74 @@ def test_gat_sparse_kernels_match_plain(cuda, v, e, hub, pad, heads, h, dtype, r
         torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+# K8 and K10 on the walk's special shapes: a receiver and sender hub of 2,100
+# edges (node 5: past 2,048, so a row of 33 two-group chunks in both CSRs),
+# rows of 32 and 33 edges, a padded run of heavy masked chunks at node V-1,
+# and receivers whose in-edges are all masked: node 4 (33 edges, two heavy
+# chunks of masked edges alone), node 9 and a random leaf (light rows).
+GAT_WALK_MASKED = (4, 9, 1234)
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_gat_stats_and_chain_walk_shapes(cuda, heads, dtype, rate):
+    """K8 and K10 against their twins on the walk's special shapes, at each
+    head count, dtype and rate: rows without a live in-edge get m = the self
+    score and den = 0 exactly, a second call gives the same bits, and every
+    call leaves both CSRs' arrival counters at 0."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    v, h = 3000, 32 * heads
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=heads + 17, isolated=7,
+                      masked_rows=GAT_WALK_MASKED)
+    hub = [int(c.chunk_ptr[6] - c.chunk_ptr[5]) for c in (g.recv, g.send)]
+    assert hub == [33, 33] and int(g.recv.heavy_masked.sum()) >= 2
+    xh, _, ti, tj, w, dD = _gat_inputs(cuda, v, heads, h, dtype, 100 * heads + 7)
+    x = xh.reshape(v, h)
+    idle = lambda: not g.recv.arrivals.any() and not g.send.arrivals.any()
+    before = [gs.gat_row_stats.launches, gs.gat_sddmm_chain.launches]
+    m, den = gs.gat_row_stats(tj, ti, g)
+    torch.cuda.synchronize()
+    assert idle()
+    rm, rden = gs.gat_row_stats_plain(tj, ti, g)
+    torch.testing.assert_close(m, rm, atol=GAT_STATS_TOL[0], rtol=GAT_STATS_TOL[1])
+    torch.testing.assert_close(den, rden, atol=GAT_STATS_TOL[0], rtol=GAT_STATS_TOL[1])
+    dead = list(GAT_WALK_MASKED) + [v - 1]
+    self_score = torch.nn.functional.leaky_relu(ti + tj, 0.2)
+    assert torch.equal(m[:, dead], self_score[:, dead]) and (den[:, dead] == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip((m, den), gs.gat_row_stats(tj, ti, g)))
+    got = gs.gat_sddmm_chain(x, w, tj, ti, rm, dD, GAT_WORDS, rate, g)
+    torch.cuda.synchronize()
+    assert idle()
+    ref = gs.gat_sddmm_chain_plain(x, w, tj, ti, rm, dD, GAT_WORDS, rate, g)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    assert (got[1][:, dead] == 0).all()
+    again = gs.gat_sddmm_chain(x, w, tj, ti, rm, dD, GAT_WORDS, rate, g)
+    torch.cuda.synchronize()
+    assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [gs.gat_row_stats.launches, gs.gat_sddmm_chain.launches] == [b + 2 for b in before]
+
+
+def test_gat_stats_and_chain_kernel_launches(cuda):
+    """K8 is one kernel launch a call and K10 two (its receiver pass and its
+    sender sums), none of them a pass over all V rows."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=21, isolated=7)
+    xh, _, ti, tj, w, dD = _gat_inputs(cuda, v, 4, 128, "bfloat16", 21)
+    names = _device_kernels(lambda: gs.gat_row_stats(tj, ti, g))
+    assert len(names) == 1 and "gat_row_stats_kernel" in names[0], names
+    m = gs.gat_row_stats_plain(tj, ti, g)[0]
+    names = _device_kernels(
+        lambda: gs.gat_sddmm_chain(xh.reshape(v, 128), w, tj, ti, m, dD, GAT_WORDS, 0.2, g))
+    assert len(names) == 2, names
+    assert "gat_chain_kernel" in names[0] and "csr_reduce_kernel" in names[1], names
 
 
 def test_gat_sparse_keep_bits_match_twin(cuda):

@@ -56,7 +56,7 @@ from test_torch_port_model import _models
 from test_torch_port_train import _flat
 
 from cal_tpu_torch.data.loader import Loader
-from cal_tpu_torch.graph import to_dense
+from cal_tpu_torch.graph import sparse_batch, to_dense
 from cal_tpu_torch.main_syn import main
 from cal_tpu_torch.models.causal import CausalGNN
 from cal_tpu_torch.ops.gat import NEG_SLOPE, gat_aggregate_sparse, head_ids, keep_mask, seed_words
@@ -116,6 +116,38 @@ def _gat_inputs(rng, heads=HEADS, d=8):
     return g, xh, ad, asr
 
 
+def _walk_inputs(rng, shape, heads=HEADS, d=8):
+    """GAT inputs on a graph of one of the shapes the sparse GAT walk treats
+    apart, at tests/test_pallas_spmm.py's sizes (V 256, E 700, a 15% masked
+    tail at node V-1): "sender_hub", node 11 sending ~100 edges (several
+    chunks of the sender CSR) beside the receiver hub; "masked_rows", receivers 20
+    and 21 (and the padded V-1) whose in-edges are all masked out, beside
+    receivers without an in-edge."""
+    v, e, hub = 256, 700, 90
+    senders = rng.integers(0, v, e)
+    receivers = rng.integers(0, v - 1, e)
+    receivers[:hub] = 7                                  # receiver hub: several chunks
+    if shape == "sender_hub":
+        senders[hub:hub + 100] = 11                      # sender hub: several chunks
+    idx = rng.choice(e, e // 20, replace=False)
+    senders[idx] = receivers[idx]                        # self loops, dropped
+    n_real = int(e * 0.85)
+    order = np.argsort(receivers[:n_real], kind="stable")
+    senders = np.concatenate([senders[:n_real][order], np.full(e - n_real, v - 1)])
+    receivers = np.concatenate([receivers[:n_real][order], np.full(e - n_real, v - 1)])
+    edge_mask = np.arange(e) < n_real
+    if shape == "masked_rows":
+        edge_mask &= ~np.isin(receivers, (20, 21))
+        assert np.isin(receivers, (20, 21)).any()
+    g = sparse_batch(np.zeros((v, 1), np.float32), senders, receivers, edge_mask,
+                     np.ones(v, bool), np.zeros(v, np.int32), np.zeros(1, np.int32),
+                     np.ones(1, bool))
+    xh = rng.standard_normal((v, heads, d)).astype(np.float32)
+    ad = (0.6 * rng.standard_normal((heads, d))).astype(np.float32)
+    asr = (0.6 * rng.standard_normal((heads, d))).astype(np.float32)
+    return g, xh, ad, asr
+
+
 def _planes(xh, ad, asr, dtype):
     """tj, ti [heads, V] f32 from xh in the model dtype, as the aggregate
     forms them."""
@@ -140,16 +172,29 @@ def test_keep_mask_matches_jax_bit_for_bit(salt):
     assert seed_words((5 << 32) | 9) == (9, 5)
 
 
-@pytest.mark.parametrize("dtype,rate", [("float32", 0.0), ("float32", RATE),
-                                        ("bfloat16", 0.0), ("bfloat16", RATE)])
-def test_kernel_twins_match_pallas(dtype, rate):
+@pytest.mark.parametrize("dtype,rate,shape", [
+    pytest.param("float32", 0.0, "hub", id="float32-0.0"),
+    pytest.param("float32", RATE, "hub", id="float32-0.2"),
+    pytest.param("bfloat16", 0.0, "hub", id="bfloat16-0.0"),
+    pytest.param("bfloat16", RATE, "hub", id="bfloat16-0.2"),
+    pytest.param("float32", RATE, "sender_hub", id="float32-0.2-sender_hub"),
+    pytest.param("bfloat16", 0.0, "sender_hub", id="bfloat16-0.0-sender_hub"),
+    pytest.param("float32", 0.0, "masked_rows", id="float32-0.0-masked_rows"),
+    pytest.param("bfloat16", RATE, "masked_rows", id="bfloat16-0.2-masked_rows"),
+])
+def test_kernel_twins_match_pallas(dtype, rate, shape):
     """K8 against _gat_max_call (with the self score) and _gat_den_call, K9
     and K9T against _gat_coef_spmm_call on the forward and the transposed
-    plan, K10 against _gat_sddmm_chain_call; the same injected seed words."""
+    plan, K10 against _gat_sddmm_chain_call; the same injected seed words.
+    On the receiver hub and padded run of ``_gat_inputs`` ("hub") and on
+    ``_walk_inputs``' shapes: a sender hub over several chunks, receivers
+    whose in-edges are all masked (m the self score, den and dti 0)."""
     rng = np.random.default_rng(1)
-    g, xh, ad, asr = _gat_inputs(rng)
+    g, xh, ad, asr = _gat_inputs(rng) if shape == "hub" else _walk_inputs(rng, shape)
     v = g.num_nodes
     assert g.recv.num_chunks > v + 1                    # the hub and the padded run
+    if shape == "sender_hub":
+        assert g.send.chunk_ptr[12] - g.send.chunk_ptr[11] > 1
     tf, tb = _plans(g, "bf16" if dtype == "bfloat16" else "f32")
     gt = g.to("cpu")
     tj, ti = _planes(xh, ad, asr, dtype)
@@ -182,6 +227,10 @@ def test_kernel_twins_match_pallas(dtype, rate):
                                      rext, seed, tf, NB, HEADS, NEG_SLOPE, rate)
     _close(dtj.numpy(), rtj, dtype, "dtj")
     _close(dti.numpy(), rti, dtype, "dti")
+    if shape == "masked_rows":
+        dead = [20, 21, v - 1]
+        np.testing.assert_array_equal(m.numpy()[:, dead], np.asarray(jm)[:, dead])
+        assert not den[:, dead].any() and not dti[:, dead].any()
 
 
 @pytest.mark.parametrize("rate", [0.0, RATE])
