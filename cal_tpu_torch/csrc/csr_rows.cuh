@@ -2,11 +2,11 @@
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
 // a lane's features, the per-warp row sums with their combine pass for long
 // rows, the sender-CSR sum of per-edge f32 columns, the coefficient SpMM
-// walk that K2/K3, K11, K14 and K19 instantiate, and the per-row reduction of
-// per-edge value planes that K21 (a max) and K10's sender sums instantiate
-// (both: light rows by row, several a warp; heavy rows by chunk from a
-// host-built list, each finished by its last chunk to arrive).  Included by
-// each source; it is not a build target of its own.
+// walk that K2/K3, K11, K14, K19 and K9/K9T instantiate, and the per-row
+// reduction of per-edge value planes that K21 (a max) and K10's sender sums
+// instantiate (both: light rows by row, several a warp; heavy rows by chunk
+// from a host-built list, each finished by its last chunk to arrive).
+// Included by each source; it is not a build target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -218,15 +218,17 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
   return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
 }
 
-// ---- coefficient SpMM over a CSR (K2/K3/K14 of spmm.cu, K11/K19 of coo_spmm.cu)
+// ---- coefficient SpMM over a CSR (K2/K3/K14 of spmm.cu, K11/K19 of
+// coo_spmm.cu, K9/K9T of gat_sparse.cu)
 //
 // out_b[r] = sum over the live edges e of row r of cf_b[e] * x_b[nbr_e], for
 // kBranches branches b; each feature's sum is f32, by fmaf in edge order from
 // 0.  Real batches hold many rows of a few edges and a few rows of thousands
 // (the REDDIT-shaped batch: 97.5% of its rows hold at most 4 edges, 201 rows
 // more than 32), so the walk's unit is a lane group, not a warp:
-//  - a group is G lanes of F features each (LightShape: 16-byte loads where
-//    a head allows, G = H / F <= 32), so 32 / G groups a warp;
+//  - a group is G lanes of F features each (LightShape: 16-byte loads, or
+//    the policy's kLaneBytes, where a head allows, G = H / F <= 32), so
+//    32 / G groups a warp;
 //  - a light row (one chunk: at most kGroup = 32 edges) is one group's item,
 //    addressed by row: the group reads its ptr pair, then the metadata of up
 //    to 32 edges at once (32 / G a lane), and writes the row through the
@@ -238,7 +240,7 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
 //    the row, so every batch takes one launch and no pass visits all rows
 //    (the counters, EdgeCsr.arrivals, are 0 again when the launch ends);
 //    a chunk of masked-out edges alone (the padded run at node V-1) is not
-//    walked by a policy whose liveness needs the mask (K2, K3, K14);
+//    walked by a policy whose liveness needs the mask (K2, K3, K14, K9);
 //  - a group reads the metadata of kWindowEdges edges at once (a window)
 //    and lists its live edges with a ballot, then loads the neighbour rows
 //    of up to kInFlight / kBranches of them before their FMAs: registers,
@@ -263,7 +265,16 @@ cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
 //       read and not used);
 //   void write_row<F>(int r, int lane, const float (&acc)[kBranches][F])
 //       the row's output from the F sums per branch of a lane of its group
-//       (features lane * F on).
+//       (features lane * F on);
+// and optionally (each off unless the policy says):
+//   kLaneBytes                    bytes of x a lane loads (default 16);
+//   kLateCoef                     one branch whose coefficients each lane forms
+//       for its own head after the ballot, beside the neighbour row's load
+//       (K9: a coefficient costs gathers, an exp and a hash, and an edge's
+//       own lane would form all heads, for every slot): then the policy has
+//       Row row(int r, int head) (the state of the lane's head), bool
+//       edge(int e, const Row&, int& s) (liveness and neighbour only) and
+//       float coef(int e, int s, const Row&).
 // With kHeads > 1 a row's h features are kHeads heads of h / kHeads, each
 // weighted by its own coefficient; a lane's F features lie in one head (a
 // narrower load where a head holds fewer than 16 bytes).
@@ -295,6 +306,30 @@ template <typename P>
 struct HeadsOf<P, decltype(void(P::kHeads))> {
   static constexpr int v = P::kHeads;
 };
+template <typename P, typename = void>
+struct LaneBytesOf {
+  static constexpr int v = 16;
+};
+template <typename P>
+struct LaneBytesOf<P, decltype(void(P::kLaneBytes))> {
+  static constexpr int v = P::kLaneBytes;
+};
+template <typename P, typename = void>
+struct LateCoefOf {
+  static constexpr bool v = false;
+};
+template <typename P>
+struct LateCoefOf<P, decltype(void(P::kLateCoef))> {
+  static constexpr bool v = P::kLateCoef;
+};
+
+// The row state a lane hands the walk: P::row(r), or with kLateCoef
+// P::row(r, head), the row's state for the head of the lane's features.
+template <typename P>
+__device__ __forceinline__ typename P::Row row_state(const P& a, int r, int head) {
+  if constexpr (LateCoefOf<P>::v) return a.row(r, head);
+  else return a.row(r);
+}
 
 constexpr int kInFlight = 2;     // neighbour-row loads (rows x branches) a group issues
                                  // before their FMAs
@@ -318,12 +353,15 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
                                            float (&acc)[P::kBranches][F]) {
   constexpr int NB = P::kBranches;
   constexpr int NH = HeadsOf<P>::v;
+  constexpr bool kLate = LateCoefOf<P>::v;
+  constexpr int NC = kLate ? 1 : NB * NH;   // coefficients an owner lane forms per edge
+  static_assert(!kLate || NB == 1, "a late coefficient is one branch's");
   using T = typename P::Elem;
   const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
   const int head = gl * F / (a.h / NH);   // the head of the lane's features
   for (int w0 = beg; __any_sync(kFull, w0 < end); w0 += W * G) {
-    int s_l[W];
-    float cf_l[W][NB * NH];
+    int s_l[W], e_l[W];
+    float cf_l[W][NC];
     bool live[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) {
@@ -331,7 +369,14 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
       // index, no branch), never live
       const int i = w0 + k * G + gl;
       const int ic = max(min(i, end - 1), 0);
-      const bool got = a.edge(a.perm == nullptr ? ic : a.perm[ic], row, s_l[k], cf_l[k]);
+      const int e = a.perm == nullptr ? ic : a.perm[ic];
+      bool got;
+      if constexpr (kLate) {
+        got = a.edge(e, row, s_l[k]);
+        e_l[k] = e;
+      } else {
+        got = a.edge(e, row, s_l[k], cf_l[k]);
+      }
       live[k] = i < end && got;
     }
 #pragma unroll
@@ -340,7 +385,7 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
       while (__any_sync(kFull, m != 0)) {
         // the next U live edges of the group, in edge order
         bool ok[U];
-        int s[U];
+        int s[U], e[U];
         float cf[U][NB];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -348,13 +393,17 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
           const int j = base + (ok[u] ? __ffs(m) - 1 : 0);
           m &= m - 1;
           s[u] = __shfl_sync(kFull, s_l[k], j);
+          if constexpr (kLate) {
+            e[u] = __shfl_sync(kFull, e_l[k], j);
+          } else {
 #pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            cf[u][b] = 0.0f;
+            for (int b = 0; b < NB; ++b) {
+              cf[u][b] = 0.0f;
 #pragma unroll
-            for (int hd = 0; hd < NH; ++hd) {
-              const float v = __shfl_sync(kFull, cf_l[k][b * NH + hd], j);
-              if (NH == 1 || hd == head) cf[u][b] = v;
+              for (int hd = 0; hd < NH; ++hd) {
+                const float v = __shfl_sync(kFull, cf_l[k][b * NH + hd], j);
+                if (NH == 1 || hd == head) cf[u][b] = v;
+              }
             }
           }
         }
@@ -365,6 +414,10 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
 #pragma unroll
             for (int b = 0; b < NB; ++b)
               load_words<T, F>(a.x[b] + (size_t)s[u] * a.h + gl * F, xs[u][b]);
+        if constexpr (kLate)   // each lane its own head's coefficient, beside the rows' loads
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (ok[u]) cf[u][0] = a.coef(e[u], s[u], row);
 #pragma unroll
         for (int u = 0; u < U; ++u)
           if (ok[u])
@@ -416,7 +469,7 @@ __device__ __forceinline__ void combine_row(const P& a, int r, int i0, int n, in
 template <typename P, int Q>
 __global__ void csr_spmm_kernel(const P a) {
   constexpr int NB = P::kBranches;
-  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v>;
+  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v, LaneBytesOf<P>::v>;
   constexpr int F = S::F, G = S::G;
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
@@ -441,7 +494,8 @@ __global__ void csr_spmm_kernel(const P a) {
   const bool light = !heavy && r < a.num_nodes && end - beg <= kGroup;
   float acc[NB][F] = {};
   walk_edges<P, F, G, kWindowEdges / G, (kInFlight > NB ? kInFlight / NB : 1)>(
-      a, beg, heavy || light ? end : beg, a.row(min(r, a.num_nodes - 1)), gl, lane - gl, acc);
+      a, beg, heavy || light ? end : beg,
+      row_state(a, min(r, a.num_nodes - 1), gl * F / (a.h / HeadsOf<P>::v)), gl, lane - gl, acc);
   if (light) a.template write_row<F>(r, gl, acc);
   if (!__any_sync(kFull, heavy)) return;
   if (heavy) {
@@ -462,7 +516,7 @@ __global__ void csr_spmm_kernel(const P a) {
 
 template <typename P, int Q>
 cudaError_t launch_csr_spmm_q(const P& a, cudaStream_t stream) {
-  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v>;
+  using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v, LaneBytesOf<P>::v>;
   constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / S::G;
   const int items = a.n_heavy_chunks + a.num_nodes;
   csr_spmm_kernel<P, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock, kWarpsPerBlock * 32,

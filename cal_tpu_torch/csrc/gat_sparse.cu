@@ -39,14 +39,14 @@
 // (and from earlier designs of these kernels) in the last bits; K10 scales a
 // kept dot product by 1 / (1 - rate), the twin divides by 1 - rate.
 //
-// Design.  K8 and K10 run on csr_rows.cuh's items (graph.EdgeCsr): a light
-// row (one chunk, at most 32 edges; most rows of a real batch hold 1-4) is
-// one lane group's item, several a warp; the chunks of a heavy row, listed
-// on the host (heavy_chunks), are the first items of the launch, each
-// writing f32 partials, and the row's last chunk to arrive (an int counter
-// in EdgeCsr.arrivals, 0 again when the launch ends) combines them in chunk
-// order and writes the row.  No pass visits all V rows, and no float is
-// summed atomically: a result does not change between runs.
+// Design.  K8, K9, K9T and K10 run on csr_rows.cuh's items (graph.EdgeCsr):
+// a light row (one chunk, at most 32 edges; most rows of a real batch hold
+// 1-4) is one lane group's item, several a warp; the chunks of a heavy row,
+// listed on the host (heavy_chunks), are the first items of the launch,
+// each writing f32 partials, and the row's last chunk to arrive (an int
+// counter in EdgeCsr.arrivals, 0 again when the launch ends) combines them
+// in chunk order and writes the row.  No pass visits all V rows, and no
+// float is summed atomically: a result does not change between runs.
 //  - K8, one launch: a light row is a group of kStatsGroup lanes; each lane
 //    reads its edges' sender, mask and NH sender halves once and keeps the
 //    scores in registers, the group takes the max (from the self score) and
@@ -55,11 +55,22 @@
 //    lanes, and the row's last chunk takes m = max_c m_c and l = sum in chunk
 //    order of l_c exp(m_c - m).  A chunk of masked edges alone (heavy_masked:
 //    the padded run at node V-1) is not walked: its pair is (self score, 0).
-//  - K9 (the design of the first port): one warp a chunk, a ballot lists the
-//    live edges of a group of 32, every lane accumulates its features; long
-//    rows' partials are summed by a second pass (gat_coef_spmm_combine).  The
-//    transposed mode walks the sender CSR through perm, so q and the keep
-//    bit stay keyed on the forward edge id: both walks draw the same bit.
+//  - K9 and K9T, one launch each: csr_rows.cuh's coefficient SpMM walk
+//    (csr_spmm_kernel, as K2, K3, K11, K14 and K19) with the GatSpmm policy,
+//    32 bytes of x a lane (4 rows a warp at H = 128 in bf16, 2 in f32).  The
+//    group reads a window's metadata (senders or receivers, mask, and for
+//    K9T perm), lists its live edges with a ballot, and each lane forms the
+//    weight q of its own head for each live edge after the ballot (one
+//    gather of tj, or of ti and m at the receiver for K9T, one exp, one keep
+//    hash) while it loads the edge's neighbour row, then its FMAs; a heavy
+//    masked chunk is not walked (its partial is 0).  Forming all NH weights on the edge's own
+//    lane before the ballot, as K10 forms dpre, was 17-27% slower: a level
+//    of dependent gathers and NH shuffles more.  The transposed mode walks
+//    the sender CSR through perm, so q and the keep bit stay keyed on the
+//    forward edge id: both walks draw the same bit.  The float operations
+//    of q and the fmaf order per feature are the first port's (a warp a
+//    chunk and a combine pass over all V rows), so the outputs equal it bit
+//    for bit.
 //  - K10, two launches.  The receiver pass is csr_spmm_kernel's lane-group
 //    walk with wider lanes (ChainShape: 32 bytes of x a lane, G = H / F
 //    lanes an item, 4 rows a warp at H = 128 in bf16): the group keeps w[r]
@@ -76,12 +87,13 @@
 //    the sender CSR: an edge's NH values in one load through perm, a light
 //    sender a 4-lane group's, heavy senders by chunk (a chunk of masked edges
 //    alone not read: its values are 0), finished by g.send's arrivals.
-// K8, K10's receiver pass and K9 share g.recv's counters on one stream.
+// K8, K9 and K10's receiver pass share g.recv's counters on one stream, K9T
+// and K10's sender sums g.send's.
 //
 // Bound: bytes.  K8 reads two planes, 5 bytes of metadata per edge and NH
 // sender halves per live edge (mostly from L2) and writes two planes; K9
-// reads x [V, H] (a neighbour row per live edge, mostly from L2) and writes
-// [V, H] f32; K10 reads x and w, the planes and the metadata of both CSRs and
+// reads x [V, H] (a neighbour row per live edge, mostly from L2), three
+// planes and the metadata (K9T: perm too) and writes [V, H] f32; K10 reads x and w, the planes and the metadata of both CSRs and
 // writes NH f32 per edge and two planes; H FMAs and NH exponentials per edge
 // are far below the FMA or SFU floor.  The walks' own limit is latency: a
 // light row is a chain of dependent loads (ptr, metadata, sender halves or
@@ -89,10 +101,13 @@
 //
 // The constants below (K8's 4-lane groups and 4 blocks an SM; K10's 32-byte
 // lanes, 2 neighbour rows in flight and 2 blocks an SM; the [E, NH] edge
-// plane; tj read from its [NH, V] planes) are the measured winners: PERF.md
-// gives the times of the alternatives (an online (max, sum) merge for K8's
-// light rows, an [NH, E] edge plane, a [V, NH] copy of tj, other group,
-// block and in-flight counts).
+// plane; tj read from its [NH, V] planes; K9's weights formed after the
+// ballot and its 32-byte lanes; K9T's ti and m read from their planes) are
+// the measured winners: PERF.md gives the times of the alternatives (an
+// online (max, sum) merge for K8's light rows, an [NH, E] edge plane, a [V,
+// NH] copy of tj, a [V, NH, 2] copy of K9T's ti and m, K9's weights formed
+// before the ballot, 16-byte lanes, other group, block and in-flight
+// counts).
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in
@@ -341,121 +356,67 @@ cudaError_t launch_row_stats(const StatsArgs& a, cudaStream_t stream) {
 
 // ---- K9 / K9T: coefficient SpMM with the weights rebuilt per edge --------
 
-template <typename T>
-struct GatSpmmArgs {
-  const T* x;          // [V, H]: xh (forward) or w (transposed)
-  const float* tj;     // [NH, V]
+// The csr_spmm_kernel policy of K9 (TRANS false: the receiver CSR, the row
+// the receiver r) and K9T (TRANS true: the sender CSR through perm, the row
+// the sender s): one branch, NH heads, an edge live when its mask is on and
+// it is no self loop; q = exp(leaky(tj[s] + ti[r]) - m[r]) per head, divided
+// by keep_p where the keep bit of the forward edge id holds, 0 where not.
+// Each lane of a group forms its own head's q of a live edge after the
+// ballot (kLateCoef), beside the neighbour row's load; 32 bytes of x a lane
+// (kLaneBytes: 4 rows a warp at H 128 in bf16, 2 in f32).
+template <typename T, int NH, bool TRANS>
+struct GatSpmm : CsrRows {
+  using Elem = T;
+  static constexpr int kBranches = 1;
+  static constexpr int kHeads = NH;
+  static constexpr bool kMaskedDead = true;
+  static constexpr bool kLateCoef = true;
+  static constexpr int kLaneBytes = 32;
+  const T* x[1];            // [V, H]: xh (K9) or w (K9T)
+  const float* tj;          // [NH, V]
   const float* ti;
   const float* m;
-  const int* nbr;      // senders (receiver CSR) or receivers (sender CSR)
-  const int* perm;     // null: edge i of the CSR is edge i; else edge perm[i]
+  const int* nbr;           // senders (receiver CSR) or receivers (sender CSR)
   const uint8_t* edge_mask;
-  const int* ptr;
-  const int* chunk_ptr;
-  const int* chunk_row;
-  float* out;          // [V, H] f32
-  float* partial;      // [n_chunks, H]
-  int n_chunks, num_nodes, h;
+  float* out;               // [V, H]
+  float* partial;           // [n_heavy_chunks, H]
+  int h;
   Dropout drop;
+
+  // the row's side of the lane's head: ti[r] and m[r] (K9) or tj[s] (K9T)
+  struct Row {
+    int r, head;
+    float rt, rm;
+  };
+
+  __device__ __forceinline__ Row row(int r, int head) const {
+    const size_t V = num_nodes;
+    return Row{r, head, __ldg((TRANS ? tj : ti) + head * V + r),
+               TRANS ? 0.0f : __ldg(m + head * V + r)};
+  }
+
+  __device__ __forceinline__ bool edge(int e, const Row& row, int& s) const {
+    s = nbr[e];
+    return edge_mask[e] && s != row.r;
+  }
+
+  // the neighbour's side: tj at the sender (K9) or ti and m at the receiver
+  // (K9T); the parent design's float operations, so the same bits
+  __device__ __forceinline__ float coef(int e, int nb, const Row& row) const {
+    const size_t V = num_nodes;
+    const float pre = TRANS ? row.rt + __ldg(ti + row.head * V + nb)
+                            : __ldg(tj + row.head * V + nb) + row.rt;
+    const float mr = TRANS ? __ldg(m + row.head * V + nb) : row.rm;
+    float w = expf(leaky(pre) - mr);
+    if (drop.on) w = keep_bit((uint32_t)e * NH + row.head, drop) ? w / drop.keep_p : 0.0f;
+    return w;
+  }
+
+  template <int F>
+  __device__ __forceinline__ void write_row(int r, int lane, const float (&acc)[1][F]) const {
+    store_vec<float, F>(out + (size_t)r * h + lane * F, acc[0]);
+  }
 };
-
-template <typename T, int NH, int F, bool TRANS>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_coef_spmm_kernel(const GatSpmmArgs<T> a) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const int row = k.row;
-  const size_t V = a.num_nodes;
-  const int my_head = lane * NH / 32;      // the lane's F features lie in one head
-  // the row's side of each edge: ti and m at the receiver (forward), tj at
-  // the sender (transposed)
-  float rt[NH], rm[NH];
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    rt[h] = TRANS ? a.tj[h * V + row] : a.ti[h * V + row];
-    rm[h] = TRANS ? 0.0f : a.m[h * V + row];
-  }
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    const int i = g0 + lane;
-    int nb = 0;
-    bool live = false;
-    float q[NH];
-#pragma unroll
-    for (int h = 0; h < NH; ++h) q[h] = 0.0f;
-    if (i < k.end) {
-      const int e = TRANS ? a.perm[i] : i;
-      nb = a.nbr[e];
-      live = a.edge_mask[e] && nb != row;
-      if (live) {
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const float pre = TRANS ? rt[h] + a.ti[h * V + nb] : a.tj[h * V + nb] + rt[h];
-          const float mr = TRANS ? a.m[h * V + nb] : rm[h];
-          float w = expf(leaky(pre) - mr);
-          if (a.drop.on) w = keep_bit((uint32_t)e * NH + h, a.drop) ? w / a.drop.keep_p : 0.0f;
-          q[h] = w;
-        }
-      }
-    }
-    for (unsigned msk = __ballot_sync(kFull, live); msk != 0; msk &= msk - 1) {
-      const int j = __ffs(msk) - 1;
-      const int s = __shfl_sync(kFull, nb, j);
-      float cf = 0.0f;
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float t = __shfl_sync(kFull, q[h], j);
-        cf = h == my_head ? t : cf;
-      }
-      float xs[F];
-      load_vec<T, F>(a.x + (size_t)s * a.h + lane * F, xs);
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] = fmaf(cf, xs[f], acc[f]);
-    }
-  }
-  float* dst = k.count == 1 ? a.out + (size_t)row * a.h : a.partial + (size_t)c * a.h;
-  store_vec<float, F>(dst + lane * F, acc);
-}
-
-template <typename T, int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_coef_spmm_combine(const GatSpmmArgs<T> a) {
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= a.num_nodes) return;
-  const int c0 = a.chunk_ptr[r], c1 = a.chunk_ptr[r + 1];
-  if (c1 - c0 <= 1) return;
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll 4
-  for (int c = c0; c < c1; ++c) {
-    float p[F];
-    load_vec<float, F>(a.partial + (size_t)c * a.h + lane * F, p);
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += p[f];
-  }
-  store_vec<float, F>(a.out + (size_t)r * a.h + lane * F, acc);
-}
-
-template <typename T, int NH, int F>
-cudaError_t launch_gat_spmm(const GatSpmmArgs<T>& a, cudaStream_t stream) {
-  const int threads = kWarpsPerBlock * 32;
-  const int blocks = (a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (a.perm == nullptr)
-    gat_coef_spmm_kernel<T, NH, F, false><<<blocks, threads, 0, stream>>>(a);
-  else
-    gat_coef_spmm_kernel<T, NH, F, true><<<blocks, threads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gat_coef_spmm_combine<T, F><<<(a.num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock, threads,
-                                0, stream>>>(a);
-  return cudaGetLastError();
-}
 
 // ---- K10: the SDDMM chain of the backward --------------------------------
 
@@ -686,32 +647,33 @@ Dropout make_dropout(unsigned s0, unsigned s1, unsigned thresh, float keep_p, in
   return d;
 }
 
-template <typename T>
+template <typename T, bool TRANS>
 cudaError_t gat_spmm_typed(const void* x, const float* tj, const float* ti, const float* m,
-                           int heads, const int* nbr, const int* perm, const uint8_t* edge_mask,
-                           const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                           int n_chunks, int num_nodes, int h, const Dropout& drop, float* out,
+                           int heads, const int* nbr, const uint8_t* edge_mask,
+                           const CsrRows& csr, int h, const Dropout& drop, float* out,
                            float* partial, cudaStream_t stream) {
-  GatSpmmArgs<T> a;
-  a.x = static_cast<const T*>(x);
-  a.tj = tj;
-  a.ti = ti;
-  a.m = m;
-  a.nbr = nbr;
-  a.perm = perm;
-  a.edge_mask = edge_mask;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
-  a.out = out;
-  a.partial = partial;
-  a.n_chunks = n_chunks;
-  a.num_nodes = num_nodes;
-  a.h = h;
-  a.drop = drop;
-  return with_heads_f(heads, h / 32, [&](auto nh, auto f) {
-    return launch_gat_spmm<T, decltype(nh)::value, decltype(f)::value>(a, stream);
-  });
+  auto go = [&](auto nh) {
+    GatSpmm<T, decltype(nh)::value, TRANS> a;
+    static_cast<CsrRows&>(a) = csr;
+    a.x[0] = static_cast<const T*>(x);
+    a.tj = tj;
+    a.ti = ti;
+    a.m = m;
+    a.nbr = nbr;
+    a.edge_mask = edge_mask;
+    a.out = out;
+    a.partial = partial;
+    a.h = h;
+    a.drop = drop;
+    return launch_csr_spmm(a, stream);
+  };
+  switch (heads) {
+    case 1: return go(std::integral_constant<int, 1>{});
+    case 2: return go(std::integral_constant<int, 2>{});
+    case 4: return go(std::integral_constant<int, 4>{});
+    case 8: return go(std::integral_constant<int, 8>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -758,31 +720,40 @@ int gat_row_stats_launch(const float* tj, const float* ti, int heads, const int*
   }
 }
 
-// K9 / K9T.  dtype: 0 = float32, 1 = bfloat16 (x).  Forward (K9): perm null,
-// nbr = senders, the receiver CSR.  Transposed (K9T): perm = the sender
-// CSR's perm, nbr = receivers, the sender CSR.  tj, ti, m [heads, V] f32 in
-// the forward's roles either way.  Dropout (drop != 0): keep an edge's head
-// h when the hash of e * heads + h under (s0, s1) is below thresh, and divide
-// its weight by keep_p.  Writes out [V, h] f32; partial holds h * n_chunks
-// floats.  h % 32 == 0, h / 32 and heads in {1, 2, 4, 8}; x rows aligned to
-// h / 32 elements.
+// K9 / K9T.  dtype: 0 = float32, 1 = bfloat16 (x).  Forward (K9): perm
+// null, nbr = senders, the receiver CSR.  Transposed (K9T): perm = the sender
+// CSR's perm, nbr = receivers, the sender CSR.  The CSR as
+// gat_row_stats_launch takes it (its heavy chunks, their masks, their count
+// and its arrival counters).  tj, ti, m [heads, V] f32 in the forward's
+// roles either way.  Dropout (drop != 0): keep an edge's head h when the hash of e *
+// heads + h under (s0, s1) is below thresh, and divide its weight by keep_p.
+// Writes out [V, h] f32; partial holds h * n_heavy_chunks floats.  h % 32 ==
+// 0, h / 32 and heads in {1, 2, 4, 8}; x rows aligned to a light lane's load
+// (csr_rows.cuh LightShape).  One launch.
 int gat_coef_spmm_launch(const void* x, int dtype, const float* tj, const float* ti,
                          const float* m, int heads, const int* nbr, const int* perm,
                          const uint8_t* edge_mask, const int* ptr, const int* chunk_ptr,
-                         const int* chunk_row, int n_chunks, int num_nodes, int h, unsigned s0,
-                         unsigned s1, unsigned thresh, float keep_p, int drop, float* out,
-                         float* partial, cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0 || !valid_width(heads, h)) return (int)cudaErrorInvalidValue;
+                         const int* chunk_row, const int* heavy_chunks,
+                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
+                         int num_nodes, int h, unsigned s0, unsigned s1, unsigned thresh,
+                         float keep_p, int drop, float* out, float* partial,
+                         cudaStream_t stream) {
+  if (num_nodes <= 0 || n_heavy_chunks < 0 || !valid_width(heads, h))
+    return (int)cudaErrorInvalidValue;
+  const CsrRows csr{ptr,      chunk_ptr, chunk_row, heavy_chunks,   heavy_masked,
+                    arrivals, perm,      n_heavy_chunks, num_nodes};
   const Dropout d = make_dropout(s0, s1, thresh, keep_p, drop);
-  if (dtype == 1)
-    return (int)gat_spmm_typed<__nv_bfloat16>(x, tj, ti, m, heads, nbr, perm, edge_mask, ptr,
-                                              chunk_ptr, chunk_row, n_chunks, num_nodes, h, d,
-                                              out, partial, stream);
-  if (dtype == 0)
-    return (int)gat_spmm_typed<float>(x, tj, ti, m, heads, nbr, perm, edge_mask, ptr, chunk_ptr,
-                                      chunk_row, n_chunks, num_nodes, h, d, out, partial,
-                                      stream);
-  return (int)cudaErrorInvalidValue;
+  auto go = [&](auto bf16, auto trans) {
+    using T = std::conditional_t<decltype(bf16)::value, __nv_bfloat16, float>;
+    return (int)gat_spmm_typed<T, decltype(trans)::value>(x, tj, ti, m, heads, nbr, edge_mask,
+                                                          csr, h, d, out, partial, stream);
+  };
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (perm == nullptr)
+    return dtype == 1 ? go(std::true_type{}, std::false_type{})
+                      : go(std::false_type{}, std::false_type{});
+  return dtype == 1 ? go(std::true_type{}, std::true_type{})
+                    : go(std::false_type{}, std::true_type{});
 }
 
 // K10.  dtype: 0 = float32, 1 = bfloat16 (x); w [V, h] f32; tj, ti, m, dD

@@ -16,9 +16,11 @@ and the rounding points); the [heads, V] planes tj, ti, m, den, dD are f32:
   launch): the per-receiver max of the live scores and the self score, and
   the sum of the live edges' exp(score - m);
 * ``gat_coef_spmm`` (K9, ``_gat_coef_spmm_call``): sum over live in-edges of
-  q * keep / (1 - rate) * x[s], per head, [V, H] f32;
+  q * keep / (1 - rate) * x[s], per head, [V, H] f32, in one launch over the
+  receiver CSR (its scratch: an [H] f32 partial per heavy chunk);
 * ``gat_coef_spmm_t`` (K9T, the same call on cal_tpu's transposed plan): the
-  same weights summed over the sender CSR, dxh's message term;
+  same weights summed over the sender CSR, dxh's message term, in one
+  launch;
 * ``gat_sddmm_chain`` (K10, ``_gat_sddmm_chain_call``): per live edge and
   head, dpre = q (<w[r], x[s]> keep / (1 - rate) + dD[r]) leaky'(pre),
   summed by receiver (dti) in a walk of the receiver CSR that writes each
@@ -121,8 +123,8 @@ def _lib():
         csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
         lib.gat_row_stats_launch.argtypes = [vp, vp, i, vp, vp] + csr + [i, vp, vp, vp, vp]
         lib.gat_row_stats_launch.restype = ctypes.c_int
-        lib.gat_coef_spmm_launch.argtypes = ([vp, i, vp, vp, vp, i] + [vp] * 6
-                                             + [i, i, i, u, u, u, f, i, vp, vp, vp])
+        lib.gat_coef_spmm_launch.argtypes = ([vp, i, vp, vp, vp, i, vp, vp, vp] + csr
+                                             + [i, i, u, u, u, f, i, vp, vp, vp])
         lib.gat_coef_spmm_launch.restype = ctypes.c_int
         lib.gat_sddmm_chain_launch.argtypes = ([vp, i] + [vp] * 5 + [i, vp, vp] + csr + csr
                                                + [vp, i, i, i, u, u, u, f, i] + [vp] * 5)
@@ -196,18 +198,16 @@ def _coef_spmm(what, x, tj, ti, m, words, rate, g: GraphBatch, transpose: bool):
     _check_graph(what, g, device)
     x = x.contiguous()
     hd = x.shape[1]
-    out = torch.empty((v, hd), dtype=torch.float32, device=device)
-    _check_kernel_width(what, hd, [x])
-    _check_kernel_width(what, hd, [out])
+    _check_walk_width(what, hd, [x], heads)
     tj, ti, m = tj.contiguous(), ti.contiguous(), m.contiguous()
-    csr, nbr, perm = ((g.send, g.receivers, g.send.perm) if transpose
-                      else (g.recv, g.senders, None))
-    partial = torch.empty((csr.num_chunks, hd), dtype=torch.float32, device=device)
+    csr, nbr = (g.send, g.receivers) if transpose else (g.recv, g.senders)
+    out = torch.empty((v, hd), dtype=torch.float32, device=device)
+    partial = torch.empty((csr.heavy_chunks.shape[0], hd), dtype=torch.float32, device=device)
     err = _lib().gat_coef_spmm_launch(
         x.data_ptr(), _DTYPES[x.dtype], tj.data_ptr(), ti.data_ptr(), m.data_ptr(), heads,
-        nbr.data_ptr(), None if perm is None else perm.data_ptr(), g.edge_mask.data_ptr(),
-        csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(), csr.chunk_row.data_ptr(),
-        csr.num_chunks, v, hd, *drop, out.data_ptr(), partial.data_ptr(), _stream(device))
+        nbr.data_ptr(), None if csr.perm is None else csr.perm.data_ptr(),
+        g.edge_mask.data_ptr(), *_walk_csr(csr), v, hd, *drop, out.data_ptr(),
+        partial.data_ptr(), _stream(device))
     build.check(err, what)
     return out
 
@@ -215,8 +215,8 @@ def _coef_spmm(what, x, tj, ti, m, words, rate, g: GraphBatch, transpose: bool):
 def gat_coef_spmm(x, tj, ti, m, words, rate: float, g: GraphBatch) -> torch.Tensor:
     """K9: [V, H] f32, the per-head sum over live in-edges of q * keep /
     (1 - rate) * x[s]; x [V, H] f32 or bf16, planes [heads, V] f32,
-    ``words`` the two uint32 seed words (ignored at rate 0).  ``.launches``
-    counts kernel launches."""
+    ``words`` the two uint32 seed words (ignored at rate 0).  One kernel
+    launch; ``.launches`` counts them."""
     out = _coef_spmm("gat_coef_spmm", x, tj, ti, m, words, rate, g, False)
     if x.device.type == "cuda":
         gat_coef_spmm.launches += 1
@@ -226,8 +226,8 @@ def gat_coef_spmm(x, tj, ti, m, words, rate: float, g: GraphBatch) -> torch.Tens
 def gat_coef_spmm_t(x, tj, ti, m, words, rate: float, g: GraphBatch) -> torch.Tensor:
     """K9T: K9's weights summed over the sender CSR, out[s] = sum over live
     out-edges of q * keep / (1 - rate) * x[r] (dxh's message term for x =
-    gout / denom).  Planes in the forward's roles.  ``.launches`` counts
-    kernel launches."""
+    gout / denom).  Planes in the forward's roles.  One kernel launch;
+    ``.launches`` counts them."""
     out = _coef_spmm("gat_coef_spmm_t", x, tj, ti, m, words, rate, g, True)
     if x.device.type == "cuda":
         gat_coef_spmm_t.launches += 1

@@ -1638,7 +1638,7 @@ def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
     """K8, K9, K9T and K10 against their twins on one sparse batch ``g`` (on
     the card), bf16 and f32 features, at dropout rate 0 and GAT_RATE (the
     same tolerance: identical keep bits), each call's counters on both CSRs
-    back at 0, K8 and K10 equal bit for bit on a second call, the f32
+    back at 0, K8, K9, K9T and K10 equal bit for bit on a second call, the f32
     Function VJP against autograd of the twins, the dropout law from K9
     itself, and their times (at GAT_RATE, the training path; K9, K9T and
     K10 also at rate 0, ``kernel_ms_rate0``).  ``split``: each row also
@@ -1703,13 +1703,15 @@ def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
               f"gat_row_stats {dt_name} on {label} differs between two calls")
         errs = {"gat_coef_spmm": [], "gat_coef_spmm_t": [], "gat_sddmm_chain": []}
         for rate in (0.0, GAT_RATE):
-            errs["gat_coef_spmm"].append(held(
-                "gat_coef_spmm", gs.gat_coef_spmm(x, tj, ti, m, words, rate, g),
-                gs.gat_coef_spmm_plain(x, tj, ti, m, words, rate, g), GAT_SPMM_TOL))
-            errs["gat_coef_spmm_t"].append(held(
-                "gat_coef_spmm_t", gs.gat_coef_spmm_t(w, tj, ti, m, words, rate, g),
-                gs.gat_coef_spmm_plain(w, tj, ti, m, words, rate, g, transpose=True),
-                GAT_SPMM_TOL))
+            for name, xin, t in (("gat_coef_spmm", x, False), ("gat_coef_spmm_t", w, True)):
+                fn = getattr(gs, name)
+                got = fn(xin, tj, ti, m, words, rate, g)
+                settled(name)
+                errs[name].append(held(
+                    name, got, gs.gat_coef_spmm_plain(xin, tj, ti, m, words, rate, g, t),
+                    GAT_SPMM_TOL))
+                check(torch.equal(got, fn(xin, tj, ti, m, words, rate, g)),
+                      f"{name} {dt_name} on {label} differs between two calls")
             chain = gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate, g)
             settled("gat_sddmm_chain")
             errs["gat_sddmm_chain"].append(held(
@@ -3162,8 +3164,9 @@ def dense_digests(torch, batch) -> dict:
 def sparse_digests(torch, batches: dict) -> dict:
     """sha256 of every instantiation of the coefficient SpMM walk (K2, K2T,
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
-    HEADS heads), of K21 (4 planes, dead edges left random) and of K8's and
-    K10's outputs (each apart, K10 at GAT_RATE) on seeded inputs over each
+    HEADS heads), of K21 (4 planes, dead edges left random) and of K8's,
+    K9's, K9T's and K10's outputs (each apart, K9 / K9T at rate 0 and
+    GAT_RATE, K10 at GAT_RATE) on seeded inputs over each
     sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
@@ -3207,7 +3210,8 @@ def sparse_digests(torch, batches: dict) -> dict:
             }
             for name, fn in calls.items():
                 out[f"{name}_{label}_{dt_name}"] = _digest(fn())
-            # row 13's K8 (m, den) and K10 (dtj, dti, handed the twin's m), apart:
+            # row 13's K8 (m, den), K9 and K9T (at rate 0 and GAT_RATE, K9T on w
+            # in the dtype) and K10 (dtj, dti), each handed the twin's m, apart:
             # m is a max, equal bit for bit across designs; the sums need not be
             _, _, x, ti, tj, w, dD = gat_inputs(torch, v, dt, SEED + 31)
             m_ref = gs.gat_row_stats_plain(tj, ti, g)[0]
@@ -3215,6 +3219,11 @@ def sparse_digests(torch, batches: dict) -> dict:
                                (*gs.gat_row_stats(tj, ti, g),
                                 *gs.gat_sddmm_chain(x, w, tj, ti, m_ref, dD, words, GAT_RATE, g))):
                 out[f"{name}_{label}_{dt_name}"] = _digest([t])
+            for rate in (0.0, GAT_RATE):
+                out[f"K9_{label}_{dt_name}_r{rate}"] = _digest(
+                    [gs.gat_coef_spmm(x, tj, ti, m_ref, words, rate, g)])
+                out[f"K9T_{label}_{dt_name}_r{rate}"] = _digest(
+                    [gs.gat_coef_spmm_t(w.to(dt), tj, ti, m_ref, words, rate, g)])
     return out
 
 
@@ -3250,20 +3259,21 @@ def csr_profile(g, label) -> dict:
     return out
 
 
-def ptxas_walk(report: dict) -> dict:
+def ptxas_walk(report: dict, libs=("spmm", "coo_spmm")) -> dict:
     """{instance: registers, spill bytes} of the coefficient SpMM walk's
-    kernels (csr_spmm_kernel, csr_spmm_combine) in spmm.cu and coo_spmm.cu,
-    from nvcc's ``-Xptxas -v`` logs; an instance is named by its policy,
-    element type and integer template arguments (branches or heads, NEG,
-    H / 32)."""
+    kernels (csr_spmm_kernel, csr_spmm_combine) in ``libs`` (spmm.cu and
+    coo_spmm.cu; gat_sparse.cu for K9 / K9T), from nvcc's ``-Xptxas -v``
+    logs; an instance is named by its policy, element type and integer and
+    bool template arguments (branches or heads, NEG or TRANS, H / 32)."""
     out = {}
-    for lib in ("spmm", "coo_spmm"):
+    for lib in libs:
         name = None
         for ln in report.get(lib, {}).get("log", "").splitlines():
             m = re.search(r"Function properties for (\w+)", ln)
             if m:
-                k = re.search(r"(csr_spmm_kernel|csr_spmm_combine)I\w*?(GcnSpmm|SigSpmm|CooSpmm)"
-                              r"I(13__nv_bfloat16|f)(\w*)", m.group(1))
+                k = re.search(r"(csr_spmm_kernel|csr_spmm_combine)I\w*?"
+                              r"(GcnSpmm|SigSpmm|CooSpmm|GatSpmm)I(13__nv_bfloat16|f)(\w*)",
+                              m.group(1))
                 name = None if k is None else "{}<{}, {}, {}>".format(
                     k.group(1), k.group(2), "bf16" if k.group(3) != "f" else "f32",
                     ", ".join(re.findall(r"L[ib](\d+)E", k.group(4))))
@@ -3318,6 +3328,15 @@ def ptxas_instances(report: dict, libs) -> dict:
             if name and m:
                 out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_gat(report: dict) -> dict:
+    """Registers and spills of row 13's kernels (gat_sparse.cu): every
+    ``*_kernel`` there, K9 / K9T's walk instances named by their policy
+    (``csr_spmm_kernel<GatSpmm, dtype, heads, TRANS, H / 32>``)."""
+    own = {k: v for k, v in ptxas_instances(report, ["gat_sparse"]).items()
+           if not k.startswith("csr_spmm_kernel")}
+    return {**own, **ptxas_walk(report, ("gat_sparse",))}
 
 
 def ptxas_edge(report: dict) -> dict:
@@ -3570,7 +3589,7 @@ def main() -> int:
           "ptxas_walk": ptxas_walk(report),
           "ptxas_edge": ptxas_edge(report),
           "ptxas_flash": ptxas_flash(report),
-          "ptxas_gat": ptxas_instances(report, ["gat_sparse"]),
+          "ptxas_gat": ptxas_gat(report),
           "plain_cluster_plan": plain_cluster_plan()})
 
     t0 = time.perf_counter()
@@ -4175,7 +4194,7 @@ def gat_main() -> int:
     report = build.build_all(["gat_sparse", "spmm", "coo_spmm", "pool"])
     emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
           "build_seconds": {k: v["seconds"] for k, v in report.items()},
-          "ptxas_gat": ptxas_instances(report, ["gat_sparse"])})
+          "ptxas_gat": ptxas_gat(report)})
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     batches = sparse_batches(torch)
     for label in ("synthetic", "reddit"):

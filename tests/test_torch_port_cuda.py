@@ -602,15 +602,29 @@ def test_sparse_backward_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
     (ref,) = spmm.coef_spmm_plain([gc], None, None, pdeg, torch.rsqrt(pdeg), g, transpose=True)
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
+    # K5 and K6: their sums by sender and by receiver against the twins'
+    # per-edge terms summed in f64 (_sum_f64; the hub's f32 index_add_ sum of
+    # 3,000 terms moves between runs on the card by about the tolerance)
+    s, r = g.senders.long(), g.receivers.long()
+    live = g.edge_mask & (s != r)
     got = spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
     ref = spmm.pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r])
+    w = torch.stack([sig, 1.0 - sig]).double() * live
+    dc = torch.stack([(gk.float()[r] * x.float()[s]).sum(-1)
+                      for x, gk in ((xc, gc), (xo, go))]).double() * live
+    ddis = dis.double()
+    ref = (ref[0], _sum_f64(s, (dc * w * ddis[:, r]).T, v).T,
+           _sum_f64(r, (dc * w * ddis[:, s]).T, v).T)
     for a, b in zip(got, ref):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
     vec = ref[0]
     ddeg = torch.randn((2, v), generator=torch.Generator(device=cuda).manual_seed(v),
                        device=cuda)
-    for a, b in zip(spmm.pair_dpre(vec, ddeg, g), spmm.pair_dpre_plain(vec, ddeg, g)):
+    dpre = ((vec[0] + ddeg[0][s] - vec[1] - ddeg[1][s]) * vec[2])[:, None]
+    for a, b in zip(spmm.pair_dpre(vec, ddeg, g),
+                    (_sum_f64(s, dpre, v)[:, 0], _sum_f64(r, dpre, v)[:, 0])):
         torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
 
     dpooled = torch.randn((6, h), generator=torch.Generator(device=cuda).manual_seed(h),
@@ -831,22 +845,49 @@ def test_gat_sparse_kernels_match_plain(cuda, v, e, hub, pad, heads, h, dtype, r
     assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1]
 
 
-# K8 and K10 on the walk's special shapes: a receiver and sender hub of 2,100
-# edges (node 5: past 2,048, so a row of 33 two-group chunks in both CSRs),
-# rows of 32 and 33 edges, a padded run of heavy masked chunks at node V-1,
-# and receivers whose in-edges are all masked: node 4 (33 edges, two heavy
-# chunks of masked edges alone), node 9 and a random leaf (light rows).
+# K8, K9, K9T and K10 on the walk's special shapes: a receiver and sender hub
+# of 2,100 edges (node 5: past 2,048, so a row of 33 two-group chunks in both
+# CSRs), rows of 32 and 33 edges, a padded run of heavy masked chunks at node
+# V-1, and receivers whose in-edges are all masked: node 4 (33 edges, two
+# heavy chunks of masked edges alone), node 9 and a random leaf (light rows).
 GAT_WALK_MASKED = (4, 9, 1234)
+
+
+def _sum_f64(rows, msg, v):
+    """The sums of the messages msg [E, H] (f64 products of f32 or bf16
+    values) by rows, in f64 on the card, cast to f32: a reference whose order
+    moves no f32 bit.  (A twin's f32
+    index_add_ sums in an order that varies from run to run on the card, by
+    up to ~2e-4 over a hub of 2,100 edges.)"""
+    out = torch.zeros((v, msg.shape[1]), dtype=torch.float64, device=msg.device)
+    return out.index_add_(0, rows, msg.double()).float()
+
+
+def _gat_spmm_f64(x, tj, ti, m, rate, g, transpose=False):
+    """K9 (K9T with ``transpose``) as ``gat_coef_spmm_plain`` forms it, its
+    sums in f64 (``_sum_f64``)."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+
+    s, r = g.senders.long(), g.receivers.long()
+    heads, e = tj.shape[0], s.shape[0]
+    _, q = gs._edge_q(tj, ti, m, s, r, g.edge_mask & (s != r))
+    if rate > 0.0:
+        q = q * gs._edge_keep(GAT_WORDS, rate, heads, e, q.device) / (1.0 - rate)
+    row, nbr = (s, r) if transpose else (r, s)
+    msg = x.double()[nbr].view(e, heads, -1) * q.T.double()[:, :, None]
+    return _sum_f64(row, msg.view(e, -1), g.num_nodes)
 
 
 @pytest.mark.parametrize("heads", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 def test_gat_stats_and_chain_walk_shapes(cuda, heads, dtype, rate):
-    """K8 and K10 against their twins on the walk's special shapes, at each
-    head count, dtype and rate: rows without a live in-edge get m = the self
-    score and den = 0 exactly, a second call gives the same bits, and every
-    call leaves both CSRs' arrival counters at 0."""
+    """K8, K9, K9T and K10 against their twins (K9 and K9T against their sums
+    in f64) on the walk's special shapes, at each head count, dtype and rate:
+    rows without a live in-edge get m = the self score and den = 0 exactly,
+    K9's rows there and K9T's rows without a live out-edge are exactly 0, a
+    second call gives the same bits, and every call leaves both CSRs'
+    arrival counters at 0."""
     from cal_tpu_torch.ops import gat_sparse as gs
 
     v, h = 3000, 32 * heads
@@ -857,7 +898,8 @@ def test_gat_stats_and_chain_walk_shapes(cuda, heads, dtype, rate):
     xh, _, ti, tj, w, dD = _gat_inputs(cuda, v, heads, h, dtype, 100 * heads + 7)
     x = xh.reshape(v, h)
     idle = lambda: not g.recv.arrivals.any() and not g.send.arrivals.any()
-    before = [gs.gat_row_stats.launches, gs.gat_sddmm_chain.launches]
+    kernels = (gs.gat_row_stats, gs.gat_coef_spmm, gs.gat_coef_spmm_t, gs.gat_sddmm_chain)
+    before = [k.launches for k in kernels]
     m, den = gs.gat_row_stats(tj, ti, g)
     torch.cuda.synchronize()
     assert idle()
@@ -868,6 +910,19 @@ def test_gat_stats_and_chain_walk_shapes(cuda, heads, dtype, rate):
     self_score = torch.nn.functional.leaky_relu(ti + tj, 0.2)
     assert torch.equal(m[:, dead], self_score[:, dead]) and (den[:, dead] == 0).all()
     assert all(torch.equal(a, b) for a, b in zip((m, den), gs.gat_row_stats(tj, ti, g)))
+    atol, rtol = SPARSE_TOL["float32"]
+    no_out = [v - 1] + list(range(v - 8, v - 1))     # the padded run's sender, isolated nodes
+    for fn, xin, t, rows in ((gs.gat_coef_spmm, x, False, dead),
+                             (gs.gat_coef_spmm_t, w, True, no_out)):
+        got = fn(xin, tj, ti, rm, GAT_WORDS, rate, g)
+        torch.cuda.synchronize()
+        assert idle() and got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, _gat_spmm_f64(xin, tj, ti, rm, rate, g, t),
+                                   atol=atol, rtol=rtol)
+        assert (got[rows] == 0).all()
+        again = fn(xin, tj, ti, rm, GAT_WORDS, rate, g)
+        torch.cuda.synchronize()
+        assert idle() and torch.equal(got, again)
     got = gs.gat_sddmm_chain(x, w, tj, ti, rm, dD, GAT_WORDS, rate, g)
     torch.cuda.synchronize()
     assert idle()
@@ -879,12 +934,13 @@ def test_gat_stats_and_chain_walk_shapes(cuda, heads, dtype, rate):
     again = gs.gat_sddmm_chain(x, w, tj, ti, rm, dD, GAT_WORDS, rate, g)
     torch.cuda.synchronize()
     assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
-    assert [gs.gat_row_stats.launches, gs.gat_sddmm_chain.launches] == [b + 2 for b in before]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2, 2]
 
 
 def test_gat_stats_and_chain_kernel_launches(cuda):
-    """K8 is one kernel launch a call and K10 two (its receiver pass and its
-    sender sums), none of them a pass over all V rows."""
+    """K8, K9 and K9T are one kernel launch a call each (K9 and K9T the
+    coefficient SpMM walk) and K10 two (its receiver pass and its sender
+    sums), none of them a pass over all V rows."""
     from cal_tpu_torch.ops import gat_sparse as gs
 
     v = 3000
@@ -893,6 +949,10 @@ def test_gat_stats_and_chain_kernel_launches(cuda):
     names = _device_kernels(lambda: gs.gat_row_stats(tj, ti, g))
     assert len(names) == 1 and "gat_row_stats_kernel" in names[0], names
     m = gs.gat_row_stats_plain(tj, ti, g)[0]
+    for fn, xin in ((gs.gat_coef_spmm, xh.reshape(v, 128)), (gs.gat_coef_spmm_t, w)):
+        names = _device_kernels(lambda: fn(xin, tj, ti, m, GAT_WORDS, 0.2, g))
+        assert len(names) == 1 and "csr_spmm_kernel" in names[0], names
+        assert "GatSpmm" in names[0], names
     names = _device_kernels(
         lambda: gs.gat_sddmm_chain(xh.reshape(v, 128), w, tj, ti, m, dD, GAT_WORDS, 0.2, g))
     assert len(names) == 2, names
@@ -988,10 +1048,14 @@ def test_coo_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, coef_kind):
             else torch.randn(g.senders.shape, generator=gen, device=cuda))
     counters = (coo.coo_spmm, coo.coo_spmm_t, coo.coo_sddmm)
     before = [k.launches for k in counters]
-    for got, ref in ((coo.coo_spmm(x, coef, g), coo.coo_spmm_plain(x, coef, g)),
-                     (coo.coo_spmm_t(gout, coef, g), coo.coo_spmm_t_plain(gout, coef, g)),
-                     (coo.coo_spmm_t(gout.to(DT[dtype]), coef, g),
-                      coo.coo_spmm_t_plain(gout.to(DT[dtype]), coef, g)),
+    # K11 and K11T against their sums in f64 (a hub's f32 sum in the twin's
+    # index_add_ order moves between runs on the card by about the tolerance)
+    s, r = g.senders.long(), g.receivers.long()
+    c = coef.double()[:, None]
+    gb = gout.to(DT[dtype])
+    for got, ref in ((coo.coo_spmm(x, coef, g), _sum_f64(r, c * x.double()[s], v)),
+                     (coo.coo_spmm_t(gout, coef, g), _sum_f64(s, c * gout.double()[r], v)),
+                     (coo.coo_spmm_t(gb, coef, g), _sum_f64(s, c * gb.double()[r], v)),
                      (coo.coo_sddmm(x, gout, g), coo.coo_sddmm_plain(x, gout, g))):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         torch.testing.assert_close(got, ref, atol=COO_TOL[0], rtol=COO_TOL[1])

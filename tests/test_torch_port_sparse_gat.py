@@ -233,6 +233,41 @@ def test_kernel_twins_match_pallas(dtype, rate, shape):
         assert not den[:, dead].any() and not dti[:, dead].any()
 
 
+@pytest.mark.parametrize("heads,dtype,rate,shape", [
+    (1, "float32", RATE, "sender_hub"),
+    (1, "bfloat16", 0.0, "masked_rows"),
+    (2, "bfloat16", RATE, "sender_hub"),
+    (2, "float32", 0.0, "masked_rows"),
+    (8, "float32", 0.0, "sender_hub"),
+    (8, "bfloat16", RATE, "masked_rows"),
+])
+def test_coef_spmm_twins_match_pallas_at_heads(heads, dtype, rate, shape):
+    """K9 and K9T's twins against _gat_coef_spmm_call on the forward and the
+    transposed plan at the other head counts the kernels take (1, 2, 8; 8
+    features a head), on ``_walk_inputs``' shapes (V 256, E 700), to
+    TWIN_TOL as at HEADS; m is K8's twin's, handed to both packages."""
+    rng = np.random.default_rng(10 + heads)
+    g, xh, ad, asr = _walk_inputs(rng, shape, heads=heads)
+    v = g.num_nodes
+    tf, tb = _plans(g, "bf16" if dtype == "bfloat16" else "f32")
+    gt = g.to("cpu")
+    tj, ti = _planes(xh, ad, asr, dtype)
+    m, _ = gat_row_stats(tj, ti, gt)
+    jp = lambda t: jnp.asarray(t.numpy())
+    seed = jnp.asarray(WORDS, jnp.uint32)
+    tim = jnp.concatenate([jp(ti), jp(m)])
+    x = torch.from_numpy(xh.reshape(v, -1)).to(TDT[dtype])
+    got = gat_coef_spmm(x, tj, ti, m, WORDS, rate, gt)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    ref = _gat_coef_spmm_call(jnp.asarray(x.float().numpy(), JDT[dtype]), jp(tj), tim, seed, tf,
+                              NB, heads, NEG_SLOPE, True, rate)
+    _close(got.numpy(), ref, dtype, "K9")
+    w = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    got = gat_coef_spmm_t(w, tj, ti, m, WORDS, rate, gt)
+    ref = _gat_coef_spmm_call(jp(w), tim, jp(tj), seed, tb, NB, heads, NEG_SLOPE, False, rate)
+    _close(got.numpy(), ref, dtype, "K9T")
+
+
 @pytest.mark.parametrize("rate", [0.0, RATE])
 def test_fused_aggregate_matches_jax_vjp(rate):
     """gat_aggregate_sparse_fused's forward and its VJP (dxh, datt_dst,
