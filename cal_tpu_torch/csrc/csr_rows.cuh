@@ -1,12 +1,12 @@
 // Shared CSR-row machinery of the sparse kernels (spmm.cu, gat_sparse.cu,
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
-// a lane's features, the per-warp row sums with their combine pass for long
-// rows, the sender-CSR sum of per-edge f32 columns, the coefficient SpMM
-// walk that K2/K3, K11, K14, K19 and K9/K9T instantiate, and the per-row
-// reduction of per-edge value planes that K21 (a max) and K10's sender sums
-// instantiate (both: light rows by row, several a warp; heavy rows by chunk
-// from a host-built list, each finished by its last chunk to arrive).
-// Included by each source; it is not a build target of its own.
+// a lane's features, the per-warp row sums with their combine pass over all
+// rows (K1 and K13 only), the coefficient SpMM walk that K2/K3, K11, K14,
+// K19 and K9/K9T instantiate, and the per-row reduction of per-edge values
+// that K21 (a max), K5's and K10's sender sums and K6 (both CSRs in one
+// grid) instantiate (both walks: light rows by row, several a warp; heavy
+// rows by chunk from a host-built list, each finished by its last chunk to
+// arrive).  Included by each source; it is not a build target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -178,44 +178,6 @@ __device__ __forceinline__ void finish_row(float (&acc)[NC], const Chunk& k, int
       else partial[NC * c + j] = acc[j];
     }
   }
-}
-
-// ---- sender sums of per-edge columns (the second pass of K5 and K6) ------
-
-// out[j][v] = sum over the edges e of sender v (sender CSR, edge perm[i]) of
-// cols[j][e], for NC f32 columns of E values.
-template <int NC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sender_sum_kernel(const float* __restrict__ cols, int num_edges, const int* __restrict__ perm,
-                  const int* __restrict__ ptr, const int* __restrict__ chunk_ptr,
-                  const int* __restrict__ chunk_row, int n_chunks, int num_nodes,
-                  float* __restrict__ out, float* __restrict__ partial) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= n_chunks) return;
-  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
-  float acc[NC];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.0f;
-  for (int i = k.beg + lane; i < k.end; i += kGroup) {
-    const int e = perm[i];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] += cols[(size_t)j * num_edges + e];
-  }
-  finish_row<NC>(acc, k, c, lane, num_nodes, out, partial);
-}
-
-template <int NC>
-cudaError_t launch_sender_sum(const float* cols, int num_edges, const int* perm,
-                              const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                              int n_chunks, int num_nodes, float* out, float* partial,
-                              cudaStream_t stream) {
-  sender_sum_kernel<NC><<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                          kWarpsPerBlock * 32, 0, stream>>>(
-      cols, num_edges, perm, ptr, chunk_ptr, chunk_row, n_chunks, num_nodes, out, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_combine<NC>(chunk_ptr, num_nodes, partial, out, stream);
 }
 
 // ---- coefficient SpMM over a CSR (K2/K3/K14 of spmm.cu, K11/K19 of
@@ -431,6 +393,82 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
   }
 }
 
+// A lane group's item on a walk over the CSR: items [0, n_heavy_chunks) are
+// the chunks on the heavy list (i0: the place of the row's first chunk
+// there, n: the row's chunks), the others the rows (a heavy row's own item
+// idle).  The group walks CSR positions [beg, wend): all of a light row or
+// a heavy chunk, nothing else; with skip_masked, nothing of a heavy chunk of
+// masked-out edges alone either (masked).
+struct CsrItem {
+  int r, beg, end, wend, i0, n;
+  bool heavy, light, masked;
+};
+
+__device__ __forceinline__ CsrItem csr_item(const CsrRows& a, int item, bool skip_masked) {
+  CsrItem t;
+  t.heavy = item < a.n_heavy_chunks;
+  t.r = item - a.n_heavy_chunks;
+  t.beg = t.end = t.i0 = t.n = 0;
+  t.masked = false;
+  if (t.heavy) {
+    const int c = a.heavy_chunks[item];
+    const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
+    t.r = k.row;
+    t.beg = k.beg;
+    t.end = k.end;
+    t.masked = skip_masked && a.heavy_masked[item];
+    t.i0 = item - (c - a.chunk_ptr[k.row]);
+    t.n = k.count;
+  } else if (t.r < a.num_nodes) {
+    t.beg = a.ptr[t.r];
+    t.end = a.ptr[t.r + 1];
+  }
+  t.light = !t.heavy && t.r < a.num_nodes && t.end - t.beg <= kGroup;
+  t.wend = (t.heavy && !t.masked) || t.light ? t.end : t.beg;
+  return t;
+}
+
+// The end of an item whose group sums N values a row (K5's ddis_r, K10's
+// dti) from each lane's acc: the group's sums; a light row's written to
+// out[q][r] by the group's first lane; a heavy chunk's stored as its
+// partials ([n_heavy_chunks, N]), made visible and counted in arrivals[i0],
+// and the row's last chunk to arrive sums the row's partials in chunk order
+// (lane q value q), writes the row and sets the counter back to 0.  Every
+// lane of the warp calls it.
+template <int N, int G>
+__device__ __forceinline__ void finish_item(const CsrRows& a, const CsrItem& t, int item,
+                                            int gl, float (&acc)[N], float* __restrict__ out,
+                                            float* __restrict__ partial) {
+  static_assert(N <= G, "lane q of the group sums value q");
+  const size_t V = a.num_nodes;
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) acc[q] += __shfl_xor_sync(kFull, acc[q], off);
+  if (t.light && gl == 0)
+#pragma unroll
+    for (int q = 0; q < N; ++q) out[q * V + t.r] = acc[q];
+  if (!__any_sync(kFull, t.heavy)) return;
+  if (t.heavy && gl == 0) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) partial[(size_t)item * N + q] = acc[q];
+    __threadfence();
+  }
+  __syncwarp();
+  int last = 0;
+  if (t.heavy && gl == 0) last = atomicAdd(a.arrivals + t.i0, 1) == t.n - 1;
+  if (__shfl_sync(kFull, last, (threadIdx.x & 31) - gl)) {
+    __threadfence();
+    if (gl < N) {
+      float sum = 0.0f;
+#pragma unroll 8
+      for (int c = 0; c < t.n; ++c) sum += __ldcg(partial + (size_t)(t.i0 + c) * N + gl);
+      out[gl * V + t.r] = sum;
+    }
+    if (gl == 0) a.arrivals[t.i0] = 0;
+  }
+}
+
 // A heavy row's output from the partials of its n chunks at places [i0,
 // i0 + n) of the list: their sum in chunk order, from 0, read from L2 (other
 // SMs wrote them in this launch).  One partial at a time: the registers of
@@ -476,29 +514,16 @@ __global__ void csr_spmm_kernel(const P a) {
   if (first >= a.n_heavy_chunks + a.num_nodes) return;
   const int gl = lane % G;
   const int item = first + lane / G;
-  const bool heavy = item < a.n_heavy_chunks;
-  int r = item - a.n_heavy_chunks, beg = 0, end = 0, i0 = 0, n = 0;
-  if (heavy) {
-    const int c = a.heavy_chunks[item];
-    const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-    r = k.row;
-    beg = k.beg;
-    // a chunk of masked-out edges alone sums to +0 under a masked policy
-    end = P::kMaskedDead && a.heavy_masked[item] ? k.beg : k.end;
-    i0 = item - (c - a.chunk_ptr[r]);
-    n = k.count;
-  } else if (r < a.num_nodes) {
-    beg = a.ptr[r];
-    end = a.ptr[r + 1];
-  }
-  const bool light = !heavy && r < a.num_nodes && end - beg <= kGroup;
+  // a chunk of masked-out edges alone sums to +0 under a masked policy
+  const CsrItem it = csr_item(a, item, P::kMaskedDead);
   float acc[NB][F] = {};
   walk_edges<P, F, G, kWindowEdges / G, (kInFlight > NB ? kInFlight / NB : 1)>(
-      a, beg, heavy || light ? end : beg,
-      row_state(a, min(r, a.num_nodes - 1), gl * F / (a.h / HeadsOf<P>::v)), gl, lane - gl, acc);
-  if (light) a.template write_row<F>(r, gl, acc);
-  if (!__any_sync(kFull, heavy)) return;
-  if (heavy) {
+      a, it.beg, it.wend,
+      row_state(a, min(it.r, a.num_nodes - 1), gl * F / (a.h / HeadsOf<P>::v)), gl, lane - gl,
+      acc);
+  if (it.light) a.template write_row<F>(it.r, gl, acc);
+  if (!__any_sync(kFull, it.heavy)) return;
+  if (it.heavy) {
 #pragma unroll
     for (int b = 0; b < NB; ++b)
       store_vec<float, F>(a.partial + ((size_t)item * NB + b) * a.h + gl * F, acc[b]);
@@ -506,11 +531,11 @@ __global__ void csr_spmm_kernel(const P a) {
   }
   __syncwarp();
   int last = 0;
-  if (heavy && gl == 0) last = atomicAdd(a.arrivals + i0, 1) == n - 1;
+  if (it.heavy && gl == 0) last = atomicAdd(a.arrivals + it.i0, 1) == it.n - 1;
   if (__shfl_sync(kFull, last, lane - gl)) {
     __threadfence();
-    combine_row<P, F>(a, r, i0, n, gl);
-    if (gl == 0) a.arrivals[i0] = 0;
+    combine_row<P, F>(a, it.r, it.i0, it.n, gl);
+    if (gl == 0) a.arrivals[it.i0] = 0;
   }
 }
 
@@ -538,32 +563,44 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
   }
 }
 
-// ---- per-row reductions of per-edge value planes (K21) -------------------
+// ---- per-row reductions of per-edge values (K21, K5's and K10's sender
+// sums, K6) --------------------------------------------------------------
 //
-// out[q][r] = init op v_q[e_1] op v_q[e_2] ... over the edges of row r, for
-// `planes` f32 planes v_q of E values, with an associative Op (K21: max from
-// -1e30 over the receiver CSR; K10's dtj: a sum from 0 over the sender CSR,
-// its values edge-major, [E, planes]).  The unit is the walk's: a light row
-// (one chunk, at most kGroup edges) is one item of a group of kReduceGroup
-// lanes (8 rows a warp, as most rows of a real batch hold 1-4 edges); a
-// heavy row's chunks (the host-built EdgeCsr.heavy_chunks, the padded run at
-// node V-1 included unless skip_masked: the values are the caller's, dead or
-// not) are the first warps' items, a warp
-// each, and the row's last chunk to arrive (EdgeCsr.arrivals, 0 again when
-// the launch ends) reduces the chunks' partials and writes the row.  One
-// launch, no pass over all rows.  A lane reads 16 bytes of a plane at a time
-// where the planes allow (perm null, E % 4 == 0, 16-byte aligned), the loads
-// of kPlaneBatch planes in flight together; edge-major values give a lane an
-// edge's four planes in one 16-byte load, through perm too.  Every output
-// has one owner and one order (lanes, then the group's shuffle tree;
-// partials likewise): a sum on this walk is deterministic, though not in the
-// order of the row sums above (finish_row), whose kernels still end with
-// launch_combine.
+// out[q][r] = init op v_q(e_1) op v_q(e_2) ... over the edges of row r, for
+// `planes` f32 values v_q per edge, with an associative Op (K21: max from
+// -1e30 over the receiver CSR; K5's ddis_s and K10's dtj: sums from 0 over
+// the sender CSR of values stored edge-major, [E, planes]; K6: sums of a
+// value formed from the edge's inputs, over both CSRs in one grid).  The
+// values come from a policy R, a CsrRows with planes, skip_masked, out
+// ([planes, num_nodes]), partial ([n_heavy_chunks, planes]) and
+//   template <typename Op, int G> void lane_values(int q0, int beg, int end,
+//       int row, int gl, float (&acc)[kPlaneBatch]) const
+// which folds into acc[j] (from Op::kInit) the values of planes q0 + j at
+// CSR positions beg + gl, beg + gl + G, ... below end of row `row`
+// (RowReduce reads them from stored planes).  The unit is the walk's: a
+// light row (one chunk, at most kGroup edges) is one item of a group of
+// kReduceGroup lanes (8 rows a warp, as most rows of a real batch hold 1-4
+// edges); a heavy row's chunks (the host-built EdgeCsr.heavy_chunks, the
+// padded run at node V-1 included unless skip_masked: a dead edge's value
+// is then Op's identity) are the first warps' items, a warp each, and the
+// row's last chunk to arrive (EdgeCsr.arrivals, 0 again when the launch
+// ends) reduces the chunks' partials and writes the row.  One launch, no
+// pass over all rows.  RowReduce reads 16 bytes of a plane at a time where
+// the planes allow (perm null, E % 4 == 0, 16-byte aligned), the loads of
+// kPlaneBatch planes in flight together; edge-major values give a lane an
+// edge's planes in one 16-byte load (4 planes), through perm too.  Every
+// output has one owner and one order (lanes, then the
+// group's shuffle tree; partials likewise): a sum on this walk is
+// deterministic, though not in the order of the row sums above
+// (finish_row), whose kernels (K1, K13) still end with launch_combine.
 //
 // Bound: bytes, 4 planes bytes per edge and per row, plus the CSR; the walk
 // is latency: ptr, the values, the store, a chain per row.
 
-// The arguments of a reduction: the CSR (EdgeCsr) and the planes.
+constexpr int kReduceGroup = 4;   // lanes of a light row's group
+constexpr int kPlaneBatch = 4;    // planes a lane reads together
+
+// The values of stored planes.
 struct RowReduce : CsrRows {
   const float* vals;   // [planes, num_edges] (edge_major: [num_edges, planes]): CSR
                        // position i reads edge i (perm null) or perm[i]
@@ -574,6 +611,47 @@ struct RowReduce : CsrRows {
                        // masked-out edges alone (heavy_masked) is not read
   float* out;          // [planes, num_nodes]
   float* partial;      // [n_heavy_chunks, planes]
+
+  template <typename Op, int G>
+  __device__ __forceinline__ void lane_values(int q0, int beg, int end, int, int gl,
+                                              float (&acc)[kPlaneBatch]) const {
+    if (vec) {
+      for (int i = (beg & ~3) + 4 * gl; i < end; i += 4 * G) {
+        float4 t[kPlaneBatch];
+#pragma unroll
+        for (int j = 0; j < kPlaneBatch; ++j)
+          if (q0 + j < planes)
+            t[j] = __ldg(reinterpret_cast<const float4*>(vals + (size_t)(q0 + j) * num_edges + i));
+#pragma unroll
+        for (int j = 0; j < kPlaneBatch; ++j) {
+          if (q0 + j >= planes) continue;
+          const float e[4] = {t[j].x, t[j].y, t[j].z, t[j].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i + u >= beg && i + u < end) acc[j] = Op::apply(acc[j], e[u]);
+        }
+      }
+    } else if (edge_major && planes % 4 == 0) {
+      static_assert(kPlaneBatch == 4, "an edge's batch of planes is one float4");
+      for (int i = beg + gl; i < end; i += G) {
+        const size_t e = perm == nullptr ? i : perm[i];
+        const float4 t = __ldg(reinterpret_cast<const float4*>(vals + e * planes + q0));
+        acc[0] = Op::apply(acc[0], t.x);
+        acc[1] = Op::apply(acc[1], t.y);
+        acc[2] = Op::apply(acc[2], t.z);
+        acc[3] = Op::apply(acc[3], t.w);
+      }
+    } else {
+      for (int i = beg + gl; i < end; i += G) {
+        const size_t e = perm == nullptr ? i : perm[i];
+#pragma unroll
+        for (int j = 0; j < kPlaneBatch; ++j)
+          if (q0 + j < planes)
+            acc[j] = Op::apply(acc[j], edge_major ? vals[e * planes + q0 + j]
+                                                  : vals[(size_t)(q0 + j) * num_edges + e]);
+      }
+    }
+  }
 };
 
 struct MaxOp {
@@ -586,54 +664,16 @@ struct SumOp {
   __device__ static __forceinline__ float apply(float a, float b) { return a + b; }
 };
 
-constexpr int kReduceGroup = 4;   // lanes of a light row's group
-constexpr int kPlaneBatch = 4;    // planes a lane reads together
-
-// acc[j] = the reduction of plane q0 + j over CSR positions [beg, end) by the
-// G lanes of a group (gl: the lane's place in it); every lane of the warp
-// calls it, and each of a group's lanes ends with the group's result.
-template <typename Op, int G>
-__device__ __forceinline__ void reduce_span(const RowReduce& a, int q0, int beg, int end,
+// acc[j] = the reduction of plane q0 + j over CSR positions [beg, end) of
+// row `row` by the G lanes of a group (gl: the lane's place in it); every
+// lane of the warp calls it, and each of a group's lanes ends with the
+// group's result.
+template <typename Op, int G, typename R>
+__device__ __forceinline__ void reduce_span(const R& a, int q0, int beg, int end, int row,
                                             int gl, float (&acc)[kPlaneBatch]) {
 #pragma unroll
   for (int j = 0; j < kPlaneBatch; ++j) acc[j] = Op::kInit;
-  if (a.vec) {
-    for (int i = (beg & ~3) + 4 * gl; i < end; i += 4 * G) {
-      float4 t[kPlaneBatch];
-#pragma unroll
-      for (int j = 0; j < kPlaneBatch; ++j)
-        if (q0 + j < a.planes)
-          t[j] = __ldg(
-              reinterpret_cast<const float4*>(a.vals + (size_t)(q0 + j) * a.num_edges + i));
-#pragma unroll
-      for (int j = 0; j < kPlaneBatch; ++j) {
-        if (q0 + j >= a.planes) continue;
-        const float e[4] = {t[j].x, t[j].y, t[j].z, t[j].w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (i + u >= beg && i + u < end) acc[j] = Op::apply(acc[j], e[u]);
-      }
-    }
-  } else if (a.edge_major && a.planes % 4 == 0) {
-    static_assert(kPlaneBatch == 4, "an edge's batch of planes is one float4");
-    for (int i = beg + gl; i < end; i += G) {
-      const size_t e = a.perm == nullptr ? i : a.perm[i];
-      const float4 t = __ldg(reinterpret_cast<const float4*>(a.vals + e * a.planes + q0));
-      acc[0] = Op::apply(acc[0], t.x);
-      acc[1] = Op::apply(acc[1], t.y);
-      acc[2] = Op::apply(acc[2], t.z);
-      acc[3] = Op::apply(acc[3], t.w);
-    }
-  } else {
-    for (int i = beg + gl; i < end; i += G) {
-      const size_t e = a.perm == nullptr ? i : a.perm[i];
-#pragma unroll
-      for (int j = 0; j < kPlaneBatch; ++j)
-        if (q0 + j < a.planes)
-          acc[j] = Op::apply(acc[j], a.edge_major ? a.vals[e * a.planes + q0 + j]
-                                                  : a.vals[(size_t)(q0 + j) * a.num_edges + e]);
-    }
-  }
+  a.template lane_values<Op, G>(q0, beg, end, row, gl, acc);
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
 #pragma unroll
@@ -643,15 +683,15 @@ __device__ __forceinline__ void reduce_span(const RowReduce& a, int q0, int beg,
 
 // A heavy chunk, a warp: its partials, then, for the row's last chunk to
 // arrive, the row from all of them.
-template <typename Op>
-__device__ __forceinline__ void reduce_heavy_chunk(const RowReduce& a, int item, int lane) {
+template <typename Op, typename R>
+__device__ __forceinline__ void reduce_heavy_chunk(const R& a, int item, int lane) {
   const int c = a.heavy_chunks[item];
   const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
   const int i0 = item - (c - a.chunk_ptr[k.row]);   // the row's first chunk on the list
   const int end = a.skip_masked && a.heavy_masked[item] ? k.beg : k.end;
   for (int q0 = 0; q0 < a.planes; q0 += kPlaneBatch) {
     float acc[kPlaneBatch];
-    reduce_span<Op, 32>(a, q0, k.beg, end, lane, acc);
+    reduce_span<Op, 32>(a, q0, k.beg, end, k.row, lane, acc);
 #pragma unroll
     for (int j = 0; j < kPlaneBatch; ++j)
       if (lane == j && q0 + j < a.planes) a.partial[(size_t)item * a.planes + q0 + j] = acc[j];
@@ -673,18 +713,12 @@ __device__ __forceinline__ void reduce_heavy_chunk(const RowReduce& a, int item,
   if (lane == 0) a.arrivals[i0] = 0;
 }
 
-// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
-// take the rows, 32 / kReduceGroup a warp (a heavy row's group idles).
-template <typename Op>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const RowReduce a) {
+// The rows [32 / kReduceGroup w, 32 / kReduceGroup (w + 1)), a group each
+// (a heavy row's group idles).
+template <typename Op, typename R>
+__device__ __forceinline__ void reduce_light_rows(const R& a, int w, int lane) {
   constexpr int G = kReduceGroup;
-  const int lane = threadIdx.x & 31;
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp < a.n_heavy_chunks) {
-    reduce_heavy_chunk<Op>(a, warp, lane);
-    return;
-  }
-  const int first = (warp - a.n_heavy_chunks) * (32 / G);
+  const int first = w * (32 / G);
   if (first >= a.num_nodes) return;
   const int r = first + lane / G, gl = lane % G;
   int beg = 0, end = 0;
@@ -696,7 +730,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const R
   if (!light) end = beg;
   for (int q0 = 0; q0 < a.planes; q0 += kPlaneBatch) {
     float acc[kPlaneBatch];
-    reduce_span<Op, G>(a, q0, beg, end, gl, acc);
+    reduce_span<Op, G>(a, q0, beg, end, min(r, a.num_nodes - 1), gl, acc);
     if (light && gl == 0)
 #pragma unroll
       for (int j = 0; j < kPlaneBatch; ++j)
@@ -704,10 +738,26 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const R
   }
 }
 
-template <typename Op>
-cudaError_t launch_csr_reduce(const RowReduce& a, cudaStream_t stream) {
+// The warps a reduction over one CSR takes: one a heavy chunk, then one a
+// 32 / kReduceGroup rows.
+__host__ __device__ __forceinline__ int light_warps(const CsrRows& c) {
+  return (c.num_nodes + 32 / kReduceGroup - 1) / (32 / kReduceGroup);
+}
+
+// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
+// take the rows, 32 / kReduceGroup a warp.
+template <typename Op, typename R>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const R a) {
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp < a.n_heavy_chunks) reduce_heavy_chunk<Op>(a, warp, lane);
+  else reduce_light_rows<Op>(a, warp - a.n_heavy_chunks, lane);
+}
+
+template <typename Op, typename R>
+cudaError_t launch_csr_reduce(const R& a, cudaStream_t stream) {
   if (a.num_nodes <= 0 || a.n_heavy_chunks < 0 || a.planes <= 0) return cudaErrorInvalidValue;
-  const int warps = a.n_heavy_chunks + (a.num_nodes + 32 / kReduceGroup - 1) / (32 / kReduceGroup);
+  const int warps = a.n_heavy_chunks + light_warps(a);
   csr_reduce_kernel<Op><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
                           stream>>>(a);
   return cudaGetLastError();

@@ -460,25 +460,9 @@ gat_chain_kernel(const GatChainArgs<T> a) {
   const int gl = lane % G, base = lane - gl;
   const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
   const int item = first + lane / G;
-  const bool heavy = item < a.n_heavy_chunks;
-  int r = item - a.n_heavy_chunks, beg = 0, end = 0, i0 = 0, n = 0;
-  bool masked = false;
-  if (heavy) {
-    const int c = a.heavy_chunks[item];
-    const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-    r = k.row;
-    beg = k.beg;
-    end = k.end;
-    masked = a.heavy_masked[item];
-    i0 = item - (c - a.chunk_ptr[r]);
-    n = k.count;
-  } else if (r < a.num_nodes) {
-    beg = a.ptr[r];
-    end = a.ptr[r + 1];
-  }
-  const bool light = !heavy && r < a.num_nodes && end - beg <= kGroup;
   // a chunk of masked-out edges alone is not walked: its edges' dpre are 0
-  const int wend = (heavy && !masked) || light ? end : beg;
+  const CsrItem it = csr_item(a, item, true);
+  const int r = it.r, wend = it.wend;
   const size_t V = a.num_nodes;
   const int rr = min(r, a.num_nodes - 1);
   float wr[F];
@@ -492,7 +476,7 @@ gat_chain_kernel(const GatChainArgs<T> a) {
     dd_r[hd] = __ldg(a.dD + hd * V + rr);
     acc[hd] = 0.0f;
   }
-  for (int w0 = beg; __any_sync(kFull, w0 < wend); w0 += W * G) {
+  for (int w0 = it.beg; __any_sync(kFull, w0 < wend); w0 += W * G) {
     // the window's metadata and the live edges' sender halves, in flight
     // together (past the range a lane reads nothing and is never live)
     int s_l[W];
@@ -565,37 +549,12 @@ gat_chain_kernel(const GatChainArgs<T> a) {
       if (i < wend) store_vec<float, NH>(a.edge_out + (size_t)i * NH, dp);
     }
   }
-  if (heavy && masked) {
+  if (it.masked) {
     const float zero[NH] = {};
-    for (int i = beg + gl; i < end; i += G)
+    for (int i = it.beg + gl; i < it.end; i += G)
       store_vec<float, NH>(a.edge_out + (size_t)i * NH, zero);
   }
-#pragma unroll
-  for (int hd = 0; hd < NH; ++hd)
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) acc[hd] += __shfl_xor_sync(kFull, acc[hd], off);
-  if (light && gl == 0)
-#pragma unroll
-    for (int hd = 0; hd < NH; ++hd) a.dti[hd * V + r] = acc[hd];
-  if (!__any_sync(kFull, heavy)) return;
-  if (heavy && gl == 0) {
-#pragma unroll
-    for (int hd = 0; hd < NH; ++hd) a.partial[(size_t)item * NH + hd] = acc[hd];
-    __threadfence();
-  }
-  __syncwarp();
-  int last = 0;
-  if (heavy && gl == 0) last = atomicAdd(a.arrivals + i0, 1) == n - 1;
-  if (__shfl_sync(kFull, last, base)) {
-    __threadfence();
-    if (gl < NH) {   // lane gl sums head gl's partials in chunk order
-      float sum = 0.0f;
-#pragma unroll 8
-      for (int c = 0; c < n; ++c) sum += __ldcg(a.partial + (size_t)(i0 + c) * NH + gl);
-      a.dti[gl * V + r] = sum;
-    }
-    if (gl == 0) a.arrivals[i0] = 0;
-  }
+  finish_item<NH, G>(a, it, item, gl, acc, a.dti, a.partial);
 }
 
 template <typename T, int NH, int Q>

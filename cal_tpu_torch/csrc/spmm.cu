@@ -48,7 +48,7 @@
 //       transposed plan): the argument stays src[s] + dst[r].
 //   K5: per live e, dc_k = <g_k[r], x_k[s]>;
 //       vec[e] = (dc_0 dis_0[s] dis_0[r], dc_1 dis_1[s] dis_1[r], w_0 w_1)
-//       (zeros on dead edges); ddis_s[k][s] += dc_k w_k dis_k[r] and
+//       (zeros on dead edges and self loops); ddis_s[k][s] += dc_k w_k dis_k[r] and
 //       ddis_r[k][r] += dc_k w_k dis_k[s].
 //   K6: dpre[e] = (vec0 + ddeg_0[s] - vec1 - ddeg_1[s]) * vec2;
 //       dsrc[s] += dpre[e], ddst[r] += dpre[e] (vec2 = 0 zeroes dead edges).
@@ -62,7 +62,7 @@
 //       + x[r] / deg[r];  K14T the same over the sender CSR (dx, with the
 //       logits swapped by the caller, as K2T).
 //   K15: per live e, dc = <g[r], x[s]>; vec[e] = (dc dis[s] dis[r],
-//       w (1 - w)) (zeros on dead edges); ddis_s[s] += dc w dis[r],
+//       w (1 - w)) (zeros on dead edges and self loops); ddis_s[s] += dc w dis[r],
 //       ddis_r[r] += dc w dis[s].
 //   K16: dpre[e] = (vec0 + ddeg[s]) vec1, negated under negate (d/dz of
 //       1 - sigmoid); dsrc[s] += dpre[e], ddst[r] += dpre[e].  vec1 = w(1 -
@@ -76,45 +76,75 @@
 // * dis_row, each message, dot product and every sum, the self term x / deg
 // (IEEE division); each [V, H] output is rounded to the model dtype once
 // (K5/K6 outputs stay f32).  The plain twins in ops/spmm.py round at exactly
-// these points.  cal_tpu's bf16 tile plans round more (the gathered logit
-// and dis planes, the per-slot weights, each message before the receiver
-// sum): the port does not.
+// these points; K5's dot products and every sum are in the walk's order
+// (a lane's terms, then the group's shuffle tree, a heavy row's chunks in
+// order), not the twins', so they may differ from them in the last bits.
+// cal_tpu's bf16 tile plans round more (the gathered logit and dis planes,
+// the per-slot weights, each message before the receiver sum): the port
+// does not.
 //
-// Design.  Rows (senders for K1, K2T, K3T; receivers for K2, K3, K5, K6)
-// come in CSR form (graph.EdgeCsr; the sender CSR reads edge perm[i]): a
-// row's edges form groups of kGroup = 32 and the groups at most kMaxChunks =
-// 64 chunks of equal group counts.  K1, K5 and K6 give one warp a chunk: the
-// lanes read a group's 32 edges' metadata at once (lane i <-> edge i) and
-// compute liveness, weight and coefficient; K1 and K6 keep per-lane sums and
-// end with a butterfly shuffle; K5 keeps g[r] of its row in registers,
-// takes each live edge from a ballot, reduces the dot products with x[s]
-// across the warp, and the edge's own lane then forms its per-edge outputs.
-// A row of a single chunk is written by its warp directly; a longer row (a
-// hub, or the padded-edge run at node V-1, in both CSRs) writes one f32
-// partial per chunk, and a second pass sums its <= 64 partials in chunk
-// order.  K2/K3/K14 (and their transposed modes) are csr_rows.cuh's
-// coefficient SpMM walk with the GcnSpmm / SigSpmm policies: a light row (<=
-// 32 edges, most rows of real batches) is one lane group's item (16-byte
-// loads of its features, 32 / G rows a warp), addressed by row; the chunks
-// of the heavier rows are items from the host-built list, whose partials a
-// pass over those rows alone sums in chunk order; a group loads up to
-// kInFlight neighbour rows of a window's live edges before their FMAs, and
-// the self term is fused into the row's write.  The padded run's edges are
-// self loops at node V-1, never live: each costs its mask and neighbour
-// read, and no neighbour row.  Sums by sender that K5 and K6 need from their
-// receiver walk (ddis_s, dsrc) are taken by a second kernel over the sender
-// CSR (sender_sum_kernel) from per-edge f32 columns that the first one
-// wrote: K1's structure, per-lane sums and a butterfly.  So no row is
-// serialized on one warp, every sum has one owner, no float atomics: a
-// result does not change between runs.
+// Design.  Rows (senders for K1, K2T, K3T; receivers for K2, K3, K5) come
+// in CSR form (graph.EdgeCsr; the sender CSR reads edge perm[i]): a row's
+// edges form groups of kGroup = 32 and the groups at most kMaxChunks = 64
+// chunks of equal group counts.  A light row (one chunk, at most 32 edges;
+// most rows of real batches hold 1-4) is one lane group's item, several a
+// warp; the chunks of a heavy row (a hub, or the padded-edge run at node V-1,
+// in both CSRs), listed on the host (heavy_chunks), are the first items of
+// the launch, each writing f32 partials, and the row's last chunk to arrive
+// (an int counter in EdgeCsr.arrivals, 0 again when the launch ends) sums
+// them in chunk order and writes the row.  So no pass visits all V rows
+// (except K1's, below), every sum has one owner and one order, and no float
+// is summed atomically: a result does not change between runs.
+//  - K2/K3/K14 (and their transposed modes) are csr_rows.cuh's coefficient
+//    SpMM walk with the GcnSpmm / SigSpmm policies (16-byte loads of a
+//    row's features, 32 / G rows a warp; a group loads up to kInFlight
+//    neighbour rows of a window's live edges before their FMAs, and the self
+//    term is fused into the row's write).  The padded run's edges are self
+//    loops at node V-1, never live: a heavy chunk of them alone is not
+//    walked.
+//  - K5/K15, two launches.  The receiver pass (chain_head_kernel) is the
+//    walk's lane group with 32 bytes of x a lane (HeadShape, K10's: 4 rows
+//    a warp at H = 128 in bf16, 2 in f32, 2 blocks an SM): the group keeps
+//    g[r] of each branch in registers, reads a window of G edges at once
+//    (one a lane: its metadata, and a live edge's logits and dis[s]), lists
+//    the live edges with a ballot, loads both branches' x[s] of kInFlight of
+//    them before their dot products, reduces each over the group's lanes
+//    (log2 G shuffle levels), and the edge's own lane forms vec, its ddis_s
+//    terms (stored edge-major, [E, NB]) and its share of the row's ddis_r
+//    (csr_rows.cuh's csr_item and finish_item, as K10's receiver pass).
+//    Every CSR position gets its outputs: zeros on dead edges, self loops
+//    and a heavy chunk of masked edges alone, which is not walked (K6's
+//    vec[NB] = 0 is what keeps their dpre out of its sums).  ddis_s is
+//    csr_reduce_kernel's sum of the terms over the sender CSR through perm.
+//  - K6/K16, one launch (chain_tail_kernel): csr_rows.cuh's per-row
+//    reduction over both CSRs in one grid, each edge's dpre formed in-kernel
+//    from the vec planes and ddeg[s] by the twins' float operations: the
+//    receiver CSR's rows give ddst, the sender CSR's (through perm) dsrc,
+//    each CSR's heavy chunks first and finished by its own arrivals.  So no
+//    dpre plane is written or read back.
+//  - K1/K13 still give one warp a chunk (per-lane sums, a butterfly), a row
+//    of a single chunk written by its warp directly and a longer row's
+//    partials summed in chunk order by a pass over all V rows
+//    (launch_combine).
+// The constants (32-byte lanes, a window of G edges, 2 blocks an SM, one
+// grid for K6) are the measured winners: PERF.md gives the times of the
+// alternatives (16-byte lanes, windows of 16 or 32 edges, 3 or 4 blocks an
+// SM, g kept as packed words, one row in flight, K6 as two launches).  The
+// terms are edge-major, one store an edge; as [NB, E] planes they timed
+// within the spread between equal trees.
+// The launches over one batch's CSR share its arrival counters on one
+// stream: K2, K3, K14 and K5's receiver pass g.recv's, K2T, K3T, K14T and
+// K5's sender sums g.send's, K6 both.
 //
 // Bound: bytes.  K2 reads x [V, 2H] once (plus a neighbour row per live
 // edge, mostly from L2) and writes [V, 2H]; the metadata is 9 bytes per edge
-// (13 through perm); K5 reads x and g [V, 2H] and writes 5 f32 per edge; the
-// arithmetic (2H FMAs per edge) is far below the tensor-core or FMA floor.
-// K13-K16 are the one-branch halves: K14 reads x [V, H] and writes [V, H],
-// K15 reads x and g [V, H] and writes 3 f32 per edge.  K13 adds the deg/dis
-// epilogue to K1's walk.
+// (13 through perm); K5 reads x and g [V, 2H] and writes 5 f32 per edge; K6
+// reads vec and the CSRs and writes two planes; the arithmetic (2H FMAs per
+// edge) is far below the tensor-core or FMA floor.  K13-K16 are the
+// one-branch halves: K14 reads x [V, H] and writes [V, H], K15 reads x and
+// g [V, H] and writes 3 f32 per edge.  K13 adds the deg/dis epilogue to K1's
+// walk.  The walks' own limit is latency: a light row is a chain of
+// dependent loads (ptr, metadata, gathers or neighbour rows, store).
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in ops/spmm.py
@@ -350,8 +380,10 @@ cudaError_t launch_sig_spmm(const void* x, const float* src, const float* dst, c
 
 // ---- K5 / K15: the SDDMM chain head --------------------------------------
 
+constexpr int kHeadBlocks = 2;   // the receiver pass's blocks an SM (__launch_bounds__)
+
 template <typename T, typename L, int NB>
-struct ChainArgs {
+struct ChainHead : CsrRows {   // the receiver CSR
   const T* x[NB];     // [V, H] each (the pair: xc, xo)
   const T* g[NB];     // [V, H] each: the cotangents of the outputs
   const L* src;
@@ -359,114 +391,170 @@ struct ChainArgs {
   const int* senders;
   const uint8_t* edge_mask;
   const float* dis;   // [NB, V]
-  const int* ptr;     // receiver CSR
-  const int* chunk_ptr;
-  const int* chunk_row;
-  const int* sptr;    // sender CSR, for the ddis_s sums
-  const int* schunk_ptr;
-  const int* schunk_row;
-  const int* sperm;
-  float* edge_out;    // [2 NB + 1, E]: vec (NB + 1 rows), then the NB ddis_s terms
-  float* ddis_s;      // [NB, V]
+  float* vec;         // [NB + 1, E]
+  float* terms;       // [E, NB]: each edge's ddis_s terms, for the sender sums
   float* ddis_r;      // [NB, V]
-  float* partial;     // [max(n_chunks, s_chunks), NB]
-  int n_chunks, s_chunks, num_nodes, num_edges, h;
+  float* partial;     // [n_heavy_chunks, NB]: a heavy chunk's ddis_r sums
+  int num_edges, h;
 };
 
-template <typename T, typename L, int F, int NB, bool NEG>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sddmm_chain_kernel(const ChainArgs<T, L, NB> a) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+// The receiver pass's lane group: 32 bytes of x (and of g) a lane, G = H /
+// F lanes a row, so at H = 128 4 rows a warp in bf16 and 2 in f32 (K10's
+// ChainShape).
+template <typename T, int Q>
+using HeadShape = LightShape<T, Q, 1, 32>;
+
+// One item a lane group, 32 / G a warp, as csr_spmm_kernel (items [0,
+// n_heavy_chunks) the heavy chunks, partial i for item i; the others the
+// rows, a heavy row's group idle).  Every CSR position of the item gets its
+// vec and terms, zeros where the edge is dead.
+template <typename T, typename L, int NB, bool NEG, int Q>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kHeadBlocks)
+chain_head_kernel(const ChainHead<T, L, NB> a) {
+  using S = HeadShape<T, Q>;
+  constexpr int F = S::F, G = S::G, U = kInFlight;
+  constexpr int kWords = F * sizeof(T) / 4;
   const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const int r = k.row;
+  const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int gl = lane % G, base = lane - gl;
+  const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
+  const int item = first + lane / G;
+  // a chunk of masked-out edges alone is not walked: its outputs are zeros
+  const CsrItem it = csr_item(a, item, true);
+  const int r = it.r, wend = it.wend;
   const size_t V = a.num_nodes, E = a.num_edges;
-  float dis_r[NB];
-  float gr[NB][F];
+  const int rr = min(r, a.num_nodes - 1);
+  float gr[NB][F], dis_r[NB], acc[NB];   // acc: this lane's ddis_r terms
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    dis_r[b] = a.dis[b * V + r];
-    load_vec<T, F>(a.g[b] + (size_t)r * a.h + lane * F, gr[b]);
+    load_vec<T, F>(a.g[b] + (size_t)rr * a.h + gl * F, gr[b]);
+    dis_r[b] = __ldg(a.dis + b * V + rr);
+    acc[b] = 0.0f;
   }
-  const float dst_r = to_f(a.dst[r]);
-  float acc[NB] = {};                     // this lane's ddis_r terms
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    const int i = g0 + lane;
+  const float dst_r = to_f(a.dst[rr]);
+  for (int w0 = it.beg; __any_sync(kFull, w0 < wend); w0 += G) {
+    // a window of G edges, one a lane: its metadata, and a live edge's logit
+    // sum and dis[s] in flight beside the neighbour rows (past the range a
+    // lane reads nothing and is never live)
+    const int i = w0 + gl;
     int s_l = 0;
     bool live = false;
-    if (i < k.end) {
+    if (i < wend) {
       s_l = a.senders[i];
       live = a.edge_mask[i] && s_l != r;
     }
-    // the dot products of each live edge of the group, reduced across the
-    // warp; the edge's own lane keeps them
-    float dc[NB] = {};
-    for (unsigned m = __ballot_sync(kFull, live); m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const int s = __shfl_sync(kFull, s_l, j);
-      float p[NB];
+    float z = 0.0f, dis_s[NB] = {}, dc[NB] = {};
+    if (live) {
+      z = to_f(a.src[s_l]) + dst_r;
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float xs[F];
-        load_vec<T, F>(a.x[b] + (size_t)s * a.h + lane * F, xs);
-        p[b] = 0.0f;
-#pragma unroll
-        for (int f = 0; f < F; ++f) p[b] = fmaf(gr[b][f], xs[f], p[b]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) p[b] += __shfl_xor_sync(kFull, p[b], off);
-      }
-      if (lane == j) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) dc[b] = p[b];
-      }
+      for (int b = 0; b < NB; ++b) dis_s[b] = __ldg(a.dis + b * V + s_l);
     }
-    if (i < k.end) {
-      float out[2 * NB + 1] = {};
-      if (live) {
-        float w[NB];
-        branch_weights<NB, NEG>(to_f(a.src[s_l]) + dst_r, w);
+    unsigned msk = (__ballot_sync(kFull, live) >> base) & gbits;
+    while (__any_sync(kFull, msk != 0)) {
+      // the next U live edges of the group, in edge order: both branches'
+      // neighbour rows loaded, then their dot products with g[r], reduced
+      // over the group; the edge's own lane keeps them
+      bool ok[U];
+      int j[U];
+      uint32_t xs[U][NB][kWords];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        ok[u] = msk != 0;
+        j[u] = base + (ok[u] ? __ffs(msk) - 1 : 0);
+        msk &= msk - 1;
+        const int s = __shfl_sync(kFull, s_l, j[u]);
+        if (ok[u])
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            load_words<T, F>(a.x[b] + (size_t)s * a.h + gl * F, xs[u][b]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float p[NB];
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          const float dis_s = a.dis[b * V + s_l];
-          out[b] = dc[b] * dis_s * dis_r[b];
-          out[NB + 1 + b] = dc[b] * w[b] * dis_r[b];
-          acc[b] += dc[b] * w[b] * dis_s;
+          p[b] = 0.0f;
+          if (ok[u])
+#pragma unroll
+            for (int f = 0; f < F; ++f) p[b] = fmaf(gr[b][f], word_elem<T>(xs[u][b], f), p[b]);
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int b = 0; b < NB; ++b) p[b] += __shfl_xor_sync(kFull, p[b], off);
+        if (ok[u] && lane == j[u])
+#pragma unroll
+          for (int b = 0; b < NB; ++b) dc[b] = p[b];
+      }
+    }
+    if (i < wend) {
+      float o[NB + 1] = {}, t[NB] = {};
+      if (live) {
+        float w[NB];
+        branch_weights<NB, NEG>(z, w);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          o[b] = dc[b] * dis_s[b] * dis_r[b];
+          t[b] = dc[b] * w[b] * dis_r[b];
+          acc[b] += dc[b] * w[b] * dis_s[b];
         }
         // the sigmoid's derivative, sg (1 - sg)
         if constexpr (NB == 2)
-          out[NB] = w[0] * w[1];
+          o[NB] = w[0] * w[1];
         else
-          out[NB] = w[0] * (1.0f - w[0]);
+          o[NB] = w[0] * (1.0f - w[0]);
       }
 #pragma unroll
-      for (int j = 0; j < 2 * NB + 1; ++j) a.edge_out[j * E + i] = out[j];
+      for (int q = 0; q <= NB; ++q) a.vec[q * E + i] = o[q];
+      store_vec<float, NB>(a.terms + (size_t)i * NB, t);
     }
   }
-  finish_row<NB>(acc, k, c, lane, a.num_nodes, a.ddis_r, a.partial);
+  if (it.masked) {
+    const float zero[NB] = {};
+    for (int i = it.beg + gl; i < it.end; i += G) {
+#pragma unroll
+      for (int q = 0; q <= NB; ++q) a.vec[q * E + i] = 0.0f;
+      store_vec<float, NB>(a.terms + (size_t)i * NB, zero);
+    }
+  }
+  finish_item<NB, G>(a, it, item, gl, acc, a.ddis_r, a.partial);
 }
 
+template <typename T, typename L, int NB, bool NEG, int Q>
+cudaError_t launch_head_q(const ChainHead<T, L, NB>& a, cudaStream_t stream) {
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / HeadShape<T, Q>::G;
+  const int items = a.n_heavy_chunks + a.num_nodes;
+  chain_head_kernel<T, L, NB, NEG, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
+                                        kWarpsPerBlock * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The receiver pass, then ddis_s: csr_reduce_kernel's sums of the edges'
+// terms ([E, NB]) over the sender CSR, a dead edge's terms 0.
 template <typename T, typename L, int NB, bool NEG>
-cudaError_t launch_chain(const ChainArgs<T, L, NB>& a, cudaStream_t stream) {
-  const int blocks = (a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int threads = kWarpsPerBlock * 32;
+cudaError_t launch_chain(const ChainHead<T, L, NB>& a, const CsrRows& send, float* ddis_s,
+                         cudaStream_t stream) {
+  cudaError_t err;
   switch (a.h / 32) {
-    case 1: sddmm_chain_kernel<T, L, 1, NB, NEG><<<blocks, threads, 0, stream>>>(a); break;
-    case 2: sddmm_chain_kernel<T, L, 2, NB, NEG><<<blocks, threads, 0, stream>>>(a); break;
-    case 4: sddmm_chain_kernel<T, L, 4, NB, NEG><<<blocks, threads, 0, stream>>>(a); break;
-    case 8: sddmm_chain_kernel<T, L, 8, NB, NEG><<<blocks, threads, 0, stream>>>(a); break;
+    case 1: err = launch_head_q<T, L, NB, NEG, 1>(a, stream); break;
+    case 2: err = launch_head_q<T, L, NB, NEG, 2>(a, stream); break;
+    case 4: err = launch_head_q<T, L, NB, NEG, 4>(a, stream); break;
+    case 8: err = launch_head_q<T, L, NB, NEG, 8>(a, stream); break;
     default: return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_combine<NB>(a.chunk_ptr, a.num_nodes, a.partial, a.ddis_r, stream);
-  if (err != cudaSuccess) return err;
-  return launch_sender_sum<NB>(a.edge_out + (NB + 1) * (size_t)a.num_edges, a.num_edges,
-                               a.sperm, a.sptr, a.schunk_ptr, a.schunk_row, a.s_chunks,
-                               a.num_nodes, a.ddis_s, a.partial, stream);
+  RowReduce rd;
+  static_cast<CsrRows&>(rd) = send;
+  rd.vals = a.terms;
+  rd.num_edges = a.num_edges;
+  rd.planes = NB;
+  rd.vec = false;   // through perm
+  rd.edge_major = true;
+  rd.skip_masked = true;
+  rd.out = ddis_s;
+  rd.partial = a.partial;
+  return launch_csr_reduce<SumOp>(rd, stream);
 }
 
 // The pair (NB = 2) takes its logits in x's dtype, the single branch
@@ -474,13 +562,12 @@ cudaError_t launch_chain(const ChainArgs<T, L, NB>& a, cudaStream_t stream) {
 template <typename T, int NB, bool NEG>
 cudaError_t chain_typed(const void* const (&x)[2], const void* const (&g)[2], const void* src,
                         const void* dst, const int* senders, const uint8_t* edge_mask,
-                        const float* dis, const int* ptr, const int* chunk_ptr,
-                        const int* chunk_row, int r_chunks, const int* sptr,
-                        const int* schunk_ptr, const int* schunk_row, const int* sperm,
-                        int s_chunks, int num_nodes, int num_edges, int h, float* edge_out,
-                        float* ddis_s, float* ddis_r, float* partial, cudaStream_t stream) {
+                        const float* dis, const CsrRows& recv, const CsrRows& send,
+                        int num_edges, int h, float* vec, float* terms, float* ddis_s,
+                        float* ddis_r, float* partial, cudaStream_t stream) {
   using L = std::conditional_t<NB == 2, T, float>;
-  ChainArgs<T, L, NB> a;
+  ChainHead<T, L, NB> a;
+  static_cast<CsrRows&>(a) = recv;
   for (int b = 0; b < NB; ++b) {
     a.x[b] = static_cast<const T*>(x[b]);
     a.g[b] = static_cast<const T*>(g[b]);
@@ -490,73 +577,105 @@ cudaError_t chain_typed(const void* const (&x)[2], const void* const (&g)[2], co
   a.senders = senders;
   a.edge_mask = edge_mask;
   a.dis = dis;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
-  a.sptr = sptr;
-  a.schunk_ptr = schunk_ptr;
-  a.schunk_row = schunk_row;
-  a.sperm = sperm;
-  a.edge_out = edge_out;
-  a.ddis_s = ddis_s;
+  a.vec = vec;
+  a.terms = terms;
   a.ddis_r = ddis_r;
   a.partial = partial;
-  a.n_chunks = r_chunks;
-  a.s_chunks = s_chunks;
-  a.num_nodes = num_nodes;
   a.num_edges = num_edges;
   a.h = h;
-  return launch_chain<T, L, NB, NEG>(a, stream);
+  return launch_chain<T, L, NB, NEG>(a, send, ddis_s, stream);
 }
 
-// ---- K6 / K16: the chain tail (dpre and its receiver sum) ----------------
+// ---- K6 / K16: the chain tail (dpre and its sums by sender and receiver) --
 
+// dpre of the edges of one CSR, a csr_reduce policy: over the receiver CSR
+// (SEND false; ddst) edge i with sender senders[i], over the sender CSR
+// (SEND true; dsrc) edge perm[i] with sender `row`.  dpre = (vec0 + ddeg_0[s]
+// - vec1 - ddeg_1[s]) vec2 (NB = 2) or (vec0 + ddeg[s]) vec1 (NB = 1),
+// negated under NEG: the twins' float operations in their order (the
+// product is __fmul_rn, never contracted into the sum).  vec[NB] is 0 on
+// dead edges (K5 writes zeros there), so a heavy chunk of masked-out edges
+// alone adds 0 and is not read.
+template <int NB, bool NEG, bool SEND>
+struct DpreSum : CsrRows {
+  static constexpr int planes = 1;
+  static constexpr bool skip_masked = true;
+  const float* vecs;     // [NB + 1, E]
+  const float* ddeg;     // [NB, V]
+  const int* senders;
+  float* out;            // [V]
+  float* partial;        // [n_heavy_chunks]
+  int num_edges;
+
+  template <typename Op, int G>
+  __device__ __forceinline__ void lane_values(int, int beg, int end, int row, int gl,
+                                              float (&acc)[kPlaneBatch]) const {
+    const size_t V = num_nodes, E = num_edges;
+    float d_row[NB];
+    if constexpr (SEND)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) d_row[b] = __ldg(ddeg + b * V + row);
+    for (int i = beg + gl; i < end; i += G) {
+      size_t e;
+      float dd[NB];
+      if constexpr (SEND) {
+        e = perm[i];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) dd[b] = d_row[b];
+      } else {
+        e = i;
+        const size_t s = senders[i];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) dd[b] = __ldg(ddeg + b * V + s);
+      }
+      float t;
+      if constexpr (NB == 2)
+        t = __ldg(vecs + e) + dd[0] - __ldg(vecs + E + e) - dd[1];
+      else
+        t = __ldg(vecs + e) + dd[0];
+      float d = __fmul_rn(t, __ldg(vecs + NB * E + e));
+      if (NEG) d = -d;
+      acc[0] = Op::apply(acc[0], d);
+    }
+  }
+};
+
+// One grid over both CSRs: the heavy chunks of the receiver CSR, then of the
+// sender CSR (a warp each, finished by their own CSR's arrivals), then the
+// light rows of each, 32 / kReduceGroup a warp.
 template <int NB, bool NEG>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-dpre_kernel(const float* __restrict__ vec, const float* __restrict__ ddeg,
-            const int* __restrict__ senders, const int* __restrict__ ptr,
-            const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row, int n_chunks,
-            int num_nodes, int num_edges, float* __restrict__ dpre, float* __restrict__ ddst,
-            float* __restrict__ partial) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+chain_tail_kernel(const DpreSum<NB, NEG, false> rv, const DpreSum<NB, NEG, true> sd) {
   const int lane = threadIdx.x & 31;
-  if (c >= n_chunks) return;
-  const Chunk k = chunk_of(c, ptr, chunk_ptr, chunk_row);
-  const size_t V = num_nodes, E = num_edges;
-  float acc[1] = {0.0f};
-  for (int i = k.beg + lane; i < k.end; i += kGroup) {
-    const int s = senders[i];
-    // vec[NB] (the sigmoid's derivative) is 0 on dead edges and self loops
-    // (w = 0 there): their dpre is 0
-    float d;
-    if constexpr (NB == 2)
-      d = (vec[i] + ddeg[s] - vec[E + i] - ddeg[V + s]) * vec[2 * E + i];
-    else
-      d = (vec[i] + ddeg[s]) * vec[E + i];
-    if (NEG) d = -d;
-    dpre[i] = d;
-    acc[0] += d;
-  }
-  finish_row<1>(acc, k, c, lane, num_nodes, ddst, partial);
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int hr = rv.n_heavy_chunks, hs = sd.n_heavy_chunks, lr = light_warps(rv);
+  if (w < hr) reduce_heavy_chunk<SumOp>(rv, w, lane);
+  else if (w < hr + hs) reduce_heavy_chunk<SumOp>(sd, w - hr, lane);
+  else if (w < hr + hs + lr) reduce_light_rows<SumOp>(rv, w - hr - hs, lane);
+  else reduce_light_rows<SumOp>(sd, w - hr - hs - lr, lane);
 }
 
 template <int NB, bool NEG>
-cudaError_t launch_dpre(const float* vec, const float* ddeg, const int* senders, const int* ptr,
-                        const int* chunk_ptr, const int* chunk_row, int r_chunks,
-                        const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                        const int* sperm, int s_chunks, int num_nodes, int num_edges,
-                        float* dpre, float* dsrc, float* ddst, float* partial,
-                        cudaStream_t stream) {
-  dpre_kernel<NB, NEG><<<(r_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                         kWarpsPerBlock * 32, 0, stream>>>(
-      vec, ddeg, senders, ptr, chunk_ptr, chunk_row, r_chunks, num_nodes, num_edges, dpre,
-      ddst, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_combine<1>(chunk_ptr, num_nodes, partial, ddst, stream);
-  if (err != cudaSuccess) return err;
-  return launch_sender_sum<1>(dpre, num_edges, sperm, sptr, schunk_ptr, schunk_row, s_chunks,
-                              num_nodes, dsrc, partial, stream);
+cudaError_t launch_tail(const float* vec, const float* ddeg, const int* senders,
+                        const CsrRows& recv, const CsrRows& send, int num_edges, float* dsrc,
+                        float* ddst, float* partial, cudaStream_t stream) {
+  DpreSum<NB, NEG, false> rv;
+  DpreSum<NB, NEG, true> sd;
+  static_cast<CsrRows&>(rv) = recv;
+  static_cast<CsrRows&>(sd) = send;
+  rv.vecs = sd.vecs = vec;
+  rv.ddeg = sd.ddeg = ddeg;
+  rv.senders = sd.senders = senders;
+  rv.num_edges = sd.num_edges = num_edges;
+  rv.out = ddst;
+  sd.out = dsrc;
+  rv.partial = partial;
+  sd.partial = partial + recv.n_heavy_chunks;
+  const int warps = recv.n_heavy_chunks + send.n_heavy_chunks + light_warps(recv) +
+                    light_warps(send);
+  chain_tail_kernel<NB, NEG><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                               kWarpsPerBlock * 32, 0, stream>>>(rv, sd);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -644,28 +763,38 @@ int sig_coef_spmm_launch(const void* x, const float* src, const float* dst, int 
 
 // K5 (branches 2: x0 = xc, x1 = xo, g0 = gc, g1 = go, logits in x's dtype)
 // / K15 (branches 1, negate: x0, g0, f32 logits; x1 and g1 unused).  dtype:
-// 0 = float32, 1 = bfloat16 (x and g).  The receiver CSR (ptr, chunk_ptr,
-// chunk_row, r_chunks) for the per-edge pass, the sender CSR (sptr,
-// schunk_ptr, schunk_row, sperm, s_chunks) for the ddis_s sums.  Writes
-// edge_out [2 branches + 1, E] (vec = rows 0 to branches; the rest are the
-// per-edge ddis_s terms), ddis_s and ddis_r [branches, V]; partial holds
-// branches * max(r_chunks, s_chunks) floats.
+// 0 = float32, 1 = bfloat16 (x and g).  The receiver CSR (graph.EdgeCsr:
+// ptr, chunk_ptr, chunk_row, heavy_chunks, heavy_masked, their count,
+// arrivals: n_heavy_chunks ints, 0 before the launch and after it) for the
+// per-edge pass, the sender CSR (the same seven, its own counters) and its
+// perm for the ddis_s sums.  Writes vec [branches + 1, E], terms (scratch:
+// [E, branches]), ddis_s and ddis_r [branches, V], all f32; partial holds
+// branches * max(n_heavy_chunks, s_heavy_chunks) floats.  h % 32 == 0, h /
+// 32 in {1, 2, 4, 8}; x and g rows 16-byte aligned (a lane loads 32 bytes,
+// csr_rows.cuh LightShape).  Two launches.
 int sddmm_chain_launch(int branches, int negate, const void* x0, const void* x1,
                        const void* g0, const void* g1, const void* src, const void* dst,
                        int dtype, const int* senders, const uint8_t* edge_mask,
                        const float* dis, const int* ptr, const int* chunk_ptr,
-                       const int* chunk_row, int r_chunks, const int* sptr,
-                       const int* schunk_ptr, const int* schunk_row, const int* sperm,
-                       int s_chunks, int num_nodes, int num_edges, int h, float* edge_out,
-                       float* ddis_s, float* ddis_r, float* partial, cudaStream_t stream) {
-  if (r_chunks <= 0 || s_chunks <= 0 || num_nodes <= 0 || num_edges <= 0 || h <= 0 || h % 32)
+                       const int* chunk_row, const int* heavy_chunks,
+                       const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
+                       const int* sptr, const int* schunk_ptr, const int* schunk_row,
+                       const int* sheavy_chunks, const uint8_t* sheavy_masked,
+                       int s_heavy_chunks, int* sarrivals, const int* sperm, int num_nodes,
+                       int num_edges, int h, float* vec, float* terms, float* ddis_s,
+                       float* ddis_r, float* partial, cudaStream_t stream) {
+  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0 || h <= 0 ||
+      h % 32)
     return (int)cudaErrorInvalidValue;
+  const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
+                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
+  const CsrRows send{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
+                     sheavy_masked, sarrivals, sperm, s_heavy_chunks, num_nodes};
   const void* const xs[2] = {x0, x1};
   const void* const gs[2] = {g0, g1};
-#define CHAIN(T, NB, NEG)                                                                    \
-  chain_typed<T, NB, NEG>(xs, gs, src, dst, senders, edge_mask, dis, ptr, chunk_ptr,         \
-                          chunk_row, r_chunks, sptr, schunk_ptr, schunk_row, sperm, s_chunks, \
-                          num_nodes, num_edges, h, edge_out, ddis_s, ddis_r, partial, stream)
+#define CHAIN(T, NB, NEG)                                                                 \
+  chain_typed<T, NB, NEG>(xs, gs, src, dst, senders, edge_mask, dis, recv, send, num_edges, \
+                          h, vec, terms, ddis_s, ddis_r, partial, stream)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1 && branches == 2) err = CHAIN(__nv_bfloat16, 2, false);
   else if (dtype == 0 && branches == 2) err = CHAIN(float, 2, false);
@@ -679,23 +808,27 @@ int sddmm_chain_launch(int branches, int negate, const void* x0, const void* x1,
 
 // K6 (branches 2: vec [3, E], ddeg [2, V]) / K16 (branches 1, negate:
 // vec [2, E], ddeg [V]): K5's / K15's vec rows and the f32 degree gradient;
-// CSRs as K5.  Writes dpre [E] (scratch), dsrc and ddst [V]; partial holds
-// max(r_chunks, s_chunks) floats.
+// the CSRs as K5.  Writes dsrc and ddst [V] f32; partial holds
+// n_heavy_chunks + s_heavy_chunks floats.  One launch.
 int dpre_launch(int branches, int negate, const float* vec, const float* ddeg,
                 const int* senders, const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                int r_chunks, const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                const int* sperm, int s_chunks, int num_nodes, int num_edges, float* dpre,
-                float* dsrc, float* ddst, float* partial, cudaStream_t stream) {
-  if (r_chunks <= 0 || s_chunks <= 0 || num_nodes <= 0 || num_edges <= 0)
+                const int* heavy_chunks, const uint8_t* heavy_masked, int n_heavy_chunks,
+                int* arrivals, const int* sptr, const int* schunk_ptr, const int* schunk_row,
+                const int* sheavy_chunks, const uint8_t* sheavy_masked, int s_heavy_chunks,
+                int* sarrivals, const int* sperm, int num_nodes, int num_edges, float* dsrc,
+                float* ddst, float* partial, cudaStream_t stream) {
+  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0)
     return (int)cudaErrorInvalidValue;
-#define DPRE(NB, NEG)                                                                       \
-  launch_dpre<NB, NEG>(vec, ddeg, senders, ptr, chunk_ptr, chunk_row, r_chunks, sptr,       \
-                       schunk_ptr, schunk_row, sperm, s_chunks, num_nodes, num_edges, dpre, \
-                       dsrc, ddst, partial, stream)
+  const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
+                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
+  const CsrRows send{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
+                     sheavy_masked, sarrivals, sperm, s_heavy_chunks, num_nodes};
+#define TAIL(NB, NEG) \
+  launch_tail<NB, NEG>(vec, ddeg, senders, recv, send, num_edges, dsrc, ddst, partial, stream)
   cudaError_t err = cudaErrorInvalidValue;
-  if (branches == 2) err = DPRE(2, false);
-  else if (branches == 1) err = negate ? DPRE(1, true) : DPRE(1, false);
-#undef DPRE
+  if (branches == 2) err = TAIL(2, false);
+  else if (branches == 1) err = negate ? TAIL(1, true) : TAIL(1, false);
+#undef TAIL
   return (int)err;
 }
 

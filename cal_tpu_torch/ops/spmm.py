@@ -147,9 +147,9 @@ def _lib():
                                          + [i, i, vp, vp, vp, vp])
         lib.sig_coef_spmm_launch.argtypes = ([vp, vp, vp, i, i] + [vp] * 5 + csr
                                              + [i, i, vp, vp, vp])
-        lib.sddmm_chain_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 6 + [i] + [
-            vp] * 4 + [i, i, i, i] + [vp] * 5
-        lib.dpre_launch.argtypes = [i, i] + [vp] * 6 + [i] + [vp] * 4 + [i, i, i] + [vp] * 5
+        lib.sddmm_chain_launch.argtypes = ([i, i] + [vp] * 6 + [i] + [vp] * 3 + csr + csr
+                                           + [vp, i, i, i] + [vp] * 6)
+        lib.dpre_launch.argtypes = [i, i] + [vp] * 3 + csr + csr + [vp, i, i] + [vp] * 4
         for f in (lib.sender_degree_launch, lib.coef_spmm_launch, lib.sig_coef_spmm_launch,
                   lib.sddmm_chain_launch, lib.dpre_launch):
             f.restype = ctypes.c_int
@@ -332,8 +332,8 @@ def plain_coef_spmm_t(gout, deg, dis, g: GraphBatch) -> torch.Tensor:
 def pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g: GraphBatch):
     """K5: (vec [3, E], ddis_s [2, V], ddis_r [2, V]) f32 (see
     ``pair_sddmm_chain_plain``); x, g and the logits of one dtype, ``dis``
-    [2, V] f32.  One launch runs the receiver pass and the sender sums.
-    ``.launches`` counts kernel launches."""
+    [2, V] f32.  Two kernel launches: the receiver pass (vec, ddis_r) and
+    the sender sums (ddis_s).  ``.launches`` counts calls."""
     v, h = xc.shape
     what = "pair_sddmm_chain"
     _check_features(what, (xc, xo, gc, go), v, h)
@@ -352,38 +352,38 @@ def pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g: GraphBatch):
 
 def _sddmm_chain_launch(what, xs, gs, src, dst, dis, g: GraphBatch, negate: bool):
     """K5 (two x/g planes: vec [3, E], ddis_s and ddis_r [2, V]) or K15 (one:
-    vec [2, E], ddis_s and ddis_r [V]) on CUDA tensors."""
+    vec [2, E], ddis_s and ddis_r [V]) on CUDA tensors: the receiver pass and
+    the sender sums, two launches."""
     nb = len(xs)
     device = xs[0].device
     (v, h), e = xs[0].shape, g.senders.shape[0]
     _check_graph(what, g, device)
     xs = [t.contiguous() for t in xs + gs]
-    _check_kernel_width(what, h, xs)
+    _check_walk_width(what, h, xs)
     src, dst, dis = src.contiguous(), dst.contiguous(), dis.contiguous()
     shape = (nb, v) if nb == 2 else (v,)
-    edge_out = torch.empty((2 * nb + 1, e), dtype=torch.float32, device=device)
+    vec = torch.empty((nb + 1, e), dtype=torch.float32, device=device)
+    terms = torch.empty((e, nb), dtype=torch.float32, device=device)
     ddis_s = torch.empty(shape, dtype=torch.float32, device=device)
     ddis_r = torch.empty(shape, dtype=torch.float32, device=device)
-    partial = torch.empty((max(g.recv.num_chunks, g.send.num_chunks), nb), dtype=torch.float32,
-                          device=device)
+    partial = torch.empty((max(g.recv.heavy_chunks.shape[0], g.send.heavy_chunks.shape[0]), nb),
+                          dtype=torch.float32, device=device)
     x1, g1 = (xs[1], xs[3]) if nb == 2 else (None, None)
     err = _lib().sddmm_chain_launch(
         nb, int(negate), xs[0].data_ptr(), None if x1 is None else x1.data_ptr(),
         xs[nb].data_ptr(), None if g1 is None else g1.data_ptr(), src.data_ptr(),
         dst.data_ptr(), _DTYPES[xs[0].dtype], g.senders.data_ptr(), g.edge_mask.data_ptr(),
-        dis.data_ptr(), g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(),
-        g.recv.chunk_row.data_ptr(), g.recv.num_chunks, g.send.ptr.data_ptr(),
-        g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(), g.send.perm.data_ptr(),
-        g.send.num_chunks, v, e, h, edge_out.data_ptr(), ddis_s.data_ptr(), ddis_r.data_ptr(),
+        dis.data_ptr(), *_walk_csr(g.recv), *_walk_csr(g.send), g.send.perm.data_ptr(), v, e, h,
+        vec.data_ptr(), terms.data_ptr(), ddis_s.data_ptr(), ddis_r.data_ptr(),
         partial.data_ptr(), _stream(device))
     build.check(err, what)
-    return edge_out[:nb + 1], ddis_s, ddis_r
+    return vec, ddis_s, ddis_r
 
 
 def pair_dpre(vec, ddeg, g: GraphBatch):
     """K6: (dsrc, ddst) [V] f32 from K5's ``vec`` [3, E] and the degree
-    gradient ``ddeg`` [2, V] f32.  One launch runs the receiver pass and the
-    sender sums.  ``.launches`` counts kernel launches."""
+    gradient ``ddeg`` [2, V] f32.  One kernel launch over both CSRs.
+    ``.launches`` counts calls."""
     v, e = g.num_nodes, g.senders.shape[0]
     what = "pair_dpre"
     if tuple(vec.shape) != (3, e) or tuple(ddeg.shape) != (2, v) or any(
@@ -402,21 +402,19 @@ def pair_dpre(vec, ddeg, g: GraphBatch):
 
 
 def _dpre_launch(what, vec, ddeg, g: GraphBatch, nb: int, negate: bool):
-    """K6 (nb 2) or K16 (nb 1): (dsrc, ddst) [V] f32 on CUDA tensors."""
+    """K6 (nb 2) or K16 (nb 1): (dsrc, ddst) [V] f32 on CUDA tensors, one
+    launch over both CSRs."""
     device, v, e = vec.device, g.num_nodes, g.senders.shape[0]
     _check_graph(what, g, device)
     vec, ddeg = vec.contiguous(), ddeg.contiguous()
-    dpre = torch.empty(e, dtype=torch.float32, device=device)
     dsrc = torch.empty(v, dtype=torch.float32, device=device)
     ddst = torch.empty(v, dtype=torch.float32, device=device)
-    partial = torch.empty(max(g.recv.num_chunks, g.send.num_chunks), dtype=torch.float32,
-                          device=device)
+    partial = torch.empty(g.recv.heavy_chunks.shape[0] + g.send.heavy_chunks.shape[0],
+                          dtype=torch.float32, device=device)
     err = _lib().dpre_launch(
         nb, int(negate), vec.data_ptr(), ddeg.data_ptr(), g.senders.data_ptr(),
-        g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(), g.recv.chunk_row.data_ptr(),
-        g.recv.num_chunks, g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(),
-        g.send.chunk_row.data_ptr(), g.send.perm.data_ptr(), g.send.num_chunks, v, e,
-        dpre.data_ptr(), dsrc.data_ptr(), ddst.data_ptr(), partial.data_ptr(), _stream(device))
+        *_walk_csr(g.recv), *_walk_csr(g.send), g.send.perm.data_ptr(), v, e, dsrc.data_ptr(),
+        ddst.data_ptr(), partial.data_ptr(), _stream(device))
     build.check(err, what)
     return dsrc, ddst
 
@@ -632,8 +630,8 @@ def sigmoid_coef_spmm_t(gout, src, dst, deg, dis, g: GraphBatch, negate: bool = 
 def sigmoid_sddmm_chain(x, gout, src, dst, dis, g: GraphBatch, negate: bool = False):
     """K15: (vec [2, E], ddis_s [V], ddis_r [V]) f32 (see
     ``sigmoid_sddmm_chain_plain``); x, gout and the logits of one dtype,
-    ``dis`` [V] f32.  One launch runs the receiver pass and the sender sums.
-    ``.launches`` counts kernel launches."""
+    ``dis`` [V] f32.  Two kernel launches, as K5's.  ``.launches`` counts
+    calls."""
     what = "sigmoid_sddmm_chain"
     v, h = x.shape
     _check_features(what, (x, gout), v, h)
@@ -652,8 +650,8 @@ def sigmoid_sddmm_chain(x, gout, src, dst, dis, g: GraphBatch, negate: bool = Fa
 
 def sigmoid_dpre(vec, ddeg, g: GraphBatch, negate: bool = False):
     """K16: (dsrc, ddst) [V] f32 from K15's ``vec`` [2, E] and the degree
-    gradient ``ddeg`` [V] f32.  One launch runs the receiver pass and the
-    sender sums.  ``.launches`` counts kernel launches."""
+    gradient ``ddeg`` [V] f32.  One kernel launch over both CSRs.
+    ``.launches`` counts calls."""
     what = "sigmoid_dpre"
     v, e = g.num_nodes, g.senders.shape[0]
     if tuple(vec.shape) != (2, e) or tuple(ddeg.shape) != (v,) or any(

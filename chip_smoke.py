@@ -211,10 +211,12 @@ den, dti, dtj, dxh); from another tree's root, for an A/B.
     python3 chip_smoke.py --walk
 
 builds the kernels and runs the coefficient SpMM walk alone: the ptxas
-report of its instances, each sparse batch's degree profile and ``copy_``
-floor, every sparse kernel held against its twin and timed on the serving
-and REDDIT batches (row 12 also on config 4's graph), the walk's rows by
-batch, and both digest lines; from another tree's root, for an A/B.
+report of its instances and of spmm.cu's other kernels, each sparse batch's
+degree profile and ``copy_`` floor, every sparse kernel held against its
+twin and timed on the serving and REDDIT batches (row 12 also on config 4's
+graph; K5, K6, K15 and K16 with the warm device ms of each kernel a call
+launches), the walk's rows by batch, and both digest lines; from another
+tree's root, for an A/B.
 """
 from __future__ import annotations
 
@@ -1470,11 +1472,23 @@ def _library_spmm_t(torch, g, coefs, gs):
     return lambda: torch.sparse.mm(a, x)
 
 
+def repeated(torch, g, what, fn):
+    """fn()'s outputs, after checking that the call left both of ``g``'s
+    CSRs' arrival counters at 0 and that a second call repeats its bits."""
+    got = fn()
+    torch.cuda.synchronize()
+    check(not g.recv.arrivals.any() and not g.send.arrivals.any(),
+          f"{what} left arrival counters set")
+    check(all(torch.equal(a, b) for a, b in zip(got, fn())), f"{what} differs between two calls")
+    return got
+
+
 def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
     """K2T, K3T, K5, K6 and K7 against their twins on one sparse batch ``g``
     (on the card), bf16 and f32, every f32 backward also against autograd
-    of the f32 forward twins; with their times.  Returns {dtype: {kernel:
-    row}}."""
+    of the f32 forward twins; with their times (K5's and K6's also with the
+    warm device ms of each kernel a call launches, ``passes``).  Returns
+    {dtype: {kernel: row}}."""
     from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.pool import (
         segment_pool, segment_pool_bwd, segment_pool_bwd_plain, segment_pool_plain)
@@ -1508,6 +1522,8 @@ def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "nodes": v, "edges": e, "live_edges": n_live}
+            if name in ("pair_sddmm_chain", "pair_dpre"):
+                r["passes"] = profile_passes(torch, fn)
             emit({"phase": "sparse_bwd_kernel", **r})
             rows[name] = r
 
@@ -1548,7 +1564,9 @@ def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
         chain = lambda: spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
         chain_p = lambda: spmm.pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
         ref = chain_p()
-        err = held("pair_sddmm_chain", chain(), ref, CHAIN_TOL)
+        err = held("pair_sddmm_chain",
+                   repeated(torch, g, f"pair_sddmm_chain {dt_name} on {label}", chain), ref,
+                   CHAIN_TOL)
         none = "none: no single PyTorch call computes the {} of the pair VJP"
         row("pair_sddmm_chain", chain, chain_p,
             4 * v * H * elt + 2 * v * elt + 5 * e + csr(g.recv) + 4 * e + csr(g.send)
@@ -1557,8 +1575,9 @@ def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
 
         vec = ref[0]
         ddeg = torch.randn((2, v), generator=gen, device="cuda")
-        err = held("pair_dpre", spmm.pair_dpre(vec, ddeg, g), spmm.pair_dpre_plain(vec, ddeg, g),
-                   CHAIN_TOL)
+        err = held("pair_dpre", repeated(torch, g, f"pair_dpre {dt_name} on {label}",
+                                         lambda: spmm.pair_dpre(vec, ddeg, g)),
+                   spmm.pair_dpre_plain(vec, ddeg, g), CHAIN_TOL)
         row("pair_dpre", lambda: spmm.pair_dpre(vec, ddeg, g),
             lambda: spmm.pair_dpre_plain(vec, ddeg, g),
             3 * e * 4 + 2 * v * 4 + 4 * e + csr(g.recv) + 4 * e + csr(g.send) + 2 * v * 4,
@@ -2678,7 +2697,9 @@ def _sig_coefs(torch, g, src, dst, dis, negate):
 def sigmoid_kernel_rows(torch, g, label, peaks, flush):
     """K13-K16 (row 12) against their twins on one sparse batch ``g`` (on the
     card), x in bf16 and f32 with f32 logits (config 4's), ``negate`` both
-    ways, with their times; returns {(dtype, negate): {kernel: row}}."""
+    ways, with their times (K15's and K16's also with the warm device ms of
+    each kernel a call launches, ``passes``); returns {(dtype, negate):
+    {kernel: row}}."""
     from cal_tpu_torch.ops import spmm
 
     bw, _, f32_peak = peaks
@@ -2707,6 +2728,8 @@ def sigmoid_kernel_rows(torch, g, label, peaks, flush):
                      "bound_ms": max(t_bytes, t_ops) * 1e3,
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "nodes": v, "edges": e, "live_edges": n_live}
+                if name in ("sigmoid_sddmm_chain", "sigmoid_dpre"):
+                    r["passes"] = profile_passes(torch, fn)
                 emit({"phase": "sigmoid_kernel", **r})
                 rows[name] = r
 
@@ -2749,8 +2772,11 @@ def sigmoid_kernel_rows(torch, g, label, peaks, flush):
                     "torch.sparse.mm(CSR [V, V]" + (" transposed" if transpose else "")
                     + ", x), coefficients materialized outside the call, no self term")
             ref = spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate)
-            err = held("sigmoid_sddmm_chain",
-                       spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate), ref, CHAIN_TOL)
+            what = f"{dt_name} negate={negate} on {label}"
+            err = held("sigmoid_sddmm_chain", repeated(
+                torch, g, f"sigmoid_sddmm_chain {what}",
+                lambda: spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate)),
+                ref, CHAIN_TOL)
             row("sigmoid_sddmm_chain",
                 lambda: spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate),
                 lambda: spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate),
@@ -2758,8 +2784,10 @@ def sigmoid_kernel_rows(torch, g, label, peaks, flush):
                 + csr(g.recv) + csr(g.send), 2 * H * n_live, err, CHAIN_TOL,
                 None, "none: no single PyTorch call computes the SDDMM with its chain values")
             vec = ref[0]
-            err = held("sigmoid_dpre", spmm.sigmoid_dpre(vec, ddeg, g, negate),
-                       spmm.sigmoid_dpre_plain(vec, ddeg, g, negate), CHAIN_TOL)
+            err = held("sigmoid_dpre", repeated(
+                torch, g, f"sigmoid_dpre {what}",
+                lambda: spmm.sigmoid_dpre(vec, ddeg, g, negate)),
+                spmm.sigmoid_dpre_plain(vec, ddeg, g, negate), CHAIN_TOL)
             row("sigmoid_dpre", lambda: spmm.sigmoid_dpre(vec, ddeg, g, negate),
                 lambda: spmm.sigmoid_dpre_plain(vec, ddeg, g, negate),
                 8 * e + 4 * v + 8 * e + 8 * v + csr(g.recv) + csr(g.send), 3 * n_live, err,
@@ -3164,10 +3192,10 @@ def dense_digests(torch, batch) -> dict:
 def sparse_digests(torch, batches: dict) -> dict:
     """sha256 of every instantiation of the coefficient SpMM walk (K2, K2T,
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
-    HEADS heads), of K21 (4 planes, dead edges left random) and of K8's,
-    K9's, K9T's and K10's outputs (each apart, K9 / K9T at rate 0 and
-    GAT_RATE, K10 at GAT_RATE) on seeded inputs over each
-    sparse batch, bf16 and f32 (K21's values f32).  The
+    HEADS heads), of K21 (4 planes, dead edges left random), of K8's, K9's,
+    K9T's and K10's outputs (each apart, K9 / K9T at rate 0 and GAT_RATE,
+    K10 at GAT_RATE) and the chain's (``chain_digests``) on seeded inputs
+    over each sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
     another tree's root with ``--digests``, as ``dense_digests``."""
@@ -3224,6 +3252,42 @@ def sparse_digests(torch, batches: dict) -> dict:
                     [gs.gat_coef_spmm(x, tj, ti, m_ref, words, rate, g)])
                 out[f"K9T_{label}_{dt_name}_r{rate}"] = _digest(
                     [gs.gat_coef_spmm_t(w.to(dt), tj, ti, m_ref, words, rate, g)])
+    return {**out, **chain_digests(torch, batches)}
+
+
+def chain_digests(torch, batches: dict) -> dict:
+    """sha256 of K5's, K6's, K15's and K16's outputs (each apart, K15 / K16
+    at both ``negate`` values) on seeded inputs over each sparse batch, x and
+    g in bf16 and f32 (K6's and K16's vec planes, 0 on dead edges as K5
+    writes them, and ddeg f32).  Only public wrappers: from another tree's
+    root it gives that tree's bits."""
+    from cal_tpu_torch.ops import spmm
+
+    out = {}
+    heads, tails = ("vec", "ddis_s", "ddis_r"), ("dsrc", "ddst")
+    for label, g in batches.items():
+        v, e = g.num_nodes, g.senders.shape[0]
+        live = g.edge_mask & (g.senders != g.receivers)
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+            xc, xo, gc, go = (torch.randn((v, H), generator=gen, device="cuda").to(dt)
+                              for _ in range(4))
+            src = torch.randn(v, generator=gen, device="cuda")
+            dst = 2.0 * torch.randn(v, generator=gen, device="cuda")
+            dis = torch.rsqrt(1.0 + 4.0 * torch.rand((2, v), generator=gen, device="cuda"))
+            vec = torch.randn((3, e), generator=gen, device="cuda") * live
+            ddeg = torch.randn((2, v), generator=gen, device="cuda")
+            chain = {"K5": (heads, lambda: spmm.pair_sddmm_chain(
+                         xc, xo, gc, go, src.to(dt), dst.to(dt), dis, g)),
+                     "K6": (tails, lambda: spmm.pair_dpre(vec, ddeg, g))}
+            for neg in (False, True):
+                chain[f"K15_neg{int(neg)}"] = (heads, lambda neg=neg: spmm.sigmoid_sddmm_chain(
+                    xc, gc, src, dst, dis[0], g, neg))
+                chain[f"K16_neg{int(neg)}"] = (tails, lambda neg=neg: spmm.sigmoid_dpre(
+                    vec[1:], ddeg[0], g, neg))
+            for name, (parts, fn) in chain.items():
+                for part, t in zip(parts, fn(), strict=True):
+                    out[f"{name}_{part}_{label}_{dt_name}"] = _digest([t])
     return out
 
 
@@ -3264,8 +3328,14 @@ def ptxas_walk(report: dict, libs=("spmm", "coo_spmm")) -> dict:
     kernels (csr_spmm_kernel, csr_spmm_combine) in ``libs`` (spmm.cu and
     coo_spmm.cu; gat_sparse.cu for K9 / K9T), from nvcc's ``-Xptxas -v``
     logs; an instance is named by its policy, element type and integer and
-    bool template arguments (branches or heads, NEG or TRANS, H / 32)."""
-    out = {}
+    bool template arguments (branches or heads, NEG or TRANS, H / 32).
+    With spmm.cu, also its other kernels (K1's, K5's receiver pass
+    ``chain_head_kernel<dtype, branches, NEG, H / 32>`` and sender sums
+    ``csr_reduce_kernel``, K6's ``chain_tail_kernel<branches, NEG>``), named
+    by their element type and integer and bool template arguments."""
+    out = {} if "spmm" not in libs else {
+        k: v for k, v in ptxas_instances(report, ["spmm"]).items()
+        if not k.startswith("csr_spmm_kernel")}
     for lib in libs:
         name = None
         for ln in report.get(lib, {}).get("log", "").splitlines():
@@ -3303,10 +3373,40 @@ def _mangled_kernel(mangled: str):
     return None, ""
 
 
+def _first_targs(targs: str) -> str:
+    """The first template argument list (``I ... E``) of a mangled name's
+    tail: literals (``L ... E``), substitutions (``S_``, ``S0_``), template
+    parameters (``T_``) and length-prefixed names skipped whole."""
+    depth, i = 0, 0
+    while i < len(targs):
+        c = targs[i]
+        if c == "L":
+            i = targs.index("E", i) + 1
+            continue
+        if c in "ST":
+            i = targs.index("_", i) + 1
+            continue
+        if c.isdigit():
+            j = i
+            while targs[j].isdigit():
+                j += 1
+            i = j + int(targs[i:j])
+            continue
+        if c in "IXN":
+            depth += 1
+        elif c == "E":
+            depth -= 1
+            if depth == 0:
+                return targs[:i + 1]
+        i += 1
+    return targs
+
+
 def ptxas_instances(report: dict, libs) -> dict:
     """{instance: registers, spill bytes} of every ``*_kernel`` of the
     libraries ``libs``, from nvcc's ``-Xptxas -v`` logs; an instance is
-    named by its element type and integer template arguments."""
+    named by its element type and the integer and bool arguments of the
+    kernel's own template argument list."""
     out = {}
     for lib in libs:
         name = None
@@ -3317,7 +3417,7 @@ def ptxas_instances(report: dict, libs) -> dict:
                 name = None
                 if kernel:
                     t = re.search(r"^I(13__nv_bfloat16|f)", targs)
-                    ints = re.findall(r"Li(\d+)E", targs)
+                    ints = re.findall(r"L[ib](\d+)E", _first_targs(targs))
                     parts = ([("bf16" if t.group(1) != "f" else "f32")] if t else []) + ints
                     name = f"{kernel}<{', '.join(parts)}>" if parts else kernel
                 continue
@@ -3930,7 +4030,9 @@ def walk_main() -> int:
     (run this file from the other tree's root): the build's ptxas report of
     the walk, each sparse batch's csr_profile, every sparse kernel held
     against its twin and timed on the serving and REDDIT batches (row 12
-    also on config 4's graph), the walk's rows by batch, and the digests."""
+    also on config 4's graph; K5, K6, K15 and K16 with the warm device ms
+    of each kernel a call launches), the walk's rows by batch, and the
+    digests (the chain's among the sparse ones)."""
     import torch
 
     if missing(torch):

@@ -605,9 +605,18 @@ def test_sparse_backward_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
     # K5 and K6: their sums by sender and by receiver against the twins'
     # per-edge terms summed in f64 (_sum_f64; the hub's f32 index_add_ sum of
     # 3,000 terms moves between runs on the card by about the tolerance)
+    # K5 and K6 leave both CSRs' arrival counters at 0, give the same bits
+    # on a second call, and write vec = 0 exactly on dead edges (the padded
+    # run included), which keeps them out of K6's sums
     s, r = g.senders.long(), g.receivers.long()
     live = g.edge_mask & (s != r)
+    idle = lambda: not g.recv.arrivals.any() and not g.send.arrivals.any()
     got = spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
+    torch.cuda.synchronize()
+    assert idle() and (got[0][:, ~live] == 0).all()
+    again = spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)
+    torch.cuda.synchronize()
+    assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
     ref = spmm.pair_sddmm_chain_plain(xc, xo, gc, go, src, dst, dis, g)
     sig = torch.sigmoid(src.float()[s] + dst.float()[r])
     w = torch.stack([sig, 1.0 - sig]).double() * live
@@ -623,16 +632,21 @@ def test_sparse_backward_kernels_match_plain(cuda, v, e, hub, pad, h, dtype):
     ddeg = torch.randn((2, v), generator=torch.Generator(device=cuda).manual_seed(v),
                        device=cuda)
     dpre = ((vec[0] + ddeg[0][s] - vec[1] - ddeg[1][s]) * vec[2])[:, None]
-    for a, b in zip(spmm.pair_dpre(vec, ddeg, g),
-                    (_sum_f64(s, dpre, v)[:, 0], _sum_f64(r, dpre, v)[:, 0])):
+    got = spmm.pair_dpre(vec, ddeg, g)
+    torch.cuda.synchronize()
+    assert idle()
+    for a, b in zip(got, (_sum_f64(s, dpre, v)[:, 0], _sum_f64(r, dpre, v)[:, 0])):
         torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    again = spmm.pair_dpre(vec, ddeg, g)
+    torch.cuda.synchronize()
+    assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
 
     dpooled = torch.randn((6, h), generator=torch.Generator(device=cuda).manual_seed(h),
                           device=cuda)
     got = segment_pool_bwd(dpooled, g.node_graph, DT[dtype])
     assert torch.equal(got, segment_pool_bwd_plain(dpooled, g.node_graph, DT[dtype]))
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2, 2, 1]
 
 
 def test_sparse_backward_kernels_match_autograd(cuda):
@@ -707,6 +721,50 @@ def test_sparse_backward_kernels_are_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))
 
 
+def test_chain_kernel_launches(cuda):
+    """K5 and K15 are two device kernels a call (the receiver pass and
+    csr_reduce_kernel's sender sums), K6 and K16 one over both CSRs; none of
+    them is a pass over all V rows (row_combine)."""
+    from cal_tpu_torch.ops import spmm
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=23, isolated=7)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, v, 128, "bfloat16", 23)
+    dis = torch.rsqrt(spmm.pair_sender_degree_plain(src, dst, g) + 1.0)
+    s32, d32 = src.float(), dst.float()
+    ddeg = torch.randn((2, v), generator=torch.Generator(device=cuda).manual_seed(23),
+                       device=cuda)
+    vec = spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g)[0]
+    vec1 = spmm.sigmoid_sddmm_chain(xc, gc, s32, d32, dis[0], g, True)[0]
+    for head, tail in (
+            (lambda: spmm.pair_sddmm_chain(xc, xo, gc, go, src, dst, dis, g),
+             lambda: spmm.pair_dpre(vec, ddeg, g)),
+            (lambda: spmm.sigmoid_sddmm_chain(xc, gc, s32, d32, dis[0], g, True),
+             lambda: spmm.sigmoid_dpre(vec1, ddeg[0], g, True))):
+        names = _device_kernels(head)
+        assert len(names) == 2, names
+        assert "chain_head_kernel" in names[0] and "csr_reduce_kernel" in names[1], names
+        names = _device_kernels(tail)
+        assert len(names) == 1 and "chain_tail_kernel" in names[0], names
+
+
+def test_chain_head_raises_on_misaligned_rows(cuda):
+    """K5 and K15 load 16 bytes of a row at a time: a feature row off that
+    alignment raises instead of launching."""
+    from cal_tpu_torch.ops import spmm
+
+    v, h = 512, 128
+    g = _sparse_graph(cuda, v, 1500, 40, 33, seed=24)
+    xc, xo, gc, go, src, dst = _bwd_inputs(cuda, v, h, "bfloat16", 24)
+    dis = torch.rsqrt(spmm.pair_sender_degree_plain(src, dst, g) + 1.0)
+    off = torch.empty(v * h + 1, dtype=torch.bfloat16, device=cuda)[1:].view(v, h)
+    off.copy_(gc)
+    with pytest.raises(ValueError, match="aligned"):
+        spmm.pair_sddmm_chain(xc, xo, off, go, src, dst, dis, g)
+    with pytest.raises(ValueError, match="aligned"):
+        spmm.sigmoid_sddmm_chain(off, gc, src.float(), dst.float(), dis[0], g)
+
+
 # ---- row 12, one sigmoid-weighted branch: K13-K16 (csrc/spmm.cu) ----------
 # Same rounding points in kernel and twin (csrc/spmm.cu header).  K13: f32
 # sums of sigmoids in another order with expf, rsqrtf against PyTorch's
@@ -748,17 +806,30 @@ def test_sigmoid_kernels_match_plain(cuda, v, e, hub, pad, h, dtype, negate, log
         ref = spmm.sigmoid_coef_spmm_plain(inp, src, dst, deg, dis, g, negate, transpose)
         assert got.dtype == DT[dtype] and torch.isfinite(got.float()).all()
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    # K15 and K16 as K5 and K6: counters at 0, the same bits again, vec = 0
+    # exactly on dead edges
+    live = g.edge_mask & (g.senders != g.receivers)
+    idle = lambda: not g.recv.arrivals.any() and not g.send.arrivals.any()
     got = spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate)
+    torch.cuda.synchronize()
+    assert idle() and (got[0][:, ~live] == 0).all()
+    again = spmm.sigmoid_sddmm_chain(x, gout, src, dst, dis, g, negate)
+    torch.cuda.synchronize()
+    assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
     ref = spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, negate)
     for a, b in zip(got, ref, strict=True):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
     ddeg = torch.randn(v, generator=torch.Generator(device=cuda).manual_seed(v), device=cuda)
-    for a, b in zip(spmm.sigmoid_dpre(ref[0], ddeg, g, negate),
-                    spmm.sigmoid_dpre_plain(ref[0], ddeg, g, negate), strict=True):
-        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    got = spmm.sigmoid_dpre(ref[0], ddeg, g, negate)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(_sigmoid_counters(), before)] == [1] * 5
+    assert idle()
+    for a, b in zip(got, spmm.sigmoid_dpre_plain(ref[0], ddeg, g, negate), strict=True):
+        torch.testing.assert_close(a, b, atol=CHAIN_TOL[0], rtol=CHAIN_TOL[1])
+    again = spmm.sigmoid_dpre(ref[0], ddeg, g, negate)
+    torch.cuda.synchronize()
+    assert idle() and all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [k.launches - b for k, b in zip(_sigmoid_counters(), before)] == [1, 1, 1, 2, 2]
 
 
 def test_sigmoid_aggregate_matches_autograd_and_launches(cuda):
@@ -1480,26 +1551,28 @@ def _ref_live(adj):
 
 
 def _device_kernels(fn):
-    """Names of the kernels one call of ``fn`` launches (torch.profiler, after
-    an unrecorded warm-up call inside it; memory copies and sets are not
-    kernels).  A window in which the profiler recorded nothing is taken
-    again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    """Names of the kernels one call of ``fn`` launches, in launch order
+    (torch.profiler, after a warm-up call outside it; memory copies and sets
+    are not kernels).  Inside the window the call follows a marker kernel (a
+    fill of an f64 tensor, a type no wrapper fills): the profiler can miss a window's first kernels, so a window in
+    which it did not record the marker is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        names = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: names.extend(
-                         e.name for e in p.events()
-                         if str(e.device_type).endswith("CUDA")
-                         and not e.name.startswith(("Memcpy", "Memset")))) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        if names:
-            return names
+    fn()
+    torch.cuda.synchronize()
+    mark = torch.empty(1, dtype=torch.float64, device="cuda")
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mark.fill_(1.0)
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
+                         and not e.name.startswith(("Memcpy", "Memset"))),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        first = next((i for i, n in enumerate(names) if "FillFunctor<double>" in n), None)
+        if first is not None:
+            return names[first + 1:]
     raise AssertionError("the profiler recorded no kernel")
 
 

@@ -122,12 +122,14 @@ def test_sparse_host_batches_match_jax(bs, shuffle):
     assert n == len(tl) and len(tg) % bs     # the last batch is partial
 
 
-def _workload(rng, v=256, e=700, h=16, pad_frac=0.15, hub=90):
+def _workload(rng, v=256, e=700, h=16, pad_frac=0.15, hub=90, send_hub=0):
     """Receiver-sorted random edges with self loops, a hub receiver and a
-    masked padded tail at node V-1, as tests/test_pallas_spmm.py builds."""
+    masked padded tail at node V-1, as tests/test_pallas_spmm.py builds;
+    ``send_hub`` more out-edges of node 11 make it a hub sender."""
     senders = rng.integers(0, v, e)
     receivers = rng.integers(0, v - 1, e)
     receivers[:hub] = 7                                  # hub row: several chunks
+    senders[hub:hub + send_hub] = 11                     # hub sender: several chunks
     idx = rng.choice(e, e // 20, replace=False)
     senders[idx] = receivers[idx]                        # self loops, dropped
     n_real = int(e * (1 - pad_frac))

@@ -41,6 +41,8 @@ from cal_tpu.data.synthetic import dataset_bias_split as jax_split
 from cal_tpu.data.synthetic import generate_synthetic_dataset as jax_generate
 from cal_tpu.ops.pallas_pool import mxu_pool
 from cal_tpu.ops.pallas_spmm import (
+    _pair_dpre_call,
+    _pair_sddmm_chain_call,
     gcn_aggregate_sparse_plain_pallas,
     gcn_aggregate_sparse_sigmoid_pair_pallas,
 )
@@ -95,6 +97,46 @@ def test_pair_backward_twins_match_jax(dtype):
         assert a.dtype == TDT[dtype] and torch.isfinite(a.float()).all(), name
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
                                    err_msg=name, **SPMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("send_hub", [0, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_chain_twins_match_pallas_calls(dtype, send_hub):
+    """K5's twin against ``_pair_sddmm_chain_call`` and K6's against
+    ``_pair_dpre_call`` on their node outputs: ddis_s, ddis_r, then dsrc and
+    ddst.  Each package's K6 takes its own K5's vec (cal_tpu's is in
+    tile-slot order) and the same ddeg, formed from the twins' ddis sums as
+    the aggregate's backward forms it.  The workload has a 90-edge hub
+    receiver and a masked padded run at node V-1; ``send_hub`` gives node 11
+    40 more out-edges, a sender of two chunks.  bf16: cal_tpu's plans round
+    the gathered planes, x, g and each slot term (SPMM_TOL)."""
+    rng = np.random.default_rng(4)
+    g, (xc, xo), (src, dst) = _workload(rng, send_hub=send_hub)
+    gc, go = (rng.standard_normal(xc.shape).astype(np.float32) for _ in range(2))
+    gt = g.to("cpu")
+    assert int((np.diff(gt.send.chunk_ptr.numpy()) > 1).sum()) == 1 + (send_hub > 0)
+    v, h = xc.shape
+    tf, _ = _plans(g, _plan_precision(dtype))
+    t = lambda a: torch.from_numpy(a).to(TDT[dtype])
+    deg = spmm_mod.pair_sender_degree_plain(t(src), t(dst), gt) + 1.0
+    dis = torch.rsqrt(deg)
+    vec, ddis_s, ddis_r = spmm_mod.pair_sddmm_chain(t(xc), t(xo), t(gc), t(go), t(src), t(dst),
+                                                    dis, gt)
+    j = lambda a: jnp.asarray(np.asarray(t(a).float()), JDT[dtype])
+    vecs, ref_s, ref_r = _pair_sddmm_chain_call(
+        jnp.concatenate([j(xc), j(xo)], 1), jnp.concatenate([j(gc), j(go)], 1), j(src), j(dst),
+        jnp.asarray(dis.numpy()), tf, NB, h)
+    inv = 1.0 / deg
+    gx = torch.stack([(t(gc).float() * t(xc).float()).sum(1),
+                      (t(go).float() * t(xo).float()).sum(1)])
+    ddeg = -gx * inv * inv + (ddis_s + ddis_r) * (-0.5) * dis * inv
+    dsrc, ddst = spmm_mod.pair_dpre(vec, ddeg, gt)
+    ref_src, ref_dst = _pair_dpre_call(vecs, jnp.asarray(ddeg.numpy()), tf, v, NB)
+    for name, a, b in (("ddis_s", ddis_s, ref_s), ("ddis_r", ddis_r, ref_r),
+                       ("dsrc", dsrc, ref_src[0]), ("ddst", ddst, ref_dst[0])):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b, np.float32), err_msg=name,
+                                   **SPMM_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
