@@ -1,12 +1,12 @@
 // Shared CSR-row machinery of the sparse kernels (spmm.cu, gat_sparse.cu,
 // coo_spmm.cu): the chunk split of graph.edge_csr, vector loads and stores of
-// a lane's features, the per-warp row sums with their combine pass over all
-// rows (K1 and K13 only), the coefficient SpMM walk that K2/K3, K11, K14,
-// K19 and K9/K9T instantiate, and the per-row reduction of per-edge values
-// that K21 (a max), K5's and K10's sender sums and K6 (both CSRs in one
-// grid) instantiate (both walks: light rows by row, several a warp; heavy
-// rows by chunk from a host-built list, each finished by its last chunk to
-// arrive).  Included by each source; it is not a build target of its own.
+// a lane's features, the coefficient SpMM walk that K2/K3, K11, K14, K19 and
+// K9/K9T instantiate, and the per-row reduction of per-edge values that K21
+// (a max), K1 / K13 (the sender degree), K5's and K10's sender sums and K6
+// (both CSRs in one grid) instantiate (both walks: light rows by row,
+// several a warp; heavy rows by chunk from a host-built list, each finished
+// by its last chunk to arrive).  Included by each source; it is not a build
+// target of its own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -129,55 +129,6 @@ __device__ __forceinline__ Chunk chunk_of(int c, const int* __restrict__ ptr,
   k.beg = row_beg + (c - first) * span;
   k.end = min(k.beg + span, row_end);
   return k;
-}
-
-// ---- row sums: the combine pass of long rows ---------------------------
-
-// out[j][v] = the sum in chunk order of the NC partials of every row v of
-// more than one chunk (rows of one chunk were written by their warp).
-template <int NC>
-__global__ void row_combine(const int* __restrict__ chunk_ptr, int num_nodes,
-                            const float* __restrict__ partial, float* __restrict__ out) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= num_nodes) return;
-  const int c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
-  if (c1 - c0 <= 1) return;
-  float acc[NC];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.0f;
-#pragma unroll 8
-  for (int c = c0; c < c1; ++c)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] += partial[NC * c + j];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) out[(size_t)j * num_nodes + v] = acc[j];
-}
-
-template <int NC>
-cudaError_t launch_combine(const int* chunk_ptr, int num_nodes, const float* partial,
-                           float* out, cudaStream_t stream) {
-  row_combine<NC><<<(num_nodes + 255) / 256, 256, 0, stream>>>(chunk_ptr, num_nodes, partial,
-                                                                out);
-  return cudaGetLastError();
-}
-
-// The warp's per-lane sums of a chunk of row v: written to out[j][v] when
-// the row has one chunk, else to the chunk's NC partials.
-template <int NC>
-__device__ __forceinline__ void finish_row(float (&acc)[NC], const Chunk& k, int c, int lane,
-                                           int num_nodes, float* __restrict__ out,
-                                           float* __restrict__ partial) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      if (k.count == 1) out[(size_t)j * num_nodes + k.row] = acc[j];
-      else partial[NC * c + j] = acc[j];
-    }
-  }
 }
 
 // ---- coefficient SpMM over a CSR (K2/K3/K14 of spmm.cu, K11/K19 of
@@ -563,42 +514,61 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
   }
 }
 
-// ---- per-row reductions of per-edge values (K21, K5's and K10's sender
-// sums, K6) --------------------------------------------------------------
+// ---- per-row reductions of per-edge values (K21, K1 / K13, K5's and
+// K10's sender sums, K6) -------------------------------------------------
 //
 // out[q][r] = init op v_q(e_1) op v_q(e_2) ... over the edges of row r, for
 // `planes` f32 values v_q per edge, with an associative Op (K21: max from
 // -1e30 over the receiver CSR; K5's ddis_s and K10's dtj: sums from 0 over
-// the sender CSR of values stored edge-major, [E, planes]; K6: sums of a
-// value formed from the edge's inputs, over both CSRs in one grid).  The
-// values come from a policy R, a CsrRows with planes, skip_masked, out
-// ([planes, num_nodes]), partial ([n_heavy_chunks, planes]) and
+// the sender CSR of values stored edge-major, [E, planes]; K1 / K13 and K6:
+// sums of values formed from the edge's inputs, K6 over both CSRs in one
+// grid).  The values come from a policy R, a CsrRows with planes,
+// skip_masked, out ([planes, num_nodes]), partial ([n_heavy_chunks,
+// planes]) and
 //   template <typename Op, int G> void lane_values(int q0, int beg, int end,
 //       int row, int gl, float (&acc)[kPlaneBatch]) const
 // which folds into acc[j] (from Op::kInit) the values of planes q0 + j at
 // CSR positions beg + gl, beg + gl + G, ... below end of row `row`
-// (RowReduce reads them from stored planes).  The unit is the walk's: a
-// light row (one chunk, at most kGroup edges) is one item of a group of
-// kReduceGroup lanes (8 rows a warp, as most rows of a real batch hold 1-4
-// edges); a heavy row's chunks (the host-built EdgeCsr.heavy_chunks, the
-// padded run at node V-1 included unless skip_masked: a dead edge's value
-// is then Op's identity) are the first warps' items, a warp each, and the
-// row's last chunk to arrive (EdgeCsr.arrivals, 0 again when the launch
-// ends) reduces the chunks' partials and writes the row.  One launch, no
-// pass over all rows.  RowReduce reads 16 bytes of a plane at a time where
-// the planes allow (perm null, E % 4 == 0, 16-byte aligned), the loads of
-// kPlaneBatch planes in flight together; edge-major values give a lane an
-// edge's planes in one 16-byte load (4 planes), through perm too.  Every
-// output has one owner and one order (lanes, then the
-// group's shuffle tree; partials likewise): a sum on this walk is
-// deterministic, though not in the order of the row sums above
-// (finish_row), whose kernels (K1, K13) still end with launch_combine.
+// (RowReduce reads them from stored planes), and optionally kOwnStore with
+//   void store(int q, int r, float v) const
+// which writes row r's result v of plane q itself (K1 / K13: deg = 1 + v
+// and dis = deg^-1/2 in the row's write; without it out[q][r] = v).  The
+// unit is the walk's: a light row (one chunk, at most kGroup edges) is one
+// item of a group of kReduceGroup lanes (8 rows a warp, as most rows of a
+// real batch hold 1-4 edges); a heavy row's chunks (the host-built
+// EdgeCsr.heavy_chunks, the padded run at node V-1 included unless
+// skip_masked: a dead edge's value is then Op's identity) are the first
+// warps' items, a warp each, and the row's last chunk to arrive
+// (EdgeCsr.arrivals, 0 again when the launch ends) reduces the chunks'
+// partials and writes the row.  One launch, no pass over all rows.
+// RowReduce reads 16 bytes of a plane at a time where the planes allow
+// (perm null, E % 4 == 0, 16-byte aligned), the loads of kPlaneBatch planes
+// in flight together; edge-major values give a lane an edge's planes in one
+// 16-byte load (4 planes), through perm too.  Every output has one owner
+// and one order (lanes, then the group's shuffle tree; partials likewise):
+// a sum on this walk is deterministic.
 //
 // Bound: bytes, 4 planes bytes per edge and per row, plus the CSR; the walk
 // is latency: ptr, the values, the store, a chain per row.
 
 constexpr int kReduceGroup = 4;   // lanes of a light row's group
 constexpr int kPlaneBatch = 4;    // planes a lane reads together
+
+template <typename R, typename = void>
+struct OwnStoreOf {
+  static constexpr bool v = false;
+};
+template <typename R>
+struct OwnStoreOf<R, decltype(void(R::kOwnStore))> {
+  static constexpr bool v = R::kOwnStore;
+};
+
+// Row r's result v of plane q: the policy's own store, or out[q][r].
+template <typename R>
+__device__ __forceinline__ void store_row(const R& a, int q, int r, float v) {
+  if constexpr (OwnStoreOf<R>::v) a.store(q, r, v);
+  else a.out[(size_t)q * a.num_nodes + r] = v;
+}
 
 // The values of stored planes.
 struct RowReduce : CsrRows {
@@ -708,7 +678,7 @@ __device__ __forceinline__ void reduce_heavy_chunk(const R& a, int item, int lan
       m = Op::apply(m, __ldcg(a.partial + (size_t)(i0 + j) * a.planes + q));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = Op::apply(m, __shfl_xor_sync(kFull, m, off));
-    if (lane == 0) a.out[(size_t)q * a.num_nodes + k.row] = m;
+    if (lane == 0) store_row(a, q, k.row, m);
   }
   if (lane == 0) a.arrivals[i0] = 0;
 }
@@ -734,7 +704,7 @@ __device__ __forceinline__ void reduce_light_rows(const R& a, int w, int lane) {
     if (light && gl == 0)
 #pragma unroll
       for (int j = 0; j < kPlaneBatch; ++j)
-        if (q0 + j < a.planes) a.out[(size_t)(q0 + j) * a.num_nodes + r] = acc[j];
+        if (q0 + j < a.planes) store_row(a, q0 + j, r, acc[j]);
   }
 }
 

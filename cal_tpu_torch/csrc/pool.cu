@@ -24,10 +24,20 @@
 // dx[v] = dpooled[node_graph[v]] for dpooled [G1, H] f32, rounded once to
 // x's dtype (the trash row's gradient is zero: the caller sliced it off).
 // The TPU kernel multiplies the one-hot of node_graph with dpooled resident
-// in VMEM; here it is a row gather: one warp per row, H / 32 columns per
-// lane, 16-byte f32 loads of the (L2-resident, G1 x H x 4 = 66 KB) dpooled
-// row and 8- or 16-byte stores.  Bound: bytes, one write of dx [V, H] (8 MB
-// at the canonical batch in bf16) and one read of node_graph.
+// in VMEM; here it is a row gather whose bound is bytes: one write of dx [V,
+// H] (8 MB at the canonical batch in bf16) and one read of node_graph.
+// Design: a warp takes a run of kRun = 32 rows: one coalesced load of their
+// node_graph ids (one a lane), then each store instruction writes 512
+// contiguous bytes of dx, 16 bytes a lane (in bf16 at H = 128 a row is 16
+// lanes, so 2 rows an instruction), the ids handed round by shuffles.
+// node_graph is sorted in every caller (the packer lays graphs out
+// contiguously), so each lane keeps its slice of the current dpooled row in
+// registers and reloads it (from L2: G1 x H x 4 = 66 KB) only when its
+// row's id changes; the check makes any node_graph right.  So a warp keeps
+// its stores independent of each other, where one warp a row chained a
+// node_graph load, the dpooled load and an 8-byte store a lane.  A block
+// takes 8 runs: 124 blocks at V = 31,744, which runs of 16 rows (twice the
+// warps) did not beat (PERF.md).
 //
 // Built by cal_tpu_torch/kernels/build.py (plain C interface, ctypes); the
 // wrapper ops/pool.py allocates the output and passes PyTorch's stream.
@@ -165,34 +175,62 @@ cudaError_t launch(int f, const void* x, const int* node_graph, int num_nodes, i
   return cudaGetLastError();
 }
 
-constexpr int kBwdWarps = 8;
+constexpr int kBwdWarps = 8;    // warps a block
+constexpr int kRun = 32;        // rows a warp takes: one node_graph id a lane
 
-template <typename T, int F>
+template <typename T, int H>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 pool_bwd_kernel(const float* __restrict__ dpooled, const int* __restrict__ node_graph,
-                int num_nodes, int h, T* __restrict__ dx) {
-  const int v = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+                int num_nodes, T* __restrict__ dx) {
+  constexpr int F = 16 / (int)sizeof(T);   // elements a lane stores at once: 16 bytes
+  constexpr int L = H / F;                 // 16-byte words a row
+  constexpr int LC = L < 32 ? L : 32;      // lanes a row
+  constexpr int NW = L / LC;               // words a lane stores a row
+  constexpr int RPW = 32 / LC;             // rows a store instruction writes
   const int lane = threadIdx.x & 31;
-  if (v >= num_nodes) return;
-  const int g = node_graph[v];
-  float d[F];
-  load_vec<float, F>(dpooled + (size_t)g * h + lane * F, d);
-  store_vec<T, F>(dx + (size_t)v * h + lane * F, d);
+  const int sub = lane / LC, col = lane % LC;
+  const int v0 = (blockIdx.x * kBwdWarps + (threadIdx.x >> 5)) * kRun;
+  if (v0 >= num_nodes) return;
+  const int ids = v0 + lane < num_nodes ? __ldg(node_graph + v0 + lane) : 0;
+  int cur = -1;                            // the id of the dpooled slice in d
+  float d[NW][F];
+#pragma unroll 4
+  for (int j = 0; j < kRun; j += RPW) {
+    const int k = j + sub;                 // this lane's row: v0 + k
+    const int g = __shfl_sync(0xffffffffu, ids, k);
+    if (v0 + k < num_nodes) {
+      if (g != cur) {
+        cur = g;
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          load_vec<float, F>(dpooled + (size_t)g * H + (col + w * LC) * F, d[w]);
+      }
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        store_vec<T, F>(dx + (size_t)(v0 + k) * H + (col + w * LC) * F, d[w]);
+    }
+  }
+}
+
+template <typename T, int H>
+cudaError_t launch_bwd_h(const float* dpooled, const int* node_graph, int num_nodes, void* dx,
+                         cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kBwdWarps * kRun;
+  pool_bwd_kernel<T, H><<<(num_nodes + kRowsPerBlock - 1) / kRowsPerBlock, kBwdWarps * 32, 0,
+                          stream>>>(dpooled, node_graph, num_nodes, static_cast<T*>(dx));
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_bwd(int f, const float* dpooled, const int* node_graph, int num_nodes,
-                       int h, void* dx, cudaStream_t stream) {
-  T* out = static_cast<T*>(dx);
-  const int blocks = (num_nodes + kBwdWarps - 1) / kBwdWarps;
-  switch (f) {
-    case 1: pool_bwd_kernel<T, 1><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
-    case 2: pool_bwd_kernel<T, 2><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
-    case 4: pool_bwd_kernel<T, 4><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
-    case 8: pool_bwd_kernel<T, 8><<<blocks, kBwdWarps * 32, 0, stream>>>(dpooled, node_graph, num_nodes, h, out); break;
+cudaError_t launch_bwd(const float* dpooled, const int* node_graph, int num_nodes, int h,
+                       void* dx, cudaStream_t stream) {
+  switch (h) {
+    case 32: return launch_bwd_h<T, 32>(dpooled, node_graph, num_nodes, dx, stream);
+    case 64: return launch_bwd_h<T, 64>(dpooled, node_graph, num_nodes, dx, stream);
+    case 128: return launch_bwd_h<T, 128>(dpooled, node_graph, num_nodes, dx, stream);
+    case 256: return launch_bwd_h<T, 256>(dpooled, node_graph, num_nodes, dx, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -213,15 +251,15 @@ int pool_launch(const void* x, int dtype, const int* node_graph, int num_nodes, 
   return (int)cudaErrorInvalidValue;
 }
 
-// K7.  dtype (of dx): 0 = float32, 1 = bfloat16; dpooled [G1, H] f32 with
-// 16-byte aligned rows; node_graph [V] int32 in [0, G1); dx [V, H].
+// K7.  dtype (of dx): 0 = float32, 1 = bfloat16; h in {32, 64, 128, 256};
+// dpooled [G1, H] f32 and dx [V, H], both 16-byte aligned; node_graph [V]
+// int32 in [0, G1), in any order (sorted is fastest).
 int pool_bwd_launch(const float* dpooled, const int* node_graph, int num_nodes, int h,
                     int dtype, void* dx, cudaStream_t stream) {
-  if (num_nodes <= 0 || h <= 0 || h % 32 || h > kMaxH) return (int)cudaErrorInvalidValue;
+  if (num_nodes <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(h / 32, dpooled, node_graph, num_nodes, h, dx, stream);
-  if (dtype == 0)
-    return (int)launch_bwd<float>(h / 32, dpooled, node_graph, num_nodes, h, dx, stream);
+    return (int)launch_bwd<__nv_bfloat16>(dpooled, node_graph, num_nodes, h, dx, stream);
+  if (dtype == 0) return (int)launch_bwd<float>(dpooled, node_graph, num_nodes, h, dx, stream);
   return (int)cudaErrorInvalidValue;
 }
 

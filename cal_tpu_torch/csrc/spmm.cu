@@ -35,7 +35,9 @@
 // s != r (self loops are dropped; liveness never comes from an index).
 //   K1: deg[0][v] = sum over live e with s_e = v of sigmoid(src[v] + dst[r_e]),
 //       deg[1][v] = the same sum of 1 - sigmoid; null src/dst mean logits 0
-//       (sigmoid(0) = 0.5 exactly: the plain conv's degree is 2 deg[0]).
+//       (sigmoid(0) = 0.5 exactly: the plain conv's degree is 2 deg[0],
+//       which the one-branch mode at null logits gives as a count); with
+//       its epilogue deg = 1 + the sums and dis = deg^-1/2 (rsqrtf).
 //   K2: for branch k (w_0 = sigmoid, w_1 = 1 - sigmoid),
 //       out_k[r] = sum over live e with r_e = r of
 //                  dis_k[s] * w_k * dis_k[r] * x_k[s]  +  x_k[r] / deg_k[r];
@@ -52,9 +54,10 @@
 //       ddis_r[k][r] += dc_k w_k dis_k[s].
 //   K6: dpre[e] = (vec0 + ddeg_0[s] - vec1 - ddeg_1[s]) * vec2;
 //       dsrc[s] += dpre[e], ddst[r] += dpre[e] (vec2 = 0 zeroes dead edges).
-//   deg / dis [branches, V] f32 are deg + 1 and its rsqrt, and ddeg [2, V]
-//   the degree gradient, from the caller (the elementwise step between K5
-//   and K6 is plain PyTorch, as it is plain XLA in cal_tpu).
+//   deg / dis [branches, V] f32 are deg + 1 and its rsqrt (K1's epilogue),
+//   and ddeg [2, V] the degree gradient, from the caller (the elementwise
+//   step between K5 and K6 is plain PyTorch, as it is plain XLA in
+//   cal_tpu).
 //   Single branch, w = sigmoid(src[s] + dst[r]), or 1 - it when negate:
 //   K13: deg[v] = 1 + sum over live e with s_e = v of w, dis = deg^-1/2
 //       (rsqrtf).
@@ -92,9 +95,9 @@
 // in both CSRs), listed on the host (heavy_chunks), are the first items of
 // the launch, each writing f32 partials, and the row's last chunk to arrive
 // (an int counter in EdgeCsr.arrivals, 0 again when the launch ends) sums
-// them in chunk order and writes the row.  So no pass visits all V rows
-// (except K1's, below), every sum has one owner and one order, and no float
-// is summed atomically: a result does not change between runs.
+// them in chunk order and writes the row.  So no pass visits all V rows,
+// every sum has one owner and one order, and no float is summed
+// atomically: a result does not change between runs.
 //  - K2/K3/K14 (and their transposed modes) are csr_rows.cuh's coefficient
 //    SpMM walk with the GcnSpmm / SigSpmm policies (16-byte loads of a
 //    row's features, 32 / G rows a warp; a group loads up to kInFlight
@@ -122,10 +125,14 @@
 //    receiver CSR's rows give ddst, the sender CSR's (through perm) dsrc,
 //    each CSR's heavy chunks first and finished by its own arrivals.  So no
 //    dpre plane is written or read back.
-//  - K1/K13 still give one warp a chunk (per-lane sums, a butterfly), a row
-//    of a single chunk written by its warp directly and a longer row's
-//    partials summed in chunk order by a pass over all V rows
-//    (launch_combine).
+//  - K1/K13, one launch: csr_rows.cuh's per-row reduction over the sender
+//    CSR (through perm), each edge's branch weights formed in-kernel from
+//    src[s] (once a lane) and dst[r] (DegreeSum), 8 light rows a warp, a
+//    heavy row's chunks first, finished by g.send's arrivals; the row's
+//    owner writes deg = 1 + the sum and dis = rsqrtf(deg) where the caller
+//    asks (K13 always; K1 in the pair and plain aggregates), so no
+//    elementwise launch follows.  The plain conv's degree is the same
+//    kernel at zero logits with one branch: it counts live edges.
 // The constants (32-byte lanes, a window of G edges, 2 blocks an SM, one
 // grid for K6) are the measured winners: PERF.md gives the times of the
 // alternatives (16-byte lanes, windows of 16 or 32 edges, 3 or 4 blocks an
@@ -133,8 +140,8 @@
 // terms are edge-major, one store an edge; as [NB, E] planes they timed
 // within the spread between equal trees.
 // The launches over one batch's CSR share its arrival counters on one
-// stream: K2, K3, K14 and K5's receiver pass g.recv's, K2T, K3T, K14T and
-// K5's sender sums g.send's, K6 both.
+// stream: K2, K3, K14 and K5's receiver pass g.recv's, K1, K13, K2T, K3T,
+// K14T and K5's sender sums g.send's, K6 both.
 //
 // Bound: bytes.  K2 reads x [V, 2H] once (plus a neighbour row per live
 // edge, mostly from L2) and writes [V, 2H]; the metadata is 9 bytes per edge
@@ -142,9 +149,11 @@
 // reads vec and the CSRs and writes two planes; the arithmetic (2H FMAs per
 // edge) is far below the tensor-core or FMA floor.  K13-K16 are the
 // one-branch halves: K14 reads x [V, H] and writes [V, H], K15 reads x and
-// g [V, H] and writes 3 f32 per edge.  K13 adds the deg/dis epilogue to K1's
-// walk.  The walks' own limit is latency: a light row is a chain of
-// dependent loads (ptr, metadata, gathers or neighbour rows, store).
+// g [V, H] and writes 3 f32 per edge.  K1 / K13 read 9 bytes per edge
+// (perm, receiver, mask), the logits and the CSR, and write 4 (sums) or 8
+// (deg, dis) bytes a row and branch.  The walks' own limit is latency: a
+// light row is a chain of dependent loads (ptr, metadata, gathers or
+// neighbour rows, store).
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in ops/spmm.py
@@ -173,74 +182,103 @@ __device__ __forceinline__ void branch_weights(float z, float (&w)[NB]) {
 
 // ---- K1 / K13: sender degree ---------------------------------------------
 
+// The sender sums of the branch weights, a csr_reduce policy over the sender
+// CSR (CSR position i of row `row` is edge perm[i]): a live edge (mask on,
+// receiver r != row) adds branch_weights(src[row] + dst[r]), src[row] read
+// once a lane.  Null logits weigh an edge 0.5 a branch in the pair
+// (sigmoid(0)) and 1 in one branch, so that the one-branch sums count live
+// edges: the plain conv's degree, exact in any order (2 x a sum of 0.5s,
+// as cal_tpu's _plain_fwd forms it, is the same count).  A dead edge adds
+// nothing, so a heavy chunk of masked-out edges alone (the padded run) is
+// not read.  With dis given, the row's owner writes deg = 1 + the sum and
+// dis = rsqrtf(deg) (the epilogue of K13, and of K1 as the aggregates take
+// it); without, the sums.
 template <typename L>
-struct DegreeArgs {
-  const L* src;       // null with dst: logits 0
+struct DegreeIo {
+  const L* src;         // null with dst: logits 0
   const L* dst;
   const int* receivers;
   const uint8_t* edge_mask;
-  const int* perm;    // sender CSR
-  const int* ptr;
-  const int* chunk_ptr;
-  const int* chunk_row;
-  float* deg;         // [NB, V]
-  float* partial;     // [n_chunks, NB]
-  int n_chunks, num_nodes;
+  float* out;           // [NB, V]: the sums, or deg = 1 + the sums when dis is given
+  float* dis;           // null, or [NB, V]
+  float* partial;       // [n_heavy_chunks, NB]
+};
+
+constexpr int kDegreeBatch = 4;   // edges a lane of K1 / K13 loads together
+
+template <typename L, int NB, bool NEG>
+struct DegreeSum : CsrRows, DegreeIo<L> {
+  static constexpr int planes = NB;
+  static constexpr bool skip_masked = true;
+  static constexpr bool kOwnStore = true;
+
+  // The lane's edges beg + gl, beg + gl + G, ... below end, kDegreeBatch at
+  // a time: their perm, receiver and mask loads, then their logit gathers,
+  // each level in flight together (a lane past the range reads the last
+  // edge again, never live); the weights are added in edge order.
+  template <typename Op, int G>
+  __device__ __forceinline__ void lane_values(int, int beg, int end, int row, int gl,
+                                              float (&acc)[kPlaneBatch]) const {
+    constexpr int U = kDegreeBatch;
+    const float s_row = this->src == nullptr ? 0.0f : to_f(this->src[row]);
+    for (int i0 = beg + gl; i0 < end; i0 += U * G) {
+      int r[U];
+      bool live[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = min(i0 + u * G, end - 1);
+        const int e = __ldg(perm + i);
+        r[u] = __ldg(this->receivers + e);
+        live[u] = i0 + u * G < end && __ldg(this->edge_mask + e) && r[u] != row;
+      }
+      float w[U][NB];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (this->src == nullptr) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) w[u][b] = NB == 1 ? 1.0f : 0.5f;
+        } else {
+          branch_weights<NB, NEG>(s_row + to_f(this->dst[r[u]]), w[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (live[u])
+#pragma unroll
+          for (int b = 0; b < NB; ++b) acc[b] = Op::apply(acc[b], w[u][b]);
+    }
+  }
+
+  __device__ __forceinline__ void store(int q, int r, float v) const {
+    const size_t at = (size_t)q * num_nodes + r;
+    if (this->dis == nullptr) {
+      this->out[at] = v;
+      return;
+    }
+    const float d = 1.0f + v;
+    this->out[at] = d;
+    this->dis[at] = rsqrtf(d);
+  }
 };
 
 template <typename L, int NB, bool NEG>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sender_degree_kernel(const DegreeArgs<L> a) {
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  const int v = k.row;
-  const float sv = a.src == nullptr ? 0.0f : to_f(a.src[v]);
-  float acc[NB] = {};
-  for (int i = k.beg + lane; i < k.end; i += kGroup) {
-    const int e = a.perm[i];
-    const int r = a.receivers[e];
-    if (a.edge_mask[e] && r != v) {
-      float w[NB];
-      branch_weights<NB, NEG>(a.src == nullptr ? 0.0f : sv + to_f(a.dst[r]), w);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] += w[b];
-    }
-  }
-  finish_row<NB>(acc, k, c, lane, a.num_nodes, a.deg, a.partial);
-}
-
-// deg <- 1 + deg, dis = deg^-1/2 (K13's epilogue)
-__global__ void deg_dis_kernel(int num_nodes, float* __restrict__ deg, float* __restrict__ dis) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= num_nodes) return;
-  const float d = 1.0f + deg[v];
-  deg[v] = d;
-  dis[v] = rsqrtf(d);
-}
-
-template <typename L, int NB, bool NEG>
-cudaError_t launch_degree(const DegreeArgs<L>& a, cudaStream_t stream) {
-  sender_degree_kernel<L, NB, NEG><<<(a.n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                                     kWarpsPerBlock * 32, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_combine<NB>(a.chunk_ptr, a.num_nodes, a.partial, a.deg, stream);
+cudaError_t launch_degree(const CsrRows& send, const DegreeIo<L>& io, cudaStream_t stream) {
+  DegreeSum<L, NB, NEG> a;
+  static_cast<CsrRows&>(a) = send;
+  static_cast<DegreeIo<L>&>(a) = io;
+  return launch_csr_reduce<SumOp>(a, stream);
 }
 
 template <typename L>
 cudaError_t degree_typed(int branches, bool negate, const void* src, const void* dst,
-                         const int* receivers, const uint8_t* edge_mask, const int* perm,
-                         const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                         int n_chunks, int num_nodes, float* deg, float* partial,
-                         cudaStream_t stream) {
-  const DegreeArgs<L> a{static_cast<const L*>(src), static_cast<const L*>(dst), receivers,
-                        edge_mask, perm, ptr, chunk_ptr, chunk_row, deg, partial, n_chunks,
-                        num_nodes};
-  if (branches == 2) return launch_degree<L, 2, false>(a, stream);
+                         const int* receivers, const uint8_t* edge_mask, const CsrRows& send,
+                         float* deg, float* dis, float* partial, cudaStream_t stream) {
+  const DegreeIo<L> io{static_cast<const L*>(src), static_cast<const L*>(dst), receivers,
+                       edge_mask, deg, dis, partial};
+  if (branches == 2) return launch_degree<L, 2, false>(send, io, stream);
   if (branches == 1)
-    return negate ? launch_degree<L, 1, true>(a, stream) : launch_degree<L, 1, false>(a, stream);
+    return negate ? launch_degree<L, 1, true>(send, io, stream)
+                  : launch_degree<L, 1, false>(send, io, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -682,30 +720,32 @@ cudaError_t launch_tail(const float* vec, const float* ddeg, const int* senders,
 
 extern "C" {
 
-// K1 (branches 2) / K13 (branches 1, negate).  dtype: 0 = float32,
-// 1 = bfloat16 (src and dst; may both be null: logits 0).  dis null (K1):
-// deg [branches, V] gets the sender sums.  dis given (K13): deg = 1 + the
-// sums and dis = deg^-1/2, [V] each.  partial holds branches * n_chunks
+// K1 (branches 2) / K13 (branches 1, negate): csr_reduce_kernel's sums over
+// the sender CSR, one launch.  dtype: 0 = float32, 1 = bfloat16 (src and
+// dst; both null: logits 0, the pair's weights 0.5 each and one branch's 1,
+// so that it counts live edges).  dis null: deg [branches, V] gets the
+// sender sums; dis given: deg = 1 + the sums and dis = deg^-1/2, [branches,
+// V] each.  The sender CSR (graph.EdgeCsr: perm, ptr, chunk_ptr, chunk_row,
+// heavy_chunks, heavy_masked, their count, arrivals: n_heavy_chunks ints, 0
+// before the launch and after it); partial holds branches * n_heavy_chunks
 // floats.
 int sender_degree_launch(int branches, int negate, const void* src, const void* dst, int dtype,
                          const int* receivers, const uint8_t* edge_mask, const int* perm,
                          const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                         int n_chunks, int num_nodes, float* deg, float* dis, float* partial,
-                         cudaStream_t stream) {
-  if (n_chunks <= 0 || num_nodes <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == 1)
-    err = degree_typed<__nv_bfloat16>(branches, negate != 0, src, dst, receivers, edge_mask,
-                                      perm, ptr, chunk_ptr, chunk_row, n_chunks, num_nodes,
-                                      deg, partial, stream);
-  else if (dtype == 0)
-    err = degree_typed<float>(branches, negate != 0, src, dst, receivers, edge_mask, perm, ptr,
-                              chunk_ptr, chunk_row, n_chunks, num_nodes, deg, partial, stream);
-  else
+                         const int* heavy_chunks, const uint8_t* heavy_masked,
+                         int n_heavy_chunks, int* arrivals, int num_nodes, float* deg,
+                         float* dis, float* partial, cudaStream_t stream) {
+  if (num_nodes <= 0 || n_heavy_chunks < 0 || (src == nullptr) != (dst == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess || dis == nullptr) return (int)err;
-  deg_dis_kernel<<<(num_nodes + 255) / 256, 256, 0, stream>>>(num_nodes, deg, dis);
-  return (int)cudaGetLastError();
+  const CsrRows send{ptr,      chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
+                     arrivals, perm,      n_heavy_chunks, num_nodes};
+  if (dtype == 1)
+    return (int)degree_typed<__nv_bfloat16>(branches, negate != 0, src, dst, receivers,
+                                            edge_mask, send, deg, dis, partial, stream);
+  if (dtype == 0)
+    return (int)degree_typed<float>(branches, negate != 0, src, dst, receivers, edge_mask,
+                                    send, deg, dis, partial, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // branches: 2 (pair: x0 = xc, x1 = xo, logits src/dst) or 1 (plain: x0,

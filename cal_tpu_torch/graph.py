@@ -142,13 +142,12 @@ def to_dense(p: PackedDenseBatch, dtype: torch.dtype | None = None) -> DenseGrap
 
 
 # A CSR row is cut into groups of CHUNK_EDGES edges (one per warp lane) and
-# the groups into at most MAX_CHUNKS chunks of equal group counts; one warp
-# of the degree kernels owns one chunk, and a second pass sums a long row's
-# chunks.  csrc/csr_rows.cuh derives the same split from the row length with
-# the same two constants.  A row of one chunk (at most CHUNK_EDGES edges) is
-# light: the coefficient SpMM walk takes it by row, several a warp, and
-# takes only the chunks of the other (heavy) rows from their list, whose
-# last chunk to finish sums the row.
+# the groups into at most MAX_CHUNKS chunks of equal group counts.
+# csrc/csr_rows.cuh derives the same split from the row length with the same
+# two constants.  A row of one chunk (at most CHUNK_EDGES edges) is light:
+# the walks take it by row, several a warp, and take only the chunks of the
+# other (heavy) rows from their list, a warp a chunk, whose last chunk to
+# finish sums the row.
 CHUNK_EDGES = 32
 MAX_CHUNKS = 64
 
@@ -238,7 +237,11 @@ class GraphBatch:
     int32; graph_mask [G] bool (a contiguous prefix of real graphs).
     ``recv``: receiver CSR (edges already in order); ``send``: sender CSR
     with the stable sender-sorted permutation.  ``recv`` and ``send`` are the
-    counterpart of cal_tpu's ``(tiles_fwd, tiles_bwd)``."""
+    counterpart of cal_tpu's ``(tiles_fwd, tiles_bwd)``.  ``derived`` holds
+    what the kernels derive from the graph alone, computed at first use
+    and shared by every later call on the batch (``ops.spmm.plain_norm``:
+    the plain conv's degree); every new batch, ``to`` and
+    ``dataclasses.replace`` included, starts it empty."""
 
     x: object
     senders: object
@@ -250,6 +253,8 @@ class GraphBatch:
     graph_mask: object
     recv: EdgeCsr
     send: EdgeCsr
+    derived: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     @property
     def num_nodes(self) -> int:

@@ -81,6 +81,8 @@ def segment_pool_bwd(dpooled: torch.Tensor, node_graph: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """K7: dpooled [num_segments, H] f32, node_graph [V] int32 -> dx [V, H]
     in ``dtype`` (float32 or bfloat16), dx[v] = dpooled[node_graph[v]].
+    One launch, right for any node_graph, fastest on a sorted one (each
+    lane reloads its dpooled slice only where the id changes).
     ``.launches`` counts kernel launches."""
     if dpooled.dim() != 2 or dpooled.dtype != torch.float32 or dtype not in _DTYPES:
         raise ValueError("segment_pool_bwd: dpooled must be [G, H] float32, dx float32 or "
@@ -96,8 +98,8 @@ def segment_pool_bwd(dpooled: torch.Tensor, node_graph: torch.Tensor,
         raise ValueError("segment_pool_bwd: node_graph must be int32")
     _check_width("segment_pool_bwd", h)
     dpooled, node_graph = dpooled.contiguous(), node_graph.contiguous()
-    if dpooled.data_ptr() % min(16, (h // 32) * 4):
-        raise ValueError("segment_pool_bwd: dpooled rows are misaligned")
+    if dpooled.data_ptr() % 16:
+        raise ValueError("segment_pool_bwd: dpooled must be 16-byte aligned")
     v = node_graph.shape[0]
     dx = torch.empty((v, h), dtype=dtype, device=dpooled.device)
     err = _lib().pool_bwd_launch(dpooled.data_ptr(), node_graph.data_ptr(), v, h,

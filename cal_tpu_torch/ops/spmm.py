@@ -15,8 +15,15 @@ Kernels in ``csrc/spmm.cu`` (its header gives the design and the rounding
 points):
 
 * ``pair_sender_degree`` (K1, ``_pair_stats_call``): both branch sender
-  degrees [2, V] from the sender CSR; at zero logits it gives the plain
-  conv's degree (sigmoid(0) = 0.5 exactly, so 2 deg[0] is exact);
+  degrees [2, V] from the sender CSR, or (``norm``) deg = 1 + them and dis
+  = deg^-1/2 written by the kernel itself, as the pair aggregate takes
+  them;
+* ``plain_sender_degree`` (K1 at zero logits, as cal_tpu's ``_plain_fwd``
+  calls ``_pair_stats_call``): the plain conv's (deg, dis) [1, V], the same
+  kernel counting live edges (2 x a sum of sigmoid(0) = 0.5 is that count
+  exactly).  It depends on the graph alone, so ``plain_norm`` computes it
+  once a batch, at the batch's first plain conv, and keeps it in the
+  batch's ``GraphBatch.derived`` for every later conv of the batch;
 * ``pair_coef_spmm`` (K2, ``_pair_coef_spmm_call``) and ``plain_coef_spmm``
   (K3, ``_plain_coef_spmm_call``): the SpMM over the receiver CSR with the
   coefficient chain and the self term in-kernel;
@@ -35,8 +42,8 @@ sigmoid(src[s] + dst[r]) or 1 - it under ``negate``, differentiable in x,
 src and dst) runs the same four functions for one branch, also in
 ``csrc/spmm.cu``:
 
-* ``sigmoid_sender_degree`` (K13): the branch's sender sums, giving deg and
-  dis [V];
+* ``sigmoid_sender_degree`` (K13): the branch's sender sums, deg = 1 +
+  them and dis [V] written by the kernel;
 * ``sigmoid_coef_spmm`` (K14) and ``sigmoid_coef_spmm_t`` (K14T): its
   coefficient SpMM over the receiver CSR and, for dx, the sender CSR;
 * ``sigmoid_sddmm_chain`` (K15): the per-edge dot products and chain
@@ -70,16 +77,32 @@ def _live(g: GraphBatch):
     return s, r, g.edge_mask & (s != r)
 
 
-def pair_sender_degree_plain(src, dst, g: GraphBatch) -> torch.Tensor:
+def pair_sender_degree_plain(src, dst, g: GraphBatch, norm: bool = False):
     """Plain twin of K1: [2, V] f32 sums over live edges by sender of
-    sigmoid(src[s] + dst[r]) and of 1 - it (logits 0 when src is None)."""
+    sigmoid(src[s] + dst[r]) and of 1 - it (logits 0 when src is None);
+    ``norm``: (deg, dis), deg = 1 + the sums and dis = deg^-1/2."""
     s, r, live = _live(g)
     z = (torch.zeros(s.shape, device=s.device) if src is None
          else src.float()[s] + dst.float()[r])
     sig = torch.sigmoid(z)
     zero = torch.zeros((), device=s.device)
     w = torch.stack([torch.where(live, sig, zero), torch.where(live, 1.0 - sig, zero)])
-    return torch.zeros((2, g.num_nodes), device=s.device).index_add_(1, s, w)
+    sums = torch.zeros((2, g.num_nodes), device=s.device).index_add_(1, s, w)
+    return _norm(sums) if norm else sums
+
+
+def _norm(sums):
+    deg = sums + 1.0
+    return deg, torch.rsqrt(deg)
+
+
+def plain_sender_degree_plain(g: GraphBatch):
+    """Plain twin of the plain conv's degree: (deg, dis) [1, V] f32, deg = 1
+    + the live edges by sender and dis = deg^-1/2."""
+    s, _, live = _live(g)
+    counts = torch.zeros((1, g.num_nodes), device=s.device).index_add_(
+        1, s, live.float()[None])
+    return _norm(counts)
 
 
 def coef_spmm_plain(xs, src, dst, deg, dis, g: GraphBatch,
@@ -141,8 +164,8 @@ def _lib():
     lib = build.load("spmm")
     if lib.coef_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.sender_degree_launch.argtypes = [i, i, vp, vp, i] + [vp] * 6 + [i, i] + [vp] * 4
         csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
+        lib.sender_degree_launch.argtypes = [i, i, vp, vp, i] + [vp] * 3 + csr + [i] + [vp] * 4
         lib.coef_spmm_launch.argtypes = ([i, vp, vp, vp, vp, i] + [vp] * 5 + csr
                                          + [i, i, vp, vp, vp, vp])
         lib.sig_coef_spmm_launch.argtypes = ([vp, vp, vp, i, i] + [vp] * 5 + csr
@@ -210,10 +233,12 @@ def _walk_csr(csr):
             int(csr.heavy_chunks.shape[0]), csr.arrivals.data_ptr())
 
 
-def pair_sender_degree(src, dst, g: GraphBatch) -> torch.Tensor:
+def pair_sender_degree(src, dst, g: GraphBatch, norm: bool = False):
     """K1: [2, V] f32 sender sums of sigmoid(src[s] + dst[r]) and 1 - it over
-    live edges.  ``src``/``dst`` [V] (one dtype) or both None (logits 0).
-    ``.launches`` counts kernel launches."""
+    live edges; ``norm``: (deg, dis) [2, V] f32, deg = 1 + the sums and dis
+    = deg^-1/2, written by the kernel.  ``src``/``dst`` [V] (one dtype) or
+    both None (logits 0).  One launch.  ``.launches`` counts kernel
+    launches."""
     v = g.num_nodes
     device = g.senders.device
     if src is not None:
@@ -221,30 +246,56 @@ def pair_sender_degree(src, dst, g: GraphBatch) -> torch.Tensor:
         if src.device != device:
             raise ValueError("pair_sender_degree: logits and graph on different devices")
     if device.type == "cpu":
-        return pair_sender_degree_plain(src, dst, g)
+        return pair_sender_degree_plain(src, dst, g, norm)
     if device.type != "cuda":
         raise ValueError(f"pair_sender_degree: unsupported device {device}")
-    deg, _ = _sender_degree_launch("pair_sender_degree", src, dst, g, 2, False)
+    deg, dis = _sender_degree_launch("pair_sender_degree", src, dst, g, 2, False, norm)
     pair_sender_degree.launches += 1
-    return deg
+    return (deg, dis) if norm else deg
 
 
-def _sender_degree_launch(what, src, dst, g: GraphBatch, nb: int, negate: bool):
-    """K1 (nb 2: the sums [2, V], dis None) or K13 (nb 1: deg = 1 + the sums
-    and dis, [V] each) on CUDA tensors."""
+def plain_sender_degree(g: GraphBatch):
+    """The plain conv's (deg, dis) [1, V] f32: deg = 1 + the live edges by
+    sender, dis = deg^-1/2; on CUDA one launch of K1's kernel at zero
+    logits and one branch, which counts the edges.  ``.launches`` counts
+    kernel launches.  The aggregate takes it through ``plain_norm``."""
+    device = g.senders.device
+    if device.type == "cpu":
+        return plain_sender_degree_plain(g)
+    if device.type != "cuda":
+        raise ValueError(f"plain_sender_degree: unsupported device {device}")
+    out = _sender_degree_launch("plain_sender_degree", None, None, g, 1, False, True)
+    plain_sender_degree.launches += 1
+    return out
+
+
+def plain_norm(g: GraphBatch):
+    """``plain_sender_degree(g)``, computed at the batch's first call and
+    kept in ``g.derived`` for the later ones: every plain conv of a batch
+    shares one degree."""
+    got = g.derived.get("plain_norm")
+    if got is None:
+        got = g.derived["plain_norm"] = plain_sender_degree(g)
+    return got
+
+
+def _sender_degree_launch(what, src, dst, g: GraphBatch, nb: int, negate: bool, norm: bool):
+    """K1 (nb 2), K13 (nb 1, logits given) or the plain conv's count (nb 1,
+    logits None) on CUDA tensors, one launch over the sender CSR: (the sums
+    [nb, V], None), or with ``norm`` (deg, dis) [nb, V]."""
     device, v = g.senders.device, g.num_nodes
     _check_graph(what, g, device)
     if src is not None:
         src, dst = src.contiguous(), dst.contiguous()
-    deg = torch.empty((nb, v) if nb == 2 else (v,), dtype=torch.float32, device=device)
-    dis = None if nb == 2 else torch.empty(v, dtype=torch.float32, device=device)
-    partial = torch.empty((g.send.num_chunks, nb), dtype=torch.float32, device=device)
+    deg = torch.empty((nb, v), dtype=torch.float32, device=device)
+    dis = torch.empty((nb, v), dtype=torch.float32, device=device) if norm else None
+    partial = torch.empty((g.send.heavy_chunks.shape[0], nb), dtype=torch.float32,
+                          device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib().sender_degree_launch(
         nb, int(negate), ptr(src), ptr(dst), 0 if src is None else _DTYPES[src.dtype],
         g.receivers.data_ptr(), g.edge_mask.data_ptr(), g.send.perm.data_ptr(),
-        g.send.ptr.data_ptr(), g.send.chunk_ptr.data_ptr(), g.send.chunk_row.data_ptr(),
-        g.send.num_chunks, v, deg.data_ptr(), ptr(dis), partial.data_ptr(), _stream(device))
+        *_walk_csr(g.send), v, deg.data_ptr(), ptr(dis), partial.data_ptr(), _stream(device))
     build.check(err, what)
     return deg, dis
 
@@ -420,6 +471,7 @@ def _dpre_launch(what, vec, ddeg, g: GraphBatch, nb: int, negate: bool):
 
 
 pair_sender_degree.launches = 0
+plain_sender_degree.launches = 0
 pair_coef_spmm.launches = 0
 plain_coef_spmm.launches = 0
 pair_coef_spmm_t.launches = 0
@@ -429,13 +481,13 @@ pair_dpre.launches = 0
 
 
 class _PairAggregate(torch.autograd.Function):
-    """K1 + K2 forward; K2T, then (when the logits need a gradient) K5, the
-    degree chain's elementwise step and K6 backward (cal_tpu ``_pair_bwd``)."""
+    """K1 (with its deg / dis epilogue) + K2 forward; K2T, then (when the
+    logits need a gradient) K5, the degree chain's elementwise step and K6
+    backward (cal_tpu ``_pair_bwd``)."""
 
     @staticmethod
     def forward(ctx, xc, xo, src, dst, g):
-        deg = pair_sender_degree(src, dst, g) + 1.0
-        dis = torch.rsqrt(deg)
+        deg, dis = pair_sender_degree(src, dst, g, norm=True)
         ctx.save_for_backward(xc, xo, src, dst, deg, dis)
         ctx.g = g
         return pair_coef_spmm(xc, xo, src, dst, deg, dis, g)
@@ -460,12 +512,12 @@ class _PairAggregate(torch.autograd.Function):
 
 
 class _PlainAggregate(torch.autograd.Function):
-    """K1 at zero logits + K3 forward; K3T backward (cal_tpu ``_plain_bwd``)."""
+    """The batch's plain degree (``plain_norm``: K1 at zero logits once a
+    batch) + K3 forward; K3T backward (cal_tpu ``_plain_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, g):
-        deg = 2.0 * pair_sender_degree(None, None, g)[:1] + 1.0
-        dis = torch.rsqrt(deg)
+        deg, dis = plain_norm(g)
         ctx.save_for_backward(deg, dis)
         ctx.g = g
         return plain_coef_spmm(x, deg, dis, g)
@@ -487,8 +539,8 @@ def gcn_aggregate_sparse_pair(xc, xo, src, dst, g: GraphBatch):
 
 def gcn_aggregate_sparse_plain(x, g: GraphBatch) -> torch.Tensor:
     """Unweighted GCN aggregate of the sparse layout (counterpart of
-    ``gcn_aggregate_sparse_plain_pallas``): K1 at zero logits for the
-    degree, then K3; differentiable in x (K3T)."""
+    ``gcn_aggregate_sparse_plain_pallas``): the batch's plain degree
+    (``plain_norm``), then K3; differentiable in x (K3T)."""
     return _PlainAggregate.apply(x, g)
 
 
@@ -505,9 +557,8 @@ def sigmoid_sender_degree_plain(src, dst, g: GraphBatch, negate: bool = False):
     """Plain twin of K13: (deg, dis) [V] f32, deg = 1 + the sender sums of
     the branch weights over live edges, dis = deg^-1/2."""
     s, r, live = _live(g)
-    deg = torch.zeros(g.num_nodes, device=s.device).index_add_(
-        0, s, _sig_w(src, dst, s, r, live, negate)) + 1.0
-    return deg, torch.rsqrt(deg)
+    return _norm(torch.zeros(g.num_nodes, device=s.device).index_add_(
+        0, s, _sig_w(src, dst, s, r, live, negate)))
 
 
 def sigmoid_coef_spmm_plain(x, src, dst, deg, dis, g: GraphBatch, negate: bool = False,
@@ -559,8 +610,9 @@ def _check_logits(what, src, dst, x) -> None:
 
 def sigmoid_sender_degree(src, dst, g: GraphBatch, negate: bool = False):
     """K13: (deg, dis) [V] f32: 1 + the sender sums over live edges of
-    sigmoid(src[s] + dst[r]) (1 - it under ``negate``), and its rsqrt.
-    ``src``/``dst`` [V] of one dtype.  ``.launches`` counts launches."""
+    sigmoid(src[s] + dst[r]) (1 - it under ``negate``), and its rsqrt, both
+    written by one launch.  ``src``/``dst`` [V] of one dtype.
+    ``.launches`` counts launches."""
     what = "sigmoid_sender_degree"
     v = g.num_nodes
     device = g.senders.device
@@ -571,9 +623,9 @@ def sigmoid_sender_degree(src, dst, g: GraphBatch, negate: bool = False):
         return sigmoid_sender_degree_plain(src, dst, g, negate)
     if device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {device}")
-    deg, dis = _sender_degree_launch(what, src.float(), dst.float(), g, 1, negate)
+    deg, dis = _sender_degree_launch(what, src.float(), dst.float(), g, 1, negate, True)
     sigmoid_sender_degree.launches += 1
-    return deg, dis
+    return deg[0], dis[0]
 
 
 def _sig_coef_spmm(what, x, src, dst, deg, dis, g: GraphBatch, negate: bool, transpose: bool):

@@ -39,8 +39,9 @@
       PyTorch library call (torch.sparse.mm on a CSR of materialized
       coefficients, index_add_), cold L2;
    b. serving: saves a seeded model, drives ``main_syn --layout sparse
-      --inference`` with the counters at 0 and fails unless K1-K4 launched
-      4, 1, 3 and 2 times per batch and no dense kernel launched; serves the
+      --inference`` with the counters at 0 and fails unless K1 (the pair),
+      the plain conv's degree, K2, K3 and K4 launched 1, 1, 1, 3 and 2 times
+      per batch and no dense kernel launched; serves the
       checkpoint of the CausalGCN training run (3.b) through both layouts
       and fails unless their f32 eval counts are equal and their f32
       log-probs agree batch by batch (warm sparse and dense serving rates
@@ -214,9 +215,11 @@ builds the kernels and runs the coefficient SpMM walk alone: the ptxas
 report of its instances and of spmm.cu's other kernels, each sparse batch's
 degree profile and ``copy_`` floor, every sparse kernel held against its
 twin and timed on the serving and REDDIT batches (row 12 also on config 4's
-graph; K5, K6, K15 and K16 with the warm device ms of each kernel a call
-launches), the walk's rows by batch, and both digest lines; from another
-tree's root, for an A/B.
+graph; K1 (its sums, with its deg / dis epilogue, and the plain conv's
+degree), K13, K5, K6, K15, K16 and K7 with the warm device ms of each
+kernel a call launches), the walk's rows by batch, both digest lines, and
+two sparse CausalGCN ``profile_train_step`` lines; from another tree's
+root, for an A/B.
 """
 from __future__ import annotations
 
@@ -1115,19 +1118,52 @@ def _library_spmm(torch, g, coefs, xs):
     return lambda: torch.sparse.mm(a, x)
 
 
+def degree_calls(spmm):
+    """(K1 as the pair aggregate takes it, (src, dst, g) -> (deg, dis); the
+    plain conv's degree, g -> (deg, dis)) of the tree whose ``ops.spmm`` is
+    given: its wrappers where it has them, else the operations that tree's
+    aggregates run for them (K1's sums, + 1 and torch.rsqrt; 2 x K1 at zero
+    logits + 1 and torch.rsqrt), so that an A/B times what each tree's
+    forward launches."""
+    import torch
+
+    if hasattr(spmm, "plain_sender_degree"):
+        return (lambda src, dst, g: spmm.pair_sender_degree(src, dst, g, norm=True),
+                spmm.plain_sender_degree)
+
+    def pair(src, dst, g):
+        deg = spmm.pair_sender_degree(src, dst, g) + 1.0
+        return deg, torch.rsqrt(deg)
+
+    def plain(g):
+        deg = 2.0 * spmm.pair_sender_degree(None, None, g)[:1] + 1.0
+        return deg, torch.rsqrt(deg)
+
+    return pair, plain
+
+
 def sparse_kernel_rows(torch, g, label, peaks, flush):
-    """K1-K4 against their twins on one sparse batch ``g`` (on the card), in
-    bf16 and f32, with their times; returns {dtype: {kernel: row}}."""
+    """K1-K4 and the plain conv's degree against their twins on one sparse
+    batch ``g`` (on the card), in bf16 and f32, with their times (K1's sums,
+    K1 with its deg / dis epilogue as the pair aggregate takes it and the
+    plain conv's degree each with the warm device ms of each kernel a call
+    launches, ``passes``); returns {dtype: {kernel: row}}."""
+    from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
     from cal_tpu_torch.ops.spmm import (
         coef_spmm_plain, pair_coef_spmm, pair_sender_degree, pair_sender_degree_plain,
         plain_coef_spmm)
+
+    pair_norm, plain_degree = degree_calls(spmm)
 
     bw, _, f32_peak = peaks
     v, e = g.num_nodes, g.senders.shape[0]
     n_live = int((g.edge_mask & (g.senders != g.receivers)).sum())
     g1 = g.num_graphs + 1
     csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)          # ptr, chunk_ptr, chunk_row
+    s64 = g.senders.long()
+    live32 = (g.edge_mask & (g.senders != g.receivers)).float()
+    zcount = torch.zeros(v, device="cuda")
     out = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         elt = torch.tensor([], dtype=dt).element_size()
@@ -1148,6 +1184,8 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "nodes": v, "edges": e, "live_edges": n_live}
+            if name in ("pair_sender_degree", "pair_sender_degree_norm", "plain_sender_degree"):
+                r["passes"] = profile_passes(torch, fn)
             emit({"phase": "sparse_kernel", **r})
             rows[name] = r
 
@@ -1163,7 +1201,9 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
                 errs.append(err)
             return max(errs)
 
-        # K1, both uses: the pair logits and zero logits (the plain conv's degree)
+        # K1: its sums at the pair logits and at zero logits; with its deg /
+        # dis epilogue (bit for bit the sums + 1 and torch.rsqrt); the plain
+        # conv's degree (a count: exact)
         degs = pair_sender_degree(src, dst, g)
         err = held("pair_sender_degree", degs, pair_sender_degree_plain(src, dst, g), DEG_TOL)
         zero = pair_sender_degree(None, None, g)
@@ -1173,8 +1213,29 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
             2 * v * elt + 9 * e + csr(g.send) + 2 * v * 4, 4 * n_live, err, DEG_TOL,
             None, "none: no single PyTorch call computes the sigmoid-weighted sender sums")
 
-        deg = degs + 1.0
-        dis = torch.rsqrt(deg)
+        def norm_twin():
+            d = pair_sender_degree_plain(src, dst, g) + 1.0
+            return d, torch.rsqrt(d)
+
+        def plain_twin():
+            d = 2.0 * pair_sender_degree_plain(None, None, g)[:1] + 1.0
+            return d, torch.rsqrt(d)
+
+        deg, dis = pair_norm(src, dst, g)
+        check(torch.equal(deg, degs + 1.0) and torch.equal(dis, torch.rsqrt(degs + 1.0)),
+              f"K1's deg / dis {dt_name} on {label} differ from its sums + 1 and torch.rsqrt")
+        err = held("pair_sender_degree_norm", (deg, dis), norm_twin(), DEG_TOL)
+        row("pair_sender_degree_norm", lambda: pair_norm(src, dst, g), norm_twin,
+            2 * v * elt + 9 * e + csr(g.send) + 4 * v * 4, 4 * n_live + 4 * v, err, DEG_TOL,
+            None, "none: no single PyTorch call computes the sigmoid-weighted sender sums")
+        pdeg, pdis = plain_degree(g)
+        err = held("plain_sender_degree", (pdeg, pdis), plain_twin(), (0.0, 0.0))
+        row("plain_sender_degree", lambda: plain_degree(g), plain_twin,
+            9 * e + csr(g.send) + 2 * v * 4, n_live + 2 * v, err, (0.0, 0.0),
+            lambda: zcount.index_add_(0, s64, live32),
+            "counts.index_add_(0, senders, live) into a preallocated f32 out (no 1 + "
+            "and rsqrt)")
+
         tol = SPARSE_TOL[dt_name]
         err = held("pair_coef_spmm", pair_coef_spmm(xc, xo, src, dst, deg, dis, g),
                    tuple(coef_spmm_plain([xc, xo], src, dst, deg, dis, g)), tol)
@@ -1186,8 +1247,6 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
             "torch.sparse.mm(block-diagonal CSR [2V, 2V], [xc; xo]), coefficients "
             "materialized outside the call, no self term")
 
-        pdeg = 2.0 * zero[:1] + 1.0
-        pdis = torch.rsqrt(pdeg)
         err = held("plain_coef_spmm", plain_coef_spmm(xc, pdeg, pdis, g),
                    coef_spmm_plain([xc], None, None, pdeg, pdis, g)[0], tol)
         lib = _library_spmm(torch, g, _csr_coefs(torch, g, None, None, pdeg, pdis), [xc])
@@ -1222,6 +1281,7 @@ def _twin_table() -> dict:
     plain = spmm_mod.coef_spmm_plain
     return {
         "K1": (spmm_mod, "pair_sender_degree", spmm_mod.pair_sender_degree_plain),
+        "K1P": (spmm_mod, "plain_sender_degree", spmm_mod.plain_sender_degree_plain),
         "K2": (spmm_mod, "pair_coef_spmm",
                lambda xc, xo, src, dst, deg, dis, g: tuple(plain([xc, xo], src, dst, deg, dis, g))),
         "K3": (spmm_mod, "plain_coef_spmm",
@@ -1269,7 +1329,8 @@ def sparse_counters(training: bool = False) -> dict:
     from cal_tpu_torch.ops.fused_gcn import fused_gcn_dense_att_dual, fused_gcn_dense_att_dual_bwd
     from cal_tpu_torch.ops.pool import segment_pool, segment_pool_bwd
 
-    ks = {"pair_sender_degree": spmm.pair_sender_degree, "pair_coef_spmm": spmm.pair_coef_spmm,
+    ks = {"pair_sender_degree": spmm.pair_sender_degree,
+          "plain_sender_degree": spmm.plain_sender_degree, "pair_coef_spmm": spmm.pair_coef_spmm,
           "plain_coef_spmm": spmm.plain_coef_spmm, "segment_pool": segment_pool,
           "gat_row_stats": gat_sparse.gat_row_stats, "gat_coef_spmm": gat_sparse.gat_coef_spmm,
           "coo_spmm": coo_spmm.coo_spmm, "adj_build": adj_build, "fused_gcn_dense_att_dual": fused_gcn_dense_att_dual,
@@ -1287,17 +1348,22 @@ def sparse_counters(training: bool = False) -> dict:
     return ks
 
 
-def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
+def sparse_want(model: str, fwd: int, steps: int | None = None,
+                batches: int | None = None) -> dict:
     """Exact launches of ``sparse_counters`` for ``fwd`` forwards (eval
-    batches and train steps) and ``steps`` backwards (None: serving).  Per
-    forward: CausalGCN K1 4 (the pair and three plain convs), K2 1, K3 3;
-    CausalGAT K1 1, K2 1, K8 and K9 one per layer; CausalGIN K1 1, K2 1, K11
-    one per layer; all K4 2.  Per backward: K2T, K5, K6 1, K7 2; CausalGCN
-    K3T 3, CausalGAT K9T and K10 one per layer, CausalGIN K11T one per layer
-    (K12 never: GIN's coefficient, the edge mask, needs no gradient).  No
-    dense kernel."""
+    batches and train steps) on ``batches`` device batches (None: one a
+    forward; the trainers copy the eval splits to the device once a run)
+    and ``steps`` backwards (None: serving).  Per forward: K1 1 (the pair),
+    K2 1; CausalGCN K3 3 (three plain convs on the batch's one plain
+    degree, which runs once a batch), CausalGAT K8 and K9 one per layer,
+    CausalGIN K11 one per layer; all K4 2.  Per backward: K2T, K5, K6 1, K7
+    2; CausalGCN K3T 3, CausalGAT K9T and K10 one per layer, CausalGIN K11T
+    one per layer (K12 never: GIN's coefficient, the edge mask, needs no
+    gradient).  No dense kernel."""
     gat, gin = model == "CausalGAT", model == "CausalGIN"
-    want = {"pair_sender_degree": (1 if gat or gin else 4) * fwd, "pair_coef_spmm": fwd,
+    batches = fwd if batches is None else batches
+    want = {"pair_sender_degree": fwd, "pair_coef_spmm": fwd,
+            "plain_sender_degree": 0 if gat or gin else batches,
             "plain_coef_spmm": 0 if gat or gin else 3 * fwd, "segment_pool": 2 * fwd,
             "gat_row_stats": LAYERS * fwd if gat else 0,
             "gat_coef_spmm": LAYERS * fwd if gat else 0,
@@ -1315,23 +1381,25 @@ def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
     return want
 
 
-def baseline_want(model: str, layout: str, fwd: int, steps: int) -> dict:
+def baseline_want(model: str, layout: str, fwd: int, steps: int, batches: int) -> dict:
     """Exact launches of ``sparse_counters(training=True)`` for a baseline's
-    training run of ``fwd`` forwards (train steps and eval batches) and
-    ``steps`` backwards.  Sparse: per forward GCN K1 and K3, GIN K11, GAT K8
-    and K9 one per layer, all K4 1; per backward GCN K3T, GIN K11T, GAT K9T
-    and K10 one per layer, all K7 1.  Dense: the adjacency build once a
-    batch and, for GAT, the flash forward one per layer a forward and its
-    backward one per layer a step (the GCN and GIN aggregates are plain
-    products).  Nothing else."""
+    training run of ``fwd`` forwards (train steps and eval batches) on
+    ``batches`` device batches and ``steps`` backwards.  Sparse: per forward
+    GCN K3, GIN K11, GAT K8 and K9 one per layer, all K4 1, and GCN's plain
+    degree once a batch; per backward GCN K3T, GIN K11T, GAT K9T and K10 one
+    per layer, all K7 1.  Dense: the adjacency build once a batch and, for
+    GAT, the flash forward one per layer a forward and its backward one per
+    layer a step (the GCN and GIN aggregates are plain products).  Nothing
+    else."""
     want = dict.fromkeys(sparse_counters(training=True), 0)
     if layout == "dense":
         want["adj_build"] = fwd
         if model == "GAT":
             want.update(flash_gat_fwd=LAYERS * fwd, flash_gat_bwd=LAYERS * steps)
         return want
-    want.update(segment_pool=fwd, segment_pool_bwd=steps)
-    per_layer = {"GCN": (("pair_sender_degree", "plain_coef_spmm"), ("plain_coef_spmm_t",)),
+    want.update(segment_pool=fwd, segment_pool_bwd=steps,
+                plain_sender_degree=batches if model == "GCN" else 0)
+    per_layer = {"GCN": (("plain_coef_spmm",), ("plain_coef_spmm_t",)),
                  "GIN": (("coo_spmm",), ("coo_spmm_t",)),
                  "GAT": (("gat_row_stats", "gat_coef_spmm"),
                          ("gat_coef_spmm_t", "gat_sddmm_chain"))}[model]
@@ -1485,10 +1553,10 @@ def repeated(torch, g, what, fn):
 
 def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
     """K2T, K3T, K5, K6 and K7 against their twins on one sparse batch ``g``
-    (on the card), bf16 and f32, every f32 backward also against autograd
-    of the f32 forward twins; with their times (K5's and K6's also with the
-    warm device ms of each kernel a call launches, ``passes``).  Returns
-    {dtype: {kernel: row}}."""
+    (on the card; K7 also on its node_graph shuffled), bf16 and f32, every
+    f32 backward also against autograd of the f32 forward twins; with their
+    times (K5's, K6's and K7's also with the warm device ms of each kernel a
+    call launches, ``passes``).  Returns {dtype: {kernel: row}}."""
     from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.pool import (
         segment_pool, segment_pool_bwd, segment_pool_bwd_plain, segment_pool_plain)
@@ -1522,7 +1590,7 @@ def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "nodes": v, "edges": e, "live_edges": n_live}
-            if name in ("pair_sddmm_chain", "pair_dpre"):
+            if name in ("pair_sddmm_chain", "pair_dpre", "segment_pool_bwd"):
                 r["passes"] = profile_passes(torch, fn)
             emit({"phase": "sparse_bwd_kernel", **r})
             rows[name] = r
@@ -1587,6 +1655,9 @@ def sparse_bwd_kernel_rows(torch, g, label, peaks, flush):
         dp = torch.randn((g1, H), generator=gen, device="cuda")
         err = held("segment_pool_bwd", segment_pool_bwd(dp, ng, dt),
                    segment_pool_bwd_plain(dp, ng, dt), (0.0, 0.0))
+        shuffled = ng[torch.randperm(v, generator=gen, device="cuda")]
+        held("segment_pool_bwd", segment_pool_bwd(dp, shuffled, dt),
+             segment_pool_bwd_plain(dp, shuffled, dt), (0.0, 0.0))
         ng64 = ng.long()
         row("segment_pool_bwd", lambda: segment_pool_bwd(dp, ng, dt),
             lambda: segment_pool_bwd_plain(dp, ng, dt), v * H * elt + 4 * v + g1 * H * 4,
@@ -1947,8 +2018,9 @@ def baseline_phase(torch, model: str, layout: str, n_val: int, n_test: int) -> d
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counts.items()}
     steps = res["steps_per_epoch"] * BASELINE_EPOCHS
-    evals = (-(-n_val // B) - (-n_test // B)) * BASELINE_EPOCHS
-    want = baseline_want(model, layout, steps + evals, steps)
+    staged = -(-n_val // B) - (-n_test // B)       # eval batches, on the device once a run
+    evals = staged * BASELINE_EPOCHS
+    want = baseline_want(model, layout, steps + evals, steps, steps + staged)
     check(launches == want, f"{model} {layout} baseline launches {launches}, expected {want}")
     losses = [h["loss"] for h in res["history"]]
     check(all(map(math.isfinite, losses)), f"{model} {layout} baseline losses {losses}")
@@ -1987,9 +2059,10 @@ def sparse_training_phase(torch, sparse_test, n_val: int, model: str = "CausalGC
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counts.items()}
     steps = res["steps_per_epoch"] * SPARSE_TRAIN_EPOCHS
-    # every epoch sweeps the val and the test split
-    evals = (-(-n_val // B) - (-len(sparse_test) // B)) * SPARSE_TRAIN_EPOCHS
-    want = sparse_want(model, steps + evals, steps)
+    # every epoch sweeps the val and the test split, on the device once a run
+    staged = -(-n_val // B) - (-len(sparse_test) // B)
+    evals = staged * SPARSE_TRAIN_EPOCHS
+    want = sparse_want(model, steps + evals, steps, steps + staged)
     check(launches == want, f"sparse training launches {launches}, expected {want}")
     hist = res["history"]
     losses = [h["loss"] for h in hist]
@@ -2697,8 +2770,8 @@ def _sig_coefs(torch, g, src, dst, dis, negate):
 def sigmoid_kernel_rows(torch, g, label, peaks, flush):
     """K13-K16 (row 12) against their twins on one sparse batch ``g`` (on the
     card), x in bf16 and f32 with f32 logits (config 4's), ``negate`` both
-    ways, with their times (K15's and K16's also with the warm device ms of
-    each kernel a call launches, ``passes``); returns {(dtype, negate):
+    ways, with their times (K13's, K15's and K16's also with the warm device
+    ms of each kernel a call launches, ``passes``); returns {(dtype, negate):
     {kernel: row}}."""
     from cal_tpu_torch.ops import spmm
 
@@ -2728,7 +2801,7 @@ def sigmoid_kernel_rows(torch, g, label, peaks, flush):
                      "bound_ms": max(t_bytes, t_ops) * 1e3,
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "nodes": v, "edges": e, "live_edges": n_live}
-                if name in ("sigmoid_sddmm_chain", "sigmoid_dpre"):
+                if name in ("sigmoid_sender_degree", "sigmoid_sddmm_chain", "sigmoid_dpre"):
                     r["passes"] = profile_passes(torch, fn)
                 emit({"phase": "sigmoid_kernel", **r})
                 rows[name] = r
@@ -2749,8 +2822,10 @@ def sigmoid_kernel_rows(torch, g, label, peaks, flush):
                 return max(errs)
 
             deg, dis = spmm.sigmoid_sender_degree_plain(src, dst, g, negate)
-            err = held("sigmoid_sender_degree", spmm.sigmoid_sender_degree(src, dst, g, negate),
-                       (deg, dis), DEG_TOL)
+            got = spmm.sigmoid_sender_degree(src, dst, g, negate)
+            check(torch.equal(got[1], torch.rsqrt(got[0])),
+                  f"K13's dis {dt_name} negate={negate} on {label} differs from torch.rsqrt")
+            err = held("sigmoid_sender_degree", got, (deg, dis), DEG_TOL)
             row("sigmoid_sender_degree", lambda: spmm.sigmoid_sender_degree(src, dst, g, negate),
                 lambda: spmm.sigmoid_sender_degree_plain(src, dst, g, negate),
                 2 * v * 4 + 9 * e + csr(g.send) + 2 * v * 4, 4 * n_live, err, DEG_TOL,
@@ -2822,7 +2897,8 @@ def packed_train_phase(torch, splits) -> dict:
     real = lambda chunks: sum(len(c) > 0 for c in chunks)
     steps = sum(real(train_l._chunks()) for _ in range(PACK_EPOCHS))
     pads = PACK_EPOCHS * len(train_l) - steps
-    evals = PACK_EPOCHS * (real(val_l._chunks()) + real(test_l._chunks()))
+    staged = real(val_l._chunks()) + real(test_l._chunks())
+    evals = PACK_EPOCHS * staged
     counts = sparse_counters(training=True)
     for k in counts.values():
         k.launches = 0
@@ -2833,7 +2909,7 @@ def packed_train_phase(torch, splits) -> dict:
                     "--batch_size", str(B), "--data_num", str(SPARSE_DATA_NUM), "--seed",
                     str(SEED), "--epochs", str(PACK_EPOCHS), "--device", "cuda"])
     launches = {n: k.launches for n, k in counts.items()}
-    want = sparse_want("CausalGCN", steps + evals, steps)
+    want = sparse_want("CausalGCN", steps + evals, steps, steps + staged)
     check(launches == want, f"packed training launches {launches}, expected {want}")
     check("packed sparse budgets" in buf.getvalue(), "main_syn did not pack")
     losses = [h["loss"] for h in res["history"]]
@@ -2869,7 +2945,7 @@ def packed_real_phase(torch, root, ds) -> dict:
     graphs = list(ds)
     budgets = compute_budgets(graphs, B, "sparse", pack=True)
     real = lambda chunks: sum(len(c) > 0 for c in chunks)
-    steps = evals = 0
+    steps = evals = staged = 0
     train_idx, test_idx, _ = k_fold(np.array([g.y for g in graphs]), REAL_FOLDS, "test_max")
     for fold, (tr, te) in enumerate(zip(train_idx, test_idx)):
         tl = Loader([graphs[i] for i in tr], B, shuffle=True, budgets=budgets,
@@ -2877,6 +2953,7 @@ def packed_real_phase(torch, root, ds) -> dict:
         tl._chunks()
         steps += sum(real(tl._chunks()) for _ in range(REAL_EPOCHS))
         te_l = Loader([graphs[i] for i in te], B, budgets=budgets, layout="sparse")
+        staged += real(te_l._chunks())       # a fold's test batches, on the device once
         evals += REAL_EPOCHS * real(te_l._chunks())
     counts = sparse_counters(training=True)
     for k in counts.values():
@@ -2892,7 +2969,7 @@ def packed_real_phase(torch, root, ds) -> dict:
     wall = time.perf_counter() - t0
     log = buf.getvalue()
     launches = {n: k.launches for n, k in counts.items()}
-    want = sparse_want("CausalGCN", steps + evals, steps)
+    want = sparse_want("CausalGCN", steps + evals, steps, steps + staged)
     check(launches == want, f"packed main_real launches {launches}, expected {want}")
     check("pack_batches auto: worst-case batch" in log, "main_real did not pack SYNREDDIT")
     check("sydall Final: Causal | Dataset:[SYNREDDIT]" in log, "main_real printed no sydall")
@@ -3194,7 +3271,8 @@ def sparse_digests(torch, batches: dict) -> dict:
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
     HEADS heads), of K21 (4 planes, dead edges left random), of K8's, K9's,
     K9T's and K10's outputs (each apart, K9 / K9T at rate 0 and GAT_RATE,
-    K10 at GAT_RATE) and the chain's (``chain_digests``) on seeded inputs
+    K10 at GAT_RATE), the chain's (``chain_digests``) and the degrees' and
+    K7's (``degree_digests``) on seeded inputs
     over each sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
@@ -3252,7 +3330,39 @@ def sparse_digests(torch, batches: dict) -> dict:
                     [gs.gat_coef_spmm(x, tj, ti, m_ref, words, rate, g)])
                 out[f"K9T_{label}_{dt_name}_r{rate}"] = _digest(
                     [gs.gat_coef_spmm_t(w.to(dt), tj, ti, m_ref, words, rate, g)])
-    return {**out, **chain_digests(torch, batches)}
+    return {**out, **chain_digests(torch, batches), **degree_digests(torch, batches)}
+
+
+def degree_digests(torch, batches: dict) -> dict:
+    """sha256 of K1's sums (logits in bf16 and f32, and zero logits), K1's
+    deg / dis and the plain conv's degree (``degree_calls``), K13's (deg,
+    dis) at both ``negate`` values and K7's dx in bf16 and f32 (on the
+    batch's node_graph and on it shuffled), on seeded inputs over each
+    sparse batch.  The zero-logit sums and the plain degree are counts,
+    exact in any order, and K7 a copy: these equal every tree's."""
+    from cal_tpu_torch.ops import pool, spmm
+
+    pair_norm, plain_degree = degree_calls(spmm)
+    out = {}
+    for label, g in batches.items():
+        v = g.num_nodes
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+        src = torch.randn(v, generator=gen, device="cuda")
+        dst = 2.0 * torch.randn(v, generator=gen, device="cuda")
+        dp = torch.randn((g.num_graphs + 1, H), generator=gen, device="cuda")
+        shuffled = g.node_graph[torch.randperm(v, generator=gen, device="cuda")]
+        out[f"K1_zero_{label}"] = _digest([spmm.pair_sender_degree(None, None, g)])
+        out[f"K1_plain_{label}"] = _digest(plain_degree(g))
+        for neg in (False, True):
+            out[f"K13_neg{int(neg)}_{label}"] = _digest(
+                spmm.sigmoid_sender_degree(src, dst, g, neg))
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            out[f"K1_{label}_{dt_name}"] = _digest(
+                [spmm.pair_sender_degree(src.to(dt), dst.to(dt), g)])
+            out[f"K1_norm_{label}_{dt_name}"] = _digest(pair_norm(src.to(dt), dst.to(dt), g))
+            for name, ng in (("K7", g.node_graph), ("K7_shuffled", shuffled)):
+                out[f"{name}_{label}_{dt_name}"] = _digest([pool.segment_pool_bwd(dp, ng, dt)])
+    return out
 
 
 def chain_digests(torch, batches: dict) -> dict:
@@ -3406,7 +3516,9 @@ def ptxas_instances(report: dict, libs) -> dict:
     """{instance: registers, spill bytes} of every ``*_kernel`` of the
     libraries ``libs``, from nvcc's ``-Xptxas -v`` logs; an instance is
     named by its element type and the integer and bool arguments of the
-    kernel's own template argument list."""
+    kernel's own template argument list, a ``csr_reduce_kernel`` also by its
+    values policy (``RowReduce``, ``DegreeSum``) and that policy's element
+    type."""
     out = {}
     for lib in libs:
         name = None
@@ -3416,9 +3528,15 @@ def ptxas_instances(report: dict, libs) -> dict:
                 kernel, targs = _mangled_kernel(m.group(1))
                 name = None
                 if kernel:
+                    first = _first_targs(targs)
                     t = re.search(r"^I(13__nv_bfloat16|f)", targs)
-                    ints = re.findall(r"L[ib](\d+)E", _first_targs(targs))
-                    parts = ([("bf16" if t.group(1) != "f" else "f32")] if t else []) + ints
+                    dtype = t.group(1) if t else None
+                    pol = re.search(r"\d(RowReduce|DegreeSum)(?:I(13__nv_bfloat16|f))?", first)
+                    if pol and pol.group(2):
+                        dtype = pol.group(2)
+                    ints = re.findall(r"L[ib](\d+)E", first)
+                    parts = (([pol.group(1)] if pol else [])
+                             + ([("bf16" if dtype != "f" else "f32")] if dtype else []) + ints)
                     name = f"{kernel}<{', '.join(parts)}>" if parts else kernel
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -3559,6 +3677,8 @@ KERNEL_ROWS = {
 # the sparse serving run, its main path
 SPARSE_KERNEL_ROWS = {
     "pair_sender_degree": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1222"),
+    "plain_sender_degree": ("cal_tpu_torch/csrc/spmm.cu",
+                            "cal_tpu/ops/pallas_spmm.py:1222 at zero logits in _plain_fwd (:1066)"),
     "pair_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1292"),
     "plain_coef_spmm": ("cal_tpu_torch/csrc/spmm.cu", "cal_tpu/ops/pallas_spmm.py:1032"),
     "segment_pool": ("cal_tpu_torch/csrc/pool.cu", "cal_tpu/ops/pallas_pool.py:79"),
@@ -3687,6 +3807,7 @@ def main() -> int:
               "plain_cluster_kernel|aggregate_mma_kernel|aggregate_fma_kernel|"
               "degree_wide_kernel|degree_col_kernel"),
           "ptxas_walk": ptxas_walk(report),
+          "ptxas_pool": ptxas_instances(report, ["pool"]),
           "ptxas_edge": ptxas_edge(report),
           "ptxas_flash": ptxas_flash(report),
           "ptxas_gat": ptxas_gat(report),
@@ -3758,6 +3879,8 @@ def main() -> int:
     red_rows.append(sparse_row_kernels(torch, reddit_batch, "reddit", peaks, flush))
     emit(walk_table("reddit", *red_rows))
     emit(copy_floor(torch, reddit_batch, "reddit", flush))
+    for label, g in (("synthetic", syn_batch), ("reddit", reddit_batch)):
+        emit(fill_floor(torch, g, label, flush))
     emit({"phase": "sparse_digests", **sparse_digests(
         torch, {"synthetic": syn_batch, "reddit": reddit_batch})})
     del syn_batch, reddit_batch, bench_graph
@@ -3960,7 +4083,7 @@ def main() -> int:
         r["launches_by_run"].setdefault("parity", parity_launches[r["name"]]
                                         if r["name"] in parity_launches
                                         else parity_launches[KERNEL_ROWS[r["name"]][0]])
-    check(len(rows) == 36, f"{len(rows)} kernel rows")
+    check(len(rows) == 37, f"{len(rows)} kernel rows")
     # every row has launches in the run that reaches it; row 14 has no run
     check(all((r["launches"] > 0) != (r["name"] in OFF_MAIN_PATH) for r in rows),
           "a kernel row has no launch in the run that reaches it")
@@ -4008,17 +4131,37 @@ def copy_floor(torch, g, label, flush) -> dict:
             "ms": time_ms(torch, lambda: out.copy_(x), flush)}
 
 
-def sparse_batches(torch) -> dict:
-    """The sparse kernel batches: a serving batch of the canonical dataset
-    (V 31,744), a batch of 128 REDDIT-shaped threads and the benchmark's
-    config-4 graph, on the card."""
-    from cal_tpu_torch.bench import spmm_workload
-    from cal_tpu_torch.data.loader import Loader
-    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+def fill_floor(torch, g, label, flush) -> dict:
+    """The time of one ``fill_`` of a bf16 and of an f32 [V, H] on batch
+    ``g``'s V, cold L2 as the kernel rows: the bytes K7 must write (dx
+    written once) on this timing protocol."""
+    out = {"phase": "fill_floor", "batch": label}
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x = torch.empty((g.num_nodes, H), dtype=dt, device="cuda")
+        out[dt_name] = {"bytes": x.numel() * x.element_size(),
+                        "ms": time_ms(torch, lambda: x.fill_(1.0), flush)}
+    return out
+
+
+def sparse_test_graphs() -> list:
+    """The canonical dataset's test split (data_num SPARSE_DATA_NUM, 1,600
+    graphs)."""
     from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
 
     ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
-    _, _, sparse_test, _ = dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4, seed=SEED)
+    return dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4, seed=SEED)[2]
+
+
+def sparse_batches(torch, sparse_test=None) -> dict:
+    """The sparse kernel batches: a serving batch of the canonical dataset
+    (V 31,744; of ``sparse_test``, made when None), a batch of 128
+    REDDIT-shaped threads and the benchmark's config-4 graph, on the
+    card."""
+    from cal_tpu_torch.bench import spmm_workload
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+
+    sparse_test = sparse_test_graphs() if sparse_test is None else sparse_test
     return {"synthetic": next(Loader(sparse_test, B, layout="sparse").host_batches()).to("cuda"),
             "reddit": next(Loader(reddit_graphs(B, seed=SEED, feat=10), B,
                                   layout="sparse").host_batches()).to("cuda"),
@@ -4028,11 +4171,13 @@ def sparse_batches(torch) -> dict:
 def walk_main() -> int:
     """``--walk``: the coefficient SpMM walk alone, for an A/B of two trees
     (run this file from the other tree's root): the build's ptxas report of
-    the walk, each sparse batch's csr_profile, every sparse kernel held
-    against its twin and timed on the serving and REDDIT batches (row 12
-    also on config 4's graph; K5, K6, K15 and K16 with the warm device ms
-    of each kernel a call launches), the walk's rows by batch, and the
-    digests (the chain's among the sparse ones)."""
+    the walk and of K7, each sparse batch's csr_profile, every sparse kernel
+    held against its twin and timed on the serving and REDDIT batches (row
+    12 also on config 4's graph; K1, K13, K5, K6, K15, K16 and K7 with the
+    warm device ms of each kernel a call launches), the walk's rows by
+    batch, the ``copy_`` and ``fill_`` floors of each batch, the digests (the
+    chain's and the degrees' among the sparse ones), and two sparse CausalGCN
+    ``profile_train_step`` lines (the step's kernels and device ms)."""
     import torch
 
     if missing(torch):
@@ -4050,12 +4195,14 @@ def walk_main() -> int:
     peaks, _ = peaks_for(name)
     report = build.build_all()
     emit({"phase": "env", "root": HERE, "nvidia_smi": smi, "device": name,
-          "ptxas_walk": ptxas_walk(report)})
-    batches = sparse_batches(torch)
+          "ptxas_walk": ptxas_walk(report), "ptxas_pool": ptxas_instances(report, ["pool"])})
+    sparse_test = sparse_test_graphs()
+    batches = sparse_batches(torch, sparse_test)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     for label, g in batches.items():
         emit(csr_profile(g, label))
         emit(copy_floor(torch, g, label, flush))
+        emit(fill_floor(torch, g, label, flush))
     for label in ("synthetic", "reddit"):
         g = batches[label]
         emit(walk_table(label, sparse_kernel_rows(torch, g, label, peaks, flush),
@@ -4072,6 +4219,10 @@ def walk_main() -> int:
     _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
     emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
+    # the sparse CausalGCN step the walk's kernels serve: its kernels and device ms, twice
+    host = next(Loader(sparse_test, B, layout="sparse").host_batches())
+    for _ in range(2):
+        profile_train_step(torch, sparse_test, host, "CausalGCN", layout="sparse")
     emit({"phase": "walk_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
     return 0
 

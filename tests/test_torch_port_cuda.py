@@ -748,6 +748,104 @@ def test_chain_kernel_launches(cuda):
         assert len(names) == 1 and "chain_tail_kernel" in names[0], names
 
 
+def test_degree_and_pool_gather_kernel_launches(cuda):
+    """K1 (its sums, and deg / dis as the aggregates take them), the plain
+    conv's degree and K13 are one device kernel a call each: csr_reduce_kernel
+    with the degree policy, the epilogue in its row writes, no pass over all
+    V rows (row_combine) and no deg_dis_kernel; K7 is one kernel."""
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.pool import segment_pool_bwd
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=25, isolated=7)
+    _, _, _, _, src, dst = _bwd_inputs(cuda, v, 128, "bfloat16", 25)
+    s32, d32 = src.float(), dst.float()
+    for fn in (lambda: spmm.pair_sender_degree(src, dst, g),
+               lambda: spmm.pair_sender_degree(src, dst, g, norm=True),
+               lambda: spmm.plain_sender_degree(g),
+               lambda: spmm.sigmoid_sender_degree(s32, d32, g, True)):
+        names = _device_kernels(fn)
+        assert len(names) == 1, names
+        assert "csr_reduce_kernel" in names[0] and "DegreeSum" in names[0], names
+    dpooled = torch.randn((6, 128), device=cuda)
+    names = _device_kernels(lambda: segment_pool_bwd(dpooled, g.node_graph, torch.bfloat16))
+    assert len(names) == 1 and "pool_bwd_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("logits", ["float32", "bfloat16"])
+def test_sender_degree_hub_sums(cuda, logits):
+    """K1 and K13 (both ``negate``s) on the walk's special shapes (a hub
+    sender of 2,100 edges: 33 chunks, rows of 32 and 33 edges, padded runs)
+    against the twins' weights summed in f64 (``_sum_f64``); the plain
+    conv's degree against its twin exactly (a count); each call leaves the
+    sender CSR's arrival counters at 0 and a second call repeats its bits;
+    the epilogue's (deg, dis) equal the sums + 1 and torch.rsqrt of them bit
+    for bit."""
+    from cal_tpu_torch.ops import spmm
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=26, isolated=7)
+    assert int(g.send.chunk_ptr[6] - g.send.chunk_ptr[5]) == 33
+    _, _, _, _, src, dst = _bwd_inputs(cuda, v, 128, logits, 26)
+    s, r = g.senders.long(), g.receivers.long()
+    live = g.edge_mask & (s != r)
+    sig = torch.sigmoid(src.float()[s] + dst.float()[r]).double()
+    idle = lambda: not g.send.arrivals.any() and not g.recv.arrivals.any()
+
+    def repeated(fn):
+        got = fn()
+        torch.cuda.synchronize()
+        assert idle()
+        again = fn()
+        torch.cuda.synchronize()
+        assert idle()
+        got, again = ((got,) if torch.is_tensor(got) else got,
+                      (again,) if torch.is_tensor(again) else again)
+        assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+        return got
+
+    (sums,) = repeated(lambda: spmm.pair_sender_degree(src, dst, g))
+    ref = _sum_f64(s, (torch.stack([sig, 1.0 - sig]) * live).T, v).T
+    torch.testing.assert_close(sums, ref, atol=DEG_TOL[0], rtol=DEG_TOL[1])
+    deg, dis = repeated(lambda: spmm.pair_sender_degree(src, dst, g, norm=True))
+    assert torch.equal(deg, sums + 1.0) and torch.equal(dis, torch.rsqrt(sums + 1.0))
+    s32, d32 = src.float(), dst.float()
+    for negate in (False, True):
+        deg, dis = repeated(lambda: spmm.sigmoid_sender_degree(s32, d32, g, negate))
+        w = (1.0 - sig if negate else sig) * live
+        torch.testing.assert_close(deg, _sum_f64(s, w[:, None], v)[:, 0] + 1.0,
+                                   atol=DEG_TOL[0], rtol=DEG_TOL[1])
+        assert torch.equal(dis, torch.rsqrt(deg))
+    deg, dis = repeated(lambda: spmm.plain_sender_degree(g))
+    pdeg, pdis = spmm.plain_sender_degree_plain(g)
+    assert torch.equal(deg, pdeg) and torch.equal(dis, torch.rsqrt(pdeg))
+    assert torch.equal(deg, 2.0 * spmm.pair_sender_degree(None, None, g)[:1] + 1.0)
+
+
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_gather_exact_in_any_order(cuda, h, dtype):
+    """K7 equals its twin bit for bit on a sorted node_graph of 3,800-row
+    graphs (REDDIT's largest) and a run of 1-row graphs, on the same ids
+    shuffled, and on a V that is no multiple of 32."""
+    from cal_tpu_torch.ops.pool import segment_pool_bwd, segment_pool_bwd_plain
+
+    rng = np.random.default_rng(h)
+    sizes = np.concatenate([[3800, 3800, 17], np.ones(40, np.int64), [2500]])
+    ng = np.repeat(np.arange(sizes.size), sizes)
+    ng = np.concatenate([ng, np.full(1231, sizes.size)]).astype(np.int32)   # trash segment
+    dpooled = torch.randn((sizes.size + 1, h), generator=torch.Generator(
+        device=cuda).manual_seed(h), device=cuda)
+    before = segment_pool_bwd.launches
+    for order in (ng, rng.permutation(ng), ng[:-7]):
+        t = torch.from_numpy(order).to(cuda)
+        got = segment_pool_bwd(dpooled, t, DT[dtype])
+        assert got.shape == (t.shape[0], h) and got.dtype == DT[dtype]
+        assert torch.equal(got, segment_pool_bwd_plain(dpooled, t, DT[dtype]))
+    torch.cuda.synchronize()
+    assert segment_pool_bwd.launches == before + 3
+
+
 def test_chain_head_raises_on_misaligned_rows(cuda):
     """K5 and K15 load 16 bytes of a row at a time: a feature row off that
     alignment raises instead of launching."""

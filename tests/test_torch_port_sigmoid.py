@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from cal_tpu.ops.pallas_spmm import build_tiles, gcn_aggregate_sparse_sigmoid_pallas
+from cal_tpu.ops.pallas_spmm import _sig_fwd, build_tiles, gcn_aggregate_sparse_sigmoid_pallas
 from cal_tpu_torch.graph import sparse_batch
 from cal_tpu_torch.ops import spmm
 
@@ -68,6 +68,21 @@ def test_sigmoid_aggregate_matches_pallas(fn, negate):
     got = _torch(fn, x, src, dst, gout, g, negate)
     for name, a, b in zip(("out", "dx", "dsrc", "ddst"), got, ref, strict=True):
         np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("negate", [False, True])
+def test_sigmoid_sender_degree_matches_sig_fwd(negate):
+    """K13's twin, (deg, dis) [V] as the kernel writes them (deg = 1 + the
+    sender sums, dis = deg^-1/2 in the row's write), against the deg and
+    dis that cal_tpu's ``_sig_fwd`` forms from tile_scatter2's sums."""
+    s, r, mask, x, src, dst, _, g = _case(3)
+    tf = build_tiles(s, r, V, node_block=NB, tile_edges=T, edge_mask=mask)
+    tb = build_tiles(r, s, V, node_block=NB, tile_edges=T, edge_mask=mask)
+    _, res = _sig_fwd(jnp.asarray(x), jnp.asarray(src), jnp.asarray(dst), tf, tb, negate, NB)
+    deg, dis = spmm.sigmoid_sender_degree(torch.tensor(src), torch.tensor(dst), g, negate)
+    assert deg.shape == dis.shape == (V,)
+    np.testing.assert_allclose(deg.numpy(), np.asarray(res[6]), **TOL)
+    np.testing.assert_allclose(dis.numpy(), np.asarray(res[7]), **TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -34,10 +34,12 @@ from cal_tpu_torch.main_syn import main
 from cal_tpu_torch.models.causal import CausalGNN
 from cal_tpu_torch.ops.gcn import gcn_aggregate_sparse
 from cal_tpu_torch.ops.pool import segment_pool
+import cal_tpu_torch.ops.spmm as spmm_mod
 from cal_tpu_torch.ops.spmm import (
     gcn_aggregate_sparse_pair,
     gcn_aggregate_sparse_plain,
     pair_sender_degree,
+    plain_sender_degree,
 )
 from cal_tpu_torch.utils.checkpoint import params_from_jax
 
@@ -194,6 +196,45 @@ def test_spmm_twins_match_jax(dtype):
             np.testing.assert_allclose(plain_ref.numpy(), np.asarray(xla), **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sender_degree_norm_matches_pair_stats(dtype):
+    """K1's twin with its epilogue (deg = 1 + the sums, dis = deg^-1/2, as
+    the pair aggregate takes them from the kernel) against cal_tpu's
+    _pair_stats_call + 1 and jax.lax.rsqrt (``_pair_fwd``), and the plain
+    conv's degree (``plain_sender_degree``: a count of live edges) against
+    ``_plain_fwd``'s 2 x _pair_stats_call at zero logits + 1 bit for bit
+    (counts are exact in any order, on f32 and bf16 plans alike), with a
+    hub sender; the epilogue equals the sums + 1 and torch.rsqrt bit for
+    bit."""
+    rng = np.random.default_rng(5)
+    g, _, (src, dst) = _workload(rng, send_hub=120)
+    assert g.send.heavy_chunks.size > g.recv.heavy_chunks.size   # the hub sender
+    bf16 = dtype == "bfloat16"
+    tf, _ = _plans(g, "bf16" if bf16 else "f32")
+    v = g.num_nodes
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    gt = g.to("cpu")
+    src_t, dst_t = (torch.from_numpy(a).to(tdt) for a in (src, dst))
+    deg, dis = pair_sender_degree(src_t, dst_t, gt, norm=True)
+    assert deg.shape == dis.shape == (2, v) and deg.dtype == dis.dtype == torch.float32
+    ref = _pair_stats_call(jnp.asarray(src, jdt), jnp.asarray(dst, jdt), tf, v, NB) + 1.0
+    tol = SPMM_TOL[dtype] if bf16 else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(deg.numpy(), np.asarray(ref), **tol)
+    np.testing.assert_allclose(dis.numpy(), np.asarray(jax.lax.rsqrt(ref)), **tol)
+    sums = pair_sender_degree(src_t, dst_t, gt)
+    torch.testing.assert_close(deg, sums + 1.0, rtol=0, atol=0)
+    torch.testing.assert_close(dis, torch.rsqrt(sums + 1.0), rtol=0, atol=0)
+
+    pdeg, pdis = plain_sender_degree(gt)
+    assert pdeg.shape == pdis.shape == (1, v)
+    zeros = jnp.zeros(v, jnp.float32)
+    pref = 2.0 * _pair_stats_call(zeros, zeros, tf, v, NB)[0] + 1.0
+    np.testing.assert_array_equal(pdeg.numpy()[0], np.asarray(pref))
+    np.testing.assert_allclose(pdis.numpy()[0], np.asarray(jax.lax.rsqrt(pref)), rtol=1e-6)
+    torch.testing.assert_close(pdeg, 2.0 * pair_sender_degree(None, None, gt)[:1] + 1.0,
+                               rtol=0, atol=0)
+
+
 def test_spmm_twins_empty_graph_and_padding_only():
     """A batch whose edges are all padding: the aggregate is the self term."""
     v, h = 96, 32
@@ -246,9 +287,9 @@ def _bn_stats(tree, rng):
     return {k: _bn_stats(v, rng) for k, v in tree.items()}
 
 
-def _models(dtype, g_j, num_features, **kw):
+def _models(dtype, g_j, num_features, layers=LAYERS, **kw):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    jm = JaxCausalGNN(backbone="gcn", hidden=HIDDEN, num_classes=CLASSES, num_layers=LAYERS,
+    jm = JaxCausalGNN(backbone="gcn", hidden=HIDDEN, num_classes=CLASSES, num_layers=layers,
                       dtype=jdt, **kw)
     key = jax.random.PRNGKey(0)
     variables = jm.init({"params": key, "intervention": key}, g_j, eval_random=False)
@@ -256,7 +297,7 @@ def _models(dtype, g_j, num_features, **kw):
     variables = {"params": _randomize(variables["params"], rng),
                  "batch_stats": _bn_stats(variables["batch_stats"], rng)}
     tm = CausalGNN(num_features=num_features, hidden=HIDDEN, num_classes=CLASSES,
-                   num_layers=LAYERS, dtype=torch.bfloat16 if dtype == "bfloat16"
+                   num_layers=layers, dtype=torch.bfloat16 if dtype == "bfloat16"
                    else torch.float32, **kw)
     tm.load_state_dict(params_from_jax(variables["params"], variables["batch_stats"]))
     return jm, variables, tm.eval()
@@ -287,6 +328,39 @@ def test_sparse_eval_forward_matches_jax(dtype, flags):
     for a, b in zip(ours, ref):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         np.testing.assert_allclose(a.numpy()[real], np.asarray(b)[real], **FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_forward_plain_degree_once_a_batch(dtype, monkeypatch):
+    """A sparse CausalGCN forward of 3 layers runs its 3 plain convs on one
+    degree: ``plain_sender_degree`` runs once a batch (kept in the batch's
+    ``derived``), not again for a second forward of the batch, and once more
+    for a new batch; the log-probs hold against cal_tpu as before."""
+    jg, tg = _host_graphs(seed=2, count=7, hub=50)
+    bs = 8
+    budgets = _sparse_budgets(tg, bs)
+    jb = next(JaxLoader(jg, bs, layout="sparse", budgets=budgets, prefetch=0).host_batches())
+    tb = next(Loader(tg, bs, budgets=budgets, layout="sparse").host_batches())
+    g_j = _jax_sparse_graph(jb, "bf16" if dtype == "bfloat16" else "f32")
+    jm, variables, tm = _models(dtype, g_j, 6, layers=3)
+    ref = jm.apply(variables, g_j, eval_random=False, train=False)
+    degrees, convs = [], []
+    real_degree, real_conv = spmm_mod.plain_sender_degree, spmm_mod.plain_coef_spmm
+    monkeypatch.setattr(spmm_mod, "plain_sender_degree",
+                        lambda g: degrees.append(g) or real_degree(g))
+    monkeypatch.setattr(spmm_mod, "plain_coef_spmm", lambda *a: convs.append(1) or real_conv(*a))
+    g = tb.to("cpu")
+    with torch.no_grad():
+        ours = tm(g, eval_random=False, train=False)
+        again = tm(g, eval_random=False, train=False)
+        assert len(convs) == 6 and len(degrees) == 1 and degrees[0] is g
+        assert set(g.derived) == {"plain_norm"}
+        tm(tb.to("cpu"), eval_random=False, train=False)
+    assert len(convs) == 9 and len(degrees) == 2
+    real = tb.graph_mask
+    for a, b, c in zip(ours, again, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        np.testing.assert_allclose(a.numpy()[real], np.asarray(c)[real], **FWD_TOL[dtype])
 
 
 def test_sparse_forward_equals_dense_forward():
