@@ -14,7 +14,6 @@ import torch
 from cal_tpu_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_CELLS = 8192          # int32 tile cells per block (32 KB of shared memory)
 
 
 def adj_build_plain(edge_flat: torch.Tensor, b: int, n: int,
@@ -30,15 +29,11 @@ def adj_build_plain(edge_flat: torch.Tensor, b: int, n: int,
     return flat.to(dtype).reshape(b, n, n)
 
 
-def _rows_per_block(n: int) -> int:
-    return max(1, min(32, _SMEM_CELLS // max(n, 1)))
-
-
 def _fn():
     fn = build.load("adj_build").adj_build_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, ctypes.c_longlong, i, i, i, i, vp, vp, vp]
+        fn.argtypes = [vp, i, i, i, i, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -47,7 +42,7 @@ def adj_build(edge_flat: torch.Tensor, b: int, n: int,
               dtype: torch.dtype) -> torch.Tensor:
     """edge_flat [E] int32/int64, sorted ascending, entry ``(g*n + r)*n + s``
     per edge s -> r -> adj [b, n, n] of multiplicity counts (row = receiver).
-    """
+    One launch.  ``.launches`` counts kernel launches."""
     if edge_flat.dim() != 1 or edge_flat.dtype not in (torch.int32, torch.int64):
         raise ValueError("edge_flat must be a 1-D int32/int64 tensor")
     if dtype not in _DTYPES:
@@ -56,18 +51,13 @@ def adj_build(edge_flat: torch.Tensor, b: int, n: int,
         return adj_build_plain(edge_flat, b, n, dtype)
     if edge_flat.device.type != "cuda":
         raise ValueError(f"adj_build: unsupported device {edge_flat.device}")
-    if n > _SMEM_CELLS:
-        raise ValueError(f"adj_build kernel supports n <= {_SMEM_CELLS}, got {n}")
     if edge_flat.shape[0] >= 2**31:
         raise ValueError("adj_build kernel supports fewer than 2^31 edges")
     edge_flat = edge_flat.contiguous()
-    rows = _rows_per_block(n)
     out = torch.empty((b, n, n), dtype=dtype, device=edge_flat.device)
-    starts = torch.empty(-(-(b * n) // rows) + 1, dtype=torch.int32,
-                         device=edge_flat.device)
     err = _fn()(edge_flat.data_ptr(), 32 if edge_flat.dtype == torch.int32 else 64,
-                edge_flat.shape[0], b, n, rows, _DTYPES[dtype], out.data_ptr(),
-                starts.data_ptr(), torch.cuda.current_stream(edge_flat.device).cuda_stream)
+                edge_flat.shape[0], b, n, _DTYPES[dtype], out.data_ptr(),
+                torch.cuda.current_stream(edge_flat.device).cuda_stream)
     build.check(err, "adj_build")
     adj_build.launches += 1
     return out

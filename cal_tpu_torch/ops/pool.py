@@ -8,7 +8,11 @@ dpooled[node_graph[v]] in x's dtype) launch the hand-written kernels of
 ``csrc/pool.cu`` (its header gives the design) on CUDA tensors and run their
 plain twins ``segment_pool_plain`` and ``segment_pool_bwd_plain`` on CPU
 tensors.  The forward kernel needs ``node_graph`` non-decreasing, as the
-sparse packer lays it out.
+sparse packer lays it out, and keeps arrival counters for each stream it
+launches on, which each launch leaves at 0: launches on one stream are
+ordered, so no two of them share counters at once.  A CUDA graph captures
+K4 only on a stream it has run on before the capture (its counters are made
+outside the graph).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 from cal_tpu_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_RUN = 32                   # K4's rows a warp (pool.cu kRun)
+_arrivals: dict = {}        # (device, stream) -> K4's int32 arrival counters, 0 between launches
 
 
 def segment_pool_plain(x: torch.Tensor, node_graph: torch.Tensor,
@@ -39,7 +45,7 @@ def _lib():
     lib = build.load("pool")
     if lib.pool_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.pool_launch.argtypes = [vp, i, vp, i, i, i, vp, vp]
+        lib.pool_launch.argtypes = [vp, i, vp, i, i, i, vp, vp, vp, vp, vp]
         lib.pool_launch.restype = ctypes.c_int
         lib.pool_bwd_launch.argtypes = [vp, vp, i, i, i, vp, vp]
         lib.pool_bwd_launch.restype = ctypes.c_int
@@ -49,6 +55,20 @@ def _lib():
 def _check_width(what, h):
     if h % 32 or h // 32 not in (1, 2, 4, 8):
         raise ValueError(f"{what} kernel takes H in 32, 64, 128, 256, got {h}")
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` of K4's arrival counters for launches on ``stream`` of
+    ``device`` (zeros, made on that stream once and grown when a call needs
+    more; each launch leaves them 0).  Raises when they would be made while
+    the stream is being captured."""
+    buf = _arrivals.get((device, stream))
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("segment_pool: call it once on this stream, with at least "
+                               "this many segments, before capturing the stream")
+        buf = _arrivals[(device, stream)] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def _pool_fwd(x: torch.Tensor, node_graph: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -66,12 +86,15 @@ def _pool_fwd(x: torch.Tensor, node_graph: torch.Tensor, num_segments: int) -> t
         raise ValueError("segment_pool: node_graph must be int32")
     _check_width("segment_pool", h)
     x, node_graph = x.contiguous(), node_graph.contiguous()
-    if x.data_ptr() % ((h // 32) * x.element_size()):
-        raise ValueError("segment_pool: x rows are misaligned")
+    if x.data_ptr() % 16:
+        raise ValueError("segment_pool: x must be 16-byte aligned")
     out = torch.empty((num_segments, h), dtype=torch.float32, device=x.device)
+    part = torch.empty((-(-v // _RUN), 2, h), dtype=torch.float32, device=x.device)
+    span = torch.empty((num_segments, 2), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().pool_launch(x.data_ptr(), _DTYPES[x.dtype], node_graph.data_ptr(), v, h,
-                             num_segments, out.data_ptr(),
-                             torch.cuda.current_stream(x.device).cuda_stream)
+                             num_segments, out.data_ptr(), part.data_ptr(), span.data_ptr(),
+                             _counters(x.device, stream, num_segments).data_ptr(), stream)
     build.check(err, "segment_pool")
     segment_pool.launches += 1
     return out

@@ -684,24 +684,28 @@ def flash_digests(torch, counts) -> dict:
     return out
 
 
-def profile_passes(torch, fn, reps=3):
+def profile_passes(torch, fn, reps=3, tries=3):
     """Device ms a call of each kernel that ``fn`` launches (torch.profiler
     over ``reps`` warm calls), slowest first: a multi-pass kernel's split.
     The profiler can miss a window's first kernels, so ``ms_per_launch``
-    (time over the launches it recorded) is the figure to read."""
+    (time over the launches it recorded) is the figure to read; a window
+    in which it recorded none is taken again, up to ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     rows = []
-    for k, t, c in _device_rows(prof):
-        m = re.search(r"\w+_kernel<[^>]*>", k)   # the kernel and its template arguments
-        rows.append({"kernel": m.group(0) if m else k[:80], "device_ms": t / reps,
-                     "calls": c / reps, "ms_per_launch": t / c})
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for k, t, c in _device_rows(prof):
+            m = re.search(r"\w+_kernel<[^>]*>", k)   # the kernel and its template arguments
+            rows.append({"kernel": m.group(0) if m else k[:80], "device_ms": t / reps,
+                         "calls": c / reps, "ms_per_launch": t / c})
+        if rows:
+            break
     return rows
 
 
@@ -1145,9 +1149,12 @@ def degree_calls(spmm):
 def sparse_kernel_rows(torch, g, label, peaks, flush):
     """K1-K4 and the plain conv's degree against their twins on one sparse
     batch ``g`` (on the card), in bf16 and f32, with their times (K1's sums,
-    K1 with its deg / dis epilogue as the pair aggregate takes it and the
-    plain conv's degree each with the warm device ms of each kernel a call
-    launches, ``passes``); returns {dtype: {kernel: row}}."""
+    K1 with its deg / dis epilogue as the pair aggregate takes it, the
+    plain conv's degree and K4 each with the warm device ms of each kernel a
+    call launches, ``passes``; K4 with the cold time of one
+    ``torch.sum(x, 0, dtype=torch.float32)`` of the same x, a library
+    reduction over all of x and no floor: the batch's ``fill_floor`` line is
+    the floor of x's bytes); returns {dtype: {kernel: row}}."""
     from cal_tpu_torch.ops import spmm
     from cal_tpu_torch.ops.pool import segment_pool, segment_pool_plain
     from cal_tpu_torch.ops.spmm import (
@@ -1174,7 +1181,8 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
         dst = (2.0 * torch.randn(v, generator=gen, device="cuda")).to(dt)
         rows = {}
 
-        def row(name, fn, plain, nbytes, flops, err, tol, lib_fn=None, lib_call=None):
+        def row(name, fn, plain, nbytes, flops, err, tol, lib_fn=None, lib_call=None,
+                **extra):
             t_bytes, t_ops = nbytes / bw, flops / f32_peak
             r = {"name": name, "batch": label, "dtype": dt_name, "max_abs_err": err,
                  "atol": tol[0], "rtol": tol[1],
@@ -1183,8 +1191,9 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
                  "library_call": lib_call, "bytes": nbytes, "flops": flops,
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "nodes": v, "edges": e, "live_edges": n_live}
-            if name in ("pair_sender_degree", "pair_sender_degree_norm", "plain_sender_degree"):
+                 "nodes": v, "edges": e, "live_edges": n_live, **extra}
+            if name in ("pair_sender_degree", "pair_sender_degree_norm", "plain_sender_degree",
+                        "segment_pool"):
                 r["passes"] = profile_passes(torch, fn)
             emit({"phase": "sparse_kernel", **r})
             rows[name] = r
@@ -1264,7 +1273,9 @@ def sparse_kernel_rows(torch, g, label, peaks, flush):
         row("segment_pool", lambda: segment_pool(xc, ng, g1),
             lambda: segment_pool_plain(xc, ng, g1), v * H * elt + 4 * v + g1 * H * 4,
             v * H, err, POOL_TOL, lambda: pooled.index_add_(0, ng64, x32),
-            "out.index_add_(0, node_graph, x.float()) into a preallocated f32 out")
+            "out.index_add_(0, node_graph, x.float()) into a preallocated f32 out",
+            sum_dim0_ms=time_ms(torch, lambda: torch.sum(xc, 0, dtype=torch.float32), flush),
+            sum_dim0_call="torch.sum(x, 0, dtype=torch.float32)")
         out[dt_name] = rows
     return out
 
@@ -2545,8 +2556,9 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
     training step runs it, handed what the forward hands it (``kernel_ms``;
     its bound counts adj's bytes in the live cells only, since that is all
     such a call must read), and alone (``kernel_ms_own_degree``: its own
-    degree pass, a full read of adj, in ``bound_ms_own_degree``).  Both
-    carry digests of their outputs on the whole batch.  Returns the three
+    degree pass, a full read of adj, in ``bound_ms_own_degree``).  All
+    three carry digests of their outputs on the whole batch, row 1 the warm
+    device ms of each kernel a call launches (``passes``).  Returns the three
     lines (the caller emits them)."""
     from cal_tpu_torch.ops import fused_gcn as fg
     from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
@@ -2581,10 +2593,12 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
     check(all(torch.equal(a, b) for a, b in zip(
         fg.fused_gcn_dense_att_dual_bwd(*bargs, *handed), own)),
         "row 2b at N = 3,840: the hand-over changed the bits")
-    digests = {"fused_gcn_dense_att_dual_fwd": _digest(fg.fused_gcn_dense_att_dual(*args)),
+    digests = {"adj_build": _digest([adj]),
+               "fused_gcn_dense_att_dual_fwd": _digest(fg.fused_gcn_dense_att_dual(*args)),
                "fused_gcn_dense_att_dual_bwd": _digest(own)}
     del own
     extra = {
+        "adj_build": lambda: {"passes": profile_passes(torch, lambda: adj_build(ef, bsz, n, dt))},
         "fused_gcn_dense_att_dual_fwd": lambda: forward_split(
             torch, lambda: fg.fused_gcn_dense_att_dual(*args)),
         "fused_gcn_dense_att_dual_bwd": lambda: {
@@ -3234,11 +3248,12 @@ def plain_two_pass(torch, peaks, flush, bsz=16, n=640):
 
 
 def dense_digests(torch, batch) -> dict:
-    """sha256 of the dense masked-conv kernels' outputs (rows 2, 2b, 3, 3b, 4
-    and 4-dx) on seeded inputs over the synthetic dense batch's adjacency, bf16
-    and f32.  Two trees whose digests agree computed the same bits; the calls
-    are the public functions, so the digests of another tree of the port come
-    from this function with that tree's package imported (``--digests``)."""
+    """sha256 of the adjacency (row 1) and the dense masked-conv kernels'
+    outputs (rows 2, 2b, 3, 3b, 4 and 4-dx) on seeded inputs over the
+    synthetic dense batch's adjacency, bf16 and f32.  Two trees whose
+    digests agree computed the same bits; the calls are the public
+    functions, so the digests of another tree of the port come from this
+    function with that tree's package imported (``--digests``)."""
     from cal_tpu_torch.graph import to_dense
     from cal_tpu_torch.ops import fused_gcn as fg
 
@@ -3246,6 +3261,7 @@ def dense_digests(torch, batch) -> dict:
     out = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         adj = to_dense(batch, dt).adj
+        out[f"row1_{dt_name}"] = _digest([adj])
         gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
         xc, xo, gc, go = (torch.randn((bsz, n, H), generator=gen, device="cuda").to(dt)
                           for _ in range(4))
@@ -3336,10 +3352,12 @@ def sparse_digests(torch, batches: dict) -> dict:
 def degree_digests(torch, batches: dict) -> dict:
     """sha256 of K1's sums (logits in bf16 and f32, and zero logits), K1's
     deg / dis and the plain conv's degree (``degree_calls``), K13's (deg,
-    dis) at both ``negate`` values and K7's dx in bf16 and f32 (on the
-    batch's node_graph and on it shuffled), on seeded inputs over each
-    sparse batch.  The zero-logit sums and the plain degree are counts,
-    exact in any order, and K7 a copy: these equal every tree's."""
+    dis) at both ``negate`` values, K7's dx in bf16 and f32 (on the
+    batch's node_graph and on it shuffled) and K4's pooled sums of x in bf16
+    and f32 (stopping the run if a second call does not repeat the bits), on
+    seeded inputs over each sparse batch.  The zero-logit sums and the plain
+    degree are counts, exact in any order, and K7 a copy: these equal every
+    tree's."""
     from cal_tpu_torch.ops import pool, spmm
 
     pair_norm, plain_degree = degree_calls(spmm)
@@ -3362,6 +3380,12 @@ def degree_digests(torch, batches: dict) -> dict:
             out[f"K1_norm_{label}_{dt_name}"] = _digest(pair_norm(src.to(dt), dst.to(dt), g))
             for name, ng in (("K7", g.node_graph), ("K7_shuffled", shuffled)):
                 out[f"{name}_{label}_{dt_name}"] = _digest([pool.segment_pool_bwd(dp, ng, dt)])
+            x = torch.randn((v, H), generator=torch.Generator(device="cuda").manual_seed(
+                SEED + 34), device="cuda").to(dt)
+            pooled = pool.segment_pool(x, g.node_graph, g.num_graphs + 1)
+            check(torch.equal(pooled, pool.segment_pool(x, g.node_graph, g.num_graphs + 1)),
+                  f"K4 {dt_name} on {label} differs between two calls")
+            out[f"K4_{label}_{dt_name}"] = _digest([pooled])
     return out
 
 
@@ -4173,11 +4197,12 @@ def walk_main() -> int:
     (run this file from the other tree's root): the build's ptxas report of
     the walk and of K7, each sparse batch's csr_profile, every sparse kernel
     held against its twin and timed on the serving and REDDIT batches (row
-    12 also on config 4's graph; K1, K13, K5, K6, K15, K16 and K7 with the
-    warm device ms of each kernel a call launches), the walk's rows by
-    batch, the ``copy_`` and ``fill_`` floors of each batch, the digests (the
-    chain's and the degrees' among the sparse ones), and two sparse CausalGCN
-    ``profile_train_step`` lines (the step's kernels and device ms)."""
+    12 also on config 4's graph; K1, K13, K5, K6, K15, K16, K7 and K4 with
+    the warm device ms of each kernel a call launches, K4 beside a cold
+    ``torch.sum`` of its x over dim 0), the walk's rows by batch, the ``copy_`` and ``fill_`` floors
+    of each batch, the digests (the chain's and the degrees' among the
+    sparse ones), and two sparse CausalGCN ``profile_train_step`` lines (the
+    step's kernels and device ms)."""
     import torch
 
     if missing(torch):
@@ -4275,16 +4300,45 @@ def dual_row(torch, batch, peaks, flush) -> None:
               **forward_split(torch, lambda: fg.fused_gcn_dense_att_dual(*args))})
 
 
+def adj_rows(torch, batch, peaks, flush) -> None:
+    """Row 1 (the adjacency build) on the synthetic dense batch (B = 128, N =
+    256), bf16 and f32: exact against its twin, timed beside torch.bincount,
+    with the warm device ms of each kernel a call launches (``passes``) and
+    the cold time of one ``fill_`` of the [B, N, N] output's bytes
+    (``fill_floor_ms``), its write floor on this protocol."""
+    from cal_tpu_torch.ops.adj_build import adj_build, adj_build_plain
+
+    ef = batch.edge_flat
+    bsz, n, _ = batch.x.shape
+    ef64 = ef.long()
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        check(torch.equal(adj_build(ef, bsz, n, dt), adj_build_plain(ef, bsz, n, dt)),
+              f"adj_build {dt_name} differs from its plain twin")
+        plane = torch.empty((bsz, n, n), dtype=dt, device="cuda")
+        nbytes = plane.numel() * plane.element_size()
+        _row(torch, "adj_build", dt_name, lambda: adj_build(ef, bsz, n, dt),
+             lambda: adj_build_plain(ef, bsz, n, dt), ef.shape[0] * ef.element_size() + nbytes,
+             0, 1.0, 0.0, (0.0, 0.0), peaks[0], flush,
+             lambda: torch.bincount(ef64, minlength=bsz * n * n + 1),
+             "torch.bincount(edge_flat.long(), minlength=B*N*N+1)", batch=[bsz, n],
+             edges=ef.shape[0], real_edges=int((ef < bsz * n * n).sum()),
+             passes=profile_passes(torch, lambda: adj_build(ef, bsz, n, dt)),
+             fill_floor_ms=time_ms(torch, lambda: plane.fill_(1.0), flush),
+             fill_floor_bytes=nbytes)
+
+
 def rows_main() -> int:
-    """``--rows``: the dense masked-GCN rows and K21 alone, for an A/B of two
+    """``--rows``: the dense rows and K21 alone, for an A/B of two
     trees (run this file from the other tree's root): the build's ptxas
-    report of the dense kernels and K21; row 2 at N = 256 (bf16, f32) split
+    report of the dense kernels and K21; row 1 at N = 256 (bf16, f32) with
+    its passes and ``fill_`` floor; row 2 at N = 256 (bf16, f32) split
     into the degree pass and the aggregate; rows 4 and 3 (K17/K17T, K18/K18B;
     f32 K17 on the two-pass path) at N = 256 and K17/K17T two-pass at N =
     640; K21 on the serving and REDDIT batches beside scatter_reduce_ amax;
     the dense and sparse digests; then rows 1, 2 and 2b at N = 3,840 on the
     first SYNREDDIT batch (2b handed the forward's statistics and live map,
-    and alone), with their digests."""
+    and alone), with their digests; then two dense CausalGCN
+    ``profile_train_step`` lines (the step's kernels and device ms)."""
     import torch
 
     if missing(torch):
@@ -4312,6 +4366,7 @@ def rows_main() -> int:
     ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
     _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
+    adj_rows(torch, batch, peaks, flush)
     dual_row(torch, batch, peaks, flush)
     dense_row_kernels(torch, batch, peaks, flush)
     emit({"phase": "dense_digests", "root": HERE, **dense_digests(torch, batch)})
@@ -4331,6 +4386,11 @@ def rows_main() -> int:
                       .host_batches()).to("cuda")
     for line in dense_rows_at_scale(torch, real_batch, peaks, flush):
         emit(line)
+    del real_batch
+    # the dense CausalGCN step row 1 serves (main_syn): its kernels and device ms, twice
+    host = next(Loader(test_set, B).host_batches())
+    for _ in range(2):
+        profile_train_step(torch, test_set, host, "CausalGCN")
     emit({"phase": "rows_done", "seconds": time.perf_counter() - start, "nvidia_smi": smi})
     return 0
 

@@ -82,6 +82,62 @@ def test_adj_build_kernel_only_padding(cuda):
     assert got.shape == (2, 9, 9) and not got.any()
 
 
+# edge lists at the kernel's chunk edges: (b, n, what) -> sorted flat edges
+def _adj_case(rng, b, n, case):
+    total = b * n * n
+    if case == "empty_chunks":      # edges in graph 0's first rows and the last graph only
+        ef = np.concatenate([rng.integers(0, 3 * n, 200), rng.integers((b - 1) * n * n, total,
+                                                                       300)])
+    elif case == "last_chunk_only":
+        ef = rng.integers(total - 100, total, 150)
+    elif case == "long_run":        # a duplicate run of 300 (> 256 threads) beside others
+        ef = np.concatenate([np.full(300, n + 1), rng.integers(0, total, 400)])
+    elif case == "first_cell":      # cell 0 and the last cell, besides a few
+        ef = np.concatenate([[0, 0, total - 1], rng.integers(0, total, 50)])
+    else:                           # random edges over every graph
+        ef = rng.integers(0, total, 40 * b * n // 8 + 10)
+    return np.sort(ef)
+
+
+@pytest.mark.parametrize("b,n,case", [
+    (4, 256, "empty_chunks"),
+    (4, 256, "last_chunk_only"),
+    (3, 64, "long_run"),
+    (5, 13, "random"),
+    (3, 37, "first_cell"),
+    (2, 250, "random"),
+    (2, 3840, "empty_chunks"),
+    (2, 3840, "random"),
+])
+@pytest.mark.parametrize("idx", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adj_build_kernel_chunk_edges(cuda, b, n, case, idx, dtype):
+    """Row 1 equals its twin bit for bit, in one launch, on chunks without an
+    edge, edges only in the last chunk, a duplicate run longer than a
+    block's threads (its count rounds in bf16 as the twin's), N no multiple
+    of 8 and N = 3,840 at small B; negative values and the padding sentinel
+    are dropped."""
+    rng = np.random.default_rng(n + b)
+    ef = _adj_case(rng, b, n, case)
+    ef = np.concatenate([[-5, -1], ef, np.full(9, b * n * n)]).astype(idx)
+    ef = torch.from_numpy(ef).to(cuda)
+    before = adj_build.launches
+    got = adj_build(ef, b, n, DT[dtype])
+    torch.cuda.synchronize()
+    assert adj_build.launches == before + 1
+    assert torch.equal(got, adj_build_plain(ef, b, n, DT[dtype]))
+
+
+@pytest.mark.parametrize("idx,dtype", [(np.int32, "bfloat16"), (np.int64, "float32")])
+def test_adj_build_is_one_device_kernel(cuda, idx, dtype):
+    """A call of row 1 runs one device kernel, adj_build_kernel: no pass
+    over the edges before it."""
+    ef = torch.from_numpy(_adj_case(np.random.default_rng(1), 4, 256, "random")
+                          .astype(idx)).to(cuda)
+    names = _device_kernels(lambda: adj_build(ef, 4, 256, DT[dtype]))
+    assert len(names) == 1 and "adj_build_kernel" in names[0], names
+
+
 @pytest.mark.parametrize("b,n,h,dtype", [
     (2, 5, 3, "float32"),
     (3, 70, 130, "bfloat16"),
@@ -752,9 +808,10 @@ def test_degree_and_pool_gather_kernel_launches(cuda):
     """K1 (its sums, and deg / dis as the aggregates take them), the plain
     conv's degree and K13 are one device kernel a call each: csr_reduce_kernel
     with the degree policy, the epilogue in its row writes, no pass over all
-    V rows (row_combine) and no deg_dis_kernel; K7 is one kernel."""
+    V rows (row_combine) and no deg_dis_kernel; K7 and K4 are one kernel
+    each."""
     from cal_tpu_torch.ops import spmm
-    from cal_tpu_torch.ops.pool import segment_pool_bwd
+    from cal_tpu_torch.ops.pool import segment_pool, segment_pool_bwd
 
     v = 3000
     g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=25, isolated=7)
@@ -770,6 +827,9 @@ def test_degree_and_pool_gather_kernel_launches(cuda):
     dpooled = torch.randn((6, 128), device=cuda)
     names = _device_kernels(lambda: segment_pool_bwd(dpooled, g.node_graph, torch.bfloat16))
     assert len(names) == 1 and "pool_bwd_kernel" in names[0], names
+    x = torch.randn((v, 128), device=cuda).bfloat16()
+    names = _device_kernels(lambda: segment_pool(x, g.node_graph, 6))
+    assert len(names) == 1 and "pool_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("logits", ["float32", "bfloat16"])
@@ -844,6 +904,119 @@ def test_pool_gather_exact_in_any_order(cuda, h, dtype):
         assert torch.equal(got, segment_pool_bwd_plain(dpooled, t, DT[dtype]))
     torch.cuda.synchronize()
     assert segment_pool_bwd.launches == before + 3
+
+
+# K4's segment layouts: (graph sizes, trash rows, extra empty segments after
+# the trash one): empty segments first, between and last; one 3,800-row
+# graph; the trash segment the widest; all rows in one segment; V no
+# multiple of a run (32 rows)
+POOL_CASES = {
+    "empty_segments": ([0, 0, 5, 0, 0, 40, 1, 0, 300, 0], 17, 3),
+    "reddit_graph": ([12, 3800, 7, 200], 300, 0),
+    "trash_widest": ([100] * 20 + [31, 1], 1231, 0),
+    "one_segment": ([], 4000, 0),
+    "ragged": ([33, 1, 31, 64, 2, 95], 5, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_kernel_segments(cuda, case, h, dtype):
+    """K4 against its twin within POOL_TOL on each layout of POOL_CASES; two
+    calls give the same bits, each one launch, and the arrival counters are
+    0 again after each."""
+    from cal_tpu_torch.ops import pool
+
+    sizes, trash, extra = POOL_CASES[case]
+    ng = np.concatenate([np.repeat(np.arange(len(sizes)), sizes),
+                         np.full(trash, len(sizes))]).astype(np.int32)
+    g1 = len(sizes) + 1 + extra
+    x = torch.randn((ng.size, h), generator=torch.Generator(device=cuda).manual_seed(h),
+                    device=cuda).to(DT[dtype])
+    t = torch.from_numpy(ng).to(cuda)
+    before = pool.segment_pool.launches
+    got = pool.segment_pool(x, t, g1)
+    torch.cuda.synchronize()
+    counters = pool._arrivals[(x.device, torch.cuda.current_stream(cuda).cuda_stream)]
+    assert not counters.any()
+    again = pool.segment_pool(x, t, g1)
+    torch.cuda.synchronize()
+    assert not counters.any()
+    assert pool.segment_pool.launches == before + 2
+    assert got.shape == (g1, h) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, pool.segment_pool_plain(x, t, g1),
+                               atol=POOL_TOL[0], rtol=POOL_TOL[1])
+
+
+def test_pool_kernel_raises_on_misaligned_x(cuda):
+    """K4 loads 16 bytes of a row at a time: x off a 16-byte boundary raises."""
+    from cal_tpu_torch.ops.pool import segment_pool
+
+    flat = torch.randn(64 * 128 + 8, device=cuda).bfloat16()
+    x = flat[1:1 + 64 * 128].view(64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        segment_pool(x, torch.zeros(64, dtype=torch.int32, device=cuda), 2)
+
+
+def test_pool_kernel_on_two_streams(cuda):
+    """K4 launched on two streams at once, each call's segments spanning
+    runs (so each call counts arrivals): every call equals the same call
+    made alone, bit for bit, and each stream's counters are its own and 0
+    after."""
+    from cal_tpu_torch.ops import pool
+
+    sizes, trash, _ = POOL_CASES["trash_widest"]
+    ng = torch.from_numpy(np.concatenate([np.repeat(np.arange(len(sizes)), sizes),
+                                          np.full(trash, len(sizes))]).astype(np.int32)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    xs = [torch.randn((ng.shape[0], 128), generator=gen, device=cuda).bfloat16()
+          for _ in range(2)]
+    alone = [pool.segment_pool(x, ng, len(sizes) + 1) for x in xs]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(pool.segment_pool(xs[i], ng, len(sizes) + 1))
+    torch.cuda.synchronize()
+    keys = [(ng.device, s.cuda_stream) for s in streams]
+    assert pool._arrivals[keys[0]].data_ptr() != pool._arrivals[keys[1]].data_ptr()
+    for i in range(2):
+        assert not pool._arrivals[keys[i]].any()
+        assert all(torch.equal(out, alone[i]) for out in got[i])
+
+
+def test_pool_kernel_in_a_cuda_graph(cuda):
+    """K4 captured in a CUDA graph on a stream it ran on before replays to
+    the bits of an eager call; a capture on a stream it never ran on
+    raises instead of making its counters inside the graph."""
+    from cal_tpu_torch.ops import pool
+
+    ng = torch.from_numpy(np.concatenate([np.repeat(np.arange(3), [40, 3800, 9]),
+                                          np.full(300, 3)]).astype(np.int32)).to(cuda)
+    x = torch.randn((ng.shape[0], 64), generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda)
+    ref = pool.segment_pool(x, ng, 4)
+    s = torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        pool.segment_pool(x, ng, 4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = pool.segment_pool(x, ng, 4)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    fresh = [t for t in (torch.cuda.Stream(cuda) for _ in range(64))
+             if (ng.device, t.cuda_stream) not in pool._arrivals][0]
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            pool.segment_pool(x, ng, 4)
 
 
 def test_chain_head_raises_on_misaligned_rows(cuda):
@@ -1651,9 +1824,11 @@ def _ref_live(adj):
 def _device_kernels(fn):
     """Names of the kernels one call of ``fn`` launches, in launch order
     (torch.profiler, after a warm-up call outside it; memory copies and sets
-    are not kernels).  Inside the window the call follows a marker kernel (a
-    fill of an f64 tensor, a type no wrapper fills): the profiler can miss a window's first kernels, so a window in
-    which it did not record the marker is taken again, up to five times."""
+    are not kernels).  Inside the window the call follows a device-side sleep
+    and a marker kernel (a fill of an f64 tensor, a type no wrapper fills):
+    the profiler can miss a window's first kernels and, late in a long run,
+    drop some of a window's kernels, so a window in which it recorded no
+    kernel after the marker is taken again, up to five times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1661,6 +1836,7 @@ def _device_kernels(fn):
     mark = torch.empty(1, dtype=torch.float64, device="cuda")
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)    # ~0.5 ms: the card busy while recording starts
             mark.fill_(1.0)
             fn()
             torch.cuda.synchronize()
@@ -1669,9 +1845,9 @@ def _device_kernels(fn):
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         first = next((i for i, n in enumerate(names) if "FillFunctor<double>" in n), None)
-        if first is not None:
+        if first is not None and first + 1 < len(names):
             return names[first + 1:]
-    raise AssertionError("the profiler recorded no kernel")
+    raise AssertionError("the profiler recorded no kernel after the marker")
 
 
 # padded slots past the graphs (N = 3,840 is SYNREDDIT's budget), a graph

@@ -64,6 +64,23 @@ def test_adj_build_matches_pallas_and_scatter(dtype, idx):
     assert not ours[2:].any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adj_build_matches_pallas_first_chunks_empty(dtype):
+    """N = 256: graph 0 and the first rows of graph 1 hold no edge (the
+    kernel's first chunks are empty); a duplicate run, sentinel padding."""
+    rng = np.random.default_rng(3)
+    b, n = 2, 256
+    r = rng.integers(100, n, 300)
+    s = rng.integers(0, n, 300)
+    ef = np.sort(np.concatenate([(1 * n + r) * n + s, [(1 * n + 200) * n + 7] * 4]))
+    ef = np.concatenate([ef, np.full(11, b * n * n)]).astype(np.int32)
+    eg = int(ef.size)
+    ours = adj_build(torch.from_numpy(ef), b, n, TORCH_DT[dtype]).float().numpy()
+    pallas = np.asarray(jax_adj_build(jnp.asarray(ef), b, n, eg, jnp.dtype(dtype)), np.float32)
+    np.testing.assert_array_equal(ours, pallas)
+    assert not ours[0].any() and not ours[1, :100].any() and ours[1, 200, 7] >= 4
+
+
 def test_adj_build_empty_edge_list():
     out = adj_build(torch.full((5,), 2 * 4 * 4, dtype=torch.int32), 2, 4,
                     torch.float32)

@@ -265,6 +265,24 @@ def test_pool_twin_matches_mxu_pool(dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_twin_matches_mxu_pool_wide_segment(dtype):
+    """One graph of ~3,000 rows (a REDDIT-sized segment, many of K4's runs)
+    between two small ones, the trash segment after them, V = 4,096."""
+    rng = np.random.default_rng(2)
+    v, h = 4096, 128
+    sizes = np.array([37, 3001, 5])
+    ng = np.concatenate([np.repeat(np.arange(3), sizes),
+                         np.full(v - sizes.sum(), 3)]).astype(np.int32)
+    x = rng.standard_normal((v, h)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = mxu_pool(jnp.asarray(x, jdt), jnp.asarray(ng), 4)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    got = segment_pool(tx, torch.from_numpy(ng), 4)
+    assert got.dtype == torch.float32 and got.shape == (4, h)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
 def _jax_sparse_graph(jb, precision, dtype=None):
     """A cal_tpu GraphBatch on the device with small tile plans."""
     v = jb.x.shape[0]
