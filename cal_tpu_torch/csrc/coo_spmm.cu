@@ -52,11 +52,22 @@
 // neighbour rows before their FMAs, each feature weighted by the coefficient
 // of the head it belongs to (a lane's features lie in one head).  The padded
 // run at node V-1 holds coefficient 0: its edges cost a coefficient read
-// each (K11 sums whatever is nonzero) and no neighbour row.  K12/K20 give
-// one warp a chunk, keep g[r] of its row in registers, walk every edge of
-// the group, reduce each dot product across the 32 / heads lanes of each
-// head (a neighbour equal to the previous edge's reuses its value:
-// duplicates and the padded run), and write it in edge order.  K21 is
+// each (K11 sums whatever is nonzero) and no neighbour row.  K12/K20 are
+// one launch over the same items of the receiver CSR (csr_item, heavy
+// chunks first), each a lane group's: kLaneFeatures features of x and of g
+// a lane (16 bytes of x in bf16, 32 in f32; G = H / F lanes, at H = 128 two
+// items a warp), kept narrow in either dtype, as registers bound the items
+// in flight.  The group loads g[r] beside its first window's sender ids,
+// reads kWindowEdges sender ids at once, loads the x rows of up to
+// kInFlight edges before their dot products, reduces each over the lanes of
+// its head and hands it to the edge's own lane, so a window's values leave
+// in one coalesced store (4 * heads bytes an edge).  An edge whose sender equals
+// the previous edge's within the item (a ballot a window, carried across
+// windows) takes that edge's values with no load and no reduction: a chunk
+// of the padded run (one sender, V-1) costs one dot product and its
+// stores, and nothing assumes it (any run of equal senders, or none).
+// K12/K20 write one value an edge, so no item finishes another's sum: no
+// partial, no arrival counter, nothing shared with another launch.  K21 is
 // csr_rows.cuh's per-row reduction (csr_reduce_kernel) with MaxOp over the
 // receiver CSR, in one launch: a light row is one 4-lane group's item (16-
 // byte loads of 4 planes at once, 8 rows a warp); a heavy row's chunks (the
@@ -67,9 +78,12 @@
 //
 // Bound: bytes.  K11/K19 read x [V, H] once (plus a neighbour row per live
 // edge, mostly from L2), 4 + 4 * heads bytes of metadata per edge (4 more
-// through perm) and write f32 [V, H]; K12/K20 read x and g [V, H] and 8
-// bytes per edge and write 4 * heads bytes per edge; K21 reads 4 K bytes per
-// edge and writes 4 K per node.  H FMAs per edge are far below the FMA floor.
+// through perm) and write f32 [V, H]; K12/K20 read x and g [V, H] once (x
+// again per edge whose sender differs from the previous edge's, mostly from
+// L2), 4 bytes of sender per edge and the CSR, and write 4 * heads bytes per
+// edge; K21 reads 4 K bytes per edge and writes 4 K per node.  H FMAs per
+// edge are far below the FMA floor.  The walks' own limit is latency: a
+// light row is a chain of dependent loads (ptr, senders, x rows, store).
 //
 // Built by cal_tpu_torch/kernels/build.py with nvcc -arch sm_90a into a
 // plain C shared library (no PyTorch headers); the wrappers in
@@ -146,113 +160,188 @@ cudaError_t spmm_heads(int heads, const void* x, const float* coef, const int* n
   }
 }
 
-// ---- K12 / K20: per-edge dot products over the receiver CSR --------------
+// ---- K12 / K20: per-edge dot products over the receiver CSR's items -----
 
+// The receiver CSR (graph.EdgeCsr's; its arrival counters unused) and the
+// operands of one call.
 template <typename TX, typename TG>
-struct SddmmArgs {
+struct Sddmm : CsrRows {
   const TX* x;          // [V, H]
-  const TG* g;          // [V, H]: the cotangent of K11's output
-  const int* senders;   // receiver-sorted edge order
-  const int* ptr;
-  const int* chunk_ptr;
-  const int* chunk_row;
-  float* dcoef;         // [E, NH]
-  int n_chunks, h;
+  const TG* g;          // [V, H]: the cotangent of K11's (K19's) output
+  const int* senders;   // receiver CSR order = edge order
+  float* dcoef;         // [E, NH], edge order
+  int h;
 };
 
-template <typename TX, typename TG, int F, int NH>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-coo_sddmm_kernel(const SddmmArgs<TX, TG> a) {
-  constexpr int kLanes = 32 / NH;   // lanes of one head
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= a.n_chunks) return;
-  const Chunk k = chunk_of(c, a.ptr, a.chunk_ptr, a.chunk_row);
-  if (k.beg >= k.end) return;
+constexpr int kSddmmBlocks = 2;       // blocks an SM (__launch_bounds__)
+constexpr int kLaneFeatures = 8;      // features of x and of g a lane loads (16 or 32 bytes of x)
+
+// An item's lane group at H = 32 Q: kLaneFeatures features a lane (or Q
+// when more, or a head's width when less), G = H / F lanes, 32 / G items a
+// warp (LightShape).
+template <typename TX, int NH, int Q>
+using SddmmShape = LightShape<TX, Q, NH, kLaneFeatures * (int)sizeof(TX)>;
+
+// dcoef of CSR positions [beg, end) of receiver row rr by the G lanes of a
+// group (gl: the lane's place, base: its first lane), F features of g[rr]
+// and of each x row a lane.  Windows of kWindowEdges positions, position
+// k G + gl of a window in the lane's slot k: the window's senders in one
+// coalesced load; a position whose sender equals the previous position's
+// (within the span, across windows too) is a duplicate and takes that
+// position's values; the others' x rows are loaded, U at a time before
+// their products, each product reduced over the lanes of its head, and
+// every lane takes the values of the positions it holds; then the window's
+// values leave in one store a slot, NH floats an edge.  Every lane of the
+// warp calls it (a group past its span idles).
+template <typename TX, typename TG, int NH, int Q, int F, int G, int U>
+__device__ __forceinline__ void sddmm_span(const Sddmm<TX, TG>& a, int beg, int end, int rr,
+                                           int gl, int base) {
+  constexpr int W = kWindowEdges / G;     // a window's positions a lane
+  constexpr int kLph = 32 * Q / NH / F;   // lanes of one head
+  constexpr int kWords = F * sizeof(TX) / 4;
+  const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
   float gr[F];
-  load_vec<TG, F>(a.g + (size_t)k.row * a.h + lane * F, gr);
-  int prev_s = -1;
-  float prev_p = 0.0f;
-  for (int g0 = k.beg; g0 < k.end; g0 += kGroup) {
-    const int i = g0 + lane;
-    const int s_l = i < k.end ? a.senders[i] : 0;
-    const int n = min(kGroup, k.end - g0);
-    float dc = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      const int s = __shfl_sync(kFull, s_l, j);   // warp-uniform
-      if (s != prev_s) {
-        float xs[F];
-        load_vec<TX, F>(a.x + (size_t)s * a.h + lane * F, xs);
-        float p = 0.0f;
+  load_vec<TG, F>(a.g + (size_t)rr * a.h + gl * F, gr);
+  int last_s = -1;       // the sender of the previous window's last position (none at first)
+  float last[NH] = {};   // and its values
+  for (int w0 = beg; __any_sync(kFull, w0 < end); w0 += kWindowEdges) {
+    int s_l[W];          // -1 past the span
 #pragma unroll
-        for (int f = 0; f < F; ++f) p = fmaf(gr[f], xs[f], p);
+    for (int k = 0; k < W; ++k) {
+      const int i = w0 + k * G + gl;
+      s_l[k] = i < end ? __ldg(a.senders + i) : -1;
+    }
+    // bit p: position p takes its own dot product
+    unsigned fresh = 0;
 #pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
-        prev_s = s;
-        prev_p = p;
-      }
-      if (NH == 1) {
-        if (lane == j) dc = prev_p;
-      } else if (lane % kLanes == 0) {
-        a.dcoef[(size_t)(g0 + j) * NH + lane / kLanes] = prev_p;
+    for (int k = 0; k < W; ++k) {
+      const int up = __shfl_up_sync(kFull, s_l[k], 1, G);
+      const int wrap = k == 0 ? last_s : __shfl_sync(kFull, s_l[k > 0 ? k - 1 : 0], base + G - 1);
+      const bool need = s_l[k] >= 0 && s_l[k] != (gl == 0 ? wrap : up);
+      fresh |= ((__ballot_sync(kFull, need) >> base) & gbits) << (k * G);
+    }
+    // each position's source: the last fresh position at or before it
+    // (-1: the previous window's last position)
+    int src[W];
+    float val[W][NH];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const unsigned below = fresh & ((2u << (k * G + gl)) - 1u);
+      src[k] = below ? 31 - __clz(below) : -1;
+#pragma unroll
+      for (int hd = 0; hd < NH; ++hd) val[k][hd] = last[hd];
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      unsigned m = (fresh >> (k * G)) & gbits;
+      while (__any_sync(kFull, m != 0)) {
+        // the next U fresh positions of slot k: their x rows loaded, then
+        // their dot products with g[rr]
+        bool ok[U];
+        int pos[U];
+        uint32_t xs[U][kWords];   // the rows as loaded, widened at their FMAs
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          ok[u] = m != 0;
+          const int j = ok[u] ? __ffs(m) - 1 : 0;
+          m &= m - 1;
+          pos[u] = k * G + j;
+          const int s = __shfl_sync(kFull, s_l[k], base + j);
+          if (ok[u]) load_words<TX, F>(a.x + (size_t)s * a.h + gl * F, xs[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float p = 0.0f;
+          if (ok[u])
+#pragma unroll
+            for (int f = 0; f < F; ++f) p = fmaf(gr[f], word_elem<TX>(xs[u], f), p);
+#pragma unroll
+          for (int off = kLph / 2; off > 0; off >>= 1) p += __shfl_xor_sync(kFull, p, off);
+          float t[NH];
+#pragma unroll
+          for (int hd = 0; hd < NH; ++hd)
+            t[hd] = NH == 1 ? p : __shfl_sync(kFull, p, base + hd * kLph);
+#pragma unroll
+          for (int kk = k; kk < W; ++kk)   // a source lies at or before its positions
+            if (ok[u] && src[kk] == pos[u])
+#pragma unroll
+              for (int hd = 0; hd < NH; ++hd) val[kk][hd] = t[hd];
+        }
       }
     }
-    if (NH == 1 && i < k.end) a.dcoef[i] = dc;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = w0 + k * G + gl;
+      if (i < end) store_vec<float, NH>(a.dcoef + (size_t)i * NH, val[k]);
+    }
+    last_s = __shfl_sync(kFull, s_l[W - 1], base + G - 1);
+#pragma unroll
+    for (int hd = 0; hd < NH; ++hd) last[hd] = __shfl_sync(kFull, val[W - 1][hd], base + G - 1);
   }
 }
 
-template <typename TX, typename TG, int NH>
-cudaError_t sddmm_typed(const void* x, const void* g, const int* senders, const int* ptr,
-                        const int* chunk_ptr, const int* chunk_row, int n_chunks, int h,
-                        float* dcoef, cudaStream_t stream) {
-  SddmmArgs<TX, TG> a;
-  a.x = static_cast<const TX*>(x);
-  a.g = static_cast<const TG*>(g);
-  a.senders = senders;
-  a.ptr = ptr;
-  a.chunk_ptr = chunk_ptr;
-  a.chunk_row = chunk_row;
-  a.dcoef = dcoef;
-  a.n_chunks = n_chunks;
-  a.h = h;
-  const int blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int threads = kWarpsPerBlock * 32;
-  switch (h / 32) {
-    case 1: coo_sddmm_kernel<TX, TG, 1, NH><<<blocks, threads, 0, stream>>>(a); break;
-    case 2: coo_sddmm_kernel<TX, TG, 2, NH><<<blocks, threads, 0, stream>>>(a); break;
-    case 4: coo_sddmm_kernel<TX, TG, 4, NH><<<blocks, threads, 0, stream>>>(a); break;
-    case 8: coo_sddmm_kernel<TX, TG, 8, NH><<<blocks, threads, 0, stream>>>(a); break;
-    default: return cudaErrorInvalidValue;
-  }
+// One item a lane group, 32 / G a warp, as csr_spmm_kernel: items [0,
+// n_heavy_chunks) the chunks on the heavy list, the others the rows (a heavy
+// row's own item idle).  Each item writes its own edges: no partial, no
+// counter.
+template <typename TX, typename TG, int NH, int Q>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kSddmmBlocks)
+coo_sddmm_kernel(const Sddmm<TX, TG> a) {
+  using S = SddmmShape<TX, NH, Q>;
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / S::G);
+  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int gl = lane % S::G;
+  const CsrItem it = csr_item(a, first + lane / S::G, /*skip_masked=*/false);
+  sddmm_span<TX, TG, NH, Q, S::F, S::G, kInFlight>(a, it.beg, it.wend, min(it.r, a.num_nodes - 1),
+                                                   gl, lane - gl);
+}
+
+template <typename TX, typename TG, int NH, int Q>
+cudaError_t sddmm_q(const Sddmm<TX, TG>& a, cudaStream_t stream) {
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / SddmmShape<TX, NH, Q>::G;
+  const int items = a.n_heavy_chunks + a.num_nodes;
+  coo_sddmm_kernel<TX, TG, NH, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
+                                    kWarpsPerBlock * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename TX, typename TG, int NH>
+cudaError_t sddmm_width(const Sddmm<TX, TG>& a, cudaStream_t stream) {
+  switch (a.h / 32) {
+    case 1: return sddmm_q<TX, TG, NH, 1>(a, stream);
+    case 2: return sddmm_q<TX, TG, NH, 2>(a, stream);
+    case 4: return sddmm_q<TX, TG, NH, 4>(a, stream);
+    case 8: return sddmm_q<TX, TG, NH, 8>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TX, typename TG>
-cudaError_t sddmm_heads(int heads, const void* x, const void* g, const int* senders,
-                        const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                        int n_chunks, int h, float* dcoef, cudaStream_t stream) {
+cudaError_t sddmm_typed(int heads, const void* x, const void* g, const int* senders,
+                        const CsrRows& csr, int h, float* dcoef, cudaStream_t stream) {
+  Sddmm<TX, TG> a;
+  static_cast<CsrRows&>(a) = csr;
+  a.x = static_cast<const TX*>(x);
+  a.g = static_cast<const TG*>(g);
+  a.senders = senders;
+  a.dcoef = dcoef;
+  a.h = h;
   switch (heads) {
-#define CASE(NH)                                                                          \
-  case NH:                                                                                \
-    return sddmm_typed<TX, TG, NH>(x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks, h, \
-                                   dcoef, stream);
-    CASE(1) CASE(2) CASE(4) CASE(8)
-#undef CASE
+    case 1: return sddmm_width<TX, TG, 1>(a, stream);
+    case 2: return sddmm_width<TX, TG, 2>(a, stream);
+    case 4: return sddmm_width<TX, TG, 4>(a, stream);
+    case 8: return sddmm_width<TX, TG, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename TX>
-cudaError_t sddmm_by_g(int g_dtype, int heads, const void* x, const void* g,
-                       const int* senders, const int* ptr, const int* chunk_ptr,
-                       const int* chunk_row, int n_chunks, int h, float* dcoef,
-                       cudaStream_t stream) {
-  if (g_dtype == 0)
-    return sddmm_heads<TX, float>(heads, x, g, senders, ptr, chunk_ptr, chunk_row, n_chunks, h,
-                                  dcoef, stream);
+cudaError_t sddmm_by_g(int g_dtype, int heads, const void* x, const void* g, const int* senders,
+                       const CsrRows& csr, int h, float* dcoef, cudaStream_t stream) {
+  if (g_dtype == 0) return sddmm_typed<TX, float>(heads, x, g, senders, csr, h, dcoef, stream);
   if (g_dtype == 1)
-    return sddmm_heads<TX, __nv_bfloat16>(heads, x, g, senders, ptr, chunk_ptr, chunk_row,
-                                          n_chunks, h, dcoef, stream);
+    return sddmm_typed<TX, __nv_bfloat16>(heads, x, g, senders, csr, h, dcoef, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -283,20 +372,24 @@ int coo_spmm_launch(const void* x, int dtype, const float* coef, int heads, cons
 }
 
 // K12 (heads 1), K20 (heads 2, 4 or 8).  x_dtype, g_dtype: 0 = float32, 1 =
-// bfloat16 (each its own).  The receiver CSR (ptr, chunk_ptr, chunk_row,
-// n_chunks) over the receiver-sorted senders.  Writes dcoef [E, heads] f32 in
-// edge order.
+// bfloat16 (each its own).  h % 32 == 0 and h / 32 in {1, 2, 4, 8}; x and g
+// rows aligned to a lane's load (SddmmShape: min(16, F * sizeof) bytes
+// each).  The receiver CSR as coo_spmm_launch takes it, without its
+// arrival counters (each item writes its own edges), over the
+// receiver-sorted senders.  Writes dcoef [E, heads] f32 in edge order.
 int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype, int heads,
                      const int* senders, const int* ptr, const int* chunk_ptr,
-                     const int* chunk_row, int n_chunks, int h, float* dcoef,
-                     cudaStream_t stream) {
-  if (n_chunks <= 0 || h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
+                     const int* chunk_row, const int* heavy_chunks,
+                     const uint8_t* heavy_masked, int n_heavy_chunks, int num_nodes, int h,
+                     float* dcoef, cudaStream_t stream) {
+  if (num_nodes <= 0 || n_heavy_chunks < 0 || h <= 0 || h % 32)
+    return (int)cudaErrorInvalidValue;
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
+                    nullptr, nullptr, n_heavy_chunks, num_nodes};
   if (x_dtype == 0)
-    return (int)sddmm_by_g<float>(g_dtype, heads, x, g, senders, ptr, chunk_ptr, chunk_row,
-                                  n_chunks, h, dcoef, stream);
+    return (int)sddmm_by_g<float>(g_dtype, heads, x, g, senders, csr, h, dcoef, stream);
   if (x_dtype == 1)
-    return (int)sddmm_by_g<__nv_bfloat16>(g_dtype, heads, x, g, senders, ptr, chunk_ptr,
-                                          chunk_row, n_chunks, h, dcoef, stream);
+    return (int)sddmm_by_g<__nv_bfloat16>(g_dtype, heads, x, g, senders, csr, h, dcoef, stream);
   return (int)cudaErrorInvalidValue;
 }
 

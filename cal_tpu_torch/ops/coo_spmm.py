@@ -53,7 +53,6 @@ from cal_tpu_torch.ops.spmm import (
     _DTYPES,
     _check_features,
     _check_graph,
-    _check_kernel_width,
     _check_walk_width,
     _stream,
     _walk_csr,
@@ -113,7 +112,7 @@ def _lib():
         lib.coo_spmm_launch.argtypes = ([vp, i, vp, i, vp, vp] + [vp, vp, vp, vp, vp, i, vp]
                                         + [i, i, vp, vp, vp])
         lib.coo_spmm_launch.restype = ctypes.c_int
-        lib.coo_sddmm_launch.argtypes = [vp, i, vp, i, i] + [vp] * 4 + [i, i, vp, vp]
+        lib.coo_sddmm_launch.argtypes = [vp, i, vp, i, i] + [vp] * 6 + [i, i, i, vp, vp]
         lib.coo_sddmm_launch.restype = ctypes.c_int
         lib.segment_max_launch.argtypes = [vp, i, i] + [vp] * 5 + [i, vp] + [i, vp, vp, vp]
         lib.segment_max_launch.restype = ctypes.c_int
@@ -189,15 +188,16 @@ def _sddmm(what, x, gout, g: GraphBatch, heads: int | None = None) -> torch.Tens
         return coo_sddmm_plain(x, gout, g, heads)
     _check_graph(what, g, device)
     x, gout = x.contiguous(), gout.contiguous()
-    _check_kernel_width(what, h, [x])
-    _check_kernel_width(what, h, [gout])
+    # a lane loads F features of x and of g (csrc/coo_spmm.cu SddmmShape)
+    _check_walk_width(what, h, [x], heads or 1)
+    _check_walk_width(what, h, [gout], heads or 1)
     e = g.senders.shape[0]
     dcoef = torch.empty((e,) if heads is None else (e, heads), dtype=torch.float32,
                         device=device)
+    # the receiver CSR without its arrival counters: each item writes its own edges
     err = _lib().coo_sddmm_launch(
         x.data_ptr(), _DTYPES[x.dtype], gout.data_ptr(), _DTYPES[gout.dtype], heads or 1,
-        g.senders.data_ptr(), g.recv.ptr.data_ptr(), g.recv.chunk_ptr.data_ptr(),
-        g.recv.chunk_row.data_ptr(), g.recv.num_chunks, h, dcoef.data_ptr(),
+        g.senders.data_ptr(), *_walk_csr(g.recv)[:-1], v, h, dcoef.data_ptr(),
         _stream(device))
     build.check(err, what)
     return dcoef

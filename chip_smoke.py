@@ -216,8 +216,8 @@ report of its instances and of spmm.cu's other kernels, each sparse batch's
 degree profile and ``copy_`` floor, every sparse kernel held against its
 twin and timed on the serving and REDDIT batches (row 12 also on config 4's
 graph; K1 (its sums, with its deg / dis epilogue, and the plain conv's
-degree), K13, K5, K6, K15, K16 and K7 with the warm device ms of each
-kernel a call launches), the walk's rows by batch, both digest lines, and
+degree), K13, K5, K6, K15, K16, K7, K12 and K20 with the warm device ms of
+each kernel a call launches), the walk's rows by batch, both digest lines, and
 two sparse CausalGCN ``profile_train_step`` lines; from another tree's
 root, for an A/B.
 """
@@ -1933,7 +1933,8 @@ def coo_kernel_rows(torch, g, label, peaks, flush):
     the card), x in bf16 and f32, at coef = the edge mask (sparse GIN's) and
     at a random coefficient on every edge, dead ones too; the f32 Function's
     backward (K11T, K12) against autograd of the forward twin; times at
-    coef = mask.  Returns {dtype: {kernel: row}}."""
+    coef = mask, K12 with the warm device ms of each kernel a call launches
+    (``passes``).  Returns {dtype: {kernel: row}}."""
     from cal_tpu_torch.ops import coo_spmm as coo
 
     bw, _, f32_peak = peaks
@@ -1950,7 +1951,7 @@ def coo_kernel_rows(torch, g, label, peaks, flush):
         rand = torch.randn(e, generator=gen, device="cuda")
         rows = {}
 
-        def row(name, fn, plain, nbytes, flops, err, lib_fn, lib_call):
+        def row(name, fn, plain, nbytes, flops, err, lib_fn, lib_call, **extra):
             t_bytes, t_ops = nbytes / bw, flops / f32_peak
             r = {"name": name, "batch": label, "dtype": dt_name, "max_abs_err": err,
                  "atol": COO_TOL[0], "rtol": COO_TOL[1], "coef": "edge_mask",
@@ -1959,7 +1960,7 @@ def coo_kernel_rows(torch, g, label, peaks, flush):
                  "library_call": lib_call, "bytes": nbytes, "flops": flops,
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "nodes": v, "edges": e, "nonzero_coef_edges": n_nz}
+                 "nodes": v, "edges": e, "nonzero_coef_edges": n_nz, **extra}
             emit({"phase": "coo_kernel", **r})
             rows[name] = r
 
@@ -1994,7 +1995,8 @@ def coo_kernel_rows(torch, g, label, peaks, flush):
             v * H * elt + v * H * 4 + 4 * e + csr(g.recv) + 4 * e, 2 * H * e, err,
             _library_sddmm(torch, g, x, gout),
             "torch.sparse.sampled_addmm(receiver CSR [V, V], g, x^T) in f32, CSR and the "
-            "cast of x built outside the call")
+            "cast of x built outside the call",
+            passes=profile_passes(torch, lambda: coo.coo_sddmm(x, gout, g)))
 
         if dt == torch.float32:
             # the Function's backward kernels against autograd of the twin
@@ -3287,8 +3289,9 @@ def sparse_digests(torch, batches: dict) -> dict:
     K3, K3T, K11, K11T, K14, K14T at both ``negate`` values, K19, K19T at
     HEADS heads), of K21 (4 planes, dead edges left random), of K8's, K9's,
     K9T's and K10's outputs (each apart, K9 / K9T at rate 0 and GAT_RATE,
-    K10 at GAT_RATE), the chain's (``chain_digests``) and the degrees' and
-    K7's (``degree_digests``) on seeded inputs
+    K10 at GAT_RATE), the chain's (``chain_digests``), the degrees' and
+    K7's (``degree_digests``) and K12's / K20's (``sddmm_digests``) on
+    seeded inputs
     over each sparse batch, bf16 and f32 (K21's values f32).  The
     degrees and coefficients are seeded too (no kernel's output feeds
     another), so equal digests mean the walks computed the same bits; from
@@ -3346,7 +3349,30 @@ def sparse_digests(torch, batches: dict) -> dict:
                     [gs.gat_coef_spmm(x, tj, ti, m_ref, words, rate, g)])
                 out[f"K9T_{label}_{dt_name}_r{rate}"] = _digest(
                     [gs.gat_coef_spmm_t(w.to(dt), tj, ti, m_ref, words, rate, g)])
-    return {**out, **chain_digests(torch, batches), **degree_digests(torch, batches)}
+    return {**out, **chain_digests(torch, batches), **degree_digests(torch, batches),
+            **sddmm_digests(torch, batches)}
+
+
+def sddmm_digests(torch, batches: dict) -> dict:
+    """sha256 of K12's and K20's (at HEADS heads) dot products on seeded x
+    (bf16 and f32) and g (f32) over each sparse batch, stopping the run if
+    a second call does not repeat the bits.  Only public wrappers: from
+    another tree's root it gives that tree's bits."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    out = {}
+    for label, g in batches.items():
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+            x = torch.randn((g.num_nodes, H), generator=gen, device="cuda").to(dt)
+            gout = torch.randn((g.num_nodes, H), generator=gen, device="cuda")
+            for name, fn in (("K12", lambda: coo.coo_sddmm(x, gout, g)),
+                             ("K20", lambda: coo.coo_sddmm_mh(x, gout, g, HEADS))):
+                got = fn()
+                check(torch.equal(got, fn()), f"{name} {dt_name} on {label} differs between "
+                      "two calls")
+                out[f"{name}_{label}_{dt_name}"] = _digest([got])
+    return out
 
 
 def degree_digests(torch, batches: dict) -> dict:
@@ -3466,10 +3492,15 @@ def ptxas_walk(report: dict, libs=("spmm", "coo_spmm")) -> dict:
     With spmm.cu, also its other kernels (K1's, K5's receiver pass
     ``chain_head_kernel<dtype, branches, NEG, H / 32>`` and sender sums
     ``csr_reduce_kernel``, K6's ``chain_tail_kernel<branches, NEG>``), named
-    by their element type and integer and bool template arguments."""
+    by their element type and integer and bool template arguments; with
+    coo_spmm.cu, K12 / K20's ``coo_sddmm_kernel<x dtype, g dtype, heads,
+    H / 32>`` (``ptxas_instances``)."""
     out = {} if "spmm" not in libs else {
         k: v for k, v in ptxas_instances(report, ["spmm"]).items()
         if not k.startswith("csr_spmm_kernel")}
+    if "coo_spmm" in libs:
+        out.update({k: v for k, v in ptxas_instances(report, ["coo_spmm"]).items()
+                    if k.startswith("coo_sddmm_kernel")})
     for lib in libs:
         name = None
         for ln in report.get(lib, {}).get("log", "").splitlines():
@@ -3536,10 +3567,45 @@ def _first_targs(targs: str) -> str:
     return targs
 
 
+def _targ_dtypes(first: str) -> list:
+    """The element types (bf16, f32) among the top-level arguments of a
+    mangled template argument list (``I ... E``), in order; a substitution
+    there (``S_``, ``S1_``) repeats ``__nv_bfloat16``, the one element type
+    that is not a builtin, once that has appeared."""
+    out, depth, i = [], 0, 0
+    while i < len(first):
+        c = first[i]
+        if c == "L":
+            i = first.index("E", i) + 1
+            continue
+        if c in "ST":
+            j = first.index("_", i) + 1
+            if c == "S" and depth == 1 and "bf16" in out:
+                out.append("bf16")
+            i = j
+            continue
+        if c.isdigit():
+            j = i
+            while first[j].isdigit():
+                j += 1
+            ident, i = first[j:j + int(first[i:j])], j + int(first[i:j])
+            if depth == 1 and ident == "__nv_bfloat16":
+                out.append("bf16")
+            continue
+        if c == "f" and depth == 1:
+            out.append("f32")
+        elif c in "IXN":
+            depth += 1
+        elif c == "E":
+            depth -= 1
+        i += 1
+    return out
+
+
 def ptxas_instances(report: dict, libs) -> dict:
     """{instance: registers, spill bytes} of every ``*_kernel`` of the
     libraries ``libs``, from nvcc's ``-Xptxas -v`` logs; an instance is
-    named by its element type and the integer and bool arguments of the
+    named by the element types and the integer and bool arguments of the
     kernel's own template argument list, a ``csr_reduce_kernel`` also by its
     values policy (``RowReduce``, ``DegreeSum``) and that policy's element
     type."""
@@ -3553,14 +3619,12 @@ def ptxas_instances(report: dict, libs) -> dict:
                 name = None
                 if kernel:
                     first = _first_targs(targs)
-                    t = re.search(r"^I(13__nv_bfloat16|f)", targs)
-                    dtype = t.group(1) if t else None
+                    dtypes = _targ_dtypes(first)
                     pol = re.search(r"\d(RowReduce|DegreeSum)(?:I(13__nv_bfloat16|f))?", first)
                     if pol and pol.group(2):
-                        dtype = pol.group(2)
+                        dtypes = ["bf16" if pol.group(2) != "f" else "f32"]
                     ints = re.findall(r"L[ib](\d+)E", first)
-                    parts = (([pol.group(1)] if pol else [])
-                             + ([("bf16" if dtype != "f" else "f32")] if dtype else []) + ints)
+                    parts = ([pol.group(1)] if pol else []) + dtypes + ints
                     name = f"{kernel}<{', '.join(parts)}>" if parts else kernel
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -3600,7 +3664,8 @@ def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
     ``g``, x in bf16 and f32 (the coefficients, K21's values and the
     cotangent f32), timed beside torch.sparse.mm on a block-diagonal
     per-head CSR (K19, K19T), a batched sampled_addmm over the receiver CSR
-    repeated per head (K20, held against K20's twin too) and scatter_reduce_
+    repeated per head (K20, held against K20's twin too; with the warm
+    device ms of each kernel a call launches, ``passes``) and scatter_reduce_
     amax (K21).  Returns {dtype: {kernel: row}}."""
     from cal_tpu_torch.ops import coo_spmm as coo
 
@@ -3653,7 +3718,8 @@ def sparse_row_kernels(torch, g, label, peaks, flush, heads=HEADS, planes=4):
             f32_peak, e20, COO_TOL, bw, flush, lib20,
             "torch.sparse.sampled_addmm(receiver CSR repeated per head [heads, V, V], "
             "per-head g [heads, V, d], per-head x^T [heads, d, V]) in f32, CSR, split and "
-            "cast built outside the call", **extra)
+            "cast built outside the call",
+            passes=profile_passes(torch, lambda: coo.coo_sddmm_mh(x, gout, g, heads)), **extra)
         rows["segment_max"] = segment_max_row(torch, g, label, peaks, flush, planes,
                                               dt_name, vals)
         out[dt_name] = rows
@@ -4197,8 +4263,8 @@ def walk_main() -> int:
     (run this file from the other tree's root): the build's ptxas report of
     the walk and of K7, each sparse batch's csr_profile, every sparse kernel
     held against its twin and timed on the serving and REDDIT batches (row
-    12 also on config 4's graph; K1, K13, K5, K6, K15, K16, K7 and K4 with
-    the warm device ms of each kernel a call launches, K4 beside a cold
+    12 also on config 4's graph; K1, K13, K5, K6, K15, K16, K7, K4, K12 and
+    K20 with the warm device ms of each kernel a call launches, K4 beside a cold
     ``torch.sum`` of its x over dim 0), the walk's rows by batch, the ``copy_`` and ``fill_`` floors
     of each batch, the digests (the chain's and the degrees' among the
     sparse ones), and two sparse CausalGCN ``profile_train_step`` lines (the

@@ -1448,6 +1448,135 @@ def test_coo_kernels_are_deterministic_and_raise_on_mixed_devices(cuda):
         coo.coo_sddmm(x, x.cpu(), g)
 
 
+def _runs(rng, n, v, longest):
+    """n senders in [0, v) in runs of 1 to ``longest`` equal values."""
+    out = []
+    while len(out) < n:
+        out += [int(rng.integers(0, v))] * int(rng.integers(1, longest + 1))
+    return np.array(out[:n])
+
+
+def _sddmm_graph(device, pad, seed=31):
+    """A receiver-sorted GraphBatch for K12 / K20's walk (V 3,000): rows of
+    0 (the last 7 before V-1), 1, 32 and 33 edges; light rows of runs of
+    equal senders (one of 32 edges in runs, one of 3 equal); a 33-edge row
+    whose run crosses its chunk boundary; a hub of 2,100 edges (chunks of
+    64, two windows of 32 each) in runs of up to 40 that cross window and
+    chunk boundaries; random rows of about 2 edges; and 2,500 padded edges
+    at node V-1 (chunks of 64) whose senders are all V-1 (``pad`` "equal"),
+    in runs ("runs") or all drawn apart ("random")."""
+    from cal_tpu_torch.graph import sparse_batch
+
+    rng = np.random.default_rng(seed)
+    v, live_v, n_pad = 3000, 2992, 2500
+    rows = {3: rng.integers(9, live_v, 1), 4: rng.integers(9, live_v, 32),
+            5: np.repeat(rng.integers(9, live_v, 2), (30, 3)),
+            6: np.repeat(rng.integers(9, live_v, 4), (5, 10, 1, 16)),
+            7: _runs(rng, 2100, live_v, 40), 8: np.full(3, 11)}
+    r_rand = np.sort(rng.integers(9, live_v, 6000))
+    s = np.concatenate([*rows.values(), rng.integers(0, live_v, 6000)])
+    r = np.concatenate([np.full(len(a), k) for k, a in rows.items()] + [r_rand])
+    pads = {"equal": np.full(n_pad, v - 1), "runs": _runs(rng, n_pad, v, 50),
+            "random": rng.permutation(v)[:n_pad]}[pad]
+    s, r = np.concatenate([s, pads]), np.concatenate([r, np.full(n_pad, v - 1)])
+    mask = np.arange(s.size) < s.size - n_pad
+    ng = np.minimum(np.arange(v) * 5 // (v - 40), 5).astype(np.int32)
+    return sparse_batch(np.zeros((v, 1), np.float32), s, r, mask, ng < 5, ng,
+                        np.zeros(5, np.int32), np.ones(5, bool)).to(device)
+
+
+@pytest.mark.parametrize("pad", ["equal", "runs", "random"])
+@pytest.mark.parametrize("xdt,gdt", [("bfloat16", "float32"), ("float32", "float32"),
+                                     ("bfloat16", "bfloat16"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
+def test_sddmm_kernels_match_plain(cuda, pad, xdt, gdt, h):
+    """K12 and K20 at heads 1, 2, 4 and 8 against their twin on every case
+    of the walk (the graph's rows, its hub's chunks and windows, runs of
+    equal senders inside and across them, each kind of padded run), x and g
+    each in its dtype: one launch a call, the same bits on a second call."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sddmm_graph(cuda, pad)
+    gen = torch.Generator(device=cuda).manual_seed(h + len(pad))
+    x = torch.randn((g.num_nodes, h), generator=gen, device=cuda).to(DT[xdt])
+    gout = torch.randn((g.num_nodes, h), generator=gen, device=cuda).to(DT[gdt])
+    for heads in (None, 1, 2, 4, 8):
+        fn = ((lambda: coo.coo_sddmm(x, gout, g)) if heads is None
+              else (lambda heads=heads: coo.coo_sddmm_mh(x, gout, g, heads)))
+        counter = coo.coo_sddmm if heads is None else coo.coo_sddmm_mh
+        before = counter.launches
+        got = fn()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, coo.coo_sddmm_plain(x, gout, g, heads),
+                                   atol=COO_TOL[0], rtol=COO_TOL[1])
+        assert torch.equal(fn(), got)
+
+
+@pytest.mark.parametrize("heads", [None, 4])
+def test_sddmm_is_one_device_kernel(cuda, heads):
+    """K12 and K20 launch one kernel a call, and touch no arrival counter."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sddmm_graph(cuda, "equal")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((g.num_nodes, 128), generator=gen, device=cuda).bfloat16()
+    gout = torch.randn((g.num_nodes, 128), generator=gen, device=cuda)
+    g.recv.arrivals.fill_(7)
+    names = _device_kernels(lambda: coo._sddmm("sddmm", x, gout, g, heads))
+    assert len(names) == 1 and "coo_sddmm_kernel" in names[0], names
+    assert (g.recv.arrivals == 7).all()
+
+
+def test_sddmm_raises_on_misaligned_rows(cuda):
+    """K12 / K20 load 16 bytes of a row at a time: x or g off that
+    alignment raises instead of launching."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sddmm_graph(cuda, "equal")
+    v = g.num_nodes
+    x = torch.randn((v, 128), device=cuda).bfloat16()
+    off = torch.empty(v * 128 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(v, 128)
+    off.copy_(x)
+    for a, b in ((off, x), (x, off)):
+        with pytest.raises(ValueError, match="aligned"):
+            coo.coo_sddmm(a, b, g)
+        with pytest.raises(ValueError, match="aligned"):
+            coo.coo_sddmm_mh(a, b, g, 4)
+
+
+def test_sddmm_on_two_streams_and_in_a_cuda_graph(cuda):
+    """K12 and K20 share nothing between launches: calls on two streams at
+    once, and a CUDA graph captured on a stream they never ran on, give the
+    bits of a call made alone."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+
+    g = _sddmm_graph(cuda, "runs")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = [torch.randn((g.num_nodes, 128), generator=gen, device=cuda) for _ in range(2)]
+    gout = torch.randn((g.num_nodes, 128), generator=gen, device=cuda).bfloat16()
+    calls = [lambda: coo.coo_sddmm(xs[0], gout, g), lambda: coo.coo_sddmm_mh(xs[1], gout, g, 4)]
+    alone = [fn() for fn in calls]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(calls[i]())
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(out, alone[i]) for out in got[i])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(cuda)):
+        outs = [fn() for fn in calls]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, a) for o, a in zip(outs, alone))
+
+
 # Edge-formulated GAT (csrc/edge_gat.cu) against its twins: f32 results (out
 # in f32, dti, dtj) are sums over a row's or a sender's slots in another
 # order with expf and fmaf: 1e-4.  In bf16, out and dxh are rounded once to

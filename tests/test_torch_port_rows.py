@@ -156,11 +156,13 @@ def _sparse_case(seed, heads=4, d=8):
     return g, tf, tb, live, rng
 
 
-def test_row9_twins_match_pallas():
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+def test_row9_twins_match_pallas(heads):
     """K19, K19T and K20 twins (through the Function and directly) against
-    coo_spmm_mh and jax.vjp of it on f32 plans; the caller's coefficients
-    are zero on dead and self-loop edges, and dcoef covers every edge."""
-    heads, d = 4, 8
+    coo_spmm_mh and jax.vjp of it on f32 plans, at every head count the
+    kernels take (H 32); the caller's coefficients are zero on dead and
+    self-loop edges, and dcoef covers every edge."""
+    d = 32 // heads
     g, tf, tb, live, rng = _sparse_case(0, heads, d)
     v, e = g.num_nodes, g.senders.shape[0]
     x = rng.standard_normal((v, heads * d)).astype(np.float32)
