@@ -18,12 +18,17 @@ metric names, one JSON line each (headline first):
    gathered f32 row read and one written per live edge, three passes: the
    forward SpMM, the dx SpMM and the SDDMM) over the card's HBM rate.
 
-Configs 1-3 time the port's train step on batches staged on the device
+Configs 1-3 time the port's training on batches staged on the device
 once: a warm-up of at least 40 steps, then a timed window that reads
 nothing back and does not synchronize (``torch.cuda.set_sync_debug_mode``
 holds it to that) until one read at its end; the time is the host's wall
-clock around the window.  Steps of a packed epoch's empty batches count as
-steps, as the root bench's skipped scan steps do.  ``vs_baseline`` of
+clock around the window.  Configs 1-2 time the device-side epoch
+(``make_causal_train_epoch``: on the card, each step a replay of one CUDA
+graph of the step), ``epochs_per_call`` epochs a call as the root bench's
+superstep (``max(1, 30 // batches)``), and report ``steps_per_call``;
+config 3's sparse batches keep the per-step loop (ROADMAP item 13b).
+Steps of a packed epoch's empty batches count as steps, as the root
+bench's skipped scan steps do.  ``vs_baseline`` of
 configs 1-2 divides by the CPU torch loop of ``benchmarks/baseline_perf.json``.
 
 Left out, because their definitions are TPU mechanisms: ``pct_mxu_peak``
@@ -52,14 +57,21 @@ from cal_tpu_torch.data.feature_expansion import FeatureExpander
 from cal_tpu_torch.data.loader import Loader, compute_budgets, compute_packed_budgets
 from cal_tpu_torch.data.reddit_synthetic import make_graph
 from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
-from cal_tpu_torch.graph import HostGraph, sparse_batch
+from cal_tpu_torch.graph import GraphBatch, HostGraph, sparse_batch
 from cal_tpu_torch.ops.spmm import (
     gcn_aggregate_sparse_sigmoid,
     gcn_aggregate_sparse_sigmoid_plain,
 )
 from cal_tpu_torch.train.causal import resolve_device
 from cal_tpu_torch.train.optim import cosine_lr
-from cal_tpu_torch.train.steps import has_real_graph, init_state, make_causal_train_step
+from cal_tpu_torch.train.steps import (
+    has_real_graph,
+    init_state,
+    make_causal_train_epoch,
+    make_causal_train_step,
+    ship,
+    stack_batches_host,
+)
 from cal_tpu_torch.utils.config import Config
 from cal_tpu_torch.utils.profiling import spmm_roofline
 
@@ -107,39 +119,59 @@ def _no_sync(device: torch.device):
 
 def bench_causal_train(model_name: str, cfg: Config, batches, edges_per_batch: float,
                        target_steps: int = 400) -> dict:
-    """Train steps of ``model_name`` on ``batches`` (host batches, staged on
+    """Training of ``model_name`` on ``batches`` (host batches, staged on
     ``cfg.device`` once and taken in order, epoch after epoch) from a fresh
-    model: at least WARMUP_STEPS steps of warm-up, then epochs until
-    ``target_steps`` steps have run in the timed window.  Returns edges/s,
-    the steps and seconds of the window and the window's mean loss."""
+    model: at least WARMUP_STEPS steps of warm-up, then calls until
+    ``target_steps`` steps have run in the timed window.  Dense batches run
+    the device-side epoch, ``epochs_per_call`` epochs a call; sparse ones
+    the per-step loop, an epoch a call.  Returns edges/s, the steps and
+    seconds of the window, the window's mean loss, and the steps and
+    epochs of a call."""
     cfg = cfg.replace(model=model_name)
     device = resolve_device(cfg.device)
     state = init_state(cfg, batches[0].x.shape[-1], cfg.num_classes, device)
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(batches))
-    step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co, True,
-                                  cfg.seed).on_device
-    staged = [b.to(device) for b in batches if has_real_graph(b)]
+    if isinstance(batches[0], GraphBatch):
+        step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co, True,
+                                      cfg.seed).on_device
+        staged = [b.to(device) for b in batches if has_real_graph(b)]
 
-    def epoch(sums):
-        for b in staged:
-            sums = step(b, sums)
+        def epoch():
+            sums = None
+            for b in staged:
+                sums = step(b, sums)
+            return sums
+        epochs_per_call = 1
+    else:
+        epoch_fn = make_causal_train_epoch(state, schedule, cfg.c, cfg.o, cfg.co, True,
+                                           cfg.seed)
+        stacked = ship(stack_batches_host(batches), device)
+        epoch = lambda: epoch_fn(stacked)
+        epochs_per_call = max(1, 30 // len(batches))
+    steps_per_call = epochs_per_call * len(batches)
+
+    def call(sums):
+        for _ in range(epochs_per_call):
+            m = epoch()
+            sums = m if sums is None else sums + m
         return sums
 
     n, sums = 0, None
-    while n < max(WARMUP_STEPS, 2 * len(batches)):
-        sums = epoch(sums)
-        n += len(batches)
+    while n < max(WARMUP_STEPS, 2 * steps_per_call):
+        sums = call(sums)
+        n += steps_per_call
     float(sums[0])
     n_steps, sums = 0, None
     t0 = time.perf_counter()
     with _no_sync(device):
         while n_steps < target_steps:
-            sums = epoch(sums)
-            n_steps += len(batches)
+            sums = call(sums)
+            n_steps += steps_per_call
     loss = float(sums[0] / sums[5])
     dt = time.perf_counter() - t0
     return {"edges_per_s": n_steps / dt * edges_per_batch, "steps": n_steps,
-            "seconds": dt, "loss": loss}
+            "seconds": dt, "loss": loss, "steps_per_call": steps_per_call,
+            "epochs_per_call": epochs_per_call}
 
 
 def _sparse_pack_workload(n_graphs: int = 256) -> list[HostGraph]:
@@ -286,7 +318,8 @@ def main(argv: list[str] | None = None) -> tuple[list[dict], dict]:
                                                  steps(target))
         base = _baseline(key)
         lines.append({"metric": metric, "value": round(r["edges_per_s"], 1), "unit": "edges/s",
-                      "vs_baseline": round(r["edges_per_s"] / base, 2) if base else 1.0})
+                      "vs_baseline": round(r["edges_per_s"] / base, 2) if base else 1.0,
+                      "steps_per_call": r["steps_per_call"]})
 
     r = results["sparse_pack_train_edges_per_s"] = bench_sparse_pack(
         cfg, target_steps=steps(60))

@@ -13,7 +13,9 @@
 //   m_r    = max over cells with ceff > 0 of l   (masked: never a non-edge)
 //   num    = exp(l - m_r) * ceff;  den_r = sum_s num;  alpha = num * (1/den_r)
 //   keep   = philox4x32_10(counter (lo, hi, 0, 0), key (s0, s1))[0] >= thresh,
-//            for the cell index ((b*heads + h)*N + r)*N + s = hi*2^32 + lo
+//            for the cell index ((b*heads + h)*N + r)*N + s = hi*2^32 + lo,
+//            (s0, s1) the two 32-bit words of the 64-bit seed, which the
+//            kernels read from a device buffer (see seed_word)
 //   out_r  = scale * sum_s keep * alpha * xh_s[h*d:(h+1)*d]
 // Backward, with c = scale, alpha recomputed from m and den:
 //   da     = keep * (g_r . xh_s);  t_r = sum_s da * alpha
@@ -156,9 +158,17 @@ struct Args {
   void* dxh;
   float4* rec;           // (ti, m, 1 / den, t) of each (receiver, head): receiver to sender kernel
   Geo geo;
-  uint32_t s0, s1, thresh;
+  const uint32_t* seed;  // the 64-bit dropout seed: words (s0, s1) = (low, high), on the card
+  uint32_t thresh;
   float scale;
 };
+
+// A word of the dropout seed, read from device memory, so a captured launch
+// (a CUDA graph) takes the seed that the host wrote before each replay.  No
+// read without dropout (thresh 0), where the wrapper may pass no buffer.
+__device__ __forceinline__ uint32_t seed_word(const Args& a, int i) {
+  return a.thresh ? __ldg(a.seed + i) : 0u;
+}
 
 // A lane's column slots: the row offset of its 4 columns, how many exist
 // (0 where the slot is padding) and their group head.
@@ -342,6 +352,7 @@ flash_fwd_kernel(const Args a) {
   __shared__ float lc_[kWarps][kChunk];    //           and their ceff
   __shared__ float wb_[kWarps][kPairs];    // a batch's keep * alpha by (entry, head)
   const Geo g = a.geo;
+  const uint32_t s0 = seed_word(a, 0), s1 = seed_word(a, 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
   int* ls = ls_[warp];
   float* lc = lc_[warp];
@@ -383,7 +394,7 @@ flash_fwd_kernel(const Args a) {
     if (exact && n == 1) {               // the diagonal alone: a copy of xh_r
       float wd = 0.f;
       if (hv && jl == 0) {
-        wd = keep_cell(rowcell + r, a.s0, a.s1, a.thresh) ? 1.f : 0.f;
+        wd = keep_cell(rowcell + r, s0, s1, a.thresh) ? 1.f : 0.f;
         a.m_out[(bn + r) * heads + hgl] = mnew;
         a.den_out[(bn + r) * heads + hgl] = 1.f;
       }
@@ -423,7 +434,7 @@ flash_fwd_kernel(const Args a) {
         if (j >= nb) break;
         float wv = 0.f;
         const int s = ls[jb + j];
-        if (hv && keep_cell(rowcell + s, a.s0, a.s1, a.thresh)) {
+        if (hv && keep_cell(rowcell + s, s0, s1, a.thresh)) {
           const float e = expf(leaky(tir + tjb[(size_t)s * heads]) - mnew);
           wv = exact ? e * lc[jb + j] * inv : e * lc[jb + j];
         }
@@ -494,6 +505,7 @@ flash_bwd_row_kernel(const Args a) {
   __shared__ float lc_[kWarps][kChunk];
   __shared__ float db_[kWarps][kPairs];    // a batch's g_r . xh_s by (entry, head)
   const Geo g = a.geo;
+  const uint32_t s0 = seed_word(a, 0), s1 = seed_word(a, 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b = blockIdx.y;
   int* ls = ls_[warp];
   float* lc = lc_[warp];
@@ -541,7 +553,7 @@ flash_bwd_row_kernel(const Args a) {
         const float pre = tir + tjb[(size_t)s * heads];
         pa[i] = expf(leaky(pre) - mr) * (lc[jb + j] * inv);
         pl[i] = pre >= 0.f ? pa[i] : kNegSlope * pa[i];
-        pk[i] = keep_cell(rowcell + s, a.s0, a.s1, a.thresh);
+        pk[i] = keep_cell(rowcell + s, s0, s1, a.thresh);
       }
       for (int jj = 0; jj < nb; jj += G) {
         float xa[G][KG][4];
@@ -598,6 +610,7 @@ flash_bwd_col_kernel(const Args a) {
   __shared__ float wb_[kWarps][kPairs];    // keep * alpha by (entry, head)
   __shared__ float db_[kWarps][kPairs];    // g_r . xh_s by (entry, head)
   const Geo g = a.geo;
+  const uint32_t s0 = seed_word(a, 0), s1 = seed_word(a, 1);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, b = blockIdx.y;
   int* lr = lr_[warp];
   float* lc = lc_[warp];
@@ -667,7 +680,7 @@ flash_bwd_col_kernel(const Args a) {
           pp[i] = rr.x + tjs;
           pa[i] = expf(leaky(pp[i]) - rr.y) * (lc[jb + j] * rr.z);
           pt[i] = rr.w;
-          pk[i] = keep_cell((hcell + r) * N + s, a.s0, a.s1, a.thresh);
+          pk[i] = keep_cell((hcell + r) * N + s, s0, s1, a.thresh);
           ad = pk[i] ? pa[i] : 0.f;
         }
         wb[j * hp + hl] = ad;
@@ -792,11 +805,13 @@ int bwd(Args a, int B, int N, int heads, int d, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16 (counts, xh); ti/tj/out/m/den f32.
 // ti, tj, m, den [B, N, heads]; counts [B, N, N]; xh, out [B, N, heads * d];
 // all contiguous.  d <= 128.  thresh = uint32(rate * 2^32), 0 for no dropout;
-// (s1, s0) the 64-bit dropout seed; scale = 1 / (1 - rate).
+// seed: the 64-bit dropout seed on the card (8 bytes, little-endian: the low
+// word s0 first), read by the kernels, null allowed when thresh is 0;
+// scale = 1 / (1 - rate).
 extern "C" int flash_gat_fwd_launch(const void* ti, const void* tj, const void* counts,
                                     const void* xh, void* out, void* m, void* den, int B,
-                                    int N, int heads, int d, int dtype, uint32_t s0,
-                                    uint32_t s1, uint32_t thresh, float scale, void* stream) {
+                                    int N, int heads, int d, int dtype, const void* seed,
+                                    uint32_t thresh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || N == 0 || heads == 0 || d == 0) return 0;
   if (d > kMaxHeadDim || B > 65535) return (int)cudaErrorInvalidValue;
@@ -805,7 +820,8 @@ extern "C" int flash_gat_fwd_launch(const void* ti, const void* tj, const void* 
   a.counts = counts, a.xh = xh;
   a.out = static_cast<float*>(out), a.m_out = static_cast<float*>(m);
   a.den_out = static_cast<float*>(den);
-  a.s0 = s0, a.s1 = s1, a.thresh = thresh, a.scale = scale;
+  a.seed = static_cast<const uint32_t*>(seed), a.thresh = thresh, a.scale = scale;
+  if (thresh != 0 && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return fwd<float>(a, B, N, heads, d, st);
   if (dtype == 1) return fwd<__nv_bfloat16>(a, B, N, heads, d, st);
   return (int)cudaErrorInvalidValue;
@@ -819,7 +835,7 @@ extern "C" int flash_gat_bwd_launch(const void* ti, const void* tj, const void* 
                                     const void* xh, const void* m, const void* den,
                                     const void* g, void* dti, void* dtj, void* dxh,
                                     void* t_scratch, int B, int N, int heads, int d, int dtype,
-                                    uint32_t s0, uint32_t s1, uint32_t thresh, float scale,
+                                    const void* seed, uint32_t thresh, float scale,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || N == 0 || heads == 0 || d == 0) return 0;
@@ -831,7 +847,8 @@ extern "C" int flash_gat_bwd_launch(const void* ti, const void* tj, const void* 
   a.g = static_cast<const float*>(g);
   a.dti = static_cast<float*>(dti), a.dtj = static_cast<float*>(dtj);
   a.rec = static_cast<float4*>(t_scratch), a.dxh = dxh;
-  a.s0 = s0, a.s1 = s1, a.thresh = thresh, a.scale = scale;
+  a.seed = static_cast<const uint32_t*>(seed), a.thresh = thresh, a.scale = scale;
+  if (thresh != 0 && seed == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return bwd<float>(a, B, N, heads, d, st);
   if (dtype == 1) return bwd<__nv_bfloat16>(a, B, N, heads, d, st);
   return (int)cudaErrorInvalidValue;

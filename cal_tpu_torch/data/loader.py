@@ -12,8 +12,11 @@ and masked.  A packed epoch closes a batch early when the next graph would
 overflow a budget, and pads the epoch with empty batches to a fixed step
 count.
 
-The sparse packer works on whole-dataset concatenated arrays, as cal_tpu's
-native packer does: each graph's edges are sorted by (receiver, sender)
+Batches are collated by the native C++ packer (``cal_tpu_torch/native``,
+cal_tpu's ``PackedDataset``), built with g++ at first use; the NumPy packers
+(``graph.pack_dense`` and ``_SparseDataset``) are its plain twins, which a
+loader takes only when asked (``packer="numpy"``).  Both work on
+whole-dataset concatenated arrays: each graph's edges are sorted by (receiver, sender)
 once, so the concatenation of a batch's graphs with increasing node offsets
 is already receiver-sorted (padded edges sit at node V-1, the largest id),
 and each graph's stable sender order is precomputed too, so the sender CSR
@@ -35,6 +38,7 @@ from cal_tpu_torch.graph import (
     pad_sizes_for,
     sparse_batch,
 )
+from cal_tpu_torch.native import PackedDataset
 
 
 def _round_up(v: int, m: int) -> int:
@@ -177,9 +181,12 @@ class Loader:
 
     def __init__(self, graphs: Sequence[HostGraph], batch_size: int,
                  shuffle: bool = False, budgets: dict | None = None,
-                 seed: int = 0, layout: str = "dense", drop_remainder: bool = False):
+                 seed: int = 0, layout: str = "dense", drop_remainder: bool = False,
+                 packer: str = "native"):
         if layout not in ("dense", "sparse"):
             raise ValueError(f"unknown layout {layout!r}")
+        if packer not in ("native", "numpy"):
+            raise ValueError(f"unknown packer {packer!r}")
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -203,8 +210,12 @@ class Loader:
             self._steps_budget = max(counts) + 1 if self.graphs else 0
             self._sched_steps = max(int(round(float(np.mean(counts)))), 1)
         # an empty split yields no batch and needs no packer
-        self._sparse = (_SparseDataset(self.graphs) if layout == "sparse" and self.graphs
-                        else None)
+        self.packer = packer
+        self._packed = None
+        if self.graphs and packer == "native":
+            self._packed = PackedDataset(self.graphs)
+        self._sparse = (_SparseDataset(self.graphs)
+                        if layout == "sparse" and self.graphs and packer == "numpy" else None)
 
     def __len__(self) -> int:
         if self.pack:
@@ -238,10 +249,15 @@ class Loader:
     def _make_batch_host(self, idx: np.ndarray):
         b = self.budgets
         if self.layout == "sparse":
-            return self._sparse.pack(idx, self.batch_size, b["node_budget"],
-                                     b["edge_budget"])
-        p = pack_dense([self.graphs[j] for j in idx], self.batch_size,
-                       b["node_budget"], b["edge_budget"])
+            pack = (self._packed.pack_sparse_batch if self._packed is not None
+                    else self._sparse.pack)
+            return pack(idx, self.batch_size, b["node_budget"], b["edge_budget"])
+        if self._packed is not None:
+            p = self._packed.pack_dense_batch(idx, self.batch_size, b["node_budget"],
+                                              b["edge_budget"])
+        else:
+            p = pack_dense([self.graphs[j] for j in idx], self.batch_size,
+                           b["node_budget"], b["edge_budget"])
         return dataclasses.replace(p, eg_budget=b["edge_per_graph"])
 
     def host_batches(self) -> Iterator[PackedDenseBatch | GraphBatch]:

@@ -47,7 +47,8 @@ class BaselineGNN(nn.Module):
         self.bn_hidden = MaskedBatchNorm(hidden)
         self.lin_class = TorchLinear(hidden, num_classes, generator=gen)
 
-    def forward(self, g, train: bool = False, dropout_seeds: Sequence[int] | None = None,
+    def forward(self, g, train: bool = False,
+                dropout_seeds: Sequence[int] | torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """[B, C] log-probs.  In training with dropout > 0 (GAT),
         ``dropout_seeds`` (one per layer) drive the layers' attention

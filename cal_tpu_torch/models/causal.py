@@ -73,11 +73,12 @@ def build_backbone(model: nn.Module, num_features: int, hidden: int, num_layers:
 
 
 def run_backbone(model: nn.Module, g, backbone: str, num_layers: int, train: bool,
-                 dropout_seeds: Sequence[int] | None) -> torch.Tensor:
+                 dropout_seeds: Sequence[int] | torch.Tensor | None) -> torch.Tensor:
     """The layers of ``build_backbone`` on ``g``: BN -> gfn -> ReLU, then per
     layer GINConv, or BN -> GCNConv / GATConv -> ReLU (``dropout_seeds``, one
-    per layer, turn on GAT's attention dropout in training).  Node features
-    in ``model.dtype``."""
+    per layer, turn on GAT's attention dropout in training: ints, or an
+    int64 [layers] seed table on the card whose rows the flash kernel
+    reads).  Node features in ``model.dtype``."""
     node_mask = g.node_mask
     x = model.bn_feat(g.x.to(model.dtype), node_mask, train)
     x = torch.relu(model.conv_feat(x))
@@ -156,7 +157,7 @@ class CausalGNN(nn.Module):
 
     def forward(self, g: DenseGraphBatch | GraphBatch, eval_random: bool = True,
                 train: bool = False, generator: torch.Generator | None = None,
-                dropout_seeds: Sequence[int] | None = None):
+                dropout_seeds: Sequence[int] | torch.Tensor | None = None):
         """Returns (c_log_probs, o_log_probs, co_log_probs), each [B, C].
         ``generator`` drives the intervention shuffle when it is on;
         ``dropout_seeds`` (one per layer) turn on the GAT layers' attention

@@ -21,7 +21,7 @@ from torch import nn
 
 from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.ops.edge_gat import edge_gat_dense_flat
-from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
+from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat, seed_value
 from cal_tpu_torch.ops.gat import seed_words
 from cal_tpu_torch.ops.gat_sparse import gat_aggregate_sparse_fused
 from cal_tpu_torch.ops.gcn import gcn_aggregate
@@ -179,13 +179,17 @@ EDGE_MIN_N = 384
 EDGE_WINDOW_PER_N = 3
 
 
+def edge_kernel_at(eg_budget: int, n: int) -> bool:
+    """cal_tpu's predicate on a batch that carries its edge list: N >= 384
+    and the edge window of ``eg_budget`` edges fits in 3N."""
+    eg_rows = -(-max(eg_budget, 1) // 128) + 2
+    return n >= EDGE_MIN_N and eg_rows * 128 <= EDGE_WINDOW_PER_N * n
+
+
 def takes_edge_kernel(g, n: int) -> bool:
     """Whether a dense GAT conv on batch ``g`` with node budget ``n`` runs
     the edge-formulated kernel (cal_tpu's predicate)."""
-    if g.edge_flat is None:
-        return False
-    eg_rows = -(-max(g.eg_budget, 1) // 128) + 2
-    return n >= EDGE_MIN_N and eg_rows * 128 <= EDGE_WINDOW_PER_N * n
+    return g.edge_flat is not None and edge_kernel_at(g.eg_budget, n)
 
 
 class GATConvLayer(nn.Module):
@@ -220,21 +224,25 @@ class GATConvLayer(nn.Module):
             torch.empty(heads, 2 * out_per_head), heads, 2 * out_per_head, generator))
         self.bias = nn.Parameter(torch.zeros(hd))
 
-    def forward(self, x, g, seed: int | None = None):
-        """x [B, N, in] (dense) or [V, in] (sparse); ``seed`` (64 bits) turns
-        attention dropout on (training)."""
+    def forward(self, x, g, seed: int | torch.Tensor | None = None):
+        """x [B, N, in] (dense) or [V, in] (sparse); ``seed`` (64 bits: an
+        int, or a ``flash_gat.seed_buffer`` on the card, which the flash
+        kernel reads there, so a captured step takes each replay's seed)
+        turns attention dropout on (training).  The sparse and edge kernels
+        take the seed's value."""
         dt, d = self.dtype, self.out_per_head
         xh = linear(x, self.kernel, dt).to(dt)
         att = self.att.to(dt)
         if isinstance(g, GraphBatch):
             v = xh.shape[0]
+            seed = None if seed is None else seed_value(seed)
             rate = self.dropout if seed is not None else 0.0
             words = seed_words(seed) if seed is not None else (0, 0)
             out = gat_aggregate_sparse_fused(xh.view(v, self.heads, d), att[:, :d], att[:, d:],
                                              words, g, rate).reshape(v, self.heads * d)
         elif takes_edge_kernel(g, xh.shape[1]):
-            out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout, seed,
-                                      g.edge_index)
+            out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout,
+                                      None if seed is None else seed_value(seed), g.edge_index)
         else:
             out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
         return out.to(dt) + self.bias.to(dt)

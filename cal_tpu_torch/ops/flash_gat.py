@@ -20,7 +20,11 @@ iff the 32 bits, compared unsigned, are >= ``uint32(rate * 2^32)``.  Graph
 and head enter the counter, so no two cells share bits; the backward draws
 the same bits as the forward, and the twins draw the kernels' bits exactly.
 The TPU kernel draws Mosaic's PRNG instead, so dropout agrees with the JAX
-package in law only.
+package in law only.  The kernels read the seed from device memory: a seed
+is an int or a seed buffer (``seed_buffer``: one int64 holding the 64 bits
+on the card), which a captured step (a CUDA graph) reads at each replay, so
+the host writes the step's seed into the buffer before it replays; an int
+seed is put into a new buffer at the launch.  The twins take either.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ _BIG_NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128          # a head's columns fit one warp, 4 a lane
 _M32 = 0xFFFFFFFF
+_M64 = 2**64 - 1
 
 
 def _leaky(x):
@@ -60,6 +65,25 @@ def philox_bits(cell, k0: int, k1: int):
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
         k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
     return c0
+
+
+def seed_buffer(seed: int, device=None) -> torch.Tensor:
+    """A 64-bit seed (an int in [0, 2^64)) as one int64 on ``device``, its
+    bits unchanged: the low word (k0) first in memory, as the kernels read
+    it.  A fill, not a host copy: no synchronization."""
+    seed = int(seed) & _M64
+    return torch.full((1,), seed - 2**64 if seed >= 2**63 else seed, dtype=torch.int64,
+                      device=device)
+
+
+def seed_value(seed) -> int:
+    """The 64-bit seed of an int or of a ``seed_buffer`` (read back to the
+    host)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError("a seed buffer is one int64")
+        return int(seed.reshape(()).item()) & _M64
+    return int(seed) & _M64
 
 
 def keep_threshold(rate: float) -> int:
@@ -97,7 +121,7 @@ def _scale(rate):
     return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
 
 
-def flash_gat_fwd_plain(ti, tj, counts, xh, seed: int = 0, rate: float = 0.0):
+def flash_gat_fwd_plain(ti, tj, counts, xh, seed=0, rate: float = 0.0):
     """Plain twin of the forward kernel (``_fwd_kernel``): returns out
     [B, N, heads * d], row max m and denominator den [B, N, heads], all f32."""
     bsz, n, heads = ti.shape
@@ -108,7 +132,7 @@ def flash_gat_fwd_plain(ti, tj, counts, xh, seed: int = 0, rate: float = 0.0):
     den = num.sum(dim=-1, keepdim=True)
     alpha = num * (1.0 / den)
     if rate > 0.0:
-        keep = dropout_keep(seed, bsz, heads, n, rate, ti.device)
+        keep = dropout_keep(seed_value(seed), bsz, heads, n, rate, ti.device)
         alpha = torch.where(keep, alpha, torch.zeros((), device=ti.device))
     acc = torch.matmul(alpha, _heads_first(xh, heads))
     if rate > 0.0:
@@ -117,7 +141,7 @@ def flash_gat_fwd_plain(ti, tj, counts, xh, seed: int = 0, rate: float = 0.0):
     return out, m[..., 0].transpose(1, 2).contiguous(), den[..., 0].transpose(1, 2).contiguous()
 
 
-def flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: float = 0.0):
+def flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, seed=0, rate: float = 0.0):
     """Plain twin of the backward kernel (``_bwd_kernel``): the VJP written
     out, not autograd of the forward twin.  g [B, N, heads * d] is the
     cotangent of the f32 output; returns dti, dtj [B, N, heads] in f32 and
@@ -132,7 +156,7 @@ def flash_gat_bwd_plain(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: floa
     gh, xhh = _heads_first(g, heads), _heads_first(xh, heads)
     dalpha = torch.matmul(gh, xhh.transpose(-1, -2))
     if rate > 0.0:
-        keep = dropout_keep(seed, bsz, heads, n, rate, ti.device)
+        keep = dropout_keep(seed_value(seed), bsz, heads, n, rate, ti.device)
         zero = torch.zeros((), device=ti.device)
         alpha_drop = torch.where(keep, alpha, zero)
         dalpha = torch.where(keep, dalpha, zero)
@@ -173,21 +197,33 @@ def _lib():
     lib = build.load("flash_gat")
     if lib.flash_gat_fwd_launch.argtypes is None:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.flash_gat_fwd_launch.argtypes = [vp] * 7 + [i, i, i, i, i, u, u, u, f, vp]
+        lib.flash_gat_fwd_launch.argtypes = [vp] * 7 + [i, i, i, i, i, vp, u, f, vp]
         lib.flash_gat_fwd_launch.restype = ctypes.c_int
-        lib.flash_gat_bwd_launch.argtypes = [vp] * 11 + [i, i, i, i, i, u, u, u, f, vp]
+        lib.flash_gat_bwd_launch.argtypes = [vp] * 11 + [i, i, i, i, i, vp, u, f, vp]
         lib.flash_gat_bwd_launch.restype = ctypes.c_int
     return lib
 
 
-def _seed_args(seed: int, rate: float):
-    return seed & _M32, (seed >> 32) & _M32, keep_threshold(rate), _scale(rate)
+def _seed_args(seed, rate: float, device):
+    """(seed buffer or None, threshold, scale) of a launch, and the buffer
+    to keep alive until the launch is enqueued.  A buffer is checked to lie
+    on the launch's device."""
+    if rate <= 0.0:
+        return (None, 0, 1.0), None
+    if isinstance(seed, torch.Tensor):
+        if seed.device != device or seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"the seed buffer must be one int64 on {device}")
+        buf = seed.contiguous()
+    else:
+        buf = seed_buffer(seed, device)
+    return (buf.data_ptr(), keep_threshold(rate), _scale(rate)), buf
 
 
-def flash_gat_fwd(ti, tj, counts, xh, seed: int = 0, rate: float = 0.0):
+def flash_gat_fwd(ti, tj, counts, xh, seed=0, rate: float = 0.0):
     """Forward: ti, tj [B, N, heads] f32; counts [B, N, N] and xh
     [B, N, heads * d] of one dtype (float32 or bfloat16) -> (out [B, N,
-    heads * d], m, den [B, N, heads]), all f32.  Launches the kernel on CUDA
+    heads * d], m, den [B, N, heads]), all f32.  ``seed``: an int or a
+    ``seed_buffer`` on the inputs' device.  Launches the kernel on CUDA
     tensors, runs ``flash_gat_fwd_plain`` on CPU tensors."""
     _check("flash_gat_fwd", ti, tj, counts, xh)
     if ti.device.type == "cpu":
@@ -197,20 +233,21 @@ def flash_gat_fwd(ti, tj, counts, xh, seed: int = 0, rate: float = 0.0):
     out = torch.empty(xh.shape, dtype=torch.float32, device=xh.device)
     m = torch.empty_like(ti)
     den = torch.empty_like(ti)
+    args, _buf = _seed_args(seed, rate, xh.device)
     err = _lib().flash_gat_fwd_launch(
         ti.data_ptr(), tj.data_ptr(), counts.data_ptr(), xh.data_ptr(), out.data_ptr(),
         m.data_ptr(), den.data_ptr(), bsz, n, heads, xh.shape[-1] // heads,
-        _DTYPES[xh.dtype], *_seed_args(seed, rate),
-        torch.cuda.current_stream(xh.device).cuda_stream)
+        _DTYPES[xh.dtype], *args, torch.cuda.current_stream(xh.device).cuda_stream)
     build.check(err, "flash_gat_fwd")
     flash_gat_fwd.launches += 1
     return out, m, den
 
 
-def flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: float = 0.0):
+def flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed=0, rate: float = 0.0):
     """VJP of ``flash_gat_fwd``'s out: g [B, N, heads * d] f32 -> (dti, dtj
-    [B, N, heads] f32, dxh in xh's dtype).  Launches the backward kernels on
-    CUDA tensors, runs ``flash_gat_bwd_plain`` on CPU tensors."""
+    [B, N, heads] f32, dxh in xh's dtype); ``seed`` as the forward's.
+    Launches the backward kernels on CUDA tensors, runs
+    ``flash_gat_bwd_plain`` on CPU tensors."""
     if g.dtype != torch.float32:
         raise ValueError("flash_gat_bwd: g must be float32")
     _check("flash_gat_bwd", ti, tj, counts, xh, (m, den, g))
@@ -222,11 +259,12 @@ def flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: float = 0.
     dtj = torch.empty_like(ti)
     dxh = torch.empty_like(xh)
     t_scratch = torch.empty((bsz, n, heads, 4), dtype=torch.float32, device=ti.device)
+    args, _buf = _seed_args(seed, rate, xh.device)
     err = _lib().flash_gat_bwd_launch(
         ti.data_ptr(), tj.data_ptr(), counts.data_ptr(), xh.data_ptr(), m.data_ptr(),
         den.data_ptr(), g.data_ptr(), dti.data_ptr(), dtj.data_ptr(), dxh.data_ptr(),
         t_scratch.data_ptr(), bsz, n, heads, xh.shape[-1] // heads, _DTYPES[xh.dtype],
-        *_seed_args(seed, rate), torch.cuda.current_stream(xh.device).cuda_stream)
+        *args, torch.cuda.current_stream(xh.device).cuda_stream)
     build.check(err, "flash_gat_bwd")
     flash_gat_bwd.launches += 1
     return dti, dtj, dxh
@@ -234,6 +272,13 @@ def flash_gat_bwd(ti, tj, counts, xh, m, den, g, seed: int = 0, rate: float = 0.
 
 flash_gat_fwd.launches = 0
 flash_gat_bwd.launches = 0
+
+
+def _seed_arg(seed):
+    """None -> 0; an int stays an int, a seed buffer a buffer."""
+    if seed is None:
+        return 0
+    return seed if isinstance(seed, torch.Tensor) else int(seed)
 
 
 class _FlashGAT(torch.autograd.Function):
@@ -252,12 +297,12 @@ class _FlashGAT(torch.autograd.Function):
 
 def flash_gat_dense_flat(xh_flat: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tensor,
                          att_src: torch.Tensor, dropout_rate: float = 0.0,
-                         seed: int | None = None) -> torch.Tensor:
+                         seed: int | torch.Tensor | None = None) -> torch.Tensor:
     """Dense multi-head GAT on xh in its [B, N, heads * d] layout.
 
     adj [B, N, N] counts (row = receiver) of xh's dtype; att_dst / att_src
     [heads, d].  Dropout runs at ``dropout_rate`` when a ``seed`` (a
-    non-negative int below 2^64) is given.  Returns [B, N, heads * d] in
+    non-negative int below 2^64, or a ``seed_buffer``) is given.  Returns [B, N, heads * d] in
     xh's dtype; differentiable in xh, att_dst and att_src."""
     bsz, n, hd = xh_flat.shape
     heads, d = att_dst.shape
@@ -266,13 +311,13 @@ def flash_gat_dense_flat(xh_flat: torch.Tensor, adj: torch.Tensor, att_dst: torc
     ti = torch.einsum("bnhd,hd->bnh", x4, att_dst.to(dt).float())
     tj = torch.einsum("bnhd,hd->bnh", x4, att_src.to(dt).float())
     rate = float(dropout_rate) if seed is not None and dropout_rate > 0.0 else 0.0
-    out = _FlashGAT.apply(ti, tj, adj.to(dt), xh_flat, 0 if seed is None else int(seed), rate)
+    out = _FlashGAT.apply(ti, tj, adj.to(dt), xh_flat, _seed_arg(seed), rate)
     return out.to(dt)
 
 
 def flash_gat_dense(xh: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tensor,
                     att_src: torch.Tensor, dropout_rate: float = 0.0,
-                    seed: int | None = None) -> torch.Tensor:
+                    seed: int | torch.Tensor | None = None) -> torch.Tensor:
     """``flash_gat_dense_flat`` on xh [B, N, heads, d]; as the JAX version,
     the score halves are formed in xh's dtype.  Returns [B, N, heads, d]."""
     bsz, n, heads, d = xh.shape
@@ -280,5 +325,5 @@ def flash_gat_dense(xh: torch.Tensor, adj: torch.Tensor, att_dst: torch.Tensor,
     tj = torch.einsum("bnhd,hd->bnh", xh, att_src).float()
     rate = float(dropout_rate) if seed is not None and dropout_rate > 0.0 else 0.0
     out = _FlashGAT.apply(ti, tj, adj.to(xh.dtype), xh.reshape(bsz, n, heads * d),
-                          0 if seed is None else int(seed), rate)
+                          _seed_arg(seed), rate)
     return out.view(bsz, n, heads, d).to(xh.dtype)

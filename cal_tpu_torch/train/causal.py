@@ -11,15 +11,24 @@ counts the real steps (``schedule_steps``).
 ``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
 cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
-There is no device-side epoch here: ``--scan_epochs`` is accepted and runs
-the per-step loop, whose numerics the JAX package's scan reproduces
-(cal_tpu/train/steps.py make_causal_train_epoch).
+``--scan_epochs true`` (the default) runs the device-side epoch on the dense
+layout, as cal_tpu's scanned epoch: ``_EpochPrefetcher`` packs (the native
+packer), stacks and ships each epoch's batches (one pinned host-to-device
+copy per leaf) while the card runs the epoch before, and on CUDA every step
+replays one CUDA graph (``steps.make_causal_train_epoch``), the eval sweeps
+over the val and test stacks too (``_eval_scan``); on the CPU the same
+steps run eagerly, in the same order with the same seeds as the per-step
+loop of ``--scan_epochs false``.  The sparse layout and a dense GAT whose
+convs take the edge kernel (N >= 384) keep the per-step loop and say so
+(ROADMAP item 13b).
 ``train_causal_real``: the reference's k-fold 'test_max' protocol on a real
 dataset (a fresh model per fold, the epoch chosen afterwards from the
 fold-mean test accuracies, mean and std over folds, the ``sydall`` line).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from typing import Sequence
 
@@ -36,12 +45,18 @@ from cal_tpu_torch.data.loader import (
 )
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import CAUSAL, get_model
+from cal_tpu_torch.nn.layers import edge_kernel_at
 from cal_tpu_torch.train.optim import cosine_lr
 from cal_tpu_torch.train.steps import (
+    StackedBatches,
     has_real_graph,
     init_state,
+    make_causal_eval_epoch,
     make_causal_eval_step,
+    make_causal_train_epoch,
     make_causal_train_step,
+    ship,
+    stack_batches_host,
     step_seed,
 )
 from cal_tpu_torch.utils.checkpoint import Checkpointer
@@ -69,11 +84,204 @@ def _eval(eval_step, batches, generator) -> tuple[float, float, float, int]:
         m = eval_step(b, generator)
         v = torch.stack([m["correct_co"], m["correct_c"], m["correct_o"], m["n"]])
         tot = v if tot is None else tot + v
-    if tot is None:
-        return 0.0, 0.0, 0.0, 0
-    co, c, o, n = tot.tolist()
+    return _rates(*(tot.tolist() if tot is not None else [0] * 4))
+
+
+class _Failure:
+    """A producer thread's exception, passed down the queues."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class _EpochPrefetcher:
+    """Epoch preparation overlapped with the card (cal_tpu's
+    ``_EpochPrefetcher``): a host thread packs each epoch's batches
+    (``loader.host_batches``, the native packer) and stacks them
+    (``stack_batches_host``), a device thread ships each stack (``ship``:
+    one pinned copy per leaf on a stream of its own), with queues of one
+    between them, so epoch N+1 is packed and copied while the card runs
+    epoch N.  The host thread is the only reader of the loader, so the
+    shuffle stream is drawn in order.
+
+    Three repairs on cal_tpu's: ``next`` re-raises a producer's exception
+    (it waits ``timeout`` seconds at most for an epoch); the producers stop
+    after ``epochs`` epochs, so no epoch beyond the run is packed or
+    shipped; ``close`` stops both threads and joins them."""
+
+    def __init__(self, loader: Loader, device: torch.device, epochs: int,
+                 timeout: float = 3600.0):
+        self.loader, self.device, self.epochs, self.timeout = loader, device, epochs, timeout
+        self._hq: queue.Queue = queue.Queue(maxsize=1)
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self.threads = [threading.Thread(target=fn, daemon=True, name=f"epoch-prefetch-{name}")
+                        for fn, name in ((self._produce_host, "host"),
+                                         (self._produce_device, "device"))]
+        for t in self.threads:
+            t.start()
+
+    def _put(self, q: queue.Queue, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _get(self, q: queue.Queue):
+        while not self._stop.is_set():
+            try:
+                return q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        return None
+
+    def _produce_host(self) -> None:
+        try:
+            for _ in range(self.epochs):
+                batches = list(self.loader.host_batches())
+                if not self._put(self._hq, stack_batches_host(batches) if batches else None):
+                    return
+        except BaseException as exc:   # handed to next(), which raises it
+            self._put(self._hq, _Failure(exc))
+
+    def _produce_device(self) -> None:
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        try:
+            for _ in range(self.epochs):
+                item = self._get(self._hq)
+                if item is None and self._stop.is_set():
+                    return
+                if isinstance(item, StackedBatches):
+                    if stream is None:
+                        item = ship(item, self.device)
+                    else:
+                        with torch.cuda.stream(stream):
+                            item = ship(item, self.device)
+                if not self._put(self._q, item) or isinstance(item, _Failure):
+                    return
+        except BaseException as exc:
+            self._put(self._q, _Failure(exc))
+
+    def next(self) -> StackedBatches | None:
+        """The next epoch's device stack (None for an epoch without batches);
+        raises a producer's exception, or TimeoutError."""
+        try:
+            item = self._q.get(timeout=self.timeout)
+        except queue.Empty:
+            raise TimeoutError(f"no epoch from the prefetcher in {self.timeout} s") from None
+        if isinstance(item, _Failure):
+            raise RuntimeError("the epoch prefetcher failed") from item.exc
+        if item is not None and self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            for t in item.leaves():   # the allocator waits for this stream's use
+                t.record_stream(cur)
+        return item
+
+    def close(self, timeout: float = 120.0) -> None:
+        """Stop both threads, drop the queued stacks and join the threads."""
+        self._stop.set()
+        for q in (self._hq, self._q):
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+        for t in self.threads:
+            t.join(timeout)
+
+
+def _epoch_prefetcher(loader: Loader, device: torch.device, epochs: int) -> _EpochPrefetcher:
+    """A prefetcher of ``epochs`` epochs of ``loader``, attached to it; a
+    prefetcher the loader held is closed first."""
+    _close_prefetcher(loader)
+    pf = loader._epoch_prefetcher = _EpochPrefetcher(loader, device, epochs)
+    return pf
+
+
+def _close_prefetcher(loader: Loader) -> None:
+    pf = getattr(loader, "_epoch_prefetcher", None)
+    if pf is not None:
+        pf.close()
+        loader._epoch_prefetcher = None
+
+
+def _run_epoch(train_step, loader: Loader) -> torch.Tensor | None:
+    """The per-step loop over the next epoch of ``loader``: its sums, or
+    None for an epoch without a real step."""
+    sums = None
+    for batch in loader.host_batches():
+        sums = train_step(batch, sums)
+    return sums
+
+
+def _run_epoch_scan(epoch_fn, prefetcher: _EpochPrefetcher) -> torch.Tensor | None:
+    """The next prefetched epoch through the device-side epoch ``epoch_fn``:
+    its sums, or None for an epoch without a real step."""
+    stacked = prefetcher.next()
+    return None if stacked is None else epoch_fn(stacked)
+
+
+def _eval_scan(eval_epoch, stacked: StackedBatches | None, generator=None) -> list | None:
+    """One eval sweep over a staged stack: the summed counts read back to
+    the host in one read, or None for an empty split."""
+    if stacked is None:
+        return None
+    tot = eval_epoch(stacked) if generator is None else eval_epoch(stacked, generator)
+    return None if tot is None else tot.tolist()
+
+
+def _stack_loader(loader: Loader, device: torch.device) -> StackedBatches | None:
+    """The loader's batches that hold a real graph, stacked and shipped to
+    ``device`` once (eval loaders don't shuffle), or None."""
+    batches = [b for b in loader.host_batches() if has_real_graph(b)]
+    return ship(stack_batches_host(batches), device) if batches else None
+
+
+def _rates(co, c, o, n) -> tuple[float, float, float, int]:
+    """(acc_co, acc_c, acc_o, n) of summed eval counts."""
     d = max(n, 1)
     return co / d, c / d, o / d, n
+
+
+def _step_evaluator(eval_step):
+    """fn(device batches, generator) -> (acc_co, acc_c, acc_o, n), batch by
+    batch."""
+    return lambda batches, generator: _eval(eval_step, batches, generator)
+
+
+def _scan_evaluator(eval_epoch):
+    """fn(staged stack or None, generator) -> (acc_co, acc_c, acc_o, n),
+    one sweep (``make_causal_eval_epoch``)."""
+    return lambda stacked, generator: _rates(
+        *(_eval_scan(eval_epoch, stacked, generator) or [0] * 4))
+
+
+def scan_blocker(cfg: Config, budgets: dict) -> str | None:
+    """Why ``--scan_epochs true`` keeps the per-step loop for this run, or
+    None: the sparse layout, and a dense GAT backbone whose convs take the
+    edge kernel (N >= 384) are not captured yet (ROADMAP item 13b)."""
+    if cfg.layout == "sparse":
+        return "the sparse layout"
+    if cfg.model in ("CausalGAT", "GAT"):
+        n = budgets["node_budget"]
+        if cfg.batch_size * n * n < 2**31 and edge_kernel_at(budgets["edge_per_graph"], n):
+            return f"a dense GAT on the edge kernel (N = {n})"
+    return None
+
+
+def use_scan(cfg: Config, budgets: dict) -> bool:
+    """Whether this run takes the device-side epoch; prints the line that
+    names ROADMAP item 13b where ``--scan_epochs true`` keeps the per-step
+    loop."""
+    if not cfg.scan_epochs:
+        return False
+    why = scan_blocker(cfg, budgets)
+    if why is not None:
+        print(f"scan_epochs: {why} keeps the per-step loop "
+              "(its capture is ROADMAP queue 1 item 13b)", flush=True)
+    return why is None
 
 
 def _want_pack(cfg: Config, graphs) -> bool:
@@ -138,13 +346,20 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
     train_loader, val_loader, test_loader = make_loaders(train_set, val_set, test_set, cfg)
     state = init_state(cfg, train_set[0].x.shape[1], cfg.num_classes, device)
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, train_loader.schedule_steps)
-    train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
-                                        cfg.with_random, cfg.seed)
-    eval_step = make_causal_eval_step(state.model, cfg.eval_random)
+    scan = use_scan(cfg, train_loader.budgets)
+    args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
     # eval loaders don't shuffle: pack and copy them to the device once
-    val_batches = _device_batches(val_loader, device)
-    test_batches = _device_batches(test_loader, device)
-    eval_gen = torch.Generator(device=device)
+    if scan:
+        train_epoch = make_causal_train_epoch(*args)
+        evaluate = _scan_evaluator(make_causal_eval_epoch(state.model, cfg.eval_random))
+        val_data, test_data = (_stack_loader(ld, device) for ld in (val_loader, test_loader))
+        # a generator each: each sweep's graph registers its own
+        val_gen, test_gen = (torch.Generator(device=device) for _ in range(2))
+    else:
+        train_step = make_causal_train_step(*args)
+        evaluate = _step_evaluator(make_causal_eval_step(state.model, cfg.eval_random))
+        val_data, test_data = (_device_batches(ld, device) for ld in (val_loader, test_loader))
+        val_gen = test_gen = torch.Generator(device=device)
 
     metrics = MetricsLogger(cfg.metrics_path, cfg.tb_dir)
     ckpt = Checkpointer(cfg.save_dir) if cfg.save_model else None
@@ -164,11 +379,11 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
               f"(best val {best_val * 100:.2f})")
 
     history = []
+    pf = _epoch_prefetcher(train_loader, device, cfg.epochs - start_epoch + 1) if scan else None
     for epoch in range(start_epoch, cfg.epochs + 1):
         t0 = time.perf_counter()
-        sums = None
-        for batch in train_loader.host_batches():
-            sums = train_step(batch, sums)
+        sums = (_run_epoch_scan(train_epoch, pf) if scan
+                else _run_epoch(train_step, train_loader))
         loss, loss_c, loss_o, loss_co, correct_o, n = (
             sums.tolist() if sums is not None else [0.0] * 6)
         train_s = time.perf_counter() - t0
@@ -176,10 +391,10 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
         loss, loss_c, loss_o, loss_co, train_acc = (
             loss / n, loss_c / n, loss_o / n, loss_co / n, correct_o / n)
         # val and test get independent intervention streams (--eval_random)
-        eval_gen.manual_seed(step_seed(cfg.seed, epoch, 1))
-        _, _, val_acc_o, _ = _eval(eval_step, val_batches, eval_gen)
-        eval_gen.manual_seed(step_seed(cfg.seed, epoch, 2))
-        test_co, test_c, test_o, _ = _eval(eval_step, test_batches, eval_gen)
+        _, _, val_acc_o, _ = evaluate(val_data, val_gen.manual_seed(
+            step_seed(cfg.seed, epoch, 1)))
+        test_co, test_c, test_o, _ = evaluate(test_data, test_gen.manual_seed(
+            step_seed(cfg.seed, epoch, 2)))
         if val_acc_o > best_val:
             best_val = val_acc_o
             upd_co, upd_c, upd_o, upd_ep = test_co, test_c, test_o, epoch
@@ -205,6 +420,8 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
                     test_o * 100, upd_co * 100, upd_c * 100, upd_o * 100,
                     upd_ep, seconds,
                 ), flush=True)
+    if scan:
+        _close_prefetcher(train_loader)
     print(
         "syd: BIAS:[{:.2f}] | Val acc:[{:.2f}] Test acc:[co:{:.2f},c:{:.2f},o:{:.2f}] at epoch:[{}]".format(
             cfg.bias, val_acc_o * 100, upd_co * 100, upd_c * 100, upd_o * 100, upd_ep),
@@ -287,6 +504,7 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
     accs = {k: np.zeros((folds, cfg.epochs)) for k in ("co", "c", "o", "train")}
     random_guess = 1.0 / num_classes
     budgets = _budgets(cfg, graphs)
+    scan = use_scan(cfg, budgets)
     schedule = None
     history = []
     for fold, (train_idx, test_idx, _) in enumerate(zip(*k_fold(labels, folds,
@@ -301,25 +519,30 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
             schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, train_loader.schedule_steps)
         state = init_state(cfg.replace(seed=fold_seed), graphs[0].x.shape[1], num_classes,
                            device)
-        train_step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co,
-                                            cfg.with_random, fold_seed)
-        eval_step = make_causal_eval_step(state.model, cfg.eval_random)
-        test_batches = _device_batches(test_loader, device)
         eval_gen = torch.Generator(device=device)
+        args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, fold_seed)
+        if scan:
+            train_epoch = make_causal_train_epoch(*args)
+            evaluate = _scan_evaluator(make_causal_eval_epoch(state.model, cfg.eval_random))
+            test_data = _stack_loader(test_loader, device)
+            pf = _epoch_prefetcher(train_loader, device, cfg.epochs)
+        else:
+            train_step = make_causal_train_step(*args)
+            evaluate = _step_evaluator(make_causal_eval_step(state.model, cfg.eval_random))
+            test_data = _device_batches(test_loader, device)
         best_test, best_ep, best_c, best_o = 0.0, 0, 0.0, 0.0
         for epoch in range(1, cfg.epochs + 1):
             t0 = time.perf_counter()
-            sums = None
-            for batch in train_loader.host_batches():
-                sums = train_step(batch, sums)
+            sums = (_run_epoch_scan(train_epoch, pf) if scan
+                    else _run_epoch(train_step, train_loader))
             loss, loss_c, loss_o, loss_co, correct_o, n = (
                 sums.tolist() if sums is not None else [0.0] * 6)
             train_s = time.perf_counter() - t0
             n = max(n, 1.0)
             loss, loss_c, loss_o, loss_co, train_acc = (
                 loss / n, loss_c / n, loss_o / n, loss_co / n, correct_o / n)
-            eval_gen.manual_seed(step_seed(fold_seed, epoch, 2))
-            t_co, t_c, t_o, _ = _eval(eval_step, test_batches, eval_gen)
+            t_co, t_c, t_o, _ = evaluate(test_data, eval_gen.manual_seed(
+                step_seed(fold_seed, epoch, 2)))
             for k, v in (("co", t_co), ("c", t_c), ("o", t_o), ("train", train_acc)):
                 accs[k][fold, epoch - 1] = v
             if t_co > best_test:
@@ -336,6 +559,8 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
                         cfg.dataset, fold, epoch, cfg.epochs, loss, loss_c, loss_o, loss_co,
                         train_acc * 100, t_co * 100, t_o * 100, t_c * 100,
                         random_guess * 100, best_test * 100, best_ep), flush=True)
+        if scan:
+            _close_prefetcher(train_loader)
         print(
             "syd: Causal fold:[{}] | Dataset:[{}] Model:[{}] | Best Test:[{:.2f}] at epoch [{}] | "
             "Test_o:[{:.2f}] Test_c:[{:.2f}] (RG:{:.2f})".format(

@@ -7,6 +7,14 @@ JAX package.  The learning rate is set from the closed form of
 CosineAnnealingLR stepped once per epoch, evaluated at the optimizer step
 count as the JAX schedule is (not from CosineAnnealingLR's recursive update,
 which drifts from the closed form in float).
+
+On CUDA, Adam is capturable (``capturable=True``: its step count lives on
+the card and its update reads no host value) and its learning rate is a
+device scalar that ``set_lr`` fills in place before each step, so one CUDA
+graph of the step (``train/graphs.py``) replays every step of the run with
+that step's rate.  The eager steps on CUDA take the same optimizer, so a
+captured step and an eager one compute the same numbers.  On the CPU the
+rate stays a Python float.
 """
 from __future__ import annotations
 
@@ -32,11 +40,27 @@ def cosine_lr(lr: float, min_lr: float, epochs: int,
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    weight_decay: float = 0.0) -> torch.optim.Adam:
     """Adam(betas=(0.9, 0.999), eps=1e-8); the trainer sets its ``lr`` from
-    ``cosine_lr`` before every step."""
+    ``cosine_lr`` before every step.  Capturable, with the rate a device
+    scalar, when the parameters are on CUDA."""
+    params = list(params)
+    if params and params[0].device.type == "cuda":
+        return torch.optim.Adam(params, lr=torch.zeros((), device=params[0].device),
+                                betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+                                capturable=True, foreach=True)
     return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The rate of the next step: a capturable group's device scalar is
+    filled in place (no host sync; a captured step reads it), made anew on
+    the parameters' device where a restored state left a float or a host
+    tensor there; any other group takes the float."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        cur = group["lr"]
+        if not group.get("capturable"):
+            group["lr"] = lr
+        elif isinstance(cur, torch.Tensor) and cur.device == group["params"][0].device:
+            cur.fill_(lr)
+        else:
+            group["lr"] = torch.full((), lr, device=group["params"][0].device)

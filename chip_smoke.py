@@ -28,7 +28,16 @@
    c. gradient check: one bf16 step's gradients at full width, kernels
       against the plain twins on the card (GAT with dropout on, one seed),
       and one f32 step on 16 graphs, card against CPU; then the device time
-      of one warm bf16 train step by operator;
+      of one warm bf16 train step by operator, eager and as a replay of
+      its captured CUDA graph (``profile_train_step_captured``);
+   d. captured epoch (CausalGCN, CausalGAT and the GCN baseline): the
+      device-side epoch (``make_*_train_epoch``, the step captured as one
+      CUDA graph) against the eager steps from one state for 3 epochs of
+      the shuffled train batches; fails unless parameters, BatchNorm
+      statistics, Adam's moments and the epoch sums are bitwise equal and
+      the launches agree (the graph's counted launches added per replay);
+      both runs' epoch seconds; then the benchmark's configs 1 and 2 at
+      their full timed windows (``bench_config`` lines, ms a step);
 4. sparse layout (CausalGCN serving, ``--layout sparse``) on the canonical
    dataset size (data_num 2000: batches of 128 graphs at V = 31,744 nodes,
    E = 128,000 edges):
@@ -209,6 +218,15 @@ against their twins in bf16 and f32 at dropout 0 and 0.2 and timed at both
 rates (cold L2; the warm split by kernel), and the flash digests (out, m,
 den, dti, dtj, dxh); from another tree's root, for an A/B.
 
+    python3 chip_smoke.py --epoch
+
+builds the dense kernels and times the dense training path alone: for
+CausalGCN and CausalGAT the training phase (``main_syn``, 3 epochs, the
+tree's default ``--scan_epochs``), the eager ``profile_train_step`` and,
+where the tree has the device-side epoch, ``profile_train_step_captured``
+and the captured-epoch phase; then the benchmark's configs 1 and 2; from
+another tree's root (``PYTHONPATH`` set to it), for an A/B.
+
     python3 chip_smoke.py --walk
 
 builds the kernels and runs the coefficient SpMM walk alone: the ptxas
@@ -347,6 +365,7 @@ GAT_SPMM_TOL = (1e-4, 1e-4)
 # fmaf; K12: dot products of H terms in another order.
 COO_TOL = (1e-4, 1e-4)
 BASELINE_EPOCHS = 1       # each baseline's short run, per layout
+CAPTURE_EPOCHS = 3        # the captured-epoch phase: 3 epochs of 7 steps
 # Real-data phase: main_real on SYNREDDIT at full width; only the fold and
 # epoch counts are cut (the protocol runs 10 folds of 100 epochs).
 REAL_FOLDS, REAL_EPOCHS = 2, 2
@@ -866,11 +885,14 @@ def serving_phase(torch, test_set, model: str):
         seed=SEED, dtype="bfloat16", hidden=H, layers=LAYERS, batch_size=B,
         device="cuda"))
     t0 = time.perf_counter()
-    n_batches = sum(1 for _ in Loader(test_set, B).host_batches())
-    pack_s = time.perf_counter() - t0
+    loader = Loader(test_set, B)
+    t1 = time.perf_counter()
+    n_batches = sum(1 for _ in loader.host_batches())
+    pack_s = time.perf_counter() - t1
     emit({"phase": "serving_warm", "model": model, "graphs": warm["graphs"],
           "seconds": warm["seconds"], "graphs_per_s": warm["graphs"] / warm["seconds"],
-          "host_pack_ms_per_batch": pack_s / n_batches * 1e3})
+          "host_pack_ms_per_batch": pack_s / n_batches * 1e3,
+          "loader_init_ms": (t1 - t0) * 1e3})
 
     # the same forward through the plain twins, on the card
     batch = next(Loader(test_set, B).host_batches()).to("cuda")
@@ -1095,6 +1117,151 @@ def profile_train_step(torch, test_set, host, model: str, top=20, layout="dense"
           "wall_ms": statistics.median(walls[2:]),
           "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
           "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
+
+def _dense_train_split(cfg):
+    """The dense synthetic run's train loader (``make_loaders``: budgets over
+    the three splits, the trainer's shuffle) and its graphs."""
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+    from cal_tpu_torch.train.causal import make_loaders
+
+    ds = generate_synthetic_dataset(data_num=cfg.data_num, seed=cfg.seed)
+    train, val, test, _ = dataset_bias_split(ds, bias=cfg.bias, total=cfg.data_num * 4,
+                                             seed=cfg.seed)
+    return make_loaders(train, val, test, cfg)[0], train
+
+
+def _state_gap(a, b) -> dict:
+    """Largest |a - b| over two train states' parameters, buffers (the
+    BatchNorm statistics) and Adam moments, each group apart."""
+    gap = lambda xs, ys: max((float((x.detach().float() - y.detach().float()).abs().max())
+                              for x, y in zip(xs, ys)), default=0.0)
+    moments = lambda st: [t for s in st.optimizer.state.values() for t in s.values()]
+    return {"params": gap(a.model.parameters(), b.model.parameters()),
+            "buffers": gap(a.model.buffers(), b.model.buffers()),
+            "adam": gap(moments(a), moments(b))}
+
+
+def captured_epoch_phase(torch, model: str) -> dict:
+    """The device-side epoch against the per-step loop from one state: two
+    copies of a fresh ``model`` (bf16, H 128, 3 layers, B 128, N 256) train
+    CAPTURE_EPOCHS epochs of the dense synthetic run's shuffled batches
+    (staged on the card once), one through ``step.on_device`` batch by batch
+    (eager), one through ``make_*_train_epoch`` (the first step eager, the
+    second captured, every later one a replay), with the counters at 0
+    before each.  Fails unless the parameters, the BatchNorm statistics,
+    Adam's moments and every epoch's sums are bitwise equal and the kernels
+    launched as often in both; prints both runs' epoch seconds."""
+    from cal_tpu_torch.models.factory import BASELINES
+    from cal_tpu_torch.train import steps as st
+    from cal_tpu_torch.train.optim import cosine_lr
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model=model, hidden=H, layers=LAYERS, batch_size=B, dtype="bfloat16",
+                 seed=SEED, data_num=DATA_NUM, device="cuda", epochs=100)
+    loader, train = _dense_train_split(cfg)
+    stacks = [st.ship(st.stack_batches_host(list(loader.host_batches())), torch.device("cuda"))
+              for _ in range(CAPTURE_EPOCHS)]
+    baseline = model in BASELINES
+    schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, loader.schedule_steps)
+    counts = all_counters()
+    runs = {}
+    for kind in ("eager", "captured"):
+        state = st.init_state(cfg, train[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
+        if baseline:
+            step = st.make_baseline_train_step(state, schedule, cfg.seed)
+            epoch_fn = st.make_baseline_train_epoch(state, schedule, cfg.seed)
+        else:
+            args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
+            step, epoch_fn = st.make_causal_train_step(*args), st.make_causal_train_epoch(*args)
+        for k in counts.values():
+            k.launches = 0
+        sums, secs = [], []
+        for stacked in stacks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "captured":
+                m = epoch_fn(stacked)
+            else:
+                m = None
+                for s in range(stacked.steps):
+                    m = step.on_device(stacked.at(s), m)
+            sums.append(m.tolist())
+            secs.append(time.perf_counter() - t0)
+        runs[kind] = {"state": state, "sums": sums, "seconds": secs,
+                      "launches": {n: k.launches for n, k in counts.items() if k.launches},
+                      "replays": getattr(getattr(epoch_fn, "call", None), "replays", 0)}
+    eager, cap = runs["eager"], runs["captured"]
+    gap = _state_gap(eager["state"], cap["state"])
+    sums_gap = max(abs(a - b) for x, y in zip(eager["sums"], cap["sums"]) for a, b in zip(x, y))
+    steps = sum(stacked.steps for stacked in stacks)
+    emit({"phase": "captured_epoch", "model": model, "epochs": CAPTURE_EPOCHS,
+          "steps": steps, "replays": cap["replays"], "max_abs_diff": {**gap, "sums": sums_gap},
+          "eager_epoch_seconds": eager["seconds"], "captured_epoch_seconds": cap["seconds"],
+          "eager_ms_per_step_warm": sum(eager["seconds"][1:]) / (steps - stacks[0].steps) * 1e3,
+          "captured_ms_per_step_warm": sum(cap["seconds"][1:]) / (steps - stacks[0].steps) * 1e3,
+          "launches_eager": eager["launches"], "launches_captured": cap["launches"],
+          "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
+    # the first step runs eagerly, every later one is a replay
+    check(cap["replays"] == steps - 1, f"{cap['replays']} replays for {steps} steps")
+    check(eager["launches"] == cap["launches"],
+          f"captured launches {cap['launches']} != eager {eager['launches']}")
+    check(max(gap.values()) == 0.0 and sums_gap == 0.0 and eager["sums"] == cap["sums"],
+          f"{model}: the captured epoch differs from the eager steps: {gap}, sums {sums_gap}")
+    return cap["launches"]
+
+
+def profile_captured_step(torch, test_set, host, model: str, top=20) -> None:
+    """``profile_train_step`` for the captured step: a stack of the one host
+    batch through ``make_causal_train_epoch`` (its first call eager, its
+    second captured), then the wall time of one replay (median of 10, each
+    with its batch copy-in and ending in a synchronize) and its device time
+    by kernel from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cal_tpu_torch.train.optim import cosine_lr
+    from cal_tpu_torch.train.steps import (
+        init_state, make_causal_train_epoch, ship, stack_batches_host)
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model=model, hidden=H, layers=LAYERS, dtype="bfloat16", seed=SEED)
+    state = init_state(cfg, test_set[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
+    epoch = make_causal_train_epoch(state, cosine_lr(cfg.lr, cfg.min_lr, 100, 10),
+                                    cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
+    stacked = ship(stack_batches_host([host]), torch.device("cuda"))
+    walls = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        epoch(stacked)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(stacked)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    emit({"phase": "profile_train_step_captured", "model": model, "layout": "dense",
+          "batch": list(host.x.shape), "replays": epoch.call.replays,
+          "wall_ms": statistics.median(walls[2:]),
+          "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
+          "top": [{"op": k, "device_ms": t, "calls": c} for k, t, c in rows[:top]]})
+
+
+def bench_configs_12(torch) -> None:
+    """The benchmark's configs 1 and 2 (dense CausalGCN and CausalGAT
+    training on its staged batches) at their full timed windows, in ms a
+    step; the tree's own ``bench_causal_train`` (the captured epoch where
+    the tree has it, else its per-step loop)."""
+    from cal_tpu_torch import bench
+
+    cfg, batches, edges = bench._train_workload()
+    cfg = cfg.replace(device="cuda")
+    for metric, model, target in (("causal_train_edges_per_s", "CausalGCN", 400),
+                                  ("causal_gat_train_edges_per_s", "CausalGAT", 200)):
+        r = bench.bench_causal_train(model, cfg, batches, edges, target)
+        emit({"phase": "bench_config", "metric": metric, "model": model, "root": HERE,
+              "edges_per_s": r["edges_per_s"], "ms_per_step": r["seconds"] / r["steps"] * 1e3,
+              "steps": r["steps"], "steps_per_call": r.get("steps_per_call"),
+              "batches": len(batches)})
+
 
 def _csr_coefs(torch, g, src, dst, deg, dis):
     """Per-edge coefficients of the sparse convs (dead edges 0), for the
@@ -2599,8 +2766,21 @@ def dense_rows_at_scale(torch, batch, peaks, flush, slice_graphs=8):
                "fused_gcn_dense_att_dual_fwd": _digest(fg.fused_gcn_dense_att_dual(*args)),
                "fused_gcn_dense_att_dual_bwd": _digest(own)}
     del own
+    def bincount_at_scale() -> dict:
+        # the library call of row 1: int64 counts of every cell, 15 GB at B 128
+        ef64 = ef.long()
+        counts = torch.bincount(ef64, minlength=cells + 1)
+        check(torch.equal(counts[:cells].view(bsz, n, n).to(dt), adj),
+              "torch.bincount at N = 3,840 differs from adj_build")
+        del counts
+        ms = time_ms(torch, lambda: torch.bincount(ef64, minlength=cells + 1), flush, 3, 1)
+        torch.cuda.empty_cache()
+        return {"library_ms": ms,
+                "library_call": "torch.bincount(edge_flat.long(), minlength=B*N*N+1)"}
+
     extra = {
-        "adj_build": lambda: {"passes": profile_passes(torch, lambda: adj_build(ef, bsz, n, dt))},
+        "adj_build": lambda: {"passes": profile_passes(torch, lambda: adj_build(ef, bsz, n, dt)),
+                              **bincount_at_scale()},
         "fused_gcn_dense_att_dual_fwd": lambda: forward_split(
             torch, lambda: fg.fused_gcn_dense_att_dual(*args)),
         "fused_gcn_dense_att_dual_bwd": lambda: {
@@ -3923,8 +4103,15 @@ def main() -> int:
         serving[model] = serving_phase(torch, test_set, model)
         training[model] = training_phase(torch, model)
         grad_check(torch, test_set, batch, model)
-        profile_train_step(torch, test_set, next(Loader(test_set, B).host_batches()), model)
+        host = next(Loader(test_set, B).host_batches())
+        profile_train_step(torch, test_set, host, model)
+        profile_captured_step(torch, test_set, host, model)
         lap(f"dense_{model}")
+    # the device-side epoch: captured against eager steps from one state
+    for model in ("CausalGCN", "CausalGAT", "GCN"):
+        captured_epoch_phase(torch, model)
+    bench_configs_12(torch)
+    lap("captured_epoch")
 
     # sparse layout: kernels on a serving batch and a REDDIT-shaped batch,
     # then CausalGCN serving through main_syn --layout sparse
@@ -4586,6 +4773,45 @@ def gat_main() -> int:
     return 0
 
 
+def epoch_main() -> int:
+    """``--epoch``: the dense training path's step and epoch times, for an
+    A/B of two trees of the port (run this file from each tree's root with
+    ``PYTHONPATH`` set to it): builds the dense kernels, then for CausalGCN
+    and CausalGAT the training phase (``main_syn``, 3 epochs, the tree's
+    default path) and ``profile_train_step``, and where the tree has the
+    device-side epoch ``profile_captured_step`` and the captured-epoch
+    phase; then the benchmark's configs 1 and 2."""
+    import torch
+
+    if missing(torch):
+        return 2
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+    from cal_tpu_torch.kernels import build
+    from cal_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_all(["adj_build", "fused_gcn", "flash_gat"])
+    emit({"phase": "env", "root": HERE, "torch": torch.__version__,
+          "build_seconds": time.perf_counter() - t0,
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+              capture_output=True, text=True, timeout=60).stdout.strip()})
+    ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
+    _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
+    captured = hasattr(steps, "make_causal_train_epoch")
+    for model in ("CausalGCN", "CausalGAT"):
+        training_phase(torch, model)
+        host = next(Loader(test_set, B).host_batches())
+        profile_train_step(torch, test_set, host, model)
+        if captured:
+            profile_captured_step(torch, test_set, host, model)
+            captured_epoch_phase(torch, model)
+    bench_configs_12(torch)
+    return 0
+
+
 def digests_main() -> int:
     """``--digests``: only the dense_digests, sparse_digests and
     edge_digests lines (the last on the first SYNREDDIT batch), for
@@ -4608,5 +4834,6 @@ def digests_main() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": digests_main, "--walk": walk_main, "--rows": rows_main,
-             "--edge": edge_main, "--flash": flash_main, "--gat": gat_main}
+             "--edge": edge_main, "--flash": flash_main, "--gat": gat_main,
+             "--epoch": epoch_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -53,6 +53,8 @@ def test_bench_causal_train_on_cpu():
     batches = list(Loader(train, 8, shuffle=True, drop_remainder=True).host_batches())
     assert len(batches) == len(train) // 8
     r = bench.bench_causal_train("CausalGCN", cfg, batches, 100.0, target_steps=5)
-    assert r["steps"] == -(-5 // len(batches)) * len(batches)
+    assert r["epochs_per_call"] == max(1, 30 // len(batches))
+    assert r["steps_per_call"] == r["epochs_per_call"] * len(batches)
+    assert r["steps"] == -(-5 // r["steps_per_call"]) * r["steps_per_call"]
     for k in ("edges_per_s", "seconds", "loss"):
         assert np.isfinite(r[k]) and r[k] > 0, k

@@ -2235,3 +2235,75 @@ def test_segment_max_kernel_exact(cuda, v, e, hub, pad, k):
     assert torch.equal(coo.segment_max(vals, g), got) and not g.recv.arrivals.any()
     with pytest.raises(ValueError):
         coo.segment_max(vals.double(), g)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_gat_seed_buffer_matches_int_seed(cuda, dtype):
+    """The flash kernels read the dropout seed from a device buffer: a
+    ``seed_buffer`` gives the int seed's bits, forward and backward, and a
+    buffer rewritten between launches changes the mask."""
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+
+    ti, tj, counts, xh, g = _flash_inputs(cuda, 3, 256, 4, 32, dtype, seed=7)
+    seed = 0xFEDC_BA98_7654_3210
+    buf = seed_buffer(seed, cuda)
+    a = flash_gat_fwd(ti, tj, counts, xh, seed, 0.2)
+    b = flash_gat_fwd(ti, tj, counts, xh, buf, 0.2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ga = flash_gat_bwd(ti, tj, counts, xh, a[1], a[2], g, seed, 0.2)
+    gb = flash_gat_bwd(ti, tj, counts, xh, a[1], a[2], g, buf, 0.2)
+    assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+    buf.fill_(12345)
+    c = flash_gat_fwd(ti, tj, counts, xh, buf, 0.2)
+    assert all(torch.equal(x, y) for x, y in zip(c, flash_gat_fwd(ti, tj, counts, xh, 12345,
+                                                                   0.2)))
+    assert not torch.equal(c[0], a[0])
+    with pytest.raises(ValueError):
+        flash_gat_fwd(ti, tj, counts, xh, buf.cpu(), 0.2)
+
+
+@pytest.mark.parametrize("model", ["CausalGCN", "CausalGAT", "GCN"])
+def test_captured_epoch_matches_eager_steps(cuda, model):
+    """The device-side epoch (one CUDA graph of the step after its first,
+    eager, call) against the eager steps from one state, bit for bit:
+    parameters, BatchNorm statistics and each epoch's sums; the counted
+    launches agree."""
+    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
+    from cal_tpu_torch.train import steps as st
+    from cal_tpu_torch.train.graphs import launch_counters
+    from cal_tpu_torch.train.optim import cosine_lr
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model=model, hidden=32, layers=2, batch_size=16, dtype="bfloat16", seed=5)
+    ds = generate_synthetic_dataset(data_num=16, seed=5)
+    train, _, _, _ = dataset_bias_split(ds, bias=0.7, total=64, seed=0)
+    loader = Loader(train, 16, shuffle=True, seed=5)
+    stacks = [st.ship(st.stack_batches_host(list(loader.host_batches())), cuda)
+              for _ in range(3)]
+    schedule = cosine_lr(cfg.lr, cfg.min_lr, 10, len(loader))
+    out = {}
+    for kind in ("eager", "captured"):
+        state = st.init_state(cfg, train[0].x.shape[1], cfg.num_classes, cuda)
+        if model == "GCN":
+            step = st.make_baseline_train_step(state, schedule, cfg.seed)
+            epoch = st.make_baseline_train_epoch(state, schedule, cfg.seed)
+        else:
+            args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
+            step, epoch = st.make_causal_train_step(*args), st.make_causal_train_epoch(*args)
+        counters = launch_counters()
+        before = {f: f.launches for f in counters}
+        sums = []
+        for stacked in stacks:
+            if kind == "eager":
+                m = None
+                for s in range(stacked.steps):
+                    m = step.on_device(stacked.at(s), m)
+            else:
+                m = epoch(stacked)
+            sums.append(m.tolist())
+        out[kind] = (state, sums, {f.__name__: f.launches - before[f] for f in counters})
+    (se, sums_e, le), (sc, sums_c, lc) = out["eager"], out["captured"]
+    assert sums_e == sums_c and le == lc
+    assert all(torch.equal(a, b) for a, b in zip(se.model.parameters(), sc.model.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(se.model.buffers(), sc.model.buffers()))

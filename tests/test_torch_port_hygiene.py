@@ -56,7 +56,7 @@ def test_import_leaves_jax_out():
             "cal_tpu_torch.train.causal, cal_tpu_torch.train.baseline, "
             "cal_tpu_torch.train.losses, cal_tpu_torch.bench, cal_tpu_torch.utils.profiling, "
             "cal_tpu_torch.data.loader, cal_tpu_torch.data.reddit_synthetic, "
-            "cal_tpu_torch.utils.logging\n"
+            "cal_tpu_torch.utils.logging, cal_tpu_torch.native, cal_tpu_torch.train.graphs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]\n"
             "assert not bad, bad")
@@ -82,7 +82,8 @@ def test_kernel_modules_import_without_nvcc():
             "import cal_tpu_torch.ops.adj_build as a, cal_tpu_torch.ops.fused_gcn as f\n"
             "import cal_tpu_torch.ops.flash_gat as fg, cal_tpu_torch.nn.layers\n"
             "import cal_tpu_torch.train.causal, cal_tpu_torch.train.steps, "
-            "cal_tpu_torch.train.optim, cal_tpu_torch.utils.logging\n"
+            "cal_tpu_torch.train.optim, cal_tpu_torch.utils.logging, "
+            "cal_tpu_torch.train.graphs, cal_tpu_torch.native\n"
             "assert a.adj_build.launches == 0 and f.fused_gcn_dense_att_dual.launches == 0\n"
             "assert f.fused_gcn_dense_att_dual_bwd.launches == 0\n"
             "assert fg.flash_gat_fwd.launches == 0 and fg.flash_gat_bwd.launches == 0\n"
