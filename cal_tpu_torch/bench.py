@@ -22,13 +22,12 @@ Configs 1-3 time the port's training on batches staged on the device
 once: a warm-up of at least 40 steps, then a timed window that reads
 nothing back and does not synchronize (``torch.cuda.set_sync_debug_mode``
 holds it to that) until one read at its end; the time is the host's wall
-clock around the window.  Configs 1-2 time the device-side epoch
+clock around the window.  Configs 1-3 time the device-side epoch
 (``make_causal_train_epoch``: on the card, each step a replay of one CUDA
 graph of the step), ``epochs_per_call`` epochs a call as the root bench's
-superstep (``max(1, 30 // batches)``), and report ``steps_per_call``;
-config 3's sparse batches keep the per-step loop (ROADMAP item 13b).
-Steps of a packed epoch's empty batches count as steps, as the root
-bench's skipped scan steps do.  ``vs_baseline`` of
+superstep (``max(1, 30 // batches)``), and report ``steps_per_call``.
+Steps of a packed epoch's empty batches count as steps (the epoch skips
+them on the host), as the root bench's skipped scan steps do.  ``vs_baseline`` of
 configs 1-2 divides by the CPU torch loop of ``benchmarks/baseline_perf.json``.
 
 Left out, because their definitions are TPU mechanisms: ``pct_mxu_peak``
@@ -57,21 +56,14 @@ from cal_tpu_torch.data.feature_expansion import FeatureExpander
 from cal_tpu_torch.data.loader import Loader, compute_budgets, compute_packed_budgets
 from cal_tpu_torch.data.reddit_synthetic import make_graph
 from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
-from cal_tpu_torch.graph import GraphBatch, HostGraph, sparse_batch
+from cal_tpu_torch.graph import HostGraph, sparse_batch
 from cal_tpu_torch.ops.spmm import (
     gcn_aggregate_sparse_sigmoid,
     gcn_aggregate_sparse_sigmoid_plain,
 )
 from cal_tpu_torch.train.causal import resolve_device
 from cal_tpu_torch.train.optim import cosine_lr
-from cal_tpu_torch.train.steps import (
-    has_real_graph,
-    init_state,
-    make_causal_train_epoch,
-    make_causal_train_step,
-    ship,
-    stack_batches_host,
-)
+from cal_tpu_torch.train.steps import init_state, make_causal_train_epoch, ship, stack_batches_host
 from cal_tpu_torch.utils.config import Config
 from cal_tpu_torch.utils.profiling import spmm_roofline
 
@@ -122,37 +114,22 @@ def bench_causal_train(model_name: str, cfg: Config, batches, edges_per_batch: f
     """Training of ``model_name`` on ``batches`` (host batches, staged on
     ``cfg.device`` once and taken in order, epoch after epoch) from a fresh
     model: at least WARMUP_STEPS steps of warm-up, then calls until
-    ``target_steps`` steps have run in the timed window.  Dense batches run
-    the device-side epoch, ``epochs_per_call`` epochs a call; sparse ones
-    the per-step loop, an epoch a call.  Returns edges/s, the steps and
-    seconds of the window, the window's mean loss, and the steps and
-    epochs of a call."""
+    ``target_steps`` steps have run in the timed window, through the
+    device-side epoch, ``epochs_per_call`` epochs a call.  Returns edges/s,
+    the steps and seconds of the window, the window's mean loss, and the
+    steps and epochs of a call."""
     cfg = cfg.replace(model=model_name)
     device = resolve_device(cfg.device)
     state = init_state(cfg, batches[0].x.shape[-1], cfg.num_classes, device)
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(batches))
-    if isinstance(batches[0], GraphBatch):
-        step = make_causal_train_step(state, schedule, cfg.c, cfg.o, cfg.co, True,
-                                      cfg.seed).on_device
-        staged = [b.to(device) for b in batches if has_real_graph(b)]
-
-        def epoch():
-            sums = None
-            for b in staged:
-                sums = step(b, sums)
-            return sums
-        epochs_per_call = 1
-    else:
-        epoch_fn = make_causal_train_epoch(state, schedule, cfg.c, cfg.o, cfg.co, True,
-                                           cfg.seed)
-        stacked = ship(stack_batches_host(batches), device)
-        epoch = lambda: epoch_fn(stacked)
-        epochs_per_call = max(1, 30 // len(batches))
+    epoch_fn = make_causal_train_epoch(state, schedule, cfg.c, cfg.o, cfg.co, True, cfg.seed)
+    stacked = ship(stack_batches_host(batches), device)
+    epochs_per_call = max(1, 30 // len(batches))
     steps_per_call = epochs_per_call * len(batches)
 
     def call(sums):
         for _ in range(epochs_per_call):
-            m = epoch()
+            m = epoch_fn(stacked)
             sums = m if sums is None else sums + m
         return sums
 
@@ -325,7 +302,8 @@ def main(argv: list[str] | None = None) -> tuple[list[dict], dict]:
         cfg, target_steps=steps(60))
     lines.append({"metric": "sparse_pack_train_edges_per_s", "value": round(r["edges_per_s"], 1),
                   "unit": "edges/s",
-                  "vs_baseline": round(r["speedup_vs_worst_case_padding"], 2)})
+                  "vs_baseline": round(r["speedup_vs_worst_case_padding"], 2),
+                  "steps_per_call": r["steps_per_call"]})
 
     r = results["spmm_tiled_edges_per_s"] = bench_spmm_tiled(iters=steps(SPMM_ITERS),
                                                              device=args.device)

@@ -109,7 +109,7 @@ struct CooSpmm : CsrRows {
   const float* coef;    // [E, NH], edge order
   const int* nbr;       // senders (receiver CSR) or receivers (sender CSR)
   float* out;           // [V, H]
-  float* partial;       // [n_heavy_chunks, H]
+  float* partial;       // [heavy_cap, H]
   int h;
 
   struct Row {};
@@ -281,7 +281,7 @@ __device__ __forceinline__ void sddmm_span(const Sddmm<TX, TG>& a, int beg, int 
 }
 
 // One item a lane group, 32 / G a warp, as csr_spmm_kernel: items [0,
-// n_heavy_chunks) the chunks on the heavy list, the others the rows (a heavy
+// live_heavy) the chunks on the heavy list, the others the rows (a heavy
 // row's own item idle).  Each item writes its own edges: no partial, no
 // counter.
 template <typename TX, typename TG, int NH, int Q>
@@ -290,9 +290,10 @@ coo_sddmm_kernel(const Sddmm<TX, TG> a) {
   using S = SddmmShape<TX, NH, Q>;
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / S::G);
-  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int nh = live_heavy(a);
+  if (first >= nh + a.num_nodes) return;
   const int gl = lane % S::G;
-  const CsrItem it = csr_item(a, first + lane / S::G, /*skip_masked=*/false);
+  const CsrItem it = csr_item(a, nh, first + lane / S::G, /*skip_masked=*/false);
   sddmm_span<TX, TG, NH, Q, S::F, S::G, kInFlight>(a, it.beg, it.wend, min(it.r, a.num_nodes - 1),
                                                    gl, lane - gl);
 }
@@ -300,7 +301,7 @@ coo_sddmm_kernel(const Sddmm<TX, TG> a) {
 template <typename TX, typename TG, int NH, int Q>
 cudaError_t sddmm_q(const Sddmm<TX, TG>& a, cudaStream_t stream) {
   constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / SddmmShape<TX, NH, Q>::G;
-  const int items = a.n_heavy_chunks + a.num_nodes;
+  const int items = a.heavy_cap + a.num_nodes;
   coo_sddmm_kernel<TX, TG, NH, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
                                     kWarpsPerBlock * 32, 0, stream>>>(a);
   return cudaGetLastError();
@@ -354,17 +355,18 @@ extern "C" {
 // aligned as launch_csr_spmm says; coef [E, heads] f32.  Forward (K11/K19):
 // perm null, nbr = senders, the receiver CSR.  Transposed (K11T/K19T): perm
 // = the sender CSR's perm, nbr = receivers, the sender CSR, x = the
-// cotangent.  The CSR is graph.EdgeCsr's (heavy_chunks and heavy_masked
-// included); arrivals holds n_heavy_chunks ints, 0 before the launch and
-// after it.  Writes out [V, H] f32; partial holds n_heavy_chunks * h floats.
+// cotangent.  The CSR is graph.EdgeCsr's (heavy_chunks, heavy_masked and
+// arrivals of heavy_cap entries, the live count heavy_count on the card);
+// arrivals are 0 before the launch and after it.  Writes out [V, H] f32;
+// partial holds heavy_cap * h floats.
 int coo_spmm_launch(const void* x, int dtype, const float* coef, int heads, const int* nbr,
                     const int* perm, const int* ptr, const int* chunk_ptr,
                     const int* chunk_row, const int* heavy_chunks, const uint8_t* heavy_masked,
-                    int n_heavy_chunks, int* arrivals, int num_nodes, int h, float* out,
-                    float* partial, cudaStream_t stream) {
+                    int heavy_cap, const int* heavy_count, int* arrivals, int num_nodes, int h,
+                    float* out, float* partial, cudaStream_t stream) {
   if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
-                    arrivals, perm, n_heavy_chunks, num_nodes};
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked, heavy_count,
+                    arrivals, perm, heavy_cap, num_nodes};
   if (dtype == 0) return (int)spmm_heads<float>(heads, x, coef, nbr, csr, h, out, partial, stream);
   if (dtype == 1)
     return (int)spmm_heads<__nv_bfloat16>(heads, x, coef, nbr, csr, h, out, partial, stream);
@@ -380,12 +382,12 @@ int coo_spmm_launch(const void* x, int dtype, const float* coef, int heads, cons
 int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype, int heads,
                      const int* senders, const int* ptr, const int* chunk_ptr,
                      const int* chunk_row, const int* heavy_chunks,
-                     const uint8_t* heavy_masked, int n_heavy_chunks, int num_nodes, int h,
-                     float* dcoef, cudaStream_t stream) {
-  if (num_nodes <= 0 || n_heavy_chunks < 0 || h <= 0 || h % 32)
+                     const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                     int num_nodes, int h, float* dcoef, cudaStream_t stream) {
+  if (num_nodes <= 0 || heavy_cap <= 0 || h <= 0 || h % 32)
     return (int)cudaErrorInvalidValue;
-  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
-                    nullptr, nullptr, n_heavy_chunks, num_nodes};
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked, heavy_count,
+                    nullptr, nullptr, heavy_cap, num_nodes};
   if (x_dtype == 0)
     return (int)sddmm_by_g<float>(g_dtype, heads, x, g, senders, csr, h, dcoef, stream);
   if (x_dtype == 1)
@@ -395,14 +397,15 @@ int coo_sddmm_launch(const void* x, int x_dtype, const void* g, int g_dtype, int
 
 // K21.  vals [planes, E] f32 in edge order; the receiver CSR as
 // coo_spmm_launch takes it (heavy_masked unread: every edge is walked).
-// Writes out [planes, V] f32; partial holds n_heavy_chunks * planes floats.
+// Writes out [planes, V] f32; partial holds heavy_cap * planes floats.
 int segment_max_launch(const float* vals, int num_edges, int planes, const int* ptr,
                        const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
-                       const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                       int num_nodes, float* out, float* partial, cudaStream_t stream) {
+                       const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                       int* arrivals, int num_nodes, float* out, float* partial,
+                       cudaStream_t stream) {
   RowReduce a;
   static_cast<CsrRows&>(a) = CsrRows{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
-                                     heavy_masked, arrivals, nullptr, n_heavy_chunks,
+                                     heavy_masked, heavy_count, arrivals, nullptr, heavy_cap,
                                      num_nodes};
   a.vals = vals;
   a.num_edges = num_edges;

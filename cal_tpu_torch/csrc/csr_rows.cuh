@@ -5,7 +5,12 @@
 // (a max), K1 / K13 (the sender degree), K5's and K10's sender sums and K6
 // (both CSRs in one grid) instantiate (both walks: light rows by row,
 // several a warp; heavy rows by chunk from a host-built list, each finished
-// by its last chunk to arrive).  Included by each source; it is not a build
+// by its last chunk to arrive).  The list has a capacity fixed by the
+// batch's edge budget (graph.heavy_capacity) and a live count in device
+// memory (EdgeCsr.heavy_count): a grid is sized for the capacity, a kernel
+// reads the count (live_heavy) and its items past the live ones return at
+// once, so a launch captured in a CUDA graph walks whichever batch its
+// buffers hold at each replay.  Included by each source; it is not a build
 // target of its own.
 #pragma once
 
@@ -147,8 +152,8 @@ __device__ __forceinline__ Chunk chunk_of(int c, const int* __restrict__ ptr,
 //    to 32 edges at once (32 / G a lane), and writes the row through the
 //    policy;
 //  - a heavy row keeps graph.edge_csr's split into <= 64 chunks; its chunks,
-//    listed on the host (EdgeCsr.heavy_chunks), are the first items of the
-//    launch, each writing one f32 partial; the row's last chunk to finish
+//    listed on the host (EdgeCsr.heavy_chunks, its live prefix), are the
+//    first items of the launch, each writing one f32 partial; the row's last chunk to finish
 //    (an int arrival counter) sums its partials in chunk order and writes
 //    the row, so every batch takes one launch and no pass visits all rows
 //    (the counters, EdgeCsr.arrivals, are 0 again when the launch ends);
@@ -187,7 +192,9 @@ __device__ __forceinline__ Chunk chunk_of(int c, const int* __restrict__ ptr,
 //       own lane would form all heads, for every slot): then the policy has
 //       Row row(int r, int head) (the state of the lane's head), bool
 //       edge(int e, const Row&, int& s) (liveness and neighbour only) and
-//       float coef(int e, int s, const Row&).
+//       float coef(int e, int s, const Row&);
+//   static constexpr int min_blocks(int Q)  the blocks an SM the walk's
+//       launch bounds ask for at H = 32 Q (above 1: csr_spmm_kernel_bounded).
 // With kHeads > 1 a row's h features are kHeads heads of h / kHeads, each
 // weighted by its own coefficient; a lane's F features lie in one head (a
 // narrower load where a head holds fewer than 16 bytes).
@@ -196,8 +203,9 @@ __device__ __forceinline__ Chunk chunk_of(int c, const int* __restrict__ ptr,
 // mostly from L2), the output once, a few bytes of metadata per edge.  The
 // walk's own limit is latency: a light row is a chain of dependent loads
 // (ptr, metadata, neighbour rows, the self term, store), so the design keeps
-// as many rows in flight as registers allow (32 / G a warp, no
-// __launch_bounds__: with one ptxas trades spills for occupancy here).
+// as many rows in flight as registers allow (32 / G a warp; launch bounds
+// only where a policy's min_blocks asks for more blocks an SM: in general
+// ptxas then trades spills for occupancy here).
 
 // The CSR of a walk: graph.EdgeCsr on the device.
 struct CsrRows {
@@ -206,10 +214,20 @@ struct CsrRows {
   const int* chunk_row;
   const int* heavy_chunks;      // the chunks of the rows of more than one, ascending
   const uint8_t* heavy_masked;  // per heavy chunk: all its edges masked out
+  const int* heavy_count;       // [1]: the live heavy chunks, a prefix of the list
   int* arrivals;                // per heavy chunk, 0 between launches: see csr_spmm_kernel
   const int* perm;              // null: edge i of the CSR is edge i; else edge perm[i]
-  int n_heavy_chunks, num_nodes;
+  int heavy_cap, num_nodes;     // heavy_cap: the list's capacity, >= the live count
 };
+
+// The live heavy chunks of the CSR, read from device memory at the kernel's
+// start (the host sizes the grid for heavy_cap).
+__device__ __forceinline__ int live_heavy(const CsrRows& a) { return __ldg(a.heavy_count); }
+
+// Whether the host-side arguments of a walk are sound.
+inline bool csr_ok(const CsrRows& a) {
+  return a.num_nodes > 0 && a.heavy_cap > 0 && a.heavy_count != nullptr;
+}
 
 template <typename P, typename = void>
 struct HeadsOf {
@@ -226,6 +244,17 @@ struct LaneBytesOf {
 template <typename P>
 struct LaneBytesOf<P, decltype(void(P::kLaneBytes))> {
   static constexpr int v = P::kLaneBytes;
+};
+// The blocks an SM that the walk asks of ptxas at H = 32 Q: a policy's
+// min_blocks(Q), or 1 (no launch bounds: ptxas keeps its own register
+// choice, which any bounds, even (256, 1), change).
+template <typename P, typename = void>
+struct MinBlocksOf {
+  static constexpr int at(int) { return 1; }
+};
+template <typename P>
+struct MinBlocksOf<P, decltype(void(P::min_blocks(1)))> {
+  static constexpr int at(int q) { return P::min_blocks(q); }
 };
 template <typename P, typename = void>
 struct LateCoefOf {
@@ -344,8 +373,8 @@ __device__ __forceinline__ void walk_edges(const P& a, int beg, int end,
   }
 }
 
-// A lane group's item on a walk over the CSR: items [0, n_heavy_chunks) are
-// the chunks on the heavy list (i0: the place of the row's first chunk
+// A lane group's item on a walk over the CSR: items [0, nh) are the nh live
+// chunks on the heavy list (i0: the place of the row's first chunk
 // there, n: the row's chunks), the others the rows (a heavy row's own item
 // idle).  The group walks CSR positions [beg, wend): all of a light row or
 // a heavy chunk, nothing else; with skip_masked, nothing of a heavy chunk of
@@ -355,10 +384,11 @@ struct CsrItem {
   bool heavy, light, masked;
 };
 
-__device__ __forceinline__ CsrItem csr_item(const CsrRows& a, int item, bool skip_masked) {
+__device__ __forceinline__ CsrItem csr_item(const CsrRows& a, int nh, int item,
+                                            bool skip_masked) {
   CsrItem t;
-  t.heavy = item < a.n_heavy_chunks;
-  t.r = item - a.n_heavy_chunks;
+  t.heavy = item < nh;
+  t.r = item - nh;
   t.beg = t.end = t.i0 = t.n = 0;
   t.masked = false;
   if (t.heavy) {
@@ -382,7 +412,7 @@ __device__ __forceinline__ CsrItem csr_item(const CsrRows& a, int item, bool ski
 // The end of an item whose group sums N values a row (K5's ddis_r, K10's
 // dti) from each lane's acc: the group's sums; a light row's written to
 // out[q][r] by the group's first lane; a heavy chunk's stored as its
-// partials ([n_heavy_chunks, N]), made visible and counted in arrivals[i0],
+// partials ([heavy_cap, N]), made visible and counted in arrivals[i0],
 // and the row's last chunk to arrive sums the row's partials in chunk order
 // (lane q value q), writes the row and sets the counter back to 0.  Every
 // lane of the warp calls it.
@@ -446,7 +476,7 @@ __device__ __forceinline__ void combine_row(const P& a, int r, int i0, int n, in
   a.template write_row<F>(r, gl, acc);
 }
 
-// One item a lane group, 32 / G a warp: items [0, n_heavy_chunks) are the
+// One item a lane group, 32 / G a warp: items [0, live_heavy) are the
 // chunks on the heavy list (partial i for item i), the others the rows (a
 // light row written through the policy, a heavy row's group idle).  Heavy
 // chunks come first, so their longer walks start first.  A heavy chunk's
@@ -456,17 +486,18 @@ __device__ __forceinline__ void combine_row(const P& a, int r, int i0, int n, in
 // arrivals[i0] back to 0 for the next launch.  So one launch writes every
 // row, and no float is summed atomically.
 template <typename P, int Q>
-__global__ void csr_spmm_kernel(const P a) {
+__device__ __forceinline__ void csr_spmm_items(const P& a) {
   constexpr int NB = P::kBranches;
   using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v, LaneBytesOf<P>::v>;
   constexpr int F = S::F, G = S::G;
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
-  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int nh = live_heavy(a);
+  if (first >= nh + a.num_nodes) return;
   const int gl = lane % G;
   const int item = first + lane / G;
   // a chunk of masked-out edges alone sums to +0 under a masked policy
-  const CsrItem it = csr_item(a, item, P::kMaskedDead);
+  const CsrItem it = csr_item(a, nh, item, P::kMaskedDead);
   float acc[NB][F] = {};
   walk_edges<P, F, G, kWindowEdges / G, (kInFlight > NB ? kInFlight / NB : 1)>(
       a, it.beg, it.wend,
@@ -491,12 +522,27 @@ __global__ void csr_spmm_kernel(const P a) {
 }
 
 template <typename P, int Q>
+__global__ void csr_spmm_kernel(const P a) {
+  csr_spmm_items<P, Q>(a);
+}
+
+// The same walk where the policy asks for MinBlocks blocks an SM.
+template <typename P, int Q, int MinBlocks>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, MinBlocks)
+csr_spmm_kernel_bounded(const P a) {
+  csr_spmm_items<P, Q>(a);
+}
+
+template <typename P, int Q>
 cudaError_t launch_csr_spmm_q(const P& a, cudaStream_t stream) {
   using S = LightShape<typename P::Elem, Q, HeadsOf<P>::v, LaneBytesOf<P>::v>;
   constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / S::G;
-  const int items = a.n_heavy_chunks + a.num_nodes;
-  csr_spmm_kernel<P, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock, kWarpsPerBlock * 32,
-                          0, stream>>>(a);
+  constexpr int kMinBlocks = MinBlocksOf<P>::at(Q);
+  const int blocks = (a.heavy_cap + a.num_nodes + kItemsPerBlock - 1) / kItemsPerBlock;
+  if constexpr (kMinBlocks > 1)
+    csr_spmm_kernel_bounded<P, Q, kMinBlocks><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a);
+  else
+    csr_spmm_kernel<P, Q><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -504,7 +550,7 @@ cudaError_t launch_csr_spmm_q(const P& a, cudaStream_t stream) {
 // load (LightShape: min(16, F * sizeof(Elem)) bytes).
 template <typename P>
 cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
-  if (a.num_nodes <= 0 || a.n_heavy_chunks < 0) return cudaErrorInvalidValue;
+  if (!csr_ok(a)) return cudaErrorInvalidValue;
   switch (a.h / 32) {
     case 1: return launch_csr_spmm_q<P, 1>(a, stream);
     case 2: return launch_csr_spmm_q<P, 2>(a, stream);
@@ -523,8 +569,8 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
 // the sender CSR of values stored edge-major, [E, planes]; K1 / K13 and K6:
 // sums of values formed from the edge's inputs, K6 over both CSRs in one
 // grid).  The values come from a policy R, a CsrRows with planes,
-// skip_masked, out ([planes, num_nodes]), partial ([n_heavy_chunks,
-// planes]) and
+// skip_masked, out ([planes, num_nodes]), partial ([heavy_cap, planes])
+// and
 //   template <typename Op, int G> void lane_values(int q0, int beg, int end,
 //       int row, int gl, float (&acc)[kPlaneBatch]) const
 // which folds into acc[j] (from Op::kInit) the values of planes q0 + j at
@@ -535,8 +581,8 @@ cudaError_t launch_csr_spmm(const P& a, cudaStream_t stream) {
 // and dis = deg^-1/2 in the row's write; without it out[q][r] = v).  The
 // unit is the walk's: a light row (one chunk, at most kGroup edges) is one
 // item of a group of kReduceGroup lanes (8 rows a warp, as most rows of a
-// real batch hold 1-4 edges); a heavy row's chunks (the host-built
-// EdgeCsr.heavy_chunks, the padded run at node V-1 included unless
+// real batch hold 1-4 edges); a heavy row's chunks (the live prefix of the
+// host-built EdgeCsr.heavy_chunks, the padded run at node V-1 included unless
 // skip_masked: a dead edge's value is then Op's identity) are the first
 // warps' items, a warp each, and the row's last chunk to arrive
 // (EdgeCsr.arrivals, 0 again when the launch ends) reduces the chunks'
@@ -580,7 +626,7 @@ struct RowReduce : CsrRows {
   bool skip_masked;    // a dead edge's value is Op's identity: a heavy chunk of
                        // masked-out edges alone (heavy_masked) is not read
   float* out;          // [planes, num_nodes]
-  float* partial;      // [n_heavy_chunks, planes]
+  float* partial;      // [heavy_cap, planes]
 
   template <typename Op, int G>
   __device__ __forceinline__ void lane_values(int q0, int beg, int end, int, int gl,
@@ -714,20 +760,22 @@ __host__ __device__ __forceinline__ int light_warps(const CsrRows& c) {
   return (c.num_nodes + 32 / kReduceGroup - 1) / (32 / kReduceGroup);
 }
 
-// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
-// take the rows, 32 / kReduceGroup a warp.
+// Warps [0, live_heavy) take the heavy chunks, a warp each; the next
+// light_warps take the rows, 32 / kReduceGroup a warp; the grid's others
+// (the heavy list's unused capacity) return.
 template <typename Op, typename R>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) csr_reduce_kernel(const R a) {
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp < a.n_heavy_chunks) reduce_heavy_chunk<Op>(a, warp, lane);
-  else reduce_light_rows<Op>(a, warp - a.n_heavy_chunks, lane);
+  const int nh = live_heavy(a);
+  if (warp < nh) reduce_heavy_chunk<Op>(a, warp, lane);
+  else reduce_light_rows<Op>(a, warp - nh, lane);
 }
 
 template <typename Op, typename R>
 cudaError_t launch_csr_reduce(const R& a, cudaStream_t stream) {
-  if (a.num_nodes <= 0 || a.n_heavy_chunks < 0 || a.planes <= 0) return cudaErrorInvalidValue;
-  const int warps = a.n_heavy_chunks + light_warps(a);
+  if (!csr_ok(a) || a.planes <= 0) return cudaErrorInvalidValue;
+  const int warps = a.heavy_cap + light_warps(a);
   csr_reduce_kernel<Op><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
                           stream>>>(a);
   return cudaGetLastError();

@@ -16,7 +16,8 @@
 //   pre_v  = ti[v,h] + tj[v,h] (self);  score = max(pre, 0.2 pre)
 //   m_v    = max of the row's scores and its self score; den_v = sum exp(score - m_v)
 //   alpha  = exp(score - m_v) * (1 / den_v)
-//   keep_e = philox4x32_10(counter e*heads + h, key (s0, s1))[0] >= thresh;
+//   keep_e = philox4x32_10(counter e*heads + h, key (s0, s1))[0] >= thresh, (s0, s1)
+//            the (low, high) words of the 64-bit seed, read from device memory;
 //   keep_v = the same at counter 2^40 + v*heads + h (a disjoint range)
 //   out_v  = scale (sum_e keep_e alpha_e xh_u + keep_v alpha_v xh_v)   (head h's columns)
 // The forward also writes m_v and 1 / den_v of the nodes with slots, which
@@ -175,7 +176,8 @@ struct FwdArgs {
   float* part_acc;   // [cap_h, hd] its sum of weight x xh_u (weights against its m)
   Index ix;
   int N, rows;
-  uint32_t s0, s1, thresh;
+  const uint32_t* seed;   // the 64-bit dropout seed on the card, low word first
+  uint32_t thresh;
   float scale;
 };
 
@@ -243,14 +245,14 @@ __device__ __forceinline__ void fwd_span(const FwdArgs& a, const Lane& L, int v,
     const uint64_t e = (uint64_t)(beg + L.gl + k * G);
 #pragma unroll
     for (int h = 0; h < HEADS; ++h)
-      p[k][h] = s[k] >= 0 && keep_at(e * HEADS + h, a.s0, a.s1, a.thresh)
+      p[k][h] = s[k] >= 0 && keep_at(e * HEADS + h, a.seed, a.thresh)
                     ? p[k][h] * inv[h] * wscale : 0.f;
   }
 
   float acc[F];
   if (light) {
     const float as = expf(pick(self, hl) - pick(m, hl)) * pick(inv, hl);
-    const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.s0, a.s1, a.thresh)
+    const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.seed, a.thresh)
                          ? as * a.scale : 0.f;
     uint32_t xw[W];
     load_words<T, F>(xh + (size_t)v * HD + L.gl * F, xw);
@@ -336,7 +338,7 @@ __device__ __forceinline__ void fwd_span(const FwdArgs& a, const Lane& L, int v,
   for (int h = 0; h < HEADS; ++h) inv[h] = 1.f / lanes_sum<G>(den[h], L.mask);
   const float Mh = pick(M, hl), ih = pick(inv, hl);
   const float as = expf(pick(self, hl) - Mh) * ih;
-  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.s0, a.s1, a.thresh)
+  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.seed, a.thresh)
                        ? as * a.scale : 0.f;
   uint32_t xw[W];
   load_words<T, F>(xh + (size_t)v * HD + L.gl * F, xw);
@@ -403,7 +405,7 @@ __global__ void __launch_bounds__(kThreads) edge_fwd_stream_kernel(const FwdArgs
   load_words<T, F>(static_cast<const T*>(a.xh) + (size_t)v * HD + L.gl * F, xw);
   if (rr.y > rr.x) return;
   const float as = expf(sc - sc);
-  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + h, a.s0, a.s1, a.thresh)
+  const float ws = keep_at(kSelfCounter + (uint64_t)v * HEADS + h, a.seed, a.thresh)
                        ? as * a.scale : 0.f;
   float o[F];
 #pragma unroll
@@ -466,16 +468,18 @@ extern "C" int edge_index_launch(const void* edge_flat, const void* keyt, const 
 // edge_flat [E] int32 sorted, B*N*N < 2^31; ix as edge_index_launch built
 // it; stat_m, stat_inv [B*N, heads] f32 (written for the nodes with slots);
 // part_ml [cap_h, 2 heads] and part_acc [cap_h, hd] f32 scratch.  thresh =
-// uint32(rate * 2^32), 0 for no dropout; (s1, s0) the 64-bit dropout seed;
+// uint32(rate * 2^32), 0 for no dropout; seed: the 64-bit dropout seed on
+// the card (8 bytes, the low word first; read only when thresh != 0);
 // scale = 1 / (1 - rate).  All contiguous, 16-byte aligned.
 extern "C" int edge_gat_fwd_launch(const void* ti, const void* tj, const void* xh,
                                    const void* edge_flat, void* const* ix, void* out,
                                    void* stat_m, void* stat_inv, void* part_ml, void* part_acc,
-                                   int B, int N, int heads, int hd, int dtype, uint32_t s0,
-                                   uint32_t s1, uint32_t thresh, float scale, void* stream) {
+                                   int B, int N, int heads, int hd, int dtype, const void* seed,
+                                   uint32_t thresh, float scale, void* stream) {
   const long long rows = (long long)B * N;
   if (rows == 0) return 0;
-  if (bad_shape(heads, hd) || rows * N >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(heads, hd) || rows * N >= (1ll << 31) || (thresh != 0 && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.ti = static_cast<const float*>(ti);
   a.tj = static_cast<const float*>(tj);
@@ -489,8 +493,7 @@ extern "C" int edge_gat_fwd_launch(const void* ti, const void* tj, const void* x
   a.ix = index_from(ix);
   a.N = N;
   a.rows = (int)rows;
-  a.s0 = s0;
-  a.s1 = s1;
+  a.seed = static_cast<const uint32_t*>(seed);
   a.thresh = thresh;
   a.scale = scale;
   return dispatch<Fwd>(dtype, heads, hd, a, static_cast<cudaStream_t>(stream));

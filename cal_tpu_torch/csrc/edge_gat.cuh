@@ -46,10 +46,12 @@ __device__ __forceinline__ uint32_t philox_bits(uint64_t ctr, uint32_t k0, uint3
   return c0;
 }
 
-// keep bit of one (slot, head) or (node, head) counter; thresh 0 keeps all
-__device__ __forceinline__ bool keep_at(uint64_t ctr, uint32_t s0, uint32_t s1,
-                                        uint32_t thresh) {
-  return thresh == 0 || philox_bits(ctr, s0, s1) >= thresh;
+// keep bit of one (slot, head) or (node, head) counter under the 64-bit
+// seed at ``seed`` in device memory (seed[0] its low word, the key's k0),
+// read here, so a captured launch (a CUDA graph) takes the seed that the
+// host wrote there before each replay; thresh 0 keeps all and reads nothing
+__device__ __forceinline__ bool keep_at(uint64_t ctr, const uint32_t* seed, uint32_t thresh) {
+  return thresh == 0 || philox_bits(ctr, __ldg(seed), __ldg(seed + 1)) >= thresh;
 }
 
 // The columns of a node at heads * d = HD: F a lane (16 bytes of T twice, or

@@ -75,7 +75,8 @@ struct BwdArgs {
   float* part_x;   // [cap_h, hd] a heavy sender chunk's sum of weight x g
   Index ix;
   int N, rows;
-  uint32_t s0, s1, thresh;
+  const uint32_t* seed;   // the 64-bit dropout seed on the card, low word first
+  uint32_t thresh;
   float scale;
 };
 
@@ -103,7 +104,7 @@ __device__ __forceinline__ void recv_span(const BwdArgs& a, const Lane& L, int v
   for (int i = 0; i < F; ++i) q = fmaf(word_elem<T>(gw, i), word_elem<T>(xw, i), q);
   q = lanes_sum<LPH>(q, L.mask);
   const float as = expf(leaky(sp) - pick(m, hl)) * pick(inv, hl);
-  const bool ks = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.s0, a.s1, a.thresh);
+  const bool ks = keep_at(kSelfCounter + (uint64_t)v * HEADS + hl, a.seed, a.thresh);
   const float das = ks ? a.scale * q : 0.f;
 
   // this lane's slots beg + gl + k G: sender (-1: none, or a self loop),
@@ -135,7 +136,7 @@ __device__ __forceinline__ void recv_span(const BwdArgs& a, const Lane& L, int v
       al[k][h] = s[k] >= 0 ? expf(leaky(pre) - m[h]) * inv[h] : 0.f;
       da[k][h] = 0.f;
       if (pre >= 0.f) sg[k] |= 1u << h;
-      if (s[k] >= 0 && keep_at(e * HEADS + h, a.s0, a.s1, a.thresh)) kb[k] |= 1u << h;
+      if (s[k] >= 0 && keep_at(e * HEADS + h, a.seed, a.thresh)) kb[k] |= 1u << h;
     }
   }
   // da per slot: the slots in order, slot k G + o owned by lane o
@@ -359,7 +360,7 @@ __device__ __forceinline__ void send_span(const BwdArgs& a, const Lane& L, int u
     const float as = expf(sc - sc);
     const float ds = as * (0.f - as * 0.f);
     dsu = sp >= 0.f ? ds : kNegSlope * ds;
-    wsu = keep_at(kSelfCounter + (uint64_t)at, a.s0, a.s1, a.thresh) ? a.scale * as : 0.f;
+    wsu = keep_at(kSelfCounter + (uint64_t)at, a.seed, a.thresh) ? a.scale * as : 0.f;
   }
   // dtj: the dpre of this lane's places, summed over the group
   float ds[HEADS];
@@ -494,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) edge_bwd_stream_kernel(const BwdArgs
   const float as = expf(sc - sc);
   const float ds = as * (0.f - as * 0.f);
   const float dp = sp >= 0.f ? ds : kNegSlope * ds;
-  const float ws = keep_at(kSelfCounter + (uint64_t)at, a.s0, a.s1, a.thresh) ? a.scale * as
+  const float ws = keep_at(kSelfCounter + (uint64_t)at, a.seed, a.thresh) ? a.scale * as
                                                                                 : 0.f;
   float o[F];
 #pragma unroll
@@ -540,11 +541,12 @@ extern "C" int edge_gat_bwd_launch(const void* ti, const void* tj, const void* x
                                    const void* g, const void* edge_flat, void* const* ix,
                                    const void* stat_m, const void* stat_inv, void* scratch,
                                    void* dti, void* dtj, void* dxh, int E, int cap_h, int B,
-                                   int N, int heads, int hd, int dtype, uint32_t s0,
-                                   uint32_t s1, uint32_t thresh, float scale, void* stream) {
+                                   int N, int heads, int hd, int dtype, const void* seed,
+                                   uint32_t thresh, float scale, void* stream) {
   const long long rows = (long long)B * N;
   if (rows == 0) return 0;
-  if (bad_shape(heads, hd) || rows * N >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(heads, hd) || rows * N >= (1ll << 31) || (thresh != 0 && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.ti = static_cast<const float*>(ti);
   a.tj = static_cast<const float*>(tj);
@@ -571,8 +573,7 @@ extern "C" int edge_gat_bwd_launch(const void* ti, const void* tj, const void* x
   a.ix = index_from(ix);
   a.N = N;
   a.rows = (int)rows;
-  a.s0 = s0;
-  a.s1 = s1;
+  a.seed = static_cast<const uint32_t*>(seed);
   a.thresh = thresh;
   a.scale = scale;
   return dispatch<Bwd>(dtype, heads, hd, a, static_cast<cudaStream_t>(stream));

@@ -127,22 +127,40 @@ constexpr int kChainInFlight = 2;   // neighbour rows K10 loads before their pro
 
 __device__ __forceinline__ float leaky(float p) { return p >= 0.0f ? p : p * kNegSlope; }
 
-// Attention dropout of edge (or node) id ``id`` (cal_tpu/ops/gat.py _mix32 /
-// _keep_mask and pallas_spmm.py _hash_keep): s1 already holds the salt word.
+// Attention dropout of edge id ``id`` (cal_tpu/ops/gat.py _mix32 /
+// _keep_mask and pallas_spmm.py _hash_keep).  The 64-bit seed lies in device
+// memory (seed[0] its low word, seed[1] its high word: flash_gat.seed_buffer),
+// read by the kernel, so a captured launch (a CUDA graph) takes the seed the
+// host wrote there before each replay.
 struct Dropout {
-  uint32_t s0, s1, thresh;
+  const uint32_t* seed;
+  uint32_t thresh;
   float keep_p;   // 1 - rate
   int on;
 };
 
-__device__ __forceinline__ bool keep_bit(uint32_t id, const Dropout& d) {
-  uint32_t x = id * 0x9E3779B9u + d.s0;
+constexpr uint32_t kSalt = 0x632BE59Bu;   // = ops/gat.py _SALT
+
+// The hash's two words: the seed's low word and its high word salted by
+// stream ``salt`` (ops/gat.py salted_word; 0: the edges, 1: the self loops,
+// which ops/gat_sparse.py draws); (0, 0) with dropout off, reading nothing.
+struct KeepWords {
+  uint32_t s0, s1;
+};
+
+__device__ __forceinline__ KeepWords keep_words(const Dropout& d, uint32_t salt) {
+  if (!d.on) return KeepWords{0u, 0u};
+  return KeepWords{__ldg(d.seed), __ldg(d.seed + 1) + kSalt * salt};
+}
+
+__device__ __forceinline__ bool keep_bit(uint32_t id, KeepWords w, uint32_t thresh) {
+  uint32_t x = id * 0x9E3779B9u + w.s0;
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
-  x = x ^ (x >> 13) ^ d.s1;
+  x = x ^ (x >> 13) ^ w.s1;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
-  return x < d.thresh;
+  return x < thresh;
 }
 
 // The sender halves tj[h][s] of node s, every head, from the [NH, V] planes.
@@ -162,7 +180,7 @@ struct StatsArgs : CsrRows {
   const uint8_t* edge_mask;
   float* m;                   // [NH, V]
   float* den;                 // [NH, V]
-  float* partial;             // [n_heavy_chunks, 2 NH]: a heavy chunk's (m_c, l_c) per head
+  float* partial;             // [heavy_cap, 2 NH]: a heavy chunk's (m_c, l_c) per head
 };
 
 // One score into a running (max, sum of exp(score - max)) pair.
@@ -274,19 +292,21 @@ __device__ __forceinline__ void stats_heavy_chunk(const StatsArgs& a, int item, 
   if (lane == 0) a.arrivals[i0] = 0;
 }
 
-// Warps [0, n_heavy_chunks) take the heavy chunks, a warp each; the others
-// take the rows, 32 / kStatsGroup a warp (a heavy row's group idles).
+// Warps [0, live_heavy) take the heavy chunks, a warp each; the others take
+// the rows, 32 / kStatsGroup a warp (a heavy row's group idles), and the
+// grid's last (the heavy list's unused capacity) return.
 template <int NH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kStatsBlocks)
 gat_row_stats_kernel(const StatsArgs a) {
   constexpr int G = kStatsGroup, K = kGroup / G;   // a lane's edges of a light row
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp < a.n_heavy_chunks) {
+  const int nh = live_heavy(a);
+  if (warp < nh) {
     stats_heavy_chunk<NH>(a, warp, lane);
     return;
   }
-  const int first = (warp - a.n_heavy_chunks) * (32 / G);
+  const int first = (warp - nh) * (32 / G);
   if (first >= a.num_nodes) return;
   const int r = first + lane / G, gl = lane % G;
   const size_t V = a.num_nodes;
@@ -348,7 +368,7 @@ gat_row_stats_kernel(const StatsArgs a) {
 
 template <int NH>
 cudaError_t launch_row_stats(const StatsArgs& a, cudaStream_t stream) {
-  const int warps = a.n_heavy_chunks + (a.num_nodes + 32 / kStatsGroup - 1) / (32 / kStatsGroup);
+  const int warps = a.heavy_cap + (a.num_nodes + 32 / kStatsGroup - 1) / (32 / kStatsGroup);
   gat_row_stats_kernel<NH><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32,
                              0, stream>>>(a);
   return cudaGetLastError();
@@ -372,6 +392,12 @@ struct GatSpmm : CsrRows {
   static constexpr bool kMaskedDead = true;
   static constexpr bool kLateCoef = true;
   static constexpr int kLaneBytes = 32;
+  // At H = 128 (Q 4) the walk keeps the blocks an SM of its first design:
+  // reading the heavy count and the seed on the card took K9 from 80 to 88
+  // registers (3 blocks an SM to 2) and K9T from 64 to 68 (4 to 3), and
+  // both ran 10-19% slower cold; bounded, neither spills there (PERF.md
+  // section 6).  Other widths keep ptxas' own choice.
+  static constexpr int min_blocks(int q) { return q == 4 ? (TRANS ? 4 : 3) : 1; }
   const T* x[1];            // [V, H]: xh (K9) or w (K9T)
   const float* tj;          // [NH, V]
   const float* ti;
@@ -379,7 +405,7 @@ struct GatSpmm : CsrRows {
   const int* nbr;           // senders (receiver CSR) or receivers (sender CSR)
   const uint8_t* edge_mask;
   float* out;               // [V, H]
-  float* partial;           // [n_heavy_chunks, H]
+  float* partial;           // [heavy_cap, H]
   int h;
   Dropout drop;
 
@@ -401,14 +427,17 @@ struct GatSpmm : CsrRows {
   }
 
   // the neighbour's side: tj at the sender (K9) or ti and m at the receiver
-  // (K9T); the parent design's float operations, so the same bits
+  // (K9T); the parent design's float operations, so the same bits.  The
+  // keep hash's words are read here, edge by edge (L1 hits).
   __device__ __forceinline__ float coef(int e, int nb, const Row& row) const {
     const size_t V = num_nodes;
     const float pre = TRANS ? row.rt + __ldg(ti + row.head * V + nb)
                             : __ldg(tj + row.head * V + nb) + row.rt;
     const float mr = TRANS ? __ldg(m + row.head * V + nb) : row.rm;
     float w = expf(leaky(pre) - mr);
-    if (drop.on) w = keep_bit((uint32_t)e * NH + row.head, drop) ? w / drop.keep_p : 0.0f;
+    if (drop.on)
+      w = keep_bit((uint32_t)e * NH + row.head, keep_words(drop, 0), drop.thresh)
+              ? w / drop.keep_p : 0.0f;
     return w;
   }
 
@@ -432,7 +461,7 @@ struct GatChainArgs : CsrRows {
   const uint8_t* edge_mask;
   float* edge_out;            // each edge's dpre: [E, NH]
   float* dti;                 // [NH, V]
-  float* partial;             // [n_heavy_chunks, NH]: a heavy chunk's dti sums
+  float* partial;             // [heavy_cap, NH]: a heavy chunk's dti sums
   int h;
   Dropout drop;
 };
@@ -444,7 +473,7 @@ template <typename T, int Q, int NH>
 using ChainShape = LightShape<T, Q, NH, 32>;
 
 // The receiver pass: one item a lane group, 32 / G a warp, as
-// csr_spmm_kernel (items [0, n_heavy_chunks) the heavy chunks, partial i for
+// csr_spmm_kernel (items [0, live_heavy) the heavy chunks, partial i for
 // item i; the others the rows, a heavy row's group idle).
 template <typename T, int NH, int Q>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kChainBlocks)
@@ -456,18 +485,20 @@ gat_chain_kernel(const GatChainArgs<T> a) {
   constexpr int kWords = F * sizeof(T) / 4;
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
-  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int nh = live_heavy(a);
+  if (first >= nh + a.num_nodes) return;
   const int gl = lane % G, base = lane - gl;
   const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
   const int item = first + lane / G;
   // a chunk of masked-out edges alone is not walked: its edges' dpre are 0
-  const CsrItem it = csr_item(a, item, true);
+  const CsrItem it = csr_item(a, nh, item, true);
   const int r = it.r, wend = it.wend;
   const size_t V = a.num_nodes;
   const int rr = min(r, a.num_nodes - 1);
   float wr[F];
   load_vec<float, F>(a.w + (size_t)rr * a.h + gl * F, wr);
   const float inv_keep = 1.0f / a.drop.keep_p;
+  const KeepWords kw = keep_words(a.drop, 0);   // the edges' stream
   float ti_r[NH], m_r[NH], dd_r[NH], acc[NH];
 #pragma unroll
   for (int hd = 0; hd < NH; ++hd) {
@@ -542,7 +573,8 @@ gat_chain_kernel(const GatChainArgs<T> a) {
           const float pre = tjs[k][hd] + ti_r[hd];
           const float q = expf(leaky(pre) - m_r[hd]);
           float d = dqm[k][hd];
-          if (a.drop.on) d = keep_bit((uint32_t)i * NH + hd, a.drop) ? d * inv_keep : 0.0f;
+          if (a.drop.on)
+            d = keep_bit((uint32_t)i * NH + hd, kw, a.drop.thresh) ? d * inv_keep : 0.0f;
           dp[hd] = q * (d + dd_r[hd]) * (pre > 0.0f ? 1.0f : kNegSlope);
           acc[hd] += dp[hd];
         }
@@ -561,7 +593,7 @@ template <typename T, int NH, int Q>
 cudaError_t launch_chain(const GatChainArgs<T>& a, cudaStream_t stream) {
   using S = ChainShape<T, Q, NH>;
   constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / S::G;
-  const int items = a.n_heavy_chunks + a.num_nodes;
+  const int items = a.heavy_cap + a.num_nodes;
   gat_chain_kernel<T, NH, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
                                kWarpsPerBlock * 32, 0, stream>>>(a);
   return cudaGetLastError();
@@ -596,10 +628,9 @@ bool valid_width(int heads, int h) {
   return valid_heads(heads) && h > 0 && h % 32 == 0 && valid_heads(h / 32);
 }
 
-Dropout make_dropout(unsigned s0, unsigned s1, unsigned thresh, float keep_p, int on) {
+Dropout make_dropout(const void* seed, unsigned thresh, float keep_p, int on) {
   Dropout d;
-  d.s0 = s0;
-  d.s1 = s1;
+  d.seed = static_cast<const uint32_t*>(seed);
   d.thresh = thresh;
   d.keep_p = keep_p;
   d.on = on;
@@ -648,21 +679,21 @@ cudaError_t gat_chain_typed(GatChainArgs<T>& a, const void* x, int heads, cudaSt
 extern "C" {
 
 // K8.  tj, ti [heads, V] f32; the receiver CSR (graph.EdgeCsr: ptr,
-// chunk_ptr, chunk_row, heavy_chunks, heavy_masked, their count, arrivals:
-// n_heavy_chunks ints, 0 before the launch and after it) and its senders.
-// Writes m and den [heads, V] f32; partial holds 2 * heads * n_heavy_chunks
-// floats.  One launch.
+// chunk_ptr, chunk_row, heavy_chunks and heavy_masked of heavy_cap entries,
+// heavy_count [1] on the card, their live count, and arrivals: heavy_cap
+// ints, 0 before the launch and after it) and its senders.  Writes m and den
+// [heads, V] f32; partial holds 2 * heads * heavy_cap floats.  One launch.
 int gat_row_stats_launch(const float* tj, const float* ti, int heads, const int* senders,
                          const uint8_t* edge_mask, const int* ptr, const int* chunk_ptr,
                          const int* chunk_row, const int* heavy_chunks,
-                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                         int num_nodes, float* m, float* den, float* partial,
+                         const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                         int* arrivals, int num_nodes, float* m, float* den, float* partial,
                          cudaStream_t stream) {
-  if (num_nodes <= 0 || n_heavy_chunks < 0 || !valid_heads(heads))
+  if (num_nodes <= 0 || heavy_cap <= 0 || !valid_heads(heads))
     return (int)cudaErrorInvalidValue;
   StatsArgs a;
   static_cast<CsrRows&>(a) = CsrRows{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
-                                     heavy_masked, arrivals, nullptr, n_heavy_chunks,
+                                     heavy_masked, heavy_count, arrivals, nullptr, heavy_cap,
                                      num_nodes};
   a.tj = tj;
   a.ti = ti;
@@ -682,26 +713,29 @@ int gat_row_stats_launch(const float* tj, const float* ti, int heads, const int*
 // K9 / K9T.  dtype: 0 = float32, 1 = bfloat16 (x).  Forward (K9): perm
 // null, nbr = senders, the receiver CSR.  Transposed (K9T): perm = the sender
 // CSR's perm, nbr = receivers, the sender CSR.  The CSR as
-// gat_row_stats_launch takes it (its heavy chunks, their masks, their count
-// and its arrival counters).  tj, ti, m [heads, V] f32 in the forward's
-// roles either way.  Dropout (drop != 0): keep an edge's head h when the hash of e *
-// heads + h under (s0, s1) is below thresh, and divide its weight by keep_p.
-// Writes out [V, h] f32; partial holds h * n_heavy_chunks floats.  h % 32 ==
-// 0, h / 32 and heads in {1, 2, 4, 8}; x rows aligned to a light lane's load
-// (csr_rows.cuh LightShape).  One launch.
+// gat_row_stats_launch takes it (its heavy chunks, their masks, their
+// capacity and live count and its arrival counters).  tj, ti, m [heads, V]
+// f32 in the forward's roles either way.  Dropout (drop != 0): keep an
+// edge's head h when the hash of e * heads + h under the seed's low word and
+// its high word (salt 0) is below thresh, and divide its weight by keep_p;
+// seed: the 64-bit seed on the card (8 bytes, the low word first), read by
+// the kernel.  Writes out [V, h] f32; partial holds h * heavy_cap floats.
+// h % 32 == 0, h / 32 and heads in {1, 2, 4, 8}; x rows aligned to a light
+// lane's load (csr_rows.cuh LightShape).  One launch.
 int gat_coef_spmm_launch(const void* x, int dtype, const float* tj, const float* ti,
                          const float* m, int heads, const int* nbr, const int* perm,
                          const uint8_t* edge_mask, const int* ptr, const int* chunk_ptr,
                          const int* chunk_row, const int* heavy_chunks,
-                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                         int num_nodes, int h, unsigned s0, unsigned s1, unsigned thresh,
-                         float keep_p, int drop, float* out, float* partial,
+                         const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                         int* arrivals, int num_nodes, int h, const void* seed,
+                         unsigned thresh, float keep_p, int drop, float* out, float* partial,
                          cudaStream_t stream) {
-  if (num_nodes <= 0 || n_heavy_chunks < 0 || !valid_width(heads, h))
+  if (num_nodes <= 0 || heavy_cap <= 0 || !valid_width(heads, h) ||
+      (drop != 0 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
-  const CsrRows csr{ptr,      chunk_ptr, chunk_row, heavy_chunks,   heavy_masked,
-                    arrivals, perm,      n_heavy_chunks, num_nodes};
-  const Dropout d = make_dropout(s0, s1, thresh, keep_p, drop);
+  const CsrRows csr{ptr,      chunk_ptr, chunk_row, heavy_chunks,   heavy_masked, heavy_count,
+                    arrivals, perm,      heavy_cap, num_nodes};
+  const Dropout d = make_dropout(seed, thresh, keep_p, drop);
   auto go = [&](auto bf16, auto trans) {
     using T = std::conditional_t<decltype(bf16)::value, __nv_bfloat16, float>;
     return (int)gat_spmm_typed<T, decltype(trans)::value>(x, tj, ti, m, heads, nbr, edge_mask,
@@ -717,29 +751,30 @@ int gat_coef_spmm_launch(const void* x, int dtype, const float* tj, const float*
 
 // K10.  dtype: 0 = float32, 1 = bfloat16 (x); w [V, h] f32; tj, ti, m, dD
 // [heads, V] f32.  The receiver CSR (as gat_row_stats_launch) for the
-// per-edge pass, the sender CSR (the same seven arguments, its own counters)
+// per-edge pass, the sender CSR (the same eight arguments, its own counters)
 // and its perm for the dtj sums.  Writes edge_out (scratch: [E, heads] f32),
-// dtj and dti [heads, V] f32; partial holds heads * max(n_heavy_chunks,
-// s_heavy_chunks) floats.  Dropout as K9.  h % 32 == 0, h / 32 and heads in
+// dtj and dti [heads, V] f32; partial holds heads * max(heavy_cap,
+// s_heavy_cap) floats.  Dropout as K9.  h % 32 == 0, h / 32 and heads in
 // {1, 2, 4, 8}; x rows aligned to a light lane's load (csr_rows.cuh
 // LightShape), w rows and edge_out to 16 bytes.  Two launches.
 int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float* tj,
                            const float* ti, const float* m, const float* dD, int heads,
                            const int* senders, const uint8_t* edge_mask, const int* ptr,
                            const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
-                           const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                           const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                           const int* sheavy_chunks, const uint8_t* sheavy_masked,
-                           int s_heavy_chunks, int* sarrivals, const int* sperm, int num_nodes,
-                           int num_edges, int h, unsigned s0, unsigned s1, unsigned thresh,
-                           float keep_p, int drop, float* edge_out, float* dtj, float* dti,
-                           float* partial, cudaStream_t stream) {
-  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0 ||
-      !valid_width(heads, h))
+                           const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                           int* arrivals, const int* sptr, const int* schunk_ptr,
+                           const int* schunk_row, const int* sheavy_chunks,
+                           const uint8_t* sheavy_masked, int s_heavy_cap,
+                           const int* s_heavy_count, int* sarrivals, const int* sperm,
+                           int num_nodes, int num_edges, int h, const void* seed,
+                           unsigned thresh, float keep_p, int drop, float* edge_out, float* dtj,
+                           float* dti, float* partial, cudaStream_t stream) {
+  if (num_nodes <= 0 || num_edges <= 0 || heavy_cap <= 0 || s_heavy_cap <= 0 ||
+      !valid_width(heads, h) || (drop != 0 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
-                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
+                     heavy_masked, heavy_count, arrivals, nullptr, heavy_cap, num_nodes};
   auto fill = [&](auto& a) {
     static_cast<CsrRows&>(a) = recv;
     a.w = w;
@@ -753,7 +788,7 @@ int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float
     a.dti = dti;
     a.partial = partial;
     a.h = h;
-    a.drop = make_dropout(s0, s1, thresh, keep_p, drop);
+    a.drop = make_dropout(seed, thresh, keep_p, drop);
   };
   if (dtype == 1) {
     GatChainArgs<__nv_bfloat16> a;
@@ -767,7 +802,7 @@ int gat_sddmm_chain_launch(const void* x, int dtype, const float* w, const float
   if (err != cudaSuccess) return (int)err;
   RowReduce rd;
   static_cast<CsrRows&>(rd) = CsrRows{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
-                                      sheavy_masked, sarrivals, sperm, s_heavy_chunks,
+                                      sheavy_masked, s_heavy_count, sarrivals, sperm, s_heavy_cap,
                                       num_nodes};
   rd.vals = edge_out;
   rd.num_edges = num_edges;

@@ -201,7 +201,7 @@ struct DegreeIo {
   const uint8_t* edge_mask;
   float* out;           // [NB, V]: the sums, or deg = 1 + the sums when dis is given
   float* dis;           // null, or [NB, V]
-  float* partial;       // [n_heavy_chunks, NB]
+  float* partial;       // [heavy_cap, NB]
 };
 
 constexpr int kDegreeBatch = 4;   // edges a lane of K1 / K13 loads together
@@ -301,7 +301,7 @@ struct GcnSpmm : CsrRows {
   const uint8_t* edge_mask;
   const float* deg;   // [NB, V]
   const float* dis;   // [NB, V]
-  float* partial;     // [n_heavy_chunks, NB, H]
+  float* partial;     // [heavy_cap, NB, H]
   int h;
 
   struct Row {
@@ -432,7 +432,7 @@ struct ChainHead : CsrRows {   // the receiver CSR
   float* vec;         // [NB + 1, E]
   float* terms;       // [E, NB]: each edge's ddis_s terms, for the sender sums
   float* ddis_r;      // [NB, V]
-  float* partial;     // [n_heavy_chunks, NB]: a heavy chunk's ddis_r sums
+  float* partial;     // [heavy_cap, NB]: a heavy chunk's ddis_r sums
   int num_edges, h;
 };
 
@@ -443,7 +443,7 @@ template <typename T, int Q>
 using HeadShape = LightShape<T, Q, 1, 32>;
 
 // One item a lane group, 32 / G a warp, as csr_spmm_kernel (items [0,
-// n_heavy_chunks) the heavy chunks, partial i for item i; the others the
+// live_heavy) the heavy chunks, partial i for item i; the others the
 // rows, a heavy row's group idle).  Every CSR position of the item gets its
 // vec and terms, zeros where the edge is dead.
 template <typename T, typename L, int NB, bool NEG, int Q>
@@ -454,12 +454,13 @@ chain_head_kernel(const ChainHead<T, L, NB> a) {
   constexpr int kWords = F * sizeof(T) / 4;
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
-  if (first >= a.n_heavy_chunks + a.num_nodes) return;
+  const int nh = live_heavy(a);
+  if (first >= nh + a.num_nodes) return;
   const int gl = lane % G, base = lane - gl;
   const unsigned gbits = G == 32 ? kFull : (1u << G) - 1u;
   const int item = first + lane / G;
   // a chunk of masked-out edges alone is not walked: its outputs are zeros
-  const CsrItem it = csr_item(a, item, true);
+  const CsrItem it = csr_item(a, nh, item, true);
   const int r = it.r, wend = it.wend;
   const size_t V = a.num_nodes, E = a.num_edges;
   const int rr = min(r, a.num_nodes - 1);
@@ -562,7 +563,7 @@ chain_head_kernel(const ChainHead<T, L, NB> a) {
 template <typename T, typename L, int NB, bool NEG, int Q>
 cudaError_t launch_head_q(const ChainHead<T, L, NB>& a, cudaStream_t stream) {
   constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / HeadShape<T, Q>::G;
-  const int items = a.n_heavy_chunks + a.num_nodes;
+  const int items = a.heavy_cap + a.num_nodes;
   chain_head_kernel<T, L, NB, NEG, Q><<<(items + kItemsPerBlock - 1) / kItemsPerBlock,
                                         kWarpsPerBlock * 32, 0, stream>>>(a);
   return cudaGetLastError();
@@ -642,7 +643,7 @@ struct DpreSum : CsrRows {
   const float* ddeg;     // [NB, V]
   const int* senders;
   float* out;            // [V]
-  float* partial;        // [n_heavy_chunks]
+  float* partial;        // [heavy_cap]
   int num_edges;
 
   template <typename Op, int G>
@@ -680,13 +681,14 @@ struct DpreSum : CsrRows {
 
 // One grid over both CSRs: the heavy chunks of the receiver CSR, then of the
 // sender CSR (a warp each, finished by their own CSR's arrivals), then the
-// light rows of each, 32 / kReduceGroup a warp.
+// light rows of each, 32 / kReduceGroup a warp; the grid's last warps (the
+// heavy lists' unused capacity) return.
 template <int NB, bool NEG>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 chain_tail_kernel(const DpreSum<NB, NEG, false> rv, const DpreSum<NB, NEG, true> sd) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int hr = rv.n_heavy_chunks, hs = sd.n_heavy_chunks, lr = light_warps(rv);
+  const int hr = live_heavy(rv), hs = live_heavy(sd), lr = light_warps(rv);
   if (w < hr) reduce_heavy_chunk<SumOp>(rv, w, lane);
   else if (w < hr + hs) reduce_heavy_chunk<SumOp>(sd, w - hr, lane);
   else if (w < hr + hs + lr) reduce_light_rows<SumOp>(rv, w - hr - hs, lane);
@@ -708,9 +710,8 @@ cudaError_t launch_tail(const float* vec, const float* ddeg, const int* senders,
   rv.out = ddst;
   sd.out = dsrc;
   rv.partial = partial;
-  sd.partial = partial + recv.n_heavy_chunks;
-  const int warps = recv.n_heavy_chunks + send.n_heavy_chunks + light_warps(recv) +
-                    light_warps(send);
+  sd.partial = partial + recv.heavy_cap;
+  const int warps = recv.heavy_cap + send.heavy_cap + light_warps(recv) + light_warps(send);
   chain_tail_kernel<NB, NEG><<<(warps + kWarpsPerBlock - 1) / kWarpsPerBlock,
                                kWarpsPerBlock * 32, 0, stream>>>(rv, sd);
   return cudaGetLastError();
@@ -726,19 +727,19 @@ extern "C" {
 // so that it counts live edges).  dis null: deg [branches, V] gets the
 // sender sums; dis given: deg = 1 + the sums and dis = deg^-1/2, [branches,
 // V] each.  The sender CSR (graph.EdgeCsr: perm, ptr, chunk_ptr, chunk_row,
-// heavy_chunks, heavy_masked, their count, arrivals: n_heavy_chunks ints, 0
-// before the launch and after it); partial holds branches * n_heavy_chunks
-// floats.
+// heavy_chunks and heavy_masked of heavy_cap entries, heavy_count [1] on the
+// card, their live count, and arrivals: heavy_cap ints, 0 before the launch
+// and after it); partial holds branches * heavy_cap floats.
 int sender_degree_launch(int branches, int negate, const void* src, const void* dst, int dtype,
                          const int* receivers, const uint8_t* edge_mask, const int* perm,
                          const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                         const int* heavy_chunks, const uint8_t* heavy_masked,
-                         int n_heavy_chunks, int* arrivals, int num_nodes, float* deg,
+                         const int* heavy_chunks, const uint8_t* heavy_masked, int heavy_cap,
+                         const int* heavy_count, int* arrivals, int num_nodes, float* deg,
                          float* dis, float* partial, cudaStream_t stream) {
-  if (num_nodes <= 0 || n_heavy_chunks < 0 || (src == nullptr) != (dst == nullptr))
+  if (num_nodes <= 0 || heavy_cap <= 0 || (src == nullptr) != (dst == nullptr))
     return (int)cudaErrorInvalidValue;
-  const CsrRows send{ptr,      chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
-                     arrivals, perm,      n_heavy_chunks, num_nodes};
+  const CsrRows send{ptr,      chunk_ptr, chunk_row, heavy_chunks, heavy_masked, heavy_count,
+                     arrivals, perm,      heavy_cap, num_nodes};
   if (dtype == 1)
     return (int)degree_typed<__nv_bfloat16>(branches, negate != 0, src, dst, receivers,
                                             edge_mask, send, deg, dis, partial, stream);
@@ -753,19 +754,18 @@ int sender_degree_launch(int branches, int negate, const void* src, const void* 
 // as launch_csr_spmm says.  Forward (K2/K3): perm null, nbr = senders, the
 // receiver CSR.  Transposed (K2T/K3T): perm = the sender CSR's perm, nbr =
 // receivers, the sender CSR, and the logits swapped (src <- dst, dst <-
-// src).  The CSR is graph.EdgeCsr's (heavy_chunks and heavy_masked
-// included); arrivals holds n_heavy_chunks ints, 0 before the launch and
-// after it; partial holds branches * n_heavy_chunks * h floats.
+// src).  The CSR is graph.EdgeCsr's, as sender_degree_launch takes it;
+// partial holds branches * heavy_cap * h floats.
 int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* src,
                      const void* dst, int dtype, const int* nbr, const int* perm,
                      const uint8_t* edge_mask, const float* deg, const float* dis,
                      const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                     const int* heavy_chunks, const uint8_t* heavy_masked, int n_heavy_chunks,
-                     int* arrivals, int num_nodes, int h, void* out0, void* out1,
-                     float* partial, cudaStream_t stream) {
+                     const int* heavy_chunks, const uint8_t* heavy_masked, int heavy_cap,
+                     const int* heavy_count, int* arrivals, int num_nodes, int h, void* out0,
+                     void* out1, float* partial, cudaStream_t stream) {
   if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
-                    arrivals, perm, n_heavy_chunks, num_nodes};
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked, heavy_count,
+                    arrivals, perm, heavy_cap, num_nodes};
 #define SPMM(T, NB) \
   launch_spmm<T, NB>(x0, x1, src, dst, nbr, edge_mask, deg, dis, csr, h, out0, out1, partial, stream)
   if (dtype == 1 && branches == 2) return (int)SPMM(__nv_bfloat16, 2);
@@ -781,17 +781,17 @@ int coef_spmm_launch(int branches, const void* x0, const void* x1, const void* s
 // (K14T): perm = the sender CSR's perm, nbr = receivers, the sender CSR, and
 // the logits swapped (src <- dst, dst <- src).  h, the CSR and arrivals as
 // coef_spmm_launch; deg and dis [V] f32 (K13's); partial holds
-// n_heavy_chunks * h floats.
+// heavy_cap * h floats.
 int sig_coef_spmm_launch(const void* x, const float* src, const float* dst, int dtype,
                          int negate, const int* nbr, const int* perm, const uint8_t* edge_mask,
                          const float* deg, const float* dis, const int* ptr,
                          const int* chunk_ptr, const int* chunk_row, const int* heavy_chunks,
-                         const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                         int num_nodes, int h, void* out, float* partial,
+                         const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                         int* arrivals, int num_nodes, int h, void* out, float* partial,
                          cudaStream_t stream) {
   if (h <= 0 || h % 32) return (int)cudaErrorInvalidValue;
-  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked,
-                    arrivals, perm, n_heavy_chunks, num_nodes};
+  const CsrRows csr{ptr,  chunk_ptr, chunk_row, heavy_chunks, heavy_masked, heavy_count,
+                    arrivals, perm, heavy_cap, num_nodes};
 #define SIG_SPMM(T, NEG) \
   launch_sig_spmm<T, NEG>(x, src, dst, nbr, edge_mask, deg, dis, csr, h, out, partial, stream)
   if (dtype == 1) return (int)(negate ? SIG_SPMM(__nv_bfloat16, true)
@@ -804,12 +804,12 @@ int sig_coef_spmm_launch(const void* x, const float* src, const float* dst, int 
 // K5 (branches 2: x0 = xc, x1 = xo, g0 = gc, g1 = go, logits in x's dtype)
 // / K15 (branches 1, negate: x0, g0, f32 logits; x1 and g1 unused).  dtype:
 // 0 = float32, 1 = bfloat16 (x and g).  The receiver CSR (graph.EdgeCsr:
-// ptr, chunk_ptr, chunk_row, heavy_chunks, heavy_masked, their count,
-// arrivals: n_heavy_chunks ints, 0 before the launch and after it) for the
-// per-edge pass, the sender CSR (the same seven, its own counters) and its
+// ptr, chunk_ptr, chunk_row, heavy_chunks, heavy_masked, their capacity and
+// live count, arrivals, as sender_degree_launch takes them) for the
+// per-edge pass, the sender CSR (the same eight, its own counters) and its
 // perm for the ddis_s sums.  Writes vec [branches + 1, E], terms (scratch:
 // [E, branches]), ddis_s and ddis_r [branches, V], all f32; partial holds
-// branches * max(n_heavy_chunks, s_heavy_chunks) floats.  h % 32 == 0, h /
+// branches * max(heavy_cap, s_heavy_cap) floats.  h % 32 == 0, h /
 // 32 in {1, 2, 4, 8}; x and g rows 16-byte aligned (a lane loads 32 bytes,
 // csr_rows.cuh LightShape).  Two launches.
 int sddmm_chain_launch(int branches, int negate, const void* x0, const void* x1,
@@ -817,19 +817,20 @@ int sddmm_chain_launch(int branches, int negate, const void* x0, const void* x1,
                        int dtype, const int* senders, const uint8_t* edge_mask,
                        const float* dis, const int* ptr, const int* chunk_ptr,
                        const int* chunk_row, const int* heavy_chunks,
-                       const uint8_t* heavy_masked, int n_heavy_chunks, int* arrivals,
-                       const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                       const int* sheavy_chunks, const uint8_t* sheavy_masked,
-                       int s_heavy_chunks, int* sarrivals, const int* sperm, int num_nodes,
+                       const uint8_t* heavy_masked, int heavy_cap, const int* heavy_count,
+                       int* arrivals, const int* sptr, const int* schunk_ptr,
+                       const int* schunk_row, const int* sheavy_chunks,
+                       const uint8_t* sheavy_masked, int s_heavy_cap, const int* s_heavy_count,
+                       int* sarrivals, const int* sperm, int num_nodes,
                        int num_edges, int h, float* vec, float* terms, float* ddis_s,
                        float* ddis_r, float* partial, cudaStream_t stream) {
-  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0 || h <= 0 ||
+  if (num_nodes <= 0 || num_edges <= 0 || heavy_cap <= 0 || s_heavy_cap <= 0 || h <= 0 ||
       h % 32)
     return (int)cudaErrorInvalidValue;
   const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
-                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
+                     heavy_masked, heavy_count, arrivals, nullptr, heavy_cap, num_nodes};
   const CsrRows send{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
-                     sheavy_masked, sarrivals, sperm, s_heavy_chunks, num_nodes};
+                     sheavy_masked, s_heavy_count, sarrivals, sperm, s_heavy_cap, num_nodes};
   const void* const xs[2] = {x0, x1};
   const void* const gs[2] = {g0, g1};
 #define CHAIN(T, NB, NEG)                                                                 \
@@ -848,21 +849,22 @@ int sddmm_chain_launch(int branches, int negate, const void* x0, const void* x1,
 
 // K6 (branches 2: vec [3, E], ddeg [2, V]) / K16 (branches 1, negate:
 // vec [2, E], ddeg [V]): K5's / K15's vec rows and the f32 degree gradient;
-// the CSRs as K5.  Writes dsrc and ddst [V] f32; partial holds
-// n_heavy_chunks + s_heavy_chunks floats.  One launch.
+// the CSRs as K5.  Writes dsrc and ddst [V] f32; partial holds heavy_cap +
+// s_heavy_cap floats.  One launch.
 int dpre_launch(int branches, int negate, const float* vec, const float* ddeg,
                 const int* senders, const int* ptr, const int* chunk_ptr, const int* chunk_row,
-                const int* heavy_chunks, const uint8_t* heavy_masked, int n_heavy_chunks,
-                int* arrivals, const int* sptr, const int* schunk_ptr, const int* schunk_row,
-                const int* sheavy_chunks, const uint8_t* sheavy_masked, int s_heavy_chunks,
-                int* sarrivals, const int* sperm, int num_nodes, int num_edges, float* dsrc,
-                float* ddst, float* partial, cudaStream_t stream) {
-  if (num_nodes <= 0 || num_edges <= 0 || n_heavy_chunks < 0 || s_heavy_chunks < 0)
+                const int* heavy_chunks, const uint8_t* heavy_masked, int heavy_cap,
+                const int* heavy_count, int* arrivals, const int* sptr, const int* schunk_ptr,
+                const int* schunk_row, const int* sheavy_chunks, const uint8_t* sheavy_masked,
+                int s_heavy_cap, const int* s_heavy_count, int* sarrivals, const int* sperm,
+                int num_nodes, int num_edges, float* dsrc, float* ddst, float* partial,
+                cudaStream_t stream) {
+  if (num_nodes <= 0 || num_edges <= 0 || heavy_cap <= 0 || s_heavy_cap <= 0)
     return (int)cudaErrorInvalidValue;
   const CsrRows recv{ptr,      chunk_ptr, chunk_row,      heavy_chunks,
-                     heavy_masked, arrivals, nullptr, n_heavy_chunks, num_nodes};
+                     heavy_masked, heavy_count, arrivals, nullptr, heavy_cap, num_nodes};
   const CsrRows send{sptr,      schunk_ptr, schunk_row,     sheavy_chunks,
-                     sheavy_masked, sarrivals, sperm, s_heavy_chunks, num_nodes};
+                     sheavy_masked, s_heavy_count, sarrivals, sperm, s_heavy_cap, num_nodes};
 #define TAIL(NB, NEG) \
   launch_tail<NB, NEG>(vec, ddeg, senders, recv, send, num_edges, dsrc, ddst, partial, stream)
   cudaError_t err = cudaErrorInvalidValue;

@@ -67,10 +67,16 @@ class PackedDenseBatch:
     y: object
     eg_budget: int = 0
 
+    def leaves(self) -> tuple:
+        return self.x, self.edge_flat, self.n_nodes, self.y
+
+    def with_leaves(self, leaves) -> "PackedDenseBatch":
+        """The batch with ``leaves`` (in ``leaves()`` order) in place of its
+        own, the same ``eg_budget``."""
+        return PackedDenseBatch(*leaves, self.eg_budget)
+
     def to(self, device) -> "PackedDenseBatch":
-        t = lambda a: torch.as_tensor(a).to(device)
-        return PackedDenseBatch(t(self.x), t(self.edge_flat), t(self.n_nodes),
-                                t(self.y), self.eg_budget)
+        return self.with_leaves([_tensor(a, device) for a in self.leaves()])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +162,14 @@ def _tensor(a, device):
     return torch.as_tensor(a).to(device)
 
 
+def heavy_capacity(num_edges: int) -> int:
+    """The length of a CSR's heavy list over ``num_edges`` edges, whatever
+    the batch: a row of L > CHUNK_EDGES edges has at most ceil(L / 32) <
+    L / 16 chunks, so the heavy chunks of any batch number at most E // 16
+    (the bound of ``ops.edge_gat.EdgeIndex.cap_h``)."""
+    return num_edges // 16 + 1
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeCsr:
     """One orientation of a batch's edges in CSR form (NumPy or torch leaves).
@@ -165,43 +179,62 @@ class EdgeCsr:
     ``len`` edges has ``groups = max(1, ceil(len / CHUNK_EDGES))`` groups,
     cut into ``ceil(groups / per)`` chunks of ``per = ceil(groups /
     MAX_CHUNKS)`` groups: ``chunk_ptr`` [V+1] gives each row's first chunk,
-    ``chunk_row`` [C] each chunk's row.  Every row has at least one chunk,
-    so a kernel that writes per chunk writes every row exactly once.
-    ``heavy_chunks`` [C_h] lists, ascending, the chunks of the heavy rows
-    (rows of more than one chunk): the light rows, one chunk each, and the
-    listed chunks cover every row exactly once.  ``heavy_masked`` [C_h]
-    marks the listed chunks whose edges are all masked out (the padded run
-    at node V-1), which no masked conv has to walk: it holds for the
-    batch's edge_mask and for any mask that turns more edges off.
-    ``arrivals`` [C_h] int32 zeros are the walk's per-chunk arrival
-    counters on the device, 0 between launches (a launch sets back what it
-    counted): the batch's launches on one stream share them."""
+    ``chunk_row`` each chunk's row.  Every row has at least one chunk, so a
+    kernel that writes per chunk writes every row exactly once.
+    ``heavy_chunks`` lists, ascending, the chunks of the heavy rows (rows
+    of more than one chunk): the light rows, one chunk each, and the listed
+    chunks cover every row exactly once.  ``heavy_masked`` marks the listed
+    chunks whose edges are all masked out (the padded run at node V-1),
+    which no masked conv has to walk: it holds for the batch's edge_mask
+    and for any mask that turns more edges off.  ``arrivals`` int32 zeros
+    are the walk's per-chunk arrival counters on the device, 0 between
+    launches (a launch sets back what it counted): the batch's launches on
+    one stream share them.
+
+    Every leaf has a length fixed by the budgets alone, so the batches of a
+    run share one shape and a captured step (a CUDA graph over static
+    buffers) takes any of them: ``heavy_chunks``, ``heavy_masked`` and
+    ``arrivals`` hold ``heavy_capacity(E)`` entries, of which the first
+    ``heavy_count`` [1] int32 are live (the kernels read that count on the
+    device), and ``chunk_row`` holds ``V + heavy_capacity(E)`` entries, of
+    which the first ``chunk_ptr[V]`` are live; the rest is padding (0,
+    False) that nothing reads."""
 
     ptr: object
     chunk_ptr: object
     chunk_row: object
     heavy_chunks: object
     heavy_masked: object
+    heavy_count: object
     arrivals: object
     perm: object = None
 
     @property
     def num_chunks(self) -> int:
-        return int(self.chunk_row.shape[0])
+        """The live chunks (a read from the device for torch leaves)."""
+        return int(self.chunk_ptr[-1])
+
+    @property
+    def n_heavy(self) -> int:
+        """The live heavy chunks (a read from the device for torch leaves)."""
+        return int(self.heavy_count[0])
+
+    def leaves(self) -> tuple:
+        """The arrays, ``perm`` last where there is one."""
+        own = (self.ptr, self.chunk_ptr, self.chunk_row, self.heavy_chunks,
+               self.heavy_masked, self.heavy_count, self.arrivals)
+        return own if self.perm is None else own + (self.perm,)
 
     def to(self, device) -> "EdgeCsr":
-        return EdgeCsr(*(_tensor(a, device) for a in (self.ptr, self.chunk_ptr,
-                                                       self.chunk_row, self.heavy_chunks,
-                                                       self.heavy_masked, self.arrivals)),
-                       perm=None if self.perm is None else _tensor(self.perm, device))
+        return EdgeCsr(*(_tensor(a, device) for a in self.leaves()))
 
 
 def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None,
              edge_mask: np.ndarray | None = None) -> EdgeCsr:
     """CSR of edges whose row ids, taken in row order, are ``rows``
-    (non-decreasing; ``rows = keys[perm]`` when ``perm`` is given).
-    ``edge_mask`` (in edge order; None: every edge in) marks the heavy
-    chunks that hold masked-out edges alone."""
+    (non-decreasing; ``rows = keys[perm]`` when ``perm`` is given), in the
+    padded form of ``EdgeCsr``.  ``edge_mask`` (in edge order; None: every
+    edge in) marks the heavy chunks that hold masked-out edges alone."""
     counts = np.bincount(rows, minlength=num_nodes)
     ptr = np.zeros(num_nodes + 1, np.int32)
     np.cumsum(counts, out=ptr[1:])
@@ -222,8 +255,13 @@ def edge_csr(rows: np.ndarray, num_nodes: int, perm: np.ndarray | None = None,
         span = per[r] * CHUNK_EDGES
         beg = ptr[r] + (heavy_chunks - chunk_ptr[r]) * span
         masked = cum[np.minimum(beg + span, ptr[r + 1])] == cum[beg]
-    return EdgeCsr(ptr, chunk_ptr, chunk_row, heavy_chunks, masked,
-                   np.zeros(heavy_chunks.size, np.int32),
+    cap = heavy_capacity(rows.size)
+    if heavy_chunks.size > cap:
+        raise RuntimeError(f"{heavy_chunks.size} heavy chunks over the capacity {cap}")
+    pad = lambda a, n, dtype: np.concatenate([a, np.zeros(n - a.size, dtype)])
+    return EdgeCsr(ptr, chunk_ptr, pad(chunk_row, num_nodes + cap, np.int32),
+                   pad(heavy_chunks, cap, np.int32), pad(masked, cap, bool),
+                   np.array([heavy_chunks.size], np.int32), np.zeros(cap, np.int32),
                    None if perm is None else perm.astype(np.int32))
 
 
@@ -240,8 +278,11 @@ class GraphBatch:
     counterpart of cal_tpu's ``(tiles_fwd, tiles_bwd)``.  ``derived`` holds
     what the kernels derive from the graph alone, computed at first use
     and shared by every later call on the batch (``ops.spmm.plain_norm``:
-    the plain conv's degree); every new batch, ``to`` and
-    ``dataclasses.replace`` included, starts it empty."""
+    the plain conv's degree); every new batch, ``to``, ``with_leaves`` and
+    ``dataclasses.replace`` included, starts it empty.  The steps hand
+    the model a new batch each step (``train.steps._as_graph``), so a step
+    computes it once, and a captured step at each replay, from the leaves
+    that step reads."""
 
     x: object
     senders: object
@@ -264,11 +305,19 @@ class GraphBatch:
     def num_graphs(self) -> int:
         return int(self.y.shape[0])
 
+    def leaves(self) -> tuple:
+        """Every array of the batch, both CSRs' included, in one order."""
+        return (self.x, self.senders, self.receivers, self.edge_mask, self.node_mask,
+                self.node_graph, self.y, self.graph_mask) + self.recv.leaves() + self.send.leaves()
+
+    def with_leaves(self, leaves) -> "GraphBatch":
+        """A batch of the same form with ``leaves`` (in ``leaves()`` order)."""
+        leaves = list(leaves)
+        n = len(self.recv.leaves())
+        return GraphBatch(*leaves[:8], EdgeCsr(*leaves[8:8 + n]), EdgeCsr(*leaves[8 + n:]))
+
     def to(self, device) -> "GraphBatch":
-        t = lambda a: _tensor(a, device)
-        return GraphBatch(t(self.x), t(self.senders), t(self.receivers), t(self.edge_mask),
-                          t(self.node_mask), t(self.node_graph), t(self.y),
-                          t(self.graph_mask), self.recv.to(device), self.send.to(device))
+        return self.with_leaves([_tensor(a, device) for a in self.leaves()])
 
 
 def sparse_batch(x, senders, receivers, edge_mask, node_mask, node_graph, y, graph_mask,

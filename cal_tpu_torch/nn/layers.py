@@ -21,7 +21,7 @@ from torch import nn
 
 from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.ops.edge_gat import edge_gat_dense_flat
-from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat, seed_value
+from cal_tpu_torch.ops.flash_gat import flash_gat_dense_flat
 from cal_tpu_torch.ops.gat import seed_words
 from cal_tpu_torch.ops.gat_sparse import gat_aggregate_sparse_fused
 from cal_tpu_torch.ops.gcn import gcn_aggregate
@@ -226,23 +226,22 @@ class GATConvLayer(nn.Module):
 
     def forward(self, x, g, seed: int | torch.Tensor | None = None):
         """x [B, N, in] (dense) or [V, in] (sparse); ``seed`` (64 bits: an
-        int, or a ``flash_gat.seed_buffer`` on the card, which the flash
+        int, or a ``flash_gat.seed_buffer`` on the card, which every GAT
         kernel reads there, so a captured step takes each replay's seed)
-        turns attention dropout on (training).  The sparse and edge kernels
-        take the seed's value."""
+        turns attention dropout on (training)."""
         dt, d = self.dtype, self.out_per_head
         xh = linear(x, self.kernel, dt).to(dt)
         att = self.att.to(dt)
         if isinstance(g, GraphBatch):
             v = xh.shape[0]
-            seed = None if seed is None else seed_value(seed)
             rate = self.dropout if seed is not None else 0.0
-            words = seed_words(seed) if seed is not None else (0, 0)
+            words = (0, 0) if seed is None else (
+                seed if isinstance(seed, torch.Tensor) else seed_words(seed))
             out = gat_aggregate_sparse_fused(xh.view(v, self.heads, d), att[:, :d], att[:, d:],
                                              words, g, rate).reshape(v, self.heads * d)
         elif takes_edge_kernel(g, xh.shape[1]):
             out = edge_gat_dense_flat(xh, g.edge_flat, att[:, :d], att[:, d:], self.dropout,
-                                      None if seed is None else seed_value(seed), g.edge_index)
+                                      seed, g.edge_index)
         else:
             out = flash_gat_dense_flat(xh, g.adj, att[:, :d], att[:, d:], self.dropout, seed)
         return out.to(dt) + self.bias.to(dt)

@@ -51,6 +51,7 @@ from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.kernels import build
 from cal_tpu_torch.ops.spmm import (
     _DTYPES,
+    WALK_CSR_ARGTYPES,
     _check_features,
     _check_graph,
     _check_walk_width,
@@ -109,12 +110,13 @@ def _lib():
     lib = build.load("coo_spmm")
     if lib.coo_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.coo_spmm_launch.argtypes = ([vp, i, vp, i, vp, vp] + [vp, vp, vp, vp, vp, i, vp]
+        lib.coo_spmm_launch.argtypes = ([vp, i, vp, i, vp, vp] + WALK_CSR_ARGTYPES
                                         + [i, i, vp, vp, vp])
         lib.coo_spmm_launch.restype = ctypes.c_int
-        lib.coo_sddmm_launch.argtypes = [vp, i, vp, i, i] + [vp] * 6 + [i, i, i, vp, vp]
+        lib.coo_sddmm_launch.argtypes = ([vp, i, vp, i, i, vp] + WALK_CSR_ARGTYPES[:-1]
+                                         + [i, i, vp, vp])
         lib.coo_sddmm_launch.restype = ctypes.c_int
-        lib.segment_max_launch.argtypes = [vp, i, i] + [vp] * 5 + [i, vp] + [i, vp, vp, vp]
+        lib.segment_max_launch.argtypes = [vp, i, i] + WALK_CSR_ARGTYPES + [i, vp, vp, vp]
         lib.segment_max_launch.restype = ctypes.c_int
     return lib
 

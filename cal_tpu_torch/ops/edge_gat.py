@@ -23,7 +23,10 @@ counter ``2^40 + v * heads + h``, a range no slot reaches; kept iff the 32
 bits, compared unsigned, are >= ``uint32(rate * 2^32)``.  That is cal_tpu's
 law for this kernel (one keep bit per duplicate-edge slot and per self
 term), not its bits: the TPU kernel draws Mosaic's PRNG.  The backward and
-the twins draw the same bits as the forward kernel.
+the twins draw the same bits as the forward kernel.  The seed is an int or
+a seed buffer (``flash_gat.seed_buffer``), which the kernels read on the
+card, so a captured step draws each replay's seed (an int is put into a new
+buffer at the launch); the twins take either.
 """
 from __future__ import annotations
 
@@ -32,7 +35,13 @@ import ctypes
 import torch
 
 from cal_tpu_torch.kernels import build
-from cal_tpu_torch.ops.flash_gat import keep_threshold, philox_bits
+from cal_tpu_torch.ops.flash_gat import (
+    _seed_arg,
+    _seed_args,
+    keep_threshold,
+    philox_bits,
+    seed_value,
+)
 
 NEG_SLOPE = 0.2
 SELF_COUNTER = 1 << 40
@@ -61,9 +70,11 @@ def edge_slots(edge_flat: torch.Tensor, bsz: int, n: int):
     return slot[keep], (g * n + r)[keep], (g * n + s)[keep]
 
 
-def edge_keep(slot: torch.Tensor, rows: int, heads: int, seed: int, rate: float):
+def edge_keep(slot: torch.Tensor, rows: int, heads: int, seed, rate: float):
     """Keep masks (slots [E', heads], self terms [rows, heads]) of attention
-    dropout at ``rate`` for the layer seed ``seed``."""
+    dropout at ``rate`` for the layer seed ``seed`` (an int or a seed
+    buffer)."""
+    seed = seed_value(seed)
     k0, k1, thresh = seed & _M32, (seed >> 32) & _M32, keep_threshold(rate)
     h = torch.arange(heads, device=slot.device)
     node = torch.arange(rows, device=slot.device)
@@ -97,7 +108,7 @@ def _dropped(alpha, keep, rate):
     return torch.where(keep, alpha * _scale(rate), torch.zeros((), device=alpha.device))
 
 
-def edge_gat_fwd_plain(ti, tj, xh, edge_flat, seed: int = 0, rate: float = 0.0):
+def edge_gat_fwd_plain(ti, tj, xh, edge_flat, seed: int | torch.Tensor = 0, rate: float = 0.0):
     """Plain twin of the forward kernel: out [B, N, heads * d] in xh's dtype,
     accumulated in f32."""
     bsz, n, heads = ti.shape
@@ -108,7 +119,7 @@ def edge_gat_fwd_plain(ti, tj, xh, edge_flat, seed: int = 0, rate: float = 0.0):
     return out.reshape(xh.shape).to(xh.dtype)
 
 
-def edge_gat_bwd_plain(ti, tj, xh, edge_flat, g, seed: int = 0, rate: float = 0.0):
+def edge_gat_bwd_plain(ti, tj, xh, edge_flat, g, seed: int | torch.Tensor = 0, rate: float = 0.0):
     """Plain twin of the backward kernels: the VJP written out per edge (not
     autograd of the forward twin).  g [B, N, heads * d] is the cotangent of
     out; returns dti, dtj [B, N, heads] f32 and dxh in xh's dtype."""
@@ -161,7 +172,7 @@ def _lib():
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.edge_keys_launch.argtypes = [vp, i, i, i, vp, vp]
         lib.edge_index_launch.argtypes = [vp, vp, vp, i, i, i, vp, vp]
-        lib.edge_gat_fwd_launch.argtypes = [vp] * 10 + [i] * 5 + [u, u, u, f, vp]
+        lib.edge_gat_fwd_launch.argtypes = [vp] * 10 + [i] * 5 + [vp, u, f, vp]
         for fn in (lib.edge_keys_launch, lib.edge_index_launch, lib.edge_gat_fwd_launch):
             fn.restype = ctypes.c_int
     return lib
@@ -171,7 +182,7 @@ def _lib_bwd():
     lib = build.load("edge_gat_bwd")
     if lib.edge_gat_bwd_launch.argtypes is None:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.edge_gat_bwd_launch.argtypes = [vp] * 12 + [i] * 7 + [u, u, u, f, vp]
+        lib.edge_gat_bwd_launch.argtypes = [vp] * 12 + [i] * 7 + [vp, u, f, vp]
         lib.edge_gat_bwd_launch.restype = ctypes.c_int
     return lib
 
@@ -180,11 +191,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, and 16-byte aligned for the kernels' vector loads."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _seed_args(seed: int, rate: float):
-    return seed & _M32, (seed >> 32) & _M32, keep_threshold(rate) if rate > 0.0 else 0, \
-        _scale(rate)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -387,16 +393,16 @@ def _fwd_launch(ti, tj, xh, edge_flat, seed, rate, index):
     stats = torch.empty((2, bsz * n, heads), dtype=torch.float32, device=xh.device)
     part_ml = torch.empty((index.cap_h, 2 * heads), dtype=torch.float32, device=xh.device)
     part_acc = torch.empty((index.cap_h, hd), dtype=torch.float32, device=xh.device)
+    drop, _buf = _seed_args(seed, rate, xh.device)
     err = _lib().edge_gat_fwd_launch(
         ti.data_ptr(), tj.data_ptr(), xh.data_ptr(), edge_flat.data_ptr(), index.pointers(),
         out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), bsz, n, heads, hd, _DTYPES[xh.dtype], *_seed_args(seed, rate),
-        _stream(xh))
+        part_acc.data_ptr(), bsz, n, heads, hd, _DTYPES[xh.dtype], *drop, _stream(xh))
     build.check(err, "edge_gat_fwd")
     return out, stats
 
 
-def edge_gat_fwd(ti, tj, xh, edge_flat, seed: int = 0, rate: float = 0.0,
+def edge_gat_fwd(ti, tj, xh, edge_flat, seed: int | torch.Tensor = 0, rate: float = 0.0,
                  index: EdgeIndex | None = None, with_stats: bool = False):
     """Forward: ti, tj [B, N, heads] f32; xh [B, N, heads * d] (float32 or
     bfloat16); edge_flat [E] sorted -> out [B, N, heads * d] in xh's dtype,
@@ -422,7 +428,7 @@ def _bwd_scratch(slots: int, rows: int, heads: int, hd: int, cap_h: int) -> int:
     return 2 * r4(slots * heads) + 2 * r4(rows * heads) + 4 * r4(cap_h * heads) + r4(cap_h * hd)
 
 
-def edge_gat_bwd(ti, tj, xh, edge_flat, g, seed: int = 0, rate: float = 0.0,
+def edge_gat_bwd(ti, tj, xh, edge_flat, g, seed: int | torch.Tensor = 0, rate: float = 0.0,
                  index: EdgeIndex | None = None, stats: torch.Tensor | None = None):
     """VJP of ``edge_gat_fwd``'s out: g [B, N, heads * d] in xh's dtype ->
     (dti, dtj [B, N, heads] f32, dxh in xh's dtype).  Launches the backward
@@ -447,11 +453,12 @@ def edge_gat_bwd(ti, tj, xh, edge_flat, g, seed: int = 0, rate: float = 0.0,
     dxh = torch.empty_like(xh)
     scratch = torch.empty(_bwd_scratch(index.num_slots, bsz * n, heads, hd, index.cap_h),
                           dtype=torch.float32, device=xh.device)
+    drop, _buf = _seed_args(seed, rate, xh.device)
     err = _lib_bwd().edge_gat_bwd_launch(
         ti.data_ptr(), tj.data_ptr(), xh.data_ptr(), g.data_ptr(), edge_flat.data_ptr(),
         index.pointers(), stats[0].data_ptr(), stats[1].data_ptr(), scratch.data_ptr(),
         dti.data_ptr(), dtj.data_ptr(), dxh.data_ptr(), index.num_slots, index.cap_h, bsz, n,
-        heads, hd, _DTYPES[xh.dtype], *_seed_args(seed, rate), _stream(xh))
+        heads, hd, _DTYPES[xh.dtype], *drop, _stream(xh))
     build.check(err, "edge_gat_bwd")
     edge_gat_bwd.launches += 1
     return dti, dtj, dxh
@@ -484,16 +491,17 @@ class _EdgeGAT(torch.autograd.Function):
 
 def edge_gat_dense_flat(xh_flat: torch.Tensor, edge_flat: torch.Tensor, att_dst: torch.Tensor,
                         att_src: torch.Tensor, dropout_rate: float = 0.0,
-                        seed: int | None = None, index: EdgeIndex | None = None) -> torch.Tensor:
+                        seed: int | torch.Tensor | None = None,
+                        index: EdgeIndex | None = None) -> torch.Tensor:
     """Dense multi-head GAT over the batch's edge list, on xh in its
     [B, N, heads * d] layout.
 
     edge_flat [E]: the sorted flat (g*N + r)*N + s list of the packed batch
     (padding >= B*N*N); att_dst / att_src [heads, d].  Dropout runs at
-    ``dropout_rate`` when a ``seed`` (a non-negative int below 2^64) is
-    given; ``index`` is the batch's EdgeIndex of ``edge_flat`` (built for
-    the call when None).  Returns [B, N, heads * d] in xh's dtype;
-    differentiable in xh, att_dst and att_src."""
+    ``dropout_rate`` when a ``seed`` (a non-negative int below 2^64, or a
+    ``flash_gat.seed_buffer``) is given; ``index`` is the batch's EdgeIndex
+    of ``edge_flat`` (built for the call when None).  Returns [B, N, heads *
+    d] in xh's dtype; differentiable in xh, att_dst and att_src."""
     bsz, n, _ = xh_flat.shape
     heads, d = att_dst.shape
     x4 = xh_flat.float().view(bsz, n, heads, d)
@@ -501,5 +509,4 @@ def edge_gat_dense_flat(xh_flat: torch.Tensor, edge_flat: torch.Tensor, att_dst:
     ti = torch.einsum("bnhd,hd->bnh", x4, att_dst.to(dt).float())
     tj = torch.einsum("bnhd,hd->bnh", x4, att_src.to(dt).float())
     rate = float(dropout_rate) if seed is not None and dropout_rate > 0.0 else 0.0
-    return _EdgeGAT.apply(ti, tj, xh_flat, edge_flat, 0 if seed is None else int(seed), rate,
-                          index)
+    return _EdgeGAT.apply(ti, tj, xh_flat, edge_flat, _seed_arg(seed), rate, index)

@@ -24,7 +24,8 @@ package in law only.  The kernels read the seed from device memory: a seed
 is an int or a seed buffer (``seed_buffer``: one int64 holding the 64 bits
 on the card), which a captured step (a CUDA graph) reads at each replay, so
 the host writes the step's seed into the buffer before it replays; an int
-seed is put into a new buffer at the launch.  The twins take either.
+seed is put into a new buffer at the launch (an 8-byte host copy, no
+kernel).  The twins take either.
 """
 from __future__ import annotations
 
@@ -70,10 +71,11 @@ def philox_bits(cell, k0: int, k1: int):
 def seed_buffer(seed: int, device=None) -> torch.Tensor:
     """A 64-bit seed (an int in [0, 2^64)) as one int64 on ``device``, its
     bits unchanged: the low word (k0) first in memory, as the kernels read
-    it.  A fill, not a host copy: no synchronization."""
+    it.  An 8-byte host-to-device copy, not a kernel, and without a wait
+    (CUDA stages pageable memory before the call returns)."""
     seed = int(seed) & _M64
-    return torch.full((1,), seed - 2**64 if seed >= 2**63 else seed, dtype=torch.int64,
-                      device=device)
+    buf = torch.tensor([seed - 2**64 if seed >= 2**63 else seed], dtype=torch.int64)
+    return buf if device is None else buf.to(device, non_blocking=True)
 
 
 def seed_value(seed) -> int:
@@ -204,18 +206,22 @@ def _lib():
     return lib
 
 
+def as_seed_buffer(seed, device) -> torch.Tensor:
+    """The seed buffer of a launch on ``device``: a seed buffer, checked to
+    be one int64 there, or an int put into a new one."""
+    if not isinstance(seed, torch.Tensor):
+        return seed_buffer(seed, device)
+    if seed.device != device or seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError(f"the seed buffer must be one int64 on {device}")
+    return seed.contiguous()
+
+
 def _seed_args(seed, rate: float, device):
     """(seed buffer or None, threshold, scale) of a launch, and the buffer
-    to keep alive until the launch is enqueued.  A buffer is checked to lie
-    on the launch's device."""
+    to keep alive until the launch is enqueued."""
     if rate <= 0.0:
         return (None, 0, 1.0), None
-    if isinstance(seed, torch.Tensor):
-        if seed.device != device or seed.dtype != torch.int64 or seed.numel() != 1:
-            raise ValueError(f"the seed buffer must be one int64 on {device}")
-        buf = seed.contiguous()
-    else:
-        buf = seed_buffer(seed, device)
+    buf = as_seed_buffer(seed, device)
     return (buf.data_ptr(), keep_threshold(rate), _scale(rate)), buf
 
 

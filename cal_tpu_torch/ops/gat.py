@@ -24,7 +24,10 @@ The sparse layout's keep bits are an integer hash of the edge id, the head
 and a two-word seed, bit for bit cal_tpu's: the forward over the receiver
 CSR and the dxh pass over the sender CSR draw the same bit per (edge,
 head).  The hash runs here in int64 arithmetic masked to 32 bits (torch has
-no full uint32 arithmetic); the kernels run it in uint32.
+no full uint32 arithmetic); the kernels run it in uint32.  The words are
+ints, or come from a seed buffer (``flash_gat.seed_buffer``, one int64 on
+the card) as int64 tensors on its device, so a captured step draws the
+seed that the host wrote into the buffer before each replay.
 """
 from __future__ import annotations
 
@@ -56,12 +59,15 @@ def mix32(x: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def seed_words(seed: int) -> tuple[int, int]:
-    """The two uint32 words (low, high) of a 64-bit dropout seed."""
+def seed_words(seed: int | torch.Tensor) -> tuple:
+    """The two uint32 words (low, high) of a 64-bit dropout seed: ints of an
+    int, int64 tensors on its device of a seed buffer (no host read)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(())
     return seed & _M32, (seed >> 32) & _M32
 
 
-def salted_word(s1: int, salt: int) -> int:
+def salted_word(s1, salt: int):
     """The second hash word of stream ``salt`` (0: edges, 1: self loops)."""
     return (s1 + _SALT * salt) & _M32
 
@@ -72,11 +78,12 @@ def keep_threshold(rate: float) -> int:
     return int(min((1.0 - rate) * 4294967296.0, 4294967295.0))
 
 
-def keep_mask(ids: torch.Tensor, words: tuple[int, int], rate: float,
-              salt: int) -> torch.Tensor:
+def keep_mask(ids: torch.Tensor, words, rate: float, salt: int) -> torch.Tensor:
     """1.0 / 0.0 keep mask of ``ids`` (int, >= 0) at probability 1 - rate;
-    cal_tpu/ops/gat.py ``_keep_mask``."""
-    h = mix32(ids.long(), words[0], salted_word(words[1], salt))
+    cal_tpu/ops/gat.py ``_keep_mask``.  ``words``: the seed's two words, or
+    its seed buffer."""
+    s0, s1 = seed_words(words) if isinstance(words, torch.Tensor) else words
+    h = mix32(ids.long(), s0, salted_word(s1, salt))
     return (h < keep_threshold(rate)).float()
 
 

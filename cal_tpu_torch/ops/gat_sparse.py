@@ -27,7 +27,10 @@ and the rounding points); the [heads, V] planes tj, ti, m, den, dD are f32:
   edge's dpre, then by sender (dtj) over the sender CSR: two launches.
 
 The score halves, the self-loop terms, dD, sdot and the ``dti ad + dtj
-asr`` fold stay plain torch, as they are plain XLA in cal_tpu.  On CUDA
+asr`` fold stay plain torch, as they are plain XLA in cal_tpu.  The dropout
+seed is two words or a seed buffer on the card (``flash_gat.seed_buffer``),
+which K9, K9T and K10 read there and the self loops' keep bits take as
+device tensors: a captured step draws each replay's seed.  On CUDA
 tensors each wrapper launches its kernel (or raises); on CPU tensors it
 runs its plain twin ``*_plain``, which rounds at the same points.
 """
@@ -40,9 +43,11 @@ from torch.nn.functional import leaky_relu
 
 from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.kernels import build
+from cal_tpu_torch.ops.flash_gat import as_seed_buffer
 from cal_tpu_torch.ops.gat import NEG_SLOPE, head_ids, keep_mask, keep_threshold
 from cal_tpu_torch.ops.spmm import (
     _DTYPES,
+    WALK_CSR_ARGTYPES,
     _check_graph,
     _check_kernel_width,
     _check_walk_width,
@@ -120,14 +125,14 @@ def _lib():
     lib = build.load("gat_sparse")
     if lib.gat_row_stats_launch.argtypes is None:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
+        csr = WALK_CSR_ARGTYPES
         lib.gat_row_stats_launch.argtypes = [vp, vp, i, vp, vp] + csr + [i, vp, vp, vp, vp]
         lib.gat_row_stats_launch.restype = ctypes.c_int
         lib.gat_coef_spmm_launch.argtypes = ([vp, i, vp, vp, vp, i, vp, vp, vp] + csr
-                                             + [i, i, u, u, u, f, i, vp, vp, vp])
+                                             + [i, i, vp, u, f, i, vp, vp, vp])
         lib.gat_coef_spmm_launch.restype = ctypes.c_int
         lib.gat_sddmm_chain_launch.argtypes = ([vp, i] + [vp] * 5 + [i, vp, vp] + csr + csr
-                                               + [vp, i, i, i, u, u, u, f, i] + [vp] * 5)
+                                               + [vp, i, i, i, vp, u, f, i] + [vp] * 5)
         lib.gat_sddmm_chain_launch.restype = ctypes.c_int
     return lib
 
@@ -155,13 +160,21 @@ def _device(what, tensors, g: GraphBatch):
     return device
 
 
-def _dropout_args(words, rate: float):
-    """(s0, s1 of salt 0, threshold, 1 - rate, on) for the kernels."""
+def _check_rate(rate: float) -> None:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention dropout rate {rate} outside [0, 1)")
+
+
+def _dropout_args(words, rate: float, device):
+    """((seed buffer, threshold, 1 - rate, on) for the kernels, the buffer
+    to keep alive until the launch is enqueued).  ``words``: the seed's two
+    words (put into a new buffer) or its seed buffer, which the kernels read
+    on the card."""
     if rate == 0.0:
-        return 0, 0, 0, 1.0, 0
-    return int(words[0]), int(words[1]), keep_threshold(rate), 1.0 - rate, 1
+        return (None, 0, 1.0, 0), None
+    buf = as_seed_buffer(words if isinstance(words, torch.Tensor)
+                         else int(words[0]) | int(words[1]) << 32, device)
+    return (buf.data_ptr(), keep_threshold(rate), 1.0 - rate, 1), buf
 
 
 def gat_row_stats(tj, ti, g: GraphBatch):
@@ -192,9 +205,10 @@ def _coef_spmm(what, x, tj, ti, m, words, rate, g: GraphBatch, transpose: bool):
     heads = _check_planes(what, (tj, ti, m), v)
     _check_x(what, x, v, heads)
     device = _device(what, (x, tj, ti, m), g)
-    drop = _dropout_args(words, rate)
+    _check_rate(rate)
     if device.type == "cpu":
         return gat_coef_spmm_plain(x, tj, ti, m, words, rate, g, transpose)
+    drop, _buf = _dropout_args(words, rate, device)
     _check_graph(what, g, device)
     x = x.contiguous()
     hd = x.shape[1]
@@ -215,8 +229,8 @@ def _coef_spmm(what, x, tj, ti, m, words, rate, g: GraphBatch, transpose: bool):
 def gat_coef_spmm(x, tj, ti, m, words, rate: float, g: GraphBatch) -> torch.Tensor:
     """K9: [V, H] f32, the per-head sum over live in-edges of q * keep /
     (1 - rate) * x[s]; x [V, H] f32 or bf16, planes [heads, V] f32,
-    ``words`` the two uint32 seed words (ignored at rate 0).  One kernel
-    launch; ``.launches`` counts them."""
+    ``words`` the two uint32 seed words or the seed's buffer (ignored at
+    rate 0).  One kernel launch; ``.launches`` counts them."""
     out = _coef_spmm("gat_coef_spmm", x, tj, ti, m, words, rate, g, False)
     if x.device.type == "cuda":
         gat_coef_spmm.launches += 1
@@ -246,9 +260,10 @@ def gat_sddmm_chain(x, w, tj, ti, m, dD, words, rate: float, g: GraphBatch):
     if w.dtype != torch.float32 or w.shape != x.shape:
         raise ValueError(f"{what}: w must be float32 of x's shape")
     device = _device(what, (x, w, tj, ti, m, dD), g)
-    drop = _dropout_args(words, rate)
+    _check_rate(rate)
     if device.type == "cpu":
         return gat_sddmm_chain_plain(x, w, tj, ti, m, dD, words, rate, g)
+    drop, _buf = _dropout_args(words, rate, device)
     _check_graph(what, g, device)
     x, w = x.contiguous(), w.contiguous()
     hd = x.shape[1]
@@ -348,9 +363,11 @@ def gat_aggregate_sparse_fused(xh, att_dst, att_src, words, g: GraphBatch,
                                rate: float = 0.0) -> torch.Tensor:
     """Sparse multi-head GAT aggregate (counterpart of cal_tpu's
     ``gat_aggregate_sparse_fused``): xh [V, heads, d] f32 or bf16, att_dst
-    / att_src [heads, d], ``words`` the two uint32 dropout seed words
-    (ignored at rate 0).  Returns [V, heads, d] in xh's dtype (bias not
-    added); differentiable in xh, att_dst and att_src."""
+    / att_src [heads, d], ``words`` the two uint32 dropout seed words, or
+    the seed's buffer on the card (``flash_gat.seed_buffer``: the kernels
+    and the self loops' keep bits read it there; ignored at rate 0).
+    Returns [V, heads, d] in xh's dtype (bias not added); differentiable in
+    xh, att_dst and att_src."""
     return _GatSparseFused.apply(xh, att_dst, att_src, words, g, rate)
 
 

@@ -23,7 +23,9 @@ points):
   kernel counting live edges (2 x a sum of sigmoid(0) = 0.5 is that count
   exactly).  It depends on the graph alone, so ``plain_norm`` computes it
   once a batch, at the batch's first plain conv, and keeps it in the
-  batch's ``GraphBatch.derived`` for every later conv of the batch;
+  batch's ``GraphBatch.derived`` for every later conv of the batch (the
+  steps hand the model a new batch each step, ``train.steps._as_graph``:
+  once a step, and a captured step computes it at each replay);
 * ``pair_coef_spmm`` (K2, ``_pair_coef_spmm_call``) and ``plain_coef_spmm``
   (K3, ``_plain_coef_spmm_call``): the SpMM over the receiver CSR with the
   coefficient chain and the self term in-kernel;
@@ -70,6 +72,8 @@ from cal_tpu_torch.graph import GraphBatch
 from cal_tpu_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the ctypes of ``_walk_csr``'s arguments
+WALK_CSR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
 def _live(g: GraphBatch):
@@ -164,7 +168,7 @@ def _lib():
     lib = build.load("spmm")
     if lib.coef_spmm_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        csr = [vp, vp, vp, vp, vp, i, vp]          # _walk_csr
+        csr = WALK_CSR_ARGTYPES
         lib.sender_degree_launch.argtypes = [i, i, vp, vp, i] + [vp] * 3 + csr + [i] + [vp] * 4
         lib.coef_spmm_launch.argtypes = ([i, vp, vp, vp, vp, i] + [vp] * 5 + csr
                                          + [i, i, vp, vp, vp, vp])
@@ -185,8 +189,9 @@ def _stream(device) -> int:
 
 def _check_graph(what, g: GraphBatch, device) -> None:
     ints = (g.senders, g.receivers, g.recv.ptr, g.recv.chunk_ptr, g.recv.chunk_row,
-            g.recv.heavy_chunks, g.recv.arrivals, g.send.ptr, g.send.chunk_ptr,
-            g.send.chunk_row, g.send.heavy_chunks, g.send.arrivals, g.send.perm)
+            g.recv.heavy_chunks, g.recv.heavy_count, g.recv.arrivals, g.send.ptr,
+            g.send.chunk_ptr, g.send.chunk_row, g.send.heavy_chunks, g.send.heavy_count,
+            g.send.arrivals, g.send.perm)
     bools = (g.edge_mask, g.recv.heavy_masked, g.send.heavy_masked)
     ts = ints + bools
     if any(t.device != device for t in ts):
@@ -226,11 +231,14 @@ def _check_walk_width(what, h, tensors, heads: int = 1) -> None:
 
 def _walk_csr(csr):
     """The CSR arguments of the walk's C entry points: ptr, chunk_ptr,
-    chunk_row, heavy_chunks, heavy_masked, their count and the arrival
-    counters."""
+    chunk_row, heavy_chunks, heavy_masked, the heavy list's capacity (an
+    int: the launch's grid), its live count (a pointer: the kernels read it
+    on the device, so a captured launch takes the count of the batch its
+    buffers hold) and the arrival counters."""
     return (csr.ptr.data_ptr(), csr.chunk_ptr.data_ptr(), csr.chunk_row.data_ptr(),
             csr.heavy_chunks.data_ptr(), csr.heavy_masked.data_ptr(),
-            int(csr.heavy_chunks.shape[0]), csr.arrivals.data_ptr())
+            int(csr.heavy_chunks.shape[0]), csr.heavy_count.data_ptr(),
+            csr.arrivals.data_ptr())
 
 
 def pair_sender_degree(src, dst, g: GraphBatch, norm: bool = False):

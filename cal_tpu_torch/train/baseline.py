@@ -7,10 +7,9 @@ packs, so neither does this one, whatever ``--pack_batches`` says), Adam
 with the per-epoch cosine schedule over the train loader's length, NLL over
 real graphs, selection on val accuracy, and the reference's per-epoch and
 ``syd:`` lines.  ``--scan_epochs true`` (the default) runs the device-side
-epoch on the dense layout as ``train_causal_syn`` does (one CUDA graph of
-the step on the card; the sparse layout and a dense GAT on the edge kernel
-keep the per-step loop, ROADMAP item 13b).  No checkpoints: cal_tpu's
-baseline trainer writes none, and
+epoch on both layouts as ``train_causal_syn`` does (one CUDA graph of the
+step on the card).  No checkpoints: cal_tpu's baseline trainer writes none,
+and
 ``main_syn`` trains a baseline even when ``--inference`` is given, as
 cal_tpu's does.
 """
@@ -31,7 +30,6 @@ from cal_tpu_torch.train.causal import (
     _run_epoch_scan,
     _stack_loader,
     resolve_device,
-    use_scan,
 )
 from cal_tpu_torch.train.optim import cosine_lr
 from cal_tpu_torch.train.steps import (
@@ -83,7 +81,7 @@ def train_baseline_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGra
     train_loader._chunks()
     state = init_state(cfg, train_set[0].x.shape[1], cfg.num_classes, device)
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, len(train_loader))
-    scan = use_scan(cfg, budgets)
+    scan = cfg.scan_epochs
     # eval loaders don't shuffle: pack and copy them to the device once
     if scan:
         train_epoch = make_baseline_train_epoch(state, schedule, cfg.seed)

@@ -11,16 +11,16 @@ counts the real steps (``schedule_steps``).
 ``train_causal_syn``: train/val/test loaders, Adam with the per-epoch
 cosine schedule, and the test accuracies taken at the epoch of best val
 accuracy (o-branch), with the reference's per-epoch and ``syd:`` lines.
-``--scan_epochs true`` (the default) runs the device-side epoch on the dense
-layout, as cal_tpu's scanned epoch: ``_EpochPrefetcher`` packs (the native
-packer), stacks and ships each epoch's batches (one pinned host-to-device
-copy per leaf) while the card runs the epoch before, and on CUDA every step
-replays one CUDA graph (``steps.make_causal_train_epoch``), the eval sweeps
-over the val and test stacks too (``_eval_scan``); on the CPU the same
-steps run eagerly, in the same order with the same seeds as the per-step
-loop of ``--scan_epochs false``.  The sparse layout and a dense GAT whose
-convs take the edge kernel (N >= 384) keep the per-step loop and say so
-(ROADMAP item 13b).
+``--scan_epochs true`` (the default) runs the device-side epoch on both
+layouts and every model, as cal_tpu's scanned epoch: ``_EpochPrefetcher``
+packs (the native packer), stacks and ships each epoch's batches (one
+pinned host-to-device copy per leaf) while the card runs the epoch before,
+and on CUDA every step replays one CUDA graph
+(``steps.make_causal_train_epoch``), the eval sweeps over the val and test
+stacks too (``_eval_scan``), and ``evaluate_causal``'s serving sweep goes
+through the eval epoch; on the CPU the same steps run eagerly, in the same
+order with the same seeds as the per-step loop of ``--scan_epochs
+false``.
 ``train_causal_real``: the reference's k-fold 'test_max' protocol on a real
 dataset (a fresh model per fold, the epoch chosen afterwards from the
 fold-mean test accuracies, mean and std over folds, the ``sydall`` line).
@@ -45,7 +45,6 @@ from cal_tpu_torch.data.loader import (
 )
 from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.models.factory import CAUSAL, get_model
-from cal_tpu_torch.nn.layers import edge_kernel_at
 from cal_tpu_torch.train.optim import cosine_lr
 from cal_tpu_torch.train.steps import (
     StackedBatches,
@@ -258,32 +257,6 @@ def _scan_evaluator(eval_epoch):
         *(_eval_scan(eval_epoch, stacked, generator) or [0] * 4))
 
 
-def scan_blocker(cfg: Config, budgets: dict) -> str | None:
-    """Why ``--scan_epochs true`` keeps the per-step loop for this run, or
-    None: the sparse layout, and a dense GAT backbone whose convs take the
-    edge kernel (N >= 384) are not captured yet (ROADMAP item 13b)."""
-    if cfg.layout == "sparse":
-        return "the sparse layout"
-    if cfg.model in ("CausalGAT", "GAT"):
-        n = budgets["node_budget"]
-        if cfg.batch_size * n * n < 2**31 and edge_kernel_at(budgets["edge_per_graph"], n):
-            return f"a dense GAT on the edge kernel (N = {n})"
-    return None
-
-
-def use_scan(cfg: Config, budgets: dict) -> bool:
-    """Whether this run takes the device-side epoch; prints the line that
-    names ROADMAP item 13b where ``--scan_epochs true`` keeps the per-step
-    loop."""
-    if not cfg.scan_epochs:
-        return False
-    why = scan_blocker(cfg, budgets)
-    if why is not None:
-        print(f"scan_epochs: {why} keeps the per-step loop "
-              "(its capture is ROADMAP queue 1 item 13b)", flush=True)
-    return why is None
-
-
 def _want_pack(cfg: Config, graphs) -> bool:
     """``want_pack`` for ``cfg``; "auto" prints its decision to pack as
     cal_tpu's ``_want_pack`` does."""
@@ -346,7 +319,7 @@ def train_causal_syn(train_set: Sequence[HostGraph], val_set: Sequence[HostGraph
     train_loader, val_loader, test_loader = make_loaders(train_set, val_set, test_set, cfg)
     state = init_state(cfg, train_set[0].x.shape[1], cfg.num_classes, device)
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, train_loader.schedule_steps)
-    scan = use_scan(cfg, train_loader.budgets)
+    scan = cfg.scan_epochs
     args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
     # eval loaders don't shuffle: pack and copy them to the device once
     if scan:
@@ -438,9 +411,12 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
                     num_classes: int | None = None) -> dict:
     """Restore the newest checkpoint from ``cfg.save_dir`` and run the
     three-branch eval sweep over ``test_set`` in ``cfg.layout`` (budgets
-    over the test set, packed when ``_want_pack`` says so, as cal_tpu's).
-    Returns the accuracies, the checkpoint step, the graph count and the
-    sweep's wall seconds."""
+    over the test set, packed when ``_want_pack`` says so, as cal_tpu's):
+    under ``--scan_epochs true`` through the eval epoch over the test set's
+    stack (``make_causal_eval_epoch`` over ``_stack_loader``, cal_tpu's
+    ``_eval_scan``), else batch by batch.  Returns the accuracies, the
+    checkpoint step, the graph count and the sweep's wall seconds (packing
+    and the copies to the device included)."""
     device = resolve_device(cfg.device)
     loader = Loader(test_set, cfg.batch_size, shuffle=False, layout=cfg.layout,
                     budgets=_budgets(cfg, test_set))
@@ -453,14 +429,18 @@ def evaluate_causal(test_set: Sequence[HostGraph], cfg: Config,
             "(train with --save_model first)")
     meta = ckpt.restore(model, step)
     model.to(device).eval()
-    eval_step = make_causal_eval_step(model, cfg.eval_random)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    co, c, o, n = _eval(eval_step, (b.to(device) for b in loader.host_batches()
-                                    if has_real_graph(b)), generator)
+    if cfg.scan_epochs:
+        evaluate = _scan_evaluator(make_causal_eval_epoch(model, cfg.eval_random))
+        co, c, o, n = evaluate(_stack_loader(loader, device), generator)
+    else:
+        co, c, o, n = _eval(make_causal_eval_step(model, cfg.eval_random),
+                            (b.to(device) for b in loader.host_batches() if has_real_graph(b)),
+                            generator)
     seconds = time.perf_counter() - t0
     print(
         "inference: ckpt epoch:[{}] | Test acc:[co:{:.2f},c:{:.2f},o:{:.2f}] "
@@ -504,7 +484,7 @@ def train_causal_real(dataset: Sequence[HostGraph], num_classes: int, cfg: Confi
     accs = {k: np.zeros((folds, cfg.epochs)) for k in ("co", "c", "o", "train")}
     random_guess = 1.0 / num_classes
     budgets = _budgets(cfg, graphs)
-    scan = use_scan(cfg, budgets)
+    scan = cfg.scan_epochs
     schedule = None
     history = []
     for fold, (train_idx, test_idx, _) in enumerate(zip(*k_fold(labels, folds,

@@ -10,7 +10,7 @@ running stats, which the forward moves in place.  Both steps take a dense
 batch (``PackedDenseBatch``) or a sparse one (``GraphBatch``) and run
 eagerly.  The device-side epoch (``make_causal_train_epoch``,
 ``make_causal_eval_epoch`` and the baselines' counterparts, cal_tpu's
-scanned epochs) takes the dense layout's batches stacked on a step axis
+scanned epochs) takes either layout's batches stacked on a step axis
 (``StackedBatches``): on CUDA it replays one CUDA graph of the step
 (``train/graphs.py``), on the CPU it runs the same steps eagerly.
 """
@@ -41,11 +41,14 @@ class TrainState:
 
 def _as_graph(batch: PackedDenseBatch | GraphBatch, dtype: torch.dtype | None = None
               ) -> DenseGraphBatch | GraphBatch:
-    """The device graph: a dense batch's adjacency is built directly in the
-    model's compute dtype; a sparse batch is used as it is (the model casts
-    its features)."""
+    """The device graph of one step: a dense batch's adjacency is built
+    directly in the model's compute dtype; a sparse batch is a new
+    GraphBatch over the same leaves (the model casts its features), so what
+    the kernels derive from the graph (``GraphBatch.derived``: the plain
+    conv's degree) is computed once in the step, and in a captured step at
+    each replay, from the leaves the step reads."""
     if isinstance(batch, GraphBatch):
-        return batch
+        return dataclasses.replace(batch)
     return to_dense(batch, dtype)
 
 
@@ -102,7 +105,8 @@ def _make_train_step(state: TrainState, schedule, seed: int, body, generator_see
     device work of one step, the optimizer's included): before each step
     the host seeds the step's generator from ``generator_seed(step)`` and
     sets the rate from ``schedule(step)``; the GAT layers' dropout seeds
-    derive from (seed, step, layer)."""
+    derive from (seed, step, layer) and reach the layers as a row of
+    ``_seed_table`` on the device, as a captured step's do."""
     model, optimizer = state.model, state.optimizer
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
@@ -115,7 +119,8 @@ def _make_train_step(state: TrainState, schedule, seed: int, body, generator_see
     def on_device(batch: PackedDenseBatch | GraphBatch,
                   sums: torch.Tensor | None) -> torch.Tensor:
         prologue()
-        m = body(batch, generator, dropout_seeds(model, seed, state.step))
+        table = _seed_table(model, seed, state.step, 1, device)
+        m = body(batch, generator, None if table is None else table[0])
         state.step += 1
         return m if sums is None else sums + m
 
@@ -201,42 +206,45 @@ def make_baseline_train_step(state: TrainState, schedule, seed: int):
 
 @dataclasses.dataclass(frozen=True)
 class StackedBatches:
-    """An epoch of dense batches stacked on a leading step axis (the JAX
-    package's ``stack_batches_host`` tree): ``batch`` a PackedDenseBatch of
-    NumPy or torch leaves [S, ...], one ``eg_budget``; ``real`` [S] bool on
-    the host, whether step s holds a real graph (the gate of
-    ``has_real_graph``)."""
+    """An epoch of batches of one layout stacked on a leading step axis (the
+    JAX package's ``stack_batches_host`` tree): ``batch`` a PackedDenseBatch
+    (one ``eg_budget``) or a GraphBatch (both CSRs' padded leaves and heavy
+    counts included) whose every leaf is a NumPy or torch array [S, ...];
+    ``real`` [S] bool on the host, whether step s holds a real graph (the
+    gate of ``has_real_graph``)."""
 
-    batch: PackedDenseBatch
+    batch: PackedDenseBatch | GraphBatch
     real: np.ndarray
 
     @property
     def steps(self) -> int:
         return len(self.real)
 
-    def at(self, s: int) -> PackedDenseBatch:
-        b = self.batch
-        return PackedDenseBatch(b.x[s], b.edge_flat[s], b.n_nodes[s], b.y[s], b.eg_budget)
+    def at(self, s: int) -> PackedDenseBatch | GraphBatch:
+        return self.batch.with_leaves([t[s] for t in self.batch.leaves()])
 
     def leaves(self) -> tuple:
-        b = self.batch
-        return b.x, b.edge_flat, b.n_nodes, b.y
+        return self.batch.leaves()
 
     def with_leaves(self, leaves) -> "StackedBatches":
-        return StackedBatches(PackedDenseBatch(*leaves, self.batch.eg_budget), self.real)
+        return StackedBatches(self.batch.with_leaves(leaves), self.real)
 
 
 def stack_batches_host(batches) -> StackedBatches:
-    """Dense host batches of one shape (NumPy leaves) stacked on a new
+    """Host batches of one layout and shape (NumPy leaves) stacked on a new
     leading axis: one array per leaf, shipped by ``ship`` as one copy each."""
-    if not batches or any(isinstance(b, GraphBatch) for b in batches):
-        raise ValueError("stack_batches_host takes one or more dense batches")
-    eg = {b.eg_budget for b in batches}
-    if len(eg) != 1:
-        raise ValueError(f"batches of one epoch carry different eg_budgets {sorted(eg)}")
-    leaves = (np.stack([np.asarray(getattr(b, k)) for b in batches])
-              for k in ("x", "edge_flat", "n_nodes", "y"))
-    return StackedBatches(PackedDenseBatch(*leaves, eg.pop()),
+    if not batches:
+        raise ValueError("stack_batches_host takes one or more batches")
+    kind = type(batches[0])
+    if any(type(b) is not kind for b in batches):
+        raise ValueError("the batches of one epoch share one layout")
+    if kind is PackedDenseBatch:
+        eg = {b.eg_budget for b in batches}
+        if len(eg) != 1:
+            raise ValueError(f"batches of one epoch carry different eg_budgets {sorted(eg)}")
+    leaves = zip(*(b.leaves() for b in batches))
+    return StackedBatches(batches[0].with_leaves(np.stack([np.asarray(a) for a in leaf])
+                                                 for leaf in leaves),
                           np.array([has_real_graph(b) for b in batches]))
 
 
@@ -260,6 +268,8 @@ def _seed_table(model, seed: int, first_step: int, steps: int, device) -> torch.
     if not rows or rows[0] is None:
         return None
     table = torch.from_numpy(np.array(rows, np.uint64).view(np.int64))
+    if device.type != "cuda":
+        return table
     # from pinned memory without a wait: the host allocator keeps the block
     # until the copy has run
     return table.pin_memory().to(device, non_blocking=True)
@@ -285,17 +295,18 @@ class _CapturedEpoch:
     def _run(self):
         return self.sums.add_(self.step.body(self.static, self.step.generator, self.seeds))
 
-    def _stage(self, batch: PackedDenseBatch) -> None:
+    def _stage(self, batch: PackedDenseBatch | GraphBatch) -> None:
         if self.static is None:
-            self.static = PackedDenseBatch(*(t.clone() for t in (batch.x, batch.edge_flat,
-                                                                  batch.n_nodes, batch.y)),
-                                           batch.eg_budget)
+            self.static = batch.with_leaves([t.clone() for t in batch.leaves()])
             return
         s = self.static
-        if batch.eg_budget != s.eg_budget:
-            raise ValueError("a captured step's batches share one eg_budget")
-        for dst, src in ((s.x, batch.x), (s.edge_flat, batch.edge_flat),
-                         (s.n_nodes, batch.n_nodes), (s.y, batch.y)):
+        if type(batch) is not type(s) or (isinstance(s, PackedDenseBatch)
+                                          and batch.eg_budget != s.eg_budget):
+            raise ValueError("a captured step's batches share one layout and eg_budget")
+        for dst, src in zip(s.leaves(), batch.leaves(), strict=True):
+            if dst.shape != src.shape:
+                raise ValueError(f"a captured step's batches share one shape: {tuple(src.shape)}"
+                                 f" into {tuple(dst.shape)}")
             dst.copy_(src)
 
     def __call__(self, stacked: StackedBatches) -> torch.Tensor | None:

@@ -30,14 +30,20 @@
       and one f32 step on 16 graphs, card against CPU; then the device time
       of one warm bf16 train step by operator, eager and as a replay of
       its captured CUDA graph (``profile_train_step_captured``);
-   d. captured epoch (CausalGCN, CausalGAT and the GCN baseline): the
-      device-side epoch (``make_*_train_epoch``, the step captured as one
-      CUDA graph) against the eager steps from one state for 3 epochs of
-      the shuffled train batches; fails unless parameters, BatchNorm
-      statistics, Adam's moments and the epoch sums are bitwise equal and
-      the launches agree (the graph's counted launches added per replay);
-      both runs' epoch seconds; then the benchmark's configs 1 and 2 at
-      their full timed windows (``bench_config`` lines, ms a step);
+   d. captured epoch (``CAPTURE_CASES``: dense CausalGCN, CausalGAT and the
+      GCN baseline; sparse CausalGCN, CausalGIN, CausalGAT and the GAT
+      baseline; packed sparse CausalGCN on REDDIT-shaped threads, pad
+      batches in its stacks; dense CausalGAT on REDDIT-shaped threads at N
+      = 2,560, its convs on the edge kernel): the device-side epoch
+      (``make_*_train_epoch``, the step captured as one CUDA graph) against
+      the eager steps from one state for 3 epochs of the shuffled train
+      batches; fails unless each non-synthetic-dense stack's batches differ
+      in their heavy-chunk counts, parameters, BatchNorm statistics, Adam's
+      moments and the epoch sums are bitwise equal and the launches agree
+      (the graph's counted launches added per replay); both runs' epoch
+      seconds, the staged bytes, the peak device memory; then the
+      benchmark's configs 1 and 2 at their full timed windows
+      (``bench_config`` lines, ms a step);
 4. sparse layout (CausalGCN serving, ``--layout sparse``) on the canonical
    dataset size (data_num 2000: batches of 128 graphs at V = 31,744 nodes,
    E = 128,000 edges):
@@ -48,9 +54,10 @@
       PyTorch library call (torch.sparse.mm on a CSR of materialized
       coefficients, index_add_), cold L2;
    b. serving: saves a seeded model, drives ``main_syn --layout sparse
-      --inference`` with the counters at 0 and fails unless K1 (the pair),
-      the plain conv's degree, K2, K3 and K4 launched 1, 1, 1, 3 and 2 times
-      per batch and no dense kernel launched; serves the
+      --inference`` (the sweep through the eval epoch) with the counters at
+      0 and fails unless K1 (the pair), the plain conv's degree, K2, K3 and
+      K4 launched 1, 1, 1, 3 and 2 times per batch and no dense kernel
+      launched; serves the
       checkpoint of the CausalGCN training run (3.b) through both layouts
       and fails unless their f32 eval counts are equal and their f32
       log-probs agree batch by batch (warm sparse and dense serving rates
@@ -76,7 +83,8 @@
       and with all but it), f32 card against CPU, and f32 sparse against
       dense on the card for 3 weight seeds on each of 4 batches, with a
       seeded fault (every 32nd edge masked out) that must read above the
-      limit; the device time of one warm sparse train step by operator;
+      limit; the device time of one warm sparse train step by operator,
+      eager and captured (``profile_train_step_captured``);
 6. sparse CausalGAT (``--model CausalGAT --layout sparse``) at the same size:
    a. kernel phase: on the same two batches, holds the row statistics (K8),
       the coefficient SpMM and its transposed mode (K9, K9T) and the SDDMM
@@ -134,7 +142,8 @@
       edge forwards, per step one dual backward and three edge backwards, no
       flash; finite losses, the ``sydall`` line; epoch seconds, peak device
       memory; then emits a.'s rows 1, 2 and 2b lines with these launches,
-      and the device time of one train step at N = 3,840;
+      and the device time of one train step at N = 3,840, eager and
+      captured;
    c. times flash against edge (forward plus backward, bf16, dropout 0.2,
       B = 128) at five (N, Eg') shapes beside the v5e rule's choice.
 
@@ -220,12 +229,15 @@ den, dti, dtj, dxh); from another tree's root, for an A/B.
 
     python3 chip_smoke.py --epoch
 
-builds the dense kernels and times the dense training path alone: for
-CausalGCN and CausalGAT the training phase (``main_syn``, 3 epochs, the
-tree's default ``--scan_epochs``), the eager ``profile_train_step`` and,
-where the tree has the device-side epoch, ``profile_train_step_captured``
-and the captured-epoch phase; then the benchmark's configs 1 and 2; from
-another tree's root (``PYTHONPATH`` set to it), for an A/B.
+builds the kernels and times the training paths alone: the eager
+``profile_train_step`` and, where the tree captures that path,
+``profile_train_step_captured`` of dense CausalGCN and CausalGAT (N =
+256), of sparse CausalGCN, CausalGAT and CausalGIN on the canonical serving
+batch, and of dense CausalGAT on the first SYNREDDIT batch (N = 3,840, the
+edge kernel); ``main_real`` on SYNREDDIT (dense CausalGAT and packed sparse
+CausalGCN, epoch seconds); the captured-epoch phase's cases the tree
+supports; the benchmark's configs 1-3; from another tree's root
+(``PYTHONPATH`` set to it), for an A/B.
 
     python3 chip_smoke.py --walk
 
@@ -366,6 +378,16 @@ GAT_SPMM_TOL = (1e-4, 1e-4)
 COO_TOL = (1e-4, 1e-4)
 BASELINE_EPOCHS = 1       # each baseline's short run, per layout
 CAPTURE_EPOCHS = 3        # the captured-epoch phase: 3 epochs of 7 steps
+# Its REDDIT-shaped cases: 384 threads (data/reddit_synthetic.py), 3 dense
+# batches of 128 at N = 2,560 (the GAT convs on the edge kernel), or packed
+# sparse batches (3 real and 1 pad an epoch).
+CAPTURE_REDDIT_GRAPHS = 384
+# (model, case) of the captured-epoch phase: "dense" / "sparse" the
+# synthetic run's train batches, "sparse_packed" and "dense_edge" the
+# REDDIT-shaped ones.
+CAPTURE_CASES = (("CausalGCN", "dense"), ("CausalGAT", "dense"), ("GCN", "dense"),
+                 ("CausalGCN", "sparse"), ("CausalGIN", "sparse"), ("CausalGAT", "sparse"),
+                 ("GAT", "sparse"), ("CausalGCN", "sparse_packed"), ("CausalGAT", "dense_edge"))
 # Real-data phase: main_real on SYNREDDIT at full width; only the fold and
 # epoch counts are cut (the protocol runs 10 folds of 100 epochs).
 REAL_FOLDS, REAL_EPOCHS = 2, 2
@@ -1141,32 +1163,89 @@ def _state_gap(a, b) -> dict:
             "adam": gap(moments(a), moments(b))}
 
 
-def captured_epoch_phase(torch, model: str) -> dict:
-    """The device-side epoch against the per-step loop from one state: two
-    copies of a fresh ``model`` (bf16, H 128, 3 layers, B 128, N 256) train
-    CAPTURE_EPOCHS epochs of the dense synthetic run's shuffled batches
-    (staged on the card once), one through ``step.on_device`` batch by batch
-    (eager), one through ``make_*_train_epoch`` (the first step eager, the
-    second captured, every later one a replay), with the counters at 0
-    before each.  Fails unless the parameters, the BatchNorm statistics,
-    Adam's moments and every epoch's sums are bitwise equal and the kernels
-    launched as often in both; prints both runs' epoch seconds."""
-    from cal_tpu_torch.models.factory import BASELINES
-    from cal_tpu_torch.train import steps as st
-    from cal_tpu_torch.train.optim import cosine_lr
+def _capture_loader(model: str, case: str):
+    """(cfg, train loader, feature width) of a captured-epoch case: the
+    synthetic run's shuffled train loader on the case's layout
+    (``make_loaders``, budgets over the three splits), or a shuffled loader
+    of CAPTURE_REDDIT_GRAPHS REDDIT-shaped threads, packed sparse or dense."""
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
     from cal_tpu_torch.utils.config import Config
 
+    layout = "sparse" if case.startswith("sparse") else "dense"
     cfg = Config(model=model, hidden=H, layers=LAYERS, batch_size=B, dtype="bfloat16",
-                 seed=SEED, data_num=DATA_NUM, device="cuda", epochs=100)
-    loader, train = _dense_train_split(cfg)
+                 seed=SEED, data_num=DATA_NUM, device="cuda", epochs=100, layout=layout)
+    if case in ("dense", "sparse"):
+        loader, train = _dense_train_split(cfg)
+        return cfg, loader, train[0].x.shape[1]
+    graphs = reddit_graphs(CAPTURE_REDDIT_GRAPHS, seed=SEED, feat=10)
+    budgets = compute_budgets(graphs, B, layout, pack=layout == "sparse")
+    loader = Loader(graphs, B, shuffle=True, budgets=budgets, seed=SEED, layout=layout)
+    return cfg, loader, graphs[0].x.shape[1]
+
+
+def _heavy_counts(torch, stacked) -> list:
+    """Each step's heavy-chunk counts: both CSRs' of a sparse stack, the edge
+    index's heavy receiver and sender lists of a dense one (the edge GAT's
+    walk; built on the card), as (receiver, sender) pairs."""
+    from cal_tpu_torch.graph import GraphBatch
+    from cal_tpu_torch.ops.edge_gat import EdgeIndex
+
+    b = stacked.batch
+    if isinstance(b, GraphBatch):
+        return list(zip(b.recv.heavy_count[:, 0].tolist(), b.send.heavy_count[:, 0].tolist()))
+    bsz, n = b.x.shape[1:3]
+    out = []
+    for s in range(stacked.steps):
+        counts = EdgeIndex(b.edge_flat[s], bsz, n).build().counts.tolist()
+        out.append((counts[1], counts[3]))
+    return out
+
+
+def captured_epoch_phase(torch, model: str, case: str = "dense") -> dict:
+    """The device-side epoch against the per-step loop from one state: two
+    copies of a fresh ``model`` (bf16, H 128, 3 layers, B 128) train
+    CAPTURE_EPOCHS epochs of one case's shuffled batches (``_capture_loader``;
+    staged on the card once), one through ``step.on_device`` batch by batch
+    (eager, int dropout seeds), one through ``make_*_train_epoch`` (the
+    first step eager, the second captured, every later one a replay; the
+    dropout seeds from the epoch's seed table on the card), with the
+    counters at 0 before each.  A packed epoch's pad batches are skipped by
+    both.  Fails unless each stack's batches differ in their heavy-chunk
+    counts (a count frozen at the capture would show), the parameters, the
+    BatchNorm statistics, Adam's moments and every epoch's sums are bitwise
+    equal, and the kernels launched as often in both; prints both runs'
+    epoch seconds, the staged bytes and the peak device memory."""
+    from cal_tpu_torch.graph import to_dense
+    from cal_tpu_torch.models.factory import BASELINES
+    from cal_tpu_torch.nn.layers import takes_edge_kernel
+    from cal_tpu_torch.train import steps as st
+    from cal_tpu_torch.train.optim import cosine_lr
+
+    cfg, loader, feat = _capture_loader(model, case)
     stacks = [st.ship(st.stack_batches_host(list(loader.host_batches())), torch.device("cuda"))
               for _ in range(CAPTURE_EPOCHS)]
+    staged = sum(t.numel() * t.element_size() for t in stacks[0].leaves())
+    heavy = [_heavy_counts(torch, stacked) for stacked in stacks]
+    pads = sum(int((~stacked.real).sum()) for stacked in stacks)
+    if case != "dense":
+        check(all(len(set(h)) > 1 for h in heavy),
+              f"{model} {case}: a stack's batches share their heavy-chunk counts {heavy}")
+    if case == "sparse_packed":
+        check(pads > 0, f"{model} {case}: no pad batch in the stacks")
+    if case == "dense_edge":
+        probe = to_dense(stacks[0].at(0), torch.bfloat16)
+        check(takes_edge_kernel(probe, probe.x.shape[1]),
+              f"{model} {case}: batch {tuple(probe.x.shape)} not on the edge kernel")
+        del probe
     baseline = model in BASELINES
     schedule = cosine_lr(cfg.lr, cfg.min_lr, cfg.epochs, loader.schedule_steps)
     counts = all_counters()
     runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for kind in ("eager", "captured"):
-        state = st.init_state(cfg, train[0].x.shape[1], cfg.num_classes, torch.device("cuda"))
+        state = st.init_state(cfg, feat, cfg.num_classes, torch.device("cuda"))
         if baseline:
             step = st.make_baseline_train_step(state, schedule, cfg.seed)
             epoch_fn = st.make_baseline_train_epoch(state, schedule, cfg.seed)
@@ -1184,21 +1263,27 @@ def captured_epoch_phase(torch, model: str) -> dict:
             else:
                 m = None
                 for s in range(stacked.steps):
-                    m = step.on_device(stacked.at(s), m)
+                    if stacked.real[s]:
+                        m = step.on_device(stacked.at(s), m)
             sums.append(m.tolist())
             secs.append(time.perf_counter() - t0)
         runs[kind] = {"state": state, "sums": sums, "seconds": secs,
                       "launches": {n: k.launches for n, k in counts.items() if k.launches},
                       "replays": getattr(getattr(epoch_fn, "call", None), "replays", 0)}
+    peak = torch.cuda.max_memory_allocated()
     eager, cap = runs["eager"], runs["captured"]
     gap = _state_gap(eager["state"], cap["state"])
     sums_gap = max(abs(a - b) for x, y in zip(eager["sums"], cap["sums"]) for a, b in zip(x, y))
-    steps = sum(stacked.steps for stacked in stacks)
-    emit({"phase": "captured_epoch", "model": model, "epochs": CAPTURE_EPOCHS,
-          "steps": steps, "replays": cap["replays"], "max_abs_diff": {**gap, "sums": sums_gap},
+    steps = sum(int(stacked.real.sum()) for stacked in stacks)
+    first = int(stacks[0].real.sum())
+    emit({"phase": "captured_epoch", "model": model, "case": case, "layout": cfg.layout,
+          "epochs": CAPTURE_EPOCHS, "steps": steps, "pad_steps": pads,
+          "replays": cap["replays"], "max_abs_diff": {**gap, "sums": sums_gap},
+          "heavy_counts": heavy, "batch_shape": list(stacks[0].batch.x.shape[1:]),
+          "staged_bytes_per_epoch": staged, "peak_device_memory_gb": peak / 1e9,
           "eager_epoch_seconds": eager["seconds"], "captured_epoch_seconds": cap["seconds"],
-          "eager_ms_per_step_warm": sum(eager["seconds"][1:]) / (steps - stacks[0].steps) * 1e3,
-          "captured_ms_per_step_warm": sum(cap["seconds"][1:]) / (steps - stacks[0].steps) * 1e3,
+          "eager_ms_per_step_warm": sum(eager["seconds"][1:]) / (steps - first) * 1e3,
+          "captured_ms_per_step_warm": sum(cap["seconds"][1:]) / (steps - first) * 1e3,
           "launches_eager": eager["launches"], "launches_captured": cap["launches"],
           "hidden": H, "layers": LAYERS, "batch": B, "dtype": "bfloat16"})
     # the first step runs eagerly, every later one is a replay
@@ -1206,16 +1291,17 @@ def captured_epoch_phase(torch, model: str) -> dict:
     check(eager["launches"] == cap["launches"],
           f"captured launches {cap['launches']} != eager {eager['launches']}")
     check(max(gap.values()) == 0.0 and sums_gap == 0.0 and eager["sums"] == cap["sums"],
-          f"{model}: the captured epoch differs from the eager steps: {gap}, sums {sums_gap}")
+          f"{model} {case}: the captured epoch differs from the eager steps: {gap}, "
+          f"sums {sums_gap}")
     return cap["launches"]
 
 
-def profile_captured_step(torch, test_set, host, model: str, top=20) -> None:
+def profile_captured_step(torch, test_set, host, model: str, top=20, layout="dense") -> None:
     """``profile_train_step`` for the captured step: a stack of the one host
-    batch through ``make_causal_train_epoch`` (its first call eager, its
-    second captured), then the wall time of one replay (median of 10, each
-    with its batch copy-in and ending in a synchronize) and its device time
-    by kernel from torch.profiler."""
+    batch (either layout) through ``make_causal_train_epoch`` (its first
+    call eager, its second captured), then the wall time of one replay
+    (median of 10, each with its batch copy-in and ending in a synchronize)
+    and its device time by kernel from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from cal_tpu_torch.train.optim import cosine_lr
@@ -1238,7 +1324,7 @@ def profile_captured_step(torch, test_set, host, model: str, top=20) -> None:
         epoch(stacked)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    emit({"phase": "profile_train_step_captured", "model": model, "layout": "dense",
+    emit({"phase": "profile_train_step_captured", "model": model, "layout": layout,
           "batch": list(host.x.shape), "replays": epoch.call.replays,
           "wall_ms": statistics.median(walls[2:]),
           "device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
@@ -1261,6 +1347,86 @@ def bench_configs_12(torch) -> None:
               "edges_per_s": r["edges_per_s"], "ms_per_step": r["seconds"] / r["steps"] * 1e3,
               "steps": r["steps"], "steps_per_call": r.get("steps_per_call"),
               "batches": len(batches)})
+
+
+def bench_config_3(torch) -> None:
+    """The benchmark's config 3 (packed sparse CausalGCN on 256
+    REDDIT-shaped threads, against the worst-case budgets) at its full timed
+    window, in ms a step and graphs/s; the tree's own ``bench_sparse_pack``
+    (the captured epoch where the tree has it for the sparse layout, else
+    the per-step loop)."""
+    from cal_tpu_torch import bench
+
+    cfg = bench._train_workload()[0].replace(device="cuda")
+    r = bench.bench_sparse_pack(cfg)
+    worst = r.pop("worst")
+    keys = ("edges_per_s", "graphs_per_s", "steps", "seconds", "batches", "budgets")
+    emit({"phase": "bench_config", "metric": "sparse_pack_train_edges_per_s",
+          "model": "CausalGCN", "root": HERE, "edges_per_s": r["edges_per_s"],
+          "ms_per_step": r["seconds"] / r["steps"] * 1e3, "steps": r["steps"],
+          "steps_per_call": r.get("steps_per_call"), "graphs_per_s": r["graphs_per_s"],
+          "speedup_vs_worst": r["speedup_vs_worst_case_padding"],
+          "worst": {k: worst[k] for k in keys}})
+
+
+def real_epochs(torch, root, model: str, layout: str) -> None:
+    """``main_real --dataset SYNREDDIT`` (REAL_FOLDS folds of REAL_EPOCHS
+    epochs, bf16, full width) on ``layout`` (sparse: "auto" packs), with the
+    tree's default ``--scan_epochs``: its epoch and train seconds and the
+    peak device memory (the full run holds its launches)."""
+    import contextlib
+    import io
+
+    from cal_tpu_torch.main_real import main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = main(["--model", model, "--dataset", "SYNREDDIT", "--layout", layout, "--dtype",
+                    "bfloat16", "--folds", str(REAL_FOLDS), "--epochs", str(REAL_EPOCHS),
+                    "--data_root", root, "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    hist = res["history"]
+    emit({"phase": "real_epochs", "model": model, "layout": layout, "root": HERE,
+          "folds": REAL_FOLDS, "epochs": REAL_EPOCHS, "wall_s": time.perf_counter() - t0,
+          "epoch_seconds": [h["seconds"] for h in hist],
+          "train_seconds": [h["train_seconds"] for h in hist],
+          "losses": [h["loss"] for h in hist],
+          "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def serving_rates(torch, test_set, repeats: int = 3) -> None:
+    """The serving sweep of ``main_syn --inference`` (``evaluate_causal``
+    on a checkpoint of random weights from SEED, bf16, full width) over
+    ``test_set`` for CausalGCN and CausalGAT on both layouts, ``repeats``
+    sweeps each under the tree's ``--scan_epochs`` default and under
+    ``--scan_epochs false`` (the per-batch loop): graphs/s of every sweep,
+    the first included (a captured sweep pays its capture in each)."""
+    import contextlib
+    import io
+
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.train.causal import evaluate_causal
+    from cal_tpu_torch.utils.checkpoint import Checkpointer
+    from cal_tpu_torch.utils.config import Config
+
+    feat = test_set[0].x.shape[1]
+    for model in ("CausalGCN", "CausalGAT"):
+        save_dir = os.path.join(HERE, "build", f"chip_smoke_ckpt_serving_{model}")
+        cfg = Config(model=model, hidden=H, layers=LAYERS, batch_size=B, dtype="bfloat16",
+                     seed=SEED, inference=True, save_dir=save_dir, device="cuda")
+        Checkpointer(save_dir).save(0, get_model(cfg, feat, cfg.num_classes), {"epoch": 0})
+        for layout in ("dense", "sparse"):
+            for scan in (cfg.scan_epochs, False):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs = [evaluate_causal(test_set, cfg.replace(layout=layout,
+                                                                  scan_epochs=scan))
+                            for _ in range(repeats)]
+                emit({"phase": "serving_rate", "model": model, "layout": layout,
+                      "scan_epochs": scan, "root": HERE, "graphs": runs[0]["graphs"],
+                      "graphs_per_s": [r["graphs"] / r["seconds"] for r in runs],
+                      "test_acc_co": [r["test_acc_co"] for r in runs]})
 
 
 def _csr_coefs(torch, g, src, dst, deg, dis):
@@ -1526,22 +1692,18 @@ def sparse_counters(training: bool = False) -> dict:
     return ks
 
 
-def sparse_want(model: str, fwd: int, steps: int | None = None,
-                batches: int | None = None) -> dict:
+def sparse_want(model: str, fwd: int, steps: int | None = None) -> dict:
     """Exact launches of ``sparse_counters`` for ``fwd`` forwards (eval
-    batches and train steps) on ``batches`` device batches (None: one a
-    forward; the trainers copy the eval splits to the device once a run)
-    and ``steps`` backwards (None: serving).  Per forward: K1 1 (the pair),
-    K2 1; CausalGCN K3 3 (three plain convs on the batch's one plain
-    degree, which runs once a batch), CausalGAT K8 and K9 one per layer,
-    CausalGIN K11 one per layer; all K4 2.  Per backward: K2T, K5, K6 1, K7
-    2; CausalGCN K3T 3, CausalGAT K9T and K10 one per layer, CausalGIN K11T
-    one per layer (K12 never: GIN's coefficient, the edge mask, needs no
-    gradient).  No dense kernel."""
+    batches and train steps) and ``steps`` backwards (None: serving).  Per
+    forward: K1 1 (the pair), K2 1; CausalGCN the plain conv's degree 1
+    (each forward computes it once from its own batch) and K3 3, CausalGAT
+    K8 and K9 one per layer, CausalGIN K11 one per layer; all K4 2.  Per
+    backward: K2T, K5, K6 1, K7 2; CausalGCN K3T 3, CausalGAT K9T and K10
+    one per layer, CausalGIN K11T one per layer (K12 never: GIN's
+    coefficient, the edge mask, needs no gradient).  No dense kernel."""
     gat, gin = model == "CausalGAT", model == "CausalGIN"
-    batches = fwd if batches is None else batches
     want = {"pair_sender_degree": fwd, "pair_coef_spmm": fwd,
-            "plain_sender_degree": 0 if gat or gin else batches,
+            "plain_sender_degree": 0 if gat or gin else fwd,
             "plain_coef_spmm": 0 if gat or gin else 3 * fwd, "segment_pool": 2 * fwd,
             "gat_row_stats": LAYERS * fwd if gat else 0,
             "gat_coef_spmm": LAYERS * fwd if gat else 0,
@@ -1559,16 +1721,15 @@ def sparse_want(model: str, fwd: int, steps: int | None = None,
     return want
 
 
-def baseline_want(model: str, layout: str, fwd: int, steps: int, batches: int) -> dict:
+def baseline_want(model: str, layout: str, fwd: int, steps: int) -> dict:
     """Exact launches of ``sparse_counters(training=True)`` for a baseline's
-    training run of ``fwd`` forwards (train steps and eval batches) on
-    ``batches`` device batches and ``steps`` backwards.  Sparse: per forward
-    GCN K3, GIN K11, GAT K8 and K9 one per layer, all K4 1, and GCN's plain
-    degree once a batch; per backward GCN K3T, GIN K11T, GAT K9T and K10 one
-    per layer, all K7 1.  Dense: the adjacency build once a batch and, for
-    GAT, the flash forward one per layer a forward and its backward one per
-    layer a step (the GCN and GIN aggregates are plain products).  Nothing
-    else."""
+    training run of ``fwd`` forwards (train steps and eval batches) and
+    ``steps`` backwards.  Sparse: per forward GCN K3, GIN K11, GAT K8 and K9
+    one per layer, all K4 1, and GCN's plain degree once; per backward GCN
+    K3T, GIN K11T, GAT K9T and K10 one per layer, all K7 1.  Dense: the
+    adjacency build once a forward and, for GAT, the flash forward one per
+    layer a forward and its backward one per layer a step (the GCN and GIN
+    aggregates are plain products).  Nothing else."""
     want = dict.fromkeys(sparse_counters(training=True), 0)
     if layout == "dense":
         want["adj_build"] = fwd
@@ -1576,7 +1737,7 @@ def baseline_want(model: str, layout: str, fwd: int, steps: int, batches: int) -
             want.update(flash_gat_fwd=LAYERS * fwd, flash_gat_bwd=LAYERS * steps)
         return want
     want.update(segment_pool=fwd, segment_pool_bwd=steps,
-                plain_sender_degree=batches if model == "GCN" else 0)
+                plain_sender_degree=fwd if model == "GCN" else 0)
     per_layer = {"GCN": (("plain_coef_spmm",), ("plain_coef_spmm_t",)),
                  "GIN": (("coo_spmm",), ("coo_spmm_t",)),
                  "GAT": (("gat_row_stats", "gat_coef_spmm"),
@@ -1902,6 +2063,17 @@ def gat_inputs(torch, v, dt, seed=SEED + 4):
     return xh, att, xh.reshape(v, H), ti, tj, w, dD
 
 
+def timed_seed(torch, seed: int, older):
+    """The 64-bit dropout ``seed`` of a timed GAT kernel call as a captured
+    step hands it over: a seed buffer on the card, which the kernels read
+    there, where the tree's sparse and edge GAT kernels take one (else
+    ``older``, the form an older parent's wrappers take, for an A/B)."""
+    from cal_tpu_torch import graph as graph_mod
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+
+    return seed_buffer(seed, "cuda") if hasattr(graph_mod, "heavy_capacity") else older
+
+
 def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
     """K8, K9, K9T and K10 against their twins on one sparse batch ``g`` (on
     the card), bf16 and f32 features, at dropout rate 0 and GAT_RATE (the
@@ -1924,6 +2096,7 @@ def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
     plane = HEADS * v * 4
     csr = lambda c: 4 * (2 * (v + 1) + c.num_chunks)
     words = (DROP_SEED & 0xFFFFFFFF, DROP_SEED >> 32)
+    seed = timed_seed(torch, DROP_SEED, words)
     out = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         elt = torch.tensor([], dtype=dt).element_size()
@@ -2009,16 +2182,16 @@ def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
             "receivers, exp terms), scores and exp terms materialized outside the calls",
             library_ms_parts=lib8)
         qk = q * gs._edge_keep(words, GAT_RATE, HEADS, e, q.device) / (1.0 - GAT_RATE)
-        row("gat_coef_spmm", lambda: gs.gat_coef_spmm(x, tj, ti, m, words, GAT_RATE, g),
+        row("gat_coef_spmm", lambda: gs.gat_coef_spmm(x, tj, ti, m, seed, GAT_RATE, g),
             lambda: gs.gat_coef_spmm_plain(x, tj, ti, m, words, GAT_RATE, g),
             v * H * elt + 3 * plane + 5 * e + csr(g.recv) + v * H * 4,
             2 * H * n_live + 8 * HEADS * n_live, max(errs["gat_coef_spmm"]), GAT_SPMM_TOL,
             _library_gat_spmm(torch, g, qk, x, False),
             "torch.sparse.mm(block-diagonal CSR [heads V, heads V] of the per-head weights, "
             "per-head x blocks), weights materialized outside the call, no self term",
-            kernel_ms_rate0=time_ms(torch, lambda: gs.gat_coef_spmm(x, tj, ti, m, words, 0.0, g),
+            kernel_ms_rate0=time_ms(torch, lambda: gs.gat_coef_spmm(x, tj, ti, m, seed, 0.0, g),
                                     flush))
-        row("gat_coef_spmm_t", lambda: gs.gat_coef_spmm_t(w, tj, ti, m, words, GAT_RATE, g),
+        row("gat_coef_spmm_t", lambda: gs.gat_coef_spmm_t(w, tj, ti, m, seed, GAT_RATE, g),
             lambda: gs.gat_coef_spmm_plain(w, tj, ti, m, words, GAT_RATE, g, transpose=True),
             v * H * 4 + 3 * plane + 9 * e + csr(g.send) + v * H * 4,
             2 * H * n_live + 8 * HEADS * n_live, max(errs["gat_coef_spmm_t"]), GAT_SPMM_TOL,
@@ -2026,15 +2199,15 @@ def gat_kernel_rows(torch, g, label, peaks, flush, split=False):
             "torch.sparse.mm(block-diagonal transposed CSR of the per-head weights, "
             "per-head w blocks), weights materialized outside the call",
             kernel_ms_rate0=time_ms(
-                torch, lambda: gs.gat_coef_spmm_t(w, tj, ti, m, words, 0.0, g), flush))
-        row("gat_sddmm_chain", lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, GAT_RATE, g),
+                torch, lambda: gs.gat_coef_spmm_t(w, tj, ti, m, seed, 0.0, g), flush))
+        row("gat_sddmm_chain", lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, seed, GAT_RATE, g),
             lambda: gs.gat_sddmm_chain_plain(x, w, tj, ti, m, dD, words, GAT_RATE, g),
             v * H * (elt + 4) + 4 * plane + 5 * e + csr(g.recv) + 4 * e + csr(g.send)
             + 2 * plane, 2 * H * n_live + 10 * HEADS * n_live, max(errs["gat_sddmm_chain"]),
             CHAIN_TOL, None, "none: no single PyTorch call computes the per-head SDDMM chain "
             "(dot products, keep bits, dq, dpre) and its sums by sender and by receiver",
             kernel_ms_rate0=time_ms(
-                torch, lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, 0.0, g), flush))
+                torch, lambda: gs.gat_sddmm_chain(x, w, tj, ti, m, dD, seed, 0.0, g), flush))
 
         if dt == torch.float32:
             # the Function's backward kernels against autograd of the twins
@@ -2198,9 +2371,8 @@ def baseline_phase(torch, model: str, layout: str, n_val: int, n_test: int) -> d
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counts.items()}
     steps = res["steps_per_epoch"] * BASELINE_EPOCHS
-    staged = -(-n_val // B) - (-n_test // B)       # eval batches, on the device once a run
-    evals = staged * BASELINE_EPOCHS
-    want = baseline_want(model, layout, steps + evals, steps, steps + staged)
+    evals = (-(-n_val // B) - (-n_test // B)) * BASELINE_EPOCHS
+    want = baseline_want(model, layout, steps + evals, steps)
     check(launches == want, f"{model} {layout} baseline launches {launches}, expected {want}")
     losses = [h["loss"] for h in res["history"]]
     check(all(map(math.isfinite, losses)), f"{model} {layout} baseline losses {losses}")
@@ -2239,10 +2411,9 @@ def sparse_training_phase(torch, sparse_test, n_val: int, model: str = "CausalGC
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counts.items()}
     steps = res["steps_per_epoch"] * SPARSE_TRAIN_EPOCHS
-    # every epoch sweeps the val and the test split, on the device once a run
-    staged = -(-n_val // B) - (-len(sparse_test) // B)
-    evals = staged * SPARSE_TRAIN_EPOCHS
-    want = sparse_want(model, steps + evals, steps, steps + staged)
+    # every epoch sweeps the val and the test split
+    evals = (-(-n_val // B) - (-len(sparse_test) // B)) * SPARSE_TRAIN_EPOCHS
+    want = sparse_want(model, steps + evals, steps)
     check(launches == want, f"sparse training launches {launches}, expected {want}")
     hist = res["history"]
     losses = [h["loss"] for h in hist]
@@ -2502,11 +2673,14 @@ def edge_inputs(torch, batch, dt):
 def edge_layer_calls(eg, ti, tj, xh, ef, g, rate):
     """(forward, backward) of the edge GAT kernels as a layer's step calls
     them: over the batch's index, built once, the backward handed the
-    forward's statistics."""
+    forward's statistics, the seed as a captured step hands it over."""
+    import torch
+
+    seed = timed_seed(torch, DROP_SEED, DROP_SEED)
     idx = eg.EdgeIndex(ef, *ti.shape[:2]).build()
-    stats = eg.edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate, idx, with_stats=True)[1]
-    return (lambda: eg.edge_gat_fwd(ti, tj, xh, ef, DROP_SEED, rate, idx, with_stats=True),
-            lambda: eg.edge_gat_bwd(ti, tj, xh, ef, g, DROP_SEED, rate, idx, stats))
+    stats = eg.edge_gat_fwd(ti, tj, xh, ef, seed, rate, idx, with_stats=True)[1]
+    return (lambda: eg.edge_gat_fwd(ti, tj, xh, ef, seed, rate, idx, with_stats=True),
+            lambda: eg.edge_gat_bwd(ti, tj, xh, ef, g, seed, rate, idx, stats))
 
 
 def edge_index_line(torch, ef, bsz, n, flush) -> dict:
@@ -3093,8 +3267,7 @@ def packed_train_phase(torch, splits) -> dict:
     real = lambda chunks: sum(len(c) > 0 for c in chunks)
     steps = sum(real(train_l._chunks()) for _ in range(PACK_EPOCHS))
     pads = PACK_EPOCHS * len(train_l) - steps
-    staged = real(val_l._chunks()) + real(test_l._chunks())
-    evals = PACK_EPOCHS * staged
+    evals = PACK_EPOCHS * (real(val_l._chunks()) + real(test_l._chunks()))
     counts = sparse_counters(training=True)
     for k in counts.values():
         k.launches = 0
@@ -3105,7 +3278,7 @@ def packed_train_phase(torch, splits) -> dict:
                     "--batch_size", str(B), "--data_num", str(SPARSE_DATA_NUM), "--seed",
                     str(SEED), "--epochs", str(PACK_EPOCHS), "--device", "cuda"])
     launches = {n: k.launches for n, k in counts.items()}
-    want = sparse_want("CausalGCN", steps + evals, steps, steps + staged)
+    want = sparse_want("CausalGCN", steps + evals, steps)
     check(launches == want, f"packed training launches {launches}, expected {want}")
     check("packed sparse budgets" in buf.getvalue(), "main_syn did not pack")
     losses = [h["loss"] for h in res["history"]]
@@ -3141,7 +3314,7 @@ def packed_real_phase(torch, root, ds) -> dict:
     graphs = list(ds)
     budgets = compute_budgets(graphs, B, "sparse", pack=True)
     real = lambda chunks: sum(len(c) > 0 for c in chunks)
-    steps = evals = staged = 0
+    steps = evals = 0
     train_idx, test_idx, _ = k_fold(np.array([g.y for g in graphs]), REAL_FOLDS, "test_max")
     for fold, (tr, te) in enumerate(zip(train_idx, test_idx)):
         tl = Loader([graphs[i] for i in tr], B, shuffle=True, budgets=budgets,
@@ -3149,7 +3322,6 @@ def packed_real_phase(torch, root, ds) -> dict:
         tl._chunks()
         steps += sum(real(tl._chunks()) for _ in range(REAL_EPOCHS))
         te_l = Loader([graphs[i] for i in te], B, budgets=budgets, layout="sparse")
-        staged += real(te_l._chunks())       # a fold's test batches, on the device once
         evals += REAL_EPOCHS * real(te_l._chunks())
     counts = sparse_counters(training=True)
     for k in counts.values():
@@ -3165,7 +3337,7 @@ def packed_real_phase(torch, root, ds) -> dict:
     wall = time.perf_counter() - t0
     log = buf.getvalue()
     launches = {n: k.launches for n, k in counts.items()}
-    want = sparse_want("CausalGCN", steps + evals, steps, steps + staged)
+    want = sparse_want("CausalGCN", steps + evals, steps)
     check(launches == want, f"packed main_real launches {launches}, expected {want}")
     check("pack_batches auto: worst-case batch" in log, "main_real did not pack SYNREDDIT")
     check("sydall Final: Causal | Dataset:[SYNREDDIT]" in log, "main_real printed no sydall")
@@ -3686,7 +3858,7 @@ def ptxas_walk(report: dict, libs=("spmm", "coo_spmm")) -> dict:
         for ln in report.get(lib, {}).get("log", "").splitlines():
             m = re.search(r"Function properties for (\w+)", ln)
             if m:
-                k = re.search(r"(csr_spmm_kernel|csr_spmm_combine)I\w*?"
+                k = re.search(r"(csr_spmm_kernel(?:_bounded)?|csr_spmm_combine)I\w*?"
                               r"(GcnSpmm|SigSpmm|CooSpmm|GatSpmm)I(13__nv_bfloat16|f)(\w*)",
                               m.group(1))
                 name = None if k is None else "{}<{}, {}, {}>".format(
@@ -4107,9 +4279,10 @@ def main() -> int:
         profile_train_step(torch, test_set, host, model)
         profile_captured_step(torch, test_set, host, model)
         lap(f"dense_{model}")
-    # the device-side epoch: captured against eager steps from one state
-    for model in ("CausalGCN", "CausalGAT", "GCN"):
-        captured_epoch_phase(torch, model)
+    # the device-side epoch: captured against eager steps from one state,
+    # both layouts, packed sparse and the dense edge-GAT path included
+    for model, case in CAPTURE_CASES:
+        captured_epoch_phase(torch, model, case)
     bench_configs_12(torch)
     lap("captured_epoch")
 
@@ -4170,9 +4343,9 @@ def main() -> int:
     # layouts, one step's gradients, the step's device time
     sparse_train_launches = sparse_training_phase(torch, sparse_test, len(sparse_val))
     sparse_grad_check(torch, sparse_test)
-    profile_train_step(torch, sparse_test,
-                       next(Loader(sparse_test, B, layout="sparse").host_batches()),
-                       "CausalGCN", layout="sparse")
+    sparse_host = next(Loader(sparse_test, B, layout="sparse").host_batches())
+    profile_train_step(torch, sparse_test, sparse_host, "CausalGCN", layout="sparse")
+    profile_captured_step(torch, sparse_test, sparse_host, "CausalGCN", layout="sparse")
     profile_train_step(torch, sparse_test, next(Loader(sparse_test, B).host_batches()),
                        "CausalGCN", layout="dense")
     lap("sparse_training")
@@ -4191,9 +4364,8 @@ def main() -> int:
         "CausalGAT")
     gat_train_launches = sparse_training_phase(torch, sparse_test, len(sparse_val), "CausalGAT")
     sparse_grad_check(torch, sparse_test, "CausalGAT")
-    profile_train_step(torch, sparse_test,
-                       next(Loader(sparse_test, B, layout="sparse").host_batches()),
-                       "CausalGAT", layout="sparse")
+    profile_train_step(torch, sparse_test, sparse_host, "CausalGAT", layout="sparse")
+    profile_captured_step(torch, sparse_test, sparse_host, "CausalGAT", layout="sparse")
     lap("sparse_gat")
 
     # CausalGIN: dense serving and training (its checkpoint feeds the sparse
@@ -4206,9 +4378,8 @@ def main() -> int:
         "CausalGIN")
     gin_train_launches = sparse_training_phase(torch, sparse_test, len(sparse_val), "CausalGIN")
     sparse_grad_check(torch, sparse_test, "CausalGIN")
-    profile_train_step(torch, sparse_test,
-                       next(Loader(sparse_test, B, layout="sparse").host_batches()),
-                       "CausalGIN", layout="sparse")
+    profile_train_step(torch, sparse_test, sparse_host, "CausalGIN", layout="sparse")
+    profile_captured_step(torch, sparse_test, sparse_host, "CausalGIN", layout="sparse")
     lap("causal_gin")
     # the GCN, GIN and GAT baselines: one short run each on both layouts
     baseline_launches = {}
@@ -4246,6 +4417,7 @@ def main() -> int:
     for line in at_scale:   # launches: main_real's run, the rows' main path at this N
         emit({**line, "launches": real_launches[REAL_COUNTER[line["name"]]]})
     profile_train_step(torch, real_graphs, real_host, "CausalGAT")
+    profile_captured_step(torch, real_graphs, real_host, "CausalGAT")
     lap("real_protocol")
     crossover_sweep(torch, flush)
     lap("gat_crossover")
@@ -4774,41 +4946,72 @@ def gat_main() -> int:
 
 
 def epoch_main() -> int:
-    """``--epoch``: the dense training path's step and epoch times, for an
-    A/B of two trees of the port (run this file from each tree's root with
-    ``PYTHONPATH`` set to it): builds the dense kernels, then for CausalGCN
-    and CausalGAT the training phase (``main_syn``, 3 epochs, the tree's
-    default path) and ``profile_train_step``, and where the tree has the
-    device-side epoch ``profile_captured_step`` and the captured-epoch
-    phase; then the benchmark's configs 1 and 2."""
+    """``--epoch``: the training paths' step and epoch times, for an A/B of
+    two trees of the port (run this file from each tree's root with
+    ``PYTHONPATH`` set to it).  Builds every kernel, then: dense CausalGCN
+    and CausalGAT at B 128, N 256 (``profile_train_step`` and, where the
+    tree has the device-side epoch, ``profile_captured_step``); sparse
+    CausalGCN, CausalGAT and CausalGIN on the canonical serving batch (V
+    31,744, E 128,000) and dense CausalGAT on the first SYNREDDIT batch (B
+    128, N 3,840, the edge kernel), each eager and, where the tree captures
+    that path, captured; ``main_real`` on SYNREDDIT, dense CausalGAT and
+    packed sparse CausalGCN (epoch seconds); the captured-epoch phase's
+    cases the tree supports; the benchmark's configs 1-3; and the serving
+    sweep's graphs/s (``serving_rates``, on the canonical test split)."""
     import torch
 
     if missing(torch):
         return 2
-    from cal_tpu_torch.data.loader import Loader
+    from cal_tpu_torch import graph
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
     from cal_tpu_torch.data.synthetic import dataset_bias_split, generate_synthetic_dataset
     from cal_tpu_torch.kernels import build
     from cal_tpu_torch.train import steps
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    build.build_all(["adj_build", "fused_gcn", "flash_gat"])
+    build.build_all()
     emit({"phase": "env", "root": HERE, "torch": torch.__version__,
           "build_seconds": time.perf_counter() - t0,
           "nvidia_smi": subprocess.run(
               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
               capture_output=True, text=True, timeout=60).stdout.strip()})
+    captured = hasattr(steps, "make_causal_train_epoch")
+    # the tree captures the sparse layout and the edge GAT (fixed-size lists)
+    captured_all = captured and hasattr(graph, "heavy_capacity")
     ds = generate_synthetic_dataset(data_num=DATA_NUM, seed=SEED)
     _, _, test_set, _ = dataset_bias_split(ds, bias=0.5, total=DATA_NUM * 4, seed=SEED)
-    captured = hasattr(steps, "make_causal_train_epoch")
+    host = next(Loader(test_set, B).host_batches())
     for model in ("CausalGCN", "CausalGAT"):
-        training_phase(torch, model)
-        host = next(Loader(test_set, B).host_batches())
         profile_train_step(torch, test_set, host, model)
         if captured:
             profile_captured_step(torch, test_set, host, model)
-            captured_epoch_phase(torch, model)
+    ds = generate_synthetic_dataset(data_num=SPARSE_DATA_NUM, seed=SEED)
+    _, _, sparse_test, _ = dataset_bias_split(ds, bias=0.5, total=SPARSE_DATA_NUM * 4,
+                                              seed=SEED)
+    del ds
+    serving_rates(torch, sparse_test)
+    sparse_host = next(Loader(sparse_test, B, layout="sparse").host_batches())
+    for model in ("CausalGCN", "CausalGAT", "CausalGIN"):
+        profile_train_step(torch, sparse_test, sparse_host, model, layout="sparse")
+        if captured_all:
+            profile_captured_step(torch, sparse_test, sparse_host, model, layout="sparse")
+    root, real_ds = real_data()
+    real_graphs = list(real_ds)
+    real_host = next(Loader(real_graphs, B, budgets=compute_budgets(real_graphs, B))
+                     .host_batches())
+    profile_train_step(torch, real_graphs, real_host, "CausalGAT")
+    if captured_all:
+        profile_captured_step(torch, real_graphs, real_host, "CausalGAT")
+    del real_host
+    real_epochs(torch, root, "CausalGAT", "dense")
+    real_epochs(torch, root, "CausalGCN", "sparse")
+    if captured:
+        for model, case in CAPTURE_CASES:
+            if case == "dense" or captured_all:
+                captured_epoch_phase(torch, model, case)
     bench_configs_12(torch)
+    bench_config_3(torch)
     return 0
 
 

@@ -6,6 +6,8 @@ without the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1301,6 +1303,28 @@ def test_gat_stats_and_chain_kernel_launches(cuda):
     assert "gat_chain_kernel" in names[0] and "csr_reduce_kernel" in names[1], names
 
 
+def test_gat_stats_and_chain_kernel_launches_from_a_seed_buffer(cuda):
+    """The same launches when the dropout seed is handed over as a train
+    step hands it, a seed buffer on the card: K9 and K9T one kernel a call,
+    K10 two."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 300, seed=21, isolated=7)
+    xh, _, ti, tj, w, dD = _gat_inputs(cuda, v, 4, 128, "bfloat16", 21)
+    seed = seed_buffer(GAT_WORDS[0] | GAT_WORDS[1] << 32, cuda)
+    m = gs.gat_row_stats_plain(tj, ti, g)[0]
+    for fn, xin in ((gs.gat_coef_spmm, xh.reshape(v, 128)), (gs.gat_coef_spmm_t, w)):
+        names = _device_kernels(lambda: fn(xin, tj, ti, m, seed, 0.2, g))
+        assert len(names) == 1 and "csr_spmm_kernel" in names[0], names
+        assert "GatSpmm" in names[0], names
+    names = _device_kernels(
+        lambda: gs.gat_sddmm_chain(xh.reshape(v, 128), w, tj, ti, m, dD, seed, 0.2, g))
+    assert len(names) == 2, names
+    assert "gat_chain_kernel" in names[0] and "csr_reduce_kernel" in names[1], names
+
+
 def test_gat_sparse_keep_bits_match_twin(cuda):
     """With zero logits every live weight is 1: K9 on ones counts each
     receiver's kept (edge, head) pairs and K9T each sender's, which must
@@ -2299,6 +2323,218 @@ def test_captured_epoch_matches_eager_steps(cuda, model):
                 m = None
                 for s in range(stacked.steps):
                     m = step.on_device(stacked.at(s), m)
+            else:
+                m = epoch(stacked)
+            sums.append(m.tolist())
+        out[kind] = (state, sums, {f.__name__: f.launches - before[f] for f in counters})
+    (se, sums_e, le), (sc, sums_c, lc) = out["eager"], out["captured"]
+    assert sums_e == sums_c and le == lc
+    assert all(torch.equal(a, b) for a, b in zip(se.model.parameters(), sc.model.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(se.model.buffers(), sc.model.buffers()))
+
+
+# ---- the walk's heavy lists at a fixed capacity (captured steps) ----------
+def _cut(csr):
+    """The CSR with its heavy lists and arrival counters cut to the live
+    count (at least one entry) and chunk_row to the live chunks: a launch's
+    grid is then the size the batch needs, as before the lists had a fixed
+    capacity."""
+    n = max(csr.n_heavy, 1)
+    return dataclasses.replace(csr, chunk_row=csr.chunk_row[:csr.num_chunks].clone(),
+                               heavy_chunks=csr.heavy_chunks[:n].clone(),
+                               heavy_masked=csr.heavy_masked[:n].clone(),
+                               arrivals=csr.arrivals[:n].clone())
+
+
+def _walk_outputs(g, x, src, dst, tj, ti, dD, w, seed, rate=0.2):
+    """K1 (the pair's degrees), the plain conv's degree, K2, K3 and K5 / K6
+    (the pair aggregate and its backward), K8-K10 (the GAT aggregate's
+    kernels, dropout from ``seed``), K11 and K21 over g."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops import spmm
+
+    out = list(spmm.pair_sender_degree(src, dst, g, norm=True))
+    out += list(spmm.plain_sender_degree(g))
+    xc = x.detach().requires_grad_()
+    oc, oo = spmm.gcn_aggregate_sparse_pair(xc, x, src, dst, g)
+    out += [oc, oo, spmm.gcn_aggregate_sparse_plain(x, g)]
+    out += list(torch.autograd.grad((oc.float() ** 2).sum() + oo.float().sum(), xc))
+    m, den = gs.gat_row_stats(tj, ti, g)
+    xf = x.float()
+    out += [m, den, gs.gat_coef_spmm(x, tj, ti, m, seed, rate, g),
+            gs.gat_coef_spmm_t(xf, tj, ti, m, seed, rate, g),
+            *gs.gat_sddmm_chain(x, w, tj, ti, m, dD, seed, rate, g)]
+    out += [coo.coo_spmm(x, g.edge_mask.float(), g),
+            coo.segment_max(dD[:, g.senders.long()].contiguous(), g)]
+    return out
+
+
+def _walk_inputs(device, v, h=128, heads=4, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)
+    return (rand(v, h).to(torch.bfloat16), rand(v).to(torch.bfloat16),
+            rand(v).to(torch.bfloat16), rand(heads, v), rand(heads, v), rand(heads, v),
+            rand(v, h))
+
+
+def test_walk_kernels_on_a_padded_csr_equal_the_cut_launch(cuda):
+    """Every walk kernel family launched over both CSRs in their padded form
+    (heavy lists of heavy_capacity(E) entries, the live count read on the
+    card, the grid sized for the capacity) gives the bits of the launch over
+    the lists cut to their live prefixes, and leaves the arrival counters
+    at 0."""
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+
+    v = 3000
+    g = _sparse_graph(cuda, v, 6000, (32, 33, 2100), 2500, seed=41, isolated=7)
+    assert g.recv.heavy_chunks.shape[0] > g.recv.n_heavy > 0
+    cut = dataclasses.replace(g, recv=_cut(g.recv), send=_cut(g.send))
+    ins = _walk_inputs(cuda, v)
+    seed = seed_buffer(0x0123_4567_89AB_CDEF, cuda)
+    got = _walk_outputs(g, *ins, seed)
+    ref = _walk_outputs(cut, *ins, seed)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref, strict=True)):
+        assert torch.equal(a, b), i
+    for c in (g.recv, g.send, cut.recv, cut.send):
+        assert not c.arrivals.any()
+
+
+def _two_budget_graphs(device):
+    """Two batches of one shape (V 3,000, E 10,630) whose heavy lists differ:
+    hubs of 2,100 and 1,000 edges, padded runs of 300 and 2,498 edges."""
+    a = _sparse_graph(device, 3000, 6000, (32, 33, 2100), 300, seed=51, isolated=7)
+    b = _sparse_graph(device, 3000, 6000, (33, 33, 1000), 2498, seed=52, isolated=7)
+    assert [t.shape for t in a.leaves()] == [t.shape for t in b.leaves()]
+    assert (a.recv.n_heavy, a.send.n_heavy) != (b.recv.n_heavy, b.send.n_heavy)
+    return a, b
+
+
+def test_captured_walk_replays_on_the_batch_in_its_buffers(cuda):
+    """K1 and K8-K10 captured in a CUDA graph over static buffers holding
+    batch A, then replayed after batch B is copied into them: the replay
+    gives the eager launches' bits on B (the heavy count and the dropout
+    seed are read on the card at each replay), then A's again, and every
+    arrival counter is 0 after each replay."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops import spmm
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+
+    a, b = _two_budget_graphs(cuda)
+    x, src, dst, tj, ti, dD, w = _walk_inputs(cuda, a.num_nodes)
+    static = a.with_leaves([t.clone() for t in a.leaves()])
+    seed = seed_buffer(11, cuda)
+
+    def run(g):
+        m, den = gs.gat_row_stats(tj, ti, g)
+        return [*spmm.pair_sender_degree(src, dst, g, norm=True), m, den,
+                gs.gat_coef_spmm(x, tj, ti, m, seed, 0.2, g),
+                gs.gat_coef_spmm_t(w, tj, ti, m, seed, 0.2, g),
+                *gs.gat_sddmm_chain(x, w, tj, ti, m, dD, seed, 0.2, g)]
+
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = run(static)
+    for g, s in ((b, 23), (a, 11), (b, 11)):
+        for dst_t, src_t in zip(static.leaves(), g.leaves()):
+            dst_t.copy_(src_t)
+        seed.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not static.recv.arrivals.any() and not static.send.arrivals.any()
+        want = run(g)
+        torch.cuda.synchronize()
+        for i, (got, ref) in enumerate(zip(out, want, strict=True)):
+            assert torch.equal(got, ref), (s, i)
+
+
+def test_sparse_and_edge_keep_bits_from_a_seed_buffer(cuda):
+    """K9, K9T and K10 draw the same keep bits from a seed buffer as from
+    the seed's two words, and the edge GAT's forward and backward the same
+    as from the int seed; a buffer rewritten between launches draws the new
+    seed's bits."""
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops.edge_gat import edge_gat_bwd, edge_gat_fwd
+    from cal_tpu_torch.ops.flash_gat import seed_buffer
+    from cal_tpu_torch.ops.gat import seed_words
+
+    g = _sparse_graph(cuda, 1000, 4000, 700, 300, seed=61, isolated=7)
+    xh, _, ti, tj, w, dD = _gat_inputs(cuda, 1000, 4, 128, "bfloat16", 61)
+    x = xh.reshape(1000, 128)
+    m = gs.gat_row_stats(tj, ti, g)[0]
+    seed = 0xFEDC_BA98_7654_3210
+    buf = seed_buffer(seed, cuda)
+
+    def sparse(words):
+        return [gs.gat_coef_spmm(x, tj, ti, m, words, 0.2, g),
+                gs.gat_coef_spmm_t(w, tj, ti, m, words, 0.2, g),
+                *gs.gat_sddmm_chain(x, w, tj, ti, m, dD, words, 0.2, g)]
+
+    for a, b in zip(sparse(seed_words(seed)), sparse(buf), strict=True):
+        assert torch.equal(a, b)
+    ef, eti, etj, exh, eg = _edge_inputs(cuda, 4, 384, 4, 128, 900, 1500, "bfloat16", 61)
+
+    def edge(s):
+        out, stats = edge_gat_fwd(eti, etj, exh, ef, s, 0.2, with_stats=True)
+        return [out, *edge_gat_bwd(eti, etj, exh, ef, eg, s, 0.2, stats=stats)]
+
+    for a, b in zip(edge(seed), edge(buf), strict=True):
+        assert torch.equal(a, b)
+    buf.fill_(12345)
+    for a, b in zip(sparse(seed_words(12345)), sparse(buf), strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(edge(12345), edge(buf), strict=True):
+        assert torch.equal(a, b)
+    assert not torch.equal(edge(seed)[0], edge(buf)[0])
+
+
+@pytest.mark.parametrize("model", ["CausalGCN", "CausalGAT", "GIN"])
+def test_sparse_captured_epoch_matches_eager_steps(cuda, model):
+    """On the sparse layout (packed batches, so pad steps in each stack, and
+    batches whose heavy-chunk counts differ), the device-side epoch against
+    the eager steps from one state, bit for bit: parameters, BatchNorm
+    statistics and each epoch's sums; the counted launches agree."""
+    from cal_tpu_torch.data.loader import Loader, compute_budgets
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+    from cal_tpu_torch.train import steps as st
+    from cal_tpu_torch.train.graphs import launch_counters
+    from cal_tpu_torch.train.optim import cosine_lr
+    from cal_tpu_torch.utils.config import Config
+
+    cfg = Config(model=model, hidden=32, layers=2, batch_size=8, dtype="bfloat16", seed=5,
+                 num_classes=2)
+    graphs = reddit_graphs(40, seed=5, feat=4)
+    loader = Loader(graphs, 8, shuffle=True, seed=5, layout="sparse",
+                    budgets=compute_budgets(graphs, 8, "sparse", pack=True))
+    stacks = [st.ship(st.stack_batches_host(list(loader.host_batches())), cuda)
+              for _ in range(3)]
+    assert all(not s.real.all() for s in stacks)
+    assert all(len(set(s.batch.recv.heavy_count[:, 0].tolist())) > 1 for s in stacks)
+    schedule = cosine_lr(cfg.lr, cfg.min_lr, 10, loader.schedule_steps)
+    out = {}
+    for kind in ("eager", "captured"):
+        state = st.init_state(cfg, graphs[0].x.shape[1], cfg.num_classes, cuda)
+        if model == "GIN":
+            step = st.make_baseline_train_step(state, schedule, cfg.seed)
+            epoch = st.make_baseline_train_epoch(state, schedule, cfg.seed)
+        else:
+            args = (state, schedule, cfg.c, cfg.o, cfg.co, cfg.with_random, cfg.seed)
+            step, epoch = st.make_causal_train_step(*args), st.make_causal_train_epoch(*args)
+        counters = launch_counters()
+        before = {f: f.launches for f in counters}
+        sums = []
+        for stacked in stacks:
+            if kind == "eager":
+                m = None
+                for s in range(stacked.steps):
+                    if stacked.real[s]:
+                        m = step.on_device(stacked.at(s), m)
             else:
                 m = epoch(stacked)
             sums.append(m.tolist())

@@ -1,9 +1,11 @@
 """The port's device-side epoch on the CPU (``--scan_epochs true``): the
-trainers against cal_tpu's scanned epochs, against the port's own per-step
-loop (bit for bit), the epoch prefetcher (the loader's shuffle stream, a
-producer's exception, no epoch past the count, the threads joined), the
-line that names ROADMAP item 13b where the per-step loop stays, and the
-flash kernel's seed buffer against the int seed.
+trainers against cal_tpu's scanned epochs (dense and sparse), against the
+port's own per-step loop (bit for bit) on both layouts, every model, the
+packed real-data protocol and a dense GAT on the edge kernel, the serving
+sweep through the eval epoch against the per-batch sweep, the epoch
+prefetcher (the loader's shuffle stream, a producer's exception, no epoch
+past the count, the threads joined), and the flash kernel's seed buffer
+against the int seed.
 
 Small sizes (hidden 32, 2 layers, batch 16, 2-3 epochs); cal_tpu's trainers
 run their scanned epochs with the Pallas kernels in interpret mode, the
@@ -34,10 +36,11 @@ from cal_tpu_torch.ops.flash_gat import (
     seed_value,
 )
 from cal_tpu_torch.train.baseline import train_baseline_syn
+from cal_tpu_torch.graph import HostGraph
 from cal_tpu_torch.train.causal import (
     _EpochPrefetcher,
     _epoch_prefetcher,
-    scan_blocker,
+    evaluate_causal,
     train_causal_real,
     train_causal_syn,
 )
@@ -253,30 +256,123 @@ def test_prefetcher_close_mid_epoch_stops_both_threads():
     assert threading.active_count() >= 1
 
 
-@pytest.mark.parametrize("cfg,why", [
-    (dict(layout="sparse", model="CausalGCN"), "the sparse layout"),
-    (dict(model="CausalGAT", batch_size=8), "a dense GAT on the edge kernel (N = 384)"),
-    (dict(model="GAT", batch_size=8), "a dense GAT on the edge kernel (N = 384)"),
-    (dict(model="CausalGCN", batch_size=8), None),
-    (dict(model="CausalGAT", batch_size=8, node=256), None),
-])
-def test_scan_blocker_names_item_13b_paths(cfg, why):
-    """The sparse layout and a dense GAT at N >= 384 keep the per-step loop;
-    dense CausalGCN at any N and a flash-kernel GAT take the epoch."""
-    node = cfg.pop("node", 384)
-    budgets = {"node_budget": node, "edge_per_graph": 64}
-    assert scan_blocker(Config(**cfg), budgets) == why
-
-
-def test_sparse_scan_prints_the_13b_line(capsys):
-    """``--scan_epochs true`` on the sparse layout trains with the per-step
-    loop and says so once."""
+@pytest.mark.parametrize("model", ["CausalGCN", "CausalGIN", "CausalGAT", "GCN", "GIN", "GAT"])
+def test_sparse_scan_equals_per_step_loop(model, one_thread):
+    """On the sparse layout, ``scan_epochs`` true and false give the same
+    history and selection, bit for bit, for every model (the intervention
+    shuffle and the GAT dropouts on)."""
     train, val, test = _tiny_split("torch")
-    train_causal_syn(train, val, test, Config(model="CausalGCN", device="cpu", layout="sparse",
-                                              epochs=1, batch_size=16, hidden=16, layers=1),
-                     verbose=False)
-    out = capsys.readouterr().out
-    assert out.count("keeps the per-step loop (its capture is ROADMAP queue 1 item 13b)") == 1
+    kw = dict(model=model, device="cpu", layout="sparse", **SMALL)
+    fn = train_baseline_syn if model in ("GCN", "GIN", "GAT") else train_causal_syn
+    on = fn(train, val, test, Config(scan_epochs=True, **kw), verbose=False)
+    off = fn(train, val, test, Config(scan_epochs=False, **kw), verbose=False)
+    assert _without_seconds(on["history"]) == _without_seconds(off["history"])
+    assert {k: v for k, v in on.items() if k != "history"} == {
+        k: v for k, v in off.items() if k != "history"}
+
+
+def test_packed_real_protocol_scan_equals_per_step_loop(one_thread):
+    """``train_causal_real`` on packed sparse batches (2 folds x 2 epochs,
+    CausalGCN): the device-side epoch, whose stacks end with pad batches
+    that it skips on the host, against the per-step loop, bit for bit."""
+    train, val, test = _tiny_split("torch")
+    graphs = list(train) + list(val) + list(test)
+    kw = dict(model="CausalGCN", device="cpu", folds=2, epochs=2, batch_size=16, hidden=32,
+              layers=2, lr=0.01, seed=3, layout="sparse", pack_batches="true")
+    stacks = []
+    with mock.patch("cal_tpu_torch.train.causal.stack_batches_host",
+                    side_effect=lambda b: stacks.append(stack_batches_host(b)) or stacks[-1]):
+        on = train_causal_real(graphs, 4, Config(scan_epochs=True, **kw), verbose=False)
+    off = train_causal_real(graphs, 4, Config(scan_epochs=False, **kw), verbose=False)
+    assert _without_seconds(on["history"]) == _without_seconds(off["history"])
+    assert any(not st.real.all() for st in stacks)
+
+
+def _edge_gat_graphs(count=6, seed=0, feat=6):
+    """Graphs that pad to N = 384 with sparse edges (a duplicate and a self
+    loop each): a dense GAT's convs take the edge kernel."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = 384 if i % 3 == 0 else int(rng.integers(100, 384))
+        e = int(rng.integers(n // 2, n))
+        s, r = rng.integers(0, n, e).astype(np.int32), rng.integers(0, n, e).astype(np.int32)
+        s[:2], r[:2] = s[2:4], r[2:4]
+        r[5] = s[5]
+        out.append(HostGraph(x=rng.standard_normal((n, feat)).astype(np.float32),
+                             senders=np.concatenate([s, r]), receivers=np.concatenate([r, s]),
+                             y=int(rng.integers(2))))
+    return out
+
+
+def test_dense_edge_gat_scan_equals_per_step_loop(one_thread):
+    """Dense CausalGAT at N = 384, its convs on the edge kernel (the batch's
+    EdgeIndex built inside each step): the device-side epoch against the
+    per-step loop, bit for bit, attention dropout on."""
+    import cal_tpu_torch.nn.layers as layers_mod
+
+    graphs = _edge_gat_graphs(12)
+    kw = dict(model="CausalGAT", device="cpu", epochs=2, batch_size=4, hidden=16, layers=1,
+              lr=0.01, seed=3, num_classes=2)
+    spy = mock.patch.object(layers_mod, "edge_gat_dense_flat",
+                            wraps=layers_mod.edge_gat_dense_flat)
+    with spy as edge:
+        on = train_causal_syn(graphs[:6], graphs[6:9], graphs[9:],
+                              Config(scan_epochs=True, **kw), verbose=False)
+    assert edge.call_count > 0
+    off = train_causal_syn(graphs[:6], graphs[6:9], graphs[9:],
+                           Config(scan_epochs=False, **kw), verbose=False)
+    assert _without_seconds(on["history"]) == _without_seconds(off["history"])
+    assert {k: v for k, v in on.items() if k != "history"} == {
+        k: v for k, v in off.items() if k != "history"}
+
+
+def test_train_causal_syn_sparse_scan_matches_jax_scan(tmp_path):
+    """Sparse CausalGCN, f32, without the intervention shuffle, from
+    cal_tpu's initial weights: the port's device-side epoch against
+    cal_tpu's scanned sparse epoch (its node budget below 2048, so without
+    tile plans), per-epoch losses within 1e-4 and the same selection."""
+    kw = dict(model="CausalGCN", with_random=False, layout="sparse", **SMALL)
+    jtrain, jval, jtest = _tiny_split("jax")
+    init, patch = _record_init(jax_causal_mod)
+    with patch:
+        ref = jax_train_causal_syn(jtrain, jval, jtest, JaxConfig(
+            scan_epochs=True, metrics_path=str(tmp_path / "jax.jsonl"), **kw), verbose=False)
+    ref_losses = [r["loss"] for r in map(json.loads, open(tmp_path / "jax.jsonl"))
+                  if r["event"] == "epoch"]
+    train, val, test = _tiny_split("torch")
+    budgets = compute_budgets(list(train) + list(val) + list(test), SMALL["batch_size"],
+                              "sparse")
+    assert budgets["node_budget"] < 2048
+    with mock.patch.object(steps_mod, "get_model", _causal_jax_weights(init)):
+        res = train_causal_syn(train, val, test, Config(device="cpu", scan_epochs=True, **kw),
+                               verbose=False)
+    np.testing.assert_allclose([h["loss"] for h in res["history"]], ref_losses, rtol=1e-4)
+    for k in ("best_val_acc", "test_acc_co", "test_acc_c", "test_acc_o", "epoch"):
+        assert res[k] == pytest.approx(ref[k], abs=1e-12), k
+
+
+@pytest.mark.parametrize("model,layout,pack", [("CausalGCN", "dense", "auto"),
+                                               ("CausalGAT", "sparse", "auto"),
+                                               ("CausalGIN", "sparse", "true")])
+def test_evaluate_causal_eval_epoch_equals_per_batch_sweep(model, layout, pack, tmp_path,
+                                                           one_thread):
+    """Serving a checkpoint (``evaluate_causal``) through the eval epoch
+    over the test set's stack (``--scan_epochs true``) gives the per-batch
+    sweep's accuracies and graph count, with the intervention on."""
+    from cal_tpu_torch.models.factory import get_model
+    from cal_tpu_torch.utils.checkpoint import Checkpointer
+
+    _, _, test = _tiny_split("torch")
+    cfg = Config(model=model, device="cpu", layout=layout, pack_batches=pack, batch_size=16,
+                 hidden=32, layers=2, seed=3, eval_random=True, save_dir=str(tmp_path))
+    Checkpointer(str(tmp_path)).save(1, get_model(cfg, test[0].x.shape[1], cfg.num_classes),
+                                     {"epoch": 1})
+    on = evaluate_causal(test, cfg.replace(scan_epochs=True))
+    off = evaluate_causal(test, cfg.replace(scan_epochs=False))
+    assert on["graphs"] == off["graphs"] == len(test)
+    for k in ("test_acc_co", "test_acc_c", "test_acc_o", "ckpt_step"):
+        assert on[k] == off[k], k
 
 
 @pytest.mark.parametrize("seed", [0, 0x9E3779B97F4A7C15, 2**63 - 1, 2**64 - 1, 12345])

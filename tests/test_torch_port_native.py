@@ -85,8 +85,8 @@ def test_sparse_pack_matches_numpy_and_cal_tpu(idx):
               "graph_mask"):
         _equal(getattr(got, k), getattr(ref, k), k)
     for orient in ("recv", "send"):
-        for k in ("ptr", "chunk_ptr", "chunk_row", "heavy_chunks", "heavy_masked", "arrivals",
-                  "perm"):
+        for k in ("ptr", "chunk_ptr", "chunk_row", "heavy_chunks", "heavy_masked", "heavy_count",
+                  "arrivals", "perm"):
             a, b = getattr(getattr(got, orient), k), getattr(getattr(ref, orient), k)
             assert (a is None) == (b is None), (orient, k)
             if a is not None:

@@ -107,7 +107,7 @@ def test_sparse_host_batches_match_jax(bs, shuffle):
         v = tb.num_nodes
         for csr_t, csr_r in ((tb.recv, ref.recv), (tb.send, ref.send)):
             for f in ("ptr", "chunk_ptr", "chunk_row", "heavy_chunks", "heavy_masked",
-                      "arrivals", "perm"):
+                      "heavy_count", "arrivals", "perm"):
                 a, b = getattr(csr_t, f), getattr(csr_r, f)
                 assert (a is None) == (b is None)
                 if a is not None:
@@ -208,7 +208,7 @@ def test_sender_degree_norm_matches_pair_stats(dtype):
     bit."""
     rng = np.random.default_rng(5)
     g, _, (src, dst) = _workload(rng, send_hub=120)
-    assert g.send.heavy_chunks.size > g.recv.heavy_chunks.size   # the hub sender
+    assert g.send.n_heavy > g.recv.n_heavy   # the hub sender
     bf16 = dtype == "bfloat16"
     tf, _ = _plans(g, "bf16" if bf16 else "f32")
     v = g.num_nodes
@@ -453,11 +453,33 @@ def test_reddit_threads_match_the_benchmark_generator():
         assert all((v, u) in pairs for u, v in pairs)
 
 
+def _live_lists(csr):
+    """(heavy_chunks, heavy_masked, chunk_row): the live prefixes."""
+    n = csr.n_heavy
+    return csr.heavy_chunks[:n], csr.heavy_masked[:n], csr.chunk_row[:csr.num_chunks]
+
+
 def _assert_walk_lists(csr, v, edge_mask=None):
     """EdgeCsr's heavy list: the chunks of the rows of more than one, so
     that the light rows (one chunk each, taken by row) and the listed chunks
     cover every row exactly once; heavy_masked marks the listed chunks whose
-    edges are all masked out (none without a mask)."""
+    edges are all masked out (none without a mask).  The lists are padded
+    to lengths fixed by the edge count alone (heavy_capacity), with zeros
+    past the live count, which heavy_count holds."""
+    from cal_tpu_torch.graph import heavy_capacity
+
+    cap = heavy_capacity(int(csr.ptr[-1]))
+    assert csr.heavy_chunks.shape == csr.heavy_masked.shape == csr.arrivals.shape == (cap,)
+    assert csr.chunk_row.shape == (v + cap,) and csr.heavy_count.shape == (1,)
+    assert csr.heavy_count.dtype == np.int32 and 0 <= csr.n_heavy <= cap
+    assert csr.num_chunks == csr.chunk_ptr[-1]
+    for pad in (csr.heavy_chunks[csr.n_heavy:], csr.heavy_masked[csr.n_heavy:],
+                csr.chunk_row[csr.num_chunks:]):
+        assert not pad.any()
+    full = csr
+    heavy_chunks, heavy_masked, chunk_row = _live_lists(csr)
+    csr = dataclasses.replace(csr, heavy_chunks=heavy_chunks, heavy_masked=heavy_masked,
+                              chunk_row=chunk_row)
     chunks = np.diff(csr.chunk_ptr)
     heavy_rows = np.unique(csr.chunk_row[csr.heavy_chunks])
     np.testing.assert_array_equal(heavy_rows, np.flatnonzero(chunks > 1))
@@ -486,7 +508,7 @@ def _assert_walk_lists(csr, v, edge_mask=None):
         want.append(not live[beg:min(beg + span, csr.ptr[r + 1])].any())
     np.testing.assert_array_equal(csr.heavy_masked, np.array(want, bool))
     assert csr.heavy_masked.dtype == bool
-    np.testing.assert_array_equal(csr.arrivals, np.zeros(csr.heavy_chunks.size, np.int32))
+    np.testing.assert_array_equal(full.arrivals, np.zeros(cap, np.int32))
 
 
 @pytest.mark.parametrize("bs,orientation", [(4, "recv"), (4, "send"), (16, "recv"),
@@ -501,7 +523,7 @@ def test_walk_heavy_lists_on_reddit_batches(bs, orientation):
     for b in Loader(graphs, bs, layout="sparse").host_batches():
         csr = getattr(b, orientation)
         _assert_walk_lists(csr, b.num_nodes, b.edge_mask)
-        assert csr.heavy_chunks.size > 0
+        assert csr.n_heavy > 0
         t = csr.to("cpu")
         assert t.heavy_chunks.dtype == torch.int32 and t.heavy_masked.dtype == torch.bool
         np.testing.assert_array_equal(t.heavy_chunks.numpy(), csr.heavy_chunks)
@@ -521,10 +543,11 @@ def test_walk_heavy_lists_by_row_length(lengths):
     for mask in (None, np.arange(rows.size) % 97 < 90):
         csr = edge_csr(rows, len(counts) + 1, None, mask)
         _assert_walk_lists(csr, len(counts) + 1, mask)
-        assert np.unique(csr.chunk_row[csr.heavy_chunks]).tolist() == [
+        heavy_chunks, _, chunk_row = _live_lists(csr)
+        assert np.unique(chunk_row[heavy_chunks]).tolist() == [
             2 * i for i, n in enumerate(lengths) if n > CHUNK_EDGES]
         assert (np.diff(csr.chunk_ptr) <= MAX_CHUNKS).all()
-    assert (csr.heavy_masked.size == 0) == (csr.heavy_chunks.size == 0)
+    assert (csr.n_heavy == 0) == all(n <= CHUNK_EDGES for n in lengths)
 
 
 def test_walk_masks_the_padded_run():
@@ -534,6 +557,127 @@ def test_walk_masks_the_padded_run():
     b = batch_graphs(graphs, 6, 400, 2000)
     for csr in (b.recv, b.send):
         _assert_walk_lists(csr, b.num_nodes, b.edge_mask)
-        last = csr.chunk_row[csr.heavy_chunks] == b.num_nodes - 1
-        assert last.sum() > 1 and csr.heavy_masked[last].all()
-        assert not csr.heavy_masked[~last].any()
+        heavy_chunks, heavy_masked, chunk_row = _live_lists(csr)
+        last = chunk_row[heavy_chunks] == b.num_nodes - 1
+        assert last.sum() > 1 and heavy_masked[last].all()
+        assert not heavy_masked[~last].any()
+
+
+def _unpadded(csr):
+    """The CSR as edge_csr built it before its lists had a fixed capacity:
+    the heavy lists and the arrival counters cut to the live count (at
+    least one entry) and chunk_row to the live chunks."""
+    n = max(csr.n_heavy, 1)
+    return dataclasses.replace(csr, chunk_row=csr.chunk_row[:csr.num_chunks],
+                               heavy_chunks=csr.heavy_chunks[:n],
+                               heavy_masked=csr.heavy_masked[:n], arrivals=csr.arrivals[:n])
+
+
+def _walk_twin_calls():
+    """name -> fn(g, rng): the outputs of every plain twin of the walk
+    (K1, the plain conv's degree, K2/K3 and their transposed modes, K5, K6,
+    K13-K16, K8-K10, K11/K11T, K12, K19/K19T, K20, K21) on graph g, with
+    inputs drawn from rng."""
+    from cal_tpu_torch.ops import coo_spmm as coo
+    from cal_tpu_torch.ops import gat_sparse as gs
+    from cal_tpu_torch.ops import spmm
+
+    def inputs(g, rng, h=16, heads=2):
+        v, e = g.num_nodes, int(g.senders.shape[0])
+        t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return v, e, h, heads, t
+
+    def degree(g, rng):
+        v, *_, t = inputs(g, rng)
+        return [*spmm.pair_sender_degree_plain(t(v), t(v), g, norm=True),
+                *spmm.plain_sender_degree_plain(g)]
+
+    def pair(g, rng):
+        v, e, h, _, t = inputs(g, rng)
+        src, dst = t(v), t(v)
+        deg, dis = spmm.pair_sender_degree_plain(src, dst, g, norm=True)
+        xs, gs_ = [t(v, h), t(v, h)], [t(v, h), t(v, h)]
+        vec, ddis_s, ddis_r = spmm.pair_sddmm_chain_plain(*xs, *gs_, src, dst, dis, g)
+        return (spmm.coef_spmm_plain(xs, src, dst, deg, dis, g)
+                + spmm.coef_spmm_plain(gs_, src, dst, deg, dis, g, transpose=True)
+                + [vec, ddis_s, ddis_r, *spmm.pair_dpre_plain(vec, t(2, v), g)])
+
+    def sigmoid(g, rng):
+        v, e, h, _, t = inputs(g, rng)
+        x, gout, src, dst = t(v, h), t(v, h), t(v), t(v)
+        deg, dis = spmm.sigmoid_sender_degree_plain(src, dst, g, negate=True)
+        vec, ddis_s, ddis_r = spmm.sigmoid_sddmm_chain_plain(x, gout, src, dst, dis, g, True)
+        return [deg, dis, spmm.sigmoid_coef_spmm_plain(x, src, dst, deg, dis, g, True),
+                spmm.sigmoid_coef_spmm_plain(gout, src, dst, deg, dis, g, True, transpose=True),
+                vec, ddis_s, ddis_r, *spmm.sigmoid_dpre_plain(vec, t(v), g, True)]
+
+    def gat(g, rng):
+        v, e, h, heads, t = inputs(g, rng)
+        tj, ti, dD = t(heads, v), t(heads, v), t(heads, v)
+        x, w = t(v, h), t(v, h)
+        m, den = gs.gat_row_stats_plain(tj, ti, g)
+        words = (0x9E3779B9, 0x7F4A7C15)
+        return [m, den, gs.gat_coef_spmm_plain(x, tj, ti, m, words, 0.2, g),
+                gs.gat_coef_spmm_plain(w, tj, ti, m, words, 0.2, g, transpose=True),
+                *gs.gat_sddmm_chain_plain(x, w, tj, ti, m, dD, words, 0.2, g)]
+
+    def coo_rows(g, rng):
+        v, e, h, heads, t = inputs(g, rng)
+        x, gout = t(v, h), t(v, h)
+        return [coo.coo_spmm_plain(x, t(e), g), coo.coo_spmm_t_plain(gout, t(e), g),
+                coo.coo_sddmm_plain(x, gout, g), coo.coo_spmm_plain(x, t(e, heads), g),
+                coo.coo_spmm_t_plain(gout, t(e, heads), g),
+                coo.coo_sddmm_plain(x, gout, g, heads), coo.segment_max_plain(t(3, e), g)]
+
+    return {"K1_degree": degree, "K2_K3_K5_K6": pair, "K13_K16": sigmoid,
+            "K8_K10": gat, "K11_K12_K19_K21": coo_rows}
+
+
+@pytest.mark.parametrize("name", list(_walk_twin_calls()))
+def test_padded_csr_equals_unpadded_under_the_walk_twins(name):
+    """Every plain twin of the walk gives the same bits on a REDDIT-shaped
+    batch (hub rows, the padded run at V-1) with its CSRs in their padded
+    form (heavy lists of heavy_capacity(E) entries, chunk_row of V +
+    heavy_capacity(E)) and cut to their live prefixes."""
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+
+    graphs = reddit_graphs(6, seed=9, feat=3)
+    padded = next(Loader(graphs, 6, layout="sparse").host_batches()).to("cpu")
+    assert padded.recv.n_heavy > 0 and padded.send.n_heavy > 0
+    assert padded.recv.heavy_chunks.shape[0] > padded.recv.n_heavy
+    cut = dataclasses.replace(padded, recv=_unpadded(padded.recv), send=_unpadded(padded.send))
+    fn = _walk_twin_calls()[name]
+    got = fn(padded, np.random.default_rng(3))
+    ref = fn(cut, np.random.default_rng(3))
+    assert len(got) == len(ref) > 0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_stack_and_ship_round_trip_a_graph_batch_epoch():
+    """A sparse epoch (packed, so with its pad batches) stacked on the host
+    and shipped: every step's batch equals the loader's, leaf for leaf
+    (both CSRs' padded lists and heavy counts included), the gate holds the
+    real steps, and the heavy counts differ between steps."""
+    from cal_tpu_torch.data.reddit_synthetic import reddit_graphs
+    from cal_tpu_torch.train.steps import has_real_graph, ship, stack_batches_host
+
+    graphs = reddit_graphs(24, seed=4, feat=3)
+    loader = Loader(graphs, 8, shuffle=True, layout="sparse", seed=2,
+                    budgets=compute_budgets(graphs, 8, "sparse", pack=True))
+    batches = list(loader.host_batches())
+    stacked = stack_batches_host(batches)
+    assert stacked.steps == len(batches) == len(loader)
+    np.testing.assert_array_equal(stacked.real, [has_real_graph(b) for b in batches])
+    assert not stacked.real.all() and stacked.real.any()
+    assert len(set(np.asarray(stacked.batch.recv.heavy_count)[:, 0].tolist())) > 1
+    shipped = ship(stacked, torch.device("cpu"))
+    assert all(isinstance(t, torch.Tensor) for t in shipped.leaves())
+    for s, b in enumerate(batches):
+        got = shipped.at(s)
+        assert got.num_nodes == b.num_nodes and got.num_graphs == b.num_graphs
+        assert len(got.leaves()) == len(b.leaves()) == 8 + 7 + 8
+        for a, want in zip(got.leaves(), b.leaves()):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="one layout"):
+        stack_batches_host(batches[:1] + [next(Loader(graphs, 8).host_batches())])
